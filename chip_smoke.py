@@ -1,0 +1,552 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port starts and is right on the GPU.
+
+    python3 chip_smoke.py                  # everything, needs one NVIDIA card
+    python3 chip_smoke.py --kernels-only   # phases 1-3: build and check kernels
+
+Phases, each of which fails the run (non-zero exit) on any error:
+
+1. device: a CUDA card must be there; its name and power limit are printed.
+2. build: every CUDA source of `src/repro_torch/kernels/csrc/` is compiled.
+3. kernels: each kernel's wrapper against its plain PyTorch version on the
+   card, at the reference test shapes and at the full-width serve shapes
+   (bf16, G=8, D=128). Inputs are drawn so that the logits have a standard
+   deviation of about 2: the softmax is peaked, both products matter and the
+   outputs are of order 0.1 to 1. fp32 is held to atol 2e-5 / rtol 1e-4;
+   bf16 to one bf16 step of the value (rtol 1e-2, atol 1e-4), to which
+   flash, whose P is rounded to bf16, adds the worst that rounding can do,
+   2^-8 of sum_i p_i |v_i| (taken as 5e-3 of it). Each is timed
+   with CUDA events beside its plain version and one
+   `scaled_dot_product_attention` call (a yardstick only: the port never
+   calls it), and its bound is computed from the run's inputs. Then seeded
+   random shapes through both kernels, and the KV offload class alone: pages
+   through a small window on the side streams.
+4. slice: `repro_torch.launch.serve` serves qwen2.5-3b at full width with
+   `--use-kernels --offload-kv`; offloaded tokens must equal the baseline's,
+   the launch counters must show the kernels carried the run, and prefill
+   logits with kernels must agree with the plain path.
+5. one JSON line listing the kernels, then the device line, then the verdict.
+
+Imports `torch` and `repro_torch` only. There is no fallback to the CPU or to
+a plain version anywhere: whatever fails, fails the run.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense rates): the
+# bounds below are stated against these, whatever power limit the card has.
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+FP32_TOL = dict(atol=2e-5, rtol=1e-4)
+# bf16: the plain versions compute in fp32 and round once at the end, so a
+# right kernel differs by one bf16 step of the value (2^-7 of it at most) where
+# the two fp32 results straddle a rounding boundary, plus its own rounding
+# inside. Paged stays fp32. Flash rounds each p_i to bf16 (2^-8 of it at most)
+# for the second product, so its result moves by at most 2^-8 sum_i p_i |v_i|,
+# which is the plain version applied to |v| (`spread`), whatever cancels in
+# sum_i p_i v_i itself: `ptol` times that is added to the limit.
+FLASH_BF16_TOL = dict(atol=1e-4, rtol=1e-2, ptol=5e-3)
+PAGED_BF16_TOL = dict(atol=1e-4, rtol=1e-2)
+LIBRARY_TOL = dict(atol=1e-2, rtol=2e-2)  # the yardstick computes the same
+LOGITS_TOL = dict(atol=0.25, rtol=0.05)   # bf16 logits, kernels vs plain path
+
+ARCH = "qwen2.5-3b"
+BATCH, PROMPT_LEN, MAX_NEW = 4, 1000, 32
+
+FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check_close(name, got, want, atol, rtol, ptol=0.0, spread=None,
+                quiet=False) -> float:
+    """Max abs error; raises unless
+    |got - want| <= atol + rtol * |want| + ptol * spread, elementwise.
+    `quiet` prints the line only where the check fails."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite values in the result")
+    err = (got - want).abs()
+    worst = float(err.max())
+    limit = atol + rtol * want.abs()
+    if ptol:
+        limit = limit + ptol * spread
+    ok = bool((err <= limit).all())
+    if not (ok and quiet):
+        log(f"  {name}: max abs err {worst:.3e}, "
+            f"{float((err / limit).max()):.2f} of the limit "
+            f"(atol {atol:g}, rtol {rtol:g}"
+            f"{f', ptol {ptol:g}' if ptol else ''}; median |value| "
+            f"{float(want.abs().median()):.2e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: disagrees with its plain version, "
+                             f"max abs err {worst:.3e}")
+    return worst
+
+
+def time_ms(calls, iters: int, repeats: int = 5) -> float:
+    """ms of one call by CUDA events: the mean over `iters` back-to-back
+    calls, best of `repeats` such windows after one warm-up round (a window
+    in which the shared host stalls and lets the queue drain reads long).
+    `calls` is a list of closures over different buffers, taken in turn so
+    that a call finds its inputs as cold in L2 as the real caller would."""
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(iters):
+            calls[i % len(calls)]()
+        stop.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(stop) / iters)
+    return best
+
+
+Q_SCALE = 2.0     # q ~ N(0, 2^2), k ~ N(0, 1): logits q.k/sqrt(D) have std 2
+
+
+def randn(gen, shape, dtype, scale=1.0):
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+# ------------------------------------------------------------------ phase 3
+def flash_case(gen, b, hq, hkv, s, d, dtype):
+    """q, k, v as the model hands them over: [B, S, H, D] viewed [B, H, S, D]."""
+    q = randn(gen, (b, s, hq, d), dtype, Q_SCALE).transpose(1, 2)
+    k = randn(gen, (b, s, hkv, d), dtype).transpose(1, 2)
+    v = randn(gen, (b, s, hkv, d), dtype).transpose(1, 2)
+    return q, k, v
+
+
+def flash_spread(q, k, v, causal=True, window=0):
+    """sum_i p_i |v_i| in fp32: what `FLASH_BF16_TOL["ptol"]` scales."""
+    from repro_torch.kernels import ref
+    return ref.attention_ref(q.float(), k.float(), v.float().abs(), causal,
+                             window)
+
+
+def flash_bound(b, hq, hkv, s, d, window, dtype):
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * item
+    rows = torch.arange(1, s + 1, dtype=torch.float64)
+    keys = float((rows.clamp(max=window) if window else rows).sum())
+    flops = 4.0 * b * hq * keys * d       # QK^T and PV, 2 flops per FMA
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_flash(gen):
+    from repro_torch.kernels import flash_attention as fa, ref
+    import torch.nn.functional as F
+
+    log("flash_attention vs ref.attention_ref")
+    worst = 0.0
+    for (b, hq, hkv, s, d) in [(2, 4, 2, 256, 64), (1, 8, 1, 128, 128),
+                               (2, 2, 2, 512, 32)]:
+        for window in (0, 64):
+            q, k, v = flash_case(gen, b, hq, hkv, s, d, torch.float32)
+            out = fa.flash_attention(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            worst = max(worst, check_close(
+                f"fp32 B{b} Hq{hq} Hkv{hkv} S{s} D{d} window{window}", out,
+                ref.attention_ref(q, k, v, True, window), **FP32_TOL))
+    q, k, v = flash_case(gen, 2, 4, 2, 200, 16, torch.float32)
+    check_close("fp32 ragged S200 D16 window48",
+                fa.flash_attention(q, k, v, window=48),
+                ref.attention_ref(q, k, v, True, 48), **FP32_TOL)
+    q, k, v = flash_case(gen, 1, 2, 2, 130, 32, torch.float32)
+    check_close("fp32 ragged S130 D32 not causal",
+                fa.flash_attention(q, k, v, causal=False),
+                ref.attention_ref(q, k, v, False, 0), **FP32_TOL)
+    # bf16 runs on the tensor cores
+    for (b, hq, hkv, s, d, causal, window) in [
+            (1, 4, 2, 128, 64, True, 0), (2, 4, 2, 200, 16, True, 48),
+            (2, 2, 2, 512, 32, True, 64), (1, 8, 1, 333, 128, True, 0),
+            (2, 4, 2, 256, 64, True, 64), (1, 4, 2, 130, 64, False, 0),
+            # head layouts of qwen2-7b, phi4-mini-3.8b, qwen2.5-32b
+            (1, 28, 4, 200, 128, True, 0), (1, 24, 8, 200, 128, True, 0),
+            (1, 40, 8, 200, 128, True, 0)]:
+        q, k, v = flash_case(gen, b, hq, hkv, s, d, torch.bfloat16)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        check_close(f"bf16 B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal{causal} "
+                    f"window{window}", out,
+                    ref.attention_ref(q, k, v, causal, window),
+                    spread=flash_spread(q, k, v, causal, window),
+                    **FLASH_BF16_TOL)
+
+    # the serve shape: full-width qwen2.5-3b prefill, S ragged against 128
+    from repro_torch import configs
+    cfg = configs.get_config(ARCH)
+    b, hq, hkv, s, d = (BATCH, cfg.num_heads, cfg.num_kv_heads, PROMPT_LEN,
+                        cfg.resolved_head_dim)
+    q, k, v = flash_case(gen, b, hq, hkv, s, d, torch.bfloat16)
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = check_close(f"bf16 serve shape B{b} Hq{hq} Hkv{hkv} S{s} D{d}", out,
+                      ref.attention_ref(q, k, v),
+                      spread=flash_spread(q, k, v), **FLASH_BF16_TOL)
+    check_close("  (library call agrees)", F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), out, **LIBRARY_TOL)
+    ms = time_ms([lambda: fa.flash_attention(q, k, v)], 20)
+    plain_ms = time_ms([lambda: ref.attention_ref(q, k, v)], 5)
+    library_ms = time_ms([lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)], 10)
+    bound_ms, bound_by = flash_bound(b, hq, hkv, s, d, 0, torch.bfloat16)
+    log(f"  serve shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
+            "replaces": "src/repro/kernels/flash_attention.py:96",
+            "launches": 0, "max_abs_err": max(err, worst), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def paged_bound(lengths, hq, hkv, d, dtype):
+    item = torch.empty((), dtype=dtype).element_size()
+    rows, b = int(lengths.sum()), lengths.numel()
+    nbytes = 2 * rows * hkv * d * item + 2 * b * hq * d * item + 4 * b
+    flops = 4.0 * rows * hq * d
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_paged(gen):
+    from repro_torch.kernels import paged_attention as pa, ref
+    import torch.nn.functional as F
+
+    log("paged_attention vs ref.paged_attention_ref")
+    worst = 0.0
+    for (b, hq, hkv, t, d, page) in [(3, 8, 2, 1024, 64, 256),
+                                     (1, 4, 4, 512, 128, 512),
+                                     (2, 16, 2, 2048, 64, 512),
+                                     (2, 16, 2, 1032, 128, 512),  # G=8
+                                     (2, 4, 2, 700, 16, 512)]:
+        q = randn(gen, (b, hq, d), torch.float32, Q_SCALE)
+        kc = randn(gen, (b, t, hkv, d), torch.float32)
+        vc = randn(gen, (b, t, hkv, d), torch.float32)
+        lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        out = pa.paged_attention(q, kc, vc, lens, page=page)
+        torch.cuda.synchronize()
+        worst = max(worst, check_close(
+            f"fp32 B{b} Hq{hq} Hkv{hkv} T{t} D{d} page{page}", out,
+            ref.paged_attention_ref(q, kc, vc, lens), **FP32_TOL))
+
+    for (b, hq, hkv, t, d) in [(2, 28, 4, 300, 128), (2, 24, 8, 300, 128),
+                               (2, 40, 8, 300, 128), (2, 4, 2, 140, 16)]:
+        q = randn(gen, (b, hq, d), torch.bfloat16, Q_SCALE)
+        kc = randn(gen, (b, t, hkv, d), torch.bfloat16)
+        vc = randn(gen, (b, t, hkv, d), torch.bfloat16)
+        lens = torch.tensor([t, t // 3], dtype=torch.int32, device="cuda")
+        check_close(f"bf16 B{b} Hq{hq} Hkv{hkv} T{t} D{d}",
+                    pa.paged_attention(q, kc, vc, lens),
+                    ref.paged_attention_ref(q, kc, vc, lens),
+                    **PAGED_BF16_TOL)
+
+    # the serve shape: full-width qwen2.5-3b decode, T ragged, mixed lengths
+    from repro_torch import configs
+    cfg = configs.get_config(ARCH)
+    b, hq, hkv, t, d = (BATCH, cfg.num_heads, cfg.num_kv_heads,
+                        PROMPT_LEN + MAX_NEW, cfg.resolved_head_dim)
+    lens = torch.tensor([t, PROMPT_LEN + 1, 517, 64], dtype=torch.int32,
+                        device="cuda")
+    # enough distinct caches to exceed the L2: a decode step finds its layer's
+    # cache cold, the layer's weights went through the L2 since the last step
+    sets = []
+    for _ in range(16):
+        sets.append((randn(gen, (b, 1, hq, d), torch.bfloat16, Q_SCALE)[:, 0],
+                     randn(gen, (b, t, hkv, d), torch.bfloat16),
+                     randn(gen, (b, t, hkv, d), torch.bfloat16)))
+    q, kc, vc = sets[0]
+    out = pa.paged_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    err = check_close(f"bf16 serve shape B{b} Hq{hq} Hkv{hkv} T{t} D{d} "
+                      f"lengths {lens.tolist()}", out,
+                      ref.paged_attention_ref(q, kc, vc, lens),
+                      **PAGED_BF16_TOL)
+    ms = time_ms([lambda s=s: pa.paged_attention(*s, lens) for s in sets], 64)
+    plain_ms = time_ms([lambda s=s: ref.paged_attention_ref(*s, lens)
+                        for s in sets], 32)
+    mask = (torch.arange(t, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+
+    def library(s):
+        return F.scaled_dot_product_attention(
+            s[0][:, :, None], s[1].transpose(1, 2), s[2].transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+    check_close("  (library call agrees)", library(sets[0])[:, :, 0], out,
+                **LIBRARY_TOL)
+    library_ms = time_ms([lambda s=s: library(s) for s in sets], 64)
+    bound_ms, bound_by = paged_bound(lens, hq, hkv, d, torch.bfloat16)
+    log(f"  serve shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
+            "replaces": "src/repro/kernels/paged_attention.py:79",
+            "launches": 0, "max_abs_err": max(err, worst), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def fuzz_kernels(gen, cases=40):
+    """Seeded random shapes through both kernels: any S and T, odd GQA
+    groups, windows shorter and longer than a tile, causal or not, ragged
+    lengths, every head size and both types."""
+    import random
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa, ref
+
+    log(f"seeded random shapes, {cases} per kernel")
+    rnd = random.Random(0)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i in range(cases):
+        dtype = rnd.choice([torch.float32, torch.bfloat16])
+        fp32 = dtype == torch.float32
+        b, hkv, g = rnd.randint(1, 3), rnd.choice([1, 2, 4]), \
+            rnd.choice([1, 2, 3, 5, 8, 16])
+        d = rnd.choice([16, 32, 64, 128])
+        s = rnd.choice([1, 7, 63, 64, 65, rnd.randint(2, 400)])
+        causal = rnd.random() < 0.7
+        window = rnd.choice([0, 0, rnd.randint(1, max(1, s)), 3 * s + 1])
+        q, k, v = flash_case(gen, b, hkv * g, hkv, s, d, dtype)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.attention_ref(q, k, v, causal, window)
+        name = (f"flash #{i} {dtype} B{b} Hq{hkv * g} Hkv{hkv} S{s} D{d} "
+                f"causal{causal} window{window}")
+        if fp32:
+            tol = FP32_TOL
+        else:
+            tol = dict(FLASH_BF16_TOL,
+                       spread=flash_spread(q, k, v, causal, window))
+        worst[dtype] = max(worst[dtype],
+                           check_close(name, got, want, quiet=True, **tol))
+
+        t = rnd.choice([1, 63, 64, 65, 512, rnd.randint(2, 1500)])
+        page = rnd.choice([64, 256, 512])
+        tol = FP32_TOL if fp32 else PAGED_BF16_TOL
+        qd = randn(gen, (b, hkv * g, d), dtype, Q_SCALE)
+        kc = randn(gen, (b, t, hkv, d), dtype)
+        vc = randn(gen, (b, t, hkv, d), dtype)
+        lens = torch.tensor([rnd.randint(1, t) for _ in range(b)],
+                            dtype=torch.int32, device="cuda")
+        got = pa.paged_attention(qd, kc, vc, lens, page=page)
+        want = ref.paged_attention_ref(qd, kc, vc, lens)
+        name = (f"paged #{i} {dtype} B{b} Hq{hkv * g} Hkv{hkv} T{t} D{d} "
+                f"page{page} lengths {lens.tolist()}")
+        worst[dtype] = max(worst[dtype],
+                           check_close(name, got, want, quiet=True, **tol))
+    torch.cuda.synchronize()
+    log(f"  all agree; max abs err fp32 {worst[torch.float32]:.3e}, "
+        f"bf16 {worst[torch.bfloat16]:.3e}")
+
+
+def check_offload(gen):
+    """OffloadedKVCache on the card beyond what `launch.serve` moves: eight
+    pages walked twice through a window of two and updated in place, so pages
+    are uploaded, written back, uploaded again from the written-back copy and
+    written back again, all on the side streams. The same walk on the CPU
+    (plain copies) must leave the same host copies and the same stats."""
+    from repro_torch.runtime.offload import OffloadedKVCache
+
+    log("OffloadedKVCache on the card: 8 pages, window 2, two passes")
+    n, passes = 8, 2
+    pages = [randn(gen, (4, 256, 2, 128), torch.bfloat16) for _ in range(n)]
+
+    def walk(device):
+        kv = OffloadedKVCache(num_layers=n, window=2, device=device)
+        for i, page in enumerate(pages):
+            kv.host_put(i, page.to(device))
+        kv.prefetch(0)
+        for _ in range(passes):
+            for i in range(n):
+                page = kv.fetch(i)
+                page += 1.0                 # in place, on the current stream
+                kv.update(i, page)
+        kv.close()
+        return kv
+
+    on_card, on_cpu = walk("cuda"), walk("cpu")
+    for i, page in enumerate(pages):
+        if not on_card._host[i].is_pinned():
+            raise AssertionError("host pages are not in pinned memory")
+        want = page.float()
+        for _ in range(passes):
+            want = (want + 1.0).to(torch.bfloat16).float()
+        for kv in (on_card, on_cpu):
+            if not torch.equal(kv._host[i].float(), want.cpu()):
+                raise AssertionError(f"host copy of page {i} is wrong after "
+                                     f"the writebacks ({kv.device})")
+    log(f"  host copies right after {passes} passes; stats {on_card.stats}")
+    if on_card.stats != on_cpu.stats or on_card.stats["writebacks"] < n:
+        raise AssertionError(f"offload stats on the card {on_card.stats} != "
+                             f"on the CPU {on_cpu.stats}")
+
+
+# ------------------------------------------------------------------ phase 4
+def run_slice(kernels):
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    cfg = configs.get_config(ARCH)
+    log(f"slice: serve {ARCH} at full width: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"batch {BATCH}, prompt {PROMPT_LEN}, max_new {MAX_NEW}")
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = pa.launches = 0
+    res = serve(ARCH, batch=BATCH, prompt_len=PROMPT_LEN, max_new=MAX_NEW,
+                use_kernels=True, offload_kv=True, device="cuda", seed=0)
+    n_flash, n_paged = fa.launches, pa.launches
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    L, steps = cfg.num_layers, MAX_NEW - 1
+    log(f"  launches on the main path: flash_attention {n_flash} (want {L}: "
+        f"one prefill), paged_attention {n_paged} (want {2 * L * steps}: "
+        f"{L} x {steps} steps x 2 decode runs)")
+    if n_flash != L or n_paged != 2 * L * steps:
+        raise AssertionError("the main path did not go through the kernels "
+                             "as often as it has layers and steps")
+    kernels[0]["launches"], kernels[1]["launches"] = n_flash, n_paged
+
+    tokens, tokens_off = res["tokens"], res["tokens_offload"]
+    if tuple(tokens.shape) != (BATCH, MAX_NEW):
+        raise AssertionError(f"tokens have shape {tuple(tokens.shape)}")
+    if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError("generated tokens outside the vocabulary")
+    if not res["tokens_identical"] or not torch.equal(tokens, tokens_off):
+        raise AssertionError("offloaded decode diverged from the baseline")
+    log(f"  offloaded tokens identical to baseline: True | row 0: "
+        f"{tokens[0, :12].tolist()}")
+
+    # the same weights and prompts through the plain attention path
+    cache = lm.init_cache(cfg, BATCH, PROMPT_LEN + MAX_NEW, device="cuda")
+    logits_plain, _ = lm.prefill(cfg, res["params"],
+                                 {"tokens": res["prompts"]}, cache,
+                                 use_kernels=False)
+    torch.cuda.synchronize()
+    if fa.launches != n_flash:
+        raise AssertionError("use_kernels=False launched the flash kernel")
+    got = res["prefill_logits"]
+    if tuple(got.shape) != (BATCH, 1, cfg.vocab_size):
+        raise AssertionError(f"logits have shape {tuple(got.shape)}")
+    check_close("prefill last-token logits, kernels vs plain path (bf16)",
+                got, logits_plain, **LOGITS_TOL)
+    agree = float((got.argmax(-1) == logits_plain.argmax(-1)).float().mean())
+    log(f"  greedy first token agrees on {agree:.0%} of the batch")
+
+    log(f"  prefill {res['prefill_ms']:.2f} ms for {BATCH}x{PROMPT_LEN} "
+        f"tokens | decode {res['decode_tok_s']:.2f} tok/s "
+        f"({res['decode_ms']:.2f} ms for {steps} steps) | decode with "
+        f"offload {res['offload_tok_s']:.2f} tok/s "
+        f"({res['offload_ms']:.2f} ms)")
+    log(f"  offload: {res['offload_pages']} pages, window "
+        f"{res['offload_window']}, stats {res['offload_stats']}")
+    log(f"  peak device memory {peak / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+
+    # the smoke sizes on the card, kernels and offload on: head size 16 runs;
+    # head size 8 is below what the kernels take and must raise, not fall back
+    for arch in ("qwen2.5-3b", "qwen2-7b", "phi4-mini-3.8b", "qwen2.5-32b"):
+        kwargs = dict(smoke=True, batch=2, prompt_len=130, max_new=4,
+                      use_kernels=True, offload_kv=True, device="cuda")
+        if configs.get_smoke_config(arch).resolved_head_dim in fa.HEAD_DIMS:
+            small = serve(arch, **kwargs)
+            if not small["tokens_identical"] or not torch.isfinite(
+                    small["prefill_logits"].float()).all():
+                raise AssertionError(f"{arch} at smoke size failed")
+        else:
+            try:
+                serve(arch, **kwargs)
+            except ValueError as exc:
+                if "head dim" not in str(exc):
+                    raise
+            else:
+                raise AssertionError(f"{arch} at smoke size: a head size the "
+                                     "kernels do not take did not raise")
+    log("  dense archs at smoke size on the card: head size 16 served, "
+        "head size 8 refused by the wrappers")
+
+
+# --------------------------------------------------------------------- main
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernels are built and checked")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="build with -Xptxas -v and print the compiler's "
+                         "report of registers, shared memory and spills")
+    args = ap.parse_args()
+    t_start = time.time()
+
+    # 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{count} device(s)")
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references stay fp32
+
+    # 2. build
+    from repro_torch.kernels import _build
+    out_dir = _build.build_all(verbose=args.ptxas)
+    log(f"built {len(list(out_dir.glob('lib*.so')))} kernel libraries in "
+        f"{_build.build_seconds or 0.0:.1f} s -> {out_dir}")
+    if args.ptxas:
+        log("\n".join(_build.build_log))
+
+    # 3. kernels against their plain versions
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kernels = [check_flash(gen), check_paged(gen)]
+    fuzz_kernels(gen)
+    check_offload(gen)
+
+    # 4. the slice
+    if not args.kernels_only:
+        run_slice(kernels)
+
+    # 5. report
+    log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
+    if not args.kernels_only:
+        log(json.dumps({"kernels": kernels}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                            "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
