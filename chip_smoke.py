@@ -21,11 +21,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    calls it), and its bound is computed from the run's inputs. Then seeded
    random shapes through both kernels, and the KV offload class alone: pages
    through a small window on the side streams.
+   Then the AMU kernels (async_gather, async_scatter, stream_triad) at the
+   reference tests' shapes, its 10 seeded scatter fuzz cases, 8- and 12-byte
+   rows and ragged lengths: gather and int32 scatter bit-exact, f32
+   scatter-add within atol=rtol=1e-4, triad 1e-6 (f32) / 2e-2 (bf16); and
+   what their wrappers refuse must raise.
 4. slice: `repro_torch.launch.serve` serves qwen2.5-3b at full width with
    `--use-kernels --offload-kv`; offloaded tokens must equal the baseline's,
    the launch counters must show the kernels carried the run, and prefill
    logits with kernels must agree with the plain path.
-5. one JSON line listing the kernels, then the device line, then the verdict.
+5. AMU kernels at H100 scale: GUPS through `repro_torch.launch.quickstart`
+   (xor, an 8 GiB table of HPCC's 8-byte rows, 2^26 updates), then
+   `ops.scatter_update` (xor and f32 add, 8 GiB of 512-byte rows, 2^20
+   updates), `ops.gather` (the same rows; qwen2.5-3b's embedding table) and
+   `ops.triad` (2^28 floats), each against its plain version, timed beside
+   its bound and the library call, and a sweep of the gather's ring depth K
+   with the rows in flight per SM. One launch per `ops` call, counted.
+6. one JSON line listing the kernels, then the device line, then the verdict.
 
 Imports `torch` and `repro_torch` only. There is no fallback to the CPU or to
 a plain version anywhere: whatever fails, fails the run.
@@ -60,6 +72,12 @@ FP32_TOL = dict(atol=2e-5, rtol=1e-4)
 FLASH_BF16_TOL = dict(atol=1e-4, rtol=1e-2, ptol=5e-3)
 PAGED_BF16_TOL = dict(atol=1e-4, rtol=1e-2)
 LIBRARY_TOL = dict(atol=1e-2, rtol=2e-2)  # the yardstick computes the same
+# the AMU kernels, at tests/test_kernels.py's limits: f32 scatter-add sums a
+# row's updates in the order the L2 applies them; triad's plain version
+# repeats the kernel's arithmetic, so it agrees to the bit in practice
+SCATTER_TOL = dict(atol=1e-4, rtol=1e-4)
+TRIAD_TOL = {torch.float32: dict(atol=1e-6, rtol=1e-6),
+             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 LOGITS_TOL = dict(atol=0.25, rtol=0.05)   # bf16 logits, kernels vs plain path
 
 ARCH = "qwen2.5-3b"
@@ -407,6 +425,150 @@ def check_offload(gen):
                              f"on the CPU {on_cpu.stats}")
 
 
+def check_equal(name, got, want, quiet=False) -> float:
+    """Bit-exact agreement (the gather kernel copies, xor is exact)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"{name}: {bad} of {got.numel()} elements differ "
+                             "from the plain version (want bit-exact)")
+    if not quiet:
+        log(f"  {name}: bit-exact ok")
+    return 0.0
+
+
+def amu_table(gen, shape, dtype):
+    """Random table on the card: int32 in [0, 2^30), floats N(0, 1)."""
+    if dtype == torch.int32:
+        return torch.randint(0, 1 << 30, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+    return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+
+def amu_index(gen, n, m):
+    return torch.randint(0, n, (m,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def check_amu_kernels(gen):
+    """async_gather, async_scatter and stream_triad against their plain
+    versions on the card at the reference tests' shapes, the 10 seeded fuzz
+    cases, rows of 8 and 12 bytes and ragged lengths; then the refusals.
+    Returns the worst error of each kernel."""
+    import numpy as np
+    from repro_torch.kernels import async_gather as ag
+    from repro_torch.kernels import async_scatter as asc
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import stream_triad as st
+
+    log("async_gather vs ref.gather_ref: bit-exact")
+    for (n, d, m, bm, k) in [(64, 128, 256, 128, 8), (512, 256, 128, 64, 4),
+                             (33, 128, 64, 32, 2), (1024, 512, 512, 256, 16),
+                             (1000, 2, 1000, 256, 8), (77, 3, 333, 64, 3)]:
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            if d * torch.empty((), dtype=dtype).element_size() % 4:
+                continue                    # bf16 with D = 3: refused below
+            table = amu_table(gen, (n, d), dtype)
+            idx = amu_index(gen, n, m)
+            check_equal(f"{str(dtype)[6:]} N{n} D{d} M{m} block_m{bm} K{k}",
+                        ag.async_gather(table, idx, block_m=bm, num_slots=k),
+                        ref.gather_ref(table, idx))
+
+    log("async_scatter vs ref.scatter_update_ref: f32 add atol=rtol=1e-4, "
+        "int32 add and xor bit-exact")
+    worst = 0.0
+    for (n, d, m, bm, k) in [(64, 128, 256, 128, 8), (8, 128, 64, 32, 4),
+                             (1024, 256, 128, 128, 8), (16, 8, 128, 64, 8),
+                             (1000, 2, 1000, 256, 8), (77, 3, 333, 64, 3)]:
+        table = amu_table(gen, (n, d), torch.float32)
+        idx = amu_index(gen, n, m)
+        upd = randn(gen, (m, d), torch.float32)
+        want = ref.scatter_update_ref(table, idx, upd, "add")
+        got = asc.async_scatter(table, idx, upd, "add", block_m=bm,
+                                num_slots=k)
+        worst = max(worst, check_close(
+            f"f32 add N{n} D{d} M{m} block_m{bm} K{k}", got, want,
+            **SCATTER_TOL))
+        for op in ("add", "xor"):
+            table = amu_table(gen, (n, d), torch.int32)
+            upd = amu_table(gen, (m, d), torch.int32)
+            want = ref.scatter_update_ref(table, idx, upd, op)
+            check_equal(f"i32 {op} N{n} D{d} M{m} block_m{bm} K{k}",
+                        asc.async_scatter(table, idx, upd, op, block_m=bm,
+                                          num_slots=k), want)
+    # tests/test_kernels.py::test_async_scatter_xor_gups
+    table = amu_table(gen, (32, 8), torch.int32)
+    idx = amu_index(gen, 32, 256)
+    upd = amu_table(gen, (256, 8), torch.int32)
+    check_equal("xor GUPS N32 D8 M256 (8 updates a row)",
+                asc.async_scatter(table.clone(), idx, upd, "xor",
+                                  block_m=128, num_slots=8),
+                ref.scatter_update_ref(table, idx, upd, "xor"))
+    # the 10 seeded cases of tests/test_kernels.py::test_async_scatter_fuzz
+    rng = np.random.default_rng(7)
+    for i in range(10):
+        n = int(rng.integers(4, 128))
+        bm = int(rng.choice([16, 64]))
+        m = bm * int(rng.integers(1, 4))
+        k = int(rng.choice([2, 4, 8]))
+        table = torch.from_numpy(
+            rng.standard_normal((n, 32)).astype(np.float32)).cuda()
+        idx = torch.from_numpy(rng.integers(0, n, m).astype(np.int32)).cuda()
+        upd = torch.from_numpy(
+            rng.standard_normal((m, 32)).astype(np.float32)).cuda()
+        want = ref.scatter_update_ref(table, idx, upd, "add")
+        worst = max(worst, check_close(
+            f"fuzz #{i} f32 add N{n} M{m} block_m{bm} K{k}",
+            asc.async_scatter(table, idx, upd, "add", block_m=bm,
+                              num_slots=k), want, quiet=True, **SCATTER_TOL))
+    log(f"  10 seeded fuzz cases agree; worst f32 add error {worst:.3e}")
+
+    log("stream_triad vs ref.triad_ref: f32 atol=rtol=1e-6, bf16 2e-2")
+    triad_worst = 0.0
+    for (n, block) in [(4096, 512), (8192, 1024), (512, 512), (1003, 512)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            b, c = randn(gen, (n,), dtype), randn(gen, (n,), dtype)
+            tol = TRIAD_TOL[dtype]
+            triad_worst = max(triad_worst, check_close(
+                f"{str(dtype)[6:]} N{n} block{block}",
+                st.stream_triad(b, c, 3.0, block=block),
+                ref.triad_ref(b, c, 3.0), **tol))
+    b, c = randn(gen, (1000,), torch.float32), randn(gen, (1000,),
+                                                      torch.float32)
+    triad_worst = max(triad_worst, check_close(
+        "ops.triad f32 N1000 (not a multiple of block 512)",
+        ops.triad(b, c, 2.5, block=512), ref.triad_ref(b, c, 2.5),
+        **TRIAD_TOL[torch.float32]))
+
+    # what the kernels do not take must raise, not fall back
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="cuda")
+    refusals = [
+        ("async_gather, bf16 rows of 6 bytes", ValueError,
+         lambda: ag.async_gather(zeros(4, 3, dtype=torch.bfloat16),
+                                 amu_index(gen, 4, 3))),
+        ("async_scatter, xor on float32", TypeError,
+         lambda: asc.async_scatter(zeros(4, 4), amu_index(gen, 4, 3),
+                                   zeros(3, 4), "xor")),
+        ("stream_triad, int32", TypeError,
+         lambda: st.stream_triad(zeros(8, dtype=torch.int32),
+                                 zeros(8, dtype=torch.int32), 1.0)),
+    ]
+    for name, exc, call in refusals:
+        try:
+            call()
+        except exc:
+            pass
+        else:
+            raise AssertionError(f"{name}: the wrapper did not raise")
+    torch.cuda.synchronize()
+    log("  refused as they should be: " + "; ".join(r[0] for r in refusals))
+    return {"async_gather": 0.0, "async_scatter": worst,
+            "stream_triad": triad_worst}
+
+
 # ------------------------------------------------------------------ phase 4
 def run_slice(kernels):
     from repro_torch import configs
@@ -496,6 +658,240 @@ def run_slice(kernels):
         "head size 8 refused by the wrappers")
 
 
+# ------------------------------------------------------------------ phase 5
+def amu_bound(nbytes, ops=0.0):
+    """Bytes over the memory rate against 32-bit operations over the fp32
+    rate (the guide's table has no int32 rate; add and xor are far below
+    either way)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_close_big(name, got, want, atol, rtol) -> float:
+    """check_close over slices of 2^26 elements, so that an 8 GiB table
+    needs no 8 GiB temporaries."""
+    g, w = got.reshape(-1), want.reshape(-1)
+    worst, ratio, step = 0.0, 0.0, 1 << 26
+    for i in range(0, g.numel(), step):
+        gi, wi = g[i:i + step].float(), w[i:i + step].float()
+        if not torch.isfinite(gi).all():
+            raise AssertionError(f"{name}: non-finite values in the result")
+        err = (gi - wi).abs()
+        worst = max(worst, float(err.max()))
+        ratio = max(ratio, float((err / (atol + rtol * wi.abs())).max()))
+    ok = ratio <= 1.0
+    log(f"  {name}: max abs err {worst:.3e}, {ratio:.2f} of the limit (atol "
+        f"{atol:g}, rtol {rtol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: disagrees with its plain version, "
+                             f"max abs err {worst:.3e}")
+    return worst
+
+
+def free_cuda():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def run_amu(kernels, worst):
+    """The AMU kernels' own path at H100 scale: the quickstart's GUPS at
+    HPCC's 8-byte rows, then `ops.scatter_update`, `ops.gather` and
+    `ops.triad` on tables in HBM far past the 50 MB L2. Each case is held
+    against its plain version on the card, timed with CUDA events beside its
+    bound and, where one PyTorch call computes the same, that call; then the
+    gather's ring depth is swept. The launch counters are set to 0 just
+    before each `ops` call and read just after."""
+    from repro_torch import configs
+    from repro_torch.kernels import async_gather as ag
+    from repro_torch.kernels import async_scatter as asc
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import stream_triad as st
+    from repro_torch.launch import quickstart
+
+    mods = {"async_gather": ag, "async_scatter": asc, "stream_triad": st}
+    counts = dict.fromkeys(mods, 0)
+
+    def drive(fn):
+        for mod in mods.values():
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        for name, mod in mods.items():
+            counts[name] += mod.launches
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    free_cuda()
+    cases = []
+
+    def report(case, kernel, **nums):
+        cases.append(dict(case=case, kernel=kernel, **nums))
+        gbs = nums["bytes"] / nums["ms"] / 1e6
+        lib = nums.get("library_ms")
+        log(f"  {case}: kernel {nums['ms']:.4f} ms ({gbs:.1f} GB/s), plain "
+            f"{nums['plain_ms']:.4f} ms, library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{nums['bound_ms']:.5f} ms ({nums['bound_by']}, "
+            f"{nums['bytes'] / 1e9:.4f} GB)")
+
+    # GUPS, HPCC RandomAccess rows, through the quickstart
+    rows, width, m, k = 1 << 30, 2, 1 << 26, 8
+    log("AMU kernels at H100 scale (data from torch.Generator seed 0)")
+    log(f"GUPS through launch.quickstart: xor, table [{rows}, {width}] int32 "
+        f"({rows * width * 4 / 2**30:.0f} GiB), {m} updates, {k} slots")
+    res = drive(lambda: quickstart.gups(
+        table_rows=rows, row_width=width, updates=m, num_slots=k, seed=0,
+        device="cuda", source="device"))
+    if not res["ok"]:
+        raise AssertionError("GUPS: the quickstart reports MISMATCH")
+    check_equal("quickstart GUPS xor vs ref.scatter_update_ref", res["out"],
+                res["expect"])
+    idx, upd, out = res["indices"], res["updates"], res["out"]
+    del res
+    free_cuda()
+    touched = torch.unique(idx).numel()
+    nbytes = 2 * touched * width * 4 + m * width * 4 + m * 4
+    bound_ms, bound_by = amu_bound(nbytes, m * width)
+    ms = time_ms([lambda: asc.async_scatter(out, idx, upd, "xor",
+                                            num_slots=k)], 10)
+    plain_ms = time_ms([lambda: ref.scatter_update_ref(out, idx, upd, "xor")],
+                       1, repeats=2)
+    report(f"GUPS xor [{rows},{width}] int32, {m} updates", "async_scatter",
+           ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+           bound_by=bound_by, bytes=nbytes, touched_rows=touched,
+           giga_updates_s=m / ms / 1e6)
+    log(f"    {m / ms / 1e6:.3f} GUP/s; the bound counts 8 bytes a row, the "
+        "card moves 32-byte sectors: about 4x of it is out of reach")
+    gups = cases[-1]
+    del idx, upd, out
+    free_cuda()
+
+    # GUPS and scatter-add at the quickstart's 512-byte rows
+    rows, width, m = 1 << 24, 128, 1 << 20
+    for op, dtype in (("xor", torch.int32), ("add", torch.float32)):
+        table = amu_table(gen, (rows, width), dtype)
+        idx = amu_index(gen, rows, m)
+        upd = amu_table(gen, (m, width), dtype)
+        name = (f"scatter {op} [{rows},{width}] {str(dtype)[6:]}, "
+                f"{m} updates")
+        out = drive(lambda: ops.scatter_update(table, idx, upd, op))
+        want = ref.scatter_update_ref(table, idx, upd, op)
+        if op == "xor":
+            check_equal(name, out, want)
+        else:
+            worst["async_scatter"] = max(worst["async_scatter"],
+                                         check_close_big(name, out, want,
+                                                         **SCATTER_TOL))
+        touched = torch.unique(idx).numel()
+        nbytes = 2 * touched * width * 4 + m * width * 4 + m * 4
+        bound_ms, bound_by = amu_bound(nbytes, m * width)
+        ms = time_ms([lambda: asc.async_scatter(out, idx, upd, op)], 20)
+        plain_ms = time_ms([lambda: ref.scatter_update_ref(table, idx, upd,
+                                                           op)], 2, repeats=3)
+        library_ms = None
+        if op == "add":
+            library_ms = time_ms([lambda: want.index_add_(0, idx, upd)], 20)
+        report(name, "async_scatter", ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, touched_rows=touched)
+        del table, idx, upd, out, want
+        free_cuda()
+
+    # gather: 512-byte rows of an 8 GiB table, then the embedding lookup
+    cfg = configs.get_config(ARCH)
+    gathers = [((1 << 24, 128), torch.float32, 1 << 20, "random rows"),
+               ((cfg.vocab_size, cfg.d_model), torch.bfloat16,
+                BATCH * PROMPT_LEN, f"{ARCH} embedding, {BATCH}x{PROMPT_LEN} "
+                "token ids")]
+    sweep = []
+    for i, (shape, dtype, m, what) in enumerate(gathers):
+        table = amu_table(gen, shape, dtype)
+        idx = amu_index(gen, shape[0], m)
+        name = f"gather [{shape[0]},{shape[1]}] {str(dtype)[6:]}, {m} {what}"
+        out = drive(lambda: ops.gather(table, idx))
+        check_equal(name, out, ref.gather_ref(table, idx))
+        check_equal("  (library call agrees)", torch.index_select(table, 0,
+                                                                   idx), out)
+        row_bytes = shape[1] * table.element_size()
+        touched = torch.unique(idx).numel()
+        nbytes = touched * row_bytes + m * row_bytes + m * 4
+        bound_ms, bound_by = amu_bound(nbytes)
+        ms = time_ms([lambda: ag.async_gather(table, idx)], 20)
+        plain_ms = time_ms([lambda: ref.gather_ref(table, idx)], 20)
+        library_ms = time_ms([lambda: torch.index_select(table, 0, idx)], 20)
+        report(name, "async_gather", ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, touched_rows=touched,
+               rows_in_flight_per_sm=ag.rows_in_flight_per_sm(row_bytes))
+        if i == 0:
+            gather_main = cases[-1]
+        # the paper's "queue length follows demand": ring depth K, where
+        # every SM holds a dozen blocks and where 16 blocks are all there is
+        log(f"  ring-depth sweep on {name} ({-(-m // 256)} blocks of 256 "
+            "indices):")
+        for slots in (1, 2, 4, 8, 16, 32):
+            check_equal(f"K={slots}", ag.async_gather(
+                table, idx, num_slots=slots), out, quiet=True)
+            t = time_ms([lambda: ag.async_gather(table, idx,
+                                                 num_slots=slots)], 20)
+            mlp = ag.rows_in_flight_per_sm(row_bytes, num_slots=slots)
+            sweep.append(dict(case=name, num_slots=slots, ms=t,
+                              gb_s=nbytes / t / 1e6,
+                              rows_in_flight_per_sm=mlp))
+            log(f"    K={slots:2d}: {t:.4f} ms, {nbytes / t / 1e6:.1f} "
+                f"GB/s, {mlp} rows ({mlp * row_bytes / 1024:.0f} KB) in "
+                "flight per SM")
+        del table, idx, out
+        free_cuda()
+
+    # STREAM triad, one size, 4x past the caches
+    n = 1 << 28
+    b, c = randn(gen, (n,), torch.float32), randn(gen, (n,), torch.float32)
+    name = f"triad f32 N={n} ({n * 4 / 2**30:.0f} GiB an array)"
+    a = drive(lambda: ops.triad(b, c, 3.0))
+    worst["stream_triad"] = max(worst["stream_triad"], check_close_big(
+        name, a, ref.triad_ref(b, c, 3.0), **TRIAD_TOL[torch.float32]))
+    check_close_big("  (library call agrees)", torch.add(b, c, alpha=3.0), a,
+                    **TRIAD_TOL[torch.float32])
+    nbytes = 3 * n * 4
+    bound_ms, bound_by = amu_bound(nbytes, 2 * n)
+    ms = time_ms([lambda: st.stream_triad(b, c, 3.0)], 20)
+    plain_ms = time_ms([lambda: ref.triad_ref(b, c, 3.0)], 10)
+    library_ms = time_ms([lambda: torch.add(b, c, alpha=3.0)], 20)
+    report(name, "stream_triad", ms=ms, plain_ms=plain_ms,
+           library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+           bytes=nbytes)
+    triad_main = cases[-1]
+    del a, b, c
+    free_cuda()
+
+    want = {"async_gather": 2, "async_scatter": 3, "stream_triad": 1}
+    log(f"  launches on the AMU path: {counts} (want {want}: one per ops "
+        "call)")
+    if counts != want:
+        raise AssertionError("the AMU path did not launch each kernel once "
+                             "per ops call")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        " GiB (torch.cuda.max_memory_allocated)")
+    log(json.dumps({"amu_cases": cases, "ring_depth_sweep": sweep}))
+
+    sources = {"async_gather": "src/repro/kernels/async_gather.py:83",
+               "async_scatter": "src/repro/kernels/async_scatter.py:123",
+               "stream_triad": "src/repro/kernels/stream_triad.py:36"}
+    for name, case in (("async_gather", gather_main),
+                       ("async_scatter", gups),
+                       ("stream_triad", triad_main)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": sources[name], "launches": counts[name],
+            "max_abs_err": worst[name], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"]})
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -533,12 +929,14 @@ def main() -> int:
     kernels = [check_flash(gen), check_paged(gen)]
     fuzz_kernels(gen)
     check_offload(gen)
+    amu_worst = check_amu_kernels(gen)
 
-    # 4. the slice
+    # 4. the slice; 5. the AMU kernels' own path
     if not args.kernels_only:
         run_slice(kernels)
+        run_amu(kernels, amu_worst)
 
-    # 5. report
+    # 6. report
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     if not args.kernels_only:
         log(json.dumps({"kernels": kernels}))

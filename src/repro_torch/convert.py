@@ -17,9 +17,11 @@ import numpy as np
 import torch
 
 
-def tensor_from_numpy(a, device="cpu", dtype=None) -> torch.Tensor:
-    """One leaf. numpy has no bfloat16: such a leaf arrives as an `ml_dtypes`
-    array, recognised by its dtype's name, and goes through its 16 bits."""
+def tensor_from_numpy(a, *, device, dtype=None) -> torch.Tensor:
+    """One leaf, on `device` (no default: weights land where the caller says,
+    never on the CPU by omission). numpy has no bfloat16: such a leaf arrives
+    as an `ml_dtypes` array, recognised by its dtype's name, and goes through
+    its 16 bits."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(a).view(np.uint16).astype(np.int16)
@@ -45,16 +47,17 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def params_from_numpy(tree, device="cpu", dtype=None):
+def params_from_numpy(tree, *, device, dtype=None):
     """The reference's params as the port's: every leaf a tensor on `device`;
     `dtype`, if given, is applied to floating leaves."""
-    return tree_map(lambda a: tensor_from_numpy(a, device, dtype), tree)
+    return tree_map(lambda a: tensor_from_numpy(a, device=device, dtype=dtype),
+                    tree)
 
 
-def cache_from_numpy(tree, device="cpu"):
+def cache_from_numpy(tree, *, device):
     """The reference's decode cache as the port's (types kept: bf16 K/V,
     int32 `len`)."""
-    return tree_map(lambda a: tensor_from_numpy(a, device), tree)
+    return tree_map(lambda a: tensor_from_numpy(a, device=device), tree)
 
 
 def flatten(tree) -> Tuple[List[Any], Any]:

@@ -13,7 +13,7 @@ namespace repro {
 // the next tile's alpha = exp(-1e30 - m) = 0 wipes out.
 constexpr float NEG_INF = -1e30f;
 
-enum DType { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
+enum DType { DTYPE_F32 = 0, DTYPE_BF16 = 1, DTYPE_I32 = 2 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {

@@ -58,7 +58,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"k {tuple(k.shape)} (self-attention, S == T)")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
-    if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype \
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k, v must share float32 or "
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")

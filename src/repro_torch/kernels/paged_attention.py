@@ -70,8 +70,8 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"caches {tuple(k_cache.shape)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"paged_attention: head dim {D} not in {HEAD_DIMS}")
-    if q.dtype not in _build.DTYPE_CODES or k_cache.dtype != q.dtype \
-            or v_cache.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError("paged_attention: q and caches must share float32 or "
                         f"bfloat16, got {q.dtype}, {k_cache.dtype}, "
                         f"{v_cache.dtype}")

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the kernels.
 
 The CPU tests run these, and `chip_smoke.py` holds each CUDA kernel against
 its plain version on the card. The kernel wrappers take them only for tensors
@@ -12,6 +12,57 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+def gather_ref(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Plain version of async_gather: out[i] = table[indices[i]]."""
+    return table[indices.long()]
+
+
+def scatter_update_ref(table: torch.Tensor, indices: torch.Tensor,
+                       updates: torch.Tensor, op: str = "add") -> torch.Tensor:
+    """Plain version of async_scatter, as a new tensor:
+    table[indices[j]] op= updates[j] for every j.
+
+    add is `index_add` (the CPU sums a row's updates in index order, the
+    card in the order its atomics land). xor is applied in rounds:
+    round r takes the r-th update of every row hit at least r+1 times, so
+    within a round the rows are distinct and one indexed xor applies them;
+    the rounds number the largest multiplicity of a row, not M, and xor
+    commutes, so the result is exact."""
+    idx = indices.long()
+    if op == "add":
+        return table.index_add(0, idx, updates)
+    if op != "xor":
+        raise ValueError(op)
+    out = table.clone()
+    if idx.numel() == 0:
+        return out
+    order = torch.argsort(idx, stable=True)
+    sidx = idx[order]
+    pos = torch.arange(sidx.numel(), device=idx.device)
+    first = torch.ones_like(sidx, dtype=torch.bool)
+    first[1:] = sidx[1:] != sidx[:-1]
+    # rank of each update among those of its row, in index order
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    for r in range(int(rank.max()) + 1):
+        sel = order[rank == r]
+        rows = idx[sel]
+        out[rows] = out[rows] ^ updates[sel]
+    return out
+
+
+def round_scalar(s: float, dtype: torch.dtype) -> float:
+    """s rounded to `dtype`, as the reference's triad rounds its scalar."""
+    return float(torch.tensor(s, dtype=dtype))
+
+
+def triad_ref(b: torch.Tensor, c: torch.Tensor, s: float) -> torch.Tensor:
+    """Plain version of stream_triad: a = b + s * c, with s rounded to the
+    arrays' type, the rest in float32 (product and sum each rounded) and one
+    rounding to the arrays' type at the end."""
+    s = round_scalar(s, b.dtype)
+    return (b.float() + s * c.float()).to(b.dtype)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

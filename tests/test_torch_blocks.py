@@ -35,7 +35,8 @@ def test_apply_norm(norm, dtype):
     rng = np.random.default_rng(0)
     p = random_like(jblocks.init_norm(jcfg, 64), rng)
     x = jnp.array(rng.standard_normal((2, 5, 64)) * 3.0, getattr(jnp, dtype))
-    got = blocks.apply_norm(cfg, convert.params_from_numpy(p), to_torch(x))
+    got = blocks.apply_norm(cfg, convert.params_from_numpy(p, device="cpu"),
+                            to_torch(x))
     want = jblocks.apply_norm(jcfg, to_jax(p), x)
     assert got.dtype == getattr(torch, dtype)
     tol = TOL if dtype == "float32" else dict(atol=3e-2, rtol=3e-2)
@@ -111,7 +112,8 @@ def test_apply_mlp(activation):
     rng = np.random.default_rng(4)
     p = random_like(jblocks.init_mlp(jcfg, jax.random.PRNGKey(0)), rng)
     x = rng.standard_normal((2, 7, 64)).astype(np.float32)
-    got = blocks.apply_mlp(cfg, convert.params_from_numpy(p), to_torch(x))
+    got = blocks.apply_mlp(cfg, convert.params_from_numpy(p, device="cpu"),
+                           to_torch(x))
     want = jblocks.apply_mlp(jcfg, to_jax(p), jnp.array(x))
     assert set(p) == set(blocks.init_mlp(cfg, torch.Generator()))
     np.testing.assert_allclose(to_np(got), to_np(want), **TOL)
@@ -161,8 +163,9 @@ def test_attention_prefill(use_kernels, window):
     cfg, jcfg, rng, p, x = _attention_setup(6, 128)
     pos = np.broadcast_to(np.arange(128)[None], (2, 128))
     before = tflash.launches
-    got, kv = blocks.attention(cfg, convert.params_from_numpy(p), to_torch(x),
-                               torch.from_numpy(pos.copy()), window=window,
+    got, kv = blocks.attention(cfg, convert.params_from_numpy(p, device="cpu"),
+                               to_torch(x), torch.from_numpy(pos.copy()),
+                               window=window,
                                use_kernels=use_kernels, return_kv=True)
     want, jkv = jblocks.attention(jcfg, to_jax(p), jnp.array(x),
                                   jnp.array(pos), window=window,
@@ -180,8 +183,9 @@ def test_attention_long_sequence_takes_chunked_path():
     try:
         for c in (blocks.ATTN_CONFIG, jblocks.ATTN_CONFIG):
             c.update(chunk_threshold=1, q_chunk=16, kv_chunk=16)
-        got, _ = blocks.attention(cfg, convert.params_from_numpy(p),
-                                  to_torch(x), torch.from_numpy(pos.copy()))
+        got, _ = blocks.attention(
+            cfg, convert.params_from_numpy(p, device="cpu"), to_torch(x),
+            torch.from_numpy(pos.copy()))
         want, _ = jblocks.attention(jcfg, to_jax(p), jnp.array(x),
                                     jnp.array(pos))
     finally:
@@ -203,7 +207,7 @@ def test_attention_cached_decode(use_kernels, S):
     pos = cache_len[:, None] + np.arange(S)[None]
     tk, tv = to_torch(ck), to_torch(cv)
     before = tpaged.launches
-    got, new = blocks.attention(cfg, convert.params_from_numpy(p),
+    got, new = blocks.attention(cfg, convert.params_from_numpy(p, device="cpu"),
                                 to_torch(x), torch.from_numpy(pos),
                                 kv_cache=(tk, tv),
                                 cache_len=torch.from_numpy(cache_len),

@@ -55,7 +55,7 @@ def _run_both(arch, prompt_len, use_kernels, dtype):
     prompts = rng.integers(0, cfg.vocab_size, (B, prompt_len))
     tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
 
-    params = convert.params_from_numpy(weights)
+    params = convert.params_from_numpy(weights, device="cpu")
     cache = lm.init_cache(cfg, B, max_len, dtype=tdt, device="cpu")
     logits, cache = lm.prefill(cfg, params, {"tokens": to_torch(prompts)},
                                cache, use_kernels=use_kernels, dtype=tdt)
@@ -133,7 +133,8 @@ def test_prefill_decode_consistency(arch):
 
 def test_cast_params_for_compute_matches_reference_and_is_idempotent():
     weights = _weights("qwen2-7b")
-    cast = lm.cast_params_for_compute(convert.params_from_numpy(weights))
+    cast = lm.cast_params_for_compute(
+        convert.params_from_numpy(weights, device="cpu"))
     jcast = jlm.cast_params_for_compute(to_jax(weights))
     leaves, _ = convert.flatten(cast)
     for a, b in zip(leaves, jax.tree.leaves(jcast)):
@@ -175,7 +176,7 @@ def test_convert_leaf_order_equals_jax_tree_flatten(arch):
         [t.dtype.name for t in jleaves]
     # converting the reference's tree gives the same order again
     conv, _ = convert.flatten(convert.cache_from_numpy(
-        jax_tree_to_numpy(jtree)))
+        jax_tree_to_numpy(jtree), device="cpu"))
     assert [tuple(t.shape) for t in conv] == [tuple(t.shape) for t in leaves]
     back = convert.unflatten(treedef, leaves)
     assert all(a is b for a, b in zip(convert.flatten(back)[0], leaves))
@@ -187,15 +188,29 @@ def test_convert_bf16_leaves_survive_bit_for_bit():
     x = jnp.array(rng.standard_normal((5, 7)) * 100, jnp.bfloat16)
     arr = np.asarray(x)                       # an ml_dtypes bfloat16 array
     assert arr.dtype.name == "bfloat16"
-    tree = convert.cache_from_numpy({"k": arr, "len": np.arange(3, dtype=np.int32)})
+    tree = convert.cache_from_numpy(
+        {"k": arr, "len": np.arange(3, dtype=np.int32)}, device="cpu")
     assert tree["k"].dtype == torch.bfloat16 and tree["len"].dtype == torch.int32
     np.testing.assert_array_equal(tree["k"].view(torch.int16).numpy().view(np.uint16),
                                   arr.view(np.uint16))
     # dtype= applies to floating leaves only
     p = convert.params_from_numpy({"w": arr, "n": np.arange(3)},
-                                  dtype=torch.float32)
+                                  device="cpu", dtype=torch.float32)
     assert p["w"].dtype == torch.float32 and p["n"].dtype == torch.int64
     np.testing.assert_array_equal(p["w"].numpy(), arr.astype(np.float32))
+
+
+@pytest.mark.parametrize("fn", ["tensor_from_numpy", "params_from_numpy",
+                                "cache_from_numpy"])
+def test_convert_takes_no_default_device(fn):
+    """The weight-carrying entry points name their device: forgetting it is a
+    TypeError, not a silent landing on the CPU."""
+    leaf = np.arange(3, dtype=np.float32)
+    arg = leaf if fn == "tensor_from_numpy" else {"w": leaf}
+    with pytest.raises(TypeError, match="device"):
+        getattr(convert, fn)(arg)
+    with pytest.raises(TypeError):
+        getattr(convert, fn)(arg, "cpu")          # keyword only
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-7b",

@@ -27,11 +27,17 @@ def test_port_files_exist():
     for want in ("chip_smoke.py", "src/repro_torch/launch/serve.py",
                  "src/repro_torch/kernels/paged_attention.py",
                  "src/repro_torch/kernels/flash_attention.py",
+                 "src/repro_torch/kernels/async_gather.py",
+                 "src/repro_torch/kernels/async_scatter.py",
+                 "src/repro_torch/kernels/stream_triad.py",
+                 "src/repro_torch/launch/quickstart.py",
                  "src/repro_torch/runtime/offload.py"):
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.iterdir()} >= {
-        "common.cuh", "paged_attention.cu", "flash_attention.cu"}
+        "common.cuh", "amu_ring.cuh", "paged_attention.cu",
+        "flash_attention.cu", "async_gather.cu", "async_scatter.cu",
+        "stream_triad.cu"}
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -54,6 +60,7 @@ def test_importing_the_port_pulls_in_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.kernels.ops\n"
+        "import repro_torch.launch.quickstart\n"
         "import repro_torch.kernels._build, repro_torch.convert\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"

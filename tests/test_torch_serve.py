@@ -56,7 +56,7 @@ def test_serve_tokens_match_reference_serving_loop():
     jcfg = jconfigs.get_smoke_config("qwen2-7b")
     cfg = serve_mod.configs.get_smoke_config("qwen2-7b")
     jparams = jax.tree.map(jnp.asarray, np_tree)
-    params = convert.params_from_numpy(np_tree)
+    params = convert.params_from_numpy(np_tree, device="cpu")
     prompts = to_np(res["prompts"])
     jcache = jlm.init_cache(jcfg, 2, 21, dtype=jnp.float32)
     cache = lm.init_cache(cfg, 2, 21, dtype=torch.float32, device="cpu")

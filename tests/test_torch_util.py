@@ -21,7 +21,7 @@ BF16_TOL = dict(atol=3e-2, rtol=3e-2)     # tests/test_kernels.py, bf16 case
 
 def to_torch(a, dtype=None) -> torch.Tensor:
     """numpy (or JAX, incl. bfloat16) array -> CPU tensor."""
-    t = convert.tensor_from_numpy(np.asarray(a))
+    t = convert.tensor_from_numpy(np.asarray(a), device="cpu")
     return t if dtype is None else t.to(dtype)
 
 
