@@ -7,7 +7,9 @@
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device: a CUDA card must be there; its name and power limit are printed.
-2. build: every CUDA source of `src/repro_torch/kernels/csrc/` is compiled.
+2. build: every CUDA source of `src/repro_torch/kernels/csrc/` is compiled,
+   and the machine code must hold the Hopper paths: wgmma and TMA loads in
+   flash_attention, bulk copies in async_gather (cuobjdump).
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the reference test shapes and at the full-width serve shapes
    (bf16, G=8, D=128). Inputs are drawn so that the logits have a standard
@@ -15,7 +17,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    outputs are of order 0.1 to 1. fp32 is held to atol 2e-5 / rtol 1e-4;
    bf16 to one bf16 step of the value (rtol 1e-2, atol 1e-4), to which
    flash, whose P is rounded to bf16, adds the worst that rounding can do,
-   2^-8 of sum_i p_i |v_i| (taken as 5e-3 of it). Each is timed
+   2^-8 of sum_i p_i |v_i| (taken as 5e-3 of it). Flash's bf16 cases reach
+   both of its tensor-core bodies and the wgmma body's edges (S ragged
+   against 128 and below it, windows, GQA groups 1, 7, 8). Each is timed
    with CUDA events beside its plain version and one
    `scaled_dot_product_attention` call (a yardstick only: the port never
    calls it), and its bound is computed from the run's inputs. Then seeded
@@ -23,7 +27,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    through a small window on the side streams.
    Then the AMU kernels (async_gather, async_scatter, stream_triad) at the
    reference tests' shapes, its 10 seeded scatter fuzz cases, 8- and 12-byte
-   rows and ragged lengths: gather and int32 scatter bit-exact, f32
+   rows and ragged lengths, the gather's two paths (bulk copies at 512-byte
+   and 4 KB rows, also on a table 16 bytes in; cp.async on one 4 bytes in)
+   at M = 1, 7, 131, 4000: gather and int32 scatter bit-exact, f32
    scatter-add within atol=rtol=1e-4, triad 1e-6 (f32) / 2e-2 (bf16); and
    what their wrappers refuse must raise.
 4. slice: `repro_torch.launch.serve` serves qwen2.5-3b at full width with
@@ -124,15 +130,24 @@ def time_ms(calls, iters: int, repeats: int = 5) -> float:
     """ms of one call by CUDA events: the mean over `iters` back-to-back
     calls, best of `repeats` such windows after one warm-up round (a window
     in which the shared host stalls and lets the queue drain reads long).
-    `calls` is a list of closures over different buffers, taken in turn so
-    that a call finds its inputs as cold in L2 as the real caller would."""
+    Each window starts behind a sleep kernel that outlasts twice the host's
+    time to enqueue it, so that the window times the card even where a
+    call's host time (`host_us`) comes near its kernel's. `calls` is a list
+    of closures over different buffers, taken in turn so that a call finds
+    its inputs as cold in L2 as the real caller would."""
     for fn in calls:
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        calls[i % len(calls)]()
+    enqueue_s = min(time.perf_counter() - t0, 0.05)
     torch.cuda.synchronize()
     best = float("inf")
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2 * enqueue_s * 2e9))    # cycles, at <= 2 GHz
         start.record()
         for i in range(iters):
             calls[i % len(calls)]()
@@ -140,6 +155,48 @@ def time_ms(calls, iters: int, repeats: int = 5) -> float:
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(stop) / iters)
     return best
+
+
+def host_us(call, n: int = 50) -> float:
+    """Host microseconds a wrapper call takes to enqueue its launch:
+    perf_counter over `n` calls without a synchronise, then one. Where this
+    comes near the CUDA-event ms of back-to-back calls, those measure the
+    host, not the kernel."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+# ------------------------------------------------------------------ phase 2
+# Hopper instructions that must be in a library's machine code: wgmma
+# (HGMMA) on tiles loaded by TMA (UTMALDG) for flash, bulk copies (UBLKCP)
+# for the gather's rows.
+SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
+             "async_gather": ("UBLKCP",)}
+
+
+def check_sass(out_dir) -> dict:
+    """Counts the SASS lines of each instruction of `SASS_WANT` in the built
+    libraries (cuobjdump, beside nvcc) and fails where one is missing."""
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    counts = {}
+    for lib, ops in SASS_WANT.items():
+        sass = subprocess.run(
+            [str(cuobjdump), "--dump-sass", str(out_dir / f"lib{lib}.so")],
+            check=True, capture_output=True, text=True).stdout.splitlines()
+        counts[lib] = {op: sum(op in line for line in sass) for op in ops}
+        if not all(counts[lib].values()):
+            raise AssertionError(f"lib{lib}.so lacks Hopper instructions: "
+                                 f"{counts[lib]}")
+    log(f"SASS lines of the Hopper paths: {counts}")
+    return counts
 
 
 Q_SCALE = 2.0     # q ~ N(0, 2^2), k ~ N(0, 1): logits q.k/sqrt(D) have std 2
@@ -200,14 +257,34 @@ def check_flash(gen):
     check_close("fp32 ragged S130 D32 not causal",
                 fa.flash_attention(q, k, v, causal=False),
                 ref.attention_ref(q, k, v, False, 0), **FP32_TOL)
-    # bf16 runs on the tensor cores
+    # the body rule of the source is the wrapper's
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_attention")
+    names = {0: "fma", 1: "wgmma", 2: "mma"}
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in fa.HEAD_DIMS:
+            got = names[lib.flash_attention_body(_build.DTYPE_CODES[dtype], d)]
+            if got != fa.body_for(dtype, d):
+                raise AssertionError(f"flash body for {dtype} D{d}: source "
+                                     f"runs {got}, wrapper says "
+                                     f"{fa.body_for(dtype, d)}")
+    log("  body rule: fp32 -> fma; bf16 D64/D128 -> wgmma, D16/D32 -> mma "
+        "(source and wrapper agree)")
+    # bf16 runs on the tensor cores: D 16/32 on mma.sync, 64/128 on wgmma;
+    # then the wgmma body at its edges: S ragged against its 128-row tiles
+    # and below one tile, windows, not causal, GQA groups 1, 7 and 8
     for (b, hq, hkv, s, d, causal, window) in [
             (1, 4, 2, 128, 64, True, 0), (2, 4, 2, 200, 16, True, 48),
             (2, 2, 2, 512, 32, True, 64), (1, 8, 1, 333, 128, True, 0),
             (2, 4, 2, 256, 64, True, 64), (1, 4, 2, 130, 64, False, 0),
             # head layouts of qwen2-7b, phi4-mini-3.8b, qwen2.5-32b
             (1, 28, 4, 200, 128, True, 0), (1, 24, 8, 200, 128, True, 0),
-            (1, 40, 8, 200, 128, True, 0)]:
+            (1, 40, 8, 200, 128, True, 0),
+            (2, 4, 4, 129, 128, True, 0), (1, 7, 1, 255, 64, True, 0),
+            (1, 8, 1, 1000, 128, True, 0), (2, 4, 2, 100, 128, True, 0),
+            (1, 4, 2, 37, 64, False, 0), (1, 7, 1, 300, 128, True, 48),
+            (1, 4, 4, 255, 64, True, 64), (1, 8, 1, 129, 64, False, 48),
+            (1, 4, 2, 1000, 128, False, 0), (2, 16, 2, 255, 128, True, 64)]:
         q, k, v = flash_case(gen, b, hq, hkv, s, d, torch.bfloat16)
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -235,8 +312,10 @@ def check_flash(gen):
     library_ms = time_ms([lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True)], 10)
     bound_ms, bound_by = flash_bound(b, hq, hkv, s, d, 0, torch.bfloat16)
-    log(f"  serve shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    host = host_us(lambda: fa.flash_attention(q, k, v))
+    log(f"  serve shape ({fa.body_for(q.dtype, d)} body): kernel {ms:.4f} ms "
+        f"(host {host:.1f} us a call), plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     return {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
             "replaces": "src/repro/kernels/flash_attention.py:96",
             "launches": 0, "max_abs_err": max(err, worst), "ms": ms,
@@ -475,6 +554,35 @@ def check_amu_kernels(gen):
             check_equal(f"{str(dtype)[6:]} N{n} D{d} M{m} block_m{bm} K{k}",
                         ag.async_gather(table, idx, block_m=bm, num_slots=k),
                         ref.gather_ref(table, idx))
+
+    log("async_gather paths: bulk copies for rows of a multiple of 16 bytes "
+        "on a 16-byte aligned table, cp.async chunks otherwise; bit-exact")
+    for (n, d, dtype, offset, bulk) in [
+            (1000, 128, torch.float32, 0, True),      # 512-byte rows
+            (3000, 2048, torch.bfloat16, 0, True),    # 4 KB rows
+            (1000, 128, torch.float32, 16, True),     # table 16 bytes in
+            (1000, 128, torch.float32, 4, False),     # table 4 bytes in
+            (1000, 2, torch.float32, 0, False)]:      # 8-byte rows
+        flat = amu_table(gen, (n * d + 16,), dtype)
+        first = offset // flat.element_size()
+        table = flat[first:first + n * d].view(n, d)
+        for m in (1, 7, 131, 4000):
+            idx = amu_index(gen, n, m)
+            plan = ag.launch_plan(table, m)
+            what = (f"{str(dtype)[6:]} rows of {d * flat.element_size()} B, "
+                    f"table +{offset} B, M{m}: {plan.blocks} blocks of "
+                    f"{plan.rows} rows, {plan.warps} warps, "
+                    f"{'bulk' if plan.bulk else f'cp.async {plan.chunk} B'}")
+            if plan.bulk != bulk:
+                raise AssertionError(f"{what}: want the "
+                                     f"{'bulk' if bulk else 'cp.async'} path")
+            want = ref.gather_ref(table, idx)
+            check_equal(what, ag.async_gather(table, idx), want,
+                        quiet=m != 4000)
+            for bm, k in ((1, 1), (16, 3), (64, 32)):   # block_m: a bound
+                check_equal(f"{what}, block_m {bm} K{k}", ag.async_gather(
+                    table, idx, block_m=bm, num_slots=k), want, quiet=True)
+        del flat, table
 
     log("async_scatter vs ref.scatter_update_ref: f32 add atol=rtol=1e-4, "
         "int32 add and xor bit-exact")
@@ -821,22 +929,31 @@ def run_amu(kernels, worst):
         ms = time_ms([lambda: ag.async_gather(table, idx)], 20)
         plain_ms = time_ms([lambda: ref.gather_ref(table, idx)], 20)
         library_ms = time_ms([lambda: torch.index_select(table, 0, idx)], 20)
+        plan = ag.launch_plan(table, m)
         report(name, "async_gather", ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                bytes=nbytes, touched_rows=touched,
-               rows_in_flight_per_sm=ag.rows_in_flight_per_sm(row_bytes))
+               rows_in_flight_per_sm=plan.rows_in_flight_per_sm,
+               host_us=host_us(lambda: ag.async_gather(table, idx)),
+               library_host_us=host_us(
+                   lambda: torch.index_select(table, 0, idx)))
+        log(f"    {plan.blocks} blocks of {plan.rows} rows, {plan.warps} "
+            f"warps, {'bulk' if plan.bulk else 'cp.async'} path; host "
+            f"{cases[-1]['host_us']:.1f} us a call (index_select "
+            f"{cases[-1]['library_host_us']:.1f} us)")
         if i == 0:
             gather_main = cases[-1]
-        # the paper's "queue length follows demand": ring depth K, where
-        # every SM holds a dozen blocks and where 16 blocks are all there is
-        log(f"  ring-depth sweep on {name} ({-(-m // 256)} blocks of 256 "
-            "indices):")
+        # the paper's "queue length follows demand": ring depth K, on the
+        # 8 GiB table and on the embedding table
+        log(f"  ring-depth sweep on {name} ({plan.blocks} blocks of "
+            f"{plan.rows} indices at K=8):")
         for slots in (1, 2, 4, 8, 16, 32):
             check_equal(f"K={slots}", ag.async_gather(
                 table, idx, num_slots=slots), out, quiet=True)
             t = time_ms([lambda: ag.async_gather(table, idx,
                                                  num_slots=slots)], 20)
-            mlp = ag.rows_in_flight_per_sm(row_bytes, num_slots=slots)
+            mlp = ag.launch_plan(table, m, num_slots=slots
+                                 ).rows_in_flight_per_sm
             sweep.append(dict(case=name, num_slots=slots, ms=t,
                               gb_s=nbytes / t / 1e6,
                               rows_in_flight_per_sm=mlp))
@@ -923,6 +1040,7 @@ def main() -> int:
         f"{_build.build_seconds or 0.0:.1f} s -> {out_dir}")
     if args.ptxas:
         log("\n".join(_build.build_log))
+    check_sass(out_dir)
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -12,6 +12,24 @@
 // A thread only ever reads back the chunks it copied itself, so wait_group,
 // which speaks for the calling thread's own copies, is all the
 // synchronisation a ring needs: no barrier between the lanes of a ring.
+//
+// The bulk-copy form (async_gather's rows that are a multiple of 16 bytes,
+// 16-byte aligned; the PTX is in csrc/hopper.cuh):
+//
+//   aload    -> one cp.async.bulk of the whole row global -> shared, issued
+//               by one lane, which first arms the slot's mbarrier with
+//               expect_tx(row bytes);
+//   request  -> the slot's mbarrier phase: its parity names the use of the
+//               slot, the slot index the request;
+//   getfin   -> mbarrier.try_wait.parity: the copy has delivered every byte
+//               it owed the barrier (a short copy never completes the phase);
+//   SPM      -> K+1 slots: K rows in flight, one leaving by a shared ->
+//               global cp.async.bulk, refilled only after
+//               cp.async.bulk.wait_group.read says that store has read it.
+//
+// Here the completion is counted in bytes by the barrier the reader waits on,
+// not inferred from the issuing thread's own group count, so a consumer that
+// skipped its getfin would read a slot no copy has finished.
 #pragma once
 
 #include <cuda_runtime.h>

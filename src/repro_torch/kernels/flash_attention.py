@@ -20,6 +20,22 @@ HEAD_DIMS = (16, 32, 64, 128)
 launches = 0            # +1 for every launch of the CUDA kernel, nowhere else
 
 
+def body_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel body a launch runs, a fixed rule on (type, head size) that
+    `flash_attention_launch` in csrc/flash_attention.cu applies: "fma"
+    (fp32 FMAs, every head size) for float32; "wgmma" (TMA + wgmma, the
+    Hopper body) for bfloat16 at 64 and 128; "mma" (mma.sync) for bfloat16
+    at 16 and 32."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {head_dim} not in "
+                         f"{HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "fma"
+    if dtype == torch.bfloat16:
+        return "wgmma" if head_dim >= 64 else "mma"
+    raise TypeError(f"flash_attention: no body for {dtype}")
+
+
 def _bind():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
@@ -40,7 +56,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     change the result and the kernel chooses its own tiles. Any S is taken
     (the ragged edge is masked in the kernel) and the operands are read
     through their strides, so a transposed view of [B, S, H, D] costs no
-    copy; the output has q's layout."""
+    copy; the output has q's layout. Which body runs is `body_for`: bf16 at
+    head size 64 or 128 loads its tiles by TMA and multiplies with wgmma."""
     global launches
     del block_q, block_k
     if q.device.type == "cpu":

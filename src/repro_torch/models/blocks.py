@@ -31,8 +31,8 @@ def _dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
 
 
 # -------------------------------------------------------------------- norms
-def init_norm(cfg: ModelConfig, dim: int, dtype=torch.float32,
-              device="cpu") -> Params:
+def init_norm(cfg: ModelConfig, dim: int, dtype=torch.float32, *,
+              device) -> Params:
     p = {"scale": torch.ones((dim,), dtype=dtype, device=device)}
     if cfg.norm == "layernorm":
         p["bias"] = torch.zeros((dim,), dtype=dtype, device=device)
@@ -53,8 +53,8 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- RoPE
-def rope_frequencies(head_dim: int, theta: float,
-                     device="cpu") -> torch.Tensor:
+def rope_frequencies(head_dim: int, theta: float, *,
+                     device) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     return 1.0 / (theta ** exps)
@@ -75,7 +75,7 @@ class RopeTables:
     def __init__(self, positions: torch.Tensor, head_dim: int, theta: float,
                  mrope_sections: Tuple[int, ...] = ()):
         D, dev = head_dim, positions.device
-        freqs = rope_frequencies(D, theta, dev)                  # [D/2]
+        freqs = rope_frequencies(D, theta, device=dev)                 # [D/2]
         if mrope_sections and positions.dim() == 3:
             # section id per frequency -> which of the 3 streams to use
             stream = torch.repeat_interleave(
@@ -115,7 +115,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 # ---------------------------------------------------------------- attention
 def init_attention(cfg: ModelConfig, gen: torch.Generator,
-                   dtype=torch.float32, device="cpu") -> Params:
+                   dtype=torch.float32, *, device) -> Params:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     p = {
         "wq": _dense_init(gen, d, cfg.num_heads * hd, dtype, device),
@@ -130,8 +130,8 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
     return p
 
 
-def _attn_mask(S: int, T: int, causal: bool, window: int, q_offset: int,
-               device="cpu") -> torch.Tensor:
+def _attn_mask(S: int, T: int, causal: bool, window: int, q_offset: int, *,
+               device) -> torch.Tensor:
     """[S, T] boolean mask. T = total KV length; queries at q_offset..+S."""
     q_pos = torch.arange(S, device=device)[:, None] + q_offset
     k_pos = torch.arange(T, device=device)[None, :]
@@ -272,7 +272,8 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                                      cfg.causal, window)
             out = out.reshape(B, S, Hq * hd) @ p["wo"]
             return out, new_cache
-        mask = _attn_mask(S, T, cfg.causal, window, 0, x.device)[None, None]
+        mask = _attn_mask(S, T, cfg.causal, window, 0,
+                          device=x.device)[None, None]
 
     # grouped heads: repeat kv
     rep = Hq // Hkv
@@ -293,7 +294,7 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 # ---------------------------------------------------------------------- MLP
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, dtype=torch.float32,
-             d_ff: Optional[int] = None, device="cpu") -> Params:
+             d_ff: Optional[int] = None, *, device) -> Params:
     d = cfg.d_model
     ff = d_ff or cfg.d_ff
     if cfg.activation in ("swiglu", "geglu"):

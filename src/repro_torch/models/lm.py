@@ -60,7 +60,7 @@ def _init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype,
             f"block kind {kind!r} is not ported yet (ROADMAP A7)")
     return {"norm1": B.init_norm(cfg, cfg.d_model, device=device),
             "norm2": B.init_norm(cfg, cfg.d_model, device=device),
-            "mix": B.init_attention(cfg, gen, dtype, device),
+            "mix": B.init_attention(cfg, gen, dtype, device=device),
             "ffn": B.init_mlp(cfg, gen, dtype, device=device)}
 
 
@@ -228,8 +228,8 @@ def embed_inputs(cfg: ModelConfig, params: Params, inputs: Dict[str, Any],
     return params["embed"][inputs["tokens"]].to(dtype)
 
 
-def positions_for(cfg: ModelConfig, batch: int, seq: int, offset=0,
-                  device="cpu") -> torch.Tensor:
+def positions_for(cfg: ModelConfig, batch: int, seq: int, offset=0, *,
+                  device) -> torch.Tensor:
     if cfg.mrope_sections:
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE positions are not ported yet (ROADMAP A7)")

@@ -281,6 +281,9 @@ def _meta(*shape, dtype=torch.float32):
      ValueError, "multiple of 128"),
     (lambda: tgather.async_gather(_meta(4, 4), _meta(3, dtype=torch.int32)),
      ValueError, "unsupported device"),
+    (lambda: tgather.async_gather(torch.zeros(2, 29100), _i32(1),
+                                  num_slots=1),
+     ValueError, "shared memory"),
     (lambda: tscatter.async_scatter(_meta(4, 4), _meta(3, dtype=torch.int32),
                                     _meta(3, 4)),
      ValueError, "unsupported device"),
@@ -288,7 +291,8 @@ def _meta(*shape, dtype=torch.float32):
      ValueError, "unsupported device"),
 ], ids=["xor-on-f32", "bf16-scatter", "unknown-op", "updates-shape",
         "odd-bf16-row", "int64-indices", "ring-too-large", "int-triad",
-        "triad-block", "meta-gather", "meta-scatter", "meta-triad"])
+        "triad-block", "meta-gather", "bulk-ring-too-large", "meta-scatter",
+        "meta-triad"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(call, exc, match):
     """Checked on every device alike, so the CPU sees the card's refusals."""
     with pytest.raises(exc, match=match):
@@ -313,3 +317,77 @@ def test_ring_plan(row_bytes, chunk, lanes, warps):
     # deep rings of wide rows take fewer warps, never more room than a block
     deep = tgather.ring_plan(row_bytes, 256, 32)
     assert deep.smem <= tgather.MAX_SMEM and deep.warps <= warps
+
+
+# ----------------------------------------------------------- gather plan
+def _h100_blocks_per_sm(bulk, chunk, warps, smem):
+    """An H100's occupancy limits at the gather's block shapes: 32 blocks,
+    64 warps and 228 KB of shared memory an SM, 1 KB of it reserved a block
+    (the kernels' few dozen registers bind at none of these sizes)."""
+    return min(32, 64 // warps, 233472 // (smem + 1024))
+
+
+@pytest.mark.parametrize("row_bytes,m,align,bulk,blocks", [
+    (4096, 4000, 16, True, ">=132"),    # qwen2.5-3b's embedding fills the card
+    (512, 1 << 20, 16, True, 4096),     # the 8 GiB table: 4096 blocks of 256
+    (4096, 1, 16, True, 1),
+    (4096, 7, 16, True, 7),
+    (512, 131, 16, True, 131),
+    (4096, 4000, 4, False, ">=132"),    # a 4-byte aligned table: cp.async
+    (8, 1000, 16, False, None),         # HPCC rows: cp.async, a lane a ring
+    (12, 333, 4, False, None),
+])
+def test_gather_plan(row_bytes, m, align, bulk, blocks):
+    plan = tgather.gather_plan(row_bytes, m, 256, 8, align, 132,
+                               _h100_blocks_per_sm)
+    assert plan.bulk == bulk
+    assert plan.rows * plan.blocks >= m > plan.rows * (plan.blocks - 1)
+    assert plan.rows <= 256 and plan.smem <= tgather.MAX_SMEM
+    assert plan.smem == tgather.gather_smem(plan.bulk, plan.rings, plan.rows,
+                                            8, row_bytes)
+    assert plan.per_sm == _h100_blocks_per_sm(plan.bulk, plan.chunk,
+                                              plan.warps, plan.smem)
+    if blocks == ">=132":
+        assert plan.blocks >= 132
+        assert plan.blocks <= plan.per_sm * 132      # one wave
+        if plan.rows > plan.rings:                   # and no fewer rows would
+            fewer = tgather.gather_smem(plan.bulk, plan.rings,
+                                        plan.rows - plan.rings, 8, row_bytes)
+            assert -(-m // (plan.rows - plan.rings)) > 132 * \
+                _h100_blocks_per_sm(plan.bulk, plan.chunk, plan.warps, fewer)
+    elif blocks is not None:
+        assert plan.blocks == blocks
+    assert 0 < plan.rows_in_flight_per_sm <= 8 * plan.rings * plan.per_sm
+
+
+@pytest.mark.parametrize("num_slots", [2, 8, 32])
+def test_gather_ring_has_no_more_slots_than_rows(num_slots):
+    """A bulk ring that carries fewer rows than K has a slot a row (and one
+    to drain), so from K = 2 on qwen2.5-3b's embedding gets one plan: 500
+    blocks of 8 rows, 4 rings of 2 rows each."""
+    plan = tgather.gather_plan(4096, 4000, 256, num_slots, 16, 132,
+                               _h100_blocks_per_sm)
+    assert (plan.blocks, plan.rows, plan.warps) == (500, 8, 4)
+    assert plan.smem == tgather.gather_smem(True, 4, 8, 2, 4096)
+    assert plan.rows_in_flight_per_sm == 2 * 4 * 4
+
+
+@pytest.mark.parametrize("row_bytes", [16, 48, 512, 4096, 8, 12, 20, 4100])
+@pytest.mark.parametrize("align", [16, 8, 4])
+def test_gather_path_rule(row_bytes, align):
+    """Bulk copies iff the row is a multiple of 16 bytes and every pointer
+    16-byte aligned; otherwise the widest cp.async chunk both allow."""
+    bulk, chunk, lanes = tgather.gather_path(row_bytes, align)
+    assert bulk == (row_bytes % 16 == 0 and align == 16)
+    assert chunk == max(w for w in (4, 8, 16)
+                        if row_bytes % w == 0 and align % w == 0)
+    assert lanes & (lanes - 1) == 0 and lanes <= min(32, row_bytes // chunk)
+
+
+@pytest.mark.parametrize("block_m", [1, 7, 256, 4096])
+def test_gather_plan_takes_block_m_as_a_bound(block_m):
+    for row_bytes, m in ((4096, 4000), (512, 1 << 20), (8, 1000)):
+        plan = tgather.gather_plan(row_bytes, m, block_m, 8, 16, 132,
+                                   _h100_blocks_per_sm)
+        assert plan.rows <= block_m
+        assert plan.rows * plan.blocks >= m > plan.rows * (plan.blocks - 1)

@@ -13,7 +13,7 @@ from repro.models import blocks as jblocks
 from repro_torch import configs, convert
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import paged_attention as tpaged
-from repro_torch.models import blocks
+from repro_torch.models import blocks, lm
 
 from test_torch_util import random_like, to_jax, to_np, to_torch
 
@@ -43,12 +43,35 @@ def test_apply_norm(norm, dtype):
     np.testing.assert_allclose(to_np(got), to_np(want), **tol)
 
 
+@pytest.mark.parametrize("fn", ["init_norm", "init_attention", "init_mlp",
+                                "rope_frequencies", "_attn_mask",
+                                "positions_for"])
+def test_models_take_no_default_device(fn):
+    """The tensor-making helpers of `models` name their device: forgetting it
+    is a TypeError, not CPU tensors beside a model on the card."""
+    cfg, _ = _cfgs()
+    gen = torch.Generator()
+    target, args = {
+        "init_norm": (blocks.init_norm, (cfg, 64, torch.float32)),
+        "init_attention": (blocks.init_attention, (cfg, gen, torch.float32)),
+        "init_mlp": (blocks.init_mlp, (cfg, gen, torch.float32, None)),
+        "rope_frequencies": (blocks.rope_frequencies, (16, 10000.0)),
+        "_attn_mask": (blocks._attn_mask, (4, 4, True, 0, 0)),
+        "positions_for": (lm.positions_for, (cfg, 2, 4, 0)),
+    }[fn]
+    with pytest.raises(TypeError, match="device"):
+        target(*args)
+    with pytest.raises(TypeError):
+        target(*args, "cpu")                      # keyword only
+    assert target(*args, device="cpu") is not None
+
+
 def test_init_norm_and_attention_shapes():
     cfg, jcfg = _cfgs(norm="layernorm")
     gen = torch.Generator().manual_seed(0)
-    mine = {"norm": blocks.init_norm(cfg, 64),
-            "mix": blocks.init_attention(cfg, gen),
-            "ffn": blocks.init_mlp(cfg, gen)}
+    mine = {"norm": blocks.init_norm(cfg, 64, device="cpu"),
+            "mix": blocks.init_attention(cfg, gen, device="cpu"),
+            "ffn": blocks.init_mlp(cfg, gen, device="cpu")}
     key = jax.random.PRNGKey(0)
     theirs = {"norm": jblocks.init_norm(jcfg, 64),
               "mix": jblocks.init_attention(jcfg, key),
@@ -115,7 +138,8 @@ def test_apply_mlp(activation):
     got = blocks.apply_mlp(cfg, convert.params_from_numpy(p, device="cpu"),
                            to_torch(x))
     want = jblocks.apply_mlp(jcfg, to_jax(p), jnp.array(x))
-    assert set(p) == set(blocks.init_mlp(cfg, torch.Generator()))
+    assert set(p) == set(blocks.init_mlp(cfg, torch.Generator(),
+                                         device="cpu"))
     np.testing.assert_allclose(to_np(got), to_np(want), **TOL)
 
 

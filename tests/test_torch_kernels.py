@@ -62,6 +62,24 @@ def test_flash_attention_bf16():
                                  interpret=True)), **BF16_TOL)
 
 
+@pytest.mark.parametrize("dtype,d,body", [
+    (torch.float32, 16, "fma"), (torch.float32, 32, "fma"),
+    (torch.float32, 64, "fma"), (torch.float32, 128, "fma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma")])
+def test_flash_body_rule(dtype, d, body):
+    """Which kernel body a launch runs is a fixed rule on (type, head size);
+    `chip_smoke.py` holds the CUDA source's rule to this one."""
+    assert tflash.body_for(dtype, d) == body
+
+
+def test_flash_body_rule_refuses_what_no_body_takes():
+    with pytest.raises(ValueError, match="head dim"):
+        tflash.body_for(torch.bfloat16, 256)
+    with pytest.raises(TypeError, match="no body"):
+        tflash.body_for(torch.float16, 64)
+
+
 @pytest.mark.parametrize("causal,window,t", [(False, 0, 96), (True, 16, 96),
                                              (True, 0, 160)])
 def test_attention_ref_tail_offset_and_masks(causal, window, t):

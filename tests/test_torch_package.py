@@ -19,12 +19,13 @@ FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "kernel_bench.py"]
 
 
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
-    for want in ("chip_smoke.py", "src/repro_torch/launch/serve.py",
+    for want in ("chip_smoke.py", "kernel_bench.py",
+                 "src/repro_torch/launch/serve.py",
                  "src/repro_torch/kernels/paged_attention.py",
                  "src/repro_torch/kernels/flash_attention.py",
                  "src/repro_torch/kernels/async_gather.py",
@@ -35,7 +36,7 @@ def test_port_files_exist():
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.iterdir()} >= {
-        "common.cuh", "amu_ring.cuh", "paged_attention.cu",
+        "common.cuh", "amu_ring.cuh", "hopper.cuh", "paged_attention.cu",
         "flash_attention.cu", "async_gather.cu", "async_scatter.cu",
         "stream_triad.cu"}
 
