@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py                  # everything, needs one NVIDIA card
     python3 chip_smoke.py --kernels-only   # phases 1-3: build and check kernels
+    python3 chip_smoke.py --mutants        # phase 3 must catch broken kernels
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. device: a CUDA card must be there; its name and power limit are printed.
 2. build: every CUDA source of `src/repro_torch/kernels/csrc/` is compiled,
    and the machine code must hold the Hopper paths: wgmma and TMA loads in
-   flash_attention, bulk copies in async_gather (cuobjdump).
+   flash_attention, TMA loads and mma.sync in paged_attention, bulk copies
+   in async_gather and stream_triad (cuobjdump).
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the reference test shapes and at the full-width serve shapes
    (bf16, G=8, D=128). Inputs are drawn so that the logits have a standard
@@ -17,7 +19,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    outputs are of order 0.1 to 1. fp32 is held to atol 2e-5 / rtol 1e-4;
    bf16 to one bf16 step of the value (rtol 1e-2, atol 1e-4), to which
    flash, whose P is rounded to bf16, adds the worst that rounding can do,
-   2^-8 of sum_i p_i |v_i| (taken as 5e-3 of it). Flash's bf16 cases reach
+   2^-8 of sum_i p_i |v_i| (taken as 5e-3 of it). Paged's cases reach its
+   edges: lengths 0, 1, page - 1, page, page + 1 and T in one batch, B=1 at
+   T=32768 (also with one KV head, whose last block merges ~132 partials),
+   GQA groups 1, 3, 5, 7, 8, every head size in both types, and
+   two calls in a row on one workspace (its tickets must be reset). Flash's
+   bf16 cases reach
    both of its tensor-core bodies and the wgmma body's edges (S ragged
    against 128 and below it, windows, GQA groups 1, 7, 8). Each is timed
    with CUDA events beside its plain version and one
@@ -29,9 +36,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    reference tests' shapes, its 10 seeded scatter fuzz cases, 8- and 12-byte
    rows and ragged lengths, the gather's two paths (bulk copies at 512-byte
    and 4 KB rows, also on a table 16 bytes in; cp.async on one 4 bytes in)
-   at M = 1, 7, 131, 4000: gather and int32 scatter bit-exact, f32
-   scatter-add within atol=rtol=1e-4, triad 1e-6 (f32) / 2e-2 (bf16); and
-   what their wrappers refuse must raise.
+   at M = 1, 7, 131, 4000, triad at N = 1, 3, 7, 4097, 2^20 + 5: gather and
+   int32 scatter bit-exact, f32 scatter-add within atol=rtol=1e-4, triad
+   1e-6 (f32) / 2e-2 (bf16); and what their wrappers refuse must raise
+   (among them a triad operand 4 bytes off a 16-byte boundary).
 4. slice: `repro_torch.launch.serve` serves qwen2.5-3b at full width with
    `--use-kernels --offload-kv`; offloaded tokens must equal the baseline's,
    the launch counters must show the kernels carried the run, and prefill
@@ -174,10 +182,13 @@ def host_us(call, n: int = 50) -> float:
 
 # ------------------------------------------------------------------ phase 2
 # Hopper instructions that must be in a library's machine code: wgmma
-# (HGMMA) on tiles loaded by TMA (UTMALDG) for flash, bulk copies (UBLKCP)
-# for the gather's rows.
+# (HGMMA) on tiles loaded by TMA (UTMALDG) for flash, TMA loads of K/V
+# pages and mma.sync (HMMA) for paged attention, bulk copies (UBLKCP) for the
+# gather's rows and triad's steps.
 SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
-             "async_gather": ("UBLKCP",)}
+             "async_gather": ("UBLKCP",),
+             "paged_attention": ("UTMALDG", "HMMA"),
+             "stream_triad": ("UBLKCP",)}
 
 
 def check_sass(out_dir) -> dict:
@@ -333,6 +344,82 @@ def paged_bound(lengths, hq, hkv, d, dtype):
                                        else "operations")
 
 
+def paged_case(gen, b, hq, hkv, t, d, dtype):
+    return (randn(gen, (b, hq, d), dtype, Q_SCALE),
+            randn(gen, (b, t, hkv, d), dtype), randn(gen, (b, t, hkv, d), dtype))
+
+
+def check_paged_edges(gen) -> float:
+    """The redesigned kernel's edges, each against the plain version at the
+    same limits: lengths at the aload's and the page's boundaries (0, 1,
+    page - 1, page, page + 1, T) in one batch, one long sequence that the
+    ring streams (also with one KV head, whose last block merges a partial
+    of every block), every GQA group of the model zoo and 1, every head size
+    in both types, and two calls in a row on one workspace, whose tickets
+    the first call's last blocks must have reset. Returns the worst fp32
+    error."""
+    from repro_torch.kernels import paged_attention as pa, ref
+
+    log("paged_attention edges (lengths, long T, GQA groups, head sizes, "
+        "workspace reuse)")
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FP32_TOL if dtype == torch.float32 else PAGED_BF16_TOL
+        for page in (16, 32, 64):
+            t = 4 * page + 3
+            lens = torch.tensor([0, 1, page - 1, page, page + 1, t],
+                                dtype=torch.int32, device="cuda")
+            q, kc, vc = paged_case(gen, 6, 16, 2, t, 128, dtype)
+            err = check_close(
+                f"{str(dtype)[6:]} page{page} T{t} lengths {lens.tolist()}",
+                pa.paged_attention(q, kc, vc, lens, page=page),
+                ref.paged_attention_ref(q, kc, vc, lens), **tol)
+            if dtype == torch.float32:
+                worst = max(worst, err)
+        for g in (1, 3, 5, 7, 8):
+            for d in (16, 32, 64, 128):
+                q, kc, vc = paged_case(gen, 2, 2 * g, 2, 333, d, dtype)
+                lens = torch.tensor([333, 77], dtype=torch.int32,
+                                    device="cuda")
+                err = check_close(
+                    f"{str(dtype)[6:]} G{g} D{d}",
+                    pa.paged_attention(q, kc, vc, lens),
+                    ref.paged_attention_ref(q, kc, vc, lens), quiet=True,
+                    **tol)
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+    log("  GQA groups 1, 3, 5, 7, 8 x head sizes 16-128 x both types agree")
+    # one long sequence: the ring streams, and with one KV head (hg = 1)
+    # every block holds a piece of one segment, so its last block merges
+    # ~132 partials (the merge's batches past 64 of a warp)
+    lens = torch.tensor([32768], dtype=torch.int32, device="cuda")
+    for hq, hkv, dtype in ((16, 2, torch.bfloat16), (8, 1, torch.float32),
+                           (8, 1, torch.bfloat16)):
+        q, kc, vc = paged_case(gen, 1, hq, hkv, 32768, 128, dtype)
+        plan, (slots, _) = pa.launch_plan(q, kc), pa.ring(q, kc)
+        err = check_close(
+            f"{str(dtype)[6:]} B1 Hq{hq} Hkv{hkv} T32768 ({plan.blocks} "
+            f"blocks, {slots} slots of {plan.rows} rows)",
+            pa.paged_attention(q, kc, vc, lens),
+            ref.paged_attention_ref(q, kc, vc, lens),
+            **(FP32_TOL if dtype == torch.float32 else PAGED_BF16_TOL))
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        del q, kc, vc
+    # two calls in a row on one workspace, outputs kept apart: a ticket left
+    # standing by the first would keep the second from writing its output
+    cases = [paged_case(gen, 4, 16, 2, 1032, 128, torch.float32)
+             for _ in range(2)]
+    lens = torch.tensor([1032, 1001, 517, 64], dtype=torch.int32,
+                        device="cuda")
+    outs = [pa.paged_attention(*c, lens) for c in cases]
+    for i, (c, out) in enumerate(zip(cases, outs)):
+        worst = max(worst, check_close(
+            f"fp32 call {i + 1} of 2 on one workspace", out,
+            ref.paged_attention_ref(*c, lens), **FP32_TOL))
+    return worst
+
+
 def check_paged(gen):
     from repro_torch.kernels import paged_attention as pa, ref
     import torch.nn.functional as F
@@ -365,6 +452,7 @@ def check_paged(gen):
                     pa.paged_attention(q, kc, vc, lens),
                     ref.paged_attention_ref(q, kc, vc, lens),
                     **PAGED_BF16_TOL)
+    worst = max(worst, check_paged_edges(gen))
 
     # the serve shape: full-width qwen2.5-3b decode, T ragged, mixed lengths
     from repro_torch import configs
@@ -401,8 +489,12 @@ def check_paged(gen):
                 **LIBRARY_TOL)
     library_ms = time_ms([lambda s=s: library(s) for s in sets], 64)
     bound_ms, bound_by = paged_bound(lens, hq, hkv, d, torch.bfloat16)
-    log(f"  serve shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    host = host_us(lambda: pa.paged_attention(q, kc, vc, lens))
+    plan, (slots, _) = pa.launch_plan(q, kc), pa.ring(q, kc)
+    log(f"  serve shape ({plan.blocks} blocks, {slots} slots of "
+        f"{plan.rows} rows): kernel {ms:.4f} ms (host {host:.1f} us a call), "
+        f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by})")
     return {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
             "replaces": "src/repro/kernels/paged_attention.py:79",
             "launches": 0, "max_abs_err": max(err, worst), "ms": ms,
@@ -449,7 +541,7 @@ def fuzz_kernels(gen, cases=40):
         qd = randn(gen, (b, hkv * g, d), dtype, Q_SCALE)
         kc = randn(gen, (b, t, hkv, d), dtype)
         vc = randn(gen, (b, t, hkv, d), dtype)
-        lens = torch.tensor([rnd.randint(1, t) for _ in range(b)],
+        lens = torch.tensor([rnd.randint(0, t) for _ in range(b)],
                             dtype=torch.int32, device="cuda")
         got = pa.paged_attention(qd, kc, vc, lens, page=page)
         want = ref.paged_attention_ref(qd, kc, vc, lens)
@@ -540,6 +632,7 @@ def check_amu_kernels(gen):
     from repro_torch.kernels import async_gather as ag
     from repro_torch.kernels import async_scatter as asc
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import stream_triad as st
 
     log("async_gather vs ref.gather_ref: bit-exact")
@@ -643,6 +736,13 @@ def check_amu_kernels(gen):
                 f"{str(dtype)[6:]} N{n} block{block}",
                 st.stream_triad(b, c, 3.0, block=block),
                 ref.triad_ref(b, c, 3.0), **tol))
+    for n in (1, 3, 7, 4097, (1 << 20) + 5):     # bulk steps and the tail
+        for dtype in (torch.float32, torch.bfloat16):
+            b, c = randn(gen, (n,), dtype), randn(gen, (n,), dtype)
+            triad_worst = max(triad_worst, check_close(
+                f"{str(dtype)[6:]} N{n}", st.stream_triad(b, c, 3.0),
+                ref.triad_ref(b, c, 3.0), quiet=True, **TRIAD_TOL[dtype]))
+    log("  N = 1, 3, 7, 4097, 2^20 + 5 agree in both types")
     b, c = randn(gen, (1000,), torch.float32), randn(gen, (1000,),
                                                       torch.float32)
     triad_worst = max(triad_worst, check_close(
@@ -663,6 +763,13 @@ def check_amu_kernels(gen):
         ("stream_triad, int32", TypeError,
          lambda: st.stream_triad(zeros(8, dtype=torch.int32),
                                  zeros(8, dtype=torch.int32), 1.0)),
+        ("stream_triad, b 4 bytes off a 16-byte boundary", ValueError,
+         lambda: st.stream_triad(zeros(1025)[1:], zeros(1024), 1.0)),
+        ("paged_attention, a cache row 4 bytes off 16 bytes", ValueError,
+         lambda: pa.paged_attention(zeros(1, 2, 16), zeros(1, 8, 2, 17)[..., 1:],
+                                    zeros(1, 8, 2, 16),
+                                    torch.ones(1, dtype=torch.int32,
+                                               device="cuda"))),
     ]
     for name, exc, call in refusals:
         try:
@@ -979,7 +1086,10 @@ def run_amu(kernels, worst):
     library_ms = time_ms([lambda: torch.add(b, c, alpha=3.0)], 20)
     report(name, "stream_triad", ms=ms, plain_ms=plain_ms,
            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-           bytes=nbytes)
+           bytes=nbytes, host_us=host_us(lambda: st.stream_triad(b, c, 3.0)),
+           library_host_us=host_us(lambda: torch.add(b, c, alpha=3.0)))
+    log(f"    host {cases[-1]['host_us']:.1f} us a call (torch.add "
+        f"{cases[-1]['library_host_us']:.1f} us)")
     triad_main = cases[-1]
     del a, b, c
     free_cuda()
@@ -1009,6 +1119,76 @@ def run_amu(kernels, worst):
             "bound_by": case["bound_by"], "library_ms": case["library_ms"]})
 
 
+# ------------------------------------------------------------------ mutants
+# Broken copies of the redesigned kernels that phase 3 must catch, each one
+# edit of a source of src/repro_torch/kernels/csrc/: (file, text, its
+# replacement). The text must be in the file exactly once, so that a mutant
+# always breaks the kernel as it stands.
+PAGED_GETFIN = ("    mbar_wait(&full[j % a.slots], (uint32_t)((j / a.slots) & 1));"
+                "  // getfin\n")
+TRIAD_GETFIN = ("    mbar_wait(&full[t % stages], (uint32_t)((t / stages) & 1));"
+                "  // getfin\n")
+TRIAD_STORE = ("      bulk_store(a + c0 * VEC, dst, (uint32_t)nc * 16);"
+               "   // astore\n      bulk_commit();\n")
+MUTANTS = {
+    # the consumers read a slot without waiting for its loads
+    "paged_getfin": [("paged_attention.cu", PAGED_GETFIN, "")],
+    # the last block of a segment leaves its ticket standing
+    "paged_ticket": [("paged_attention.cu",
+                      "      if (last) atomicExch(&a.tickets[cur], 0);",
+                      "")],
+    # the merge leaves out the last partial of its second set
+    "paged_merge": [("paged_attention.cu",
+                     "    const int np_all = set == 0 ? half : count - half;",
+                     "    const int np_all = set == 0 ? half : "
+                     "count - half - 1;")],
+    # the threads compute from a slot without waiting for its loads
+    "triad_getfin": [("stream_triad.cu", TRIAD_GETFIN, "")],
+    # a slot's bulk store is issued before the threads have computed it
+    "triad_store": [("stream_triad.cu", TRIAD_STORE, ""),
+                    ("stream_triad.cu", TRIAD_GETFIN,
+                     TRIAD_GETFIN + "    if (elected) {\n" + TRIAD_STORE
+                     + "    }\n")],
+}
+
+
+def run_mutants(timeout_s: int = 300) -> bool:
+    """Builds each mutant in a copy of src/ and this script under
+    build/mutants/ and runs `--kernels-only` there, killed after
+    `timeout_s`. Prints each copy's exit code and first failing check; true
+    if every copy failed or hung."""
+    import shutil
+
+    caught = True
+    for name, edits in MUTANTS.items():
+        dst = os.path.join(ROOT, "build", "mutants", name)
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(os.path.join(ROOT, "src"), os.path.join(dst, "src"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(os.path.abspath(__file__), dst)
+        for source, old, new in edits:
+            path = os.path.join(dst, "src", "repro_torch", "kernels", "csrc",
+                                source)
+            with open(path) as f:
+                text = f.read()
+            if text.count(old) != 1:
+                raise AssertionError(f"mutant {name}: its text is not in "
+                                     f"{source} exactly once")
+            with open(path, "w") as f:
+                f.write(text.replace(old, new))
+        proc = subprocess.run(
+            ["timeout", "-s", "KILL", str(timeout_s), sys.executable,
+             os.path.join(dst, "chip_smoke.py"), "--kernels-only"],
+            capture_output=True, text=True)
+        why = [line.strip() for line in proc.stdout.splitlines()
+               if line.endswith("FAIL")] \
+            or proc.stderr.strip().splitlines()[-1:] or ["no output"]
+        log(f"mutant {name}: exit {proc.returncode} "
+            f"({'caught' if proc.returncode else 'NOT CAUGHT'}): {why[0]}")
+        caught = caught and proc.returncode != 0
+    return caught
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1017,6 +1197,9 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="build with -Xptxas -v and print the compiler's "
                          "report of registers, shared memory and spills")
+    ap.add_argument("--mutants", action="store_true",
+                    help="only build the broken kernels of MUTANTS and "
+                         "check that phase 3 fails on each")
     args = ap.parse_args()
     t_start = time.time()
 
@@ -1032,6 +1215,10 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{count} device(s)")
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references stay fp32
+    if args.mutants:
+        caught = run_mutants()
+        log(card)
+        return 0 if caught else 1
 
     # 2. build
     from repro_torch.kernels import _build

@@ -1,6 +1,5 @@
 // Hopper building blocks shared by the kernels that use TMA, mbarriers and
-// wgmma (flash_attention's wgmma body, async_gather's bulk-copy ring): raw PTX
-// for sm_90a, no library.
+// wgmma: raw PTX for sm_90a, no library.
 //
 //   mbarrier  init / arrive / arrive.expect_tx / try_wait.parity: a barrier
 //             in shared memory that counts both thread arrivals and the bytes
@@ -13,6 +12,8 @@
 //   math      ex2 on the special-function unit;
 //   host      the tensor-map encoder, taken from the driver through the
 //             runtime (cudaGetDriverEntryPoint), so no -lcuda is needed.
+// Used by flash_attention (wgmma body), async_gather (bulk-copy ring),
+// paged_attention (TMA page ring) and stream_triad (bulk-copy ring).
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums: types only
@@ -188,13 +189,14 @@ cudaError_t allow_smem(SmemAllowance& state, Kernel kernel, int bytes) {
   return err;
 }
 
-// cuTensorMapEncodeTiled for a bf16 tensor of `rank` dims (innermost first,
-// dim 0 contiguous), strides in bytes of dims 1.., 128-byte swizzle, zero
-// fill out of bounds.
-inline cudaError_t encode_tensor_map_bf16(CUtensorMap* map, const void* base,
-                                          int rank, const cuuint64_t* dims,
-                                          const cuuint64_t* strides,
-                                          const cuuint32_t* box) {
+// cuTensorMapEncodeTiled for a tensor of `rank` dims (innermost first, dim 0
+// contiguous), strides in bytes of dims 1.., zero fill out of bounds.
+inline cudaError_t encode_tensor_map(CUtensorMap* map,
+                                     CUtensorMapDataType type, int rank,
+                                     const void* base, const cuuint64_t* dims,
+                                     const cuuint64_t* strides,
+                                     const cuuint32_t* box,
+                                     CUtensorMapSwizzle swizzle) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -213,11 +215,19 @@ inline cudaError_t encode_tensor_map_bf16(CUtensorMap* map, const void* base,
   }
   cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-      dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, rank, const_cast<void*>(base), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same for a bf16 tensor with the 128-byte swizzle that wgmma reads.
+inline cudaError_t encode_tensor_map_bf16(CUtensorMap* map, const void* base,
+                                          int rank, const cuuint64_t* dims,
+                                          const cuuint64_t* strides,
+                                          const cuuint32_t* box) {
+  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, base,
+                           dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace hopper

@@ -1,244 +1,829 @@
 // paged_attention: single-token decode attention over a contiguous KV cache
-// with a valid prefix per sequence.
+// with a valid prefix per sequence, in one launch.
 //
 // Replaces the TPU kernel `_paged_kernel` / `paged_attention` of
 // src/repro/kernels/paged_attention.py. There the page axis is a sequential
-// grid axis that carries (m, l, acc) in scratch from one page to the next.
-// CUDA blocks run in no order and share nothing, so here the cache is cut
-// into splits of at most one page: block (split, kv-head, b) walks the rows of
-// its split in a loop and writes a partial (m, l, acc) per query head, and a
-// second small kernel merges the partials of a head and divides by
-// max(l, 1e-30).
+// grid axis: each step's page of K and V arrives in VMEM by a DMA the
+// pipeline issues ahead, and (m, l, acc) are carried in scratch from one page
+// to the next; pages past lengths[b] are skipped.
 //
 // Bound on this card: bytes. Every valid K and V row is read once and used
-// for one dot product and one update per query head of the group (G = 8 at
-// full width), far below the operations per byte the card needs to be compute
-// bound. So the design is about bytes: one block serves the whole GQA group so
-// K and V are read once per KV head, not once per query head; rows past
-// lengths[b] are never touched; each lane reads its share of a row as one
-// vector and a warp reads a whole row as one contiguous run; each warp issues
-// the loads of its next row before it computes on the current one (issue
-// early, wait late); the cache is read in place through its strides, whatever
-// T is, so nothing is padded or copied.
+// for one dot product and one update a query head of its GQA group (G = 8 at
+// qwen2.5-3b's width), far below the operations a byte the card needs to be
+// compute bound. At the serve shape (B = 4, two KV heads, 2614 valid rows a
+// head) the valid K/V is 2.68 MB, ~20 KB an SM, while 3.35 TB/s x ~0.7 us
+// of DRAM latency needs ~2.3 MB in flight across the card: by Little's law
+// a block has to put its whole share of rows in flight before it waits on
+// the first. The design is the paper's mechanism:
 //
-// Arithmetic is fp32 FMAs with fp32 (m, l, acc) and expf for fp32 and bf16
-// inputs alike; the output is cast to the input type.
+//   - aload = one mbarrier phase of a shared-memory slot: a producer warp
+//     (the 17th) arms the slot with expect_tx(bytes) and issues TMA tile
+//     loads (cp.async.bulk.tensor) of `rows` = min(page, 32) rows of one
+//     (b, KV head) of K and of V, through tensor maps over the caches' own
+//     [B, T, Hkv, D] strides, in boxes of at most 128 bytes of a row (two a
+//     tensor at bf16 D = 128); getfin = try_wait.parity on the slot's *full*
+//     mbarrier. A ring of up to 8 slots (`ring_slots`: one block an SM) is
+//     primed with every chunk of the block's share before the first wait,
+//     and the producer refills a slot once the 8 consumer warps of the set
+//     that took it have arrived on its *empty* mbarrier. Rows past T arrive
+//     as zeros; rows past the chunk are masked;
+//   - the work is split from `lengths` on the device, never by the host
+//     (which would cost a synchronisation a layer a step): every block scans
+//     the lengths into prefix sums in shared memory, lays the valid rows of
+//     all (b, KV head, head group) segments end to end, W rows in all, and
+//     takes rows [i * ceil(W / blocks), (i + 1) * ceil(W / blocks)). So the
+//     blocks share the valid rows evenly, a block may span segments and a
+//     segment blocks, and no block walks a masked row. The host plans only
+//     the grid from T, B, Hkv and the card (`locate`, `block_chunks` and
+//     `pieces` in paged_attention.py mirror the split for the CPU tests);
+//   - one launch: a block that ends its share of a segment that other
+//     blocks share writes a partial (m, l, acc) to the workspace and takes a
+//     ticket by one atom.add.acq_rel.gpu after a barrier (release: the
+//     block's partial is visible first; acquire: the last block sees every
+//     other's); the last block of the segment merges the partials, its two
+//     warp sets half each, 4 partials' loads in flight a warp (with 8 or 16
+//     the 96 registers a thread of a 17-warp block spill), writes `out`
+//     and resets the ticket to 0 for the next call. A segment a block
+//     holds alone is written directly. A segment with no valid row
+//     (lengths[b] <= 0) gets 0, as in the reference kernel;
+//   - two sets of 8 consumer warps take the chunks in turn (even, odd), each
+//     with its own (m, l, acc), handed over through shared memory at the
+//     end of a segment; warp w of a set owns query head w of a group of up
+//     to 8 (G > 8 takes several groups) for the softmax, a lane a row of
+//     the chunk, so a chunk's max and sum take 10 shuffles a head;
+//   - bf16 at D = 64 and 128 (`tensor_core_qk`): Q K^T by mma.sync
+//     m16n8k16, K rows as A (ldmatrix from the 128-byte swizzled boxes, so 8
+//     rows are read without bank conflicts), the group's 8 queries as B in
+//     registers; bf16 products are exact in fp32. P V by mma.sync too, warp
+//     w taking columns [w D / 8, (w + 1) D / 8) of all heads: P is split
+//     into two bf16 parts, p = hi + lo, and both go through the tensor
+//     cores, so P keeps ~16 bits and the result fp32's accuracy (the bf16
+//     checks need no P term, unlike flash's); V by ldmatrix.trans. fp32,
+//     and bf16 at D = 16 and 32, stay on fp32 FMAs: Q K^T with a lane on D/32
+//     columns and one transpose reduction (31 shuffles a chunk) that leaves
+//     row r's logit on lane r, P V with p_r broadcast by a shuffle.
+//     expf, as the reference; the output is cast to the input type.
+//
+// What the design steps measured (H100, `kernel_bench.py` and timestamps
+// per block; PERF.md): one cp.async.bulk a row issued by the consumers cost
+// ~5 us a chunk; with TMA boxes and a producer warp the arithmetic on FMAs
+// was ~2 us a chunk, latency-bound; on the tensor cores it is ~0.8 us, and
+// the last block's merge is the longest single step.
 
+#include "amu_ring.cuh"
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace repro;
+using namespace repro::hopper;
 
-constexpr int GC = 8;      // query heads of one KV group served by one block
-constexpr int NWARP = 4;   // warps per block; each takes every NWARP-th row
+constexpr int GC = 8;            // query heads a block serves, a warp each
+constexpr int MAX_SLOTS = 8;     // slots a ring: 256 rows in flight a block
+constexpr int NSET = 2;          // sets of GC warps, taking chunks in turn
+constexpr int NT = NSET * GC * 32;   // consumer threads; one producer warp
+constexpr int PSTR = 40;         // bf16 row stride of P: conflict-free reads
+// floats of one exchange buffer: logits, P hi and lo, alpha
+constexpr int XCH_FLOATS = GC * 32 + GC * PSTR + GC;
+constexpr unsigned FULL = 0xffffffffu;
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* lengths;
+  void* out;
+  float* part;                   // [pieces][GC m, GC l, GC x D acc]
+  int* tickets;                  // [segments], zero between launches
+  int B, Hq, Hkv, T, G, ngc, rows, slots;
+  long long q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
+  float scale;
+};
+
+// Barrier 1 over the NT consumer threads only (the producer warp runs on).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
+}
+
+// The same, returning whether `pred` held on any consumer thread.
+__device__ __forceinline__ int consumers_or(int pred) {
+  int any;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.s32 p, %1, 0;\n"
+      "bar.red.or.pred q, 1, %2, p;\nselp.s32 %0, 1, 0, q;\n}\n"
+      : "=r"(any)
+      : "r"(pred), "n"(NT)
+      : "memory");
+  return any;
+}
+
+// atomicAdd(p, 1) with release and acquire semantics at GPU scope.
+__device__ __forceinline__ int ticket_acq_rel(int* p) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(p)
+               : "memory");
+  return old;
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
   return x;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NWARP * 32)
-paged_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ lengths,
-                     float* __restrict__ part_acc, float* __restrict__ part_m,
-                     float* __restrict__ part_l, int Hq, int G, int T_len,
-                     int nsplit, int rows_per_split, long long q_sb,
-                     long long q_sh, long long k_sb, long long k_st,
-                     long long k_sh, long long v_sb, long long v_st,
-                     long long v_sh, float scale) {
-  constexpr int EPL = (D >= 32) ? D / 32 : 1;   // elements per lane
-  const int split = blockIdx.x;
-  const int ngc = (G + GC - 1) / GC;
-  const int hkv = blockIdx.y / ngc;
-  const int g0 = (blockIdx.y % ngc) * GC;
-  const int gn = min(GC, G - g0);
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int d0 = lane * EPL;
-  const bool active = d0 < D;
-
-  const int len = min(lengths[b], T_len);
-  const int t0 = split * rows_per_split;
-  const int t1 = min(t0 + rows_per_split, len);
-
-  float qr[GC][EPL];
+__device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    if (g < gn && active) {
-      load_vec<T, EPL>(q + b * q_sb + (long long)(hkv * G + g0 + g) * q_sh + d0,
-                       qr[g]);
-    } else {
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(FULL, x, off));
+  return x;
+}
+
+__host__ __device__ constexpr int round16(int n) { return (n + 15) & ~15; }
+
+// One step of a transpose reduction over a warp: lanes l and l ^ OFF swap
+// the halves of part[0, 2 OFF) they do not keep and add. After the steps 16,
+// 8, 4, 2, 1, lane r holds in part[0] the warp's sum of everyone's part[r].
+// OFF is a template argument so that every index is known at compile time
+// and part stays in registers.
+template <int OFF>
+__device__ __forceinline__ void transpose_sum(float (&part)[32], int lane) {
+  const bool upper = lane & OFF;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) qr[g][e] = 0.f;
+  for (int i = 0; i < OFF; ++i) {
+    const float send = upper ? part[i] : part[i + OFF];
+    const float keep = upper ? part[i + OFF] : part[i];
+    part[i] = keep + __shfl_xor_sync(FULL, send, OFF);
+  }
+}
+
+// N floats from L2 (ld.global.cg: the partials of other blocks, never a line
+// this SM's L1 may hold from an earlier read), as one vector where N is 2 or 4.
+template <int N>
+__device__ __forceinline__ void ldcg_vec(const float* p, float (&x)[N]) {
+  if constexpr (N == 4) {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+    x[0] = v.x; x[1] = v.y;
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) x[e] = __ldcg(p + e);
+  }
+}
+
+// The segment holding global valid row g: s, the row t within it and the
+// segment's end in the global order. P are the B + 1 prefix sums of the
+// lengths, hg the segments a sequence. (`locate` in paged_attention.py.)
+__device__ __forceinline__ void locate(const long long* P, int B, int hg,
+                                       long long g, int& s, long long& t,
+                                       long long& end) {
+  int lo = 0, hi = B - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (P[mid] * hg <= g) lo = mid; else hi = mid - 1;
+  }
+  const long long n = P[lo + 1] - P[lo];
+  const long long off = g - P[lo] * hg;
+  const long long j = off / n;
+  s = lo * hg + (int)j;
+  t = off - j * n;
+  end = P[lo] * hg + (j + 1) * n;
+}
+
+// Elements of a row in one TMA box: at most 128 bytes.
+template <typename E, int D>
+__host__ __device__ constexpr int box_cols() {
+  return D * (int)sizeof(E) > 128 ? 128 / (int)sizeof(E) : D;
+}
+
+// Q K^T on the tensor cores: bf16 with rows of whole 128-byte boxes, which
+// TMA lays out under the 128-byte swizzle so that ldmatrix reads 8 rows
+// without bank conflicts. Other inputs take fp32 FMAs.
+template <typename E, int D>
+__host__ __device__ constexpr bool tensor_core_qk() {
+  return sizeof(E) == 2 && D >= 64;
+}
+
+// A block's shared memory, in bytes from its start: the kernel carves it
+// and the launch sizes it from this one function. Two mbarriers a slot
+// (loaded, released); the B + 1 prefix sums of the lengths; `comb`, set 1's
+// (m, l, acc) of each head handed to set 0 at a segment's end; `tacc`, a
+// set's accumulators in rows of heads (TC); `xch`, two exchange buffers a
+// set (XCH_FLOATS each); then, from `ring` on the first 1024-byte boundary,
+// the slots: K then V, each D / box_cols boxes of `rows` rows, a box
+// rounded up to 1024 bytes as the TMA swizzle wants.
+struct PagedSmem {
+  int P, comb, tacc, xch, ring;  // offsets
+  int box, slot;                 // bytes of a box and of a slot
+  int bytes;                     // the whole, with 1024 to align the slots
+};
+
+template <typename E, int D>
+__host__ __device__ PagedSmem paged_smem(int B, int rows, int slots) {
+  constexpr int IN = box_cols<E, D>();
+  PagedSmem m;
+  m.P = round16(2 * slots * 8);
+  m.comb = m.P + round16((B + 1) * 8);
+  m.tacc = m.comb + 4 * GC * (D + 2);
+  m.xch = m.tacc + 4 * NSET * GC * D;
+  m.ring = m.xch + 4 * NSET * 2 * XCH_FLOATS;
+  m.box = (rows * IN * (int)sizeof(E) + 1023) & ~1023;
+  m.slot = 2 * (D / IN) * m.box;
+  m.bytes = m.ring + 1024 + slots * m.slot;
+  return m;
+}
+
+// The deepest ring of at most MAX_SLOTS slots whose block fits in MAX_SMEM
+// (one block an SM), and its bytes; 0 slots where none fits.
+template <typename E, int D>
+int ring_slots(int B, int rows, int* smem) {
+  for (int slots = MAX_SLOTS; slots >= 1; --slots) {
+    *smem = paged_smem<E, D>(B, rows, slots).bytes;
+    if (*smem <= MAX_SMEM) return slots;
+  }
+  return 0;
+}
+
+// Barrier 2 + set over the 8 warps of one consumer set.
+__device__ __forceinline__ void set_sync(int set) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(2 + set), "n"(GC * 32) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// The first two of r (lanes 0-15 give the addresses).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// D += A B on bf16 m16n8k16 fragments (g = lane / 4, t = lane % 4):
+// A (16x16, row): a0 = (g, 2t..2t+1) a1 = (g+8, 2t..) a2 = (g, 2t+8..)
+// a3 = (g+8, 2t+8..); B (16x8, col): b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..,
+// n g); D: d0, d1 = (g, 2t..2t+1), d2, d3 = (g+8, 2t..2t+1).
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <typename E, int D>
+__global__ void __launch_bounds__(NT + 32)
+paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap) {
+  constexpr int ITEM = sizeof(E);
+  constexpr int IN = box_cols<E, D>();       // columns of a box
+  constexpr int NBX = D / IN;                // boxes a row
+  constexpr int EPL = D >= 32 ? D / 32 : 1;  // columns a lane
+  constexpr bool TC = tensor_core_qk<E, D>();
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const PagedSmem L = paged_smem<E, D>(a.B, a.rows, a.slots);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // a slot loaded
+  uint64_t* empty = full + a.slots;                     // a slot released
+  long long* P = reinterpret_cast<long long*>(smem + L.P);
+  float* comb = reinterpret_cast<float*>(smem + L.comb);
+  float* tacc = reinterpret_cast<float*>(smem + L.tacc);
+  // a chunk's exchange between a set's warps (TC), two buffers a set: the
+  // logits [GC][32] and P in two bf16 parts [GC][PSTR] (p = hi + lo, so that
+  // P V on the tensor cores keeps fp32 accuracy), and each head's alpha
+  float* xch = reinterpret_cast<float*>(smem + L.xch);
+  unsigned char* slots = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem + L.ring) + 1023) & ~(uintptr_t)1023);
+  const size_t box_bytes = L.box;
+  const size_t half_bytes = NBX * box_bytes;
+  const size_t slot_bytes = L.slot;
+  // element (r, d) of a slot's K (or V) half; under the 128-byte swizzle
+  // (TC) the 16-byte piece p of row r sits at p ^ (r % 8)
+  auto at = [&](const unsigned char* half, int r, int d) {
+    const int byte = (d % IN) * ITEM;
+    const int in_row = TC ? ((((byte >> 4) ^ (r & 7)) << 4) | (byte & 15))
+                          : byte;
+    return reinterpret_cast<const E*>(half + (d / IN) * box_bytes +
+                                      r * IN * ITEM + in_row);
+  };
+
+  const E* q = static_cast<const E*>(a.q);
+  E* out = static_cast<E*>(a.out);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hw = warp % GC, set = warp / GC;   // a consumer's head and set
+  const int hg = a.Hkv * a.ngc;              // segments a sequence
+  const int S = a.B * hg;
+
+  if (tid < a.slots) {
+    mbar_init(&full[tid], 1);
+    mbar_init(&empty[tid], GC);   // the 8 warps of the set that took it
+  }
+  if (tid == NT) {              // the descriptors, while the lengths arrive
+    asm volatile("prefetch.tensormap [%0];" ::"l"(&kmap) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(&vmap) : "memory");
+  }
+  if (warp == 0) {                           // prefix sums of the lengths
+    long long carry = 0;
+    if (lane == 0) P[0] = 0;
+    for (int base = 0; base < a.B; base += 32) {
+      const int b = base + lane;
+      long long x = b < a.B ? (long long)min(max(a.lengths[b], 0), a.T) : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const long long y = __shfl_up_sync(FULL, x, off);
+        if (lane >= off) x += y;
+      }
+      if (b < a.B) P[b + 1] = carry + x;
+      carry += __shfl_sync(FULL, x, 31);
     }
   }
-
-  float m[GC], l[GC], acc[GC][EPL];
-#pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
-  }
-
-  const T* kb = k + b * k_sb + hkv * k_sh + d0;
-  const T* vb = v + b * v_sb + hkv * v_sh + d0;
-  float kc[EPL], vc[EPL], kn[EPL], vn[EPL];
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) kc[e] = vc[e] = kn[e] = vn[e] = 0.f;
-
-  int t = t0 + warp;
-  if (t < t1 && active) {
-    load_vec<T, EPL>(kb + t * k_st, kc);
-    load_vec<T, EPL>(vb + t * v_st, vc);
-  }
-  for (; t < t1; t += NWARP) {
-    const int tn = t + NWARP;
-    if (tn < t1 && active) {            // issue the next row's loads early
-      load_vec<T, EPL>(kb + tn * k_st, kn);
-      load_vec<T, EPL>(vb + tn * v_st, vn);
-    }
-    float s[GC];
-#pragma unroll
-    for (int g = 0; g < GC; ++g) {
-      float d = 0.f;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) d = fmaf(qr[g][e], kc[e], d);
-      s[g] = d;
-    }
-#pragma unroll
-    for (int g = 0; g < GC; ++g) s[g] = warp_sum(s[g]) * scale;
-#pragma unroll
-    for (int g = 0; g < GC; ++g) {
-      const float m_new = fmaxf(m[g], s[g]);
-      const float alpha = expf(m[g] - m_new);
-      const float p = expf(s[g] - m_new);
-      l[g] = l[g] * alpha + p;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e)
-        acc[g][e] = fmaf(p, vc[e], acc[g][e] * alpha);
-      m[g] = m_new;
-    }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      kc[e] = kn[e];
-      vc[e] = vn[e];
-    }
-  }
-
-  // merge the warps' running states; a warp that saw no row holds
-  // (NEG_INF, 0, 0) and gets weight 0 (or 1 times zeros if none saw a row)
-  __shared__ float sm_m[NWARP][GC];
-  __shared__ float sm_l[NWARP][GC];
-  __shared__ float sm_acc[NWARP][GC][D];
-#pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-    if (active) {
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
-    }
-  }
+  fence_barrier_init();
   __syncthreads();
-  for (int idx = threadIdx.x; idx < gn * D; idx += NWARP * 32) {
-    const int g = idx / D, d = idx % D;
-    float mx = sm_m[0][g];
-#pragma unroll
-    for (int w = 1; w < NWARP; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float ls = 0.f, as = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARP; ++w) {
-      const float wgt = expf(sm_m[w][g] - mx);
-      ls = fmaf(sm_l[w][g], wgt, ls);
-      as = fmaf(sm_acc[w][g][d], wgt, as);
-    }
-    const long long row =
-        ((long long)b * Hq + (hkv * G + g0 + g)) * nsplit + split;
-    part_acc[row * D + d] = as;
-    if (d == 0) {
-      part_m[row] = mx;
-      part_l[row] = ls;
-    }
+
+  // where segment s's query heads are: sequence, KV head, first head, heads
+  auto heads = [&](int s, int& b, int& h, int& g0, int& gn) {
+    b = s / hg;
+    const int j = s % hg;
+    h = j / a.ngc;
+    g0 = (j % a.ngc) * GC;
+    gn = min(GC, a.G - g0);
+  };
+  auto out_row = [&](int b, int h, int g0, int g) {
+    return out + ((long long)b * a.Hq + (long long)h * a.G + g0 + g) * D;
+  };
+
+  // segments with no valid row get 0, a block taking every gridDim-th
+  for (int s = blockIdx.x; s < S; s += gridDim.x) {
+    if (P[s / hg + 1] != P[s / hg]) continue;
+    int b, h, g0, gn;
+    heads(s, b, h, g0, gn);
+    for (int i = tid; i < gn * D; i += blockDim.x)
+      out_row(b, h, g0, i / D)[i % D] = from_float<E>(0.f);
   }
+
+  const long long W = P[a.B] * hg;           // valid rows of all segments
+  const long long per = (W + gridDim.x - 1) / gridDim.x;
+  const long long lo = min((long long)blockIdx.x * per, W);
+  const long long hi = min(lo + per, W);
+  if (lo >= hi) return;
+
+  // aload of chunk j (the rows from global row g) into slot j % slots;
+  // returns the global row after the chunk
+  auto issue = [&](long long g, int j) -> long long {
+    int s;
+    long long t, end;
+    locate(P, a.B, hg, g, s, t, end);
+    int b, h, g0, gn;
+    heads(s, b, h, g0, gn);
+    unsigned char* dst = slots + (size_t)(j % a.slots) * slot_bytes;
+    uint64_t* bar = &full[j % a.slots];
+    mbar_arrive_expect_tx(bar, (uint32_t)(2 * a.rows * D * ITEM));
+#pragma unroll
+    for (int x = 0; x < NBX; ++x) {
+      tma_load_4d(dst + x * box_bytes, &kmap, bar, x * IN, h, (int)t, b);
+      tma_load_4d(dst + half_bytes + x * box_bytes, &vmap, bar, x * IN, h,
+                  (int)t, b);
+    }
+    return g + min((long long)a.rows, min(end, hi) - g);
+  };
+
+  if (warp == NSET * GC) {      // the producer: every chunk of the share,
+    if (lane == 0) {            // a slot as soon as the consumers free it
+      long long g = lo;
+      for (int j = 0; g < hi; ++j) {
+        if (j >= a.slots)
+          mbar_wait(&empty[j % a.slots], (uint32_t)((j / a.slots - 1) & 1));
+        g = issue(g, j);
+      }
+    }
+    return;
+  }
+
+  const int d0 = lane * EPL;
+  float m = NEG_INF, l = 0.f, acc[EPL], qr[EPL];
+  uint32_t qb[TC ? D / 16 : 1][2];           // Q as mma B fragments (TC)
+  constexpr int NCOL = D / GC;               // P V columns a warp (TC)
+  constexpr int NTW = TC ? NCOL / 8 : 1;     // its mma n-tiles
+  float cacc[NTW][4];                        // its P V accumulators (TC)
+  int cur = -1, b = 0, h = 0, g0 = 0, gn = 0;
+
+  // set 1's (m, l, acc) of each head into set 0's, through shared memory
+  auto hand_over = [&](float& m_, float& l_, float (&acc_)[EPL]) {
+    float* c = comb + hw * (D + 2);
+    if (set == 1 && hw < gn) {
+      if (lane == 0) {
+        c[0] = m_;
+        c[1] = l_;
+      }
+      if (d0 < D) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) c[2 + d0 + e] = acc_[e];
+      }
+    }
+    consumers_sync();
+    if (set == 0 && hw < gn) {
+      const float m1 = c[0], mx = fmaxf(m_, m1);
+      const float w0 = expf(m_ - mx), w1 = expf(m1 - mx);
+      l_ = l_ * w0 + c[1] * w1;
+      if (d0 < D) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          acc_[e] = acc_[e] * w0 + c[2 + d0 + e] * w1;
+      }
+      m_ = mx;
+    }
+    consumers_sync();                        // comb is free again
+  };
+
+  // the block's share of segment `cur` is done: write it or merge it
+  auto finish = [&]() {
+    if constexpr (TC) {          // the set's accumulators to rows of heads
+      float* ta = tacc + set * GC * D;
+      const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt) {
+        const int col = hw * NCOL + nt * 8 + 2 * tq;
+        ta[gq * D + col] = cacc[nt][0];
+        ta[gq * D + col + 1] = cacc[nt][1];
+      }
+      set_sync(set);
+      if (d0 < D) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[e] = ta[hw * D + d0 + e];
+      }
+      set_sync(set);
+    }
+    hand_over(m, l, acc);
+    const long long len = P[b + 1] - P[b];
+    const long long start = P[b] * hg + (cur % hg) * len;
+    const long long first = start / per;
+    const int count = (int)((start + len - 1) / per - first + 1);
+    if (count == 1) {                        // the block holds it alone
+      if (set == 0 && hw < gn && d0 < D) {
+        E* o = out_row(b, h, g0, hw) + d0;
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) o[e] = from_float<E>(acc[e] * inv);
+      }
+      return;
+    }
+    constexpr int STRIDE = GC * (D + 2);
+    const long long base = first + cur;      // the segment's partials
+    float* mine = a.part + (base + blockIdx.x - first) * STRIDE;
+    if (set == 0 && hw < gn) {
+      if (lane == 0) {
+        mine[hw] = m;
+        mine[GC + hw] = l;
+      }
+      if (d0 < D) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) mine[2 * GC + hw * D + d0 + e] = acc[e];
+      }
+    }
+    // the block's partial is written: one acq_rel ticket publishes it
+    // (release, cumulative over the barrier) and lets the last block see
+    // every other's (acquire); the last resets it for the next call
+    consumers_sync();
+    int last = 0;
+    if (tid == 0) {
+      last = ticket_acq_rel(&a.tickets[cur]) == count - 1;
+      if (last) atomicExch(&a.tickets[cur], 0);
+    }
+    if (!consumers_or(last)) return;
+    // the last block merges: each set half of the partials, lanes over them
+    const int half = (count + 1) / 2;
+    const long long p_lo = base + (set == 0 ? 0 : half);
+    const int np_all = set == 0 ? half : count - half;
+    auto piece = [&](int p) { return a.part + (p_lo + p) * STRIDE; };
+    float mx = NEG_INF, ls = 0.f, as[EPL];
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) as[e] = 0.f;
+    if (hw < gn) {
+      constexpr int NB = 4;      // partials a batch (at 8 or 16 registers spill)
+      float x[NB][EPL];                      // NB partials' columns
+      auto load_batch = [&](int p0) {
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          if (p0 + i < np_all && d0 < D) {
+            ldcg_vec<EPL>(piece(p0 + i) + 2 * GC + hw * D + d0, x[i]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) x[i][e] = 0.f;
+          }
+        }
+      };
+      load_batch(0);                         // in flight with (m, l) below
+      float pm[2], pl[2];                    // pieces lane and lane + 32
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = lane + 32 * r;
+        pm[r] = p < np_all ? __ldcg(piece(p) + hw) : NEG_INF;
+        pl[r] = p < np_all ? __ldcg(piece(p) + GC + hw) : 0.f;
+      }
+      for (int p = lane + 64; p < np_all; p += 32)
+        mx = fmaxf(mx, __ldcg(piece(p) + hw));
+      mx = warp_max(fmaxf(mx, fmaxf(pm[0], pm[1])));
+      float w = 0.f;                         // the weight of piece p0 + lane
+      for (int p0 = 0; p0 < np_all; p0 += NB) {
+        if (p0 % 32 == 0) {
+          const int p = p0 + lane;
+          const float m_p = p0 < 64 ? pm[p0 >> 5]
+                                    : (p < np_all ? __ldcg(piece(p) + hw)
+                                                  : NEG_INF);
+          const float l_p = p0 < 64 ? pl[p0 >> 5]
+                                    : (p < np_all ? __ldcg(piece(p) + GC + hw)
+                                                  : 0.f);
+          w = p < np_all ? expf(m_p - mx) : 0.f;
+          ls = fmaf(l_p, w, ls);
+        }
+        if (p0 > 0) load_batch(p0);
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {       // x is 0 past the last piece
+          const float wi = __shfl_sync(FULL, w, (p0 % 32) + i);
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) as[e] = fmaf(x[i][e], wi, as[e]);
+        }
+      }
+      ls = warp_sum(ls);
+    }
+    hand_over(mx, ls, as);
+    if (set == 0 && hw < gn && d0 < D) {
+      E* o = out_row(b, h, g0, hw) + d0;
+      const float inv = 1.f / fmaxf(ls, 1e-30f);
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) o[e] = from_float<E>(as[e] * inv);
+    }
+  };
+
+  long long g = lo;
+  for (int j = 0; g < hi; ++j) {
+    int s;
+    long long t, end;
+    locate(P, a.B, hg, g, s, t, end);
+    const int n = (int)min((long long)a.rows, min(end, hi) - g);
+    if (s != cur) {                          // a new segment: its queries
+      if (cur >= 0) finish();
+      cur = s;
+      heads(s, b, h, g0, gn);
+      if constexpr (TC) if (hw < 2) {        // B fragments: the group's queries
+        const int gq = lane >> 2, tq = lane & 3;
+        const __nv_bfloat16* qg = reinterpret_cast<const __nv_bfloat16*>(q)
+                                  + b * a.q_sb + (h * a.G + g0 + gq) * a.q_sh;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int k0 = kk * 16 + 2 * tq;
+          qb[kk][0] = gq < gn ? *reinterpret_cast<const uint32_t*>(qg + k0)
+                              : 0u;
+          qb[kk][1] = gq < gn
+                          ? *reinterpret_cast<const uint32_t*>(qg + k0 + 8)
+                          : 0u;
+        }
+      }
+      if (hw < gn && d0 < D) {               // the warp's query, a lane's part
+        float qv[EPL];
+        load_vec<E, EPL>(q + b * a.q_sb + (h * a.G + g0 + hw) * a.q_sh + d0,
+                         qv);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) qr[e] = qv[e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) qr[e] = 0.f;
+      }
+      m = NEG_INF;
+      l = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt)
+        cacc[nt][0] = cacc[nt][1] = cacc[nt][2] = cacc[nt][3] = 0.f;
+    }
+    g += n;
+    if (j % NSET != set) continue;           // the other set's chunk
+    const unsigned char* slot = slots + (size_t)(j % a.slots) * slot_bytes;
+    mbar_wait(&full[j % a.slots], (uint32_t)((j / a.slots) & 1));  // getfin
+    float sc = NEG_INF;                      // row `lane`'s logit
+    if constexpr (TC) {  // Q K^T: warps 0 and 1 of the set, 16 rows each
+      float* lg = xch + (set * 2 + ((j / NSET) & 1)) * XCH_FLOATS;
+      if (hw < 2 && hw * 16 < n) {
+        const int mi = lane >> 3, ri = lane & 7;
+        const int row = min(hw * 16 + (mi & 1) * 8 + ri, a.rows - 1);
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t af[4];
+          ldmatrix_x4(af, at(slot, row, kk * 16 + (mi >> 1) * 8));
+          mma_bf16_16816(c, af, qb[kk][0], qb[kk][1]);
+        }
+        const int gq = lane >> 2, tq = lane & 3, r0 = hw * 16 + gq;
+        lg[(2 * tq) * 32 + r0] = c[0];
+        lg[(2 * tq + 1) * 32 + r0] = c[1];
+        lg[(2 * tq) * 32 + r0 + 8] = c[2];
+        lg[(2 * tq + 1) * 32 + r0 + 8] = c[3];
+      }
+      set_sync(set);
+      if (lane < n) sc = lg[hw * 32 + lane] * a.scale;
+    }
+    float m_new, alpha = 1.f, p = 0.f;
+    if (hw < gn) {
+      if constexpr (!TC) {   // Q K^T on FMAs: a lane's columns, every row
+        float part[32];
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+          float dot = 0.f;
+          if (r < n && d0 < D) {
+            float kv[EPL];
+            load_vec<E, EPL>(at(slot, r, d0), kv);
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) dot = fmaf(qr[e], kv[e], dot);
+          }
+          part[r] = dot;
+        }
+        transpose_sum<16>(part, lane);       // lane r: the sum of row r
+        transpose_sum<8>(part, lane);
+        transpose_sum<4>(part, lane);
+        transpose_sum<2>(part, lane);
+        transpose_sum<1>(part, lane);
+        if (lane < n) sc = part[0] * a.scale;
+      }
+      m_new = fmaxf(m, warp_max(sc));
+      alpha = expf(m - m_new);
+      p = lane < n ? expf(sc - m_new) : 0.f;
+      l = fmaf(l, alpha, warp_sum(p));
+      m = m_new;
+      if constexpr (!TC) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[e] *= alpha;
+#pragma unroll 8
+        for (int r = 0; r < n; ++r) {        // P V: a lane D/32 columns
+          const float pr = __shfl_sync(FULL, p, r);
+          if (d0 < D) {
+            float vv[EPL];
+            load_vec<E, EPL>(at(slot + half_bytes, r, d0), vv);
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) acc[e] = fmaf(pr, vv[e], acc[e]);
+          }
+        }
+      }
+    }
+    if constexpr (TC) {  // P V on the tensor cores: warp w, columns w NCOL..
+      float* xb = xch + (set * 2 + ((j / NSET) & 1)) * XCH_FLOATS;
+      __nv_bfloat16* ph = reinterpret_cast<__nv_bfloat16*>(xb + GC * 32);
+      __nv_bfloat16* pl = ph + GC * PSTR;
+      float* al = xb + GC * 32 + GC * PSTR;
+      const __nv_bfloat16 hi = __float2bfloat16_rn(p);  // p = hi + lo
+      ph[hw * PSTR + lane] = hi;
+      pl[hw * PSTR + lane] = __float2bfloat16_rn(p - __bfloat162float(hi));
+      if (lane == 0) al[hw] = alpha;
+      set_sync(set);
+      const int gq = lane >> 2, tq = lane & 3;
+      const float sa = al[gq];
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt) {
+        cacc[nt][0] *= sa;
+        cacc[nt][1] *= sa;
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {       // 16 rows a k-step
+        if (ks * 16 >= n) break;
+        // A = P [heads g (8..15 zero)][rows]: a0 = (g, 2t..), a2 = (g, 2t+8..)
+        const int pk = gq * PSTR + ks * 16 + 2 * tq;
+        auto word = [](const __nv_bfloat16* x) {
+          return *reinterpret_cast<const uint32_t*>(x);
+        };
+        const uint32_t ahi[4] = {word(ph + pk), 0u, word(ph + pk + 8), 0u};
+        const uint32_t alo[4] = {word(pl + pk), 0u, word(pl + pk + 8), 0u};
+        // B = V [rows][columns] by ldmatrix.trans: rows 8 (mi & 1) + ri of
+        // the k-step, columns 8 (mi >> 1) of the warp's
+        const int mi = lane >> 3, ri = lane & 7;
+        const int row = min(ks * 16 + (mi & 1) * 8 + ri, a.rows - 1);
+        const E* vp = at(slot + half_bytes, row, hw * NCOL + (mi >> 1) * 8);
+        uint32_t bv[4];
+        if constexpr (NTW == 2) {
+          ldmatrix_x4_trans(bv, vp);
+        } else {
+          ldmatrix_x2_trans(bv, vp);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt) {
+          mma_bf16_16816(cacc[nt], ahi, bv[2 * nt], bv[2 * nt + 1]);
+          mma_bf16_16816(cacc[nt], alo, bv[2 * nt], bv[2 * nt + 1]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j % a.slots]);  // this warp is past it
+  }
+  finish();
 }
 
-// out[b, hq, :] from the nsplit partials of that head.
-template <typename T>
-__global__ void paged_reduce_kernel(const float* __restrict__ part_acc,
-                                    const float* __restrict__ part_m,
-                                    const float* __restrict__ part_l,
-                                    T* __restrict__ out, int nsplit, int D) {
-  const long long row = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  const float* pm = part_m + row * nsplit;
-  const float* pl = part_l + row * nsplit;
-  float mx = NEG_INF;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, pm[s]);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float ls = 0.f, as = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const float wgt = expf(pm[s] - mx);
-      ls = fmaf(pl[s], wgt, ls);
-      as = fmaf(part_acc[(row * nsplit + s) * D + d], wgt, as);
-    }
-    out[row * D + d] = from_float<T>(as / fmaxf(ls, 1e-30f));
-  }
+// The tensor map of a cache [B, T, Hkv, D] (element strides sb, st, sh, 1):
+// boxes of `rows` rows of one head and box_cols columns.
+template <typename E, int D>
+cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
+                      long long sb, long long st, long long sh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)a.Hkv,
+                              (cuuint64_t)a.T, (cuuint64_t)a.B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * sizeof(E),
+                                 (cuuint64_t)st * sizeof(E),
+                                 (cuuint64_t)sb * sizeof(E)};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols<E, D>(), 1,
+                             (cuuint32_t)a.rows, 1};
+  return encode_tensor_map(
+      map,
+      sizeof(E) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, base, dims, strides, box,
+      tensor_core_qk<E, D>() ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, void* out, float* part_acc,
-                   float* part_m, float* part_l, int B, int Hq, int Hkv,
-                   int T_len, int nsplit, int rows_per_split,
-                   const long long* st, float scale, cudaStream_t stream) {
-  const int G = Hq / Hkv;
-  const int ngc = (G + GC - 1) / GC;
-  dim3 grid(nsplit, Hkv * ngc, B);
-  paged_partial_kernel<T, D><<<grid, NWARP * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, part_acc, part_m, part_l, Hq, G,
-      T_len, nsplit, rows_per_split, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], scale);
-  cudaError_t err = cudaGetLastError();
+template <typename E, int D>
+cudaError_t launch(Args& a, int blocks, cudaStream_t stream) {
+  int smem = 0;
+  a.slots = ring_slots<E, D>(a.B, a.rows, &smem);
+  if (a.slots == 0) return cudaErrorInvalidValue;
+  static SmemAllowance allowance;
+  cudaError_t err =
+      allow_smem(allowance, paged_attention_kernel<E, D>, MAX_SMEM);
   if (err != cudaSuccess) return err;
-  paged_reduce_kernel<T><<<dim3(Hq, B), 128, 0, stream>>>(
-      part_acc, part_m, part_l, static_cast<T*>(out), nsplit, D);
+  CUtensorMap kmap, vmap;
+  if ((err = cache_map<E, D>(&kmap, a.k, a, a.k_sb, a.k_st, a.k_sh)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cache_map<E, D>(&vmap, a.v, a, a.v_sb, a.v_st, a.v_sh)) !=
+      cudaSuccess)
+    return err;
+  paged_attention_kernel<E, D><<<blocks, NT + 32, smem, stream>>>(a, kmap,
+                                                                   vmap);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q [B, Hq, D] (strides q_sb, q_sh, 1), k/v [B, T, Hkv, D] (strides sb, st,
-// sh, 1), lengths [B] int32, out [B, Hq, D] contiguous; part_acc
-// [B, Hq, nsplit, D], part_m and part_l [B, Hq, nsplit] fp32 scratch.
-// strides: {q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh} in elements.
-// Returns 0 or a cudaError_t; -1 for a head size or type it does not take.
+// sh, 1; 16-byte aligned start, strides in multiples of 16 bytes), lengths
+// [B] int32, out [B, Hq, D] contiguous; part: (blocks + segments) x GC x
+// (D + 2) floats; tickets: segments ints, zero. blocks, rows, ngc:
+// `paged_plan` of paged_attention.py; the launch sizes the ring itself
+// (`paged_attention_ring`). strides: {q_sb, q_sh, k_sb, k_st, k_sh, v_sb,
+// v_st, v_sh} in elements. Returns 0 or a cudaError_t (invalid value where
+// no ring fits); -1 for a head size or type it does not take.
 extern "C" int paged_attention_launch(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* out, void* part_acc, void* part_m, void* part_l, int B, int Hq,
-    int Hkv, int T_len, int D, int nsplit, int rows_per_split,
-    const long long* strides, float scale, int dtype, void* stream) {
+    void* out, void* part, void* tickets, int B, int Hq, int Hkv, int T,
+    int D, int blocks, int rows, int ngc, const long long* st, float scale,
+    int dtype, void* stream) {
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = out;
+  a.part = static_cast<float*>(part);
+  a.tickets = static_cast<int*>(tickets);
+  a.B = B;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.T = T;
+  a.G = Hq / Hkv;
+  a.ngc = ngc;
+  a.rows = rows;
+  a.q_sb = st[0];
+  a.q_sh = st[1];
+  a.k_sb = st[2];
+  a.k_st = st[3];
+  a.k_sh = st[4];
+  a.v_sb = st[5];
+  a.v_st = st[6];
+  a.v_sh = st[7];
+  a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PAGED_CASE(TYPE, DIM)                                                 \
-  return static_cast<int>(launch<TYPE, DIM>(                                  \
-      q, k, v, static_cast<const int*>(lengths), out,                         \
-      static_cast<float*>(part_acc), static_cast<float*>(part_m),             \
-      static_cast<float*>(part_l), B, Hq, Hkv, T_len, nsplit, rows_per_split, \
-      strides, scale, s))
-#define PAGED_DIMS(TYPE)                \
-  switch (D) {                          \
-    case 16: PAGED_CASE(TYPE, 16);      \
-    case 32: PAGED_CASE(TYPE, 32);      \
-    case 64: PAGED_CASE(TYPE, 64);      \
-    case 128: PAGED_CASE(TYPE, 128);    \
-    default: return -1;                 \
+#define PAGED_DIMS(TYPE)                                        \
+  switch (D) {                                                  \
+    case 16: return (int)launch<TYPE, 16>(a, blocks, s);        \
+    case 32: return (int)launch<TYPE, 32>(a, blocks, s);        \
+    case 64: return (int)launch<TYPE, 64>(a, blocks, s);        \
+    case 128: return (int)launch<TYPE, 128>(a, blocks, s);       \
+    default: return -1;                                         \
   }
   if (dtype == DTYPE_F32) {
     PAGED_DIMS(float)
@@ -247,5 +832,26 @@ extern "C" int paged_attention_launch(
   }
   return -1;
 #undef PAGED_DIMS
-#undef PAGED_CASE
+}
+
+// The ring a block of the launch takes for B sequences, head size D and
+// `rows` rows an aload: its slots (0 where none fits, -1 for a head size or
+// type the kernel does not take) and, in *smem, its shared-memory bytes.
+extern "C" int paged_attention_ring(int B, int D, int rows, int dtype,
+                                    int* smem) {
+#define PAGED_RING(TYPE)                                        \
+  switch (D) {                                                  \
+    case 16: return ring_slots<TYPE, 16>(B, rows, smem);        \
+    case 32: return ring_slots<TYPE, 32>(B, rows, smem);        \
+    case 64: return ring_slots<TYPE, 64>(B, rows, smem);        \
+    case 128: return ring_slots<TYPE, 128>(B, rows, smem);      \
+    default: return -1;                                         \
+  }
+  if (dtype == DTYPE_F32) {
+    PAGED_RING(float)
+  } else if (dtype == DTYPE_BF16) {
+    PAGED_RING(__nv_bfloat16)
+  }
+  return -1;
+#undef PAGED_RING
 }

@@ -96,7 +96,12 @@ def paged_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                         v_cache: torch.Tensor,
                         lengths: torch.Tensor) -> torch.Tensor:
     """Plain version of paged_attention (decode).
-    q: [B, Hq, D]; caches: [B, T, Hkv, D]; lengths: [B] valid prefix."""
+    q: [B, Hq, D]; caches: [B, T, Hkv, D]; lengths: [B] valid prefix.
+
+    A sequence of length 0 gets 0 in every head, as the reference kernel
+    (`repro.kernels.paged_attention`) gives it: it skips every page and
+    divides a zero sum by max(l, 1e-30). A softmax over a row with every key
+    masked would give the mean of V instead."""
     B, Hq, D = q.shape
     T, Hkv = k_cache.shape[1], k_cache.shape[2]
     rep = Hq // Hkv
@@ -109,4 +114,5 @@ def paged_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bht,bthd->bhd", probs, v.float())
+    out = torch.where((lengths > 0)[:, None, None], out, torch.zeros_like(out))
     return out.to(q.dtype)

@@ -2,14 +2,19 @@
 
 The counterpart of `src/repro/kernels/stream_triad.py`: the CUDA source is
 `csrc/stream_triad.cu` (its header note says what bounds it and how the
-reference's pipelined blocks become a cp.async ring), the plain version is
-`ref.triad_ref`. Arguments are checked the same way on every device; then a
-CPU tensor runs the plain version and a CUDA tensor launches the kernel or
+reference's pipelined blocks become a ring of bulk copies), the plain version
+is `ref.triad_ref`. Arguments are checked the same way on every device; then
+a CPU tensor runs the plain version and a CUDA tensor launches the kernel or
 raises.
+
+`triad_plan` lays a launch over the card; `triad_steps` mirrors, for the CPU
+tests, which elements each block of the kernel moves.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -17,8 +22,46 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.async_gather import MAX_SMEM
 
 TYPES = (torch.float32, torch.bfloat16)
+SM_SMEM = 233472        # shared memory of one SM, 1 KB of it reserved a block
+INFLIGHT_BYTES = 24 * 1024   # loads in flight an SM: ~latency x bandwidth
 
 launches = 0            # +1 for every launch of the CUDA kernel, nowhere else
+
+
+class TriadPlan(NamedTuple):
+    """How a launch of the triad kernel covers the arrays on a card."""
+    threads: int        # threads a block: one a 16-byte chunk of a step
+    per_sm: int         # blocks an SM
+    blocks: int         # blocks of the launch
+
+
+def triad_plan(n: int, item: int, block: int, stages: int, sms: int,
+               smem: int) -> TriadPlan:
+    """Blocks an SM such that their loads in flight (stages x a step of b
+    and c each) come to about INFLIGHT_BYTES, at least two and as many as
+    shared memory (`smem` bytes a block, as the kernel's source sizes it)
+    and threads allow; no more blocks than steps."""
+    vec = 16 // item
+    cb = block // vec
+    threads = min(256, max(32, -(-cb // 32) * 32))
+    per_sm = max(2, -(-INFLIGHT_BYTES // (stages * 2 * block * item)))
+    per_sm = max(1, min(per_sm, SM_SMEM // (smem + 1024), 2048 // threads))
+    steps = -(-(n // vec) // cb)
+    return TriadPlan(threads, per_sm, max(1, min(steps, per_sm * sms)))
+
+
+def triad_steps(n: int, item: int, block: int,
+                blocks: int) -> Tuple[List[List[Tuple[int, int]]],
+                                      Tuple[int, int]]:
+    """What the kernel moves: for each block, its steps as (first element,
+    elements) by bulk copy, grid-stride; and the scalar tail (first element,
+    elements) the last block does."""
+    vec = 16 // item
+    cb, nc = block // vec, n // vec
+    steps = -(-nc // cb)
+    per_block = [[(t * cb * vec, min(cb, nc - t * cb) * vec)
+                  for t in range(i, steps, blocks)] for i in range(blocks)]
+    return per_block, (nc * vec, n - nc * vec)
 
 
 def _bind():
@@ -26,9 +69,27 @@ def _bind():
     fn = lib.stream_triad_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_float, i, i, i, p]
+        fn.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_float, i, i, i,
+                       i, i, p]
         fn.restype = ctypes.c_int
+        lib.stream_triad_smem.argtypes = [i, i, i]
+        lib.stream_triad_smem.restype = ctypes.c_longlong
     return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def _card_plan(device: int, dtype: torch.dtype, block: int,
+               stages: int) -> TriadPlan:
+    """The plan of a launch as long as the card's grid, once per (device,
+    type, block, stages); `stream_triad` cuts its grid to the steps."""
+    lib, _ = _bind()
+    smem = lib.stream_triad_smem(block, stages, _build.DTYPE_CODES[dtype])
+    if smem > MAX_SMEM:
+        raise ValueError(f"stream_triad: {stages} stages of {block} elements "
+                         f"and two output slots do not fit in {MAX_SMEM} "
+                         f"bytes of shared memory")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return triad_plan(1 << 62, dtype.itemsize, block, stages, sms, smem)
 
 
 def stream_triad(b: torch.Tensor, c: torch.Tensor, s: float,
@@ -67,11 +128,15 @@ def stream_triad(b: torch.Tensor, c: torch.Tensor, s: float,
     a = torch.empty_like(b)
     if b.numel() == 0:
         return a
+    plan = _card_plan(b.device.index, b.dtype, block, stages)
+    vec = 16 // b.element_size()
+    steps = -(-(b.numel() // vec) // (block // vec))
     lib, fn = _bind()
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(b.data_ptr(), c.data_ptr(), a.data_ptr(), b.numel(),
                   ref.round_scalar(s, b.dtype), block, stages,
+                  max(1, min(steps, plan.blocks)), plan.threads,
                   _build.DTYPE_CODES[b.dtype], stream)
     _build.check(lib, code, "stream_triad launch")
     launches += 1

@@ -191,6 +191,35 @@ def test_triad_rounds_the_scalar_to_the_arrays_type():
     np.testing.assert_array_equal(to_np(got), to_np(want))
 
 
+@pytest.mark.parametrize("n", [0, 1, 3, 7, 4097, (1 << 20) + 5, 1 << 28])
+@pytest.mark.parametrize("item,block,stages", [(4, 512, 4), (2, 512, 4),
+                                               (4, 1024, 2), (2, 128, 8)])
+def test_triad_plan_covers_the_arrays_once(n, item, block, stages):
+    """The kernel's grid-stride steps by bulk copy and its scalar tail cover
+    [0, N) exactly once, every step a whole number of 16-byte chunks; the
+    plan keeps its loads in flight near INFLIGHT_BYTES an SM and its blocks
+    within an SM's shared memory."""
+    smem = (2 * stages + 2) * block * item + 128    # slots and barriers
+    plan = ttriad.triad_plan(n, item, block, stages, sms=132, smem=smem)
+    assert plan.per_sm * (smem + 1024) <= ttriad.SM_SMEM
+    assert plan.threads * 16 >= min(block * item, 256 * 16)
+    assert 1 <= plan.per_sm and plan.blocks <= max(1, plan.per_sm * 132)
+    inflight = plan.per_sm * stages * 2 * block * item
+    assert plan.per_sm == 2 or inflight < ttriad.INFLIGHT_BYTES \
+        + stages * 2 * block * item
+    if n > 1 << 24:
+        return                   # the cover below walks every step
+    steps, (tail0, tail) = ttriad.triad_steps(n, item, block, plan.blocks)
+    assert len(steps) == plan.blocks and 0 <= tail < 16 // item
+    covered = np.zeros(n, np.int32)
+    for block_steps in steps:
+        for first, count in block_steps:
+            assert count % (16 // item) == 0 and first % (16 // item) == 0
+            covered[first:first + count] += 1
+    covered[tail0:tail0 + tail] += 1
+    assert covered.min(initial=1) == 1 and covered.max(initial=1) == 1
+
+
 # ------------------------------------------------------------- ops wrappers
 @pytest.mark.parametrize("m", [37, 1000])
 def test_ops_paths_at_lengths_off_the_block(m):

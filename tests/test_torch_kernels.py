@@ -153,12 +153,85 @@ def test_ops_paged_attention_ragged(dtype, tol):
     np.testing.assert_allclose(to_np(got), to_np(want), **tol)
 
 
-@pytest.mark.parametrize("b,hq,hkv,t,page", [
-    (4, 16, 2, 1032, 512), (3, 8, 2, 1024, 256), (1, 4, 4, 512, 512),
-    (128, 16, 2, 32768, 512), (1, 1, 1, 1, 512), (2, 4, 2, 700, 64)])
-def test_paged_split_plan(b, hq, hkv, t, page):
-    """The kernel's launch plan covers the cache, never walks more than a
-    page per block, and leaves no empty split."""
-    nsplit, rows = tpaged.split_plan(b, hq, hkv, t, page)
-    assert nsplit * rows >= t > (nsplit - 1) * rows
-    assert 1 <= rows <= max(1, min(page, t))
+@pytest.mark.parametrize("lens", [[0, 40], [0, 0], [64, 0], [0, 1]])
+def test_paged_attention_length_zero(lens):
+    """A sequence of length 0 gets 0, as the reference kernel gives it (it
+    skips every page); the other rows are the softmax as before."""
+    rng = np.random.default_rng(6)
+    q = (rng.standard_normal((2, 4, 16)) * 0.3).astype(np.float32)
+    kc = (rng.standard_normal((2, 64, 2, 16)) * 0.3).astype(np.float32)
+    vc = rng.standard_normal((2, 64, 2, 16)).astype(np.float32)
+    lens = np.array(lens, np.int32)
+    got = tpaged.paged_attention(*(to_torch(a) for a in (q, kc, vc, lens)),
+                                 page=32)
+    jq, jk, jv, jl = (jnp.array(a) for a in (q, kc, vc, lens))
+    want = to_np(jpaged(jq, jk, jv, jl, page=32, interpret=True))
+    np.testing.assert_allclose(to_np(got), want, **FP32_TOL)
+    assert not np.any(to_np(got)[lens == 0])
+
+
+def _split_lengths(rng, b, t):
+    """Random lengths with 0 and T among them where B allows."""
+    lens = rng.integers(0, t + 1, b)
+    lens[0] = 0
+    lens[-1] = t
+    return lens
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,d,page", [
+    (4, 16, 2, 1032, 128, 512), (3, 8, 2, 1024, 64, 256),
+    (1, 4, 4, 512, 128, 512), (1, 16, 2, 32768, 128, 512),
+    (128, 16, 2, 32768, 128, 512), (128, 24, 8, 300, 64, 16),
+    (1, 1, 1, 1, 16, 512), (2, 4, 2, 700, 16, 64), (4, 40, 8, 1032, 128, 7),
+    (4, 32, 2, 100, 32, 512)])
+def test_paged_split_plan(b, hq, hkv, t, d, page):
+    """The kernel's split of the valid rows, derived from `lengths` on the
+    device and mirrored here: every valid (sequence, KV head, head group,
+    row) is fetched exactly once, no aload fetches more than `page` rows or
+    crosses a segment, the blocks share the rows evenly, and each segment's
+    partials fit the workspace without overlapping another's."""
+    rng = np.random.default_rng(b * 7 + t)
+    lens = _split_lengths(rng, b, t)
+    plan = tpaged.paged_plan(b, hq, hkv, t, page, sms=132)
+    assert 1 <= plan.blocks <= 132
+    assert 1 <= plan.rows <= max(1, min(page, t, tpaged.CHUNK_ROWS))
+    hg = hkv * plan.ngc
+    assert plan.ngc * tpaged.GC >= hq // hkv and plan.segments == b * hg
+    chunks = tpaged.block_chunks(lens, t, hg, plan.blocks, plan.rows)
+    total = int(np.minimum(lens, t).sum()) * hg
+    per = -(-total // plan.blocks) if total else 0
+    seen = {}
+    blocks_of = {}
+    for i, block in enumerate(chunks):
+        assert sum(n for _, _, n in block) <= per
+        for s, t0, n in block:
+            assert 1 <= n <= plan.rows
+            seen.setdefault(s, []).append((t0, n))
+            blocks_of.setdefault(s, set()).add(i)
+    slots = set()
+    for s in range(plan.segments):
+        n_valid = int(lens[s // hg])
+        got = sorted(seen.get(s, []))
+        row = 0
+        for t0, n in got:                  # the chunks tile [0, length)
+            assert t0 == row
+            row += n
+        assert row == n_valid
+        if n_valid:
+            prefix = np.concatenate([[0], np.cumsum(lens)])
+            start = int(prefix[s // hg]) * hg + (s % hg) * n_valid
+            first, count = tpaged.pieces(n_valid, start, per)
+            assert blocks_of[s] == set(range(first, first + count))
+            mine = {first + s + k for k in range(count)}
+            assert not mine & slots and max(mine) < plan.blocks + plan.segments
+            slots |= mine
+
+
+def test_paged_locate_matches_a_linear_walk():
+    prefix = [0, 0, 5, 5, 6, 20]           # lengths 0, 5, 0, 1, 14
+    hg, rows = 3, []
+    for b in range(5):
+        n = prefix[b + 1] - prefix[b]
+        rows += [(b * hg + j, t, prefix[b] * hg + (j + 1) * n)
+                 for j in range(hg) for t in range(n)]
+    assert [tpaged.locate(prefix, hg, g) for g in range(len(rows))] == rows
