@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 2. build: every CUDA source of `src/repro_torch/kernels/csrc/` is compiled,
    and the machine code must hold the Hopper paths: wgmma and TMA loads in
    flash_attention, TMA loads and mma.sync in paged_attention, bulk copies
-   in async_gather and stream_triad (cuobjdump).
+   in async_gather, stream_triad and async_scatter, and L2 reductions (RED)
+   in async_scatter (cuobjdump).
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the reference test shapes and at the full-width serve shapes
    (bf16, G=8, D=128). Inputs are drawn so that the logits have a standard
@@ -40,6 +41,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    int32 scatter bit-exact, f32 scatter-add within atol=rtol=1e-4, triad
    1e-6 (f32) / 2e-2 (bf16); and what their wrappers refuse must raise
    (among them a triad operand 4 bytes off a 16-byte boundary).
+   async_scatter's own rule and edges: rows of 8, 12, 16 bytes through the
+   bucket pass and rows of 512 and 4096 bytes straight to the apply (the
+   path asserted by `launch_plan` and by the source), M = 1, 7, 131, 4000,
+   block_m a bound, K 1-32, one row hit by every update, every update in the
+   last row, N not a whole number of regions; the bucket pass bit-exact
+   against `ref.scatter_bucket_ref`; two calls in a row on one workspace.
 4. slice: `repro_torch.launch.serve` serves qwen2.5-3b at full width with
    `--use-kernels --offload-kv`; offloaded tokens must equal the baseline's,
    the launch counters must show the kernels carried the run, and prefill
@@ -49,8 +56,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    `ops.scatter_update` (xor and f32 add, 8 GiB of 512-byte rows, 2^20
    updates), `ops.gather` (the same rows; qwen2.5-3b's embedding table) and
    `ops.triad` (2^28 floats), each against its plain version, timed beside
-   its bound and the library call, and a sweep of the gather's ring depth K
-   with the rows in flight per SM. One launch per `ops` call, counted.
+   its bound (scatter: also its sector bound) and the library call, and
+   sweeps of the scatter's ring depth K at GUPS (where it must not matter)
+   and at 512-byte xor, of its `block_m` at GUPS (what is in flight an SM
+   there), with GUP/s and updates in flight per SM, and of the gather's K
+   (rows in flight per SM). One launch per `ops` call, counted, but four for
+   the bucketed GUPS scatter.
 6. one JSON line listing the kernels, then the device line, then the verdict.
 
 Imports `torch` and `repro_torch` only. There is no fallback to the CPU or to
@@ -184,9 +195,11 @@ def host_us(call, n: int = 50) -> float:
 # Hopper instructions that must be in a library's machine code: wgmma
 # (HGMMA) on tiles loaded by TMA (UTMALDG) for flash, TMA loads of K/V
 # pages and mma.sync (HMMA) for paged attention, bulk copies (UBLKCP) for the
-# gather's rows and triad's steps.
+# gather's rows, triad's steps and the scatter's update spans, and the
+# scatter's L2 reductions (RED, which also counts REDG).
 SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
              "async_gather": ("UBLKCP",),
+             "async_scatter": ("UBLKCP", "RED"),
              "paged_attention": ("UTMALDG", "HMMA"),
              "stream_triad": ("UBLKCP",)}
 
@@ -725,6 +738,7 @@ def check_amu_kernels(gen):
             asc.async_scatter(table, idx, upd, "add", block_m=bm,
                               num_slots=k), want, quiet=True, **SCATTER_TOL))
     log(f"  10 seeded fuzz cases agree; worst f32 add error {worst:.3e}")
+    worst = max(worst, check_scatter_paths(gen))
 
     log("stream_triad vs ref.triad_ref: f32 atol=rtol=1e-6, bf16 2e-2")
     triad_worst = 0.0
@@ -782,6 +796,116 @@ def check_amu_kernels(gen):
     log("  refused as they should be: " + "; ".join(r[0] for r in refusals))
     return {"async_gather": 0.0, "async_scatter": worst,
             "stream_triad": triad_worst}
+
+
+def check_scatter_paths(gen) -> float:
+    """async_scatter's plan rule and edges: rows of 8, 12 and 16 bytes take
+    the bucket pass, rows of 512 and 4096 bytes go straight to the apply
+    (asserted by `launch_plan` and by the source's own rule), each at M = 1,
+    7, 131 and 4000 in every op and type, block_m a bound and K from 1 to
+    32; a table whose rows are not a whole number of bucket regions, one row
+    hit by every update, every update in the last row; the bucket pass
+    against its plain version bit for bit (one tile, many tiles, tiles of
+    several sub-chunks); the apply's shared memory as Python plans it and as
+    the source sizes it; two calls in a row, each on the workspace the other
+    left. Returns the worst f32 error."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import async_scatter as asc
+
+    lib = _build.load("async_scatter")
+    asc._bind()
+    log("async_scatter paths: bucketed below 32-byte rows, straight to the "
+        "apply above; i32 bit-exact, f32 add within 1e-4")
+    worst = 0.0
+
+    def run(table, idx, upd, op, want_bucket, quiet=True, **kw):
+        nonlocal worst
+        r = table.shape[1] * 4
+        plan = asc.launch_plan(table, idx.numel(), op, **kw)
+        what = (f"{str(table.dtype)[6:]} {op} rows of {r} B, N{table.shape[0]}"
+                f" M{idx.numel()}{f' {kw}' if kw else ''}: "
+                f"{'bucket pass + ' if plan.bucket else ''}apply of "
+                f"{plan.blocks} blocks, {plan.slots} slots of {plan.span} "
+                f"updates, {plan.chunk}-byte reductions")
+        if plan.bucket != want_bucket or bool(
+                lib.async_scatter_bucketed(r)) != want_bucket:
+            raise AssertionError(f"{what}: want "
+                                 f"{'the bucket pass' if want_bucket else 'no bucket pass'}")
+        if lib.async_scatter_apply_smem(plan.span, plan.slots, r) \
+                != plan.smem:
+            raise AssertionError(f"{what}: Python plans {plan.smem} bytes "
+                                 "of shared memory, the source sizes "
+                                 f"{lib.async_scatter_apply_smem(plan.span, plan.slots, r)}")
+        want = ref.scatter_update_ref(table, idx, upd, op)
+        got = asc.async_scatter(table.clone(), idx, upd, op, **kw)
+        if table.dtype == torch.float32:
+            worst = max(worst, check_close(what, got, want, quiet=quiet,
+                                           **SCATTER_TOL))
+        else:
+            check_equal(what, got, want, quiet=quiet)
+
+    cases = [(8, torch.int32, "xor"), (8, torch.float32, "add"),
+             (12, torch.int32, "add"), (12, torch.int32, "xor"),
+             (16, torch.float32, "add"), (16, torch.int32, "xor"),
+             (512, torch.int32, "xor"), (512, torch.float32, "add"),
+             (512, torch.int32, "add"), (4096, torch.float32, "add"),
+             (4096, torch.int32, "xor")]
+    for r, dtype, op in cases:
+        n = 5003 if r < 512 else 1000      # 5003 rows: 626 regions of 8
+        table = amu_table(gen, (n, r // 4), dtype)
+        for m in (1, 7, 131, 4000):
+            idx = amu_index(gen, n, m)
+            upd = amu_table(gen, (m, r // 4), dtype)
+            run(table, idx, upd, op, r < 32, quiet=m != 4000)
+            for bm, k in ((1, 1), (16, 3), (64, 32)):
+                if asc.apply_smem(4, k, r) > asc.MAX_SMEM:
+                    continue               # refused: checked in the tests
+                run(table, idx, upd, op, r < 32, block_m=bm, num_slots=k)
+        m = 4000
+        upd = amu_table(gen, (m, r // 4), dtype)
+        if dtype == torch.float32:
+            # 4000 terms a row: order alone moves a sum of N(0, 1) terms by
+            # ~1e-4 of its size; updates of N(0, 1/64^2) keep it in atol
+            upd = upd / 64
+        for row, what in ((17, "one row hit by every update"),
+                          (n - 1, "every update in the last row")):
+            idx = torch.full((m,), row, dtype=torch.int32, device="cuda")
+            run(table, idx, upd, op, r < 32, quiet=False)
+            log(f"    ({what})")
+    log("  rows of 8-4096 B x M 1-4000 x block_m and K agree")
+
+    log("scatter bucket pass vs ref.scatter_bucket_ref: bit-exact")
+    for n, m, r in ((5003, 4000, 8), (5003, 300_001, 12), (1 << 20,
+                    (1 << 23) + 5, 8), (1 << 30, 1 << 16, 8), (77, 333, 16)):
+        idx = amu_index(gen, n, m)
+        upd = amu_table(gen, (m, r // 4), torch.int32)
+        shift, buckets, sub, tile, tiles = asc.bucket_layout(
+            n, m, r, torch.cuda.get_device_properties(0).multi_processor_count)
+        got = asc.scatter_bucket(idx, upd, n)
+        want = ref.scatter_bucket_ref(idx, upd, shift, buckets)
+        what = (f"N{n} M{m} rows of {r} B: {buckets} regions of 2^{shift} "
+                f"rows, {tiles} tiles of {tile // sub} sub-chunks of {sub}")
+        for name, g, w in zip(("indices", "updates", "offsets"), got, want):
+            check_equal(f"{what}, {name}", g, w, quiet=name != "offsets")
+
+    log("async_scatter: two calls in a row, each on the workspace the "
+        "other left")
+    for r, dtype, op in ((8, torch.int32, "xor"), (512, torch.float32,
+                                                   "add")):
+        n, m = (1 << 20, 1 << 20)
+        pairs = [(amu_table(gen, (n, r // 4), dtype), amu_index(gen, n, m),
+                  amu_table(gen, (m, r // 4), dtype)) for _ in range(2)]
+        outs = [asc.async_scatter(t.clone(), i, u, op) for t, i, u in pairs]
+        for k, ((t, i, u), out) in enumerate(zip(pairs, outs)):
+            want = ref.scatter_update_ref(t, i, u, op)
+            name = f"{str(dtype)[6:]} {op} rows of {r} B, call {k + 1} of 2"
+            if dtype == torch.float32:
+                worst = max(worst, check_close(name, out, want,
+                                               **SCATTER_TOL))
+            else:
+                check_equal(name, out, want)
+        del pairs, outs
+    return worst
 
 
 # ------------------------------------------------------------------ phase 4
@@ -883,6 +1007,25 @@ def amu_bound(nbytes, ops=0.0):
                                        else "operations")
 
 
+def scatter_bytes(idx, row_bytes):
+    """(bytes, sector bytes) an in-place scatter of these indices must move.
+    bytes: each touched row read and written once, each index and update row
+    read once. sector bytes: the same, but the table moves in the 32-byte
+    sectors of the L2 (read and written back), so a row narrower than a
+    sector costs the whole sector, and rows that share one share it (the
+    table starts on a sector boundary)."""
+    rows = torch.unique(idx).long()
+    stream = idx.numel() * (4 + row_bytes)
+    first = rows * row_bytes
+    offs = sorted(set(range(0, row_bytes, 32)) | {row_bytes - 1})
+    if row_bytes % 32 == 0:
+        sectors = rows.numel() * (row_bytes // 32)
+    else:
+        sectors = torch.unique(torch.cat([(first + o) // 32
+                                          for o in offs])).numel()
+    return 2 * rows.numel() * row_bytes + stream, 64 * sectors + stream
+
+
 def check_close_big(name, got, want, atol, rtol) -> float:
     """check_close over slices of 2^26 elements, so that an 8 GiB table
     needs no 8 GiB temporaries."""
@@ -939,7 +1082,33 @@ def run_amu(kernels, worst):
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     free_cuda()
-    cases = []
+    cases, sweep = [], []
+
+    def sweep_scatter(name, table, idx, upd, op, out, knob, values):
+        """The paper's "queue length follows demand": the scatter's
+        `num_slots` K (the ring depth of a persistent block at 512-byte
+        rows; one slot a block on the bucketed stream, where it must not
+        matter) or its `block_m` (the updates a block of the bucketed stream
+        takes, which set what is in flight an SM), each value held against
+        the plain version, timed on `out`."""
+        log(f"  {knob} sweep of {name}:")
+        expect = ref.scatter_update_ref(table, idx, upd, op)
+        for value in values:
+            kw = {knob: value}
+            check_equal(f"{knob}={value}", asc.async_scatter(
+                table.clone(), idx, upd, op, **kw), expect, quiet=True)
+            t = time_ms([lambda: asc.async_scatter(out, idx, upd, op, **kw)],
+                        10)
+            plan = asc.launch_plan(out, idx.numel(), op, **kw)
+            mlp = plan.updates_in_flight_per_sm
+            sweep.append(dict(case=name, **kw, ms=t,
+                              giga_updates_s=idx.numel() / t / 1e6,
+                              updates_in_flight_per_sm=mlp))
+            log(f"    {knob}={value:3d}: {t:.4f} ms, "
+                f"{idx.numel() / t / 1e6:.2f} GUP/s, {plan.slots} slots of "
+                f"{plan.span} updates, {plan.blocks} blocks, {mlp} updates "
+                "in flight per SM")
+        del expect
 
     def report(case, kernel, **nums):
         cases.append(dict(case=case, kernel=kernel, **nums))
@@ -964,23 +1133,34 @@ def run_amu(kernels, worst):
     check_equal("quickstart GUPS xor vs ref.scatter_update_ref", res["out"],
                 res["expect"])
     idx, upd, out = res["indices"], res["updates"], res["out"]
+    res_table = res["table"]
     del res
     free_cuda()
     touched = torch.unique(idx).numel()
-    nbytes = 2 * touched * width * 4 + m * width * 4 + m * 4
+    nbytes, sector_bytes = scatter_bytes(idx, width * 4)
     bound_ms, bound_by = amu_bound(nbytes, m * width)
     ms = time_ms([lambda: asc.async_scatter(out, idx, upd, "xor",
                                             num_slots=k)], 10)
     plain_ms = time_ms([lambda: ref.scatter_update_ref(out, idx, upd, "xor")],
                        1, repeats=2)
+    plan = asc.launch_plan(out, m, "xor", num_slots=k)
     report(f"GUPS xor [{rows},{width}] int32, {m} updates", "async_scatter",
            ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
            bound_by=bound_by, bytes=nbytes, touched_rows=touched,
-           giga_updates_s=m / ms / 1e6)
-    log(f"    {m / ms / 1e6:.3f} GUP/s; the bound counts 8 bytes a row, the "
-        "card moves 32-byte sectors: about 4x of it is out of reach")
+           sector_bound_ms=amu_bound(sector_bytes)[0],
+           giga_updates_s=m / ms / 1e6,
+           host_us=host_us(lambda: asc.async_scatter(out, idx, upd, "xor",
+                                                     num_slots=k)))
+    log(f"    {m / ms / 1e6:.3f} GUP/s, host {cases[-1]['host_us']:.1f} us a "
+        f"call; {plan.launches} launches ({plan.buckets} regions of 2^"
+        f"{plan.shift} rows, then {plan.blocks} apply blocks, spans of "
+        f"{plan.span}); sector bound {cases[-1]['sector_bound_ms']:.5f} ms")
     gups = cases[-1]
-    del idx, upd, out
+    sweep_scatter("GUPS", res_table, idx, upd, "xor", out, "num_slots",
+                  (1, 2, 4, 8, 16, 32))
+    sweep_scatter("GUPS", res_table, idx, upd, "xor", out, "block_m",
+                  (8, 16, 32, 64))
+    del idx, upd, out, res_table
     free_cuda()
 
     # GUPS and scatter-add at the quickstart's 512-byte rows
@@ -1000,7 +1180,7 @@ def run_amu(kernels, worst):
                                          check_close_big(name, out, want,
                                                          **SCATTER_TOL))
         touched = torch.unique(idx).numel()
-        nbytes = 2 * touched * width * 4 + m * width * 4 + m * 4
+        nbytes, sector_bytes = scatter_bytes(idx, width * 4)
         bound_ms, bound_by = amu_bound(nbytes, m * width)
         ms = time_ms([lambda: asc.async_scatter(out, idx, upd, op)], 20)
         plain_ms = time_ms([lambda: ref.scatter_update_ref(table, idx, upd,
@@ -1010,7 +1190,14 @@ def run_amu(kernels, worst):
             library_ms = time_ms([lambda: want.index_add_(0, idx, upd)], 20)
         report(name, "async_scatter", ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-               bytes=nbytes, touched_rows=touched)
+               bytes=nbytes, touched_rows=touched,
+               sector_bound_ms=amu_bound(sector_bytes)[0],
+               host_us=host_us(lambda: asc.async_scatter(out, idx, upd, op)))
+        log(f"    sector bound {cases[-1]['sector_bound_ms']:.5f} ms; host "
+            f"{cases[-1]['host_us']:.1f} us a call")
+        if op == "xor":
+            sweep_scatter(name, table, idx, upd, op, out, "num_slots",
+                          (1, 2, 4, 8, 16, 32))
         del table, idx, upd, out, want
         free_cuda()
 
@@ -1020,7 +1207,6 @@ def run_amu(kernels, worst):
                ((cfg.vocab_size, cfg.d_model), torch.bfloat16,
                 BATCH * PROMPT_LEN, f"{ARCH} embedding, {BATCH}x{PROMPT_LEN} "
                 "token ids")]
-    sweep = []
     for i, (shape, dtype, m, what) in enumerate(gathers):
         table = amu_table(gen, shape, dtype)
         idx = amu_index(gen, shape[0], m)
@@ -1094,12 +1280,14 @@ def run_amu(kernels, worst):
     del a, b, c
     free_cuda()
 
-    want = {"async_gather": 2, "async_scatter": 3, "stream_triad": 1}
+    # one launch per ops call, but async_scatter's GUPS (8-byte rows) runs
+    # the bucket pass's three kernels before its apply: 4 + 1 + 1
+    want = {"async_gather": 2, "async_scatter": 6, "stream_triad": 1}
     log(f"  launches on the AMU path: {counts} (want {want}: one per ops "
-        "call)")
+        "call, four for the bucketed GUPS scatter)")
     if counts != want:
-        raise AssertionError("the AMU path did not launch each kernel once "
-                             "per ops call")
+        raise AssertionError("the AMU path did not launch each kernel as "
+                             "often as its ops calls need")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
         " GiB (torch.cuda.max_memory_allocated)")
     log(json.dumps({"amu_cases": cases, "ring_depth_sweep": sweep}))
@@ -1130,7 +1318,22 @@ TRIAD_GETFIN = ("    mbar_wait(&full[t % stages], (uint32_t)((t / stages) & 1));
                 "  // getfin\n")
 TRIAD_STORE = ("      bulk_store(a + c0 * VEC, dst, (uint32_t)nc * 16);"
                "   // astore\n      bulk_commit();\n")
+SCATTER_GETFIN = ("    mbar_wait(&full[s], (uint32_t)((t / K) & 1));"
+                  "  // getfin\n")
+SCATTER_REFILL = ("      if (t >= K)                      // every consumer "
+                  "warp has left slot s\n        mbar_wait(&empty[s], "
+                  "(uint32_t)((t / K - 1) & 1));\n")
 MUTANTS = {
+    # the scatter's consumers reduce from a slot without waiting for it
+    "scatter_getfin": [("async_scatter.cu", SCATTER_GETFIN, "")],
+    # the producer refills a slot before the consumers have left it
+    "scatter_refill": [("async_scatter.cu", SCATTER_REFILL, "")],
+    # the first bucket's size one short: every later bucket starts one
+    # early, so one update is written over and one place never written
+    "scatter_bucket": [("async_scatter.cu",
+                        "  if (threadIdx.x == 0) totals[blockIdx.x] = carry;",
+                        "  if (threadIdx.x == 0) totals[blockIdx.x] = "
+                        "carry - (blockIdx.x == 0);")],
     # the consumers read a slot without waiting for its loads
     "paged_getfin": [("paged_attention.cu", PAGED_GETFIN, "")],
     # the last block of a segment leaves its ticket standing

@@ -10,8 +10,8 @@ the kernel or raises.
 `gather_plan` lays a launch over the card: how many rows a block takes, how
 many warps it has, and which path its rows take (the bulk-copy ring for rows
 that are a multiple of 16 bytes with 16-byte aligned pointers, the cp.async
-ring for every other row). `ring_plan` is the scatter kernel's plan, which
-takes `block_m` rows a block as the reference does.
+ring for every other row). `ring_plan` is how a block of `block_m` rows
+lays out cp.async rings, the gather's first check of what fits.
 """
 from __future__ import annotations
 
@@ -82,7 +82,6 @@ def check_ring_args(name: str, table: torch.Tensor, indices: torch.Tensor,
     if row_bytes == 0 or row_bytes % 4:
         raise ValueError(f"{name}: a row of {row_bytes} bytes is not a "
                          "multiple of 4 bytes, the kernel's smallest copy")
-    ring_plan(row_bytes, block_m, num_slots)       # raises if it cannot fit
     return row_bytes
 
 
@@ -246,6 +245,7 @@ def async_gather(table: torch.Tensor, indices: torch.Tensor,
     global launches
     row_bytes = check_ring_args("async_gather", table, indices, block_m,
                                 num_slots)
+    ring_plan(row_bytes, block_m, num_slots)       # raises if it cannot fit
     bulk, _, lanes = gather_path(row_bytes, 16)     # the smallest block
     if gather_smem(bulk, 32 // lanes, 1, num_slots, row_bytes) > MAX_SMEM:
         raise ValueError(f"async_gather: a ring of {row_bytes}-byte rows "

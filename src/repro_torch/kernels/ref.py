@@ -52,6 +52,20 @@ def scatter_update_ref(table: torch.Tensor, indices: torch.Tensor,
     return out
 
 
+def scatter_bucket_ref(indices: torch.Tensor, updates: torch.Tensor,
+                       shift: int, buckets: int):
+    """Plain version of async_scatter's bucket pass: (indices, updates,
+    offsets) with the updates in stable order of idx >> shift, and offsets
+    [buckets + 1] the first place of each region's updates, then M (the
+    exclusive scan of the regions' histogram)."""
+    key = indices.long() >> shift
+    order = torch.argsort(key, stable=True)
+    offsets = torch.zeros(buckets + 1, dtype=torch.int32,
+                          device=indices.device)
+    offsets[1:] = torch.cumsum(torch.bincount(key, minlength=buckets), 0)
+    return indices[order], updates[order], offsets
+
+
 def round_scalar(s: float, dtype: torch.dtype) -> float:
     """s rounded to `dtype`, as the reference's triad rounds its scalar."""
     return float(torch.tensor(s, dtype=dtype))
