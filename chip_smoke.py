@@ -14,8 +14,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    in async_gather, stream_triad and async_scatter, and L2 reductions (RED)
    in async_scatter (cuobjdump).
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card, at the reference test shapes and at the full-width serve shapes
-   (bf16, G=8, D=128). Inputs are drawn so that the logits have a standard
+   card, at the reference test shapes and at the full-width serve shapes of
+   every served arch (bf16, B=4: qwen2.5-3b G=8 D=128, granite G=2 D=64,
+   qwen2-vl G=6 D=128; flash at S=1000, paged at T=1032). Inputs are drawn so that the logits have a standard
    deviation of about 2: the softmax is peaked, both products matter and the
    outputs are of order 0.1 to 1. fp32 is held to atol 2e-5 / rtol 1e-4;
    bf16 to one bf16 step of the value (rtol 1e-2, atol 1e-4), to which
@@ -50,7 +51,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
 4. slice: `repro_torch.launch.serve` serves qwen2.5-3b at full width with
    `--use-kernels --offload-kv`; offloaded tokens must equal the baseline's,
    the launch counters must show the kernels carried the run, and prefill
-   logits with kernels must agree with the plain path.
+   logits with kernels must agree with the plain path. Then the paths of
+   the archs added later, each at full width on a freed card with its wall
+   time and peak memory: granite-moe-1b-a400m (MoE) served the same way
+   (flash once a layer, paged once a layer a step; also the dense-dispatch
+   logits beside the capacity ones, printed), qwen2-vl-2b through
+   `lm.prefill` with a vision prefix and 31 `lm.decode_step`s (the same
+   counts), hubert-xlarge's encoder forward (not causal: no flash launch),
+   rwkv6-7b served with offload (no kernel; its 128 MiB state is written
+   back every step); then the five at smoke size.
 5. AMU kernels at H100 scale: GUPS through `repro_torch.launch.quickstart`
    (xor, an 8 GiB table of HPCC's 8-byte rows, 2^26 updates), then
    `ops.scatter_update` (xor and f32 add, 8 GiB of 512-byte rows, 2^20
@@ -107,6 +116,10 @@ LOGITS_TOL = dict(atol=0.25, rtol=0.05)   # bf16 logits, kernels vs plain path
 
 ARCH = "qwen2.5-3b"
 BATCH, PROMPT_LEN, MAX_NEW = 4, 1000, 32
+# the served archs this slice adds, whose head layouts phase 3 also checks:
+# granite D=64 GQA group 2, qwen2-vl D=128 group 6
+SLICE_ARCHS = ("granite-moe-1b-a400m", "qwen2-vl-2b")
+SERVE_SHAPES: list = []       # phase 3's serve-shape cases, printed as JSON
 
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
@@ -260,7 +273,6 @@ def flash_bound(b, hq, hkv, s, d, window, dtype):
 
 def check_flash(gen):
     from repro_torch.kernels import flash_attention as fa, ref
-    import torch.nn.functional as F
 
     log("flash_attention vs ref.attention_ref")
     worst = 0.0
@@ -318,16 +330,36 @@ def check_flash(gen):
                     spread=flash_spread(q, k, v, causal, window),
                     **FLASH_BF16_TOL)
 
-    # the serve shape: full-width qwen2.5-3b prefill, S ragged against 128
+    # the serve shapes: full-width prefill of each served arch, S ragged
+    # against 128 (qwen2.5-3b's is the one the kernels line reports)
+    shapes = [flash_serve_shape(gen, arch) for arch in (ARCH,) + SLICE_ARCHS]
+    main = shapes[0]
+    SERVE_SHAPES.extend(dict(kernel="flash_attention", **c) for c in shapes)
+    return {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
+            "replaces": "src/repro/kernels/flash_attention.py:96",
+            "launches": 0,
+            "max_abs_err": max([worst] + [c["max_abs_err"] for c in shapes]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"]}
+
+
+def flash_serve_shape(gen, arch) -> dict:
+    """Flash at one arch's full-width prefill (B=4, S=1000, bf16): held
+    against the plain version and the library call, timed beside both and
+    its bound."""
     from repro_torch import configs
-    cfg = configs.get_config(ARCH)
+    from repro_torch.kernels import flash_attention as fa, ref
+    import torch.nn.functional as F
+
+    cfg = configs.get_config(arch)
     b, hq, hkv, s, d = (BATCH, cfg.num_heads, cfg.num_kv_heads, PROMPT_LEN,
                         cfg.resolved_head_dim)
     q, k, v = flash_case(gen, b, hq, hkv, s, d, torch.bfloat16)
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    err = check_close(f"bf16 serve shape B{b} Hq{hq} Hkv{hkv} S{s} D{d}", out,
-                      ref.attention_ref(q, k, v),
+    err = check_close(f"bf16 {arch} serve shape B{b} Hq{hq} Hkv{hkv} S{s} "
+                      f"D{d}", out, ref.attention_ref(q, k, v),
                       spread=flash_spread(q, k, v), **FLASH_BF16_TOL)
     check_close("  (library call agrees)", F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), out, **LIBRARY_TOL)
@@ -340,11 +372,10 @@ def check_flash(gen):
     log(f"  serve shape ({fa.body_for(q.dtype, d)} body): kernel {ms:.4f} ms "
         f"(host {host:.1f} us a call), plain {plain_ms:.4f} ms, library "
         f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
-    return {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
-            "replaces": "src/repro/kernels/flash_attention.py:96",
-            "launches": 0, "max_abs_err": max(err, worst), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    return dict(shape=f"{arch} B{b} Hq{hq} Hkv{hkv} S{s} D{d}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                host_us=host)
 
 
 def paged_bound(lengths, hq, hkv, d, dtype):
@@ -435,7 +466,6 @@ def check_paged_edges(gen) -> float:
 
 def check_paged(gen):
     from repro_torch.kernels import paged_attention as pa, ref
-    import torch.nn.functional as F
 
     log("paged_attention vs ref.paged_attention_ref")
     worst = 0.0
@@ -467,9 +497,30 @@ def check_paged(gen):
                     **PAGED_BF16_TOL)
     worst = max(worst, check_paged_edges(gen))
 
-    # the serve shape: full-width qwen2.5-3b decode, T ragged, mixed lengths
+    # the serve shapes: full-width decode of each served arch, T ragged,
+    # mixed lengths (qwen2.5-3b's is the one the kernels line reports)
+    shapes = [paged_serve_shape(gen, arch) for arch in (ARCH,) + SLICE_ARCHS]
+    main = shapes[0]
+    SERVE_SHAPES.extend(dict(kernel="paged_attention", **c) for c in shapes)
+    return {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
+            "replaces": "src/repro/kernels/paged_attention.py:79",
+            "launches": 0,
+            "max_abs_err": max([worst] + [c["max_abs_err"] for c in shapes]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"]}
+
+
+def paged_serve_shape(gen, arch) -> dict:
+    """Paged at one arch's full-width decode (B=4, T=1032, lengths [1032,
+    1001, 517, 64], bf16) over 16 rotating caches, so that a call finds its
+    cache cold as a decode step does: held against the plain version and
+    the library call, timed beside both and its bound."""
     from repro_torch import configs
-    cfg = configs.get_config(ARCH)
+    from repro_torch.kernels import paged_attention as pa, ref
+    import torch.nn.functional as F
+
+    cfg = configs.get_config(arch)
     b, hq, hkv, t, d = (BATCH, cfg.num_heads, cfg.num_kv_heads,
                         PROMPT_LEN + MAX_NEW, cfg.resolved_head_dim)
     lens = torch.tensor([t, PROMPT_LEN + 1, 517, 64], dtype=torch.int32,
@@ -484,8 +535,8 @@ def check_paged(gen):
     q, kc, vc = sets[0]
     out = pa.paged_attention(q, kc, vc, lens)
     torch.cuda.synchronize()
-    err = check_close(f"bf16 serve shape B{b} Hq{hq} Hkv{hkv} T{t} D{d} "
-                      f"lengths {lens.tolist()}", out,
+    err = check_close(f"bf16 {arch} serve shape B{b} Hq{hq} Hkv{hkv} T{t} "
+                      f"D{d} lengths {lens.tolist()}", out,
                       ref.paged_attention_ref(q, kc, vc, lens),
                       **PAGED_BF16_TOL)
     ms = time_ms([lambda s=s: pa.paged_attention(*s, lens) for s in sets], 64)
@@ -508,11 +559,10 @@ def check_paged(gen):
         f"{plan.rows} rows): kernel {ms:.4f} ms (host {host:.1f} us a call), "
         f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
         f"{bound_ms:.5f} ms ({bound_by})")
-    return {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
-            "replaces": "src/repro/kernels/paged_attention.py:79",
-            "launches": 0, "max_abs_err": max(err, worst), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    return dict(shape=f"{arch} B{b} Hq{hq} Hkv{hkv} T{t} D{d}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                host_us=host)
 
 
 def fuzz_kernels(gen, cases=40):
@@ -909,6 +959,25 @@ def check_scatter_paths(gen) -> float:
 
 
 # ------------------------------------------------------------------ phase 4
+def check_served(arch, res, vocab):
+    """What `launch.serve` with offload must give: B x MAX_NEW tokens in the
+    vocabulary, the same with and without offload. Prints them and the
+    run's times."""
+    tokens = res["tokens"]
+    check_tokens(arch, tokens, vocab, (BATCH, MAX_NEW))
+    if not res["tokens_identical"] or not torch.equal(
+            tokens, res["tokens_offload"]):
+        raise AssertionError(f"{arch}: offloaded decode diverged from the "
+                             "baseline")
+    log(f"  offloaded tokens identical to baseline: True | row 0: "
+        f"{tokens[0, :12].tolist()}")
+    log(f"  prefill {res['prefill_ms']:.2f} ms for {BATCH}x{PROMPT_LEN} "
+        f"tokens | decode {res['decode_tok_s']:.2f} tok/s "
+        f"({res['decode_ms']:.2f} ms for {MAX_NEW - 1} steps) | decode with "
+        f"offload {res['offload_tok_s']:.2f} tok/s "
+        f"({res['offload_ms']:.2f} ms)")
+
+
 def run_slice(kernels):
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
@@ -938,15 +1007,7 @@ def run_slice(kernels):
                              "as often as it has layers and steps")
     kernels[0]["launches"], kernels[1]["launches"] = n_flash, n_paged
 
-    tokens, tokens_off = res["tokens"], res["tokens_offload"]
-    if tuple(tokens.shape) != (BATCH, MAX_NEW):
-        raise AssertionError(f"tokens have shape {tuple(tokens.shape)}")
-    if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
-        raise AssertionError("generated tokens outside the vocabulary")
-    if not res["tokens_identical"] or not torch.equal(tokens, tokens_off):
-        raise AssertionError("offloaded decode diverged from the baseline")
-    log(f"  offloaded tokens identical to baseline: True | row 0: "
-        f"{tokens[0, :12].tolist()}")
+    check_served(ARCH, res, cfg.vocab_size)
 
     # the same weights and prompts through the plain attention path
     cache = lm.init_cache(cfg, BATCH, PROMPT_LEN + MAX_NEW, device="cuda")
@@ -963,12 +1024,6 @@ def run_slice(kernels):
                 got, logits_plain, **LOGITS_TOL)
     agree = float((got.argmax(-1) == logits_plain.argmax(-1)).float().mean())
     log(f"  greedy first token agrees on {agree:.0%} of the batch")
-
-    log(f"  prefill {res['prefill_ms']:.2f} ms for {BATCH}x{PROMPT_LEN} "
-        f"tokens | decode {res['decode_tok_s']:.2f} tok/s "
-        f"({res['decode_ms']:.2f} ms for {steps} steps) | decode with "
-        f"offload {res['offload_tok_s']:.2f} tok/s "
-        f"({res['offload_ms']:.2f} ms)")
     log(f"  offload: {res['offload_pages']} pages, window "
         f"{res['offload_window']}, stats {res['offload_stats']}")
     log(f"  peak device memory {peak / 2**30:.3f} GiB "
@@ -995,6 +1050,260 @@ def run_slice(kernels):
                                      "kernels do not take did not raise")
     log("  dense archs at smoke size on the card: head size 16 served, "
         "head size 8 refused by the wrappers")
+
+
+def drive_path(name, fn):
+    """One path of phase 4 on a freed card: the attention kernels' launch
+    counters are set to 0 just before `fn` and read just after; prints the
+    path's wall time and peak device memory. Returns (fn's result, flash
+    launches, paged launches)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fa.launches = pa.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    n_flash, n_paged = fa.launches, pa.launches
+    log(f"  {name}: wall {time.perf_counter() - t0:.2f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"(torch.cuda.max_memory_allocated); launches flash {n_flash}, "
+        f"paged {n_paged}")
+    return out, n_flash, n_paged
+
+
+def want_launches(arch, n_flash, n_paged, flash, paged):
+    if (n_flash, n_paged) != (flash, paged):
+        raise AssertionError(
+            f"{arch}: launches flash {n_flash}, paged {n_paged}; the path "
+            f"should have launched flash {flash} and paged {paged} times")
+
+
+def check_tokens(arch, tokens, vocab, shape):
+    if tuple(tokens.shape) != shape:
+        raise AssertionError(f"{arch}: tokens have shape "
+                             f"{tuple(tokens.shape)}, want {shape}")
+    if int(tokens.min()) < 0 or int(tokens.max()) >= vocab:
+        raise AssertionError(f"{arch}: generated tokens outside the "
+                             "vocabulary")
+
+
+def check_logits(arch, logits, vocab):
+    if tuple(logits.shape) != (BATCH, 1, vocab):
+        raise AssertionError(f"{arch}: logits have shape "
+                             f"{tuple(logits.shape)}")
+    if not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"{arch}: non-finite logits")
+
+
+def run_new_paths(kernels):
+    """The archs this slice adds, at full width on the card: granite (MoE)
+    and rwkv6 through `launch.serve`, qwen2-vl (vision prefix, M-RoPE)
+    through `lm.prefill` and `lm.decode_step` (serve is token-only, as the
+    reference's is), hubert's encoder forward; then all five at smoke size.
+    Each path's launches are added to the kernels line's."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    total = [0, 0]
+
+    def count(n_flash, n_paged):
+        total[0] += n_flash
+        total[1] += n_paged
+
+    steps = MAX_NEW - 1
+
+    # granite-moe-1b-a400m: 32 experts top-8, head size 64, GQA group 2
+    arch = "granite-moe-1b-a400m"
+    cfg = configs.get_config(arch)
+    log(f"path: serve {arch} at full width: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+        f"{cfg.resolved_head_dim}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k} of d_ff {cfg.moe.d_ff_expert}, vocab "
+        f"{cfg.vocab_size}; batch {BATCH}, prompt {PROMPT_LEN}, max_new "
+        f"{MAX_NEW}, moe_mode capacity")
+    res, n_flash, n_paged = drive_path(arch, lambda: serve(
+        arch, batch=BATCH, prompt_len=PROMPT_LEN, max_new=MAX_NEW,
+        use_kernels=True, offload_kv=True, device="cuda", seed=0))
+    L = cfg.num_layers
+    want_launches(arch, n_flash, n_paged, L, 2 * L * steps)
+    count(n_flash, n_paged)
+    check_served(arch, res, cfg.vocab_size)
+    check_logits(arch, res["prefill_logits"], cfg.vocab_size)
+    cache = lm.init_cache(cfg, BATCH, PROMPT_LEN + MAX_NEW, device="cuda")
+    plain, _ = lm.prefill(cfg, res["params"], {"tokens": res["prompts"]},
+                          cache, use_kernels=False)
+    check_close(f"{arch} prefill last-token logits, kernels vs plain path "
+                "(bf16)", res["prefill_logits"], plain, **LOGITS_TOL)
+    # the dense dispatch drops no pair, the capacity one may: a print only
+    cache = lm.init_cache(cfg, BATCH, PROMPT_LEN + MAX_NEW, device="cuda")
+    dense, _ = lm.prefill(cfg, res["params"], {"tokens": res["prompts"]},
+                          cache, use_kernels=True, moe_mode="dense")
+    diff = (dense.float() - res["prefill_logits"].float()).abs()
+    agree = float((dense.argmax(-1) == res["prefill_logits"].argmax(-1))
+                  .float().mean())
+    log(f"  moe_mode dense vs capacity prefill logits: max abs difference "
+        f"{float(diff.max()):.4f}, mean {float(diff.mean()):.4f}; greedy "
+        f"first token agrees on {agree:.0%} of the batch (not a check: the "
+        "modes drop different pairs)")
+    log(f"  offload: {res['offload_pages']} pages, window "
+        f"{res['offload_window']}, stats {res['offload_stats']}")
+    del res, cache, plain, dense
+
+    # qwen2-vl-2b: a 256-patch vision prefix and M-RoPE, D=128, group 6
+    arch = "qwen2-vl-2b"
+    cfg = configs.get_config(arch)
+    fe = cfg.frontend
+    log(f"path: {arch} at full width through lm.prefill + {steps} greedy "
+        f"lm.decode_step: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+        f"{cfg.resolved_head_dim}, M-RoPE sections {cfg.mrope_sections}; "
+        f"batch {BATCH}, prompt {PROMPT_LEN} of which {fe.prefix_len} vision "
+        f"positions from vision_embeds [{BATCH}, {fe.prefix_len}, "
+        f"{fe.feature_dim}]")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm.cast_params_for_compute(lm.init_model(cfg, gen,
+                                                      device="cuda"))
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
+                                      generator=gen, device="cuda"),
+              "vision_embeds": torch.randn(
+                  (BATCH, fe.prefix_len, fe.feature_dim), generator=gen,
+                  device="cuda")}
+
+    def vl_path():
+        cache = lm.init_cache(cfg, BATCH, PROMPT_LEN + MAX_NEW, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(cfg, params, inputs, cache,
+                                   use_kernels=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        out = [tok]
+        for _ in range(steps):
+            lg, cache = lm.decode_step(cfg, params, tok, cache,
+                                       use_kernels=True)
+            tok = torch.argmax(lg[:, -1], -1)[:, None]
+            out.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return logits, torch.cat(out, 1), (t1 - t0) * 1e3, t2 - t1
+
+    (logits, tokens, prefill_ms, t_dec), n_flash, n_paged = drive_path(
+        arch, vl_path)
+    L = cfg.num_layers
+    want_launches(arch, n_flash, n_paged, L, L * steps)
+    count(n_flash, n_paged)
+    check_logits(arch, logits, cfg.vocab_size)
+    check_tokens(arch, tokens, cfg.vocab_size, (BATCH, MAX_NEW))
+    cache = lm.init_cache(cfg, BATCH, PROMPT_LEN + MAX_NEW, device="cuda")
+    plain, _ = lm.prefill(cfg, params, inputs, cache, use_kernels=False)
+    check_close(f"{arch} prefill last-token logits, kernels vs plain path "
+                "(bf16)", logits, plain, **LOGITS_TOL)
+    log(f"  prefill {prefill_ms:.2f} ms for {BATCH}x{PROMPT_LEN} tokens | "
+        f"decode {BATCH * steps / t_dec:.2f} tok/s ({t_dec * 1e3:.2f} ms for "
+        f"{steps} steps) | row 0: {tokens[0, :12].tolist()}")
+    del params, inputs, logits, tokens, cache, plain
+
+    # hubert-xlarge: audio frames through a bidirectional encoder, head size
+    # 80; not causal, so the reference's rule keeps flash off its path
+    arch = "hubert-xlarge"
+    cfg = configs.get_config(arch)
+    log(f"path: {arch} encoder forward at full width through lm.prefill("
+        f"cache=None, use_kernels=True): {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads, head_dim "
+        f"{cfg.resolved_head_dim}; features [{BATCH}, {PROMPT_LEN}, "
+        f"{cfg.frontend.feature_dim}]")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm.cast_params_for_compute(lm.init_model(cfg, gen,
+                                                      device="cuda"))
+    feats = {"features": torch.randn((BATCH, PROMPT_LEN,
+                                      cfg.frontend.feature_dim),
+                                     generator=gen, device="cuda")}
+
+    def encode():
+        times = []
+        for _ in range(2):              # a first call, then a warm one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(cfg, params, feats, None,
+                                       use_kernels=True)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return logits, cache, times
+
+    (logits, cache, times), n_flash, n_paged = drive_path(arch, encode)
+    want_launches(arch, n_flash, n_paged, 0, 0)
+    check_logits(arch, logits, cfg.vocab_size)
+    if cache is not None:
+        raise AssertionError(f"{arch}: an encoder forward returned a cache")
+    log(f"  encoder forward {BATCH}x{PROMPT_LEN} frames: first call "
+        f"{times[0]:.2f} ms, second {times[1]:.2f} ms; logits finite")
+    del params, feats, logits
+
+    # rwkv6-7b: attention-free, its state rewritten whole on every step
+    arch = "rwkv6-7b"
+    cfg = configs.get_config(arch)
+    log(f"path: serve {arch} at full width: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; batch {BATCH}, prompt "
+        f"{PROMPT_LEN}, max_new {MAX_NEW}, use_kernels (no kernel on this "
+        "path), offload")
+    res, n_flash, n_paged = drive_path(arch, lambda: serve(
+        arch, batch=BATCH, prompt_len=PROMPT_LEN, max_new=MAX_NEW,
+        use_kernels=True, offload_kv=True, device="cuda", seed=0))
+    want_launches(arch, n_flash, n_paged, 0, 0)
+    check_served(arch, res, cfg.vocab_size)
+    check_logits(arch, res["prefill_logits"], cfg.vocab_size)
+    s_leaf = res["cache"]["scan"][0]["s"]
+    log(f"  offload: {res['offload_pages']} pages (the state leaf s "
+        f"{list(s_leaf.shape)} fp32, "
+        f"{s_leaf.numel() * s_leaf.element_size() / 2**20:.0f} MiB, written "
+        f"back every step), window {res['offload_window']}, stats "
+        f"{res['offload_stats']}")
+    del res, s_leaf
+
+    # the new archs at smoke size on the card, kernels and offload on
+    free_cuda()
+    for arch in ("granite-moe-1b-a400m", "kimi-k2-1t-a32b", "rwkv6-7b"):
+        small = serve(arch, smoke=True, batch=2, prompt_len=130, max_new=4,
+                      use_kernels=True, offload_kv=True, device="cuda")
+        if not small["tokens_identical"] or not torch.isfinite(
+                small["prefill_logits"].float()).all():
+            raise AssertionError(f"{arch} at smoke size failed")
+    for arch in ("qwen2-vl-2b", "hubert-xlarge"):
+        cfg = configs.get_smoke_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = lm.init_model(cfg, gen, device="cuda")
+        fe = cfg.frontend
+        if fe.kind == "audio":
+            inputs = {"features": torch.randn((2, 130, fe.feature_dim),
+                                              generator=gen, device="cuda")}
+            cache = None
+        else:
+            inputs = {"tokens": torch.randint(0, cfg.vocab_size, (2, 130),
+                                              generator=gen, device="cuda"),
+                      "vision_embeds": torch.randn(
+                          (2, fe.prefix_len, fe.feature_dim), generator=gen,
+                          device="cuda")}
+            cache = lm.init_cache(cfg, 2, 134, device="cuda")
+        logits, cache = lm.prefill(cfg, params, inputs, cache,
+                                   use_kernels=True)
+        for _ in range(3 if cache is not None else 0):
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            logits, cache = lm.decode_step(cfg, params, tok, cache,
+                                           use_kernels=True)
+        if not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"{arch} at smoke size failed")
+    log("  granite, kimi, qwen2-vl, hubert, rwkv6 at smoke size on the card: "
+        "finite logits, offloaded tokens identical where served")
+    kernels[0]["launches"] += total[0]
+    kernels[1]["launches"] += total[1]
+    log(f"  launches of this slice's paths: flash_attention {total[0]}, "
+        f"paged_attention {total[1]}")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1440,8 +1749,10 @@ def main() -> int:
     amu_worst = check_amu_kernels(gen)
 
     # 4. the slice; 5. the AMU kernels' own path
+    log(json.dumps({"serve_shapes": SERVE_SHAPES}))
     if not args.kernels_only:
         run_slice(kernels)
+        run_new_paths(kernels)
         run_amu(kernels, amu_worst)
 
     # 6. report

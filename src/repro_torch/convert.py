@@ -60,33 +60,35 @@ def cache_from_numpy(tree, *, device):
     return tree_map(lambda a: tensor_from_numpy(a, device=device), tree)
 
 
+def _walk(node, leaves: List[Any]):
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", keys, [_walk(node[k], leaves) for k in keys])
+    if isinstance(node, (tuple, list)):
+        return (type(node).__name__, None, [_walk(v, leaves) for v in node])
+    leaves.append(node)
+    return ("leaf", None, None)
+
+
 def flatten(tree) -> Tuple[List[Any], Any]:
-    """(leaves, treedef) with leaves in `jax.tree.flatten`'s order."""
+    """(leaves, treedef) with leaves in `jax.tree.flatten`'s order. Module
+    functions, not a recursive closure: a closure that calls itself is a
+    reference cycle, and it would hold every leaf until the cyclic garbage
+    collector ran (the weights of a whole model, while they are stacked)."""
     leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", keys, [walk(node[k]) for k in keys])
-        if isinstance(node, (tuple, list)):
-            return (type(node).__name__, None, [walk(v) for v in node])
-        leaves.append(node)
-        return ("leaf", None, None)
 
-    return leaves, walk(tree)
+def _build(node, it):
+    kind, keys, children = node
+    if kind == "leaf":
+        return next(it)
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(keys, children)}
+    seq = [_build(c, it) for c in children]
+    return tuple(seq) if kind == "tuple" else seq
 
 
 def unflatten(treedef, leaves):
     """Inverse of `flatten`."""
-    it = iter(leaves)
-
-    def build(node):
-        kind, keys, children = node
-        if kind == "leaf":
-            return next(it)
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(keys, children)}
-        seq = [build(c) for c in children]
-        return tuple(seq) if kind == "tuple" else seq
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))

@@ -85,6 +85,16 @@ def check_ring_args(name: str, table: torch.Tensor, indices: torch.Tensor,
     return row_bytes
 
 
+def check_in_range(name: str, indices: torch.Tensor, n: int) -> None:
+    """Refuses an index outside [0, n) as the CUDA kernels do (they trap), so
+    the plain version neither wraps -1 round to row n - 1 nor writes it.
+    Called before the plain version runs, on the CPU only: on the card it
+    would cost a synchronise, and the kernel checks each index itself."""
+    if indices.numel() and bool(((indices < 0) | (indices >= n)).any()):
+        bad = indices[(indices < 0) | (indices >= n)][0]
+        raise IndexError(f"{name}: index {int(bad)} is outside [0, {n})")
+
+
 class GatherPlan(NamedTuple):
     """How a launch of the gather kernel covers M rows on a card."""
     bulk: bool          # rows by cp.async.bulk into mbarrier slots
@@ -251,6 +261,7 @@ def async_gather(table: torch.Tensor, indices: torch.Tensor,
         raise ValueError(f"async_gather: a ring of {row_bytes}-byte rows "
                          f"does not fit in {MAX_SMEM} bytes of shared memory")
     if table.device.type == "cpu":
+        check_in_range("async_gather", indices, table.shape[0])
         return ref.gather_ref(table, indices)
     if not table.is_contiguous():
         raise ValueError("async_gather: the table must be contiguous (a copy "

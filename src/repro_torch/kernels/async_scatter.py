@@ -27,7 +27,8 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.async_gather import MAX_SMEM, _align, check_ring_args
+from repro_torch.kernels.async_gather import (MAX_SMEM, _align,
+                                              check_in_range, check_ring_args)
 
 OPS = {"add": 0, "xor": 1}          # `enum Op` of csrc/async_scatter.cu
 TYPES = {"add": (torch.float32, torch.int32), "xor": (torch.int32,)}
@@ -308,6 +309,7 @@ def async_scatter(table: torch.Tensor, indices: torch.Tensor,
         raise ValueError(f"async_scatter: {M} updates; the kernels count "
                          "them in 32 bits")
     if table.device.type == "cpu":
+        check_in_range("async_scatter", indices, N)
         return table.copy_(ref.scatter_update_ref(table, indices, updates, op))
     if not table.is_contiguous():
         raise ValueError("async_scatter: the table is updated in place and "

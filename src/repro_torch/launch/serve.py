@@ -56,6 +56,11 @@ def serve(arch: str, *, smoke: bool = False, batch: int = 4,
            else configs.get_config(arch))
     if not cfg.is_decoder:
         raise ValueError(f"{arch} is encoder-only; nothing to decode")
+    if cfg.frontend is not None:
+        raise ValueError(
+            f"{arch} takes {cfg.frontend.kind} inputs beside its tokens and "
+            "launch.serve feeds token prompts only, as the reference's does: "
+            "call lm.prefill with vision_embeds, then lm.decode_step")
     gen = torch.Generator(device=device).manual_seed(seed)
     # cast once: eager PyTorch would otherwise re-read every fp32 weight on
     # each step; the entry points' own cast then returns the tree as it is

@@ -1,17 +1,22 @@
-"""Model assembly: embedding -> block stack -> head, with prefill (stateful)
-and decode (single-token, cached) paths, for the dense decoder architectures
-(`qwen2.5-3b`, `qwen2-7b`, `phi4-mini-3.8b`, `qwen2.5-32b`).
+"""Model assembly: embedding (or a modality frontend) -> block stack -> head,
+with prefill (stateful; an encoder forward for encoders) and decode
+(single-token, cached) paths, for the dense decoders (`qwen2.5-3b`,
+`qwen2-7b`, `phi4-mini-3.8b`, `qwen2.5-32b`), the MoE decoders
+(`granite-moe-1b-a400m`, `kimi-k2-1t-a32b`), the vision decoder with M-RoPE
+(`qwen2-vl-2b`), the audio encoder (`hubert-xlarge`) and the attention-free
+`rwkv6-7b`.
 
 The counterpart of `src/repro/models/lm.py`. The parameter and cache layout is
 the reference's, so its pytrees convert leaf by leaf: layers are stacked over
 *periods* of the block pattern, `params["scan"]` is a tuple (one entry per
 pattern position) of dicts whose leaves carry a leading `[P, ...]` axis, and
 remainder layers sit unstacked under `"tail"`. Where the reference scans over
-the stacked axis, this is a Python loop over index views into the leaves.
+the stacked axis, this is a Python loop over index views into the leaves, and
+the cache's leaves are written in place through those views.
 
 Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-sliding-window, RG-LRU and RWKV-6 blocks and MoE and the modality frontends
-(A7), `train_loss` / `chunked_xent` (A8).
+sliding-window and RG-LRU blocks (A7c: `recurrentgemma-9b`),
+`train_loss` / `chunked_xent` (A8).
 """
 from __future__ import annotations
 
@@ -19,26 +24,27 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import BLOCK_FULL, ModelConfig
-from repro_torch.convert import tree_map
+from repro_torch.configs.base import BLOCK_FULL, BLOCK_RWKV6, ModelConfig
+from repro_torch.convert import flatten, tree_map, unflatten
 from repro_torch.models import blocks as B
+from repro_torch.models import frontends as F
+from repro_torch.models import moe as M
+from repro_torch.models import rwkv6 as W
 
 Params = Dict[str, Any]
 
+def _unported(kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"block kind {kind!r} is not ported yet (ROADMAP A7c: sliding-window "
+        "attention and RG-LRU)")
+
 
 def _check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.block_pattern) - {BLOCK_FULL}
+    kinds = set(cfg.block_pattern) - {BLOCK_FULL, BLOCK_RWKV6}
     if kinds:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {sorted(kinds)} are not ported yet "
-            "(ROADMAP A7: remaining mixers)")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE is not ported yet (ROADMAP A7)")
-    if cfg.frontend is not None or cfg.mrope_sections:
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends and M-RoPE positions are not "
-            "ported yet (ROADMAP A7)")
+            "(ROADMAP A7c: sliding-window attention and RG-LRU)")
 
 
 def resolve_device(device) -> torch.device:
@@ -55,13 +61,19 @@ def resolve_device(device) -> torch.device:
 # ==================================================================== init
 def _init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype,
                 device) -> Params:
-    if kind != BLOCK_FULL:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP A7)")
-    return {"norm1": B.init_norm(cfg, cfg.d_model, device=device),
-            "norm2": B.init_norm(cfg, cfg.d_model, device=device),
-            "mix": B.init_attention(cfg, gen, dtype, device=device),
-            "ffn": B.init_mlp(cfg, gen, dtype, device=device)}
+    p: Params = {"norm1": B.init_norm(cfg, cfg.d_model, device=device),
+                 "norm2": B.init_norm(cfg, cfg.d_model, device=device)}
+    if kind == BLOCK_FULL:
+        p["mix"] = B.init_attention(cfg, gen, dtype, device=device)
+    elif kind == BLOCK_RWKV6:
+        p["mix"] = W.init_rwkv6(cfg, gen, dtype, device=device)
+    else:
+        raise _unported(kind)
+    if cfg.moe is not None:
+        p["ffn"] = M.init_moe(cfg, gen, dtype, device=device)
+    else:
+        p["ffn"] = B.init_mlp(cfg, gen, dtype, device=device)
+    return p
 
 
 def _init_period(cfg: ModelConfig, gen: torch.Generator, dtype,
@@ -70,15 +82,20 @@ def _init_period(cfg: ModelConfig, gen: torch.Generator, dtype,
                  for kind in cfg.block_pattern)
 
 
-def _stack(trees):
-    """Stack equal-structured trees leaf by leaf along a new leading axis."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    if isinstance(first, (tuple, list)):
-        return type(first)(_stack([t[i] for t in trees])
-                           for i in range(len(first)))
-    return torch.stack(trees)
+def _stacked(n: int, make):
+    """n trees from `make()`, in call order, stacked leaf by leaf along a new
+    leading axis. Each is copied into its place as soon as it is made, so at
+    most one unstacked tree is held beside the stack (rwkv6-7b's fp32
+    weights are 38 GB: the stack and a full set of copies would not fit)."""
+    leaves, treedef = flatten(make())
+    out = [t.new_empty((n,) + tuple(t.shape)) for t in leaves]
+    for i in range(n):
+        if i:
+            leaves, _ = flatten(make())
+        for dst, src in zip(out, leaves):
+            dst[i].copy_(src)
+        leaves = None
+    return unflatten(treedef, out)
 
 
 def init_model(cfg: ModelConfig, gen: Optional[torch.Generator] = None,
@@ -94,12 +111,15 @@ def init_model(cfg: ModelConfig, gen: Optional[torch.Generator] = None,
     period = len(cfg.block_pattern)
     n_periods, n_tail = divmod(cfg.num_layers, period)
     params: Params = {}
-    emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                      dtype=torch.float32, device=device)
-    params["embed"] = (emb * 0.02).to(dtype)
+    if cfg.frontend is None or cfg.frontend.kind == "vision":
+        emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                          dtype=torch.float32, device=device)
+        params["embed"] = (emb * 0.02).to(dtype)
+    if cfg.frontend is not None:
+        params["frontend"] = F.init_frontend(cfg, gen, dtype, device=device)
     if n_periods:
-        params["scan"] = _stack([_init_period(cfg, gen, dtype, device)
-                                 for _ in range(n_periods)])
+        params["scan"] = _stacked(
+            n_periods, lambda: _init_period(cfg, gen, dtype, device))
     if n_tail:
         params["tail"] = [
             _init_layer(cfg, cfg.block_pattern[i % period], gen, dtype, device)
@@ -115,9 +135,10 @@ def init_model(cfg: ModelConfig, gen: Optional[torch.Generator] = None,
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype=torch.bfloat16, device="cuda") -> Params:
     hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    if kind == BLOCK_RWKV6:
+        return W.init_rwkv6_state(cfg, batch, device=device)
     if kind != BLOCK_FULL:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP A7)")
+        raise _unported(kind)
     return {"k": torch.zeros((batch, max_len, hkv, hd), dtype=dtype,
                              device=device),
             "v": torch.zeros((batch, max_len, hkv, hd), dtype=dtype,
@@ -135,10 +156,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     cache: Params = {"len": torch.zeros((batch,), dtype=torch.int32,
                                         device=device)}
     if n_periods:
-        cache["scan"] = _stack([
-            tuple(init_layer_cache(cfg, kind, batch, max_len, dtype, device)
-                  for kind in cfg.block_pattern)
-            for _ in range(n_periods)])
+        cache["scan"] = _stacked(n_periods, lambda: tuple(
+            init_layer_cache(cfg, kind, batch, max_len, dtype, device)
+            for kind in cfg.block_pattern))
     if n_tail:
         cache["tail"] = [init_layer_cache(cfg, cfg.block_pattern[i % period],
                                           batch, max_len, dtype, device)
@@ -150,89 +170,121 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, cache: Optional[Params],
                  cache_len: Optional[torch.Tensor], use_kernels: bool,
+                 moe_mode: str = "capacity",
                  rope: Optional[B.RopeTables] = None
-                 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """One block. `cache["k"]` / `cache["v"]` are written IN PLACE (prefill
-    fills the prefix, decode scatters the new row) and returned."""
-    if kind != BLOCK_FULL:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP A7)")
+                 ) -> Tuple[torch.Tensor, Optional[Params],
+                            Optional[torch.Tensor]]:
+    """One block -> (x, cache, aux). The cache's leaves are written IN PLACE
+    and returned: attention's `k` / `v` (prefill fills the prefix, decode
+    scatters the new row), RWKV-6's `s` / `last_x` (copied over whole).
+    `aux` is the MoE load-balancing loss, None for a dense FFN (the
+    reference's zero)."""
     h = B.apply_norm(cfg, p["norm1"], x)
     new_cache = None
-    if cache is not None:
-        if h.shape[1] > 1:
-            # full-attention prefill: run self-attention and bulk-fill the
-            # cache prefix — avoids the [S, T_max] masked-cache path entirely.
-            out, kv = B.attention(cfg, p["mix"], h, positions,
-                                  use_kernels=use_kernels, return_kv=True,
-                                  rope=rope)
-            S = h.shape[1]
-            cache["k"][:, :S] = kv[0].to(cache["k"].dtype)
-            cache["v"][:, :S] = kv[1].to(cache["v"].dtype)
-            nc = (cache["k"], cache["v"])
+    if kind == BLOCK_FULL:
+        if cache is not None:
+            if h.shape[1] > 1:
+                # full-attention prefill: run self-attention and bulk-fill
+                # the cache prefix — avoids the [S, T_max] masked-cache path.
+                out, kv = B.attention(cfg, p["mix"], h, positions,
+                                      use_kernels=use_kernels,
+                                      return_kv=True, rope=rope)
+                S = h.shape[1]
+                cache["k"][:, :S] = kv[0].to(cache["k"].dtype)
+                cache["v"][:, :S] = kv[1].to(cache["v"].dtype)
+                nc = (cache["k"], cache["v"])
+            else:
+                out, nc = B.attention(cfg, p["mix"], h, positions,
+                                      kv_cache=(cache["k"], cache["v"]),
+                                      cache_len=cache_len,
+                                      use_kernels=use_kernels, rope=rope)
+            new_cache = {"k": nc[0], "v": nc[1]}
         else:
-            out, nc = B.attention(cfg, p["mix"], h, positions,
-                                  kv_cache=(cache["k"], cache["v"]),
-                                  cache_len=cache_len,
-                                  use_kernels=use_kernels, rope=rope)
-        new_cache = {"k": nc[0], "v": nc[1]}
+            out, _ = B.attention(cfg, p["mix"], h, positions,
+                                 use_kernels=use_kernels, rope=rope)
+    elif kind == BLOCK_RWKV6:
+        out, state = W.apply_rwkv6(cfg, p["mix"], h, cache)
+        if cache is not None:
+            # the callers hand back the cache tree they were given, so the
+            # new state goes into its tensors (views into stacked leaves)
+            for name in ("s", "last_x"):
+                cache[name].copy_(state[name])
+            new_cache = cache
     else:
-        out, _ = B.attention(cfg, p["mix"], h, positions,
-                             use_kernels=use_kernels, rope=rope)
+        raise _unported(kind)
     x = x + out
     h2 = B.apply_norm(cfg, p["norm2"], x)
-    return x + B.apply_mlp(cfg, p["ffn"], h2), new_cache
+    if cfg.moe is not None:
+        ffn_out, aux = M.apply_moe(cfg, p["ffn"], h2, mode=moe_mode)
+    else:
+        ffn_out, aux = B.apply_mlp(cfg, p["ffn"], h2), None
+    return x + ffn_out, new_cache, aux
 
 
 # ================================================================== forward
 def forward_blocks(cfg: ModelConfig, params: Params, x: torch.Tensor,
                    positions: torch.Tensor, cache: Optional[Params] = None,
-                   use_kernels: bool = False
-                   ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """The block stack. With a cache, its K/V leaves are updated in place and
-    the returned tree holds the same tensors (`len` is left to the caller)."""
+                   use_kernels: bool = False, moe_mode: str = "capacity"
+                   ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """The block stack -> (x, cache, aux summed over the layers, fp32). With
+    a cache, its leaves are updated in place and the returned tree holds the
+    same tensors (`len` is left to the caller)."""
     period = len(cfg.block_pattern)
     n_periods, n_tail = divmod(cfg.num_layers, period)
     cache_len = cache["len"] if cache is not None else None
     new_cache: Optional[Params] = {} if cache is not None else None
     # one set of rotary tables for the whole stack, not two per layer
-    rope = B.RopeTables(positions, cfg.resolved_head_dim, cfg.rope_theta,
-                        cfg.mrope_sections)
+    rope = (B.RopeTables(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                         cfg.mrope_sections)
+            if BLOCK_FULL in cfg.block_pattern else None)
+    auxes = []
+
+    def layer(kind, p, c):
+        nonlocal x
+        x, _, aux = _apply_layer(cfg, kind, p, x, positions, c, cache_len,
+                                 use_kernels, moe_mode, rope)
+        if aux is not None:
+            auxes.append(aux)
 
     for i in range(n_periods):
         for j, kind in enumerate(cfg.block_pattern):
-            p_ij = tree_map(lambda t: t[i], params["scan"][j])
-            c_ij = (None if cache is None
-                    else tree_map(lambda t: t[i], cache["scan"][j]))
-            x, _ = _apply_layer(cfg, kind, p_ij, x, positions, c_ij,
-                                cache_len, use_kernels, rope)
+            layer(kind, tree_map(lambda t: t[i], params["scan"][j]),
+                  None if cache is None
+                  else tree_map(lambda t: t[i], cache["scan"][j]))
     if n_periods and cache is not None:
         new_cache["scan"] = cache["scan"]
     if n_tail:
         for i in range(n_tail):
-            kind = cfg.block_pattern[i % period]
-            c_i = cache["tail"][i] if cache is not None else None
-            x, _ = _apply_layer(cfg, kind, params["tail"][i], x, positions,
-                                c_i, cache_len, use_kernels, rope)
+            layer(cfg.block_pattern[i % period], params["tail"][i],
+                  cache["tail"][i] if cache is not None else None)
         if cache is not None:
             new_cache["tail"] = cache["tail"]
-    return x, new_cache
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for aux in auxes:
+        aux_total = aux_total + aux
+    return x, new_cache, aux_total
 
 
 def embed_inputs(cfg: ModelConfig, params: Params, inputs: Dict[str, Any],
                  dtype=torch.bfloat16) -> torch.Tensor:
-    """tokens -> [B, S, d] stream."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends are not ported yet (ROADMAP A7)")
-    return params["embed"][inputs["tokens"]].to(dtype)
+    """tokens (with `vision_embeds` [B, prefix_len, feature_dim] for a vision
+    frontend) or audio `features` [B, S, feature_dim] -> [B, S, d] stream."""
+    if cfg.frontend is not None and cfg.frontend.kind == "audio":
+        return F.apply_audio_features(cfg, params["frontend"],
+                                      inputs["features"].to(dtype))
+    x = params["embed"].to(dtype)[inputs["tokens"]]
+    if cfg.frontend is not None and cfg.frontend.kind == "vision":
+        x = F.apply_vision_prefix(cfg, params["frontend"], x,
+                                  inputs["vision_embeds"])
+    return x
 
 
 def positions_for(cfg: ModelConfig, batch: int, seq: int, offset=0, *,
                   device) -> torch.Tensor:
+    """[B, S] positions, or M-RoPE's [3, B, S] where the config has
+    sections; `offset` is an int or a [B] tensor (decode)."""
     if cfg.mrope_sections:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE positions are not ported yet (ROADMAP A7)")
+        return F.mrope_positions(cfg, batch, seq, offset, device=device)
     pos = torch.arange(seq, device=device)[None, :]
     if isinstance(offset, int):
         return (pos + offset).expand(batch, seq)
@@ -270,19 +322,21 @@ chunked_xent = train_loss
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: Params, inputs: Dict[str, Any],
-            cache: Params, use_kernels: bool = False,
-            dtype=torch.bfloat16) -> Tuple[torch.Tensor, Params]:
-    """Decoder prefill: returns last-position logits [B, 1, V] and the filled
-    cache. The cache's K/V tensors are filled in place; the returned tree
-    holds them with a new `len`."""
+            cache: Optional[Params], use_kernels: bool = False,
+            moe_mode: str = "capacity",
+            dtype=torch.bfloat16) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Encoder forward / decoder prefill: returns last-position logits
+    [B, 1, V] and, for a decoder, the filled cache. The cache's tensors are
+    filled in place; the returned tree holds them with a new `len`. An
+    encoder takes no cache (`cache=None`) and returns None for it."""
     _check_supported(cfg)
     params = cast_params_for_compute(params, dtype)
     x = embed_inputs(cfg, params, inputs, dtype)
     Bsz, S = x.shape[:2]
     positions = positions_for(cfg, Bsz, S, device=x.device)
-    x, new_cache = forward_blocks(cfg, params, x, positions,
-                                  cache if cfg.is_decoder else None,
-                                  use_kernels)
+    x, new_cache, _ = forward_blocks(cfg, params, x, positions,
+                                     cache if cfg.is_decoder else None,
+                                     use_kernels, moe_mode)
     x = B.apply_norm(cfg, params["final_norm"], x)
     logits = _head_logits(cfg, params, x[:, -1:])
     if new_cache is not None:
@@ -293,19 +347,20 @@ def prefill(cfg: ModelConfig, params: Params, inputs: Dict[str, Any],
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: Params, use_kernels: bool = False,
+                moe_mode: str = "capacity",
                 dtype=torch.bfloat16) -> Tuple[torch.Tensor, Params]:
     """One decode step: tokens [B, 1] + cache -> logits [B, 1, V] + cache.
-    The new K/V row is written into the cache's tensors in place; the
-    returned tree holds them with `len + 1` (a new tensor: the old `len` is
-    not touched)."""
+    The new K/V row (or RWKV-6 state) is written into the cache's tensors in
+    place; the returned tree holds them with `len + 1` (a new tensor: the old
+    `len` is not touched)."""
     _check_supported(cfg)
     params = cast_params_for_compute(params, dtype)
     x = params["embed"][tokens]
     Bsz = x.shape[0]
     positions = positions_for(cfg, Bsz, 1, offset=cache["len"],
                               device=x.device)
-    x, new_cache = forward_blocks(cfg, params, x, positions, cache,
-                                  use_kernels)
+    x, new_cache, _ = forward_blocks(cfg, params, x, positions, cache,
+                                     use_kernels, moe_mode)
     x = B.apply_norm(cfg, params["final_norm"], x)
     logits = _head_logits(cfg, params, x)
     new_cache["len"] = cache["len"] + 1

@@ -13,7 +13,7 @@ from repro.models import blocks as jblocks
 from repro_torch import configs, convert
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import paged_attention as tpaged
-from repro_torch.models import blocks, lm
+from repro_torch.models import blocks, frontends, lm, moe, rwkv6
 
 from test_torch_util import random_like, to_jax, to_np, to_torch
 
@@ -45,13 +45,25 @@ def test_apply_norm(norm, dtype):
 
 @pytest.mark.parametrize("fn", ["init_norm", "init_attention", "init_mlp",
                                 "rope_frequencies", "_attn_mask",
-                                "positions_for"])
+                                "positions_for", "init_moe", "init_frontend",
+                                "init_rwkv6", "init_rwkv6_state",
+                                "mrope_positions", "mrope_positions_for"])
 def test_models_take_no_default_device(fn):
     """The tensor-making helpers of `models` name their device: forgetting it
     is a TypeError, not CPU tensors beside a model on the card."""
     cfg, _ = _cfgs()
+    moe_cfg = configs.get_smoke_config("granite-moe-1b-a400m")
+    vl_cfg = configs.get_smoke_config("qwen2-vl-2b")
+    rwkv_cfg = configs.get_smoke_config("rwkv6-7b")
     gen = torch.Generator()
     target, args = {
+        "init_moe": (moe.init_moe, (moe_cfg, gen, torch.float32)),
+        "init_frontend": (frontends.init_frontend,
+                          (vl_cfg, gen, torch.float32)),
+        "init_rwkv6": (rwkv6.init_rwkv6, (rwkv_cfg, gen, torch.float32)),
+        "init_rwkv6_state": (rwkv6.init_rwkv6_state, (rwkv_cfg, 2)),
+        "mrope_positions": (frontends.mrope_positions, (vl_cfg, 2, 4, 0)),
+        "mrope_positions_for": (lm.positions_for, (vl_cfg, 2, 4, 0)),
         "init_norm": (blocks.init_norm, (cfg, 64, torch.float32)),
         "init_attention": (blocks.init_attention, (cfg, gen, torch.float32)),
         "init_mlp": (blocks.init_mlp, (cfg, gen, torch.float32, None)),

@@ -32,7 +32,10 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/async_scatter.py",
                  "src/repro_torch/kernels/stream_triad.py",
                  "src/repro_torch/launch/quickstart.py",
-                 "src/repro_torch/runtime/offload.py"):
+                 "src/repro_torch/runtime/offload.py",
+                 "src/repro_torch/models/moe.py",
+                 "src/repro_torch/models/frontends.py",
+                 "src/repro_torch/models/rwkv6.py"):
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.iterdir()} >= {
@@ -61,6 +64,8 @@ def test_importing_the_port_pulls_in_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.kernels.ops\n"
+        "import repro_torch.models.moe, repro_torch.models.frontends\n"
+        "import repro_torch.models.rwkv6\n"
         "import repro_torch.launch.quickstart\n"
         "import repro_torch.kernels._build, repro_torch.convert\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -44,6 +44,44 @@ def test_serve_offload_tokens_identical(prompt_len, use_kernels, window):
     assert not res["cache"]["scan"][0]["k"][:, prompt_len:].any()
 
 
+@pytest.mark.parametrize("arch,use_kernels", [
+    ("granite-moe-1b-a400m", True), ("rwkv6-7b", False)])
+def test_serve_offload_new_archs(arch, use_kernels):
+    """MoE (capacity mode, tokens dropped at decode) and RWKV-6 (its state
+    rewritten whole on every step) through `launch.serve`: the same tokens
+    with and without offload, and the post-prefill cache untouched by the
+    two decode runs."""
+    res = serve_mod.serve(arch, smoke=True, batch=2, prompt_len=128,
+                          max_new=6, use_kernels=use_kernels, offload_kv=True,
+                          device="cpu")
+    assert res["tokens"].shape == (2, 6)
+    assert res["tokens_identical"]
+    assert torch.equal(res["tokens"], res["tokens_offload"])
+    stats = res["offload_stats"]
+    assert stats["demand_fetches"] == 0 and stats["prefetch_issued"] == 3
+    cfg = serve_mod.configs.get_smoke_config(arch)
+    fresh = lm.init_cache(cfg, 2, 128 + 6, device="cpu")
+    _, fresh = lm.prefill(cfg, res["params"], {"tokens": res["prompts"]},
+                          fresh, use_kernels=use_kernels)
+    for a, b in zip(convert.flatten(res["cache"])[0],
+                    convert.flatten(fresh)[0]):
+        assert torch.equal(a, b)
+    if arch == "rwkv6-7b":
+        # pages: len, last_x, s; the state is filled and the decode steps
+        # worked on clones of it
+        assert res["offload_pages"] == 3
+        assert res["cache"]["scan"][0]["s"].any()
+        # a decode step writes the new state into the tree it was handed
+        # (`serve` pages exactly those tensors back to the host)
+        cur = convert.tree_map(torch.clone, res["cache"])
+        before = convert.tree_map(torch.clone, cur)
+        _, out = lm.decode_step(cfg, res["params"], res["tokens"][:, :1], cur)
+        for name in ("s", "last_x"):
+            assert out["scan"][0][name] is cur["scan"][0][name]
+            assert not torch.equal(cur["scan"][0][name],
+                                   before["scan"][0][name])
+
+
 def test_serve_tokens_match_reference_serving_loop():
     """The port's greedy tokens equal the reference's decode loop on the
     same weights, carried across leaf by leaf (bf16 compute on both sides
@@ -94,6 +132,8 @@ def test_serve_main_prints_the_reference_lines(capsys):
 def test_serve_rejects_encoder_and_missing_card():
     with pytest.raises(ValueError, match="encoder-only"):
         serve_mod.serve("hubert-xlarge", smoke=True, device="cpu")
+    with pytest.raises(ValueError, match="vision_embeds"):
+        serve_mod.serve("qwen2-vl-2b", smoke=True, device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cuda"):

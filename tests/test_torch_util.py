@@ -54,6 +54,10 @@ def random_like(tree, rng, name=""):
         out = 0.1 * rng.standard_normal(a.shape)
     elif name == "embed":
         out = 0.02 * rng.standard_normal(a.shape)
+    elif name == "decay_base":
+        # RWKV-6's own range: the decay w = exp(-exp(.)) stays near 1, where
+        # the chunk-parallel form's products of w are safe
+        out = rng.uniform(-8.0, -4.0, a.shape)
     else:
         out = rng.standard_normal(a.shape) / np.sqrt(a.shape[-2])
     return out.astype(np.float32)
