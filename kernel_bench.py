@@ -10,7 +10,10 @@ lists and run parent, change, change, parent. Each tree builds its own
 kernels under its own `build/`.
 
 Shapes: flash at qwen2.5-3b's prefill (B=4, Hq=16, Hkv=2, S=1000, D=128,
-bf16, causal); paged at its decode (B=4, Hq=16, Hkv=2, T=1032, D=128, bf16,
+bf16, causal) and at recurrentgemma-9b's (B=4, Hq=16, Hkv=1, S=4096, D=256,
+window 2048; its library call takes the window as a boolean mask; skipped
+for a tree whose flash does not take D=256); paged at qwen2.5-3b's decode
+(B=4, Hq=16, Hkv=2, T=1032, D=128, bf16,
 lengths [1032, 1001, 517, 64], 16 caches in turn so that each call finds
 its cache cold, as `chip_smoke.check_paged` does) and at one sequence of
 32768 rows (4 caches in turn); gather at qwen2.5-3b's
@@ -73,6 +76,9 @@ def main() -> int:
     b, hq, hkv, s, d = cs.BATCH, 16, 2, cs.PROMPT_LEN, 128
     if "flash" in args.only:
         rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, d))
+        if 256 in fa.HEAD_DIMS:
+            rows.append(bench_flash(cs, fa, F, gen, b, 16, 1, 4096, 256,
+                                    window=2048))
     if "paged" in args.only:
         rows.append(bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d))
         rows.append(bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d,
@@ -101,15 +107,22 @@ def main() -> int:
     return 1 if any(r.get("check") == "FAIL" for r in rows) else 0
 
 
-def bench_flash(cs, fa, F, gen, b, hq, hkv, s, d):
+def bench_flash(cs, fa, F, gen, b, hq, hkv, s, d, window=0):
     q, k, v = cs.flash_case(gen, b, hq, hkv, s, d, torch.bfloat16)
+    lib = (dict(attn_mask=cs.window_mask(s, window)) if window
+           else dict(is_causal=True))
     return dict(
-        kernel="flash_attention", case=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} bf16",
-        ms=cs.time_ms([lambda: fa.flash_attention(q, k, v)], 20),
-        host_us=cs.host_us(lambda: fa.flash_attention(q, k, v)),
+        kernel="flash_attention",
+        case=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} bf16"
+             + (f" window{window}" if window else ""),
+        ms=cs.time_ms([lambda: fa.flash_attention(q, k, v, window=window)],
+                      20),
+        host_us=cs.host_us(lambda: fa.flash_attention(q, k, v,
+                                                      window=window)),
         library_ms=cs.time_ms([lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)], 10),
-        bound_ms=cs.flash_bound(b, hq, hkv, s, d, 0, torch.bfloat16)[0])
+            q, k, v, enable_gqa=True, **lib)], 10),
+        bound_ms=cs.flash_bound(b, hq, hkv, s, d, window,
+                                torch.bfloat16)[0])
 
 
 def bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d, long=False):

@@ -14,7 +14,9 @@
 // Bound on this card: operations. At the serve shape (B = 4, Hq = 16, S =
 // 1000, D = 128, bf16, causal) the two products are 16.4 GFLOP against 37 MB
 // of Q, K, V and O, some 440 operations a byte, above the H100's ~295
-// FLOP/byte ridge. Only wgmma reaches the tensor cores' full rate.
+// FLOP/byte ridge. recurrentgemma-9b's (B = 4, Hq = 16, Hkv = 1, S = 4096,
+// D = 256, window 2048) is further above it: 412 GFLOP against 285 MB. Only
+// wgmma reaches the tensor cores' full rate.
 //
 // Which body runs is a fixed rule on (type, head size), stated here, in
 // `flash_attention_body` below and in the wrapper (`body_for`):
@@ -23,8 +25,10 @@
 //   CUDA cores, a 4x4 (Q K^T) and a 4x(D/16) (P V) register tile per thread,
 //   64x64 tiles. TF32 would not hold the fp32 tolerance (atol 2e-5). Rows of
 //   the shared tiles are padded by one word so the 16 threads that read 16
-//   different K rows hit 16 different banks.
-// * bfloat16, D = 64 or 128 -> `flash_wgmma_kernel`, designed for Hopper:
+//   different K rows hit 16 different banks. At D = 256 the Q, K, V and P
+//   tiles take 210 KB of shared memory, one block an SM.
+// * bfloat16, D = 64, 128 or 256 -> `flash_wgmma_kernel`, designed for
+//   Hopper (at D = 256 with other tiles, see the next bullet):
 //   - a block of 288 threads: two consumer warpgroups of 64 query rows each
 //     (BM = 128) and one producer warp; one block an SM (161 KB of shared
 //     memory at D = 128);
@@ -61,6 +65,26 @@
 //     all heads and batches, so causal attention's light tiles fill the
 //     last wave.
 //   Output goes from registers to q's strides.
+// * bfloat16, D = 256 -> the same kernel with 64 x 64 tiles and ONE consumer
+//   warpgroup (160 threads). What bounds this shape is room, before speed:
+//   - at D = 128's tiles a block would need 1 KB + 64 KB of Q + 2 stages x 2
+//     x 64 KB of K and V = 321 KB of shared memory, above the 227 KB a block
+//     may have; at BM = BN = 64 it needs 1 + 32 + 2 x 2 x 32 = 161 KB;
+//   - the O accumulator is D / 2 = 128 fp32 registers a thread beside 32 of
+//     S and 16 of P. A 288-thread block allows 168 registers a thread; a
+//     160-thread block allows 255, so one consumer warpgroup keeps it all in
+//     registers without the producer warpgroup and the register hand-over
+//     (setmaxnreg) that two consumers would need;
+//   - S = Q K^T is 16 wgmma.m64n64k16 a tile; O += P V is one m64n64k16 a
+//     64-column V box a 16-key step (four a step), each on its own quarter
+//     of the accumulator, so no asm statement names all 128 of them;
+//   - the cost: one warpgroup an SM issues the products, so the tensor cores
+//     idle while it does the softmax. Two consumers with setmaxnreg, or a
+//     third K/V stage (1 + 32 + 3 x 64 = 225 KB fits), are left for a later
+//     change. The window edge at this BN: a tile straddles it, and is
+//     masked, where k0 <= rlo + 63 - window; a tile wholly before it for all
+//     64 rows is skipped (the dead test), and the first tile loaded is
+//     (q0 - window + 1) / BN.
 // * bfloat16, D = 16 or 32 -> `flash_mma_kernel` (FlashAttention-2 on
 //   mma.sync.m16n8k16, 64x64 tiles, a 2-slot cp.async K/V ring): a wgmma
 //   tile of 16 or 32 columns would waste most of each 128-byte swizzle row,
@@ -527,34 +551,40 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at D = 64 / 128 on wgmma, tiles by TMA (see the note at the top).
+// bfloat16 at D = 64 / 128 / 256 on wgmma, tiles by TMA (see the note at the
+// top).
 namespace wg {
 
-constexpr int BM = 128;          // query rows a block, 64 a consumer warpgroup
-constexpr int BN = 128;          // keys a KV tile
 // K/V tile pairs in flight or in use (a third stage measured no faster)
 constexpr int STAGES = 2;
-constexpr int CONSUMERS = 2;     // consumer warpgroups
-constexpr int PRODUCER = CONSUMERS * 4;           // the producer's warp index
-constexpr int THREADS = CONSUMERS * 128 + 32;
 constexpr int BOX = 64;          // columns a TMA box: one 128-byte swizzle row
 constexpr int ROW = BOX * 2;     // bytes of a box row
 // below any real logit in log2 units, above any masked one (NEG_INF times
 // the scale): the running max of a row that has met no key yet
 constexpr float NO_KEY = NEG_INF * 1e-10f;
 
+// The tiles by head size: at D = 64 / 128 two consumer warpgroups (BM = 128
+// query rows, 64 each) and BN = 128 keys a K/V tile; at D = 256 one consumer
+// warpgroup and 64 x 64 tiles (the note at the top says why).
 template <int D> struct Cfg {
+  static constexpr bool WIDE = D > 128;
+  static constexpr int CONSUMERS = WIDE ? 1 : 2;  // consumer warpgroups
+  static constexpr int BM = 64 * CONSUMERS;       // query rows a block
+  static constexpr int BN = WIDE ? 64 : 128;      // keys a KV tile
+  static constexpr int PRODUCER = CONSUMERS * 4;  // the producer's warp index
+  static constexpr int THREADS = CONSUMERS * 128 + 32;
   static constexpr int BOXES = D / BOX;           // boxes across a row
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int TILE = BN * D * 2;         // one K or one V tile
   // + 1 KB to align the tiles to the 1024-byte swizzle atom
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * TILE;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
 
-// S[64 x 128] (+)= A[64 x 16] B[16 x 128]: A and B from shared memory,
-// both K-major; scale_d 0 overwrites S, 1 accumulates.
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
-                                                    uint64_t db, int scale_d) {
+// S[64 x N] (+)= A[64 x 16] B[16 x N], N = 128 or 64 keys: A and B from
+// shared memory, both K-major; scale_d 0 overwrites S, 1 accumulates.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -579,6 +609,26 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -637,6 +687,26 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O += P V for one 16-key step of a V tile whose 64-column boxes lie
+// `box_bytes` apart, starting at `v_addr`: up to D = 128 one instruction of
+// N = D spans the boxes; at D = 256 (N = 256 would hold all 128 accumulators
+// in one asm statement) one m64n64k16 a box, whose accumulators are
+// oacc[32x .. 32x + 31], the same layout as columns 64x .. 64x + 63 of one
+// N = 256 instruction.
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&oacc)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint32_t v_addr, uint32_t box_bytes) {
+  if constexpr (D <= 128) {
+    wgmma_rs_tb(oacc, a, hopper::wgmma_desc_sw128(v_addr, box_bytes));
+  } else {
+#pragma unroll
+    for (int x = 0; x < D / BOX; ++x)
+      wgmma_rs_tb(*reinterpret_cast<float(*)[32]>(&oacc[32 * x]), a,
+                  hopper::wgmma_desc_sw128(v_addr + x * box_bytes));
+  }
+}
+
 // One TMA box: `pos` packs the places (1..3) of the S, H and B dimensions in
 // the map, which orders them by stride (`flash_map`).
 __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
@@ -651,7 +721,7 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
 }  // namespace wg
 
 template <int D>
-__global__ void __launch_bounds__(wg::THREADS, 1)
+__global__ void __launch_bounds__(wg::Cfg<D>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
@@ -662,12 +732,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   using namespace hopper;
   using wg::load_box;
   using wg::NO_KEY;
-  using wg::wgmma_m64n128k16_ss;
-  using wg::wgmma_rs_tb;
+  using wg::wgmma_ss;
   using C = wg::Cfg<D>;
-  // wg's tile sizes, shadowing the 64-row tiles of the other two bodies
-  constexpr int BM = wg::BM, BN = wg::BN, STAGES = wg::STAGES;
-  constexpr int CONSUMERS = wg::CONSUMERS, BOX = wg::BOX, ROW = wg::ROW;
+  // this head size's tiles, shadowing the 64-row tiles of the other bodies
+  constexpr int BM = C::BM, BN = C::BN, STAGES = wg::STAGES;
+  constexpr int CONSUMERS = C::CONSUMERS, BOX = wg::BOX, ROW = wg::ROW;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t q_full, full[STAGES], empty[STAGES];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
@@ -699,7 +768,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if (warp == wg::PRODUCER) {                     // aload, one lane
+  if (warp == C::PRODUCER) {                      // aload, one lane
     if (lane == 0) {
       mbar_arrive_expect_tx(&q_full, C::Q_BYTES);
 #pragma unroll
@@ -750,12 +819,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const uint32_t v_addr = k_addr + C::TILE;
 
       // S = Q K^T: D / 16 k-steps, 4 in each 64-column box
-      float sacc[64];
+      float sacc[BN / 2];
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         const uint32_t off = (ks % 4) * 32;     // 16 columns, 32 bytes
-        wgmma_m64n128k16_ss(
+        wgmma_ss(
             sacc, wgmma_desc_sw128(q_addr + (ks / 4) * BM * ROW + off),
             wgmma_desc_sw128(k_addr + (ks / 4) * BN * ROW + off), ks > 0);
       }
@@ -827,14 +896,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         oacc[4 * j + 3] *= alpha1;
       }
 
-      // O += P V: BN / 16 k-steps of 16 keys (2048 bytes of each V box), one
-      // instruction of N = D a step, the boxes BN * ROW bytes apart
+      // O += P V: BN / 16 k-steps of 16 keys (2048 bytes of each V box),
+      // the boxes BN * ROW bytes apart
       fence_regs(oacc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs_tb(oacc, pa[kk],
-                    wgmma_desc_sw128(v_addr + kk * 16 * ROW, BN * ROW));
+        wg::wgmma_pv<D>(oacc, pa[kk], v_addr + kk * 16 * ROW, BN * ROW);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(oacc);
@@ -899,21 +967,22 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          int B, int Hq, int Hkv, int S, int causal, int window,
                          float scale, const long long* st,
                          cudaStream_t stream) {
+  using C = wg::Cfg<D>;
   static hopper::SmemAllowance allowance;
   auto kernel = flash_wgmma_kernel<D>;
-  cudaError_t err = hopper::allow_smem(allowance, kernel, wg::Cfg<D>::SMEM);
+  cudaError_t err = hopper::allow_smem(allowance, kernel, C::SMEM);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   int q_pos, k_pos, v_pos;
-  if ((err = flash_map(&tq, q, D, S, Hq, B, st[0], st[1], st[2], wg::BM,
+  if ((err = flash_map(&tq, q, D, S, Hq, B, st[0], st[1], st[2], C::BM,
                        &q_pos)) != cudaSuccess ||
-      (err = flash_map(&tk, k, D, S, Hkv, B, st[3], st[4], st[5], wg::BN,
+      (err = flash_map(&tk, k, D, S, Hkv, B, st[3], st[4], st[5], C::BN,
                        &k_pos)) != cudaSuccess ||
-      (err = flash_map(&tv, v, D, S, Hkv, B, st[6], st[7], st[8], wg::BN,
+      (err = flash_map(&tv, v, D, S, Hkv, B, st[6], st[7], st[8], C::BN,
                        &v_pos)) != cudaSuccess)
     return err;
-  dim3 grid(Hq, B, (S + wg::BM - 1) / wg::BM);   // query tiles last
-  kernel<<<grid, wg::THREADS, wg::Cfg<D>::SMEM, stream>>>(
+  dim3 grid(Hq, B, (S + C::BM - 1) / C::BM);     // query tiles last
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Hq / Hkv, causal, window,
       scale * 1.4426950408889634f, q_pos, k_pos, v_pos, st[9], st[10],
       st[11]);
@@ -960,9 +1029,9 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
 enum Body { BODY_NONE = -1, BODY_FMA = 0, BODY_WGMMA = 1, BODY_MMA = 2 };
 
 // The fixed rule of the note at the top: float32 -> fma at every head size;
-// bfloat16 -> wgmma at 64 and 128, mma.sync at 16 and 32.
+// bfloat16 -> wgmma at 64, 128 and 256, mma.sync at 16 and 32.
 Body body_for(int dtype, int D) {
-  if (D != 16 && D != 32 && D != 64 && D != 128) return BODY_NONE;
+  if (D != 16 && D != 32 && D != 64 && D != 128 && D != 256) return BODY_NONE;
   if (dtype == DTYPE_F32) return BODY_FMA;
   if (dtype == DTYPE_BF16) return D >= 64 ? BODY_WGMMA : BODY_MMA;
   return BODY_NONE;
@@ -998,12 +1067,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
         FLASH_CASE(launch_fma, 32);
         FLASH_CASE(launch_fma, 64);
         FLASH_CASE(launch_fma, 128);
+        FLASH_CASE(launch_fma, 256);
       }
       break;
     case BODY_WGMMA:
       switch (D) {
         FLASH_CASE(launch_wgmma, 64);
         FLASH_CASE(launch_wgmma, 128);
+        FLASH_CASE(launch_wgmma, 256);
       }
       break;
     case BODY_MMA:

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 launches = 0            # +1 for every launch of the CUDA kernel, nowhere else
 
@@ -24,8 +24,9 @@ def body_for(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel body a launch runs, a fixed rule on (type, head size) that
     `flash_attention_launch` in csrc/flash_attention.cu applies: "fma"
     (fp32 FMAs, every head size) for float32; "wgmma" (TMA + wgmma, the
-    Hopper body) for bfloat16 at 64 and 128; "mma" (mma.sync) for bfloat16
-    at 16 and 32."""
+    Hopper body) for bfloat16 at 64, 128 and 256 (at 256 with 64 x 64 tiles
+    and one consumer warpgroup); "mma" (mma.sync) for bfloat16 at 16 and
+    32."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {head_dim} not in "
                          f"{HEAD_DIMS}")
@@ -57,7 +58,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (the ragged edge is masked in the kernel) and the operands are read
     through their strides, so a transposed view of [B, S, H, D] costs no
     copy; the output has q's layout. Which body runs is `body_for`: bf16 at
-    head size 64 or 128 loads its tiles by TMA and multiplies with wgmma."""
+    head size 64, 128 or 256 loads its tiles by TMA and multiplies with
+    wgmma."""
     global launches
     del block_q, block_k
     if q.device.type == "cpu":

@@ -1,4 +1,5 @@
-"""Transformer building blocks: norms, RoPE/M-RoPE, GQA attention, GLU MLPs.
+"""Transformer building blocks: norms, RoPE/M-RoPE, GQA attention (also
+sliding-window decode through a ring cache), GLU MLPs.
 
 Plain functions on tensors, params as nested dicts with weights `[in, out]`
 used as `x @ W`, as in the reference (`src/repro/models/blocks.py`), so a
@@ -290,6 +291,58 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     out = torch.einsum("bhst,bthd->bshd", probs.to(pv_t), v_all.to(pv_t))
     out = out.reshape(B, S, Hq * hd) @ p["wo"]
     return out, new_cache
+
+
+def ring_attention_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                        positions: torch.Tensor, ck: torch.Tensor,
+                        cv: torch.Tensor, cache_len: torch.Tensor,
+                        rope: Optional[RopeTables] = None
+                        ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                       torch.Tensor]]:
+    """Sliding-window decode with a ring-buffered KV cache.
+
+    x: [B, 1, d]; ck/cv: [B, W, Hkv, D] hold the last W tokens' K/V (already
+    roped at their absolute positions); cache_len: [B] tokens seen so far.
+    The new token's row goes to slot `cache_len % W`, written into ck / cv IN
+    PLACE (as `attention` writes its cache); they are returned as they are.
+    `rope` holds the rotary tables of `positions` if the caller has them.
+    """
+    Bsz, S, d = x.shape
+    if S != 1:
+        raise ValueError(f"ring_attention_step decodes one token, got S={S}")
+    hd = cfg.resolved_head_dim
+    Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
+    Wn = ck.shape[1]
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if rope is None:
+        rope = RopeTables(positions, hd, cfg.rope_theta, cfg.mrope_sections)
+    q = apply_rope(q.reshape(Bsz, 1, Hq, hd), positions, cfg.rope_theta,
+                   cfg.mrope_sections, rope)
+    k = apply_rope(k.reshape(Bsz, 1, Hkv, hd), positions, cfg.rope_theta,
+                   cfg.mrope_sections, rope)
+    v = v.reshape(Bsz, 1, Hkv, hd)
+    slot = cache_len.long() % Wn                            # [B]
+    bidx = torch.arange(Bsz, device=x.device)
+    ck.index_put_((bidx, slot), k[:, 0].to(ck.dtype))
+    cv.index_put_((bidx, slot), v[:, 0].to(cv.dtype))
+    valid = (torch.arange(Wn, device=x.device)[None, :]
+             <= torch.clamp_max(cache_len.long(), Wn - 1)[:, None])
+    rep = Hq // Hkv
+    k_all = torch.repeat_interleave(ck, rep, dim=2)
+    v_all = torch.repeat_interleave(cv, rep, dim=2)
+    qk_t = torch.promote_types(q.dtype, k_all.dtype)
+    logits = torch.einsum("bshd,bthd->bhst", q.to(qk_t),
+                          k_all.to(qk_t)) / math.sqrt(hd)
+    logits = logits.float().masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    pv_t = torch.promote_types(probs.dtype, v_all.dtype)
+    out = torch.einsum("bhst,bthd->bshd", probs.to(pv_t), v_all.to(pv_t))
+    out = out.reshape(Bsz, 1, Hq * hd) @ p["wo"]
+    return out, (ck, cv)
 
 
 # ---------------------------------------------------------------------- MLP

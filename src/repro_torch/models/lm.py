@@ -3,8 +3,10 @@ with prefill (stateful; an encoder forward for encoders) and decode
 (single-token, cached) paths, for the dense decoders (`qwen2.5-3b`,
 `qwen2-7b`, `phi4-mini-3.8b`, `qwen2.5-32b`), the MoE decoders
 (`granite-moe-1b-a400m`, `kimi-k2-1t-a32b`), the vision decoder with M-RoPE
-(`qwen2-vl-2b`), the audio encoder (`hubert-xlarge`) and the attention-free
-`rwkv6-7b`.
+(`qwen2-vl-2b`), the audio encoder (`hubert-xlarge`), the attention-free
+`rwkv6-7b` and the hybrid `recurrentgemma-9b` (RG-LRU blocks and
+sliding-window attention whose decode cache is a ring of the last `window`
+tokens).
 
 The counterpart of `src/repro/models/lm.py`. The parameter and cache layout is
 the reference's, so its pytrees convert leaf by leaf: layers are stacked over
@@ -14,8 +16,7 @@ remainder layers sit unstacked under `"tail"`. Where the reference scans over
 the stacked axis, this is a Python loop over index views into the leaves, and
 the cache's leaves are written in place through those views.
 
-Not ported yet, each raising `NotImplementedError` with its ROADMAP item:
-sliding-window and RG-LRU blocks (A7c: `recurrentgemma-9b`),
+Not ported yet, raising `NotImplementedError` with its ROADMAP item:
 `train_loss` / `chunked_xent` (A8).
 """
 from __future__ import annotations
@@ -24,27 +25,16 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import BLOCK_FULL, BLOCK_RWKV6, ModelConfig
+from repro_torch.configs.base import (BLOCK_FULL, BLOCK_LOCAL, BLOCK_RGLRU,
+                                      BLOCK_RWKV6, ModelConfig)
 from repro_torch.convert import flatten, tree_map, unflatten
 from repro_torch.models import blocks as B
 from repro_torch.models import frontends as F
 from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as W
 
 Params = Dict[str, Any]
-
-def _unported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet (ROADMAP A7c: sliding-window "
-        "attention and RG-LRU)")
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.block_pattern) - {BLOCK_FULL, BLOCK_RWKV6}
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(kinds)} are not ported yet "
-            "(ROADMAP A7c: sliding-window attention and RG-LRU)")
 
 
 def resolve_device(device) -> torch.device:
@@ -63,12 +53,14 @@ def _init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype,
                 device) -> Params:
     p: Params = {"norm1": B.init_norm(cfg, cfg.d_model, device=device),
                  "norm2": B.init_norm(cfg, cfg.d_model, device=device)}
-    if kind == BLOCK_FULL:
+    if kind in (BLOCK_FULL, BLOCK_LOCAL):
         p["mix"] = B.init_attention(cfg, gen, dtype, device=device)
+    elif kind == BLOCK_RGLRU:
+        p["mix"] = R.init_rglru(cfg, gen, dtype, device=device)
     elif kind == BLOCK_RWKV6:
         p["mix"] = W.init_rwkv6(cfg, gen, dtype, device=device)
     else:
-        raise _unported(kind)
+        raise ValueError(kind)
     if cfg.moe is not None:
         p["ffn"] = M.init_moe(cfg, gen, dtype, device=device)
     else:
@@ -104,7 +96,6 @@ def init_model(cfg: ModelConfig, gen: Optional[torch.Generator] = None,
     `torch.Generator` on `device`; seeded 0 if None). Asking for a card that
     is not there raises. The draws differ from the reference's for the same
     seed; parity tests carry weights across with `repro_torch.convert`."""
-    _check_supported(cfg)
     device = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(0)
@@ -134,22 +125,26 @@ def init_model(cfg: ModelConfig, gen: Optional[torch.Generator] = None,
 # =================================================================== caches
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype=torch.bfloat16, device="cuda") -> Params:
+    """A sliding-window layer keeps the last min(window, max_len) tokens."""
     hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    if kind in (BLOCK_FULL, BLOCK_LOCAL):
+        t = (min(cfg.window_size or max_len, max_len) if kind == BLOCK_LOCAL
+             else max_len)
+        return {"k": torch.zeros((batch, t, hkv, hd), dtype=dtype,
+                                 device=device),
+                "v": torch.zeros((batch, t, hkv, hd), dtype=dtype,
+                                 device=device)}
+    if kind == BLOCK_RGLRU:
+        return R.init_rglru_state(cfg, batch, device=device)
     if kind == BLOCK_RWKV6:
         return W.init_rwkv6_state(cfg, batch, device=device)
-    if kind != BLOCK_FULL:
-        raise _unported(kind)
-    return {"k": torch.zeros((batch, max_len, hkv, hd), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((batch, max_len, hkv, hd), dtype=dtype,
-                             device=device)}
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> Params:
     """Decode cache tree: {"scan": leaves [P, ...], "tail": [...],
     "len": [B]} — `len` (int32) is the shared valid-prefix length."""
-    _check_supported(cfg)
     device = resolve_device(device)
     period = len(cfg.block_pattern)
     n_periods, n_tail = divmod(cfg.num_layers, period)
@@ -175,23 +170,39 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Optional[Params],
                             Optional[torch.Tensor]]:
     """One block -> (x, cache, aux). The cache's leaves are written IN PLACE
-    and returned: attention's `k` / `v` (prefill fills the prefix, decode
-    scatters the new row), RWKV-6's `s` / `last_x` (copied over whole).
-    `aux` is the MoE load-balancing loss, None for a dense FFN (the
-    reference's zero)."""
+    and returned: attention's `k` / `v` (prefill fills the prefix, or for a
+    sliding-window layer the ring slots of the last `window` tokens; decode
+    scatters the new row), RG-LRU's `h` / `conv` and RWKV-6's `s` / `last_x`
+    (copied over whole). `aux` is the MoE load-balancing loss, None for a
+    dense FFN (the reference's zero)."""
     h = B.apply_norm(cfg, p["norm1"], x)
     new_cache = None
-    if kind == BLOCK_FULL:
+    window = cfg.window_size if kind == BLOCK_LOCAL else 0
+    if kind in (BLOCK_FULL, BLOCK_LOCAL):
         if cache is not None:
-            if h.shape[1] > 1:
-                # full-attention prefill: run self-attention and bulk-fill
-                # the cache prefix — avoids the [S, T_max] masked-cache path.
+            S = h.shape[1]
+            if kind == BLOCK_LOCAL and S == 1:
+                # decode through the ring-buffered window cache
+                out, nc = B.ring_attention_step(
+                    cfg, p["mix"], h, positions, cache["k"], cache["v"],
+                    cache_len, rope=rope)
+            elif kind == BLOCK_LOCAL or S > 1:
+                # prefill: self-attention over the prompt, then fill the
+                # cache — the prefix for full attention (avoiding the
+                # [S, T_max] masked-cache path), for a window the ring with
+                # the last W tokens (slot = absolute position mod W)
                 out, kv = B.attention(cfg, p["mix"], h, positions,
-                                      use_kernels=use_kernels,
+                                      window=window, use_kernels=use_kernels,
                                       return_kv=True, rope=rope)
-                S = h.shape[1]
-                cache["k"][:, :S] = kv[0].to(cache["k"].dtype)
-                cache["v"][:, :S] = kv[1].to(cache["v"].dtype)
+                if kind == BLOCK_LOCAL:
+                    Wn = cache["k"].shape[1]
+                    take = min(Wn, S)
+                    slots = torch.arange(S - take, S, device=h.device) % Wn
+                    cache["k"][:, slots] = kv[0][:, -take:].to(cache["k"].dtype)
+                    cache["v"][:, slots] = kv[1][:, -take:].to(cache["v"].dtype)
+                else:
+                    cache["k"][:, :S] = kv[0].to(cache["k"].dtype)
+                    cache["v"][:, :S] = kv[1].to(cache["v"].dtype)
                 nc = (cache["k"], cache["v"])
             else:
                 out, nc = B.attention(cfg, p["mix"], h, positions,
@@ -200,18 +211,17 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                                       use_kernels=use_kernels, rope=rope)
             new_cache = {"k": nc[0], "v": nc[1]}
         else:
-            out, _ = B.attention(cfg, p["mix"], h, positions,
+            out, _ = B.attention(cfg, p["mix"], h, positions, window=window,
                                  use_kernels=use_kernels, rope=rope)
-    elif kind == BLOCK_RWKV6:
-        out, state = W.apply_rwkv6(cfg, p["mix"], h, cache)
+    else:
+        mix = R.apply_rglru if kind == BLOCK_RGLRU else W.apply_rwkv6
+        out, state = mix(cfg, p["mix"], h, cache)
         if cache is not None:
             # the callers hand back the cache tree they were given, so the
             # new state goes into its tensors (views into stacked leaves)
-            for name in ("s", "last_x"):
-                cache[name].copy_(state[name])
+            for name, t in state.items():
+                cache[name].copy_(t)
             new_cache = cache
-    else:
-        raise _unported(kind)
     x = x + out
     h2 = B.apply_norm(cfg, p["norm2"], x)
     if cfg.moe is not None:
@@ -236,7 +246,7 @@ def forward_blocks(cfg: ModelConfig, params: Params, x: torch.Tensor,
     # one set of rotary tables for the whole stack, not two per layer
     rope = (B.RopeTables(positions, cfg.resolved_head_dim, cfg.rope_theta,
                          cfg.mrope_sections)
-            if BLOCK_FULL in cfg.block_pattern else None)
+            if {BLOCK_FULL, BLOCK_LOCAL} & set(cfg.block_pattern) else None)
     auxes = []
 
     def layer(kind, p, c):
@@ -329,7 +339,6 @@ def prefill(cfg: ModelConfig, params: Params, inputs: Dict[str, Any],
     [B, 1, V] and, for a decoder, the filled cache. The cache's tensors are
     filled in place; the returned tree holds them with a new `len`. An
     encoder takes no cache (`cache=None`) and returns None for it."""
-    _check_supported(cfg)
     params = cast_params_for_compute(params, dtype)
     x = embed_inputs(cfg, params, inputs, dtype)
     Bsz, S = x.shape[:2]
@@ -353,7 +362,6 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     The new K/V row (or RWKV-6 state) is written into the cache's tensors in
     place; the returned tree holds them with `len + 1` (a new tensor: the old
     `len` is not touched)."""
-    _check_supported(cfg)
     params = cast_params_for_compute(params, dtype)
     x = params["embed"][tokens]
     Bsz = x.shape[0]

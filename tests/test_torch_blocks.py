@@ -1,5 +1,6 @@
 """`repro_torch.models.blocks` against `repro.models.blocks` on the same
-numpy inputs and converted weights, fp32, atol 1e-4 (sums in another order)."""
+numpy inputs and converted weights, fp32, atol 1e-4 (sums in another order);
+bf16 cases at 3e-2, as the reference's own tests hold them."""
 import dataclasses
 
 import jax
@@ -13,7 +14,7 @@ from repro.models import blocks as jblocks
 from repro_torch import configs, convert
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import paged_attention as tpaged
-from repro_torch.models import blocks, frontends, lm, moe, rwkv6
+from repro_torch.models import blocks, frontends, lm, moe, rglru, rwkv6
 
 from test_torch_util import random_like, to_jax, to_np, to_torch
 
@@ -47,6 +48,7 @@ def test_apply_norm(norm, dtype):
                                 "rope_frequencies", "_attn_mask",
                                 "positions_for", "init_moe", "init_frontend",
                                 "init_rwkv6", "init_rwkv6_state",
+                                "init_rglru", "init_rglru_state",
                                 "mrope_positions", "mrope_positions_for"])
 def test_models_take_no_default_device(fn):
     """The tensor-making helpers of `models` name their device: forgetting it
@@ -55,6 +57,7 @@ def test_models_take_no_default_device(fn):
     moe_cfg = configs.get_smoke_config("granite-moe-1b-a400m")
     vl_cfg = configs.get_smoke_config("qwen2-vl-2b")
     rwkv_cfg = configs.get_smoke_config("rwkv6-7b")
+    rg_cfg = configs.get_smoke_config("recurrentgemma-9b")
     gen = torch.Generator()
     target, args = {
         "init_moe": (moe.init_moe, (moe_cfg, gen, torch.float32)),
@@ -62,6 +65,8 @@ def test_models_take_no_default_device(fn):
                           (vl_cfg, gen, torch.float32)),
         "init_rwkv6": (rwkv6.init_rwkv6, (rwkv_cfg, gen, torch.float32)),
         "init_rwkv6_state": (rwkv6.init_rwkv6_state, (rwkv_cfg, 2)),
+        "init_rglru": (rglru.init_rglru, (rg_cfg, gen, torch.float32)),
+        "init_rglru_state": (rglru.init_rglru_state, (rg_cfg, 2)),
         "mrope_positions": (frontends.mrope_positions, (vl_cfg, 2, 4, 0)),
         "mrope_positions_for": (lm.positions_for, (vl_cfg, 2, 4, 0)),
         "init_norm": (blocks.init_norm, (cfg, 64, torch.float32)),
@@ -260,3 +265,35 @@ def test_attention_cached_decode(use_kernels, S):
     np.testing.assert_allclose(to_np(tk), to_np(jnew[0]), **TOL)
     np.testing.assert_allclose(to_np(tv), to_np(jnew[1]), **TOL)
     assert not np.array_equal(to_np(tk), ck)
+
+
+@pytest.mark.parametrize("cache_len", [[3, 9], [15, 15], [16, 40], [15, 31]])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_attention_step(cache_len, dtype):
+    """Sliding-window decode through a ring of W = 16 slots, before the ring
+    wraps (cache_len < W - 1), at its last slot (W - 1), and after it has
+    wrapped (> W): the new row lands at cache_len % W, in place, and only
+    the slots written so far are attended to."""
+    cfg, jcfg, rng, p, x = _attention_setup(9, 1)
+    W = 16
+    ck = (rng.standard_normal((2, W, 2, 16)) * 0.5).astype(np.float32)
+    cv = rng.standard_normal((2, W, 2, 16)).astype(np.float32)
+    lens = np.array(cache_len, np.int32)
+    pos = lens[:, None]
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tk, tv = to_torch(ck).to(tdt), to_torch(cv).to(tdt)
+    tp = convert.params_from_numpy(p, device="cpu", dtype=tdt)
+    got, new = blocks.ring_attention_step(
+        cfg, tp, to_torch(x).to(tdt), torch.from_numpy(pos), tk, tv,
+        torch.from_numpy(lens))
+    want, jnew = jblocks.ring_attention_step(
+        jcfg, jax.tree.map(lambda a: jnp.asarray(a, jdt), p),
+        jnp.asarray(x, jdt), jnp.array(pos), jnp.asarray(ck, jdt),
+        jnp.asarray(cv, jdt), jnp.array(lens))
+    tol = TOL if dtype == "float32" else dict(atol=3e-2, rtol=3e-2)
+    np.testing.assert_allclose(to_np(got), to_np(want), **tol)
+    assert new[0] is tk and new[1] is tv
+    np.testing.assert_allclose(to_np(tk), to_np(jnew[0]), **tol)
+    np.testing.assert_allclose(to_np(tv), to_np(jnew[1]), **tol)
+    rows = np.arange(2), lens % W
+    assert not np.array_equal(to_np(tk)[rows], to_np(jnp.asarray(ck, jdt))[rows])

@@ -62,11 +62,31 @@ def test_flash_attention_bf16():
                                  interpret=True)), **BF16_TOL)
 
 
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_256(window, dtype):
+    """recurrentgemma-9b's head size with MQA (one KV head for four query
+    heads) and a window shorter than S: the plain version (what a CPU
+    tensor runs) against the reference's Pallas kernel in interpret mode."""
+    q, k, v = _flash_inputs(5, 1, 4, 1, 256, 256)
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.array(a, jdt) for a in (q, k, v))
+    tq, tk, tv = to_torch(jq), to_torch(jk), to_torch(jv)
+    out = tflash.flash_attention(tq, tk, tv, causal=True, window=window)
+    assert out.dtype == getattr(torch, dtype) and out.shape == tq.shape
+    assert torch.equal(out, ref.attention_ref(tq, tk, tv, True, window))
+    tol = FP32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(
+        to_np(out), to_np(jflash(jq, jk, jv, causal=True, window=window,
+                                 interpret=True)), **tol)
+
+
 @pytest.mark.parametrize("dtype,d,body", [
     (torch.float32, 16, "fma"), (torch.float32, 32, "fma"),
     (torch.float32, 64, "fma"), (torch.float32, 128, "fma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma")])
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"),
+    (torch.float32, 256, "fma"), (torch.bfloat16, 256, "wgmma")])
 def test_flash_body_rule(dtype, d, body):
     """Which kernel body a launch runs is a fixed rule on (type, head size);
     `chip_smoke.py` holds the CUDA source's rule to this one."""
@@ -75,7 +95,7 @@ def test_flash_body_rule(dtype, d, body):
 
 def test_flash_body_rule_refuses_what_no_body_takes():
     with pytest.raises(ValueError, match="head dim"):
-        tflash.body_for(torch.bfloat16, 256)
+        tflash.body_for(torch.bfloat16, 96)
     with pytest.raises(TypeError, match="no body"):
         tflash.body_for(torch.float16, 64)
 

@@ -1,7 +1,8 @@
 """`repro_torch.models.lm` against `repro.models.lm` on converted weights:
 prefill logits, decode steps and greedy tokens for the smoke configs of the
-dense, MoE, vision and RWKV-6 architectures, the audio encoder's forward,
-plus `repro_torch.convert`."""
+dense, MoE, vision, RWKV-6 and RecurrentGemma (RG-LRU + sliding-window
+attention) architectures, the audio encoder's forward, plus
+`repro_torch.convert`."""
 import dataclasses
 import functools
 
@@ -20,8 +21,10 @@ from test_torch_util import (jax_tree_to_numpy, random_like, to_jax, to_np,
                              to_torch)
 
 DENSE = ["qwen2.5-3b", "qwen2-7b", "phi4-mini-3.8b", "qwen2.5-32b"]
-# MoE (kimi with its shared expert), vision prefix + M-RoPE, attention-free
-NEW = ["granite-moe-1b-a400m", "kimi-k2-1t-a32b", "qwen2-vl-2b", "rwkv6-7b"]
+# MoE (kimi with its shared expert), vision prefix + M-RoPE, attention-free,
+# hybrid RG-LRU + sliding window (window 16 at smoke size)
+NEW = ["granite-moe-1b-a400m", "kimi-k2-1t-a32b", "qwen2-vl-2b", "rwkv6-7b",
+       "recurrentgemma-9b"]
 # fp32 on both sides; the sums of a 3-layer model run in another order
 LOGITS_TOL = dict(atol=2e-4, rtol=1e-4)
 # bf16 rounds at other places in the two frameworks (the reference's own
@@ -32,12 +35,14 @@ N_DECODE = 4
 
 def _smoke_cfgs(arch):
     """(port, reference) smoke configs; "<arch>+tail" makes the pattern two
-    blocks long over three layers, so one layer runs unstacked as the tail."""
+    blocks long over three layers, so one layer runs unstacked as the tail;
+    "<arch>+L<n>" keeps the pattern and gives the model n layers."""
     name, _, tail = arch.partition("+")
     cfg, jcfg = configs.get_smoke_config(name), jconfigs.get_smoke_config(name)
     if tail:
-        change = dict(block_pattern=(cfg.block_pattern[0],) * 2,
-                      num_layers=3)
+        change = (dict(num_layers=int(tail[1:])) if tail.startswith("L") else
+                  dict(block_pattern=(cfg.block_pattern[0],) * 2,
+                       num_layers=3))
         cfg = dataclasses.replace(cfg, **change)
         jcfg = dataclasses.replace(jcfg, **change)
     return cfg, jcfg
@@ -106,8 +111,10 @@ def _run_both(arch, prompt_len, use_kernels, dtype, follow_reference=False):
         cache, jcache
 
 
+# recurrentgemma at five layers: one period of (RG-LRU, RG-LRU, LOCAL) and
+# a two-layer RG-LRU tail, as the full model's 38 = 12 * 3 + 2
 @pytest.mark.parametrize("arch", DENSE + ["qwen2.5-3b+tail"] + NEW + [
-    "granite-moe-1b-a400m+tail", "rwkv6-7b+tail"])
+    "granite-moe-1b-a400m+tail", "rwkv6-7b+tail", "recurrentgemma-9b+L5"])
 @pytest.mark.parametrize("use_kernels,prompt_len", [(False, 16), (True, 128)])
 def test_prefill_and_decode_match_reference(arch, use_kernels, prompt_len):
     cfg, steps, toks, jtoks, cache, jcache = _run_both(
@@ -232,7 +239,8 @@ def test_param_counts_match_analytic():
 
 
 @pytest.mark.parametrize("arch", DENSE + ["qwen2.5-3b-full"] + NEW + [
-    "hubert-xlarge", "rwkv6-7b-full", "granite-moe-1b-a400m-full"])
+    "hubert-xlarge", "rwkv6-7b-full", "granite-moe-1b-a400m-full",
+    "recurrentgemma-9b-full"])
 def test_convert_leaf_order_equals_jax_tree_flatten(arch):
     """Offload pages are numbered by this order (dict keys sorted: `len`,
     then `scan` -> `k`, `v`)."""
@@ -311,17 +319,6 @@ def test_convert_takes_no_default_device(fn):
         getattr(convert, fn)(arg)
     with pytest.raises(TypeError):
         getattr(convert, fn)(arg, "cpu")          # keyword only
-
-
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
-def test_unported_architectures_raise(arch):
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        lm.init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        lm.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        lm.init_layer_cache(cfg, "rglru", 1, 8, device="cpu")
 
 
 def test_training_entry_points_raise():

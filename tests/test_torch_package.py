@@ -35,7 +35,8 @@ def test_port_files_exist():
                  "src/repro_torch/runtime/offload.py",
                  "src/repro_torch/models/moe.py",
                  "src/repro_torch/models/frontends.py",
-                 "src/repro_torch/models/rwkv6.py"):
+                 "src/repro_torch/models/rwkv6.py",
+                 "src/repro_torch/models/rglru.py"):
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.iterdir()} >= {

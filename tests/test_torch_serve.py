@@ -82,6 +82,39 @@ def test_serve_offload_new_archs(arch, use_kernels):
                                    before["scan"][0][name])
 
 
+@pytest.mark.parametrize("prompt_len,use_kernels", [(40, False), (130, True)])
+def test_serve_offload_recurrentgemma(prompt_len, use_kernels):
+    """The hybrid RG-LRU + sliding-window model through `launch.serve`: its
+    cache flattens to 7 pages at smoke size (`len`, then the period's RG-LRU
+    `conv` and `h` twice and the window's `k` and `v`), more than the window
+    of 2 holds, so every decode step after the first evicts dirty pages and
+    writes them back to the host. Tokens are the same with and without
+    offload, and the post-prefill cache is untouched by the decode runs."""
+    max_new = 6
+    res = serve_mod.serve("recurrentgemma-9b", smoke=True, batch=2,
+                          prompt_len=prompt_len, max_new=max_new,
+                          use_kernels=use_kernels, offload_kv=True,
+                          device="cpu")
+    assert res["tokens"].shape == (2, max_new)
+    assert res["tokens_identical"]
+    assert torch.equal(res["tokens"], res["tokens_offload"])
+    pages, window = res["offload_pages"], res["offload_window"]
+    assert pages == 7 and window == 2
+    leaves, _ = convert.flatten(res["cache"])
+    assert [tuple(t.shape) for t in leaves] == [
+        (2,), (1, 2, 3, 64), (1, 2, 64), (1, 2, 3, 64), (1, 2, 64),
+        (1, 2, 16, 1, 16), (1, 2, 16, 1, 16)]
+    stats = res["offload_stats"]
+    assert stats["prefetch_issued"] == pages
+    assert stats["writebacks"] >= (max_new - 2) * (pages - window)
+    cfg = serve_mod.configs.get_smoke_config("recurrentgemma-9b")
+    fresh = lm.init_cache(cfg, 2, prompt_len + max_new, device="cpu")
+    _, fresh = lm.prefill(cfg, res["params"], {"tokens": res["prompts"]},
+                          fresh, use_kernels=use_kernels)
+    for a, b in zip(leaves, convert.flatten(fresh)[0]):
+        assert torch.equal(a, b)
+
+
 def test_serve_tokens_match_reference_serving_loop():
     """The port's greedy tokens equal the reference's decode loop on the
     same weights, carried across leaf by leaf (bf16 compute on both sides

@@ -58,6 +58,10 @@ def random_like(tree, rng, name=""):
         # RWKV-6's own range: the decay w = exp(-exp(.)) stays near 1, where
         # the chunk-parallel form's products of w are safe
         out = rng.uniform(-8.0, -4.0, a.shape)
+    elif name == "lambda":
+        # RG-LRU's own range: a = sigmoid(Lambda) in [0.9, 0.999]
+        u = rng.uniform(0.9, 0.999, a.shape)
+        out = np.log(u / (1 - u))
     else:
         out = rng.standard_normal(a.shape) / np.sqrt(a.shape[-2])
     return out.astype(np.float32)
