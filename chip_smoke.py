@@ -68,6 +68,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and offload at a prompt of 4096: 12 flash launches (one a local layer),
    none of paged (its decode goes through the ring cache), 11 offload
    pages, kernel logits within LOGITS_TOL of the plain path.
+   Then the training path (`run_training`): (a) two `make_train_step`
+   steps of qwen2.5-3b at full width and 2 layers (B1 S512) on the card and
+   on the CPU from the same seeded weights and batches, fp32 compute (loss,
+   grad norm and lr to 1e-5 of their value, moments to 1e-3, params to
+   2 sum(lr), since the first Adam step is lr sign(g)), then bf16 compute
+   (BF16_TOL; moments no farther from the fp32 ones than 3x the CPU's bf16
+   moments are); (b) qwen2.5-3b and (d) granite-moe-1b-a400m trained 4
+   steps at full width through `launch.train` (B2 S4096, 2 microbatches,
+   remat full): finite losses and grad norms, step 0's loss within 1.0 of
+   ln V, step ms, tokens/s, peak memory and the model-FLOPs share printed;
+   no checkpoint at that size (~37 GB); (c) qwen2.5-3b's forward-only loss
+   with `use_kernels=True` under no_grad: exactly 36 flash launches, within
+   1e-2 of the plain path, and under autograd NotImplementedError; (e) the
+   supervisor at smoke size on the card: a failure at step 3 of 6 with a
+   checkpoint every 2 restarts once and ends within 2 sum(lr) of an
+   uninterrupted run; the prefetching loader's copies equal the batches.
 5. AMU kernels at H100 scale: GUPS through `repro_torch.launch.quickstart`
    (xor, an 8 GiB table of HPCC's 8-byte rows, 2^26 updates), then
    `ops.scatter_update` (xor and f32 add, 8 GiB of 512-byte rows, 2^20
@@ -88,7 +104,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -132,6 +150,7 @@ BATCH, PROMPT_LEN, MAX_NEW = 4, 1000, 32
 # granite D=64 GQA group 2, qwen2-vl D=128 group 6
 SLICE_ARCHS = ("granite-moe-1b-a400m", "qwen2-vl-2b")
 SERVE_SHAPES: list = []       # phase 3's serve-shape cases, printed as JSON
+TRAIN_RESULTS: list = []      # the training phase's full-width runs
 
 FLASH_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 PAGED_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
@@ -333,7 +352,10 @@ def check_flash(gen):
             (1, 8, 1, 1000, 128, True, 0), (2, 4, 2, 100, 128, True, 0),
             (1, 4, 2, 37, 64, False, 0), (1, 7, 1, 300, 128, True, 48),
             (1, 4, 4, 255, 64, True, 64), (1, 8, 1, 129, 64, False, 48),
-            (1, 4, 2, 1000, 128, False, 0), (2, 16, 2, 255, 128, True, 64)]:
+            (1, 4, 2, 1000, 128, False, 0), (2, 16, 2, 255, 128, True, 64),
+            # qwen2.5-3b's training shape (B2 S4096), which the training
+            # phase's forward-only loss gives the kernel
+            (2, 16, 2, 4096, 128, True, 0)]:
         q, k, v = flash_case(gen, b, hq, hkv, s, d, torch.bfloat16)
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -1466,6 +1488,397 @@ def run_recurrentgemma(kernels):
     del res, plain, w32, f32
 
 
+# ---------------------------------------------------------------- training
+# (a) the card against the CPU in fp32: sums in another order over two
+# full-width layers and a 151936-way softmax. Loss and grad norm to 1e-5 of
+# their value; a moment to 1e-3 of itself plus 1e-4 of its leaf's largest
+# (an element whose gradient cancels to near zero moves by its neighbours'
+# rounding); params to TRAIN_STEP_SIZE * 2 * sum(lr): the first Adam step
+# is lr * sign(g), which two right sums may take opposite ways where |g| is
+# at its rounding, and so may the second, whose |m^ / sqrt(v^)| is at most
+# sqrt(sum_i a_i^2 / c_i) = 1.0004 over the moments' weights (a_i for m, c_i
+# for v; Cauchy-Schwarz): a weight that flips at both steps parts by up to
+# 2 (lr_0 + 1.0004 lr_1) (the bf16 case takes 0.985 of 2 sum(lr) on an
+# H100: flips at both steps happen)
+TRAIN_FP32_TOL = dict(atol=0.0, rtol=1e-5)
+TRAIN_STEP_SIZE = 1.001
+# ... and since every other weight takes nearly the same steps on both
+# sides, at most TRAIN_FLIP_SHARE of the weights may part by more than
+# TRAIN_STEP_PART * sum(lr): half the lr, no bias correction (0.45 of the
+# first step) or another eps moves every weight that has a gradient by more
+TRAIN_STEP_PART = 0.25
+TRAIN_FLIP_SHARE = 0.05
+# bf16 compute rounds at other places on the two devices: loss and grad
+# norm at the CPU tests' BF16_TOL; a moment leaf of the card's bf16 run no
+# farther (L2) from the CPU's fp32 run than TRAIN_BF16_FACTOR times the
+# CPU's own bf16 run is (as tests/test_torch_train.py holds bf16 gradients
+# against the reference's); params as above
+TRAIN_BF16_TOL = dict(atol=3e-2, rtol=3e-2)
+TRAIN_BF16_FACTOR = 3.0
+# the full-width runs: qwen2.5-3b (the serve slice's model) and granite,
+# through `launch.train` at the reference's TRAIN_4K sequence length
+TRAIN_ARCHS = ("qwen2.5-3b", "granite-moe-1b-a400m")
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 4, 2, 4096, 2
+# forward-only loss through the flash kernel against the plain path, both
+# bf16: a mean over 8192 positions of a 36-layer model. The loss hardly
+# sees attention (the final norm fixes the logits' scale), so each layer's
+# flash output is also held against ref.attention_ref on that layer's own
+# q, k, v at FLASH_BF16_TOL
+TRAIN_KERNEL_LOSS_ATOL = 1e-2
+
+
+def model_flops_per_token(cfg, seq: int) -> int:
+    """Training FLOPs a token needs, recomputation not counted: 6 for each
+    parameter that multiplies it (MoE: the active ones; an embedding only as
+    a tied head), plus causal attention's two products over seq / 2 keys on
+    average, forward and backward: 6 * L_attn * Hq * Dh * seq."""
+    from repro_torch import configs
+
+    n = cfg.active_param_count()
+    if not cfg.tie_embeddings and (cfg.frontend is None
+                                   or cfg.frontend.kind == "vision"):
+        n -= cfg.vocab_size * cfg.d_model       # a lookup, not a product
+    n_attn = sum(k in (configs.BLOCK_FULL, configs.BLOCK_LOCAL)
+                 for k in cfg.layer_kinds)
+    return 6 * n + 6 * n_attn * cfg.num_heads * cfg.resolved_head_dim * seq
+
+
+def check_steps(name, got, want, lr_sum, size=1.0) -> str:
+    """Params after the same Adam steps from the same start, with
+    gradients computed on each side: no weight parts by more than
+    2 * sum(lr) * size, and at most TRAIN_FLIP_SHARE of them by more than
+    TRAIN_STEP_PART * sum(lr). Returns what it saw, for the log."""
+    worst, beyond, total = 0.0, 0, 0
+    for a, b in zip(got, want):
+        d = (a.float() - b.float()).abs()
+        worst = max(worst, float(d.max()))
+        beyond += int((d > TRAIN_STEP_PART * lr_sum).sum())
+        total += d.numel()
+    share = beyond / total
+    seen = (f"params max abs {worst:.3e} (limit 2 * sum(lr) * {size} = "
+            f"{2 * lr_sum * size:.4e}), {share:.4%} of {total:,} weights "
+            f"beyond {TRAIN_STEP_PART} * sum(lr) (limit "
+            f"{TRAIN_FLIP_SHARE:.0%})")
+    if worst > 2 * lr_sum * size or share > TRAIN_FLIP_SHARE:
+        raise AssertionError(f"{name}: {seen}")
+    return seen
+
+
+def _train_two_steps(cfg, params, batch, dtype, device):
+    """Two `make_train_step` steps (remat "selective", the default) on
+    `device` from copies of `params`; returns (metrics per step as floats,
+    params, state) on the CPU."""
+    from repro_torch import configs, convert
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    p = convert.tree_map(lambda t: t.to(device, copy=True), params)
+    state = adamw.init_state(p)
+    step_fn = steps.make_train_step(cfg, configs.ParallelConfig(),
+                                    adamw.AdamWConfig(), dtype=dtype)
+    rows = []
+    for b in batch:
+        p, state, m = step_fn(p, state, {k: v.to(device)
+                                         for k, v in b.items()})
+        rows.append({k: float(v) for k, v in m.items()})
+    cpu = lambda t: t.cpu()                                   # noqa: E731
+    return rows, convert.tree_map(cpu, p), convert.tree_map(cpu, state)
+
+
+def check_train_card_vs_cpu():
+    """(a) qwen2.5-3b at full width and 2 layers, B1 S512: two train steps
+    on the card and on the CPU from the same seeded weights and batches, in
+    fp32 compute (TF32 off) and in bf16 compute."""
+    import dataclasses
+
+    from repro_torch import configs, convert
+    from repro_torch.data.pipeline import batch_to, synthetic_batch
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get_config("qwen2.5-3b"), num_layers=2)
+    shape = configs.ShapeConfig("card_vs_cpu", 512, 1, configs.KIND_TRAIN)
+    params = lm.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    batch = [batch_to(synthetic_batch(cfg, shape, s), "cpu") for s in (0, 1)]
+    log(f"training (a): {cfg.name} at full width, {cfg.num_layers} layers, "
+        f"B1 S512, two make_train_step steps on the card and on the CPU "
+        f"({torch.get_num_threads()} threads), same weights and batches")
+    exact = None                     # the CPU's fp32 moments
+    for dtype in (torch.float32, torch.bfloat16):
+        free_cuda()
+        t0 = time.perf_counter()
+        rows, p, st = _train_two_steps(cfg, params, batch, dtype, "cuda")
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        crows, cp, cst = _train_two_steps(cfg, params, batch, dtype, "cpu")
+        t_cpu = time.perf_counter() - t0
+        name = str(dtype).replace("torch.", "")
+        log(f"  {name}: card {t_card:.1f} s, CPU {t_cpu:.1f} s; loss "
+            f"{[r['loss'] for r in rows]} vs {[r['loss'] for r in crows]}, "
+            f"grad norm {[r['grad_norm'] for r in rows]} vs "
+            f"{[r['grad_norm'] for r in crows]}")
+        tol = TRAIN_FP32_TOL if dtype == torch.float32 else TRAIN_BF16_TOL
+        for i, (r, c) in enumerate(zip(rows, crows)):
+            for key in ("loss", "grad_norm", "lr"):
+                check_close(f"{name} step {i} {key}, card vs CPU",
+                            torch.tensor(r[key]), torch.tensor(c[key]),
+                            **tol)
+        lr_sum = sum(r["lr"] for r in crows)
+        worst = 0.0
+        for part in ("m", "v"):
+            leaves = zip(convert.flatten(st[part])[0],
+                         convert.flatten(cst[part])[0],
+                         convert.flatten(exact[part])[0] if exact
+                         else [None] * len(convert.flatten(st[part])[0]))
+            for a, b, e in leaves:
+                if dtype == torch.float32:
+                    top = float(b.abs().max())
+                    check_close(f"fp32 {part}", a, b, atol=1e-4 * top,
+                                rtol=1e-3, quiet=True)
+                    continue
+                ratio = float((a - e).norm()
+                              / (b - e).norm().clamp_min(1e-30))
+                worst = max(worst, ratio)
+                if ratio > TRAIN_BF16_FACTOR:
+                    raise AssertionError(
+                        f"bf16 {part}: the card's run is {ratio:.2f} times "
+                        "as far from the fp32 moments as the CPU's, limit "
+                        f"{TRAIN_BF16_FACTOR}")
+        seen = check_steps(f"{name} params, card vs CPU",
+                           convert.flatten(p)[0], convert.flatten(cp)[0],
+                           lr_sum, TRAIN_STEP_SIZE)
+        log(f"  {name}: moments "
+            + ("within 1e-3 of themselves + 1e-4 of the leaf's largest"
+               if dtype == torch.float32 else
+               f"at most {worst:.3f} times as far from the fp32 ones as the "
+               f"CPU's bf16 (limit {TRAIN_BF16_FACTOR})")
+            + f"; {seen}")
+        if exact is None:
+            exact = cst
+        del p, st, cp
+
+
+def run_train_full(arch):
+    """(b) / (d) `launch.train` at full width on a freed card. Returns the
+    train result (its state holds the params and optimizer state)."""
+    from repro_torch import configs
+    from repro_torch.launch.train import train
+
+    cfg = configs.get_config(arch)
+    log(f"training: {arch} at full width through launch.train: "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters "
+        f"({cfg.active_param_count() / 1e9:.3f} B active); steps "
+        f"{TRAIN_STEPS}, batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, microbatches "
+        f"{TRAIN_MICRO}, remat full, bf16 compute, fp32 masters and AdamW "
+        "state. No checkpoint is written: params, m and v would take "
+        f"{cfg.param_count() * 12 / 1e9:.1f} GB of disk and host memory")
+    res, n_flash, _ = drive_path(f"{arch} training", lambda: train(
+        arch, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        microbatches=TRAIN_MICRO, checkpoint_every=1000,
+        checkpoint_dir=os.path.join(ROOT, "build", "train_ckpt"),
+        device="cuda", on_step=lambda r: log(
+            f"  step {r['step']}: loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.4f}, lr {r['lr']:.3e}, {r['ms']:.1f} ms")))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if n_flash:
+        raise AssertionError("training launched the flash kernel")
+    hist = res["history"]
+    if len(hist) != TRAIN_STEPS or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+            for r in hist):
+        raise AssertionError(f"{arch}: a loss or grad norm is not finite, "
+                             "or a step is missing")
+    ln_v = math.log(cfg.vocab_size)
+    if abs(hist[0]["loss"] - ln_v) > 1.0:
+        raise AssertionError(f"{arch}: step 0 loss {hist[0]['loss']:.4f} is "
+                             f"not within 1.0 of ln V = {ln_v:.4f}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = [r["ms"] for r in hist[1:]]
+    step_ms = sum(steady) / len(steady)
+    flops = model_flops_per_token(cfg, TRAIN_SEQ) * tokens
+    share = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    log(f"  {arch}: wall {res['wall_s']:.2f} s for {TRAIN_STEPS} steps, "
+        f"{res['tok_s']:,.0f} tok/s over the run; steps 1-{TRAIN_STEPS - 1} "
+        f"{step_ms:.1f} ms each = {tokens / step_ms * 1e3:,.0f} tok/s; peak "
+        f"{peak:.3f} GiB (torch.cuda.max_memory_allocated); step 0 loss "
+        f"{hist[0]['loss']:.4f} (ln V = {ln_v:.4f})")
+    log(f"  {arch}: model FLOPs {flops / 1e12:.1f} T a step ((6 N + 6 L H "
+        f"Dh S) a token, N = {model_flops_per_token(cfg, 0) / 6e9:.3f} B "
+        f"multiplying parameters), {share:.1%} of the H100 SXM's 989 "
+        f"TFLOP/s bf16 dense on {torch.cuda.get_device_name(0)}")
+    TRAIN_RESULTS.append({
+        "arch": arch, "step_ms": [r["ms"] for r in hist],
+        "loss": [r["loss"] for r in hist],
+        "grad_norm": [r["grad_norm"] for r in hist],
+        "tok_s": tokens / step_ms * 1e3, "peak_gib": peak,
+        "model_flops_share": share, "wall_s": res["wall_s"]})
+    return res
+
+
+def check_train_kernels_forward(params, kernels):
+    """(c) qwen2.5-3b's trained params and step 0's batch, forward only:
+    `train_loss(use_kernels=True)` under no_grad launches flash once a
+    layer, each launch's output agrees with ref.attention_ref on that
+    layer's q, k, v, and the loss with the plain path's; with autograd it
+    raises."""
+    from repro_torch import configs, convert
+    from repro_torch.data.pipeline import batch_to, synthetic_batch
+    from repro_torch.kernels import flash_attention as fa, ops, ref
+    from repro_torch.models import lm
+
+    arch = "qwen2.5-3b"
+    cfg = configs.get_config(arch)
+    shape = configs.ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH,
+                                configs.KIND_TRAIN)
+    batch = batch_to(synthetic_batch(cfg, shape, 0), "cuda")
+
+    def forward():
+        with torch.no_grad():
+            return lm.train_loss(cfg, params, batch, use_kernels=True)[0]
+
+    # keep each launch's inputs and output (ops hands its [B, S, H, D]
+    # tensors to the wrapper as [B, H, S, D] views)
+    calls, wrapper = [], ops._flash
+
+    def kept(q, k, v, causal=True, window=0, **kw):
+        out = wrapper(q, k, v, causal=causal, window=window, **kw)
+        calls.append((q, k, v, causal, window, out))
+        return out
+
+    ops._flash = kept
+    try:
+        got, n_flash, n_paged = drive_path(
+            f"{arch} forward-only loss with kernels", forward)
+    finally:
+        ops._flash = wrapper
+    want_launches(arch, n_flash, n_paged, cfg.num_layers, 0)
+    kernels[0]["launches"] += n_flash
+    want_shape = (TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ,
+                  cfg.resolved_head_dim)
+    worst, share = 0.0, 0.0          # share: of the limit, at most
+    tol = FLASH_BF16_TOL
+    for i, (q, k, v, causal, window, out) in enumerate(calls):
+        if tuple(q.shape) != want_shape or q.dtype != torch.bfloat16:
+            raise AssertionError(f"layer {i}: flash got q "
+                                 f"{tuple(q.shape)} {q.dtype}")
+        want = ref.attention_ref(q, k, v, causal, window)
+        spread = flash_spread(q, k, v, causal, window)
+        worst = max(worst, check_close(
+            f"layer {i} flash output on its own q, k, v", out, want,
+            spread=spread, quiet=True, **tol))
+        share = max(share, float(((out.float() - want.float()).abs() / (
+            tol["atol"] + tol["rtol"] * want.float().abs()
+            + tol["ptol"] * spread)).max()))
+    log(f"  flash's output in each of the {len(calls)} layers (bf16 "
+        f"B{want_shape[0]} Hq{want_shape[1]} Hkv{cfg.num_kv_heads} "
+        f"S{want_shape[2]} D{want_shape[3]}, causal, the layer's own q, k, "
+        f"v) vs ref.attention_ref: max abs err {worst:.3e}, at most "
+        f"{share:.2f} of FLASH_BF16_TOL's limit with its spread term "
+        f"({fa.body_for(torch.bfloat16, want_shape[3])} body)")
+    del calls, q, k, v, out, want, spread
+    with torch.no_grad():
+        plain = lm.train_loss(cfg, params, batch, use_kernels=False)[0]
+    diff = abs(float(got) - float(plain))
+    log(f"  loss with kernels {float(got):.6f}, plain path "
+        f"{float(plain):.6f}: |diff| {diff:.2e} (limit "
+        f"{TRAIN_KERNEL_LOSS_ATOL:g}); flash launches {n_flash}")
+    if not diff <= TRAIN_KERNEL_LOSS_ATOL:
+        raise AssertionError("forward-only loss: kernels and plain path "
+                             "disagree")
+    alias = convert.tree_map(lambda t: t.detach().requires_grad_(True),
+                             params)
+    try:
+        loss, _ = lm.train_loss(cfg, alias, batch, use_kernels=True)
+        torch.autograd.grad(loss, convert.flatten(alias)[0])
+    except NotImplementedError as exc:
+        log(f"  under autograd: NotImplementedError ({str(exc)[:60]}...)")
+    else:
+        raise AssertionError("the flash path under autograd did not raise")
+    del alias
+
+
+def check_train_supervisor():
+    """(e) the supervisor on the card at smoke size: a failure at step 3 of
+    6 with a checkpoint every 2 restores step 2 and ends within tolerance
+    of an uninterrupted run (the embedding's backward adds by atomics on
+    the card, so not bit for bit); the prefetching loader's copies to the
+    card equal the batches."""
+    from repro_torch import configs, convert
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.data.pipeline import (PrefetchingLoader, batch_to,
+                                           synthetic_batch)
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.ft import TrainSupervisor
+
+    cfg = configs.get_smoke_config("qwen2.5-3b")
+    shape = configs.ShapeConfig("t", 64, 2, configs.KIND_TRAIN)
+    opt_cfg = adamw.AdamWConfig(total_steps=6)
+    step_fn = steps.make_train_step(cfg, configs.ParallelConfig(remat="full"),
+                                    opt_cfg)
+    runs = {}
+    for name, fail_at in (("clean", None), ("failed", 3)):
+        directory = os.path.join(ROOT, "build", "train_ckpt", name)
+        if os.path.exists(directory):
+            shutil.rmtree(directory)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = lm.init_model(cfg, gen, device="cuda")
+        sup = TrainSupervisor(CheckpointStore(directory), checkpoint_every=2)
+        state = sup.run({"params": params, "opt_state": adamw.init_state(
+            params), "step": 0}, step_fn, lambda s: batch_to(
+                synthetic_batch(cfg, shape, s), "cuda"), 6, fail_at=fail_at)
+        runs[name] = (state, sup.restarts)
+    (clean, r0), (failed, r1) = runs["clean"], runs["failed"]
+    if (r0, r1) != (0, 1) or failed["step"] != 6:
+        raise AssertionError(f"supervisor: restarts {r0}, {r1}; step "
+                             f"{failed['step']}")
+    lr_sum = sum(float(adamw.schedule(opt_cfg, torch.tensor(
+        s, dtype=torch.int32))) for s in range(6))
+    got = convert.flatten(failed["params"])[0]
+    want = convert.flatten(clean["params"])[0]
+    seen = check_steps("supervisor: the resumed run against the "
+                       "uninterrupted one", got, want, lr_sum)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"  supervisor on the card ({cfg.name}, B2 S64): restarts 1, "
+        f"resumed from step 2; final params vs uninterrupted run: {seen}, "
+        f"bit-equal: {same}; final loss "
+        f"{float(failed['metrics']['loss']):.6f} vs "
+        f"{float(clean['metrics']['loss']):.6f}")
+    loader = PrefetchingLoader(cfg, shape, device="cuda", start_step=2)
+    try:
+        for want_step, (step, b) in zip(range(2, 5), loader):
+            want = synthetic_batch(cfg, shape, step)
+            if step != want_step or any(
+                    v.device.type != "cuda" or not torch.equal(
+                        v.cpu(), torch.from_numpy(want[k]))
+                    for k, v in b.items()):
+                raise AssertionError("PrefetchingLoader on the card: a batch "
+                                     "differs from synthetic_batch")
+    finally:
+        loader.close()
+    log("  PrefetchingLoader on the card: steps 2-4 equal synthetic_batch")
+
+
+def run_training(kernels):
+    """The training path: (a) card vs CPU at reduced depth, (b) qwen2.5-3b
+    and (d) granite at full width through launch.train, (c) the
+    forward-only flash loss, (e) the supervisor's restart on the card."""
+    check_train_card_vs_cpu()
+    res = run_train_full(TRAIN_ARCHS[0])
+    params = res["state"]["params"]
+    del res
+    free_cuda()
+    check_train_kernels_forward(params, kernels)
+    del params
+    run_train_full(TRAIN_ARCHS[1])
+    free_cuda()
+    check_train_supervisor()
+    log(json.dumps({"training": TRAIN_RESULTS}))
+
+
 # ------------------------------------------------------------------ phase 5
 def amu_bound(nbytes, ops=0.0):
     """Bytes over the memory rate against 32-bit operations over the fp32
@@ -1914,12 +2327,14 @@ def main() -> int:
     check_offload(gen)
     amu_worst = check_amu_kernels(gen)
 
-    # 4. the slice; 5. the AMU kernels' own path
+    # 4. the slice and the later paths, then training; 5. the AMU kernels'
+    # own path
     log(json.dumps({"serve_shapes": SERVE_SHAPES}))
     if not args.kernels_only:
         run_slice(kernels)
         run_new_paths(kernels)
         run_recurrentgemma(kernels)
+        run_training(kernels)
         run_amu(kernels, amu_worst)
 
     # 6. report

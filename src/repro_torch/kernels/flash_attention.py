@@ -59,9 +59,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     through their strides, so a transposed view of [B, S, H, D] costs no
     copy; the output has q's layout. Which body runs is `body_for`: bf16 at
     head size 64, 128 or 256 loads its tiles by TMA and multiplies with
-    wgmma."""
+    wgmma.
+
+    There is no backward: under autograd, with an input that requires grad,
+    it raises NotImplementedError on every device, the CPU's plain version
+    included, as `jax.grad` of the reference's Pallas kernel fails."""
     global launches
     del block_q, block_k
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "flash_attention has no backward, as the reference's Pallas "
+            "kernel has none (jax.grad of it fails): train with "
+            "use_kernels=False, or run the forward under torch.no_grad()")
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

@@ -1,0 +1,161 @@
+"""Training entry point: config -> state on one card -> supervised loop with
+asynchronous checkpoints, straggler detection and restart recovery.
+
+The counterpart of `src/repro/launch/train.py`, with its flags and its
+`done:` line. There is one card and no mesh: `--production-mesh` waits for
+the parallel layer. Weights are random, drawn from `--seed`, and the data is
+`synthetic_batch` of (step, seed). Remat is "full", as the reference's
+driver sets it. Runs on the card unless `--device cpu` is given; a card that
+is not there is an error.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --steps 4 --batch 2 --seq 4096 --microbatches 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --smoke --device cpu --steps 4 --checkpoint-every 2 [--resume]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch import configs
+from repro_torch.checkpoint.store import CheckpointStore
+from repro_torch.data.pipeline import batch_to, synthetic_batch
+from repro_torch.models import lm
+from repro_torch.optim import adamw
+from repro_torch.runtime import steps as steps_mod
+from repro_torch.runtime.ft import StepMonitor, TrainSupervisor
+
+
+def default_checkpoint_dir() -> str:
+    return os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(arch: str, *, smoke: bool = False, steps: int = 20, batch: int = 8,
+          seq: int = 128, checkpoint_dir: Optional[str] = None,
+          checkpoint_every: int = 10, microbatches: int = 1,
+          resume: bool = False, device="cuda", seed: int = 0,
+          on_step=None) -> Dict[str, Any]:
+    """Train `arch` for `steps` steps (from the latest checkpoint with
+    `resume`); returns the final state and the run's numbers.
+
+    `on_step(row)` is called after each step with its row of `history`.
+    Keys of the result: `state` ({"params", "opt_state", "step",
+    "metrics"}), `start`, `loss` (the last step's), `history` (per step:
+    step, loss, grad_norm, lr and ms, the supervisor's time of the step,
+    its batch's making included, ending in a device synchronise),
+    `wall_s`, `tok_s`, `stragglers`, `restarts`."""
+    device = lm.resolve_device(device)
+    cfg = (configs.get_smoke_config(arch) if smoke
+           else configs.get_config(arch))
+    shape = configs.ShapeConfig("cli_train", seq, batch, configs.KIND_TRAIN)
+    par = configs.ParallelConfig(remat="full", microbatches=microbatches)
+    opt_cfg = adamw.AdamWConfig(total_steps=steps)
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = lm.init_model(cfg, gen, device=device)
+    opt_state = adamw.init_state(params)
+    step_fn = steps_mod.make_train_step(cfg, par, opt_cfg)
+
+    store = CheckpointStore(checkpoint_dir or default_checkpoint_dir())
+    monitor = StepMonitor(on_straggler=lambda s, d, e: print(
+        f"[straggler] step {s}: {d:.3f}s vs ewma {e:.3f}s"))
+    sup = TrainSupervisor(store, checkpoint_every=checkpoint_every,
+                          monitor=monitor)
+    start = 0
+    if resume and store.latest_step() is not None:
+        restored, extra = store.restore(
+            store.latest_step(), {"params": params, "opt_state": opt_state})
+        params, opt_state = restored["params"], restored["opt_state"]
+        start = extra["step"]
+        print(f"resumed from step {start}")
+
+    history: List[Dict[str, float]] = []
+
+    def batch_fn(step):
+        return batch_to(synthetic_batch(cfg, shape, step, seed), device)
+
+    def synced_step(p, o, b):
+        out = step_fn(p, o, b)
+        _sync(device)                   # the monitor times the step whole
+        return out
+
+    def record(step, duration_s, metrics):
+        row = {"step": step, "ms": duration_s * 1e3,
+               **{k: float(v) for k, v in metrics.items()}}
+        history.append(row)
+        if on_step is not None:
+            on_step(row)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    state = sup.run({"params": params, "opt_state": opt_state,
+                     "step": start}, synced_step, batch_fn, steps,
+                    on_step=record)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    return {"state": state, "start": start,
+            "loss": history[-1]["loss"] if history else None,
+            "history": history, "wall_s": dt,
+            "tok_s": (steps - start) * shape.tokens_per_step / max(dt, 1e-9),
+            "stragglers": list(monitor.stragglers),
+            "restarts": sup.restarts}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--checkpoint-dir", default=default_checkpoint_dir())
+    ap.add_argument("--checkpoint-every", type=int, default=10)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="not on one card: needs the parallel layer")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; an absent card is an error) or cpu")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the weights and the synthetic data")
+    args = ap.parse_args(argv)
+    if args.production_mesh:
+        raise SystemExit("--production-mesh needs a mesh of many cards, "
+                         "which the port does not have yet (ROADMAP A9)")
+
+    device = lm.resolve_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    res = train(args.arch, smoke=args.smoke, steps=args.steps,
+                batch=args.batch, seq=args.seq,
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every,
+                microbatches=args.microbatches, resume=args.resume,
+                device=device, seed=args.seed,
+                on_step=lambda r: print(
+                    f"step {r['step']}: loss {r['loss']:.4f}, grad norm "
+                    f"{r['grad_norm']:.4f}, lr {r['lr']:.3e}, "
+                    f"{r['ms']:.1f} ms"))
+    if device.type == "cuda":
+        print(f"[{torch.cuda.get_device_name(device)}] peak device memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB "
+              "(torch.cuda.max_memory_allocated)")
+    loss = res["loss"] if res["loss"] is not None else float("nan")
+    print(f"done: {args.steps} steps, final loss {loss:.4f}, "
+          f"{res['tok_s']:,.0f} tok/s, stragglers={len(res['stragglers'])}")
+
+
+if __name__ == "__main__":
+    main()

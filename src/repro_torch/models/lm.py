@@ -13,17 +13,22 @@ the reference's, so its pytrees convert leaf by leaf: layers are stacked over
 *periods* of the block pattern, `params["scan"]` is a tuple (one entry per
 pattern position) of dicts whose leaves carry a leading `[P, ...]` axis, and
 remainder layers sit unstacked under `"tail"`. Where the reference scans over
-the stacked axis, this is a Python loop over index views into the leaves, and
-the cache's leaves are written in place through those views.
+the stacked axis, this is a Python loop over views into the leaves (each
+leaf `unbind`-ed once), and the cache's leaves are written in place through
+those views.
 
-Not ported yet, raising `NotImplementedError` with its ROADMAP item:
-`train_loss` / `chunked_xent` (A8).
+Training: `train_loss` runs the same stack under autograd, with the
+reference's remat modes as `torch.utils.checkpoint` around each period
+(`_remat_wrap`), and `chunked_xent` computes the loss one sequence chunk at a
+time.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import (BLOCK_FULL, BLOCK_LOCAL, BLOCK_RGLRU,
                                       BLOCK_RWKV6, ModelConfig)
@@ -232,41 +237,96 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
 
 
 # ================================================================== forward
+# What "selective" remat keeps: the products without batch dimensions, as
+# `jax.checkpoint_policies.dots_with_no_batch_dims_saveable` does. `x @ W`
+# with a 2-D weight reaches aten as `mm` (or `addmm`); einsums over a batch
+# dimension reach it as `bmm` and are recomputed with everything else.
+_SAVED_BY_SELECTIVE = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _selective_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_BY_SELECTIVE:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn: Callable, remat: str) -> Callable:
+    """`fn` under the reference's remat mode: "full" keeps only its inputs
+    and recomputes the rest in the backward, "selective" also keeps the
+    products without batch dimensions, "none" keeps everything."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "selective":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _selective_policy))
+    raise ValueError(f"remat must be none, full or selective, got {remat!r}")
+
+
+def _unstack(tree, n: int) -> List[Any]:
+    """The n per-period trees of a stacked tree. Each leaf is sliced once,
+    by `unbind`: under autograd its backward is one `stack` a leaf, where
+    indexing `t[i]` would make every period's backward allocate a zero
+    tensor the size of the whole stack and add it into the leaf's gradient.
+    The slices are views, so a cache is still written in place."""
+    leaves, treedef = flatten(tree)
+    cols = [t.unbind(0) for t in leaves]
+    return [unflatten(treedef, [c[i] for c in cols]) for i in range(n)]
+
+
 def forward_blocks(cfg: ModelConfig, params: Params, x: torch.Tensor,
                    positions: torch.Tensor, cache: Optional[Params] = None,
-                   use_kernels: bool = False, moe_mode: str = "capacity"
+                   use_kernels: bool = False, moe_mode: str = "capacity",
+                   remat: str = "none"
                    ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """The block stack -> (x, cache, aux summed over the layers, fp32). With
     a cache, its leaves are updated in place and the returned tree holds the
-    same tensors (`len` is left to the caller)."""
+    same tensors (`len` is left to the caller). `remat` wraps each period of
+    the stack, not the tail, as the reference's scan body."""
     period = len(cfg.block_pattern)
     n_periods, n_tail = divmod(cfg.num_layers, period)
     cache_len = cache["len"] if cache is not None else None
     new_cache: Optional[Params] = {} if cache is not None else None
-    # one set of rotary tables for the whole stack, not two per layer
-    rope = (B.RopeTables(positions, cfg.resolved_head_dim, cfg.rope_theta,
-                         cfg.mrope_sections)
-            if {BLOCK_FULL, BLOCK_LOCAL} & set(cfg.block_pattern) else None)
+    # one set of rotary tables for the whole stack, not two per layer; cast
+    # before the first period, so a recomputed period finds the cast made
+    rope = None
+    if {BLOCK_FULL, BLOCK_LOCAL} & set(cfg.block_pattern):
+        rope = B.RopeTables(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                            cfg.mrope_sections)
+        rope.get(x.dtype)
     auxes = []
 
-    def layer(kind, p, c):
-        nonlocal x
-        x, _, aux = _apply_layer(cfg, kind, p, x, positions, c, cache_len,
-                                 use_kernels, moe_mode, rope)
-        if aux is not None:
-            auxes.append(aux)
-
-    for i in range(n_periods):
+    def period_body(x, pparams, pcache):
+        out_aux = []
         for j, kind in enumerate(cfg.block_pattern):
-            layer(kind, tree_map(lambda t: t[i], params["scan"][j]),
-                  None if cache is None
-                  else tree_map(lambda t: t[i], cache["scan"][j]))
-    if n_periods and cache is not None:
-        new_cache["scan"] = cache["scan"]
+            x, _, aux = _apply_layer(cfg, kind, pparams[j], x, positions,
+                                     None if pcache is None else pcache[j],
+                                     cache_len, use_kernels, moe_mode, rope)
+            if aux is not None:
+                out_aux.append(aux)
+        return x, out_aux
+
+    if n_periods:
+        body = _remat_wrap(period_body, remat)
+        pparams = _unstack(params["scan"], n_periods)
+        pcaches = (_unstack(cache["scan"], n_periods) if cache is not None
+                   else [None] * n_periods)
+        for pp, pc in zip(pparams, pcaches):
+            x, out_aux = body(x, pp, pc)
+            auxes.extend(out_aux)
+        if cache is not None:
+            new_cache["scan"] = cache["scan"]
     if n_tail:
         for i in range(n_tail):
-            layer(cfg.block_pattern[i % period], params["tail"][i],
-                  cache["tail"][i] if cache is not None else None)
+            x, _, aux = _apply_layer(
+                cfg, cfg.block_pattern[i % period], params["tail"][i], x,
+                positions, cache["tail"][i] if cache is not None else None,
+                cache_len, use_kernels, moe_mode, rope)
+            if aux is not None:
+                auxes.append(aux)
         if cache is not None:
             new_cache["tail"] = cache["tail"]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -321,13 +381,51 @@ def cast_params_for_compute(params: Params, dtype=torch.bfloat16) -> Params:
     return tree_map(cast, params)
 
 
+def chunked_xent(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy without the full [B, S, V] logits: each sequence
+    chunk runs under `checkpoint`, so its [B, chunk, V] fp32 logits exist
+    one chunk at a time, in the backward too. As in the reference, only the
+    first (S // chunk) * chunk positions count."""
+    Bsz, S, _ = x.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+
+    def chunk_loss(xm, lm):
+        logits = _head_logits(cfg, params, xm).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lm[..., None].long())[..., 0]
+        return (logz - gold).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + ckpt.checkpoint(chunk_loss, x[:, sl], labels[:, sl],
+                                        use_reentrant=False)
+    return total / (Bsz * n * chunk)
+
+
 # ============================================================== entrypoints
-def train_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "train_loss / chunked_xent are not ported yet (ROADMAP A8: training)")
-
-
-chunked_xent = train_loss
+def train_loss(cfg: ModelConfig, params: Params, inputs: Dict[str, Any],
+               use_kernels: bool = False, moe_mode: str = "capacity",
+               remat: str = "selective", dtype=torch.bfloat16
+               ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Full-sequence LM (or masked-frame) loss -> (loss, {"aux_loss"}),
+    differentiable in `params` (the fp32 masters: the cast for compute is
+    part of the graph). With `use_kernels` the causal attention of the
+    forward runs the flash kernel, which has no backward: under autograd it
+    raises NotImplementedError, as `jax.grad` fails on the reference's."""
+    params = cast_params_for_compute(params, dtype)
+    x = embed_inputs(cfg, params, inputs, dtype)
+    Bsz, S = x.shape[:2]
+    positions = positions_for(cfg, Bsz, S, device=x.device)
+    x, _, aux = forward_blocks(cfg, params, x, positions, None,
+                               use_kernels, moe_mode, remat)
+    x = B.apply_norm(cfg, params["final_norm"], x)
+    loss = chunked_xent(cfg, params, x, inputs["labels"])
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.load_balance_loss_weight * aux / cfg.num_layers
+    return loss, {"aux_loss": aux}
 
 
 @torch.no_grad()

@@ -1,0 +1,154 @@
+"""AdamW with a cosine schedule and global-norm clipping, and the int8
+quantizer of the gradient compression.
+
+The counterpart of `src/repro/optim/adamw.py`. State and results have the
+reference's layout (`{"m", "v", "step"}`, the same trees as the params,
+`step` an int32 scalar), so a checkpoint of either package restores in the
+other. Unlike the reference, whose arrays are immutable, `apply_updates`
+works IN PLACE: the grads are scaled by the clip, and `m`, `v` and the
+params are updated leaf by leaf, a slice of at most `UPDATE_SLICE` elements
+at a time, with the reference's operations in its order. The temporaries
+are then a few slices, not six copies of the largest leaf. The
+cross-pod mean (`compressed_cross_pod_mean`) is a collective and comes with
+the parallel layer.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.convert import flatten, tree_map, unflatten
+
+Params = Any
+
+# elements of a leaf updated at a time: bounds the update's temporaries
+UPDATE_SLICE = 1 << 24
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    learning_rate: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup, then cosine down to `min_lr_frac`. `step` is an int32
+    tensor; the result is float32, computed as the reference does (its
+    Python constants meet float32 tensors)."""
+    warm = cfg.learning_rate * (step + 1) / max(cfg.warmup_steps, 1)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return torch.minimum(warm, cfg.learning_rate * cos)
+
+
+def init_state(params: Params, moment_dtype=torch.float32) -> Dict[str, Any]:
+    """moment_dtype=bfloat16 halves the optimizer's memory; the update math
+    still runs in float32. `step` lies on the params' device."""
+    leaves, _ = flatten(params)
+    zeros = lambda t: torch.zeros_like(t, dtype=moment_dtype)  # noqa: E731
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=leaves[0].device)}
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Params, max_norm: float
+                        ) -> Tuple[Params, torch.Tensor]:
+    """Scale every grad IN PLACE by min(1, max_norm / global norm); returns
+    (grads, the norm before scaling, float32). The squares are summed leaf
+    by leaf in flatten order, as the reference's `tree.reduce`, each leaf a
+    slice of `UPDATE_SLICE` at a time by `sum` (whose CPU kernel sums in a
+    cascade: `torch.dot` there is off by ~4e-5 of the value at 1e8
+    elements, `linalg.vector_norm` by ~2e-2)."""
+    leaves, _ = flatten(grads)
+    sq = None
+    for g in leaves:
+        for part in g.reshape(-1).split(UPDATE_SLICE):
+            s = part.float().square().sum()
+            sq = s if sq is None else sq + s
+    gnorm = torch.sqrt(sq)
+    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    for g in leaves:
+        g.mul_(scale.to(g.dtype))
+    return grads, gnorm
+
+
+def _update_slice(cfg: AdamWConfig, p, g, m, v, lr, bc1, bc2,
+                  decay: bool) -> None:
+    """One slice of a leaf, in place: the reference's `upd`, in its order.
+    Moments of another type than float32 are widened, updated and rounded
+    back, as the reference's are."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    g32 = g.float()
+    m32 = m if m.dtype == torch.float32 else m.float()
+    v32 = v if v.dtype == torch.float32 else v.float()
+    m32.mul_(b1).add_(g32 * (1 - b1))
+    v32.mul_(b2).add_(g32.square().mul_(1 - b2))
+    delta = m32 / bc1
+    den = (v32 / bc2).sqrt_().add_(cfg.eps)
+    delta.div_(den)
+    if decay:                   # decoupled weight decay on matrices only
+        delta.add_(torch.mul(p.float(), cfg.weight_decay, out=den))
+    del den
+    if p.dtype == torch.float32:
+        p.sub_(delta.mul_(lr))
+    else:
+        p.copy_(p.float().sub_(delta.mul_(lr)))
+    if m32 is not m:
+        m.copy_(m32)
+    if v32 is not v:
+        v.copy_(v32)
+
+
+@torch.no_grad()
+def apply_updates(cfg: AdamWConfig, params: Params, grads: Params,
+                  state: Dict[str, Any]
+                  ) -> Tuple[Params, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """Clip, then one AdamW step -> (params, state, {"grad_norm", "lr"}).
+    Everything is updated IN PLACE (grads scaled, params, `m` and `v`
+    overwritten) and the same tensors are returned; `step` is a new tensor.
+    `lr`, `bc1` and `bc2` are float32 tensors computed from the int32 step,
+    as the reference's are."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    step = state["step"]
+    lr = schedule(cfg, step)
+    stepf = step.float() + 1
+    bc1 = 1 - torch.pow(cfg.beta1, stepf)
+    bc2 = 1 - torch.pow(cfg.beta2, stepf)
+
+    flat_p, treedef = flatten(params)
+    flat_g, _ = flatten(grads)
+    flat_m, _ = flatten(state["m"])
+    flat_v, _ = flatten(state["v"])
+    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+        decay = p.dim() >= 2
+        parts = [t.view(-1).split(UPDATE_SLICE) for t in (p, g, m, v)]
+        for ps, gs, ms, vs in zip(*parts):
+            _update_slice(cfg, ps, gs, ms, vs, lr, bc1, bc2, decay)
+    new_state = {"m": state["m"], "v": state["v"], "step": step + 1}
+    return unflatten(treedef, flat_p), new_state, {"grad_norm": gnorm,
+                                                   "lr": lr}
+
+
+# ---------------------------------------------------- gradient compression
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8 quantization -> (q int8, scale float32)."""
+    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale

@@ -321,13 +321,6 @@ def test_convert_takes_no_default_device(fn):
         getattr(convert, fn)(arg, "cpu")          # keyword only
 
 
-def test_training_entry_points_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        lm.train_loss(None, None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        lm.chunked_xent(None, None, None, None)
-
-
 def test_asking_for_a_missing_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

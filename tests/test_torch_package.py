@@ -19,12 +19,13 @@ FORBIDDEN = {"jax", "jaxlib", "repro", "ml_dtypes"}
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "kernel_bench.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "kernel_bench.py",
+                    ROOT / "train_bench.py"]
 
 
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
-    for want in ("chip_smoke.py", "kernel_bench.py",
+    for want in ("chip_smoke.py", "kernel_bench.py", "train_bench.py",
                  "src/repro_torch/launch/serve.py",
                  "src/repro_torch/kernels/paged_attention.py",
                  "src/repro_torch/kernels/flash_attention.py",
@@ -36,7 +37,13 @@ def test_port_files_exist():
                  "src/repro_torch/models/moe.py",
                  "src/repro_torch/models/frontends.py",
                  "src/repro_torch/models/rwkv6.py",
-                 "src/repro_torch/models/rglru.py"):
+                 "src/repro_torch/models/rglru.py",
+                 "src/repro_torch/optim/adamw.py",
+                 "src/repro_torch/runtime/steps.py",
+                 "src/repro_torch/runtime/ft.py",
+                 "src/repro_torch/data/pipeline.py",
+                 "src/repro_torch/checkpoint/store.py",
+                 "src/repro_torch/launch/train.py"):
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.iterdir()} >= {
@@ -68,6 +75,8 @@ def test_importing_the_port_pulls_in_neither_jax_nor_repro():
         "import repro_torch.models.moe, repro_torch.models.frontends\n"
         "import repro_torch.models.rwkv6\n"
         "import repro_torch.launch.quickstart\n"
+        "import repro_torch.launch.train, repro_torch.optim\n"
+        "import repro_torch.data, repro_torch.checkpoint\n"
         "import repro_torch.kernels._build, repro_torch.convert\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"

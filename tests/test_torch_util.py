@@ -69,3 +69,31 @@ def random_like(tree, rng, name=""):
 
 def to_jax(tree):
     return jax.tree.map(jnp.asarray, tree)
+
+
+# Params after Adam steps whose gradients each side computed: the first step
+# moves a weight by lr * sign(g), and where |g| is near its own rounding the
+# two sides may step opposite ways, so no weight may part by more than
+# 2 * sum(lr); every other weight moves by nearly the same steps, so at most
+# STEP_FLIP_SHARE of the weights may part by more than STEP_PART * sum(lr).
+# Half the lr, no bias correction (0.45 of the first step) or another eps
+# moves every weight with a gradient by more than that.
+STEP_PART = 0.25
+STEP_FLIP_SHARE = 0.01
+
+
+def assert_steps_close(got, want, lr_sum, name=""):
+    """`got`, `want`: matching lists of param leaves after the same Adam
+    steps from the same start. Returns (max abs diff, share beyond
+    STEP_PART * lr_sum)."""
+    diff = np.concatenate([np.abs(to_np(a) - to_np(b)).ravel()
+                           for a, b in zip(got, want)])
+    worst = float(diff.max())
+    share = float((diff > STEP_PART * lr_sum).mean())
+    assert worst <= 2 * lr_sum, (
+        f"{name}: a weight parted by {worst:.3e} > 2 * sum(lr) = "
+        f"{2 * lr_sum:.3e}")
+    assert share <= STEP_FLIP_SHARE, (
+        f"{name}: {share:.2%} of the weights parted by more than "
+        f"{STEP_PART} * sum(lr) (limit {STEP_FLIP_SHARE:.0%})")
+    return worst, share
