@@ -95,7 +95,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    there), with GUP/s and updates in flight per SM, and of the gather's K
    (rows in flight per SM). One launch per `ops` call, counted, but four for
    the bucketed GUPS scatter.
-6. one JSON line listing the kernels, then the device line, then the verdict.
+6. simulator: the port's whole quickstart (`repro_torch.launch.quickstart`
+   `main`, on the card): GUPS at 0.2, 1 and 5 us of far-memory latency,
+   baseline core against the AMU session; the 4-core rack against one
+   core; the GUPS xor pass through `ops.scatter_update` (one
+   `async_scatter` launch, counted). Then `simulator.run` on each of the
+   paper's eleven workloads, "baseline" against "amu" (batched engine) at
+   1 us, and GUPS also at 5 us. Every run must be verified (the far-memory
+   image equals the numpy oracle's). The speedups and MLP printed are the
+   model's figures, the same on any machine; the phase's host seconds are
+   the only measurement.
+7. one JSON line listing the kernels, then the device line, then the verdict.
 
 Imports `torch` and `repro_torch` only. There is no fallback to the CPU or to
 a plain version anywhere: whatever fails, fails the run.
@@ -2189,6 +2199,66 @@ def run_amu(kernels, worst):
             "bound_by": case["bound_by"], "library_ms": case["library_ms"]})
 
 
+# ------------------------------------------------------------------ phase 6
+def run_simulator():
+    """The port's own copy of the AMU simulator, driven as a user would: the
+    whole quickstart, then `simulator.run` at the paper's conditions. The
+    simulator is a host-side numpy model (as the reference's is): its
+    figures are modelled, and only the host seconds are measured here."""
+    from repro_torch.amu import REGISTRY
+    from repro_torch.core import simulator as sim
+    from repro_torch.kernels import async_scatter as asc
+    from repro_torch.launch import quickstart
+
+    log("simulator: the port's quickstart, whole (figures modelled: the "
+        "simulator's us at 3 GHz and MLP)")
+    t0 = time.perf_counter()
+    asc.launches = 0
+    rc = quickstart.main([])
+    torch.cuda.synchronize()
+    quick_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"quickstart exited {rc}: an unverified run or "
+                             "a kernel mismatch")
+    if asc.launches != 1:
+        raise AssertionError(f"the quickstart's kernel part launched "
+                             f"async_scatter {asc.launches} times, want 1")
+    log(f"  quickstart: exit 0, 1 async_scatter launch, {quick_s:.3f} s of "
+        "host time")
+
+    # the paper's headline conditions: its eleven workloads (the serving
+    # workload, request-level, stays out of throughput sweeps by its
+    # registry entry) at 1 us, GUPS also at 5 us
+    cases = [(n, 1.0) for n in REGISTRY.names()
+             if not REGISTRY[n].request_level] + [("GUPS", 5.0)]
+    t0 = time.perf_counter()
+    runs = []
+    for name, lat in cases:
+        base = sim.run(name, "baseline", lat)
+        amu = sim.run(name, "amu", lat, engine="batched")
+        if amu["verified"] is not True:
+            raise AssertionError(f"simulator: {name} at {lat} us is not "
+                                 "verified")
+        runs.append(dict(workload=name, latency_us=lat,
+                         baseline_us=base["us"], amu_us=amu["us"],
+                         speedup=base["us"] / amu["us"], mlp=amu["mlp"],
+                         requests=amu["requests"], verified=True))
+        log(f"  {name:6s} at {lat:.1f} us: baseline {base['us']:10.1f} us, "
+            f"AMU {amu['us']:9.1f} us, speedup {runs[-1]['speedup']:6.2f}x, "
+            f"MLP {amu['mlp']:6.1f} (modelled)")
+    sweep_s = time.perf_counter() - t0
+    at_1us = [r["speedup"] for r in runs if r["latency_us"] == 1.0]
+    mean = sum(at_1us) / len(at_1us)
+    geo = math.exp(sum(math.log(x) for x in at_1us) / len(at_1us))
+    log(f"  {len(at_1us)} workloads at 1 us: mean speedup {mean:.2f}x, "
+        f"geometric mean {geo:.2f}x (modelled); {len(runs)} runs verified "
+        f"in {sweep_s:.3f} s of host time")
+    log(json.dumps({"simulator": {
+        "quickstart_host_s": quick_s, "sweep_host_s": sweep_s,
+        "mean_speedup_1us": mean, "geomean_speedup_1us": geo,
+        "runs": runs}}))
+
+
 # ------------------------------------------------------------------ mutants
 # Broken copies of the redesigned kernels that phase 3 must catch, each one
 # edit of a source of src/repro_torch/kernels/csrc/: (file, text, its
@@ -2328,7 +2398,7 @@ def main() -> int:
     amu_worst = check_amu_kernels(gen)
 
     # 4. the slice and the later paths, then training; 5. the AMU kernels'
-    # own path
+    # own path; 6. the simulator and the whole quickstart
     log(json.dumps({"serve_shapes": SERVE_SHAPES}))
     if not args.kernels_only:
         run_slice(kernels)
@@ -2336,8 +2406,9 @@ def main() -> int:
         run_recurrentgemma(kernels)
         run_training(kernels)
         run_amu(kernels, amu_worst)
+        run_simulator()
 
-    # 6. report
+    # 7. report
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     if not args.kernels_only:
         log(json.dumps({"kernels": kernels}))

@@ -61,6 +61,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head size 64, 128 or 256 loads its tiles by TMA and multiplies with
     wgmma.
 
+    Both devices refuse the same inputs: ranks, shapes, GQA divisibility,
+    head size, dtypes, `window` and devices are checked before a CPU tensor
+    goes to the plain version. Only the stride and alignment checks, which
+    describe the kernel's 16-byte loads, come after, for CUDA tensors.
+
     There is no backward: under autograd, with an input that requires grad,
     it raises NotImplementedError on every device, the CPU's plain version
     included, as `jax.grad` of the reference's Pallas kernel fails."""
@@ -72,9 +77,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "flash_attention has no backward, as the reference's Pallas "
             "kernel has none (jax.grad of it fails): train with "
             "use_kernels=False, or run the forward under torch.no_grad()")
-    if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_attention: want q [B,Hq,S,D] and k, v "
@@ -93,11 +96,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: tensors on different devices")
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window)
     out = torch.empty_like(q)              # keeps q's (dense) strides
     chunk = 16 // q.element_size()         # elements of one 16-byte load
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.device != q.device:
-            raise ValueError("flash_attention: tensors on different devices")
         if t.stride(-1) != 1 or any(s % chunk for s in t.stride()[:-1]) \
                 or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} needs a unit last "

@@ -189,11 +189,15 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     `page` is the fetch granularity: no aload of the kernel fetches more
     rows than that. Any T is taken (nothing is padded) and the caches are
     read in place through their strides, which must keep every row 16-byte
-    aligned. `lengths` is read on the device only."""
+    aligned. `lengths` is read on the device only.
+
+    Both devices refuse the same inputs: ranks, shapes, GQA divisibility,
+    head size, dtypes, `lengths` (contiguous int32 [B]) and devices are
+    checked before a CPU tensor goes to the plain version. Only the stride
+    and alignment checks, which describe the kernel's loads, come after, for
+    CUDA tensors."""
     global launches
-    if q.device.type == "cpu":
-        return ref.paged_attention_ref(q, k_cache, v_cache, lengths)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError("paged_attention: want q [B,Hq,D] and caches "
@@ -217,6 +221,8 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
                         f"[{B}], got {lengths.dtype} {tuple(lengths.shape)}")
     if not (k_cache.device == v_cache.device == lengths.device == q.device):
         raise ValueError("paged_attention: tensors on different devices")
+    if q.device.type == "cpu":
+        return ref.paged_attention_ref(q, k_cache, v_cache, lengths)
     row = 16 // q.element_size()           # elements in 16 bytes
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.stride(-1) != 1 or any(s % row for s in t.stride()[:-1]) \

@@ -15,6 +15,7 @@ import torch
 from repro import configs as jconfigs
 from repro.models import lm as jlm
 from repro_torch import configs, convert
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import lm
 
 from test_torch_util import (jax_tree_to_numpy, random_like, to_jax, to_np,
@@ -36,13 +37,18 @@ N_DECODE = 4
 def _smoke_cfgs(arch):
     """(port, reference) smoke configs; "<arch>+tail" makes the pattern two
     blocks long over three layers, so one layer runs unstacked as the tail;
-    "<arch>+L<n>" keeps the pattern and gives the model n layers."""
-    name, _, tail = arch.partition("+")
+    "<arch>+L<n>" keeps the pattern and gives the model n layers;
+    "<arch>+hd<n>" gives it head size n."""
+    name, *tails = arch.split("+")
     cfg, jcfg = configs.get_smoke_config(name), jconfigs.get_smoke_config(name)
-    if tail:
-        change = (dict(num_layers=int(tail[1:])) if tail.startswith("L") else
-                  dict(block_pattern=(cfg.block_pattern[0],) * 2,
-                       num_layers=3))
+    for tail in tails:
+        if tail.startswith("hd"):
+            change = dict(head_dim=int(tail[2:]))
+        elif tail.startswith("L"):
+            change = dict(num_layers=int(tail[1:]))
+        else:
+            change = dict(block_pattern=(cfg.block_pattern[0],) * 2,
+                          num_layers=3)
         cfg = dataclasses.replace(cfg, **change)
         jcfg = dataclasses.replace(jcfg, **change)
     return cfg, jcfg
@@ -72,7 +78,13 @@ def _run_both(arch, prompt_len, use_kernels, dtype, follow_reference=False):
     """Prefill + N_DECODE greedy steps on both sides; yields per step the
     (port, reference) logits as numpy and the tokens each side chose. With
     `follow_reference` the port decodes the reference's tokens, so that a
-    near tie that bf16 breaks the other way does not fork the two streams."""
+    near tie that bf16 breaks the other way does not fork the two streams.
+
+    The kernels take head sizes `HEAD_DIMS` on every device (ROADMAP B1/B3);
+    phi4-mini's and qwen2.5-32b's smoke head size 8 is refused
+    (`test_torch_refusals.py`), so their kernel path runs at head size 16."""
+    if use_kernels and _smoke_cfgs(arch)[0].resolved_head_dim not in HEAD_DIMS:
+        arch += "+hd16"
     cfg, jcfg = _smoke_cfgs(arch)
     weights = _weights(arch)
     rng = np.random.default_rng(1)
