@@ -105,7 +105,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    image equals the numpy oracle's). The speedups and MLP printed are the
    model's figures, the same on any machine; the phase's host seconds are
    the only measurement.
-7. one JSON line listing the kernels, then the device line, then the verdict.
+7. parallel: (a) the sharded train step (`runtime.steps.jit_train_step`,
+   DTensors on the sharding rules' placements) on a one-rank `nccl` group
+   and a (1, 1) ("data", "model") DeviceMesh: qwen2.5-3b at full width as
+   the training phase runs it, 3 steps, then on a freed card 3 steps of
+   `make_train_step` from the same seed; losses and grad norms must agree
+   to a relative 1e-6 (the largest difference is printed), with step ms
+   both ways and the peak memory; no kernel launches (the sharded steps
+   run `use_kernels=False`, as the reference's). (b) The dry run
+   (`launch.dryrun`) on fake ranks and fake tensors: every arch at
+   train_4k on the 16x16 mesh, qwen2.5-32b and kimi-k2-1t-a32b on 2x16x16,
+   in parallel processes (rwkv6 with its chunk-parallel mixer at chunks of
+   256: the default per-token scan is a 4096-step eager loop); a row each
+   (per-device argument and peak GiB,
+   FLOPs, HBM bytes, collective bytes by kind, the three roofline terms on
+   the H100's published rates, the bottleneck); each cell must complete,
+   its argument bytes equal those of the specs, its useful-FLOPs ratio in
+   (0, 1.05].
+8. one JSON line listing the kernels, then the device line, then the verdict.
 
 Imports `torch` and `repro_torch` only. There is no fallback to the CPU or to
 a plain version anywhere: whatever fails, fails the run.
@@ -2313,6 +2330,277 @@ MUTANTS = {
 }
 
 
+# ------------------------------------------------------------------ phase 7
+PARALLEL_ARCH = "qwen2.5-3b"
+PARALLEL_STEPS = 3
+PARALLEL_RTOL = 1e-6
+# the dry run's cells: every arch at TRAIN_4K on the 16x16 mesh, and the two
+# largest on 2x16x16; rwkv6 with the chunk-parallel mixer (the reference's
+# `--tune`), since the default per-token scan is a 4096-step Python loop in
+# eager, and at chunks of 256 rather than 64 (a fourth of the loop: at 64
+# the cell took 139 s of the H100 machine's host, the next slowest 34 s)
+DRYRUN_CELLS = [(a, False) for a in (
+    "recurrentgemma-9b", "qwen2-vl-2b", "qwen2-7b", "qwen2.5-32b",
+    "phi4-mini-3.8b", "qwen2.5-3b", "rwkv6-7b", "kimi-k2-1t-a32b",
+    "granite-moe-1b-a400m", "hubert-xlarge")] + [
+    ("qwen2.5-32b", True), ("kimi-k2-1t-a32b", True)]
+DRYRUN_TUNE = {"rwkv6-7b": ["rwkv.impl=chunked", "rwkv.chunk=256"]}
+DRYRUN_TIMEOUT_S = 600
+PARALLEL_RESULTS = {}
+
+
+def kernel_launches() -> dict:
+    from repro_torch.kernels import (async_gather, async_scatter,
+                                     flash_attention, paged_attention,
+                                     stream_triad)
+    mods = {"flash_attention": flash_attention,
+            "paged_attention": paged_attention, "async_gather": async_gather,
+            "async_scatter": async_scatter, "stream_triad": stream_triad}
+    return {name: mod.launches for name, mod in mods.items()}
+
+
+def reset_kernel_launches() -> None:
+    from repro_torch.kernels import (async_gather, async_scatter,
+                                     flash_attention, paged_attention,
+                                     stream_triad)
+    for mod in (flash_attention, paged_attention, async_gather,
+                async_scatter, stream_triad):
+        mod.launches = 0
+
+
+def _timed_steps(step, params, opt, cfg, shape, label):
+    """PARALLEL_STEPS steps on `synthetic_batch` of steps 0, 1, ... ->
+    rows of loss, grad norm and ms (host clock around a step ending in a
+    synchronise)."""
+    from repro_torch.data.pipeline import batch_to, synthetic_batch
+    rows = []
+    for i in range(PARALLEL_STEPS):
+        batch = batch_to(synthetic_batch(cfg, shape, i), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        rows.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "ms": (time.perf_counter() - t0) * 1e3})
+        log(f"  {label} step {i}: loss {rows[-1]['loss']:.6f}, grad norm "
+            f"{rows[-1]['grad_norm']:.6f}, {rows[-1]['ms']:.1f} ms")
+    return rows
+
+
+def run_parallel_step():
+    """(a) The sharded train step on the card: a one-rank `nccl` group, a
+    (1, 1) ("data", "model") DeviceMesh, qwen2.5-3b at full width (the
+    training phase's run: B2 S4096, 2 microbatches, remat full, bf16
+    compute on fp32 masters, seed 0), PARALLEL_STEPS steps through
+    `steps.jit_train_step` on DTensors, then on a freed card as many steps
+    of `steps.make_train_step` from the same seed. Losses and grad norms
+    must agree to PARALLEL_RTOL of their value."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+
+    cfg = configs.get_config(PARALLEL_ARCH)
+    par = configs.ParallelConfig(remat="full", microbatches=TRAIN_MICRO)
+    shape = configs.ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH,
+                                configs.KIND_TRAIN)
+    opt_cfg = adamw.AdamWConfig(total_steps=PARALLEL_STEPS)
+    log(f"parallel (a): {PARALLEL_ARCH} at full width, B{TRAIN_BATCH} "
+        f"S{TRAIN_SEQ}, {TRAIN_MICRO} microbatches, remat full, bf16 "
+        f"compute, {PARALLEL_STEPS} steps on a one-rank nccl (1, 1) mesh")
+    store = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_pg_"), "store")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+
+        def sharded():
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = lm.init_model(cfg, gen, device="cuda")
+            opt = adamw.init_state(params)
+            step, p_sh, o_sh, _ = steps.jit_train_step(
+                cfg, par, mesh, opt_cfg, params, opt, shape)
+            params = steps.place_tree(params, p_sh)
+            opt = steps.place_tree(opt, o_sh)
+            return _timed_steps(step, params, opt, cfg, shape, "sharded")
+
+        def plain():
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = lm.init_model(cfg, gen, device="cuda")
+            step = steps.make_train_step(cfg, par, opt_cfg)
+            return _timed_steps(step, params, adamw.init_state(params), cfg,
+                                shape, "unsharded")
+
+        runs = {}
+        for name, fn in (("sharded", sharded), ("unsharded", plain)):
+            free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            reset_kernel_launches()
+            rows = fn()
+            counts = kernel_launches()
+            if any(counts.values()):
+                raise AssertionError(f"parallel (a) {name}: a kernel was "
+                                     f"launched: {counts}")
+            runs[name] = (rows, torch.cuda.max_memory_allocated() / 2**30)
+    finally:
+        dist.destroy_process_group()
+    (sh, sh_peak), (pl, pl_peak) = runs["sharded"], runs["unsharded"]
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(sh, pl)):
+        for key in ("loss", "grad_norm"):
+            rel = abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+            worst = max(worst, rel)
+            if not rel <= PARALLEL_RTOL:
+                raise AssertionError(
+                    f"parallel (a) step {i} {key}: sharded {a[key]!r}, "
+                    f"unsharded {b[key]!r}, relative difference {rel:.3e} > "
+                    f"{PARALLEL_RTOL}")
+    bit_equal = all(a[k] == b[k] for a, b in zip(sh, pl)
+                    for k in ("loss", "grad_norm"))
+    ms_sh = [r["ms"] for r in sh[1:]]
+    ms_pl = [r["ms"] for r in pl[1:]]
+    log(f"  sharded vs unsharded: largest relative difference of a loss or "
+        f"grad norm {worst:.3e} (limit {PARALLEL_RTOL}), bit-equal: "
+        f"{bit_equal}; steps 1-{PARALLEL_STEPS - 1}: sharded "
+        f"{', '.join(f'{m:.1f}' for m in ms_sh)} ms, unsharded "
+        f"{', '.join(f'{m:.1f}' for m in ms_pl)} ms (DTensor's host cost "
+        f"{sum(ms_sh) / len(ms_sh) - sum(ms_pl) / len(ms_pl):.1f} ms a "
+        f"step); peak device memory {sh_peak:.3f} / {pl_peak:.3f} GiB "
+        "(torch.cuda.max_memory_allocated)")
+    PARALLEL_RESULTS["step"] = {
+        "arch": PARALLEL_ARCH, "sharded": sh, "unsharded": pl,
+        "max_rel_diff": worst, "bit_equal": bit_equal,
+        "peak_gib": {"sharded": sh_peak, "unsharded": pl_peak}}
+
+
+def run_dryrun_cells():
+    """(b) The dry run on fake ranks and fake tensors: DRYRUN_CELLS in
+    parallel processes (`python -m repro_torch.launch.dryrun`, no card),
+    a row each; every cell must complete, its `argument_gb` must equal the
+    bytes of one rank's shares from the specs alone, and its
+    useful_flops_ratio must lie in (0, 1.05]."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import production_mesh_shape
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    workers = max(1, min(len(DRYRUN_CELLS), os.cpu_count() or 1))
+    log(f"parallel (b): dry run of {len(DRYRUN_CELLS)} cells at train_4k on "
+        f"fake ranks, {workers} processes at a time; H100 rates "
+        f"{dryrun.H100}")
+    t0 = time.perf_counter()
+    pending = list(enumerate(DRYRUN_CELLS))
+    running = []
+    try:
+        while pending or running:
+            while pending and len(running) < workers:
+                i, (arch, multi) = pending.pop(0)
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", "train_4k", "--mesh",
+                       "multi" if multi else "single", "--out",
+                       os.path.join(out_dir, f"cell{i}.jsonl")]
+                for t in DRYRUN_TUNE.get(arch, []):
+                    cmd += ["--tune", t]
+                with open(os.path.join(out_dir, f"cell{i}.err"), "w") as err:
+                    running.append((i, subprocess.Popen(
+                        cmd, env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+                        stderr=err)))
+            time.sleep(0.5)
+            if time.perf_counter() - t0 > DRYRUN_TIMEOUT_S:
+                raise AssertionError(f"parallel (b): the dry run took over "
+                                     f"{DRYRUN_TIMEOUT_S} s")
+            for i, proc in list(running):
+                if proc.poll() is None:
+                    continue
+                running.remove((i, proc))
+                if proc.returncode != 0:
+                    with open(os.path.join(out_dir, f"cell{i}.err")) as err:
+                        tail = err.read()[-3000:]
+                    cell = os.path.join(out_dir, f"cell{i}.jsonl")
+                    if os.path.exists(cell):
+                        with open(cell) as f:
+                            tail += f.read()[-3000:]
+                    raise AssertionError(
+                        f"parallel (b): cell {DRYRUN_CELLS[i]} failed "
+                        f"(exit {proc.returncode}):\n{tail}")
+    finally:
+        for _, proc in running:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    rows = []
+    for i, (arch, multi) in enumerate(DRYRUN_CELLS):
+        with open(os.path.join(out_dir, f"cell{i}.jsonl")) as f:
+            res = json.loads(f.readline())
+        if res.get("skipped") or "error" in res:
+            raise AssertionError(f"parallel (b): {arch} did not complete: "
+                                 f"{res}")
+        want = dryrun.argument_bytes(arch, "train_4k",
+                                     production_mesh_shape(multi)) / 1e9
+        if res["mem"]["argument_gb"] != want:
+            raise AssertionError(
+                f"parallel (b): {arch} argument_gb {res['mem']['argument_gb']}"
+                f" against {want} from the specs")
+        if not 0 < res["useful_flops_ratio"] <= 1.05:
+            raise AssertionError(f"parallel (b): {arch} useful_flops_ratio "
+                                 f"{res['useful_flops_ratio']}")
+        t = res["terms"]
+        coll = ", ".join(f"{k} {v / 1e9:.2f}"
+                         for k, v in sorted(res["collectives"].items()))
+        log(f"  {arch} on {'2x16x16' if multi else '16x16'}: argument "
+            f"{res['mem']['argument_gb'] / 1.073741824:.3f} GiB, eager peak "
+            f"{res['mem']['peak_gb'] / 1.073741824:.3f} GiB; "
+            f"{res['flops_per_dev'] / 1e12:.2f} TFLOP, HBM "
+            f"{res['bytes_per_dev'] / 1e9:.1f} GB, collectives GB {{{coll}}}; "
+            f"compute {t['compute_s']:.4f} s, memory {t['memory_s']:.4f} s, "
+            f"collective {t['collective_s']:.4f} s -> {res['bottleneck']}; "
+            f"useful {res['useful_flops_ratio']:.3f}; host {res['run_s']:.1f} s"
+            + (f" (tuned: {' '.join(DRYRUN_TUNE[arch])})"
+               if arch in DRYRUN_TUNE else ""))
+        rows.append({"arch": arch, "mesh": "2x16x16" if multi else "16x16",
+                     **{k: res[k] for k in (
+                         "mem", "flops_per_dev", "bytes_per_dev",
+                         "collectives", "terms", "bottleneck",
+                         "useful_flops_ratio", "run_s")}})
+    log(f"  dry run: {len(rows)} cells in {wall:.1f} s of wall time "
+        "(modelled figures: counts over the H100's published rates)")
+    PARALLEL_RESULTS["dryrun"] = {"wall_s": wall, "cells": rows}
+
+
+def run_parallel():
+    """Phase 7: (a) the sharded train step on the card against the
+    unsharded one, (b) the dry run's cells on fake ranks."""
+    t0 = time.perf_counter()
+    run_parallel_step()
+    free_cuda()
+    run_dryrun_cells()
+    PARALLEL_RESULTS["host_s"] = time.perf_counter() - t0
+    log(json.dumps({"parallel": PARALLEL_RESULTS}))
+    # the phase in one line, after the long one, so that a short tail of
+    # the output still holds it
+    st, dr = PARALLEL_RESULTS["step"], PARALLEL_RESULTS["dryrun"]
+    log(f"parallel summary: (a) sharded vs unsharded, largest relative "
+        f"difference {st['max_rel_diff']:.3e} (limit {PARALLEL_RTOL}), "
+        f"bit-equal {st['bit_equal']}; steps 1-{PARALLEL_STEPS - 1} sharded "
+        + ", ".join(f"{r['ms']:.1f}" for r in st["sharded"][1:])
+        + " ms, unsharded "
+        + ", ".join(f"{r['ms']:.1f}" for r in st["unsharded"][1:])
+        + f" ms; peak {st['peak_gib']['sharded']:.3f} / "
+        f"{st['peak_gib']['unsharded']:.3f} GiB; (b) {len(dr['cells'])} "
+        f"dry-run cells checked in {dr['wall_s']:.1f} s of wall time; "
+        f"phase 7 {PARALLEL_RESULTS['host_s']:.1f} s of host time")
+
+
 def run_mutants(timeout_s: int = 300) -> bool:
     """Builds each mutant in a copy of src/ and this script under
     build/mutants/ and runs `--kernels-only` there, killed after
@@ -2398,7 +2686,8 @@ def main() -> int:
     amu_worst = check_amu_kernels(gen)
 
     # 4. the slice and the later paths, then training; 5. the AMU kernels'
-    # own path; 6. the simulator and the whole quickstart
+    # own path; 6. the simulator and the whole quickstart; 7. the parallel
+    # layer
     log(json.dumps({"serve_shapes": SERVE_SHAPES}))
     if not args.kernels_only:
         run_slice(kernels)
@@ -2407,8 +2696,9 @@ def main() -> int:
         run_training(kernels)
         run_amu(kernels, amu_worst)
         run_simulator()
+        run_parallel()
 
-    # 7. report
+    # 8. report
     log(f"chip_smoke: all phases passed in {time.time() - t_start:.1f} s")
     if not args.kernels_only:
         log(json.dumps({"kernels": kernels}))

@@ -26,28 +26,20 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from repro_torch.convert import flatten, unflatten
+from repro_torch.convert import flatten, keystr_paths, unflatten
 
 Params = Any
 
 
-def keystr_paths(tree: Params, prefix: str = "") -> List[str]:
-    """Path strings of the leaves, in flatten order, as
-    `jax.tree_util.keystr` writes them: `['key']` for a dict key, `[i]` for
-    a tuple or list index."""
-    if isinstance(tree, dict):
-        return [p for k in sorted(tree)
-                for p in keystr_paths(tree[k], f"{prefix}[{k!r}]")]
-    if isinstance(tree, (tuple, list)):
-        return [p for i, v in enumerate(tree)
-                for p in keystr_paths(v, f"{prefix}[{i}]")]
-    return [prefix]
-
-
 def _host_copy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     """(numpy array of the leaf's own, its dtype name). bfloat16 becomes its
-    16 bits as uint16."""
+    16 bits as uint16. A DTensor is gathered whole first (every rank of its
+    mesh takes part)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -86,7 +78,8 @@ class CheckpointStore:
     def save(self, step: int, tree: Params, blocking: bool = False,
              extra: Optional[Dict[str, Any]] = None) -> None:
         """Snapshot now (a host copy of every leaf), write asynchronously
-        unless `blocking`."""
+        unless `blocking`. In a process group every rank snapshots (a
+        sharded leaf is gathered) and rank 0 alone writes."""
         self.wait()                                  # one writer at a time
         leaves, _ = flatten(tree)
         paths = keystr_paths(tree)
@@ -113,6 +106,8 @@ class CheckpointStore:
                 shutil.rmtree(final)
             os.rename(tmp, final)
 
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         if blocking:
             write()
             return
@@ -146,12 +141,15 @@ class CheckpointStore:
         steps = self._steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Params
+    def restore(self, step: int, like: Params, sharding_fn=None
                 ) -> Tuple[Params, Dict[str, Any]]:
         """Restore into the structure of `like`: each leaf lands on the
         device of `like`'s leaf at its path, in the type the manifest
         names. The writer's devices are irrelevant (leaves are stored
-        whole)."""
+        whole). `sharding_fn(path, leaf)`, where given, returns the target
+        `runtime.sharding.Sharding` of the leaf at `path`: the stored whole
+        leaf is then distributed onto it (`distribute_tensor`), so a
+        checkpoint restores onto any mesh, whatever the writer's layout."""
         self.wait()
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
@@ -165,7 +163,13 @@ class CheckpointStore:
             if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"checkpoint leaf {key} has shape "
                                  f"{tuple(t.shape)}, want {tuple(leaf.shape)}")
-            out.append(t.to(leaf.device))
+            if sharding_fn is None:
+                out.append(t.to(leaf.device))
+                continue
+            sh = sharding_fn(key, leaf)
+            device = sh.mesh.device_type
+            out.append(distribute_tensor(t.to(device), sh.mesh,
+                                         sh.placements))
         return unflatten(treedef, out), manifest["extra"]
 
     def prune(self, keep: int = 3) -> None:

@@ -1,7 +1,4 @@
-"""Architecture registry: ``--arch <id>`` resolves through here.
-
-`default_parallel` of the reference comes with the parallel layer.
-"""
+"""Architecture registry: ``--arch <id>`` resolves through here."""
 from __future__ import annotations
 
 import importlib
@@ -48,6 +45,35 @@ def get_smoke_config(arch: str) -> ModelConfig:
 
 def get_shape(name: str) -> ShapeConfig:
     return SHAPES[name]
+
+
+def default_parallel(model: ModelConfig, shape: ShapeConfig) -> ParallelConfig:
+    """Per-arch default parallelism on the production meshes.
+
+    FSDP for >= ~7B-param models (params cannot replicate across `data`);
+    sequence sharding when the batch can't cover the data axis.
+    """
+    big = model.param_count() >= 5_000_000_000
+    seq_shard = shape.kind != KIND_TRAIN and shape.global_batch < 16
+    micro = 1
+    if shape.kind == KIND_TRAIN:
+        # size the gradient-accumulation factor so the per-microstep saved
+        # activation stacks (~3.5 B/token/layer/d_model under full remat)
+        # fit alongside params in 16 GB HBM (16-way data sharding assumed)
+        tokens_dev = shape.tokens_per_step // 16
+        est = tokens_dev * model.d_model * model.num_layers * 3.5
+        micro = 1
+        while micro < 16 and est / micro > 5e9:
+            micro *= 2
+    return ParallelConfig(
+        fsdp=big,
+        zero1=True,
+        seq_shard=seq_shard,
+        remat="full" if shape.kind == KIND_TRAIN else "none",
+        scan_layers=True,
+        expert_parallel=model.moe is not None,
+        microbatches=micro,
+    )
 
 
 def all_cells() -> List[Tuple[str, str, bool, str]]:

@@ -8,6 +8,10 @@ same shapes, no transposes — both packages use weights `[in, out]` as `x @ W`.
 `flatten` / `unflatten` give the leaves in the order `jax.tree.flatten` gives
 them (dict keys sorted, tuples and lists in sequence), because
 `launch/serve.py` numbers the offload pages by that order.
+`flatten_with_path` adds each leaf's path string as
+`jax.tree_util.keystr` writes it (`['scan'][0]['ffn']['w_gate']`): the
+checkpoints name their leaves by it and the sharding rules classify them by
+it.
 """
 from __future__ import annotations
 
@@ -77,6 +81,26 @@ def flatten(tree) -> Tuple[List[Any], Any]:
     collector ran (the weights of a whole model, while they are stacked)."""
     leaves: List[Any] = []
     return leaves, _walk(tree, leaves)
+
+
+def keystr_paths(tree, prefix: str = "") -> List[str]:
+    """Path strings of the leaves, in flatten order, as
+    `jax.tree_util.keystr` writes them: `['key']` for a dict key, `[i]` for
+    a tuple or list index."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in keystr_paths(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, (tuple, list)):
+        return [p for i, v in enumerate(tree)
+                for p in keystr_paths(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def flatten_with_path(tree) -> Tuple[List[Tuple[str, Any]], Any]:
+    """([(path, leaf)], treedef): `flatten` with each leaf's `keystr`
+    path, as `jax.tree_util.tree_flatten_with_path` + `keystr` give them."""
+    leaves, treedef = flatten(tree)
+    return list(zip(keystr_paths(tree), leaves)), treedef
 
 
 def _build(node, it):

@@ -4,8 +4,8 @@ next batch while the step computes).
 
 The counterpart of `src/repro/data/pipeline.py`. `synthetic_batch` is the
 reference's numpy code, so the same (step, seed) gives the same arrays in
-both packages. `input_specs`, the dry-run contract, comes with the parallel
-layer.
+both packages. `input_specs` is the dry-run contract: meta tensors standing
+for every model input of an (arch x shape) cell, allocation-free.
 """
 from __future__ import annotations
 
@@ -16,8 +16,45 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (KIND_DECODE, KIND_TRAIN, ModelConfig,
-                                      ShapeConfig)
+from repro_torch.configs.base import (KIND_DECODE, KIND_PREFILL, KIND_TRAIN,
+                                      ModelConfig, ShapeConfig)
+
+
+# ------------------------------------------------------------- dry-run specs
+def input_specs(model: ModelConfig, shape: ShapeConfig,
+                sharding_fn=None) -> Dict[str, torch.Tensor]:
+    """A meta tensor (`device="meta"`: shape and type, no storage) for
+    every model input, with the reference's shapes and types.
+
+    `sharding_fn(logical_name)` -> a `runtime.sharding.Sharding` or None;
+    where it gives one, the input is a DTensor on it (its local shard a
+    meta tensor too)."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(shp, dtype, name):
+        t = torch.empty(shp, dtype=dtype, device="meta")
+        sh = sharding_fn(name) if sharding_fn else None
+        if sh is None:
+            return t
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(t, sh.mesh, sh.placements)
+
+    specs: Dict[str, torch.Tensor] = {}
+    if shape.kind in (KIND_TRAIN, KIND_PREFILL):
+        if model.frontend is not None and model.frontend.kind == "audio":
+            specs["features"] = spec((B, S, model.frontend.feature_dim),
+                                     torch.bfloat16, "activations")
+        else:
+            specs["tokens"] = spec((B, S), torch.int32, "tokens")
+        if shape.kind == KIND_TRAIN:
+            specs["labels"] = spec((B, S), torch.int32, "tokens")
+        if model.frontend is not None and model.frontend.kind == "vision":
+            specs["vision_embeds"] = spec(
+                (B, model.frontend.prefix_len, model.frontend.feature_dim),
+                torch.bfloat16, "activations")
+    else:  # decode: one new token per sequence; the KV/state cache rides
+        specs["tokens"] = spec((B, 1), torch.int32, "tokens")
+    return specs
 
 
 def synthetic_batch(model: ModelConfig, shape: ShapeConfig, step: int,

@@ -5,9 +5,13 @@ Plain functions on tensors, params as nested dicts with weights `[in, out]`
 used as `x @ W`, as in the reference (`src/repro/models/blocks.py`), so a
 reference pytree converts leaf by leaf. Attention dispatches to the CUDA
 flash/paged kernels via `repro_torch.kernels.ops` when `use_kernels=True`,
-else the plain path. One device: the reference's sharding hints are the
-identity here (the parallel layer comes later), and with them the `pad_heads`
-branch, which only runs on a model-parallel mesh, is left out.
+else the plain path. Attention carries the reference's sharding hints
+(`runtime.hints.constrain`: the identity without a mesh) and its `pad_heads`
+branch, which pads each KV group's query heads to a multiple of the "model"
+axis on a model-parallel mesh. As in the reference, only the plain branch
+strips the padding again: with `pad_heads` on such a mesh, the flash branch
+(`use_kernels`, S >= 128) and the chunked branch (S >= `chunk_threshold`)
+reach the `wo` product with the padded head count and fail on its shape.
 """
 from __future__ import annotations
 
@@ -16,8 +20,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.runtime import hints
 
 Params = Dict[str, Any]
 
@@ -149,15 +156,18 @@ ATTN_CONFIG = {
     "chunk_threshold": 8192,   # S >= threshold -> chunked (flash-style) path
     "q_chunk": 512,
     "kv_chunk": 1024,
+    "pad_heads": 0,            # pad q heads per KV group to a mesh multiple
 }
 
 
 def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       causal: bool, window: int) -> torch.Tensor:
+                       causal: bool, window: int,
+                       q_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch flash attention: double loop over query/key chunks with
     running softmax stats — O(S) memory instead of O(S^2).
 
     q: [B, S, H, D] (grouped/repeated to q heads already), k/v same H.
+    `q_offset`: the position of q's first row (a block of the queries).
     """
     B, S, H, D = q.shape
     T = k.shape[1]
@@ -172,7 +182,7 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = torch.full((B, H, qc), -1e30, dtype=torch.float32, device=dev)
         l = torch.zeros((B, H, qc), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, H, qc, D), dtype=torch.float32, device=dev)
-        q_pos = qi * qc + torch.arange(qc, device=dev)[:, None]
+        q_pos = q_offset + qi * qc + torch.arange(qc, device=dev)[:, None]
         for ki in range(nk):
             kb = k[:, ki * kc:(ki + 1) * kc].float()
             vb = v[:, ki * kc:(ki + 1) * kc].float()
@@ -224,13 +234,45 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, Hq, hd)
-    k = k.reshape(B, S, Hkv, hd)
-    v = v.reshape(B, S, Hkv, hd)
+    q = hints.reshape(hints.whole_groups(q, -1, Hq), (B, S, Hq, hd))
+    k = hints.reshape(hints.whole_groups(k, -1, Hkv), (B, S, Hkv, hd))
+    v = hints.reshape(hints.whole_groups(v, -1, Hkv), (B, S, Hkv, hd))
     if rope is None:
         rope = RopeTables(positions, hd, cfg.rope_theta, cfg.mrope_sections)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections, rope)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections, rope)
+    # sharding hints: shard heads over "model" when divisible, else fall
+    # back to sharding the sequence (keeps 28/40-head configs from
+    # replicating S x S logits on every chip)
+    dp = hints.batch_spec_axes()
+    msize = hints.axis_size("model")
+    head_ok = msize > 1 and Hq % msize == 0
+    kv_ok = msize > 1 and Hkv % msize == 0
+    pad_per_group = 0
+    if (ATTN_CONFIG["pad_heads"] and msize > 1 and not head_ok
+            and kv_cache is None):
+        # pad each KV group's query heads so total q heads divide the mesh:
+        # zero heads cost (pad/group)/(group) extra attention FLOPs but keep
+        # K/V replicated instead of sequence-gathered every layer.
+        group = Hq // Hkv
+        target_group = group
+        while (target_group * Hkv) % msize != 0:
+            target_group += 1
+        pad_per_group = target_group - group
+        if pad_per_group:
+            qg = q.reshape(B, S, Hkv, group, hd)
+            qg = F.pad(qg, (0, 0, 0, pad_per_group))
+            q = qg.reshape(B, S, Hkv * target_group, hd)
+            Hq = q.shape[2]
+            head_ok = Hq % msize == 0
+    if head_ok:
+        q = hints.constrain(q, dp, None, "model", None)
+        k = hints.constrain(k, dp, None, "model" if kv_ok else None, None)
+        v = hints.constrain(v, dp, None, "model" if kv_ok else None, None)
+    else:
+        q = hints.constrain(q, dp, "model", None, None)
+        k = hints.constrain(k, dp, None, None, None)
+        v = hints.constrain(v, dp, None, None, None)
 
     new_cache = None
     if kv_cache is not None:
@@ -239,14 +281,14 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
         # scatter the new tokens at cache_len (decode: S == 1 typically)
         idx = cache_len[:, None].long() + torch.arange(S, device=x.device)
         bidx = torch.arange(B, device=x.device)[:, None]
-        ck.index_put_((bidx, idx), k.to(ck.dtype))
-        cv.index_put_((bidx, idx), v.to(cv.dtype))
+        hints.write_rows(ck, bidx, idx, k.to(ck.dtype))
+        hints.write_rows(cv, bidx, idx, v.to(cv.dtype))
         new_cache = (ck, cv)
         if use_kernels and S == 1 and window == 0:
             from repro_torch.kernels import ops as kops
             out = kops.paged_attention(q[:, 0], ck, cv, cache_len + S)
             out = out[:, None]
-            out = out.reshape(B, S, Hq * hd) @ p["wo"]
+            out = hints.reshape(out, (B, S, Hq * hd)) @ p["wo"]
             return out, new_cache
         k_all, v_all = ck, cv
         # valid-key mask (+ causal within the new tokens + window)
@@ -264,33 +306,115 @@ def attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
         if use_kernels and cfg.causal and S >= 128:
             from repro_torch.kernels import ops as kops
             out = kops.flash_attention(q, k, v, causal=True, window=window)
-            out = out.reshape(B, S, Hq * hd) @ p["wo"]
-            return out, new_cache
+            return _merge_heads(out, B, S, Hq, hd, head_ok, dp) @ p["wo"], \
+                new_cache
         if S >= ATTN_CONFIG["chunk_threshold"]:
             rep = Hq // Hkv
-            out = _chunked_attention(q, torch.repeat_interleave(k, rep, dim=2),
-                                     torch.repeat_interleave(v, rep, dim=2),
-                                     cfg.causal, window)
-            out = out.reshape(B, S, Hq * hd) @ p["wo"]
-            return out, new_cache
+            k_all, v_all = _heads_like_q(
+                torch.repeat_interleave(k, rep, dim=2),
+                torch.repeat_interleave(v, rep, dim=2), head_ok, kv_ok, dp)
+            if isinstance(q, DTensor):
+                out = _on_local_blocks(q, k_all, v_all, lambda ql, kl, vl, o:
+                                       _chunked_attention(ql, kl, vl,
+                                                          cfg.causal, window,
+                                                          q_offset=o))
+            else:
+                out = _chunked_attention(q, k_all, v_all, cfg.causal, window)
+            return _merge_heads(out, B, S, Hq, hd, head_ok, dp) @ p["wo"], \
+                new_cache
         mask = _attn_mask(S, T, cfg.causal, window, 0,
                           device=x.device)[None, None]
 
     # grouped heads: repeat kv
     rep = Hq // Hkv
-    k_all = torch.repeat_interleave(k_all, rep, dim=2)
-    v_all = torch.repeat_interleave(v_all, rep, dim=2)
-    scale = 1.0 / math.sqrt(hd)
+    k_all, v_all = _heads_like_q(torch.repeat_interleave(k_all, rep, dim=2),
+                                 torch.repeat_interleave(v_all, rep, dim=2),
+                                 head_ok, kv_ok, dp)
+    if isinstance(q, DTensor):
+        out = _attend_sharded(q, k_all, v_all, mask, x.dtype)
+    else:
+        out = _attend(q, k_all, v_all, mask, x.dtype)
+    if pad_per_group:
+        group = Hq // Hkv
+        out = out.reshape(B, S, Hkv, group, hd)[
+            :, :, :, :group - pad_per_group]
+        Hq = Hkv * (group - pad_per_group)
+        out = out.reshape(B, S, Hq, hd)
+    return _merge_heads(out, B, S, Hq, hd, head_ok, dp) @ p["wo"], new_cache
+
+
+def _heads_like_q(k, v, head_ok: bool, kv_ok: bool, dp):
+    """K / V repeated to the query heads, split over "model" as q's heads
+    are (a local slice of replicated K / V), so both products see one
+    layout."""
+    if head_ok and not kv_ok:
+        k = hints.constrain(k, dp, None, "model", None)
+        v = hints.constrain(v, dp, None, "model", None)
+    return k, v
+
+
+def _merge_heads(out, B: int, S: int, Hq: int, hd: int, head_ok: bool, dp):
+    """[B, S, Hq, hd] -> [B, S, Hq * hd] for the `wo` product. Queries split
+    over the sequence (heads that do not divide "model") are gathered first:
+    a product over a split sequence would merge two sharded dims, which
+    DTensor refuses on some versions."""
+    if not head_ok:
+        out = hints.constrain(out, dp, None, None, None)
+    return hints.reshape(out, (B, S, Hq * hd))
+
+
+def _attend(q, k, v, mask, dtype, divide=False):
+    """softmax(q k^T / sqrt(D), masked) v over grouped-out heads:
+    q [B, S, H, D], k / v [B, T, H, D], mask [B or 1, 1, S, T]. The
+    logits are scaled by 1 / sqrt(D), or divided by sqrt(D) with `divide`
+    (the ring decode's form, as the reference writes each)."""
     # logits are formed in the working type and only then widened, as the
     # reference does; a cache of another type promotes like jnp.einsum
-    qk_t = torch.promote_types(q.dtype, k_all.dtype)
-    logits = torch.einsum("bshd,bthd->bhst", q.to(qk_t), k_all.to(qk_t)) * scale
+    qk_t = torch.promote_types(q.dtype, k.dtype)
+    logits = torch.einsum("bshd,bthd->bhst", q.to(qk_t), k.to(qk_t))
+    if divide:
+        logits = logits / math.sqrt(q.shape[-1])
+    else:
+        logits = logits * (1.0 / math.sqrt(q.shape[-1]))
     logits = logits.float().masked_fill(~mask, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    pv_t = torch.promote_types(probs.dtype, v_all.dtype)
-    out = torch.einsum("bhst,bthd->bshd", probs.to(pv_t), v_all.to(pv_t))
-    out = out.reshape(B, S, Hq * hd) @ p["wo"]
-    return out, new_cache
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    pv_t = torch.promote_types(probs.dtype, v.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs.to(pv_t), v.to(pv_t))
+
+
+def _on_local_blocks(q, k, v, core):
+    """`core(q, k, v, q_offset)` on DTensors, each rank on its own (batch,
+    head, query) block: q keeps its layout (batch over the data axes, heads
+    or queries over "model"), K / V follow q's batch and head layout with
+    every position (gathered where the cache splits them); `q_offset` is
+    the position of the block's first query. The products then need no
+    collective, and DTensor's einsums, which refuse two sharded dims merged
+    into one batch dim on some versions, are not asked to."""
+    mesh, qpl = q.device_mesh, tuple(q.placements)
+    kpl = tuple(Replicate() if pl.is_shard(1) else pl for pl in qpl)
+    # a query block's share of the K / V gradient is a partial sum over the
+    # ranks that split the queries
+    kgrad = tuple(Partial() if pl.is_shard(1) else pl for pl in qpl)
+    kl, vl = (t.redistribute(mesh, kpl).to_local(grad_placements=kgrad)
+              for t in (k, v))
+    out = core(q.to_local(), kl, vl, hints.local_box(q)[1][1])
+    return DTensor.from_local(out, mesh, qpl)
+
+
+def _attend_sharded(q, k, v, mask, dtype, divide=False):
+    """`_attend` on local blocks (`_on_local_blocks`), the mask following
+    q's batch and query layout."""
+    mesh, qpl = q.device_mesh, tuple(q.placements)
+    mpl = tuple(Shard(2) if pl.is_shard(1) else
+                Shard(0) if pl.is_shard(0) and mask.shape[0] > 1 else
+                Replicate() for pl in qpl)
+    if isinstance(mask, DTensor):
+        mask = mask.redistribute(mesh, mpl).to_local()
+    else:
+        mask = distribute_tensor(mask, mesh, mpl,
+                                 src_data_rank=None).to_local()
+    return _on_local_blocks(q, k, v, lambda ql, kl, vl, _: _attend(
+        ql, kl, vl, mask, dtype, divide))
 
 
 def ring_attention_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -320,6 +444,9 @@ def ring_attention_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if rope is None:
         rope = RopeTables(positions, hd, cfg.rope_theta, cfg.mrope_sections)
+    q = hints.whole_groups(q, -1, Hq)
+    k = hints.whole_groups(k, -1, Hkv)
+    v = hints.whole_groups(v, -1, Hkv)
     q = apply_rope(q.reshape(Bsz, 1, Hq, hd), positions, cfg.rope_theta,
                    cfg.mrope_sections, rope)
     k = apply_rope(k.reshape(Bsz, 1, Hkv, hd), positions, cfg.rope_theta,
@@ -327,21 +454,17 @@ def ring_attention_step(cfg: ModelConfig, p: Params, x: torch.Tensor,
     v = v.reshape(Bsz, 1, Hkv, hd)
     slot = cache_len.long() % Wn                            # [B]
     bidx = torch.arange(Bsz, device=x.device)
-    ck.index_put_((bidx, slot), k[:, 0].to(ck.dtype))
-    cv.index_put_((bidx, slot), v[:, 0].to(cv.dtype))
+    hints.write_rows(ck, bidx, slot, k[:, 0].to(ck.dtype))
+    hints.write_rows(cv, bidx, slot, v[:, 0].to(cv.dtype))
     valid = (torch.arange(Wn, device=x.device)[None, :]
              <= torch.clamp_max(cache_len.long(), Wn - 1)[:, None])
     rep = Hq // Hkv
     k_all = torch.repeat_interleave(ck, rep, dim=2)
     v_all = torch.repeat_interleave(cv, rep, dim=2)
-    qk_t = torch.promote_types(q.dtype, k_all.dtype)
-    logits = torch.einsum("bshd,bthd->bhst", q.to(qk_t),
-                          k_all.to(qk_t)) / math.sqrt(hd)
-    logits = logits.float().masked_fill(~valid[:, None, None, :], -1e30)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    pv_t = torch.promote_types(probs.dtype, v_all.dtype)
-    out = torch.einsum("bhst,bthd->bshd", probs.to(pv_t), v_all.to(pv_t))
-    out = out.reshape(Bsz, 1, Hq * hd) @ p["wo"]
+    attend = _attend_sharded if isinstance(q, DTensor) else _attend
+    out = attend(q, k_all, v_all, valid[:, None, None, :], x.dtype,
+                 divide=True)
+    out = hints.reshape(out, (Bsz, 1, Hq * hd)) @ p["wo"]
     return out, (ck, cv)
 
 

@@ -21,6 +21,14 @@ Training: `train_loss` runs the same stack under autograd, with the
 reference's remat modes as `torch.utils.checkpoint` around each period
 (`_remat_wrap`), and `chunked_xent` computes the loss one sequence chunk at a
 time.
+
+On a mesh (DTensor params and inputs, `runtime.steps.jit_train_step`) the
+same code runs on DTensors: the reference's hints (`LM_CONFIG`'s
+sequence-parallel residual among them) plus the ones DTensor needs said
+(`runtime.hints`): each layer's weights gathered over the data axes where
+they are used (FSDP), the residual stream all-reduced as it joins and its
+gradient too (`_residual`), and a DTensor cache written through
+`hints.write_rows`.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import (BLOCK_FULL, BLOCK_LOCAL, BLOCK_RGLRU,
@@ -38,8 +47,11 @@ from repro_torch.models import frontends as F
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as W
+from repro_torch.runtime import hints
 
 Params = Dict[str, Any]
+
+LM_CONFIG = {"seq_parallel_residual": 0}   # 1 -> Korthikanti-style SP
 
 
 def resolve_device(device) -> torch.device:
@@ -100,9 +112,10 @@ def init_model(cfg: ModelConfig, gen: Optional[torch.Generator] = None,
     """Random weights in the reference's layout, drawn from `gen` (a
     `torch.Generator` on `device`; seeded 0 if None). Asking for a card that
     is not there raises. The draws differ from the reference's for the same
-    seed; parity tests carry weights across with `repro_torch.convert`."""
+    seed; parity tests carry weights across with `repro_torch.convert`.
+    `device="meta"` gives the shapes and types alone (no generator)."""
     device = resolve_device(device)
-    if gen is None:
+    if gen is None and device.type != "meta":
         gen = torch.Generator(device=device).manual_seed(0)
     period = len(cfg.block_pattern)
     n_periods, n_tail = divmod(cfg.num_layers, period)
@@ -180,7 +193,12 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     scatters the new row), RG-LRU's `h` / `conv` and RWKV-6's `s` / `last_x`
     (copied over whole). `aux` is the MoE load-balancing loss, None for a
     dense FFN (the reference's zero)."""
-    h = B.apply_norm(cfg, p["norm1"], x)
+    p = hints.gather_fsdp(p)
+    if LM_CONFIG["seq_parallel_residual"] and x.shape[1] > 1:
+        # sequence-parallel residual stream: norms/elementwise run with S
+        # sharded over "model", gathered at the matmul boundaries
+        x = hints.constrain(x, hints.batch_spec_axes(), "model", None)
+    h = hints.grad_as_forward(B.apply_norm(cfg, p["norm1"], x))
     new_cache = None
     window = cfg.window_size if kind == BLOCK_LOCAL else 0
     if kind in (BLOCK_FULL, BLOCK_LOCAL):
@@ -203,11 +221,11 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                     Wn = cache["k"].shape[1]
                     take = min(Wn, S)
                     slots = torch.arange(S - take, S, device=h.device) % Wn
-                    cache["k"][:, slots] = kv[0][:, -take:].to(cache["k"].dtype)
-                    cache["v"][:, slots] = kv[1][:, -take:].to(cache["v"].dtype)
+                    for name, t in zip("kv", kv):
+                        _fill(cache[name], slots, t[:, -take:])
                 else:
-                    cache["k"][:, :S] = kv[0].to(cache["k"].dtype)
-                    cache["v"][:, :S] = kv[1].to(cache["v"].dtype)
+                    for name, t in zip("kv", kv):
+                        _fill(cache[name], slice(0, S), t)
                 nc = (cache["k"], cache["v"])
             else:
                 out, nc = B.attention(cfg, p["mix"], h, positions,
@@ -227,13 +245,44 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
             for name, t in state.items():
                 cache[name].copy_(t)
             new_cache = cache
-    x = x + out
-    h2 = B.apply_norm(cfg, p["norm2"], x)
+    x = x + _residual(out)
+    h2 = hints.grad_as_forward(B.apply_norm(cfg, p["norm2"], x))
     if cfg.moe is not None:
         ffn_out, aux = M.apply_moe(cfg, p["ffn"], h2, mode=moe_mode)
     else:
         ffn_out, aux = B.apply_mlp(cfg, p["ffn"], h2), None
-    return x + ffn_out, new_cache, aux
+    return x + _residual(ffn_out), new_cache, aux
+
+
+def _residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream's layout on a mesh: batch over the data axes,
+    the rest whole on every "model" rank, or the sequence over "model"
+    under `seq_parallel_residual`. Applied to the stream's input and to
+    each sublayer's output before it joins the stream, so a sublayer's
+    partial sums are all-reduced there (Megatron's "g"); a sublayer's
+    input takes `hints.grad_as_forward` (its "f"), so the stream's
+    gradient is whole too. XLA settles the stream so by itself; DTensor,
+    left alone, may keep it partial or sharded on the hidden dim and then
+    gather the next product's weights whole instead."""
+    if LM_CONFIG["seq_parallel_residual"] and x.shape[1] > 1:
+        return hints.constrain(x, hints.batch_spec_axes(), "model", None)
+    return hints.constrain(x, hints.batch_spec_axes(), None, None)
+
+
+def _fill(cache: torch.Tensor, where, values: torch.Tensor) -> None:
+    """cache[:, where] = values, IN PLACE (`where` a slice or the positions'
+    indices). A DTensor cache takes the rows through `hints.write_rows`: a
+    slice of a DTensor is a new tensor, so assigning into it would leave
+    the cache as it was."""
+    values = values.to(cache.dtype)
+    if not isinstance(cache, DTensor):
+        cache[:, where] = values
+        return
+    pos = (torch.arange(where.start, where.stop, device=values.device)
+           if isinstance(where, slice) else where)
+    B = cache.shape[0]
+    hints.write_rows(cache, torch.arange(B, device=values.device)[:, None],
+                     pos[None, :].expand(B, -1), values)
 
 
 # ================================================================== forward
@@ -289,6 +338,7 @@ def forward_blocks(cfg: ModelConfig, params: Params, x: torch.Tensor,
     period = len(cfg.block_pattern)
     n_periods, n_tail = divmod(cfg.num_layers, period)
     cache_len = cache["len"] if cache is not None else None
+    x = _residual(x)
     new_cache: Optional[Params] = {} if cache is not None else None
     # one set of rotary tables for the whole stack, not two per layer; cast
     # before the first period, so a recomputed period finds the cast made
@@ -340,12 +390,13 @@ def embed_inputs(cfg: ModelConfig, params: Params, inputs: Dict[str, Any],
     """tokens (with `vision_embeds` [B, prefix_len, feature_dim] for a vision
     frontend) or audio `features` [B, S, feature_dim] -> [B, S, d] stream."""
     if cfg.frontend is not None and cfg.frontend.kind == "audio":
-        return F.apply_audio_features(cfg, params["frontend"],
-                                      inputs["features"].to(dtype))
-    x = params["embed"].to(dtype)[inputs["tokens"]]
+        return F.apply_audio_features(cfg, hints.gather_fsdp(
+            params["frontend"]), inputs["features"].to(dtype))
+    x = hints.take_rows(hints.gather_fsdp(params["embed"]).to(dtype),
+                        inputs["tokens"])
     if cfg.frontend is not None and cfg.frontend.kind == "vision":
-        x = F.apply_vision_prefix(cfg, params["frontend"], x,
-                                  inputs["vision_embeds"])
+        x = F.apply_vision_prefix(cfg, hints.gather_fsdp(params["frontend"]),
+                                  x, inputs["vision_embeds"])
     return x
 
 
@@ -364,8 +415,8 @@ def positions_for(cfg: ModelConfig, batch: int, seq: int, offset=0, *,
 def _head_logits(cfg: ModelConfig, params: Params,
                  x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).T
-    return x @ params["head"]
+        return x @ hints.gather_fsdp(params["embed"]).to(x.dtype).T
+    return x @ hints.gather_fsdp(params["head"])
 
 
 def cast_params_for_compute(params: Params, dtype=torch.bfloat16) -> Params:
@@ -390,11 +441,17 @@ def chunked_xent(cfg: ModelConfig, params: Params, x: torch.Tensor,
     Bsz, S, _ = x.shape
     chunk = min(chunk, S)
     n = S // chunk
+    # the head's FSDP gather once for all chunks
+    params = {k: hints.gather_fsdp(params[k]) for k in ("embed", "head")
+              if k in params}
 
     def chunk_loss(xm, lm):
         logits = _head_logits(cfg, params, xm).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, lm[..., None].long())[..., 0]
+        logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+        # the gold logit keeps its trailing unit dim: on vocab-sharded
+        # DTensor logits the gather's masked partial result carries a mask
+        # of that shape, which indexing the dim away would not update
+        gold = logits.gather(-1, lm[..., None].long())
         return (logz - gold).sum()
 
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -421,7 +478,8 @@ def train_loss(cfg: ModelConfig, params: Params, inputs: Dict[str, Any],
     positions = positions_for(cfg, Bsz, S, device=x.device)
     x, _, aux = forward_blocks(cfg, params, x, positions, None,
                                use_kernels, moe_mode, remat)
-    x = B.apply_norm(cfg, params["final_norm"], x)
+    # the head's gradient comes back whole into the stream (see _residual)
+    x = hints.grad_as_forward(B.apply_norm(cfg, params["final_norm"], x))
     loss = chunked_xent(cfg, params, x, inputs["labels"])
     if cfg.moe is not None:
         loss = loss + cfg.moe.load_balance_loss_weight * aux / cfg.num_layers
@@ -461,7 +519,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     place; the returned tree holds them with `len + 1` (a new tensor: the old
     `len` is not touched)."""
     params = cast_params_for_compute(params, dtype)
-    x = params["embed"][tokens]
+    x = hints.take_rows(hints.gather_fsdp(params["embed"]), tokens)
     Bsz = x.shape[0]
     positions = positions_for(cfg, Bsz, 1, offset=cache["len"],
                               device=x.device)

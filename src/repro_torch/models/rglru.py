@@ -11,9 +11,9 @@ Prefill runs the recurrence as the same odd/even associative scan that
 `jax.lax.associative_scan` runs (about 2 log2 S levels of strided
 elementwise ops on [B, S, w]), so the fp32 sums are formed in the
 reference's order; decode is one step. The reference computes all of this
-outside any Pallas kernel, and so does the port: plain PyTorch. Its
-sharding hints on the recurrence width are the identity on one device (the
-parallel layer, ROADMAP A9, is not ported).
+outside any Pallas kernel, and so does the port: plain PyTorch. The
+recurrence width carries the reference's sharding hint over "model" (the
+identity without a mesh).
 
 Types, as the reference keeps them: `lambda` is 1-D fp32, made bf16 under the
 stacked `"scan"` leaves by `cast_params_for_compute` (softplus then runs in
@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import _dense_init
+from repro_torch.runtime import hints
 
 Params = Dict[str, Any]
 
@@ -154,6 +155,9 @@ def apply_rglru(cfg: ModelConfig, p: Params, x: torch.Tensor,
     S = x.shape[1]
     u = x @ p["w_x"]                                  # [B, S, w]
     gate = F.gelu(x @ p["w_y"], approximate="tanh")
+    dp = hints.batch_spec_axes()
+    u = hints.constrain(u, dp, None, "model")       # recurrence width-sharded
+    gate = hints.constrain(gate, dp, None, "model")
     if state is None:
         conv_in, _ = _causal_conv(p, u, None)
         h, _ = rglru_scan(p, conv_in)

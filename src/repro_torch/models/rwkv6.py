@@ -19,19 +19,22 @@ Types, as the reference keeps them: `decay_base` and `bonus` are 1-D and
 stay fp32 (under the stacked `"scan"` leaves `cast_params_for_compute` makes
 them bf16, as the reference's does); `tanh(lerp @ w_w)` is widened to fp32
 before the decay; the mixer runs in fp32 unless `mixer_bf16` is set; the
-state and `last_x` are fp32. The reference's sharding hint on the heads is
-the identity on one device (the parallel layer, ROADMAP A9, is not ported).
+state and `last_x` are fp32. The mixer's inputs carry the reference's
+sharding hint: heads over "model" (the identity without a mesh).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import _dense_init
+from repro_torch.runtime import hints
 
 Params = Dict[str, Any]
 
@@ -91,7 +94,8 @@ def _project(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def _heads(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
     B, S, _ = t.shape
-    return t.reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    return hints.reshape(hints.whole_groups(t, -1, cfg.num_heads),
+                         (B, S, cfg.num_heads, cfg.resolved_head_dim))
 
 
 def _einsum32(eq: str, *ts: torch.Tensor) -> torch.Tensor:
@@ -147,7 +151,7 @@ def rwkv6_chunk(cfg: ModelConfig, p: Params, r, k, v, w,
                 state: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The per-token recurrence. r/k/v/w: [B, S, H, N] (w fp32); state:
     [B, H, N, N] fp32. Returns (out [B, S, H, N], new state)."""
-    u = p["bonus"].reshape(cfg.num_heads, cfg.resolved_head_dim)
+    u = p["bonus"].reshape(r.shape[2], r.shape[3])
     s, outs = state, []
     for t in range(r.shape[1]):
         r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]  # [B, H, N]
@@ -156,6 +160,33 @@ def rwkv6_chunk(cfg: ModelConfig, p: Params, r, k, v, w,
         outs.append(torch.einsum("bhk,bhkv->bhv", r_t.to(m.dtype), m))
         s = w_t[..., None] * s + kv
     return torch.stack(outs, dim=1), s
+
+
+def _mix_sharded(cfg: ModelConfig, p: Params, mixer, r, k, v, w, state):
+    """`mixer` on DTensors, each rank on its own (batch, head) block: the
+    recurrence never mixes heads or sequences, so r / k / v / w keep their
+    layout (batch over the data axes, heads over "model"), the state and
+    the bonus follow it, and no collective runs inside the scan (DTensor
+    has no sharding rule for some of its ops on some versions)."""
+    mesh, pl = r.device_mesh, tuple(r.placements)
+    spl = tuple(Shard(1) if x.is_shard(2) else x for x in pl)
+    shape, off = hints.local_box(r)
+    h0, hl = off[2], shape[2]
+    if isinstance(state, DTensor):
+        s_local = state.redistribute(mesh, spl).to_local()
+    else:                                # a fresh zero state, made locally
+        s_local = state.new_zeros((shape[0], hl) + tuple(state.shape[2:]))
+    bonus = p["bonus"]
+    if isinstance(bonus, DTensor):
+        # every rank uses its heads' slice: the gradient is a partial sum
+        bonus = bonus.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+            grad_placements=[Partial()] * mesh.ndim)
+    bonus = bonus.reshape(cfg.num_heads, -1)[h0:h0 + hl].reshape(-1)
+    out, s_new = mixer(cfg, {"bonus": bonus}, *(t.to_local()
+                                                 for t in (r, k, v, w)),
+                       s_local)
+    return (DTensor.from_local(out, mesh, pl),
+            DTensor.from_local(s_new, mesh, spl))
 
 
 def init_rwkv6_state(cfg: ModelConfig, batch: int, *,
@@ -185,15 +216,22 @@ def apply_rwkv6(cfg: ModelConfig, p: Params, x: torch.Tensor,
     r, k, v, g, w = _project(cfg, p, x, x_prev)
     mix_dtype = (torch.bfloat16 if RWKV_CONFIG.get("mixer_bf16")
                  else torch.float32)
-    rh, kh, vh = (_heads(cfg, t).to(mix_dtype) for t in (r, k, v))
-    wh = _heads(cfg, w.float())
+    # mixer runs head-sharded over the "model" axis (64 heads / 16-way TP)
+    dp = hints.batch_spec_axes()
+    rh, kh, vh = (hints.constrain(_heads(cfg, t), dp, None, "model",
+                                  None).to(mix_dtype) for t in (r, k, v))
+    wh = hints.constrain(_heads(cfg, w.float()), dp, None, "model", None)
     if (RWKV_CONFIG["impl"] == "chunked" and S > 1
             and S % min(RWKV_CONFIG["chunk"], S) == 0):
-        out, s_new = rwkv6_chunk_parallel(cfg, p, rh, kh, vh, wh, s0,
-                                          RWKV_CONFIG["chunk"])
+        mixer = functools.partial(rwkv6_chunk_parallel,
+                                  chunk=RWKV_CONFIG["chunk"])
     else:
-        out, s_new = rwkv6_chunk(cfg, p, rh, kh, vh, wh, s0)
-    out = out.to(x.dtype).reshape(B, S, d)
+        mixer = rwkv6_chunk
+    if isinstance(rh, DTensor):
+        out, s_new = _mix_sharded(cfg, p, mixer, rh, kh, vh, wh, s0)
+    else:
+        out, s_new = mixer(cfg, p, rh, kh, vh, wh, s0)
+    out = hints.reshape(out.to(x.dtype), (B, S, d))
     out = (out * g) @ p["w_o"]
     new_state = None
     if state is not None:

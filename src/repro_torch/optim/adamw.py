@@ -1,5 +1,5 @@
 """AdamW with a cosine schedule and global-norm clipping, and the int8
-quantizer of the gradient compression.
+error-feedback gradient compression of the cross-pod mean.
 
 The counterpart of `src/repro/optim/adamw.py`. State and results have the
 reference's layout (`{"m", "v", "step"}`, the same trees as the params,
@@ -8,17 +8,26 @@ other. Unlike the reference, whose arrays are immutable, `apply_updates`
 works IN PLACE: the grads are scaled by the clip, and `m`, `v` and the
 params are updated leaf by leaf, a slice of at most `UPDATE_SLICE` elements
 at a time, with the reference's operations in its order. The temporaries
-are then a few slices, not six copies of the largest leaf. The
-cross-pod mean (`compressed_cross_pod_mean`) is a collective and comes with
-the parallel layer.
+are then a few slices, not six copies of the largest leaf.
+
+On DTensor leaves (the sharded step, `runtime.steps.jit_train_step`) the
+same update runs on the local shards: each grad is first redistributed to
+its moment's placements (which also settles its pending data-parallel
+sum), the global norm sums each element once, and under ZeRO-1, where a
+replicated param has data-sharded moments, the param's matching slice is
+updated and gathered back into the param's own storage.
+`compressed_cross_pod_mean` is the int8 error-feedback all-reduce over the
+"pod" group.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.convert import flatten, tree_map, unflatten
 
@@ -63,6 +72,16 @@ def init_state(params: Params, moment_dtype=torch.float32) -> Dict[str, Any]:
                                 device=leaves[0].device)}
 
 
+def _replication(t: DTensor) -> int:
+    """How many ranks hold each element of `t`: the product of the mesh
+    dims it is replicated over."""
+    n = 1
+    for size, pl in zip(t.device_mesh.shape, t.placements):
+        if isinstance(pl, Replicate):
+            n *= size
+    return n
+
+
 @torch.no_grad()
 def clip_by_global_norm(grads: Params, max_norm: float
                         ) -> Tuple[Params, torch.Tensor]:
@@ -71,17 +90,30 @@ def clip_by_global_norm(grads: Params, max_norm: float
     by leaf in flatten order, as the reference's `tree.reduce`, each leaf a
     slice of `UPDATE_SLICE` at a time by `sum` (whose CPU kernel sums in a
     cascade: `torch.dot` there is off by ~4e-5 of the value at 1e8
-    elements, `linalg.vector_norm` by ~2e-2)."""
+    elements, `linalg.vector_norm` by ~2e-2). DTensor grads (no pending
+    partial sums) are summed over their local shards, each divided by the
+    number of ranks that hold it, then all-reduced over every mesh dim; the
+    norm is then a plain tensor, the same on every rank."""
     leaves, _ = flatten(grads)
     sq = None
     for g in leaves:
-        for part in g.reshape(-1).split(UPDATE_SLICE):
+        local = g.to_local() if isinstance(g, DTensor) else g
+        for part in local.reshape(-1).split(UPDATE_SLICE):
             s = part.float().square().sum()
+            if isinstance(g, DTensor) and _replication(g) > 1:
+                s = s / _replication(g)
             sq = s if sq is None else sq + s
+    mesh = next((g.device_mesh for g in leaves if isinstance(g, DTensor)),
+                None)
+    if mesh is not None:
+        for i in range(mesh.ndim):
+            if mesh.shape[i] > 1:
+                dist.all_reduce(sq, group=mesh.get_group(i))
     gnorm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     for g in leaves:
-        g.mul_(scale.to(g.dtype))
+        local = g.to_local() if isinstance(g, DTensor) else g
+        local.mul_(scale.to(g.dtype))
     return grads, gnorm
 
 
@@ -112,32 +144,74 @@ def _update_slice(cfg: AdamWConfig, p, g, m, v, lr, bc1, bc2,
         v.copy_(v32)
 
 
+def _update_leaf(cfg: AdamWConfig, p, g, m, v, lr, bc1, bc2,
+                 decay: bool) -> None:
+    """One leaf, in place, `UPDATE_SLICE` elements at a time."""
+    parts = [t.view(-1).split(UPDATE_SLICE) for t in (p, g, m, v)]
+    for ps, gs, ms, vs in zip(*parts):
+        _update_slice(cfg, ps, gs, ms, vs, lr, bc1, bc2, decay)
+
+
+def _update_dtensor(cfg: AdamWConfig, p, g, m, v, lr, bc1, bc2) -> None:
+    """A DTensor leaf, in place on the local shards; `g` is at the moments'
+    placements. A param placed otherwise (ZeRO-1) is updated through its
+    slice at those placements, which is then gathered back into it."""
+    same = tuple(p.placements) == tuple(m.placements)
+    ps = p if same else p.redistribute(m.device_mesh, m.placements)
+    pl = ps.to_local()
+    work = pl if pl.is_contiguous() else pl.contiguous()
+    _update_leaf(cfg, work, g.to_local().contiguous(), m.to_local(),
+                 v.to_local(), lr, bc1, bc2, decay=p.dim() >= 2)
+    if work is not pl:
+        pl.copy_(work)
+    if not same:
+        p.to_local().copy_(
+            ps.redistribute(p.device_mesh, p.placements).to_local())
+
+
+def to_moment_layout(g, m):
+    """A DTensor grad at its moment's placements (settling its pending
+    data-parallel sum); a plain grad as it is."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(m.placements):
+        return g.redistribute(m.device_mesh, m.placements)
+    return g
+
+
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: Params, grads: Params,
                   state: Dict[str, Any]
                   ) -> Tuple[Params, Dict[str, Any], Dict[str, torch.Tensor]]:
     """Clip, then one AdamW step -> (params, state, {"grad_norm", "lr"}).
-    Everything is updated IN PLACE (grads scaled, params, `m` and `v`
-    overwritten) and the same tensors are returned; `step` is a new tensor.
+    Everything is updated IN PLACE (params, `m` and `v` overwritten; plain
+    grads scaled) and the same tensors are returned; `step` is a new tensor.
     `lr`, `bc1` and `bc2` are float32 tensors computed from the int32 step,
-    as the reference's are."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    as the reference's are. DTensor grads are first redistributed to the
+    moments' placements (new tensors: the grads passed in are left with
+    their pending sums)."""
+    flat_p, treedef = flatten(params)
+    flat_g, _ = flatten(grads)
+    flat_m, _ = flatten(state["m"])
+    flat_v, _ = flatten(state["v"])
+    flat_g = [to_moment_layout(g, m) for g, m in zip(flat_g, flat_m)]
+    flat_g, gnorm = clip_by_global_norm(flat_g, cfg.grad_clip)
     step = state["step"]
+    if isinstance(step, DTensor):
+        step = step.to_local()
     lr = schedule(cfg, step)
     stepf = step.float() + 1
     bc1 = 1 - torch.pow(cfg.beta1, stepf)
     bc2 = 1 - torch.pow(cfg.beta2, stepf)
 
-    flat_p, treedef = flatten(params)
-    flat_g, _ = flatten(grads)
-    flat_m, _ = flatten(state["m"])
-    flat_v, _ = flatten(state["v"])
     for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        decay = p.dim() >= 2
-        parts = [t.view(-1).split(UPDATE_SLICE) for t in (p, g, m, v)]
-        for ps, gs, ms, vs in zip(*parts):
-            _update_slice(cfg, ps, gs, ms, vs, lr, bc1, bc2, decay)
-    new_state = {"m": state["m"], "v": state["v"], "step": step + 1}
+        if isinstance(p, DTensor):
+            _update_dtensor(cfg, p, g, m, v, lr, bc1, bc2)
+        else:
+            _update_leaf(cfg, p, g, m, v, lr, bc1, bc2, p.dim() >= 2)
+    new_step = step + 1
+    if isinstance(state["step"], DTensor):
+        new_step = DTensor.from_local(new_step, state["step"].device_mesh,
+                                      state["step"].placements)
+    new_state = {"m": state["m"], "v": state["v"], "step": new_step}
     return unflatten(treedef, flat_p), new_state, {"grad_norm": gnorm,
                                                    "lr": lr}
 
@@ -152,3 +226,38 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
+
+
+@torch.no_grad()
+def compressed_cross_pod_mean(grads: Params, group=None,
+                              error: Optional[Params] = None
+                              ) -> Tuple[Params, Params]:
+    """int8 error-feedback all-reduce over `group` (the "pod" mesh dim's,
+    `mesh.get_group("pod")`): quantize (grad + residual), sum the int8
+    payload as int32 over the group (4x fewer inter-pod bytes than float32),
+    dequantize, keep the quantization error as the next residual ->
+    (mean grads, new residuals).
+
+    As in the reference, the summed payload is dequantized with this
+    rank's own scale, not each sender's: the mean is exact only where the
+    pods' scales agree. Grads are plain tensors (a DTensor's local shard,
+    for instance)."""
+    if error is None:
+        error = tree_map(lambda g: torch.zeros_like(g, dtype=torch.float32),
+                         grads)
+    n = dist.get_world_size(group)
+
+    def one(g, e):
+        g32 = g.float() + e
+        q, scale = quantize_int8(g32)
+        total = q.to(torch.int32)
+        dist.all_reduce(total, group=group)
+        mean = (total.float() * scale) / float(n)
+        new_e = g32 - dequantize_int8(q, scale)
+        return mean.to(g.dtype), new_e
+
+    flat_g, treedef = flatten(grads)
+    flat_e, _ = flatten(error)
+    out = [one(g, e) for g, e in zip(flat_g, flat_e)]
+    return (unflatten(treedef, [o[0] for o in out]),
+            unflatten(treedef, [o[1] for o in out]))

@@ -52,6 +52,11 @@ def test_port_files_exist():
                  "src/repro_torch/data/pipeline.py",
                  "src/repro_torch/checkpoint/store.py",
                  "src/repro_torch/launch/train.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/launch/op_analysis.py",
+                 "src/repro_torch/runtime/hints.py",
+                 "src/repro_torch/runtime/sharding.py",
                  *SIMULATOR_FILES):
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
@@ -89,6 +94,9 @@ def test_importing_the_port_pulls_in_neither_jax_nor_repro():
         "import repro_torch.kernels._build, repro_torch.convert\n"
         "import repro_torch.core, repro_torch.amu, repro_torch.analysis\n"
         "import repro_torch.core.simulator, repro_torch.analysis.amilint\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.op_analysis\n"
+        "import repro_torch.launch.mesh, repro_torch.runtime.sharding\n"
+        "import repro_torch.runtime.hints, repro_torch.runtime.steps\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'triton'))\n"
         "assert not bad, bad\n"
@@ -125,6 +133,36 @@ def test_config_registry_and_shapes_equal_reference():
         assert getattr(configs, name) == getattr(jconfigs, name)
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("no-such-arch")
+
+
+# reference module -> its counterpart in the port, where the names differ
+COUNTERPARTS = {"launch/hlo_analysis.py": "launch/op_analysis.py"}
+
+
+def test_every_reference_module_has_its_counterpart():
+    """The port does all that the JAX package does: each module of
+    `src/repro/` has one of the same path under `src/repro_torch/`, or the
+    one `COUNTERPARTS` names, whose docstring names the module it
+    replaces."""
+    ref = sorted(p.relative_to(ROOT / "src" / "repro").as_posix()
+                 for p in (ROOT / "src" / "repro").rglob("*.py"))
+    for rel in ref:
+        mine = ROOT / "src" / "repro_torch" / COUNTERPARTS.get(rel, rel)
+        assert mine.exists(), f"src/repro/{rel} has no counterpart"
+    for rel, mine in COUNTERPARTS.items():
+        doc = ast.get_docstring(ast.parse(
+            (ROOT / "src" / "repro_torch" / mine).read_text()))
+        assert f"src/repro/{rel}" in doc
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_default_parallel_equals_reference(arch):
+    """Per arch and shape, field for field."""
+    for name, shape in configs.SHAPES.items():
+        mine = configs.default_parallel(configs.get_config(arch), shape)
+        theirs = jconfigs.default_parallel(jconfigs.get_config(arch),
+                                           jconfigs.SHAPES[name])
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs), name
 
 
 def test_simulator_copy_has_the_references_modules():

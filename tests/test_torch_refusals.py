@@ -107,3 +107,49 @@ def test_accepted_inputs_still_reach_the_plain_versions():
     q, kc, vc, lengths = _paged()
     out = paged_attention(q, kc, vc, lengths)
     assert torch.equal(out, ref.paged_attention_ref(q, kc, vc, lengths))
+
+
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A (1,) DeviceMesh over a one-rank gloo group, torn down after."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dtensor_cases():
+    from repro_torch.kernels import ops
+    q, k, v = (t.transpose(1, 2) for t in _flash())
+    pq, kc, vc, lengths = _paged()
+    table = _t((64, 8))
+    idx = torch.tensor([3, 1, 7], dtype=torch.int32)
+    return {
+        "flash_attention": (ops.flash_attention, (q, k, v)),
+        "paged_attention": (ops.paged_attention, (pq, kc, vc, lengths)),
+        "gather": (ops.gather, (table, idx)),
+        "scatter_update": (ops.scatter_update, (table, idx, _t((3, 8), seed=4))),
+        "triad": (lambda b, c: ops.triad(b, c, 2.0), (_t((100,)),
+                                                      _t((100,), seed=1))),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "paged_attention",
+                                  "gather", "scatter_update", "triad"])
+def test_wrappers_refuse_a_dtensor(one_rank_mesh, name):
+    """A DTensor never reaches a kernel (its pointer is a wrapper's, not a
+    card's memory): each `ops` wrapper raises TypeError for one, before its
+    CPU dispatch, so the CPU refuses what the card refuses. The same plain
+    inputs still run."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    fn, args = _dtensor_cases()[name]
+    for i in range(len(args)):
+        bad = list(args)
+        bad[i] = distribute_tensor(args[i], one_rank_mesh, [Replicate()])
+        with pytest.raises(TypeError, match=f"{name} takes plain tensors"):
+            fn(*bad)
+    assert fn(*args) is not None

@@ -288,6 +288,9 @@ def test_launch_train_wants_a_card_by_default():
 
 
 def test_launch_train_has_no_production_mesh():
-    with pytest.raises(SystemExit, match="ROADMAP A9"):
+    """At world size 1 there is no production mesh: it needs 256 ranks, and
+    the error names both counts."""
+    with pytest.raises(ValueError, match="needs a world size of 256, this "
+                       "process group has 1"):
         train_mod.main(["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu",
                         "--production-mesh"])

@@ -191,10 +191,43 @@ def test_train_step_bf16_compute_matches_reference():
 
 
 def test_train_step_wants_fp32_masters():
-    cfg = configs.get_smoke_config("qwen2.5-3b")
-    params = convert.tree_map(lambda t: t.bfloat16(), convert.params_from_numpy(
-        _weights("qwen2.5-3b"), device="cpu"))
-    step_fn = steps.make_train_step(cfg, configs.ParallelConfig(),
-                                    adamw.AdamWConfig())
-    with pytest.raises(TypeError, match="float32"):
-        step_fn(params, adamw.init_state(params), {})
+    """Masters need not be float32: bf16 masters (the reference's weights
+    above 100 B parameters) take their gradients in bf16, summed over
+    microbatches in float32, as the reference's step takes them. Two steps
+    with 1 and with 2 microbatches: loss, grad norm and lr at BF16_TOL, the
+    float32 moments (which hold the gradients) within 3e-2 of their
+    largest, the params still bf16."""
+    arch = "qwen2.5-3b"
+    cfg, jcfg = configs.get_smoke_config(arch), jconfigs.get_smoke_config(arch)
+    for microbatches in (1, 2):
+        step_fn = steps.make_train_step(cfg, configs.ParallelConfig(
+            microbatches=microbatches), adamw.AdamWConfig())
+        jstep_fn = jax.jit(jsteps.make_train_step(jcfg, jconfigs.ParallelConfig(
+            microbatches=microbatches), jadamw.AdamWConfig()))
+        params = convert.tree_map(lambda t: t.bfloat16(),
+                                  convert.params_from_numpy(_weights(arch),
+                                                            device="cpu"))
+        opt = adamw.init_state(params)
+        jparams = jax.tree.map(lambda a: a.astype(jnp.bfloat16),
+                               to_jax(_weights(arch)))
+        jopt = jadamw.init_state(jparams)
+        for i in range(2):
+            batch = _batch(cfg, 2 * microbatches, S, seed=30 + i)
+            params, opt, m = step_fn(params, opt, {
+                k: to_torch(v) for k, v in batch.items()})
+            jparams, jopt, jm = jstep_fn(jparams, jopt, to_jax(batch))
+            for key in ("loss", "grad_norm", "lr"):
+                np.testing.assert_allclose(
+                    float(m[key]), float(jm[key]),
+                    err_msg=f"{microbatches} microbatches, step {i} {key}",
+                    **BF16_TOL)
+        for name in ("m", "v"):
+            for a, b in zip(convert.flatten(opt[name])[0],
+                            jax.tree.leaves(jopt[name])):
+                assert a.dtype == torch.float32
+                b = to_np(b)
+                np.testing.assert_allclose(to_np(a), b, rtol=3e-2,
+                                           atol=3e-2 * np.abs(b).max(),
+                                           err_msg=name)
+        assert all(t.dtype == torch.bfloat16
+                   for t in convert.flatten(params)[0])
