@@ -32,7 +32,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (both types) windows of 1, 63, 64, 65, 127 keys and past S, S of 37, 1000
    and 4113, groups 1, 4 and 16, not causal; and recurrentgemma-9b's served
    shape (B4 Hq16 Hkv1 S4096 D256, window 2048, the library call with the
-   window as a boolean mask, its kernels printed). Each serve shape is timed
+   window as a boolean mask, its kernels printed). Every head size from 1
+   to 256 (a launch runs the body for Dp, the next of 16-256 up, columns
+   past D zero-loaded, never stored, scaled by 1/sqrt(D)): the body rules
+   of both sources against their wrappers at every D 0-257 in both types,
+   flash at D 1, 7, 8, 24, 40, 80, 96, 100, 192 and paged at D 1, 7, 8,
+   24, 40, 80, 100, 256 against the plain versions, and the guard columns
+   (each kernel's raw launch into rows 8 columns past Dp, filled with a
+   sentinel that must survive); hubert-xlarge's D = 80 attention (not
+   causal) on flash and recurrentgemma-9b's D = 256 head layout on paged
+   are timed as serve shapes. Each serve shape is timed
    with CUDA events beside its plain version and one
    `scaled_dot_product_attention` call (a yardstick only: the port never
    calls it), and its bound is computed from the run's inputs. Then seeded
@@ -67,7 +76,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (RG-LRU and sliding-window attention, window 2048) served with kernels
    and offload at a prompt of 4096: 12 flash launches (one a local layer),
    none of paged (its decode goes through the ring cache), 11 offload
-   pages, kernel logits within LOGITS_TOL of the plain path.
+   pages, kernel logits within LOGITS_TOL of the plain path. The four
+   dense archs at smoke size with kernels and offload: phi4-mini-3.8b and
+   qwen2.5-32b at head size 8 through flash and paged, launches counted,
+   offloaded tokens identical, the prefill's and the first decode step's
+   logits within LOGITS_TOL of the plain path on the same weights.
    Then the training path (`run_training`): (a) two `make_train_step`
    steps of qwen2.5-3b at full width and 2 layers (B1 S512) on the card and
    on the CPU from the same seeded weights and batches, fp32 compute (loss,
@@ -104,7 +117,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    1 us, and GUPS also at 5 us. Every run must be verified (the far-memory
    image equals the numpy oracle's). The speedups and MLP printed are the
    model's figures, the same on any machine; the phase's host seconds are
-   the only measurement.
+   the only measurement. Then the port's counterparts of `examples/`:
+   `launch.serve_paged --lm --use-kernels --arch phi4-mini-3.8b
+   --prompt-len 130` (head size 8 through flash and paged, two waves,
+   launches counted) and `launch.train_far_memory` for 30 steps with a
+   failure injected at step 15 (one restart from the step-10 checkpoint,
+   the steps run checked).
 7. parallel: (a) the sharded train step (`runtime.steps.jit_train_step`,
    DTensors on the sharding rules' placements) on a one-rank `nccl` group
    and a (1, 1) ("data", "model") DeviceMesh: qwen2.5-3b at full width as
@@ -318,11 +336,16 @@ def flash_spread(q, k, v, causal=True, window=0):
                              window)
 
 
-def flash_bound(b, hq, hkv, s, d, window, dtype):
+def flash_bound(b, hq, hkv, s, d, window, dtype, causal=True):
     item = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * item
-    rows = torch.arange(1, s + 1, dtype=torch.float64)
-    keys = float((rows.clamp(max=window) if window else rows).sum())
+    if causal:
+        rows = torch.arange(1, s + 1, dtype=torch.float64)
+        keys = float((rows.clamp(max=window) if window else rows).sum())
+    else:          # every key, or those after the row's window edge
+        pos = torch.arange(s)
+        keys = float(s * s) if not window else float(
+            (pos[None, :] > pos[:, None] - window).sum())
     flops = 4.0 * b * hq * keys * d       # QK^T and PV, 2 flops per FMA
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -352,19 +375,7 @@ def check_flash(gen):
     check_close("fp32 ragged S130 D32 not causal",
                 fa.flash_attention(q, k, v, causal=False),
                 ref.attention_ref(q, k, v, False, 0), **FP32_TOL)
-    # the body rule of the source is the wrapper's
-    from repro_torch.kernels import _build
-    lib = _build.load("flash_attention")
-    names = {0: "fma", 1: "wgmma", 2: "mma"}
-    for dtype in (torch.float32, torch.bfloat16):
-        for d in fa.HEAD_DIMS:
-            got = names[lib.flash_attention_body(_build.DTYPE_CODES[dtype], d)]
-            if got != fa.body_for(dtype, d):
-                raise AssertionError(f"flash body for {dtype} D{d}: source "
-                                     f"runs {got}, wrapper says "
-                                     f"{fa.body_for(dtype, d)}")
-    log("  body rule: fp32 -> fma; bf16 D64/D128/D256 -> wgmma, D16/D32 -> "
-        "mma (source and wrapper agree)")
+    check_body_rules()
     # bf16 runs on the tensor cores: D 16/32 on mma.sync, 64/128 on wgmma;
     # then the wgmma body at its edges: S ragged against its 128-row tiles
     # and below one tile, windows, not causal, GQA groups 1, 7 and 8
@@ -393,14 +404,18 @@ def check_flash(gen):
                     **FLASH_BF16_TOL)
 
     worst = max(worst, check_flash_256(gen))
+    worst = max(worst, check_flash_padded(gen))
 
     # the serve shapes: full-width prefill of each served arch, S ragged
-    # against 128 (qwen2.5-3b's is the one the kernels line reports), and
-    # recurrentgemma-9b's windowed one at D = 256
+    # against 128 (qwen2.5-3b's is the one the kernels line reports),
+    # recurrentgemma-9b's windowed one at D = 256, and hubert-xlarge's
+    # encoder attention at D = 80 (not causal: its own path never reaches
+    # flash, the reference's rule, but its shape is the one at D = 80)
     shapes = [flash_serve_shape(gen, arch) for arch in (ARCH,) + SLICE_ARCHS]
     rg = "recurrentgemma-9b"
     window = configs.get_config(rg).window_size
     shapes.append(flash_serve_shape(gen, rg, 2 * window, window))
+    shapes.append(flash_serve_shape(gen, "hubert-xlarge", causal=False))
     main = shapes[0]
     SERVE_SHAPES.extend(dict(kernel="flash_attention", **c) for c in shapes)
     return {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
@@ -412,6 +427,40 @@ def check_flash(gen):
             "library_ms": main["library_ms"]}
 
 
+def check_body_rules():
+    """The body rule of each attention source is its wrapper's, at every
+    head size from 0 to 257 and in both types: 0 and 257 refused by both."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    flash, paged = _build.load("flash_attention"), _build.load("paged_attention")
+    names = {-1: None, 0: "fma", 1: "wgmma", 2: "mma"}
+    for dtype in (torch.float32, torch.bfloat16):
+        code = _build.DTYPE_CODES[dtype]
+        for d in range(0, fa.MAX_HEAD_DIM + 2):
+            try:
+                want = fa.body_for(dtype, d)
+            except ValueError:
+                want = None
+            try:
+                want_paged = pa.body_for(dtype, d)
+            except ValueError:
+                want_paged = None
+            got = names[flash.flash_attention_body(code, d)]
+            got_paged = {-1: None, 0: "tma", 1: "element"}[
+                paged.paged_attention_body(code, d)]
+            if (got, got_paged) != (want, want_paged):
+                raise AssertionError(
+                    f"body for {dtype} D{d}: the sources run flash {got}, "
+                    f"paged {got_paged}; the wrappers say {want}, "
+                    f"{want_paged}")
+    log("  body rules, D 0-257 x both types, sources and wrappers agree: "
+        "flash fp32 -> fma; bf16 D % 8 != 0 -> fma, else Dp 64-256 -> "
+        "wgmma, Dp 16-32 -> mma; paged rows of whole 16-byte pieces -> tma, "
+        "others -> element; 0 and 257 refused")
+
+
 def window_mask(s, window):
     """[S, S] boolean mask of causal attention within `window` keys, as the
     library call takes it."""
@@ -419,12 +468,13 @@ def window_mask(s, window):
     return (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
 
 
-def flash_serve_shape(gen, arch, s=PROMPT_LEN, window=0) -> dict:
-    """Flash at one arch's full-width prefill (B=4, causal, bf16; S and the
-    window as given): held against the plain version and the library call,
-    timed beside both and its bound. With a window, the library call takes
-    it as a boolean mask, and the kernels the profiler sees in that call are
-    printed: they say which backend served it."""
+def flash_serve_shape(gen, arch, s=PROMPT_LEN, window=0,
+                      causal=True) -> dict:
+    """Flash at one arch's full-width prefill (B=4, bf16; S, the window and
+    causality as given): held against the plain version and the library
+    call, timed beside both and its bound. With a window, the library call
+    takes it as a boolean mask, and the kernels the profiler sees in that
+    call are printed: they say which backend served it."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa, ref
     import torch.nn.functional as F
@@ -434,26 +484,31 @@ def flash_serve_shape(gen, arch, s=PROMPT_LEN, window=0) -> dict:
     b, hq, hkv, d = (BATCH, cfg.num_heads, cfg.num_kv_heads,
                      cfg.resolved_head_dim)
     shape = (f"{arch} B{b} Hq{hq} Hkv{hkv} S{s} D{d}"
-             + (f" window{window}" if window else ""))
+             + (f" window{window}" if window else "")
+             + ("" if causal else " not causal"))
     q, k, v = flash_case(gen, b, hq, hkv, s, d, torch.bfloat16)
-    out = fa.flash_attention(q, k, v, window=window)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     err = check_close(f"bf16 {shape}", out,
-                      ref.attention_ref(q, k, v, True, window),
-                      spread=flash_spread(q, k, v, True, window),
+                      ref.attention_ref(q, k, v, causal, window),
+                      spread=flash_spread(q, k, v, causal, window),
                       **FLASH_BF16_TOL)
     lib = (dict(attn_mask=window_mask(s, window)) if window
-           else dict(is_causal=True))
+           else dict(is_causal=causal))
 
     def library():
         return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **lib)
 
     check_close("  (library call agrees)", library(), out, **LIBRARY_TOL)
-    ms = time_ms([lambda: fa.flash_attention(q, k, v, window=window)], 20)
-    plain_ms = time_ms([lambda: ref.attention_ref(q, k, v, True, window)], 5)
+    ms = time_ms([lambda: fa.flash_attention(q, k, v, causal=causal,
+                                             window=window)], 20)
+    plain_ms = time_ms([lambda: ref.attention_ref(q, k, v, causal, window)],
+                       5)
     library_ms = time_ms([library], 10)
-    bound_ms, bound_by = flash_bound(b, hq, hkv, s, d, window, torch.bfloat16)
-    host = host_us(lambda: fa.flash_attention(q, k, v, window=window))
+    bound_ms, bound_by = flash_bound(b, hq, hkv, s, d, window, torch.bfloat16,
+                                     causal)
+    host = host_us(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                              window=window))
     log(f"  serve shape ({fa.body_for(q.dtype, d)} body): kernel {ms:.4f} ms "
         f"(host {host:.1f} us a call), plain {plain_ms:.4f} ms, library "
         f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
@@ -509,6 +564,130 @@ def check_flash_256(gen) -> float:
     return worst
 
 
+# head sizes between the bodies' own: below 16, not a whole number of
+# 16-byte pieces in bf16 (1, 7, 100: flash's fma body, paged's element
+# body), through mma.sync (8, 24), through wgmma or paged's TMA ring with
+# TMA's zero fill (40 below one 64-column box; 80, 96, 192)
+PADDED_FLASH_DIMS = (1, 7, 8, 24, 40, 80, 96, 100, 192)
+PADDED_PAGED_DIMS = (1, 7, 8, 24, 40, 80, 100, 256)
+GUARD = 8                 # guard columns past the padded head
+SENTINEL = -512.0         # exact in bf16; no attention output reaches it
+
+
+def check_flash_padded(gen) -> float:
+    """Flash at head sizes that are not a body's own, each run by the body
+    for Dp with its tail zero-filled and masked: causal, windowed and not
+    causal, S ragged against the tiles, GQA groups 1 and 8, both types.
+    Returns the worst fp32 error."""
+    from repro_torch.kernels import flash_attention as fa, ref
+
+    log(f"flash_attention at head sizes {PADDED_FLASH_DIMS} vs "
+        "ref.attention_ref")
+    worst = 0.0
+    cases = [  # (b, hq, hkv, s, causal, window)
+        (2, 8, 1, 200, True, 0), (1, 4, 4, 129, True, 48),
+        (2, 8, 8, 100, False, 0), (1, 8, 1, 333, False, 63)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in PADDED_FLASH_DIMS:
+            for (b, hq, hkv, s, causal, window) in cases:
+                q, k, v = flash_case(gen, b, hq, hkv, s, d, dtype)
+                out = fa.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+                want = ref.attention_ref(q, k, v, causal, window)
+                name = (f"{str(dtype)[6:]} B{b} Hq{hq} Hkv{hkv} S{s} D{d} "
+                        f"causal{causal} window{window} "
+                        f"({fa.body_for(dtype, d)} body)")
+                if dtype == torch.float32:
+                    worst = max(worst, check_close(name, out, want,
+                                                   quiet=True, **FP32_TOL))
+                else:
+                    check_close(name, out, want, quiet=True,
+                                spread=flash_spread(q, k, v, causal, window),
+                                **FLASH_BF16_TOL)
+    torch.cuda.synchronize()
+    log(f"  {len(PADDED_FLASH_DIMS)} head sizes x {len(cases)} cases x both "
+        f"types agree; worst fp32 error {worst:.3e}")
+    return worst
+
+
+def check_paged_padded(gen) -> float:
+    """Paged at head sizes that are not a TMA body's own (and at 256, whose
+    TMA body is new): lengths 0, 1, a middle one and T in one batch, GQA
+    groups 1 and 8, one long sequence, both types. Returns the worst fp32
+    error."""
+    from repro_torch.kernels import paged_attention as pa, ref
+
+    log(f"paged_attention at head sizes {PADDED_PAGED_DIMS} vs "
+        "ref.paged_attention_ref")
+    worst = 0.0
+    cases = [  # (b, hq, hkv, t, lengths)
+        (4, 16, 2, 333, [0, 1, 200, 333]), (2, 8, 8, 65, [65, 0]),
+        (1, 8, 1, 3000, [3000])]
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FP32_TOL if dtype == torch.float32 else PAGED_BF16_TOL
+        for d in PADDED_PAGED_DIMS:
+            for (b, hq, hkv, t, lens) in cases:
+                q, kc, vc = paged_case(gen, b, hq, hkv, t, d, dtype)
+                lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                err = check_close(
+                    f"{str(dtype)[6:]} B{b} Hq{hq} Hkv{hkv} T{t} D{d} "
+                    f"lengths {lens.tolist()} ({pa.body_for(dtype, d)} body)",
+                    pa.paged_attention(q, kc, vc, lens),
+                    ref.paged_attention_ref(q, kc, vc, lens), quiet=True,
+                    **tol)
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+    torch.cuda.synchronize()
+    log(f"  {len(PADDED_PAGED_DIMS)} head sizes x {len(cases)} cases x both "
+        f"types agree; worst fp32 error {worst:.3e}")
+    return worst
+
+
+def check_guard_columns(gen):
+    """Each attention kernel's raw launch (`launch`, through `_build.load`)
+    into an output whose rows are GUARD columns wider than the padded head,
+    filled with SENTINEL: the columns past D must keep it (a store of Dp
+    columns would write zeros there), and the first D must agree with the
+    plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa, ref
+
+    log(f"guard columns: raw launches into rows {GUARD} columns past Dp, "
+        f"filled with {SENTINEL}")
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FP32_TOL if dtype == torch.float32 else PAGED_BF16_TOL
+        for d in sorted(set(PADDED_FLASH_DIMS + PADDED_PAGED_DIMS + (128,))):
+            width = fa.padded_head_dim("flash_attention", d) + GUARD
+            q, k, v = flash_case(gen, 2, 8, 2, 150, d, dtype)
+            buf = torch.full((2, 8, 150, width), SENTINEL, dtype=dtype,
+                             device="cuda")
+            fa.launch(q, k, v, buf[..., :d], causal=True, window=0)
+            q1, kc, vc = paged_case(gen, 3, 16, 2, 77, d, dtype)
+            lens = torch.tensor([77, 0, 40], dtype=torch.int32, device="cuda")
+            pbuf = torch.full((3, 16, width), SENTINEL, dtype=dtype,
+                              device="cuda")
+            pa.launch(q1, kc, vc, lens, pbuf[..., :d])
+            torch.cuda.synchronize()
+            for name, got in (("flash", buf), ("paged", pbuf)):
+                if not bool((got[..., d:] == SENTINEL).all()):
+                    bad = int((got[..., d:] != SENTINEL).sum())
+                    raise AssertionError(
+                        f"guard columns {name} {str(dtype)[6:]} D{d}: {bad} "
+                        f"written past the head ... FAIL")
+            if dtype == torch.float32:
+                check_close(f"guard flash fp32 D{d}", buf[..., :d],
+                            ref.attention_ref(q, k, v, True, 0), quiet=True,
+                            **FP32_TOL)
+            else:
+                check_close(f"guard flash bf16 D{d}", buf[..., :d],
+                            ref.attention_ref(q, k, v, True, 0), quiet=True,
+                            spread=flash_spread(q, k, v), **FLASH_BF16_TOL)
+            check_close(f"guard paged {str(dtype)[6:]} D{d}", pbuf[..., :d],
+                        ref.paged_attention_ref(q1, kc, vc, lens), quiet=True,
+                        **tol)
+    log("  no store past D in either kernel, both types")
+
+
 def paged_bound(lengths, hq, hkv, d, dtype):
     item = torch.empty((), dtype=dtype).element_size()
     rows, b = int(lengths.sum()), lengths.numel()
@@ -552,7 +731,7 @@ def check_paged_edges(gen) -> float:
             if dtype == torch.float32:
                 worst = max(worst, err)
         for g in (1, 3, 5, 7, 8):
-            for d in (16, 32, 64, 128):
+            for d in (16, 32, 64, 128, 256):
                 q, kc, vc = paged_case(gen, 2, 2 * g, 2, 333, d, dtype)
                 lens = torch.tensor([333, 77], dtype=torch.int32,
                                     device="cuda")
@@ -563,7 +742,7 @@ def check_paged_edges(gen) -> float:
                     **tol)
                 if dtype == torch.float32:
                     worst = max(worst, err)
-    log("  GQA groups 1, 3, 5, 7, 8 x head sizes 16-128 x both types agree")
+    log("  GQA groups 1, 3, 5, 7, 8 x head sizes 16-256 x both types agree")
     # one long sequence: the ring streams, and with one KV head (hg = 1)
     # every block holds a piece of one segment, so its last block merges
     # ~132 partials (the merge's batches past 64 of a warp)
@@ -596,6 +775,7 @@ def check_paged_edges(gen) -> float:
 
 
 def check_paged(gen):
+    from repro_torch import configs
     from repro_torch.kernels import paged_attention as pa, ref
 
     log("paged_attention vs ref.paged_attention_ref")
@@ -627,10 +807,17 @@ def check_paged(gen):
                     ref.paged_attention_ref(q, kc, vc, lens),
                     **PAGED_BF16_TOL)
     worst = max(worst, check_paged_edges(gen))
+    worst = max(worst, check_paged_padded(gen))
+    check_guard_columns(gen)
 
     # the serve shapes: full-width decode of each served arch, T ragged,
-    # mixed lengths (qwen2.5-3b's is the one the kernels line reports)
+    # mixed lengths (qwen2.5-3b's is the one the kernels line reports), and
+    # recurrentgemma-9b's head layout at D = 256 (its own decode goes
+    # through the ring cache, not paged) over a cache of 2 x its window
     shapes = [paged_serve_shape(gen, arch) for arch in (ARCH,) + SLICE_ARCHS]
+    rg = "recurrentgemma-9b"
+    shapes.append(paged_serve_shape(
+        gen, rg, prompt=2 * configs.get_config(rg).window_size))
     main = shapes[0]
     SERVE_SHAPES.extend(dict(kernel="paged_attention", **c) for c in shapes)
     return {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
@@ -642,9 +829,10 @@ def check_paged(gen):
             "library_ms": main["library_ms"]}
 
 
-def paged_serve_shape(gen, arch) -> dict:
-    """Paged at one arch's full-width decode (B=4, T=1032, lengths [1032,
-    1001, 517, 64], bf16) over 16 rotating caches, so that a call finds its
+def paged_serve_shape(gen, arch, prompt=PROMPT_LEN) -> dict:
+    """Paged at one arch's full-width decode (B=4, T = prompt + 32,
+    lengths [T, prompt + 1, (T + 2) // 2, 64], bf16; at the default prompt
+    [1032, 1001, 517, 64]) over 16 rotating caches, so that a call finds its
     cache cold as a decode step does: held against the plain version and
     the library call, timed beside both and its bound."""
     from repro_torch import configs
@@ -653,8 +841,8 @@ def paged_serve_shape(gen, arch) -> dict:
 
     cfg = configs.get_config(arch)
     b, hq, hkv, t, d = (BATCH, cfg.num_heads, cfg.num_kv_heads,
-                        PROMPT_LEN + MAX_NEW, cfg.resolved_head_dim)
-    lens = torch.tensor([t, PROMPT_LEN + 1, 517, 64], dtype=torch.int32,
+                        prompt + MAX_NEW, cfg.resolved_head_dim)
+    lens = torch.tensor([t, prompt + 1, (t + 2) // 2, 64], dtype=torch.int32,
                         device="cuda")
     # enough distinct caches to exceed the L2: a decode step finds its layer's
     # cache cold, the layer's weights went through the L2 since the last step
@@ -699,7 +887,7 @@ def paged_serve_shape(gen, arch) -> dict:
 def fuzz_kernels(gen, cases=40):
     """Seeded random shapes through both kernels: any S and T, odd GQA
     groups, windows shorter and longer than a tile, causal or not, ragged
-    lengths, every head size (flash up to 256, paged up to 128) and both
+    lengths, the bodies' head sizes and any other from 1 to 256, and both
     types."""
     import random
     from repro_torch.kernels import flash_attention as fa
@@ -713,7 +901,7 @@ def fuzz_kernels(gen, cases=40):
         fp32 = dtype == torch.float32
         b, hkv, g = rnd.randint(1, 3), rnd.choice([1, 2, 4]), \
             rnd.choice([1, 2, 3, 5, 8, 16])
-        d = rnd.choice([16, 32, 64, 128, 256])
+        d = rnd.choice([16, 32, 64, 128, 256, rnd.randint(1, 256)])
         s = rnd.choice([1, 7, 63, 64, 65, rnd.randint(2, 400)])
         causal = rnd.random() < 0.7
         window = rnd.choice([0, 0, rnd.randint(1, max(1, s)), 3 * s + 1])
@@ -733,7 +921,6 @@ def fuzz_kernels(gen, cases=40):
         t = rnd.choice([1, 63, 64, 65, 512, rnd.randint(2, 1500)])
         page = rnd.choice([64, 256, 512])
         tol = FP32_TOL if fp32 else PAGED_BF16_TOL
-        d = min(d, 128)                 # paged's head sizes end at 128
         qd = randn(gen, (b, hkv * g, d), dtype, Q_SCALE)
         kc = randn(gen, (b, t, hkv, d), dtype)
         vc = randn(gen, (b, t, hkv, d), dtype)
@@ -1112,7 +1299,7 @@ def check_served(arch, res, vocab, prompt_len=PROMPT_LEN):
 
 
 def run_slice(kernels):
-    from repro_torch import configs
+    from repro_torch import configs, convert
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.serve import serve
@@ -1162,27 +1349,50 @@ def run_slice(kernels):
     log(f"  peak device memory {peak / 2**30:.3f} GiB "
         f"(torch.cuda.max_memory_allocated)")
 
-    # the smoke sizes on the card, kernels and offload on: head size 16 runs;
-    # head size 8 is below what the kernels take and must raise, not fall back
+    # the smoke sizes on the card, kernels and offload on: head size 16, and
+    # 8 (phi4-mini's and qwen2.5-32b's), which the kernels run padded to 16
+    steps = 3
     for arch in ("qwen2.5-3b", "qwen2-7b", "phi4-mini-3.8b", "qwen2.5-32b"):
-        kwargs = dict(smoke=True, batch=2, prompt_len=130, max_new=4,
-                      use_kernels=True, offload_kv=True, device="cuda")
-        if configs.get_smoke_config(arch).resolved_head_dim in fa.HEAD_DIMS:
-            small = serve(arch, **kwargs)
-            if not small["tokens_identical"] or not torch.isfinite(
-                    small["prefill_logits"].float()).all():
-                raise AssertionError(f"{arch} at smoke size failed")
-        else:
-            try:
-                serve(arch, **kwargs)
-            except ValueError as exc:
-                if "head dim" not in str(exc):
-                    raise
-            else:
-                raise AssertionError(f"{arch} at smoke size: a head size the "
-                                     "kernels do not take did not raise")
-    log("  dense archs at smoke size on the card: head size 16 served, "
-        "head size 8 refused by the wrappers")
+        small_cfg = configs.get_smoke_config(arch)
+        fa.launches = pa.launches = 0
+        small = serve(arch, smoke=True, batch=2, prompt_len=130,
+                      max_new=steps + 1, use_kernels=True, offload_kv=True,
+                      device="cuda")
+        torch.cuda.synchronize()
+        n_flash, n_paged = fa.launches, pa.launches
+        L = small_cfg.num_layers
+        log(f"  {arch} at smoke size (head size "
+            f"{small_cfg.resolved_head_dim}, flash {fa.body_for(torch.bfloat16, small_cfg.resolved_head_dim)} "
+            f"body, paged {pa.body_for(torch.bfloat16, small_cfg.resolved_head_dim)} body): "
+            f"launches flash {n_flash}, paged {n_paged}; offloaded tokens "
+            f"identical: {small['tokens_identical']}")
+        want_launches(arch, n_flash, n_paged, L, 2 * L * steps)
+        if not small["tokens_identical"] or not torch.equal(
+                small["tokens"], small["tokens_offload"]):
+            raise AssertionError(f"{arch} at smoke size: offloaded decode "
+                                 "diverged from the baseline")
+        if not torch.isfinite(small["prefill_logits"].float()).all():
+            raise AssertionError(f"{arch} at smoke size: non-finite logits")
+        kernels[0]["launches"] += n_flash
+        kernels[1]["launches"] += n_paged
+        # the same weights through the plain attention path: the prefill,
+        # then the first decode step from the served (kernel-filled) cache
+        params = small["params"]
+        cache = lm.init_cache(small_cfg, 2, 130 + steps + 1, device="cuda")
+        plain, _ = lm.prefill(small_cfg, params, {"tokens": small["prompts"]},
+                              cache, use_kernels=False)
+        check_close(f"{arch} at smoke size: prefill last-token logits, "
+                    "kernels vs plain path (bf16)", small["prefill_logits"],
+                    plain, **LOGITS_TOL)
+        tok = small["tokens"][:, :1]
+        dec = [lm.decode_step(small_cfg, params, tok,
+                              convert.tree_map(torch.clone, small["cache"]),
+                              use_kernels=uk)[0] for uk in (True, False)]
+        check_close(f"{arch} at smoke size: first decode step's logits, "
+                    "kernels vs plain path (bf16)", *dec, **LOGITS_TOL)
+        del small, params, cache, plain, dec
+    log("  dense archs at smoke size on the card: head sizes 16 and 8 served "
+        "through flash and paged")
 
 
 def drive_path(name, fn):
@@ -2276,6 +2486,64 @@ def run_simulator():
         "runs": runs}}))
 
 
+# ------------------------------------------------------------------ examples
+EXAMPLE_ARCH = "phi4-mini-3.8b"     # head size 8 at smoke size
+EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 30, 15
+
+
+def run_examples(kernels):
+    """The port's counterparts of `examples/` on the card: `serve_paged --lm
+    --use-kernels` at phi4-mini-3.8b's smoke size and a prompt of 130 (head
+    size 8 through flash and paged; two waves of 15 decode steps), and
+    `train_far_memory` for EXAMPLE_STEPS steps with a failure injected at
+    EXAMPLE_FAIL_AT (one restart from the step-10 checkpoint)."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve_paged, train_far_memory
+
+    cfg = configs.get_smoke_config(EXAMPLE_ARCH)
+    argv = ["--lm", "--use-kernels", "--arch", EXAMPLE_ARCH, "--prompt-len",
+            "130"]
+    log(f"examples: serve_paged {' '.join(argv)} (head size "
+        f"{cfg.resolved_head_dim}, flash {fa.body_for(torch.bfloat16, cfg.resolved_head_dim)} body)")
+    res, n_flash, n_paged = drive_path("serve_paged --lm",
+                                       lambda: serve_paged.main(argv))
+    L, args = cfg.num_layers, serve_paged.parse(argv)
+    want_launches("serve_paged", n_flash, n_paged, 2 * L,
+                  2 * L * (args.max_new - 1))
+    for toks in res["tokens"]:
+        check_tokens("serve_paged", toks, cfg.vocab_size,
+                     (args.batch, args.max_new))
+    kernels[0]["launches"] += n_flash
+    kernels[1]["launches"] += n_paged
+    log(f"  decode {', '.join(f'{r:.1f}' for r in res['tok_s'])} tok/s a "
+        f"wave (host clock; {args.batch} x {args.max_new - 1} steps)")
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    targv = ["--steps", str(EXAMPLE_STEPS), "--fail-at", str(EXAMPLE_FAIL_AT),
+             "--ckpt", ckpt]
+    log(f"examples: train_far_memory {' '.join(targv[:4])}")
+    res, n_flash, n_paged = drive_path(
+        "train_far_memory", lambda: train_far_memory.main(targv))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    want_launches("train_far_memory", n_flash, n_paged, 0, 0)
+    restart = EXAMPLE_FAIL_AT // 10 * 10           # the last checkpoint
+    want_steps = list(range(EXAMPLE_FAIL_AT)) + list(range(restart,
+                                                          EXAMPLE_STEPS))
+    if (res["restarts"], res["step"]) != (1, EXAMPLE_STEPS) or \
+            [r["step"] for r in res["history"]] != want_steps or \
+            not math.isfinite(res["loss"]):
+        raise AssertionError(f"train_far_memory: restarts {res['restarts']},"
+                             f" ended at step {res['step']}, loss "
+                             f"{res['loss']}, steps run "
+                             f"{[r['step'] for r in res['history']]}")
+    log(f"  {len(res['history'])} steps run (restart from step {restart}), "
+        f"final loss {res['loss']:.4f}, first {res['history'][0]['loss']:.4f};"
+        f" {res['wall_s']:.1f} s")
+
+
 # ------------------------------------------------------------------ mutants
 # Broken copies of the redesigned kernels that phase 3 must catch, each one
 # edit of a source of src/repro_torch/kernels/csrc/: (file, text, its
@@ -2327,6 +2595,45 @@ MUTANTS = {
                     ("stream_triad.cu", TRIAD_GETFIN,
                      TRIAD_GETFIN + "    if (elected) {\n" + TRIAD_STORE
                      + "    }\n")],
+    # head sizes below a body's own (Dp): each body stores Dp columns ...
+    "flash_wgmma_store_dp": [("flash_attention.cu",
+                              "    if (!EXACT && col >= dh) break;     "
+                              "// columns dh.. are another head's\n", "")],
+    "flash_mma_store_dp": [("flash_attention.cu",
+                            "    if (!EXACT && col >= dh) break;     "
+                            "// past the head: the next one's\n", "")],
+    "flash_fma_store_dp": [("flash_attention.cu",
+                            "if (c < Dh) ob[r * o_ss + c]",
+                            "if (c < D) ob[r * o_ss + c]")],
+    "paged_store_dp": [("paged_attention.cu",
+                        "if (EXACT || d0 + e < Dh) o[e] = from_float<E>("
+                        "acc[e] * inv);", "o[e] = from_float<E>(acc[e] * "
+                        "inv);"),
+                       ("paged_attention.cu",
+                        "if (EXACT || d0 + e < Dh) o[e] = from_float<E>("
+                        "as[e] * inv);", "o[e] = from_float<E>(as[e] * "
+                        "inv);")],
+    # ... scales by 1 / sqrt(Dp) ...
+    "flash_scale_dp": [("flash_attention.cu",
+                        "static_cast<float>(1.0 / sqrt((double)D));",
+                        "static_cast<float>(1.0 / sqrt((double)Dp));")],
+    "paged_scale_dp": [("paged_attention.cu",
+                        "static_cast<float>(1.0 / sqrt((double)D));",
+                        "static_cast<float>(1.0 / sqrt((double)Dp));")],
+    # ... or loads the next head's columns into the tail instead of zeros
+    "flash_wgmma_load_tail": [("flash_attention.cu",
+                               "cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, "
+                               "0}", "cuuint64_t dims[4] = {(cuuint64_t)"
+                               "((D + 63) / 64 * 64), 0, 0, 0}")],
+    "flash_mma_load_tail": [("flash_attention.cu",
+                             "const bool col_in = EXACT || c * 8 < dh;",
+                             "const bool col_in = true;")],
+    "flash_fma_load_tail": [("flash_attention.cu",
+                             "const bool in = row0 + r < S && c < dh;",
+                             "const bool in = row0 + r < S;")],
+    "paged_load_tail": [("paged_attention.cu",
+                         "return c < dh ? row[c] : from_float<E>(0.f);",
+                         "return row[c];")],
 }
 
 
@@ -2601,15 +2908,18 @@ def run_parallel():
         f"phase 7 {PARALLEL_RESULTS['host_s']:.1f} s of host time")
 
 
-def run_mutants(timeout_s: int = 300) -> bool:
-    """Builds each mutant in a copy of src/ and this script under
-    build/mutants/ and runs `--kernels-only` there, killed after
-    `timeout_s`. Prints each copy's exit code and first failing check; true
-    if every copy failed or hung."""
-    import shutil
-
+def run_mutants(names=(), timeout_s: int = 300) -> bool:
+    """Builds each mutant (of `names`, or all) in a copy of src/ and this
+    script under build/mutants/ and runs `--kernels-only` there, killed
+    after `timeout_s`. Prints each copy's exit code and first failing check;
+    true if every copy failed or hung."""
+    unknown = set(names) - set(MUTANTS)
+    if unknown:
+        raise AssertionError(f"no mutants {sorted(unknown)}")
     caught = True
     for name, edits in MUTANTS.items():
+        if names and name not in names:
+            continue
         dst = os.path.join(ROOT, "build", "mutants", name)
         shutil.rmtree(dst, ignore_errors=True)
         shutil.copytree(os.path.join(ROOT, "src"), os.path.join(dst, "src"),
@@ -2646,9 +2956,10 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="build with -Xptxas -v and print the compiler's "
                          "report of registers, shared memory and spills")
-    ap.add_argument("--mutants", action="store_true",
-                    help="only build the broken kernels of MUTANTS and "
-                         "check that phase 3 fails on each")
+    ap.add_argument("--mutants", nargs="*", default=None, metavar="NAME",
+                    help="only build the broken kernels of MUTANTS (those "
+                         "named, or all) and check that phase 3 fails on "
+                         "each")
     args = ap.parse_args()
     t_start = time.time()
 
@@ -2664,8 +2975,8 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{count} device(s)")
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 references stay fp32
-    if args.mutants:
-        caught = run_mutants()
+    if args.mutants is not None:
+        caught = run_mutants(args.mutants)
         log(card)
         return 0 if caught else 1
 
@@ -2696,6 +3007,7 @@ def main() -> int:
         run_training(kernels)
         run_amu(kernels, amu_worst)
         run_simulator()
+        run_examples(kernels)
         run_parallel()
 
     # 8. report

@@ -11,12 +11,18 @@ kernels under its own `build/`.
 
 Shapes: flash at qwen2.5-3b's prefill (B=4, Hq=16, Hkv=2, S=1000, D=128,
 bf16, causal) and at recurrentgemma-9b's (B=4, Hq=16, Hkv=1, S=4096, D=256,
-window 2048; its library call takes the window as a boolean mask; skipped
-for a tree whose flash does not take D=256); paged at qwen2.5-3b's decode
-(B=4, Hq=16, Hkv=2, T=1032, D=128, bf16,
+window 2048; its library call takes the window as a boolean mask); paged
+at qwen2.5-3b's decode (B=4, Hq=16, Hkv=2, T=1032, D=128, bf16,
 lengths [1032, 1001, 517, 64], 16 caches in turn so that each call finds
 its cache cold, as `chip_smoke.check_paged` does) and at one sequence of
-32768 rows (4 caches in turn); gather at qwen2.5-3b's
+32768 rows (4 caches in turn). Then head sizes that are not a body's own:
+flash at D=8 in qwen2.5-3b's layout (the smoke configs' head size) and at
+hubert-xlarge's D=80 (B=4, Hq=Hkv=16, S=1000, not causal); paged at D=8
+and 80 in the same layouts (T=1032) and at recurrentgemma-9b's D=256 (B=4,
+Hq=16, Hkv=1, T=4128, lengths [4128, 4097, 2065, 64]); and both at D=100
+in the D=80 layouts, whose bf16 rows (200 bytes) are no whole number of
+16-byte pieces: flash's fma body and paged's element-copy body. A case
+whose head size the tree's kernel does not take is skipped. Gather at qwen2.5-3b's
 embedding table ([151936, 2048] bf16, 4000 ids) and at 2^20 rows of an 8 GiB
 [2^24, 128] f32 table; triad at STREAM's f32 N = 2^28; scatter at GUPS (xor,
 HPCC's 8-byte rows, [2^30, 2] int32, 2^26 updates), also with the same
@@ -76,13 +82,24 @@ def main() -> int:
     b, hq, hkv, s, d = cs.BATCH, 16, 2, cs.PROMPT_LEN, 128
     if "flash" in args.only:
         rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, d))
-        if 256 in fa.HEAD_DIMS:
-            rows.append(bench_flash(cs, fa, F, gen, b, 16, 1, 4096, 256,
-                                    window=2048))
+        rows.append(bench_flash(cs, fa, F, gen, b, 16, 1, 4096, 256,
+                                window=2048))
+        if takes(fa, 8):
+            rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, 8))
+            rows.append(bench_flash(cs, fa, F, gen, b, 16, 16, s, 80,
+                                    causal=False))
+            rows.append(bench_flash(cs, fa, F, gen, b, 16, 16, s, 100,
+                                    causal=False))
     if "paged" in args.only:
         rows.append(bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d))
         rows.append(bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d,
                                 long=True))
+        if takes(pa, 8):
+            rows.append(bench_paged(cs, pa, ref, F, gen, b, hq, hkv, 8))
+            rows.append(bench_paged(cs, pa, ref, F, gen, b, 16, 16, 80))
+            rows.append(bench_paged(cs, pa, ref, F, gen, b, 16, 16, 100))
+            rows.append(bench_paged(cs, pa, ref, F, gen, b, 16, 1, 256,
+                                    prompt=4096))
     if "gather" in args.only:
         rows.extend(bench_gather(cs, ag, gen))
     if "triad" in args.only:
@@ -107,28 +124,41 @@ def main() -> int:
     return 1 if any(r.get("check") == "FAIL" for r in rows) else 0
 
 
-def bench_flash(cs, fa, F, gen, b, hq, hkv, s, d, window=0):
+def takes(mod, d) -> bool:
+    """Whether the tree's kernel module takes head size `d`: a tree from
+    before every head size from 1 to 256 (`padded_head_dim`) took only its
+    `HEAD_DIMS`."""
+    return hasattr(mod, "padded_head_dim") or d in mod.HEAD_DIMS
+
+
+def bench_flash(cs, fa, F, gen, b, hq, hkv, s, d, window=0, causal=True):
     q, k, v = cs.flash_case(gen, b, hq, hkv, s, d, torch.bfloat16)
+    body = fa.body_for(torch.bfloat16, d) if hasattr(fa, "body_for") else "?"
     lib = (dict(attn_mask=cs.window_mask(s, window)) if window
-           else dict(is_causal=True))
+           else dict(is_causal=causal))
     return dict(
         kernel="flash_attention",
         case=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} bf16"
-             + (f" window{window}" if window else ""),
-        ms=cs.time_ms([lambda: fa.flash_attention(q, k, v, window=window)],
-                      20),
-        host_us=cs.host_us(lambda: fa.flash_attention(q, k, v,
+             + (f" window{window}" if window else "")
+             + ("" if causal else " not causal") + f" ({body} body)",
+        ms=cs.time_ms([lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                  window=window)], 20),
+        host_us=cs.host_us(lambda: fa.flash_attention(q, k, v, causal=causal,
                                                       window=window)),
         library_ms=cs.time_ms([lambda: F.scaled_dot_product_attention(
             q, k, v, enable_gqa=True, **lib)], 10),
-        bound_ms=cs.flash_bound(b, hq, hkv, s, d, window,
-                                torch.bfloat16)[0])
+        bound_ms=cs.flash_bound(b, hq, hkv, s, d, window, torch.bfloat16,
+                                causal)[0])
 
 
-def bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d, long=False):
-    """The serve shape, or (`long`) one sequence of 32768 rows."""
-    t = 32768 if long else cs.PROMPT_LEN + cs.MAX_NEW
-    lens = torch.tensor([t] if long else [t, cs.PROMPT_LEN + 1, 517, 64],
+def bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d, long=False,
+                prompt=None):
+    """The serve shape (T = prompt + 32, lengths [T, prompt + 1,
+    (T + 2) // 2, 64]; the prompt chip_smoke serves by default), or
+    (`long`) one sequence of 32768 rows."""
+    prompt = prompt or cs.PROMPT_LEN
+    t = 32768 if long else prompt + cs.MAX_NEW
+    lens = torch.tensor([t] if long else [t, prompt + 1, (t + 2) // 2, 64],
                         dtype=torch.int32, device="cuda")
     b = lens.numel()
     sets = [cs.paged_case(gen, b, hq, hkv, t, d, torch.bfloat16)
@@ -145,7 +175,9 @@ def bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d, long=False):
             attn_mask=mask, enable_gqa=True)
     return dict(
         kernel="paged_attention",
-        case=f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} bf16 lengths {lens.tolist()}",
+        case=f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} bf16 lengths {lens.tolist()}"
+             + (f" ({pa.body_for(torch.bfloat16, d)} body)"
+                if hasattr(pa, "body_for") else ""),
         ms=cs.time_ms([lambda x=x: pa.paged_attention(*x, lens)
                        for x in sets], 64),
         host_us=cs.host_us(lambda: pa.paged_attention(*sets[0], lens)),

@@ -90,6 +90,27 @@
 //   tile of 16 or 32 columns would waste most of each 128-byte swizzle row,
 //   and no architecture the port serves has such heads at full size.
 //
+//
+// Every head size D from 1 to 256, as the TPU kernel takes (its BlockSpecs
+// span the whole head). Let Dp be the smallest of 16, 32, 64, 128 and 256
+// that is at least D. A launch at D runs the body above for (type, Dp),
+// instantiated with EXACT = (D == Dp); the real D is a runtime argument that
+// does three things where EXACT is false, and nothing where it is true:
+//   (a) columns D .. Dp-1 load as zeros: TMA zero-fills them (the tensor
+//       map's innermost extent is D), cp.async by its source size, the fma
+//       body by a mask on its element loads; zero columns add nothing to
+//       Q K^T and give zero output columns;
+//   (b) stores write columns < D only: the output is the model's
+//       [B, S, H, D] viewed as [B, H, S, D], so column D of a row is the
+//       next head's (or token's) first;
+//   (c) the scale is 1 / sqrt(D) of the real D, computed here, not of Dp.
+// TMA and cp.async move 16-byte pieces, so they take only rows of a whole
+// number of them: bf16 at D % 8 != 0 runs the fma body instead, which reads
+// either type by element and computes in fp32 (slow, and right); fp32 runs
+// the fma body at every D. So the rule, stated also in `flash_attention_body`
+// and in the wrapper's `body_for`: fp32 -> fma; bf16, D % 8 != 0 -> fma;
+// bf16, D % 8 == 0 -> wgmma where Dp >= 64, mma.sync where Dp <= 32.
+//
 // Left for a later change: one K/V tile load serving the blocks of all the
 // query heads of a GQA group (a cluster and TMA multicast; today each of the
 // 8 query heads of a KV head at qwen2.5-3b's shape loads the same tiles),
@@ -124,33 +145,46 @@ template <int D> struct FmaCfg {
       sizeof(float) * ((size_t)(BM + 2 * BN) * WS + BM * PS);
 };
 
-// rows [row0, row0 + ROWS) of a [*, D] operand -> shared memory, zero past S
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+// rows [row0, row0 + ROWS) of a [*, D] operand -> shared memory as fp32,
+// zero past S. EXACT (fp32 at D == Dp): 16-byte loads. Otherwise one element
+// a load, columns dh .. D-1 zero (the operand's rows are dh wide).
+template <typename E, int D, int ROWS, bool EXACT>
+__device__ __forceinline__ void load_tile_f32(float* dst, const E* src,
                                               long long row_stride, int row0,
-                                              int S) {
-  constexpr int CPR = D / 4;                      // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += NT) {
-    const int r = idx / CPR, c = idx % CPR;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const float4*>(src + (row0 + r) * row_stride +
-                                             c * 4);
-    float* p = dst + r * FmaCfg<D>::WS + c * 4;
-    p[0] = val.x; p[1] = val.y; p[2] = val.z; p[3] = val.w;
+                                              int S, int dh) {
+  if constexpr (EXACT) {
+    static_assert(sizeof(E) == 4, "16-byte loads of fp32 rows only");
+    constexpr int CPR = D / 4;                    // 16-byte chunks per row
+    for (int idx = threadIdx.x; idx < ROWS * CPR; idx += NT) {
+      const int r = idx / CPR, c = idx % CPR;
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row0 + r < S)
+        val = *reinterpret_cast<const float4*>(src + (row0 + r) * row_stride +
+                                               c * 4);
+      float* p = dst + r * FmaCfg<D>::WS + c * 4;
+      p[0] = val.x; p[1] = val.y; p[2] = val.z; p[3] = val.w;
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * D; idx += NT) {
+      const int r = idx / D, c = idx % D;
+      const bool in = row0 + r < S && c < dh;
+      dst[r * FmaCfg<D>::WS + c] =
+          in ? to_float(src[(row0 + r) * row_stride + c]) : 0.f;
+    }
   }
 }
 
-template <int D>
+template <typename E, int D, bool EXACT>
 __global__ void __launch_bounds__(NT)
-flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
-                 int group, int causal, int window, float scale,
+flash_fma_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                 const E* __restrict__ v, E* __restrict__ o, int S,
+                 int group, int causal, int window, float scale, int dh,
                  long long q_sb, long long q_sh, long long q_ss,
                  long long k_sb, long long k_sh, long long k_ss,
                  long long v_sb, long long v_sh, long long v_ss,
                  long long o_sb, long long o_sh, long long o_ss) {
   constexpr int WS = FmaCfg<D>::WS, WPT = FmaCfg<D>::WPT;
+  const int Dh = EXACT ? D : dh;                  // columns of the output
   extern __shared__ float smem_f32[];
   float* Qs = smem_f32;
   float* Ks = Qs + BM * WS;
@@ -163,11 +197,11 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = qt * BM;
 
-  const float* qb = q + b * q_sb + h * q_sh;
-  const float* kb = k + b * k_sb + hk * k_sh;
-  const float* vb = v + b * v_sb + hk * v_sh;
+  const E* qb = q + b * q_sb + h * q_sh;
+  const E* kb = k + b * k_sb + hk * k_sh;
+  const E* vb = v + b * v_sb + hk * v_sh;
 
-  load_tile_f32<D, BM>(Qs, qb, q_ss, q0, S);
+  load_tile_f32<E, D, BM, EXACT>(Qs, qb, q_ss, q0, S, dh);
 
   // KV tiles that causality and the window leave to this query tile
   const int nkt = (S + BN - 1) / BN;
@@ -188,8 +222,8 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();              // the last tile's readers are done
-    load_tile_f32<D, BN>(Ks, kb, k_ss, k0, S);
-    load_tile_f32<D, BN>(Vs, vb, v_ss, k0, S);
+    load_tile_f32<E, D, BN, EXACT>(Ks, kb, k_ss, k0, S, dh);
+    load_tile_f32<E, D, BN, EXACT>(Vs, vb, v_ss, k0, S, dh);
     __syncthreads();
 
     // logits: rows ty*4+i, columns tx+16*j. The 16 tx of a half-warp read 16
@@ -265,7 +299,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* ob = o + b * o_sb + h * o_sh;
+  E* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     float lsum = l[i];
@@ -278,7 +312,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < WPT; ++jj) {
         const int c = tx + 16 * jj;
-        if (c < D) ob[r * o_ss + c] = acc[i][jj] * inv;
+        if (c < Dh) ob[r * o_ss + c] = from_float<E>(acc[i][jj] * inv);
       }
     }
   }
@@ -352,28 +386,31 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // issue the copies of rows [row0, row0 + BN) of a [*, D] bf16 operand into a
-// shared tile; rows past S are zero-filled. Returns at once.
-template <int D>
+// shared tile; rows past S and, unless EXACT, the 16-byte pieces at or past
+// column dh (a multiple of 8) are zero-filled. Returns at once.
+template <int D, bool EXACT>
 __device__ __forceinline__ void issue_tile(uint32_t* dst,
                                            const __nv_bfloat16* src,
                                            long long row_stride, int row0,
-                                           int S) {
+                                           int S, int dh) {
   constexpr int CPR = D / 8;                      // 16-byte chunks per row
   for (int idx = threadIdx.x; idx < BN * CPR; idx += MMA_NT) {
     const int r = idx / CPR, c = idx % CPR;
-    const bool in = row0 + r < S;
+    const bool col_in = EXACT || c * 8 < dh;
+    const bool in = row0 + r < S && col_in;
     cp_async_16(dst + r * MmaCfg<D>::WS + c * 4,
-                src + (in ? row0 + r : 0) * row_stride + c * 8, in ? 16 : 0);
+                src + (in ? row0 + r : 0) * row_stride + (col_in ? c * 8 : 0),
+                in ? 16 : 0);
   }
 }
 
-template <int D>
+template <int D, bool EXACT>
 __global__ void __launch_bounds__(MMA_NT)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, int S, int group, int causal,
-                 int window, float scale, long long q_sb, long long q_sh,
+                 int window, float scale, int dh, long long q_sb, long long q_sh,
                  long long q_ss, long long k_sb, long long k_sh,
                  long long k_ss, long long v_sb, long long v_sh,
                  long long v_ss, long long o_sb, long long o_sh,
@@ -397,7 +434,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
 
-  issue_tile<D>(Qs, qb, q_ss, q0, S);
+  issue_tile<D, EXACT>(Qs, qb, q_ss, q0, S, dh);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -430,8 +467,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
   auto issue = [&](int kt) {          // aload of KV tile kt into its slot
     uint32_t* slot = smem + ((kt - kt_lo) % SLOTS) * 2 * TILE;
-    issue_tile<D>(slot, kb, k_ss, kt * BN, S);
-    issue_tile<D>(slot + TILE, vb, v_ss, kt * BN, S);
+    issue_tile<D, EXACT>(slot, kb, k_ss, kt * BN, S, dh);
+    issue_tile<D, EXACT>(slot + TILE, vb, v_ss, kt * BN, S, dh);
     cp_async_commit();
   };
   issue(kt_lo);
@@ -541,6 +578,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int d = 0; d < DB; ++d) {
     const int col = d * 8 + 2 * t;
+    if (!EXACT && col >= dh) break;     // past the head: the next one's
     if (r0 < S)
       *reinterpret_cast<uint32_t*>(ob + r0 * o_ss + col) =
           pack_bf16(acc[d][0] * inv0, acc[d][1] * inv0);
@@ -720,13 +758,13 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
 
 }  // namespace wg
 
-template <int D>
+template <int D, bool EXACT>
 __global__ void __launch_bounds__(wg::Cfg<D>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    __nv_bfloat16* __restrict__ o, int S, int group,
-                   int causal, int window, float scale_log2, int q_pos,
+                   int causal, int window, float scale_log2, int dh, int q_pos,
                    int k_pos, int v_pos, long long o_sb, long long o_sh,
                    long long o_ss) {
   using namespace hopper;
@@ -921,6 +959,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * t;
+    if (!EXACT && col >= dh) break;     // columns dh.. are another head's
     if (r0 < S)
       *reinterpret_cast<uint32_t*>(ob + r0 * o_ss + col) =
           pack_bf16(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
@@ -962,39 +1001,43 @@ cudaError_t flash_map(CUtensorMap* map, const void* base, int D, int S, int H,
   return hopper::encode_tensor_map_bf16(map, base, 4, dims, strides, box);
 }
 
-template <int D>
+// Every launch function takes the real head size dh (<= D) and the scale
+// 1 / sqrt(dh); D is the body's (Dp of the note at the top).
+template <int D, bool EXACT>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         int B, int Hq, int Hkv, int S, int causal, int window,
-                         float scale, const long long* st,
+                         int B, int Hq, int Hkv, int S, int dh, int causal,
+                         int window, float scale, const long long* st,
                          cudaStream_t stream) {
   using C = wg::Cfg<D>;
   static hopper::SmemAllowance allowance;
-  auto kernel = flash_wgmma_kernel<D>;
+  auto kernel = flash_wgmma_kernel<D, EXACT>;
   cudaError_t err = hopper::allow_smem(allowance, kernel, C::SMEM);
   if (err != cudaSuccess) return err;
+  // the maps' innermost extent is dh: TMA zero-fills columns dh .. D-1
   CUtensorMap tq, tk, tv;
   int q_pos, k_pos, v_pos;
-  if ((err = flash_map(&tq, q, D, S, Hq, B, st[0], st[1], st[2], C::BM,
+  if ((err = flash_map(&tq, q, dh, S, Hq, B, st[0], st[1], st[2], C::BM,
                        &q_pos)) != cudaSuccess ||
-      (err = flash_map(&tk, k, D, S, Hkv, B, st[3], st[4], st[5], C::BN,
+      (err = flash_map(&tk, k, dh, S, Hkv, B, st[3], st[4], st[5], C::BN,
                        &k_pos)) != cudaSuccess ||
-      (err = flash_map(&tv, v, D, S, Hkv, B, st[6], st[7], st[8], C::BN,
+      (err = flash_map(&tv, v, dh, S, Hkv, B, st[6], st[7], st[8], C::BN,
                        &v_pos)) != cudaSuccess)
     return err;
   dim3 grid(Hq, B, (S + C::BM - 1) / C::BM);     // query tiles last
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Hq / Hkv, causal, window,
-      scale * 1.4426950408889634f, q_pos, k_pos, v_pos, st[9], st[10],
+      scale * 1.4426950408889634f, dh, q_pos, k_pos, v_pos, st[9], st[10],
       st[11]);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool EXACT>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int B, int Hq, int Hkv, int S, int causal, int window,
-                       float scale, const long long* st, cudaStream_t stream) {
+                       int B, int Hq, int Hkv, int S, int dh, int causal,
+                       int window, float scale, const long long* st,
+                       cudaStream_t stream) {
   static hopper::SmemAllowance allowance;
-  auto kernel = flash_mma_kernel<D>;
+  auto kernel = flash_mma_kernel<D, EXACT>;
   const size_t smem = MmaCfg<D>::SMEM;
   cudaError_t err = hopper::allow_smem(allowance, kernel, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1003,37 +1046,49 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, MMA_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), S, Hq / Hkv, causal,
-      window, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11]);
+      window, scale, dh, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool EXACT, typename E>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
-                       int B, int Hq, int Hkv, int S, int causal, int window,
-                       float scale, const long long* st, cudaStream_t stream) {
+                       int B, int Hq, int Hkv, int S, int dh, int causal,
+                       int window, float scale, const long long* st,
+                       cudaStream_t stream) {
   static hopper::SmemAllowance allowance;
-  auto kernel = flash_fma_kernel<D>;
+  auto kernel = flash_fma_kernel<E, D, EXACT>;
   const size_t smem = FmaCfg<D>::SMEM;
   cudaError_t err = hopper::allow_smem(allowance, kernel, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BM - 1) / BM, Hq, B);
   kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Hq / Hkv,
-      causal, window, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<E*>(o), S, Hq / Hkv, causal,
+      window, scale, dh, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 
 enum Body { BODY_NONE = -1, BODY_FMA = 0, BODY_WGMMA = 1, BODY_MMA = 2 };
 
+// Dp of the note at the top: the body's head size for a launch at D; 0 for
+// a D no body takes.
+int padded(int D) {
+  for (int p = 16; p <= 256; p *= 2)
+    if (D >= 1 && D <= p) return p;
+  return 0;
+}
+
 // The fixed rule of the note at the top: float32 -> fma at every head size;
-// bfloat16 -> wgmma at 64, 128 and 256, mma.sync at 16 and 32.
+// bfloat16 -> fma where D % 8 != 0 (rows of no whole number of 16-byte
+// pieces), else wgmma at Dp >= 64 and mma.sync at Dp <= 32.
 Body body_for(int dtype, int D) {
-  if (D != 16 && D != 32 && D != 64 && D != 128 && D != 256) return BODY_NONE;
+  const int Dp = padded(D);
+  if (Dp == 0) return BODY_NONE;
   if (dtype == DTYPE_F32) return BODY_FMA;
-  if (dtype == DTYPE_BF16) return D >= 64 ? BODY_WGMMA : BODY_MMA;
+  if (dtype == DTYPE_BF16)
+    return D % 8 ? BODY_FMA : Dp >= 64 ? BODY_WGMMA : BODY_MMA;
   return BODY_NONE;
 }
 
@@ -1045,40 +1100,63 @@ extern "C" int flash_attention_body(int dtype, int D) {
   return static_cast<int>(body_for(dtype, D));
 }
 
-// q, o [B, Hq, S, D]; k, v [B, Hkv, S, D]; last stride 1, the others given in
-// elements as strides = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-// o_sb, o_sh, o_ss}, multiples of 8 (16 bytes), starts 16-byte aligned.
-// Returns 0 or a cudaError_t; -1 for a head size or type it does not take.
+// q, o [B, Hq, S, D]; k, v [B, Hkv, S, D], D in 1 .. 256; last stride 1, the
+// others given in elements as strides = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+// v_sb, v_sh, v_ss, o_sb, o_sh, o_ss}: for the wgmma and mma bodies multiples
+// of 8 (16 bytes) with starts 16-byte aligned, for the fma body anything
+// (fp32 at D of 16, 32, 64, 128 or 256: multiples of 4, starts 16-byte
+// aligned). The scale is 1 / sqrt(D). Returns 0 or a cudaError_t; -1 for a
+// head size or type it does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int S, int D, int causal,
-                                      int window, float scale,
-                                      const long long* strides, int dtype,
-                                      void* stream) {
+                                      int window, const long long* strides,
+                                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE(LAUNCH, DIM)                                            \
-  case DIM:                                                                \
-    return static_cast<int>(LAUNCH<DIM>(q, k, v, o, B, Hq, Hkv, S, causal, \
-                                        window, scale, strides, s))
+  const int Dp = padded(D);
+  const float scale = static_cast<float>(1.0 / sqrt((double)D));
+#define FLASH_ARGS q, k, v, o, B, Hq, Hkv, S, D, causal, window, scale, strides, s
+#define FLASH_CASE(LAUNCH, DIM)                                          \
+  case DIM:                                                              \
+    return static_cast<int>(Dp == D ? LAUNCH<DIM, true>(FLASH_ARGS)      \
+                                    : LAUNCH<DIM, false>(FLASH_ARGS))
+#define FMA_CASE(TYPE, DIM)                                              \
+  case DIM:                                                              \
+    return static_cast<int>(                                             \
+        Dp == D ? launch_fma<DIM, true, TYPE>(FLASH_ARGS)                \
+                : launch_fma<DIM, false, TYPE>(FLASH_ARGS))
+#define FMA_PADDED(TYPE, DIM) \
+  case DIM:                   \
+    return static_cast<int>(launch_fma<DIM, false, TYPE>(FLASH_ARGS))
   switch (body_for(dtype, D)) {
     case BODY_FMA:
-      switch (D) {
-        FLASH_CASE(launch_fma, 16);
-        FLASH_CASE(launch_fma, 32);
-        FLASH_CASE(launch_fma, 64);
-        FLASH_CASE(launch_fma, 128);
-        FLASH_CASE(launch_fma, 256);
+      if (dtype == DTYPE_F32) {
+        switch (Dp) {
+          FMA_CASE(float, 16);
+          FMA_CASE(float, 32);
+          FMA_CASE(float, 64);
+          FMA_CASE(float, 128);
+          FMA_CASE(float, 256);
+        }
+      } else {                     // bf16 rows of no whole 16-byte pieces
+        switch (Dp) {
+          FMA_PADDED(__nv_bfloat16, 16);
+          FMA_PADDED(__nv_bfloat16, 32);
+          FMA_PADDED(__nv_bfloat16, 64);
+          FMA_PADDED(__nv_bfloat16, 128);
+          FMA_PADDED(__nv_bfloat16, 256);
+        }
       }
       break;
     case BODY_WGMMA:
-      switch (D) {
+      switch (Dp) {
         FLASH_CASE(launch_wgmma, 64);
         FLASH_CASE(launch_wgmma, 128);
         FLASH_CASE(launch_wgmma, 256);
       }
       break;
     case BODY_MMA:
-      switch (D) {
+      switch (Dp) {
         FLASH_CASE(launch_mma, 16);
         FLASH_CASE(launch_mma, 32);
       }
@@ -1087,5 +1165,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       break;
   }
   return -1;
+#undef FMA_PADDED
+#undef FMA_CASE
 #undef FLASH_CASE
+#undef FLASH_ARGS
 }

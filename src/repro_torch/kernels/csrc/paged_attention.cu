@@ -64,6 +64,27 @@
 //     row r's logit on lane r, P V with p_r broadcast by a shuffle.
 //     expf, as the reference; the output is cast to the input type.
 //
+// Head sizes: every D from 1 to 256, as the TPU kernel takes. Let Dp be the
+// smallest of 16, 32, 64, 128 and 256 that is at least D. At D == Dp (EXACT)
+// the body above runs as described, D = 256 with 4 TMA boxes a row (bf16; 8
+// in fp32), a warp's P V columns in two ldmatrix.x4 loads and a ring of as
+// many slots as fit (`ring_slots`). At any other D the body for Dp runs with
+// the real D a runtime argument:
+//   (a) the loads: where a row of D elements is a whole number of 16-byte
+//       pieces (bf16 D % 8 == 0, fp32 D % 4 == 0), TMA as above, the tensor
+//       maps' innermost extent D, so that TMA zero-fills columns D .. Dp-1
+//       (and bf16 at Dp >= 64 keeps the tensor cores); elsewhere TMA cannot
+//       load the rows, and the producer warp's 32 lanes copy each chunk's
+//       rows by element (8 loads in flight a lane) into the slot's
+//       unswizzled layout, columns D .. Dp-1 as zeros, each lane arriving
+//       on the slot's *full* mbarrier (32 arrivals, no bytes), and both
+//       products run on FMAs. Q loads by element, its tail as zeros;
+//   (b) the stores write columns < D only (`out` rows may be wider);
+//   (c) the scale is 1 / sqrt(D), computed by the launch, not of Dp.
+// The partials' workspace and the exchange buffers are sized for Dp. The
+// rule, also in `paged_attention_body` and the wrapper's `body_for`: "tma"
+// where D * item % 16 == 0, else "element".
+//
 // What the design steps measured (H100, `kernel_bench.py` and timestamps
 // per block; PERF.md): one cp.async.bulk a row issued by the consumers cost
 // ~5 us a chunk; with TMA boxes and a producer warp the arithmetic on FMAs
@@ -97,9 +118,16 @@ struct Args {
   float* part;                   // [pieces][GC m, GC l, GC x D acc]
   int* tickets;                  // [segments], zero between launches
   int B, Hq, Hkv, T, G, ngc, rows, slots;
-  long long q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
+  int dh;                        // the real head size, <= D (see the note)
+  long long q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh;
   float scale;
 };
+
+// Column c of a row of dh elements, or 0 past it: the padded body's loads.
+template <typename E>
+__device__ __forceinline__ E col_or_zero(const E* row, int c, int dh) {
+  return c < dh ? row[c] : from_float<E>(0.f);
+}
 
 // Barrier 1 over the NT consumer threads only (the producer warp runs on).
 __device__ __forceinline__ void consumers_sync() {
@@ -291,7 +319,7 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <typename E, int D>
+template <typename E, int D, bool EXACT, bool TMA>
 __global__ void __launch_bounds__(NT + 32)
 paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap) {
@@ -299,7 +327,8 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   constexpr int IN = box_cols<E, D>();       // columns of a box
   constexpr int NBX = D / IN;                // boxes a row
   constexpr int EPL = D >= 32 ? D / 32 : 1;  // columns a lane
-  constexpr bool TC = tensor_core_qk<E, D>();
+  constexpr bool TC = TMA && tensor_core_qk<E, D>();
+  const int Dh = EXACT ? D : a.dh;           // columns of q and out
   extern __shared__ __align__(1024) unsigned char smem[];
   const PagedSmem L = paged_smem<E, D>(a.B, a.rows, a.slots);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // a slot loaded
@@ -334,10 +363,10 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   const int S = a.B * hg;
 
   if (tid < a.slots) {
-    mbar_init(&full[tid], 1);
+    mbar_init(&full[tid], TMA ? 1 : 32);     // TMA's one, or the 32 lanes
     mbar_init(&empty[tid], GC);   // the 8 warps of the set that took it
   }
-  if (tid == NT) {              // the descriptors, while the lengths arrive
+  if (TMA && tid == NT) {       // the descriptors, while the lengths arrive
     asm volatile("prefetch.tensormap [%0];" ::"l"(&kmap) : "memory");
     asm volatile("prefetch.tensormap [%0];" ::"l"(&vmap) : "memory");
   }
@@ -368,7 +397,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     gn = min(GC, a.G - g0);
   };
   auto out_row = [&](int b, int h, int g0, int g) {
-    return out + ((long long)b * a.Hq + (long long)h * a.G + g0 + g) * D;
+    return out + (long long)b * a.o_sb + ((long long)h * a.G + g0 + g) * a.o_sh;
   };
 
   // segments with no valid row get 0, a block taking every gridDim-th
@@ -376,8 +405,8 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     if (P[s / hg + 1] != P[s / hg]) continue;
     int b, h, g0, gn;
     heads(s, b, h, g0, gn);
-    for (int i = tid; i < gn * D; i += blockDim.x)
-      out_row(b, h, g0, i / D)[i % D] = from_float<E>(0.f);
+    for (int i = tid; i < gn * Dh; i += blockDim.x)
+      out_row(b, h, g0, i / Dh)[i % Dh] = from_float<E>(0.f);
   }
 
   const long long W = P[a.B] * hg;           // valid rows of all segments
@@ -406,13 +435,61 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     return g + min((long long)a.rows, min(end, hi) - g);
   };
 
+  // the padded body's aload: the producer warp copies chunk j (the rows
+  // from global row g) by element into slot j % slots, columns dh.. zero,
+  // and each lane arrives; returns the global row after the chunk
+  auto copy = [&](long long g, int j) -> long long {
+    int s;
+    long long t, end;
+    locate(P, a.B, hg, g, s, t, end);
+    int b, h, g0, gn;
+    heads(s, b, h, g0, gn);
+    const int n = (int)min((long long)a.rows, min(end, hi) - g);
+    unsigned char* dst = slots + (size_t)(j % a.slots) * slot_bytes;
+    const E* kr = static_cast<const E*>(a.k) + b * a.k_sb + t * a.k_st +
+                  h * a.k_sh;
+    const E* vr = static_cast<const E*>(a.v) + b * a.v_sb + t * a.v_st +
+                  h * a.v_sh;
+    constexpr int UNROLL = 8;                // loads in flight a lane
+    const int total = n * D;
+    for (int i0 = lane; i0 < total; i0 += 32 * UNROLL) {
+      E kx[UNROLL], vx[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int i = i0 + 32 * u, r = i / D, c = i % D;
+        kx[u] = i < total ? col_or_zero(kr + r * a.k_st, c, a.dh)
+                          : from_float<E>(0.f);
+        vx[u] = i < total ? col_or_zero(vr + r * a.v_st, c, a.dh)
+                          : from_float<E>(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int i = i0 + 32 * u, r = i / D, c = i % D;
+        if (i < total) {
+          const size_t off = (c / IN) * box_bytes + (r * IN + c % IN) * ITEM;
+          *reinterpret_cast<E*>(dst + off) = kx[u];
+          *reinterpret_cast<E*>(dst + half_bytes + off) = vx[u];
+        }
+      }
+    }
+    mbar_arrive(&full[j % a.slots]);       // release: this lane's stores
+    return g + n;
+  };
+
   if (warp == NSET * GC) {      // the producer: every chunk of the share,
-    if (lane == 0) {            // a slot as soon as the consumers free it
+    if (TMA && lane == 0) {     // a slot as soon as the consumers free it
       long long g = lo;
       for (int j = 0; g < hi; ++j) {
         if (j >= a.slots)
           mbar_wait(&empty[j % a.slots], (uint32_t)((j / a.slots - 1) & 1));
         g = issue(g, j);
+      }
+    } else if (!TMA) {          // all 32 lanes copy
+      long long g = lo;
+      for (int j = 0; g < hi; ++j) {
+        if (j >= a.slots)
+          mbar_wait(&empty[j % a.slots], (uint32_t)((j / a.slots - 1) & 1));
+        g = copy(g, j);
       }
     }
     return;
@@ -482,7 +559,8 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         E* o = out_row(b, h, g0, hw) + d0;
         const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) o[e] = from_float<E>(acc[e] * inv);
+        for (int e = 0; e < EPL; ++e)
+          if (EXACT || d0 + e < Dh) o[e] = from_float<E>(acc[e] * inv);
       }
       return;
     }
@@ -570,7 +648,8 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       E* o = out_row(b, h, g0, hw) + d0;
       const float inv = 1.f / fmaxf(ls, 1e-30f);
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) o[e] = from_float<E>(as[e] * inv);
+      for (int e = 0; e < EPL; ++e)
+        if (EXACT || d0 + e < Dh) o[e] = from_float<E>(as[e] * inv);
     }
   };
 
@@ -588,22 +667,34 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         const int gq = lane >> 2, tq = lane & 3;
         const __nv_bfloat16* qg = reinterpret_cast<const __nv_bfloat16*>(q)
                                   + b * a.q_sb + (h * a.G + g0 + gq) * a.q_sh;
+        auto pair = [&](int c) -> uint32_t {   // columns c, c + 1
+          if (gq >= gn) return 0u;
+          if constexpr (EXACT)
+            return *reinterpret_cast<const uint32_t*>(qg + c);
+          __nv_bfloat162 p;                 // past D: zeros
+          p.x = col_or_zero(qg, c, Dh);
+          p.y = col_or_zero(qg, c + 1, Dh);
+          return *reinterpret_cast<uint32_t*>(&p);
+        };
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int k0 = kk * 16 + 2 * tq;
-          qb[kk][0] = gq < gn ? *reinterpret_cast<const uint32_t*>(qg + k0)
-                              : 0u;
-          qb[kk][1] = gq < gn
-                          ? *reinterpret_cast<const uint32_t*>(qg + k0 + 8)
-                          : 0u;
+          qb[kk][0] = pair(k0);
+          qb[kk][1] = pair(k0 + 8);
         }
       }
       if (hw < gn && d0 < D) {               // the warp's query, a lane's part
-        float qv[EPL];
-        load_vec<E, EPL>(q + b * a.q_sb + (h * a.G + g0 + hw) * a.q_sh + d0,
-                         qv);
+        const E* qh = q + b * a.q_sb + (h * a.G + g0 + hw) * a.q_sh;
+        if constexpr (EXACT) {
+          float qv[EPL];
+          load_vec<E, EPL>(qh + d0, qv);
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) qr[e] = qv[e];
+          for (int e = 0; e < EPL; ++e) qr[e] = qv[e];
+        } else {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e)
+            qr[e] = to_float(col_or_zero(qh, d0 + e, Dh));
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < EPL; ++e) qr[e] = 0.f;
@@ -716,8 +807,13 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         const int mi = lane >> 3, ri = lane & 7;
         const int row = min(ks * 16 + (mi & 1) * 8 + ri, a.rows - 1);
         const E* vp = at(slot + half_bytes, row, hw * NCOL + (mi >> 1) * 8);
-        uint32_t bv[4];
-        if constexpr (NTW == 2) {
+        uint32_t bv[NTW > 2 ? 2 * NTW : 4];
+        if constexpr (NTW == 4) {            // D = 256: columns +0 and +16
+          ldmatrix_x4_trans(*reinterpret_cast<uint32_t(*)[4]>(&bv[0]), vp);
+          ldmatrix_x4_trans(*reinterpret_cast<uint32_t(*)[4]>(&bv[4]),
+                            at(slot + half_bytes, row,
+                               hw * NCOL + 16 + (mi >> 1) * 8));
+        } else if constexpr (NTW == 2) {
           ldmatrix_x4_trans(bv, vp);
         } else {
           ldmatrix_x2_trans(bv, vp);
@@ -740,7 +836,8 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
 template <typename E, int D>
 cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
                       long long sb, long long st, long long sh) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)a.Hkv,
+  // innermost extent dh: TMA zero-fills columns dh .. D-1
+  const cuuint64_t dims[4] = {(cuuint64_t)a.dh, (cuuint64_t)a.Hkv,
                               (cuuint64_t)a.T, (cuuint64_t)a.B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * sizeof(E),
                                  (cuuint64_t)st * sizeof(E),
@@ -756,42 +853,70 @@ cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
                              : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-template <typename E, int D>
+template <typename E, int D, bool EXACT, bool TMA>
 cudaError_t launch(Args& a, int blocks, cudaStream_t stream) {
   int smem = 0;
   a.slots = ring_slots<E, D>(a.B, a.rows, &smem);
   if (a.slots == 0) return cudaErrorInvalidValue;
   static SmemAllowance allowance;
-  cudaError_t err =
-      allow_smem(allowance, paged_attention_kernel<E, D>, MAX_SMEM);
+  cudaError_t err = allow_smem(
+      allowance, paged_attention_kernel<E, D, EXACT, TMA>, MAX_SMEM);
   if (err != cudaSuccess) return err;
-  CUtensorMap kmap, vmap;
-  if ((err = cache_map<E, D>(&kmap, a.k, a, a.k_sb, a.k_st, a.k_sh)) !=
-      cudaSuccess)
-    return err;
-  if ((err = cache_map<E, D>(&vmap, a.v, a, a.v_sb, a.v_st, a.v_sh)) !=
-      cudaSuccess)
-    return err;
-  paged_attention_kernel<E, D><<<blocks, NT + 32, smem, stream>>>(a, kmap,
-                                                                   vmap);
+  CUtensorMap kmap{}, vmap{};        // the element body copies without
+  if (TMA) {
+    if ((err = cache_map<E, D>(&kmap, a.k, a, a.k_sb, a.k_st, a.k_sh)) !=
+        cudaSuccess)
+      return err;
+    if ((err = cache_map<E, D>(&vmap, a.v, a, a.v_sb, a.v_st, a.v_sh)) !=
+        cudaSuccess)
+      return err;
+  }
+  paged_attention_kernel<E, D, EXACT, TMA>
+      <<<blocks, NT + 32, smem, stream>>>(a, kmap, vmap);
   return cudaGetLastError();
+}
+
+// Dp of the note at the top; 0 for a head size the kernel does not take.
+int padded(int D) {
+  for (int p = 16; p <= 256; p *= 2)
+    if (D >= 1 && D <= p) return p;
+  return 0;
+}
+
+// Whether rows of D elements of `dtype` are a whole number of 16-byte
+// pieces, which TMA loads (the note at the top).
+bool tma_rows(int dtype, int D) {
+  return D * (dtype == DTYPE_F32 ? 4 : 2) % 16 == 0;
 }
 
 }  // namespace
 
-// q [B, Hq, D] (strides q_sb, q_sh, 1), k/v [B, T, Hkv, D] (strides sb, st,
-// sh, 1; 16-byte aligned start, strides in multiples of 16 bytes), lengths
-// [B] int32, out [B, Hq, D] contiguous; part: (blocks + segments) x GC x
-// (D + 2) floats; tickets: segments ints, zero. blocks, rows, ngc:
-// `paged_plan` of paged_attention.py; the launch sizes the ring itself
-// (`paged_attention_ring`). strides: {q_sb, q_sh, k_sb, k_st, k_sh, v_sb,
-// v_st, v_sh} in elements. Returns 0 or a cudaError_t (invalid value where
-// no ring fits); -1 for a head size or type it does not take.
+// The body a launch at (dtype, D) runs: 0 the TMA ring, 1 the body whose
+// producer warp copies by element, -1 none (the wrapper's `body_for` states
+// the same rule).
+extern "C" int paged_attention_body(int dtype, int D) {
+  if ((dtype != DTYPE_F32 && dtype != DTYPE_BF16) || padded(D) == 0)
+    return -1;
+  return tma_rows(dtype, D) ? 0 : 1;
+}
+
+// q [B, Hq, D] (strides q_sb, q_sh, 1; at D of 16 .. 256 in powers of 2
+// starts and strides in multiples of max(D / 32, 1) elements), k/v [B, T,
+// Hkv, D] (strides sb, st, sh, 1; for the TMA body a 16-byte aligned start
+// and strides in multiples of 16 bytes, for the element body anything),
+// lengths [B] int32,
+// out [B, Hq, D] (strides o_sb, o_sh, 1); D in 1 .. 256; part: (blocks +
+// segments) x GC x (Dp + 2) floats; tickets: segments ints, zero. blocks,
+// rows, ngc: `paged_plan` of paged_attention.py; the launch sizes the ring
+// itself (`paged_attention_ring`). strides: {q_sb, q_sh, k_sb, k_st, k_sh,
+// v_sb, v_st, v_sh, o_sb, o_sh} in elements. The scale is 1 / sqrt(D).
+// Returns 0 or a cudaError_t (invalid value where no ring fits); -1 for a
+// head size or type it does not take.
 extern "C" int paged_attention_launch(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, void* part, void* tickets, int B, int Hq, int Hkv, int T,
-    int D, int blocks, int rows, int ngc, const long long* st, float scale,
-    int dtype, void* stream) {
+    int D, int blocks, int rows, int ngc, const long long* st, int dtype,
+    void* stream) {
   Args a;
   a.q = q;
   a.k = k;
@@ -807,6 +932,7 @@ extern "C" int paged_attention_launch(
   a.G = Hq / Hkv;
   a.ngc = ngc;
   a.rows = rows;
+  a.dh = D;
   a.q_sb = st[0];
   a.q_sh = st[1];
   a.k_sb = st[2];
@@ -815,15 +941,25 @@ extern "C" int paged_attention_launch(
   a.v_sb = st[5];
   a.v_st = st[6];
   a.v_sh = st[7];
-  a.scale = scale;
+  a.o_sb = st[8];
+  a.o_sh = st[9];
+  const int Dp = padded(D);
+  a.scale = static_cast<float>(1.0 / sqrt((double)D));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PAGED_DIMS(TYPE)                                        \
-  switch (D) {                                                  \
-    case 16: return (int)launch<TYPE, 16>(a, blocks, s);        \
-    case 32: return (int)launch<TYPE, 32>(a, blocks, s);        \
-    case 64: return (int)launch<TYPE, 64>(a, blocks, s);        \
-    case 128: return (int)launch<TYPE, 128>(a, blocks, s);       \
-    default: return -1;                                         \
+  const bool tma = tma_rows(dtype, D);
+#define PAGED_CASE(TYPE, DIM)                                         \
+  case DIM:                                                           \
+    return (int)(Dp == D ? launch<TYPE, DIM, true, true>(a, blocks, s) \
+                 : tma   ? launch<TYPE, DIM, false, true>(a, blocks, s) \
+                         : launch<TYPE, DIM, false, false>(a, blocks, s))
+#define PAGED_DIMS(TYPE)       \
+  switch (Dp) {                \
+    PAGED_CASE(TYPE, 16);      \
+    PAGED_CASE(TYPE, 32);      \
+    PAGED_CASE(TYPE, 64);      \
+    PAGED_CASE(TYPE, 128);     \
+    PAGED_CASE(TYPE, 256);     \
+    default: return -1;        \
   }
   if (dtype == DTYPE_F32) {
     PAGED_DIMS(float)
@@ -832,19 +968,22 @@ extern "C" int paged_attention_launch(
   }
   return -1;
 #undef PAGED_DIMS
+#undef PAGED_CASE
 }
 
-// The ring a block of the launch takes for B sequences, head size D and
-// `rows` rows an aload: its slots (0 where none fits, -1 for a head size or
-// type the kernel does not take) and, in *smem, its shared-memory bytes.
+// The ring a block of the launch takes for B sequences, head size D (any of
+// 1 .. 256: the ring is Dp's) and `rows` rows an aload: its slots (0 where
+// none fits, -1 for a head size or type the kernel does not take) and, in
+// *smem, its shared-memory bytes.
 extern "C" int paged_attention_ring(int B, int D, int rows, int dtype,
                                     int* smem) {
 #define PAGED_RING(TYPE)                                        \
-  switch (D) {                                                  \
+  switch (padded(D)) {                                          \
     case 16: return ring_slots<TYPE, 16>(B, rows, smem);        \
     case 32: return ring_slots<TYPE, 32>(B, rows, smem);        \
     case 64: return ring_slots<TYPE, 64>(B, rows, smem);        \
     case 128: return ring_slots<TYPE, 128>(B, rows, smem);      \
+    case 256: return ring_slots<TYPE, 256>(B, rows, smem);      \
     default: return -1;                                         \
   }
   if (dtype == DTYPE_F32) {

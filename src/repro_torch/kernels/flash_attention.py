@@ -9,31 +9,45 @@ raises.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the head sizes the bodies are built at
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 launches = 0            # +1 for every launch of the CUDA kernel, nowhere else
 
 
+def padded_head_dim(name: str, head_dim: int) -> int:
+    """Dp: the smallest of `HEAD_DIMS` that is at least `head_dim`, the head
+    size of the body a launch at `head_dim` runs (its columns past
+    `head_dim` loaded as zeros and never stored). Both attention kernels
+    take every head size from 1 to MAX_HEAD_DIM, as the TPU kernels' whole-
+    head BlockSpecs do; `name` is the kernel that refuses the rest."""
+    for dp in HEAD_DIMS:
+        if 1 <= head_dim <= dp:
+            return dp
+    raise ValueError(f"{name}: head dim {head_dim} not in 1..{MAX_HEAD_DIM}")
+
+
 def body_for(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel body a launch runs, a fixed rule on (type, head size) that
-    `flash_attention_launch` in csrc/flash_attention.cu applies: "fma"
-    (fp32 FMAs, every head size) for float32; "wgmma" (TMA + wgmma, the
-    Hopper body) for bfloat16 at 64, 128 and 256 (at 256 with 64 x 64 tiles
-    and one consumer warpgroup); "mma" (mma.sync) for bfloat16 at 16 and
-    32."""
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {head_dim} not in "
-                         f"{HEAD_DIMS}")
+    `flash_attention_launch` in csrc/flash_attention.cu applies, with Dp =
+    `padded_head_dim`: "fma" (FMAs in fp32) for float32 at every head size,
+    and for bfloat16 where head_dim % 8 != 0 (rows of no whole number of
+    16-byte pieces, which TMA and cp.async need; it loads by element);
+    otherwise, in bfloat16, "wgmma" (TMA + wgmma, the Hopper body) at Dp of
+    64, 128 and 256 (at 256 with 64 x 64 tiles and one consumer warpgroup)
+    and "mma" (mma.sync) at Dp of 16 and 32."""
+    dp = padded_head_dim("flash_attention", head_dim)
     if dtype == torch.float32:
         return "fma"
     if dtype == torch.bfloat16:
-        return "wgmma" if head_dim >= 64 else "mma"
+        if head_dim % 8:
+            return "fma"
+        return "wgmma" if dp >= 64 else "mma"
     raise TypeError(f"flash_attention: no body for {dtype}")
 
 
@@ -42,10 +56,26 @@ def _bind():
     fn = lib.flash_attention_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_longlong), i, p]
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           out: torch.Tensor, causal: bool, window: int) -> None:
+    """One launch of the CUDA kernel into `out` ([B, Hq, S, D], any strides
+    the body takes), with no check: `flash_attention` checks first."""
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    B, Hq, S, D = q.shape
+    lib, fn = _bind()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  B, Hq, k.shape[1], S, D, int(bool(causal)), int(window),
+                  strides, _build.DTYPE_CODES[q.dtype], stream)
+    _build.check(lib, code, "flash_attention launch")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -57,14 +87,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     change the result and the kernel chooses its own tiles. Any S is taken
     (the ragged edge is masked in the kernel) and the operands are read
     through their strides, so a transposed view of [B, S, H, D] costs no
-    copy; the output has q's layout. Which body runs is `body_for`: bf16 at
-    head size 64, 128 or 256 loads its tiles by TMA and multiplies with
-    wgmma.
+    copy; the output has q's layout. Every head size from 1 to 256 is
+    taken. Which body runs is `body_for`: bf16 at a head size that pads to
+    64, 128 or 256 loads its tiles by TMA and multiplies with wgmma.
 
     Both devices refuse the same inputs: ranks, shapes, GQA divisibility,
     head size, dtypes, `window` and devices are checked before a CPU tensor
     goes to the plain version. Only the stride and alignment checks, which
-    describe the kernel's 16-byte loads, come after, for CUDA tensors.
+    describe the kernel's 16-byte loads (none where the fma body runs at a
+    head size not in `HEAD_DIMS`: it loads by element), come after, for
+    CUDA tensors.
 
     There is no backward: under autograd, with an input that requires grad,
     it raises NotImplementedError on every device, the CPU's plain version
@@ -88,8 +120,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[2] != S or k.shape[3] != D or Hq % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k {tuple(k.shape)} (self-attention, S == T)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    dp = padded_head_dim("flash_attention", D)
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k, v must share float32 or "
@@ -101,23 +132,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     out = torch.empty_like(q)              # keeps q's (dense) strides
-    chunk = 16 // q.element_size()         # elements of one 16-byte load
+    # elements of one 16-byte load; the padded fma body loads by element
+    by_element = body_for(q.dtype, D) == "fma" and dp != D
+    chunk = 1 if by_element else 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(-1) != 1 or any(s % chunk for s in t.stride()[:-1]) \
-                or t.data_ptr() % 16:
+                or t.data_ptr() % (chunk * t.element_size()):
             raise ValueError(f"flash_attention: {name} needs a unit last "
                              f"stride, other strides in multiples of {chunk} "
-                             f"and a 16-byte aligned start, got strides "
-                             f"{t.stride()}")
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    lib, fn = _bind()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, Hq, Hkv, S, D, int(bool(causal)), int(window),
-                  1.0 / math.sqrt(D), strides,
-                  _build.DTYPE_CODES[q.dtype], stream)
-    _build.check(lib, code, "flash_attention launch")
+                             f"and a start aligned to {chunk} elements, got "
+                             f"strides {t.stride()}")
+    launch(q, k, v, out, causal, window)
     launches += 1
     return out

@@ -16,14 +16,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flash_attention import HEAD_DIMS, padded_head_dim
 
-HEAD_DIMS = (16, 32, 64, 128)
 GC = 8                  # query heads a block serves, a warp each
 CHUNK_ROWS = 32         # most rows one aload fetches (a lane a row)
 
@@ -106,13 +105,27 @@ def pieces(length: int, start: int, per: int) -> Tuple[int, int]:
     return first, (start + length - 1) // per - first + 1
 
 
+def body_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The body a launch runs, a fixed rule on (type, head size) that
+    `paged_attention_launch` in csrc/paged_attention.cu applies, for the
+    body built at Dp = `padded_head_dim` (columns past `head_dim` zero and
+    never stored): "tma" (the TMA page ring; bf16 Q K^T and P V on mma.sync
+    from Dp 64) where a row of `head_dim` elements is a whole number of
+    16-byte pieces, "element" (rows copied into the ring by element, both
+    products on FMAs) elsewhere."""
+    padded_head_dim("paged_attention", head_dim)        # refuses 0 and > 256
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"paged_attention: no body for {dtype}")
+    return "tma" if head_dim * dtype.itemsize % 16 == 0 else "element"
+
+
 def _bind():
     lib = _build.load("paged_attention")
     fn = lib.paged_attention_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, p]
+                       ctypes.POINTER(ctypes.c_longlong), i, p]
         fn.restype = ctypes.c_int
         lib.paged_attention_ring.argtypes = [i, i, i, i,
                                              ctypes.POINTER(ctypes.c_int)]
@@ -187,9 +200,11 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out [B, Hq, D] in q.dtype. A sequence of length 0 gets 0.
 
     `page` is the fetch granularity: no aload of the kernel fetches more
-    rows than that. Any T is taken (nothing is padded) and the caches are
-    read in place through their strides, which must keep every row 16-byte
-    aligned. `lengths` is read on the device only.
+    rows than that. Any T and every head size D from 1 to 256 is taken
+    (`body_for`: the TMA ring where a row is a whole number of 16-byte
+    pieces, which then needs every cache row 16-byte aligned; elsewhere the
+    body that copies by element). The caches are read in place through
+    their strides. `lengths` is read on the device only.
 
     Both devices refuse the same inputs: ranks, shapes, GQA divisibility,
     head size, dtypes, `lengths` (contiguous int32 [B]) and devices are
@@ -208,8 +223,7 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if k_cache.shape[0] != B or k_cache.shape[3] != D or Hq % Hkv:
         raise ValueError(f"paged_attention: q {tuple(q.shape)} does not fit "
                          f"caches {tuple(k_cache.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"paged_attention: head dim {D} not in {HEAD_DIMS}")
+    padded_head_dim("paged_attention", D)
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError("paged_attention: q and caches must share float32 or "
@@ -223,15 +237,18 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("paged_attention: tensors on different devices")
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_cache, v_cache, lengths)
-    row = 16 // q.element_size()           # elements in 16 bytes
+    body = body_for(q.dtype, D)
+    # the TMA ring loads 16-byte rows, the element body by element; q is
+    # loaded by vectors of D / 32 elements at the head sizes of `HEAD_DIMS`
+    row = 16 // q.element_size() if body == "tma" else 1
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.stride(-1) != 1 or any(s % row for s in t.stride()[:-1]) \
-                or t.data_ptr() % 16:
+                or t.data_ptr() % (row * t.element_size()):
             raise ValueError(f"paged_attention: {name} needs a unit last "
                              f"stride, other strides in multiples of {row} "
-                             f"(16 bytes) and a 16-byte aligned start, got "
+                             f"and a start aligned to {row} elements, got "
                              f"strides {t.stride()}")
-    vec = max(D // 32, 1)                  # elements of q a lane loads
+    vec = max(D // 32, 1) if D in HEAD_DIMS else 1
     if q.stride(-1) != 1 or any(s % vec for s in q.stride()[:-1]) \
             or q.data_ptr() % (vec * q.element_size()):
         raise ValueError(f"paged_attention: q needs a unit last stride, "
@@ -240,22 +257,32 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
     if B == 0 or Hq == 0:
         return out
+    launch(q, k_cache, v_cache, lengths, out, page)
+    launches += 1
+    return out
+
+
+def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           lengths: torch.Tensor, out: torch.Tensor, page: int = 512) -> None:
+    """One launch of the CUDA kernel into `out` ([B, Hq, D], unit last
+    stride), with no check: `paged_attention` checks first."""
+    B, Hq, D = q.shape
+    T, Hkv = k_cache.shape[1], k_cache.shape[2]
     plan = launch_plan(q, k_cache, page)
-    strides = (ctypes.c_longlong * 8)(
+    strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
-        v_cache.stride(0), v_cache.stride(1), v_cache.stride(2))
+        v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+        out.stride(0), out.stride(1))
+    dp = padded_head_dim("paged_attention", D)
     lib, fn = _bind()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         part, tick = workspace(
             q.device, stream,
-            (plan.blocks + plan.segments) * GC * (D + 2), plan.segments)
+            (plan.blocks + plan.segments) * GC * (dp + 2), plan.segments)
         code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
                   tick.data_ptr(), B, Hq, Hkv, T, D, plan.blocks, plan.rows,
-                  plan.ngc, strides,
-                  1.0 / math.sqrt(D), _build.DTYPE_CODES[q.dtype], stream)
+                  plan.ngc, strides, _build.DTYPE_CODES[q.dtype], stream)
     _build.check(lib, code, "paged_attention launch")
-    launches += 1
-    return out

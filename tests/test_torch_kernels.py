@@ -86,16 +86,38 @@ def test_flash_attention_head_dim_256(window, dtype):
     (torch.float32, 64, "fma"), (torch.float32, 128, "fma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"),
-    (torch.float32, 256, "fma"), (torch.bfloat16, 256, "wgmma")])
+    (torch.float32, 256, "fma"), (torch.bfloat16, 256, "wgmma"),
+    # head sizes between the bodies' own run the body for Dp: fp32 always
+    # on FMAs, bf16 by the 16-byte pieces of its rows
+    (torch.float32, 1, "fma"), (torch.float32, 80, "fma"),
+    (torch.bfloat16, 8, "mma"), (torch.bfloat16, 24, "mma"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 96, "wgmma"),
+    (torch.bfloat16, 192, "wgmma"), (torch.bfloat16, 1, "fma"),
+    (torch.bfloat16, 7, "fma"), (torch.bfloat16, 100, "fma"),
+    (torch.bfloat16, 255, "fma")])
 def test_flash_body_rule(dtype, d, body):
     """Which kernel body a launch runs is a fixed rule on (type, head size);
-    `chip_smoke.py` holds the CUDA source's rule to this one."""
+    `chip_smoke.py` holds the CUDA source's rule to this one at every head
+    size."""
     assert tflash.body_for(dtype, d) == body
 
 
+@pytest.mark.parametrize("d,dp", [(1, 16), (8, 16), (16, 16), (17, 32),
+                                  (80, 128), (129, 256), (256, 256)])
+def test_padded_head_dim_and_the_paged_body(d, dp):
+    assert tflash.padded_head_dim("flash_attention", d) == dp
+    assert tpaged.body_for(torch.float32, d) == (
+        "tma" if d % 4 == 0 else "element")
+    assert tpaged.body_for(torch.bfloat16, d) == (
+        "tma" if d % 8 == 0 else "element")
+
+
 def test_flash_body_rule_refuses_what_no_body_takes():
-    with pytest.raises(ValueError, match="head dim"):
-        tflash.body_for(torch.bfloat16, 96)
+    for d in (0, 257):
+        with pytest.raises(ValueError, match=f"head dim {d} not in 1..256"):
+            tflash.body_for(torch.bfloat16, d)
+        with pytest.raises(ValueError, match=f"head dim {d} not in 1..256"):
+            tpaged.body_for(torch.bfloat16, d)
     with pytest.raises(TypeError, match="no body"):
         tflash.body_for(torch.float16, 64)
 
@@ -255,3 +277,45 @@ def test_paged_locate_matches_a_linear_walk():
         rows += [(b * hg + j, t, prefix[b] * hg + (j + 1) * n)
                  for j in range(hg) for t in range(n)]
     assert [tpaged.locate(prefix, hg, g) for g in range(len(rows))] == rows
+
+
+PADDED_DIMS = [1, 7, 8, 24, 80, 96, 256]
+
+
+@pytest.mark.parametrize("d", PADDED_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_at_every_head_size(d, dtype):
+    """Head sizes between the bodies' own (and 256): the port's wrapper (its
+    plain version on the CPU) against the reference's Pallas kernel in
+    interpret mode, GQA group 2, a window shorter than S."""
+    q, k, v = _flash_inputs(7 + d, 1, 4, 2, 128, d)
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.array(a, jdt) for a in (q, k, v))
+    tq, tk, tv = to_torch(jq), to_torch(jk), to_torch(jv)
+    out = tflash.flash_attention(tq, tk, tv, causal=True, window=48)
+    assert out.dtype == getattr(torch, dtype) and out.shape == tq.shape
+    tol = FP32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(
+        to_np(out), to_np(jflash(jq, jk, jv, causal=True, window=48,
+                                 block_q=64, block_k=64, interpret=True)),
+        **tol)
+
+
+@pytest.mark.parametrize("d", PADDED_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_at_every_head_size(d, dtype):
+    """The same head sizes through paged attention, lengths 0, a middle one
+    and T, against the reference's Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(8 + d)
+    jdt = getattr(jnp, dtype)
+    q = jnp.array(rng.standard_normal((3, 8, d)) * 0.3, jdt)
+    kc = jnp.array(rng.standard_normal((3, 96, 2, d)) * 0.3, jdt)
+    vc = jnp.array(rng.standard_normal((3, 96, 2, d)), jdt)
+    lens = np.array([0, 41, 96], np.int32)
+    out = tpaged.paged_attention(to_torch(q), to_torch(kc), to_torch(vc),
+                                 torch.from_numpy(lens), page=32)
+    assert out.dtype == getattr(torch, dtype) and out.shape == (3, 8, d)
+    tol = FP32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(
+        to_np(out), to_np(jpaged(q, kc, vc, jnp.array(lens), page=32,
+                                 interpret=True)), **tol)

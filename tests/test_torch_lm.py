@@ -15,7 +15,6 @@ import torch
 from repro import configs as jconfigs
 from repro.models import lm as jlm
 from repro_torch import configs, convert
-from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import lm
 
 from test_torch_util import (jax_tree_to_numpy, random_like, to_jax, to_np,
@@ -80,11 +79,9 @@ def _run_both(arch, prompt_len, use_kernels, dtype, follow_reference=False):
     `follow_reference` the port decodes the reference's tokens, so that a
     near tie that bf16 breaks the other way does not fork the two streams.
 
-    The kernels take head sizes `HEAD_DIMS` on every device (ROADMAP B1/B3);
-    phi4-mini's and qwen2.5-32b's smoke head size 8 is refused
-    (`test_torch_refusals.py`), so their kernel path runs at head size 16."""
-    if use_kernels and _smoke_cfgs(arch)[0].resolved_head_dim not in HEAD_DIMS:
-        arch += "+hd16"
+    The kernels take every head size from 1 to 256, so phi4-mini's and
+    qwen2.5-32b's smoke configs run their kernel path at their own head
+    size, 8."""
     cfg, jcfg = _smoke_cfgs(arch)
     weights = _weights(arch)
     rng = np.random.default_rng(1)
@@ -126,7 +123,8 @@ def _run_both(arch, prompt_len, use_kernels, dtype, follow_reference=False):
 # recurrentgemma at five layers: one period of (RG-LRU, RG-LRU, LOCAL) and
 # a two-layer RG-LRU tail, as the full model's 38 = 12 * 3 + 2
 @pytest.mark.parametrize("arch", DENSE + ["qwen2.5-3b+tail"] + NEW + [
-    "granite-moe-1b-a400m+tail", "rwkv6-7b+tail", "recurrentgemma-9b+L5"])
+    "granite-moe-1b-a400m+tail", "rwkv6-7b+tail", "recurrentgemma-9b+L5",
+    "phi4-mini-3.8b+hd16"])
 @pytest.mark.parametrize("use_kernels,prompt_len", [(False, 16), (True, 128)])
 def test_prefill_and_decode_match_reference(arch, use_kernels, prompt_len):
     cfg, steps, toks, jtoks, cache, jcache = _run_both(

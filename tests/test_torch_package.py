@@ -57,6 +57,9 @@ def test_port_files_exist():
                  "src/repro_torch/launch/op_analysis.py",
                  "src/repro_torch/runtime/hints.py",
                  "src/repro_torch/runtime/sharding.py",
+                 "src/repro_torch/launch/serve_paged.py",
+                 "src/repro_torch/launch/train_far_memory.py",
+                 "src/repro_torch/launch/amu_workload.py",
                  *SIMULATOR_FILES):
         assert want in names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
@@ -89,6 +92,9 @@ def test_importing_the_port_pulls_in_neither_jax_nor_repro():
         "import repro_torch.models.moe, repro_torch.models.frontends\n"
         "import repro_torch.models.rwkv6\n"
         "import repro_torch.launch.quickstart\n"
+        "import repro_torch.launch.serve_paged\n"
+        "import repro_torch.launch.train_far_memory\n"
+        "import repro_torch.launch.amu_workload\n"
         "import repro_torch.launch.train, repro_torch.optim\n"
         "import repro_torch.data, repro_torch.checkpoint\n"
         "import repro_torch.kernels._build, repro_torch.convert\n"

@@ -425,6 +425,53 @@ def test_restore_lands_on_the_placements(tmp_path):
         dist.destroy_process_group()
 
 
+def test_sharded_step_on_one_rank_is_bit_equal_to_the_plain_step(tmp_path):
+    """The sharded step (`jit_train_step`, DTensors on a one-rank gloo (1, 1)
+    mesh) and `make_train_step` from the same weights and batches, qwen2.5-3b
+    smoke, B4 S32, 2 microbatches, 3 steps: the same losses, grad norms and
+    params to the last bit. A guard on the sharded step's op order: both
+    paths must take the same ops (the embedding through `hints.take_rows`),
+    which on the H100 parted by 1.35e-5 when they did not (ROADMAP Queue C);
+    FP32_TOL, which the multi-rank tests hold, would let that through."""
+    cfg = configs.get_smoke_config("qwen2.5-3b")
+    par = configs.ParallelConfig(remat="full", microbatches=2)
+    shape = configs.ShapeConfig("t", 32, 4, configs.KIND_TRAIN)
+    opt_cfg = adamw.AdamWConfig(total_steps=3)
+    batches = [pipeline.batch_to(pipeline.synthetic_batch(cfg, shape, i),
+                                 "cpu") for i in range(3)]
+
+    def fresh():
+        params = lm.init_model(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+        return params, adamw.init_state(params)
+
+    params, opt = fresh()
+    step = steps.make_train_step(cfg, par, opt_cfg)
+    plain = []
+    for batch in batches:
+        params, opt, m = step(params, opt, batch)
+        plain.append((float(m["loss"]), float(m["grad_norm"])))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "pg"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        sparams, sopt = fresh()
+        sstep, p_sh, o_sh, _ = steps.jit_train_step(cfg, par, mesh, opt_cfg,
+                                                    sparams, sopt, shape)
+        sparams = steps.place_tree(sparams, p_sh)
+        sopt = steps.place_tree(sopt, o_sh)
+        sharded = []
+        for batch in batches:
+            sparams, sopt, m = sstep(sparams, sopt, batch)
+            sharded.append((float(m["loss"]), float(m["grad_norm"])))
+        sleaves = [t.full_tensor() for t in convert.flatten(sparams)[0]]
+    finally:
+        dist.destroy_process_group()
+    assert sharded == plain
+    for a, b in zip(sleaves, convert.flatten(params)[0]):
+        assert torch.equal(a, b)
+
+
 # ------------------------------------------- reference quirks, reproduced
 @pytest.mark.parametrize("branch", ["flash", "chunked"])
 def test_pad_heads_breaks_the_fast_branches_in_both_packages(monkeypatch,

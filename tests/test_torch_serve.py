@@ -176,3 +176,18 @@ def test_serve_rejects_encoder_and_missing_card():
     from repro_torch.launch import trace
     with pytest.raises(RuntimeError, match="cuda"):
         trace.main([])
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "qwen2.5-32b"])
+def test_serve_main_serves_head_size_8_with_kernels(arch, capsys):
+    """`python -m repro_torch.launch.serve --arch A --smoke --use-kernels
+    --device cpu` serves the two smoke configs of head size 8, as the
+    reference's serve does (the kernels take every head size from 1 to
+    256), prompts of 128 (flash) and with offload."""
+    assert serve_mod.configs.get_smoke_config(arch).resolved_head_dim == 8
+    serve_mod.main(["--arch", arch, "--smoke", "--use-kernels", "--batch",
+                    "2", "--prompt-len", "128", "--max-new", "4",
+                    "--offload-kv", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.startswith("[cpu] prefill: 2x128 in ")
+    assert "tokens identical: True" in out
