@@ -12,7 +12,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and the machine code must hold the Hopper paths: wgmma and TMA loads in
    flash_attention, TMA loads and mma.sync in paged_attention, bulk copies
    in async_gather, stream_triad and async_scatter, and L2 reductions (RED)
-   in async_scatter (cuobjdump).
+   in async_scatter (cuobjdump); wgmma and TMA loads in the kernel symbol of
+   the 16-bit flash body above 256 columns, TMA loads in paged's above 256.
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the reference test shapes and at the full-width serve shapes of
    every served arch (bf16, B=4: qwen2.5-3b G=8 D=128, granite G=2 D=64,
@@ -41,7 +42,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (each kernel's raw launch into rows 8 columns past Dp, filled with a
    sentinel that must survive); hubert-xlarge's D = 80 attention (not
    causal) on flash and recurrentgemma-9b's D = 256 head layout on paged
-   are timed as serve shapes. Each serve shape is timed
+   are timed as serve shapes. Every input the TPU kernels take: the body
+   rules at D 0-1100 and 2048 in float32, bfloat16 and float16 and (flash)
+   the six mixed pairs; both kernels at D 257, 264, 300, 384, 512, 576,
+   1000, 1024, 2048 in the three types (the wide bodies: a chunk of 256
+   output columns a block), float16 at D 8, 64, 80, 128, 256, bf16 q with
+   f32 k, v and f16 q with bf16 k, v, and the guard columns at D 300, 512,
+   1000 in the three types; float16 is held at FLASH_F16_TOL and
+   PAGED_F16_TOL, tighter than bf16's. Each serve shape is timed
    with CUDA events beside its plain version and one
    `scaled_dot_product_attention` call (a yardstick only: the port never
    calls it), and its bound is computed from the run's inputs. Then seeded
@@ -49,12 +57,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    through a small window on the side streams.
    Then the AMU kernels (async_gather, async_scatter, stream_triad) at the
    reference tests' shapes, its 10 seeded scatter fuzz cases, 8- and 12-byte
-   rows and ragged lengths, the gather's two paths (bulk copies at 512-byte
-   and 4 KB rows, also on a table 16 bytes in; cp.async on one 4 bytes in)
-   at M = 1, 7, 131, 4000, triad at N = 1, 3, 7, 4097, 2^20 + 5: gather and
-   int32 scatter bit-exact, f32 scatter-add within atol=rtol=1e-4, triad
-   1e-6 (f32) / 2e-2 (bf16); and what their wrappers refuse must raise
-   (among them a triad operand 4 bytes off a 16-byte boundary).
+   rows and ragged lengths, the gather's three paths (bulk copies at
+   512-byte and 4 KB rows, also on a table 16 bytes in; cp.async on one 4
+   bytes in; copies by element at rows of 6, 3, 1 and 4094 bytes and on a
+   bf16 table 2 bytes in) at M = 1, 7, 131, 4000, triad at N = 1, 3, 7,
+   4097, 2^20 + 5 in f32, bf16 and f16: gather and integer scatter
+   bit-exact (uint32 add and xor too), f32 scatter-add within
+   atol=rtol=1e-4, bf16 and f16 add within `ref.scatter_add16_limit`, triad
+   1e-6 (f32) / 2e-2 (bf16) / 2e-3 (f16); and what their wrappers refuse
+   must raise (among them a triad operand 4 bytes off a 16-byte boundary).
    async_scatter's own rule and edges: rows of 8, 12, 16 bytes through the
    bucket pass and rows of 512 and 4096 bytes straight to the apply (the
    path asserted by `launch_plan` and by the source), M = 1, 7, 131, 4000,
@@ -80,7 +91,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    dense archs at smoke size with kernels and offload: phi4-mini-3.8b and
    qwen2.5-32b at head size 8 through flash and paged, launches counted,
    offloaded tokens identical, the prefill's and the first decode step's
-   logits within LOGITS_TOL of the plain path on the same weights.
+   logits within LOGITS_TOL of the plain path on the same weights. Then
+   (`run_float16_paths`) qwen2.5-3b at full width cast to float16, batch 4,
+   prompt 1000, 8 decode steps with kernels (the profiler must see flash's
+   and paged's float16 instantiations; prefill and first-step logits within
+   LOGITS_TOL of the plain path, whose float16 logits must be finite), and
+   qwen2.5-3b's smoke config at head size 512 (prefill and 3 decode steps
+   through the wide bodies, logits against the plain path).
    Then the training path (`run_training`): (a) two `make_train_step`
    steps of qwen2.5-3b at full width and 2 layers (B1 S512) on the card and
    on the CPU from the same seeded weights and batches, fp32 compute (loss,
@@ -100,14 +117,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
 5. AMU kernels at H100 scale: GUPS through `repro_torch.launch.quickstart`
    (xor, an 8 GiB table of HPCC's 8-byte rows, 2^26 updates), then
    `ops.scatter_update` (xor and f32 add, 8 GiB of 512-byte rows, 2^20
-   updates), `ops.gather` (the same rows; qwen2.5-3b's embedding table) and
-   `ops.triad` (2^28 floats), each against its plain version, timed beside
+   updates; and bf16 add, [2^24, 64], 2^20 updates), `ops.gather` (the same
+   rows; qwen2.5-3b's embedding table; [2^24, 3] bf16 and int8 tables,
+   rows of 6 and 3 bytes) and `ops.triad` (2^28 floats, f32 and f16), the
+   GUPS xor again on a uint32 view of its table (bit for bit the int32
+   result), each against its plain version, timed beside
    its bound (scatter: also its sector bound) and the library call, and
    sweeps of the scatter's ring depth K at GUPS (where it must not matter)
    and at 512-byte xor, of its `block_m` at GUPS (what is in flight an SM
    there), with GUP/s and updates in flight per SM, and of the gather's K
    (rows in flight per SM). One launch per `ops` call, counted, but four for
-   the bucketed GUPS scatter.
+   each bucketed GUPS scatter.
 6. simulator: the port's whole quickstart (`repro_torch.launch.quickstart`
    `main`, on the card): GUPS at 0.2, 1 and 5 us of far-memory latency,
    baseline core against the AMU session; the 4-core rack against one
@@ -164,7 +184,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates): the
 # bounds below are stated against these, whatever power limit the card has.
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 
 FP32_TOL = dict(atol=2e-5, rtol=1e-4)
 # bf16: the plain versions compute in fp32 and round once at the end, so a
@@ -176,13 +197,19 @@ FP32_TOL = dict(atol=2e-5, rtol=1e-4)
 # sum_i p_i v_i itself: `ptol` times that is added to the limit.
 FLASH_BF16_TOL = dict(atol=1e-4, rtol=1e-2, ptol=5e-3)
 PAGED_BF16_TOL = dict(atol=1e-4, rtol=1e-2)
+# float16 the same way at its own unit roundoff, 2^-11 where bf16's is 2^-8:
+# one f16 step of the value (2^-10 of it at most) and 2^-11 of sum p_i |v_i|
+# for P rounded to f16, each with a 2x margin; tighter than bf16's
+FLASH_F16_TOL = dict(atol=1e-4, rtol=2e-3, ptol=1e-3)
+PAGED_F16_TOL = dict(atol=1e-4, rtol=2e-3)
 LIBRARY_TOL = dict(atol=1e-2, rtol=2e-2)  # the yardstick computes the same
 # the AMU kernels, at tests/test_kernels.py's limits: f32 scatter-add sums a
 # row's updates in the order the L2 applies them; triad's plain version
 # repeats the kernel's arithmetic, so it agrees to the bit in practice
 SCATTER_TOL = dict(atol=1e-4, rtol=1e-4)
 TRIAD_TOL = {torch.float32: dict(atol=1e-6, rtol=1e-6),
-             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+             torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
+             torch.float16: dict(atol=2e-3, rtol=2e-3)}
 LOGITS_TOL = dict(atol=0.25, rtol=0.05)   # bf16 logits, kernels vs plain path
 # fp32 logits of a whole model, kernels vs plain path: the CPU parity tests'
 # fp32 bound for a 3-layer model (atol 2e-4, rtol 1e-4), scaled by ~13 for
@@ -293,9 +320,19 @@ SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
              "stream_triad": ("UBLKCP",)}
 
 
+# ... and in the wide bodies' own kernel symbols: the 16-bit flash body above
+# 256 columns on wgmma and TMA, paged's TMA ring above 256 (the
+# instantiations <E, EQ, 256, EXACT=false, TMA=true, WIDE=true>)
+SASS_WANT_IN = {"flash_attention": [("flash_wgmma_wide_kernel",
+                                     ("HGMMA", "UTMALDG"))],
+                "paged_attention": [("Li256ELb0ELb1ELb1E", ("UTMALDG",))]}
+
+
 def check_sass(out_dir) -> dict:
     """Counts the SASS lines of each instruction of `SASS_WANT` in the built
-    libraries (cuobjdump, beside nvcc) and fails where one is missing."""
+    libraries (cuobjdump, beside nvcc), and of `SASS_WANT_IN` in the kernel
+    symbols whose names hold the given text, and fails where one is
+    missing."""
     from pathlib import Path
     from repro_torch.kernels import _build
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
@@ -308,6 +345,18 @@ def check_sass(out_dir) -> dict:
         if not all(counts[lib].values()):
             raise AssertionError(f"lib{lib}.so lacks Hopper instructions: "
                                  f"{counts[lib]}")
+        for part, want in SASS_WANT_IN.get(lib, []):
+            found, func = {op: 0 for op in want}, ""
+            for line in sass:
+                if "Function :" in line:
+                    func = line
+                elif part in func:
+                    for op in want:
+                        found[op] += op in line
+            counts[f"{lib} {part}"] = found
+            if not all(found.values()):
+                raise AssertionError(f"lib{lib}.so: the kernels named "
+                                     f"*{part}* lack {found}")
     log(f"SASS lines of the Hopper paths: {counts}")
     return counts
 
@@ -405,6 +454,8 @@ def check_flash(gen):
 
     worst = max(worst, check_flash_256(gen))
     worst = max(worst, check_flash_padded(gen))
+    check_flash_padded(gen, F16_DIMS, (torch.float16,))
+    worst = max(worst, check_flash_padded(gen, WIDE_DIMS, TYPES))
 
     # the serve shapes: full-width prefill of each served arch, S ragged
     # against 128 (qwen2.5-3b's is the one the kernels line reports),
@@ -427,38 +478,50 @@ def check_flash(gen):
             "library_ms": main["library_ms"]}
 
 
+BODY_RULE_DIMS = list(range(0, 1101)) + [2048]
+
+
 def check_body_rules():
     """The body rule of each attention source is its wrapper's, at every
-    head size from 0 to 257 and in both types: 0 and 257 refused by both."""
+    head size from 0 to 1100 and at 2048, in the three types and (flash)
+    with q, k, v of two types, which the wrapper runs on the float32 body:
+    0 refused by both."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
 
     flash, paged = _build.load("flash_attention"), _build.load("paged_attention")
     names = {-1: None, 0: "fma", 1: "wgmma", 2: "mma"}
-    for dtype in (torch.float32, torch.bfloat16):
-        code = _build.DTYPE_CODES[dtype]
-        for d in range(0, fa.MAX_HEAD_DIM + 2):
+    types = (torch.float32, torch.bfloat16, torch.float16)
+    pairs = [(a, b) for a in types for b in types]
+    for q_dtype, kv_dtype in pairs:
+        # the type the source's launch is given: float32 for mixed types
+        code = _build.DTYPE_CODES[q_dtype if q_dtype == kv_dtype
+                                  else torch.float32]
+        for d in BODY_RULE_DIMS:
             try:
-                want = fa.body_for(dtype, d)
+                want = fa.body_for(q_dtype, d, kv_dtype)
             except ValueError:
                 want = None
-            try:
-                want_paged = pa.body_for(dtype, d)
-            except ValueError:
-                want_paged = None
             got = names[flash.flash_attention_body(code, d)]
-            got_paged = {-1: None, 0: "tma", 1: "element"}[
-                paged.paged_attention_body(code, d)]
+            want_paged = got_paged = None
+            if q_dtype == kv_dtype:
+                try:
+                    want_paged = pa.body_for(q_dtype, d)
+                except ValueError:
+                    want_paged = None
+                got_paged = {-1: None, 0: "tma", 1: "element"}[
+                    paged.paged_attention_body(code, d)]
             if (got, got_paged) != (want, want_paged):
                 raise AssertionError(
-                    f"body for {dtype} D{d}: the sources run flash {got}, "
-                    f"paged {got_paged}; the wrappers say {want}, "
-                    f"{want_paged}")
-    log("  body rules, D 0-257 x both types, sources and wrappers agree: "
-        "flash fp32 -> fma; bf16 D % 8 != 0 -> fma, else Dp 64-256 -> "
-        "wgmma, Dp 16-32 -> mma; paged rows of whole 16-byte pieces -> tma, "
-        "others -> element; 0 and 257 refused")
+                    f"body for {q_dtype} / {kv_dtype} D{d}: the sources run "
+                    f"flash {got}, paged {got_paged}; the wrappers say "
+                    f"{want}, {want_paged} ... FAIL")
+    log("  body rules, D 0-1100 and 2048 x 3 types and the 6 mixed pairs, "
+        "sources and wrappers agree: flash fp32 and mixed -> fma; 16-bit "
+        "D % 8 != 0 -> fma, else Dp >= 64 -> wgmma (wide above 256), Dp "
+        "16-32 -> mma; paged rows of whole 16-byte pieces -> tma, others -> "
+        "element; 0 refused")
 
 
 def window_mask(s, window):
@@ -478,7 +541,6 @@ def flash_serve_shape(gen, arch, s=PROMPT_LEN, window=0,
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa, ref
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     cfg = configs.get_config(arch)
     b, hq, hkv, d = (BATCH, cfg.num_heads, cfg.num_kv_heads,
@@ -516,12 +578,7 @@ def flash_serve_shape(gen, arch, s=PROMPT_LEN, window=0,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                 host_us=host)
     if window:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            library()
-            torch.cuda.synchronize()
-        case["library_kernels"] = sorted(
-            {e.key for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA})
+        case["library_kernels"] = kernel_names(library)
         log("  the library call ran: "
             + ", ".join(n[:70] for n in case["library_kernels"]))
     return case
@@ -570,93 +627,163 @@ def check_flash_256(gen) -> float:
 # TMA's zero fill (40 below one 64-column box; 80, 96, 192)
 PADDED_FLASH_DIMS = (1, 7, 8, 24, 40, 80, 96, 100, 192)
 PADDED_PAGED_DIMS = (1, 7, 8, 24, 40, 80, 100, 256)
+# float16 at the bodies' own head sizes and at 8 and 80 (padded)
+F16_DIMS = (8, 64, 80, 128, 256)
+# the wide bodies: a chunk and a tail of 1 (fma) or 8 columns (wgmma, TMA),
+# 300 (16-bit: fma / element), whole chunks (512, 1024, 2048), 384, 576,
+# 1000 (part of a chunk, part of a 64-column piece)
+WIDE_DIMS = (257, 264, 300, 384, 512, 576, 1000, 1024, 2048)
+GUARD_WIDE_DIMS = (300, 512, 1000)
+TYPES = (torch.float32, torch.bfloat16, torch.float16)
 GUARD = 8                 # guard columns past the padded head
-SENTINEL = -512.0         # exact in bf16; no attention output reaches it
+SENTINEL = -512.0         # exact in bf16 and f16; no attention output reaches it
 
 
-def check_flash_padded(gen) -> float:
+def tname(dtype) -> str:
+    return str(dtype)[6:]
+
+
+def flash_tol(dtype) -> dict:
+    return {torch.float32: FP32_TOL, torch.bfloat16: FLASH_BF16_TOL,
+            torch.float16: FLASH_F16_TOL}[dtype]
+
+
+def paged_tol(dtype) -> dict:
+    return {torch.float32: FP32_TOL, torch.bfloat16: PAGED_BF16_TOL,
+            torch.float16: PAGED_F16_TOL}[dtype]
+
+
+def check_flash_out(name, out, q, k, v, causal=True, window=0,
+                    quiet=False) -> float:
+    """flash's output against the plain version at the limit of q's type
+    (the output's): the fp32 one, or the 16-bit one with its P term."""
+    from repro_torch.kernels import ref
+    want = ref.attention_ref(q, k, v, causal, window)
+    if q.dtype == torch.float32:
+        return check_close(name, out, want, quiet=quiet, **FP32_TOL)
+    return check_close(name, out, want, quiet=quiet,
+                       spread=flash_spread(q, k, v, causal, window),
+                       **flash_tol(q.dtype))
+
+
+def check_flash_padded(gen, dims=PADDED_FLASH_DIMS,
+                       dtypes=(torch.float32, torch.bfloat16)) -> float:
     """Flash at head sizes that are not a body's own, each run by the body
-    for Dp with its tail zero-filled and masked: causal, windowed and not
-    causal, S ragged against the tiles, GQA groups 1 and 8, both types.
-    Returns the worst fp32 error."""
-    from repro_torch.kernels import flash_attention as fa, ref
+    for Dp with its tail zero-filled and masked, and above 256 by the wide
+    bodies: causal, windowed and not causal, S ragged against the tiles, GQA
+    groups 1 and 8, in `dtypes`. Returns the worst fp32 error."""
+    from repro_torch.kernels import flash_attention as fa
 
-    log(f"flash_attention at head sizes {PADDED_FLASH_DIMS} vs "
-        "ref.attention_ref")
+    log(f"flash_attention at head sizes {dims} in "
+        f"{', '.join(map(tname, dtypes))} vs ref.attention_ref")
     worst = 0.0
     cases = [  # (b, hq, hkv, s, causal, window)
         (2, 8, 1, 200, True, 0), (1, 4, 4, 129, True, 48),
         (2, 8, 8, 100, False, 0), (1, 8, 1, 333, False, 63)]
-    for dtype in (torch.float32, torch.bfloat16):
-        for d in PADDED_FLASH_DIMS:
+    for dtype in dtypes:
+        for d in dims:
             for (b, hq, hkv, s, causal, window) in cases:
                 q, k, v = flash_case(gen, b, hq, hkv, s, d, dtype)
                 out = fa.flash_attention(q, k, v, causal=causal,
                                          window=window)
-                want = ref.attention_ref(q, k, v, causal, window)
-                name = (f"{str(dtype)[6:]} B{b} Hq{hq} Hkv{hkv} S{s} D{d} "
-                        f"causal{causal} window{window} "
-                        f"({fa.body_for(dtype, d)} body)")
+                err = check_flash_out(
+                    f"{tname(dtype)} B{b} Hq{hq} Hkv{hkv} S{s} D{d} "
+                    f"causal{causal} window{window} "
+                    f"({fa.body_for(dtype, d)} body)", out, q, k, v, causal,
+                    window, quiet=True)
                 if dtype == torch.float32:
-                    worst = max(worst, check_close(name, out, want,
-                                                   quiet=True, **FP32_TOL))
-                else:
-                    check_close(name, out, want, quiet=True,
-                                spread=flash_spread(q, k, v, causal, window),
-                                **FLASH_BF16_TOL)
+                    worst = max(worst, err)
     torch.cuda.synchronize()
-    log(f"  {len(PADDED_FLASH_DIMS)} head sizes x {len(cases)} cases x both "
+    log(f"  {len(dims)} head sizes x {len(cases)} cases x {len(dtypes)} "
         f"types agree; worst fp32 error {worst:.3e}")
     return worst
 
 
-def check_paged_padded(gen) -> float:
-    """Paged at head sizes that are not a TMA body's own (and at 256, whose
-    TMA body is new): lengths 0, 1, a middle one and T in one batch, GQA
-    groups 1 and 8, one long sequence, both types. Returns the worst fp32
-    error."""
+def check_paged_padded(gen, dims=PADDED_PAGED_DIMS,
+                       dtypes=(torch.float32, torch.bfloat16)) -> float:
+    """Paged at head sizes that are not a TMA body's own (and at 256), and
+    above 256 (the wide body): lengths 0, 1, a middle one and T in one
+    batch, GQA groups 1 and 8, one long sequence, in `dtypes`. Returns the
+    worst fp32 error."""
     from repro_torch.kernels import paged_attention as pa, ref
 
-    log(f"paged_attention at head sizes {PADDED_PAGED_DIMS} vs "
-        "ref.paged_attention_ref")
+    log(f"paged_attention at head sizes {dims} in "
+        f"{', '.join(map(tname, dtypes))} vs ref.paged_attention_ref")
     worst = 0.0
     cases = [  # (b, hq, hkv, t, lengths)
         (4, 16, 2, 333, [0, 1, 200, 333]), (2, 8, 8, 65, [65, 0]),
         (1, 8, 1, 3000, [3000])]
-    for dtype in (torch.float32, torch.bfloat16):
-        tol = FP32_TOL if dtype == torch.float32 else PAGED_BF16_TOL
-        for d in PADDED_PAGED_DIMS:
+    for dtype in dtypes:
+        for d in dims:
             for (b, hq, hkv, t, lens) in cases:
                 q, kc, vc = paged_case(gen, b, hq, hkv, t, d, dtype)
                 lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
                 err = check_close(
-                    f"{str(dtype)[6:]} B{b} Hq{hq} Hkv{hkv} T{t} D{d} "
+                    f"{tname(dtype)} B{b} Hq{hq} Hkv{hkv} T{t} D{d} "
                     f"lengths {lens.tolist()} ({pa.body_for(dtype, d)} body)",
                     pa.paged_attention(q, kc, vc, lens),
                     ref.paged_attention_ref(q, kc, vc, lens), quiet=True,
-                    **tol)
+                    **paged_tol(dtype))
                 if dtype == torch.float32:
                     worst = max(worst, err)
     torch.cuda.synchronize()
-    log(f"  {len(PADDED_PAGED_DIMS)} head sizes x {len(cases)} cases x both "
+    log(f"  {len(dims)} head sizes x {len(cases)} cases x {len(dtypes)} "
         f"types agree; worst fp32 error {worst:.3e}")
     return worst
 
 
-def check_guard_columns(gen):
-    """Each attention kernel's raw launch (`launch`, through `_build.load`)
-    into an output whose rows are GUARD columns wider than the padded head,
-    filled with SENTINEL: the columns past D must keep it (a store of Dp
-    columns would write zeros there), and the first D must agree with the
-    plain version."""
+def check_mixed_types(gen):
+    """q of one type, k and v of another: bf16 q with f32 k, v and f16 q
+    with bf16 k, v (and a wide head), through both wrappers, held at the
+    limit of q's type against the plain versions (which cast each operand
+    to float32, as the reference's kernels do)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa, ref
 
-    log(f"guard columns: raw launches into rows {GUARD} columns past Dp, "
-        f"filled with {SENTINEL}")
-    for dtype in (torch.float32, torch.bfloat16):
-        tol = FP32_TOL if dtype == torch.float32 else PAGED_BF16_TOL
-        for d in sorted(set(PADDED_FLASH_DIMS + PADDED_PAGED_DIMS + (128,))):
+    log("mixed types: bf16 q with f32 k, v; f16 q with bf16 k, v")
+    for q_dtype, kv_dtype in ((torch.bfloat16, torch.float32),
+                              (torch.float16, torch.bfloat16)):
+        for d in (80, 128, 512):
+            q = randn(gen, (2, 200, 8, d), q_dtype, Q_SCALE).transpose(1, 2)
+            k = randn(gen, (2, 200, 2, d), kv_dtype).transpose(1, 2)
+            v = randn(gen, (2, 200, 2, d), kv_dtype).transpose(1, 2)
+            out = fa.flash_attention(q, k, v, causal=True, window=0)
+            if out.dtype != q_dtype:
+                raise AssertionError(f"flash mixed: output {out.dtype}")
+            check_flash_out(f"flash q {tname(q_dtype)} k, v {tname(kv_dtype)}"
+                            f" D{d} ({fa.body_for(q_dtype, d, kv_dtype)} "
+                            "body)", out, q, k, v)
+            pq = randn(gen, (4, 16, d), q_dtype, Q_SCALE)
+            kc = randn(gen, (4, 333, 2, d), kv_dtype)
+            vc = randn(gen, (4, 333, 2, d), kv_dtype)
+            lens = torch.tensor([0, 1, 200, 333], dtype=torch.int32,
+                                device="cuda")
+            pout = pa.paged_attention(pq, kc, vc, lens)
+            if pout.dtype != q_dtype:
+                raise AssertionError(f"paged mixed: output {pout.dtype}")
+            check_close(f"paged q {tname(q_dtype)} caches {tname(kv_dtype)} "
+                        f"D{d} ({pa.body_for(kv_dtype, d)} body)", pout,
+                        ref.paged_attention_ref(pq, kc, vc, lens),
+                        **paged_tol(q_dtype))
+    torch.cuda.synchronize()
+
+
+def check_guard_columns(gen, dims=None, dtypes=(torch.float32,
+                                                torch.bfloat16)):
+    """Each attention kernel's raw launch (`launch`, through `_build.load`)
+    into an output whose rows are GUARD columns wider than the padded head,
+    filled with SENTINEL: the columns past D must keep it (a store of Dp
+    columns, or of a whole chunk, would write there), and the first D must
+    agree with the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa, ref
+
+    dims = dims or sorted(set(PADDED_FLASH_DIMS + PADDED_PAGED_DIMS + (128,)))
+    log(f"guard columns at D {tuple(dims)} in "
+        f"{', '.join(map(tname, dtypes))}: raw launches into rows {GUARD} "
+        f"columns past Dp, filled with {SENTINEL}")
+    for dtype in dtypes:
+        for d in dims:
             width = fa.padded_head_dim("flash_attention", d) + GUARD
             q, k, v = flash_case(gen, 2, 8, 2, 150, d, dtype)
             buf = torch.full((2, 8, 150, width), SENTINEL, dtype=dtype,
@@ -672,20 +799,14 @@ def check_guard_columns(gen):
                 if not bool((got[..., d:] == SENTINEL).all()):
                     bad = int((got[..., d:] != SENTINEL).sum())
                     raise AssertionError(
-                        f"guard columns {name} {str(dtype)[6:]} D{d}: {bad} "
+                        f"guard columns {name} {tname(dtype)} D{d}: {bad} "
                         f"written past the head ... FAIL")
-            if dtype == torch.float32:
-                check_close(f"guard flash fp32 D{d}", buf[..., :d],
-                            ref.attention_ref(q, k, v, True, 0), quiet=True,
-                            **FP32_TOL)
-            else:
-                check_close(f"guard flash bf16 D{d}", buf[..., :d],
-                            ref.attention_ref(q, k, v, True, 0), quiet=True,
-                            spread=flash_spread(q, k, v), **FLASH_BF16_TOL)
-            check_close(f"guard paged {str(dtype)[6:]} D{d}", pbuf[..., :d],
+            check_flash_out(f"guard flash {tname(dtype)} D{d}", buf[..., :d],
+                            q, k, v, quiet=True)
+            check_close(f"guard paged {tname(dtype)} D{d}", pbuf[..., :d],
                         ref.paged_attention_ref(q1, kc, vc, lens), quiet=True,
-                        **tol)
-    log("  no store past D in either kernel, both types")
+                        **paged_tol(dtype))
+    log("  no store past D in either kernel")
 
 
 def paged_bound(lengths, hq, hkv, d, dtype):
@@ -808,7 +929,12 @@ def check_paged(gen):
                     **PAGED_BF16_TOL)
     worst = max(worst, check_paged_edges(gen))
     worst = max(worst, check_paged_padded(gen))
+    check_paged_padded(gen, F16_DIMS, (torch.float16,))
+    worst = max(worst, check_paged_padded(gen, WIDE_DIMS, TYPES))
+    check_mixed_types(gen)
     check_guard_columns(gen)
+    check_guard_columns(gen, GUARD_WIDE_DIMS, TYPES)
+    check_guard_columns(gen, (8, 80), (torch.float16,))
 
     # the serve shapes: full-width decode of each served arch, T ragged,
     # mixed lengths (qwen2.5-3b's is the one the kernels line reports), and
@@ -994,11 +1120,38 @@ def check_equal(name, got, want, quiet=False) -> float:
 
 
 def amu_table(gen, shape, dtype):
-    """Random table on the card: int32 in [0, 2^30), floats N(0, 1)."""
+    """Random table on the card: int32 in [0, 2^30), int8 in [-128, 128),
+    floats N(0, 1)."""
     if dtype == torch.int32:
         return torch.randint(0, 1 << 30, shape, generator=gen, device="cuda",
                              dtype=torch.int32)
+    if dtype == torch.int8:
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
     return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+
+def check_scatter16(name, got, table, idx, upd, raise_=True) -> bool:
+    """A bf16 / f16 scatter-add against the plain version: within
+    `ref.scatter_add16_limit` (two orders of rounded adds) on the rows the
+    updates hit, bit for bit on the others. Works on the touched rows only,
+    so that a large table needs no float32 copy of itself."""
+    from repro_torch.kernels import ref
+    rows, inv = torch.unique(idx, return_inverse=True)
+    want = ref.scatter_update_ref(table[rows], inv.to(torch.int32), upd)
+    limit = ref.scatter_add16_limit(table[rows], inv.to(torch.int32), upd)
+    err = (got[rows].float() - want.float()).abs()
+    ratio = float((err / limit.clamp(min=1e-30)).max())
+    ok = bool((err <= limit).all())
+    mask = torch.ones(table.shape[0], dtype=torch.bool, device=table.device)
+    mask[rows.long()] = False
+    ok = ok and bool(torch.equal(got[mask], table[mask]))
+    log(f"  {name}: max abs err {float(err.max()):.3e}, {ratio:.2f} of the "
+        f"limit (2 c u (1 + u)^c (|t| + sum |u_j|)), untouched rows equal "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok and raise_:
+        raise AssertionError(f"{name}: disagrees with its plain version")
+    return ok
 
 
 def amu_index(gen, n, m):
@@ -1022,9 +1175,8 @@ def check_amu_kernels(gen):
     for (n, d, m, bm, k) in [(64, 128, 256, 128, 8), (512, 256, 128, 64, 4),
                              (33, 128, 64, 32, 2), (1024, 512, 512, 256, 16),
                              (1000, 2, 1000, 256, 8), (77, 3, 333, 64, 3)]:
-        for dtype in (torch.float32, torch.bfloat16, torch.int32):
-            if d * torch.empty((), dtype=dtype).element_size() % 4:
-                continue                    # bf16 with D = 3: refused below
+        for dtype in (torch.float32, torch.bfloat16, torch.int32,
+                      torch.int8):          # bf16 and int8 at D = 3: element
             table = amu_table(gen, (n, d), dtype)
             idx = amu_index(gen, n, m)
             check_equal(f"{str(dtype)[6:]} N{n} D{d} M{m} block_m{bm} K{k}",
@@ -1032,26 +1184,33 @@ def check_amu_kernels(gen):
                         ref.gather_ref(table, idx))
 
     log("async_gather paths: bulk copies for rows of a multiple of 16 bytes "
-        "on a 16-byte aligned table, cp.async chunks otherwise; bit-exact")
-    for (n, d, dtype, offset, bulk) in [
-            (1000, 128, torch.float32, 0, True),      # 512-byte rows
-            (3000, 2048, torch.bfloat16, 0, True),    # 4 KB rows
-            (1000, 128, torch.float32, 16, True),     # table 16 bytes in
-            (1000, 128, torch.float32, 4, False),     # table 4 bytes in
-            (1000, 2, torch.float32, 0, False)]:      # 8-byte rows
+        "on a 16-byte aligned table, cp.async chunks for other rows of whole "
+        "4-byte words, a copy by element for the rest; bit-exact")
+    for (n, d, dtype, offset, path) in [
+            (1000, 128, torch.float32, 0, "bulk"),      # 512-byte rows
+            (3000, 2048, torch.bfloat16, 0, "bulk"),    # 4 KB rows
+            (1000, 128, torch.float32, 16, "bulk"),     # table 16 bytes in
+            (1000, 128, torch.float32, 4, "cp.async"),  # table 4 bytes in
+            (1000, 2, torch.float32, 0, "cp.async"),    # 8-byte rows
+            (1000, 3, torch.bfloat16, 0, "element"),    # 6-byte rows
+            (1000, 3, torch.int8, 0, "element"),        # 3-byte rows
+            (1000, 1, torch.int8, 0, "element"),        # 1-byte rows
+            (1000, 2047, torch.bfloat16, 0, "element"),  # 4094-byte rows
+            (1000, 128, torch.bfloat16, 2, "element")]:  # table 2 bytes in
         flat = amu_table(gen, (n * d + 16,), dtype)
         first = offset // flat.element_size()
         table = flat[first:first + n * d].view(n, d)
         for m in (1, 7, 131, 4000):
             idx = amu_index(gen, n, m)
             plan = ag.launch_plan(table, m)
+            got_path = ("bulk" if plan.bulk else "cp.async"
+                        if plan.chunk >= 4 else "element")
             what = (f"{str(dtype)[6:]} rows of {d * flat.element_size()} B, "
                     f"table +{offset} B, M{m}: {plan.blocks} blocks of "
-                    f"{plan.rows} rows, {plan.warps} warps, "
-                    f"{'bulk' if plan.bulk else f'cp.async {plan.chunk} B'}")
-            if plan.bulk != bulk:
-                raise AssertionError(f"{what}: want the "
-                                     f"{'bulk' if bulk else 'cp.async'} path")
+                    f"{plan.rows} rows, {plan.warps} warps, {got_path} "
+                    f"{plan.chunk} B")
+            if got_path != path:
+                raise AssertionError(f"{what}: want the {path} path")
             want = ref.gather_ref(table, idx)
             check_equal(what, ag.async_gather(table, idx), want,
                         quiet=m != 4000)
@@ -1110,10 +1269,33 @@ def check_amu_kernels(gen):
     log(f"  10 seeded fuzz cases agree; worst f32 add error {worst:.3e}")
     worst = max(worst, check_scatter_paths(gen))
 
+    log("async_scatter in 16-bit floats (add, within ref.scatter_add16_limit) "
+        "and uint32 (add and xor on an int32 view, bit-exact)")
+    for (n, d, m) in [(64, 128, 256), (8, 128, 64), (16, 8, 128),
+                      (1000, 2, 1000), (77, 4, 333), (1 << 16, 64, 1 << 14)]:
+        idx = amu_index(gen, n, m)
+        for dtype in (torch.bfloat16, torch.float16):
+            table = amu_table(gen, (n, d), dtype)
+            upd = amu_table(gen, (m, d), dtype)
+            check_scatter16(f"{tname(dtype)} add N{n} D{d} M{m}",
+                            asc.async_scatter(table.clone(), idx, upd, "add"),
+                            table, idx, upd)
+        for op in ("add", "xor"):
+            table = amu_table(gen, (n, d), torch.int32).view(torch.uint32)
+            upd = amu_table(gen, (m, d), torch.int32).view(torch.uint32)
+            got = asc.async_scatter(table.clone(), idx, upd, op)
+            if got.dtype != torch.uint32:
+                raise AssertionError(f"uint32 {op}: got {got.dtype}")
+            check_equal(f"uint32 {op} N{n} D{d} M{m}", got.view(torch.int32),
+                        ref.scatter_update_ref(table.view(torch.int32), idx,
+                                               upd.view(torch.int32), op),
+                        quiet=True)
+    log("  16-bit add within its limit, uint32 add and xor bit-exact")
+
     log("stream_triad vs ref.triad_ref: f32 atol=rtol=1e-6, bf16 2e-2")
     triad_worst = 0.0
     for (n, block) in [(4096, 512), (8192, 1024), (512, 512), (1003, 512)]:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             b, c = randn(gen, (n,), dtype), randn(gen, (n,), dtype)
             tol = TRIAD_TOL[dtype]
             triad_worst = max(triad_worst, check_close(
@@ -1121,12 +1303,12 @@ def check_amu_kernels(gen):
                 st.stream_triad(b, c, 3.0, block=block),
                 ref.triad_ref(b, c, 3.0), **tol))
     for n in (1, 3, 7, 4097, (1 << 20) + 5):     # bulk steps and the tail
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             b, c = randn(gen, (n,), dtype), randn(gen, (n,), dtype)
             triad_worst = max(triad_worst, check_close(
                 f"{str(dtype)[6:]} N{n}", st.stream_triad(b, c, 3.0),
                 ref.triad_ref(b, c, 3.0), quiet=True, **TRIAD_TOL[dtype]))
-    log("  N = 1, 3, 7, 4097, 2^20 + 5 agree in both types")
+    log("  N = 1, 3, 7, 4097, 2^20 + 5 agree in the three types")
     b, c = randn(gen, (1000,), torch.float32), randn(gen, (1000,),
                                                       torch.float32)
     triad_worst = max(triad_worst, check_close(
@@ -1138,9 +1320,10 @@ def check_amu_kernels(gen):
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device="cuda")
     refusals = [
-        ("async_gather, bf16 rows of 6 bytes", ValueError,
-         lambda: ag.async_gather(zeros(4, 3, dtype=torch.bfloat16),
-                                 amu_index(gen, 4, 3))),
+        ("async_scatter, bf16 rows of 6 bytes", ValueError,
+         lambda: asc.async_scatter(zeros(4, 3, dtype=torch.bfloat16),
+                                   amu_index(gen, 4, 3),
+                                   zeros(3, 3, dtype=torch.bfloat16))),
         ("async_scatter, xor on float32", TypeError,
          lambda: asc.async_scatter(zeros(4, 4), amu_index(gen, 4, 3),
                                    zeros(3, 4), "xor")),
@@ -1725,6 +1908,160 @@ def run_recurrentgemma(kernels):
     del res, plain, w32, f32
 
 
+F16_DECODE_STEPS = 8
+
+
+def kernel_names(fn) -> list:
+    """The CUDA kernels the profiler sees while `fn` runs, by name."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def sdpa_backend(fn) -> str:
+    """Which of scaled_dot_product_attention's backends `fn` (one call of
+    it) ran: the attention kernels the profiler sees, shortened."""
+    names = [n for n in kernel_names(fn)
+             if any(w in n.lower() for w in ("attention", "fmha", "flash",
+                                              "sdpa", "cudnn", "softmax",
+                                              "gemm", "bmm"))]
+    return "; ".join(n[:60] for n in names) or "no attention kernel seen"
+
+
+def run_float16_paths(kernels):
+    """Two paths through the model with kernels on: (a) qwen2.5-3b at full
+    width cast to float16 (`cast_params_for_compute(params, torch.float16)`,
+    as a user of the reference's API may), batch 4, prompt 1000, 8 decode
+    steps through `lm.prefill` / `lm.decode_step`; the profiler must see
+    flash's and paged's float16 instantiations; prefill and first-step
+    logits against `use_kernels=False` on the same weights, whose logits
+    must be finite in float16 at this width. (b) qwen2.5-3b's smoke config
+    at head size 512 (`dataclasses.replace`): prefill (prompt 130) and 3
+    decode steps with kernels, through the wide bodies, logits against the
+    plain path."""
+    import dataclasses
+    from repro_torch import configs, convert
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import lm
+
+    f16 = torch.float16
+    cfg = configs.get_config(ARCH)
+    steps = F16_DECODE_STEPS
+    log(f"float16: {ARCH} at full width cast to float16, batch {BATCH}, "
+        f"prompt {PROMPT_LEN}, {steps} decode steps, use_kernels=True")
+
+    def path():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = lm.cast_params_for_compute(
+            lm.init_model(cfg, gen, device="cuda"), f16)
+        prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
+                                generator=gen, device="cuda")
+        cache = lm.init_cache(cfg, BATCH, PROMPT_LEN + steps + 1, dtype=f16,
+                              device="cuda")
+        logits, cache = lm.prefill(cfg, params, {"tokens": prompts}, cache,
+                                   use_kernels=True, dtype=f16)
+        first = convert.tree_map(torch.clone, cache)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        out = [tok]
+        cur = convert.tree_map(torch.clone, cache)
+        for _ in range(steps):
+            lg, cur = lm.decode_step(cfg, params, tok, cur, use_kernels=True,
+                                     dtype=f16)
+            tok = torch.argmax(lg[:, -1], -1)[:, None]
+            out.append(tok)
+        return params, prompts, logits, first, torch.cat(out, 1)
+
+    (params, prompts, logits, first, tokens), n_flash, n_paged = drive_path(
+        f"{ARCH} float16", path)
+    L = cfg.num_layers
+    want_launches(ARCH + " float16", n_flash, n_paged, L, L * steps)
+    kernels[0]["launches"] += n_flash
+    kernels[1]["launches"] += n_paged
+    check_tokens(ARCH + " float16", tokens, cfg.vocab_size,
+                 (BATCH, steps + 1))
+    if logits.dtype != f16 or first["scan"][0]["k"].dtype != f16:
+        raise AssertionError(f"float16 path: logits {logits.dtype}, cache "
+                             f"{first['scan'][0]['k'].dtype}")
+    check_logits(ARCH + " float16", logits, cfg.vocab_size)
+    # which instantiations ran: one decode step under the profiler
+    names = kernel_names(lambda: lm.decode_step(
+        cfg, params, tokens[:, :1], convert.tree_map(torch.clone, first),
+        use_kernels=True, dtype=f16))
+    names += kernel_names(lambda: lm.prefill(
+        cfg, params, {"tokens": prompts[:, :256]},
+        lm.init_cache(cfg, BATCH, 256, dtype=f16, device="cuda"),
+        use_kernels=True, dtype=f16))
+    ran = [n for n in names if "flash_" in n or "paged_attention_kernel" in n]
+    log("  the attention kernels that ran: " + "; ".join(n[:90] for n in ran))
+    for kind in ("flash_", "paged_attention_kernel"):
+        if not any(kind in n and "__half" in n for n in ran):
+            raise AssertionError(f"float16 path: no float16 instantiation of "
+                                 f"{kind} ran ... FAIL")
+    cache = lm.init_cache(cfg, BATCH, PROMPT_LEN + steps + 1, dtype=f16,
+                          device="cuda")
+    plain, _ = lm.prefill(cfg, params, {"tokens": prompts}, cache,
+                          use_kernels=False, dtype=f16)
+    finite = bool(torch.isfinite(plain.float()).all())
+    log(f"  the plain path's float16 logits finite: {finite}")
+    if not finite:
+        raise AssertionError("float16: the plain path's logits are not "
+                             "finite at full width")
+    check_close(f"{ARCH} float16 prefill last-token logits, kernels vs plain "
+                "path", logits, plain, **LOGITS_TOL)
+    tok = tokens[:, :1]
+    dec = [lm.decode_step(cfg, params, tok,
+                          convert.tree_map(torch.clone, first),
+                          use_kernels=uk, dtype=f16)[0] for uk in (True, False)]
+    check_close(f"{ARCH} float16 first decode step's logits, kernels vs "
+                "plain path", *dec, **LOGITS_TOL)
+    del params, prompts, logits, first, cache, plain, dec
+    free_cuda()
+
+    small = dataclasses.replace(configs.get_smoke_config(ARCH), head_dim=512)
+    prompt, steps, b = 130, 3, 2
+    log(f"head size 512: {ARCH}'s smoke config with head_dim=512 "
+        f"(flash {fa.body_for(torch.bfloat16, 512)}, paged "
+        f"{pa.body_for(torch.bfloat16, 512)} body), prompt {prompt}, "
+        f"{steps} decode steps")
+
+    def wide():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = lm.cast_params_for_compute(
+            lm.init_model(small, gen, device="cuda"))
+        prompts = torch.randint(0, small.vocab_size, (b, prompt),
+                                generator=gen, device="cuda")
+        caches, logits = {}, {}
+        for uk in (True, False):
+            cache = lm.init_cache(small, b, prompt + steps + 1,
+                                  device="cuda")
+            lg, cache = lm.prefill(small, params, {"tokens": prompts}, cache,
+                                   use_kernels=uk)
+            logits[uk] = [lg]
+            caches[uk] = cache
+        tok = torch.argmax(logits[True][0][:, -1], -1)[:, None]
+        for _ in range(steps):       # both paths decode the same tokens
+            for uk in (True, False):
+                lg, caches[uk] = lm.decode_step(small, params, tok,
+                                                caches[uk], use_kernels=uk)
+                logits[uk].append(lg)
+            tok = torch.argmax(logits[True][-1][:, -1], -1)[:, None]
+        return logits
+
+    logits, n_flash, n_paged = drive_path("head size 512", wide)
+    want_launches(f"{ARCH} head size 512", n_flash, n_paged,
+                  small.num_layers, small.num_layers * steps)
+    kernels[0]["launches"] += n_flash
+    kernels[1]["launches"] += n_paged
+    for i, (got, want) in enumerate(zip(logits[True], logits[False])):
+        check_close(f"head size 512, {'prefill' if i == 0 else f'decode step {i}'}"
+                    " logits, kernels vs plain path (bf16)", got, want,
+                    **LOGITS_TOL)
+
+
 # ---------------------------------------------------------------- training
 # (a) the card against the CPU in fp32: sums in another order over two
 # full-width layers and a 151936-way softmax. Loss and grad norm to 1e-5 of
@@ -2255,6 +2592,16 @@ def run_amu(kernels, worst):
     res_table = res["table"]
     del res
     free_cuda()
+    # the same xor on a uint32 view of the table: the int32 kernels on the
+    # same bits, so the result is the quickstart's bit for bit
+    u32 = drive(lambda: ops.scatter_update(res_table.view(torch.uint32), idx,
+                                           upd.view(torch.uint32), "xor"))
+    if u32.dtype != torch.uint32:
+        raise AssertionError(f"uint32 GUPS: result is {u32.dtype}")
+    check_equal("GUPS xor on a uint32 view vs the int32 result",
+                u32.view(torch.int32), out)
+    del u32
+    free_cuda()
     touched = torch.unique(idx).numel()
     nbytes, sector_bytes = scatter_bytes(idx, width * 4)
     bound_ms, bound_by = amu_bound(nbytes, m * width)
@@ -2320,12 +2667,37 @@ def run_amu(kernels, worst):
         del table, idx, upd, out, want
         free_cuda()
 
-    # gather: 512-byte rows of an 8 GiB table, then the embedding lookup
+    # scatter-add in bf16 at 128-byte rows (red.add.noftz.bf16x2)
+    rows, width, m = 1 << 24, 64, 1 << 20
+    table = amu_table(gen, (rows, width), torch.bfloat16)
+    idx = amu_index(gen, rows, m)
+    upd = amu_table(gen, (m, width), torch.bfloat16)
+    name = f"scatter add [{rows},{width}] bfloat16, {m} updates"
+    out = drive(lambda: ops.scatter_update(table, idx, upd, "add"))
+    check_scatter16(name, out, table, idx, upd)
+    nbytes, sector_bytes = scatter_bytes(idx, width * 2)
+    bound_ms, bound_by = amu_bound(nbytes, m * width)
+    ms = time_ms([lambda: asc.async_scatter(out, idx, upd, "add")], 20)
+    plain_ms = time_ms([lambda: ref.scatter_update_ref(table, idx, upd,
+                                                       "add")], 2, repeats=3)
+    library_ms = time_ms([lambda: out.index_add_(0, idx, upd)], 20)
+    report(name, "async_scatter", ms=ms, plain_ms=plain_ms,
+           library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+           bytes=nbytes, touched_rows=torch.unique(idx).numel(),
+           sector_bound_ms=amu_bound(sector_bytes)[0],
+           host_us=host_us(lambda: asc.async_scatter(out, idx, upd, "add")))
+    del table, idx, upd, out
+    free_cuda()
+
+    # gather: 512-byte rows of an 8 GiB table, then the embedding lookup,
+    # then rows of 6 and 3 bytes (the element path)
     cfg = configs.get_config(ARCH)
     gathers = [((1 << 24, 128), torch.float32, 1 << 20, "random rows"),
                ((cfg.vocab_size, cfg.d_model), torch.bfloat16,
                 BATCH * PROMPT_LEN, f"{ARCH} embedding, {BATCH}x{PROMPT_LEN} "
-                "token ids")]
+                "token ids"),
+               ((1 << 24, 3), torch.bfloat16, 1 << 20, "rows of 6 bytes"),
+               ((1 << 24, 3), torch.int8, 1 << 20, "rows of 3 bytes")]
     for i, (shape, dtype, m, what) in enumerate(gathers):
         table = amu_table(gen, shape, dtype)
         idx = amu_index(gen, shape[0], m)
@@ -2350,11 +2722,15 @@ def run_amu(kernels, worst):
                library_host_us=host_us(
                    lambda: torch.index_select(table, 0, idx)))
         log(f"    {plan.blocks} blocks of {plan.rows} rows, {plan.warps} "
-            f"warps, {'bulk' if plan.bulk else 'cp.async'} path; host "
+            f"warps, {'bulk' if plan.bulk else 'cp.async' if plan.chunk >= 4 else 'element'} path; host "
             f"{cases[-1]['host_us']:.1f} us a call (index_select "
             f"{cases[-1]['library_host_us']:.1f} us)")
         if i == 0:
             gather_main = cases[-1]
+        if i >= 2:                  # the element path has no ring to sweep
+            del table, idx, out
+            free_cuda()
+            continue
         # the paper's "queue length follows demand": ring depth K, on the
         # 8 GiB table and on the embedding table
         log(f"  ring-depth sweep on {name} ({plan.blocks} blocks of "
@@ -2398,12 +2774,28 @@ def run_amu(kernels, worst):
     triad_main = cases[-1]
     del a, b, c
     free_cuda()
+    b, c = randn(gen, (n,), torch.float16), randn(gen, (n,), torch.float16)
+    name = f"triad f16 N={n} ({n * 2 / 2**30:.1f} GiB an array)"
+    a = drive(lambda: ops.triad(b, c, 3.0))
+    check_equal(name, a, ref.triad_ref(b, c, 3.0))
+    check_close_big("  (library call agrees)", torch.add(b, c, alpha=3.0), a,
+                    **TRIAD_TOL[torch.float16])
+    report(name, "stream_triad",
+           ms=time_ms([lambda: st.stream_triad(b, c, 3.0)], 20),
+           plain_ms=time_ms([lambda: ref.triad_ref(b, c, 3.0)], 10),
+           library_ms=time_ms([lambda: torch.add(b, c, alpha=3.0)], 20),
+           bound_ms=amu_bound(3 * n * 2, 2 * n)[0],
+           bound_by=amu_bound(3 * n * 2, 2 * n)[1], bytes=3 * n * 2,
+           host_us=host_us(lambda: st.stream_triad(b, c, 3.0)))
+    del a, b, c
+    free_cuda()
 
     # one launch per ops call, but async_scatter's GUPS (8-byte rows) runs
-    # the bucket pass's three kernels before its apply: 4 + 1 + 1
-    want = {"async_gather": 2, "async_scatter": 6, "stream_triad": 1}
+    # the bucket pass's three kernels before its apply: 4 + 4 (its uint32
+    # view) + 1 + 1 + 1 (bf16 add)
+    want = {"async_gather": 4, "async_scatter": 11, "stream_triad": 2}
     log(f"  launches on the AMU path: {counts} (want {want}: one per ops "
-        "call, four for the bucketed GUPS scatter)")
+        "call, four for each bucketed GUPS scatter)")
     if counts != want:
         raise AssertionError("the AMU path did not launch each kernel as "
                              "often as its ops calls need")
@@ -2581,7 +2973,7 @@ MUTANTS = {
     "paged_getfin": [("paged_attention.cu", PAGED_GETFIN, "")],
     # the last block of a segment leaves its ticket standing
     "paged_ticket": [("paged_attention.cu",
-                      "      if (last) atomicExch(&a.tickets[cur], 0);",
+                      "      if (last) atomicExch(&tickets[cur], 0);",
                       "")],
     # the merge leaves out the last partial of its second set
     "paged_merge": [("paged_attention.cu",
@@ -2606,13 +2998,13 @@ MUTANTS = {
                             "if (c < Dh) ob[r * o_ss + c]",
                             "if (c < D) ob[r * o_ss + c]")],
     "paged_store_dp": [("paged_attention.cu",
-                        "if (EXACT || d0 + e < Dh) o[e] = from_float<E>("
-                        "acc[e] * inv);", "o[e] = from_float<E>(acc[e] * "
-                        "inv);"),
+                        "if (EXACT || c0 + d0 + e < Dh) o[e] = "
+                        "from_float<EQ>(acc[e] * inv);",
+                        "o[e] = from_float<EQ>(acc[e] * inv);"),
                        ("paged_attention.cu",
-                        "if (EXACT || d0 + e < Dh) o[e] = from_float<E>("
-                        "as[e] * inv);", "o[e] = from_float<E>(as[e] * "
-                        "inv);")],
+                        "if (EXACT || c0 + d0 + e < Dh) o[e] = "
+                        "from_float<EQ>(as[e] * inv);",
+                        "o[e] = from_float<EQ>(as[e] * inv);")],
     # ... scales by 1 / sqrt(Dp) ...
     "flash_scale_dp": [("flash_attention.cu",
                         "static_cast<float>(1.0 / sqrt((double)D));",
@@ -2634,6 +3026,43 @@ MUTANTS = {
     "paged_load_tail": [("paged_attention.cu",
                          "return c < dh ? row[c] : from_float<E>(0.f);",
                          "return row[c];")],
+    # the wide bodies (D > 256): a block stores its chunk at the head's
+    # first columns ...
+    "flash_wgmma_wide_chunk": [("flash_attention.cu",
+                                "  T* ob = o + b * o_sb + h * o_sh + c0;",
+                                "  T* ob = o + b * o_sb + h * o_sh;")],
+    "flash_fma_wide_chunk": [("flash_attention.cu",
+                              "  E* ob = o + b * o_sb + h * o_sh + c0;",
+                              "  E* ob = o + b * o_sb + h * o_sh;")],
+    # ... scales by 1 / sqrt of the chunk's width, not of D ...
+    "flash_scale_dc": [("flash_attention.cu",
+                        "static_cast<float>(1.0 / sqrt((double)D));",
+                        "static_cast<float>(1.0 / sqrt((double)"
+                        "(D > 256 ? 256 : D)));")],
+    "paged_scale_dc": [("paged_attention.cu",
+                        "static_cast<float>(1.0 / sqrt((double)D));",
+                        "static_cast<float>(1.0 / sqrt((double)"
+                        "(D > 256 ? 256 : D)));")],
+    # ... or (paged) takes Q K^T over the first chunk's columns only
+    "paged_wide_qk": [("paged_attention.cu",
+                       "          for (int p = 0; p < a.npk; ++p) {",
+                       "          for (int p = 0; p < 1; ++p) {")],
+    # float16 operands through a bf16 wgmma (Q K^T at D = 256 and above)
+    "flash_f16_as_bf16": [("flash_attention.cu",
+                           "    WGMMA_SS_64(\"f16\");",
+                           "    WGMMA_SS_64(\"bf16\");")],
+    # the element gather copies one byte of each 2-byte element
+    "gather_element_byte": [("async_gather.cu",
+                             "template <> struct Elem<2> { using type = "
+                             "uint16_t; };",
+                             "template <> struct Elem<2> { using type = "
+                             "uint8_t; };")],
+    # a 16-bit add reduces each update on its neighbouring element
+    "scatter16_neighbour": [("async_scatter.cu",
+                             "    red_add2<E>(dst, *reinterpret_cast<const "
+                             "uint32_t*>(src));",
+                             "    red_add2<E>(dst, __byte_perm(*reinterpret_"
+                             "cast<const uint32_t*>(src), 0, 0x1032));")],
 }
 
 
@@ -2917,24 +3346,23 @@ def run_mutants(names=(), timeout_s: int = 300) -> bool:
     if unknown:
         raise AssertionError(f"no mutants {sorted(unknown)}")
     caught = True
-    for name, edits in MUTANTS.items():
-        if names and name not in names:
-            continue
+    chosen = [n for n in MUTANTS if not names or n in names]
+    for name in chosen:
+        make_mutant(name)
+    # the copies' kernels are built first, three copies at a time (each
+    # runs one nvcc a source): the longest source dominates one build, so
+    # several overlap on the machine's cores
+    for i in range(0, len(chosen), 3):
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+             " from repro_torch.kernels import _build; _build.build_all()",
+             os.path.join(ROOT, "build", "mutants", name, "src")],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            for name in chosen[i:i + 3]]
+        for proc in procs:
+            proc.wait()
+    for name in chosen:
         dst = os.path.join(ROOT, "build", "mutants", name)
-        shutil.rmtree(dst, ignore_errors=True)
-        shutil.copytree(os.path.join(ROOT, "src"), os.path.join(dst, "src"),
-                        ignore=shutil.ignore_patterns("__pycache__"))
-        shutil.copy(os.path.abspath(__file__), dst)
-        for source, old, new in edits:
-            path = os.path.join(dst, "src", "repro_torch", "kernels", "csrc",
-                                source)
-            with open(path) as f:
-                text = f.read()
-            if text.count(old) != 1:
-                raise AssertionError(f"mutant {name}: its text is not in "
-                                     f"{source} exactly once")
-            with open(path, "w") as f:
-                f.write(text.replace(old, new))
         proc = subprocess.run(
             ["timeout", "-s", "KILL", str(timeout_s), sys.executable,
              os.path.join(dst, "chip_smoke.py"), "--kernels-only"],
@@ -2946,6 +3374,26 @@ def run_mutants(names=(), timeout_s: int = 300) -> bool:
             f"({'caught' if proc.returncode else 'NOT CAUGHT'}): {why[0]}")
         caught = caught and proc.returncode != 0
     return caught
+
+
+def make_mutant(name):
+    """The copy of src/ and this script under build/mutants/NAME with the
+    mutant's edits made (each text must be in its source exactly once)."""
+    dst = os.path.join(ROOT, "build", "mutants", name)
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "src"), os.path.join(dst, "src"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.abspath(__file__), dst)
+    for source, old, new in MUTANTS[name]:
+        path = os.path.join(dst, "src", "repro_torch", "kernels", "csrc",
+                            source)
+        with open(path) as f:
+            text = f.read()
+        if text.count(old) != 1:
+            raise AssertionError(f"mutant {name}: its text is not in "
+                                 f"{source} exactly once")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
 
 
 # --------------------------------------------------------------------- main
@@ -3004,6 +3452,7 @@ def main() -> int:
         run_slice(kernels)
         run_new_paths(kernels)
         run_recurrentgemma(kernels)
+        run_float16_paths(kernels)
         run_training(kernels)
         run_amu(kernels, amu_worst)
         run_simulator()

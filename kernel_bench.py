@@ -21,16 +21,25 @@ hubert-xlarge's D=80 (B=4, Hq=Hkv=16, S=1000, not causal); paged at D=8
 and 80 in the same layouts (T=1032) and at recurrentgemma-9b's D=256 (B=4,
 Hq=16, Hkv=1, T=4128, lengths [4128, 4097, 2065, 64]); and both at D=100
 in the D=80 layouts, whose bf16 rows (200 bytes) are no whole number of
-16-byte pieces: flash's fma body and paged's element-copy body. A case
-whose head size the tree's kernel does not take is skipped. Gather at qwen2.5-3b's
-embedding table ([151936, 2048] bf16, 4000 ids) and at 2^20 rows of an 8 GiB
-[2^24, 128] f32 table; triad at STREAM's f32 N = 2^28; scatter at GUPS (xor,
+16-byte pieces: flash's fma body and paged's element-copy body. Then the
+wide bodies and float16: flash at D=512 in bf16 and f16 and at D=128 in
+f16, in qwen2.5-3b's layout (B=4, Hq=16, Hkv=2, S=1000, causal); paged at
+D=512 in bf16 and f16 and at D=128 in f16, in its serve layout (T=1032);
+at D > 256 flash's case names the kernels of SDPA's backend (the profiler).
+A case whose head size or type the tree's kernel does not take is
+skipped. Gather at qwen2.5-3b's
+embedding table ([151936, 2048] bf16, 4000 ids), at 2^20 rows of an 8 GiB
+[2^24, 128] f32 table and at 2^20 rows of a [2^24, 3] bf16 table (6-byte
+rows: the element path); triad at STREAM's f32 N = 2^28 and in f16;
+`scatter_bf16` adds 2^20 bf16 updates into [2^24, 64] (128-byte rows,
+red.add.noftz.bf16x2); scatter at GUPS (xor,
 HPCC's 8-byte rows, [2^30, 2] int32, 2^26 updates), also with the same
 updates sorted beforehand by table region (`idx >> s`, untimed: what
 bucketing by region could buy), its bucket pass alone (bound by its bytes:
 the indices read twice, the rows once, both written once), and at 512-byte
 rows ([2^24, 128], 2^20 updates) in int32 xor and f32 add. `--only` picks
-some of flash, paged, gather, triad, scatter. For each: kernel ms (CUDA
+some of flash, paged, gather, triad, scatter, scatter_bf16. For each:
+kernel ms (CUDA
 events, mean of back-to-back calls, best of 5 windows, as in chip_smoke.py),
 host us a call (perf_counter over 50 calls without a synchronise), the
 library call's ms
@@ -62,7 +71,7 @@ def main() -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--only", nargs="*",
                     default=["flash", "paged", "gather", "triad",
-                             "scatter"])
+                             "scatter", "scatter_bf16"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_bench: torch.cuda.is_available() is False",
@@ -90,6 +99,11 @@ def main() -> int:
                                     causal=False))
             rows.append(bench_flash(cs, fa, F, gen, b, 16, 16, s, 100,
                                     causal=False))
+        if takes(fa, 512):
+            for d, dtype in ((512, torch.bfloat16), (512, torch.float16),
+                             (128, torch.float16)):
+                rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, d,
+                                        dtype=dtype))
     if "paged" in args.only:
         rows.append(bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d))
         rows.append(bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d,
@@ -100,12 +114,21 @@ def main() -> int:
             rows.append(bench_paged(cs, pa, ref, F, gen, b, 16, 16, 100))
             rows.append(bench_paged(cs, pa, ref, F, gen, b, 16, 1, 256,
                                     prompt=4096))
+        if takes(pa, 512):
+            for d, dtype in ((512, torch.bfloat16), (512, torch.float16),
+                             (128, torch.float16)):
+                rows.append(bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d,
+                                        dtype=dtype))
     if "gather" in args.only:
         rows.extend(bench_gather(cs, ag, gen))
     if "triad" in args.only:
         rows.append(bench_triad(cs, st, gen))
+        if torch.float16 in st.TYPES:
+            rows.append(bench_triad(cs, st, gen, torch.float16))
     if "scatter" in args.only:
         rows.extend(bench_scatter(cs, asc, ref, gen))
+    if "scatter_bf16" in args.only and torch.bfloat16 in asc.TYPES["add"]:
+        rows.append(bench_scatter_bf16(cs, asc, ref, gen))
     for r in rows:
         lib = r["library_ms"]
         extra = "".join(f", {k} {r[k]:.5f} ms" for k in
@@ -127,32 +150,45 @@ def main() -> int:
 def takes(mod, d) -> bool:
     """Whether the tree's kernel module takes head size `d`: a tree from
     before every head size from 1 to 256 (`padded_head_dim`) took only its
-    `HEAD_DIMS`."""
+    `HEAD_DIMS`, one from before the wide bodies (`CHUNK_DIM`) none above
+    256."""
+    if d > 256:
+        return hasattr(mod, "CHUNK_DIM")
     return hasattr(mod, "padded_head_dim") or d in mod.HEAD_DIMS
 
 
-def bench_flash(cs, fa, F, gen, b, hq, hkv, s, d, window=0, causal=True):
-    q, k, v = cs.flash_case(gen, b, hq, hkv, s, d, torch.bfloat16)
-    body = fa.body_for(torch.bfloat16, d) if hasattr(fa, "body_for") else "?"
+def short(dtype) -> str:
+    return {torch.bfloat16: "bf16", torch.float16: "f16",
+            torch.float32: "f32"}[dtype]
+
+
+def bench_flash(cs, fa, F, gen, b, hq, hkv, s, d, window=0, causal=True,
+                dtype=torch.bfloat16):
+    q, k, v = cs.flash_case(gen, b, hq, hkv, s, d, dtype)
+    body = fa.body_for(dtype, d) if hasattr(fa, "body_for") else "?"
     lib = (dict(attn_mask=cs.window_mask(s, window)) if window
            else dict(is_causal=causal))
+    backend = ""
+    if d > 256:                   # which of SDPA's backends takes D > 256
+        backend = ", library " + cs.sdpa_backend(
+            lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                   **lib))
     return dict(
         kernel="flash_attention",
-        case=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} bf16"
+        case=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} {short(dtype)}"
              + (f" window{window}" if window else "")
-             + ("" if causal else " not causal") + f" ({body} body)",
+             + ("" if causal else " not causal") + f" ({body} body{backend})",
         ms=cs.time_ms([lambda: fa.flash_attention(q, k, v, causal=causal,
                                                   window=window)], 20),
         host_us=cs.host_us(lambda: fa.flash_attention(q, k, v, causal=causal,
                                                       window=window)),
         library_ms=cs.time_ms([lambda: F.scaled_dot_product_attention(
             q, k, v, enable_gqa=True, **lib)], 10),
-        bound_ms=cs.flash_bound(b, hq, hkv, s, d, window, torch.bfloat16,
-                                causal)[0])
+        bound_ms=cs.flash_bound(b, hq, hkv, s, d, window, dtype, causal)[0])
 
 
 def bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d, long=False,
-                prompt=None):
+                prompt=None, dtype=torch.bfloat16):
     """The serve shape (T = prompt + 32, lengths [T, prompt + 1,
     (T + 2) // 2, 64]; the prompt chip_smoke serves by default), or
     (`long`) one sequence of 32768 rows."""
@@ -161,7 +197,7 @@ def bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d, long=False,
     lens = torch.tensor([t] if long else [t, prompt + 1, (t + 2) // 2, 64],
                         dtype=torch.int32, device="cuda")
     b = lens.numel()
-    sets = [cs.paged_case(gen, b, hq, hkv, t, d, torch.bfloat16)
+    sets = [cs.paged_case(gen, b, hq, hkv, t, d, dtype)
             for _ in range(4 if long else 16)]
     cs.check_close(f"paged T{t}", pa.paged_attention(*sets[0], lens),
                    ref.paged_attention_ref(*sets[0], lens),
@@ -175,30 +211,31 @@ def bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d, long=False,
             attn_mask=mask, enable_gqa=True)
     return dict(
         kernel="paged_attention",
-        case=f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} bf16 lengths {lens.tolist()}"
-             + (f" ({pa.body_for(torch.bfloat16, d)} body)"
+        case=f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} {short(dtype)} lengths "
+             f"{lens.tolist()}"
+             + (f" ({pa.body_for(dtype, d)} body)"
                 if hasattr(pa, "body_for") else ""),
         ms=cs.time_ms([lambda x=x: pa.paged_attention(*x, lens)
                        for x in sets], 64),
         host_us=cs.host_us(lambda: pa.paged_attention(*sets[0], lens)),
         library_ms=cs.time_ms([lambda x=x: library(x) for x in sets], 64),
         library_host_us=cs.host_us(lambda: library(sets[0])),
-        bound_ms=cs.paged_bound(lens, hq, hkv, d, torch.bfloat16)[0])
+        bound_ms=cs.paged_bound(lens, hq, hkv, d, dtype)[0])
 
 
-def bench_triad(cs, st, gen):
+def bench_triad(cs, st, gen, dtype=torch.float32):
     n = 1 << 28
-    b, c = (cs.randn(gen, (n,), torch.float32) for _ in range(2))
-    cs.check_close_big("triad f32 N=2^28", st.stream_triad(b, c, 3.0),
-                       torch.add(b, c, alpha=3.0),
-                       **cs.TRIAD_TOL[torch.float32])
+    b, c = (cs.randn(gen, (n,), dtype) for _ in range(2))
+    cs.check_close_big(f"triad {short(dtype)} N=2^28",
+                       st.stream_triad(b, c, 3.0),
+                       torch.add(b, c, alpha=3.0), **cs.TRIAD_TOL[dtype])
     row = dict(
-        kernel="stream_triad", case=f"f32 N={n}",
+        kernel="stream_triad", case=f"{short(dtype)} N={n}",
         ms=cs.time_ms([lambda: st.stream_triad(b, c, 3.0)], 20),
         host_us=cs.host_us(lambda: st.stream_triad(b, c, 3.0)),
         library_ms=cs.time_ms([lambda: torch.add(b, c, alpha=3.0)], 20),
         library_host_us=cs.host_us(lambda: torch.add(b, c, alpha=3.0)),
-        bound_ms=cs.amu_bound(3 * n * 4, 2 * n)[0])
+        bound_ms=cs.amu_bound(3 * n * b.element_size(), 2 * n)[0])
     del b, c
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -207,10 +244,14 @@ def bench_triad(cs, st, gen):
 
 def bench_gather(cs, ag, gen):
     rows = []
-    for shape, dtype, m, what in [((151936, 2048), torch.bfloat16, 4000,
-                                   "embedding"),
-                                  ((1 << 24, 128), torch.float32, 1 << 20,
-                                   "8 GiB")]:
+    cases = [((151936, 2048), torch.bfloat16, 4000, "embedding"),
+             ((1 << 24, 128), torch.float32, 1 << 20, "8 GiB")]
+    try:                                  # a tree that takes 6-byte rows
+        ag.gather_path(6, 16)
+        cases.append(((1 << 24, 3), torch.bfloat16, 1 << 20, "6-byte rows"))
+    except ValueError:
+        pass
+    for shape, dtype, m, what in cases:
         table = cs.amu_table(gen, shape, dtype)
         idx = cs.amu_index(gen, shape[0], m)
         if not torch.equal(ag.async_gather(table, idx),
@@ -304,6 +345,30 @@ def bench_scatter(cs, asc, ref, gen):
         del table, idx, upd, want
         cs.free_cuda()
     return rows
+
+
+def bench_scatter_bf16(cs, asc, ref, gen):
+    """bf16 add of 2^20 updates into [2^24, 64] (128-byte rows), held to
+    `ref.scatter_add16_limit` of the plain version once."""
+    n, w, m = 1 << 24, 64, 1 << 20
+    table = cs.amu_table(gen, (n, w), torch.bfloat16)
+    idx = cs.amu_index(gen, n, m)
+    upd = cs.amu_table(gen, (m, w), torch.bfloat16)
+    out = asc.async_scatter(table.clone(), idx, upd, "add")
+    ok = cs.check_scatter16("bf16 add", out, table, idx, upd, raise_=False)
+    nbytes, sectors = cs.scatter_bytes(idx, w * 2)
+    row = dict(
+        kernel="async_scatter",
+        case=f"add [{n},{w}] bf16, {m} updates",
+        ms=cs.time_ms([lambda: asc.async_scatter(out, idx, upd, "add")], 20),
+        host_us=cs.host_us(lambda: asc.async_scatter(out, idx, upd, "add")),
+        library_ms=cs.time_ms([lambda: out.index_add_(0, idx, upd)], 20),
+        bound_ms=cs.amu_bound(nbytes, m * w)[0],
+        sector_bound_ms=cs.amu_bound(sectors)[0],
+        check="ok" if ok else "FAIL")
+    del table, idx, upd, out
+    cs.free_cuda()
+    return row
 
 
 if __name__ == "__main__":

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 # `enum DType` of csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2,
+               torch.float16: 3}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

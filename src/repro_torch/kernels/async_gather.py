@@ -10,7 +10,8 @@ the kernel or raises.
 `gather_plan` lays a launch over the card: how many rows a block takes, how
 many warps it has, and which path its rows take (the bulk-copy ring for rows
 that are a multiple of 16 bytes with 16-byte aligned pointers, the cp.async
-ring for every other row). `ring_plan` is how a block of `block_m` rows
+ring for other rows of whole 4-byte words, and a copy by 2- or 1-byte
+element for every other row). `ring_plan` is how a block of `block_m` rows
 lays out cp.async rings, the gather's first check of what fits.
 """
 from __future__ import annotations
@@ -62,9 +63,12 @@ def ring_plan(row_bytes: int, block_m: int, num_slots: int,
 
 
 def check_ring_args(name: str, table: torch.Tensor, indices: torch.Tensor,
-                    block_m: int, num_slots: int) -> int:
+                    block_m: int, num_slots: int,
+                    whole_words: bool = True) -> int:
     """Checks shared by the gather and scatter wrappers, the same on every
-    device; returns the row's bytes."""
+    device; returns the row's bytes. `whole_words`: rows must be a multiple
+    of 4 bytes (the scatter's smallest reduction); the gather takes rows of
+    any byte count."""
     if table.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {table.device}")
     if indices.device != table.device:
@@ -79,9 +83,12 @@ def check_ring_args(name: str, table: torch.Tensor, indices: torch.Tensor,
         raise ValueError(f"{name}: block_m {block_m} and num_slots "
                          f"{num_slots} must be positive")
     row_bytes = table.shape[1] * table.element_size()
-    if row_bytes == 0 or row_bytes % 4:
+    if row_bytes == 0:
+        raise ValueError(f"{name}: rows of 0 bytes")
+    if whole_words and row_bytes % 4:
         raise ValueError(f"{name}: a row of {row_bytes} bytes is not a "
-                         "multiple of 4 bytes, the kernel's smallest copy")
+                         "multiple of 4 bytes, the kernel's smallest "
+                         "reduction")
     return row_bytes
 
 
@@ -98,7 +105,8 @@ def check_in_range(name: str, indices: torch.Tensor, n: int) -> None:
 class GatherPlan(NamedTuple):
     """How a launch of the gather kernel covers M rows on a card."""
     bulk: bool          # rows by cp.async.bulk into mbarrier slots
-    chunk: int          # bytes one cp.async moves (16 on the bulk path)
+    chunk: int          # bytes one cp.async moves (16 on the bulk path);
+    #                     2 or 1: the element path, a copy by element
     lanes: int          # lanes that share one ring (one row at a time)
     warps: int          # warps a block
     rows: int           # rows a block takes
@@ -127,11 +135,13 @@ def _round16(n: int) -> int:
 
 
 def gather_smem(bulk: bool, rings: int, rows: int, num_slots: int,
-                row_bytes: int) -> int:
+                row_bytes: int, chunk: int = 4) -> int:
     """Shared memory of a gather block, laid out as csrc/async_gather.cu
     does: (bulk) an mbarrier a slot, the block's indices, rings of
     min(K, rows a ring) + 1 slots; (cp.async) the indices, rings of K
-    slots."""
+    slots; (the element path, `chunk` < 4) the indices only."""
+    if chunk < 4:
+        return _round16(rows * 4)
     if bulk:
         slots = rings * (min(num_slots, -(-rows // rings)) + 1)
         return _round16(slots * 8) + _round16(rows * 4) + slots * row_bytes
@@ -139,15 +149,16 @@ def gather_smem(bulk: bool, rings: int, rows: int, num_slots: int,
 
 
 def gather_path(row_bytes: int, align: int):
-    """(bulk, chunk, lanes): the bulk-copy ring iff the row is a multiple of
-    16 bytes and every pointer 16-byte aligned, else cp.async chunks of the
-    widest of 16/8/4 bytes that divides the row and the pointers; a ring as
-    wide as the row's chunks (at most a warp, a power of two)."""
-    chunk = next((w for w in (16, 8, 4)
-                  if row_bytes % w == 0 and align % w == 0), None)
-    if chunk is None:
-        raise ValueError("rows must be a multiple of 4 bytes and start on a "
-                         "4-byte boundary")
+    """(bulk, chunk, lanes): the widest of 16/8/4/2/1 bytes that divides the
+    row and the pointers. 16: the bulk-copy ring; 8 or 4: cp.async chunks
+    of that size, a ring as wide as the row's chunks (at most a warp, a
+    power of two); 2 or 1: the element path, whose block copies its rows'
+    elements of that size with plain loads and stores, a warp at a time
+    (`lanes` 32)."""
+    chunk = next(w for w in (16, 8, 4, 2, 1)
+                 if row_bytes % w == 0 and align % w == 0)
+    if chunk < 4:
+        return False, chunk, 32
     lanes = 1 << (min(32, row_bytes // chunk).bit_length() - 1)
     return chunk == 16, chunk, lanes
 
@@ -174,7 +185,8 @@ def gather_plan(row_bytes: int, m: int, block_m: int, num_slots: int,
         rings = warps * 32 // lanes
         plan = None
         for rows in [*range(rings, block_m, rings), block_m]:
-            smem = gather_smem(bulk, rings, rows, num_slots, row_bytes)
+            smem = gather_smem(bulk, rings, rows, num_slots, row_bytes,
+                               chunk)
             per_sm = blocks_per_sm(bulk, chunk, warps, smem) \
                 if smem <= MAX_SMEM else 0
             if per_sm < 1:
@@ -245,8 +257,8 @@ def launch_plan(table: torch.Tensor, m: int, block_m: int = 256,
 
 def async_gather(table: torch.Tensor, indices: torch.Tensor,
                  block_m: int = 256, num_slots: int = 8) -> torch.Tensor:
-    """out[i] = table[indices[i]]; table: [N, D] of any type whose rows are a
-    multiple of 4 bytes, indices: [M] int32 in [0, N).
+    """out[i] = table[indices[i]]; table: [N, D] of any type and row width,
+    indices: [M] int32 in [0, N).
 
     A block takes at most `block_m` indices (fewer where that fills the
     card: `gather_plan`) and `num_slots` rows are in flight in each of its
@@ -254,12 +266,14 @@ def async_gather(table: torch.Tensor, indices: torch.Tensor,
     is padded. The copy is bit-exact."""
     global launches
     row_bytes = check_ring_args("async_gather", table, indices, block_m,
-                                num_slots)
-    ring_plan(row_bytes, block_m, num_slots)       # raises if it cannot fit
-    bulk, _, lanes = gather_path(row_bytes, 16)     # the smallest block
-    if gather_smem(bulk, 32 // lanes, 1, num_slots, row_bytes) > MAX_SMEM:
-        raise ValueError(f"async_gather: a ring of {row_bytes}-byte rows "
-                         f"does not fit in {MAX_SMEM} bytes of shared memory")
+                                num_slots, whole_words=False)
+    bulk, chunk, lanes = gather_path(row_bytes, 16)  # the smallest block
+    if chunk >= 4:        # rings of slots; the element path has none
+        ring_plan(row_bytes, block_m, num_slots)    # raises if it cannot fit
+        if gather_smem(bulk, 32 // lanes, 1, num_slots, row_bytes) > MAX_SMEM:
+            raise ValueError(f"async_gather: a ring of {row_bytes}-byte rows "
+                             f"does not fit in {MAX_SMEM} bytes of shared "
+                             "memory")
     if table.device.type == "cpu":
         check_in_range("async_gather", indices, table.shape[0])
         return ref.gather_ref(table, indices)

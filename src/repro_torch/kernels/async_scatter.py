@@ -31,12 +31,18 @@ from repro_torch.kernels.async_gather import (MAX_SMEM, _align,
                                               check_in_range, check_ring_args)
 
 OPS = {"add": 0, "xor": 1}          # `enum Op` of csrc/async_scatter.cu
-TYPES = {"add": (torch.float32, torch.int32), "xor": (torch.int32,)}
+# uint32 tables run the int32 kernels on an int32 view of the same bits:
+# two's-complement add and xor do not depend on the sign
+TYPES = {"add": (torch.float32, torch.int32, torch.uint32, torch.bfloat16,
+                 torch.float16),
+         "xor": (torch.int32, torch.uint32)}
 # the widest single reduction of each (op, type): red.xor.b64, red.add.s32,
-# the vector atomicAdd(float4); wider chunks of xor or int32 add would be
-# several reductions a lane at a stride, each sector met more than once
+# the vector atomicAdd(float4), red.add.noftz.bf16x2 / .f16x2 (two
+# elements); wider chunks of xor or int32 add would be several reductions a
+# lane at a stride, each sector met more than once
 REDUCE_WIDTH = {("xor", torch.int32): 8, ("add", torch.int32): 4,
-                ("add", torch.float32): 16}
+                ("add", torch.float32): 16, ("add", torch.bfloat16): 4,
+                ("add", torch.float16): 4}
 SECTOR = 32             # bytes of an L2 sector: narrower rows are bucketed
 MAX_BUCKETS = 256       # table regions of the bucket pass (32 MB at GUPS)
 BLOCKS_PER_SM = 2       # persistent apply blocks an SM (of 4 warps each)
@@ -278,9 +284,13 @@ def async_scatter(table: torch.Tensor, indices: torch.Tensor,
                   num_slots: int = 8) -> torch.Tensor:
     """table[indices[j]] op= updates[j] for every j, in place; returns table.
 
-    table: [N, D] float32 (add) or int32 (add, xor); indices: [M] int32 in
-    [0, N); updates: [M, D] of the table's type. Rows hit more than once get
-    every update: int32 exactly, float32 in the order the card applies them.
+    table: [N, D] of whole 4-byte words a row: float32, bfloat16 or float16
+    (add), int32 or uint32 (add, xor); indices: [M] int32 in [0, N);
+    updates: [M, D] of the table's type. Rows hit more than once get every
+    update: the integers exactly, floats in the order the card applies them
+    (16-bit floats rounded after each add, within
+    `ref.scatter_add16_limit` of the in-order sum). uint32 runs as int32 on
+    a view of the same bits.
     A span of the apply takes at most `block_m` updates and `num_slots`
     spans are in flight in each block of rows of 32 bytes and more; rows
     narrower than a sector are bucketed by table region first and applied a
@@ -301,6 +311,10 @@ def async_scatter(table: torch.Tensor, indices: torch.Tensor,
                          f"{table.dtype} on {table.device}, got "
                          f"{tuple(updates.shape)} {updates.dtype} on "
                          f"{updates.device}")
+    if table.dtype == torch.uint32:
+        async_scatter(table.view(torch.int32), indices,
+                      updates.view(torch.int32), op, block_m, num_slots)
+        return table
     if apply_smem(4, num_slots, row_bytes) > MAX_SMEM:
         raise ValueError(f"async_scatter: {num_slots} slots of 4 updates of "
                          f"{row_bytes}-byte rows do not fit in {MAX_SMEM} "

@@ -41,11 +41,19 @@
 //       for the ring-depth sweep (a ring of fewer than K rows has a slot a
 //       row). The row never passes through registers;
 //     * cp.async (`async_gather_kernel`, csrc/amu_ring.cuh): every other row
-//       (8- and 12-byte rows, rows or tables only 4- or 8-byte aligned):
-//       chunks of the widest of 16/8/4 bytes that divides the row and the
-//       pointers, one commit group a row, wait_group K-1 (getfin), then the
-//       slot goes through registers to the output and is refilled with row
-//       t+K;
+//       of whole 4-byte words (8- and 12-byte rows, rows or tables only 4-
+//       or 8-byte aligned): chunks of the widest of 16/8/4 bytes that
+//       divides the row and the pointers, one commit group a row,
+//       wait_group K-1 (getfin), then the slot goes through registers to the
+//       output and is refilled with row t+K;
+//     * element (`async_gather_element_kernel`): rows of any other byte
+//       count (bf16 rows of 3 elements, int8 rows of 3 bytes), or pointers
+//       only 2- or 1-byte aligned, which neither cp.async nor a bulk copy
+//       can move. The block walks its rows' elements (2 or 1 bytes, the
+//       widest that divides the row and the pointers) flat, in output order,
+//       so neighbouring threads store neighbouring elements; each thread
+//       issues 8 plain loads before their stores (8 elements in flight a
+//       thread in place of the ring's K rows);
 //   - the ragged tail of M is masked, not padded; an index outside [0, N)
 //     traps, as a device-side assert would.
 
@@ -105,6 +113,52 @@ async_gather_kernel(const unsigned char* __restrict__ table,
     for (int c = sub; c < nchunk; c += L)
       *reinterpret_cast<C*>(o + c * W) = *reinterpret_cast<const C*>(s + c * W);
     issue(t + K);                                // reuse the freed slot
+  }
+}
+
+// One element of the element path: W bytes as one load or store.
+template <int W> struct Elem;
+template <> struct Elem<1> { using type = uint8_t; };
+template <> struct Elem<2> { using type = uint16_t; };
+
+template <int W>
+__global__ void __launch_bounds__(128)
+async_gather_element_kernel(const unsigned char* __restrict__ table,
+                            const int* __restrict__ idx,
+                            unsigned char* __restrict__ out, long long N,
+                            long long M, int R, int block_m, int K, int L) {
+  using E = typename Elem<W>::type;
+  constexpr int UNROLL = 8;                      // loads in flight a thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* idx_s = reinterpret_cast<int*>(smem);
+
+  const long long base = (long long)blockIdx.x * block_m;
+  const int rows = (int)min((long long)block_m, M - base);
+  for (int t = threadIdx.x; t < rows; t += blockDim.x) idx_s[t] = idx[base + t];
+  __syncthreads();
+
+  const int nel = R / W;                         // elements a row
+  const int total = rows * nel;
+  const E* src = reinterpret_cast<const E*>(table);
+  E* dst = reinterpret_cast<E*>(out + base * R);
+  for (int f0 = threadIdx.x; f0 < total; f0 += blockDim.x * UNROLL) {
+    E x[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {           // aload
+      const int f = f0 + u * blockDim.x;
+      if (f < total) {
+        const int j = f / nel;
+        const int row = idx_s[j];
+        if ((unsigned long long)(long long)row >= (unsigned long long)N)
+          __trap();
+        x[u] = src[(long long)row * nel + (f - j * nel)];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {           // the output, in order
+      const int f = f0 + u * blockDim.x;
+      if (f < total) dst[f] = x[u];
+    }
   }
 }
 
@@ -178,7 +232,8 @@ cudaError_t launch_kernel(Kernel kernel, hopper::SmemAllowance& allowance,
 }
 
 // The allowance of each kernel, set once per device.
-hopper::SmemAllowance allow_bulk, allow_w16, allow_w8, allow_w4;
+hopper::SmemAllowance allow_bulk, allow_w16, allow_w8, allow_w4, allow_e2,
+    allow_e1;
 
 template <typename Kernel>
 cudaError_t occupancy(Kernel kernel, hopper::SmemAllowance& allowance,
@@ -192,9 +247,10 @@ cudaError_t occupancy(Kernel kernel, hopper::SmemAllowance& allowance,
 }  // namespace
 
 // bulk: 1 for the bulk-copy ring (then chunk is 16), 0 for cp.async chunks of
-// `chunk` bytes (16, 8 or 4, dividing R); block_m: rows a block; lanes: L;
-// nwarps: warps a block; smem: the block's shared memory. The wrapper plans
-// them all (`gather_plan` in async_gather.py).
+// `chunk` bytes (16, 8 or 4, dividing R) or, at `chunk` 2 or 1, the element
+// path (elements of that size; K and L unused); block_m: rows a block;
+// lanes: L; nwarps: warps a block; smem: the block's shared memory. The
+// wrapper plans them all (`gather_plan` in async_gather.py).
 extern "C" int async_gather_launch(const void* table, const void* idx,
                                    void* out, long long N, long long M, int R,
                                    int block_m, int K, int bulk, int chunk,
@@ -218,6 +274,14 @@ extern "C" int async_gather_launch(const void* table, const void* idx,
       return (int)launch_kernel(async_gather_kernel<4>, allow_w4, table, idx,
                                 out, N, M, R, block_m, K, lanes, nwarps, smem,
                                 s);
+    case 2:
+      return (int)launch_kernel(async_gather_element_kernel<2>, allow_e2,
+                                table, idx, out, N, M, R, block_m, K, lanes,
+                                nwarps, smem, s);
+    case 1:
+      return (int)launch_kernel(async_gather_element_kernel<1>, allow_e1,
+                                table, idx, out, N, M, R, block_m, K, lanes,
+                                nwarps, smem, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -238,6 +302,12 @@ extern "C" int async_gather_blocks_per_sm(int bulk, int chunk, int nwarps,
     case 4:
       return (int)occupancy(async_gather_kernel<4>, allow_w4, nwarps, smem,
                             blocks);
+    case 2:
+      return (int)occupancy(async_gather_element_kernel<2>, allow_e2, nwarps,
+                            smem, blocks);
+    case 1:
+      return (int)occupancy(async_gather_element_kernel<1>, allow_e1, nwarps,
+                            smem, blocks);
   }
   return (int)cudaErrorInvalidValue;
 }

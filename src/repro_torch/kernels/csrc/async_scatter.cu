@@ -15,9 +15,9 @@
 // The hazard on Hopper: blocks run at the same time on 132 SMs, so a row
 // updated by two blocks would race between one block's load and the other's
 // store. So the RMW leaves the SM: each update is a non-returning reduction at
-// L2 (red.global.add.f32 / .add.s32 / .xor.b32 / .xor.b64, and for f32 rows of
-// 8 or 16 bytes the vector atomicAdd(float2 / float4) of sm_90 with its result
-// unused). The L2's atomic unit orders conflicting updates to a row, so the
+// L2 (red.global.add.f32 / .add.s32 / .xor.b32 / .xor.b64 / .add.noftz.bf16x2
+// / .add.noftz.f16x2, and for f32 rows of 8 or 16 bytes the vector
+// atomicAdd(float2 / float4) of sm_90 with its result unused). The L2's atomic unit orders conflicting updates to a row, so the
 // scan, the drain and the watermark have nothing left to do.
 //
 // AMI mapping of the apply kernel (`scatter_apply_kernel`):
@@ -58,7 +58,11 @@
 // Consequences: i32 add and xor are exact whatever the order; f32 add is
 // exact per update but the additions to one row land in the order the L2
 // sees them, so a row hit more than once may differ from a sequential sum in
-// its last bits (held to the reference tests' 1e-4, SCATTER_TOL). The kernel
+// its last bits (held to the reference tests' 1e-4, SCATTER_TOL). bf16 and
+// f16 add round after every add, as the reference does in update order, but
+// in the L2's order: an element hit c times may differ from the in-order sum
+// by c rounding steps each way, at most 2 c u (1 + u)^c (|t| + sum |u_j|)
+// with u the type's unit roundoff (`ref.scatter_add16_limit`). The kernel
 // updates `table` in place (the reference's input_output_aliases={2: 0});
 // ops.scatter_update clones first.
 //
@@ -101,6 +105,22 @@ __device__ __forceinline__ void red_xor(unsigned long long* p,
   asm volatile("red.global.xor.b64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
 }
 
+// Two 16-bit elements added at once, each rounded to its type after its
+// add (bf16 on sm_90; f16 since sm_60).
+template <typename E>
+__device__ __forceinline__ void red_add2(unsigned char* p, uint32_t v) {
+  if constexpr (std::is_same_v<E, __half>)
+    asm volatile("red.global.add.noftz.f16x2 [%0], %1;\n" ::"l"(p), "r"(v)
+                 : "memory");
+  else
+    asm volatile("red.global.add.noftz.bf16x2 [%0], %1;\n" ::"l"(p), "r"(v)
+                 : "memory");
+}
+
+template <typename E>
+constexpr bool is_16bit_float =
+    std::is_same_v<E, __nv_bfloat16> || std::is_same_v<E, __half>;
+
 // The astore of one W-byte chunk, one reduction: dst op= the chunk at src.
 template <int W, int OP, typename E>
 __device__ __forceinline__ void reduce_chunk(unsigned char* dst,
@@ -118,6 +138,9 @@ __device__ __forceinline__ void reduce_chunk(unsigned char* dst,
   } else if constexpr (std::is_same_v<E, float> && W == 8) {
     (void)atomicAdd(reinterpret_cast<float2*>(dst),
                     *reinterpret_cast<const float2*>(src));
+  } else if constexpr (is_16bit_float<E>) {
+    static_assert(W == 4, "16-bit add reduces two elements at once");
+    red_add2<E>(dst, *reinterpret_cast<const uint32_t*>(src));
   } else {
     static_assert(W == 4, "int32 add reduces 4 bytes at once");
     red_add(reinterpret_cast<E*>(dst), *reinterpret_cast<const E*>(src));
@@ -534,8 +557,9 @@ cudaError_t occupancy(int smem, int* blocks) {
 
 // The instantiation for (op, dtype, chunk): one reduction a chunk, as wide
 // as the op has one (REDUCE_WIDTH in async_scatter.py): f32 add 16, 8 or 4
-// bytes (atomicAdd of float4, float2, red.add.f32), i32 add 4, i32 xor 8 or
-// 4. A wider chunk of xor or int add would be several reductions a lane at a
+// bytes (atomicAdd of float4, float2, red.add.f32), i32 add 4, bf16 and f16
+// add 4 (red.add.noftz.bf16x2 / .f16x2), i32 xor 8 or 4. (uint32 tables
+// come as int32 views: two's-complement add and xor ignore the sign.) A wider chunk of xor or int add would be several reductions a lane at a
 // stride, meeting each sector more than once.
 template <template <int, int, typename> class F, typename... A>
 cudaError_t dispatch(int op, int dtype, int chunk, A... args) {
@@ -548,6 +572,10 @@ cudaError_t dispatch(int op, int dtype, int chunk, A... args) {
   }
   if (op == OP_ADD && dtype == DTYPE_I32 && chunk == 4)
     return F<4, OP_ADD, int>::run(args...);
+  if (op == OP_ADD && dtype == DTYPE_BF16 && chunk == 4)
+    return F<4, OP_ADD, __nv_bfloat16>::run(args...);
+  if (op == OP_ADD && dtype == DTYPE_F16 && chunk == 4)
+    return F<4, OP_ADD, __half>::run(args...);
   if (op == OP_XOR && dtype == DTYPE_I32) {
     switch (chunk) {
       case 8: return F<8, OP_XOR, uint32_t>::run(args...);

@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -13,12 +14,13 @@ namespace repro {
 // the next tile's alpha = exp(-1e30 - m) = 0 wipes out.
 constexpr float NEG_INF = -1e30f;
 
-enum DType { DTYPE_F32 = 0, DTYPE_BF16 = 1, DTYPE_I32 = 2 };
+enum DType { DTYPE_F32 = 0, DTYPE_BF16 = 1, DTYPE_I32 = 2, DTYPE_F16 = 3 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
@@ -26,6 +28,9 @@ template <> __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // N elements loaded as one aligned vector (at most 16 bytes per instruction).

@@ -19,7 +19,12 @@
 // wgmma reaches the tensor cores' full rate.
 //
 // Which body runs is a fixed rule on (type, head size), stated here, in
-// `flash_attention_body` below and in the wrapper (`body_for`):
+// `flash_attention_body` below and in the wrapper (`body_for`). float16 runs
+// every body bfloat16 runs, the same code with T = __half (`Op16`): the type
+// field of mma.sync and wgmma, the rounding of P (`pack2`) and the TMA map's
+// data type are all that differ. q, k, v of more than one type never reach
+// this file: the wrapper widens them to float32 copies (exact for 16-bit
+// types, the reference's own arithmetic) and runs the float32 body.
 //
 // * float32, any D -> `flash_fma_kernel`: both products as fp32 FMAs on the
 //   CUDA cores, a 4x4 (Q K^T) and a 4x(D/16) (P V) register tile per thread,
@@ -91,9 +96,10 @@
 //   and no architecture the port serves has such heads at full size.
 //
 //
-// Every head size D from 1 to 256, as the TPU kernel takes (its BlockSpecs
-// span the whole head). Let Dp be the smallest of 16, 32, 64, 128 and 256
-// that is at least D. A launch at D runs the body above for (type, Dp),
+// Every head size D from 1 up, as the TPU kernel takes (its BlockSpecs span
+// the whole head). Let Dp be the smallest of 16, 32, 64, 128 and 256 that is
+// at least D (above 256, see "Above 256 columns" below). A launch at D runs
+// the body above for (type, Dp),
 // instantiated with EXACT = (D == Dp); the real D is a runtime argument that
 // does three things where EXACT is false, and nothing where it is true:
 //   (a) columns D .. Dp-1 load as zeros: TMA zero-fills them (the tensor
@@ -106,10 +112,29 @@
 //   (c) the scale is 1 / sqrt(D) of the real D, computed here, not of Dp.
 // TMA and cp.async move 16-byte pieces, so they take only rows of a whole
 // number of them: bf16 at D % 8 != 0 runs the fma body instead, which reads
-// either type by element and computes in fp32 (slow, and right); fp32 runs
+// any type by element and computes in fp32 (slow, and right); fp32 runs
 // the fma body at every D. So the rule, stated also in `flash_attention_body`
-// and in the wrapper's `body_for`: fp32 -> fma; bf16, D % 8 != 0 -> fma;
-// bf16, D % 8 == 0 -> wgmma where Dp >= 64, mma.sync where Dp <= 32.
+// and in the wrapper's `body_for`: fp32 -> fma; bf16 / f16, D % 8 != 0 ->
+// fma; bf16 / f16, D % 8 == 0 -> wgmma where Dp >= 64, mma.sync where Dp
+// <= 32.
+//
+// Above 256 columns (D > 256, Dp = D rounded up to WIDE_DC = 256) no block
+// can hold a whole head: the D = 256 body already keeps its 64 x 256 fp32 O
+// in 128 registers a thread, and a 64-row Q tile at D = 2048 alone is 256 KB
+// of shared memory. The launch splits the output into Dp / 256 chunks of
+// 256 columns, a grid dimension: each block computes all of S = Q K^T for
+// its query tile and applies P V to its own 256 V columns. The wgmma body
+// (`flash_wgmma_wide_kernel`, 16-bit rows of whole 16-byte pieces) streams
+// Q and K through a ring in 64-column TMA boxes, summing S over the pieces
+// in the wgmma accumulator, and V's chunk through a second ring; the fma
+// body (`flash_fma_wide_kernel`, fp32 and 16-bit rows of no whole pieces)
+// loads 64-column pieces of Q and K by element the same way. Rules (a)-(c)
+// hold for every chunk: columns past D load as zeros (TMA's zero fill, the
+// element loads' mask), a block stores only its chunk's columns < D, and
+// the scale is 1 / sqrt(D) of the whole head. The cost, beside the bound:
+// Q K^T is done once a chunk, so at D = 512 (two chunks) 1.5x the
+// operations of one pass and at D = 2048 (eight) 4.5x; and Q is read again
+// for every KV tile (from L2).
 //
 // Left for a later change: one K/V tile load serving the blocks of all the
 // query heads of a GQA group (a cluster and TMA multicast; today each of the
@@ -121,12 +146,27 @@
 // consumer warpgroups taking turns at the tensor cores (named barriers) were
 // tried and measured no faster (PERF.md).
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace repro;
+
+// The 16-bit operand types of the tensor-core bodies. bf16 and f16 take the
+// same code; they differ in the type field of mma.sync and wgmma, in the
+// rounding of P to the operand type (`pack2`) and in the TMA map's data type.
+template <typename T> struct Op16;
+template <> struct Op16<__nv_bfloat16> {
+  static constexpr bool kF16 = false;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <> struct Op16<__half> {
+  static constexpr bool kF16 = true;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
 
 constexpr int BM = 64;        // query rows per block
 constexpr int BN = 64;        // keys per tile
@@ -319,6 +359,179 @@ flash_fma_kernel(const E* __restrict__ q, const E* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// The fma body above 256 columns (fp32 at D > 256, 16-bit rows of no whole
+// 16-byte pieces, and mixed types, whose operands the wrapper widens to
+// fp32): a block owns WIDE_DC output columns [c0, c0 + WIDE_DC) of its query
+// tile. Q K^T runs over all dh columns in pieces of PW: a Q piece and a K
+// piece at a time in shared memory, the 4x4 logit tile of a thread summed
+// over the pieces; then the softmax as above and P V over the V tile's
+// WIDE_DC columns of this block only. Q is read again for every KV tile (it
+// no longer fits beside K and V) and each block of a query tile repeats
+// Q K^T: at D = 512, two chunks, 1.5x the operations of one pass.
+constexpr int WIDE_DC = 256;  // output columns a block of the wide bodies
+
+struct FmaWide {
+  static constexpr int PW = 64;                   // columns a Q K^T piece
+  static constexpr int PWS = PW + 1;              // padded row stride
+  static constexpr int VWS = WIDE_DC + 1;
+  static constexpr int WPT = WIDE_DC / 16;        // output columns a thread
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)(BM + BN) * PWS + (size_t)BN * VWS + BM * PS);
+};
+
+// rows [row0, row0 + ROWS) x columns [col0, col0 + COLS) of a [*, dh]
+// operand -> shared memory as fp32 (row stride WS), zero past S and dh
+template <typename E, int ROWS, int COLS, int WS>
+__device__ __forceinline__ void load_cols_f32(float* dst, const E* src,
+                                              long long row_stride, int row0,
+                                              int S, int col0, int dh) {
+  for (int idx = threadIdx.x; idx < ROWS * COLS; idx += NT) {
+    const int r = idx / COLS, c = idx % COLS;
+    const bool inside = row0 + r < S && col0 + c < dh;
+    dst[r * WS + c] =
+        inside ? to_float(src[(row0 + r) * row_stride + col0 + c]) : 0.f;
+  }
+}
+
+template <typename E>
+__global__ void __launch_bounds__(NT)
+flash_fma_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                      const E* __restrict__ v, E* __restrict__ o, int S,
+                      int group, int causal, int window, float scale, int dh,
+                      int chunks, long long q_sb, long long q_sh,
+                      long long q_ss, long long k_sb, long long k_sh,
+                      long long k_ss, long long v_sb, long long v_sh,
+                      long long v_ss, long long o_sb, long long o_sh,
+                      long long o_ss) {
+  constexpr int PW = FmaWide::PW, PWS = FmaWide::PWS, VWS = FmaWide::VWS;
+  constexpr int WPT = FmaWide::WPT;
+  extern __shared__ float smem_f32[];
+  float* Qs = smem_f32;
+  float* Ks = Qs + BM * PWS;
+  float* Vs = Ks + BN * PWS;
+  float* Ps = Vs + BN * VWS;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;      // heaviest tiles first
+  const int h = blockIdx.y / chunks, b = blockIdx.z;
+  const int c0 = (blockIdx.y % chunks) * WIDE_DC; // this block's columns
+  const int hk = h / group;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = qt * BM;
+  const int pieces = (dh + PW - 1) / PW;
+
+  const E* qb = q + b * q_sb + h * q_sh;
+  const E* kb = k + b * k_sb + hk * k_sh;
+  const E* vb = v + b * v_sb + hk * v_sh;
+
+  const int nkt = (S + BN - 1) / BN;
+  const int q_last = min(q0 + BM, S) - 1;
+  const int kt_hi = causal ? min(nkt, q_last / BN + 1) : nkt;
+  int kt_lo = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BN;
+
+  float m[RPT], l[RPT], acc[RPT][WPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < WPT; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int k0 = kt * BN;
+    float s[RPT][CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
+    for (int p = 0; p < pieces; ++p) {            // Q K^T, a piece at a time
+      __syncthreads();            // the last piece's (or tile's) readers
+      load_cols_f32<E, BM, PW, PWS>(Qs, qb, q_ss, q0, S, p * PW, dh);
+      load_cols_f32<E, BN, PW, PWS>(Ks, kb, k_ss, k0, S, p * PW, dh);
+      __syncthreads();
+#pragma unroll 4
+      for (int w = 0; w < PW; ++w) {
+        float a[RPT], bb[CPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) a[i] = Qs[(ty * RPT + i) * PWS + w];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) bb[j] = Ks[(tx + 16 * j) * PWS + w];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
+      }
+    }
+    load_cols_f32<E, BN, WIDE_DC, VWS>(Vs, vb, v_ss, k0, S, c0, dh);
+
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {               // mask, online softmax
+      const int r = q0 + ty * RPT + i;
+      float tmax = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int c = k0 + tx + 16 * j;
+        bool ok = c < S;
+        if (causal) ok = ok && (c <= r);
+        if (window > 0) ok = ok && (c > r - window);
+        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
+        tmax = fmaxf(tmax, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      const float m_new = fmaxf(m[i], tmax);
+      const float alpha = expf(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const float pv = expf(s[i][j] - m_new);
+        psum += pv;
+        Ps[(ty * RPT + i) * PS + tx + 16 * j] = pv;
+      }
+      l[i] = l[i] * alpha + psum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < WPT; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+    // acc += P V over this block's columns: output column c0 + tx + 16 jj
+#pragma unroll 4
+    for (int n = 0; n < BN; ++n) {
+      float pr[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) pr[i] = Ps[(ty * RPT + i) * PS + n];
+#pragma unroll
+      for (int jj = 0; jj < WPT; ++jj) {
+        const float vv = Vs[n * VWS + tx + 16 * jj];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) acc[i][jj] = fmaf(pr[i], vv, acc[i][jj]);
+      }
+    }
+  }
+
+  E* ob = o + b * o_sb + h * o_sh + c0;           // this block's chunk
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    float lsum = l[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
+    const float inv = 1.f / fmaxf(lsum, 1e-30f);
+    const int r = q0 + ty * RPT + i;
+    if (r < S) {
+#pragma unroll
+      for (int jj = 0; jj < WPT; ++jj) {
+        const int c = tx + 16 * jj;
+        if (c0 + c < dh) ob[r * o_ss + c] = from_float<E>(acc[i][jj] * inv);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bfloat16 on the tensor cores. Block = 4 warps x 16 query rows.
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row): a0 = (g, 2t..2t+1)  a1 = (g+8, 2t..)  a2 = (g, 2t+8..)
@@ -333,14 +546,21 @@ constexpr int MMA_NT = 128;
 constexpr int SLOTS = 2;      // K/V tiles in flight or in use (the slot ring)
 static_assert(BM == BN, "the Q tile borrows a K slot");
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <typename T>
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+#define MMA_16816(TY)                                                     \
+  asm volatile(                                                           \
+      "mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "          \
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+  if constexpr (Op16<T>::kF16)
+    MMA_16816("f16");
+  else
+    MMA_16816("bf16");
+#undef MMA_16816
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
@@ -353,9 +573,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+// lo and hi rounded to T, packed into one register (lo in the low half)
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (Op16<T>::kF16) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
 }
 
 template <int D> struct MmaCfg {
@@ -385,12 +612,11 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// issue the copies of rows [row0, row0 + BN) of a [*, D] bf16 operand into a
-// shared tile; rows past S and, unless EXACT, the 16-byte pieces at or past
+// issue the copies of rows [row0, row0 + BN) of a [*, D] 16-bit operand into
+// a shared tile; rows past S and, unless EXACT, the 16-byte pieces at or past
 // column dh (a multiple of 8) are zero-filled. Returns at once.
-template <int D, bool EXACT>
-__device__ __forceinline__ void issue_tile(uint32_t* dst,
-                                           const __nv_bfloat16* src,
+template <typename T, int D, bool EXACT>
+__device__ __forceinline__ void issue_tile(uint32_t* dst, const T* src,
                                            long long row_stride, int row0,
                                            int S, int dh) {
   constexpr int CPR = D / 8;                      // 16-byte chunks per row
@@ -404,12 +630,11 @@ __device__ __forceinline__ void issue_tile(uint32_t* dst,
   }
 }
 
-template <int D, bool EXACT>
+template <typename T, int D, bool EXACT>
 __global__ void __launch_bounds__(MMA_NT)
-flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int S, int group, int causal,
+flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int S,
+                 int group, int causal,
                  int window, float scale, int dh, long long q_sb, long long q_sh,
                  long long q_ss, long long k_sb, long long k_sh,
                  long long k_ss, long long v_sb, long long v_sh,
@@ -430,11 +655,11 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, t = lane & 3;
   const int q0 = qt * BM;
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + hk * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + hk * v_sh;
+  const T* qb = q + b * q_sb + h * q_sh;
+  const T* kb = k + b * k_sb + hk * k_sh;
+  const T* vb = v + b * v_sb + hk * v_sh;
 
-  issue_tile<D, EXACT>(Qs, qb, q_ss, q0, S, dh);
+  issue_tile<T, D, EXACT>(Qs, qb, q_ss, q0, S, dh);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -467,8 +692,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
   auto issue = [&](int kt) {          // aload of KV tile kt into its slot
     uint32_t* slot = smem + ((kt - kt_lo) % SLOTS) * 2 * TILE;
-    issue_tile<D, EXACT>(slot, kb, k_ss, kt * BN, S, dh);
-    issue_tile<D, EXACT>(slot + TILE, vb, v_ss, kt * BN, S, dh);
+    issue_tile<T, D, EXACT>(slot, kb, k_ss, kt * BN, S, dh);
+    issue_tile<T, D, EXACT>(slot + TILE, vb, v_ss, kt * BN, S, dh);
     cp_async_commit();
   };
   issue(kt_lo);
@@ -493,7 +718,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         const uint32_t* kp = Ks + (n * 8 + g) * WS + ks * 8 + t;
-        mma_bf16_16816(s[n], qa[ks], kp[0], kp[4]);
+        mma_16816<T>(s[n], qa[ks], kp[0], kp[4]);
       }
     }
 
@@ -548,10 +773,10 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      pa[0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
       // lanes 0-7, 8-15, 16-23, 24-31 address the rows of four 8x8 blocks:
       // keys +0 / +8 of d-block 2dp, then keys +0 / +8 of d-block 2dp+1
       const uint32_t* vrow =
@@ -561,8 +786,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int dp = 0; dp < DB / 2; ++dp) {
         uint32_t vfrag[4];
         ldmatrix_x4_trans(vfrag, vrow + dp * 8);
-        mma_bf16_16816(acc[2 * dp], pa, vfrag[0], vfrag[1]);
-        mma_bf16_16816(acc[2 * dp + 1], pa, vfrag[2], vfrag[3]);
+        mma_16816<T>(acc[2 * dp], pa, vfrag[0], vfrag[1]);
+        mma_16816<T>(acc[2 * dp + 1], pa, vfrag[2], vfrag[3]);
       }
     }
     __syncthreads();              // this slot is free for the tile after next
@@ -574,17 +799,17 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+  T* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
   for (int d = 0; d < DB; ++d) {
     const int col = d * 8 + 2 * t;
     if (!EXACT && col >= dh) break;     // past the head: the next one's
     if (r0 < S)
       *reinterpret_cast<uint32_t*>(ob + r0 * o_ss + col) =
-          pack_bf16(acc[d][0] * inv0, acc[d][1] * inv0);
+          pack2<T>(acc[d][0] * inv0, acc[d][1] * inv0);
     if (r1 < S)
       *reinterpret_cast<uint32_t*>(ob + r1 * o_ss + col) =
-          pack_bf16(acc[d][2] * inv1, acc[d][3] * inv1);
+          pack2<T>(acc[d][2] * inv1, acc[d][3] * inv1);
   }
 }
 
@@ -619,110 +844,112 @@ template <int D> struct Cfg {
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
 
+// The accumulator lists of the wgmma statements below: 64 (N = 128) or 32
+// (N = 64) fp32 registers of one thread.
+#define ACC64_REGS \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, " \
+  "%40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, " \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define ACC64_OUT(d) \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+    "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+    "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+    "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+    "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+    "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+    "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define ACC32_REGS \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
+#define ACC32_OUT(d) \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+    "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+    "+f"(d[30]), "+f"(d[31])
+
 // S[64 x N] (+)= A[64 x 16] B[16 x N], N = 128 or 64 keys: A and B from
 // shared memory, both K-major; scale_d 0 overwrites S, 1 accumulates.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define WGMMA_SS_128(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY   \
+               " " ACC64_REGS ", %64, %65, p, 1, 1, 0, 0;\n}\n"            \
+               : ACC64_OUT(d)                                             \
+               : "l"(da), "l"(db), "r"(scale_d))
+  if constexpr (Op16<T>::kF16)
+    WGMMA_SS_128("f16");
+  else
+    WGMMA_SS_128("bf16");
+#undef WGMMA_SS_128
 }
 
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define WGMMA_SS_64(TY)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
+               " " ACC32_REGS ", %32, %33, p, 1, 1, 0, 0;\n}\n"            \
+               : ACC32_OUT(d)                                             \
+               : "l"(da), "l"(db), "r"(scale_d))
+  if constexpr (Op16<T>::kF16)
+    WGMMA_SS_64("f16");
+  else
+    WGMMA_SS_64("bf16");
+#undef WGMMA_SS_64
 }
 
 // O[64 x N] += A[64 x 16] B[16 x N], N = 64 or 128: A from registers (the
 // fragment of mma.sync's A, one 16-row slice a warp), B from shared memory
 // MN-major (transposed: N within the row, 64 columns a swizzle atom, the
 // atoms `lbo` bytes apart in the descriptor).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define WGMMA_RS_128(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY   \
+               " " ACC64_REGS ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+               : ACC64_OUT(d)                                             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (Op16<T>::kF16)
+    WGMMA_RS_128("f16");
+  else
+    WGMMA_RS_128("bf16");
+#undef WGMMA_RS_128
 }
 
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define WGMMA_RS_64(TY)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
+               " " ACC32_REGS ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+               : ACC32_OUT(d)                                             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (Op16<T>::kF16)
+    WGMMA_RS_64("f16");
+  else
+    WGMMA_RS_64("bf16");
+#undef WGMMA_RS_64
 }
 
 // O += P V for one 16-key step of a V tile whose 64-column boxes lie
@@ -731,17 +958,17 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
 // in one asm statement) one m64n64k16 a box, whose accumulators are
 // oacc[32x .. 32x + 31], the same layout as columns 64x .. 64x + 63 of one
 // N = 256 instruction.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wgmma_pv(float (&oacc)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint32_t v_addr, uint32_t box_bytes) {
   if constexpr (D <= 128) {
-    wgmma_rs_tb(oacc, a, hopper::wgmma_desc_sw128(v_addr, box_bytes));
+    wgmma_rs_tb<T>(oacc, a, hopper::wgmma_desc_sw128(v_addr, box_bytes));
   } else {
 #pragma unroll
     for (int x = 0; x < D / BOX; ++x)
-      wgmma_rs_tb(*reinterpret_cast<float(*)[32]>(&oacc[32 * x]), a,
-                  hopper::wgmma_desc_sw128(v_addr + x * box_bytes));
+      wgmma_rs_tb<T>(*reinterpret_cast<float(*)[32]>(&oacc[32 * x]), a,
+                     hopper::wgmma_desc_sw128(v_addr + x * box_bytes));
   }
 }
 
@@ -758,12 +985,12 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
 
 }  // namespace wg
 
-template <int D, bool EXACT>
+template <typename T, int D, bool EXACT>
 __global__ void __launch_bounds__(wg::Cfg<D>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, int S, int group,
+                   T* __restrict__ o, int S, int group,
                    int causal, int window, float scale_log2, int dh, int q_pos,
                    int k_pos, int v_pos, long long o_sb, long long o_sh,
                    long long o_ss) {
@@ -862,7 +1089,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         const uint32_t off = (ks % 4) * 32;     // 16 columns, 32 bytes
-        wgmma_ss(
+        wgmma_ss<T>(
             sacc, wgmma_desc_sw128(q_addr + (ks / 4) * BM * ROW + off),
             wgmma_desc_sw128(k_addr + (ks / 4) * BN * ROW + off), ks > 0);
       }
@@ -921,8 +1148,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         ps1 += p2 + p3;
         // keys 16kk .. 16kk+15 are column blocks 2kk (a0, a1) and 2kk+1
         // (a2, a3), rows g (a0, a2) and g + 8 (a1, a3)
-        pa[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
-        pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+        pa[j / 2][(j & 1) * 2] = pack2<T>(p0, p1);
+        pa[j / 2][(j & 1) * 2 + 1] = pack2<T>(p2, p3);
       }
       l0 = l0 * alpha0 + ps0;                     // this lane's share
       l1 = l1 * alpha1 + ps1;
@@ -940,7 +1167,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wg::wgmma_pv<D>(oacc, pa[kk], v_addr + kk * 16 * ROW, BN * ROW);
+        wg::wgmma_pv<T, D>(oacc, pa[kk], v_addr + kk * 16 * ROW, BN * ROW);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(oacc);
@@ -955,29 +1182,269 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+  T* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * t;
     if (!EXACT && col >= dh) break;     // columns dh.. are another head's
     if (r0 < S)
       *reinterpret_cast<uint32_t*>(ob + r0 * o_ss + col) =
-          pack_bf16(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
+          pack2<T>(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
     if (r1 < S)
       *reinterpret_cast<uint32_t*>(ob + r1 * o_ss + col) =
-          pack_bf16(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
+          pack2<T>(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
   }
 }
 
-// The tensor map of a [B, H, S, D] bf16 operand with element strides (sb,
+// The wgmma body above 256 columns (16-bit rows of whole 16-byte pieces at
+// D > 256): a block of one consumer warpgroup and one producer warp owns
+// WIDE_DC output columns [c0, c0 + WIDE_DC) of its 64-row query tile, as the
+// D = 256 body owns all of them. What changes is where Q K^T comes from:
+//   - Q and K stream through a ring of QK_STAGES stages, each one 64-column
+//     TMA box of the query tile and one of the KV tile, so neither Q nor K
+//     has to fit whole (at D = 2048 a 64-row Q tile alone is 256 KB);
+//   - S = Q K^T is summed over the dh / 64 pieces in the wgmma accumulator
+//     (scale_d 0 at the first k-step of the first piece);
+//   - V comes as the tile's WIDE_DC columns of this block only, through its
+//     own ring of V_STAGES stages, four boxes a stage;
+//   - the softmax and P V are the D = 256 body's (64 x 64 tiles, P from
+//     registers, V MN-major), the output stored at columns c0 + col < dh.
+// The cost: every block of a query tile computes all of Q K^T, and Q is
+// loaded again for every KV tile (from L2: the tile's blocks share it).
+namespace wg {
+struct Wide {
+  static constexpr int QK_STAGES = 4;             // (Q, K) pieces in flight
+  static constexpr int V_STAGES = 2;              // V chunks in flight
+  static constexpr int BM = 64, BN = 64;          // query rows, keys a tile
+  static constexpr int THREADS = 128 + 32;        // consumers + producer
+  static constexpr int PRODUCER = 4;              // the producer's warp
+  static constexpr int PIECE = 64 * ROW;          // one 64 x 64 box
+  static constexpr int QK_STAGE = 2 * PIECE;      // a Q box, then a K box
+  static constexpr int V_BOXES = WIDE_DC / BOX;
+  static constexpr int V_STAGE = V_BOXES * PIECE;
+  static constexpr int SMEM =
+      1024 + QK_STAGES * QK_STAGE + V_STAGES * V_STAGE;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+};
+}  // namespace wg
+
+template <typename T>
+__global__ void __launch_bounds__(wg::Wide::THREADS, 1)
+flash_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        T* __restrict__ o, int S, int group, int causal,
+                        int window, float scale_log2, int dh, int chunks,
+                        int q_pos, int k_pos, int v_pos, long long o_sb,
+                        long long o_sh, long long o_ss) {
+  using namespace hopper;
+  using wg::load_box;
+  using wg::NO_KEY;
+  using wg::wgmma_ss;
+  using W = wg::Wide;
+  constexpr int BM = W::BM, BN = W::BN, BOX = wg::BOX, ROW = wg::ROW;
+  constexpr int SQ = W::QK_STAGES, SV = W::V_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t qk_full[SQ], qk_empty[SQ], v_full[SV],
+      v_empty[SV];
+  const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
+  unsigned char* QK = smem_raw + pad;             // stage s: Q box, K box
+  unsigned char* Vs = QK + SQ * W::QK_STAGE;      // stage s: 4 V boxes
+
+  const int qt = gridDim.z - 1 - blockIdx.z;      // heaviest tiles first
+  const int h = blockIdx.x / chunks, b = blockIdx.y;
+  const int c0 = (blockIdx.x % chunks) * WIDE_DC; // this block's columns
+  const int hk = h / group;
+  const int q0 = qt * BM;
+  const int pieces = (dh + BOX - 1) / BOX;        // 64-column pieces of Q K^T
+  const int nkt = (S + BN - 1) / BN;
+  const int q_last = min(q0 + BM, S) - 1;
+  const int kt_hi = causal ? min(nkt, q_last / BN + 1) : nkt;
+  int kt_lo = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BN;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < SQ; ++s) {
+      mbar_init(&qk_full[s], 1);
+      mbar_init(&qk_empty[s], 4);                 // one arrival a warp
+    }
+#pragma unroll
+    for (int s = 0; s < SV; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], 4);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == W::PRODUCER) {                      // aload, one lane
+    if (lane == 0) {
+      int n = 0;                                  // (Q, K) pieces issued
+      for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
+        for (int p = 0; p < pieces; ++p, ++n) {
+          const int s = n % SQ;
+          mbar_wait(&qk_empty[s], ((n / SQ) & 1) ^ 1);
+          mbar_arrive_expect_tx(&qk_full[s], W::QK_STAGE);
+          unsigned char* st = QK + s * W::QK_STAGE;
+          load_box(st, &tq, &qk_full[s], q_pos, p * BOX, q0, h, b);
+          load_box(st + W::PIECE, &tk, &qk_full[s], k_pos, p * BOX, kt * BN,
+                   hk, b);
+        }
+        const int s = i % SV;
+        mbar_wait(&v_empty[s], ((i / SV) & 1) ^ 1);
+        mbar_arrive_expect_tx(&v_full[s], W::V_STAGE);
+#pragma unroll
+        for (int x = 0; x < W::V_BOXES; ++x)
+          load_box(Vs + s * W::V_STAGE + x * W::PIECE, &tv, &v_full[s], v_pos,
+                   c0 + x * BOX, kt * BN, hk, b);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: rows q0 .. q0 + 63, this thread rows r0, r1 of
+  // its warp's 16 (the accumulator layout of the D = 256 body)
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  float oacc[WIDE_DC / 2];                        // O: 64 x WIDE_DC
+#pragma unroll
+  for (int i = 0; i < WIDE_DC / 2; ++i) oacc[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // log2 units
+
+  int n = 0;                                      // (Q, K) pieces taken
+  for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
+    const int k0 = kt * BN;
+    // a tile every key of which is masked for all 64 rows is skipped
+    const bool dead = (causal && k0 > q0 + 63) ||
+                      (window > 0 && k0 + BN + window <= q0 + 1);
+    float sacc[BN / 2];
+    for (int p = 0; p < pieces; ++p, ++n) {       // S = Q K^T, piece by piece
+      const int s = n % SQ;
+      mbar_wait(&qk_full[s], (n / SQ) & 1);       // getfin
+      if (!dead) {
+        const uint32_t qa = smem_u32(QK + s * W::QK_STAGE);
+        const uint32_t ka = qa + W::PIECE;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)            // 16 columns, 32 bytes
+          wgmma_ss<T>(sacc, wgmma_desc_sw128(qa + ks * 32),
+                      wgmma_desc_sw128(ka + ks * 32), p > 0 || ks > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sacc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&qk_empty[s]);   // this warp is done with s
+    }
+    const int sv = i % SV;
+    mbar_wait(&v_full[sv], (i / SV) & 1);
+    if (!dead) {
+      // masks where the tile straddles S, the diagonal or the window edge
+      const bool edge = k0 + BN > S || (causal && k0 + BN - 1 > q0) ||
+                        (window > 0 && k0 + window <= q0 + 63);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int col = k0 + 8 * j + 2 * t + (c & 1);
+            const int r = c < 2 ? r0 : r1;
+            bool ok = col < S;
+            if (causal) ok = ok && col <= r;
+            if (window > 0) ok = ok && col > r - window;
+            if (!ok) sacc[4 * j + c] = NEG_INF;
+          }
+      }
+      float tmax0 = NEG_INF, tmax1 = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        tmax0 = fmaxf(tmax0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+        tmax1 = fmaxf(tmax1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, off));
+        tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, off));
+      }
+      const float mn0 = fmaxf(m0, tmax0 * scale_log2);
+      const float mn1 = fmaxf(m1, tmax1 * scale_log2);
+      const float alpha0 = fast_exp2(m0 - mn0), alpha1 = fast_exp2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      // a row that has met no key yet subtracts 0 (see the D = 256 body)
+      const float sub0 = mn0 > NO_KEY ? mn0 : 0.f;
+      const float sub1 = mn1 > NO_KEY ? mn1 : 0.f;
+      float ps0 = 0.f, ps1 = 0.f;
+      uint32_t pa[BN / 16][4];                    // P as wgmma's A fragments
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float p0 = fast_exp2(fmaf(sacc[4 * j], scale_log2, -sub0));
+        const float p1 = fast_exp2(fmaf(sacc[4 * j + 1], scale_log2, -sub0));
+        const float p2 = fast_exp2(fmaf(sacc[4 * j + 2], scale_log2, -sub1));
+        const float p3 = fast_exp2(fmaf(sacc[4 * j + 3], scale_log2, -sub1));
+        ps0 += p0 + p1;
+        ps1 += p2 + p3;
+        pa[j / 2][(j & 1) * 2] = pack2<T>(p0, p1);
+        pa[j / 2][(j & 1) * 2 + 1] = pack2<T>(p2, p3);
+      }
+      l0 = l0 * alpha0 + ps0;
+      l1 = l1 * alpha1 + ps1;
+#pragma unroll
+      for (int j = 0; j < WIDE_DC / 8; ++j) {
+        oacc[4 * j] *= alpha0;
+        oacc[4 * j + 1] *= alpha0;
+        oacc[4 * j + 2] *= alpha1;
+        oacc[4 * j + 3] *= alpha1;
+      }
+      // O += P V over this block's columns: four 16-key steps of the
+      // stage's four V boxes, PIECE bytes apart
+      const uint32_t v_addr = smem_u32(Vs + sv * W::V_STAGE);
+      fence_regs(oacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wg::wgmma_pv<T, WIDE_DC>(oacc, pa[kk], v_addr + kk * 16 * ROW,
+                                 W::PIECE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(oacc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&v_empty[sv]);
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  T* ob = o + b * o_sb + h * o_sh + c0;           // this block's chunk
+#pragma unroll
+  for (int j = 0; j < WIDE_DC / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (c0 + col >= dh) break;          // past the head, or another chunk's
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(ob + r0 * o_ss + col) =
+          pack2<T>(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
+    if (r1 < S)
+      *reinterpret_cast<uint32_t*>(ob + r1 * o_ss + col) =
+          pack2<T>(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
+  }
+}
+
+// The tensor map of a [B, H, S, D] 16-bit operand with element strides (sb,
 // sh, ss, 1): dims innermost first, D then the other three by ascending
 // stride, so that the map is a packed order whatever the caller's layout
 // (the model hands over [B, S, H, D] viewed as [B, H, S, D]). Boxes of 64
 // columns x `rows` rows of one head of one batch. `pos` gets the places of S,
 // H and B (2 bits each).
-cudaError_t flash_map(CUtensorMap* map, const void* base, int D, int S, int H,
-                      int B, long long sb, long long sh, long long ss,
-                      int rows, int* pos) {
+cudaError_t flash_map(CUtensorMap* map, CUtensorMapDataType type,
+                      const void* base, int D, int S, int H, int B,
+                      long long sb, long long sh, long long ss, int rows,
+                      int* pos) {
   struct Dim {
     long long stride;
     int size, box, which;
@@ -998,54 +1465,91 @@ cudaError_t flash_map(CUtensorMap* map, const void* base, int D, int S, int H,
     box[i + 1] = (cuuint32_t)dim[i].box;
     *pos |= (i + 1) << (2 * dim[i].which);
   }
-  return hopper::encode_tensor_map_bf16(map, base, 4, dims, strides, box);
+  return hopper::encode_tensor_map(map, type, 4, base, dims, strides, box,
+                                   CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The three maps of a launch; their innermost extent is dh, so TMA
+// zero-fills the columns of a box past the head.
+cudaError_t flash_maps(CUtensorMapDataType type, const void* q,
+                       const void* k, const void* v, int B, int Hq, int Hkv,
+                       int S, int dh, const long long* st, int q_rows,
+                       int kv_rows, CUtensorMap* tq, CUtensorMap* tk,
+                       CUtensorMap* tv, int* pos) {
+  cudaError_t err;
+  if ((err = flash_map(tq, type, q, dh, S, Hq, B, st[0], st[1], st[2],
+                       q_rows, &pos[0])) != cudaSuccess ||
+      (err = flash_map(tk, type, k, dh, S, Hkv, B, st[3], st[4], st[5],
+                       kv_rows, &pos[1])) != cudaSuccess)
+    return err;
+  return flash_map(tv, type, v, dh, S, Hkv, B, st[6], st[7], st[8], kv_rows,
+                   &pos[2]);
 }
 
 // Every launch function takes the real head size dh (<= D) and the scale
 // 1 / sqrt(dh); D is the body's (Dp of the note at the top).
-template <int D, bool EXACT>
+template <typename T, int D, bool EXACT>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          int B, int Hq, int Hkv, int S, int dh, int causal,
                          int window, float scale, const long long* st,
                          cudaStream_t stream) {
   using C = wg::Cfg<D>;
   static hopper::SmemAllowance allowance;
-  auto kernel = flash_wgmma_kernel<D, EXACT>;
+  auto kernel = flash_wgmma_kernel<T, D, EXACT>;
   cudaError_t err = hopper::allow_smem(allowance, kernel, C::SMEM);
   if (err != cudaSuccess) return err;
-  // the maps' innermost extent is dh: TMA zero-fills columns dh .. D-1
   CUtensorMap tq, tk, tv;
-  int q_pos, k_pos, v_pos;
-  if ((err = flash_map(&tq, q, dh, S, Hq, B, st[0], st[1], st[2], C::BM,
-                       &q_pos)) != cudaSuccess ||
-      (err = flash_map(&tk, k, dh, S, Hkv, B, st[3], st[4], st[5], C::BN,
-                       &k_pos)) != cudaSuccess ||
-      (err = flash_map(&tv, v, dh, S, Hkv, B, st[6], st[7], st[8], C::BN,
-                       &v_pos)) != cudaSuccess)
+  int pos[3];
+  if ((err = flash_maps(Op16<T>::kMap, q, k, v, B, Hq, Hkv, S, dh, st,
+                        C::BM, C::BN, &tq, &tk, &tv, pos)) != cudaSuccess)
     return err;
   dim3 grid(Hq, B, (S + C::BM - 1) / C::BM);     // query tiles last
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Hq / Hkv, causal, window,
-      scale * 1.4426950408889634f, dh, q_pos, k_pos, v_pos, st[9], st[10],
+      tq, tk, tv, static_cast<T*>(o), S, Hq / Hkv, causal, window,
+      scale * 1.4426950408889634f, dh, pos[0], pos[1], pos[2], st[9], st[10],
       st[11]);
   return cudaGetLastError();
 }
 
-template <int D, bool EXACT>
+// D > 256: `chunks` blocks of WIDE_DC columns for every (head, query tile)
+template <typename T>
+cudaError_t launch_wgmma_wide(const void* q, const void* k, const void* v,
+                              void* o, int B, int Hq, int Hkv, int S, int dh,
+                              int causal, int window, float scale,
+                              const long long* st, cudaStream_t stream) {
+  using W = wg::Wide;
+  static hopper::SmemAllowance allowance;
+  auto kernel = flash_wgmma_wide_kernel<T>;
+  cudaError_t err = hopper::allow_smem(allowance, kernel, W::SMEM);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  int pos[3];
+  if ((err = flash_maps(Op16<T>::kMap, q, k, v, B, Hq, Hkv, S, dh, st,
+                        W::BM, W::BN, &tq, &tk, &tv, pos)) != cudaSuccess)
+    return err;
+  const int chunks = (dh + WIDE_DC - 1) / WIDE_DC;
+  dim3 grid(Hq * chunks, B, (S + W::BM - 1) / W::BM);
+  kernel<<<grid, W::THREADS, W::SMEM, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), S, Hq / Hkv, causal, window,
+      scale * 1.4426950408889634f, dh, chunks, pos[0], pos[1], pos[2], st[9],
+      st[10], st[11]);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool EXACT>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        int B, int Hq, int Hkv, int S, int dh, int causal,
                        int window, float scale, const long long* st,
                        cudaStream_t stream) {
   static hopper::SmemAllowance allowance;
-  auto kernel = flash_mma_kernel<D, EXACT>;
+  auto kernel = flash_mma_kernel<T, D, EXACT>;
   const size_t smem = MmaCfg<D>::SMEM;
   cudaError_t err = hopper::allow_smem(allowance, kernel, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BM - 1) / BM, Hq, B);
-  using bf16 = __nv_bfloat16;
   kernel<<<grid, MMA_NT, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, Hq / Hkv, causal,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), S, Hq / Hkv, causal,
       window, scale, dh, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
@@ -1070,26 +1574,110 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <typename E>
+cudaError_t launch_fma_wide(const void* q, const void* k, const void* v,
+                            void* o, int B, int Hq, int Hkv, int S, int dh,
+                            int causal, int window, float scale,
+                            const long long* st, cudaStream_t stream) {
+  static hopper::SmemAllowance allowance;
+  auto kernel = flash_fma_wide_kernel<E>;
+  const size_t smem = FmaWide::SMEM;
+  cudaError_t err = hopper::allow_smem(allowance, kernel, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (dh + WIDE_DC - 1) / WIDE_DC;
+  dim3 grid((S + BM - 1) / BM, Hq * chunks, B);
+  kernel<<<grid, NT, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<E*>(o), S, Hq / Hkv, causal,
+      window, scale, dh, chunks, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], st[10], st[11]);
+  return cudaGetLastError();
+}
+
 enum Body { BODY_NONE = -1, BODY_FMA = 0, BODY_WGMMA = 1, BODY_MMA = 2 };
 
-// Dp of the note at the top: the body's head size for a launch at D; 0 for
-// a D no body takes.
+// Dp of the note at the top: the body's head size for a launch at D (above
+// 256, the WIDE_DC-column chunks that cover it); 0 for D < 1.
 int padded(int D) {
-  for (int p = 16; p <= 256; p *= 2)
+  if (D > WIDE_DC) return (D + WIDE_DC - 1) / WIDE_DC * WIDE_DC;
+  for (int p = 16; p <= WIDE_DC; p *= 2)
     if (D >= 1 && D <= p) return p;
   return 0;
 }
 
 // The fixed rule of the note at the top: float32 -> fma at every head size;
-// bfloat16 -> fma where D % 8 != 0 (rows of no whole number of 16-byte
-// pieces), else wgmma at Dp >= 64 and mma.sync at Dp <= 32.
+// bfloat16 and float16 -> fma where D % 8 != 0 (rows of no whole number of
+// 16-byte pieces), else wgmma at Dp >= 64 and mma.sync at Dp <= 32.
 Body body_for(int dtype, int D) {
   const int Dp = padded(D);
   if (Dp == 0) return BODY_NONE;
   if (dtype == DTYPE_F32) return BODY_FMA;
-  if (dtype == DTYPE_BF16)
+  if (dtype == DTYPE_BF16 || dtype == DTYPE_F16)
     return D % 8 ? BODY_FMA : Dp >= 64 ? BODY_WGMMA : BODY_MMA;
   return BODY_NONE;
+}
+
+// The launch of `body` at Dp for operands of type E.
+template <typename E>
+int launch_typed(Body body, int Dp, const void* q, const void* k,
+                 const void* v, void* o, int B, int Hq, int Hkv, int S, int D,
+                 int causal, int window, float scale, const long long* st,
+                 cudaStream_t s) {
+#define FLASH_ARGS q, k, v, o, B, Hq, Hkv, S, D, causal, window, scale, st, s
+#define FLASH_CASE(LAUNCH, DIM)                                          \
+  case DIM:                                                              \
+    return static_cast<int>(Dp == D ? LAUNCH<E, DIM, true>(FLASH_ARGS)   \
+                                    : LAUNCH<E, DIM, false>(FLASH_ARGS))
+#define FMA_CASE(DIM)                                                    \
+  case DIM:                                                              \
+    return static_cast<int>(Dp == D ? launch_fma<DIM, true, E>(FLASH_ARGS) \
+                                    : launch_fma<DIM, false, E>(FLASH_ARGS))
+#define FMA_PADDED(DIM) \
+  case DIM:             \
+    return static_cast<int>(launch_fma<DIM, false, E>(FLASH_ARGS))
+  constexpr bool kF32 = std::is_same_v<E, float>;
+  if (body == BODY_FMA) {
+    if (Dp > WIDE_DC) return static_cast<int>(launch_fma_wide<E>(FLASH_ARGS));
+    if constexpr (kF32) {
+      switch (Dp) {
+        FMA_CASE(16);
+        FMA_CASE(32);
+        FMA_CASE(64);
+        FMA_CASE(128);
+        FMA_CASE(256);
+      }
+    } else {                       // 16-bit rows of no whole 16-byte pieces
+      switch (Dp) {
+        FMA_PADDED(16);
+        FMA_PADDED(32);
+        FMA_PADDED(64);
+        FMA_PADDED(128);
+        FMA_PADDED(256);
+      }
+    }
+  }
+  if constexpr (!kF32) {
+    if (body == BODY_WGMMA) {
+      if (Dp > WIDE_DC)
+        return static_cast<int>(launch_wgmma_wide<E>(FLASH_ARGS));
+      switch (Dp) {
+        FLASH_CASE(launch_wgmma, 64);
+        FLASH_CASE(launch_wgmma, 128);
+        FLASH_CASE(launch_wgmma, 256);
+      }
+    }
+    if (body == BODY_MMA) {
+      switch (Dp) {
+        FLASH_CASE(launch_mma, 16);
+        FLASH_CASE(launch_mma, 32);
+      }
+    }
+  }
+  return -1;
+#undef FMA_PADDED
+#undef FMA_CASE
+#undef FLASH_CASE
+#undef FLASH_ARGS
 }
 
 }  // namespace
@@ -1100,13 +1688,14 @@ extern "C" int flash_attention_body(int dtype, int D) {
   return static_cast<int>(body_for(dtype, D));
 }
 
-// q, o [B, Hq, S, D]; k, v [B, Hkv, S, D], D in 1 .. 256; last stride 1, the
-// others given in elements as strides = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
-// v_sb, v_sh, v_ss, o_sb, o_sh, o_ss}: for the wgmma and mma bodies multiples
-// of 8 (16 bytes) with starts 16-byte aligned, for the fma body anything
-// (fp32 at D of 16, 32, 64, 128 or 256: multiples of 4, starts 16-byte
-// aligned). The scale is 1 / sqrt(D). Returns 0 or a cudaError_t; -1 for a
-// head size or type it does not take.
+// q, o [B, Hq, S, D]; k, v [B, Hkv, S, D], D >= 1, all of one type (float32,
+// bfloat16 or float16: the wrapper widens mixed types to float32); last
+// stride 1, the others given in elements as strides = {q_sb, q_sh, q_ss,
+// k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss}: for the wgmma and
+// mma bodies multiples of 8 (16 bytes) with starts 16-byte aligned, for the
+// fma body anything (fp32 at D of 16, 32, 64, 128 or 256: multiples of 4,
+// starts 16-byte aligned). The scale is 1 / sqrt(D). Returns 0 or a
+// cudaError_t; -1 for a head size or type it does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int S, int D, int causal,
@@ -1115,58 +1704,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int Dp = padded(D);
   const float scale = static_cast<float>(1.0 / sqrt((double)D));
-#define FLASH_ARGS q, k, v, o, B, Hq, Hkv, S, D, causal, window, scale, strides, s
-#define FLASH_CASE(LAUNCH, DIM)                                          \
-  case DIM:                                                              \
-    return static_cast<int>(Dp == D ? LAUNCH<DIM, true>(FLASH_ARGS)      \
-                                    : LAUNCH<DIM, false>(FLASH_ARGS))
-#define FMA_CASE(TYPE, DIM)                                              \
-  case DIM:                                                              \
-    return static_cast<int>(                                             \
-        Dp == D ? launch_fma<DIM, true, TYPE>(FLASH_ARGS)                \
-                : launch_fma<DIM, false, TYPE>(FLASH_ARGS))
-#define FMA_PADDED(TYPE, DIM) \
-  case DIM:                   \
-    return static_cast<int>(launch_fma<DIM, false, TYPE>(FLASH_ARGS))
-  switch (body_for(dtype, D)) {
-    case BODY_FMA:
-      if (dtype == DTYPE_F32) {
-        switch (Dp) {
-          FMA_CASE(float, 16);
-          FMA_CASE(float, 32);
-          FMA_CASE(float, 64);
-          FMA_CASE(float, 128);
-          FMA_CASE(float, 256);
-        }
-      } else {                     // bf16 rows of no whole 16-byte pieces
-        switch (Dp) {
-          FMA_PADDED(__nv_bfloat16, 16);
-          FMA_PADDED(__nv_bfloat16, 32);
-          FMA_PADDED(__nv_bfloat16, 64);
-          FMA_PADDED(__nv_bfloat16, 128);
-          FMA_PADDED(__nv_bfloat16, 256);
-        }
-      }
-      break;
-    case BODY_WGMMA:
-      switch (Dp) {
-        FLASH_CASE(launch_wgmma, 64);
-        FLASH_CASE(launch_wgmma, 128);
-        FLASH_CASE(launch_wgmma, 256);
-      }
-      break;
-    case BODY_MMA:
-      switch (Dp) {
-        FLASH_CASE(launch_mma, 16);
-        FLASH_CASE(launch_mma, 32);
-      }
-      break;
-    case BODY_NONE:
-      break;
-  }
-  return -1;
-#undef FMA_PADDED
-#undef FMA_CASE
-#undef FLASH_CASE
-#undef FLASH_ARGS
+  const Body body = body_for(dtype, D);
+  if (body == BODY_NONE) return -1;
+  if (dtype == DTYPE_F32)
+    return launch_typed<float>(body, Dp, q, k, v, o, B, Hq, Hkv, S, D, causal,
+                               window, scale, strides, s);
+  if (dtype == DTYPE_BF16)
+    return launch_typed<__nv_bfloat16>(body, Dp, q, k, v, o, B, Hq, Hkv, S,
+                                       D, causal, window, scale, strides, s);
+  return launch_typed<__half>(body, Dp, q, k, v, o, B, Hq, Hkv, S, D, causal,
+                              window, scale, strides, s);
 }

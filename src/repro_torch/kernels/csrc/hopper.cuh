@@ -221,14 +221,5 @@ inline cudaError_t encode_tensor_map(CUtensorMap* map,
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The same for a bf16 tensor with the 128-byte swizzle that wgmma reads.
-inline cudaError_t encode_tensor_map_bf16(CUtensorMap* map, const void* base,
-                                          int rank, const cuuint64_t* dims,
-                                          const cuuint64_t* strides,
-                                          const cuuint32_t* box) {
-  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, base,
-                           dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 }  // namespace hopper
 }  // namespace repro

@@ -51,21 +51,27 @@
 //     end of a segment; warp w of a set owns query head w of a group of up
 //     to 8 (G > 8 takes several groups) for the softmax, a lane a row of
 //     the chunk, so a chunk's max and sum take 10 shuffles a head;
-//   - bf16 at D = 64 and 128 (`tensor_core_qk`): Q K^T by mma.sync
+//   - bf16 and f16 at D = 64 to 256 (`tensor_core_qk`): Q K^T by mma.sync
 //     m16n8k16, K rows as A (ldmatrix from the 128-byte swizzled boxes, so 8
 //     rows are read without bank conflicts), the group's 8 queries as B in
 //     registers; bf16 products are exact in fp32. P V by mma.sync too, warp
 //     w taking columns [w D / 8, (w + 1) D / 8) of all heads: P is split
 //     into two bf16 parts, p = hi + lo, and both go through the tensor
 //     cores, so P keeps ~16 bits and the result fp32's accuracy (the bf16
-//     checks need no P term, unlike flash's); V by ldmatrix.trans. fp32,
-//     and bf16 at D = 16 and 32, stay on fp32 FMAs: Q K^T with a lane on D/32
+//     checks need no P term, unlike flash's); V by ldmatrix.trans. f16 runs
+//     the same code with E = __half (the mma type field, P's two parts in
+//     f16, the TMA map's type). fp32, 16-bit at D = 16 and 32, a q of
+//     another type than the caches' (the wrapper widens such a q to fp32,
+//     E stays the caches' type, EQ = float: the caches are read in their
+//     own type, never copied) and the wide body stay on fp32 FMAs: Q K^T
+//     with a lane on D/32
 //     columns and one transpose reduction (31 shuffles a chunk) that leaves
 //     row r's logit on lane r, P V with p_r broadcast by a shuffle.
 //     expf, as the reference; the output is cast to the input type.
 //
-// Head sizes: every D from 1 to 256, as the TPU kernel takes. Let Dp be the
-// smallest of 16, 32, 64, 128 and 256 that is at least D. At D == Dp (EXACT)
+// Head sizes: every D from 1 up, as the TPU kernel takes. Let Dp be the
+// smallest of 16, 32, 64, 128 and 256 that is at least D (above 256, D
+// rounded up to 256: the wide body below). At D == Dp (EXACT)
 // the body above runs as described, D = 256 with 4 TMA boxes a row (bf16; 8
 // in fp32), a warp's P V columns in two ldmatrix.x4 loads and a ring of as
 // many slots as fit (`ring_slots`). At any other D the body for Dp runs with
@@ -85,11 +91,29 @@
 // rule, also in `paged_attention_body` and the wrapper's `body_for`: "tma"
 // where D * item % 16 == 0, else "element".
 //
+// Above 256 columns (the wide body, WIDE): a lane's D / 32 columns and the
+// slot's rows no longer fit (at D = 2048, 64 accumulators and 64 q values a
+// lane; 32 rows of K and V are 256 KB in bf16). The launch splits the
+// output into Dp / 256 chunks of 256 columns, a second grid dimension, each
+// with its own blocks over every valid row (the SMs shared among them: the
+// plan gives each chunk sms / chunks blocks), its own partials and tickets.
+// A slot holds all of a row's K columns (npk = Dp / 256 pieces of 256, in
+// 128-byte boxes, unswizzled) and the chunk's 256 V columns, so the plan
+// caps its rows at 64 KB a slot (SLOT_BYTES in paged_attention.py): at
+// D = 512 bf16 still 32, at 2048 fp32 7. Q K^T sums a lane's 8 columns of
+// every piece (q's piece loaded by element) before the one transpose
+// reduction; P V and the merge are the D = 256 body's. Rules (a)-(c): TMA
+// zero-fills past D (boxes wholly past it too), stores write columns
+// c0 + col < D only, the scale is 1 / sqrt(D). The cost: each chunk reads
+// all of K, so K is read Dp / 256 times (from L2 after the first).
+//
 // What the design steps measured (H100, `kernel_bench.py` and timestamps
 // per block; PERF.md): one cp.async.bulk a row issued by the consumers cost
 // ~5 us a chunk; with TMA boxes and a producer warp the arithmetic on FMAs
 // was ~2 us a chunk, latency-bound; on the tensor cores it is ~0.8 us, and
 // the last block's merge is the longest single step.
+
+#include <type_traits>
 
 #include "amu_ring.cuh"
 #include "common.cuh"
@@ -119,6 +143,7 @@ struct Args {
   int* tickets;                  // [segments], zero between launches
   int B, Hq, Hkv, T, G, ngc, rows, slots;
   int dh;                        // the real head size, <= D (see the note)
+  int npk;                       // the wide body's K pieces of D columns
   long long q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh;
   float scale;
 };
@@ -222,19 +247,29 @@ __device__ __forceinline__ void locate(const long long* P, int B, int hg,
   end = P[lo] * hg + (j + 1) * n;
 }
 
+// Columns a block of the wide body (D > 256) owns, and the width of each of
+// its K pieces.
+constexpr int WIDE_DC = 256;
+
 // Elements of a row in one TMA box: at most 128 bytes.
 template <typename E, int D>
 __host__ __device__ constexpr int box_cols() {
   return D * (int)sizeof(E) > 128 ? 128 / (int)sizeof(E) : D;
 }
 
-// Q K^T on the tensor cores: bf16 with rows of whole 128-byte boxes, which
-// TMA lays out under the 128-byte swizzle so that ldmatrix reads 8 rows
-// without bank conflicts. Other inputs take fp32 FMAs.
-template <typename E, int D>
+// Q K^T on the tensor cores: bf16 or f16 with rows of whole 128-byte boxes,
+// which TMA lays out under the 128-byte swizzle so that ldmatrix reads 8
+// rows without bank conflicts; q of the caches' type; not the wide body.
+// Other inputs take fp32 FMAs.
+template <typename E, typename EQ, int D, bool WIDE>
 __host__ __device__ constexpr bool tensor_core_qk() {
-  return sizeof(E) == 2 && D >= 64;
+  return sizeof(E) == 2 && D >= 64 && std::is_same_v<E, EQ> && !WIDE;
 }
+
+// Two 16-bit elements in one register, for the q fragments.
+template <typename E> struct Pair2;
+template <> struct Pair2<__nv_bfloat16> { using type = __nv_bfloat162; };
+template <> struct Pair2<__half> { using type = __half2; };
 
 // A block's shared memory, in bytes from its start: the kernel carves it
 // and the launch sizes it from this one function. Two mbarriers a slot
@@ -243,34 +278,38 @@ __host__ __device__ constexpr bool tensor_core_qk() {
 // set's accumulators in rows of heads (TC); `xch`, two exchange buffers a
 // set (XCH_FLOATS each); then, from `ring` on the first 1024-byte boundary,
 // the slots: K then V, each D / box_cols boxes of `rows` rows, a box
-// rounded up to 1024 bytes as the TMA swizzle wants.
+// rounded up to 1024 bytes as the TMA swizzle wants. The wide body's slot
+// holds npk such K halves (all of a row's columns) and one V half (its
+// chunk's), its boxes rounded up to 128 bytes (no swizzle).
 struct PagedSmem {
   int P, comb, tacc, xch, ring;  // offsets
   int box, slot;                 // bytes of a box and of a slot
   int bytes;                     // the whole, with 1024 to align the slots
 };
 
-template <typename E, int D>
-__host__ __device__ PagedSmem paged_smem(int B, int rows, int slots) {
+template <typename E, int D, bool WIDE = false>
+__host__ __device__ PagedSmem paged_smem(int B, int rows, int slots,
+                                         int npk = 1) {
   constexpr int IN = box_cols<E, D>();
+  constexpr int ALIGN = WIDE ? 128 : 1024;
   PagedSmem m;
   m.P = round16(2 * slots * 8);
   m.comb = m.P + round16((B + 1) * 8);
   m.tacc = m.comb + 4 * GC * (D + 2);
   m.xch = m.tacc + 4 * NSET * GC * D;
   m.ring = m.xch + 4 * NSET * 2 * XCH_FLOATS;
-  m.box = (rows * IN * (int)sizeof(E) + 1023) & ~1023;
-  m.slot = 2 * (D / IN) * m.box;
+  m.box = (rows * IN * (int)sizeof(E) + ALIGN - 1) & ~(ALIGN - 1);
+  m.slot = (npk + 1) * (D / IN) * m.box;
   m.bytes = m.ring + 1024 + slots * m.slot;
   return m;
 }
 
 // The deepest ring of at most MAX_SLOTS slots whose block fits in MAX_SMEM
 // (one block an SM), and its bytes; 0 slots where none fits.
-template <typename E, int D>
-int ring_slots(int B, int rows, int* smem) {
+template <typename E, int D, bool WIDE = false>
+int ring_slots(int B, int rows, int npk, int* smem) {
   for (int slots = MAX_SLOTS; slots >= 1; --slots) {
-    *smem = paged_smem<E, D>(B, rows, slots).bytes;
+    *smem = paged_smem<E, D, WIDE>(B, rows, slots, npk).bytes;
     if (*smem <= MAX_SMEM) return slots;
   }
   return 0;
@@ -305,21 +344,32 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
       : "r"(smem_u32(p)));
 }
 
-// D += A B on bf16 m16n8k16 fragments (g = lane / 4, t = lane % 4):
-// A (16x16, row): a0 = (g, 2t..2t+1) a1 = (g+8, 2t..) a2 = (g, 2t+8..)
-// a3 = (g+8, 2t+8..); B (16x8, col): b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..,
-// n g); D: d0, d1 = (g, 2t..2t+1), d2, d3 = (g+8, 2t..2t+1).
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// D += A B on 16-bit (E: bf16 or f16) m16n8k16 fragments (g = lane / 4,
+// t = lane % 4): A (16x16, row): a0 = (g, 2t..2t+1) a1 = (g+8, 2t..)
+// a2 = (g, 2t+8..) a3 = (g+8, 2t+8..); B (16x8, col): b0 = (k 2t..2t+1,
+// n g), b1 = (k 2t+8.., n g); D: d0, d1 = (g, 2t..2t+1), d2, d3 = (g+8,
+// 2t..2t+1).
+template <typename E>
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+#define PAGED_MMA(TY)                                                     \
+  asm volatile(                                                           \
+      "mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "          \
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+  if constexpr (std::is_same_v<E, __half>)
+    PAGED_MMA("f16");
+  else
+    PAGED_MMA("bf16");
+#undef PAGED_MMA
 }
 
-template <typename E, int D, bool EXACT, bool TMA>
+// E: the caches' type; EQ: q's and out's (E, or float where the wrapper
+// widened a q of another type); WIDE: the chunk of D = WIDE_DC columns
+// [c0, c0 + D) of a head of a.npk * D columns (the note at the top).
+template <typename E, typename EQ, int D, bool EXACT, bool TMA, bool WIDE>
 __global__ void __launch_bounds__(NT + 32)
 paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap) {
@@ -327,10 +377,11 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   constexpr int IN = box_cols<E, D>();       // columns of a box
   constexpr int NBX = D / IN;                // boxes a row
   constexpr int EPL = D >= 32 ? D / 32 : 1;  // columns a lane
-  constexpr bool TC = TMA && tensor_core_qk<E, D>();
+  constexpr bool TC = TMA && tensor_core_qk<E, EQ, D, WIDE>();
   const int Dh = EXACT ? D : a.dh;           // columns of q and out
+  const int c0 = WIDE ? blockIdx.y * D : 0;  // the chunk's first column
   extern __shared__ __align__(1024) unsigned char smem[];
-  const PagedSmem L = paged_smem<E, D>(a.B, a.rows, a.slots);
+  const PagedSmem L = paged_smem<E, D, WIDE>(a.B, a.rows, a.slots, a.npk);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // a slot loaded
   uint64_t* empty = full + a.slots;                     // a slot released
   long long* P = reinterpret_cast<long long*>(smem + L.P);
@@ -343,7 +394,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   unsigned char* slots = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem + L.ring) + 1023) & ~(uintptr_t)1023);
   const size_t box_bytes = L.box;
-  const size_t half_bytes = NBX * box_bytes;
+  const size_t half_bytes = (WIDE ? a.npk : 1) * NBX * box_bytes;  // K's
   const size_t slot_bytes = L.slot;
   // element (r, d) of a slot's K (or V) half; under the 128-byte swizzle
   // (TC) the 16-byte piece p of row r sits at p ^ (r % 8)
@@ -355,12 +406,17 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
                                       r * IN * ITEM + in_row);
   };
 
-  const E* q = static_cast<const E*>(a.q);
-  E* out = static_cast<E*>(a.out);
+  const EQ* q = static_cast<const EQ*>(a.q);
+  EQ* out = static_cast<EQ*>(a.out);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hw = warp % GC, set = warp / GC;   // a consumer's head and set
   const int hg = a.Hkv * a.ngc;              // segments a sequence
   const int S = a.B * hg;
+  // a wide chunk's own partials and tickets
+  float* const parts = a.part + (WIDE ? (size_t)blockIdx.y *
+                                           (gridDim.x + S) * GC * (D + 2)
+                                     : 0);
+  int* const tickets = a.tickets + (WIDE ? blockIdx.y * S : 0);
 
   if (tid < a.slots) {
     mbar_init(&full[tid], TMA ? 1 : 32);     // TMA's one, or the 32 lanes
@@ -400,13 +456,15 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     return out + (long long)b * a.o_sb + ((long long)h * a.G + g0 + g) * a.o_sh;
   };
 
-  // segments with no valid row get 0, a block taking every gridDim-th
-  for (int s = blockIdx.x; s < S; s += gridDim.x) {
+  // segments with no valid row get 0, a block taking every gridDim-th (of
+  // the first chunk: all of the head's columns)
+  for (int s = blockIdx.x; s < S && (!WIDE || blockIdx.y == 0);
+       s += gridDim.x) {
     if (P[s / hg + 1] != P[s / hg]) continue;
     int b, h, g0, gn;
     heads(s, b, h, g0, gn);
     for (int i = tid; i < gn * Dh; i += blockDim.x)
-      out_row(b, h, g0, i / Dh)[i % Dh] = from_float<E>(0.f);
+      out_row(b, h, g0, i / Dh)[i % Dh] = from_float<EQ>(0.f);
   }
 
   const long long W = P[a.B] * hg;           // valid rows of all segments
@@ -425,12 +483,22 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     heads(s, b, h, g0, gn);
     unsigned char* dst = slots + (size_t)(j % a.slots) * slot_bytes;
     uint64_t* bar = &full[j % a.slots];
-    mbar_arrive_expect_tx(bar, (uint32_t)(2 * a.rows * D * ITEM));
+    if constexpr (WIDE) {       // all of K's pieces, V's chunk
+      mbar_arrive_expect_tx(bar, (uint32_t)((a.npk + 1) * a.rows * D * ITEM));
+      for (int x = 0; x < a.npk * NBX; ++x)
+        tma_load_4d(dst + x * box_bytes, &kmap, bar, x * IN, h, (int)t, b);
 #pragma unroll
-    for (int x = 0; x < NBX; ++x) {
-      tma_load_4d(dst + x * box_bytes, &kmap, bar, x * IN, h, (int)t, b);
-      tma_load_4d(dst + half_bytes + x * box_bytes, &vmap, bar, x * IN, h,
-                  (int)t, b);
+      for (int x = 0; x < NBX; ++x)
+        tma_load_4d(dst + half_bytes + x * box_bytes, &vmap, bar,
+                    c0 + x * IN, h, (int)t, b);
+    } else {
+      mbar_arrive_expect_tx(bar, (uint32_t)(2 * a.rows * D * ITEM));
+#pragma unroll
+      for (int x = 0; x < NBX; ++x) {
+        tma_load_4d(dst + x * box_bytes, &kmap, bar, x * IN, h, (int)t, b);
+        tma_load_4d(dst + half_bytes + x * box_bytes, &vmap, bar, x * IN, h,
+                    (int)t, b);
+      }
     }
     return g + min((long long)a.rows, min(end, hi) - g);
   };
@@ -451,6 +519,34 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     const E* vr = static_cast<const E*>(a.v) + b * a.v_sb + t * a.v_st +
                   h * a.v_sh;
     constexpr int UNROLL = 8;                // loads in flight a lane
+    if constexpr (WIDE) {   // K: all npk * D columns; V: the chunk's D
+      const int kw = a.npk * D;
+      for (int kv = 0; kv < 2; ++kv) {       // K, then V
+        const E* src = kv ? vr : kr;
+        const long long st = kv ? a.v_st : a.k_st;
+        const int w = kv ? D : kw, col0 = kv ? c0 : 0;
+        unsigned char* to = dst + (kv ? half_bytes : 0);
+        const int total = n * w;
+        for (int i0 = lane; i0 < total; i0 += 32 * UNROLL) {
+          E x[UNROLL];
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            const int i = i0 + 32 * u, r = i / w, c = i % w;
+            x[u] = i < total ? col_or_zero(src + r * st, col0 + c, a.dh)
+                             : from_float<E>(0.f);
+          }
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            const int i = i0 + 32 * u, r = i / w, c = i % w;
+            if (i < total)
+              *reinterpret_cast<E*>(to + (c / IN) * box_bytes +
+                                    (r * IN + c % IN) * ITEM) = x[u];
+          }
+        }
+      }
+      mbar_arrive(&full[j % a.slots]);       // release: this lane's stores
+      return g + n;
+    }
     const int total = n * D;
     for (int i0 = lane; i0 < total; i0 += 32 * UNROLL) {
       E kx[UNROLL], vx[UNROLL];
@@ -556,17 +652,17 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     const int count = (int)((start + len - 1) / per - first + 1);
     if (count == 1) {                        // the block holds it alone
       if (set == 0 && hw < gn && d0 < D) {
-        E* o = out_row(b, h, g0, hw) + d0;
+        EQ* o = out_row(b, h, g0, hw) + c0 + d0;
         const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
         for (int e = 0; e < EPL; ++e)
-          if (EXACT || d0 + e < Dh) o[e] = from_float<E>(acc[e] * inv);
+          if (EXACT || c0 + d0 + e < Dh) o[e] = from_float<EQ>(acc[e] * inv);
       }
       return;
     }
     constexpr int STRIDE = GC * (D + 2);
     const long long base = first + cur;      // the segment's partials
-    float* mine = a.part + (base + blockIdx.x - first) * STRIDE;
+    float* mine = parts + (base + blockIdx.x - first) * STRIDE;
     if (set == 0 && hw < gn) {
       if (lane == 0) {
         mine[hw] = m;
@@ -583,15 +679,15 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     consumers_sync();
     int last = 0;
     if (tid == 0) {
-      last = ticket_acq_rel(&a.tickets[cur]) == count - 1;
-      if (last) atomicExch(&a.tickets[cur], 0);
+      last = ticket_acq_rel(&tickets[cur]) == count - 1;
+      if (last) atomicExch(&tickets[cur], 0);
     }
     if (!consumers_or(last)) return;
     // the last block merges: each set half of the partials, lanes over them
     const int half = (count + 1) / 2;
     const long long p_lo = base + (set == 0 ? 0 : half);
     const int np_all = set == 0 ? half : count - half;
-    auto piece = [&](int p) { return a.part + (p_lo + p) * STRIDE; };
+    auto piece = [&](int p) { return parts + (p_lo + p) * STRIDE; };
     float mx = NEG_INF, ls = 0.f, as[EPL];
 #pragma unroll
     for (int e = 0; e < EPL; ++e) as[e] = 0.f;
@@ -645,11 +741,11 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     }
     hand_over(mx, ls, as);
     if (set == 0 && hw < gn && d0 < D) {
-      E* o = out_row(b, h, g0, hw) + d0;
+      EQ* o = out_row(b, h, g0, hw) + c0 + d0;
       const float inv = 1.f / fmaxf(ls, 1e-30f);
 #pragma unroll
       for (int e = 0; e < EPL; ++e)
-        if (EXACT || d0 + e < Dh) o[e] = from_float<E>(as[e] * inv);
+        if (EXACT || c0 + d0 + e < Dh) o[e] = from_float<EQ>(as[e] * inv);
     }
   };
 
@@ -665,13 +761,12 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       heads(s, b, h, g0, gn);
       if constexpr (TC) if (hw < 2) {        // B fragments: the group's queries
         const int gq = lane >> 2, tq = lane & 3;
-        const __nv_bfloat16* qg = reinterpret_cast<const __nv_bfloat16*>(q)
-                                  + b * a.q_sb + (h * a.G + g0 + gq) * a.q_sh;
+        const E* qg = q + b * a.q_sb + (h * a.G + g0 + gq) * a.q_sh;
         auto pair = [&](int c) -> uint32_t {   // columns c, c + 1
           if (gq >= gn) return 0u;
           if constexpr (EXACT)
             return *reinterpret_cast<const uint32_t*>(qg + c);
-          __nv_bfloat162 p;                 // past D: zeros
+          typename Pair2<E>::type p;        // past D: zeros
           p.x = col_or_zero(qg, c, Dh);
           p.y = col_or_zero(qg, c + 1, Dh);
           return *reinterpret_cast<uint32_t*>(&p);
@@ -683,11 +778,12 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
           qb[kk][1] = pair(k0 + 8);
         }
       }
-      if (hw < gn && d0 < D) {               // the warp's query, a lane's part
-        const E* qh = q + b * a.q_sb + (h * a.G + g0 + hw) * a.q_sh;
+      // the warp's query, a lane's part (the wide body's: by piece, below)
+      if (!WIDE && hw < gn && d0 < D) {
+        const EQ* qh = q + b * a.q_sb + (h * a.G + g0 + hw) * a.q_sh;
         if constexpr (EXACT) {
           float qv[EPL];
-          load_vec<E, EPL>(qh + d0, qv);
+          load_vec<EQ, EPL>(qh + d0, qv);
 #pragma unroll
           for (int e = 0; e < EPL; ++e) qr[e] = qv[e];
         } else {
@@ -722,7 +818,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         for (int kk = 0; kk < D / 16; ++kk) {
           uint32_t af[4];
           ldmatrix_x4(af, at(slot, row, kk * 16 + (mi >> 1) * 8));
-          mma_bf16_16816(c, af, qb[kk][0], qb[kk][1]);
+          mma_16816<E>(c, af, qb[kk][0], qb[kk][1]);
         }
         const int gq = lane >> 2, tq = lane & 3, r0 = hw * 16 + gq;
         lg[(2 * tq) * 32 + r0] = c[0];
@@ -737,16 +833,39 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     if (hw < gn) {
       if constexpr (!TC) {   // Q K^T on FMAs: a lane's columns, every row
         float part[32];
+        if constexpr (WIDE) {  // summed over the K pieces, q's piece by piece
+          const EQ* qh = q + b * a.q_sb + (h * a.G + g0 + hw) * a.q_sh;
 #pragma unroll
-        for (int r = 0; r < 32; ++r) {
-          float dot = 0.f;
-          if (r < n && d0 < D) {
-            float kv[EPL];
-            load_vec<E, EPL>(at(slot, r, d0), kv);
+          for (int r = 0; r < 32; ++r) part[r] = 0.f;
+          for (int p = 0; p < a.npk; ++p) {
+            float qp[EPL];
 #pragma unroll
-            for (int e = 0; e < EPL; ++e) dot = fmaf(qr[e], kv[e], dot);
+            for (int e = 0; e < EPL; ++e)
+              qp[e] = to_float(col_or_zero(qh, p * D + d0 + e, Dh));
+            const unsigned char* kp = slot + (size_t)p * NBX * box_bytes;
+#pragma unroll
+            for (int r = 0; r < 32; ++r) {
+              if (r < n) {
+                float kv[EPL], dot = 0.f;
+                load_vec<E, EPL>(at(kp, r, d0), kv);
+#pragma unroll
+                for (int e = 0; e < EPL; ++e) dot = fmaf(qp[e], kv[e], dot);
+                part[r] += dot;
+              }
+            }
           }
-          part[r] = dot;
+        } else {
+#pragma unroll
+          for (int r = 0; r < 32; ++r) {
+            float dot = 0.f;
+            if (r < n && d0 < D) {
+              float kv[EPL];
+              load_vec<E, EPL>(at(slot, r, d0), kv);
+#pragma unroll
+              for (int e = 0; e < EPL; ++e) dot = fmaf(qr[e], kv[e], dot);
+            }
+            part[r] = dot;
+          }
         }
         transpose_sum<16>(part, lane);       // lane r: the sum of row r
         transpose_sum<8>(part, lane);
@@ -777,12 +896,12 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     }
     if constexpr (TC) {  // P V on the tensor cores: warp w, columns w NCOL..
       float* xb = xch + (set * 2 + ((j / NSET) & 1)) * XCH_FLOATS;
-      __nv_bfloat16* ph = reinterpret_cast<__nv_bfloat16*>(xb + GC * 32);
-      __nv_bfloat16* pl = ph + GC * PSTR;
+      E* ph = reinterpret_cast<E*>(xb + GC * 32);
+      E* pl = ph + GC * PSTR;
       float* al = xb + GC * 32 + GC * PSTR;
-      const __nv_bfloat16 hi = __float2bfloat16_rn(p);  // p = hi + lo
+      const E hi = from_float<E>(p);        // p = hi + lo
       ph[hw * PSTR + lane] = hi;
-      pl[hw * PSTR + lane] = __float2bfloat16_rn(p - __bfloat162float(hi));
+      pl[hw * PSTR + lane] = from_float<E>(p - to_float(hi));
       if (lane == 0) al[hw] = alpha;
       set_sync(set);
       const int gq = lane >> 2, tq = lane & 3;
@@ -797,7 +916,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         if (ks * 16 >= n) break;
         // A = P [heads g (8..15 zero)][rows]: a0 = (g, 2t..), a2 = (g, 2t+8..)
         const int pk = gq * PSTR + ks * 16 + 2 * tq;
-        auto word = [](const __nv_bfloat16* x) {
+        auto word = [](const E* x) {
           return *reinterpret_cast<const uint32_t*>(x);
         };
         const uint32_t ahi[4] = {word(ph + pk), 0u, word(ph + pk + 8), 0u};
@@ -820,8 +939,8 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         }
 #pragma unroll
         for (int nt = 0; nt < NTW; ++nt) {
-          mma_bf16_16816(cacc[nt], ahi, bv[2 * nt], bv[2 * nt + 1]);
-          mma_bf16_16816(cacc[nt], alo, bv[2 * nt], bv[2 * nt + 1]);
+          mma_16816<E>(cacc[nt], ahi, bv[2 * nt], bv[2 * nt + 1]);
+          mma_16816<E>(cacc[nt], alo, bv[2 * nt], bv[2 * nt + 1]);
         }
       }
     }
@@ -832,10 +951,12 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
 }
 
 // The tensor map of a cache [B, T, Hkv, D] (element strides sb, st, sh, 1):
-// boxes of `rows` rows of one head and box_cols columns.
+// boxes of `rows` rows of one head and box_cols columns, under the 128-byte
+// swizzle where the tensor cores read the slot (`swizzle`).
 template <typename E, int D>
 cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
-                      long long sb, long long st, long long sh) {
+                      long long sb, long long st, long long sh,
+                      bool swizzle) {
   // innermost extent dh: TMA zero-fills columns dh .. D-1
   const cuuint64_t dims[4] = {(cuuint64_t)a.dh, (cuuint64_t)a.Hkv,
                               (cuuint64_t)a.T, (cuuint64_t)a.B};
@@ -846,39 +967,42 @@ cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
                              (cuuint32_t)a.rows, 1};
   return encode_tensor_map(
       map,
-      sizeof(E) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      sizeof(E) == 4                   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : std::is_same_v<E, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       4, base, dims, strides, box,
-      tensor_core_qk<E, D>() ? CU_TENSOR_MAP_SWIZZLE_128B
-                             : CU_TENSOR_MAP_SWIZZLE_NONE);
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-template <typename E, int D, bool EXACT, bool TMA>
+template <typename E, typename EQ, int D, bool EXACT, bool TMA, bool WIDE>
 cudaError_t launch(Args& a, int blocks, cudaStream_t stream) {
   int smem = 0;
-  a.slots = ring_slots<E, D>(a.B, a.rows, &smem);
+  a.slots = ring_slots<E, D, WIDE>(a.B, a.rows, a.npk, &smem);
   if (a.slots == 0) return cudaErrorInvalidValue;
   static SmemAllowance allowance;
-  cudaError_t err = allow_smem(
-      allowance, paged_attention_kernel<E, D, EXACT, TMA>, MAX_SMEM);
+  auto kernel = paged_attention_kernel<E, EQ, D, EXACT, TMA, WIDE>;
+  cudaError_t err = allow_smem(allowance, kernel, MAX_SMEM);
   if (err != cudaSuccess) return err;
   CUtensorMap kmap{}, vmap{};        // the element body copies without
   if (TMA) {
-    if ((err = cache_map<E, D>(&kmap, a.k, a, a.k_sb, a.k_st, a.k_sh)) !=
-        cudaSuccess)
+    constexpr bool swizzle = tensor_core_qk<E, EQ, D, WIDE>();
+    if ((err = cache_map<E, D>(&kmap, a.k, a, a.k_sb, a.k_st, a.k_sh,
+                               swizzle)) != cudaSuccess)
       return err;
-    if ((err = cache_map<E, D>(&vmap, a.v, a, a.v_sb, a.v_st, a.v_sh)) !=
-        cudaSuccess)
+    if ((err = cache_map<E, D>(&vmap, a.v, a, a.v_sb, a.v_st, a.v_sh,
+                               swizzle)) != cudaSuccess)
       return err;
   }
-  paged_attention_kernel<E, D, EXACT, TMA>
-      <<<blocks, NT + 32, smem, stream>>>(a, kmap, vmap);
+  kernel<<<dim3(blocks, WIDE ? a.npk : 1), NT + 32, smem, stream>>>(a, kmap,
+                                                                   vmap);
   return cudaGetLastError();
 }
 
-// Dp of the note at the top; 0 for a head size the kernel does not take.
+// Dp of the note at the top (above 256, the WIDE_DC-column chunks that
+// cover D); 0 for a head size the kernel does not take.
 int padded(int D) {
-  for (int p = 16; p <= 256; p *= 2)
+  if (D > WIDE_DC) return (D + WIDE_DC - 1) / WIDE_DC * WIDE_DC;
+  for (int p = 16; p <= WIDE_DC; p *= 2)
     if (D >= 1 && D <= p) return p;
   return 0;
 }
@@ -889,34 +1013,84 @@ bool tma_rows(int dtype, int D) {
   return D * (dtype == DTYPE_F32 ? 4 : 2) % 16 == 0;
 }
 
+bool float_type(int dtype) {
+  return dtype == DTYPE_F32 || dtype == DTYPE_BF16 || dtype == DTYPE_F16;
+}
+
+// The launch at (Dp, D) for caches of type E and q of type EQ: the body for
+// Dp, EXACT at D == Dp (q of the caches' type only), TMA where the rows are
+// whole 16-byte pieces; the wide body above 256.
+template <typename E, typename EQ>
+cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
+                         bool tma) {
+  constexpr bool kSame = std::is_same_v<E, EQ>;
+  if (Dp > WIDE_DC) {
+    a.npk = Dp / WIDE_DC;
+    return tma ? launch<E, EQ, WIDE_DC, false, true, true>(a, blocks, s)
+               : launch<E, EQ, WIDE_DC, false, false, true>(a, blocks, s);
+  }
+  a.npk = 1;
+#define PAGED_CASE(DIM)                                                  \
+  case DIM:                                                              \
+    if constexpr (kSame)                                                 \
+      if (Dp == D) return launch<E, EQ, DIM, true, true, false>(a, blocks, s); \
+    return tma ? launch<E, EQ, DIM, false, true, false>(a, blocks, s)   \
+               : launch<E, EQ, DIM, false, false, false>(a, blocks, s)
+  switch (Dp) {
+    PAGED_CASE(16);
+    PAGED_CASE(32);
+    PAGED_CASE(64);
+    PAGED_CASE(128);
+    PAGED_CASE(256);
+  }
+#undef PAGED_CASE
+  return cudaErrorInvalidValue;
+}
+
+// The ring of a launch for caches of type E (any EQ: it does not enter).
+template <typename E>
+int ring_for(int B, int D, int rows, int* smem) {
+  const int Dp = padded(D);
+  switch (Dp) {
+    case 0: return -1;
+    case 16: return ring_slots<E, 16>(B, rows, 1, smem);
+    case 32: return ring_slots<E, 32>(B, rows, 1, smem);
+    case 64: return ring_slots<E, 64>(B, rows, 1, smem);
+    case 128: return ring_slots<E, 128>(B, rows, 1, smem);
+    case 256: return ring_slots<E, 256>(B, rows, 1, smem);
+  }
+  return ring_slots<E, WIDE_DC, true>(B, rows, Dp / WIDE_DC, smem);
+}
+
 }  // namespace
 
-// The body a launch at (dtype, D) runs: 0 the TMA ring, 1 the body whose
-// producer warp copies by element, -1 none (the wrapper's `body_for` states
-// the same rule).
+// The body a launch at (dtype, D) runs, dtype the caches' type: 0 the TMA
+// ring, 1 the body whose producer warp copies by element, -1 none (the
+// wrapper's `body_for` states the same rule).
 extern "C" int paged_attention_body(int dtype, int D) {
-  if ((dtype != DTYPE_F32 && dtype != DTYPE_BF16) || padded(D) == 0)
-    return -1;
+  if (!float_type(dtype) || padded(D) == 0) return -1;
   return tma_rows(dtype, D) ? 0 : 1;
 }
 
-// q [B, Hq, D] (strides q_sb, q_sh, 1; at D of 16 .. 256 in powers of 2
-// starts and strides in multiples of max(D / 32, 1) elements), k/v [B, T,
-// Hkv, D] (strides sb, st, sh, 1; for the TMA body a 16-byte aligned start
-// and strides in multiples of 16 bytes, for the element body anything),
-// lengths [B] int32,
-// out [B, Hq, D] (strides o_sb, o_sh, 1); D in 1 .. 256; part: (blocks +
-// segments) x GC x (Dp + 2) floats; tickets: segments ints, zero. blocks,
-// rows, ngc: `paged_plan` of paged_attention.py; the launch sizes the ring
-// itself (`paged_attention_ring`). strides: {q_sb, q_sh, k_sb, k_st, k_sh,
-// v_sb, v_st, v_sh, o_sb, o_sh} in elements. The scale is 1 / sqrt(D).
-// Returns 0 or a cudaError_t (invalid value where no ring fits); -1 for a
-// head size or type it does not take.
+// q [B, Hq, D] of type q_dtype (strides q_sb, q_sh, 1; at D of 16 .. 256 in
+// powers of 2, q of the caches' type, starts and strides in multiples of
+// max(D / 32, 1) elements), k/v [B, T, Hkv, D] of type dtype (strides sb,
+// st, sh, 1; for the TMA body a 16-byte aligned start and strides in
+// multiples of 16 bytes, for the element body anything), lengths [B] int32,
+// out [B, Hq, D] of type q_dtype (strides o_sb, o_sh, 1); D >= 1; q_dtype
+// is dtype or float32 (the wrapper widens any other q). part: chunks x
+// (blocks + segments) x GC x (min(Dp, 256) + 2) floats; tickets: chunks x
+// segments ints, zero; chunks = Dp / 256 above 256, else 1. blocks (a
+// chunk), rows, ngc: `paged_plan` of paged_attention.py; the launch sizes
+// the ring itself (`paged_attention_ring`). strides: {q_sb, q_sh, k_sb,
+// k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh} in elements. The scale is
+// 1 / sqrt(D). Returns 0 or a cudaError_t (invalid value where no ring
+// fits); -1 for a head size or type it does not take.
 extern "C" int paged_attention_launch(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, void* part, void* tickets, int B, int Hq, int Hkv, int T,
     int D, int blocks, int rows, int ngc, const long long* st, int dtype,
-    void* stream) {
+    int q_dtype, void* stream) {
   Args a;
   a.q = q;
   a.k = k;
@@ -944,53 +1118,32 @@ extern "C" int paged_attention_launch(
   a.o_sb = st[8];
   a.o_sh = st[9];
   const int Dp = padded(D);
+  if (Dp == 0 || paged_attention_body(dtype, D) < 0) return -1;
   a.scale = static_cast<float>(1.0 / sqrt((double)D));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool tma = tma_rows(dtype, D);
-#define PAGED_CASE(TYPE, DIM)                                         \
-  case DIM:                                                           \
-    return (int)(Dp == D ? launch<TYPE, DIM, true, true>(a, blocks, s) \
-                 : tma   ? launch<TYPE, DIM, false, true>(a, blocks, s) \
-                         : launch<TYPE, DIM, false, false>(a, blocks, s))
-#define PAGED_DIMS(TYPE)       \
-  switch (Dp) {                \
-    PAGED_CASE(TYPE, 16);      \
-    PAGED_CASE(TYPE, 32);      \
-    PAGED_CASE(TYPE, 64);      \
-    PAGED_CASE(TYPE, 128);     \
-    PAGED_CASE(TYPE, 256);     \
-    default: return -1;        \
+  if (q_dtype == dtype) {
+    if (dtype == DTYPE_F32)
+      return (int)launch_typed<float, float>(a, blocks, s, Dp, D, tma);
+    if (dtype == DTYPE_BF16)
+      return (int)launch_typed<__nv_bfloat16, __nv_bfloat16>(a, blocks, s,
+                                                             Dp, D, tma);
+    return (int)launch_typed<__half, __half>(a, blocks, s, Dp, D, tma);
   }
-  if (dtype == DTYPE_F32) {
-    PAGED_DIMS(float)
-  } else if (dtype == DTYPE_BF16) {
-    PAGED_DIMS(__nv_bfloat16)
-  }
-  return -1;
-#undef PAGED_DIMS
-#undef PAGED_CASE
+  if (q_dtype != DTYPE_F32) return -1;
+  if (dtype == DTYPE_BF16)
+    return (int)launch_typed<__nv_bfloat16, float>(a, blocks, s, Dp, D, tma);
+  return (int)launch_typed<__half, float>(a, blocks, s, Dp, D, tma);
 }
 
-// The ring a block of the launch takes for B sequences, head size D (any of
-// 1 .. 256: the ring is Dp's) and `rows` rows an aload: its slots (0 where
-// none fits, -1 for a head size or type the kernel does not take) and, in
-// *smem, its shared-memory bytes.
+// The ring a block of the launch takes for B sequences, head size D (any
+// D >= 1: the ring is Dp's, or the wide body's) and `rows` rows an aload:
+// its slots (0 where none fits, -1 for a head size or type the kernel does
+// not take) and, in *smem, its shared-memory bytes.
 extern "C" int paged_attention_ring(int B, int D, int rows, int dtype,
                                     int* smem) {
-#define PAGED_RING(TYPE)                                        \
-  switch (padded(D)) {                                          \
-    case 16: return ring_slots<TYPE, 16>(B, rows, smem);        \
-    case 32: return ring_slots<TYPE, 32>(B, rows, smem);        \
-    case 64: return ring_slots<TYPE, 64>(B, rows, smem);        \
-    case 128: return ring_slots<TYPE, 128>(B, rows, smem);      \
-    case 256: return ring_slots<TYPE, 256>(B, rows, smem);      \
-    default: return -1;                                         \
-  }
-  if (dtype == DTYPE_F32) {
-    PAGED_RING(float)
-  } else if (dtype == DTYPE_BF16) {
-    PAGED_RING(__nv_bfloat16)
-  }
+  if (dtype == DTYPE_F32) return ring_for<float>(B, D, rows, smem);
+  if (dtype == DTYPE_BF16) return ring_for<__nv_bfloat16>(B, D, rows, smem);
+  if (dtype == DTYPE_F16) return ring_for<__half>(B, D, rows, smem);
   return -1;
-#undef PAGED_RING
 }

@@ -26,10 +26,10 @@
 //   - the arithmetic is fp32, b + s * c with s rounded to the arrays' type
 //     first (as the reference does) and the product and sum rounded
 //     separately (no FMA contraction), so the result equals the plain
-//     version's bit for bit; bf16 is rounded once, at the end;
+//     version's bit for bit; bf16 and f16 are rounded once, at the end;
 //   - the ragged tail is masked: the last step moves only its whole 16-byte
-//     chunks, and the last N mod 4 (f32) or N mod 8 (bf16) elements, too few
-//     for a bulk copy, are done by the last CTA with scalar loads.
+//     chunks, and the last N mod 4 (f32) or N mod 8 (bf16, f16) elements,
+//     too few for a bulk copy, are done by the last CTA with scalar loads.
 //
 // Bound on this card: bytes (12 bytes a float32 element, 2 operations).
 
@@ -169,6 +169,9 @@ extern "C" int stream_triad_launch(const void* b, const void* c, void* a,
   if (dtype == DTYPE_BF16)
     return (int)launch<__nv_bfloat16>(b, c, a, N, s, block, stages, grid,
                                       threads, st);
+  if (dtype == DTYPE_F16)
+    return (int)launch<__half>(b, c, a, N, s, block, stages, grid, threads,
+                               st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -179,5 +182,7 @@ extern "C" long long stream_triad_smem(int block, int stages, int dtype) {
     return (long long)triad_smem<float>(block, stages).bytes;
   if (dtype == DTYPE_BF16)
     return (long long)triad_smem<__nv_bfloat16>(block, stages).bytes;
+  if (dtype == DTYPE_F16)
+    return (long long)triad_smem<__half>(block, stages).bytes;
   return -1;
 }

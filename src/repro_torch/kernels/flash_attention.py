@@ -9,13 +9,15 @@ raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the head sizes the bodies are built at
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+CHUNK_DIM = HEAD_DIMS[-1]   # above it a launch splits the head into chunks
+FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 launches = 0            # +1 for every launch of the CUDA kernel, nowhere else
 
@@ -23,32 +25,49 @@ launches = 0            # +1 for every launch of the CUDA kernel, nowhere else
 def padded_head_dim(name: str, head_dim: int) -> int:
     """Dp: the smallest of `HEAD_DIMS` that is at least `head_dim`, the head
     size of the body a launch at `head_dim` runs (its columns past
-    `head_dim` loaded as zeros and never stored). Both attention kernels
-    take every head size from 1 to MAX_HEAD_DIM, as the TPU kernels' whole-
-    head BlockSpecs do; `name` is the kernel that refuses the rest."""
-    for dp in HEAD_DIMS:
-        if 1 <= head_dim <= dp:
-            return dp
-    raise ValueError(f"{name}: head dim {head_dim} not in 1..{MAX_HEAD_DIM}")
+    `head_dim` loaded as zeros and never stored); above CHUNK_DIM, the
+    CHUNK_DIM-column chunks that cover the head, each the output columns of
+    its own blocks (the wide bodies). Both attention kernels take every
+    head size from 1 up, as the TPU kernels' whole-head BlockSpecs do;
+    `name` is the kernel that refuses a head size below 1."""
+    if head_dim < 1:
+        raise ValueError(f"{name}: head dim {head_dim} is not positive")
+    if head_dim > CHUNK_DIM:
+        return -(-head_dim // CHUNK_DIM) * CHUNK_DIM
+    return next(dp for dp in HEAD_DIMS if head_dim <= dp)
 
 
-def body_for(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel body a launch runs, a fixed rule on (type, head size) that
-    `flash_attention_launch` in csrc/flash_attention.cu applies, with Dp =
-    `padded_head_dim`: "fma" (FMAs in fp32) for float32 at every head size,
-    and for bfloat16 where head_dim % 8 != 0 (rows of no whole number of
-    16-byte pieces, which TMA and cp.async need; it loads by element);
-    otherwise, in bfloat16, "wgmma" (TMA + wgmma, the Hopper body) at Dp of
-    64, 128 and 256 (at 256 with 64 x 64 tiles and one consumer warpgroup)
-    and "mma" (mma.sync) at Dp of 16 and 32."""
+def check_types(name: str, *dtypes: torch.dtype) -> None:
+    """Refuses a type no body of the attention kernels takes (`name` the
+    kernel), the same on every device."""
+    for dtype in dtypes:
+        if dtype not in FLOAT_TYPES:
+            raise TypeError(f"{name}: takes float32, bfloat16 and float16, "
+                            f"got {', '.join(map(str, dtypes))}")
+
+
+def body_for(dtype: torch.dtype, head_dim: int,
+             kv_dtype: Optional[torch.dtype] = None) -> str:
+    """The kernel body a launch runs, a fixed rule on (types, head size)
+    that `flash_attention_launch` in csrc/flash_attention.cu applies, with
+    Dp = `padded_head_dim`: "fma" (FMAs in fp32) for float32 at every head
+    size, for q, k, v of more than one type (`kv_dtype` k's and v's where
+    it is not q's: the wrapper widens all three to float32, the reference's
+    arithmetic) and for bfloat16 or float16 where head_dim % 8 != 0 (rows of
+    no whole number of 16-byte pieces, which TMA and cp.async need; it loads
+    by element); otherwise, in bfloat16 or float16, "wgmma" (TMA + wgmma,
+    the Hopper body) at Dp of 64 and up (at 256 with 64 x 64 tiles and one
+    consumer warpgroup; above 256 the same in chunks of 256 output columns,
+    Q K^T streamed in 64-column pieces) and "mma" (mma.sync) at Dp of 16
+    and 32."""
     dp = padded_head_dim("flash_attention", head_dim)
-    if dtype == torch.float32:
+    check_types("flash_attention", dtype,
+                *(() if kv_dtype is None else (kv_dtype,)))
+    if dtype == torch.float32 or (kv_dtype is not None and kv_dtype != dtype):
         return "fma"
-    if dtype == torch.bfloat16:
-        if head_dim % 8:
-            return "fma"
-        return "wgmma" if dp >= 64 else "mma"
-    raise TypeError(f"flash_attention: no body for {dtype}")
+    if head_dim % 8:
+        return "fma"
+    return "wgmma" if dp >= 64 else "mma"
 
 
 def _bind():
@@ -87,9 +106,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     change the result and the kernel chooses its own tiles. Any S is taken
     (the ragged edge is masked in the kernel) and the operands are read
     through their strides, so a transposed view of [B, S, H, D] costs no
-    copy; the output has q's layout. Every head size from 1 to 256 is
-    taken. Which body runs is `body_for`: bf16 at a head size that pads to
-    64, 128 or 256 loads its tiles by TMA and multiplies with wgmma.
+    copy; the output has q's layout. Every head size from 1 up is taken,
+    in float32, bfloat16 and float16, and q, k, v of different types (the
+    reference casts each to float32 in its body and returns q's type; the
+    wrapper widens all three to float32 copies, exact for 16-bit types,
+    runs the float32 body and casts the result to q's type). Which body
+    runs is `body_for`: 16-bit rows of whole 16-byte pieces at a head size
+    that pads to 64 or more load their tiles by TMA and multiply with
+    wgmma.
 
     Both devices refuse the same inputs: ranks, shapes, GQA divisibility,
     head size, dtypes, `window` and devices are checked before a CPU tensor
@@ -121,19 +145,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k {tuple(k.shape)} (self-attention, S == T)")
     dp = padded_head_dim("flash_attention", D)
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError("flash_attention: q, k, v must share float32 or "
-                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    check_types("flash_attention", q.dtype, k.dtype, v.dtype)
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: tensors on different devices")
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
+    if not q.dtype == k.dtype == v.dtype:  # the float32 body on widened copies
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        return flash_attention(q32, k32, v32, causal, window).to(q.dtype)
     out = torch.empty_like(q)              # keeps q's (dense) strides
-    # elements of one 16-byte load; the padded fma body loads by element
-    by_element = body_for(q.dtype, D) == "fma" and dp != D
+    # elements of one 16-byte load; the padded and the wide fma bodies load
+    # by element
+    by_element = body_for(q.dtype, D) == "fma" and (dp != D or D > CHUNK_DIM)
     chunk = 1 if by_element else 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(-1) != 1 or any(s % chunk for s in t.stride()[:-1]) \

@@ -21,33 +21,47 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_attention import HEAD_DIMS, padded_head_dim
+from repro_torch.kernels.flash_attention import (CHUNK_DIM, HEAD_DIMS,
+                                                 check_types, padded_head_dim)
 
 GC = 8                  # query heads a block serves, a warp each
 CHUNK_ROWS = 32         # most rows one aload fetches (a lane a row)
+# the wide body's (head sizes above CHUNK_DIM) most bytes of a slot: its
+# rows hold all of K's columns and a chunk of V's, so it takes fewer rows
+SLOT_BYTES = 65536
 
 launches = 0            # +1 for every launch of the CUDA kernel, nowhere else
 
 
 class PagedPlan(NamedTuple):
     """How a launch of the paged kernel covers the cache on a card."""
-    blocks: int         # blocks of the launch
+    blocks: int         # blocks of the launch (of each chunk)
     rows: int           # rows one aload fetches: min(page, CHUNK_ROWS, T)
     segments: int       # (b, kv head, group of GC query heads) triples
     ngc: int            # groups of GC query heads a KV head
+    chunks: int = 1     # CHUNK_DIM-column chunks of the output a head
 
 
-def paged_plan(B: int, Hq: int, Hkv: int, T: int, page: int,
-               sms: int) -> PagedPlan:
+def paged_plan(B: int, Hq: int, Hkv: int, T: int, page: int, sms: int,
+               head_dim: int = 0, itemsize: int = 2) -> PagedPlan:
     """The launch for a cache of B x T rows a KV head on a card of `sms`
     SMs, from the shapes only: one block an SM (its ring takes the SM's
     shared memory), no more blocks than the cache has aloads' worth of rows;
-    an aload fetches at most `page` rows."""
+    an aload fetches at most `page` rows. Above CHUNK_DIM columns the head
+    is split into `chunks` of CHUNK_DIM output columns, each its own set of
+    blocks (the SMs shared among them) over every valid row, and a row of a
+    slot holds all of K's columns and a chunk of V's: at most SLOT_BYTES of
+    them (`itemsize` the caches') an aload."""
     ngc = -(-(Hq // Hkv) // GC)
     rows = max(1, min(page, CHUNK_ROWS, T))
+    chunks = -(-head_dim // CHUNK_DIM) if head_dim > CHUNK_DIM else 1
+    if chunks > 1:
+        rows = max(1, min(rows, SLOT_BYTES // ((chunks + 1) * CHUNK_DIM
+                                               * itemsize)))
     segments = B * Hkv * ngc
+    sms = max(1, sms // chunks)
     return PagedPlan(max(1, min(sms, -(-segments * T // rows))), rows,
-                     segments, ngc)
+                     segments, ngc, chunks)
 
 
 def block_chunks(lengths: Sequence[int], T: int, hg: int, blocks: int,
@@ -106,16 +120,17 @@ def pieces(length: int, start: int, per: int) -> Tuple[int, int]:
 
 
 def body_for(dtype: torch.dtype, head_dim: int) -> str:
-    """The body a launch runs, a fixed rule on (type, head size) that
-    `paged_attention_launch` in csrc/paged_attention.cu applies, for the
-    body built at Dp = `padded_head_dim` (columns past `head_dim` zero and
-    never stored): "tma" (the TMA page ring; bf16 Q K^T and P V on mma.sync
-    from Dp 64) where a row of `head_dim` elements is a whole number of
-    16-byte pieces, "element" (rows copied into the ring by element, both
-    products on FMAs) elsewhere."""
-    padded_head_dim("paged_attention", head_dim)        # refuses 0 and > 256
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"paged_attention: no body for {dtype}")
+    """The body a launch runs for caches of type `dtype`, a fixed rule on
+    (type, head size) that `paged_attention_launch` in
+    csrc/paged_attention.cu applies, for the body built at Dp =
+    `padded_head_dim` (columns past `head_dim` zero and never stored; above
+    256 the wide body, a chunk of 256 output columns a block): "tma" (the
+    TMA page ring; bf16 and f16 Q K^T and P V on mma.sync from Dp 64 up to
+    256 where q has the caches' type) where a row of `head_dim` elements is
+    a whole number of 16-byte pieces, "element" (rows copied into the ring
+    by element, both products on FMAs) elsewhere."""
+    padded_head_dim("paged_attention", head_dim)        # refuses 0
+    check_types("paged_attention", dtype)
     return "tma" if head_dim * dtype.itemsize % 16 == 0 else "element"
 
 
@@ -125,7 +140,7 @@ def _bind():
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       ctypes.POINTER(ctypes.c_longlong), i, p]
+                       ctypes.POINTER(ctypes.c_longlong), i, i, p]
         fn.restype = ctypes.c_int
         lib.paged_attention_ring.argtypes = [i, i, i, i,
                                              ctypes.POINTER(ctypes.c_int)]
@@ -153,7 +168,7 @@ def _ring(B: int, D: int, rows: int, dtype: torch.dtype) -> Tuple[int, int]:
 @functools.lru_cache(maxsize=4096)
 def _card_plan(device: int, B: int, Hq: int, Hkv: int, T: int, D: int,
                dtype: torch.dtype, page: int) -> PagedPlan:
-    plan = paged_plan(B, Hq, Hkv, T, page, _sms(device))
+    plan = paged_plan(B, Hq, Hkv, T, page, _sms(device), D, dtype.itemsize)
     _ring(B, D, plan.rows, dtype)         # refuses what the launch would
     return plan
 
@@ -163,7 +178,7 @@ def launch_plan(q: torch.Tensor, k_cache: torch.Tensor,
     """The plan `paged_attention` launches for these CUDA tensors."""
     B, Hq, D = q.shape
     return _card_plan(q.device.index, B, Hq, k_cache.shape[2],
-                      k_cache.shape[1], D, q.dtype, page)
+                      k_cache.shape[1], D, k_cache.dtype, page)
 
 
 def ring(q: torch.Tensor, k_cache: torch.Tensor,
@@ -172,7 +187,7 @@ def ring(q: torch.Tensor, k_cache: torch.Tensor,
     for these CUDA tensors, as csrc/paged_attention.cu sizes it: the deepest
     of at most 8 slots that fits one block an SM."""
     plan = launch_plan(q, k_cache, page)
-    return _ring(q.shape[0], q.shape[2], plan.rows, q.dtype)
+    return _ring(q.shape[0], q.shape[2], plan.rows, k_cache.dtype)
 
 
 # Partials and tickets, allocated once per (device, stream) and grown: the
@@ -200,11 +215,16 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out [B, Hq, D] in q.dtype. A sequence of length 0 gets 0.
 
     `page` is the fetch granularity: no aload of the kernel fetches more
-    rows than that. Any T and every head size D from 1 to 256 is taken
+    rows than that. Any T and every head size D from 1 up is taken
     (`body_for`: the TMA ring where a row is a whole number of 16-byte
     pieces, which then needs every cache row 16-byte aligned; elsewhere the
-    body that copies by element). The caches are read in place through
-    their strides. `lengths` is read on the device only.
+    body that copies by element), in float32, bfloat16 and float16. Types
+    may differ, as the reference casts each operand to float32 in its body:
+    the kernel reads the caches in their own type and q widened to float32
+    (a copy of q alone), and the result is cast to q's type; k and v of two
+    different types are both widened to float32 copies first. The caches
+    are read in place through their strides. `lengths` is read on the
+    device only.
 
     Both devices refuse the same inputs: ranks, shapes, GQA divisibility,
     head size, dtypes, `lengths` (contiguous int32 [B]) and devices are
@@ -224,11 +244,7 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"paged_attention: q {tuple(q.shape)} does not fit "
                          f"caches {tuple(k_cache.shape)}")
     padded_head_dim("paged_attention", D)
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise TypeError("paged_attention: q and caches must share float32 or "
-                        f"bfloat16, got {q.dtype}, {k_cache.dtype}, "
-                        f"{v_cache.dtype}")
+    check_types("paged_attention", q.dtype, k_cache.dtype, v_cache.dtype)
     if lengths.dtype != torch.int32 or lengths.shape != (B,) \
             or not lengths.is_contiguous():
         raise TypeError("paged_attention: lengths must be contiguous int32 "
@@ -237,10 +253,15 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("paged_attention: tensors on different devices")
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_cache, v_cache, lengths)
-    body = body_for(q.dtype, D)
+    if k_cache.dtype != v_cache.dtype:     # one cache type: widen both
+        k_cache, v_cache = k_cache.float(), v_cache.float()
+    out_dtype = q.dtype
+    if q.dtype != k_cache.dtype:           # q widened, read against the caches
+        q = q.float()
+    body = body_for(k_cache.dtype, D)
     # the TMA ring loads 16-byte rows, the element body by element; q is
     # loaded by vectors of D / 32 elements at the head sizes of `HEAD_DIMS`
-    row = 16 // q.element_size() if body == "tma" else 1
+    row = 16 // k_cache.element_size() if body == "tma" else 1
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
         if t.stride(-1) != 1 or any(s % row for s in t.stride()[:-1]) \
                 or t.data_ptr() % (row * t.element_size()):
@@ -248,7 +269,9 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
                              f"stride, other strides in multiples of {row} "
                              f"and a start aligned to {row} elements, got "
                              f"strides {t.stride()}")
-    vec = max(D // 32, 1) if D in HEAD_DIMS else 1
+    # (a widened q is loaded by element)
+    vec = max(D // 32, 1) if D in HEAD_DIMS and q.dtype == k_cache.dtype \
+        else 1
     if q.stride(-1) != 1 or any(s % vec for s in q.stride()[:-1]) \
             or q.data_ptr() % (vec * q.element_size()):
         raise ValueError(f"paged_attention: q needs a unit last stride, "
@@ -256,16 +279,17 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"aligned to {vec} elements, got {q.stride()}")
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
     if B == 0 or Hq == 0:
-        return out
+        return out.to(out_dtype)
     launch(q, k_cache, v_cache, lengths, out, page)
     launches += 1
-    return out
+    return out.to(out_dtype)
 
 
 def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
            lengths: torch.Tensor, out: torch.Tensor, page: int = 512) -> None:
     """One launch of the CUDA kernel into `out` ([B, Hq, D], unit last
-    stride), with no check: `paged_attention` checks first."""
+    stride, q's type), with no check: `paged_attention` checks first. q has
+    the caches' type or float32."""
     B, Hq, D = q.shape
     T, Hkv = k_cache.shape[1], k_cache.shape[2]
     plan = launch_plan(q, k_cache, page)
@@ -274,15 +298,17 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         out.stride(0), out.stride(1))
-    dp = padded_head_dim("paged_attention", D)
+    width = min(padded_head_dim("paged_attention", D), CHUNK_DIM)
     lib, fn = _bind()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         part, tick = workspace(
             q.device, stream,
-            (plan.blocks + plan.segments) * GC * (dp + 2), plan.segments)
+            plan.chunks * (plan.blocks + plan.segments) * GC * (width + 2),
+            plan.chunks * plan.segments)
         code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
                   tick.data_ptr(), B, Hq, Hkv, T, D, plan.blocks, plan.rows,
-                  plan.ngc, strides, _build.DTYPE_CODES[q.dtype], stream)
+                  plan.ngc, strides, _build.DTYPE_CODES[k_cache.dtype],
+                  _build.DTYPE_CODES[q.dtype], stream)
     _build.check(lib, code, "paged_attention launch")

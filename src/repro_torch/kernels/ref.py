@@ -52,6 +52,23 @@ def scatter_update_ref(table: torch.Tensor, indices: torch.Tensor,
     return out
 
 
+def scatter_add16_limit(table: torch.Tensor, indices: torch.Tensor,
+                        updates: torch.Tensor) -> torch.Tensor:
+    """How far apart two right answers of a bfloat16 / float16 scatter-add
+    may be, elementwise, as float32 [N, D]. Each add rounds to the type, so
+    an element hit c times is c roundings of partial sums away from the
+    exact sum, each at most u |partial| (u the type's unit roundoff, 2^-8
+    in bf16, 2^-11 in f16), and every partial is at most (1 + u)^c (|t| +
+    sum |u_j|); two orders (the reference's update order, the card's L2
+    order) are within twice that: 2 c u (1 + u)^c (|t| + sum |u_j|). An
+    element no update hits has limit 0."""
+    u = torch.finfo(table.dtype).eps / 2
+    idx = indices.long()
+    count = torch.bincount(idx, minlength=table.shape[0]).float()[:, None]
+    mag = table.float().abs().index_add(0, idx, updates.float().abs())
+    return 2 * count * u * (1 + u) ** count * mag
+
+
 def scatter_bucket_ref(indices: torch.Tensor, updates: torch.Tensor,
                        shift: int, buckets: int):
     """Plain version of async_scatter's bucket pass: (indices, updates,

@@ -21,7 +21,7 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.async_gather import MAX_SMEM
 
-TYPES = (torch.float32, torch.bfloat16)
+TYPES = (torch.float32, torch.bfloat16, torch.float16)
 SM_SMEM = 233472        # shared memory of one SM, 1 KB of it reserved a block
 INFLIGHT_BYTES = 24 * 1024   # loads in flight an SM: ~latency x bandwidth
 
@@ -94,7 +94,7 @@ def _card_plan(device: int, dtype: torch.dtype, block: int,
 
 def stream_triad(b: torch.Tensor, c: torch.Tensor, s: float,
                  block: int = 512, stages: int = 4) -> torch.Tensor:
-    """b, c: [N] float32 or bfloat16 -> a = b + s * c in their type.
+    """b, c: [N] float32, bfloat16 or float16 -> a = b + s * c in their type.
 
     `block` elements (a multiple of 128, as in the reference) are the unit
     one step of the kernel streams, the aload granularity; `stages` steps are
@@ -111,8 +111,8 @@ def stream_triad(b: torch.Tensor, c: torch.Tensor, s: float,
                          f"{b.device} and {tuple(c.shape)} {c.dtype} "
                          f"{c.device}")
     if b.dtype not in TYPES:
-        raise TypeError(f"stream_triad: takes float32 or bfloat16, got "
-                        f"{b.dtype}")
+        raise TypeError(f"stream_triad: takes float32, bfloat16 or float16, "
+                        f"got {b.dtype}")
     if block < 128 or block % 128 or stages < 1:
         raise ValueError(f"stream_triad: block {block} must be a positive "
                          f"multiple of 128 and stages {stages} positive")

@@ -25,7 +25,12 @@ SCATTER_TOL = dict(atol=1e-4, rtol=1e-4)     # tests/test_kernels.py
 
 
 def _tol(dtype):
-    """tests/test_kernels.py's triad limits."""
+    """tests/test_kernels.py's triad limits; float16 (no reference test)
+    rounds the product and the sum in float16 on the reference's side, once
+    at the end on the port's: the two differ by up to half a step of |s c|
+    (2^-11 of it, ~6e-3 at |s c| = 12) and a step of the result (2^-10)."""
+    if dtype == "float16":
+        return dict(atol=1e-2, rtol=2e-3)
     t = 1e-6 if dtype == "float32" else 2e-2
     return dict(atol=t, rtol=t)
 
@@ -55,7 +60,82 @@ def test_async_gather(n, d, m, bm, k, dtype):
                                   to_np(jref.gather_ref(table, idx)))
 
 
+@pytest.mark.parametrize("dtype,d", [
+    ("bfloat16", 3), ("int8", 3), ("float16", 1), ("int8", 1), ("int8", 2),
+    ("bfloat16", 5), ("int8", 4099)])
+def test_async_gather_any_row_width(dtype, d):
+    """Rows of 6, 3, 2, 1, 2 and 10 bytes and a long row of 4099 bytes, which
+    neither cp.async nor a bulk copy can move: the element path's plain
+    version against the reference's Pallas kernel, bit for bit."""
+    rng = np.random.default_rng(16 + d)
+    n, m = 100, 64
+    if dtype == "int8":
+        table = jnp.array(rng.integers(-128, 128, (n, d)), jnp.int8)
+    else:
+        table = jnp.array(rng.standard_normal((n, d)), getattr(jnp, dtype))
+    idx = jnp.array(rng.integers(0, n, m), jnp.int32)
+    got = tgather.async_gather(to_torch(table), to_torch(idx), block_m=32,
+                               num_slots=4)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (m, d)
+    assert tgather.gather_path(d * got.element_size(), 16)[1] < 4
+    np.testing.assert_array_equal(
+        to_np(got), to_np(jgather(table, idx, block_m=32, num_slots=4,
+                                  interpret=True)))
+
+
 # ------------------------------------------------------------ async_scatter
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("n,d,m,bm", [(64, 128, 256, 128), (8, 2, 64, 32)])
+def test_async_scatter_add_16bit(dtype, n, d, m, bm):
+    """bf16 and f16 add with conflicts: the reference adds in update order,
+    rounding after each add; the port's plain version (and the card's L2)
+    in another order. They agree within `ref.scatter_add16_limit`, 2 c u
+    (1 + u)^c (|t| + sum |u_j|) for an element hit c times."""
+    rng = np.random.default_rng(17)
+    jdt = getattr(jnp, dtype)
+    table = jnp.array(rng.standard_normal((n, d)), jdt)
+    idx = jnp.array(rng.integers(0, n, m), jnp.int32)
+    upd = jnp.array(rng.standard_normal((m, d)), jdt)
+    tt, ti, tu = to_torch(table), to_torch(idx), to_torch(upd)
+    limit = ref.scatter_add16_limit(tt, ti, tu)
+    got = tscatter.async_scatter(tt.clone(), ti, tu, op="add", block_m=bm)
+    assert got.dtype == getattr(torch, dtype)
+    want = torch.tensor(to_np(jscatter(table, idx, upd, op="add",
+                                       block_m=bm, interpret=True)))
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= limit).all()), float((err - limit).max())
+    # each order is within half the limit of the exact sum
+    exact = tt.double().index_add(0, ti.long(), tu.double())
+    for x in (got, want):
+        assert bool(((x.double() - exact).abs() <= limit / 2).all())
+    untouched = limit == 0
+    assert torch.equal(got.float()[untouched], tt.float()[untouched])
+
+
+@pytest.mark.parametrize("op", ["add", "xor"])
+def test_async_scatter_uint32(op):
+    """uint32 add and xor, exact: the int32 kernels on an int32 view of the
+    same bits (two's-complement add and xor ignore the sign), against the
+    reference on uint32."""
+    rng = np.random.default_rng(18)
+    n, d, m = 32, 4, 256
+    table = rng.integers(0, 1 << 32, (n, d), dtype=np.uint64).astype(np.uint32)
+    idx = rng.integers(0, n, m).astype(np.int32)
+    upd = rng.integers(0, 1 << 32, (m, d), dtype=np.uint64).astype(np.uint32)
+    tt = torch.from_numpy(table.copy())
+    got = tscatter.async_scatter(tt, torch.from_numpy(idx),
+                                 torch.from_numpy(upd), op=op, block_m=128)
+    assert got is tt and got.dtype == torch.uint32
+    jt, ji, ju = jnp.array(table), jnp.array(idx), jnp.array(upd)
+    want = np.asarray(jscatter(jt, ji, ju, op=op, block_m=128,
+                               interpret=True))
+    np.testing.assert_array_equal(got.view(torch.int32).numpy(),
+                                  want.view(np.int32))
+    np.testing.assert_array_equal(
+        got.view(torch.int32).numpy(),
+        np.asarray(jref.scatter_update_ref(jt, ji, ju, op)).view(np.int32))
+
+
 @pytest.mark.parametrize("n,d,m,bm,k", [
     (64, 128, 256, 128, 8),   # heavy conflicts
     (8, 128, 64, 32, 4),      # extreme conflicts
@@ -162,7 +242,7 @@ def test_scatter_update_keeps_its_input_and_async_scatter_does_not():
 
 # -------------------------------------------------------------- stream_triad
 @pytest.mark.parametrize("n,block", [(4096, 512), (8192, 1024), (512, 512)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_stream_triad(n, block, dtype):
     rng = np.random.default_rng(15)
     jdt = getattr(jnp, dtype)
@@ -286,16 +366,18 @@ def _meta(*shape, dtype=torch.float32):
      TypeError, "xor takes"),
     (lambda: tscatter.async_scatter(torch.zeros(4, 4, dtype=torch.bfloat16),
                                     _i32(3),
-                                    torch.zeros(3, 4, dtype=torch.bfloat16)),
-     TypeError, "add takes"),
+                                    torch.zeros(3, 4, dtype=torch.bfloat16),
+                                    op="xor"),
+     TypeError, "xor takes"),
     (lambda: tscatter.async_scatter(torch.zeros(4, 4), _i32(3),
                                     torch.zeros(3, 4), op="max"),
      ValueError, "op"),
     (lambda: tscatter.async_scatter(torch.zeros(4, 4), _i32(3),
                                     torch.zeros(2, 4)),
      ValueError, "updates"),
-    (lambda: tgather.async_gather(torch.zeros(4, 3, dtype=torch.bfloat16),
-                                  _i32(3)),
+    (lambda: tscatter.async_scatter(torch.zeros(4, 3, dtype=torch.bfloat16),
+                                    _i32(3),
+                                    torch.zeros(3, 3, dtype=torch.bfloat16)),
      ValueError, "multiple of 4 bytes"),
     (lambda: tgather.async_gather(torch.zeros(4, 4), torch.zeros(3).long()),
      TypeError, "int32"),
@@ -304,7 +386,7 @@ def _meta(*shape, dtype=torch.float32):
      ValueError, "shared memory"),
     (lambda: ttriad.stream_triad(torch.zeros(8, dtype=torch.int32),
                                  torch.zeros(8, dtype=torch.int32), 1.0),
-     TypeError, "float32 or bfloat16"),
+     TypeError, "float32, bfloat16 or float16"),
     (lambda: ttriad.stream_triad(torch.zeros(8), torch.zeros(8), 1.0,
                                  block=100),
      ValueError, "multiple of 128"),

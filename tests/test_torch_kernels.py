@@ -94,7 +94,12 @@ def test_flash_attention_head_dim_256(window, dtype):
     (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 96, "wgmma"),
     (torch.bfloat16, 192, "wgmma"), (torch.bfloat16, 1, "fma"),
     (torch.bfloat16, 7, "fma"), (torch.bfloat16, 100, "fma"),
-    (torch.bfloat16, 255, "fma")])
+    (torch.bfloat16, 255, "fma"),
+    # float16 takes bfloat16's bodies; above 256 the wide bodies, in chunks
+    (torch.float16, 8, "mma"), (torch.float16, 128, "wgmma"),
+    (torch.float16, 100, "fma"), (torch.float16, 512, "wgmma"),
+    (torch.bfloat16, 264, "wgmma"), (torch.bfloat16, 300, "fma"),
+    (torch.float32, 2048, "fma")])
 def test_flash_body_rule(dtype, d, body):
     """Which kernel body a launch runs is a fixed rule on (type, head size);
     `chip_smoke.py` holds the CUDA source's rule to this one at every head
@@ -102,24 +107,53 @@ def test_flash_body_rule(dtype, d, body):
     assert tflash.body_for(dtype, d) == body
 
 
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float16, torch.bfloat16),
+    (torch.float32, torch.float16)])
+@pytest.mark.parametrize("d", [8, 128, 512])
+def test_flash_body_rule_for_mixed_types(q_dtype, kv_dtype, d):
+    """q, k, v of more than one type run the fma body on float32 copies."""
+    assert tflash.body_for(q_dtype, d, kv_dtype) == "fma"
+
+
 @pytest.mark.parametrize("d,dp", [(1, 16), (8, 16), (16, 16), (17, 32),
-                                  (80, 128), (129, 256), (256, 256)])
+                                  (80, 128), (129, 256), (256, 256),
+                                  (257, 512), (300, 512), (512, 512),
+                                  (1000, 1024), (2048, 2048)])
 def test_padded_head_dim_and_the_paged_body(d, dp):
     assert tflash.padded_head_dim("flash_attention", d) == dp
     assert tpaged.body_for(torch.float32, d) == (
         "tma" if d % 4 == 0 else "element")
-    assert tpaged.body_for(torch.bfloat16, d) == (
-        "tma" if d % 8 == 0 else "element")
+    for dtype in (torch.bfloat16, torch.float16):
+        assert tpaged.body_for(dtype, d) == (
+            "tma" if d % 8 == 0 else "element")
+
+
+@pytest.mark.parametrize("d,itemsize,rows,chunks", [
+    (128, 2, 32, 1), (256, 4, 32, 1), (257, 2, 32, 2), (512, 2, 32, 2),
+    (1024, 4, 12, 4), (2048, 2, 14, 8), (2048, 4, 7, 8)])
+def test_paged_plan_above_256_columns(d, itemsize, rows, chunks):
+    """Above 256 columns the head is split into chunks of 256 output
+    columns, each with its own blocks (the SMs shared among them), and a
+    slot row holds all of K's columns and a chunk of V's, so an aload takes
+    fewer rows: at most SLOT_BYTES of them."""
+    plan = tpaged.paged_plan(4, 16, 2, 1032, 512, 132, d, itemsize)
+    assert (plan.rows, plan.chunks) == (rows, chunks)
+    assert plan.blocks <= 132 // chunks
+    if chunks > 1:
+        assert plan.rows * (chunks + 1) * 256 * itemsize <= tpaged.SLOT_BYTES
 
 
 def test_flash_body_rule_refuses_what_no_body_takes():
-    for d in (0, 257):
-        with pytest.raises(ValueError, match=f"head dim {d} not in 1..256"):
-            tflash.body_for(torch.bfloat16, d)
-        with pytest.raises(ValueError, match=f"head dim {d} not in 1..256"):
-            tpaged.body_for(torch.bfloat16, d)
-    with pytest.raises(TypeError, match="no body"):
-        tflash.body_for(torch.float16, 64)
+    with pytest.raises(ValueError, match="head dim 0 is not positive"):
+        tflash.body_for(torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="head dim 0 is not positive"):
+        tpaged.body_for(torch.bfloat16, 0)
+    for dtype in (torch.float64, torch.int32):
+        with pytest.raises(TypeError, match="takes float32, bfloat16 and"):
+            tflash.body_for(dtype, 64)
+        with pytest.raises(TypeError, match="takes float32, bfloat16 and"):
+            tpaged.body_for(dtype, 64)
 
 
 @pytest.mark.parametrize("causal,window,t", [(False, 0, 96), (True, 16, 96),
@@ -279,30 +313,33 @@ def test_paged_locate_matches_a_linear_walk():
     assert [tpaged.locate(prefix, hg, g) for g in range(len(rows))] == rows
 
 
-PADDED_DIMS = [1, 7, 8, 24, 80, 96, 256]
+# head sizes between the bodies' own, 256, and above 256 (the wide bodies:
+# 257 and 300 a chunk and a tail, 512 two whole chunks, 1024 four)
+PADDED_DIMS = [1, 7, 8, 24, 80, 96, 256, 257, 300, 512, 1024]
+# the bf16 limit for float16 too: its unit roundoff is 8x smaller
+TOLS = {"float32": FP32_TOL, "bfloat16": BF16_TOL, "float16": BF16_TOL}
 
 
 @pytest.mark.parametrize("d", PADDED_DIMS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_at_every_head_size(d, dtype):
-    """Head sizes between the bodies' own (and 256): the port's wrapper (its
-    plain version on the CPU) against the reference's Pallas kernel in
-    interpret mode, GQA group 2, a window shorter than S."""
+    """Every head size, in every float type: the port's wrapper (its plain
+    version on the CPU) against the reference's Pallas kernel in interpret
+    mode, GQA group 2, a window shorter than S."""
     q, k, v = _flash_inputs(7 + d, 1, 4, 2, 128, d)
     jdt = getattr(jnp, dtype)
     jq, jk, jv = (jnp.array(a, jdt) for a in (q, k, v))
     tq, tk, tv = to_torch(jq), to_torch(jk), to_torch(jv)
     out = tflash.flash_attention(tq, tk, tv, causal=True, window=48)
     assert out.dtype == getattr(torch, dtype) and out.shape == tq.shape
-    tol = FP32_TOL if dtype == "float32" else BF16_TOL
     np.testing.assert_allclose(
         to_np(out), to_np(jflash(jq, jk, jv, causal=True, window=48,
                                  block_q=64, block_k=64, interpret=True)),
-        **tol)
+        **TOLS[dtype])
 
 
 @pytest.mark.parametrize("d", PADDED_DIMS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_paged_attention_at_every_head_size(d, dtype):
     """The same head sizes through paged attention, lengths 0, a middle one
     and T, against the reference's Pallas kernel in interpret mode."""
@@ -315,7 +352,44 @@ def test_paged_attention_at_every_head_size(d, dtype):
     out = tpaged.paged_attention(to_torch(q), to_torch(kc), to_torch(vc),
                                  torch.from_numpy(lens), page=32)
     assert out.dtype == getattr(torch, dtype) and out.shape == (3, 8, d)
-    tol = FP32_TOL if dtype == "float32" else BF16_TOL
     np.testing.assert_allclose(
         to_np(out), to_np(jpaged(q, kc, vc, jnp.array(lens), page=32,
-                                 interpret=True)), **tol)
+                                 interpret=True)), **TOLS[dtype])
+
+
+# q of one type, k and v of another: the reference casts each operand to
+# float32 in its body and returns q's type
+MIXED = [("bfloat16", "float32"), ("float16", "bfloat16"),
+         ("float32", "float16")]
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", MIXED)
+@pytest.mark.parametrize("d", [64, 300])
+def test_flash_attention_mixed_types(q_dtype, kv_dtype, d):
+    q, k, v = _flash_inputs(9 + d, 1, 4, 2, 128, d)
+    jq = jnp.array(q, getattr(jnp, q_dtype))
+    jk, jv = (jnp.array(a, getattr(jnp, kv_dtype)) for a in (k, v))
+    tq, tk, tv = to_torch(jq), to_torch(jk), to_torch(jv)
+    out = tflash.flash_attention(tq, tk, tv, causal=True, window=48)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    assert torch.equal(out, ref.attention_ref(tq, tk, tv, True, 48))
+    np.testing.assert_allclose(
+        to_np(out), to_np(jflash(jq, jk, jv, causal=True, window=48,
+                                 block_q=64, block_k=64, interpret=True)),
+        **TOLS[q_dtype])
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", MIXED)
+@pytest.mark.parametrize("d", [64, 300])
+def test_paged_attention_mixed_types(q_dtype, kv_dtype, d):
+    rng = np.random.default_rng(10 + d)
+    q = jnp.array(rng.standard_normal((3, 8, d)) * 0.3, getattr(jnp, q_dtype))
+    kc, vc = (jnp.array(rng.standard_normal((3, 96, 2, d)) * s,
+                        getattr(jnp, kv_dtype)) for s in (0.3, 1.0))
+    lens = np.array([0, 41, 96], np.int32)
+    tq, tk, tv = to_torch(q), to_torch(kc), to_torch(vc)
+    out = tpaged.paged_attention(tq, tk, tv, torch.from_numpy(lens), page=32)
+    assert out.dtype == tq.dtype and out.shape == (3, 8, d)
+    np.testing.assert_allclose(
+        to_np(out), to_np(jpaged(q, kc, vc, jnp.array(lens), page=32,
+                                 interpret=True)), **TOLS[q_dtype])

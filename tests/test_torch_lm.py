@@ -121,10 +121,11 @@ def _run_both(arch, prompt_len, use_kernels, dtype, follow_reference=False):
 
 
 # recurrentgemma at five layers: one period of (RG-LRU, RG-LRU, LOCAL) and
-# a two-layer RG-LRU tail, as the full model's 38 = 12 * 3 + 2
+# a two-layer RG-LRU tail, as the full model's 38 = 12 * 3 + 2; qwen2.5-3b
+# at head size 512, through the kernels' wide bodies
 @pytest.mark.parametrize("arch", DENSE + ["qwen2.5-3b+tail"] + NEW + [
     "granite-moe-1b-a400m+tail", "rwkv6-7b+tail", "recurrentgemma-9b+L5",
-    "phi4-mini-3.8b+hd16"])
+    "phi4-mini-3.8b+hd16", "qwen2.5-3b+hd512"])
 @pytest.mark.parametrize("use_kernels,prompt_len", [(False, 16), (True, 128)])
 def test_prefill_and_decode_match_reference(arch, use_kernels, prompt_len):
     cfg, steps, toks, jtoks, cache, jcache = _run_both(
@@ -148,6 +149,24 @@ def test_prefill_and_decode_bf16():
     assert cache["len"].dtype == torch.int32
     for got, want in steps:
         np.testing.assert_allclose(got, want, **BF16_LOGITS_TOL)
+
+
+# float16 rounds at 2^-11 where bf16 rounds at 2^-8: the bf16 bound over 8
+F16_LOGITS_TOL = dict(atol=0.15 / 8, rtol=0.05 / 8)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen2.5-3b+hd512"])
+def test_prefill_and_decode_f16_with_kernels(arch):
+    """A model cast to float16 (`cast_params_for_compute` takes any dtype)
+    and served with `use_kernels=True`: flash at prefill (S = 128) and paged
+    at decode in float16 (their plain versions on the CPU), against the
+    reference's Pallas kernels in interpret mode on the same weights."""
+    cfg, steps, toks, jtoks, cache, _ = _run_both(arch, 128, True, "float16",
+                                                  follow_reference=True)
+    assert cache["scan"][0]["k"].dtype == torch.float16
+    for got, want in steps:
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, **F16_LOGITS_TOL)
 
 
 @pytest.mark.parametrize("arch", NEW)

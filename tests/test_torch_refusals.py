@@ -6,17 +6,19 @@ Each wrapper checks ranks, shapes, GQA divisibility, head size, dtypes,
 an input the CUDA kernel refuses is refused here too, with the same exception
 type and message: the checks are one piece of code ahead of the device
 branch. Only the stride and alignment checks, which describe the kernel's
-loads, come after it. Both kernels take every head size from 1 to 256 (the
-reference's Pallas kernels take any); 0 and 257 stay refused (ROADMAP B1/B3:
-above 256 is still missing). `ops.paged_attention`, the model
-layer's glue, casts `lengths` to int32 before the wrapper sees it, as the
-reference's glue does."""
+loads, come after it. Both kernels take every head size from 1 up, in
+float32, bfloat16 and float16 and with q, k, v of different types, as the
+reference's Pallas kernels do; a head size of 0 (the reference divides by
+sqrt(0)) and a type no body takes (float64, an integer) stay refused, and
+what the kernels now take is held against the plain versions here.
+`ops.paged_attention`, the model layer's glue, casts `lengths` to int32
+before the wrapper sees it, as the reference's glue does."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_attention
+from repro_torch.kernels.flash_attention import CHUNK_DIM, flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 
 B, HQ, HKV, S, T = 2, 4, 2, 32, 24
@@ -39,10 +41,20 @@ def _paged(d=16, dtype=torch.float32, lengths_dtype=torch.int32):
             torch.tensor([T, 5], dtype=lengths_dtype))
 
 
-@pytest.mark.parametrize("d", [0, MAX_HEAD_DIM + 1])
+@pytest.mark.parametrize("d", [0])
 def test_flash_refuses_a_head_size_its_kernel_lacks(d):
-    with pytest.raises(ValueError, match=f"head dim {d} not in 1..256"):
+    with pytest.raises(ValueError, match=f"head dim {d} is not positive"):
         flash_attention(*_flash(d))
+
+
+@pytest.mark.parametrize("d", [CHUNK_DIM + 1, 2 * CHUNK_DIM])
+def test_flash_takes_head_sizes_above_256(d):
+    """257 was refused before the wide bodies; now it reaches the plain
+    version on the CPU as any other head size does."""
+    q, k, v = _flash(d)
+    out = flash_attention(q, k, v, causal=True, window=4)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert torch.equal(out, ref.attention_ref(q, k, v, True, 4))
 
 
 def test_flash_refuses_a_negative_window():
@@ -51,11 +63,25 @@ def test_flash_refuses_a_negative_window():
 
 
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float64), (torch.float64, torch.float32),
+    (torch.int32, torch.int32)])
+def test_flash_refuses_mixed_or_unsupported_dtypes(q_dtype, kv_dtype):
+    """A type no body takes, alone or beside one that a body takes."""
+    with pytest.raises(TypeError, match="takes float32, bfloat16 and "
+                                        "float16"):
+        flash_attention(*_flash(16, q_dtype, kv_dtype))
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
     (torch.float16, torch.float16)])
-def test_flash_refuses_mixed_or_unsupported_dtypes(q_dtype, kv_dtype):
-    with pytest.raises(TypeError, match="must share float32 or bfloat16"):
-        flash_attention(*_flash(16, q_dtype, kv_dtype))
+def test_flash_takes_mixed_and_float16_types(q_dtype, kv_dtype):
+    """The inputs that were refused as mixed or float16: now taken, the
+    result in q's type and equal to the plain version's."""
+    q, k, v = _flash(16, q_dtype, kv_dtype)
+    out = flash_attention(q, k, v)
+    assert out.dtype == q_dtype
+    assert torch.equal(out, ref.attention_ref(q, k, v))
 
 
 @pytest.mark.parametrize("shape_k", [(B, 3, S, 16), (B, HKV, S + 1, 16),
@@ -68,10 +94,18 @@ def test_flash_refuses_shapes_that_do_not_fit(shape_k):
         flash_attention(q, k, k.clone())
 
 
-@pytest.mark.parametrize("d", [0, MAX_HEAD_DIM + 1])
+@pytest.mark.parametrize("d", [0])
 def test_paged_refuses_a_head_size_its_kernel_lacks(d):
-    with pytest.raises(ValueError, match=f"head dim {d} not in 1..256"):
+    with pytest.raises(ValueError, match=f"head dim {d} is not positive"):
         paged_attention(*_paged(d))
+
+
+@pytest.mark.parametrize("d", [CHUNK_DIM + 1, 2 * CHUNK_DIM])
+def test_paged_takes_head_sizes_above_256(d):
+    q, kc, vc, lengths = _paged(d)
+    out = paged_attention(q, kc, vc, lengths)
+    assert out.shape == q.shape
+    assert torch.equal(out, ref.paged_attention_ref(q, kc, vc, lengths))
 
 
 @pytest.mark.parametrize("lengths_dtype", [torch.int64, torch.int16])
@@ -88,10 +122,25 @@ def test_paged_refuses_non_contiguous_lengths():
 
 
 def test_paged_refuses_mixed_dtypes():
+    """Mixed float types are taken now (below); a cache of a type no body
+    takes is refused beside a q that one takes."""
     q, k, v, lengths = _paged()
-    with pytest.raises(TypeError, match="must share float32 or bfloat16"):
-        paged_attention(q, k.to(torch.bfloat16), v.to(torch.bfloat16),
+    with pytest.raises(TypeError, match="takes float32, bfloat16 and "
+                                        "float16"):
+        paged_attention(q, k.to(torch.float64), v.to(torch.float64),
                         lengths)
+
+
+@pytest.mark.parametrize("q_dtype,k_dtype,v_dtype", [
+    (torch.float32, torch.bfloat16, torch.bfloat16),
+    (torch.float16, torch.float16, torch.float16),
+    (torch.bfloat16, torch.float32, torch.float16)])
+def test_paged_takes_mixed_and_float16_types(q_dtype, k_dtype, v_dtype):
+    q, k, v, lengths = _paged()
+    q, k, v = q.to(q_dtype), k.to(k_dtype), v.to(v_dtype)
+    out = paged_attention(q, k, v, lengths)
+    assert out.dtype == q_dtype
+    assert torch.equal(out, ref.paged_attention_ref(q, k, v, lengths))
 
 
 def test_accepted_inputs_still_reach_the_plain_versions():
