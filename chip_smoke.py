@@ -72,6 +72,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    block_m a bound, K 1-32, one row hit by every update, every update in the
    last row, N not a whole number of regions; the bucket pass bit-exact
    against `ref.scatter_bucket_ref`; two calls in a row on one workspace.
+   Then the inputs taken last (`check_every_type`): float8 conversions at
+   the edge of the range (e4m3fn 500 -> NaN, 464 -> 448; e5m2 61440 -> inf)
+   and an integer triad's scalar saturated on the card (int8 300 -> 127);
+   the triad in bf16, f16, e4m3fn, e5m2 and the six integer types at N 1003
+   and 2^20 + 5, also with inputs past the range, bit-exact (bf16 and f16
+   now too: the triad rounds where the reference does); scatter add and xor
+   of 8/16-bit integers at rows of 1, 3 and 64 elements, float8 add at 3
+   and 64, bf16 / f16 add at 1, 3 and 5 elements (the word path), 50000
+   updates into 3000 rows and every update into one row, integers
+   bit-exact, float8 and 16-bit floats within `ref.scatter_add16_limit`;
+   the gather of e4m3 rows; flash in e4m3 / e5m2 at D 8, 100, 128 and in
+   int8 (its float32 copies), paged with e4m3 / e5m2 caches at D 8, 100,
+   128, within one unit in the output type's last place, and a bf16 q over
+   e4m3 caches within PAGED_BF16_TOL. Last (`fp8_serve_shapes`) flash in
+   both float8 types at qwen2.5-3b's prefill and paged with float8 caches
+   (and a bf16 q over e4m3) at its decode, timed beside the plain version,
+   the bound and SDPA on bf16 copies.
 4. slice: `repro_torch.launch.serve` serves qwen2.5-3b at full width with
    `--use-kernels --offload-kv`; offloaded tokens must equal the baseline's,
    the launch counters must show the kernels carried the run, and prefill
@@ -117,9 +134,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
 5. AMU kernels at H100 scale: GUPS through `repro_torch.launch.quickstart`
    (xor, an 8 GiB table of HPCC's 8-byte rows, 2^26 updates), then
    `ops.scatter_update` (xor and f32 add, 8 GiB of 512-byte rows, 2^20
-   updates; and bf16 add, [2^24, 64], 2^20 updates), `ops.gather` (the same
+   updates; bf16 add, [2^24, 64], 2^20 updates; then the types taken last
+   at 2^20 updates, a quarter into 4096 hot rows: add into [2^24, 64]
+   int8, int16, uint16, e4m3fn, e5m2 and into 3- and 6-byte rows, xor
+   into int8 and uint16 rows of 64 elements and of 3, bf16 add into
+   [2^24, 3]), `ops.gather` (the same
    rows; qwen2.5-3b's embedding table; [2^24, 3] bf16 and int8 tables,
-   rows of 6 and 3 bytes) and `ops.triad` (2^28 floats, f32 and f16), the
+   rows of 6 and 3 bytes; [2^24, 64] e4m3) and `ops.triad` (2^28 floats,
+   f32 and f16; then int8, uint8, int16, int32, e4m3fn, e5m2, each drawn
+   past its range: integers wrap, float8 gives NaN / inf), the
    GUPS xor again on a uint32 view of its table (bit for bit the int32
    result), each against its plain version, timed beside
    its bound (scatter: also its sector bound) and the library call, and
@@ -127,7 +150,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and at 512-byte xor, of its `block_m` at GUPS (what is in flight an SM
    there), with GUP/s and updates in flight per SM, and of the gather's K
    (rows in flight per SM). One launch per `ops` call, counted, but four for
-   each bucketed GUPS scatter.
+   each bucketed scatter (rows of fewer than 32 bytes).
 6. simulator: the port's whole quickstart (`repro_torch.launch.quickstart`
    `main`, on the card): GUPS at 0.2, 1 and 5 us of far-memory latency,
    baseline core against the AMU session; the 4-core rack against one
@@ -185,7 +208,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # bounds below are stated against these, whatever power limit the card has.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
-              torch.float32: 67e12}
+              torch.float32: 67e12, torch.float8_e4m3fn: 1979e12,
+              torch.float8_e5m2: 1979e12, torch.int8: 1979e12}
 
 FP32_TOL = dict(atol=2e-5, rtol=1e-4)
 # bf16: the plain versions compute in fp32 and round once at the end, so a
@@ -210,6 +234,14 @@ SCATTER_TOL = dict(atol=1e-4, rtol=1e-4)
 TRIAD_TOL = {torch.float32: dict(atol=1e-6, rtol=1e-6),
              torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
              torch.float16: dict(atol=2e-3, rtol=2e-3)}
+# the types added last: float8 and the 8/16-bit integers (the triad's,
+# scatter's and attention's new inputs)
+FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+SMALL_INTS = (torch.int8, torch.uint8, torch.int16, torch.uint16)
+# float8 triad inputs drawn this wide pass the type's range in s * c or in
+# the sum (the overflow cases); 16-bit floats likewise
+OVERFLOW_SCALE = {torch.float8_e4m3fn: 200.0, torch.float8_e5m2: 30000.0,
+                  torch.float16: 3e4, torch.bfloat16: 1e38}
 LOGITS_TOL = dict(atol=0.25, rtol=0.05)   # bf16 logits, kernels vs plain path
 # fp32 logits of a whole model, kernels vs plain path: the CPU parity tests'
 # fp32 bound for a 3-layer model (atol 2e-4, rtol 1e-4), scaled by ~13 for
@@ -493,7 +525,7 @@ def check_body_rules():
     flash, paged = _build.load("flash_attention"), _build.load("paged_attention")
     names = {-1: None, 0: "fma", 1: "wgmma", 2: "mma"}
     types = (torch.float32, torch.bfloat16, torch.float16)
-    pairs = [(a, b) for a in types for b in types]
+    pairs = [(a, b) for a in types for b in types] + [(t, t) for t in FP8]
     for q_dtype, kv_dtype in pairs:
         # the type the source's launch is given: float32 for mixed types
         code = _build.DTYPE_CODES[q_dtype if q_dtype == kv_dtype
@@ -517,11 +549,12 @@ def check_body_rules():
                     f"body for {q_dtype} / {kv_dtype} D{d}: the sources run "
                     f"flash {got}, paged {got_paged}; the wrappers say "
                     f"{want}, {want_paged} ... FAIL")
-    log("  body rules, D 0-1100 and 2048 x 3 types and the 6 mixed pairs, "
-        "sources and wrappers agree: flash fp32 and mixed -> fma; 16-bit "
-        "D % 8 != 0 -> fma, else Dp >= 64 -> wgmma (wide above 256), Dp "
-        "16-32 -> mma; paged rows of whole 16-byte pieces -> tma, others -> "
-        "element; 0 refused")
+    log("  body rules, D 0-1100 and 2048 x 3 types, the 6 mixed pairs and "
+        "fp8, sources and wrappers agree: flash fp32 and mixed -> fma; "
+        "16-bit D % 8 != 0 -> fma, else Dp >= 64 -> wgmma (wide above 256), "
+        "Dp 16-32 -> mma; fp8 D % 16 == 0 and Dp 64-256 -> wgmma, else fma; "
+        "paged rows of whole 16-byte pieces -> tma, others -> element; 0 "
+        "refused")
 
 
 def window_mask(s, window):
@@ -809,10 +842,13 @@ def check_guard_columns(gen, dims=None, dtypes=(torch.float32,
     log("  no store past D in either kernel")
 
 
-def paged_bound(lengths, hq, hkv, d, dtype):
+def paged_bound(lengths, hq, hkv, d, dtype, q_dtype=None):
+    """`dtype` the caches'; q and out of `q_dtype` (the caches' by
+    default)."""
     item = torch.empty((), dtype=dtype).element_size()
+    q_item = torch.empty((), dtype=q_dtype or dtype).element_size()
     rows, b = int(lengths.sum()), lengths.numel()
-    nbytes = 2 * rows * hkv * d * item + 2 * b * hq * d * item + 4 * b
+    nbytes = 2 * rows * hkv * d * item + 2 * b * hq * d * q_item + 4 * b
     flops = 4.0 * rows * hq * d
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -1105,20 +1141,6 @@ def check_offload(gen):
                              f"on the CPU {on_cpu.stats}")
 
 
-def check_equal(name, got, want, quiet=False) -> float:
-    """Bit-exact agreement (the gather kernel copies, xor is exact)."""
-    if got.shape != want.shape or got.dtype != want.dtype:
-        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != "
-                             f"{tuple(want.shape)} {want.dtype}")
-    if not torch.equal(got, want):
-        bad = int((got != want).sum())
-        raise AssertionError(f"{name}: {bad} of {got.numel()} elements differ "
-                             "from the plain version (want bit-exact)")
-    if not quiet:
-        log(f"  {name}: bit-exact ok")
-    return 0.0
-
-
 def amu_table(gen, shape, dtype):
     """Random table on the card: int32 in [0, 2^30), int8 in [-128, 128),
     floats N(0, 1)."""
@@ -1132,20 +1154,21 @@ def amu_table(gen, shape, dtype):
 
 
 def check_scatter16(name, got, table, idx, upd, raise_=True) -> bool:
-    """A bf16 / f16 scatter-add against the plain version: within
+    """A bf16 / f16 / float8 scatter-add against the plain version: within
     `ref.scatter_add16_limit` (two orders of rounded adds) on the rows the
     updates hit, bit for bit on the others. Works on the touched rows only,
     so that a large table needs no float32 copy of itself."""
     from repro_torch.kernels import ref
     rows, inv = torch.unique(idx, return_inverse=True)
-    want = ref.scatter_update_ref(table[rows], inv.to(torch.int32), upd)
-    limit = ref.scatter_add16_limit(table[rows], inv.to(torch.int32), upd)
-    err = (got[rows].float() - want.float()).abs()
+    touched = ref.gather_ref(table, rows)
+    want = ref.scatter_update_ref(touched, inv.to(torch.int32), upd)
+    limit = ref.scatter_add16_limit(touched, inv.to(torch.int32), upd)
+    err = (ref.gather_ref(got, rows).float() - want.float()).abs()
     ratio = float((err / limit.clamp(min=1e-30)).max())
     ok = bool((err <= limit).all())
     mask = torch.ones(table.shape[0], dtype=torch.bool, device=table.device)
     mask[rows.long()] = False
-    ok = ok and bool(torch.equal(got[mask], table[mask]))
+    ok = ok and bool(torch.equal(bits(got)[mask], bits(table)[mask]))
     log(f"  {name}: max abs err {float(err.max()):.3e}, {ratio:.2f} of the "
         f"limit (2 c u (1 + u)^c (|t| + sum |u_j|)), untouched rows equal "
         f"{'ok' if ok else 'FAIL'}")
@@ -1179,7 +1202,7 @@ def check_amu_kernels(gen):
                       torch.int8):          # bf16 and int8 at D = 3: element
             table = amu_table(gen, (n, d), dtype)
             idx = amu_index(gen, n, m)
-            check_equal(f"{str(dtype)[6:]} N{n} D{d} M{m} block_m{bm} K{k}",
+            check_same(f"{str(dtype)[6:]} N{n} D{d} M{m} block_m{bm} K{k}",
                         ag.async_gather(table, idx, block_m=bm, num_slots=k),
                         ref.gather_ref(table, idx))
 
@@ -1212,10 +1235,10 @@ def check_amu_kernels(gen):
             if got_path != path:
                 raise AssertionError(f"{what}: want the {path} path")
             want = ref.gather_ref(table, idx)
-            check_equal(what, ag.async_gather(table, idx), want,
+            check_same(what, ag.async_gather(table, idx), want,
                         quiet=m != 4000)
             for bm, k in ((1, 1), (16, 3), (64, 32)):   # block_m: a bound
-                check_equal(f"{what}, block_m {bm} K{k}", ag.async_gather(
+                check_same(f"{what}, block_m {bm} K{k}", ag.async_gather(
                     table, idx, block_m=bm, num_slots=k), want, quiet=True)
         del flat, table
 
@@ -1238,14 +1261,14 @@ def check_amu_kernels(gen):
             table = amu_table(gen, (n, d), torch.int32)
             upd = amu_table(gen, (m, d), torch.int32)
             want = ref.scatter_update_ref(table, idx, upd, op)
-            check_equal(f"i32 {op} N{n} D{d} M{m} block_m{bm} K{k}",
+            check_same(f"i32 {op} N{n} D{d} M{m} block_m{bm} K{k}",
                         asc.async_scatter(table, idx, upd, op, block_m=bm,
                                           num_slots=k), want)
     # tests/test_kernels.py::test_async_scatter_xor_gups
     table = amu_table(gen, (32, 8), torch.int32)
     idx = amu_index(gen, 32, 256)
     upd = amu_table(gen, (256, 8), torch.int32)
-    check_equal("xor GUPS N32 D8 M256 (8 updates a row)",
+    check_same("xor GUPS N32 D8 M256 (8 updates a row)",
                 asc.async_scatter(table.clone(), idx, upd, "xor",
                                   block_m=128, num_slots=8),
                 ref.scatter_update_ref(table, idx, upd, "xor"))
@@ -1286,28 +1309,34 @@ def check_amu_kernels(gen):
             got = asc.async_scatter(table.clone(), idx, upd, op)
             if got.dtype != torch.uint32:
                 raise AssertionError(f"uint32 {op}: got {got.dtype}")
-            check_equal(f"uint32 {op} N{n} D{d} M{m}", got.view(torch.int32),
+            check_same(f"uint32 {op} N{n} D{d} M{m}", got.view(torch.int32),
                         ref.scatter_update_ref(table.view(torch.int32), idx,
                                                upd.view(torch.int32), op),
                         quiet=True)
     log("  16-bit add within its limit, uint32 add and xor bit-exact")
 
-    log("stream_triad vs ref.triad_ref: f32 atol=rtol=1e-6, bf16 2e-2")
+    log("stream_triad vs ref.triad_ref: f32 atol=rtol=1e-6, bf16 and f16 "
+        "bit-exact")
     triad_worst = 0.0
     for (n, block) in [(4096, 512), (8192, 1024), (512, 512), (1003, 512)]:
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             b, c = randn(gen, (n,), dtype), randn(gen, (n,), dtype)
-            tol = TRIAD_TOL[dtype]
-            triad_worst = max(triad_worst, check_close(
-                f"{str(dtype)[6:]} N{n} block{block}",
-                st.stream_triad(b, c, 3.0, block=block),
-                ref.triad_ref(b, c, 3.0), **tol))
+            got = st.stream_triad(b, c, 3.0, block=block)
+            name = f"{str(dtype)[6:]} N{n} block{block}"
+            if dtype == torch.float32:
+                triad_worst = max(triad_worst, check_close(
+                    name, got, ref.triad_ref(b, c, 3.0), **TRIAD_TOL[dtype]))
+            else:
+                check_same(name, got, ref.triad_ref(b, c, 3.0))
     for n in (1, 3, 7, 4097, (1 << 20) + 5):     # bulk steps and the tail
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             b, c = randn(gen, (n,), dtype), randn(gen, (n,), dtype)
-            triad_worst = max(triad_worst, check_close(
-                f"{str(dtype)[6:]} N{n}", st.stream_triad(b, c, 3.0),
-                ref.triad_ref(b, c, 3.0), quiet=True, **TRIAD_TOL[dtype]))
+            got, want = st.stream_triad(b, c, 3.0), ref.triad_ref(b, c, 3.0)
+            if dtype == torch.float32:
+                triad_worst = max(triad_worst, check_close(
+                    f"f32 N{n}", got, want, quiet=True, **TRIAD_TOL[dtype]))
+            else:
+                check_same(f"{str(dtype)[6:]} N{n}", got, want, quiet=True)
     log("  N = 1, 3, 7, 4097, 2^20 + 5 agree in the three types")
     b, c = randn(gen, (1000,), torch.float32), randn(gen, (1000,),
                                                       torch.float32)
@@ -1320,16 +1349,22 @@ def check_amu_kernels(gen):
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device="cuda")
     refusals = [
-        ("async_scatter, bf16 rows of 6 bytes", ValueError,
-         lambda: asc.async_scatter(zeros(4, 3, dtype=torch.bfloat16),
+        ("async_scatter, xor on float8_e4m3fn", TypeError,
+         lambda: asc.async_scatter(zeros(4, 3, dtype=torch.float8_e4m3fn),
                                    amu_index(gen, 4, 3),
-                                   zeros(3, 3, dtype=torch.bfloat16))),
+                                   zeros(3, 3, dtype=torch.float8_e4m3fn),
+                                   "xor")),
+        ("async_scatter, int8 table 1 byte off 4 bytes", ValueError,
+         lambda: asc.async_scatter(zeros(5, 4, dtype=torch.int8)
+                                   .view(-1)[1:17].view(4, 4),
+                                   amu_index(gen, 4, 3),
+                                   zeros(3, 4, dtype=torch.int8))),
         ("async_scatter, xor on float32", TypeError,
          lambda: asc.async_scatter(zeros(4, 4), amu_index(gen, 4, 3),
                                    zeros(3, 4), "xor")),
-        ("stream_triad, int32", TypeError,
-         lambda: st.stream_triad(zeros(8, dtype=torch.int32),
-                                 zeros(8, dtype=torch.int32), 1.0)),
+        ("stream_triad, int64", TypeError,
+         lambda: st.stream_triad(zeros(8, dtype=torch.int64),
+                                 zeros(8, dtype=torch.int64), 1.0)),
         ("stream_triad, b 4 bytes off a 16-byte boundary", ValueError,
          lambda: st.stream_triad(zeros(1025)[1:], zeros(1024), 1.0)),
         ("paged_attention, a cache row 4 bytes off 16 bytes", ValueError,
@@ -1349,6 +1384,301 @@ def check_amu_kernels(gen):
     log("  refused as they should be: " + "; ".join(r[0] for r in refusals))
     return {"async_gather": 0.0, "async_scatter": worst,
             "stream_triad": triad_worst}
+
+
+def bits(t):
+    """t's bits as an integer tensor of its width: what torch compares on
+    the card for every type (it lacks uint16's comparisons)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def check_same(name, got, want, quiet=False) -> float:
+    """Bit-exact agreement of any type; floats (float8 too) compared as
+    values with NaN where the other is NaN."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if got.is_floating_point():
+        g, w = got.float(), want.float()
+        gn, wn = torch.isnan(g), torch.isnan(w)
+        bad = (gn != wn) | (~wn & (g != w))
+    else:
+        bad = bits(got) != bits(want)
+    nbad = int(bad.sum())
+    if nbad:
+        log(f"  {name}: {nbad} of {got.numel()} elements differ FAIL")
+        raise AssertionError(f"{name}: {nbad} of {got.numel()} elements "
+                             "differ from the plain version (want bit-exact)")
+    if not quiet:
+        log(f"  {name}: bit-exact ok")
+    return 0.0
+
+
+def check_ulp(name, got, want, quiet=False, extra=None) -> float:
+    """Within one unit in the last place of the output's type at the larger
+    magnitude (1 for integers), NaN where the other is NaN: the kernel and
+    the plain version compute in fp32 in other orders and round once.
+    `extra` (elementwise, absolute) adds what a body rounds besides: flash's
+    tensor-core body for fp8 rounds P to f16, as its f16 body does, which
+    moves a sum p v by up to 2^-11 sum p |v| (FLASH_F16_TOL's ptol times
+    `flash_spread`), beyond fp8's finest steps near 0 in e5m2."""
+    g, w = got.float(), want.float()
+    if got.is_floating_point():
+        fi = torch.finfo(got.dtype)
+        mag = torch.maximum(g.abs(), w.abs()).clamp(min=fi.tiny)
+        step = torch.exp2(torch.floor(torch.log2(mag))) * fi.eps
+    else:
+        step = torch.ones_like(g)
+    if extra is not None:
+        step = step + extra
+    gn, wn = torch.isnan(g), torch.isnan(w)
+    err = torch.where(wn | gn, torch.zeros_like(g), (g - w).abs())
+    ok = bool((gn == wn).all()) and bool((err <= step).all())
+    worst = float(err.max())
+    if not (ok and quiet):
+        log(f"  {name}: max abs err {worst:.3e}, {float((err / step).max()):.2f}"
+            f" of one unit in the last place {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: more than one unit in the last place "
+                             "from its plain version")
+    return worst
+
+
+def fp8_p_term(q, k, v, body):
+    """`check_ulp`'s extra term for flash in fp8: the f16 P of its wgmma
+    body (none for the fma body, fp32 throughout)."""
+    if body != "wgmma":
+        return None
+    return FLASH_F16_TOL["ptol"] * flash_spread(q, k, v)
+
+
+def rand_typed(gen, shape, dtype, scale=1.0):
+    """Seeded values of any type on the card: floats N(0, scale^2) in the
+    type (float8 by `ref.to_fp8`: past its range NaN or inf), integers
+    uniform over the whole type."""
+    from repro_torch.kernels import ref
+    if dtype.is_floating_point:
+        x = torch.randn(shape, generator=gen, device="cuda") * scale
+        return ref.from_float(x, dtype)
+    signed = {torch.uint16: torch.int16, torch.uint32: torch.int32}.get(
+        dtype, dtype)
+    info = torch.iinfo(signed)
+    x = torch.randint(info.min, info.max + 1, shape, generator=gen,
+                      device="cuda", dtype=torch.int64)
+    return x.to(signed).view(dtype)
+
+
+def check_every_type(gen):
+    """The inputs the port took last, each against its plain version:
+    float8 conversions at their edges (e4m3fn 500 -> NaN, e5m2 61440 ->
+    inf) and an integer triad's scalar saturated on the card; the triad in
+    bf16, f16, both float8 and the six integer types (N = 1003 and 2^20 +
+    5, also with inputs past the type's range), bit-exact; scatter add and
+    xor of 8/16-bit integers at rows of 1, 3 and 64 elements, float8 add at
+    3 and 64, bf16 / f16 add at 1, 3 and 5 (the word path: CAS loops, xor
+    words with zero bytes, the scalar 16-bit reduction), 50000 updates into
+    3000 rows and every update into one row; the gather of float8 rows;
+    flash in float8 at D 8, 64, 80, 100, 128, 256 (fma and the f16-converted
+    wgmma body, whose f16 P adds `fp8_p_term`) and int8 once (its float32
+    copies),
+    paged with float8 caches at D 8, 100, 128, within one unit in the
+    output type's last place, and bf16 q over e4m3 caches at bf16's limit
+    (PAGED_BF16_TOL: a bf16 output near 0 is finer than the fp32 sums'
+    order)."""
+    from repro_torch.kernels import async_gather as ag
+    from repro_torch.kernels import async_scatter as asc
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stream_triad as st
+
+    log("every input type: float8, 8- and 16-bit integers, any row width")
+    nan, inf = float("nan"), float("inf")
+    edges = {torch.float8_e4m3fn: ([52.0, 16.0, -52.0], [448.0, 448.0,
+                                                         -448.0],
+                                   [nan, 448.0, nan]),
+             torch.float8_e5m2: ([4096.0, 2048.0, -4096.0],
+                                 [57344.0, 57344.0, -57344.0],
+                                 [inf, 57344.0, -inf])}
+    for dtype, (b, c, want) in edges.items():
+        b = torch.tensor(b * 341, device="cuda").to(dtype)     # 1023 long
+        c = torch.tensor(c * 341, device="cuda").to(dtype)
+        a = st.stream_triad(b, c, 1.0)
+        check_same(f"triad {tname(dtype)} at its range's edge", a,
+                   ref.triad_ref(b, c, 1.0), quiet=True)
+        got = a.float()[:3].tolist()
+        if not all(g == w or (g != g and w != w) for g, w in zip(got, want)):
+            raise AssertionError(f"triad {tname(dtype)}: b + c = {got}, "
+                                 f"want {want} (no saturation) ... FAIL")
+    for dtype, s, want in ((torch.int8, 300.0, 127), (torch.uint8, -1.5, 0),
+                           (torch.int32, 1e10, 2 ** 31 - 1)):
+        b = torch.zeros(1003, dtype=dtype, device="cuda")
+        c = torch.ones(1003, dtype=dtype, device="cuda")
+        got = int(st.stream_triad(b, c, s)[0])
+        if got != want:
+            raise AssertionError(f"triad {tname(dtype)} s={s}: {got}, want "
+                                 f"{want} (toward zero, saturated) ... FAIL")
+    log("  float8 sums past the range: e4m3fn 500 -> NaN, 464 -> 448; e5m2 "
+        "61440 -> inf, 59392 -> 57344; integer scalars 300 -> 127 (int8), "
+        "-1.5 -> 0 (uint8), 1e10 -> 2^31 - 1 (int32) ok")
+
+    types = (torch.bfloat16, torch.float16, *FP8, *SMALL_INTS, torch.int32,
+             torch.uint32)
+    for dtype in types:
+        for n in (1003, (1 << 20) + 5):
+            for wide in (False, True):
+                scale = OVERFLOW_SCALE.get(dtype, 1.0) if wide else 4.0
+                b = rand_typed(gen, (n,), dtype, scale)
+                c = rand_typed(gen, (n,), dtype, scale)
+                check_same(f"triad {tname(dtype)} N{n} scale {scale:g}",
+                           st.stream_triad(b, c, 3.3),
+                           ref.triad_ref(b, c, 3.3), quiet=True)
+    log(f"  triad bit-exact in {', '.join(map(tname, types))} at N 1003 and "
+        "2^20 + 5, with and without overflow")
+
+    n, m = 3000, 50000
+    cases = [(t, op, d) for t in SMALL_INTS for op in ("add", "xor")
+             for d in (1, 3, 64)]
+    cases += [(t, "add", d) for t in FP8 for d in (3, 64)]
+    cases += [(t, "add", d) for t in (torch.bfloat16, torch.float16)
+              for d in (1, 3, 5)]
+    for dtype, op, d in cases:
+        for hot in (False, True):
+            if hot and not (d == 3 and op == "add"):
+                continue
+            table = rand_typed(gen, (n, d), dtype)
+            idx = amu_index(gen, n, m if not hot else 4096)
+            if hot:                                  # every update, one row
+                idx = torch.full_like(idx, 1234)
+            upd = rand_typed(gen, (idx.numel(), d), dtype)
+            got = asc.async_scatter(table.clone(), idx, upd, op)
+            name = (f"scatter {op} {tname(dtype)} [{n},{d}], {idx.numel()} "
+                    f"updates{' into one row' if hot else ''}")
+            if dtype.is_floating_point:
+                check_scatter16(name, got, table, idx, upd)
+            else:
+                check_same(name, got, ref.scatter_update_ref(table, idx, upd,
+                                                             op), quiet=True)
+    log(f"  scatter: {len(cases)} (type, op, width) cases and 4 hot rows: "
+        "integers bit-exact, float8 / 16-bit within their limit")
+
+    for d in (3, 64):
+        table = rand_typed(gen, (5000, d), torch.float8_e4m3fn)
+        idx = amu_index(gen, 5000, 3001)
+        check_same(f"gather float8_e4m3fn [5000,{d}]",
+                   ag.async_gather(table, idx), ref.gather_ref(table, idx))
+
+    for dtype in FP8:
+        for d in (8, 64, 80, 100, 128, 256):
+            q = rand_typed(gen, (2, 200, 8, d), dtype, Q_SCALE).transpose(1, 2)
+            k = rand_typed(gen, (2, 200, 2, d), dtype).transpose(1, 2)
+            v = rand_typed(gen, (2, 200, 2, d), dtype).transpose(1, 2)
+            body = fa.body_for(dtype, d)
+            check_ulp(f"flash {tname(dtype)} D{d} ({body} body)",
+                      fa.flash_attention(q, k, v), ref.attention_ref(q, k, v),
+                      extra=fp8_p_term(q, k, v, body))
+            pq = rand_typed(gen, (4, 16, d), dtype, Q_SCALE)
+            kc = rand_typed(gen, (4, 333, 2, d), dtype)
+            vc = rand_typed(gen, (4, 333, 2, d), dtype)
+            lens = torch.tensor([0, 1, 200, 333], dtype=torch.int32,
+                                device="cuda")
+            check_ulp(f"paged {tname(dtype)} caches D{d} "
+                      f"({pa.body_for(dtype, d)} body)",
+                      pa.paged_attention(pq, kc, vc, lens),
+                      ref.paged_attention_ref(pq, kc, vc, lens))
+            if dtype == torch.float8_e4m3fn:     # a bf16 output: its limit
+                bq = pq.to(torch.bfloat16)
+                check_close(f"paged bf16 q, {tname(dtype)} caches D{d}",
+                            pa.paged_attention(bq, kc, vc, lens),
+                            ref.paged_attention_ref(bq, kc, vc, lens),
+                            **PAGED_BF16_TOL)
+    qi = torch.randint(-3, 4, (2, 8, 200, 64), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    ki = torch.randint(-3, 4, (2, 2, 200, 64), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    check_ulp("flash int8 D64 (float32 copies)",
+              fa.flash_attention(qi, ki, ki.flip(2)),
+              ref.attention_ref(qi, ki, ki.flip(2)))
+    torch.cuda.synchronize()
+
+
+def fp8_serve_shapes(gen):
+    """Flash in both float8 types at qwen2.5-3b's prefill (B4 Hq16 Hkv2
+    S1000 D128, causal) and paged with float8 caches at its decode (T 1032,
+    lengths [1032, 1001, 517, 64]), also under a bf16 q: within one unit in
+    the output's last place of the plain version (flash's wgmma body plus
+    `fp8_p_term`; the bf16 output within PAGED_BF16_TOL), timed beside it,
+    its
+    bound and the library call on bf16 copies (`scaled_dot_product_attention`
+    has no float8 form: a yardstick of the same function, not of the same
+    bytes). Each goes into SERVE_SHAPES."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa, ref
+    import torch.nn.functional as F
+
+    cfg = configs.get_config(ARCH)
+    b, hq, hkv, d = (BATCH, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+    s, t = PROMPT_LEN, PROMPT_LEN + MAX_NEW
+    log(f"float8 at {ARCH}'s serve shapes")
+    for dtype in FP8:
+        q = rand_typed(gen, (b, s, hq, d), dtype, Q_SCALE).transpose(1, 2)
+        k = rand_typed(gen, (b, s, hkv, d), dtype).transpose(1, 2)
+        v = rand_typed(gen, (b, s, hkv, d), dtype).transpose(1, 2)
+        shape = f"{ARCH} B{b} Hq{hq} Hkv{hkv} S{s} D{d} {tname(dtype)}"
+        err = check_ulp(f"flash {shape}", fa.flash_attention(q, k, v),
+                        ref.attention_ref(q, k, v),
+                        extra=fp8_p_term(q, k, v, fa.body_for(dtype, d)))
+        bq, bk, bv = (x.to(torch.bfloat16) for x in (q, k, v))
+        ms = time_ms([lambda: fa.flash_attention(q, k, v)], 10)
+        plain_ms = time_ms([lambda: ref.attention_ref(q, k, v)], 5)
+        library_ms = time_ms([lambda: F.scaled_dot_product_attention(
+            bq, bk, bv, is_causal=True, enable_gqa=True)], 10)
+        bound_ms, bound_by = flash_bound(b, hq, hkv, s, d, 0, dtype)
+        log(f"  ({fa.body_for(dtype, d)} body) kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library on bf16 copies {library_ms:.4f} "
+            f"ms, bound {bound_ms:.5f} ms ({bound_by})")
+        SERVE_SHAPES.append(dict(
+            kernel="flash_attention", shape=shape, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            library="sdpa on bf16 copies", bound_ms=bound_ms,
+            bound_by=bound_by))
+    lens = torch.tensor([t, s + 1, (t + 2) // 2, 64], dtype=torch.int32,
+                        device="cuda")
+    mask = (torch.arange(t, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    for q_dtype, dtype in ((torch.float8_e4m3fn, torch.float8_e4m3fn),
+                           (torch.float8_e5m2, torch.float8_e5m2),
+                           (torch.bfloat16, torch.float8_e4m3fn)):
+        sets = [(rand_typed(gen, (b, hq, d), q_dtype, Q_SCALE),
+                 rand_typed(gen, (b, t, hkv, d), dtype),
+                 rand_typed(gen, (b, t, hkv, d), dtype)) for _ in range(16)]
+        q, kc, vc = sets[0]
+        shape = (f"{ARCH} B{b} Hq{hq} Hkv{hkv} T{t} D{d} q {tname(q_dtype)} "
+                 f"caches {tname(dtype)}")
+        got = pa.paged_attention(q, kc, vc, lens)
+        want = ref.paged_attention_ref(q, kc, vc, lens)
+        err = (check_ulp(f"paged {shape}", got, want) if q_dtype in FP8 else
+               check_close(f"paged {shape}", got, want, **PAGED_BF16_TOL))
+        wide = [tuple(x.to(torch.bfloat16) for x in st) for st in sets]
+        ms = time_ms([lambda st=st: pa.paged_attention(*st, lens)
+                      for st in sets], 64)
+        plain_ms = time_ms([lambda st=st: ref.paged_attention_ref(*st, lens)
+                            for st in sets], 16)
+        library_ms = time_ms([lambda w=w: F.scaled_dot_product_attention(
+            w[0][:, :, None], w[1].transpose(1, 2), w[2].transpose(1, 2),
+            attn_mask=mask, enable_gqa=True) for w in wide], 64)
+        bound_ms, bound_by = paged_bound(lens, hq, hkv, d, dtype, q_dtype)
+        log(f"  ({pa.body_for(dtype, d)} body) kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library on bf16 copies {library_ms:.4f} "
+            f"ms, bound {bound_ms:.5f} ms ({bound_by})")
+        SERVE_SHAPES.append(dict(
+            kernel="paged_attention", shape=shape, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            library="sdpa on bf16 copies", bound_ms=bound_ms,
+            bound_by=bound_by))
 
 
 def check_scatter_paths(gen) -> float:
@@ -1395,7 +1725,7 @@ def check_scatter_paths(gen) -> float:
             worst = max(worst, check_close(what, got, want, quiet=quiet,
                                            **SCATTER_TOL))
         else:
-            check_equal(what, got, want, quiet=quiet)
+            check_same(what, got, want, quiet=quiet)
 
     cases = [(8, torch.int32, "xor"), (8, torch.float32, "add"),
              (12, torch.int32, "add"), (12, torch.int32, "xor"),
@@ -1439,7 +1769,7 @@ def check_scatter_paths(gen) -> float:
         what = (f"N{n} M{m} rows of {r} B: {buckets} regions of 2^{shift} "
                 f"rows, {tiles} tiles of {tile // sub} sub-chunks of {sub}")
         for name, g, w in zip(("indices", "updates", "offsets"), got, want):
-            check_equal(f"{what}, {name}", g, w, quiet=name != "offsets")
+            check_same(f"{what}, {name}", g, w, quiet=name != "offsets")
 
     log("async_scatter: two calls in a row, each on the workspace the "
         "other left")
@@ -1456,7 +1786,7 @@ def check_scatter_paths(gen) -> float:
                 worst = max(worst, check_close(name, out, want,
                                                **SCATTER_TOL))
             else:
-                check_equal(name, out, want)
+                check_same(name, out, want)
         del pairs, outs
     return worst
 
@@ -2551,7 +2881,7 @@ def run_amu(kernels, worst):
         expect = ref.scatter_update_ref(table, idx, upd, op)
         for value in values:
             kw = {knob: value}
-            check_equal(f"{knob}={value}", asc.async_scatter(
+            check_same(f"{knob}={value}", asc.async_scatter(
                 table.clone(), idx, upd, op, **kw), expect, quiet=True)
             t = time_ms([lambda: asc.async_scatter(out, idx, upd, op, **kw)],
                         10)
@@ -2586,7 +2916,7 @@ def run_amu(kernels, worst):
         device="cuda", source="device"))
     if not res["ok"]:
         raise AssertionError("GUPS: the quickstart reports MISMATCH")
-    check_equal("quickstart GUPS xor vs ref.scatter_update_ref", res["out"],
+    check_same("quickstart GUPS xor vs ref.scatter_update_ref", res["out"],
                 res["expect"])
     idx, upd, out = res["indices"], res["updates"], res["out"]
     res_table = res["table"]
@@ -2598,7 +2928,7 @@ def run_amu(kernels, worst):
                                            upd.view(torch.uint32), "xor"))
     if u32.dtype != torch.uint32:
         raise AssertionError(f"uint32 GUPS: result is {u32.dtype}")
-    check_equal("GUPS xor on a uint32 view vs the int32 result",
+    check_same("GUPS xor on a uint32 view vs the int32 result",
                 u32.view(torch.int32), out)
     del u32
     free_cuda()
@@ -2640,7 +2970,7 @@ def run_amu(kernels, worst):
         out = drive(lambda: ops.scatter_update(table, idx, upd, op))
         want = ref.scatter_update_ref(table, idx, upd, op)
         if op == "xor":
-            check_equal(name, out, want)
+            check_same(name, out, want)
         else:
             worst["async_scatter"] = max(worst["async_scatter"],
                                          check_close_big(name, out, want,
@@ -2689,6 +3019,61 @@ def run_amu(kernels, worst):
     del table, idx, upd, out
     free_cuda()
 
+    # the inputs added last: 8/16-bit integer and float8 tables at 64
+    # elements a row and at rows of 3 and 6 bytes (the word path: a CAS
+    # loop or a word's xor a lane; the narrow rows bucketed first), bf16 at
+    # rows of 6 bytes (its scalar reduction), 2^20 updates of which a
+    # quarter go to 4096 hot rows
+    rows, m = 1 << 24, 1 << 20
+    extra_scatter = 0
+    for dtype, op, width in ((torch.int8, "add", 64), (torch.int16, "add", 64),
+                             (torch.uint16, "add", 64),
+                             (torch.float8_e4m3fn, "add", 64),
+                             (torch.float8_e5m2, "add", 64),
+                             (torch.int8, "add", 3), (torch.int16, "add", 3),
+                             (torch.uint16, "add", 3),
+                             (torch.float8_e4m3fn, "add", 3),
+                             (torch.float8_e5m2, "add", 6),
+                             (torch.int8, "xor", 64), (torch.uint16, "xor", 64),
+                             (torch.int8, "xor", 3), (torch.uint16, "xor", 3),
+                             (torch.bfloat16, "add", 3)):
+        table = rand_typed(gen, (rows, width), dtype)
+        idx = amu_index(gen, rows, m)
+        idx[::4] %= 4096
+        upd = rand_typed(gen, (m, width), dtype)
+        row_bytes = width * table.element_size()
+        name = (f"scatter {op} [{rows},{width}] {tname(dtype)} ({row_bytes}-"
+                f"byte rows), {m} updates")
+        out = drive(lambda: ops.scatter_update(table, idx, upd, op))
+        extra_scatter += 4 if row_bytes < asc.SECTOR else 1
+        if dtype.is_floating_point:
+            check_scatter16(name, out, table, idx, upd)
+        else:
+            check_same(name, out, ref.scatter_update_ref(table, idx, upd, op))
+        nbytes, sector_bytes = scatter_bytes(idx, row_bytes)
+        bound_ms, bound_by = amu_bound(nbytes, m * width)
+        ms = time_ms([lambda: asc.async_scatter(out, idx, upd, op)], 20)
+        plain_ms = time_ms([lambda: ref.scatter_update_ref(table, idx, upd,
+                                                           op)], 2, repeats=3)
+        library_ms = None     # torch has no xor and no float8 add to time
+        if op == "add" and dtype not in FP8:
+            try:
+                library_ms = time_ms([lambda: out.index_add_(0, idx, upd)],
+                                     20)
+            except (RuntimeError, NotImplementedError) as e:
+                log(f"    index_add_ does not take {tname(dtype)} here: "
+                    f"{str(e).splitlines()[0][:80]}")
+        plan = asc.launch_plan(out, m, op)
+        report(name, "async_scatter", ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, touched_rows=torch.unique(idx).numel(),
+               sector_bound_ms=amu_bound(sector_bytes)[0],
+               host_us=host_us(lambda: asc.async_scatter(out, idx, upd, op)))
+        log(f"    chunk {plan.chunk} ({'word path' if plan.chunk == 1 else 'reductions'}"
+            f"), {plan.launches} launches, spans of {plan.span}")
+        del table, idx, upd, out
+        free_cuda()
+
     # gather: 512-byte rows of an 8 GiB table, then the embedding lookup,
     # then rows of 6 and 3 bytes (the element path)
     cfg = configs.get_config(ARCH)
@@ -2697,22 +3082,28 @@ def run_amu(kernels, worst):
                 BATCH * PROMPT_LEN, f"{ARCH} embedding, {BATCH}x{PROMPT_LEN} "
                 "token ids"),
                ((1 << 24, 3), torch.bfloat16, 1 << 20, "rows of 6 bytes"),
-               ((1 << 24, 3), torch.int8, 1 << 20, "rows of 3 bytes")]
+               ((1 << 24, 3), torch.int8, 1 << 20, "rows of 3 bytes"),
+               ((1 << 24, 64), torch.float8_e4m3fn, 1 << 20,
+                "float8 rows of 64 bytes")]
     for i, (shape, dtype, m, what) in enumerate(gathers):
-        table = amu_table(gen, shape, dtype)
+        table = rand_typed(gen, shape, dtype) if dtype in FP8 \
+            else amu_table(gen, shape, dtype)
         idx = amu_index(gen, shape[0], m)
         name = f"gather [{shape[0]},{shape[1]}] {str(dtype)[6:]}, {m} {what}"
         out = drive(lambda: ops.gather(table, idx))
-        check_equal(name, out, ref.gather_ref(table, idx))
-        check_equal("  (library call agrees)", torch.index_select(table, 0,
-                                                                   idx), out)
+        check_same(name, out, ref.gather_ref(table, idx))
+        # the library call on the rows' bytes (index_select of float8 rows)
+        lib_table = bits(table) if dtype in FP8 else table
+        check_same("  (library call agrees)", torch.index_select(
+            lib_table, 0, idx), bits(out) if dtype in FP8 else out)
         row_bytes = shape[1] * table.element_size()
         touched = torch.unique(idx).numel()
         nbytes = touched * row_bytes + m * row_bytes + m * 4
         bound_ms, bound_by = amu_bound(nbytes)
         ms = time_ms([lambda: ag.async_gather(table, idx)], 20)
         plain_ms = time_ms([lambda: ref.gather_ref(table, idx)], 20)
-        library_ms = time_ms([lambda: torch.index_select(table, 0, idx)], 20)
+        library_ms = time_ms([lambda: torch.index_select(lib_table, 0, idx)],
+                             20)
         plan = ag.launch_plan(table, m)
         report(name, "async_gather", ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -2720,15 +3111,15 @@ def run_amu(kernels, worst):
                rows_in_flight_per_sm=plan.rows_in_flight_per_sm,
                host_us=host_us(lambda: ag.async_gather(table, idx)),
                library_host_us=host_us(
-                   lambda: torch.index_select(table, 0, idx)))
+                   lambda: torch.index_select(lib_table, 0, idx)))
         log(f"    {plan.blocks} blocks of {plan.rows} rows, {plan.warps} "
             f"warps, {'bulk' if plan.bulk else 'cp.async' if plan.chunk >= 4 else 'element'} path; host "
             f"{cases[-1]['host_us']:.1f} us a call (index_select "
             f"{cases[-1]['library_host_us']:.1f} us)")
         if i == 0:
             gather_main = cases[-1]
-        if i >= 2:                  # the element path has no ring to sweep
-            del table, idx, out
+        if i >= 2:                  # only the first two sweep their ring
+            del table, idx, out, lib_table
             free_cuda()
             continue
         # the paper's "queue length follows demand": ring depth K, on the
@@ -2736,7 +3127,7 @@ def run_amu(kernels, worst):
         log(f"  ring-depth sweep on {name} ({plan.blocks} blocks of "
             f"{plan.rows} indices at K=8):")
         for slots in (1, 2, 4, 8, 16, 32):
-            check_equal(f"K={slots}", ag.async_gather(
+            check_same(f"K={slots}", ag.async_gather(
                 table, idx, num_slots=slots), out, quiet=True)
             t = time_ms([lambda: ag.async_gather(table, idx,
                                                  num_slots=slots)], 20)
@@ -2748,7 +3139,7 @@ def run_amu(kernels, worst):
             log(f"    K={slots:2d}: {t:.4f} ms, {nbytes / t / 1e6:.1f} "
                 f"GB/s, {mlp} rows ({mlp * row_bytes / 1024:.0f} KB) in "
                 "flight per SM")
-        del table, idx, out
+        del table, idx, out, lib_table
         free_cuda()
 
     # STREAM triad, one size, 4x past the caches
@@ -2777,7 +3168,7 @@ def run_amu(kernels, worst):
     b, c = randn(gen, (n,), torch.float16), randn(gen, (n,), torch.float16)
     name = f"triad f16 N={n} ({n * 2 / 2**30:.1f} GiB an array)"
     a = drive(lambda: ops.triad(b, c, 3.0))
-    check_equal(name, a, ref.triad_ref(b, c, 3.0))
+    check_same(name, a, ref.triad_ref(b, c, 3.0))
     check_close_big("  (library call agrees)", torch.add(b, c, alpha=3.0), a,
                     **TRIAD_TOL[torch.float16])
     report(name, "stream_triad",
@@ -2789,13 +3180,43 @@ def run_amu(kernels, worst):
            host_us=host_us(lambda: st.stream_triad(b, c, 3.0)))
     del a, b, c
     free_cuda()
+    # the triad in the types added last, bit for bit, each with inputs that
+    # pass the type's range (integers drawn over the whole type wrap,
+    # float8 drawn wide gives NaN / inf); s = 3.3 is 3 for the integers
+    triad_types = (torch.int8, torch.uint8, torch.int16, torch.int32, *FP8)
+    for dtype in triad_types:
+        scale = OVERFLOW_SCALE.get(dtype, 1.0)
+        b, c = rand_typed(gen, (n,), dtype, scale), rand_typed(gen, (n,),
+                                                               dtype, scale)
+        item = b.element_size()
+        name = (f"triad {tname(dtype)} N={n} (inputs past the range: "
+                f"{'wrap' if not dtype.is_floating_point else 'NaN / inf'})")
+        a = drive(lambda: ops.triad(b, c, 3.3))
+        check_same(name, a, ref.triad_ref(b, c, 3.3))
+        library_ms = None     # torch.add has no float8 form
+        if not dtype.is_floating_point:
+            alpha = ref.round_scalar(3.3, dtype)
+            check_same("  (library call agrees)",
+                       torch.add(b, c, alpha=alpha), a)
+            library_ms = time_ms([lambda: torch.add(b, c, alpha=alpha)], 20)
+        report(name, "stream_triad",
+               ms=time_ms([lambda: st.stream_triad(b, c, 3.3)], 20),
+               plain_ms=time_ms([lambda: ref.triad_ref(b, c, 3.3)], 5),
+               library_ms=library_ms,
+               bound_ms=amu_bound(3 * n * item, 2 * n)[0],
+               bound_by=amu_bound(3 * n * item, 2 * n)[1], bytes=3 * n * item,
+               host_us=host_us(lambda: st.stream_triad(b, c, 3.3)))
+        del a, b, c
+        free_cuda()
 
     # one launch per ops call, but async_scatter's GUPS (8-byte rows) runs
     # the bucket pass's three kernels before its apply: 4 + 4 (its uint32
-    # view) + 1 + 1 + 1 (bf16 add)
-    want = {"async_gather": 4, "async_scatter": 11, "stream_triad": 2}
+    # view) + 1 + 1 + 1 (bf16 add), and the later types' scatters (four
+    # for a bucketed row of fewer than 32 bytes)
+    want = {"async_gather": 5, "async_scatter": 11 + extra_scatter,
+            "stream_triad": 2 + len(triad_types)}
     log(f"  launches on the AMU path: {counts} (want {want}: one per ops "
-        "call, four for each bucketed GUPS scatter)")
+        "call, four for each bucketed scatter)")
     if counts != want:
         raise AssertionError("the AMU path did not launch each kernel as "
                              "often as its ops calls need")
@@ -3024,7 +3445,7 @@ MUTANTS = {
                              "const bool in = row0 + r < S && c < dh;",
                              "const bool in = row0 + r < S;")],
     "paged_load_tail": [("paged_attention.cu",
-                         "return c < dh ? row[c] : from_float<E>(0.f);",
+                         "return c < dh ? row[c] : zero<E>();",
                          "return row[c];")],
     # the wide bodies (D > 256): a block stores its chunk at the head's
     # first columns ...
@@ -3063,6 +3484,37 @@ MUTANTS = {
                              "uint32_t*>(src));",
                              "    red_add2<E>(dst, __byte_perm(*reinterpret_"
                              "cast<const uint32_t*>(src), 0, 0x1032));")],
+    # the inputs added last: the triad rounding bf16 / fp8 once, at the end
+    # (as the port did before it rounded where the reference does) ...
+    "triad_one_rounding": [("stream_triad.cu",
+                            "    if constexpr (kRoundProduct<E>) sc = "
+                            "to_float(from_float<E>(sc));\n", ""),
+                           ("stream_triad.cu",
+                            "a2[i] = __hadd2_rn(b2[i], __hmul2_rn(s2, "
+                            "c2[i]));",
+                            "a2[i] = __hfma2(s2, c2[i], b2[i]);")],
+    # ... fp8 conversions saturating (e4m3fn 500 -> 448, not NaN: the
+    # hardware's conversion without the overflow set after it) ...
+    "fp8_satfinite": [("common.cuh",
+                       "  return over ? (__nv_fp8_storage_t)",
+                       "  return false ? (__nv_fp8_storage_t)")],
+    # ... the scatter's CAS loop as a load, an add and a store ...
+    "scatter_cas_store": [("async_scatter.cu",
+                           "    old = atomicCAS(p, seen, f(seen));",
+                           "    *p = f(seen);")],
+    # ... its word path taking the byte past the row (a neighbour's xor) ...
+    "scatter_word_past_row": [("async_scatter.cu",
+                               "          if (o >= 0 && o < R) {",
+                               "          if (o >= 0 && o <= R) {")],
+    # ... dropping a bf16 / f16 element whose pair is a neighbour's ...
+    "scatter16_lone_dropped": [("async_scatter.cu",
+                                "    else if (inside == 0xffff0000u)       "
+                                "   // one element: the row's first\n      "
+                                "red_add1<E>(p + 2, w >> 16);\n", "")],
+    # ... or reading e5m2 as e4m3
+    "fp8_e5m2_as_e4m3": [("common.cuh",
+                          "__nv_cvt_fp8_to_halfraw(x.__x, __NV_E5M2)",
+                          "__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)")],
 }
 
 
@@ -3432,7 +3884,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     out_dir = _build.build_all(verbose=args.ptxas)
     log(f"built {len(list(out_dir.glob('lib*.so')))} kernel libraries in "
-        f"{_build.build_seconds or 0.0:.1f} s -> {out_dir}")
+        f"{_build.build_seconds or 0.0:.1f} s -> {out_dir}; "
+        + ", ".join(line.split("\n")[0][3:] for line in _build.build_log))
     if args.ptxas:
         log("\n".join(_build.build_log))
     check_sass(out_dir)
@@ -3443,6 +3896,8 @@ def main() -> int:
     fuzz_kernels(gen)
     check_offload(gen)
     amu_worst = check_amu_kernels(gen)
+    check_every_type(gen)
+    fp8_serve_shapes(gen)
 
     # 4. the slice and the later paths, then training; 5. the AMU kernels'
     # own path; 6. the simulator and the whole quickstart; 7. the parallel

@@ -37,8 +37,19 @@ HPCC's 8-byte rows, [2^30, 2] int32, 2^26 updates), also with the same
 updates sorted beforehand by table region (`idx >> s`, untimed: what
 bucketing by region could buy), its bucket pass alone (bound by its bytes:
 the indices read twice, the rows once, both written once), and at 512-byte
-rows ([2^24, 128], 2^20 updates) in int32 xor and f32 add. `--only` picks
-some of flash, paged, gather, triad, scatter, scatter_bf16. For each:
+rows ([2^24, 128], 2^20 updates) in int32 xor and f32 add. `types` (a
+tree that takes them) times the inputs added last: flash in e4m3 and e5m2
+at qwen2.5-3b's prefill and paged with e4m3 / e5m2 caches (and a bf16 q
+over e4m3 caches) at its decode, their library call SDPA on bf16 copies;
+triad at N = 2^28 in int8, uint8, int16, int32, e4m3 and e5m2 (library:
+`torch.add(b, c, alpha=s)` for the integers, none for float8); scatter add
+of 2^20 updates (a quarter into 4096 hot rows) into [2^24, 64] int8, int16,
+uint16, e4m3, e5m2 and into rows of 3 and 6 bytes, xor into int8 and
+uint16 rows of 64 elements and of 3, bf16 add into [2^24, 3] (library:
+`index_add_` where torch has it, none for xor and float8); the gather of
+[2^24, 64] e4m3 rows (library: `index_select` of the rows' bytes). Triad
+also runs in bf16. `--only` picks some of flash, paged, gather, triad,
+scatter, scatter_bf16, types. For each:
 kernel ms (CUDA
 events, mean of back-to-back calls, best of 5 windows, as in chip_smoke.py),
 host us a call (perf_counter over 50 calls without a synchronise), the
@@ -71,7 +82,7 @@ def main() -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--only", nargs="*",
                     default=["flash", "paged", "gather", "triad",
-                             "scatter", "scatter_bf16"])
+                             "scatter", "scatter_bf16", "types"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_bench: torch.cuda.is_available() is False",
@@ -123,18 +134,23 @@ def main() -> int:
         rows.extend(bench_gather(cs, ag, gen))
     if "triad" in args.only:
         rows.append(bench_triad(cs, st, gen))
-        if torch.float16 in st.TYPES:
-            rows.append(bench_triad(cs, st, gen, torch.float16))
+        for dtype in (torch.bfloat16, torch.float16):
+            if dtype in st.TYPES:
+                rows.append(bench_triad(cs, st, gen, dtype))
     if "scatter" in args.only:
         rows.extend(bench_scatter(cs, asc, ref, gen))
     if "scatter_bf16" in args.only and torch.bfloat16 in asc.TYPES["add"]:
         rows.append(bench_scatter_bf16(cs, asc, ref, gen))
+    if "types" in args.only and torch.int8 in st.TYPES:
+        rows.extend(bench_types(cs, fa, pa, ag, asc, st, ref, F, gen))
     for r in rows:
         lib = r["library_ms"]
         extra = "".join(f", {k} {r[k]:.5f} ms" for k in
                         ("sector_bound_ms", "yardstick_ms") if k in r)
+        host = f", host {r['host_us']:.1f} us a call" if "host_us" in r \
+            else ""
         print(f"{args.label}: {r['kernel']} {r['case']}: kernel "
-              f"{r['ms']:.4f} ms, host {r['host_us']:.1f} us a call, library "
+              f"{r['ms']:.4f} ms{host}, library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{r['bound_ms']:.5f} ms{extra}"
               f"{'' if r.get('check', 'ok') == 'ok' else ', check FAIL'}",
@@ -344,6 +360,127 @@ def bench_scatter(cs, asc, ref, gen):
              (lambda out: out.index_add_(0, idx, upd)))
         del table, idx, upd, want
         cs.free_cuda()
+    return rows
+
+
+def bench_types(cs, fa, pa, ag, asc, st, ref, F, gen):
+    """The inputs added last (the module docstring's `types`), each checked
+    once against its plain version as chip_smoke.py checks it."""
+    rows = []
+    b, hq, hkv, s, d = cs.BATCH, 16, 2, cs.PROMPT_LEN, 128
+    for dtype in cs.FP8:
+        q = cs.rand_typed(gen, (b, s, hq, d), dtype, cs.Q_SCALE).transpose(1, 2)
+        k = cs.rand_typed(gen, (b, s, hkv, d), dtype).transpose(1, 2)
+        v = cs.rand_typed(gen, (b, s, hkv, d), dtype).transpose(1, 2)
+        cs.check_ulp("flash", fa.flash_attention(q, k, v),
+                     ref.attention_ref(q, k, v), quiet=True,
+                     extra=cs.fp8_p_term(q, k, v, fa.body_for(dtype, d)))
+        bq, bk, bv = (x.to(torch.bfloat16) for x in (q, k, v))
+        rows.append(dict(
+            kernel="flash_attention",
+            case=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} {cs.tname(dtype)} "
+                 f"({fa.body_for(dtype, d)} body; library on bf16 copies)",
+            ms=cs.time_ms([lambda: fa.flash_attention(q, k, v)], 10),
+            library_ms=cs.time_ms([lambda: F.scaled_dot_product_attention(
+                bq, bk, bv, is_causal=True, enable_gqa=True)], 10),
+            bound_ms=cs.flash_bound(b, hq, hkv, s, d, 0, dtype)[0]))
+        del q, k, v, bq, bk, bv
+    t = s + cs.MAX_NEW
+    lens = torch.tensor([t, s + 1, (t + 2) // 2, 64], dtype=torch.int32,
+                        device="cuda")
+    mask = (torch.arange(t, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    for q_dtype, dtype in ((torch.float8_e4m3fn, torch.float8_e4m3fn),
+                           (torch.float8_e5m2, torch.float8_e5m2),
+                           (torch.bfloat16, torch.float8_e4m3fn)):
+        sets = [(cs.rand_typed(gen, (b, hq, d), q_dtype, cs.Q_SCALE),
+                 cs.rand_typed(gen, (b, t, hkv, d), dtype),
+                 cs.rand_typed(gen, (b, t, hkv, d), dtype))
+                for _ in range(16)]
+        cs.check_ulp("paged", pa.paged_attention(*sets[0], lens),
+                     ref.paged_attention_ref(*sets[0], lens), quiet=True)
+        wide = [tuple(x.to(torch.bfloat16) for x in w) for w in sets]
+        rows.append(dict(
+            kernel="paged_attention",
+            case=f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} q {cs.tname(q_dtype)} "
+                 f"caches {cs.tname(dtype)} ({pa.body_for(dtype, d)} body; "
+                 "library on bf16 copies)",
+            ms=cs.time_ms([lambda x=x: pa.paged_attention(*x, lens)
+                           for x in sets], 64),
+            library_ms=cs.time_ms([lambda w=w: F.scaled_dot_product_attention(
+                w[0][:, :, None], w[1].transpose(1, 2), w[2].transpose(1, 2),
+                attn_mask=mask, enable_gqa=True) for w in wide], 64),
+            bound_ms=cs.paged_bound(lens, hq, hkv, d, dtype, q_dtype)[0]))
+        del sets, wide
+    n = 1 << 28
+    for dtype in (torch.int8, torch.uint8, torch.int16, torch.int32,
+                  *cs.FP8):
+        scale = cs.OVERFLOW_SCALE.get(dtype, 1.0)
+        x, y = (cs.rand_typed(gen, (n,), dtype, scale) for _ in range(2))
+        cs.check_same("triad", st.stream_triad(x, y, 3.3),
+                      ref.triad_ref(x, y, 3.3), quiet=True)
+        alpha = ref.round_scalar(3.3, dtype)
+        rows.append(dict(
+            kernel="stream_triad", case=f"{cs.tname(dtype)} N={n}",
+            ms=cs.time_ms([lambda: st.stream_triad(x, y, 3.3)], 20),
+            host_us=cs.host_us(lambda: st.stream_triad(x, y, 3.3)),
+            library_ms=None if dtype.is_floating_point else cs.time_ms(
+                [lambda: torch.add(x, y, alpha=alpha)], 20),
+            bound_ms=cs.amu_bound(3 * n * x.element_size(), 2 * n)[0]))
+        del x, y
+        cs.free_cuda()
+    rows_n, m = 1 << 24, 1 << 20
+    for dtype, op, w in ((torch.int8, "add", 64), (torch.int16, "add", 64),
+                         (torch.uint16, "add", 64),
+                         (torch.float8_e4m3fn, "add", 64),
+                         (torch.float8_e5m2, "add", 64),
+                         (torch.int8, "add", 3), (torch.int16, "add", 3),
+                         (torch.int8, "xor", 64), (torch.uint16, "xor", 64),
+                         (torch.int8, "xor", 3), (torch.uint16, "xor", 3),
+                         (torch.bfloat16, "add", 3)):
+        table = cs.rand_typed(gen, (rows_n, w), dtype)
+        idx = cs.amu_index(gen, rows_n, m)
+        idx[::4] %= 4096
+        upd = cs.rand_typed(gen, (m, w), dtype)
+        out = asc.async_scatter(table.clone(), idx, upd, op)
+        if dtype.is_floating_point:
+            ok = cs.check_scatter16(op, out, table, idx, upd, raise_=False)
+        else:
+            cs.check_same(op, out, ref.scatter_update_ref(table, idx, upd, op),
+                          quiet=True)
+            ok = True
+        library_ms = None
+        if op == "add" and dtype not in cs.FP8:
+            try:
+                library_ms = cs.time_ms([lambda: out.index_add_(0, idx, upd)],
+                                        20)
+            except (RuntimeError, NotImplementedError):
+                pass
+        nbytes, sectors = cs.scatter_bytes(idx, w * table.element_size())
+        rows.append(dict(
+            kernel="async_scatter",
+            case=f"{op} [{rows_n},{w}] {cs.tname(dtype)}, {m} updates",
+            ms=cs.time_ms([lambda: asc.async_scatter(out, idx, upd, op)], 20),
+            host_us=cs.host_us(lambda: asc.async_scatter(out, idx, upd, op)),
+            library_ms=library_ms, bound_ms=cs.amu_bound(nbytes, m * w)[0],
+            sector_bound_ms=cs.amu_bound(sectors)[0],
+            check="ok" if ok else "FAIL"))
+        del table, idx, upd, out
+        cs.free_cuda()
+    table = cs.rand_typed(gen, (rows_n, 64), torch.float8_e4m3fn)
+    idx = cs.amu_index(gen, rows_n, m)
+    cs.check_same("gather", ag.async_gather(table, idx),
+                  ref.gather_ref(table, idx), quiet=True)
+    touched = torch.unique(idx).numel()
+    rows.append(dict(
+        kernel="async_gather", case=f"[{rows_n},64] e4m3, {m} rows",
+        ms=cs.time_ms([lambda: ag.async_gather(table, idx)], 20),
+        host_us=cs.host_us(lambda: ag.async_gather(table, idx)),
+        library_ms=cs.time_ms([lambda: torch.index_select(
+            cs.bits(table), 0, idx)], 20),
+        bound_ms=cs.amu_bound(touched * 64 + m * 64 + m * 4)[0]))
+    del table, idx
+    cs.free_cuda()
     return rows
 
 

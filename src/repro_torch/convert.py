@@ -20,16 +20,22 @@ from typing import Any, List, Tuple
 import numpy as np
 import torch
 
+_FLOAT8 = {"float8_e4m3fn": torch.float8_e4m3fn,
+           "float8_e5m2": torch.float8_e5m2}
+
 
 def tensor_from_numpy(a, *, device, dtype=None) -> torch.Tensor:
     """One leaf, on `device` (no default: weights land where the caller says,
-    never on the CPU by omission). numpy has no bfloat16: such a leaf arrives
-    as an `ml_dtypes` array, recognised by its dtype's name, and goes through
-    its 16 bits."""
+    never on the CPU by omission). numpy has no bfloat16 or float8: such a
+    leaf arrives as an `ml_dtypes` array, recognised by its dtype's name,
+    and goes through its bits (16 or 8). uint16 goes as it is."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(a).view(np.uint16).astype(np.int16)
         t = torch.from_numpy(bits).view(torch.bfloat16)
+    elif a.dtype.name in _FLOAT8:
+        bits = np.ascontiguousarray(a).view(np.uint8).copy()
+        t = torch.from_numpy(bits).view(_FLOAT8[a.dtype.name])
     else:
         t = torch.from_numpy(np.array(a))      # a copy torch may own
     t = t.to(device)
@@ -37,9 +43,11 @@ def tensor_from_numpy(a, *, device, dtype=None) -> torch.Tensor:
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """The way back for comparisons; bfloat16 is widened to float32."""
+    """The way back for comparisons; bfloat16 and float8 are widened to
+    float32 (exactly: NaN and inf stay)."""
     t = t.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    wide = t.dtype == torch.bfloat16 or t.dtype in _FLOAT8.values()
+    return (t.float() if wide else t).numpy()
 
 
 def tree_map(fn, tree):

@@ -32,7 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # `enum DType` of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2,
-               torch.float16: 3}
+               torch.float16: 3, torch.int8: 4, torch.uint8: 5,
+               torch.int16: 6, torch.uint16: 7, torch.uint32: 8,
+               torch.float8_e4m3fn: 9, torch.float8_e5m2: 10}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -93,9 +95,21 @@ def build_all(verbose: bool = False) -> Path:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     build_log.clear()
     failed = []
-    for src, tmp, proc in procs:
+    done = {}                # each nvcc's output and wall seconds, as it ends
+
+    def wait(src, proc):
         out, _ = proc.communicate()
-        build_log.append(f"== {src.name} (exit {proc.returncode})\n{out}")
+        done[src] = out, time.time() - t0
+    waiters = [threading.Thread(target=wait, args=(src, proc))
+               for src, _, proc in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    for src, tmp, proc in procs:
+        out, seconds = done[src]
+        build_log.append(f"== {src.name} (exit {proc.returncode}, "
+                         f"{seconds:.1f} s)\n{out}")
         if proc.returncode != 0:
             failed.append(src.name)
             tmp.unlink(missing_ok=True)

@@ -63,12 +63,9 @@ def ring_plan(row_bytes: int, block_m: int, num_slots: int,
 
 
 def check_ring_args(name: str, table: torch.Tensor, indices: torch.Tensor,
-                    block_m: int, num_slots: int,
-                    whole_words: bool = True) -> int:
+                    block_m: int, num_slots: int) -> int:
     """Checks shared by the gather and scatter wrappers, the same on every
-    device; returns the row's bytes. `whole_words`: rows must be a multiple
-    of 4 bytes (the scatter's smallest reduction); the gather takes rows of
-    any byte count."""
+    device; returns the row's bytes (any count but 0)."""
     if table.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {table.device}")
     if indices.device != table.device:
@@ -85,10 +82,6 @@ def check_ring_args(name: str, table: torch.Tensor, indices: torch.Tensor,
     row_bytes = table.shape[1] * table.element_size()
     if row_bytes == 0:
         raise ValueError(f"{name}: rows of 0 bytes")
-    if whole_words and row_bytes % 4:
-        raise ValueError(f"{name}: a row of {row_bytes} bytes is not a "
-                         "multiple of 4 bytes, the kernel's smallest "
-                         "reduction")
     return row_bytes
 
 
@@ -266,7 +259,7 @@ def async_gather(table: torch.Tensor, indices: torch.Tensor,
     is padded. The copy is bit-exact."""
     global launches
     row_bytes = check_ring_args("async_gather", table, indices, block_m,
-                                num_slots, whole_words=False)
+                                num_slots)
     bulk, chunk, lanes = gather_path(row_bytes, 16)  # the smallest block
     if chunk >= 4:        # rings of slots; the element path has none
         ring_plan(row_bytes, block_m, num_slots)    # raises if it cannot fit

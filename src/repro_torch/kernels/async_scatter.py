@@ -16,7 +16,9 @@ by table region first (rows narrower than a 32-byte sector: the fixed rule of
 the source, `async_scatter_bucketed`), how the bucket pass tiles them, how
 many updates a slot of the apply kernel holds, and its grid: a block a
 64-update span of the bucketed stream, in the stream's order, or a
-persistent K-slot ring for wider rows.
+persistent K-slot ring for wider rows. 8- and 16-bit integers, float8, and
+rows of no whole 4-byte words take the source's word path (a reduction or
+a CAS loop on each aligned word that holds part of a row).
 """
 from __future__ import annotations
 
@@ -31,18 +33,27 @@ from repro_torch.kernels.async_gather import (MAX_SMEM, _align,
                                               check_in_range, check_ring_args)
 
 OPS = {"add": 0, "xor": 1}          # `enum Op` of csrc/async_scatter.cu
+SMALL_INTS = (torch.int8, torch.uint8, torch.int16, torch.uint16)
 # uint32 tables run the int32 kernels on an int32 view of the same bits:
-# two's-complement add and xor do not depend on the sign
+# two's-complement add and xor do not depend on the sign; so do 8/16-bit
+# xor tables of whole 4-byte rows (a packed xor is a xor of each byte)
 TYPES = {"add": (torch.float32, torch.int32, torch.uint32, torch.bfloat16,
-                 torch.float16),
-         "xor": (torch.int32, torch.uint32)}
+                 torch.float16, *SMALL_INTS, torch.float8_e4m3fn,
+                 torch.float8_e5m2),
+         "xor": (torch.int32, torch.uint32, *SMALL_INTS)}
+# the types of the word path whatever the row (`scatter_plan`'s chunk 1)
+WORD_TYPES = (*SMALL_INTS, torch.float8_e4m3fn, torch.float8_e5m2)
 # the widest single reduction of each (op, type): red.xor.b64, red.add.s32,
 # the vector atomicAdd(float4), red.add.noftz.bf16x2 / .f16x2 (two
-# elements); wider chunks of xor or int32 add would be several reductions a
-# lane at a stride, each sector met more than once
+# elements), and a word (red.xor.b32 or a CAS loop) for the word path;
+# wider chunks of xor or int32 add would be several reductions a lane at a
+# stride, each sector met more than once
 REDUCE_WIDTH = {("xor", torch.int32): 8, ("add", torch.int32): 4,
                 ("add", torch.float32): 16, ("add", torch.bfloat16): 4,
-                ("add", torch.float16): 4}
+                ("add", torch.float16): 4,
+                **{(op, t): 4 for t in SMALL_INTS for op in OPS},
+                ("add", torch.float8_e4m3fn): 4,
+                ("add", torch.float8_e5m2): 4}
 SECTOR = 32             # bytes of an L2 sector: narrower rows are bucketed
 MAX_BUCKETS = 256       # table regions of the bucket pass (32 MB at GUPS)
 BLOCKS_PER_SM = 2       # persistent apply blocks an SM (of 4 warps each)
@@ -59,9 +70,9 @@ class ScatterPlan(NamedTuple):
     sub: int            # updates a bucket-pass block sorts at a time
     tile: int           # updates a bucket-pass block takes
     tiles: int          # blocks of each bucket-pass kernel
-    chunk: int          # bytes one reduction takes: 16, 8 or 4
+    chunk: int          # bytes one reduction takes: 16, 8 or 4; 1: words
     lanes: int          # lanes that share one update row
-    span: int           # updates a slot of the apply's ring (a multiple of 4)
+    span: int           # updates a slot of the apply's ring (of `unit`s)
     spans: int          # slots of work: the bulk-copied updates over span
     blocks: int         # blocks of the apply, grid-stride over the spans
     smem: int           # shared-memory bytes an apply block
@@ -110,19 +121,30 @@ def bucket_layout(n: int, m: int, row_bytes: int,
     return shift, buckets, sub, tile, max(1, _ceil(m, tile))
 
 
+def unit(row_bytes: int) -> int:
+    """Updates one bulk copy of the apply or the bucket pass moves a whole
+    number of: 4 (16 bytes of indices) where a row is whole 4-byte words,
+    else 16 (16 rows of any byte count are whole 16-byte pieces). The last
+    M mod unit updates are read from global memory."""
+    return 4 if row_bytes % 4 == 0 else 16
+
+
 def scatter_plan(row_bytes: int, n: int, m: int, block_m: int,
                  num_slots: int, align: int, sms: int,
-                 blocks_per_sm: Callable[[int, int], int]) -> ScatterPlan:
+                 blocks_per_sm: Callable[[int, int], int],
+                 by_word: bool = False) -> ScatterPlan:
     """The call of `m` updates of `row_bytes` into a table of `n` rows on a
     card of `sms` SMs. `align` is the largest of 16, 8, 4 dividing the
     table's address and the op's widest reduction (REDUCE_WIDTH): the
     reduction's chunk is the widest of 16, 8, 4 dividing it and the row.
-    `blocks_per_sm(chunk, smem)` is the apply's occupancy.
+    Types of the word path (`by_word`, the caller's WORD_TYPES) and rows of
+    no whole 4-byte words take chunk 1: a lane an aligned word holding part
+    of a row. `blocks_per_sm(chunk, smem)` is the apply's occupancy.
 
     Bucketed iff the row is narrower than a sector. A span of the apply
-    takes at most `block_m` updates (rounded down to a multiple of 4, the
-    bulk copies' unit, and at least 4) and no more than a share of the
-    card's M (so that every SM gets a span where M allows). The bucketed
+    takes at most `block_m` updates (rounded down to a multiple of `unit`,
+    the bulk copies', and at least one unit) and no more than a share of
+    the card's M (so that every SM gets a span where M allows). The bucketed
     stream: spans of at most BUCKET_SPAN, one slot a block and a block a
     span, so that the card's blocks walk the stream in order with few
     updates in flight (`num_slots` does not apply). Wider rows: K slots a
@@ -130,33 +152,37 @@ def scatter_plan(row_bytes: int, n: int, m: int, block_m: int,
     a persistent grid of BLOCKS_PER_SM blocks an SM, or fewer if the spans
     or the occupancy are fewer. Raises where K slots of 4 updates do not
     fit."""
-    chunk = next((w for w in (16, 8, 4)
-                  if row_bytes % w == 0 and align % w == 0), None)
-    if chunk is None:
-        raise ValueError("rows must be a multiple of 4 bytes and the table "
-                         "start on a 4-byte boundary")
-    lanes = 1 << (min(32, row_bytes // chunk).bit_length() - 1)
-    m4 = m - m % 4
+    if align % 4:
+        raise ValueError("the table must start on a 4-byte boundary")
+    if by_word or row_bytes % 4:
+        chunk, pieces = 1, -(-row_bytes // 4)
+    else:
+        chunk = next(w for w in (16, 8, 4)
+                     if row_bytes % w == 0 and align % w == 0)
+        pieces = row_bytes // chunk
+    lanes = 1 << (min(32, pieces).bit_length() - 1)
+    u = unit(row_bytes)
+    mu = m - m % u
     bucket = row_bytes < SECTOR
     # a span: at most block_m updates, no more than a share of M an SM
-    span = min(max(4, block_m // 4 * 4), max(4, m4 // sms // 4 * 4))
+    span = min(max(u, block_m // u * u), max(u, mu // sms // u * u))
     if bucket:      # a block one span of BUCKET_SPAN at most, one slot
         span, slots = min(span, BUCKET_SPAN), 1
     else:           # K slots of a span, leaving room for two blocks an SM
         slots = num_slots
         budget = MAX_SMEM // BLOCKS_PER_SM - 1024
-        while span > 4 and apply_smem(span, slots, row_bytes) > budget:
-            span -= 4
+        while span > u and apply_smem(span, slots, row_bytes) > budget:
+            span -= u
     smem = apply_smem(span, slots, row_bytes)
     if smem > MAX_SMEM:
-        raise ValueError(f"{num_slots} slots of 4 updates of {row_bytes}-"
+        raise ValueError(f"{num_slots} slots of {u} updates of {row_bytes}-"
                          f"byte rows do not fit in {MAX_SMEM} bytes of "
                          "shared memory")
     per_sm = blocks_per_sm(chunk, smem)
     if per_sm < 1:
         raise ValueError(f"an apply block of {smem} bytes of shared memory "
                          "does not fit on an SM")
-    spans = _ceil(m4, span)
+    spans = _ceil(mu, span)
     if bucket:      # a block a span, the blocks in the stream's order
         blocks = max(1, spans)
     else:           # persistent, a span at a time through the K slots
@@ -206,7 +232,8 @@ def _card_plan(device: int, op: str, dtype: torch.dtype, row_bytes: int,
                align: int) -> ScatterPlan:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return scatter_plan(row_bytes, n, m, block_m, num_slots, align, sms,
-                        functools.partial(_blocks_per_sm, device, op, dtype))
+                        functools.partial(_blocks_per_sm, device, op, dtype),
+                        dtype in WORD_TYPES)
 
 
 def launch_plan(table: torch.Tensor, m: int, op: str = "add",
@@ -257,7 +284,8 @@ def scatter_bucket(indices: torch.Tensor, updates: torch.Tensor,
     """The bucket pass alone, as `async_scatter` runs it for a table of `n`
     rows: (indices, updates, offsets) in stable order of idx >> shift, the
     shift from `bucket_layout`; offsets: each region's first place, then M.
-    Rows narrower than a sector only, as the rule gives them the pass. A
+    Rows narrower than a sector only, as the rule gives them the pass, of
+    any byte count (rows of no whole 4-byte words are moved by byte). A
     CPU tensor runs `ref.scatter_bucket_ref`, a CUDA tensor the pass's
     three kernels (an index outside [0, n) traps there)."""
     m = indices.shape[0]
@@ -267,9 +295,9 @@ def scatter_bucket(indices: torch.Tensor, updates: torch.Tensor,
         raise ValueError("scatter_bucket: want int32 indices [M] and "
                          "updates [M, D] on one device")
     row_bytes = updates.shape[1] * updates.element_size()
-    if row_bytes % 4 or not 0 < row_bytes < SECTOR or m >= 1 << 31:
-        raise ValueError(f"scatter_bucket: rows of {row_bytes} bytes (a "
-                         f"multiple of 4 below {SECTOR}) and M {m} < 2^31")
+    if not 0 < row_bytes < SECTOR or m >= 1 << 31:
+        raise ValueError(f"scatter_bucket: rows of {row_bytes} bytes (above "
+                         f"0, below {SECTOR}) and M {m} < 2^31")
     if indices.device.type == "cpu":
         shift, buckets, *_ = bucket_layout(n, m, row_bytes, 1)
         return ref.scatter_bucket_ref(indices, updates, shift, buckets)
@@ -284,13 +312,16 @@ def async_scatter(table: torch.Tensor, indices: torch.Tensor,
                   num_slots: int = 8) -> torch.Tensor:
     """table[indices[j]] op= updates[j] for every j, in place; returns table.
 
-    table: [N, D] of whole 4-byte words a row: float32, bfloat16 or float16
-    (add), int32 or uint32 (add, xor); indices: [M] int32 in [0, N);
-    updates: [M, D] of the table's type. Rows hit more than once get every
-    update: the integers exactly, floats in the order the card applies them
-    (16-bit floats rounded after each add, within
-    `ref.scatter_add16_limit` of the in-order sum). uint32 runs as int32 on
-    a view of the same bits.
+    table: [N, D], any D: float32, bfloat16, float16, float8_e4m3fn or
+    float8_e5m2 (add), int8, uint8, int16, uint16, int32 or uint32 (add,
+    xor); the card wants its start on 4 bytes. indices: [M] int32 in
+    [0, N); updates: [M, D] of the table's type. Rows hit more than once
+    get every update: the integers exactly (wrapping), floats in the order
+    the card applies them (8- and 16-bit floats rounded after each add,
+    float8 without saturation, within `ref.scatter_add16_limit` of the
+    in-order sum). uint32, and 8/16-bit xor tables whose rows are whole
+    4-byte words, run as int32 on a view of the same bits; 64-bit types
+    are refused (the reference makes them 32-bit before any kernel runs).
     A span of the apply takes at most `block_m` updates and `num_slots`
     spans are in flight in each block of rows of 32 bytes and more; rows
     narrower than a sector are bucketed by table region first and applied a
@@ -315,10 +346,11 @@ def async_scatter(table: torch.Tensor, indices: torch.Tensor,
         async_scatter(table.view(torch.int32), indices,
                       updates.view(torch.int32), op, block_m, num_slots)
         return table
-    if apply_smem(4, num_slots, row_bytes) > MAX_SMEM:
-        raise ValueError(f"async_scatter: {num_slots} slots of 4 updates of "
-                         f"{row_bytes}-byte rows do not fit in {MAX_SMEM} "
-                         "bytes of shared memory")
+    if apply_smem(unit(row_bytes), num_slots, row_bytes) > MAX_SMEM:
+        raise ValueError(f"async_scatter: {num_slots} slots of "
+                         f"{unit(row_bytes)} updates of {row_bytes}-byte "
+                         f"rows do not fit in {MAX_SMEM} bytes of shared "
+                         "memory")
     if M >= 1 << 31:
         raise ValueError(f"async_scatter: {M} updates; the kernels count "
                          "them in 32 bits")
@@ -331,6 +363,11 @@ def async_scatter(table: torch.Tensor, indices: torch.Tensor,
     if M == 0:
         return table
     indices, updates = _aligned(indices), _aligned(updates)
+    if op == "xor" and table.dtype in SMALL_INTS and row_bytes % 4 == 0 \
+            and table.data_ptr() % 4 == 0:       # whole words: a view
+        async_scatter(table.view(torch.int32), indices,
+                      updates.view(torch.int32), op, block_m, num_slots)
+        return table
     plan = launch_plan(table, M, op, block_m, num_slots)
     if plan.bucket:
         indices, updates, _ = _bucket(indices, updates, N, (

@@ -55,6 +55,29 @@
 // threads on neighbouring words). `ref.scatter_bucket_ref` gives the same
 // order bit for bit.
 //
+// The word path (`chunk` 1 of the plan): 8- and 16-bit integers, fp8, and
+// rows of any byte count (bf16 / f16 rows of an odd element count, rows of
+// 3 or 6 bytes). A lane takes one of the aligned 4-byte words that hold part
+// of a row (the table starts on 4 bytes; a row may start on any byte), with
+// the update's bytes in their places and zeros elsewhere:
+//   - xor: red.global.xor.b32 on the word: xor with 0 leaves a neighbour's
+//     byte alone, so this is exact and needs no CAS (8/16-bit rows of whole
+//     words run the int32 kernels on a view instead, as uint32 does);
+//   - int8 / int16 add (either sign): the L2 has no reduction that narrow,
+//     so a CAS loop on the word adds per byte / per half (__vadd4 /
+//     __vadd2, no carry between lanes of the word; adding 0 leaves a
+//     neighbour alone); exact in any order, wrapping as the reference;
+//   - fp8 add: the same CAS loop, each of the row's bytes widened to fp32,
+//     added and rounded back without saturation (`to_fp8`) at every add,
+//     in the order the CAS loops win; a neighbour's byte is kept as it is
+//     (adding +0.0 would turn its -0.0 into +0.0);
+//   - bf16 / f16 add: a word wholly in the row takes the pair reduction as
+//     before; a word holding one element of the row (its pair is a
+//     neighbour's, so +0.0 cannot be added there either) takes the scalar
+//     red.global.add.noftz.bf16 / .f16 of sm_90 on that element.
+// The bucket pass and the apply move such rows by byte (the bulk copies'
+// unit is then 16 updates: 16 x R is a whole number of 16-byte pieces).
+//
 // Consequences: i32 add and xor are exact whatever the order; f32 add is
 // exact per update but the additions to one row land in the order the L2
 // sees them, so a row hit more than once may differ from a sequential sum in
@@ -117,6 +140,46 @@ __device__ __forceinline__ void red_add2(unsigned char* p, uint32_t v) {
                  : "memory");
 }
 
+// One 16-bit element (the low half of v), rounded to its type (sm_90).
+template <typename E>
+__device__ __forceinline__ void red_add1(unsigned char* p, uint32_t v) {
+  const unsigned short h = (unsigned short)v;
+  if constexpr (std::is_same_v<E, __half>)
+    asm volatile("red.global.add.noftz.f16 [%0], %1;\n" ::"l"(p), "h"(h)
+                 : "memory");
+  else
+    asm volatile("red.global.add.noftz.bf16 [%0], %1;\n" ::"l"(p), "h"(h)
+                 : "memory");
+}
+
+// *p = f(*p) by compare-and-swap, whatever else lands on the word meanwhile.
+template <typename F>
+__device__ __forceinline__ void cas_word(uint32_t* p, F f) {
+  uint32_t seen, old = *p;
+  do {
+    seen = old;
+    old = atomicCAS(p, seen, f(seen));
+  } while (old != seen);
+}
+
+// The bytes of `inside` of old plus those of w, each fp8 byte widened to
+// fp32, added and rounded back (`to_fp8`: no saturation); the others kept.
+template <typename E>
+__device__ __forceinline__ uint32_t add_fp8(uint32_t old, uint32_t w,
+                                            uint32_t inside) {
+  uint32_t r = old;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (!((inside >> (8 * i)) & 0xffu)) continue;
+    E x, y;
+    x.__x = (__nv_fp8_storage_t)(old >> (8 * i));
+    y.__x = (__nv_fp8_storage_t)(w >> (8 * i));
+    const E sum = from_float<E>(__fadd_rn(to_float(x), to_float(y)));
+    r = (r & ~(0xffu << (8 * i))) | ((uint32_t)sum.__x << (8 * i));
+  }
+  return r;
+}
+
 template <typename E>
 constexpr bool is_16bit_float =
     std::is_same_v<E, __nv_bfloat16> || std::is_same_v<E, __half>;
@@ -147,6 +210,67 @@ __device__ __forceinline__ void reduce_chunk(unsigned char* dst,
   }
 }
 
+// The word path's astore of one aligned word of the table: w holds the
+// update's bytes of it (zero elsewhere), `inside` 0xff in each byte of the
+// row. E: uint8_t (int8, uint8), uint16_t (int16, uint16), bf16, f16, fp8;
+// any for xor.
+template <int OP, typename E>
+__device__ __forceinline__ void reduce_word(uint32_t* dst, uint32_t w,
+                                            uint32_t inside) {
+  if constexpr (OP == OP_XOR) {
+    red_xor(dst, w);
+  } else if constexpr (is_16bit_float<E>) {
+    unsigned char* p = reinterpret_cast<unsigned char*>(dst);
+    if (inside == 0xffffffffu)
+      red_add2<E>(p, w);
+    else if (inside == 0x0000ffffu)          // one element: the row's last
+      red_add1<E>(p, w);
+    else if (inside == 0xffff0000u)          // one element: the row's first
+      red_add1<E>(p + 2, w >> 16);
+  } else if constexpr (is_fp8<E>) {
+    cas_word(dst, [&](uint32_t old) { return add_fp8<E>(old, w, inside); });
+  } else if constexpr (sizeof(E) == 1) {
+    cas_word(dst, [&](uint32_t old) { return __vadd4(old, w); });
+  } else {
+    static_assert(sizeof(E) == 2, "the word path adds 8- or 16-bit lanes");
+    cas_word(dst, [&](uint32_t old) { return __vadd2(old, w); });
+  }
+}
+
+// One update row of R bytes (from src) reduced into the table at byte `at`,
+// lanes sub, sub + L, ... of a group of L: W bytes a reduction, or the word
+// path (W == 1), the row's aligned words.
+template <int W, int OP, typename E>
+__device__ __forceinline__ void reduce_row(unsigned char* table, long long at,
+                                           const unsigned char* src, int R,
+                                           int sub, int L) {
+  if constexpr (W == 1) {
+    const int lead = (int)(at & 3);          // the row's first byte in its word
+    uint32_t* words = reinterpret_cast<uint32_t*>(table + (at - lead));
+    const int nw = (lead + R + 3) >> 2;
+    for (int k = sub; k < nw; k += L) {
+      uint32_t w = 0, inside = 0;
+      if ((R & 3) == 0) {                    // whole words (lead is 0)
+        w = reinterpret_cast<const uint32_t*>(src)[k];
+        inside = 0xffffffffu;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int o = k * 4 + i - lead;    // the byte's place in the row
+          if (o >= 0 && o < R) {
+            w |= (uint32_t)src[o] << (8 * i);
+            inside |= 0xffu << (8 * i);
+          }
+        }
+      }
+      reduce_word<OP, E>(words + k, w, inside);
+    }
+  } else {
+    for (int k = sub; k < R / W; k += L)
+      reduce_chunk<W, OP, E>(table + at + k * W, src + k * W);
+  }
+}
+
 __device__ __forceinline__ void check_row(int row, long long N) {
   if ((unsigned long long)(long long)row >= (unsigned long long)N) __trap();
 }
@@ -154,7 +278,8 @@ __device__ __forceinline__ void check_row(int row, long long N) {
 // ------------------------------------------------------------ apply kernel
 // A block's shared memory: K full and K empty mbarriers, the span each slot
 // holds, then K slots of [span indices | span update rows]. span is a
-// multiple of 4 and R of 4, so every part starts on 16 bytes. The launch
+// multiple of 4 where R is (of 16 elsewhere), so every part starts on 16
+// bytes. The launch
 // sizes it from this function; apply_smem in async_scatter.py mirrors it for
 // the planner, and chip_smoke.py holds the two equal.
 struct ApplySmem {
@@ -184,7 +309,10 @@ scatter_apply_kernel(unsigned char* __restrict__ table,
   int* which = reinterpret_cast<int*>(smem + lay.which);   // span of a slot
   unsigned char* slots = smem + lay.slots;
   const int consumers = (int)(blockDim.x >> 5) - 1;        // consumer warps
-  const long long M4 = M & ~3LL;       // the rest is too short for a bulk copy
+  // updates a bulk copy takes a whole number of (16 bytes of rows and of
+  // indices); the last M mod unit are too short for one
+  const int unit = R % 4 ? 16 : 4;
+  const long long M4 = M - M % unit;
   const long long nspans = (M4 + span - 1) / span;
 
   for (int i = threadIdx.x; i < K; i += blockDim.x) {
@@ -220,14 +348,11 @@ scatter_apply_kernel(unsigned char* __restrict__ table,
   // consumers: groups of L lanes share an update row, W bytes a reduction
   const int c = threadIdx.x - 32;
   const int G = consumers * 32 / L, g = c / L, sub = c % L;
-  const int nchunk = R / W;
-  if (blockIdx.x == 0) {               // the last M mod 4 updates, from global
+  if (blockIdx.x == 0) {               // the last M mod unit, from global
     for (long long j = M4 + g; j < M; j += G) {
       const int row = idx[j];
       check_row(row, N);
-      for (int k = sub; k < nchunk; k += L)
-        reduce_chunk<W, OP, E>(table + (long long)row * R + k * W,
-                               upd + j * R + k * W);
+      reduce_row<W, OP, E>(table, (long long)row * R, upd + j * R, R, sub, L);
     }
   }
   for (int t = 0;; ++t) {
@@ -242,9 +367,8 @@ scatter_apply_kernel(unsigned char* __restrict__ table,
     for (int u = g; u < n; u += G) {
       const int row = sidx[u];
       check_row(row, N);
-      unsigned char* dst = table + (long long)row * R;
-      for (int k = sub; k < nchunk; k += L)
-        reduce_chunk<W, OP, E>(dst + k * W, rows + (size_t)u * R + k * W);
+      reduce_row<W, OP, E>(table, (long long)row * R, rows + (size_t)u * R,
+                           R, sub, L);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);          // the slot may refill
@@ -394,7 +518,9 @@ __device__ __forceinline__ unsigned key_peers(int key, int bits, bool ok) {
 // order, sub-chunks sub-chunk order and tiles tile order (the scanned
 // counts): the sort is stable. The sorted sub-chunk leaves bucket by bucket,
 // neighbouring threads on neighbouring words. RW: 4-byte words a row, moved
-// as the widest of 16-, 8- and 4-byte words that divides it (V).
+// as the widest of 16-, 8- and 4-byte words that divides it (V); RW = 0:
+// rows of any byte count Rb (no whole 4-byte words), moved by byte, whose
+// bulk copies take 16 updates at a time.
 template <int RW>
 __global__ void __launch_bounds__(PASS_THREADS)
 scatter_bucket_kernel(const int* __restrict__ idx,
@@ -404,10 +530,13 @@ scatter_bucket_kernel(const int* __restrict__ idx,
                       const int* __restrict__ counts,
                       const int* __restrict__ totals,
                       int* __restrict__ offsets, long long M, int shift,
-                      int B, int sub, int tile, int tiles) {
-  constexpr int R = RW * 4;
-  using V = typename Chunk<RW % 4 == 0 ? 16 : RW % 2 == 0 ? 8 : 4>::type;
-  constexpr int VW = R / (int)sizeof(V);             // words of V a row
+                      int B, int sub, int tile, int tiles, int Rb) {
+  const int R = RW ? RW * 4 : Rb;
+  using V = std::conditional_t<
+      RW == 0, unsigned char,
+      typename Chunk<RW % 4 == 0 ? 16 : RW % 2 == 0 ? 8 : 4>::type>;
+  const int VW = R / (int)sizeof(V);                 // words of V a row
+  constexpr unsigned UNIT = RW ? 4 : 16;             // updates a bulk copy
   extern __shared__ __align__(16) unsigned char smem[];
   const int W = blockDim.x >> 5, warp = threadIdx.x >> 5,
             lane = threadIdx.x & 31;
@@ -435,7 +564,8 @@ scatter_bucket_kernel(const int* __restrict__ idx,
   auto issue = [&](int k) {                          // aload of sub-chunk k
     const long long first = tile0 + (long long)k * sub;
     if (first >= tile_end) return;
-    const uint32_t n4 = (uint32_t)min((long long)sub, tile_end - first) & ~3u;
+    const uint32_t n4 =
+        (uint32_t)min((long long)sub, tile_end - first) & ~(UNIT - 1);
     mbar_arrive_expect_tx(&bar[k & 1], n4 * (4 + (uint32_t)R));
     if (n4) {
       bulk_load(in_idx(k), idx + first, n4 * 4, &bar[k & 1]);
@@ -472,7 +602,8 @@ scatter_bucket_kernel(const int* __restrict__ idx,
     for (int i = threadIdx.x; i < W * BH / 2; i += blockDim.x)
       reinterpret_cast<unsigned*>(hist)[i] = 0;
     mbar_wait(&bar[k & 1], (uint32_t)((k >> 1) & 1));          // getfin
-    for (int i = (n & ~3) + threadIdx.x; i < n; i += blockDim.x) {
+    for (int i = (n & ~(int)(UNIT - 1)) + threadIdx.x; i < n;
+         i += blockDim.x) {
       xi[i] = idx[first + i];                        // too short to bulk copy
 #pragma unroll
       for (int w = 0; w < VW; ++w)
@@ -559,10 +690,27 @@ cudaError_t occupancy(int smem, int* blocks) {
 // as the op has one (REDUCE_WIDTH in async_scatter.py): f32 add 16, 8 or 4
 // bytes (atomicAdd of float4, float2, red.add.f32), i32 add 4, bf16 and f16
 // add 4 (red.add.noftz.bf16x2 / .f16x2), i32 xor 8 or 4. (uint32 tables
-// come as int32 views: two's-complement add and xor ignore the sign.) A wider chunk of xor or int add would be several reductions a lane at a
-// stride, meeting each sector more than once.
+// come as int32 views: two's-complement add and xor ignore the sign.) A
+// wider chunk of xor or int add would be several reductions a lane at a
+// stride, meeting each sector more than once. chunk 1: the word path, for
+// xor of any type, and add of 8/16-bit integers (either sign: one
+// instantiation a width), fp8, and bf16 / f16 rows of no whole words.
 template <template <int, int, typename> class F, typename... A>
 cudaError_t dispatch(int op, int dtype, int chunk, A... args) {
+  if (chunk == 1 && op == OP_XOR) return F<1, OP_XOR, uint32_t>::run(args...);
+  if (chunk == 1 && op == OP_ADD) {
+    switch (dtype) {
+      case DTYPE_BF16: return F<1, OP_ADD, __nv_bfloat16>::run(args...);
+      case DTYPE_F16: return F<1, OP_ADD, __half>::run(args...);
+      case DTYPE_I8:
+      case DTYPE_U8: return F<1, OP_ADD, uint8_t>::run(args...);
+      case DTYPE_I16:
+      case DTYPE_U16: return F<1, OP_ADD, uint16_t>::run(args...);
+      case DTYPE_E4M3: return F<1, OP_ADD, fp8_e4m3>::run(args...);
+      case DTYPE_E5M2: return F<1, OP_ADD, fp8_e5m2>::run(args...);
+    }
+    return cudaErrorInvalidValue;
+  }
   if (op == OP_ADD && dtype == DTYPE_F32) {
     switch (chunk) {
       case 16: return F<16, OP_ADD, float>::run(args...);
@@ -614,8 +762,9 @@ extern "C" long long async_scatter_apply_smem(int span, int K, int R) {
 
 // The apply: every update of idx / upd (the caller's, or the bucketed
 // stream's) reduced into the table. chunk: bytes a reduction (16, 8 or 4,
-// dividing R and the table's alignment); span: updates a slot (a multiple of
-// 4); K: slots a block; lanes: L, lanes that share a row; blocks: the grid,
+// dividing R and the table's alignment), or 1: the word path (the table
+// starts on 4 bytes); span: updates a slot (a multiple of 4, of 16 where R
+// is not a multiple of 4); K: slots a block; lanes: L, lanes that share a row; blocks: the grid,
 // whose blocks take the spans grid-stride. idx and upd start on 16-byte
 // boundaries. All planned by `scatter_plan`.
 extern "C" int async_scatter_launch(void* table, const void* idx,
@@ -648,7 +797,7 @@ extern "C" int async_scatter_bucket_launch(
   int* tot = static_cast<int*>(totals);
   const size_t smem = bucket_smem(B, PASS_THREADS / 32, sub, R).bytes;
   if (smem > (size_t)MAX_SMEM || (size_t)B * 4 > (size_t)MAX_SMEM ||
-      R % 4 || R < 4 || R >= SECTOR || B > 2 * 32768)
+      R < 1 || R >= SECTOR || B > 2 * 32768)
     return (int)cudaErrorInvalidValue;
   static SmemAllowance allow_count;
   cudaError_t err = allow_smem(allow_count, scatter_count_kernel, MAX_SMEM);
@@ -658,7 +807,7 @@ extern "C" int async_scatter_bucket_launch(
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   scatter_scan_kernel<<<B, PASS_THREADS, 0, s>>>(cnt, tot, tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  switch (R / 4) {
+  switch (R % 4 ? 0 : R / 4) {
 #define BUCKET_CASE(RW)                                                      \
   case RW: {                                                                 \
     static SmemAllowance allowance;                                          \
@@ -668,10 +817,11 @@ extern "C" int async_scatter_bucket_launch(
         in, static_cast<const unsigned char*>(upd),                          \
         static_cast<int*>(out_idx), static_cast<unsigned char*>(out_rows),   \
         cnt, tot, static_cast<int*>(offsets), M, shift, B, sub, tile,        \
-        tiles);                                                              \
+        tiles, R);                                                           \
     return (int)cudaGetLastError();                                          \
   }
-    BUCKET_CASE(1) BUCKET_CASE(2) BUCKET_CASE(3) BUCKET_CASE(4)
+    BUCKET_CASE(0) BUCKET_CASE(1) BUCKET_CASE(2) BUCKET_CASE(3)
+    BUCKET_CASE(4)
     BUCKET_CASE(5) BUCKET_CASE(6) BUCKET_CASE(7)
 #undef BUCKET_CASE
   }

@@ -116,7 +116,25 @@
 // the fma body at every D. So the rule, stated also in `flash_attention_body`
 // and in the wrapper's `body_for`: fp32 -> fma; bf16 / f16, D % 8 != 0 ->
 // fma; bf16 / f16, D % 8 == 0 -> wgmma where Dp >= 64, mma.sync where Dp
-// <= 32.
+// <= 32; fp8 (e4m3fn, e5m2) -> wgmma where D % 16 == 0 and Dp is 64 to
+// 256, else fma.
+//
+// fp8 q, k, v are read as fp8 from device memory (D bytes a row: no widened
+// copy of K or V is made). Rows of whole 16-byte pieces take the wgmma body
+// with F8: TMA lands the fp8 Q tile and a ring of fp8 K/V tiles unswizzled
+// (64 bytes a box row), the consumer warpgroups convert each to f16 into
+// the 128-byte-swizzled layout TMA gives a 16-bit operand (one f16 K/V
+// pair, refilled a tile: two barriers a tile among the consumers), and the
+// f16 code runs as is. Every e4m3 and e5m2 value is exact in f16 (e5m2 is
+// an f16's high byte), so Q K^T is the reference's product; P is rounded to
+// f16 as in the f16 body; the output is rounded from fp32 to fp8 without
+// saturation (`to_fp8`). Other rows take the fma body, which widens each
+// element to fp32 in shared memory. Left for a later change: wgmma's own
+// e4m3 / e5m2 form (K = 32 a step, both operands K-major, so V needs a
+// transpose in shared memory), and the conversion overlapped with the other
+// warpgroup's products. Integer q, k, v (and mixed types) never reach this
+// file: the wrapper widens them to fp32 copies, the reference's
+// `.astype(float32)`.
 //
 // Above 256 columns (D > 256, Dp = D rounded up to WIDE_DC = 256) no block
 // can hold a whole head: the D = 256 body already keeps its 64 x 256 fp32 O
@@ -842,7 +860,49 @@ template <int D> struct Cfg {
   // + 1 KB to align the tiles to the 1024-byte swizzle atom
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * TILE;
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
+  // fp8 operands (F8): the f16 Q tile and ONE f16 K/V tile pair, converted
+  // from the fp8 Q tile and a ring of fp8 K/V tiles (half the bytes) that
+  // TMA fills
+  static constexpr int SMEM8 = 1024 + Q_BYTES + 2 * TILE + Q_BYTES / 2 +
+                               STAGES * TILE;
+  static_assert(SMEM8 <= 232448, "more shared memory than a block may have");
 };
+
+// Two fp8 values (the low 16 bits of v; e5m2 or e4m3fn) as two f16, exact:
+// e5m2 is the high byte of an f16, e4m3fn takes the hardware's cvt.
+__device__ __forceinline__ uint32_t fp8x2_to_f16x2(uint32_t v, int e5m2) {
+  if (e5m2) return ((v & 0xffu) << 8) | ((v & 0xff00u) << 16);
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      (__nv_fp8x2_storage_t)(v & 0xffffu), __NV_E4M3);
+  return (uint32_t)h.x | ((uint32_t)h.y << 16);
+}
+
+// `boxes` TMA boxes of `rows` rows of 64 fp8 values (64 bytes a row, as TMA
+// lands them unswizzled) into the f16 layout TMA gives a 16-bit operand
+// (128 bytes a row, under the 128-byte swizzle: 16-byte piece c of row r at
+// c ^ (r % 8)), which the wgmma descriptors read. Threads `tid` of
+// `nthreads`, 8 values a step.
+__device__ __forceinline__ void fp8_tile_to_f16(unsigned char* dst,
+                                                const unsigned char* src,
+                                                int rows, int boxes, int e5m2,
+                                                int tid, int nthreads) {
+  for (int i = tid; i < boxes * rows * 8; i += nthreads) {
+    const int c = i & 7, line = i >> 3, r = line % rows;
+    const uint2 in = *reinterpret_cast<const uint2*>(src + line * 64 + c * 8);
+    uint4 out;
+    out.x = fp8x2_to_f16x2(in.x, e5m2);
+    out.y = fp8x2_to_f16x2(in.x >> 16, e5m2);
+    out.z = fp8x2_to_f16x2(in.y, e5m2);
+    out.w = fp8x2_to_f16x2(in.y >> 16, e5m2);
+    *reinterpret_cast<uint4*>(dst + line * 128 + ((c ^ (r & 7)) << 4)) = out;
+  }
+}
+
+// Barrier 1 over the consumer warpgroups only (the producer warp runs on).
+template <int THREADS>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+}
 
 // The accumulator lists of the wgmma statements below: 64 (N = 128) or 32
 // (N = 64) fp32 registers of one thread.
@@ -985,7 +1045,10 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
 
 }  // namespace wg
 
-template <typename T, int D, bool EXACT>
+// F8: q, k, v and o are fp8 (e5m2 when `e5m2`, else e4m3fn), T = __half:
+// TMA brings fp8 tiles, the consumers convert them to f16 in shared memory
+// (exact) and run the f16 code, and the output is rounded to fp8.
+template <typename T, int D, bool EXACT, bool F8 = false>
 __global__ void __launch_bounds__(wg::Cfg<D>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -993,7 +1056,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    T* __restrict__ o, int S, int group,
                    int causal, int window, float scale_log2, int dh, int q_pos,
                    int k_pos, int v_pos, long long o_sb, long long o_sh,
-                   long long o_ss) {
+                   long long o_ss, int e5m2) {
   using namespace hopper;
   using wg::load_box;
   using wg::NO_KEY;
@@ -1007,6 +1070,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
   unsigned char* Qs = smem_raw + pad;             // [BOXES][BM][64] swizzled
   unsigned char* KV = Qs + C::Q_BYTES;            // stage s: K then V tile
+  // F8: KV is the one converted K/V pair; TMA fills Q8 and the KV8 ring
+  unsigned char* Q8 = KV + 2 * C::TILE;
+  unsigned char* KV8 = Q8 + C::Q_BYTES / 2;
+  constexpr int NC = CONSUMERS * 128;             // consumer threads
 
   // the query tile is the slowest grid dimension, counted down: every
   // (head, batch) block of the heaviest tile is dispatched before any of
@@ -1035,21 +1102,26 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (warp == C::PRODUCER) {                      // aload, one lane
     if (lane == 0) {
-      mbar_arrive_expect_tx(&q_full, C::Q_BYTES);
+      constexpr int IT = F8 ? 1 : 2;              // bytes an element
+      constexpr int BROW = BOX * IT;              // bytes of a box row
+      constexpr int TILE = BN * D * IT;           // one K or V tile
+      unsigned char* q_dst = F8 ? Q8 : Qs;
+      mbar_arrive_expect_tx(&q_full, BM * D * IT);
 #pragma unroll
       for (int x = 0; x < C::BOXES; ++x)
-        load_box(Qs + x * BM * ROW, &tq, &q_full, q_pos, x * BOX, q0, h, b);
+        load_box(q_dst + x * BM * BROW, &tq, &q_full, q_pos, x * BOX, q0, h,
+                 b);
       for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
         const int s = i % STAGES;
         mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);   // the slot is free
-        mbar_arrive_expect_tx(&full[s], 2 * C::TILE);
-        unsigned char* ks = KV + s * 2 * C::TILE;
+        mbar_arrive_expect_tx(&full[s], 2 * TILE);
+        unsigned char* ks = (F8 ? KV8 : KV) + s * 2 * TILE;
 #pragma unroll
         for (int x = 0; x < C::BOXES; ++x) {
-          load_box(ks + x * BN * ROW, &tk, &full[s], k_pos, x * BOX, kt * BN,
-                   hk, b);
-          load_box(ks + C::TILE + x * BN * ROW, &tv, &full[s], v_pos,
-                   x * BOX, kt * BN, hk, b);
+          load_box(ks + x * BN * BROW, &tk, &full[s], k_pos, x * BOX,
+                   kt * BN, hk, b);
+          load_box(ks + TILE + x * BN * BROW, &tv, &full[s], v_pos, x * BOX,
+                   kt * BN, hk, b);
         }
       }
     }
@@ -1072,6 +1144,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // log2 units
 
   mbar_wait(&q_full, 0);
+  if constexpr (F8) {                             // Q to f16, once
+    wg::fp8_tile_to_f16(Qs, Q8, BM, C::BOXES, e5m2, threadIdx.x, NC);
+    fence_proxy_async();                          // before wgmma reads it
+    wg::consumers_sync<NC>();
+  }
   for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
     const int s = i % STAGES;
     const int k0 = kt * BN;
@@ -1079,8 +1156,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const bool dead = (causal && k0 > rlo + 63) ||
                       (window > 0 && k0 + BN - 1 <= rlo - window);
     mbar_wait(&full[s], (i / STAGES) & 1);        // getfin
+    if constexpr (F8) {     // the fp8 K and V tiles to f16; then s is free
+      unsigned char* k8 = KV8 + s * C::TILE;      // K, then V: half a TILE
+      wg::fp8_tile_to_f16(KV, k8, BN, C::BOXES, e5m2, threadIdx.x, NC);
+      wg::fp8_tile_to_f16(KV + C::TILE, k8 + C::TILE / 2, BN, C::BOXES, e5m2,
+                          threadIdx.x, NC);
+      fence_proxy_async();
+      wg::consumers_sync<NC>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
     if (!dead) {
-      const uint32_t k_addr = smem_u32(KV + s * 2 * C::TILE);
+      const uint32_t k_addr = smem_u32(KV + (F8 ? 0 : s * 2 * C::TILE));
       const uint32_t v_addr = k_addr + C::TILE;
 
       // S = Q K^T: D / 16 k-steps, 4 in each 64-column box
@@ -1172,8 +1259,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(oacc);
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);        // this warp is done with s
+    if constexpr (F8) {
+      wg::consumers_sync<NC>();     // every warpgroup is past the f16 pair
+    } else {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);      // this warp is done with s
+    }
   }
 
 #pragma unroll
@@ -1183,16 +1274,32 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   T* ob = o + b * o_sb + h * o_sh;
+  // F8: o is fp8, its strides in bytes; two values a 2-byte store
+  unsigned char* ob8 = reinterpret_cast<unsigned char*>(o) + b * o_sb +
+                       h * o_sh;
+  const __nv_fp8_interpretation_t kind = e5m2 ? __NV_E5M2 : __NV_E4M3;
+  auto fp8x2 = [&](float lo, float hi) {
+    return (uint16_t)(to_fp8(lo, kind) | (to_fp8(hi, kind) << 8));
+  };
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * t;
     if (!EXACT && col >= dh) break;     // columns dh.. are another head's
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(ob + r0 * o_ss + col) =
-          pack2<T>(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
-    if (r1 < S)
-      *reinterpret_cast<uint32_t*>(ob + r1 * o_ss + col) =
-          pack2<T>(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
+    if constexpr (F8) {
+      if (r0 < S)
+        *reinterpret_cast<uint16_t*>(ob8 + r0 * o_ss + col) =
+            fp8x2(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
+      if (r1 < S)
+        *reinterpret_cast<uint16_t*>(ob8 + r1 * o_ss + col) =
+            fp8x2(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
+    } else {
+      if (r0 < S)
+        *reinterpret_cast<uint32_t*>(ob + r0 * o_ss + col) =
+            pack2<T>(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
+      if (r1 < S)
+        *reinterpret_cast<uint32_t*>(ob + r1 * o_ss + col) =
+            pack2<T>(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
+    }
   }
 }
 
@@ -1445,6 +1552,8 @@ cudaError_t flash_map(CUtensorMap* map, CUtensorMapDataType type,
                       const void* base, int D, int S, int H, int B,
                       long long sb, long long sh, long long ss, int rows,
                       int* pos) {
+  // fp8 (UINT8) boxes land unswizzled, 64 bytes a row, for the conversion
+  const bool f8 = type == CU_TENSOR_MAP_DATA_TYPE_UINT8;
   struct Dim {
     long long stride;
     int size, box, which;
@@ -1461,12 +1570,13 @@ cudaError_t flash_map(CUtensorMap* map, CUtensorMapDataType type,
   *pos = 0;
   for (int i = 0; i < 3; ++i) {
     dims[i + 1] = (cuuint64_t)dim[i].size;
-    strides[i] = (cuuint64_t)dim[i].stride * 2;
+    strides[i] = (cuuint64_t)dim[i].stride * (f8 ? 1 : 2);
     box[i + 1] = (cuuint32_t)dim[i].box;
     *pos |= (i + 1) << (2 * dim[i].which);
   }
-  return hopper::encode_tensor_map(map, type, 4, base, dims, strides, box,
-                                   CU_TENSOR_MAP_SWIZZLE_128B);
+  return hopper::encode_tensor_map(
+      map, type, 4, base, dims, strides, box,
+      f8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The three maps of a launch; their innermost extent is dh, so TMA
@@ -1488,26 +1598,30 @@ cudaError_t flash_maps(CUtensorMapDataType type, const void* q,
 
 // Every launch function takes the real head size dh (<= D) and the scale
 // 1 / sqrt(dh); D is the body's (Dp of the note at the top).
-template <typename T, int D, bool EXACT>
+// F8: fp8 operands (e5m2 when `e5m2`, else e4m3fn) on the f16 code (T =
+// __half).
+template <typename T, int D, bool EXACT, bool F8 = false>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          int B, int Hq, int Hkv, int S, int dh, int causal,
                          int window, float scale, const long long* st,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, int e5m2 = 0) {
   using C = wg::Cfg<D>;
+  constexpr int smem = F8 ? C::SMEM8 : C::SMEM;
   static hopper::SmemAllowance allowance;
-  auto kernel = flash_wgmma_kernel<T, D, EXACT>;
-  cudaError_t err = hopper::allow_smem(allowance, kernel, C::SMEM);
+  auto kernel = flash_wgmma_kernel<T, D, EXACT, F8>;
+  cudaError_t err = hopper::allow_smem(allowance, kernel, smem);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   int pos[3];
-  if ((err = flash_maps(Op16<T>::kMap, q, k, v, B, Hq, Hkv, S, dh, st,
-                        C::BM, C::BN, &tq, &tk, &tv, pos)) != cudaSuccess)
+  if ((err = flash_maps(F8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : Op16<T>::kMap,
+                        q, k, v, B, Hq, Hkv, S, dh, st, C::BM, C::BN, &tq,
+                        &tk, &tv, pos)) != cudaSuccess)
     return err;
   dim3 grid(Hq, B, (S + C::BM - 1) / C::BM);     // query tiles last
-  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(
+  kernel<<<grid, C::THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<T*>(o), S, Hq / Hkv, causal, window,
       scale * 1.4426950408889634f, dh, pos[0], pos[1], pos[2], st[9], st[10],
-      st[11]);
+      st[11], e5m2);
   return cudaGetLastError();
 }
 
@@ -1607,10 +1721,13 @@ int padded(int D) {
 
 // The fixed rule of the note at the top: float32 -> fma at every head size;
 // bfloat16 and float16 -> fma where D % 8 != 0 (rows of no whole number of
-// 16-byte pieces), else wgmma at Dp >= 64 and mma.sync at Dp <= 32.
+// 16-byte pieces), else wgmma at Dp >= 64 and mma.sync at Dp <= 32; fp8 ->
+// wgmma (converted to f16) where D % 16 == 0 and Dp is 64 to 256, else fma.
 Body body_for(int dtype, int D) {
   const int Dp = padded(D);
   if (Dp == 0) return BODY_NONE;
+  if (dtype == DTYPE_E4M3 || dtype == DTYPE_E5M2)    // rows of 16-byte pieces
+    return D % 16 == 0 && Dp >= 64 && Dp <= WIDE_DC ? BODY_WGMMA : BODY_FMA;
   if (dtype == DTYPE_F32) return BODY_FMA;
   if (dtype == DTYPE_BF16 || dtype == DTYPE_F16)
     return D % 8 ? BODY_FMA : Dp >= 64 ? BODY_WGMMA : BODY_MMA;
@@ -1646,7 +1763,7 @@ int launch_typed(Body body, int Dp, const void* q, const void* k,
         FMA_CASE(128);
         FMA_CASE(256);
       }
-    } else {                       // 16-bit rows of no whole 16-byte pieces
+    } else {        // fp8, 16-bit rows of no whole 16-byte pieces: by element
       switch (Dp) {
         FMA_PADDED(16);
         FMA_PADDED(32);
@@ -1656,7 +1773,7 @@ int launch_typed(Body body, int Dp, const void* q, const void* k,
       }
     }
   }
-  if constexpr (!kF32) {
+  if constexpr (!kF32 && !is_fp8<E>) {
     if (body == BODY_WGMMA) {
       if (Dp > WIDE_DC)
         return static_cast<int>(launch_wgmma_wide<E>(FLASH_ARGS));
@@ -1689,7 +1806,8 @@ extern "C" int flash_attention_body(int dtype, int D) {
 }
 
 // q, o [B, Hq, S, D]; k, v [B, Hkv, S, D], D >= 1, all of one type (float32,
-// bfloat16 or float16: the wrapper widens mixed types to float32); last
+// bfloat16, float16, float8_e4m3fn or float8_e5m2: the wrapper widens mixed
+// types and integers to float32); last
 // stride 1, the others given in elements as strides = {q_sb, q_sh, q_ss,
 // k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss}: for the wgmma and
 // mma bodies multiples of 8 (16 bytes) with starts 16-byte aligned, for the
@@ -1712,6 +1830,31 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == DTYPE_BF16)
     return launch_typed<__nv_bfloat16>(body, Dp, q, k, v, o, B, Hq, Hkv, S,
                                        D, causal, window, scale, strides, s);
+  if ((dtype == DTYPE_E4M3 || dtype == DTYPE_E5M2) && body == BODY_WGMMA) {
+    const int e5m2 = dtype == DTYPE_E5M2;
+#define FP8_CASE(DIM)                                                        \
+  case DIM:                                                                  \
+    return static_cast<int>(                                                 \
+        Dp == D ? launch_wgmma<__half, DIM, true, true>(                     \
+                      q, k, v, o, B, Hq, Hkv, S, D, causal, window, scale,   \
+                      strides, s, e5m2)                                      \
+                : launch_wgmma<__half, DIM, false, true>(                    \
+                      q, k, v, o, B, Hq, Hkv, S, D, causal, window, scale,   \
+                      strides, s, e5m2))
+    switch (Dp) {
+      FP8_CASE(64);
+      FP8_CASE(128);
+      FP8_CASE(256);
+    }
+#undef FP8_CASE
+    return -1;
+  }
+  if (dtype == DTYPE_E4M3)
+    return launch_typed<fp8_e4m3>(body, Dp, q, k, v, o, B, Hq, Hkv, S, D,
+                                  causal, window, scale, strides, s);
+  if (dtype == DTYPE_E5M2)
+    return launch_typed<fp8_e5m2>(body, Dp, q, k, v, o, B, Hq, Hkv, S, D,
+                                  causal, window, scale, strides, s);
   return launch_typed<__half>(body, Dp, q, k, v, o, B, Hq, Hkv, S, D, causal,
                               window, scale, strides, s);
 }

@@ -63,11 +63,24 @@
 //     f16, the TMA map's type). fp32, 16-bit at D = 16 and 32, a q of
 //     another type than the caches' (the wrapper widens such a q to fp32,
 //     E stays the caches' type, EQ = float: the caches are read in their
-//     own type, never copied) and the wide body stay on fp32 FMAs: Q K^T
+//     own type, never copied; fp8 caches always so, their q widened) and
+//     the wide body stay on fp32 FMAs: Q K^T
 //     with a lane on D/32
 //     columns and one transpose reduction (31 shuffles a chunk) that leaves
 //     row r's logit on lane r, P V with p_r broadcast by a shuffle.
 //     expf, as the reference; the output is cast to the input type.
+//
+// fp8 caches (e4m3fn, e5m2): read as fp8 from device memory, D bytes a row,
+// by the TMA ring where D % 16 == 0 (the maps' type UINT8) and by the
+// element body elsewhere, never widened into a copy (a decode step's bytes
+// are the caches'); each value is widened to fp32 where the FMAs read it
+// (`load_row`), exact. Both kinds are one load type (`fp8_any`, the kind a
+// launch argument), so they add one instantiation of each body, not two. Their q (fp8 or of any other type, such as the bf16 q beside an
+// fp8 cache) is widened to fp32 by the wrapper (EQ = float), and the output
+// rounded to q's type after. Integer caches take fp32 copies (the
+// reference's `.astype(float32)`). Left for a later change: fp8 Q K^T and
+// P V on the tensor cores (mma.sync's e4m3 / e5m2 form takes k = 32, or the
+// tiles converted to bf16 in the slot).
 //
 // Head sizes: every D from 1 up, as the TPU kernel takes. Let Dp be the
 // smallest of 16, 32, 64, 128 and 256 that is at least D (above 256, D
@@ -146,12 +159,41 @@ struct Args {
   int npk;                       // the wide body's K pieces of D columns
   long long q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh;
   float scale;
+  int e5m2;                      // fp8 caches (fp8_any): e5m2, else e4m3fn
 };
+
+// fp8 caches of either kind are one load type, the kind an argument
+// (`Args::e5m2`): one instantiation of each body serves both.
+struct fp8_any {
+  __nv_fp8_storage_t bits;
+};
+
+// N cache elements from a slot, widened to fp32.
+template <typename E, int N>
+__device__ __forceinline__ void load_row(const E* p, float (&out)[N],
+                                         int e5m2) {
+  if constexpr (std::is_same_v<E, fp8_any>) {
+    const Vec<E, N> x = *reinterpret_cast<const Vec<E, N>*>(p);
+    const __nv_fp8_interpretation_t kind = e5m2 ? __NV_E5M2 : __NV_E4M3;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      out[i] = __half2float(__half(__nv_cvt_fp8_to_halfraw(x.v[i].bits,
+                                                           kind)));
+  } else {
+    load_vec<E, N>(p, out);
+  }
+}
 
 // Column c of a row of dh elements, or 0 past it: the padded body's loads.
 template <typename E>
+__device__ __forceinline__ E zero() {
+  if constexpr (std::is_same_v<E, fp8_any>) return fp8_any{0};   // +0.0
+  else return from_float<E>(0.f);
+}
+
+template <typename E>
 __device__ __forceinline__ E col_or_zero(const E* row, int c, int dh) {
-  return c < dh ? row[c] : from_float<E>(0.f);
+  return c < dh ? row[c] : zero<E>();
 }
 
 // Barrier 1 over the NT consumer threads only (the producer warp runs on).
@@ -533,7 +575,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
           for (int u = 0; u < UNROLL; ++u) {
             const int i = i0 + 32 * u, r = i / w, c = i % w;
             x[u] = i < total ? col_or_zero(src + r * st, col0 + c, a.dh)
-                             : from_float<E>(0.f);
+                             : zero<E>();
           }
 #pragma unroll
           for (int u = 0; u < UNROLL; ++u) {
@@ -554,9 +596,9 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       for (int u = 0; u < UNROLL; ++u) {
         const int i = i0 + 32 * u, r = i / D, c = i % D;
         kx[u] = i < total ? col_or_zero(kr + r * a.k_st, c, a.dh)
-                          : from_float<E>(0.f);
+                          : zero<E>();
         vx[u] = i < total ? col_or_zero(vr + r * a.v_st, c, a.dh)
-                          : from_float<E>(0.f);
+                          : zero<E>();
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
@@ -847,7 +889,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
             for (int r = 0; r < 32; ++r) {
               if (r < n) {
                 float kv[EPL], dot = 0.f;
-                load_vec<E, EPL>(at(kp, r, d0), kv);
+                load_row<E, EPL>(at(kp, r, d0), kv, a.e5m2);
 #pragma unroll
                 for (int e = 0; e < EPL; ++e) dot = fmaf(qp[e], kv[e], dot);
                 part[r] += dot;
@@ -860,7 +902,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
             float dot = 0.f;
             if (r < n && d0 < D) {
               float kv[EPL];
-              load_vec<E, EPL>(at(slot, r, d0), kv);
+              load_row<E, EPL>(at(slot, r, d0), kv, a.e5m2);
 #pragma unroll
               for (int e = 0; e < EPL; ++e) dot = fmaf(qr[e], kv[e], dot);
             }
@@ -887,7 +929,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
           const float pr = __shfl_sync(FULL, p, r);
           if (d0 < D) {
             float vv[EPL];
-            load_vec<E, EPL>(at(slot + half_bytes, r, d0), vv);
+            load_row<E, EPL>(at(slot + half_bytes, r, d0), vv, a.e5m2);
 #pragma unroll
             for (int e = 0; e < EPL; ++e) acc[e] = fmaf(pr, vv[e], acc[e]);
           }
@@ -968,6 +1010,7 @@ cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
   return encode_tensor_map(
       map,
       sizeof(E) == 4                   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : sizeof(E) == 1                 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
       : std::is_same_v<E, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       4, base, dims, strides, box,
@@ -1007,14 +1050,20 @@ int padded(int D) {
   return 0;
 }
 
+bool fp8_type(int dtype) {
+  return dtype == DTYPE_E4M3 || dtype == DTYPE_E5M2;
+}
+
 // Whether rows of D elements of `dtype` are a whole number of 16-byte
 // pieces, which TMA loads (the note at the top).
 bool tma_rows(int dtype, int D) {
-  return D * (dtype == DTYPE_F32 ? 4 : 2) % 16 == 0;
+  const int item = dtype == DTYPE_F32 ? 4 : fp8_type(dtype) ? 1 : 2;
+  return D * item % 16 == 0;
 }
 
 bool float_type(int dtype) {
-  return dtype == DTYPE_F32 || dtype == DTYPE_BF16 || dtype == DTYPE_F16;
+  return dtype == DTYPE_F32 || dtype == DTYPE_BF16 || dtype == DTYPE_F16 ||
+         fp8_type(dtype);
 }
 
 // The launch at (Dp, D) for caches of type E and q of type EQ: the body for
@@ -1078,7 +1127,8 @@ extern "C" int paged_attention_body(int dtype, int D) {
 // st, sh, 1; for the TMA body a 16-byte aligned start and strides in
 // multiples of 16 bytes, for the element body anything), lengths [B] int32,
 // out [B, Hq, D] of type q_dtype (strides o_sb, o_sh, 1); D >= 1; q_dtype
-// is dtype or float32 (the wrapper widens any other q). part: chunks x
+// is dtype (not fp8) or float32 (the wrapper widens any other q, and every
+// q beside fp8 caches). part: chunks x
 // (blocks + segments) x GC x (min(Dp, 256) + 2) floats; tickets: chunks x
 // segments ints, zero; chunks = Dp / 256 above 256, else 1. blocks (a
 // chunk), rows, ngc: `paged_plan` of paged_attention.py; the launch sizes
@@ -1107,6 +1157,7 @@ extern "C" int paged_attention_launch(
   a.ngc = ngc;
   a.rows = rows;
   a.dh = D;
+  a.e5m2 = dtype == DTYPE_E5M2;
   a.q_sb = st[0];
   a.q_sh = st[1];
   a.k_sb = st[2];
@@ -1122,7 +1173,7 @@ extern "C" int paged_attention_launch(
   a.scale = static_cast<float>(1.0 / sqrt((double)D));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool tma = tma_rows(dtype, D);
-  if (q_dtype == dtype) {
+  if (q_dtype == dtype && !fp8_type(dtype)) {
     if (dtype == DTYPE_F32)
       return (int)launch_typed<float, float>(a, blocks, s, Dp, D, tma);
     if (dtype == DTYPE_BF16)
@@ -1133,6 +1184,8 @@ extern "C" int paged_attention_launch(
   if (q_dtype != DTYPE_F32) return -1;
   if (dtype == DTYPE_BF16)
     return (int)launch_typed<__nv_bfloat16, float>(a, blocks, s, Dp, D, tma);
+  if (fp8_type(dtype))
+    return (int)launch_typed<fp8_any, float>(a, blocks, s, Dp, D, tma);
   return (int)launch_typed<__half, float>(a, blocks, s, Dp, D, tma);
 }
 
@@ -1145,5 +1198,6 @@ extern "C" int paged_attention_ring(int B, int D, int rows, int dtype,
   if (dtype == DTYPE_F32) return ring_for<float>(B, D, rows, smem);
   if (dtype == DTYPE_BF16) return ring_for<__nv_bfloat16>(B, D, rows, smem);
   if (dtype == DTYPE_F16) return ring_for<__half>(B, D, rows, smem);
+  if (fp8_type(dtype)) return ring_for<fp8_any>(B, D, rows, smem);
   return -1;
 }

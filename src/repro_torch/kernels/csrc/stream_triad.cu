@@ -23,15 +23,32 @@
 //     CTAs an SM such that the loads in flight an SM are ~latency x
 //     bandwidth (24 KB, at least two CTAs) and not ten times that, cached with the kernel's
 //     shared-memory allowance, which is set once per device;
-//   - the arithmetic is fp32, b + s * c with s rounded to the arrays' type
-//     first (as the reference does) and the product and sum rounded
-//     separately (no FMA contraction), so the result equals the plain
-//     version's bit for bit; bf16 and f16 are rounded once, at the end;
-//   - the ragged tail is masked: the last step moves only its whole 16-byte
-//     chunks, and the last N mod 4 (f32) or N mod 8 (bf16, f16) elements,
-//     too few for a bulk copy, are done by the last CTA with scalar loads.
+//   - the arithmetic rounds where the reference's does (on its CPU
+//     backend, interpret mode), so the result equals the plain version's,
+//     and the reference's, bit for bit: s is made the arrays' type first
+//     (a float type's by the wrapper; an integer type's here, from fp32 by
+//     `to_int`: toward zero, saturated, NaN -> 0, as the reference's jit
+//     converts its traced scalar); floats are widened to fp32, where the
+//     product of two
+//     8- or 16-bit values is exact; bf16 and fp8 (e4m3fn, e5m2) round s * c
+//     to their type and then round the sum again, f16 rounds once, at the
+//     end, and f32 rounds the product and the sum (no FMA contraction: the
+//     reference contracts on its CPU, within 1e-6); fp8 rounds without
+//     saturation (`to_fp8`: e4m3fn overflows to NaN, e5m2 to inf).
+//     Integers (8, 16 and 32 bits, signed or not) wrap, as two's
+//     complement in 32-bit unsigned arithmetic cut to the type;
+//     bf16 runs on pairs: mul.rn.bf16x2 then add.rn.bf16x2, each
+//     correctly rounded, which are those two roundings (`__hmul2_rn`,
+//     `__hadd2_rn`: the compiler may not fuse them into one fma, which
+//     would round once);
+//   - 16 bytes are 4 f32 / int32, 8 bf16 / f16 / int16, 16 int8 or fp8
+//     elements. The ragged tail is masked: the last step moves only its
+//     whole 16-byte chunks, and the last N mod (16 / item) elements, too
+//     few for a bulk copy, are done by the last CTA with scalar loads.
 //
 // Bound on this card: bytes (12 bytes a float32 element, 2 operations).
+
+#include <type_traits>
 
 #include "amu_ring.cuh"
 #include "common.cuh"
@@ -42,9 +59,45 @@ namespace {
 using namespace repro;
 using namespace repro::hopper;
 
+// The reference rounds s * c to bf16 and to fp8 before the add; f16 and
+// f32 keep it in fp32 (where it is exact for f16).
 template <typename E>
-__device__ __forceinline__ E triad(E b, E c, float s) {
-  return from_float<E>(__fadd_rn(to_float(b), __fmul_rn(s, to_float(c))));
+constexpr bool kRoundProduct =
+    std::is_same_v<E, __nv_bfloat16> || is_fp8<E>;
+
+// s: the arrays' type as a float (floats) or the type itself (integers)
+template <typename E>
+using Scalar = std::conditional_t<std::is_integral_v<E>, E, float>;
+
+template <typename E>
+__device__ __forceinline__ E triad(E b, E c, Scalar<E> s) {
+  if constexpr (std::is_integral_v<E>) {
+    return (E)((uint32_t)b + (uint32_t)s * (uint32_t)c);
+  } else {
+    float sc = __fmul_rn(s, to_float(c));
+    if constexpr (kRoundProduct<E>) sc = to_float(from_float<E>(sc));
+    return from_float<E>(__fadd_rn(to_float(b), sc));
+  }
+}
+
+// A 16-byte chunk: bf16 as pairs (the product rounded, then the sum, as
+// triad() rounds them one element at a time), other types by element.
+template <typename E, int N>
+__device__ __forceinline__ void triad_chunk(const Vec<E, N>& b,
+                                            const Vec<E, N>& c, Vec<E, N>& a,
+                                            Scalar<E> s) {
+  if constexpr (std::is_same_v<E, __nv_bfloat16>) {
+    const __nv_bfloat162 s2 = __float2bfloat162_rn(s);   // exact: s is bf16
+    const auto* b2 = reinterpret_cast<const __nv_bfloat162*>(b.v);
+    const auto* c2 = reinterpret_cast<const __nv_bfloat162*>(c.v);
+    auto* a2 = reinterpret_cast<__nv_bfloat162*>(a.v);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)   // _rn: never contracted to one fma
+      a2[i] = __hadd2_rn(b2[i], __hmul2_rn(s2, c2[i]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) a.v[i] = triad(b.v[i], c.v[i], s);
+  }
 }
 
 // A block's shared memory: an mbarrier a stage, then from `in` on the
@@ -54,9 +107,9 @@ struct TriadSmem {
   size_t in, outs, bytes;
 };
 
-template <typename E>
-__host__ __device__ TriadSmem triad_smem(int block, int stages) {
-  const size_t step = (size_t)block * sizeof(E);
+__host__ __device__ inline TriadSmem triad_smem(int block, int stages,
+                                                int item) {
+  const size_t step = (size_t)block * item;
   TriadSmem m;
   m.in = ((size_t)stages * 8 + 15) & ~(size_t)15;
   m.outs = m.in + (size_t)stages * 2 * step;
@@ -67,12 +120,16 @@ __host__ __device__ TriadSmem triad_smem(int block, int stages) {
 template <typename E>
 __global__ void __launch_bounds__(256)
 stream_triad_kernel(const E* __restrict__ b, const E* __restrict__ c,
-                    E* __restrict__ a, long long N, float s, int block,
+                    E* __restrict__ a, long long N, double s_in, int block,
                     int stages) {
   constexpr int VEC = 16 / sizeof(E);              // elements a chunk
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t step_bytes = (size_t)block * sizeof(E);
-  const TriadSmem L = triad_smem<E>(block, stages);
+  const TriadSmem L = triad_smem(block, stages, sizeof(E));
+  // s: a float type's value already, or an integer type's in fp32
+  Scalar<E> s;
+  if constexpr (std::is_integral_v<E>) s = to_int<E>(s_in);
+  else s = (float)s_in;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   unsigned char* in = smem + L.in;                 // (b, c) a slot
   unsigned char* outs = smem + L.outs;             // 2 slots
@@ -116,8 +173,7 @@ stream_triad_kernel(const E* __restrict__ b, const E* __restrict__ c,
       const Pack vb = *reinterpret_cast<const Pack*>(src + k * 16);
       const Pack vc = *reinterpret_cast<const Pack*>(src + step_bytes + k * 16);
       Pack va;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) va.v[i] = triad(vb.v[i], vc.v[i], s);
+      triad_chunk(vb, vc, va, s);
       *reinterpret_cast<Pack*>(dst + k * 16) = va;
     }
     fence_proxy_async();               // the writes above, before the store
@@ -139,9 +195,9 @@ stream_triad_kernel(const E* __restrict__ b, const E* __restrict__ c,
 
 template <typename E>
 cudaError_t launch(const void* b, const void* c, void* a, long long N,
-                   float s, int block, int stages, int grid, int threads,
+                   double s, int block, int stages, int grid, int threads,
                    cudaStream_t stream) {
-  const size_t smem = triad_smem<E>(block, stages).bytes;
+  const size_t smem = triad_smem(block, stages, sizeof(E)).bytes;
   if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   static SmemAllowance allowance;
   cudaError_t err = allow_smem(allowance, stream_triad_kernel<E>, MAX_SMEM);
@@ -152,37 +208,52 @@ cudaError_t launch(const void* b, const void* c, void* a, long long N,
   return cudaGetLastError();
 }
 
+// f(E{}) for the element type of `dtype`; -1 for a type the kernel does not
+// take.
+template <typename F>
+int with_type(int dtype, F&& f) {
+  switch (dtype) {
+    case DTYPE_F32: return (int)f(float{});
+    case DTYPE_BF16: return (int)f(__nv_bfloat16{});
+    case DTYPE_F16: return (int)f(__half{});
+    case DTYPE_E4M3: return (int)f(fp8_e4m3{});
+    case DTYPE_E5M2: return (int)f(fp8_e5m2{});
+    case DTYPE_I8: return (int)f(int8_t{});
+    case DTYPE_U8: return (int)f(uint8_t{});
+    case DTYPE_I16: return (int)f(int16_t{});
+    case DTYPE_U16: return (int)f(uint16_t{});
+    case DTYPE_I32: return (int)f(int32_t{});
+    case DTYPE_U32: return (int)f(uint32_t{});
+  }
+  return -1;
+}
+
+int item_size(int dtype) {
+  return with_type(dtype, [](auto e) { return (int)sizeof(e); });
+}
+
 }  // namespace
 
-// s is already rounded to the arrays' type; block is a multiple of 128;
-// b, c and a start on 16-byte boundaries. grid, threads: `triad_plan` of
-// stream_triad.py; the launch sizes the shared memory itself
-// (`stream_triad_smem`) and refuses a ring that does not fit.
+// s is already the arrays' type for float types, and for integer types the
+// fp32 scalar the kernel converts (`to_int`); block is a
+// multiple of 128; b, c and a start on 16-byte boundaries. grid, threads:
+// `triad_plan` of stream_triad.py; the launch sizes the shared memory itself
+// (`stream_triad_smem`) and refuses a ring that does not fit. Returns 0, a
+// cudaError_t, or -1 for a type it does not take.
 extern "C" int stream_triad_launch(const void* b, const void* c, void* a,
-                                   long long N, float s, int block,
+                                   long long N, double s, int block,
                                    int stages, int grid, int threads,
                                    int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_F32)
-    return (int)launch<float>(b, c, a, N, s, block, stages, grid, threads,
-                              st);
-  if (dtype == DTYPE_BF16)
-    return (int)launch<__nv_bfloat16>(b, c, a, N, s, block, stages, grid,
-                                      threads, st);
-  if (dtype == DTYPE_F16)
-    return (int)launch<__half>(b, c, a, N, s, block, stages, grid, threads,
+  return with_type(dtype, [&](auto e) {
+    return launch<decltype(e)>(b, c, a, N, s, block, stages, grid, threads,
                                st);
-  return (int)cudaErrorInvalidValue;
+  });
 }
 
 // Shared-memory bytes a block of the launch takes; -1 for a type it does not
 // take.
 extern "C" long long stream_triad_smem(int block, int stages, int dtype) {
-  if (dtype == DTYPE_F32)
-    return (long long)triad_smem<float>(block, stages).bytes;
-  if (dtype == DTYPE_BF16)
-    return (long long)triad_smem<__nv_bfloat16>(block, stages).bytes;
-  if (dtype == DTYPE_F16)
-    return (long long)triad_smem<__half>(block, stages).bytes;
-  return -1;
+  const int item = item_size(dtype);
+  return item < 0 ? -1 : (long long)triad_smem(block, stages, item).bytes;
 }

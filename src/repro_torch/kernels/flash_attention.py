@@ -17,7 +17,11 @@ from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the head sizes the bodies are built at
 CHUNK_DIM = HEAD_DIMS[-1]   # above it a launch splits the head into chunks
-FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the types the kernels read in place; integers (and mixed types) take
+# float32 copies, the reference's `.astype(float32)`
+KERNEL_TYPES = (torch.float32, torch.bfloat16, torch.float16,
+                *ref.FP8_TYPES)
+TYPES = (*KERNEL_TYPES, *ref.INT_TYPES)
 
 launches = 0            # +1 for every launch of the CUDA kernel, nowhere else
 
@@ -38,12 +42,15 @@ def padded_head_dim(name: str, head_dim: int) -> int:
 
 
 def check_types(name: str, *dtypes: torch.dtype) -> None:
-    """Refuses a type no body of the attention kernels takes (`name` the
-    kernel), the same on every device."""
+    """Refuses a type the attention kernels do not take (`name` the
+    kernel), the same on every device: 64-bit types (the reference makes
+    them 32-bit before any kernel runs), bool, complex."""
     for dtype in dtypes:
-        if dtype not in FLOAT_TYPES:
-            raise TypeError(f"{name}: takes float32, bfloat16 and float16, "
-                            f"got {', '.join(map(str, dtypes))}")
+        if dtype not in TYPES:
+            raise TypeError(f"{name}: takes float32, bfloat16, float16, "
+                            "float8_e4m3fn, float8_e5m2 and 8-, 16- and "
+                            f"32-bit integers, got "
+                            f"{', '.join(map(str, dtypes))}")
 
 
 def body_for(dtype: torch.dtype, head_dim: int,
@@ -51,19 +58,27 @@ def body_for(dtype: torch.dtype, head_dim: int,
     """The kernel body a launch runs, a fixed rule on (types, head size)
     that `flash_attention_launch` in csrc/flash_attention.cu applies, with
     Dp = `padded_head_dim`: "fma" (FMAs in fp32) for float32 at every head
-    size, for q, k, v of more than one type (`kv_dtype` k's and v's where
-    it is not q's: the wrapper widens all three to float32, the reference's
-    arithmetic) and for bfloat16 or float16 where head_dim % 8 != 0 (rows of
-    no whole number of 16-byte pieces, which TMA and cp.async need; it loads
-    by element); otherwise, in bfloat16 or float16, "wgmma" (TMA + wgmma,
-    the Hopper body) at Dp of 64 and up (at 256 with 64 x 64 tiles and one
+    size, for integers and q, k, v of more than one type (`kv_dtype` k's
+    and v's where it is not q's: the wrapper widens all three to float32,
+    the reference's arithmetic) and for bfloat16 or float16 where head_dim
+    % 8 != 0 (rows of no whole number of 16-byte pieces, which TMA and
+    cp.async need; it loads by element); otherwise, in bfloat16 or float16,
+    "wgmma" (TMA + wgmma, the Hopper body) at Dp of 64 and up (at 256 with 64 x 64 tiles and one
     consumer warpgroup; above 256 the same in chunks of 256 output columns,
     Q K^T streamed in 64-column pieces) and "mma" (mma.sync) at Dp of 16
-    and 32."""
+    and 32. float8 (e4m3fn, e5m2) runs "wgmma" where its rows are whole
+    16-byte pieces (D % 16 == 0) and Dp is 64 to 256 (TMA brings fp8
+    tiles, converted to f16 in shared memory, exact, for the f16 code),
+    else "fma" (read as float8 by element)."""
     dp = padded_head_dim("flash_attention", head_dim)
     check_types("flash_attention", dtype,
                 *(() if kv_dtype is None else (kv_dtype,)))
-    if dtype == torch.float32 or (kv_dtype is not None and kv_dtype != dtype):
+    if kv_dtype is not None and kv_dtype != dtype:
+        return "fma"
+    if dtype in ref.FP8_TYPES:          # rows of whole 16-byte pieces: TMA
+        return "wgmma" if head_dim % 16 == 0 and 64 <= dp <= CHUNK_DIM \
+            else "fma"
+    if dtype not in (torch.bfloat16, torch.float16):
         return "fma"
     if head_dim % 8:
         return "fma"
@@ -113,7 +128,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     runs the float32 body and casts the result to q's type). Which body
     runs is `body_for`: 16-bit rows of whole 16-byte pieces at a head size
     that pads to 64 or more load their tiles by TMA and multiply with
-    wgmma.
+    wgmma. float8_e4m3fn and float8_e5m2 are read in place (by TMA, or by
+    element where `body_for` says "fma"), and the output rounded to them
+    without saturation (`ref.to_fp8`);
+    8-, 16- and 32-bit integers run on float32 copies and the output is
+    cut toward zero (`ref.to_int`), as the reference's `.astype`.
 
     Both devices refuse the same inputs: ranks, shapes, GQA divisibility,
     head size, dtypes, `window` and devices are checked before a CPU tensor
@@ -152,13 +171,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: tensors on different devices")
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
-    if not q.dtype == k.dtype == v.dtype:  # the float32 body on widened copies
-        q32, k32, v32 = q.float(), k.float(), v.float()
-        return flash_attention(q32, k32, v32, causal, window).to(q.dtype)
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in KERNEL_TYPES:
+        q32, k32, v32 = q.float(), k.float(), v.float()   # the float32 body
+        return ref.from_float(flash_attention(q32, k32, v32, causal, window),
+                              q.dtype)
     out = torch.empty_like(q)              # keeps q's (dense) strides
-    # elements of one 16-byte load; the padded and the wide fma bodies load
-    # by element
-    by_element = body_for(q.dtype, D) == "fma" and (dp != D or D > CHUNK_DIM)
+    # elements of one 16-byte load; the fma body loads by element but in
+    # float32 at a head size of `HEAD_DIMS`
+    by_element = body_for(q.dtype, D) == "fma" and not (
+        q.dtype == torch.float32 and dp == D)
     chunk = 1 if by_element else 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.stride(-1) != 1 or any(s % chunk for s in t.stride()[:-1]) \

@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import (CHUNK_DIM, HEAD_DIMS,
-                                                 check_types, padded_head_dim)
+                                                 KERNEL_TYPES, check_types,
+                                                 padded_head_dim)
 
 GC = 8                  # query heads a block serves, a warp each
 CHUNK_ROWS = 32         # most rows one aload fetches (a lane a row)
@@ -127,10 +128,13 @@ def body_for(dtype: torch.dtype, head_dim: int) -> str:
     256 the wide body, a chunk of 256 output columns a block): "tma" (the
     TMA page ring; bf16 and f16 Q K^T and P V on mma.sync from Dp 64 up to
     256 where q has the caches' type) where a row of `head_dim` elements is
-    a whole number of 16-byte pieces, "element" (rows copied into the ring
-    by element, both products on FMAs) elsewhere."""
+    a whole number of 16-byte pieces (float8: D % 16 == 0), "element"
+    (rows copied into the ring by element, both products on FMAs)
+    elsewhere. Integer caches run on float32 copies."""
     padded_head_dim("paged_attention", head_dim)        # refuses 0
     check_types("paged_attention", dtype)
+    if dtype not in KERNEL_TYPES:
+        dtype = torch.float32
     return "tma" if head_dim * dtype.itemsize % 16 == 0 else "element"
 
 
@@ -218,13 +222,17 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     rows than that. Any T and every head size D from 1 up is taken
     (`body_for`: the TMA ring where a row is a whole number of 16-byte
     pieces, which then needs every cache row 16-byte aligned; elsewhere the
-    body that copies by element), in float32, bfloat16 and float16. Types
+    body that copies by element), in float32, bfloat16, float16,
+    float8_e4m3fn and float8_e5m2, and 8-, 16- and 32-bit integers. Types
     may differ, as the reference casts each operand to float32 in its body:
     the kernel reads the caches in their own type and q widened to float32
-    (a copy of q alone), and the result is cast to q's type; k and v of two
-    different types are both widened to float32 copies first. The caches
-    are read in place through their strides. `lengths` is read on the
-    device only.
+    (a copy of q alone; always so beside float8 caches, such as a bf16 q
+    over an fp8 KV cache), and the result is cast to q's type as the
+    reference's `.astype` casts (`ref.from_float`: float8 without
+    saturation, integers toward zero); k and v of two different types, or
+    of an integer type, are both widened to float32 copies first. The
+    caches are read in place through their strides. `lengths` is read on
+    the device only.
 
     Both devices refuse the same inputs: ranks, shapes, GQA divisibility,
     head size, dtypes, `lengths` (contiguous int32 [B]) and devices are
@@ -253,11 +261,11 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("paged_attention: tensors on different devices")
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_cache, v_cache, lengths)
-    if k_cache.dtype != v_cache.dtype:     # one cache type: widen both
-        k_cache, v_cache = k_cache.float(), v_cache.float()
+    if k_cache.dtype != v_cache.dtype or k_cache.dtype not in KERNEL_TYPES:
+        k_cache, v_cache = k_cache.float(), v_cache.float()   # one type
     out_dtype = q.dtype
-    if q.dtype != k_cache.dtype:           # q widened, read against the caches
-        q = q.float()
+    if q.dtype != k_cache.dtype or k_cache.dtype in ref.FP8_TYPES:
+        q = q.float()                      # widened, read against the caches
     body = body_for(k_cache.dtype, D)
     # the TMA ring loads 16-byte rows, the element body by element; q is
     # loaded by vectors of D / 32 elements at the head sizes of `HEAD_DIMS`
@@ -282,7 +290,7 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return out.to(out_dtype)
     launch(q, k_cache, v_cache, lengths, out, page)
     launches += 1
-    return out.to(out_dtype)
+    return out if out.dtype == out_dtype else ref.from_float(out, out_dtype)
 
 
 def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -21,7 +21,9 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.async_gather import MAX_SMEM
 
-TYPES = (torch.float32, torch.bfloat16, torch.float16)
+TYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float8_e4m3fn,
+         torch.float8_e5m2, torch.int8, torch.uint8, torch.int16,
+         torch.uint16, torch.int32, torch.uint32)
 SM_SMEM = 233472        # shared memory of one SM, 1 KB of it reserved a block
 INFLIGHT_BYTES = 24 * 1024   # loads in flight an SM: ~latency x bandwidth
 
@@ -69,8 +71,8 @@ def _bind():
     fn = lib.stream_triad_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_float, i, i, i,
-                       i, i, p]
+        fn.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_double, i, i,
+                       i, i, i, p]
         fn.restype = ctypes.c_int
         lib.stream_triad_smem.argtypes = [i, i, i]
         lib.stream_triad_smem.restype = ctypes.c_longlong
@@ -92,15 +94,28 @@ def _card_plan(device: int, dtype: torch.dtype, block: int,
     return triad_plan(1 << 62, dtype.itemsize, block, stages, sms, smem)
 
 
+def _kernel_scalar(s: float, dtype: torch.dtype) -> float:
+    """s as the kernel takes it: rounded to a float type here, or, for an
+    integer type, in float32, which the kernel converts (`to_int` of
+    csrc/common.cuh: toward zero, saturated, NaN -> 0)."""
+    if dtype in ref.INT_TYPES:
+        return float(torch.tensor(float(s), dtype=torch.float32))
+    return ref.round_scalar(s, dtype)
+
+
 def stream_triad(b: torch.Tensor, c: torch.Tensor, s: float,
                  block: int = 512, stages: int = 4) -> torch.Tensor:
-    """b, c: [N] float32, bfloat16 or float16 -> a = b + s * c in their type.
+    """b, c: [N] of one of `TYPES` -> a = b + s * c in their type.
 
     `block` elements (a multiple of 128, as in the reference) are the unit
     one step of the kernel streams, the aload granularity; `stages` steps are
     in flight in each block of the kernel. Any N is taken: the ragged tail is
-    masked, nothing is padded. s is rounded to the arrays' type first and the
-    rest is computed in float32, rounded once at the end."""
+    masked, nothing is padded. The result is the reference's bit for bit
+    but in float32 (`ref.triad_ref`): s is made the arrays' type first
+    (`ref.round_scalar`: an integer type's s toward zero and saturated),
+    bfloat16 and float8 round the product and then the sum, float16 rounds
+    once, float8 overflows to NaN (e4m3fn) or inf (e5m2), and integers
+    wrap."""
     global launches
     if b.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stream_triad: unsupported device {b.device}")
@@ -111,8 +126,10 @@ def stream_triad(b: torch.Tensor, c: torch.Tensor, s: float,
                          f"{b.device} and {tuple(c.shape)} {c.dtype} "
                          f"{c.device}")
     if b.dtype not in TYPES:
-        raise TypeError(f"stream_triad: takes float32, bfloat16 or float16, "
-                        f"got {b.dtype}")
+        raise TypeError(f"stream_triad: takes "
+                        f"{', '.join(str(t)[6:] for t in TYPES)}, got "
+                        f"{b.dtype} (64-bit types: the reference makes them "
+                        "32-bit before any kernel runs)")
     if block < 128 or block % 128 or stages < 1:
         raise ValueError(f"stream_triad: block {block} must be a positive "
                          f"multiple of 128 and stages {stages} positive")
@@ -135,7 +152,7 @@ def stream_triad(b: torch.Tensor, c: torch.Tensor, s: float,
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = fn(b.data_ptr(), c.data_ptr(), a.data_ptr(), b.numel(),
-                  ref.round_scalar(s, b.dtype), block, stages,
+                  _kernel_scalar(s, b.dtype), block, stages,
                   max(1, min(steps, plan.blocks)), plan.threads,
                   _build.DTYPE_CODES[b.dtype], stream)
     _build.check(lib, code, "stream_triad launch")

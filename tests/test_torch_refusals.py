@@ -7,10 +7,11 @@ an input the CUDA kernel refuses is refused here too, with the same exception
 type and message: the checks are one piece of code ahead of the device
 branch. Only the stride and alignment checks, which describe the kernel's
 loads, come after it. Both kernels take every head size from 1 up, in
-float32, bfloat16 and float16 and with q, k, v of different types, as the
-reference's Pallas kernels do; a head size of 0 (the reference divides by
-sqrt(0)) and a type no body takes (float64, an integer) stay refused, and
-what the kernels now take is held against the plain versions here.
+float32, bfloat16, float16, float8 and 8-, 16- and 32-bit integers and with
+q, k, v of different types, as the reference's Pallas kernels do; a head
+size of 0 (the reference divides by sqrt(0)) and a 64-bit type (which the
+reference makes 32-bit before any kernel runs) stay refused, and what the
+kernels now take is held against the plain versions here.
 `ops.paged_attention`, the model layer's glue, casts `lengths` to int32
 before the wrapper sees it, as the reference's glue does."""
 import numpy as np
@@ -64,11 +65,12 @@ def test_flash_refuses_a_negative_window():
 
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float64), (torch.float64, torch.float32),
-    (torch.int32, torch.int32)])
+    (torch.int64, torch.int64)])
 def test_flash_refuses_mixed_or_unsupported_dtypes(q_dtype, kv_dtype):
-    """A type no body takes, alone or beside one that a body takes."""
-    with pytest.raises(TypeError, match="takes float32, bfloat16 and "
-                                        "float16"):
+    """A type no body takes, alone or beside one that a body takes (int32,
+    refused here before, is taken now: tests/test_torch_types.py)."""
+    with pytest.raises(TypeError, match="takes float32, bfloat16, float16, "
+                                        "float8_e4m3fn"):
         flash_attention(*_flash(16, q_dtype, kv_dtype))
 
 
@@ -125,8 +127,8 @@ def test_paged_refuses_mixed_dtypes():
     """Mixed float types are taken now (below); a cache of a type no body
     takes is refused beside a q that one takes."""
     q, k, v, lengths = _paged()
-    with pytest.raises(TypeError, match="takes float32, bfloat16 and "
-                                        "float16"):
+    with pytest.raises(TypeError, match="takes float32, bfloat16, float16, "
+                                        "float8_e4m3fn"):
         paged_attention(q, k.to(torch.float64), v.to(torch.float64),
                         lengths)
 

@@ -26,11 +26,13 @@ def to_torch(a, dtype=None) -> torch.Tensor:
 
 
 def to_np(x) -> np.ndarray:
-    """Tensor or JAX array -> float32/int numpy array for comparisons."""
+    """Tensor or JAX array -> float32/int numpy array for comparisons
+    (bfloat16 and float8 widened to float32)."""
     if isinstance(x, torch.Tensor):
         return convert.tensor_to_numpy(x)
     a = np.asarray(x)
-    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+    wide = a.dtype.name in ("bfloat16", "float8_e4m3fn", "float8_e5m2")
+    return a.astype(np.float32) if wide else a
 
 
 def jax_tree_to_numpy(tree):
