@@ -352,19 +352,26 @@ SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
              "stream_triad": ("UBLKCP",)}
 
 
-# ... and in the wide bodies' own kernel symbols: the 16-bit flash body above
-# 256 columns on wgmma and TMA, paged's TMA ring above 256 (the
-# instantiations <E, EQ, 256, EXACT=false, TMA=true, WIDE=true>)
-SASS_WANT_IN = {"flash_attention": [("flash_wgmma_wide_kernel",
-                                     ("HGMMA", "UTMALDG"))],
-                "paged_attention": [("Li256ELb0ELb1ELb1E", ("UTMALDG",))]}
+# ... and in each kernel whose symbol holds all the given parts: the 16-bit
+# flash body above 256 columns on wgmma and TMA; flash's wgmma body with the
+# element loader (its last template argument, ELEM, true) and at D = 256, on
+# wgmma and with the producer warpgroup's register hand-over (setmaxnreg,
+# USETMAXREG in SASS); paged's TMA ring above 256 (the instantiations <E,
+# EQ, 256, EXACT=false, TMA=true, WIDE=true>)
+SASS_WANT_IN = {"flash_attention": [
+                    (("flash_wgmma_wide_kernel",), ("HGMMA", "UTMALDG")),
+                    (("flash_wgmma_kernel", "Lb1EEEv"),
+                     ("HGMMA", "USETMAXREG")),
+                    (("flash_wgmma_kernel", "Li256E"),
+                     ("HGMMA", "USETMAXREG"))],
+                "paged_attention": [(("Li256ELb0ELb1ELb1E",), ("UTMALDG",))]}
 
 
 def check_sass(out_dir) -> dict:
     """Counts the SASS lines of each instruction of `SASS_WANT` in the built
-    libraries (cuobjdump, beside nvcc), and of `SASS_WANT_IN` in the kernel
-    symbols whose names hold the given text, and fails where one is
-    missing."""
+    libraries (cuobjdump, beside nvcc), and of `SASS_WANT_IN` in each kernel
+    whose symbol holds the given parts, and fails where one is missing (in
+    a library, or in any one of those kernels)."""
     from pathlib import Path
     from repro_torch.kernels import _build
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
@@ -377,18 +384,28 @@ def check_sass(out_dir) -> dict:
         if not all(counts[lib].values()):
             raise AssertionError(f"lib{lib}.so lacks Hopper instructions: "
                                  f"{counts[lib]}")
-        for part, want in SASS_WANT_IN.get(lib, []):
-            found, func = {op: 0 for op in want}, ""
+        for parts, want in SASS_WANT_IN.get(lib, []):
+            funcs, func = {}, None        # kernel symbol -> counts
             for line in sass:
                 if "Function :" in line:
-                    func = line
-                elif part in func:
+                    func = line.split("Function :")[1].strip()
+                    if not all(part in func for part in parts):
+                        func = None
+                    else:
+                        funcs[func] = {op: 0 for op in want}
+                elif func is not None:
                     for op in want:
-                        found[op] += op in line
-            counts[f"{lib} {part}"] = found
-            if not all(found.values()):
+                        funcs[func][op] += op in line
+            key = f"{lib} {'*'.join(parts)}"
+            counts[key] = {op: sum(f[op] for f in funcs.values())
+                           for op in want}
+            counts[key]["kernels"] = len(funcs)
+            lacking = [name for name, f in funcs.items()
+                       if not all(f.values())]
+            if not funcs or lacking:
                 raise AssertionError(f"lib{lib}.so: the kernels named "
-                                     f"*{part}* lack {found}")
+                                     f"*{'*'.join(parts)}* ({len(funcs)}) "
+                                     f"lack {want}: {lacking[:3]}")
     log(f"SASS lines of the Hopper paths: {counts}")
     return counts
 
@@ -487,6 +504,7 @@ def check_flash(gen):
     worst = max(worst, check_flash_256(gen))
     worst = max(worst, check_flash_padded(gen))
     check_flash_padded(gen, F16_DIMS, (torch.float16,))
+    check_flash_padded(gen, ELEM_DIMS, (torch.bfloat16, torch.float16))
     worst = max(worst, check_flash_padded(gen, WIDE_DIMS, TYPES))
 
     # the serve shapes: full-width prefill of each served arch, S ragged
@@ -523,7 +541,7 @@ def check_body_rules():
     from repro_torch.kernels import paged_attention as pa
 
     flash, paged = _build.load("flash_attention"), _build.load("paged_attention")
-    names = {-1: None, 0: "fma", 1: "wgmma", 2: "mma"}
+    names = {-1: None, 0: "fma", 1: "wgmma", 2: "mma", 3: "wgmma_elem"}
     types = (torch.float32, torch.bfloat16, torch.float16)
     pairs = [(a, b) for a in types for b in types] + [(t, t) for t in FP8]
     for q_dtype, kv_dtype in pairs:
@@ -551,8 +569,9 @@ def check_body_rules():
                     f"{want}, {want_paged} ... FAIL")
     log("  body rules, D 0-1100 and 2048 x 3 types, the 6 mixed pairs and "
         "fp8, sources and wrappers agree: flash fp32 and mixed -> fma; "
-        "16-bit D % 8 != 0 -> fma, else Dp >= 64 -> wgmma (wide above 256), "
-        "Dp 16-32 -> mma; fp8 D % 16 == 0 and Dp 64-256 -> wgmma, else fma; "
+        "16-bit D % 8 == 0: Dp >= 64 -> wgmma (wide above 256), Dp 16-32 -> "
+        "mma; 16-bit D % 8 != 0 and fp8 D % 16 != 0 at Dp 64-256 -> "
+        "wgmma_elem, else fma; fp8 D % 16 == 0 and Dp 64-256 -> wgmma; "
         "paged rows of whole 16-byte pieces -> tma, others -> element; 0 "
         "refused")
 
@@ -618,14 +637,14 @@ def flash_serve_shape(gen, arch, s=PROMPT_LEN, window=0,
 
 
 def check_flash_256(gen) -> float:
-    """The D = 256 bodies (wgmma with 64 x 64 tiles and one consumer
-    warpgroup in bf16, FMAs in fp32) at their edges: windows of 1, 63, 64,
-    65 and 127 keys (below, at and past the 64-key tile, one short of two
-    tiles) and past S, S ragged against 64 (1000, 4113) and below one tile,
-    GQA groups 1 and 16 (recurrentgemma's MQA: 16 query heads on one KV
-    head), not causal with and without a window. Returns the worst fp32
-    error."""
-    from repro_torch.kernels import flash_attention as fa, ref
+    """The D = 256 bodies (wgmma with 128 x 64 tiles and two consumer
+    warpgroups, in bf16 and f16, and with the element loader at D 196 and
+    255; FMAs in fp32) at their edges: windows of 1, 63, 64, 65 and 127 keys
+    (below, at and past the 64-key tile, one short of two tiles) and past
+    S, S ragged against 64 and 128 (1000, 4113) and below one tile, GQA
+    groups 1 and 16 (recurrentgemma's MQA: 16 query heads on one KV head),
+    not causal with and without a window. Returns the worst fp32 error."""
+    from repro_torch.kernels import flash_attention as fa
 
     log("flash_attention at head size 256 vs ref.attention_ref")
     worst = 0.0
@@ -636,32 +655,37 @@ def check_flash_256(gen) -> float:
         (1, 4, 4, 1000, True, 0), (1, 16, 1, 4113, True, 2048),
         (2, 2, 1, 37, True, 0), (1, 16, 1, 333, False, 0),
         (1, 4, 4, 300, False, 63), (1, 16, 1, 129, False, 65)]
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, d in ((torch.bfloat16, 256), (torch.float32, 256),
+                     (torch.float16, 256), (torch.bfloat16, 196),
+                     (torch.float16, 255)):
         for (b, hq, hkv, s, causal, window) in cases:
-            q, k, v = flash_case(gen, b, hq, hkv, s, 256, dtype)
+            q, k, v = flash_case(gen, b, hq, hkv, s, d, dtype)
             out = fa.flash_attention(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
-            want = ref.attention_ref(q, k, v, causal, window)
-            name = (f"{str(dtype)[6:]} B{b} Hq{hq} Hkv{hkv} S{s} D256 "
-                    f"causal{causal} window{window}")
+            err = check_flash_out(
+                f"{tname(dtype)} B{b} Hq{hq} Hkv{hkv} S{s} D{d} "
+                f"causal{causal} window{window} ({fa.body_for(dtype, d)} "
+                "body)", out, q, k, v, causal, window)
             if dtype == torch.float32:
-                worst = max(worst, check_close(name, out, want, **FP32_TOL))
-            else:
-                check_close(name, out, want,
-                            spread=flash_spread(q, k, v, causal, window),
-                            **FLASH_BF16_TOL)
-            del q, k, v, out, want
+                worst = max(worst, err)
+            del q, k, v, out
     return worst
 
 
 # head sizes between the bodies' own: below 16, not a whole number of
-# 16-byte pieces in bf16 (1, 7, 100: flash's fma body, paged's element
-# body), through mma.sync (8, 24), through wgmma or paged's TMA ring with
-# TMA's zero fill (40 below one 64-column box; 80, 96, 192)
+# 16-byte pieces in bf16 (1, 7: flash's fma body; 100: its wgmma body with
+# the element loader; paged's element body), through mma.sync (8, 24),
+# through wgmma or paged's TMA ring with TMA's zero fill (40 below one
+# 64-column box; 80, 96, 192)
 PADDED_FLASH_DIMS = (1, 7, 8, 24, 40, 80, 96, 100, 192)
 PADDED_PAGED_DIMS = (1, 7, 8, 24, 40, 80, 100, 256)
 # float16 at the bodies' own head sizes and at 8 and 80 (padded)
 F16_DIMS = (8, 64, 80, 128, 256)
+# 16-bit rows of no whole 16-byte pieces on the wgmma body with the element
+# loader, at each Dp (64, 128, 256): odd (2-byte loads through registers),
+# 98 (4-byte cp.async), 100 and 196 (8-byte cp.async); and 200, whole pieces
+# padded to 256 (TMA)
+ELEM_DIMS = (33, 98, 100, 196, 200, 255)
 # the wide bodies: a chunk and a tail of 1 (fma) or 8 columns (wgmma, TMA),
 # 300 (16-bit: fma / element), whole chunks (512, 1024, 2048), 384, 576,
 # 1000 (part of a chunk, part of a 64-column piece)
@@ -811,7 +835,8 @@ def check_guard_columns(gen, dims=None, dtypes=(torch.float32,
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa, ref
 
-    dims = dims or sorted(set(PADDED_FLASH_DIMS + PADDED_PAGED_DIMS + (128,)))
+    dims = dims or sorted(set(PADDED_FLASH_DIMS + PADDED_PAGED_DIMS
+                              + ELEM_DIMS + (128,)))
     log(f"guard columns at D {tuple(dims)} in "
         f"{', '.join(map(tname, dtypes))}: raw launches into rows {GUARD} "
         f"columns past Dp, filled with {SENTINEL}")
@@ -970,7 +995,7 @@ def check_paged(gen):
     check_mixed_types(gen)
     check_guard_columns(gen)
     check_guard_columns(gen, GUARD_WIDE_DIMS, TYPES)
-    check_guard_columns(gen, (8, 80), (torch.float16,))
+    check_guard_columns(gen, (8, 80, 100, 255), (torch.float16,))
 
     # the serve shapes: full-width decode of each served arch, T ragged,
     # mixed lengths (qwen2.5-3b's is the one the kernels line reports), and
@@ -1447,8 +1472,9 @@ def check_ulp(name, got, want, quiet=False, extra=None) -> float:
 
 def fp8_p_term(q, k, v, body):
     """`check_ulp`'s extra term for flash in fp8: the f16 P of its wgmma
-    body (none for the fma body, fp32 throughout)."""
-    if body != "wgmma":
+    body, fed by TMA or by the element loader (none for the fma body, fp32
+    throughout)."""
+    if body not in ("wgmma", "wgmma_elem"):
         return None
     return FLASH_F16_TOL["ptol"] * flash_spread(q, k, v)
 
@@ -1479,9 +1505,10 @@ def check_every_type(gen):
     3 and 64, bf16 / f16 add at 1, 3 and 5 (the word path: CAS loops, xor
     words with zero bytes, the scalar 16-bit reduction), 50000 updates into
     3000 rows and every update into one row; the gather of float8 rows;
-    flash in float8 at D 8, 64, 80, 100, 128, 256 (fma and the f16-converted
-    wgmma body, whose f16 P adds `fp8_p_term`) and int8 once (its float32
-    copies),
+    flash in float8 at D 8, 33, 64, 72, 80, 98, 100, 128, 200, 256 (fma,
+    the f16-converted wgmma body and the element loader's, with loads of 1,
+    2, 4 and 8 bytes; their f16 P adds `fp8_p_term`) and int8 once (its
+    float32 copies),
     paged with float8 caches at D 8, 100, 128, within one unit in the
     output type's last place, and bf16 q over e4m3 caches at bf16's limit
     (PAGED_BF16_TOL: a bf16 output near 0 is finer than the fp32 sums'
@@ -1570,7 +1597,7 @@ def check_every_type(gen):
                    ag.async_gather(table, idx), ref.gather_ref(table, idx))
 
     for dtype in FP8:
-        for d in (8, 64, 80, 100, 128, 256):
+        for d in (8, 33, 64, 72, 80, 98, 100, 128, 200, 256):
             q = rand_typed(gen, (2, 200, 8, d), dtype, Q_SCALE).transpose(1, 2)
             k = rand_typed(gen, (2, 200, 2, d), dtype).transpose(1, 2)
             v = rand_typed(gen, (2, 200, 2, d), dtype).transpose(1, 2)
@@ -3515,6 +3542,23 @@ MUTANTS = {
     "fp8_e5m2_as_e4m3": [("common.cuh",
                           "__nv_cvt_fp8_to_halfraw(x.__x, __NV_E5M2)",
                           "__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)")],
+    # flash's redesigned bodies: the element loader reading columns past D
+    # (the next head's) where it writes zeros ...
+    "flash_elem_past_d": [("flash_attention.cu",
+                           "const bool col_in = byte < dh * 2;",
+                           "const bool col_in = true;"),
+                          ("flash_attention.cu",
+                           "const int n_col = min(E, dh - c) * IT;",
+                           "const int n_col = E * IT;")],
+    # ... storing its pieces without the 128-byte swizzle ...
+    "flash_elem_unswizzled": [("flash_attention.cu",
+                               "  return ((p & 7) ^ (r & 7)) << 4;",
+                               "  return (p & 7) << 4;")],
+    # ... and the second consumer warpgroup at D = 256 taking the first
+    # one's rows for its masks and stores
+    "flash_256_rlo": [("flash_attention.cu",
+                       "  const int rlo = q0 + wgi * 64;",
+                       "  const int rlo = q0 + (D == 256 ? 0 : wgi) * 64;")],
 }
 
 

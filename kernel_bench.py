@@ -21,7 +21,11 @@ hubert-xlarge's D=80 (B=4, Hq=Hkv=16, S=1000, not causal); paged at D=8
 and 80 in the same layouts (T=1032) and at recurrentgemma-9b's D=256 (B=4,
 Hq=16, Hkv=1, T=4128, lengths [4128, 4097, 2065, 64]); and both at D=100
 in the D=80 layouts, whose bf16 rows (200 bytes) are no whole number of
-16-byte pieces: flash's fma body and paged's element-copy body. Then the
+16-byte pieces: flash's wgmma body with its element loader (the fma body in
+a tree from before it) and paged's element-copy body; flash also at D=100
+in f16, e4m3 and e5m2 (SDPA on bf16 copies for float8), at granite's D=64
+(B=4, Hq=16, Hkv=8, S=1000, causal) and in f32 at qwen2.5-3b's prefill
+(SDPA in f32). Then the
 wide bodies and float16: flash at D=512 in bf16 and f16 and at D=128 in
 f16, in qwen2.5-3b's layout (B=4, Hq=16, Hkv=2, S=1000, causal); paged at
 D=512 in bf16 and f16 and at D=128 in f16, in its serve layout (T=1032);
@@ -104,12 +108,21 @@ def main() -> int:
         rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, d))
         rows.append(bench_flash(cs, fa, F, gen, b, 16, 1, 4096, 256,
                                 window=2048))
+        # granite's layout at D = 64, and float32 at the serve shape
+        rows.append(bench_flash(cs, fa, F, gen, b, 16, 8, s, 64))
+        rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, d,
+                                dtype=torch.float32))
         if takes(fa, 8):
             rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, 8))
             rows.append(bench_flash(cs, fa, F, gen, b, 16, 16, s, 80,
                                     causal=False))
             rows.append(bench_flash(cs, fa, F, gen, b, 16, 16, s, 100,
                                     causal=False))
+        # D = 100 (rows of no whole 16-byte pieces) in float16 and float8
+        for dtype in (torch.float16, *cs.FP8):
+            if dtype in getattr(fa, "KERNEL_TYPES", ()):
+                rows.append(bench_flash(cs, fa, F, gen, b, 16, 16, s, 100,
+                                        causal=False, dtype=dtype))
         if takes(fa, 512):
             for d, dtype in ((512, torch.bfloat16), (512, torch.float16),
                              (128, torch.float16)):
@@ -175,15 +188,20 @@ def takes(mod, d) -> bool:
 
 def short(dtype) -> str:
     return {torch.bfloat16: "bf16", torch.float16: "f16",
-            torch.float32: "f32"}[dtype]
+            torch.float32: "f32", torch.float8_e4m3fn: "e4m3",
+            torch.float8_e5m2: "e5m2"}[dtype]
 
 
 def bench_flash(cs, fa, F, gen, b, hq, hkv, s, d, window=0, causal=True,
                 dtype=torch.bfloat16):
+    """One flash case timed beside SDPA on the same inputs (on bf16 copies
+    for float8, which SDPA does not take) and its bound."""
     q, k, v = cs.flash_case(gen, b, hq, hkv, s, d, dtype)
     body = fa.body_for(dtype, d) if hasattr(fa, "body_for") else "?"
     lib = (dict(attn_mask=cs.window_mask(s, window)) if window
            else dict(is_causal=causal))
+    lq, lk, lv = ((x.to(torch.bfloat16) for x in (q, k, v))
+                  if dtype in cs.FP8 else (q, k, v))
     backend = ""
     if d > 256:                   # which of SDPA's backends takes D > 256
         backend = ", library " + cs.sdpa_backend(
@@ -193,13 +211,14 @@ def bench_flash(cs, fa, F, gen, b, hq, hkv, s, d, window=0, causal=True,
         kernel="flash_attention",
         case=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} {short(dtype)}"
              + (f" window{window}" if window else "")
-             + ("" if causal else " not causal") + f" ({body} body{backend})",
+             + ("" if causal else " not causal") + f" ({body} body{backend}"
+             + ("; library on bf16 copies" if dtype in cs.FP8 else "") + ")",
         ms=cs.time_ms([lambda: fa.flash_attention(q, k, v, causal=causal,
                                                   window=window)], 20),
         host_us=cs.host_us(lambda: fa.flash_attention(q, k, v, causal=causal,
                                                       window=window)),
         library_ms=cs.time_ms([lambda: F.scaled_dot_product_attention(
-            q, k, v, enable_gqa=True, **lib)], 10),
+            lq, lk, lv, enable_gqa=True, **lib)], 10),
         bound_ms=cs.flash_bound(b, hq, hkv, s, d, window, dtype, causal)[0])
 
 

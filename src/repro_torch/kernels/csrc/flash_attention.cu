@@ -33,63 +33,67 @@
 //   different K rows hit 16 different banks. At D = 256 the Q, K, V and P
 //   tiles take 210 KB of shared memory, one block an SM.
 // * bfloat16, D = 64, 128 or 256 -> `flash_wgmma_kernel`, designed for
-//   Hopper (at D = 256 with other tiles, see the next bullet):
-//   - a block of 288 threads: two consumer warpgroups of 64 query rows each
-//     (BM = 128) and one producer warp; one block an SM (161 KB of shared
-//     memory at D = 128);
-//   - the producer warp's one lane is the AMI at tile granularity: aload =
-//     TMA (cp.async.bulk.tensor) of the next K and V tiles (BN = 128 keys)
-//     into a 2-stage ring of shared-memory slots; getfin = the consumers'
-//     wait on the stage's *full* mbarrier, which the copies complete by
-//     their byte count; a slot is freed when each consumer warp has arrived
-//     on the stage's *empty* mbarrier, which the producer waits on before it
-//     refills the stage. No consumer thread computes an address or holds a
-//     register for a copy;
+//   Hopper:
+//   - two consumer warpgroups of 64 query rows each (BM = 128) and a
+//     producer; one block an SM (161 KB of shared memory at D = 128, 193 KB
+//     at D = 256);
+//   - the producer is the AMI at tile granularity: aload = TMA
+//     (cp.async.bulk.tensor) of the next K and V tiles into a 2-stage ring
+//     of shared-memory slots; getfin = the consumers' wait on the stage's
+//     *full* mbarrier, which the copies complete by their byte count; a slot
+//     is freed when each consumer warp has arrived on the stage's *empty*
+//     mbarrier, which the producer waits on before it refills the stage. No
+//     consumer thread computes an address or holds a register for a copy;
 //   - tensor maps describe the caller's strided [B, H, S, D] views (dims
 //     innermost first, the outer three by ascending stride), 128-byte
-//     swizzle, boxes of 64 columns (two a row at D = 128). TMA zero-fills
-//     rows past S and never reads the next head or batch; logits of keys >= S
-//     are still masked (a zero key row gives logit 0, not -inf);
-//   - S = Q K^T by wgmma.m64n128k16 with Q and K both K-major in shared
-//     memory; O += P V by one wgmma.m64nDk16 a 16-key step with P from
-//     registers (the S accumulator rounded to bf16 in place: its layout is
-//     the A fragment's) and V from shared memory as a transposed (MN-major)
-//     operand spanning both 64-column boxes, so there is no ldmatrix.trans
-//     and no shared-memory traffic per warp beyond what the tensor core
-//     reads once for the warpgroup;
+//     swizzle, boxes of 64 columns. TMA zero-fills rows past S and never
+//     reads the next head or batch; logits of keys >= S are still masked (a
+//     zero key row gives logit 0, not -inf);
+//   - S = Q K^T by wgmma with Q and K both K-major in shared memory; O += P V
+//     by wgmma with P from registers (the S accumulator rounded to bf16 in
+//     place: its layout is the A fragment's) and V from shared memory as a
+//     transposed (MN-major) operand spanning the 64-column boxes, so there
+//     is no ldmatrix.trans and no shared-memory traffic per warp beyond what
+//     the tensor core reads once for the warpgroup;
 //   - masks are applied only on tiles that straddle the diagonal, the window
-//     edge or S; a tile masked whole for a warpgroup is skipped;
+//     edge or S; a tile masked whole for a warpgroup is skipped (the dead
+//     test, per warpgroup: at BM = 128 the two may differ); the first tile
+//     loaded is (q0 - window + 1) / BN for the block's first row q0, the
+//     last the one of its last row;
 //   - the exponentials are the next limit: the SM's special-function unit
 //     does 16 ex2 a clock against 1024 bf16 FMAs of the tensor cores, so a
 //     128x128 tile's softmax takes about half as long as its two products;
 //     each p is one FFMA and one ex2.approx;
-//   - the bytes are the third: a 128x128 tile pair reads 64 KB of K and V
-//     through the L2 for 8.4 MFLOP, so the tensor cores' rate asks ~7.7 TB/s
-//     of the L2 across the card;
+//   - the bytes are the third: a 128x128 tile pair at D = 128 reads 64 KB of
+//     K and V through the L2 for 8.4 MFLOP, so the tensor cores' rate asks
+//     ~7.7 TB/s of the L2 across the card;
 //   - the query tile is the slowest grid dimension, heaviest first across
 //     all heads and batches, so causal attention's light tiles fill the
 //     last wave.
 //   Output goes from registers to q's strides.
-// * bfloat16, D = 256 -> the same kernel with 64 x 64 tiles and ONE consumer
-//   warpgroup (160 threads). What bounds this shape is room, before speed:
+// * At D = 64 and 128: BN = 128 keys a K/V tile (S = Q K^T by
+//   wgmma.m64n128k16, P V by one m64nDk16 a 16-key step) and a producer of
+//   one warp, whose one lane issues TMA (288 threads, at most 168 registers
+//   a thread). The two consumers overlap each other's softmax unaided:
+//   taking turns by named barriers there measured no faster (PERF.md).
+// * At D = 256 room bounds the tiles before speed:
 //   - at D = 128's tiles a block would need 1 KB + 64 KB of Q + 2 stages x 2
 //     x 64 KB of K and V = 321 KB of shared memory, above the 227 KB a block
-//     may have; at BM = BN = 64 it needs 1 + 32 + 2 x 2 x 32 = 161 KB;
-//   - the O accumulator is D / 2 = 128 fp32 registers a thread beside 32 of
-//     S and 16 of P. A 288-thread block allows 168 registers a thread; a
-//     160-thread block allows 255, so one consumer warpgroup keeps it all in
-//     registers without the producer warpgroup and the register hand-over
-//     (setmaxnreg) that two consumers would need;
+//     may have; at BN = 64 it needs 1 + 64 + 2 x 2 x 32 = 193 KB;
+//   - the O accumulator is D / 2 = 128 fp32 registers a consumer thread,
+//     beside 32 of S and 16 of P. A 384-thread block is allotted 168
+//     registers a thread, so the producer is a warpgroup that lowers its own
+//     to 24 with setmaxnreg and the consumers raise theirs to 240: 128 x 24
+//     + 256 x 240 = 384 x 168. One lane of the producer issues the TMA
+//     loads; its other warps have nothing to do;
 //   - S = Q K^T is 16 wgmma.m64n64k16 a tile; O += P V is one m64n64k16 a
 //     64-column V box a 16-key step (four a step), each on its own quarter
 //     of the accumulator, so no asm statement names all 128 of them;
-//   - the cost: one warpgroup an SM issues the products, so the tensor cores
-//     idle while it does the softmax. Two consumers with setmaxnreg, or a
-//     third K/V stage (1 + 32 + 3 x 64 = 225 KB fits), are left for a later
-//     change. The window edge at this BN: a tile straddles it, and is
-//     masked, where k0 <= rlo + 63 - window; a tile wholly before it for all
-//     64 rows is skipped (the dead test), and the first tile loaded is
-//     (q0 - window + 1) / BN.
+//   - two consumers, where one was before: one warpgroup's softmax runs
+//     while the other's products keep the tensor cores busy, where with one
+//     the tensor cores idled through every softmax. Here too they overlap
+//     unaided: taking turns by named barriers (each warpgroup's Q K^T, then
+//     its P V, in the order 0, 1, 0, 1) measured slower (PERF.md).
 // * bfloat16, D = 16 or 32 -> `flash_mma_kernel` (FlashAttention-2 on
 //   mma.sync.m16n8k16, 64x64 tiles, a 2-slot cp.async K/V ring): a wgmma
 //   tile of 16 or 32 columns would waste most of each 128-byte swizzle row,
@@ -104,20 +108,61 @@
 // does three things where EXACT is false, and nothing where it is true:
 //   (a) columns D .. Dp-1 load as zeros: TMA zero-fills them (the tensor
 //       map's innermost extent is D), cp.async by its source size, the fma
-//       body by a mask on its element loads; zero columns add nothing to
-//       Q K^T and give zero output columns;
+//       body and the element loader by a mask on their element loads; zero
+//       columns add nothing to Q K^T and give zero output columns;
 //   (b) stores write columns < D only: the output is the model's
 //       [B, S, H, D] viewed as [B, H, S, D], so column D of a row is the
 //       next head's (or token's) first;
 //   (c) the scale is 1 / sqrt(D) of the real D, computed here, not of Dp.
-// TMA and cp.async move 16-byte pieces, so they take only rows of a whole
-// number of them: bf16 at D % 8 != 0 runs the fma body instead, which reads
-// any type by element and computes in fp32 (slow, and right); fp32 runs
-// the fma body at every D. So the rule, stated also in `flash_attention_body`
-// and in the wrapper's `body_for`: fp32 -> fma; bf16 / f16, D % 8 != 0 ->
-// fma; bf16 / f16, D % 8 == 0 -> wgmma where Dp >= 64, mma.sync where Dp
-// <= 32; fp8 (e4m3fn, e5m2) -> wgmma where D % 16 == 0 and Dp is 64 to
-// 256, else fma.
+//
+// Rows of no whole 16-byte pieces (the element loader). TMA and cp.async
+// move 16-byte pieces, so they take only rows of a whole number of them.
+// 16-bit rows at D % 8 != 0 and fp8 rows at D % 16 != 0 run the wgmma body
+// all the same where Dp is 64 to 256 (ELEM): its producer warpgroup copies
+// the tiles by element (`elem_tile`) in place of TMA, and the consumers'
+// code is unchanged. One warp would be too few: a 128-key K/V pair at D =
+// 100 is 25,600 elements. So:
+//   - the loads are as wide as the rows allow: the widest of 8, 4, 2 and 1
+//     bytes that the head's bytes, every stride and every start are
+//     multiples of (`elem_src`); a row is cut into units and each producer
+//     thread takes one column of units, every few rows, so that a warp's 32
+//     threads read consecutive bytes and each works out its column (in the
+//     head or not, its slot in the swizzle) once;
+//   - 16-bit rows of 8- or 4-byte units (D = 100 in the model's layout, say)
+//     are copied by cp.async of that size straight into place
+//     (`elem_tile_async`): no register is held and a whole stage's copies
+//     are in flight at once, where loads through registers kept few in
+//     flight and ran at 1.8x the time (PERF.md); a source size of 0 writes
+//     the zeros;
+//   - fp8 rows, and 16-bit rows of 2-byte units (odd D, say), go through
+//     registers (`elem_tile`): 8 source bytes a unit, four units a thread
+//     loaded before they are stored (fewer for narrower loads and at D =
+//     256), fp8
+//     converted to f16 on the way (exact), so shared memory is the 16-bit
+//     layout and the consumers run the f16 code. Staging fp8 by cp.async
+//     and converting it in shared memory measured slower (PERF.md);
+//   - columns D .. Dp-1 and rows past S are written as zeros (rule (a)), and
+//     each unit lands where TMA would put it under the 128-byte swizzle
+//     (16-byte piece c of row r at c ^ (r % 8), `swizzle`), which the wgmma
+//     descriptors read;
+//   - a stage is published by each producer thread: it waits for its own
+//     copies (cp.async.wait_group), then fence.proxy.async (its stores are
+//     generic-proxy writes that wgmma reads through the async proxy), then
+//     arrives on the stage's full mbarrier (128 arrivals in place of TMA's
+//     byte count); the empty protocol is TMA's. Q goes first, published
+//     while the first K/V copies are in flight;
+//   - the producer warpgroup keeps 56 registers a thread (40 at D = 256)
+//     and the consumers get 224 (232): 128 x 56 + 256 x 224 = 384 x 168;
+//   - the output is stored one value at a time (a row may start at any
+//     element), columns < D only.
+// The rest of those rows takes the fma body, which reads any type by
+// element and computes in fp32 (slow, and right): Dp of 16 or 32, and above
+// 256. So the rule, stated also in `flash_attention_body` and in the
+// wrapper's `body_for`: fp32 -> fma; bf16 / f16, D % 8 == 0 -> wgmma where
+// Dp >= 64, mma.sync where Dp <= 32; bf16 / f16, D % 8 != 0 -> wgmma with
+// the element loader where Dp is 64 to 256, else fma; fp8 (e4m3fn, e5m2) ->
+// wgmma where D % 16 == 0 and Dp is 64 to 256, the element loader at the
+// other D of those Dp, else fma.
 //
 // fp8 q, k, v are read as fp8 from device memory (D bytes a row: no widened
 // copy of K or V is made). Rows of whole 16-byte pieces take the wgmma body
@@ -128,20 +173,20 @@
 // f16 code runs as is. Every e4m3 and e5m2 value is exact in f16 (e5m2 is
 // an f16's high byte), so Q K^T is the reference's product; P is rounded to
 // f16 as in the f16 body; the output is rounded from fp32 to fp8 without
-// saturation (`to_fp8`). Other rows take the fma body, which widens each
-// element to fp32 in shared memory. Left for a later change: wgmma's own
-// e4m3 / e5m2 form (K = 32 a step, both operands K-major, so V needs a
-// transpose in shared memory), and the conversion overlapped with the other
-// warpgroup's products. Integer q, k, v (and mixed types) never reach this
-// file: the wrapper widens them to fp32 copies, the reference's
-// `.astype(float32)`.
+// saturation (`to_fp8`). Both kinds are one instantiation, the kind a
+// launch argument. Left for a later change: wgmma's own e4m3 / e5m2 form
+// (K = 32 a step, both operands K-major, so V needs a transpose in shared
+// memory), and the conversion overlapped with the other warpgroup's
+// products. Integer q, k, v (and mixed types) never reach this file: the
+// wrapper widens them to fp32 copies, the reference's `.astype(float32)`.
 //
 // Above 256 columns (D > 256, Dp = D rounded up to WIDE_DC = 256) no block
-// can hold a whole head: the D = 256 body already keeps its 64 x 256 fp32 O
-// in 128 registers a thread, and a 64-row Q tile at D = 2048 alone is 256 KB
-// of shared memory. The launch splits the output into Dp / 256 chunks of
-// 256 columns, a grid dimension: each block computes all of S = Q K^T for
-// its query tile and applies P V to its own 256 V columns. The wgmma body
+// can hold a whole head: the D = 256 body already keeps a warpgroup's 64 x
+// 256 fp32 O in 128 registers a thread, and a 64-row Q tile at D = 2048
+// alone is 256 KB of shared memory. The launch splits the output into Dp /
+// 256 chunks of 256 columns, a grid dimension: each block computes all of
+// S = Q K^T for its query tile and applies P V to its own 256 V columns.
+// The wgmma body
 // (`flash_wgmma_wide_kernel`, 16-bit rows of whole 16-byte pieces) streams
 // Q and K through a ring in 64-column TMA boxes, summing S over the pieces
 // in the wgmma accumulator, and V's chunk through a second ring; the fma
@@ -158,11 +203,11 @@
 // query heads of a GQA group (a cluster and TMA multicast; today each of the
 // 8 query heads of a KV head at qwen2.5-3b's shape loads the same tiles),
 // persistent blocks (one tile's epilogue and the next one's first loads
-// under the products), the next tile's Q K^T issued before this tile's
-// softmax (registers for two S tiles, given by a producer warpgroup that
-// hands its registers over with setmaxnreg), and D = 16 / 32 on wgmma. Two
-// consumer warpgroups taking turns at the tensor cores (named barriers) were
-// tried and measured no faster (PERF.md).
+// under the products), a tile's P V issued with the next tile's Q K^T so
+// that a warpgroup's own softmax runs under it (tried at D = 256 on this
+// ring, it was slower: the pending P V holds the second stage, so the next
+// tile's loads wait; it needs K and V freed apart, PERF.md), D = 16 / 32 on
+// wgmma, and the element loader below 64 columns and above 256.
 
 #include <type_traits>
 
@@ -832,28 +877,40 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at D = 64 / 128 / 256 on wgmma, tiles by TMA (see the note at the
-// top).
+// bfloat16 at D = 64 / 128 / 256 on wgmma, tiles by TMA or by the element
+// loader (see the note at the top).
 namespace wg {
 
-// K/V tile pairs in flight or in use (a third stage measured no faster)
-constexpr int STAGES = 2;
 constexpr int BOX = 64;          // columns a TMA box: one 128-byte swizzle row
 constexpr int ROW = BOX * 2;     // bytes of a box row
 // below any real logit in log2 units, above any masked one (NEG_INF times
 // the scale): the running max of a row that has met no key yet
 constexpr float NO_KEY = NEG_INF * 1e-10f;
 
-// The tiles by head size: at D = 64 / 128 two consumer warpgroups (BM = 128
-// query rows, 64 each) and BN = 128 keys a K/V tile; at D = 256 one consumer
-// warpgroup and 64 x 64 tiles (the note at the top says why).
-template <int D> struct Cfg {
+// The tiles by head size and loader (the note at the top says why): two
+// consumer warpgroups of 64 query rows each (BM = 128), K/V tiles of BN =
+// 128 keys at D = 64 / 128 and 64 at D = 256. The producer is one warp whose
+// lane issues TMA (D = 64 / 128), or a warpgroup (PWG) that lowers its
+// registers with setmaxnreg so that the consumers can raise theirs: at D =
+// 256 (O alone is 128 registers a consumer thread) and for the element
+// loader (ELEM), whose 128 threads copy tiles by element.
+template <int D, bool ELEM> struct Cfg {
   static constexpr bool WIDE = D > 128;
-  static constexpr int CONSUMERS = WIDE ? 1 : 2;  // consumer warpgroups
+  static constexpr int CONSUMERS = 2;             // consumer warpgroups
   static constexpr int BM = 64 * CONSUMERS;       // query rows a block
   static constexpr int BN = WIDE ? 64 : 128;      // keys a KV tile
-  static constexpr int PRODUCER = CONSUMERS * 4;  // the producer's warp index
-  static constexpr int THREADS = CONSUMERS * 128 + 32;
+  static constexpr int PRODUCER = CONSUMERS * 4;  // the producer's first warp
+  static constexpr bool PWG = WIDE || ELEM;       // a producer warpgroup
+  static constexpr int THREADS = CONSUMERS * 128 + (PWG ? 128 : 32);
+  // registers a thread after the hand-over: a block of 384 threads is
+  // allotted 168 a thread (65536 / 384 in steps of 8), which the producer
+  // warpgroup's P_REGS and the consumers' C_REGS share
+  static constexpr int P_REGS = !ELEM ? 24 : WIDE ? 40 : 56;
+  static constexpr int C_REGS_ALL = (168 * 384 - 128 * P_REGS) / 256 / 8 * 8;
+  static constexpr int C_REGS = C_REGS_ALL > 240 ? 240 : C_REGS_ALL;
+  // K/V tile pairs in flight or in use (a third measured no faster, with
+  // TMA and with the element loader)
+  static constexpr int STAGES = 2;
   static constexpr int BOXES = D / BOX;           // boxes across a row
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int TILE = BN * D * 2;         // one K or one V tile
@@ -902,6 +959,146 @@ __device__ __forceinline__ void fp8_tile_to_f16(unsigned char* dst,
 template <int THREADS>
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+}
+
+// The element loader's operands (ELEM): q, k, v, their strides in elements
+// (q_sb, q_sh, q_ss, k_sb, ..., v_ss) and the bytes of one load, the widest
+// of 8, 4, 2 and 1 that every row start and the row's length allow
+// (`elem_src`).
+struct ElemSrc {
+  const unsigned char* q;
+  const unsigned char* k;
+  const unsigned char* v;
+  long long st[9];
+  int width;
+};
+
+// The 16-bit tile layout TMA writes with the 128-byte swizzle: a box of 64
+// columns after another, 128 bytes a row, and 16-byte piece p (columns 8p
+// .. 8p + 7) of row r in slot (p % 8) ^ (r % 8) of its row: this returns
+// that slot's byte offset in the row.
+__device__ __forceinline__ int swizzle(int p, int r) {
+  return ((p & 7) ^ (r & 7)) << 4;
+}
+
+// The element loader, rows [row0, row0 + ROWS) of one head's [S, dh]
+// operand (`src` at its row 0, `rs` elements a row) into a ROWS x D tile of
+// that layout, which is what the wgmma descriptors read. Columns dh .. D-1
+// and rows past S are written as zeros (rule (a) of the note at the top).
+// A row is cut into units of W (async) or 8 (registers) source bytes; thread
+// `tid` of the producer warpgroup takes one column of units, every STEP-th
+// row, so the 32 threads of a warp read consecutive bytes and each thread's
+// column (its bytes in the head or not, its place in the swizzle) is worked
+// out once.
+//
+// 16-bit rows whose starts and length are multiples of W = 4 or 8 bytes:
+// one cp.async of W bytes a unit, straight into place (a source size of 0
+// writes zeros), no register held; the caller waits for them
+// (`cp_async_wait`) before it publishes the tile.
+template <int D, int ROWS, int W>
+__device__ __forceinline__ void elem_tile_async(unsigned char* dst,
+                                                const unsigned char* src,
+                                                long long rs, int row0, int S,
+                                                int dh, int tid) {
+  constexpr int UPR = D * 2 / W;                  // units a row
+  constexpr int STEP = 128 / UPR;                 // rows a round of units
+  static_assert(128 % UPR == 0 && ROWS % STEP == 0, "whole rows a round");
+  const int byte = tid % UPR * W;                 // in the 16-bit row
+  // a unit is all inside the head or all past it (dh * 2 % W == 0)
+  const bool col_in = byte < dh * 2;
+  const int p = byte >> 4;                        // its 16-byte piece
+  const uint32_t base = hopper::smem_u32(dst) + (p >> 3) * ROWS * ROW +
+                        (byte & 15);
+  const unsigned char* nothing = src + (long long)row0 * rs * 2;
+  const unsigned char* from = nothing + (long long)(tid / UPR) * rs * 2 + byte;
+  const long long next = (long long)STEP * rs * 2;
+#pragma unroll 4
+  for (int r = tid / UPR; r < ROWS; r += STEP, from += next) {
+    const bool in = col_in && row0 + r < S;
+    const uint32_t to = base + r * ROW + swizzle(p, r);
+    if constexpr (W == 8)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(to),
+                   "l"(in ? from : nothing), "r"(in ? 8 : 0)
+                   : "memory");
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(to),
+                   "l"(in ? from : nothing), "r"(in ? 4 : 0)
+                   : "memory");
+  }
+}
+
+// Any other rows (fp8, and 16-bit rows of 2-byte units), through
+// registers: a unit is 8 source bytes (8 elements of fp8, 4 of 16 bits)
+// read with loads of W bytes, U units a thread at a time, their loads all
+// issued before their stores; fp8 is converted to f16 on the way (exact),
+// 16 bytes a store.
+template <int D, int ROWS, bool F8, int W>
+__device__ __forceinline__ void elem_tile(unsigned char* dst,
+                                          const unsigned char* src,
+                                          long long rs, int row0, int S,
+                                          int dh, int e5m2, int tid) {
+  constexpr int IT = F8 ? 1 : 2;                  // bytes an element
+  constexpr int E = 8 / IT;                       // elements a unit
+  constexpr int UPR = D / E;                      // units a row
+  constexpr int STEP = 128 / UPR;
+  // units a round: 4, 2 at D = 256 (its producer keeps 40 registers), and
+  // no more than W, so that 8 or fewer loads are in flight
+  constexpr int UMAX = D > 128 ? 2 : 4;
+  constexpr int U = W < UMAX ? W : UMAX;
+  static_assert(128 % UPR == 0 && ROWS % (STEP * U) == 0, "whole rounds");
+  const int c = tid % UPR * E;                    // the unit's first column
+  const int n_col = min(E, dh - c) * IT;          // its bytes in the head
+  const int p = c * 2 >> 4;                       // its 16-byte piece
+  const uint32_t base = hopper::smem_u32(dst) + (p >> 3) * ROWS * ROW +
+                        (c * 2 & 15);
+  const unsigned char* from =
+      src + ((long long)(row0 + tid / UPR) * rs + c) * IT;
+  const long long next = (long long)STEP * rs * IT;
+  for (int r0 = tid / UPR; r0 < ROWS; r0 += STEP * U) {
+    uint32_t w[U][2];
+#pragma unroll
+    for (int j = 0; j < U; ++j, from += next) {
+      const int n = row0 + r0 + j * STEP < S ? n_col : 0;
+      w[j][0] = w[j][1] = 0u;
+#pragma unroll
+      for (int i = 0; i < 8 / W; ++i) {
+        if (i * W < n) {
+          if constexpr (W == 8) {
+            const uint2 x = __ldg(reinterpret_cast<const uint2*>(from));
+            w[j][0] = x.x;
+            w[j][1] = x.y;
+          } else {
+            uint32_t x;
+            if constexpr (W == 4)
+              x = __ldg(reinterpret_cast<const unsigned int*>(from + i * W));
+            else if constexpr (W == 2)
+              x = __ldg(reinterpret_cast<const unsigned short*>(from + i * W));
+            else
+              x = __ldg(from + i * W);
+            w[j][i * W / 4] |= x << (8 * (i * W % 4));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const int r = r0 + j * STEP;
+      const uint32_t to = base + r * ROW + swizzle(p, r);
+      if constexpr (F8) {
+        const uint4 out = make_uint4(fp8x2_to_f16x2(w[j][0], e5m2),
+                                     fp8x2_to_f16x2(w[j][0] >> 16, e5m2),
+                                     fp8x2_to_f16x2(w[j][1], e5m2),
+                                     fp8x2_to_f16x2(w[j][1] >> 16, e5m2));
+        asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(to),
+                     "r"(out.x), "r"(out.y), "r"(out.z), "r"(out.w)
+                     : "memory");
+      } else {
+        asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(to),
+                     "r"(w[j][0]), "r"(w[j][1])
+                     : "memory");
+      }
+    }
+  }
 }
 
 // The accumulator lists of the wgmma statements below: 64 (N = 128) or 32
@@ -1045,14 +1242,18 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
 
 }  // namespace wg
 
-// F8: q, k, v and o are fp8 (e5m2 when `e5m2`, else e4m3fn), T = __half:
-// TMA brings fp8 tiles, the consumers convert them to f16 in shared memory
-// (exact) and run the f16 code, and the output is rounded to fp8.
-template <typename T, int D, bool EXACT, bool F8 = false>
-__global__ void __launch_bounds__(wg::Cfg<D>::THREADS, 1)
+// F8: q, k, v and o are fp8 (e5m2 when `e5m2`, else e4m3fn), T = __half.
+// ELEM: the producer warpgroup copies the tiles by element (`elem_tile`:
+// rows of no whole 16-byte pieces, which TMA cannot load; fp8 converted to
+// f16 as it is loaded); otherwise TMA brings them, and with F8 the consumers
+// convert the fp8 tiles to f16 in shared memory (exact). Either way the
+// consumers run the 16-bit code, and with F8 the output is rounded to fp8.
+template <typename T, int D, bool EXACT, bool F8 = false, bool ELEM = false>
+__global__ void __launch_bounds__(wg::Cfg<D, ELEM>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ wg::ElemSrc src,
                    T* __restrict__ o, int S, int group,
                    int causal, int window, float scale_log2, int dh, int q_pos,
                    int k_pos, int v_pos, long long o_sb, long long o_sh,
@@ -1061,16 +1262,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   using wg::load_box;
   using wg::NO_KEY;
   using wg::wgmma_ss;
-  using C = wg::Cfg<D>;
+  using C = wg::Cfg<D, ELEM>;
+  static_assert(!ELEM || !EXACT, "the element loader runs padded heads only");
   // this head size's tiles, shadowing the 64-row tiles of the other bodies
-  constexpr int BM = C::BM, BN = C::BN, STAGES = wg::STAGES;
+  constexpr int BM = C::BM, BN = C::BN, STAGES = C::STAGES;
   constexpr int CONSUMERS = C::CONSUMERS, BOX = wg::BOX, ROW = wg::ROW;
+  constexpr bool TMA8 = F8 && !ELEM;              // fp8 tiles by TMA
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t q_full, full[STAGES], empty[STAGES];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
   unsigned char* Qs = smem_raw + pad;             // [BOXES][BM][64] swizzled
   unsigned char* KV = Qs + C::Q_BYTES;            // stage s: K then V tile
-  // F8: KV is the one converted K/V pair; TMA fills Q8 and the KV8 ring
+  // TMA8: KV is the one converted K/V pair; TMA fills Q8 and the KV8 ring
   unsigned char* Q8 = KV + 2 * C::TILE;
   unsigned char* KV8 = Q8 + C::Q_BYTES / 2;
   constexpr int NC = CONSUMERS * 128;             // consumer threads
@@ -1090,18 +1293,88 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
-    mbar_init(&q_full, 1);
+    // a stage is full when its copies have delivered their bytes (TMA) or
+    // when each thread of the element loader has arrived
+    constexpr uint32_t FILLERS = ELEM ? 128 : 1;
+    mbar_init(&q_full, FILLERS);
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], FILLERS);
       mbar_init(&empty[s], CONSUMERS * 4);        // one arrival a warp
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == C::PRODUCER) {                      // aload, one lane
-    if (lane == 0) {
+  if (warp >= C::PRODUCER) {                      // aload
+    if constexpr (C::PWG) setmaxnreg_dec<C::P_REGS>();
+    if constexpr (ELEM) {
+      // every thread of the warpgroup copies its share of a tile, makes its
+      // stores visible to the tensor cores' (async) proxy and arrives
+      const int tid = threadIdx.x - NC;
+      constexpr int IT = F8 ? 1 : 2;
+      const long long* st = src.st;
+      const unsigned char* qb = src.q + (b * st[0] + h * st[1]) * IT;
+      const unsigned char* kb = src.k + (b * st[3] + hk * st[4]) * IT;
+      const unsigned char* vb = src.v + (b * st[6] + hk * st[7]) * IT;
+      // one tile: cp.async for 16-bit rows of 4- or 8-byte units (waited
+      // for before the tile is published), else through registers
+      auto tile = [&](auto width, auto rows, unsigned char* dst,
+                      const unsigned char* from, long long rs, int row0) {
+        constexpr int W = decltype(width)::value, R = decltype(rows)::value;
+        if constexpr (!F8 && W >= 4)
+          wg::elem_tile_async<D, R, W>(dst, from, rs, row0, S, dh, tid);
+        else
+          wg::elem_tile<D, R, F8, W>(dst, from, rs, row0, S, dh, e5m2, tid);
+      };
+      auto produce = [&](auto width) {
+        using QR = std::integral_constant<int, BM>;
+        using KR = std::integral_constant<int, BN>;
+        tile(width, QR{}, Qs, qb, st[2], q0);
+        cp_async_commit();
+        bool q_open = true;           // q_full not yet arrived on
+        auto publish = [&](uint64_t* bar) {
+          fence_proxy_async();        // the stores, before wgmma reads them
+          mbar_arrive(bar);
+        };
+        for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
+          const int s = i % STAGES;
+          mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);   // the slot is free
+          unsigned char* ks = KV + s * 2 * C::TILE;
+          tile(width, KR{}, ks, kb, st[5], kt * BN);
+          tile(width, KR{}, ks + C::TILE, vb, st[8], kt * BN);
+          cp_async_commit();
+          if (q_open) {               // Q first, under the first K/V copies
+            cp_async_wait<1>();
+            publish(&q_full);
+            q_open = false;
+          }
+          cp_async_wait<0>();
+          publish(&full[s]);
+        }
+        if (q_open) {                 // no K/V tile (not reached: kt_lo < kt_hi)
+          cp_async_wait<0>();
+          publish(&q_full);
+        }
+      };
+      if constexpr (F8) {
+        if (src.width == 8)
+          produce(std::integral_constant<int, 8>{});
+        else if (src.width == 4)
+          produce(std::integral_constant<int, 4>{});
+        else if (src.width == 2)
+          produce(std::integral_constant<int, 2>{});
+        else
+          produce(std::integral_constant<int, 1>{});
+      } else {
+        if (src.width == 8)
+          produce(std::integral_constant<int, 8>{});
+        else if (src.width == 4)
+          produce(std::integral_constant<int, 4>{});
+        else
+          produce(std::integral_constant<int, 2>{});
+      }
+    } else if (warp == C::PRODUCER && lane == 0) {      // TMA, one lane
       constexpr int IT = F8 ? 1 : 2;              // bytes an element
       constexpr int BROW = BOX * IT;              // bytes of a box row
       constexpr int TILE = BN * D * IT;           // one K or V tile
@@ -1127,6 +1400,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     return;
   }
+  if constexpr (C::PWG) setmaxnreg_inc<C::C_REGS>();
 
   // consumers: warpgroup wgi owns rows rlo .. rlo + 63 of the tile; in the
   // accumulators (the mma.sync C layout, one 16-row slice a warp) this
@@ -1144,7 +1418,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // log2 units
 
   mbar_wait(&q_full, 0);
-  if constexpr (F8) {                             // Q to f16, once
+  if constexpr (TMA8) {                           // Q to f16, once
     wg::fp8_tile_to_f16(Qs, Q8, BM, C::BOXES, e5m2, threadIdx.x, NC);
     fence_proxy_async();                          // before wgmma reads it
     wg::consumers_sync<NC>();
@@ -1156,7 +1430,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const bool dead = (causal && k0 > rlo + 63) ||
                       (window > 0 && k0 + BN - 1 <= rlo - window);
     mbar_wait(&full[s], (i / STAGES) & 1);        // getfin
-    if constexpr (F8) {     // the fp8 K and V tiles to f16; then s is free
+    if constexpr (TMA8) {   // the fp8 K and V tiles to f16; then s is free
       unsigned char* k8 = KV8 + s * C::TILE;      // K, then V: half a TILE
       wg::fp8_tile_to_f16(KV, k8, BN, C::BOXES, e5m2, threadIdx.x, NC);
       wg::fp8_tile_to_f16(KV + C::TILE, k8 + C::TILE / 2, BN, C::BOXES, e5m2,
@@ -1167,7 +1441,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) mbar_arrive(&empty[s]);
     }
     if (!dead) {
-      const uint32_t k_addr = smem_u32(KV + (F8 ? 0 : s * 2 * C::TILE));
+      const uint32_t k_addr = smem_u32(KV + (TMA8 ? 0 : s * 2 * C::TILE));
       const uint32_t v_addr = k_addr + C::TILE;
 
       // S = Q K^T: D / 16 k-steps, 4 in each 64-column box
@@ -1259,7 +1533,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(oacc);
     }
-    if constexpr (F8) {
+    if constexpr (TMA8) {
       wg::consumers_sync<NC>();     // every warpgroup is past the f16 pair
     } else {
       __syncwarp();
@@ -1274,24 +1548,40 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   T* ob = o + b * o_sb + h * o_sh;
-  // F8: o is fp8, its strides in bytes; two values a 2-byte store
+  // F8: o is fp8, its strides in bytes
   unsigned char* ob8 = reinterpret_cast<unsigned char*>(o) + b * o_sb +
                        h * o_sh;
   const __nv_fp8_interpretation_t kind = e5m2 ? __NV_E5M2 : __NV_E4M3;
-  auto fp8x2 = [&](float lo, float hi) {
-    return (uint16_t)(to_fp8(lo, kind) | (to_fp8(hi, kind) << 8));
+  // one output value of row r, column col
+  auto put = [&](int r, int col, float x) {
+    if constexpr (F8)
+      ob8[r * o_ss + col] = to_fp8(x, kind);
+    else
+      ob[r * o_ss + col] = from_float<T>(x);
   };
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * t;
     if (!EXACT && col >= dh) break;     // columns dh.. are another head's
-    if constexpr (F8) {
+    if constexpr (ELEM) {     // rows start at any element: one value a store
+      const bool pair = col + 1 < dh;
+      if (r0 < S) {
+        put(r0, col, oacc[4 * j] * inv0);
+        if (pair) put(r0, col + 1, oacc[4 * j + 1] * inv0);
+      }
+      if (r1 < S) {
+        put(r1, col, oacc[4 * j + 2] * inv1);
+        if (pair) put(r1, col + 1, oacc[4 * j + 3] * inv1);
+      }
+    } else if constexpr (F8) {          // two values a 2-byte store
       if (r0 < S)
         *reinterpret_cast<uint16_t*>(ob8 + r0 * o_ss + col) =
-            fp8x2(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
+            (uint16_t)(to_fp8(oacc[4 * j] * inv0, kind) |
+                       (to_fp8(oacc[4 * j + 1] * inv0, kind) << 8));
       if (r1 < S)
         *reinterpret_cast<uint16_t*>(ob8 + r1 * o_ss + col) =
-            fp8x2(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
+            (uint16_t)(to_fp8(oacc[4 * j + 2] * inv1, kind) |
+                       (to_fp8(oacc[4 * j + 3] * inv1, kind) << 8));
     } else {
       if (r0 < S)
         *reinterpret_cast<uint32_t*>(ob + r0 * o_ss + col) =
@@ -1305,8 +1595,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // The wgmma body above 256 columns (16-bit rows of whole 16-byte pieces at
 // D > 256): a block of one consumer warpgroup and one producer warp owns
-// WIDE_DC output columns [c0, c0 + WIDE_DC) of its 64-row query tile, as the
-// D = 256 body owns all of them. What changes is where Q K^T comes from:
+// WIDE_DC output columns [c0, c0 + WIDE_DC) of its 64-row query tile, as a
+// consumer of the D = 256 body owns all of them. What changes is where Q K^T
+// comes from:
 //   - Q and K stream through a ring of QK_STAGES stages, each one 64-column
 //     TMA box of the query tile and one of the KV tile, so neither Q nor K
 //     has to fit whole (at D = 2048 a 64-row Q tile alone is 256 KB);
@@ -1314,8 +1605,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 //     (scale_d 0 at the first k-step of the first piece);
 //   - V comes as the tile's WIDE_DC columns of this block only, through its
 //     own ring of V_STAGES stages, four boxes a stage;
-//   - the softmax and P V are the D = 256 body's (64 x 64 tiles, P from
-//     registers, V MN-major), the output stored at columns c0 + col < dh.
+//   - the softmax and P V are those of a D = 256 consumer (64 x 64 tiles, P
+//     from registers, V MN-major), the output stored at columns c0 + col <
+//     dh.
 // The cost: every block of a query tile computes all of Q K^T, and Q is
 // loaded again for every KV tile (from L2: the tile's blocks share it).
 namespace wg {
@@ -1596,30 +1888,58 @@ cudaError_t flash_maps(CUtensorMapDataType type, const void* q,
                    &pos[2]);
 }
 
+// The element loader's operands and the widest load (8, 4, 2 or 1 bytes,
+// at least an element) that the head's bytes, every stride and every start
+// are multiples of.
+wg::ElemSrc elem_src(const void* q, const void* k, const void* v, int dh,
+                     int itemsize, const long long* st) {
+  wg::ElemSrc a;
+  a.q = static_cast<const unsigned char*>(q);
+  a.k = static_cast<const unsigned char*>(k);
+  a.v = static_cast<const unsigned char*>(v);
+  for (int i = 0; i < 9; ++i) a.st[i] = st[i];
+  a.width = itemsize;
+  for (int w = 8; w > itemsize; w /= 2) {
+    bool ok = dh * itemsize % w == 0 &&
+              ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % w == 0;
+    for (int i = 0; i < 9; ++i) ok = ok && st[i] * itemsize % w == 0;
+    if (ok) {
+      a.width = w;
+      break;
+    }
+  }
+  return a;
+}
+
 // Every launch function takes the real head size dh (<= D) and the scale
 // 1 / sqrt(dh); D is the body's (Dp of the note at the top).
 // F8: fp8 operands (e5m2 when `e5m2`, else e4m3fn) on the f16 code (T =
-// __half).
-template <typename T, int D, bool EXACT, bool F8 = false>
+// __half). ELEM: the element loader in place of TMA (no tensor maps).
+template <typename T, int D, bool EXACT, bool F8 = false, bool ELEM = false>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          int B, int Hq, int Hkv, int S, int dh, int causal,
                          int window, float scale, const long long* st,
                          cudaStream_t stream, int e5m2 = 0) {
-  using C = wg::Cfg<D>;
-  constexpr int smem = F8 ? C::SMEM8 : C::SMEM;
+  using C = wg::Cfg<D, ELEM>;
+  constexpr int smem = F8 && !ELEM ? C::SMEM8 : C::SMEM;
   static hopper::SmemAllowance allowance;
-  auto kernel = flash_wgmma_kernel<T, D, EXACT, F8>;
+  auto kernel = flash_wgmma_kernel<T, D, EXACT, F8, ELEM>;
   cudaError_t err = hopper::allow_smem(allowance, kernel, smem);
   if (err != cudaSuccess) return err;
-  CUtensorMap tq, tk, tv;
-  int pos[3];
-  if ((err = flash_maps(F8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : Op16<T>::kMap,
-                        q, k, v, B, Hq, Hkv, S, dh, st, C::BM, C::BN, &tq,
-                        &tk, &tv, pos)) != cudaSuccess)
+  CUtensorMap tq{}, tk{}, tv{};
+  wg::ElemSrc src{};
+  int pos[3] = {0, 0, 0};
+  if constexpr (ELEM) {
+    src = elem_src(q, k, v, dh, F8 ? 1 : 2, st);
+  } else if ((err = flash_maps(F8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                  : Op16<T>::kMap,
+                               q, k, v, B, Hq, Hkv, S, dh, st, C::BM, C::BN,
+                               &tq, &tk, &tv, pos)) != cudaSuccess) {
     return err;
+  }
   dim3 grid(Hq, B, (S + C::BM - 1) / C::BM);     // query tiles last
   kernel<<<grid, C::THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<T*>(o), S, Hq / Hkv, causal, window,
+      tq, tk, tv, src, static_cast<T*>(o), S, Hq / Hkv, causal, window,
       scale * 1.4426950408889634f, dh, pos[0], pos[1], pos[2], st[9], st[10],
       st[11], e5m2);
   return cudaGetLastError();
@@ -1708,7 +2028,10 @@ cudaError_t launch_fma_wide(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-enum Body { BODY_NONE = -1, BODY_FMA = 0, BODY_WGMMA = 1, BODY_MMA = 2 };
+enum Body {
+  BODY_NONE = -1, BODY_FMA = 0, BODY_WGMMA = 1, BODY_MMA = 2,
+  BODY_WGMMA_ELEM = 3
+};
 
 // Dp of the note at the top: the body's head size for a launch at D (above
 // 256, the WIDE_DC-column chunks that cover it); 0 for D < 1.
@@ -1720,17 +2043,22 @@ int padded(int D) {
 }
 
 // The fixed rule of the note at the top: float32 -> fma at every head size;
-// bfloat16 and float16 -> fma where D % 8 != 0 (rows of no whole number of
-// 16-byte pieces), else wgmma at Dp >= 64 and mma.sync at Dp <= 32; fp8 ->
-// wgmma (converted to f16) where D % 16 == 0 and Dp is 64 to 256, else fma.
+// bfloat16 and float16 rows of whole 16-byte pieces (D % 8 == 0) -> wgmma
+// at Dp >= 64 and mma.sync at Dp <= 32, other rows -> wgmma with the
+// element loader at Dp 64 to 256, else fma; fp8 -> wgmma (TMA tiles
+// converted to f16) where D % 16 == 0 and Dp is 64 to 256, the element
+// loader at other D of those Dp, else fma.
 Body body_for(int dtype, int D) {
   const int Dp = padded(D);
   if (Dp == 0) return BODY_NONE;
-  if (dtype == DTYPE_E4M3 || dtype == DTYPE_E5M2)    // rows of 16-byte pieces
-    return D % 16 == 0 && Dp >= 64 && Dp <= WIDE_DC ? BODY_WGMMA : BODY_FMA;
+  const bool tc = Dp >= 64 && Dp <= WIDE_DC;      // Dp of flash_wgmma_kernel
+  if (dtype == DTYPE_E4M3 || dtype == DTYPE_E5M2)
+    return !tc ? BODY_FMA : D % 16 == 0 ? BODY_WGMMA : BODY_WGMMA_ELEM;
   if (dtype == DTYPE_F32) return BODY_FMA;
-  if (dtype == DTYPE_BF16 || dtype == DTYPE_F16)
-    return D % 8 ? BODY_FMA : Dp >= 64 ? BODY_WGMMA : BODY_MMA;
+  if (dtype == DTYPE_BF16 || dtype == DTYPE_F16) {
+    if (D % 8 == 0) return Dp >= 64 ? BODY_WGMMA : BODY_MMA;
+    return tc ? BODY_WGMMA_ELEM : BODY_FMA;
+  }
   return BODY_NONE;
 }
 
@@ -1752,6 +2080,9 @@ int launch_typed(Body body, int Dp, const void* q, const void* k,
 #define FMA_PADDED(DIM) \
   case DIM:             \
     return static_cast<int>(launch_fma<DIM, false, E>(FLASH_ARGS))
+#define ELEM_CASE(DIM) \
+  case DIM:            \
+    return static_cast<int>(launch_wgmma<E, DIM, false, false, true>(FLASH_ARGS))
   constexpr bool kF32 = std::is_same_v<E, float>;
   if (body == BODY_FMA) {
     if (Dp > WIDE_DC) return static_cast<int>(launch_fma_wide<E>(FLASH_ARGS));
@@ -1763,13 +2094,10 @@ int launch_typed(Body body, int Dp, const void* q, const void* k,
         FMA_CASE(128);
         FMA_CASE(256);
       }
-    } else {        // fp8, 16-bit rows of no whole 16-byte pieces: by element
+    } else {        // fp8 and 16-bit rows below 64 columns: by element
       switch (Dp) {
         FMA_PADDED(16);
         FMA_PADDED(32);
-        FMA_PADDED(64);
-        FMA_PADDED(128);
-        FMA_PADDED(256);
       }
     }
   }
@@ -1783,6 +2111,13 @@ int launch_typed(Body body, int Dp, const void* q, const void* k,
         FLASH_CASE(launch_wgmma, 256);
       }
     }
+    if (body == BODY_WGMMA_ELEM) {
+      switch (Dp) {
+        ELEM_CASE(64);
+        ELEM_CASE(128);
+        ELEM_CASE(256);
+      }
+    }
     if (body == BODY_MMA) {
       switch (Dp) {
         FLASH_CASE(launch_mma, 16);
@@ -1791,6 +2126,7 @@ int launch_typed(Body body, int Dp, const void* q, const void* k,
     }
   }
   return -1;
+#undef ELEM_CASE
 #undef FMA_PADDED
 #undef FMA_CASE
 #undef FLASH_CASE
@@ -1800,7 +2136,8 @@ int launch_typed(Body body, int Dp, const void* q, const void* k,
 }  // namespace
 
 // The body `flash_attention_launch` runs for (dtype, D): 0 fma, 1 wgmma,
-// 2 mma.sync, -1 none (the wrapper's `body_for` states the same rule).
+// 2 mma.sync, 3 wgmma with the element loader, -1 none (the wrapper's
+// `body_for` states the same rule).
 extern "C" int flash_attention_body(int dtype, int D) {
   return static_cast<int>(body_for(dtype, D));
 }
@@ -1809,11 +2146,12 @@ extern "C" int flash_attention_body(int dtype, int D) {
 // bfloat16, float16, float8_e4m3fn or float8_e5m2: the wrapper widens mixed
 // types and integers to float32); last
 // stride 1, the others given in elements as strides = {q_sb, q_sh, q_ss,
-// k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss}: for the wgmma and
-// mma bodies multiples of 8 (16 bytes) with starts 16-byte aligned, for the
-// fma body anything (fp32 at D of 16, 32, 64, 128 or 256: multiples of 4,
-// starts 16-byte aligned). The scale is 1 / sqrt(D). Returns 0 or a
-// cudaError_t; -1 for a head size or type it does not take.
+// k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss}: for the TMA-fed
+// wgmma and the mma bodies multiples of 16 bytes with starts 16-byte
+// aligned, for the fma body and the element loader anything (fp32 at D of
+// 16, 32, 64, 128 or 256: multiples of 4, starts 16-byte aligned). The
+// scale is 1 / sqrt(D). Returns 0 or a cudaError_t; -1 for a head size or
+// type it does not take.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int S, int D, int causal,
@@ -1830,23 +2168,25 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == DTYPE_BF16)
     return launch_typed<__nv_bfloat16>(body, Dp, q, k, v, o, B, Hq, Hkv, S,
                                        D, causal, window, scale, strides, s);
-  if ((dtype == DTYPE_E4M3 || dtype == DTYPE_E5M2) && body == BODY_WGMMA) {
+  if ((dtype == DTYPE_E4M3 || dtype == DTYPE_E5M2) && body != BODY_FMA) {
+    // both kinds are one instantiation, the kind a launch argument
     const int e5m2 = dtype == DTYPE_E5M2;
-#define FP8_CASE(DIM)                                                        \
-  case DIM:                                                                  \
-    return static_cast<int>(                                                 \
-        Dp == D ? launch_wgmma<__half, DIM, true, true>(                     \
-                      q, k, v, o, B, Hq, Hkv, S, D, causal, window, scale,   \
-                      strides, s, e5m2)                                      \
-                : launch_wgmma<__half, DIM, false, true>(                    \
-                      q, k, v, o, B, Hq, Hkv, S, D, causal, window, scale,   \
-                      strides, s, e5m2))
+#define FP8_ARGS                                                         \
+  q, k, v, o, B, Hq, Hkv, S, D, causal, window, scale, strides, s, e5m2
+#define FP8_CASE(DIM)                                                    \
+  case DIM:                                                              \
+    return static_cast<int>(                                             \
+        body == BODY_WGMMA_ELEM                                          \
+            ? launch_wgmma<__half, DIM, false, true, true>(FP8_ARGS)     \
+        : Dp == D ? launch_wgmma<__half, DIM, true, true>(FP8_ARGS)      \
+                  : launch_wgmma<__half, DIM, false, true>(FP8_ARGS))
     switch (Dp) {
       FP8_CASE(64);
       FP8_CASE(128);
       FP8_CASE(256);
     }
 #undef FP8_CASE
+#undef FP8_ARGS
     return -1;
   }
   if (dtype == DTYPE_E4M3)

@@ -9,6 +9,7 @@
 //             mbarrier; the shared -> global bulk copy with its bulk groups;
 //   wgmma     the shared-memory matrix descriptor for 128-byte swizzled
 //             tiles, fence / commit_group / wait_group;
+//   roles     setmaxnreg (registers handed between warpgroups);
 //   math      ex2 on the special-function unit;
 //   host      the tensor-map encoder, taken from the driver through the
 //             runtime (cudaGetDriverEntryPoint), so no -lcuda is needed.
@@ -148,6 +149,18 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------ warp specialisation
+// A warpgroup lowers (dec) or raises (inc) the registers of each of its
+// threads to N, its four warps together: a producer warpgroup hands its
+// registers to the consumer warpgroups. The roles must not reconverge after
+// it, or the compiler ignores it.
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // 2^x on the special-function unit, denormals flushed (exp2f adds a fix-up

@@ -57,31 +57,41 @@ def body_for(dtype: torch.dtype, head_dim: int,
              kv_dtype: Optional[torch.dtype] = None) -> str:
     """The kernel body a launch runs, a fixed rule on (types, head size)
     that `flash_attention_launch` in csrc/flash_attention.cu applies, with
-    Dp = `padded_head_dim`: "fma" (FMAs in fp32) for float32 at every head
-    size, for integers and q, k, v of more than one type (`kv_dtype` k's
-    and v's where it is not q's: the wrapper widens all three to float32,
-    the reference's arithmetic) and for bfloat16 or float16 where head_dim
-    % 8 != 0 (rows of no whole number of 16-byte pieces, which TMA and
-    cp.async need; it loads by element); otherwise, in bfloat16 or float16,
-    "wgmma" (TMA + wgmma, the Hopper body) at Dp of 64 and up (at 256 with 64 x 64 tiles and one
-    consumer warpgroup; above 256 the same in chunks of 256 output columns,
-    Q K^T streamed in 64-column pieces) and "mma" (mma.sync) at Dp of 16
-    and 32. float8 (e4m3fn, e5m2) runs "wgmma" where its rows are whole
-    16-byte pieces (D % 16 == 0) and Dp is 64 to 256 (TMA brings fp8
-    tiles, converted to f16 in shared memory, exact, for the f16 code),
-    else "fma" (read as float8 by element)."""
+    Dp = `padded_head_dim`:
+
+    - "fma" (FMAs in fp32, by element): float32 at every head size;
+      integers and q, k, v of more than one type (`kv_dtype` k's and v's
+      where it is not q's: the wrapper widens all three to float32, the
+      reference's arithmetic); and bfloat16, float16 and float8 rows that
+      TMA cannot load (below) where Dp is 16 or 32, or above 256.
+    - "wgmma" (TMA + wgmma, the Hopper body): bfloat16 and float16 rows of
+      whole 16-byte pieces (head_dim % 8 == 0) at Dp of 64 and up (two
+      consumer warpgroups; at 256 with 64-key tiles, a producer warpgroup
+      that hands its registers to them with setmaxnreg, and the two taking
+      turns at the tensor cores; above 256 in chunks of 256 output columns,
+      Q K^T streamed in 64-column pieces); float8 (e4m3fn, e5m2) rows of
+      whole 16-byte pieces (head_dim % 16 == 0) at Dp 64 to 256, its TMA
+      tiles converted to f16 in shared memory (exact) for the f16 code.
+    - "wgmma_elem" (the same wgmma body, its tiles copied by element by a
+      producer warpgroup, fp8 converted to f16 as it is loaded): bfloat16
+      and float16 at head_dim % 8 != 0 and float8 at head_dim % 16 != 0,
+      where Dp is 64 to 256. It takes any strides.
+    - "mma" (mma.sync): bfloat16 and float16 rows of whole 16-byte pieces
+      at Dp of 16 and 32."""
     dp = padded_head_dim("flash_attention", head_dim)
     check_types("flash_attention", dtype,
                 *(() if kv_dtype is None else (kv_dtype,)))
     if kv_dtype is not None and kv_dtype != dtype:
         return "fma"
-    if dtype in ref.FP8_TYPES:          # rows of whole 16-byte pieces: TMA
-        return "wgmma" if head_dim % 16 == 0 and 64 <= dp <= CHUNK_DIM \
-            else "fma"
+    tensor_cores = 64 <= dp <= CHUNK_DIM      # the head sizes of wgmma_elem
+    if dtype in ref.FP8_TYPES:
+        if not tensor_cores:
+            return "fma"
+        return "wgmma" if head_dim % 16 == 0 else "wgmma_elem"
     if dtype not in (torch.bfloat16, torch.float16):
         return "fma"
     if head_dim % 8:
-        return "fma"
+        return "wgmma_elem" if tensor_cores else "fma"
     return "wgmma" if dp >= 64 else "mma"
 
 
@@ -126,11 +136,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reference casts each to float32 in its body and returns q's type; the
     wrapper widens all three to float32 copies, exact for 16-bit types,
     runs the float32 body and casts the result to q's type). Which body
-    runs is `body_for`: 16-bit rows of whole 16-byte pieces at a head size
-    that pads to 64 or more load their tiles by TMA and multiply with
-    wgmma. float8_e4m3fn and float8_e5m2 are read in place (by TMA, or by
-    element where `body_for` says "fma"), and the output rounded to them
-    without saturation (`ref.to_fp8`);
+    runs is `body_for`: 16-bit and float8 rows at a head size that pads to
+    64 to 256 multiply with wgmma, their tiles loaded by TMA where the rows
+    are whole 16-byte pieces and by element otherwise (16-bit rows of whole
+    pieces above 256 too, in chunks). float8_e4m3fn and float8_e5m2 are
+    read in place, and the output rounded to them without saturation
+    (`ref.to_fp8`);
     8-, 16- and 32-bit integers run on float32 copies and the output is
     cut toward zero (`ref.to_int`), as the reference's `.astype`.
 
@@ -138,8 +149,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head size, dtypes, `window` and devices are checked before a CPU tensor
     goes to the plain version. Only the stride and alignment checks, which
     describe the kernel's 16-byte loads (none where the fma body runs at a
-    head size not in `HEAD_DIMS`: it loads by element), come after, for
-    CUDA tensors.
+    head size not in `HEAD_DIMS`, or the element loader: they load by
+    element), come after, for CUDA tensors.
 
     There is no backward: under autograd, with an input that requires grad,
     it raises NotImplementedError on every device, the CPU's plain version
@@ -176,9 +187,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.from_float(flash_attention(q32, k32, v32, causal, window),
                               q.dtype)
     out = torch.empty_like(q)              # keeps q's (dense) strides
-    # elements of one 16-byte load; the fma body loads by element but in
-    # float32 at a head size of `HEAD_DIMS`
-    by_element = body_for(q.dtype, D) == "fma" and not (
+    # elements of one 16-byte load; the fma body and the element loader
+    # load by element, but the fma body in float32 at a head size of
+    # `HEAD_DIMS` does not
+    by_element = body_for(q.dtype, D) in ("fma", "wgmma_elem") and not (
         q.dtype == torch.float32 and dp == D)
     chunk = 1 if by_element else 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):

@@ -88,23 +88,48 @@ def test_flash_attention_head_dim_256(window, dtype):
     (torch.bfloat16, 16, "mma"), (torch.bfloat16, 32, "mma"),
     (torch.float32, 256, "fma"), (torch.bfloat16, 256, "wgmma"),
     # head sizes between the bodies' own run the body for Dp: fp32 always
-    # on FMAs, bf16 by the 16-byte pieces of its rows
+    # on FMAs, bf16 by the 16-byte pieces of its rows (rows of no whole
+    # pieces on wgmma with the element loader where Dp is 64 to 256)
     (torch.float32, 1, "fma"), (torch.float32, 80, "fma"),
     (torch.bfloat16, 8, "mma"), (torch.bfloat16, 24, "mma"),
     (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 96, "wgmma"),
     (torch.bfloat16, 192, "wgmma"), (torch.bfloat16, 1, "fma"),
-    (torch.bfloat16, 7, "fma"), (torch.bfloat16, 100, "fma"),
-    (torch.bfloat16, 255, "fma"),
+    (torch.bfloat16, 7, "fma"), (torch.bfloat16, 100, "wgmma_elem"),
+    (torch.bfloat16, 255, "wgmma_elem"),
     # float16 takes bfloat16's bodies; above 256 the wide bodies, in chunks
     (torch.float16, 8, "mma"), (torch.float16, 128, "wgmma"),
-    (torch.float16, 100, "fma"), (torch.float16, 512, "wgmma"),
+    (torch.float16, 100, "wgmma_elem"), (torch.float16, 512, "wgmma"),
     (torch.bfloat16, 264, "wgmma"), (torch.bfloat16, 300, "fma"),
-    (torch.float32, 2048, "fma")])
+    (torch.float32, 2048, "fma"),
+    (torch.float16, 200, "wgmma"), (torch.float16, 196, "wgmma_elem"),
+    (torch.float32, 100, "fma"),
+    (torch.bfloat16, 33, "wgmma_elem"), (torch.bfloat16, 31, "fma")])
 def test_flash_body_rule(dtype, d, body):
     """Which kernel body a launch runs is a fixed rule on (type, head size);
     `chip_smoke.py` holds the CUDA source's rule to this one at every head
     size."""
     assert tflash.body_for(dtype, d) == body
+
+
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 100), ("float16", 100),
+                                     ("bfloat16", 196), ("float16", 255)])
+def test_flash_attention_on_the_element_route(dtype, d):
+    """16-bit rows of no whole 16-byte pieces at Dp 64-256, which the card
+    runs on its wgmma body with the element loader: the port's wrapper (its
+    plain version on the CPU) against the reference's Pallas kernel in
+    interpret mode, not causal and causal with a window, GQA group 4."""
+    assert tflash.body_for(getattr(torch, dtype), d) == "wgmma_elem"
+    q, k, v = _flash_inputs(11 + d, 1, 8, 2, 128, d)
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.array(a, jdt) for a in (q, k, v))
+    tq, tk, tv = to_torch(jq), to_torch(jk), to_torch(jv)
+    for causal, window in ((False, 0), (True, 40)):
+        out = tflash.flash_attention(tq, tk, tv, causal=causal, window=window)
+        assert out.dtype == tq.dtype and out.shape == tq.shape
+        np.testing.assert_allclose(
+            to_np(out), to_np(jflash(jq, jk, jv, causal=causal, window=window,
+                                     block_q=64, block_k=64,
+                                     interpret=True)), **BF16_TOL)
 
 
 @pytest.mark.parametrize("q_dtype,kv_dtype", [

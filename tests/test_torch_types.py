@@ -407,14 +407,36 @@ def test_flash_takes_fp8_and_integers(name, d):
 
 @pytest.mark.parametrize("d,body", [(128, "wgmma"), (64, "wgmma"),
                                     (80, "wgmma"), (256, "wgmma"),
-                                    (100, "fma"), (8, "fma"), (32, "fma"),
-                                    (512, "fma")])
+                                    (100, "wgmma_elem"), (8, "fma"),
+                                    (32, "fma"), (512, "fma"),
+                                    (72, "wgmma_elem"), (200, "wgmma_elem"),
+                                    (33, "wgmma_elem"), (24, "fma")])
 def test_flash_fp8_body_rule(d, body):
     """float8 rows of whole 16-byte pieces at Dp 64-256 take the wgmma body
-    (TMA tiles converted to f16); every other head size the fma body. The
-    card holds the source's rule to this one (`chip_smoke.py`)."""
+    (TMA tiles converted to f16), other rows at those Dp the same body with
+    the element loader (converted as they are loaded); Dp 16-32 and above
+    256 the fma body. The card holds the source's rule to this one
+    (`chip_smoke.py`)."""
     for dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
         assert tflash.body_for(dtype, d) == body
+
+
+@pytest.mark.parametrize("name", FP8)
+@pytest.mark.parametrize("d", [100, 72])
+def test_flash_fp8_on_the_element_route(name, d):
+    """float8 rows of no whole 16-byte pieces at Dp 64-256 (the card's
+    wgmma body with the element loader): within one unit in the last place
+    of the reference's kernel in interpret mode, window 40."""
+    dtype = getattr(torch, name)
+    assert tflash.body_for(dtype, d) == "wgmma_elem"
+    q, k, v = _attn_inputs(name, [(1, 4, 128, d), (1, 2, 128, d),
+                                  (1, 2, 128, d)], 97 + d)
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                  window=40, block_q=64, block_k=64, interpret=True)
+    got = tflash.flash_attention(to_torch(q), to_torch(k), to_torch(v),
+                                 window=40)
+    assert got.dtype == dtype
+    _within_one_ulp(got, want, name)
 
 
 @pytest.mark.parametrize("q_name,kv_name", [
