@@ -66,12 +66,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    atol=rtol=1e-4, bf16 and f16 add within `ref.scatter_add16_limit`, triad
    1e-6 (f32) / 2e-2 (bf16) / 2e-3 (f16); and what their wrappers refuse
    must raise (among them a triad operand 4 bytes off a 16-byte boundary).
-   async_scatter's own rule and edges: rows of 8, 12, 16 bytes through the
-   bucket pass and rows of 512 and 4096 bytes straight to the apply (the
-   path asserted by `launch_plan` and by the source), M = 1, 7, 131, 4000,
-   block_m a bound, K 1-32, one row hit by every update, every update in the
-   last row, N not a whole number of regions; the bucket pass bit-exact
-   against `ref.scatter_bucket_ref`; two calls in a row on one workspace.
+   async_scatter's own rule and edges: rows of 8, 12, 16, 512 and 4096
+   bytes (the path, bucketed or not, asserted by `launch_plan` and by the
+   source, also at the rule's edges; 2^25 updates into 1.5 GiB tables of
+   3- and 6-byte rows), M = 1, 7, 131, 4000, block_m a bound, K 1-32, one
+   row hit by every update, every update in the last row, N not a whole
+   number of regions, each case of rows below 32 bytes down both paths
+   (the rule's, and `async_scatter.launch` on the other plan); the bucket
+   pass bit-exact against `ref.scatter_bucket_ref`; two calls in a row on
+   one workspace.
    Then the inputs taken last (`check_every_type`): float8 conversions at
    the edge of the range (e4m3fn 500 -> NaN, 464 -> 448; e5m2 61440 -> inf)
    and an integer triad's scalar saturated on the card (int8 300 -> 127);
@@ -85,10 +88,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the gather of e4m3 rows; flash in e4m3 / e5m2 at D 8, 100, 128 and in
    int8 (its float32 copies), paged with e4m3 / e5m2 caches at D 8, 100,
    128, within one unit in the output type's last place, and a bf16 q over
-   e4m3 caches within PAGED_BF16_TOL. Last (`fp8_serve_shapes`) flash in
+   e4m3 caches within PAGED_BF16_TOL; flash in int8 timed beside SDPA on
+   float32 copies. Then (`check_paged_fp8`) paged over float8 caches on
+   the tensor cores: the rule of where its products run, the source's
+   against the wrapper's; q in e4m3, e5m2, bf16 and f16 over caches of
+   both kinds at D 48, 64, 80, 128, 144 and 256, lengths 0 to T; fp32 and
+   int8 q; outputs past e4m3's range. Last (`fp8_serve_shapes`) flash in
    both float8 types at qwen2.5-3b's prefill and paged with float8 caches
-   (and a bf16 q over e4m3) at its decode, timed beside the plain version,
-   the bound and SDPA on bf16 copies.
+   (and a bf16 q over e4m3, an f16 q over e5m2) at its decode, timed beside
+   the plain version, the bound and SDPA on bf16 copies, each paged call
+   one kernel on the device (torch.profiler, in a process of its own).
 4. slice: `repro_torch.launch.serve` serves qwen2.5-3b at full width with
    `--use-kernels --offload-kv`; offloaded tokens must equal the baseline's,
    the launch counters must show the kernels carried the run, and prefill
@@ -150,7 +159,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and at 512-byte xor, of its `block_m` at GUPS (what is in flight an SM
    there), with GUP/s and updates in flight per SM, and of the gather's K
    (rows in flight per SM). One launch per `ops` call, counted, but four for
-   each bucketed scatter (rows of fewer than 32 bytes).
+   each bucketed scatter (rows of fewer than 32 bytes, tables of 8 GiB or
+   more, 2^26 updates or more: GUPS).
 6. simulator: the port's whole quickstart (`repro_torch.launch.quickstart`
    `main`, on the card): GUPS at 0.2, 1 and 5 us of far-memory latency,
    baseline core against the AMU session; the 4-core rack against one
@@ -364,7 +374,10 @@ SASS_WANT_IN = {"flash_attention": [
                      ("HGMMA", "USETMAXREG")),
                     (("flash_wgmma_kernel", "Li256E"),
                      ("HGMMA", "USETMAXREG"))],
-                "paged_attention": [(("Li256ELb0ELb1ELb1E",), ("UTMALDG",))]}
+                "paged_attention": [(("Li256ELb0ELb1ELb1E",), ("UTMALDG",)),
+                                    (("q_asI6__half",), ("HMMA", "UTMALDG")),
+                                    (("q_asI13__nv_bfloat16",),
+                                     ("HMMA", "UTMALDG"))]}
 
 
 def check_sass(out_dir) -> dict:
@@ -1202,6 +1215,61 @@ def check_scatter16(name, got, table, idx, upd, raise_=True) -> bool:
     return ok
 
 
+# What the untouched neighbours of a 16-bit row hold in
+# `check_scatter16_neighbours`: -0.0 and +0.0, NaNs of several payloads
+# (quiet and signalling, either sign), the infinities and subnormals, as bits
+NEIGHBOUR_BITS = {
+    torch.bfloat16: (0x8000, 0x0000, 0x7FC0, 0x7FC1, 0x7FFF, 0xFFFF, 0x7F81,
+                     0xFFA5, 0x7F80, 0xFF80, 0x0001, 0x8001),
+    torch.float16: (0x8000, 0x0000, 0x7E00, 0x7E01, 0x7FFF, 0xFFFF, 0x7C01,
+                    0xFCA5, 0x7C00, 0xFC00, 0x0001, 0x8001)}
+
+
+def check_scatter16_neighbours(gen, raise_=True) -> bool:
+    """bf16 / f16 add into rows of 1, 3 and 5 elements (2, 6 and 10 bytes)
+    where only the rows of one parity are hit: each aligned word the path
+    reduces that holds one element of a hit row holds one of a row never
+    hit (its low half for odd rows, its high half for even ones), filled
+    with NEIGHBOUR_BITS; 50000 updates into 4096 rows, and 2^25 into 2^28
+    rows of 3 elements, there down the rule's path and on a bucketed plan
+    (`async_scatter.launch`). Those rows must keep their bits and the
+    hit rows stay within
+    `ref.scatter_add16_limit` (`check_scatter16`). True if every case
+    passed."""
+    from repro_torch.kernels import async_scatter as asc
+    ok = True
+    sizes = [(4096, 50000, w) for w in (1, 3, 5)] + [(1 << 28, 1 << 25, 3)]
+    for dtype, pattern in NEIGHBOUR_BITS.items():
+        pat = torch.tensor([b - (1 << 16) if b >= 1 << 15 else b
+                            for b in pattern], dtype=torch.int16,
+                           device="cuda")
+        for (n, m, w), parity in ((x, p) for x in sizes for p in (0, 1)):
+            table = rand_typed(gen, (n, w), dtype)
+            other = torch.arange(1 - parity, n, 2, device="cuda")
+            fill = pat[torch.arange(other.numel() * w, device="cuda")
+                       % pat.numel()].view(-1, w)
+            bits(table)[other] = fill
+            idx = (parity + 2 * torch.randint(
+                0, n // 2, (m,), generator=gen, device="cuda")).to(torch.int32)
+            upd = rand_typed(gen, (m, w), dtype)
+            runs = [(asc.bucketed(2 * w, n, m),
+                     asc.async_scatter(table.clone(), idx, upd))]
+            if m >= 1 << 25 and not runs[0][0]:
+                plan = asc.launch_plan(table, m, bucket=True)
+                runs.append((True, asc.launch(table.clone(), idx, upd, "add",
+                                              plan)))
+            for on, got in runs:
+                ok = check_scatter16(
+                    f"scatter add {tname(dtype)} [{n},{w}], {m} updates "
+                    f"({'' if on else 'not '}bucketed) into the "
+                    f"{'odd' if parity else 'even'} rows, the others holding "
+                    "-0.0, NaN payloads, inf, subnormals", got, table, idx,
+                    upd, raise_=raise_) and ok
+            del table, other, fill, idx, upd, runs
+            free_cuda()
+    return ok
+
+
 def amu_index(gen, n, m):
     return torch.randint(0, n, (m,), generator=gen, device="cuda",
                          dtype=torch.int32)
@@ -1459,6 +1527,7 @@ def check_ulp(name, got, want, quiet=False, extra=None) -> float:
         step = step + extra
     gn, wn = torch.isnan(g), torch.isnan(w)
     err = torch.where(wn | gn, torch.zeros_like(g), (g - w).abs())
+    step = torch.where(wn | gn, torch.ones_like(step), step)
     ok = bool((gn == wn).all()) and bool((err <= step).all())
     worst = float(err.max())
     if not (ok and quiet):
@@ -1503,7 +1572,8 @@ def check_every_type(gen):
     5, also with inputs past the type's range), bit-exact; scatter add and
     xor of 8/16-bit integers at rows of 1, 3 and 64 elements, float8 add at
     3 and 64, bf16 / f16 add at 1, 3 and 5 (the word path: CAS loops, xor
-    words with zero bytes, the scalar 16-bit reduction), 50000 updates into
+    words with zero bytes, pair reductions with -0.0 beside a lone 16-bit
+    element, `check_scatter16_neighbours`), 50000 updates into
     3000 rows and every update into one row; the gather of float8 rows;
     flash in float8 at D 8, 33, 64, 72, 80, 98, 100, 128, 200, 256 (fma,
     the f16-converted wgmma body and the element loader's, with loads of 1,
@@ -1589,6 +1659,7 @@ def check_every_type(gen):
                                                              op), quiet=True)
     log(f"  scatter: {len(cases)} (type, op, width) cases and 4 hot rows: "
         "integers bit-exact, float8 / 16-bit within their limit")
+    check_scatter16_neighbours(gen)
 
     for d in (3, 64):
         table = rand_typed(gen, (5000, d), torch.float8_e4m3fn)
@@ -1624,10 +1695,131 @@ def check_every_type(gen):
                        dtype=torch.int8)
     ki = torch.randint(-3, 4, (2, 2, 200, 64), generator=gen, device="cuda",
                        dtype=torch.int8)
-    check_ulp("flash int8 D64 (float32 copies)",
-              fa.flash_attention(qi, ki, ki.flip(2)),
-              ref.attention_ref(qi, ki, ki.flip(2)))
+    vi = ki.flip(2)
+    err = check_ulp("flash int8 D64 (float32 copies)",
+                    fa.flash_attention(qi, ki, vi),
+                    ref.attention_ref(qi, ki, vi))
+    # timed beside SDPA on float32 copies and the bound of its int8 inputs
+    import torch.nn.functional as F
+    qf, kf, vf = (x.float() for x in (qi, ki, vi))
+    ms = time_ms([lambda: fa.flash_attention(qi, ki, vi)], 20)
+    plain_ms = time_ms([lambda: ref.attention_ref(qi, ki, vi)], 10)
+    library_ms = time_ms([lambda: F.scaled_dot_product_attention(
+        qf, kf, vf, is_causal=True, enable_gqa=True)], 20)
+    bound_ms, bound_by = flash_bound(2, 8, 2, 200, 64, 0, torch.int8)
+    log(f"  flash int8 B2 Hq8 Hkv2 S200 D64: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library on float32 copies {library_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by})")
+    SERVE_SHAPES.append(dict(
+        kernel="flash_attention", shape="B2 Hq8 Hkv2 S200 D64 int8",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        library="sdpa on float32 copies", bound_ms=bound_ms,
+        bound_by=bound_by))
     torch.cuda.synchronize()
+
+
+PAGED_MMA_DIMS = (48, 64, 80, 128, 144, 256)   # Dp 64, 64, 128, 128, 256, 256
+PAGED_Q_TYPES = (*FP8, torch.bfloat16, torch.float16)
+
+
+def paged_out_check(name, got, want, extra_tol=None):
+    """Paged's output against its plain version in the output's type: one
+    unit in the last place of float8, PAGED_BF16_TOL / PAGED_F16_TOL of
+    16 bits, FP32_TOL of float32."""
+    if got.dtype in FP8:
+        return check_ulp(name, got, want, quiet=True)
+    tol = {torch.bfloat16: PAGED_BF16_TOL, torch.float16: PAGED_F16_TOL,
+           torch.float32: FP32_TOL}[got.dtype]
+    return check_close(name, got, want, quiet=True, **tol)
+
+
+def check_paged_fp8(gen):
+    """Paged over float8 caches, whose q is read and output written in q's
+    own type: the rule of where the products run (`products_on` against the
+    source's `paged_attention_products`, every q / cache pair of the float
+    types and int8 at D 1-600); the tensor-core bodies at D 48, 64, 80,
+    128, 144 and 256 (Dp 64, 128, 256; TMA rows) for q in e4m3, e5m2, bf16
+    and f16 over caches of both kinds, lengths 0, 1, 31, 32, 33, 200 and T,
+    GQA groups 8, 3 and 16, each within one unit in the last place of a
+    float8 output and PAGED_BF16_TOL / PAGED_F16_TOL of a 16-bit one; an
+    fp32 and an int8 q over e4m3 caches (FMAs; int8 through float32);
+    outputs past e4m3's range (an e4m3 q over e5m2 caches of values near
+    1000: NaN, as `to_fp8` gives them, not 448)."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import paged_attention as pa
+
+    lib = _build.load("paged_attention")
+    pa._bind()
+    names = {0: "fma", 1: "mma"}
+    types = (torch.float32, torch.bfloat16, torch.float16, *FP8)
+    for c in types:
+        for qt in (*types, torch.int8):
+            kq, kc = pa.kernel_types(qt, c)
+            for d in range(1, 601):
+                got = names[lib.paged_attention_products(
+                    _build.DTYPE_CODES[kc], _build.DTYPE_CODES[kq], d)]
+                want = pa.products_on(qt, c, d)
+                if got != want:
+                    raise AssertionError(
+                        f"paged products for q {qt} over {c} D{d}: the "
+                        f"source runs {got}, the wrapper says {want} ... FAIL")
+    log("paged over float8 caches: products rule, D 1-600 x q / cache "
+        "pairs, source and wrapper agree (mma: TMA rows at Dp 64-256, "
+        "16-bit caches under their own q, fp8 caches under a 16-bit or fp8 "
+        "q; else fma)")
+    n = 0
+    for d in PAGED_MMA_DIMS:
+        for kv in FP8:
+            for qt in PAGED_Q_TYPES:
+                for hq, hkv in ((16, 2), (6, 2), (16, 1)):
+                    if (hq, hkv) != (16, 2) and d not in (80, 128):
+                        continue
+                    q = rand_typed(gen, (7, hq, d), qt, Q_SCALE)
+                    kc = rand_typed(gen, (7, 333, hkv, d), kv)
+                    vc = rand_typed(gen, (7, 333, hkv, d), kv)
+                    lens = torch.tensor([0, 1, 31, 32, 33, 200, 333],
+                                        dtype=torch.int32, device="cuda")
+                    if pa.products_on(qt, kv, d) != "mma":
+                        raise AssertionError(f"paged q {qt} over {kv} D{d}: "
+                                             "not on the tensor cores")
+                    paged_out_check(
+                        f"paged q {tname(qt)} caches {tname(kv)} D{d} "
+                        f"Hq{hq} Hkv{hkv}",
+                        pa.paged_attention(q, kc, vc, lens),
+                        ref.paged_attention_ref(q, kc, vc, lens))
+                    n += 1
+    log(f"  {n} tensor-core cases (D {PAGED_MMA_DIMS}, q e4m3 / e5m2 / bf16 "
+        "/ f16 over e4m3 / e5m2 caches, lengths 0 to T, GQA 8, 3, 16) agree")
+    for qt in (torch.float32, torch.int8):
+        q = (rand_typed(gen, (4, 16, 128), qt, Q_SCALE) if qt.is_floating_point
+             else torch.randint(-3, 4, (4, 16, 128), generator=gen,
+                                device="cuda", dtype=qt))
+        kc = rand_typed(gen, (4, 333, 2, 128), torch.float8_e4m3fn)
+        vc = rand_typed(gen, (4, 333, 2, 128), torch.float8_e4m3fn)
+        lens = torch.tensor([0, 1, 200, 333], dtype=torch.int32,
+                            device="cuda")
+        got = pa.paged_attention(q, kc, vc, lens)
+        want = ref.paged_attention_ref(q, kc, vc, lens)
+        if qt.is_floating_point:
+            paged_out_check(f"paged q {tname(qt)} caches e4m3 D128 (fma)",
+                            got, want)
+        else:
+            check_ulp("paged q int8 caches e4m3 D128 (float32 q)", got, want,
+                      quiet=True)
+    q = rand_typed(gen, (4, 16, 128), torch.float8_e4m3fn, Q_SCALE)
+    kc = rand_typed(gen, (4, 333, 2, 128), torch.float8_e5m2)
+    vc = rand_typed(gen, (4, 333, 2, 128), torch.float8_e5m2, 600.0)
+    lens = torch.tensor([0, 1, 200, 333], dtype=torch.int32, device="cuda")
+    got = pa.paged_attention(q, kc, vc, lens)
+    want = ref.paged_attention_ref(q, kc, vc, lens)
+    check_ulp("paged q e4m3 over e5m2 caches of |v| up to ~2000 (outputs "
+              "past e4m3's range)", got, want)
+    nans = int(torch.isnan(want.float()).sum())
+    if nans == 0:
+        raise AssertionError("paged overflow case: no output past e4m3's "
+                             "range ... FAIL")
+    log(f"  fp32 and int8 q over e4m3 caches agree; {nans} outputs past "
+        "e4m3's range are NaN as the plain version gives them")
 
 
 def fp8_serve_shapes(gen):
@@ -1678,7 +1870,8 @@ def fp8_serve_shapes(gen):
             < lens[:, None])[:, None, None, :]
     for q_dtype, dtype in ((torch.float8_e4m3fn, torch.float8_e4m3fn),
                            (torch.float8_e5m2, torch.float8_e5m2),
-                           (torch.bfloat16, torch.float8_e4m3fn)):
+                           (torch.bfloat16, torch.float8_e4m3fn),
+                           (torch.float16, torch.float8_e5m2)):
         sets = [(rand_typed(gen, (b, hq, d), q_dtype, Q_SCALE),
                  rand_typed(gen, (b, t, hkv, d), dtype),
                  rand_typed(gen, (b, t, hkv, d), dtype)) for _ in range(16)]
@@ -1687,8 +1880,7 @@ def fp8_serve_shapes(gen):
                  f"caches {tname(dtype)}")
         got = pa.paged_attention(q, kc, vc, lens)
         want = ref.paged_attention_ref(q, kc, vc, lens)
-        err = (check_ulp(f"paged {shape}", got, want) if q_dtype in FP8 else
-               check_close(f"paged {shape}", got, want, **PAGED_BF16_TOL))
+        err = paged_out_check(f"paged {shape}", got, want)
         wide = [tuple(x.to(torch.bfloat16) for x in st) for st in sets]
         ms = time_ms([lambda st=st: pa.paged_attention(*st, lens)
                       for st in sets], 64)
@@ -1698,7 +1890,8 @@ def fp8_serve_shapes(gen):
             w[0][:, :, None], w[1].transpose(1, 2), w[2].transpose(1, 2),
             attn_mask=mask, enable_gqa=True) for w in wide], 64)
         bound_ms, bound_by = paged_bound(lens, hq, hkv, d, dtype, q_dtype)
-        log(f"  ({pa.body_for(dtype, d)} body) kernel {ms:.4f} ms, plain "
+        log(f"  ({pa.body_for(dtype, d)} body, "
+            f"{pa.products_on(q_dtype, dtype, d)}) kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library on bf16 copies {library_ms:.4f} "
             f"ms, bound {bound_ms:.5f} ms ({bound_by})")
         SERVE_SHAPES.append(dict(
@@ -1706,53 +1899,131 @@ def fp8_serve_shapes(gen):
             plain_ms=plain_ms, library_ms=library_ms,
             library="sdpa on bf16 copies", bound_ms=bound_ms,
             bound_by=bound_by))
+    pairs = [("float8_e4m3fn", "float8_e4m3fn"), ("float8_e5m2", "float8_e5m2"),
+             ("bfloat16", "float8_e4m3fn"), ("float16", "float8_e5m2")]
+    for (qn, cn), seen in zip(pairs, paged_kernels_seen(pairs, b, hq, hkv, t,
+                                                        d)):
+        if list(seen.values()) != [1] or "paged_attention_kernel" not in \
+                next(iter(seen)):
+            raise AssertionError(f"paged q {qn} caches {cn}: one call ran "
+                                 f"{seen}, want one paged_attention_kernel "
+                                 "... FAIL")
+        log(f"  paged q {qn} caches {cn}: one call is one kernel on the "
+            f"device (torch.profiler): {next(iter(seen))[:80]}")
+
+
+# One paged call a (q, caches) type pair under torch.profiler, in a process
+# of its own: on the H100 a profiler session after phase 3's other work saw
+# no device activity, where a fresh process's sessions see every kernel.
+PROFILE_PAGED = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels import paged_attention as pa
+b, hq, hkv, t, d = json.loads(sys.argv[3])
+lens = torch.tensor([t, t - 31, (t + 2) // 2, 64][:b], dtype=torch.int32,
+                    device="cuda")
+seen = []
+for qn, cn in json.loads(sys.argv[2]):
+    q = torch.randn(b, hq, d, device="cuda").to(getattr(torch, qn))
+    k, v = (torch.randn(b, t, hkv, d, device="cuda").to(getattr(torch, cn))
+            for _ in range(2))
+    for _ in range(2):          # the first session warms the profiler
+        pa.paged_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pa.paged_attention(q, k, v, lens)
+            torch.cuda.synchronize()
+    seen.append({e.key: e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA})
+print(json.dumps(seen))
+"""
+
+
+def paged_kernels_seen(pairs, b, hq, hkv, t, d) -> list:
+    """The CUDA kernels (name: launches) torch.profiler sees in one
+    `paged_attention` call for each (q type, cache type) name pair, at
+    [b, hq, d] q over [b, t, hkv, d] caches, in a process of its own."""
+    proc = subprocess.run(
+        [sys.executable, "-c", PROFILE_PAGED, os.path.join(ROOT, "src"),
+         json.dumps(pairs), json.dumps([b, hq, hkv, t, d])],
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+        raise AssertionError("the profiled paged calls failed: "
+                             + proc.stderr.strip()[-400:])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def check_scatter_paths(gen) -> float:
-    """async_scatter's plan rule and edges: rows of 8, 12 and 16 bytes take
-    the bucket pass, rows of 512 and 4096 bytes go straight to the apply
-    (asserted by `launch_plan` and by the source's own rule), each at M = 1,
-    7, 131 and 4000 in every op and type, block_m a bound and K from 1 to
-    32; a table whose rows are not a whole number of bucket regions, one row
-    hit by every update, every update in the last row; the bucket pass
-    against its plain version bit for bit (one tile, many tiles, tiles of
-    several sub-chunks); the apply's shared memory as Python plans it and as
-    the source sizes it; two calls in a row, each on the workspace the other
-    left. Returns the worst f32 error."""
+    """async_scatter's plan rule and edges: rows of 8, 12, 16, 512 and 4096
+    bytes, bucketed or not as `bucketed` says (asserted by `launch_plan`
+    and by the source's own rule, also at the rule's edges; 2^25 updates
+    into 1.5 GiB tables of 3- and 6-byte rows down both paths), each at
+    M = 1, 7, 131 and 4000 in every op and type, block_m a bound and K from
+    1 to 32; a table whose rows are not a whole number of bucket regions,
+    one row hit by every update, every update in the last row. Rows
+    narrower than a sector run each of these cases down both paths: the
+    wrapper's (the rule's plan) and `async_scatter.launch` on the other
+    plan (`launch_plan(..., bucket=...)`), so that the bucket pass and the
+    bucketed apply meet every edge at any size. The bucket pass against its
+    plain version bit for bit (one tile, many tiles, tiles of several
+    sub-chunks); the apply's shared memory as Python plans it and as the
+    source sizes it; two calls in a row, each on the workspace the other
+    left, down both paths for 8-byte rows. Returns the worst f32 error."""
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import async_scatter as asc
 
     lib = _build.load("async_scatter")
     asc._bind()
-    log("async_scatter paths: bucketed below 32-byte rows, straight to the "
-        "apply above; i32 bit-exact, f32 add within 1e-4")
+    log("async_scatter paths: bucketed below 32-byte rows in tables of 8 GiB "
+        "and more by 2^26 updates and more, else straight to the apply; i32 "
+        "bit-exact, f32 add within 1e-4")
     worst = 0.0
 
-    def run(table, idx, upd, op, want_bucket, quiet=True, **kw):
-        nonlocal worst
-        r = table.shape[1] * 4
-        plan = asc.launch_plan(table, idx.numel(), op, **kw)
-        what = (f"{str(table.dtype)[6:]} {op} rows of {r} B, N{table.shape[0]}"
-                f" M{idx.numel()}{f' {kw}' if kw else ''}: "
+    def describe(table, idx, op, plan, kw):
+        return (f"{str(table.dtype)[6:]} {op} rows of {table.shape[1] * 4} "
+                f"B, N{table.shape[0]} M{idx.numel()}"
+                f"{f' {kw}' if kw else ''}: "
                 f"{'bucket pass + ' if plan.bucket else ''}apply of "
                 f"{plan.blocks} blocks, {plan.slots} slots of {plan.span} "
                 f"updates, {plan.chunk}-byte reductions")
-        if plan.bucket != want_bucket or bool(
-                lib.async_scatter_bucketed(r)) != want_bucket:
-            raise AssertionError(f"{what}: want "
-                                 f"{'the bucket pass' if want_bucket else 'no bucket pass'}")
-        if lib.async_scatter_apply_smem(plan.span, plan.slots, r) \
-                != plan.smem:
-            raise AssertionError(f"{what}: Python plans {plan.smem} bytes "
-                                 "of shared memory, the source sizes "
-                                 f"{lib.async_scatter_apply_smem(plan.span, plan.slots, r)}")
+
+    def both_paths(table, idx, upd, op, **kw):
+        """(plan, result) of the wrapper's call and, for rows narrower than
+        a sector, of the launch on the other plan."""
+        plan = asc.launch_plan(table, idx.numel(), op, **kw)
+        runs = [(plan, asc.async_scatter(table.clone(), idx, upd, op, **kw))]
+        if table.shape[1] * table.element_size() < asc.SECTOR:
+            other = asc.launch_plan(table, idx.numel(), op,
+                                    bucket=not plan.bucket, **kw)
+            runs.append((other, asc.launch(table.clone(), idx, upd, op,
+                                           other)))
+        return runs
+
+    def run(table, idx, upd, op, quiet=True, **kw):
+        nonlocal worst
+        r = table.shape[1] * 4
+        want_bucket = asc.bucketed(r, table.shape[0], idx.numel())
         want = ref.scatter_update_ref(table, idx, upd, op)
-        got = asc.async_scatter(table.clone(), idx, upd, op, **kw)
-        if table.dtype == torch.float32:
-            worst = max(worst, check_close(what, got, want, quiet=quiet,
-                                           **SCATTER_TOL))
-        else:
-            check_same(what, got, want, quiet=quiet)
+        for k, (plan, got) in enumerate(both_paths(table, idx, upd, op,
+                                                   **kw)):
+            what = describe(table, idx, op, plan, kw)
+            if k == 0 and (plan.bucket != want_bucket or bool(
+                    lib.async_scatter_bucketed(r, table.shape[0],
+                                               idx.numel())) != want_bucket):
+                raise AssertionError(f"{what}: want "
+                                     f"{'the bucket pass' if want_bucket else 'no bucket pass'}")
+            if lib.async_scatter_apply_smem(plan.span, plan.slots, r) \
+                    != plan.smem:
+                raise AssertionError(f"{what}: Python plans {plan.smem} bytes "
+                                     "of shared memory, the source sizes "
+                                     f"{lib.async_scatter_apply_smem(plan.span, plan.slots, r)}")
+            if table.dtype == torch.float32:
+                worst = max(worst, check_close(what, got, want, quiet=quiet,
+                                               **SCATTER_TOL))
+            else:
+                check_same(what, got, want, quiet=quiet)
 
     cases = [(8, torch.int32, "xor"), (8, torch.float32, "add"),
              (12, torch.int32, "add"), (12, torch.int32, "xor"),
@@ -1766,11 +2037,11 @@ def check_scatter_paths(gen) -> float:
         for m in (1, 7, 131, 4000):
             idx = amu_index(gen, n, m)
             upd = amu_table(gen, (m, r // 4), dtype)
-            run(table, idx, upd, op, r < 32, quiet=m != 4000)
+            run(table, idx, upd, op, quiet=m != 4000)
             for bm, k in ((1, 1), (16, 3), (64, 32)):
                 if asc.apply_smem(4, k, r) > asc.MAX_SMEM:
                     continue               # refused: checked in the tests
-                run(table, idx, upd, op, r < 32, block_m=bm, num_slots=k)
+                run(table, idx, upd, op, block_m=bm, num_slots=k)
         m = 4000
         upd = amu_table(gen, (m, r // 4), dtype)
         if dtype == torch.float32:
@@ -1780,9 +2051,52 @@ def check_scatter_paths(gen) -> float:
         for row, what in ((17, "one row hit by every update"),
                           (n - 1, "every update in the last row")):
             idx = torch.full((m,), row, dtype=torch.int32, device="cuda")
-            run(table, idx, upd, op, r < 32, quiet=False)
+            run(table, idx, upd, op, quiet=False)
             log(f"    ({what})")
-    log("  rows of 8-4096 B x M 1-4000 x block_m and K agree")
+    log("  rows of 8-4096 B x M 1-4000 x block_m and K agree (rows below "
+        "32 B down both paths: the rule's plan and the other one)")
+    # the bucket rule at its edges: tables of BUCKET_TABLE bytes and one
+    # row less, BUCKET_M updates and one less, GUPS and the [2^24, 3] table
+    # over the sweep's M, rows of 31 and 32 bytes
+    edges = [(r, n, m) for r in (3, 6, 8, 31, 32, 512)
+             for n in (5003, 1 << 24, 1 << 30, -(-asc.BUCKET_TABLE // r),
+                       -(-asc.BUCKET_TABLE // r) - 1)
+             for m in (1, asc.BUCKET_M - 1, asc.BUCKET_M, 1 << 20, 1 << 22,
+                       1 << 24, 1 << 26)]
+    for r, n, m in edges:
+        if bool(lib.async_scatter_bucketed(r, n, m)) != asc.bucketed(r, n, m):
+            raise AssertionError(f"bucket rule at rows of {r} B, N{n} M{m}: "
+                                 "the source and scatter_plan differ ... FAIL")
+    if not (asc.bucketed(8, 1 << 30, 1 << 26)
+            and not asc.bucketed(6, 1 << 24, 1 << 20)):
+        raise AssertionError("bucket rule: GUPS must be bucketed and 2^20 "
+                             "updates into [2^24, 3] not ... FAIL")
+    log(f"  bucket rule: the source and scatter_plan agree at {len(edges)} "
+        f"edges (rows < 32 B, tables of {asc.BUCKET_TABLE} B and more, M >= "
+        f"{asc.BUCKET_M}; GUPS bucketed, 2^20 updates into [2^24, 3] not)")
+    # the word path at scale, down both paths: 2^25 updates into tables of
+    # 1.5 GiB and more, rows of 3 and 6 bytes
+    for dtype, op, rows in ((torch.bfloat16, "add", 1 << 28),
+                            (torch.int8, "add", 3 << 27),
+                            (torch.uint16, "xor", 1 << 28)):
+        table = rand_typed(gen, (rows, 3), dtype)
+        idx = amu_index(gen, rows, 1 << 25)
+        upd = rand_typed(gen, (idx.numel(), 3), dtype)
+        runs = both_paths(table, idx, upd, op)
+        if not any(plan.bucket for plan, _ in runs):
+            raise AssertionError("the word-path case is not run bucketed "
+                                 "... FAIL")
+        for plan, got in runs:
+            name = (f"scatter {op} {tname(dtype)} [{rows},3], "
+                    f"{idx.numel()} updates "
+                    f"({'' if plan.bucket else 'not '}bucketed)")
+            if dtype.is_floating_point:
+                check_scatter16(name, got, table, idx, upd)
+            else:
+                check_same(name, got,
+                           ref.scatter_update_ref(table, idx, upd, op))
+        del table, idx, upd, runs
+        free_cuda()
 
     log("scatter bucket pass vs ref.scatter_bucket_ref: bit-exact")
     for n, m, r in ((5003, 4000, 8), (5003, 300_001, 12), (1 << 20,
@@ -1805,16 +2119,27 @@ def check_scatter_paths(gen) -> float:
         n, m = (1 << 20, 1 << 20)
         pairs = [(amu_table(gen, (n, r // 4), dtype), amu_index(gen, n, m),
                   amu_table(gen, (m, r // 4), dtype)) for _ in range(2)]
-        outs = [asc.async_scatter(t.clone(), i, u, op) for t, i, u in pairs]
-        for k, ((t, i, u), out) in enumerate(zip(pairs, outs)):
-            want = ref.scatter_update_ref(t, i, u, op)
-            name = f"{str(dtype)[6:]} {op} rows of {r} B, call {k + 1} of 2"
-            if dtype == torch.float32:
-                worst = max(worst, check_close(name, out, want,
-                                               **SCATTER_TOL))
-            else:
-                check_same(name, out, want)
-        del pairs, outs
+        # the rule's plan (through the wrapper), and below a sector the
+        # other one too: each pair of calls back to back
+        plan = asc.launch_plan(pairs[0][0], m, op)
+        runs = [(plan, [asc.async_scatter(t.clone(), i, u, op)
+                        for t, i, u in pairs])]
+        if r < asc.SECTOR:
+            other = asc.launch_plan(pairs[0][0], m, op,
+                                    bucket=not plan.bucket)
+            runs.append((other, [asc.launch(t.clone(), i, u, op, other)
+                                 for t, i, u in pairs]))
+        for plan, outs in runs:
+            for k, ((t, i, u), out) in enumerate(zip(pairs, outs)):
+                want = ref.scatter_update_ref(t, i, u, op)
+                name = (f"{describe(t, i, op, plan, {})}, call {k + 1} "
+                        "of 2")
+                if dtype == torch.float32:
+                    worst = max(worst, check_close(name, out, want,
+                                                   **SCATTER_TOL))
+                else:
+                    check_same(name, out, want)
+        del pairs, runs
     return worst
 
 
@@ -2268,14 +2593,20 @@ def run_recurrentgemma(kernels):
 F16_DECODE_STEPS = 8
 
 
-def kernel_names(fn) -> list:
-    """The CUDA kernels the profiler sees while `fn` runs, by name."""
+def kernel_counts(fn) -> dict:
+    """The CUDA kernels the profiler sees while `fn` runs: launches by
+    name."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def kernel_names(fn) -> list:
+    """The CUDA kernels the profiler sees while `fn` runs, by name."""
+    return sorted(kernel_counts(fn))
 
 
 def sdpa_backend(fn) -> str:
@@ -3048,9 +3379,9 @@ def run_amu(kernels, worst):
 
     # the inputs added last: 8/16-bit integer and float8 tables at 64
     # elements a row and at rows of 3 and 6 bytes (the word path: a CAS
-    # loop or a word's xor a lane; the narrow rows bucketed first), bf16 at
-    # rows of 6 bytes (its scalar reduction), 2^20 updates of which a
-    # quarter go to 4096 hot rows
+    # loop or a word's xor a lane; not bucketed: `bucketed`), bf16 at rows
+    # of 6 bytes (a pair reduction a word, -0.0 beside a lone element), 2^20
+    # updates of which a quarter go to 4096 hot rows
     rows, m = 1 << 24, 1 << 20
     extra_scatter = 0
     for dtype, op, width in ((torch.int8, "add", 64), (torch.int16, "add", 64),
@@ -3072,7 +3403,7 @@ def run_amu(kernels, worst):
         name = (f"scatter {op} [{rows},{width}] {tname(dtype)} ({row_bytes}-"
                 f"byte rows), {m} updates")
         out = drive(lambda: ops.scatter_update(table, idx, upd, op))
-        extra_scatter += 4 if row_bytes < asc.SECTOR else 1
+        extra_scatter += 4 if asc.bucketed(row_bytes, rows, m) else 1
         if dtype.is_floating_point:
             check_scatter16(name, out, table, idx, upd)
         else:
@@ -3239,7 +3570,7 @@ def run_amu(kernels, worst):
     # one launch per ops call, but async_scatter's GUPS (8-byte rows) runs
     # the bucket pass's three kernels before its apply: 4 + 4 (its uint32
     # view) + 1 + 1 + 1 (bf16 add), and the later types' scatters (four
-    # for a bucketed row of fewer than 32 bytes)
+    # for a bucketed call, `bucketed`)
     want = {"async_gather": 5, "async_scatter": 11 + extra_scatter,
             "stream_triad": 2 + len(triad_types)}
     log(f"  launches on the AMU path: {counts} (want {want}: one per ops "
@@ -3446,13 +3777,11 @@ MUTANTS = {
                             "if (c < Dh) ob[r * o_ss + c]",
                             "if (c < D) ob[r * o_ss + c]")],
     "paged_store_dp": [("paged_attention.cu",
-                        "if (EXACT || c0 + d0 + e < Dh) o[e] = "
-                        "from_float<EQ>(acc[e] * inv);",
-                        "o[e] = from_float<EQ>(acc[e] * inv);"),
+                        "if (EXACT || c0 + d0 + e < Dh) put(o + e, "
+                        "acc[e] * inv);", "put(o + e, acc[e] * inv);"),
                        ("paged_attention.cu",
-                        "if (EXACT || c0 + d0 + e < Dh) o[e] = "
-                        "from_float<EQ>(as[e] * inv);",
-                        "o[e] = from_float<EQ>(as[e] * inv);")],
+                        "if (EXACT || c0 + d0 + e < Dh) put(o + e, "
+                        "as[e] * inv);", "put(o + e, as[e] * inv);")],
     # ... scales by 1 / sqrt(Dp) ...
     "flash_scale_dp": [("flash_attention.cu",
                         "static_cast<float>(1.0 / sqrt((double)D));",
@@ -3535,9 +3864,10 @@ MUTANTS = {
                                "          if (o >= 0 && o <= R) {")],
     # ... dropping a bf16 / f16 element whose pair is a neighbour's ...
     "scatter16_lone_dropped": [("async_scatter.cu",
-                                "    else if (inside == 0xffff0000u)       "
-                                "   // one element: the row's first\n      "
-                                "red_add1<E>(p + 2, w >> 16);\n", "")],
+                                "      if (!nan16<E>(nb))\n        "
+                                "red_add2<E>(p, w | (0x80008000u & "
+                                "~inside));\n",
+                                "      if (!nan16<E>(nb))\n        ;\n")],
     # ... or reading e5m2 as e4m3
     "fp8_e5m2_as_e4m3": [("common.cuh",
                           "__nv_cvt_fp8_to_halfraw(x.__x, __NV_E5M2)",
@@ -3559,6 +3889,36 @@ MUTANTS = {
     "flash_256_rlo": [("flash_attention.cu",
                        "  const int rlo = q0 + wgi * 64;",
                        "  const int rlo = q0 + (D == 256 ? 0 : wgi) * 64;")],
+    # paged over fp8 caches on the tensor cores: K's fragments converted as
+    # the other kind (e5m2 read as e4m3) ...
+    "paged_fp8_k_kind": [("paged_attention.cu",
+                          "const int k_e5m2 = a.e5m2;",
+                          "const int k_e5m2 = 0;")],
+    # ... V's byte permute pairing the wrong keys (rows 2t + 1, 2t for the
+    # even columns) ...
+    "paged_fp8_v_pairs": [("paged_attention.cu",
+                           "const uint32_t sel = nt & 1 ? 0x3131u : "
+                           "0x2020u;",
+                           "const uint32_t sel = nt & 1 ? 0x3131u : "
+                           "0x0202u;")],
+    # ... and the output in fp8 saturating (e4m3fn 500 -> 448, not NaN)
+    "paged_fp8_out_saturating": [("paged_attention.cu",
+                                  "          to_fp8(x, qt == DTYPE_E5M2 ? "
+                                  "__NV_E5M2 : __NV_E4M3);",
+                                  "          __nv_cvt_float_to_fp8(x, "
+                                  "__NV_SATFINITE, qt == DTYPE_E5M2 ? "
+                                  "__NV_E5M2 : __NV_E4M3);")],
+    # the scatter's lone 16-bit element: the neighbour's half carrying +0.0
+    # (which turns a -0.0 neighbour into +0.0) ...
+    "scatter16_plus_zero": [("async_scatter.cu",
+                             "red_add2<E>(p, w | (0x80008000u & ~inside));",
+                             "red_add2<E>(p, w);")],
+    # ... and the apply of a call that is not bucketed (K slots: K > 1)
+    # reducing each update into the row after its own
+    "scatter_unbucketed_next_row": [("async_scatter.cu",
+                                     "      const int row = sidx[u];",
+                                     "      const int row = sidx[u] + "
+                                     "(K > 1);")],
 }
 
 
@@ -3843,53 +4203,91 @@ def run_mutants(names=(), timeout_s: int = 300) -> bool:
         raise AssertionError(f"no mutants {sorted(unknown)}")
     caught = True
     chosen = [n for n in MUTANTS if not names or n in names]
+    from repro_torch.kernels import _build
+    _build.build_all()                 # the libraries the copies reuse
     for name in chosen:
         make_mutant(name)
-    # the copies' kernels are built first, three copies at a time (each
-    # runs one nvcc a source): the longest source dominates one build, so
-    # several overlap on the machine's cores
-    for i in range(0, len(chosen), 3):
-        procs = [subprocess.Popen(
-            [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
-             " from repro_torch.kernels import _build; _build.build_all()",
-             os.path.join(ROOT, "build", "mutants", name, "src")],
-            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
-            for name in chosen[i:i + 3]]
-        for proc in procs:
-            proc.wait()
-    for name in chosen:
-        dst = os.path.join(ROOT, "build", "mutants", name)
-        proc = subprocess.run(
-            ["timeout", "-s", "KILL", str(timeout_s), sys.executable,
-             os.path.join(dst, "chip_smoke.py"), "--kernels-only"],
-            capture_output=True, text=True)
-        why = [line.strip() for line in proc.stdout.splitlines()
-               if line.endswith("FAIL")] \
-            or proc.stderr.strip().splitlines()[-1:] or ["no output"]
-        log(f"mutant {name}: exit {proc.returncode} "
-            f"({'caught' if proc.returncode else 'NOT CAUGHT'}): {why[0]}")
-        caught = caught and proc.returncode != 0
+    # the copies' kernels are built first, eight builds at a time (each
+    # runs one nvcc for its edited source, or one a source where a header
+    # is edited), so that the paged source's long builds overlap on the
+    # machine's cores; then three copies' checks at a time on the card
+    build = [[sys.executable, "-c", "import sys; sys.path.insert(0, "
+              "sys.argv[1]); from repro_torch.kernels import _build; "
+              "_build.build_all()",
+              os.path.join(ROOT, "build", "mutants", name, "src")]
+             for name in chosen]
+    run_pool(build, 8)
+    checks = [["timeout", "-s", "KILL", str(timeout_s), sys.executable,
+               os.path.join(ROOT, "build", "mutants", name, "chip_smoke.py"),
+               "--kernels-only"] for name in chosen]
+    logs = [os.path.join(ROOT, "build", "mutants", name, "kernels_only.log")
+            for name in chosen]
+    for name, code, path in zip(chosen, run_pool(checks, 3, logs), logs):
+        with open(path) as f:
+            lines = [line.strip() for line in f if line.strip()]
+        why = [line for line in lines if line.endswith("FAIL")] \
+            or lines[-1:] or ["no output"]
+        log(f"mutant {name}: exit {code} "
+            f"({'caught' if code else 'NOT CAUGHT'}): {why[0]}")
+        caught = caught and code != 0
     return caught
+
+
+def run_pool(cmds, width, logs=None) -> list:
+    """Runs `cmds`, `width` at a time, each one's output and errors into
+    its file of `logs` (else nowhere); returns their exit codes, in the
+    order of `cmds`."""
+    codes = [None] * len(cmds)
+    live = {}
+    todo = list(enumerate(cmds))
+    while todo or live:
+        while todo and len(live) < width:
+            i, cmd = todo.pop(0)
+            out = open(logs[i], "w") if logs else subprocess.DEVNULL
+            live[i] = subprocess.Popen(cmd, stdout=out,
+                                       stderr=subprocess.STDOUT)
+            if logs:
+                out.close()
+        for i, proc in list(live.items()):
+            if proc.poll() is not None:
+                codes[i] = proc.returncode
+                del live[i]
+        time.sleep(0.5)
+    return codes
 
 
 def make_mutant(name):
     """The copy of src/ and this script under build/mutants/NAME with the
-    mutant's edits made (each text must be in its source exactly once)."""
+    mutant's edits made (each text must be in its source exactly once).
+    The libraries of this tree's build whose source the mutant leaves as it
+    is (all of them but the edited one, none where a header is edited) are
+    put in the copy's build directory, so that it compiles the edited
+    source alone."""
+    from pathlib import Path
+    from repro_torch.kernels import _build
     dst = os.path.join(ROOT, "build", "mutants", name)
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(ROOT, "src"), os.path.join(dst, "src"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.abspath(__file__), dst)
+    csrc = Path(dst, "src", "repro_torch", "kernels", "csrc")
     for source, old, new in MUTANTS[name]:
-        path = os.path.join(dst, "src", "repro_torch", "kernels", "csrc",
-                            source)
-        with open(path) as f:
-            text = f.read()
+        path = csrc / source
+        text = path.read_text()
         if text.count(old) != 1:
             raise AssertionError(f"mutant {name}: its text is not in "
                                  f"{source} exactly once")
-        with open(path, "w") as f:
-            f.write(text.replace(old, new))
+        path.write_text(text.replace(old, new))
+    edited = {source for source, _, _ in MUTANTS[name]}
+    if any(s.endswith(".cuh") for s in edited):
+        return
+    built = _build.build_dir() / _build._source_hash()
+    out = (Path(dst) / "build" / "repro_torch_kernels"
+           / _build._source_hash(csrc))
+    out.mkdir(parents=True, exist_ok=True)
+    for lib in built.glob("lib*.so"):
+        if f"{lib.stem[3:]}.cu" not in edited:
+            shutil.copy(lib, out / lib.name)
 
 
 # --------------------------------------------------------------------- main
@@ -3941,6 +4339,7 @@ def main() -> int:
     check_offload(gen)
     amu_worst = check_amu_kernels(gen)
     check_every_type(gen)
+    check_paged_fp8(gen)
     fp8_serve_shapes(gen)
 
     # 4. the slice and the later paths, then training; 5. the AMU kernels'

@@ -52,8 +52,18 @@ uint16, e4m3, e5m2 and into rows of 3 and 6 bytes, xor into int8 and
 uint16 rows of 64 elements and of 3, bf16 add into [2^24, 3] (library:
 `index_add_` where torch has it, none for xor and float8); the gather of
 [2^24, 64] e4m3 rows (library: `index_select` of the rows' bytes). Triad
-also runs in bf16. `--only` picks some of flash, paged, gather, triad,
-scatter, scatter_bf16, types. For each:
+also runs in bf16. Four sets run only when named: `paged_fp8` (paged
+over float8 caches at qwen2.5-3b's decode under e4m3 / e5m2 / bf16 / f16
+q, and its element body at D 8 and 100, each with the kernels one call
+runs on the device, from the profiler), `paged_mixed` (the same over
+bf16 caches under a float32 and a float16 q), `scatter_narrow` (2^20 updates
+into rows of 3 and 6 bytes: bf16 and f16 add, xor, int8 / int16 / e4m3
+add, and the bucket pass alone) and `scatter_sweep` (M from 2^20 to
+2^26 into [2^24, 3], [2^26, 3] and [2^28, 3] bf16 tables and at GUPS,
+bucketed and not where the tree can be given the path, else as it plans).
+`--only` picks some of flash, paged, gather, triad, scatter,
+scatter_bf16, types, paged_fp8, paged_mixed, scatter_narrow,
+scatter_sweep. For each:
 kernel ms (CUDA
 events, mean of back-to-back calls, best of 5 windows, as in chip_smoke.py),
 host us a call (perf_counter over 50 calls without a synchronise), the
@@ -156,6 +166,16 @@ def main() -> int:
         rows.append(bench_scatter_bf16(cs, asc, ref, gen))
     if "types" in args.only and torch.int8 in st.TYPES:
         rows.extend(bench_types(cs, fa, pa, ag, asc, st, ref, F, gen))
+    if "paged_fp8" in args.only:
+        rows.extend(bench_paged_fp8(cs, pa, ref, F, gen))
+    if "paged_mixed" in args.only:
+        rows.extend(bench_paged_typed(cs, pa, ref, F, gen, q_dtype,
+                                      torch.bfloat16)
+                    for q_dtype in (torch.float32, torch.float16))
+    if "scatter_narrow" in args.only:
+        rows.extend(bench_scatter_narrow(cs, asc, ref, gen))
+    if "scatter_sweep" in args.only:
+        rows.extend(bench_scatter_sweep(cs, asc, ref, gen))
     for r in rows:
         lib = r["library_ms"]
         extra = "".join(f", {k} {r[k]:.5f} ms" for k in
@@ -404,33 +424,10 @@ def bench_types(cs, fa, pa, ag, asc, st, ref, F, gen):
                 bq, bk, bv, is_causal=True, enable_gqa=True)], 10),
             bound_ms=cs.flash_bound(b, hq, hkv, s, d, 0, dtype)[0]))
         del q, k, v, bq, bk, bv
-    t = s + cs.MAX_NEW
-    lens = torch.tensor([t, s + 1, (t + 2) // 2, 64], dtype=torch.int32,
-                        device="cuda")
-    mask = (torch.arange(t, device="cuda")[None, :]
-            < lens[:, None])[:, None, None, :]
     for q_dtype, dtype in ((torch.float8_e4m3fn, torch.float8_e4m3fn),
                            (torch.float8_e5m2, torch.float8_e5m2),
                            (torch.bfloat16, torch.float8_e4m3fn)):
-        sets = [(cs.rand_typed(gen, (b, hq, d), q_dtype, cs.Q_SCALE),
-                 cs.rand_typed(gen, (b, t, hkv, d), dtype),
-                 cs.rand_typed(gen, (b, t, hkv, d), dtype))
-                for _ in range(16)]
-        cs.check_ulp("paged", pa.paged_attention(*sets[0], lens),
-                     ref.paged_attention_ref(*sets[0], lens), quiet=True)
-        wide = [tuple(x.to(torch.bfloat16) for x in w) for w in sets]
-        rows.append(dict(
-            kernel="paged_attention",
-            case=f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} q {cs.tname(q_dtype)} "
-                 f"caches {cs.tname(dtype)} ({pa.body_for(dtype, d)} body; "
-                 "library on bf16 copies)",
-            ms=cs.time_ms([lambda x=x: pa.paged_attention(*x, lens)
-                           for x in sets], 64),
-            library_ms=cs.time_ms([lambda w=w: F.scaled_dot_product_attention(
-                w[0][:, :, None], w[1].transpose(1, 2), w[2].transpose(1, 2),
-                attn_mask=mask, enable_gqa=True) for w in wide], 64),
-            bound_ms=cs.paged_bound(lens, hq, hkv, d, dtype, q_dtype)[0]))
-        del sets, wide
+        rows.append(bench_paged_typed(cs, pa, ref, F, gen, q_dtype, dtype))
     n = 1 << 28
     for dtype in (torch.int8, torch.uint8, torch.int16, torch.int32,
                   *cs.FP8):
@@ -448,7 +445,6 @@ def bench_types(cs, fa, pa, ag, asc, st, ref, F, gen):
             bound_ms=cs.amu_bound(3 * n * x.element_size(), 2 * n)[0]))
         del x, y
         cs.free_cuda()
-    rows_n, m = 1 << 24, 1 << 20
     for dtype, op, w in ((torch.int8, "add", 64), (torch.int16, "add", 64),
                          (torch.uint16, "add", 64),
                          (torch.float8_e4m3fn, "add", 64),
@@ -457,35 +453,8 @@ def bench_types(cs, fa, pa, ag, asc, st, ref, F, gen):
                          (torch.int8, "xor", 64), (torch.uint16, "xor", 64),
                          (torch.int8, "xor", 3), (torch.uint16, "xor", 3),
                          (torch.bfloat16, "add", 3)):
-        table = cs.rand_typed(gen, (rows_n, w), dtype)
-        idx = cs.amu_index(gen, rows_n, m)
-        idx[::4] %= 4096
-        upd = cs.rand_typed(gen, (m, w), dtype)
-        out = asc.async_scatter(table.clone(), idx, upd, op)
-        if dtype.is_floating_point:
-            ok = cs.check_scatter16(op, out, table, idx, upd, raise_=False)
-        else:
-            cs.check_same(op, out, ref.scatter_update_ref(table, idx, upd, op),
-                          quiet=True)
-            ok = True
-        library_ms = None
-        if op == "add" and dtype not in cs.FP8:
-            try:
-                library_ms = cs.time_ms([lambda: out.index_add_(0, idx, upd)],
-                                        20)
-            except (RuntimeError, NotImplementedError):
-                pass
-        nbytes, sectors = cs.scatter_bytes(idx, w * table.element_size())
-        rows.append(dict(
-            kernel="async_scatter",
-            case=f"{op} [{rows_n},{w}] {cs.tname(dtype)}, {m} updates",
-            ms=cs.time_ms([lambda: asc.async_scatter(out, idx, upd, op)], 20),
-            host_us=cs.host_us(lambda: asc.async_scatter(out, idx, upd, op)),
-            library_ms=library_ms, bound_ms=cs.amu_bound(nbytes, m * w)[0],
-            sector_bound_ms=cs.amu_bound(sectors)[0],
-            check="ok" if ok else "FAIL"))
-        del table, idx, upd, out
-        cs.free_cuda()
+        rows.append(bench_scatter_typed(cs, asc, ref, gen, dtype, op, w))
+    rows_n, m = 1 << 24, 1 << 20
     table = cs.rand_typed(gen, (rows_n, 64), torch.float8_e4m3fn)
     idx = cs.amu_index(gen, rows_n, m)
     cs.check_same("gather", ag.async_gather(table, idx),
@@ -499,6 +468,211 @@ def bench_types(cs, fa, pa, ag, asc, st, ref, F, gen):
             cs.bits(table), 0, idx)], 20),
         bound_ms=cs.amu_bound(touched * 64 + m * 64 + m * 4)[0]))
     del table, idx
+    cs.free_cuda()
+    return rows
+
+
+def paged_lengths(t):
+    """The serve shape's lengths at T = t: [T, prompt + 1, (T + 2) // 2,
+    64], with the mask SDPA takes for them."""
+    lens = torch.tensor([t, t - 31, (t + 2) // 2, 64], dtype=torch.int32,
+                        device="cuda")
+    mask = (torch.arange(t, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    return lens, mask
+
+
+def bench_paged_typed(cs, pa, ref, F, gen, q_dtype, dtype, d=128, hq=16,
+                      hkv=2):
+    """Paged at qwen2.5-3b's decode (T = 1032) with q of `q_dtype` over
+    caches of `dtype`, checked once (one unit in the last place of a
+    float8 output, PAGED_BF16_TOL / PAGED_F16_TOL of a 16-bit one), timed
+    over 16 caches in turn beside SDPA on bf16 copies and the bound."""
+    b, t = cs.BATCH, cs.PROMPT_LEN + cs.MAX_NEW
+    lens, mask = paged_lengths(t)
+    sets = [(cs.rand_typed(gen, (b, hq, d), q_dtype, cs.Q_SCALE),
+             cs.rand_typed(gen, (b, t, hkv, d), dtype),
+             cs.rand_typed(gen, (b, t, hkv, d), dtype)) for _ in range(16)]
+    got = pa.paged_attention(*sets[0], lens)
+    want = ref.paged_attention_ref(*sets[0], lens)
+    if q_dtype in cs.FP8:
+        cs.check_ulp("paged", got, want, quiet=True)
+    else:
+        cs.check_close("paged", got, want, quiet=True,
+                       **(cs.PAGED_F16_TOL if q_dtype == torch.float16
+                          else cs.PAGED_BF16_TOL))
+    wide = [tuple(x.to(torch.bfloat16) for x in w) for w in sets]
+    products = (f", {pa.products_on(q_dtype, dtype, d)}"
+                if hasattr(pa, "products_on") else "")
+    row = dict(
+        kernel="paged_attention",
+        case=f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} q {cs.tname(q_dtype)} "
+             f"caches {cs.tname(dtype)} ({pa.body_for(dtype, d)} body"
+             f"{products}; library on bf16 copies)",
+        ms=cs.time_ms([lambda x=x: pa.paged_attention(*x, lens)
+                       for x in sets], 64),
+        host_us=cs.host_us(lambda: pa.paged_attention(*sets[0], lens)),
+        library_ms=cs.time_ms([lambda w=w: F.scaled_dot_product_attention(
+            w[0][:, :, None], w[1].transpose(1, 2), w[2].transpose(1, 2),
+            attn_mask=mask, enable_gqa=True) for w in wide], 64),
+        bound_ms=cs.paged_bound(lens, hq, hkv, d, dtype, q_dtype)[0])
+    row["device_kernels"] = sum(cs.kernel_counts(
+        lambda: pa.paged_attention(*sets[0], lens)).values())
+    return row
+
+
+def bench_paged_fp8(cs, pa, ref, F, gen):
+    """`paged_fp8`: float8 caches at qwen2.5-3b's decode under a q of each
+    kind the tensor-core body takes (e4m3 / e5m2 over their own kind, bf16
+    over e4m3, f16 over e5m2), and the element body (rows of no whole
+    16-byte pieces) at D 8 and 100 in e4m3. Each row also counts the
+    kernels the profiler sees in one call (`device_kernels`)."""
+    rows = [bench_paged_typed(cs, pa, ref, F, gen, q_dtype, dtype)
+            for q_dtype, dtype in (
+                (torch.float8_e4m3fn, torch.float8_e4m3fn),
+                (torch.float8_e5m2, torch.float8_e5m2),
+                (torch.bfloat16, torch.float8_e4m3fn),
+                (torch.float16, torch.float8_e5m2))]
+    for d in (8, 100):
+        rows.append(bench_paged_typed(cs, pa, ref, F, gen,
+                                      torch.float8_e4m3fn,
+                                      torch.float8_e4m3fn, d=d))
+    return rows
+
+
+def bench_scatter_typed(cs, asc, ref, gen, dtype, op, w, rows_n=1 << 24,
+                        m=1 << 20, hot=True, check=True):
+    """`op` of m updates into [rows_n, w] of `dtype` (`hot`: a quarter of
+    them into 4096 hot rows), checked once against the plain version
+    (`check`), timed beside `index_add_` where torch has it."""
+    table = cs.rand_typed(gen, (rows_n, w), dtype)
+    idx = cs.amu_index(gen, rows_n, m)
+    if hot:
+        idx[::4] %= 4096
+    upd = cs.rand_typed(gen, (m, w), dtype)
+    out = asc.async_scatter(table.clone(), idx, upd, op)
+    ok = True
+    if check and dtype.is_floating_point:
+        ok = cs.check_scatter16(op, out, table, idx, upd, raise_=False)
+    elif check:
+        cs.check_same(op, out, ref.scatter_update_ref(table, idx, upd, op),
+                      quiet=True)
+    library_ms = None
+    if op == "add" and dtype not in cs.FP8:
+        try:
+            library_ms = cs.time_ms([lambda: out.index_add_(0, idx, upd)],
+                                    20)
+        except (RuntimeError, NotImplementedError):
+            pass
+    nbytes, sectors = cs.scatter_bytes(idx, w * table.element_size())
+    plan = asc.launch_plan(out, m, op)
+    row = dict(
+        kernel="async_scatter",
+        case=f"{op} [{rows_n},{w}] {cs.tname(dtype)}, {m} updates"
+             f"{'' if hot else ' (uniform)'}"
+             f"{' (bucketed)' if plan.bucket else ''}",
+        ms=cs.time_ms([lambda: asc.async_scatter(out, idx, upd, op)], 20),
+        host_us=cs.host_us(lambda: asc.async_scatter(out, idx, upd, op)),
+        library_ms=library_ms, bound_ms=cs.amu_bound(nbytes, m * w)[0],
+        sector_bound_ms=cs.amu_bound(sectors)[0],
+        check="ok" if ok else "FAIL")
+    del table, idx, upd, out
+    cs.free_cuda()
+    return row
+
+
+def bench_scatter_narrow(cs, asc, ref, gen):
+    """`scatter_narrow`: 2^20 updates (a quarter into 4096 hot rows) into
+    rows of 3 and 6 bytes of a [2^24, 3] table: bf16 and f16 add (the
+    16-bit add at rows of no whole 4-byte words), xor (uint16, int8), int8,
+    int16 and e4m3 add; then the bucket pass alone on the bf16 case's
+    updates (bound: the indices read twice and written once, the rows read
+    and written once), so that the apply is the total less the pass."""
+    rows = [bench_scatter_typed(cs, asc, ref, gen, dtype, op, 3)
+            for dtype, op in ((torch.bfloat16, "add"),
+                              (torch.float16, "add"),
+                              (torch.uint16, "xor"), (torch.int8, "xor"),
+                              (torch.int8, "add"), (torch.int16, "add"),
+                              (torch.float8_e4m3fn, "add"))]
+    n, m = 1 << 24, 1 << 20
+    idx = cs.amu_index(gen, n, m)
+    idx[::4] %= 4096
+    upd = cs.rand_typed(gen, (m, 3), torch.bfloat16)
+    rows.append(dict(
+        kernel="async_scatter",
+        case=f"bucket pass alone, [{n},3] bf16 rows, {m} updates",
+        ms=cs.time_ms([lambda: asc.scatter_bucket(idx, upd, n)], 20),
+        host_us=cs.host_us(lambda: asc.scatter_bucket(idx, upd, n)),
+        library_ms=None, bound_ms=cs.amu_bound(m * (3 * 4 + 2 * 6))[0]))
+    del idx, upd
+    cs.free_cuda()
+    return rows
+
+
+def bench_scatter_sweep(cs, asc, ref, gen):
+    """`scatter_sweep`: M of 2^20, 2^22, 2^24, 2^25 and 2^26 updates into
+    narrow rows of four table sizes about the bucket rule's: bf16 add into
+    [2^24, 3] (96 MiB), [2^26, 3] (384 MiB) and [2^28, 3] (1.5 GiB), a
+    quarter into 4096 hot rows, checked once a path; GUPS (xor into
+    [2^30, 2] int32, 8 GiB, uniform, unchecked: `scatter` checks it at
+    2^26). Each call down both paths, bucketed and not, where the tree's
+    `launch_plan` takes `bucket` (`async_scatter.launch` on that plan), else
+    as the tree plans it."""
+    both = hasattr(asc, "launch") and hasattr(asc, "bucketed")
+    rows = []
+
+    def sweep(table, op, make, check):
+        n, w = table.shape
+        for m in (1 << 20, 1 << 22, 1 << 24, 1 << 25, 1 << 26):
+            idx, upd = make(m)
+            nbytes, sectors = cs.scatter_bytes(idx, w * table.element_size())
+            for force in ((True, False) if both else (None,)):
+                plan = (asc.launch_plan(table, m, op) if force is None
+                        else asc.launch_plan(table, m, op, bucket=force))
+
+                def call(out, plan=plan, force=force):
+                    return (asc.async_scatter(out, idx, upd, op)
+                            if force is None
+                            else asc.launch(out, idx, upd, op, plan))
+                ok = True
+                if check:
+                    got = call(table.clone())
+                    ok = cs.check_scatter16(op, got, table, idx, upd,
+                                            raise_=False)
+                    del got
+                rule = (" (the rule's)" if both and plan.bucket
+                        == asc.bucketed(w * table.element_size(), n, m)
+                        else "")
+                rows.append(dict(
+                    kernel="async_scatter",
+                    case=f"{op} [{n},{w}] {cs.tname(table.dtype)}, {m} "
+                         f"updates, {'bucketed' if plan.bucket else 'not'}"
+                         f"{rule}",
+                    ms=cs.time_ms([lambda: call(table)], 10),
+                    library_ms=None,
+                    bound_ms=cs.amu_bound(nbytes, m * w)[0],
+                    sector_bound_ms=cs.amu_bound(sectors)[0],
+                    check="ok" if ok else "FAIL"))
+            del idx, upd
+            cs.free_cuda()
+
+    def hot16(n):
+        def make(m):
+            idx = cs.amu_index(gen, n, m)
+            idx[::4] %= 4096
+            return idx, cs.rand_typed(gen, (m, 3), torch.bfloat16)
+        return make
+
+    for n in (1 << 24, 1 << 26, 1 << 28):
+        table = cs.rand_typed(gen, (n, 3), torch.bfloat16)
+        sweep(table, "add", hot16(n), True)
+        del table
+        cs.free_cuda()
+    table = cs.amu_table(gen, (1 << 30, 2), torch.int32)
+    sweep(table, "xor", lambda m: (cs.amu_index(gen, 1 << 30, m),
+                                   cs.amu_table(gen, (m, 2), torch.int32)),
+          False)
+    del table
     cs.free_cuda()
     return rows
 

@@ -50,9 +50,11 @@ def _sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _source_hash() -> str:
+def _source_hash(csrc: Path = CSRC) -> str:
+    """The build directory's key: every source and header under `csrc`,
+    and the flags."""
     h = hashlib.sha256()
-    for path in sorted(CSRC.iterdir()):
+    for path in sorted(csrc.iterdir()):
         if path.suffix in (".cu", ".cuh"):
             h.update(path.name.encode())
             h.update(path.read_bytes())

@@ -12,11 +12,12 @@ return it, as the reference's kernel does through `input_output_aliases`;
 `ops.scatter_update` keeps the reference's value semantics by cloning first.
 
 `scatter_plan` lays a call over the card: whether its updates are bucketed
-by table region first (rows narrower than a 32-byte sector: the fixed rule of
-the source, `async_scatter_bucketed`), how the bucket pass tiles them, how
+by table region first (rows narrower than a 32-byte sector into a table of
+8 GiB or more, 2^26 updates or more: `bucketed`, the fixed rule of the
+source's `async_scatter_bucketed`), how the bucket pass tiles them, how
 many updates a slot of the apply kernel holds, and its grid: a block a
-64-update span of the bucketed stream, in the stream's order, or a
-persistent K-slot ring for wider rows. 8- and 16-bit integers, float8, and
+64-update span of the bucketed stream, in the stream's order, or else a
+persistent K-slot ring. 8- and 16-bit integers, float8, and
 rows of no whole 4-byte words take the source's word path (a reduction or
 a CAS loop on each aligned word that holds part of a row).
 """
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,9 +55,14 @@ REDUCE_WIDTH = {("xor", torch.int32): 8, ("add", torch.int32): 4,
                 **{(op, t): 4 for t in SMALL_INTS for op in OPS},
                 ("add", torch.float8_e4m3fn): 4,
                 ("add", torch.float8_e5m2): 4}
-SECTOR = 32             # bytes of an L2 sector: narrower rows are bucketed
+SECTOR = 32             # bytes of an L2 sector: narrower rows may be bucketed
+# ... in a table of BUCKET_TABLE bytes or more, by BUCKET_M updates or more
+# (`bucketed`)
+BUCKET_TABLE = 1 << 33
+BUCKET_M = 1 << 26
 MAX_BUCKETS = 256       # table regions of the bucket pass (32 MB at GUPS)
 BLOCKS_PER_SM = 2       # persistent apply blocks an SM (of 4 warps each)
+NARROW_BLOCKS_PER_SM = 8    # ... for rows narrower than a sector
 BUCKET_SPAN = 64        # updates a block takes of the bucketed stream
 
 launches = 0            # +1 for every launch of a CUDA kernel, nowhere else
@@ -121,6 +127,21 @@ def bucket_layout(n: int, m: int, row_bytes: int,
     return shift, buckets, sub, tile, max(1, _ceil(m, tile))
 
 
+def bucketed(row_bytes: int, n: int, m: int) -> bool:
+    """Whether a call of m updates of `row_bytes` into a table of n rows is
+    bucketed by table region before the apply: rows narrower than a sector,
+    a table of at least BUCKET_TABLE bytes (160 times the L2) and at least
+    BUCKET_M updates (the fixed rule of the source,
+    `async_scatter_bucketed`). Both edges are points measured on an H100
+    (`kernel_bench.py --only scatter_sweep`, PERF.md), M of 2^20 to 2^26
+    each bucketed and not: into [2^24, 3], [2^26, 3] and [2^28, 3] bf16
+    tables (96 MiB to 1.5 GiB) the apply alone, at NARROW_BLOCKS_PER_SM,
+    was faster at every M; at GUPS ([2^30, 2] int32, 8 GiB) up to 2^24,
+    even at 2^25 and slower at 2^26."""
+    return (row_bytes < SECTOR and n * row_bytes >= BUCKET_TABLE
+            and m >= BUCKET_M)
+
+
 def unit(row_bytes: int) -> int:
     """Updates one bulk copy of the apply or the bucket pass moves a whole
     number of: 4 (16 bytes of indices) where a row is whole 4-byte words,
@@ -132,7 +153,8 @@ def unit(row_bytes: int) -> int:
 def scatter_plan(row_bytes: int, n: int, m: int, block_m: int,
                  num_slots: int, align: int, sms: int,
                  blocks_per_sm: Callable[[int, int], int],
-                 by_word: bool = False) -> ScatterPlan:
+                 by_word: bool = False,
+                 bucket: Optional[bool] = None) -> ScatterPlan:
     """The call of `m` updates of `row_bytes` into a table of `n` rows on a
     card of `sms` SMs. `align` is the largest of 16, 8, 4 dividing the
     table's address and the op's widest reduction (REDUCE_WIDTH): the
@@ -141,17 +163,20 @@ def scatter_plan(row_bytes: int, n: int, m: int, block_m: int,
     no whole 4-byte words take chunk 1: a lane an aligned word holding part
     of a row. `blocks_per_sm(chunk, smem)` is the apply's occupancy.
 
-    Bucketed iff the row is narrower than a sector. A span of the apply
+    Bucketed as `bucketed` says (`bucket`, where given, overrides the rule
+    for rows narrower than a sector: the checks run both paths at any
+    size). A span of the apply
     takes at most `block_m` updates (rounded down to a multiple of `unit`,
     the bulk copies', and at least one unit) and no more than a share of
     the card's M (so that every SM gets a span where M allows). The bucketed
     stream: spans of at most BUCKET_SPAN, one slot a block and a block a
     span, so that the card's blocks walk the stream in order with few
-    updates in flight (`num_slots` does not apply). Wider rows: K slots a
-    block, spans small enough to leave room for BLOCKS_PER_SM blocks an SM,
-    a persistent grid of BLOCKS_PER_SM blocks an SM, or fewer if the spans
-    or the occupancy are fewer. Raises where K slots of 4 updates do not
-    fit."""
+    updates in flight (`num_slots` does not apply). Otherwise: K slots a
+    block, spans small enough to leave room for BLOCKS_PER_SM blocks an SM
+    (NARROW_BLOCKS_PER_SM for rows narrower than a sector, whose lanes wait
+    on more round trips an update), a persistent grid of that many blocks
+    an SM, or fewer if the spans or the occupancy are fewer. Raises where
+    K slots of 4 updates do not fit."""
     if align % 4:
         raise ValueError("the table must start on a 4-byte boundary")
     if by_word or row_bytes % 4:
@@ -163,14 +188,16 @@ def scatter_plan(row_bytes: int, n: int, m: int, block_m: int,
     lanes = 1 << (min(32, pieces).bit_length() - 1)
     u = unit(row_bytes)
     mu = m - m % u
-    bucket = row_bytes < SECTOR
+    bucket = (bucketed(row_bytes, n, m) if bucket is None
+              else bucket and row_bytes < SECTOR)
+    per = NARROW_BLOCKS_PER_SM if row_bytes < SECTOR else BLOCKS_PER_SM
     # a span: at most block_m updates, no more than a share of M an SM
     span = min(max(u, block_m // u * u), max(u, mu // sms // u * u))
     if bucket:      # a block one span of BUCKET_SPAN at most, one slot
         span, slots = min(span, BUCKET_SPAN), 1
-    else:           # K slots of a span, leaving room for two blocks an SM
+    else:           # K slots of a span, leaving room for `per` blocks an SM
         slots = num_slots
-        budget = MAX_SMEM // BLOCKS_PER_SM - 1024
+        budget = MAX_SMEM // per - 1024
         while span > u and apply_smem(span, slots, row_bytes) > budget:
             span -= u
     smem = apply_smem(span, slots, row_bytes)
@@ -186,7 +213,7 @@ def scatter_plan(row_bytes: int, n: int, m: int, block_m: int,
     if bucket:      # a block a span, the blocks in the stream's order
         blocks = max(1, spans)
     else:           # persistent, a span at a time through the K slots
-        blocks = max(1, min(spans, min(BLOCKS_PER_SM, per_sm) * sms))
+        blocks = max(1, min(spans, min(per, per_sm) * sms))
     shift, buckets, sub, tile, tiles = (bucket_layout(n, m, row_bytes, sms)
                                         if bucket else (0, 0, 0, 0, 0))
     return ScatterPlan(bucket, shift, buckets, sub, tile, tiles, chunk, lanes,
@@ -208,7 +235,7 @@ def _bind():
         lib.async_scatter_blocks_per_sm.restype = ctypes.c_int
         lib.async_scatter_apply_smem.argtypes = [i, i, i]
         lib.async_scatter_apply_smem.restype = ctypes.c_longlong
-        lib.async_scatter_bucketed.argtypes = [i]
+        lib.async_scatter_bucketed.argtypes = [i, ll, ll]
         lib.async_scatter_bucketed.restype = ctypes.c_int
     return lib, fn
 
@@ -229,22 +256,24 @@ def _blocks_per_sm(device: int, op: str, dtype: torch.dtype, chunk: int,
 @functools.lru_cache(maxsize=4096)
 def _card_plan(device: int, op: str, dtype: torch.dtype, row_bytes: int,
                n: int, m: int, block_m: int, num_slots: int,
-               align: int) -> ScatterPlan:
+               align: int, bucket: Optional[bool]) -> ScatterPlan:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return scatter_plan(row_bytes, n, m, block_m, num_slots, align, sms,
                         functools.partial(_blocks_per_sm, device, op, dtype),
-                        dtype in WORD_TYPES)
+                        dtype in WORD_TYPES, bucket)
 
 
 def launch_plan(table: torch.Tensor, m: int, op: str = "add",
-                block_m: int = 256, num_slots: int = 8) -> ScatterPlan:
+                block_m: int = 256, num_slots: int = 8,
+                bucket: Optional[bool] = None) -> ScatterPlan:
     """The plan `async_scatter` launches for `m` updates of this CUDA table,
-    cached per type, row, table size, M and card."""
+    cached per type, row, table size, M and card (`bucket`: as
+    `scatter_plan`'s)."""
     n, d = table.shape
     return _card_plan(table.device.index, op, table.dtype,
                       d * table.element_size(), n, m, block_m, num_slots,
                       min(_align(table.data_ptr()),
-                          REDUCE_WIDTH[op, table.dtype]))
+                          REDUCE_WIDTH[op, table.dtype]), bucket)
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -323,10 +352,10 @@ def async_scatter(table: torch.Tensor, indices: torch.Tensor,
     4-byte words, run as int32 on a view of the same bits; 64-bit types
     are refused (the reference makes them 32-bit before any kernel runs).
     A span of the apply takes at most `block_m` updates and `num_slots`
-    spans are in flight in each block of rows of 32 bytes and more; rows
-    narrower than a sector are bucketed by table region first and applied a
-    span of at most 64 updates a block (`scatter_plan`). Any M is taken."""
-    global launches
+    spans are in flight in each block of a call that is not bucketed; rows
+    narrower than a sector are bucketed by table region first where the
+    call has many updates (`bucketed`), then applied a span of at most 64
+    updates a block (`scatter_plan`). Any M is taken."""
     if op not in OPS:
         raise ValueError(f"async_scatter: op {op!r} is not add or xor")
     row_bytes = check_ring_args("async_scatter", table, indices, block_m,
@@ -368,15 +397,26 @@ def async_scatter(table: torch.Tensor, indices: torch.Tensor,
         async_scatter(table.view(torch.int32), indices,
                       updates.view(torch.int32), op, block_m, num_slots)
         return table
-    plan = launch_plan(table, M, op, block_m, num_slots)
+    return launch(table, indices, updates, op,
+                  launch_plan(table, M, op, block_m, num_slots))
+
+
+def launch(table: torch.Tensor, indices: torch.Tensor,
+           updates: torch.Tensor, op: str, plan: ScatterPlan) -> torch.Tensor:
+    """The CUDA kernels of one call under `plan` (`launch_plan` of this
+    table and M): the bucket pass where the plan has it, then the apply.
+    No check: `async_scatter` checks first; indices and updates start on
+    16 bytes."""
+    global launches
+    (N, D), M = table.shape, indices.shape[0]
     if plan.bucket:
         indices, updates, _ = _bucket(indices, updates, N, (
             plan.shift, plan.buckets, plan.sub, plan.tile, plan.tiles))
     lib, fn = _bind()
     with torch.cuda.device(table.device):
         code = fn(table.data_ptr(), indices.data_ptr(), updates.data_ptr(), N,
-                  M, row_bytes, plan.span, plan.slots, plan.chunk, plan.lanes,
-                  plan.blocks, OPS[op],
+                  M, D * table.element_size(), plan.span, plan.slots,
+                  plan.chunk, plan.lanes, plan.blocks, OPS[op],
                   _build.DTYPE_CODES[table.dtype],
                   torch.cuda.current_stream().cuda_stream)
     _build.check(lib, code, "async_scatter launch")

@@ -1,7 +1,8 @@
 // async_scatter: table[idx[j]] op= upd[j] in place, op in {add, xor}: the
 // update stream through a ring of bulk copies, the read-modify-write done by
-// the L2's atomic units, and the updates of rows narrower than a 32-byte
-// sector bucketed by table region first.
+// the L2's atomic units, and the many updates of rows narrower than a
+// 32-byte sector into a table of 8 GiB or more bucketed by table region
+// first.
 //
 // Replaces the TPU kernel `_scatter_kernel` / `async_scatter` of
 // src/repro/kernels/async_scatter.py. There a grid step loads table rows K
@@ -31,8 +32,10 @@
 // mbarrier. A block is one producer warp and three consumer warps; its
 // blocks take the spans grid-stride, planned by `scatter_plan` in
 // async_scatter.py (a fixed rule):
-//   - rows of 32 bytes and more: a persistent grid (two blocks an SM), a
-//     span at a time through the K-slot ring;
+//   - a call that is not bucketed: a persistent grid (two blocks an SM;
+//     eight for rows narrower than a sector, whose lanes wait on more round
+//     trips an update: 0.0702 ms against 0.1005 with two, bf16 into
+//     [2^24, 3]), a span at a time through the K-slot ring;
 //   - the bucketed stream: one slot, a block a span of at most 64 updates
 //     and a block for every span, so that the hardware hands the blocks out
 //     in the stream's order and the updates in flight on the card (blocks
@@ -42,8 +45,13 @@
 //     behind the reductions at L2) and a persistent grid-stride grid (its
 //     blocks drift apart in the stream) all read slower (PERF.md).
 //
-// The bucket pass (rows narrower than 32 bytes; a fixed rule,
-// `async_scatter_bucketed` below and `scatter_plan`): a stable counting sort
+// The bucket pass (rows narrower than 32 bytes, a table of 2^33 bytes or
+// more, 2^26 updates or more; a fixed rule, `async_scatter_bucketed` below
+// and `bucketed` in async_scatter.py, fitted to the H100: into bf16 tables
+// of [2^24, 3] to [2^28, 3] (96 MiB to 1.5 GiB) the apply alone was faster
+// at every M from 2^20 to 2^26, at GUPS's 8 GiB faster up to 2^24, even at
+// 2^25 and slower at 2^26, PERF.md): a
+// stable counting sort
 // of the (index, update row) pairs by idx >> shift into at most 256 table
 // regions (32 MB each at GUPS's [2^30, 2] int32, within the 50 MB L2), in
 // three kernels: `scatter_count_kernel` (a histogram per tile in shared
@@ -71,10 +79,20 @@
 //     added and rounded back without saturation (`to_fp8`) at every add,
 //     in the order the CAS loops win; a neighbour's byte is kept as it is
 //     (adding +0.0 would turn its -0.0 into +0.0);
-//   - bf16 / f16 add: a word wholly in the row takes the pair reduction as
-//     before; a word holding one element of the row (its pair is a
-//     neighbour's, so +0.0 cannot be added there either) takes the scalar
-//     red.global.add.noftz.bf16 / .f16 of sm_90 on that element.
+//   - bf16 / f16 add: a word wholly in the row takes the pair reduction
+//     (red.add.noftz.bf16x2 / .f16x2, a native REDG); a word holding one
+//     element of the row, its pair a neighbour's, takes the pair reduction
+//     too, with -0.0 in the neighbour's half: x + (-0.0) is x bit for bit
+//     for every x but NaN (+0.0 would turn a -0.0 into +0.0), subnormals
+//     kept under noftz. The L2's add does not keep a NaN's payload, so the
+//     lane first reads the word (ld.global.cg) and a NaN neighbour takes
+//     the scalar red.add.noftz.bf16 / .f16 instead, which ptxas makes a CAS
+//     loop (sm_90 has no 16-bit RED): a neighbour no update of the call
+//     touches cannot change under the read, so its bits are kept; one that
+//     its own updates make NaN stays NaN (the add pins no payload). The
+//     scalar form on every such
+//     word, as before, cost 0.1609 ms at bf16 [2^24, 3] against 0.1186
+//     with the read (bucketed both; PERF.md).
 // The bucket pass and the apply move such rows by byte (the bulk copies'
 // unit is then 16 updates: 16 x R is a whole number of 16-byte pieces).
 //
@@ -140,7 +158,14 @@ __device__ __forceinline__ void red_add2(unsigned char* p, uint32_t v) {
                  : "memory");
 }
 
-// One 16-bit element (the low half of v), rounded to its type (sm_90).
+// Whether the 16-bit value h (the low half) is a NaN of E's format.
+template <typename E>
+__device__ __forceinline__ bool nan16(uint32_t h) {
+  return (h & 0x7fffu) > (std::is_same_v<E, __half> ? 0x7c00u : 0x7f80u);
+}
+
+// One 16-bit element (the low half of v), rounded to its type (sm_90): no
+// L2 reduction this narrow exists, so ptxas makes it a CAS loop on the word.
 template <typename E>
 __device__ __forceinline__ void red_add1(unsigned char* p, uint32_t v) {
   const unsigned short h = (unsigned short)v;
@@ -221,12 +246,21 @@ __device__ __forceinline__ void reduce_word(uint32_t* dst, uint32_t w,
     red_xor(dst, w);
   } else if constexpr (is_16bit_float<E>) {
     unsigned char* p = reinterpret_cast<unsigned char*>(dst);
-    if (inside == 0xffffffffu)
+    if (inside == 0xffffffffu) {
       red_add2<E>(p, w);
-    else if (inside == 0x0000ffffu)          // one element: the row's last
-      red_add1<E>(p, w);
-    else if (inside == 0xffff0000u)          // one element: the row's first
-      red_add1<E>(p + 2, w >> 16);
+    } else {
+      // one element of the row, the other half a neighbour's: the pair
+      // reduction with -0.0 there, unless the neighbour is NaN (the note at
+      // the top)
+      const uint32_t cur = __ldcg(dst);
+      const uint32_t nb = inside == 0x0000ffffu ? cur >> 16 : cur & 0xffffu;
+      if (!nan16<E>(nb))
+        red_add2<E>(p, w | (0x80008000u & ~inside));
+      else if (inside == 0x0000ffffu)        // one element: the row's last
+        red_add1<E>(p, w);
+      else                                   // one element: the row's first
+        red_add1<E>(p + 2, w >> 16);
+    }
   } else if constexpr (is_fp8<E>) {
     cas_word(dst, [&](uint32_t old) { return add_fp8<E>(old, w, inside); });
   } else if constexpr (sizeof(E) == 1) {
@@ -751,9 +785,13 @@ struct Occupancy {
 
 }  // namespace
 
-// The fixed rule of the path: 1 where rows of R bytes are bucketed by table
-// region before the apply (narrower than a 32-byte sector), else 0.
-extern "C" int async_scatter_bucketed(int R) { return R < SECTOR ? 1 : 0; }
+// The fixed rule of the path: 1 where M updates of rows of R bytes into a
+// table of N rows are bucketed by table region before the apply (rows
+// narrower than a 32-byte sector, a table of 2^33 bytes or more and 2^26
+// updates or more), else 0.
+extern "C" int async_scatter_bucketed(int R, long long N, long long M) {
+  return R < SECTOR && N * R >= (1LL << 33) && M >= (1LL << 26) ? 1 : 0;
+}
 
 // Shared-memory bytes of an apply block: K slots of `span` updates of R bytes.
 extern "C" long long async_scatter_apply_smem(int span, int K, int R) {

@@ -60,11 +60,10 @@
 //     cores, so P keeps ~16 bits and the result fp32's accuracy (the bf16
 //     checks need no P term, unlike flash's); V by ldmatrix.trans. f16 runs
 //     the same code with E = __half (the mma type field, P's two parts in
-//     f16, the TMA map's type). fp32, 16-bit at D = 16 and 32, a q of
-//     another type than the caches' (the wrapper widens such a q to fp32,
-//     E stays the caches' type, EQ = float: the caches are read in their
-//     own type, never copied; fp8 caches always so, their q widened) and
-//     the wide body stay on fp32 FMAs: Q K^T
+//     f16, the TMA map's type). fp32, 16-bit at D = 16 and 32, a 16-bit
+//     cache under a q of another float type (EQ = q_as<float>: q read and
+//     the output written in q's own type, the caches in theirs, never
+//     copied) and the wide body stay on fp32 FMAs: Q K^T
 //     with a lane on D/32
 //     columns and one transpose reduction (31 shuffles a chunk) that leaves
 //     row r's logit on lane r, P V with p_r broadcast by a shuffle.
@@ -73,15 +72,35 @@
 // fp8 caches (e4m3fn, e5m2): read as fp8 from device memory, D bytes a row,
 // by the TMA ring where D % 16 == 0 (the maps' type UINT8) and by the
 // element body elsewhere, never widened into a copy (a decode step's bytes
-// are the caches'); each value is widened to fp32 where the FMAs read it
-// (`load_row`), exact. Both kinds are one load type (`fp8_any`, the kind a
-// launch argument), so they add one instantiation of each body, not two. Their q (fp8 or of any other type, such as the bf16 q beside an
-// fp8 cache) is widened to fp32 by the wrapper (EQ = float), and the output
-// rounded to q's type after. Integer caches take fp32 copies (the
-// reference's `.astype(float32)`). Left for a later change: fp8 Q K^T and
-// P V on the tensor cores (mma.sync's e4m3 / e5m2 form takes k = 32, or the
-// tiles converted to bf16 in the slot).
-//
+// are the caches'). Both kinds are one load type (`fp8_any`, the kind a
+// launch argument). q is read in its own type (f32, bf16, f16, e4m3fn,
+// e5m2: `q_as`, the type a launch argument, `Args::qt`), one load at a
+// segment's start, and the output written in it (fp8 by `to_fp8`, no
+// saturation), so that a call is one kernel and the wrapper runs no torch
+// op around it. The products (`products`, the wrapper's `products_on`):
+//   - on the tensor cores, for a q of 16 bits or fp8 at Dp 64 to 256 on the
+//     TMA ring: every e4m3fn and e5m2 value is exact in f16 and in bf16, so
+//     K and V are converted in registers after ldmatrix (e5m2 by a byte
+//     permute, e4m3fn by cvt.rn.f16x2.e4m3x2; bf16 through fp32) and run on
+//     mma_16816 as the 16-bit body does: f16 products where q is f16 or fp8,
+//     bf16 where q is bf16, P in two parts of that type. K is the A operand
+//     read by ldmatrix of the fp8 rows viewed as b16: a lane gets 4
+//     consecutive columns of a row, so an mma's k order is (4t, 4t + 1,
+//     4t + 2, 4t + 3) where the 16-bit body's is (2t, 2t + 1, 2t + 8, 2t + 9),
+//     and q's fragments follow it. V needs two keys of one column in a
+//     register, which ldmatrix.trans gives only for 16-bit elements: read as
+//     b16 it gives a lane rows 2t and 2t + 1 of two neighbouring columns, and
+//     a byte permute makes of them one pair for the even column and one for
+//     the odd one, two n-tiles; `finish` puts the columns back in order.
+//     The boxes' rows are 128 bytes (64 at D = 64, under the 64-byte
+//     swizzle), so at D = 64 four warps take P V, 16 columns each. So
+//     both products take the mma count of the 16-bit body on half its
+//     bytes;
+//   - on fp32 FMAs otherwise (an fp32 q, Dp 16 and 32, the element body,
+//     the wide body), each value widened where the FMAs read it
+//     (`load_row`), exact.
+// Integer caches take fp32 copies (the reference's `.astype(float32)`).
+
 // Head sizes: every D from 1 up, as the TPU kernel takes. Let Dp be the
 // smallest of 16, 32, 64, 128 and 256 that is at least D (above 256, D
 // rounded up to 256: the wide body below). At D == Dp (EXACT)
@@ -160,6 +179,7 @@ struct Args {
   long long q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh;
   float scale;
   int e5m2;                      // fp8 caches (fp8_any): e5m2, else e4m3fn
+  int qt;                        // q's and out's DType where EQ is q_as<M>
 };
 
 // fp8 caches of either kind are one load type, the kind an argument
@@ -167,6 +187,112 @@ struct Args {
 struct fp8_any {
   __nv_fp8_storage_t bits;
 };
+
+// q's and out's type where it is a launch argument (`Args::qt`: f32, bf16,
+// f16, e4m3fn, e5m2), where q's type is not the caches' (fp8 caches: any
+// float q): q is read in its own type and the output written in it. M is
+// the type of the products: float (FMAs), or __half / __nv_bfloat16
+// (mma.sync beside fp8 caches, `tensor_core_qk`).
+template <typename M> struct q_as {};
+template <typename EQ> struct QType {
+  using mma = EQ;
+  static constexpr bool runtime = false;
+};
+template <typename M> struct QType<q_as<M>> {
+  using mma = M;
+  static constexpr bool runtime = true;
+};
+
+// Elements i[e] of a tensor of type T (0 where !ok[e]), widened to fp32:
+// every load issued before the first is used.
+template <typename T, int N>
+__device__ __forceinline__ void load_as(const void* p,
+                                        const long long (&i)[N],
+                                        const bool (&ok)[N], float (&out)[N]) {
+  T v[N];
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    v[e] = ok[e] ? static_cast<const T*>(p)[i[e]] : from_float<T>(0.f);
+#pragma unroll
+  for (int e = 0; e < N; ++e) out[e] = to_float(v[e]);
+}
+
+// The same of q, whose type is EQ, or a.qt where EQ is q_as: one switch for
+// the N loads, so that they are in flight together.
+template <typename EQ, int N>
+__device__ __forceinline__ void load_q(const void* p, const long long (&i)[N],
+                                       const bool (&ok)[N], int qt,
+                                       float (&out)[N]) {
+  if constexpr (QType<EQ>::runtime) {
+    switch (qt) {
+      case DTYPE_BF16: load_as<__nv_bfloat16>(p, i, ok, out); break;
+      case DTYPE_F16: load_as<__half>(p, i, ok, out); break;
+      case DTYPE_E4M3:
+      case DTYPE_E5M2: {
+        const __nv_fp8_interpretation_t kind =
+            qt == DTYPE_E5M2 ? __NV_E5M2 : __NV_E4M3;
+        __nv_fp8_storage_t v[N];
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          v[e] = ok[e] ? static_cast<const __nv_fp8_storage_t*>(p)[i[e]] : 0;
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          out[e] = __half2float(__half(__nv_cvt_fp8_to_halfraw(v[e], kind)));
+        break;
+      }
+      default: load_as<float>(p, i, ok, out);
+    }
+  } else {
+    load_as<EQ>(p, i, ok, out);
+  }
+}
+
+// x rounded into element i of a tensor of DType qt, as `from_float` rounds
+// (fp8 by `to_fp8`: no saturation).
+__device__ __forceinline__ void store_typed(void* p, long long i, float x,
+                                            int qt) {
+  switch (qt) {
+    case DTYPE_BF16:
+      static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(x);
+      break;
+    case DTYPE_F16:
+      static_cast<__half*>(p)[i] = __float2half_rn(x);
+      break;
+    case DTYPE_E4M3:
+    case DTYPE_E5M2:
+      static_cast<__nv_fp8_storage_t*>(p)[i] =
+          to_fp8(x, qt == DTYPE_E5M2 ? __NV_E5M2 : __NV_E4M3);
+      break;
+    default:
+      static_cast<float*>(p)[i] = x;
+  }
+}
+
+// Two fp8 values (the low 16 bits of x, the first in the low byte) as two
+// M in one register, the first in the low half. Exact: every e4m3fn and
+// e5m2 value is a value of f16 and of bf16. An e5m2 byte is the high byte
+// of the f16 of its value (a byte permute); e4m3fn takes the hardware's
+// cvt.rn.f16x2.e4m3x2; bf16 is taken from the f16 through fp32.
+template <typename M>
+__device__ __forceinline__ uint32_t fp8x2_to(uint32_t x, int e5m2) {
+  uint32_t h;
+  if (e5m2) {
+    h = __byte_perm(x, 0u, 0x1404);
+  } else {
+    const __half2_raw r = __nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(x & 0xffffu), __NV_E4M3);
+    h = (uint32_t)r.x | ((uint32_t)r.y << 16);
+  }
+  if constexpr (std::is_same_v<M, __half>) {
+    return h;
+  } else {
+    __half2_raw r;
+    r.x = (unsigned short)(h & 0xffffu);
+    r.y = (unsigned short)(h >> 16);
+    const __nv_bfloat162 b = __float22bfloat162_rn(__half22float2(__half2(r)));
+    return *reinterpret_cast<const uint32_t*>(&b);
+  }
+}
 
 // N cache elements from a slot, widened to fp32.
 template <typename E, int N>
@@ -299,13 +425,18 @@ __host__ __device__ constexpr int box_cols() {
   return D * (int)sizeof(E) > 128 ? 128 / (int)sizeof(E) : D;
 }
 
-// Q K^T on the tensor cores: bf16 or f16 with rows of whole 128-byte boxes,
-// which TMA lays out under the 128-byte swizzle so that ldmatrix reads 8
-// rows without bank conflicts; q of the caches' type; not the wide body.
-// Other inputs take fp32 FMAs.
+// Q K^T and P V on the tensor cores (TMA bodies at D = Dp of 64 to 256, not
+// the wide body): bf16 or f16 caches with q of their type, and fp8 caches
+// with q as q_as<M>, M 16-bit (a bf16 q: bf16 products; f16 and fp8 q: f16
+// products). TMA lays the boxes out under the swizzle of their row (128
+// bytes; fp8 at D = 64, 64 bytes) so that ldmatrix reads 8 rows without
+// bank conflicts. Other inputs take fp32 FMAs. (`products`: the host's rule.)
 template <typename E, typename EQ, int D, bool WIDE>
 __host__ __device__ constexpr bool tensor_core_qk() {
-  return sizeof(E) == 2 && D >= 64 && std::is_same_v<E, EQ> && !WIDE;
+  if constexpr (std::is_same_v<E, fp8_any>)
+    return D >= 64 && !WIDE && sizeof(typename QType<EQ>::mma) == 2;
+  else
+    return sizeof(E) == 2 && D >= 64 && std::is_same_v<E, EQ> && !WIDE;
 }
 
 // Two 16-bit elements in one register, for the q fragments.
@@ -408,9 +539,10 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
 #undef PAGED_MMA
 }
 
-// E: the caches' type; EQ: q's and out's (E, or float where the wrapper
-// widened a q of another type); WIDE: the chunk of D = WIDE_DC columns
-// [c0, c0 + D) of a head of a.npk * D columns (the note at the top).
+// E: the caches' type; EQ: q's and out's (E, or q_as<M> where q's type is
+// another: a.qt); WIDE:
+// the chunk of D = WIDE_DC columns [c0, c0 + D) of a head of a.npk * D
+// columns (the note at the top).
 template <typename E, typename EQ, int D, bool EXACT, bool TMA, bool WIDE>
 __global__ void __launch_bounds__(NT + 32)
 paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
@@ -420,6 +552,9 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   constexpr int NBX = D / IN;                // boxes a row
   constexpr int EPL = D >= 32 ? D / 32 : 1;  // columns a lane
   constexpr bool TC = TMA && tensor_core_qk<E, EQ, D, WIDE>();
+  constexpr bool F8 = std::is_same_v<E, fp8_any>;
+  using M = std::conditional_t<F8, typename QType<EQ>::mma, E>;  // TC's type
+  constexpr int ROWB = IN * ITEM;            // bytes of a box's row
   const int Dh = EXACT ? D : a.dh;           // columns of q and out
   const int c0 = WIDE ? blockIdx.y * D : 0;  // the chunk's first column
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -438,18 +573,23 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   const size_t box_bytes = L.box;
   const size_t half_bytes = (WIDE ? a.npk : 1) * NBX * box_bytes;  // K's
   const size_t slot_bytes = L.slot;
-  // element (r, d) of a slot's K (or V) half; under the 128-byte swizzle
-  // (TC) the 16-byte piece p of row r sits at p ^ (r % 8)
+  // element (r, d) of a slot's K (or V) half; under the swizzle of rows of
+  // ROWB bytes (TC) the 16-byte piece p of row r sits at p ^ (r % 8) (128)
+  // or p ^ (r / 2 % 4) (64)
   auto at = [&](const unsigned char* half, int r, int d) {
     const int byte = (d % IN) * ITEM;
-    const int in_row = TC ? ((((byte >> 4) ^ (r & 7)) << 4) | (byte & 15))
+    const int sw = ((r * ROWB) >> 7) & (ROWB / 16 - 1);
+    const int in_row = TC ? ((((byte >> 4) ^ sw) << 4) | (byte & 15))
                           : byte;
     return reinterpret_cast<const E*>(half + (d / IN) * box_bytes +
                                       r * IN * ITEM + in_row);
   };
 
-  const EQ* q = static_cast<const EQ*>(a.q);
-  EQ* out = static_cast<EQ*>(a.out);
+  // out's element i: of type EQ, or of a.qt (q_as)
+  auto put = [&](long long i, float x) {
+    if constexpr (QType<EQ>::runtime) store_typed(a.out, i, x, a.qt);
+    else static_cast<EQ*>(a.out)[i] = from_float<EQ>(x);
+  };
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hw = warp % GC, set = warp / GC;   // a consumer's head and set
   const int hg = a.Hkv * a.ngc;              // segments a sequence
@@ -494,8 +634,12 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     g0 = (j % a.ngc) * GC;
     gn = min(GC, a.G - g0);
   };
-  auto out_row = [&](int b, int h, int g0, int g) {
-    return out + (long long)b * a.o_sb + ((long long)h * a.G + g0 + g) * a.o_sh;
+  // the first element of query head g0 + g of (b, h) in q and in out
+  auto q_at = [&](int b, int h, int g0, int g) {
+    return (long long)b * a.q_sb + ((long long)h * a.G + g0 + g) * a.q_sh;
+  };
+  auto out_at = [&](int b, int h, int g0, int g) {
+    return (long long)b * a.o_sb + ((long long)h * a.G + g0 + g) * a.o_sh;
   };
 
   // segments with no valid row get 0, a block taking every gridDim-th (of
@@ -506,7 +650,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     int b, h, g0, gn;
     heads(s, b, h, g0, gn);
     for (int i = tid; i < gn * Dh; i += blockDim.x)
-      out_row(b, h, g0, i / Dh)[i % Dh] = from_float<EQ>(0.f);
+      put(out_at(b, h, g0, i / Dh) + i % Dh, 0.f);
   }
 
   const long long W = P[a.B] * hg;           // valid rows of all segments
@@ -637,7 +781,11 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   float m = NEG_INF, l = 0.f, acc[EPL], qr[EPL];
   uint32_t qb[TC ? D / 16 : 1][2];           // Q as mma B fragments (TC)
   constexpr int NCOL = D / GC;               // P V columns a warp (TC)
-  constexpr int NTW = TC ? NCOL / 8 : 1;     // its mma n-tiles
+  // fp8: a warp's columns are whole 16-byte rows of ldmatrix, so at D = 64
+  // the first 4 warps take 16 columns each
+  constexpr int PVC = F8 && NCOL < 16 ? 16 : NCOL;
+  constexpr int PVW = D / PVC;               // warps that take P V (TC)
+  constexpr int NTW = TC ? PVC / 8 : 1;      // a warp's mma n-tiles
   float cacc[NTW][4];                        // its P V accumulators (TC)
   int cur = -1, b = 0, h = 0, g0 = 0, gn = 0;
 
@@ -674,11 +822,19 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     if constexpr (TC) {          // the set's accumulators to rows of heads
       float* ta = tacc + set * GC * D;
       const int gq = lane >> 2, tq = lane & 3;
+      if (!F8 || hw < PVW) {          // (every warp but fp8's at D = 64)
 #pragma unroll
-      for (int nt = 0; nt < NTW; ++nt) {
-        const int col = hw * NCOL + nt * 8 + 2 * tq;
-        ta[gq * D + col] = cacc[nt][0];
-        ta[gq * D + col + 1] = cacc[nt][1];
+        for (int nt = 0; nt < NTW; ++nt) {
+          if constexpr (F8) {   // n-tile nt: columns of parity nt % 2 (P V)
+            const int col = hw * PVC + 16 * (nt >> 1) + 4 * tq + (nt & 1);
+            ta[gq * D + col] = cacc[nt][0];
+            ta[gq * D + col + 2] = cacc[nt][1];
+          } else {
+            const int col = hw * NCOL + nt * 8 + 2 * tq;
+            ta[gq * D + col] = cacc[nt][0];
+            ta[gq * D + col + 1] = cacc[nt][1];
+          }
+        }
       }
       set_sync(set);
       if (d0 < D) {
@@ -694,11 +850,11 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     const int count = (int)((start + len - 1) / per - first + 1);
     if (count == 1) {                        // the block holds it alone
       if (set == 0 && hw < gn && d0 < D) {
-        EQ* o = out_row(b, h, g0, hw) + c0 + d0;
+        const long long o = out_at(b, h, g0, hw) + c0 + d0;
         const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
         for (int e = 0; e < EPL; ++e)
-          if (EXACT || c0 + d0 + e < Dh) o[e] = from_float<EQ>(acc[e] * inv);
+          if (EXACT || c0 + d0 + e < Dh) put(o + e, acc[e] * inv);
       }
       return;
     }
@@ -783,11 +939,11 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     }
     hand_over(mx, ls, as);
     if (set == 0 && hw < gn && d0 < D) {
-      EQ* o = out_row(b, h, g0, hw) + c0 + d0;
+      const long long o = out_at(b, h, g0, hw) + c0 + d0;
       const float inv = 1.f / fmaxf(ls, 1e-30f);
 #pragma unroll
       for (int e = 0; e < EPL; ++e)
-        if (EXACT || c0 + d0 + e < Dh) o[e] = from_float<EQ>(as[e] * inv);
+        if (EXACT || c0 + d0 + e < Dh) put(o + e, as[e] * inv);
     }
   };
 
@@ -801,37 +957,72 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       if (cur >= 0) finish();
       cur = s;
       heads(s, b, h, g0, gn);
+      // (TC, q of a launch's type) the group's queries, columns past Dh and
+      // heads past gn as zeros, staged in fp32 in the set's tacc by all its
+      // threads, EPL loads in flight each, for the fragments below
+      float* const qs = tacc + set * GC * D;
+      if constexpr (TC && QType<EQ>::runtime) {
+        long long qi[EPL];
+        bool ok[EPL];
+        float qv[EPL];
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) {
+          const int i = hw * 32 + lane + e * GC * 32, g = i / D, c = i % D;
+          qi[e] = q_at(b, h, g0, g) + c;
+          ok[e] = g < gn && c < Dh;
+        }
+        load_q<EQ, EPL>(a.q, qi, ok, a.qt, qv);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) qs[hw * 32 + lane + e * GC * 32] = qv[e];
+        set_sync(set);
+      }
       if constexpr (TC) if (hw < 2) {        // B fragments: the group's queries
         const int gq = lane >> 2, tq = lane & 3;
-        const E* qg = q + b * a.q_sb + (h * a.G + g0 + gq) * a.q_sh;
-        auto pair = [&](int c) -> uint32_t {   // columns c, c + 1
+        const long long qg = q_at(b, h, g0, gq);
+        auto pair = [&](int c) -> uint32_t {   // columns c, c + 1, in M
           if (gq >= gn) return 0u;
-          if constexpr (EXACT)
-            return *reinterpret_cast<const uint32_t*>(qg + c);
-          typename Pair2<E>::type p;        // past D: zeros
-          p.x = col_or_zero(qg, c, Dh);
-          p.y = col_or_zero(qg, c + 1, Dh);
+          typename Pair2<M>::type p;
+          if constexpr (QType<EQ>::runtime) {
+            p.x = from_float<M>(qs[gq * D + c]);
+            p.y = from_float<M>(qs[gq * D + c + 1]);
+          } else if constexpr (EXACT) {
+            return *reinterpret_cast<const uint32_t*>(
+                static_cast<const EQ*>(a.q) + qg + c);
+          } else {                           // past D: zeros
+            const E* qr0 = static_cast<const EQ*>(a.q) + qg;
+            p.x = col_or_zero(qr0, c, Dh);
+            p.y = col_or_zero(qr0, c + 1, Dh);
+          }
           return *reinterpret_cast<uint32_t*>(&p);
         };
+        // an mma's k order follows its A fragment: 16-bit K rows give a lane
+        // columns 2t, 2t + 1 and 2t + 8, 2t + 9; fp8 rows, read as b16,
+        // columns 4t .. 4t + 3 (Q K^T below)
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const int k0 = kk * 16 + 2 * tq;
+          const int k0 = kk * 16 + (F8 ? 4 * tq : 2 * tq);
           qb[kk][0] = pair(k0);
-          qb[kk][1] = pair(k0 + 8);
+          qb[kk][1] = pair(k0 + (F8 ? 2 : 8));
         }
       }
+      if constexpr (TC && QType<EQ>::runtime) set_sync(set);  // qs is free
       // the warp's query, a lane's part (the wide body's: by piece, below)
       if (!WIDE && hw < gn && d0 < D) {
-        const EQ* qh = q + b * a.q_sb + (h * a.G + g0 + hw) * a.q_sh;
+        const long long qh = q_at(b, h, g0, hw);
         if constexpr (EXACT) {
           float qv[EPL];
-          load_vec<EQ, EPL>(qh + d0, qv);
+          load_vec<EQ, EPL>(static_cast<const EQ*>(a.q) + qh + d0, qv);
 #pragma unroll
           for (int e = 0; e < EPL; ++e) qr[e] = qv[e];
         } else {
+          long long qi[EPL];
+          bool ok[EPL];
 #pragma unroll
-          for (int e = 0; e < EPL; ++e)
-            qr[e] = to_float(col_or_zero(qh, d0 + e, Dh));
+          for (int e = 0; e < EPL; ++e) {
+            qi[e] = qh + d0 + e;
+            ok[e] = d0 + e < Dh;
+          }
+          load_q<EQ, EPL>(a.q, qi, ok, a.qt, qr);
         }
       } else {
 #pragma unroll
@@ -856,11 +1047,33 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         const int mi = lane >> 3, ri = lane & 7;
         const int row = min(hw * 16 + (mi & 1) * 8 + ri, a.rows - 1);
         float c[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (F8) {
+          // 32 fp8 columns an ldmatrix, the rows read as b16: kf[0] = row g,
+          // columns 4t .. 4t + 3; kf[1] the same of row g + 8; kf[2], kf[3]
+          // those 16 columns on. Each pair of them is the A of one mma, its
+          // bytes 0-1 as (2t, 2t + 1) and 2-3 as (2t + 8, 2t + 9)
+          const int k_e5m2 = a.e5m2;               // K's fp8 kind
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t af[4];
-          ldmatrix_x4(af, at(slot, row, kk * 16 + (mi >> 1) * 8));
-          mma_16816<E>(c, af, qb[kk][0], qb[kk][1]);
+          for (int k2 = 0; k2 < D / 32; ++k2) {
+            uint32_t kf[4];
+            ldmatrix_x4(kf, at(slot, row, k2 * 32 + (mi >> 1) * 16));
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const uint32_t af[4] = {
+                  fp8x2_to<M>(kf[2 * hf], k_e5m2),
+                  fp8x2_to<M>(kf[2 * hf + 1], k_e5m2),
+                  fp8x2_to<M>(kf[2 * hf] >> 16, k_e5m2),
+                  fp8x2_to<M>(kf[2 * hf + 1] >> 16, k_e5m2)};
+              mma_16816<M>(c, af, qb[2 * k2 + hf][0], qb[2 * k2 + hf][1]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t af[4];
+            ldmatrix_x4(af, at(slot, row, kk * 16 + (mi >> 1) * 8));
+            mma_16816<E>(c, af, qb[kk][0], qb[kk][1]);
+          }
         }
         const int gq = lane >> 2, tq = lane & 3, r0 = hw * 16 + gq;
         lg[(2 * tq) * 32 + r0] = c[0];
@@ -876,14 +1089,19 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       if constexpr (!TC) {   // Q K^T on FMAs: a lane's columns, every row
         float part[32];
         if constexpr (WIDE) {  // summed over the K pieces, q's piece by piece
-          const EQ* qh = q + b * a.q_sb + (h * a.G + g0 + hw) * a.q_sh;
+          const long long qh = q_at(b, h, g0, hw);
 #pragma unroll
           for (int r = 0; r < 32; ++r) part[r] = 0.f;
           for (int p = 0; p < a.npk; ++p) {
             float qp[EPL];
+            long long qi[EPL];
+            bool ok[EPL];
 #pragma unroll
-            for (int e = 0; e < EPL; ++e)
-              qp[e] = to_float(col_or_zero(qh, p * D + d0 + e, Dh));
+            for (int e = 0; e < EPL; ++e) {
+              qi[e] = qh + p * D + d0 + e;
+              ok[e] = p * D + d0 + e < Dh;
+            }
+            load_q<EQ, EPL>(a.q, qi, ok, a.qt, qp);
             const unsigned char* kp = slot + (size_t)p * NBX * box_bytes;
 #pragma unroll
             for (int r = 0; r < 32; ++r) {
@@ -938,12 +1156,12 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     }
     if constexpr (TC) {  // P V on the tensor cores: warp w, columns w NCOL..
       float* xb = xch + (set * 2 + ((j / NSET) & 1)) * XCH_FLOATS;
-      E* ph = reinterpret_cast<E*>(xb + GC * 32);
-      E* pl = ph + GC * PSTR;
+      M* ph = reinterpret_cast<M*>(xb + GC * 32);
+      M* pl = ph + GC * PSTR;
       float* al = xb + GC * 32 + GC * PSTR;
-      const E hi = from_float<E>(p);        // p = hi + lo
+      const M hi = from_float<M>(p);        // p = hi + lo
       ph[hw * PSTR + lane] = hi;
-      pl[hw * PSTR + lane] = from_float<E>(p - to_float(hi));
+      pl[hw * PSTR + lane] = from_float<M>(p - to_float(hi));
       if (lane == 0) al[hw] = alpha;
       set_sync(set);
       const int gq = lane >> 2, tq = lane & 3;
@@ -958,31 +1176,59 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         if (ks * 16 >= n) break;
         // A = P [heads g (8..15 zero)][rows]: a0 = (g, 2t..), a2 = (g, 2t+8..)
         const int pk = gq * PSTR + ks * 16 + 2 * tq;
-        auto word = [](const E* x) {
+        auto word = [](const M* x) {
           return *reinterpret_cast<const uint32_t*>(x);
         };
         const uint32_t ahi[4] = {word(ph + pk), 0u, word(ph + pk + 8), 0u};
         const uint32_t alo[4] = {word(pl + pk), 0u, word(pl + pk + 8), 0u};
-        // B = V [rows][columns] by ldmatrix.trans: rows 8 (mi & 1) + ri of
-        // the k-step, columns 8 (mi >> 1) of the warp's
         const int mi = lane >> 3, ri = lane & 7;
         const int row = min(ks * 16 + (mi & 1) * 8 + ri, a.rows - 1);
-        const E* vp = at(slot + half_bytes, row, hw * NCOL + (mi >> 1) * 8);
-        uint32_t bv[NTW > 2 ? 2 * NTW : 4];
-        if constexpr (NTW == 4) {            // D = 256: columns +0 and +16
-          ldmatrix_x4_trans(*reinterpret_cast<uint32_t(*)[4]>(&bv[0]), vp);
-          ldmatrix_x4_trans(*reinterpret_cast<uint32_t(*)[4]>(&bv[4]),
-                            at(slot + half_bytes, row,
-                               hw * NCOL + 16 + (mi >> 1) * 8));
-        } else if constexpr (NTW == 2) {
-          ldmatrix_x4_trans(bv, vp);
-        } else {
-          ldmatrix_x2_trans(bv, vp);
-        }
+        if constexpr (F8) {
+          // B = V by ldmatrix.trans of the fp8 rows read as b16: rows 8
+          // (mi & 1) + ri of the k-step, columns 16 (mi >> 1) of the
+          // warp's. vf[2 j] holds, for the lane's byte pair (columns 2g,
+          // 2g + 1 of the 16 from 16 j), rows 2t and 2t + 1; vf[2 j + 1]
+          // rows 2t + 8, 2t + 9. A byte permute pairs each column's two rows
+          // (bytes 0, 2 and 1, 3): n-tile 2 j takes the even columns, 2 j
+          // + 1 the odd ones (`finish` puts them back in order)
+          if (hw < PVW) {
+            uint32_t vf[4];
+            const void* vp =
+                at(slot + half_bytes, row, hw * PVC + (mi >> 1) * 16);
+            if constexpr (PVC == 32) ldmatrix_x4_trans(vf, vp);
+            else ldmatrix_x2_trans(vf, vp);
 #pragma unroll
-        for (int nt = 0; nt < NTW; ++nt) {
-          mma_16816<E>(cacc[nt], ahi, bv[2 * nt], bv[2 * nt + 1]);
-          mma_16816<E>(cacc[nt], alo, bv[2 * nt], bv[2 * nt + 1]);
+            for (int nt = 0; nt < NTW; ++nt) {
+              const uint32_t sel = nt & 1 ? 0x3131u : 0x2020u;
+              const uint32_t b0 = fp8x2_to<M>(
+                  __byte_perm(vf[2 * (nt >> 1)], 0u, sel), a.e5m2);
+              const uint32_t b1 = fp8x2_to<M>(
+                  __byte_perm(vf[2 * (nt >> 1) + 1], 0u, sel), a.e5m2);
+              mma_16816<M>(cacc[nt], ahi, b0, b1);
+              mma_16816<M>(cacc[nt], alo, b0, b1);
+            }
+          }
+        } else {
+          // B = V [rows][columns] by ldmatrix.trans: rows 8 (mi & 1) + ri of
+          // the k-step, columns 8 (mi >> 1) of the warp's
+          const E* vp =
+              at(slot + half_bytes, row, hw * NCOL + (mi >> 1) * 8);
+          uint32_t bv[NTW > 2 ? 2 * NTW : 4];
+          if constexpr (NTW == 4) {            // D = 256: columns +0 and +16
+            ldmatrix_x4_trans(*reinterpret_cast<uint32_t(*)[4]>(&bv[0]), vp);
+            ldmatrix_x4_trans(*reinterpret_cast<uint32_t(*)[4]>(&bv[4]),
+                              at(slot + half_bytes, row,
+                                 hw * NCOL + 16 + (mi >> 1) * 8));
+          } else if constexpr (NTW == 2) {
+            ldmatrix_x4_trans(bv, vp);
+          } else {
+            ldmatrix_x2_trans(bv, vp);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NTW; ++nt) {
+            mma_16816<E>(cacc[nt], ahi, bv[2 * nt], bv[2 * nt + 1]);
+            mma_16816<E>(cacc[nt], alo, bv[2 * nt], bv[2 * nt + 1]);
+          }
         }
       }
     }
@@ -993,12 +1239,13 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
 }
 
 // The tensor map of a cache [B, T, Hkv, D] (element strides sb, st, sh, 1):
-// boxes of `rows` rows of one head and box_cols columns, under the 128-byte
-// swizzle where the tensor cores read the slot (`swizzle`).
+// boxes of `rows` rows of one head and box_cols columns, under the swizzle
+// of their row's bytes (`swizzle`: 128 or 64) where the tensor cores read
+// the slot, else none (0).
 template <typename E, int D>
 cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
                       long long sb, long long st, long long sh,
-                      bool swizzle) {
+                      int swizzle) {
   // innermost extent dh: TMA zero-fills columns dh .. D-1
   const cuuint64_t dims[4] = {(cuuint64_t)a.dh, (cuuint64_t)a.Hkv,
                               (cuuint64_t)a.T, (cuuint64_t)a.B};
@@ -1014,7 +1261,9 @@ cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
       : std::is_same_v<E, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       4, base, dims, strides, box,
-      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
+      swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <typename E, typename EQ, int D, bool EXACT, bool TMA, bool WIDE>
@@ -1028,7 +1277,9 @@ cudaError_t launch(Args& a, int blocks, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   CUtensorMap kmap{}, vmap{};        // the element body copies without
   if (TMA) {
-    constexpr bool swizzle = tensor_core_qk<E, EQ, D, WIDE>();
+    constexpr int swizzle = tensor_core_qk<E, EQ, D, WIDE>()
+                                ? box_cols<E, D>() * (int)sizeof(E)
+                                : 0;
     if ((err = cache_map<E, D>(&kmap, a.k, a, a.k_sb, a.k_st, a.k_sh,
                                swizzle)) != cudaSuccess)
       return err;
@@ -1096,6 +1347,34 @@ cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
   return cudaErrorInvalidValue;
 }
 
+// The tensor-core launch of fp8 caches (`products`): the TMA body for Dp
+// of 64 to 256, q and out of type a.qt, products in EQ's M.
+template <typename E, typename EQ>
+cudaError_t launch_mma(Args& a, int blocks, cudaStream_t s, int Dp) {
+  a.npk = 1;
+  switch (Dp) {
+    case 64: return launch<E, EQ, 64, false, true, false>(a, blocks, s);
+    case 128: return launch<E, EQ, 128, false, true, false>(a, blocks, s);
+    case 256: return launch<E, EQ, 256, false, true, false>(a, blocks, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Where a launch's products run (dtype the caches', q_dtype q's): 1 on the
+// tensor cores, 0 on fp32 FMAs. The TMA body at Dp 64 to 256 (not the wide
+// body) with 16-bit caches and q of their type, or fp8 caches and a q of
+// 16 bits or fp8 (read in its own type; an fp32 q stays on FMAs).
+int products(int dtype, int q_dtype, int D) {
+  const int Dp = padded(D);
+  if (!float_type(dtype) || !tma_rows(dtype, D) || Dp < 64 || Dp > WIDE_DC)
+    return 0;
+  if (dtype == DTYPE_BF16 || dtype == DTYPE_F16) return q_dtype == dtype;
+  if (fp8_type(dtype))
+    return q_dtype == DTYPE_BF16 || q_dtype == DTYPE_F16 ||
+           fp8_type(q_dtype);
+  return 0;
+}
+
 // The ring of a launch for caches of type E (any EQ: it does not enter).
 template <typename E>
 int ring_for(int B, int D, int rows, int* smem) {
@@ -1121,14 +1400,21 @@ extern "C" int paged_attention_body(int dtype, int D) {
   return tma_rows(dtype, D) ? 0 : 1;
 }
 
+// Where the products of a launch at (dtype, q_dtype, D) run: 1 mma.sync, 0
+// fp32 FMAs (the wrapper's `products_on` states the same rule).
+extern "C" int paged_attention_products(int dtype, int q_dtype, int D) {
+  return products(dtype, q_dtype, D);
+}
+
 // q [B, Hq, D] of type q_dtype (strides q_sb, q_sh, 1; at D of 16 .. 256 in
 // powers of 2, q of the caches' type, starts and strides in multiples of
 // max(D / 32, 1) elements), k/v [B, T, Hkv, D] of type dtype (strides sb,
 // st, sh, 1; for the TMA body a 16-byte aligned start and strides in
 // multiples of 16 bytes, for the element body anything), lengths [B] int32,
 // out [B, Hq, D] of type q_dtype (strides o_sb, o_sh, 1); D >= 1; q_dtype
-// is dtype (not fp8) or float32 (the wrapper widens any other q, and every
-// q beside fp8 caches). part: chunks x
+// is dtype, or beside 16-bit and fp8 caches any of f32, bf16, f16, e4m3fn,
+// e5m2 (read and written in its own type; `products` says where the
+// products run; the wrapper widens any other q to fp32). part: chunks x
 // (blocks + segments) x GC x (min(Dp, 256) + 2) floats; tickets: chunks x
 // segments ints, zero; chunks = Dp / 256 above 256, else 1. blocks (a
 // chunk), rows, ngc: `paged_plan` of paged_attention.py; the launch sizes
@@ -1158,6 +1444,7 @@ extern "C" int paged_attention_launch(
   a.rows = rows;
   a.dh = D;
   a.e5m2 = dtype == DTYPE_E5M2;
+  a.qt = q_dtype;
   a.q_sb = st[0];
   a.q_sh = st[1];
   a.k_sb = st[2];
@@ -1181,12 +1468,20 @@ extern "C" int paged_attention_launch(
                                                              Dp, D, tma);
     return (int)launch_typed<__half, __half>(a, blocks, s, Dp, D, tma);
   }
-  if (q_dtype != DTYPE_F32) return -1;
-  if (dtype == DTYPE_BF16)
-    return (int)launch_typed<__nv_bfloat16, float>(a, blocks, s, Dp, D, tma);
+  // q of another float type than the caches': read and out written in
+  // q's own type (q_as), the products on FMAs but for fp8 caches (`products`)
+  if (!float_type(q_dtype) || dtype == DTYPE_F32) return -1;
+  if (fp8_type(dtype) && products(dtype, q_dtype, D)) {
+    if (q_dtype == DTYPE_BF16)
+      return (int)launch_mma<fp8_any, q_as<__nv_bfloat16>>(a, blocks, s, Dp);
+    return (int)launch_mma<fp8_any, q_as<__half>>(a, blocks, s, Dp);
+  }
   if (fp8_type(dtype))
-    return (int)launch_typed<fp8_any, float>(a, blocks, s, Dp, D, tma);
-  return (int)launch_typed<__half, float>(a, blocks, s, Dp, D, tma);
+    return (int)launch_typed<fp8_any, q_as<float>>(a, blocks, s, Dp, D, tma);
+  if (dtype == DTYPE_BF16)
+    return (int)launch_typed<__nv_bfloat16, q_as<float>>(a, blocks, s, Dp, D,
+                                                         tma);
+  return (int)launch_typed<__half, q_as<float>>(a, blocks, s, Dp, D, tma);
 }
 
 // The ring a block of the launch takes for B sequences, head size D (any

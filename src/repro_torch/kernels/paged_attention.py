@@ -126,9 +126,9 @@ def body_for(dtype: torch.dtype, head_dim: int) -> str:
     csrc/paged_attention.cu applies, for the body built at Dp =
     `padded_head_dim` (columns past `head_dim` zero and never stored; above
     256 the wide body, a chunk of 256 output columns a block): "tma" (the
-    TMA page ring; bf16 and f16 Q K^T and P V on mma.sync from Dp 64 up to
-    256 where q has the caches' type) where a row of `head_dim` elements is
-    a whole number of 16-byte pieces (float8: D % 16 == 0), "element"
+    TMA page ring; where its products run: `products_on`) where a row of
+    `head_dim` elements is a whole number of 16-byte pieces (float8: D %
+    16 == 0), "element"
     (rows copied into the ring by element, both products on FMAs)
     elsewhere. Integer caches run on float32 copies."""
     padded_head_dim("paged_attention", head_dim)        # refuses 0
@@ -136,6 +136,42 @@ def body_for(dtype: torch.dtype, head_dim: int) -> str:
     if dtype not in KERNEL_TYPES:
         dtype = torch.float32
     return "tma" if head_dim * dtype.itemsize % 16 == 0 else "element"
+
+
+def kernel_types(q_dtype: torch.dtype, cache_dtype: torch.dtype
+                 ) -> Tuple[torch.dtype, torch.dtype]:
+    """(q's, the caches') type as the kernel reads them: caches of a type
+    no body takes (integers) as float32 copies; beside 16-bit and float8
+    caches q in its own type if it is float32, bfloat16, float16 or float8,
+    beside float32 caches if it is float32; any other q widened to
+    float32."""
+    if cache_dtype not in KERNEL_TYPES:
+        cache_dtype = torch.float32
+    own = (q_dtype == cache_dtype if cache_dtype == torch.float32
+           else q_dtype in KERNEL_TYPES)
+    return (q_dtype if own else torch.float32), cache_dtype
+
+
+def products_on(q_dtype: torch.dtype, cache_dtype: torch.dtype,
+                head_dim: int) -> str:
+    """Where a launch's two products run, the rule `products` of
+    csrc/paged_attention.cu applies (`paged_attention_products`) to the
+    types `kernel_types` gives: "mma" (mma.sync on the tensor cores) on the
+    TMA ring at a padded head size of 64 to 256, with 16-bit caches under a
+    q of their type, or float8 caches under a q of 16 bits or float8
+    (K and V converted to f16, or to bf16 under a bf16 q, in registers);
+    "fma" (fp32 FMAs) elsewhere."""
+    body = body_for(cache_dtype, head_dim)
+    check_types("paged_attention", q_dtype)
+    q_dtype, cache_dtype = kernel_types(q_dtype, cache_dtype)
+    dp = padded_head_dim("paged_attention", head_dim)
+    if body != "tma" or not 64 <= dp <= CHUNK_DIM:
+        return "fma"
+    if cache_dtype in ref.FP8_TYPES:
+        return "mma" if q_dtype != torch.float32 else "fma"
+    if cache_dtype in (torch.bfloat16, torch.float16):
+        return "mma" if q_dtype == cache_dtype else "fma"
+    return "fma"
 
 
 def _bind():
@@ -149,6 +185,8 @@ def _bind():
         lib.paged_attention_ring.argtypes = [i, i, i, i,
                                              ctypes.POINTER(ctypes.c_int)]
         lib.paged_attention_ring.restype = ctypes.c_int
+        lib.paged_attention_products.argtypes = [i, i, i]
+        lib.paged_attention_products.restype = ctypes.c_int
     return lib, fn
 
 
@@ -225,14 +263,17 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     body that copies by element), in float32, bfloat16, float16,
     float8_e4m3fn and float8_e5m2, and 8-, 16- and 32-bit integers. Types
     may differ, as the reference casts each operand to float32 in its body:
-    the kernel reads the caches in their own type and q widened to float32
-    (a copy of q alone; always so beside float8 caches, such as a bf16 q
-    over an fp8 KV cache), and the result is cast to q's type as the
-    reference's `.astype` casts (`ref.from_float`: float8 without
-    saturation, integers toward zero); k and v of two different types, or
-    of an integer type, are both widened to float32 copies first. The
-    caches are read in place through their strides. `lengths` is read on
-    the device only.
+    the kernel reads the caches in their own type and q in its own where
+    `kernel_types` says so (beside 16-bit and float8 caches a float32,
+    16-bit or float8 q, such as a bf16 q over an fp8 KV cache: the call is
+    one kernel that writes the output in q's type, float8 without
+    saturation; `products_on` says where its products run); any other q
+    (an integer, or beside float32 caches a narrower float) is widened to
+    float32 (a copy of q alone) and the result cast to q's type as the
+    reference's `.astype` casts (`ref.from_float`: integers toward zero).
+    k and v of two different types, or of an integer type, are both
+    widened to float32 copies first. The caches are read in place through
+    their strides. `lengths` is read on the device only.
 
     Both devices refuse the same inputs: ranks, shapes, GQA divisibility,
     head size, dtypes, `lengths` (contiguous int32 [B]) and devices are
@@ -264,7 +305,7 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if k_cache.dtype != v_cache.dtype or k_cache.dtype not in KERNEL_TYPES:
         k_cache, v_cache = k_cache.float(), v_cache.float()   # one type
     out_dtype = q.dtype
-    if q.dtype != k_cache.dtype or k_cache.dtype in ref.FP8_TYPES:
+    if kernel_types(q.dtype, k_cache.dtype)[0] != q.dtype:
         q = q.float()                      # widened, read against the caches
     body = body_for(k_cache.dtype, D)
     # the TMA ring loads 16-byte rows, the element body by element; q is
@@ -277,9 +318,10 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
                              f"stride, other strides in multiples of {row} "
                              f"and a start aligned to {row} elements, got "
                              f"strides {t.stride()}")
-    # (a widened q is loaded by element)
+    # (a q of another type than the caches', and any q beside float8
+    # caches, is loaded by element)
     vec = max(D // 32, 1) if D in HEAD_DIMS and q.dtype == k_cache.dtype \
-        else 1
+        and q.dtype not in ref.FP8_TYPES else 1
     if q.stride(-1) != 1 or any(s % vec for s in q.stride()[:-1]) \
             or q.data_ptr() % (vec * q.element_size()):
         raise ValueError(f"paged_attention: q needs a unit last stride, "
@@ -297,7 +339,7 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
            lengths: torch.Tensor, out: torch.Tensor, page: int = 512) -> None:
     """One launch of the CUDA kernel into `out` ([B, Hq, D], unit last
     stride, q's type), with no check: `paged_attention` checks first. q has
-    the caches' type or float32."""
+    the type `kernel_types` gives it."""
     B, Hq, D = q.shape
     T, Hkv = k_cache.shape[1], k_cache.shape[2]
     plan = launch_plan(q, k_cache, page)

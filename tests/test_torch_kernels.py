@@ -154,6 +154,39 @@ def test_padded_head_dim_and_the_paged_body(d, dp):
             "tma" if d % 8 == 0 else "element")
 
 
+_RULE_TYPES = (torch.float32, torch.bfloat16, torch.float16,
+               torch.float8_e4m3fn, torch.float8_e5m2, torch.int8)
+
+
+@pytest.mark.parametrize("q_dtype", _RULE_TYPES)
+@pytest.mark.parametrize("cache_dtype", _RULE_TYPES)
+def test_paged_products_rule(q_dtype, cache_dtype):
+    """Where paged's two products run, at every head size 1-600: on the
+    tensor cores ("mma") on the TMA ring (rows of whole 16-byte pieces) at
+    a padded head size of 64 to 256, with 16-bit caches under a q of their
+    type and float8 caches under a 16-bit or float8 q (read in its own
+    type); fp32 FMAs ("fma") elsewhere, integer caches and any q beside
+    them on float32 copies. q is read in its own type beside 16-bit and
+    float8 caches if it is a float type, beside float32 caches if it is
+    float32, else widened to float32. `chip_smoke.py` holds the CUDA
+    source's rule (`paged_attention_products`) to this one."""
+    fp8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+    cache = cache_dtype if cache_dtype != torch.int8 else torch.float32
+    if cache != torch.float32:
+        q = q_dtype if q_dtype != torch.int8 else torch.float32
+    else:
+        q = q_dtype if q_dtype == cache else torch.float32
+    assert tpaged.kernel_types(q_dtype, cache_dtype) == (q, cache)
+    for d in range(1, 601):
+        dp = tflash.padded_head_dim("paged_attention", d)
+        tma = d * cache.itemsize % 16 == 0
+        mma = tma and 64 <= dp <= 256 and (
+            (cache in (torch.bfloat16, torch.float16) and q == cache)
+            or (cache in fp8 and q != torch.float32))
+        assert tpaged.products_on(q_dtype, cache_dtype, d) == \
+            ("mma" if mma else "fma"), d
+
+
 @pytest.mark.parametrize("d,itemsize,rows,chunks", [
     (128, 2, 32, 1), (256, 4, 32, 1), (257, 2, 32, 2), (512, 2, 32, 2),
     (1024, 4, 12, 4), (2048, 2, 14, 8), (2048, 4, 7, 8)])

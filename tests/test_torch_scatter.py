@@ -55,7 +55,8 @@ def test_scatter_plan_covers_m_once_and_fits(row_bytes, n, m, block_m,
     the shared memory is the source's layout and fits; every SM has a span
     where M allows. Rows of 32 bytes and more: a persistent grid of
     BLOCKS_PER_SM an SM at most, a span at a time through K slots. The
-    bucketed stream: a block one span of at most BUCKET_SPAN updates in one
+    bucketed stream (rows narrower than a sector in a call of many updates,
+    `bucketed`): a block one span of at most BUCKET_SPAN updates in one
     slot, a block for every span; the bucket pass tiles M once."""
     plan = _plan(row_bytes, n, m, block_m, num_slots)
     m4 = m - m % 4
@@ -70,12 +71,15 @@ def test_scatter_plan_covers_m_once_and_fits(row_bytes, n, m, block_m,
         assert plan.blocks == max(1, plan.spans)
     else:
         assert plan.slots == num_slots
-        assert plan.blocks == max(1, min(plan.spans,
-                                         min(asc.BLOCKS_PER_SM, plan.per_sm)
+        per = (asc.NARROW_BLOCKS_PER_SM if row_bytes < asc.SECTOR
+               else asc.BLOCKS_PER_SM)
+        assert plan.blocks == max(1, min(plan.spans, min(per, plan.per_sm)
                                          * 132))
     if m4 >= 4 * 132:
         assert plan.spans >= 132
-    assert plan.bucket == (row_bytes < asc.SECTOR)
+    assert plan.bucket == asc.bucketed(row_bytes, n, m)
+    assert plan.bucket == (row_bytes < asc.SECTOR and m >= asc.BUCKET_M
+                           and n * row_bytes >= asc.BUCKET_TABLE)
     assert plan.launches == (4 if plan.bucket else 1)
     if plan.bucket:
         assert plan.tile % plan.sub == 0
@@ -84,6 +88,59 @@ def test_scatter_plan_covers_m_once_and_fits(row_bytes, n, m, block_m,
             > (plan.buckets - 1) << plan.shift
         assert plan.buckets <= asc.MAX_BUCKETS
         assert plan.sub * (4 + row_bytes) <= 65536
+
+
+@pytest.mark.parametrize("row_bytes,n,m,bucket", [
+    (8, 1 << 30, 1 << 26, True),         # GUPS, bucketed as measured
+    (8, 1 << 30, 1 << 24, False),        # the sweep: faster not bucketed
+    (8, 1 << 30, 1 << 25, False),        # ... and even at 2^25
+    (8, 1 << 30, (1 << 26) - 1, False),  # BUCKET_M
+    (8, 1 << 31, 1 << 26, True),         # BUCKET_TABLE: GUPS's 8 GiB
+    (8, (1 << 30) - 1, 1 << 26, False),
+    (6, 1 << 24, 1 << 20, False),        # bf16 [2^24, 3] at 2^20 updates
+    (6, 1 << 24, 1 << 26, False),        # ... faster at every M swept
+    (6, 1 << 26, 1 << 26, False),        # ... so [2^26, 3] (384 MiB)
+    (6, 1 << 28, 1 << 26, False),        # ... and [2^28, 3] (1.5 GiB)
+    (6, 1 << 31, 1 << 26, True),         # a 12 GiB table of 6-byte rows
+    (3, 5003, 4000, False), (6, 1 << 28, 1 << 25, False),
+    (31, 1 << 30, 1 << 26, True), (32, 1 << 30, 1 << 26, False),
+    (512, 1 << 24, 1 << 20, False)])
+def test_scatter_bucket_rule_at_its_edges(row_bytes, n, m, bucket):
+    """Bucketed by table region iff the row is narrower than a sector, the
+    table holds at least BUCKET_TABLE bytes and the call at least BUCKET_M
+    updates: the rule fitted to the H100 sweep of M, bucketed and not, on
+    [2^24, 3], [2^26, 3] and [2^28, 3] bf16 and at GUPS (PERF.md), both
+    edges on measured points; `chip_smoke.py` holds the source's
+    `async_scatter_bucketed` to it."""
+    assert asc.bucketed(row_bytes, n, m) == bucket
+    plan = _plan(row_bytes, n, m)
+    assert plan.bucket == bucket and plan.launches == (4 if bucket else 1)
+
+
+@pytest.mark.parametrize("bucket", [True, False])
+@pytest.mark.parametrize("row_bytes,n,m", [
+    (8, 5003, 4000), (3, 5003, 1), (12, 5003, 131), (6, 1 << 24, 1 << 20),
+    (8, 1 << 30, 1 << 26), (31, 77, 7), (32, 1000, 4000),
+    (512, 1000, 4000)])
+def test_scatter_plan_takes_the_path_it_is_given(row_bytes, n, m, bucket):
+    """`bucket` overrides the rule for rows narrower than a sector (the
+    card's checks run every edge down both paths, whatever its size), and
+    is ignored for wider rows, which the bucket pass does not take; the
+    plan is then the one the rule would give on that path."""
+    plan = asc.scatter_plan(row_bytes, n, m, 256, 8, 8, 132,
+                            _h100_blocks_per_sm, bucket=bucket)
+    assert plan.bucket == (bucket and row_bytes < asc.SECTOR)
+    assert plan.launches == (4 if plan.bucket else 1)
+    if plan.bucket:
+        assert plan.slots == 1 and plan.span <= asc.BUCKET_SPAN
+        assert plan.blocks == max(1, plan.spans)
+        assert plan.tiles * plan.tile >= m > (plan.tiles - 1) * plan.tile
+        assert plan.buckets << plan.shift >= n \
+            > (plan.buckets - 1) << plan.shift
+    else:
+        assert plan.slots == 8 and plan.tiles == 0
+    if plan.bucket == asc.bucketed(row_bytes, n, m):
+        assert plan == _plan(row_bytes, n, m)
 
 
 def test_scatter_plan_at_gups_and_at_512_byte_rows():

@@ -74,7 +74,7 @@ def _ulp(x, name):
     """One unit in the last place of type `name` at |x| (float32 array)."""
     if name in INTS:
         return np.ones_like(x)
-    fi = ml_dtypes.finfo(getattr(ml_dtypes, name))
+    fi = ml_dtypes.finfo(getattr(ml_dtypes, name, None) or np.dtype(name))
     e = np.floor(np.log2(np.maximum(np.abs(x), float(fi.tiny))))
     return np.exp2(e) * float(fi.eps)
 
@@ -318,6 +318,58 @@ def test_16bit_float_scatter_add_at_odd_widths(name, d):
     assert bool((err <= limit).all()), float((err - limit).max())
 
 
+# The bits an untouched neighbour of a 16-bit row holds below: -0.0 and
+# +0.0, NaNs of several payloads (quiet, signalling, either sign), the
+# infinities and subnormals
+NEIGHBOURS = {"bfloat16": [0x8000, 0x0000, 0x7FC0, 0x7FC1, 0xFFFF, 0x7F81,
+                           0xFFA5, 0x7F80, 0xFF80, 0x0001, 0x8001],
+              "float16": [0x8000, 0x0000, 0x7E00, 0x7E01, 0xFFFF, 0x7C01,
+                          0xFCA5, 0x7C00, 0xFC00, 0x0001, 0x8001]}
+
+
+@pytest.mark.parametrize("name", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d", [1, 3, 5])
+@pytest.mark.parametrize("parity", [0, 1])
+def test_16bit_scatter_add_leaves_its_neighbours_alone(name, d, parity):
+    """bf16 / f16 add into rows of 1, 3 and 5 elements (2, 6 and 10 bytes)
+    where only the rows of one parity are hit, so that each 4-byte word the
+    card's word path reduces with one element of a hit row holds one of a
+    row no update touches; those rows hold NEIGHBOURS. Against the
+    reference's kernel: the hit rows within `ref.scatter_add16_limit`, the
+    others bit for bit where they are not NaN (-0.0 stays -0.0) and NaN
+    where they are: on the CPU both sides pass the table through float32,
+    which keeps no NaN's payload. The card's kernel keeps every bit
+    (`chip_smoke.check_scatter16_neighbours`)."""
+    rng = np.random.default_rng(110 + d + parity)
+    n, m = 40, 200
+    table = _floats(rng, (n, d), name).copy()
+    other = np.arange(1 - parity, n, 2)
+    pattern = np.array(NEIGHBOURS[name], np.uint16)
+    table.view(np.uint16)[other] = pattern[
+        np.arange(other.size * d) % pattern.size].reshape(-1, d)
+    idx = (parity + 2 * rng.integers(0, n // 2, m)).astype(np.int32)
+    upd = _floats(rng, (m, d), name)
+    want = np.asarray(jops.scatter_update(
+        jnp.asarray(table), jnp.asarray(idx), jnp.asarray(upd), op="add",
+        block_m=64))
+    got = tscatter.async_scatter(to_torch(table), torch.from_numpy(idx),
+                                 to_torch(upd), "add", block_m=64)
+    hit = np.unique(idx)
+    limit = to_np(ref.scatter_add16_limit(to_torch(table),
+                                          torch.from_numpy(idx),
+                                          to_torch(upd)))[hit]
+    err = np.abs(to_np(got)[hit] - want[hit].astype(np.float32))
+    assert np.all(err <= limit), float(np.max(err - limit))
+    kept = np.setdiff1d(np.arange(n), hit)
+    nan = np.isnan(table[kept].astype(np.float32))
+    for out in (got.view(torch.int16).numpy().view(np.uint16),
+                want.view(np.uint16)):
+        np.testing.assert_array_equal(
+            np.isnan(out[kept].view(table.dtype).astype(np.float32)), nan)
+        np.testing.assert_array_equal(out[kept][~nan],
+                                      table[kept].view(np.uint16)[~nan])
+
+
 @pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2", "int8",
                                   "uint16"])
 def test_scatter_refuses_xor_on_a_float_and_64_bits(name):
@@ -467,3 +519,27 @@ def test_paged_takes_fp8_caches_and_integers(q_name, kv_name, d):
     assert tpaged.body_for(kv, d) == (
         "tma" if d * (kv.itemsize if kv in tflash.KERNEL_TYPES else 4) % 16
         == 0 else "element")
+
+
+@pytest.mark.parametrize("q_name", FP8 + ["bfloat16", "float16"])
+@pytest.mark.parametrize("kv_name", FP8)
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_paged_fp8_caches_under_a_16bit_or_fp8_q(q_name, kv_name, d):
+    """float8 caches under a q of 16 bits or float8, read in its own type:
+    on the card one kernel with both products on the tensor cores
+    (`products_on`; K and V converted to f16, or bf16 under a bf16 q, in
+    registers) that writes the output in q's type. Lengths 0, 1 and T, GQA
+    group 2, D = Dp and D < Dp (80). The wrapper's CPU path within one unit
+    in the last place of q's type of the reference's kernel."""
+    B, hq, hkv, t = 3, 4, 2, 64
+    q, = _attn_inputs(q_name, [(B, hq, d)], 130 + d)
+    kc, vc = _attn_inputs(kv_name, [(B, t, hkv, d), (B, t, hkv, d)], 131 + d)
+    lens = np.array([t, 1, 0], np.int32)
+    want = jpaged(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                  jnp.asarray(lens), page=32, interpret=True)
+    got = tpaged.paged_attention(to_torch(q), to_torch(kc), to_torch(vc),
+                                 torch.from_numpy(lens))
+    assert got.dtype == getattr(torch, q_name)
+    _within_one_ulp(got, want, q_name)
+    assert tpaged.products_on(getattr(torch, q_name), getattr(torch, kv_name),
+                              d) == "mma"
