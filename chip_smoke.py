@@ -362,29 +362,105 @@ SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
              "stream_triad": ("UBLKCP",)}
 
 
-# ... and in each kernel whose symbol holds all the given parts: the 16-bit
-# flash body above 256 columns on wgmma and TMA; flash's wgmma body with the
-# element loader (its last template argument, ELEM, true) and at D = 256, on
-# wgmma and with the producer warpgroup's register hand-over (setmaxnreg,
-# USETMAXREG in SASS); paged's TMA ring above 256 (the instantiations <E,
-# EQ, 256, EXACT=false, TMA=true, WIDE=true>)
+# ... and in each kernel whose symbol holds all the given parts (an
+# instruction "A*B" is a line holding both): the 16-bit flash body above 256
+# columns on wgmma and TMA; flash's wgmma body with the element loader (its
+# template argument ELEM, the last but one, true) and at D = 256, on wgmma
+# and with the producer warpgroup's register hand-over (setmaxnreg,
+# USETMAXREG in SASS); its fp8 bodies by TMA (F8 true, ELEM false, and E5
+# false or true) on the fp8 wgmma of their kind (QGMMA in SASS); paged's TMA
+# ring above 256 (the instantiations <E, EQ, 256, EXACT=false, TMA=true,
+# WIDE=true>)
 SASS_WANT_IN = {"flash_attention": [
                     (("flash_wgmma_wide_kernel",), ("HGMMA", "UTMALDG")),
-                    (("flash_wgmma_kernel", "Lb1EEEv"),
+                    (("flash_wgmma_kernel", "Lb1ELb0EEEv"),
                      ("HGMMA", "USETMAXREG")),
                     (("flash_wgmma_kernel", "Li256E"),
-                     ("HGMMA", "USETMAXREG"))],
+                     ("HGMMA", "USETMAXREG")),
+                    (("flash_wgmma_kernel", "Lb1ELb0ELb0EEEv"),
+                     ("GMMA*E4M3", "HGMMA", "UTMALDG", "USETMAXREG")),
+                    (("flash_wgmma_kernel", "Lb1ELb0ELb1EEEv"),
+                     ("GMMA*E5M2", "HGMMA", "UTMALDG", "USETMAXREG"))],
                 "paged_attention": [(("Li256ELb0ELb1ELb1E",), ("UTMALDG",)),
+                                    (("Lb1ELb0ELb1EEEv",), ("UTMALDG",)),
                                     (("q_asI6__half",), ("HMMA", "UTMALDG")),
                                     (("q_asI13__nv_bfloat16",),
                                      ("HMMA", "UTMALDG"))]}
+
+
+def sass_functions(sass) -> dict:
+    """Each kernel's SASS lines (cuobjdump --dump-sass), by symbol."""
+    funcs, func = {}, None
+    for line in sass:
+        if "Function :" in line:
+            func = line.split("Function :")[1].strip()
+            funcs[func] = []
+        elif func is not None and "/*" in line and ";" in line:
+            funcs[func].append(line)
+    return funcs
+
+
+def sass_reached(lines, start) -> list:
+    """The instructions of one kernel's SASS reachable from the first one
+    that holds `start`: every path through branches (a predicated branch or
+    exit also falls through), none past an unpredicated EXIT, RET or
+    indirect branch."""
+    import re
+    code = {}
+    order = []
+    for line in lines:
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s*(.*?);", line)
+        if m:
+            addr = int(m.group(1), 16)
+            code[addr] = m.group(2).strip()
+            order.append(addr)
+    after = {a: b for a, b in zip(order, order[1:])}
+    todo = [a for a in order if start in code[a]][:1]
+    seen = set()
+    while todo:
+        a = todo.pop()
+        if a in seen or a not in code:
+            continue
+        seen.add(a)
+        ins = code[a]
+        op = ins.split()[1] if ins.startswith("@") else ins.split()[0]
+        guarded = ins.startswith("@") and not ins.startswith("@PT")
+        target = re.findall(r"0x([0-9a-f]+)", ins)
+        if op.startswith(("BRA", "CALL")) and target:
+            todo.append(int(target[-1], 16))
+            if not guarded and op.startswith("BRA"):
+                continue
+        elif op.startswith(("EXIT", "RET", "BRX", "JMX")) and not guarded:
+            continue
+        if a in after:
+            todo.append(after[a])
+    return [code[a] for a in order if a in seen]
+
+
+# ... and in the code of the consumer warpgroups of each such kernel (the
+# instructions reachable from their setmaxnreg.inc, USETMAXREG.TRY_ALLOC):
+# the instructions they must hold and those they must not. flash's fp8
+# bodies by TMA take Q K^T on the fp8 wgmma and leave V's conversion to f16
+# (F2FP...UNPACK_B for e4m3) to the producer warpgroup, whose code holds
+# it in the e4m3 bodies
+SASS_CONSUMERS = {"flash_attention": [
+    (("flash_wgmma_kernel", "Lb1ELb0ELb0EEEv"), ("GMMA*E4M3",), ("UNPACK",),
+     ("UNPACK",)),
+    (("flash_wgmma_kernel", "Lb1ELb0ELb1EEEv"), ("GMMA*E5M2",), ("UNPACK",),
+     ())]}
+
+
+def sass_has(line, op) -> bool:
+    return all(part in line for part in op.split("*"))
 
 
 def check_sass(out_dir) -> dict:
     """Counts the SASS lines of each instruction of `SASS_WANT` in the built
     libraries (cuobjdump, beside nvcc), and of `SASS_WANT_IN` in each kernel
     whose symbol holds the given parts, and fails where one is missing (in
-    a library, or in any one of those kernels)."""
+    a library, or in any one of those kernels); then holds the consumer
+    warpgroups' code of `SASS_CONSUMERS` to what it must and must not
+    hold."""
     from pathlib import Path
     from repro_torch.kernels import _build
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
@@ -408,7 +484,7 @@ def check_sass(out_dir) -> dict:
                         funcs[func] = {op: 0 for op in want}
                 elif func is not None:
                     for op in want:
-                        funcs[func][op] += op in line
+                        funcs[func][op] += sass_has(line, op)
             key = f"{lib} {'*'.join(parts)}"
             counts[key] = {op: sum(f[op] for f in funcs.values())
                            for op in want}
@@ -419,6 +495,28 @@ def check_sass(out_dir) -> dict:
                 raise AssertionError(f"lib{lib}.so: the kernels named "
                                      f"*{'*'.join(parts)}* ({len(funcs)}) "
                                      f"lack {want}: {lacking[:3]}")
+        for parts, must, never, producer in SASS_CONSUMERS.get(lib, []):
+            kernels = {name: code
+                       for name, code in sass_functions(sass).items()
+                       if all(part in name for part in parts)}
+            key = f"{lib} {'*'.join(parts)} consumers"
+            counts[key] = {"kernels": len(kernels)}
+            for name, code in kernels.items():
+                mine = sass_reached(code, "USETMAXREG.TRY_ALLOC")
+                theirs = sass_reached(code, "USETMAXREG.DEALLOC")
+                bad = [op for op in must if not any(sass_has(x, op)
+                                                    for x in mine)]
+                bad += [f"not {op}" for op in never
+                        if any(sass_has(x, op) for x in mine)]
+                bad += [f"producer {op}" for op in producer
+                        if not any(sass_has(x, op) for x in theirs)]
+                if not mine or bad:
+                    raise AssertionError(
+                        f"lib{lib}.so: the consumer warpgroups of {name} "
+                        f"({len(mine)} instructions) fail {bad}")
+                for op in must + never:
+                    counts[key][op] = counts[key].get(op, 0) + sum(
+                        sass_has(x, op) for x in mine)
     log(f"SASS lines of the Hopper paths: {counts}")
     return counts
 
@@ -542,6 +640,10 @@ def check_flash(gen):
 
 
 BODY_RULE_DIMS = list(range(0, 1101)) + [2048]
+# (Hq, Hkv) at which paged's split and products rules are held: G of 1 to 16,
+# and KV heads that 8 / G does not divide
+PAGED_RULE_LAYOUTS = ((16, 16), (16, 8), (16, 4), (16, 2), (16, 1), (6, 6),
+                      (12, 6), (3, 3), (20, 4), (24, 8))
 
 
 def check_body_rules():
@@ -580,13 +682,33 @@ def check_body_rules():
                     f"body for {q_dtype} / {kv_dtype} D{d}: the sources run "
                     f"flash {got}, paged {got_paged}; the wrappers say "
                     f"{want}, {want_paged} ... FAIL")
+    # paged's KV heads a segment and where its products run, by GQA layout
+    pa._bind()
+    products = {0: "fma", 1: "mma"}
+    for dtype in (*types, *FP8):
+        code = _build.DTYPE_CODES[dtype]
+        for hq, hkv in PAGED_RULE_LAYOUTS:
+            for d in BODY_RULE_DIMS[1:]:
+                got = (paged.paged_attention_heads(code, code, d, hq, hkv),
+                       products[paged.paged_attention_products(
+                           code, code, d, hq, hkv)])
+                want = (pa.kv_heads(dtype, dtype, d, hq, hkv),
+                        pa.products_on(dtype, dtype, d, hq, hkv))
+                if got != want:
+                    raise AssertionError(
+                        f"paged heads and products for {dtype} Hq{hq} Hkv"
+                        f"{hkv} D{d}: the source says {got}, the wrapper "
+                        f"{want} ... FAIL")
     log("  body rules, D 0-1100 and 2048 x 3 types, the 6 mixed pairs and "
         "fp8, sources and wrappers agree: flash fp32 and mixed -> fma; "
         "16-bit D % 8 == 0: Dp >= 64 -> wgmma (wide above 256), Dp 16-32 -> "
         "mma; 16-bit D % 8 != 0 and fp8 D % 16 != 0 at Dp 64-256 -> "
         "wgmma_elem, else fma; fp8 D % 16 == 0 and Dp 64-256 -> wgmma; "
         "paged rows of whole 16-byte pieces -> tma, others -> element; 0 "
-        "refused")
+        "refused; paged's KV heads a segment and products at "
+        f"{len(PAGED_RULE_LAYOUTS)} GQA layouts (16-bit on the TMA ring at "
+        "Dp 64-256, G = 1, or G of 2 and 4 at D < Dp: 8 / G heads a "
+        "segment, on fma)")
 
 
 def window_mask(s, window):
@@ -1539,13 +1661,14 @@ def check_ulp(name, got, want, quiet=False, extra=None) -> float:
     return worst
 
 
-def fp8_p_term(q, k, v, body):
+def fp8_p_term(q, k, v, body, causal=True, window=0):
     """`check_ulp`'s extra term for flash in fp8: the f16 P of its wgmma
-    body, fed by TMA or by the element loader (none for the fma body, fp32
-    throughout)."""
+    bodies, the TMA body (Q K^T on the fp8 wgmma, P V in f16 on V converted
+    by its producer warpgroup) and the element loader's (f16 throughout);
+    none for the fma body, fp32 throughout."""
     if body not in ("wgmma", "wgmma_elem"):
         return None
-    return FLASH_F16_TOL["ptol"] * flash_spread(q, k, v)
+    return FLASH_F16_TOL["ptol"] * flash_spread(q, k, v, causal, window)
 
 
 def rand_typed(gen, shape, dtype, scale=1.0):
@@ -1757,7 +1880,8 @@ def check_paged_fp8(gen):
             kq, kc = pa.kernel_types(qt, c)
             for d in range(1, 601):
                 got = names[lib.paged_attention_products(
-                    _build.DTYPE_CODES[kc], _build.DTYPE_CODES[kq], d)]
+                    _build.DTYPE_CODES[kc], _build.DTYPE_CODES[kq], d,
+                    pa.GC, 1)]
                 want = pa.products_on(qt, c, d)
                 if got != want:
                     raise AssertionError(
@@ -1820,6 +1944,87 @@ def check_paged_fp8(gen):
                              "range ... FAIL")
     log(f"  fp32 and int8 q over e4m3 caches agree; {nans} outputs past "
         "e4m3's range are NaN as the plain version gives them")
+
+
+# flash's fp8 TMA body: head sizes held in both kinds (those not a multiple
+# of 32 end on k-steps of zeros; from 128 on, Q K^T in more than one chain)
+FLASH_FP8_DIMS = (64, 80, 96, 128, 144, 208, 256)
+# paged at B4 Hq16 T1032 (lengths [1032, 1001, 517, 64]): (Hkv, D) of
+# kernel_bench.py's `paged_heads` set, then 2 and 4 query heads a KV head
+PAGED_HEADS = ((16, 64), (16, 80), (16, 128), (2, 80))
+PAGED_HEADS_CHECKED = PAGED_HEADS + ((8, 80), (4, 80), (8, 72), (4, 112),
+                                     (16, 96), (16, 256), (8, 128), (4, 64))
+
+
+def check_redesigns(gen):
+    """The two bodies redesigned last, against their plain versions:
+    flash's fp8 body by TMA (Q K^T on the fp8 wgmma of each kind) at every
+    D of FLASH_FP8_DIMS, causal, not causal and with a window of 100, four
+    seeds a case from 128 on (more chains to add in fp32), within one unit in
+    the last place plus `fp8_p_term`; paged in bf16 and f16 at
+    PAGED_HEADS_CHECKED (below 8 query heads a KV head, segments of several
+    KV heads on FMAs: `kv_heads`) and at ragged lengths with zeros, within
+    PAGED_BF16_TOL; at the PAGED_HEADS shapes in bf16 timed beside the plain
+    version, the library call (SDPA) and the bound (one input set, warm in
+    L2: `kernel_bench.py --only paged_heads` times them cold)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa, ref
+    import torch.nn.functional as F
+
+    log("flash's fp8 body by TMA and paged at one to four query heads a "
+        "KV head")
+    for dtype in FP8:
+        worst = {}
+        for d in FLASH_FP8_DIMS:
+            assert fa.body_for(dtype, d) == "wgmma"
+            for causal, window in ((True, 0), (False, 0), (True, 100)):
+                for _ in range(4 if d >= 128 else 1):
+                    q, k, v = flash_case(gen, 2, 8, 2, 300, d, dtype)
+                    err = check_ulp(
+                        f"flash {tname(dtype)} D{d} causal {causal} window "
+                        f"{window}", fa.flash_attention(q, k, v, causal,
+                                                        window),
+                        ref.attention_ref(q, k, v, causal, window),
+                        quiet=True, extra=fp8_p_term(q, k, v, "wgmma",
+                                                     causal, window))
+                    worst[d] = max(worst.get(d, 0.0), err)
+        log(f"  flash {tname(dtype)} (wgmma body, fp8 Q K^T) within one unit "
+            f"in the last place + P term; max abs err by D: "
+            + ", ".join(f"{d} {e:.3e}" for d, e in worst.items()))
+    b, hq, t = BATCH, 16, PROMPT_LEN + MAX_NEW
+    lens = torch.tensor([t, PROMPT_LEN + 1, (t + 2) // 2, 64],
+                        dtype=torch.int32, device="cuda")
+    ragged = torch.tensor([0, 1, 31, 32, 33, 200, 333], dtype=torch.int32,
+                          device="cuda")
+    mask = (torch.arange(t, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    for dtype in (torch.bfloat16, torch.float16):
+        for hkv, d in PAGED_HEADS_CHECKED:
+            x = paged_case(gen, b, hq, hkv, t, d, dtype)
+            plan, (slots, _) = pa.launch_plan(x[0], x[1]), pa.ring(x[0], x[1])
+            check_close(
+                f"paged {tname(dtype)} Hq{hq} Hkv{hkv} T{t} D{d} ("
+                f"{plan.heads} KV heads a segment, "
+                f"{pa.products_on(dtype, dtype, d, hq, hkv)}, {plan.blocks} "
+                f"blocks, {slots} slots of {plan.rows} rows)",
+                pa.paged_attention(*x, lens),
+                ref.paged_attention_ref(*x, lens), **PAGED_BF16_TOL)
+            if dtype == torch.bfloat16 and (hkv, d) in PAGED_HEADS:
+                ms = time_ms([lambda: pa.paged_attention(*x, lens)], 64)
+                plain_ms = time_ms([lambda: ref.paged_attention_ref(*x, lens)],
+                                   8)
+                library_ms = time_ms([lambda: F.scaled_dot_product_attention(
+                    x[0][:, :, None], x[1].transpose(1, 2),
+                    x[2].transpose(1, 2), attn_mask=mask, enable_gqa=True)],
+                    64)
+                bound_ms, bound_by = paged_bound(lens, hq, hkv, d, dtype)
+                log(f"    kernel {ms:.4f} ms (its inputs warm in L2), plain "
+                    f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+                    f"{bound_ms:.5f} ms ({bound_by})")
+            x = paged_case(gen, 7, hq, hkv, 333, d, dtype)
+            check_close(f"  the same at lengths {ragged.tolist()}",
+                        pa.paged_attention(*x, ragged),
+                        ref.paged_attention_ref(*x, ragged), **PAGED_BF16_TOL)
 
 
 def fp8_serve_shapes(gen):
@@ -3919,6 +4124,28 @@ MUTANTS = {
                                      "      const int row = sidx[u];",
                                      "      const int row = sidx[u] + "
                                      "(K > 1);")],
+    # flash's fp8 body by TMA: the e4m3 wgmma on e5m2 tiles ...
+    "flash_fp8_kind_swapped": [("flash_attention.cu",
+                                "    WGMMA_SS8_128(\"e5m2\");",
+                                "    WGMMA_SS8_128(\"e4m3\");"),
+                               ("flash_attention.cu",
+                                "    WGMMA_SS8_64(\"e5m2\");",
+                                "    WGMMA_SS8_64(\"e4m3\");")],
+    # ... the consumers not waiting for the converted (f16) V slot, nor so
+    # for K ...
+    "flash_fp8_v_ready_skipped": [("flash_attention.cu",
+                                   "      if (!dead) mbar_wait(&v_ready[s], "
+                                   "(i / STAGES) & 1);", "")],
+    # ... and Q K^T as one chain of all D / 32 k-steps, not chains of 2
+    "flash_fp8_chain_unsplit": [("flash_attention.cu",
+                                 "        constexpr int CHAIN = 2, CHAINS",
+                                 "        constexpr int CHAIN = 8, CHAINS")],
+    # paged with segments of several KV heads: warp w reading the rows of
+    # the segment's next KV head
+    "paged_heads_offset": [("paged_attention.cu",
+                            "  const int kvh = HEADS ? hw / a.G : 0;",
+                            "  const int kvh = HEADS ? (hw / a.G + 1) % "
+                            "a.heads : 0;")],
 }
 
 
@@ -4340,6 +4567,7 @@ def main() -> int:
     amu_worst = check_amu_kernels(gen)
     check_every_type(gen)
     check_paged_fp8(gen)
+    check_redesigns(gen)
     fp8_serve_shapes(gen)
 
     # 4. the slice and the later paths, then training; 5. the AMU kernels'

@@ -58,12 +58,19 @@ q, and its element body at D 8 and 100, each with the kernels one call
 runs on the device, from the profiler), `paged_mixed` (the same over
 bf16 caches under a float32 and a float16 q), `scatter_narrow` (2^20 updates
 into rows of 3 and 6 bytes: bf16 and f16 add, xor, int8 / int16 / e4m3
-add, and the bucket pass alone) and `scatter_sweep` (M from 2^20 to
+add, and the bucket pass alone), `scatter_sweep` (M from 2^20 to
 2^26 into [2^24, 3], [2^26, 3] and [2^28, 3] bf16 tables and at GUPS,
-bucketed and not where the tree can be given the path, else as it plans).
+bucketed and not where the tree can be given the path, else as it plans),
+`paged_heads` (bf16 paged at T=1032 and the serve lengths, Hq=16 over
+`chip_smoke.PAGED_HEADS`: 16 KV heads at D 64, 80 and 128, 2 at D 80; then
+8 and 4 KV heads at D 64, 80 and 128) and
+`flash_fp8` (flash in e4m3 and e5m2 at granite's D 64, qwen2.5-3b's
+prefill and recurrentgemma-9b's windowed D 256, each held within one unit
+in the last place plus the P term of the plain version, beside SDPA on
+bf16 copies and then the bf16 body at the same shape).
 `--only` picks some of flash, paged, gather, triad, scatter,
 scatter_bf16, types, paged_fp8, paged_mixed, scatter_narrow,
-scatter_sweep. For each:
+scatter_sweep, paged_heads, flash_fp8. For each:
 kernel ms (CUDA
 events, mean of back-to-back calls, best of 5 windows, as in chip_smoke.py),
 host us a call (perf_counter over 50 calls without a synchronise), the
@@ -168,6 +175,11 @@ def main() -> int:
         rows.extend(bench_types(cs, fa, pa, ag, asc, st, ref, F, gen))
     if "paged_fp8" in args.only:
         rows.extend(bench_paged_fp8(cs, pa, ref, F, gen))
+    if "paged_heads" in args.only:
+        rows.extend(bench_paged(cs, pa, ref, F, gen, b, 16, hkv_, d_)
+                    for hkv_, d_ in cs.PAGED_HEADS + PAGED_GROUPS)
+    if "flash_fp8" in args.only:
+        rows.extend(bench_flash_fp8(cs, fa, ref, F, gen))
     if "paged_mixed" in args.only:
         rows.extend(bench_paged_typed(cs, pa, ref, F, gen, q_dtype,
                                       torch.bfloat16)
@@ -194,6 +206,39 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip())
     return 1 if any(r.get("check") == "FAIL" for r in rows) else 0
+
+
+# `paged_heads` after chip_smoke.PAGED_HEADS: (Hkv, D) at 2 and 4 query
+# heads a KV head, at head sizes that are a body's own (64, 128) and not (80)
+PAGED_GROUPS = ((8, 64), (8, 80), (8, 128), (4, 64), (4, 80), (4, 128))
+# `flash_fp8`: (Hq, Hkv, S, D, window) in the model's layout, causal:
+# granite's D 64, qwen2.5-3b's prefill at D 128, recurrentgemma-9b's D 256
+FLASH_FP8 = ((16, 8, 1000, 64, 0), (16, 2, 1000, 128, 0),
+             (16, 1, 4096, 256, 2048))
+
+
+def bench_flash_fp8(cs, fa, ref, F, gen):
+    """`flash_fp8`: flash in e4m3 and e5m2 at each shape of FLASH_FP8, each
+    held against the plain version (one unit in the last place plus the
+    f16 P term of the wgmma body) and timed beside SDPA on bf16 copies;
+    then the bf16 body at the same shape."""
+    rows = []
+    b = cs.BATCH
+    for hq, hkv, s, d, window in FLASH_FP8:
+        for dtype in cs.FP8:
+            q, k, v = cs.flash_case(gen, b, hq, hkv, s, d, dtype)
+            cs.check_ulp(f"flash {cs.tname(dtype)} D{d}",
+                         fa.flash_attention(q, k, v, window=window),
+                         ref.attention_ref(q, k, v, window=window), quiet=True,
+                         extra=cs.fp8_p_term(q, k, v, fa.body_for(dtype, d),
+                                             window=window))
+            del q, k, v
+            rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, d,
+                                    window=window, dtype=dtype))
+        rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, d,
+                                window=window))
+        cs.free_cuda()
+    return rows
 
 
 def takes(mod, d) -> bool:

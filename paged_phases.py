@@ -1,0 +1,251 @@
+#!/usr/bin/env python3
+"""Per-block phase times of the paged attention kernel, from a copy of its
+source that stamps clock64().
+
+    python3 paged_phases.py [--src DIR] [--label NAME] [--case HKV,D ...]
+
+Copies DIR (a tree's `src/`, this tree's by default) to
+`build/paged_phases/NAME/src`, edits the copy's `paged_attention.cu` (each
+edit's text must be in it exactly once, as a mutant's of chip_smoke.py: it
+adds a `__device__` array, an `extern "C"` reader and clock64() stamps in
+each consumer thread), builds that source alone, and runs bf16 paged
+attention at B = 4, Hq = 16, T = 1032, lengths [1032, 1001, 517, 64] for
+each case (KV heads, head size; by default 16 heads at D 64, 80 and 128, and
+qwen2.5-3b's 2 heads at D 128). For each case it prints, over the consumer
+sets of all blocks (two sets a block), the mean and the largest cycles
+spent: waiting for a chunk to land (getfin), Q K^T on the tensor cores with
+the logits' exchange, the softmax and P V (and Q K^T on FMAs), the rest (the
+loop's turns between chunks), finishing segments (the partials, the ticket,
+the last block's merge), the start (the lengths' prefix sums, the barrier,
+the empty segments) and a new segment (the split's search, its queries);
+chunks and segments a set; the set's whole time; when its first and last
+chunk had landed (the end of their getfin); the block's time in microseconds
+at the SM clock measured by a sleep kernel; and the copy's kernel time by
+CUDA events (the stamps cost a little). One JSON line at the end, then the
+card's name and power limit. Needs one NVIDIA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PHASES = ("wait", "qk", "softmax_pv", "rest", "finish", "start", "segment")
+# stamps a consumer set: PHASES, then chunks, segments, the whole time, and
+# the times from the start to the end of the first and of the last getfin
+SLOTS = 12
+CHUNKS, SEGMENTS, TOTAL, FIRST, LAST = range(len(PHASES), SLOTS)
+
+# (text in csrc/paged_attention.cu, what replaces it)
+EDITS = (
+    ('#include "hopper.cuh"\n',
+     '#include "hopper.cuh"\n\n'
+     f'__device__ unsigned long long repro_paged_phase[2048][{SLOTS}];\n'),
+    ("  extern __shared__ __align__(1024) unsigned char smem[];\n",
+     "  extern __shared__ __align__(1024) unsigned char smem[];\n"
+     f"  unsigned long long ph_[{SLOTS}] = {{}};\n"
+     "  const unsigned long long ph_start = clock64();\n"
+     "  unsigned long long ph_t = ph_start;\n"
+     "  auto ph_tick = [&](int i) {\n"
+     "    const unsigned long long now = clock64();\n"
+     "    ph_[i] += now - ph_t;\n"
+     "    ph_t = now;\n"
+     "  };\n"),
+    ("  const long long W = P[a.B] * hg;",
+     "  ph_tick(5);\n"
+     "  const long long W = P[a.B] * hg;"),
+    ("        cacc[nt][0] = cacc[nt][1] = cacc[nt][2] = cacc[nt][3] = 0.f;\n"
+     "    }\n"
+     "    g += n;\n",
+     "        cacc[nt][0] = cacc[nt][1] = cacc[nt][2] = cacc[nt][3] = 0.f;\n"
+     "    }\n"
+     "    ph_tick(6);\n"
+     "    g += n;\n"),
+    ("      if (cur >= 0) finish();\n",
+     "      if (cur >= 0) {\n"
+     "        ph_tick(3);\n"
+     "        finish();\n"
+     "        ph_tick(4);\n"
+     f"        ph_[{SEGMENTS}]++;\n"
+     "      }\n"),
+    ("    mbar_wait(&full[j % a.slots], (uint32_t)((j / a.slots) & 1));  "
+     "// getfin\n",
+     "    ph_tick(3);\n"
+     "    mbar_wait(&full[j % a.slots], (uint32_t)((j / a.slots) & 1));  "
+     "// getfin\n"
+     "    ph_tick(0);\n"
+     f"    if (ph_[{CHUNKS}]++ == 0) ph_[{FIRST}] = ph_t - ph_start;\n"
+     f"    ph_[{LAST}] = ph_t - ph_start;\n"),
+    ("      set_sync(set);\n"
+     "      if (lane < n) sc = lg[hw * 32 + lane] * a.scale;\n"
+     "    }\n",
+     "      set_sync(set);\n"
+     "      if (lane < n) sc = lg[hw * 32 + lane] * a.scale;\n"
+     "    }\n"
+     "    ph_tick(1);\n"),
+    ("    __syncwarp();\n"
+     "    if (lane == 0) mbar_arrive(&empty[j % a.slots]);  "
+     "// this warp is past it\n",
+     "    ph_tick(2);\n"
+     "    __syncwarp();\n"
+     "    if (lane == 0) mbar_arrive(&empty[j % a.slots]);  "
+     "// this warp is past it\n"),
+    ("  finish();\n}\n\n// The tensor map",
+     "  ph_tick(3);\n"
+     "  finish();\n"
+     "  ph_tick(4);\n"
+     f"  ph_[{SEGMENTS}]++;\n"
+     f"  ph_[{TOTAL}] = clock64() - ph_start;\n"
+     "  if (lane == 0 && hw == 0 && blockIdx.x < 1024 && blockIdx.y == 0) {\n"
+     f"    for (int i = 0; i < {SLOTS}; ++i)\n"
+     "      repro_paged_phase[blockIdx.x * 2 + set][i] = ph_[i];\n"
+     "  }\n"
+     "}\n\n// The tensor map"),
+)
+READER = f"""
+// The stamps of the last launch (clear before it): 2048 x {SLOTS} words.
+extern "C" int repro_paged_phase_clear() {{
+  void* p = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&p, repro_paged_phase);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemset(p, 0, sizeof(repro_paged_phase));
+}}
+
+extern "C" int repro_paged_phase_read(void* host) {{
+  return (int)cudaMemcpyFromSymbol(host, repro_paged_phase,
+                                   sizeof(repro_paged_phase));
+}}
+"""
+
+
+def make_copy(src: str, label: str) -> str:
+    """The edited copy of `src`; returns its `src` directory."""
+    dst = os.path.join(ROOT, "build", "paged_phases", label)
+    shutil.rmtree(os.path.join(dst, "src"), ignore_errors=True)
+    shutil.copytree(src, os.path.join(dst, "src"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = os.path.join(dst, "src", "repro_torch", "kernels", "csrc",
+                        "paged_attention.cu")
+    with open(path) as f:
+        text = f.read()
+    for old, new in EDITS:
+        if text.count(old) != 1:
+            raise AssertionError(f"paged_phases: {old!r} is not in "
+                                 f"{path} exactly once")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text + READER)
+    return os.path.join(dst, "src")
+
+
+def sm_hz() -> float:
+    """The SM clock under load: cycles of a sleep kernel over its event
+    time."""
+    cycles = 20_000_000
+    torch.cuda._sleep(cycles)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    stop.record()
+    torch.cuda.synchronize()
+    return cycles / (start.elapsed_time(stop) * 1e-3)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    ap.add_argument("--label", default="this-tree")
+    ap.add_argument("--case", nargs="*",
+                    default=["16,64", "16,80", "16,128", "2,128"])
+    ap.add_argument("--build-only", action="store_true",
+                    help="build the stamped copy and stop (a later run "
+                         "with the same --src and --label reuses it)")
+    args = ap.parse_args()
+    if not args.build_only and not torch.cuda.is_available():
+        print("paged_phases: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    import ctypes
+
+    import chip_smoke as cs
+    copy = make_copy(os.path.abspath(args.src), args.label)
+    sys.path.insert(0, copy)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import paged_attention as pa, ref
+    _build._sources = lambda: [_build.CSRC / "paged_attention.cu"]
+    lib = _build.load("paged_attention")
+    lib.repro_paged_phase_read.argtypes = [ctypes.c_void_p]
+    print(f"{args.label}: built the stamped copy in "
+          f"{_build.build_seconds or 0.0:.1f} s", flush=True)
+    if args.build_only:
+        return 0
+    hz = sm_hz()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, hq, t = cs.BATCH, 16, cs.PROMPT_LEN + cs.MAX_NEW
+    lens = torch.tensor([t, cs.PROMPT_LEN + 1, (t + 2) // 2, 64],
+                        dtype=torch.int32, device="cuda")
+    results = []
+    for case in args.case:
+        hkv, d = (int(x) for x in case.split(","))
+        x = cs.paged_case(gen, b, hq, hkv, t, d, torch.bfloat16)
+        cs.check_close(f"paged Hkv{hkv} D{d} (stamped copy)",
+                       pa.paged_attention(*x, lens),
+                       ref.paged_attention_ref(*x, lens),
+                       **cs.PAGED_BF16_TOL)
+        ms = cs.time_ms([lambda: pa.paged_attention(*x, lens)], 64)
+        _build.check(lib, lib.repro_paged_phase_clear(), "clear")
+        pa.paged_attention(*x, lens)
+        torch.cuda.synchronize()
+        host = (ctypes.c_ulonglong * (2048 * SLOTS))()
+        _build.check(lib, lib.repro_paged_phase_read(host), "read")
+        stamps = torch.tensor(list(host), dtype=torch.float64).view(2048,
+                                                                    SLOTS)
+        sets = stamps[stamps[:, TOTAL] > 0]      # sets that had rows
+        total = sets[:, TOTAL]
+        row = dict(case=f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} bf16",
+                   body=pa.body_for(torch.bfloat16, d),
+                   products=pa.products_on(torch.bfloat16, torch.bfloat16, d),
+                   kernel_ms=ms, sm_mhz=hz / 1e6, sets=int(sets.shape[0]),
+                   chunks_mean=float(sets[:, CHUNKS].mean()),
+                   segments_mean=float(sets[:, SEGMENTS].mean()),
+                   total_cycles_mean=float(total.mean()),
+                   total_cycles_max=float(total.max()),
+                   total_us_max=float(total.max()) / hz * 1e6,
+                   first_data_cycles_mean=float(sets[:, FIRST].mean()),
+                   last_data_cycles_mean=float(sets[:, LAST].mean()),
+                   last_data_cycles_max=float(sets[:, LAST].max()))
+        for i, name in enumerate(PHASES):
+            row[f"{name}_cycles_mean"] = float(sets[:, i].mean())
+            row[f"{name}_cycles_max"] = float(sets[:, i].max())
+            row[f"{name}_share"] = float(sets[:, i].sum() / total.sum())
+        results.append(row)
+        print(f"{args.label}: paged {row['case']} ({row['body']}, "
+              f"{row['products']}): {ms:.4f} ms stamped, a set "
+              f"{row['chunks_mean']:.2f} chunks, {row['segments_mean']:.2f} "
+              f"segments, {row['total_cycles_mean']:.0f} cycles (max "
+              f"{row['total_us_max']:.2f} us at {hz / 1e6:.0f} MHz), first "
+              f"and last chunk landed at {row['first_data_cycles_mean']:.0f}"
+              f" and {row['last_data_cycles_mean']:.0f} cycles (mean); "
+              "shares "
+              + ", ".join(f"{n} {row[f'{n}_share']:.3f} (mean "
+                          f"{row[f'{n}_cycles_mean']:.0f})" for n in PHASES),
+              flush=True)
+        del x
+    print(json.dumps({"label": args.label, "src": args.src,
+                      "phases": results}))
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

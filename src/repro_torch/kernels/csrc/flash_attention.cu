@@ -166,19 +166,43 @@
 //
 // fp8 q, k, v are read as fp8 from device memory (D bytes a row: no widened
 // copy of K or V is made). Rows of whole 16-byte pieces take the wgmma body
-// with F8: TMA lands the fp8 Q tile and a ring of fp8 K/V tiles unswizzled
-// (64 bytes a box row), the consumer warpgroups convert each to f16 into
-// the 128-byte-swizzled layout TMA gives a 16-bit operand (one f16 K/V
-// pair, refilled a tile: two barriers a tile among the consumers), and the
-// f16 code runs as is. Every e4m3 and e5m2 value is exact in f16 (e5m2 is
-// an f16's high byte), so Q K^T is the reference's product; P is rounded to
-// f16 as in the f16 body; the output is rounded from fp32 to fp8 without
-// saturation (`to_fp8`). Both kinds are one instantiation, the kind a
-// launch argument. Left for a later change: wgmma's own e4m3 / e5m2 form
-// (K = 32 a step, both operands K-major, so V needs a transpose in shared
-// memory), and the conversion overlapped with the other warpgroup's
-// products. Integer q, k, v (and mixed types) never reach this file: the
-// wrapper widens them to fp32 copies, the reference's `.astype(float32)`.
+// with F8 and TMA (TMA8), which the fp8 tensor cores take as far as they
+// can:
+//   - S = Q K^T on wgmma's own fp8 form (m64nNk32 .e4m3.e4m3 or .e5m2.e5m2,
+//     the kind a template argument, E5), Q and K both K-major straight from
+//     the TMA tiles: TMA lands them in rows of min(D, 128) bytes under the
+//     swizzle of that row (128 or 64 bytes), which the descriptors read; a
+//     k-step is 32 columns, and columns past D, zero-filled, add nothing.
+//     Every product of two fp8 values is exact, but the tensor core keeps
+//     fewer bits than fp32 while it sums a chain of k-steps into its
+//     accumulator: one chain of all D / 32 k-steps missed the plain
+//     version by more than one unit in the last place of the output at D
+//     = 256 (8 k-steps), and chains of 4 did at D = 128 (`chip_smoke.py`'s
+//     fp8 checks), so a chain is at most 2 k-steps (CHAIN): the first
+//     chain's accumulator takes each later one's, added in fp32 once that
+//     chain is done (at D = 256, three waits a tile for Q K^T);
+//   - P V stays on the f16 wgmma with P rounded to f16 as in the f16 body
+//     (fp8 would leave P 3 mantissa bits): V is converted fp8 -> f16
+//     exactly (e5m2 is an f16's high byte, e4m3fn takes cvt) by the producer
+//     warpgroup, off the consumers' path. Its warp 0 issues TMA (Q once,
+//     then a ring of fp8 K and V tiles, STAGES deep); warps 1-3 wait on
+//     each stage's full barrier, convert its V tile into a ring of f16 V
+//     tiles in the 16-bit layout, and arrive on its `v_ready` barrier;
+//   - the consumers wait on `v_ready` alone (it implies the stage landed),
+//     skip a tile masked whole for their 64 rows without waiting, and free
+//     the stage by one arrival a warp on `empty`, as the 16-bit body does:
+//     no barrier across both consumer warpgroups is left in the tile loop,
+//     so one's softmax runs under the other's products;
+//   - shared memory at D = 128 is the fp8 Q tile (16 KB), 2 x 16 KB of fp8
+//     K, 2 x 16 KB of fp8 V and 2 x 32 KB of f16 V (145 KB), at D = 256
+//     with 64-key tiles 161 KB (`Cfg::SMEM8`); the producer warpgroup keeps
+//     40 registers a thread and the consumers get 232.
+// P is rounded to f16 as in the f16 body; the output is rounded from fp32
+// to fp8 without saturation (`to_fp8`). Rows of no whole 16-byte pieces
+// take the element loader, which converts to f16 as it copies (both kinds
+// one instantiation, the kind a launch argument). Integer q, k, v (and
+// mixed types) never reach this file: the wrapper widens them to fp32
+// copies, the reference's `.astype(float32)`.
 //
 // Above 256 columns (D > 256, Dp = D rounded up to WIDE_DC = 256) no block
 // can hold a whole head: the D = 256 body already keeps a warpgroup's 64 x
@@ -890,39 +914,48 @@ constexpr float NO_KEY = NEG_INF * 1e-10f;
 // The tiles by head size and loader (the note at the top says why): two
 // consumer warpgroups of 64 query rows each (BM = 128), K/V tiles of BN =
 // 128 keys at D = 64 / 128 and 64 at D = 256. The producer is one warp whose
-// lane issues TMA (D = 64 / 128), or a warpgroup (PWG) that lowers its
-// registers with setmaxnreg so that the consumers can raise theirs: at D =
-// 256 (O alone is 128 registers a consumer thread) and for the element
-// loader (ELEM), whose 128 threads copy tiles by element.
-template <int D, bool ELEM> struct Cfg {
+// lane issues TMA (16-bit rows at D = 64 / 128), or a warpgroup (PWG) that
+// lowers its registers with setmaxnreg so that the consumers can raise
+// theirs: at D = 256 (O alone is 128 registers a consumer thread), for the
+// element loader (ELEM), whose 128 threads copy tiles by element, and for
+// fp8 tiles by TMA (TMA8), whose warps 1-3 convert V to f16.
+template <int D, bool ELEM, bool F8 = false> struct Cfg {
   static constexpr bool WIDE = D > 128;
+  static constexpr bool TMA8 = F8 && !ELEM;       // fp8 tiles by TMA
   static constexpr int CONSUMERS = 2;             // consumer warpgroups
   static constexpr int BM = 64 * CONSUMERS;       // query rows a block
   static constexpr int BN = WIDE ? 64 : 128;      // keys a KV tile
   static constexpr int PRODUCER = CONSUMERS * 4;  // the producer's first warp
-  static constexpr bool PWG = WIDE || ELEM;       // a producer warpgroup
+  static constexpr bool PWG = WIDE || ELEM || TMA8;   // a producer warpgroup
   static constexpr int THREADS = CONSUMERS * 128 + (PWG ? 128 : 32);
   // registers a thread after the hand-over: a block of 384 threads is
   // allotted 168 a thread (65536 / 384 in steps of 8), which the producer
   // warpgroup's P_REGS and the consumers' C_REGS share
-  static constexpr int P_REGS = !ELEM ? 24 : WIDE ? 40 : 56;
+  static constexpr int P_REGS = TMA8 ? 40 : !ELEM ? 24 : WIDE ? 40 : 56;
   static constexpr int C_REGS_ALL = (168 * 384 - 128 * P_REGS) / 256 / 8 * 8;
   static constexpr int C_REGS = C_REGS_ALL > 240 ? 240 : C_REGS_ALL;
   // K/V tile pairs in flight or in use (a third measured no faster, with
-  // TMA and with the element loader)
-  static constexpr int STAGES = 2;
+  // TMA and with the element loader; fp8 by TMA at D = 128 takes a third)
+  static constexpr int STAGES = TMA8 && D == 128 ? 3 : 2;
   static constexpr int BOXES = D / BOX;           // boxes across a row
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int TILE = BN * D * 2;         // one K or one V tile
   // + 1 KB to align the tiles to the 1024-byte swizzle atom
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * TILE;
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
-  // fp8 operands (F8): the f16 Q tile and ONE f16 K/V tile pair, converted
-  // from the fp8 Q tile and a ring of fp8 K/V tiles (half the bytes) that
-  // TMA fills
-  static constexpr int SMEM8 = 1024 + Q_BYTES + 2 * TILE + Q_BYTES / 2 +
-                               STAGES * TILE;
+  // TMA8: Q and a ring of K as fp8, in rows of ROW8 bytes (a box each)
+  // under the swizzle of that row, as the fp8 wgmma reads them; a ring of
+  // fp8 V tiles in unswizzled 64-byte box rows and the ring of f16 V tiles
+  // that the producer converts them into (the 16-bit layout, TILE bytes);
+  // then the f16 ring's `v_ready` mbarriers
+  static constexpr int ROW8 = D < 128 ? D : 128;
+  static constexpr int BOXES8 = D / ROW8;
+  static constexpr int Q8_BYTES = BM * D;
+  static constexpr int TILE8 = BN * D;            // one fp8 K or V tile
+  static constexpr int SMEM8 =
+      1024 + Q8_BYTES + STAGES * (2 * TILE8 + TILE) + STAGES * 8;
   static_assert(SMEM8 <= 232448, "more shared memory than a block may have");
+  static_assert(ROW8 == 64 || ROW8 == 128, "a 64- or 128-byte swizzle row");
 };
 
 // Two fp8 values (the low 16 bits of v; e5m2 or e4m3fn) as two f16, exact:
@@ -937,28 +970,29 @@ __device__ __forceinline__ uint32_t fp8x2_to_f16x2(uint32_t v, int e5m2) {
 // `boxes` TMA boxes of `rows` rows of 64 fp8 values (64 bytes a row, as TMA
 // lands them unswizzled) into the f16 layout TMA gives a 16-bit operand
 // (128 bytes a row, under the 128-byte swizzle: 16-byte piece c of row r at
-// c ^ (r % 8)), which the wgmma descriptors read. Threads `tid` of
-// `nthreads`, 8 values a step.
+// c ^ (r % 8)), which the wgmma descriptors read: the producer's conversion
+// of V (TMA8). Threads `tid` of `nthreads`, 16 values a step: fp8 piece c
+// of a row (4 a row) becomes f16 pieces 2c and 2c + 1; a warp reads 512
+// consecutive bytes, and the 8 threads of each quarter of its stores hit 8
+// different 16-byte bank groups.
+template <bool E5>
 __device__ __forceinline__ void fp8_tile_to_f16(unsigned char* dst,
                                                 const unsigned char* src,
-                                                int rows, int boxes, int e5m2,
-                                                int tid, int nthreads) {
-  for (int i = tid; i < boxes * rows * 8; i += nthreads) {
-    const int c = i & 7, line = i >> 3, r = line % rows;
-    const uint2 in = *reinterpret_cast<const uint2*>(src + line * 64 + c * 8);
-    uint4 out;
-    out.x = fp8x2_to_f16x2(in.x, e5m2);
-    out.y = fp8x2_to_f16x2(in.x >> 16, e5m2);
-    out.z = fp8x2_to_f16x2(in.y, e5m2);
-    out.w = fp8x2_to_f16x2(in.y >> 16, e5m2);
-    *reinterpret_cast<uint4*>(dst + line * 128 + ((c ^ (r & 7)) << 4)) = out;
+                                                int rows, int boxes, int tid,
+                                                int nthreads) {
+  for (int i = tid; i < boxes * rows * 4; i += nthreads) {
+    const int c = i & 3, line = i >> 2, r = line % rows;
+    const uint4 in = *reinterpret_cast<const uint4*>(src + line * 64 + c * 16);
+    const uint4 lo = make_uint4(
+        fp8x2_to_f16x2(in.x, E5), fp8x2_to_f16x2(in.x >> 16, E5),
+        fp8x2_to_f16x2(in.y, E5), fp8x2_to_f16x2(in.y >> 16, E5));
+    const uint4 hi = make_uint4(
+        fp8x2_to_f16x2(in.z, E5), fp8x2_to_f16x2(in.z >> 16, E5),
+        fp8x2_to_f16x2(in.w, E5), fp8x2_to_f16x2(in.w >> 16, E5));
+    unsigned char* row = dst + line * 128;
+    *reinterpret_cast<uint4*>(row + (((2 * c) ^ (r & 7)) << 4)) = lo;
+    *reinterpret_cast<uint4*>(row + (((2 * c + 1) ^ (r & 7)) << 4)) = hi;
   }
-}
-
-// Barrier 1 over the consumer warpgroups only (the producer warp runs on).
-template <int THREADS>
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
 }
 
 // The element loader's operands (ELEM): q, k, v, their strides in elements
@@ -1171,6 +1205,54 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
 #undef WGMMA_SS_64
 }
 
+// S[64 x N] (+)= A[64 x 32] B[32 x N] on fp8 (E5: both e5m2, else both
+// e4m3), N = 128 or 64 keys: A and B from shared memory, both K-major (fp8
+// wgmma takes no other form); products exact, summed in fp32.
+template <bool E5>
+__device__ __forceinline__ void wgmma_ss8(float (&d)[64], uint64_t da,
+                                          uint64_t db, int scale_d) {
+#define WGMMA_SS8_128(TY)                                                 \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n128k32.f32." TY "." TY   \
+               " " ACC64_REGS ", %64, %65, p, 1, 1;\n}\n"                  \
+               : ACC64_OUT(d)                                             \
+               : "l"(da), "l"(db), "r"(scale_d))
+  if constexpr (E5)
+    WGMMA_SS8_128("e5m2");
+  else
+    WGMMA_SS8_128("e4m3");
+#undef WGMMA_SS8_128
+}
+
+template <bool E5>
+__device__ __forceinline__ void wgmma_ss8(float (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+#define WGMMA_SS8_64(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n64k32.f32." TY "." TY    \
+               " " ACC32_REGS ", %32, %33, p, 1, 1;\n}\n"                  \
+               : ACC32_OUT(d)                                             \
+               : "l"(da), "l"(db), "r"(scale_d))
+  if constexpr (E5)
+    WGMMA_SS8_64("e5m2");
+  else
+    WGMMA_SS8_64("e4m3");
+#undef WGMMA_SS8_64
+}
+
+// The descriptor of a K-major tile that TMA wrote in rows of ROW bytes
+// under the swizzle of that row: 128 (`wgmma_desc_sw128`), or 64, whose
+// 8-row groups are 512 bytes (layout type 2; the leading field is not read
+// for a K-major swizzled operand). A k-step inside a row adds its byte
+// offset to `addr`, as for the 128-byte swizzle.
+template <int ROW>
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  if constexpr (ROW == 128)
+    return hopper::wgmma_desc_sw128(addr);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(8 * ROW >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
 // O[64 x N] += A[64 x 16] B[16 x N], N = 64 or 128: A from registers (the
 // fragment of mma.sync's A, one 16-row slice a warp), B from shared memory
 // MN-major (transposed: N within the row, 64 columns a swizzle atom, the
@@ -1245,11 +1327,14 @@ __device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
 // F8: q, k, v and o are fp8 (e5m2 when `e5m2`, else e4m3fn), T = __half.
 // ELEM: the producer warpgroup copies the tiles by element (`elem_tile`:
 // rows of no whole 16-byte pieces, which TMA cannot load; fp8 converted to
-// f16 as it is loaded); otherwise TMA brings them, and with F8 the consumers
-// convert the fp8 tiles to f16 in shared memory (exact). Either way the
-// consumers run the 16-bit code, and with F8 the output is rounded to fp8.
-template <typename T, int D, bool EXACT, bool F8 = false, bool ELEM = false>
-__global__ void __launch_bounds__(wg::Cfg<D, ELEM>::THREADS, 1)
+// f16 as it is loaded) and the consumers run the 16-bit code. F8 without
+// ELEM (TMA8): TMA lands Q, K and V as fp8, the consumers compute Q K^T on
+// the fp8 wgmma of the kind E5 (e5m2, else e4m3; `e5m2` is E5), and the
+// producer warpgroup converts V to f16 for the f16 P V. With F8 the output
+// is rounded to fp8.
+template <typename T, int D, bool EXACT, bool F8 = false, bool ELEM = false,
+          bool E5 = false>
+__global__ void __launch_bounds__(wg::Cfg<D, ELEM, F8>::THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
@@ -1262,21 +1347,27 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   using wg::load_box;
   using wg::NO_KEY;
   using wg::wgmma_ss;
-  using C = wg::Cfg<D, ELEM>;
+  using C = wg::Cfg<D, ELEM, F8>;
   static_assert(!ELEM || !EXACT, "the element loader runs padded heads only");
   // this head size's tiles, shadowing the 64-row tiles of the other bodies
   constexpr int BM = C::BM, BN = C::BN, STAGES = C::STAGES;
   constexpr int CONSUMERS = C::CONSUMERS, BOX = wg::BOX, ROW = wg::ROW;
-  constexpr bool TMA8 = F8 && !ELEM;              // fp8 tiles by TMA
+  constexpr bool TMA8 = C::TMA8;                  // fp8 tiles by TMA
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t q_full, full[STAGES], empty[STAGES];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
   unsigned char* Qs = smem_raw + pad;             // [BOXES][BM][64] swizzled
   unsigned char* KV = Qs + C::Q_BYTES;            // stage s: K then V tile
-  // TMA8: KV is the one converted K/V pair; TMA fills Q8 and the KV8 ring
-  unsigned char* Q8 = KV + 2 * C::TILE;
-  unsigned char* KV8 = Q8 + C::Q_BYTES / 2;
+  // TMA8: Q8 [BOXES8][BM][ROW8] and the K8 ring, swizzled; the V8 ring
+  // [D / 64][BN][64]; the f16 V ring; v_ready[s], the f16 V of stage s
+  // converted (the producer's warps 1-3 arrive)
+  unsigned char* Q8 = smem_raw + pad;
+  unsigned char* K8 = Q8 + C::Q8_BYTES;
+  unsigned char* V8 = K8 + STAGES * C::TILE8;
+  unsigned char* V16 = V8 + STAGES * C::TILE8;
+  uint64_t* v_ready = reinterpret_cast<uint64_t*>(V16 + STAGES * C::TILE);
   constexpr int NC = CONSUMERS * 128;             // consumer threads
+  constexpr int CONVERTERS = 96;                  // TMA8: V's converters
 
   // the query tile is the slowest grid dimension, counted down: every
   // (head, batch) block of the heaviest tile is dispatched before any of
@@ -1301,6 +1392,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], FILLERS);
       mbar_init(&empty[s], CONSUMERS * 4);        // one arrival a warp
+      if constexpr (TMA8) mbar_init(&v_ready[s], CONVERTERS);
     }
     fence_barrier_init();
   }
@@ -1374,27 +1466,58 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         else
           produce(std::integral_constant<int, 2>{});
       }
+    } else if constexpr (TMA8) {
+      constexpr int ROW8 = C::ROW8, TILE8 = C::TILE8;
+      if (warp == C::PRODUCER) {                  // TMA, one lane
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&q_full, C::Q8_BYTES);
+#pragma unroll
+          for (int x = 0; x < C::BOXES8; ++x)
+            load_box(Q8 + x * BM * ROW8, &tq, &q_full, q_pos, x * ROW8, q0,
+                     h, b);
+          for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
+            const int s = i % STAGES;
+            mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);   // the slot is free
+            mbar_arrive_expect_tx(&full[s], 2 * TILE8);
+#pragma unroll
+            for (int x = 0; x < C::BOXES8; ++x)
+              load_box(K8 + s * TILE8 + x * BN * ROW8, &tk, &full[s], k_pos,
+                       x * ROW8, kt * BN, hk, b);
+#pragma unroll
+            for (int x = 0; x < C::BOXES; ++x)
+              load_box(V8 + s * TILE8 + x * BN * BOX, &tv, &full[s], v_pos,
+                       x * BOX, kt * BN, hk, b);
+          }
+        }
+      } else {      // warps 1-3: each landed fp8 V tile into the f16 ring
+        const int tid = threadIdx.x - NC - 32;
+        for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
+          const int s = i % STAGES;
+          // the f16 slot is free too: TMA refilled stage s only after every
+          // consumer warp was done with its last tile
+          mbar_wait(&full[s], (i / STAGES) & 1);
+          wg::fp8_tile_to_f16<E5>(V16 + s * C::TILE, V8 + s * TILE8, BN,
+                                  C::BOXES, tid, CONVERTERS);
+          fence_proxy_async();                    // before wgmma reads it
+          mbar_arrive(&v_ready[s]);
+        }
+      }
     } else if (warp == C::PRODUCER && lane == 0) {      // TMA, one lane
-      constexpr int IT = F8 ? 1 : 2;              // bytes an element
-      constexpr int BROW = BOX * IT;              // bytes of a box row
-      constexpr int TILE = BN * D * IT;           // one K or V tile
-      unsigned char* q_dst = F8 ? Q8 : Qs;
-      mbar_arrive_expect_tx(&q_full, BM * D * IT);
+      mbar_arrive_expect_tx(&q_full, C::Q_BYTES);
 #pragma unroll
       for (int x = 0; x < C::BOXES; ++x)
-        load_box(q_dst + x * BM * BROW, &tq, &q_full, q_pos, x * BOX, q0, h,
-                 b);
+        load_box(Qs + x * BM * ROW, &tq, &q_full, q_pos, x * BOX, q0, h, b);
       for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
         const int s = i % STAGES;
         mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);   // the slot is free
-        mbar_arrive_expect_tx(&full[s], 2 * TILE);
-        unsigned char* ks = (F8 ? KV8 : KV) + s * 2 * TILE;
+        mbar_arrive_expect_tx(&full[s], 2 * C::TILE);
+        unsigned char* ks = KV + s * 2 * C::TILE;
 #pragma unroll
         for (int x = 0; x < C::BOXES; ++x) {
-          load_box(ks + x * BN * BROW, &tk, &full[s], k_pos, x * BOX,
+          load_box(ks + x * BN * ROW, &tk, &full[s], k_pos, x * BOX,
                    kt * BN, hk, b);
-          load_box(ks + TILE + x * BN * BROW, &tv, &full[s], v_pos, x * BOX,
-                   kt * BN, hk, b);
+          load_box(ks + C::TILE + x * BN * ROW, &tv, &full[s], v_pos,
+                   x * BOX, kt * BN, hk, b);
         }
       }
     }
@@ -1418,41 +1541,69 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // log2 units
 
   mbar_wait(&q_full, 0);
-  if constexpr (TMA8) {                           // Q to f16, once
-    wg::fp8_tile_to_f16(Qs, Q8, BM, C::BOXES, e5m2, threadIdx.x, NC);
-    fence_proxy_async();                          // before wgmma reads it
-    wg::consumers_sync<NC>();
-  }
   for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
     const int s = i % STAGES;
     const int k0 = kt * BN;
     // a tile every key of which is masked for all 64 rows is skipped
     const bool dead = (causal && k0 > rlo + 63) ||
                       (window > 0 && k0 + BN - 1 <= rlo - window);
-    mbar_wait(&full[s], (i / STAGES) & 1);        // getfin
-    if constexpr (TMA8) {   // the fp8 K and V tiles to f16; then s is free
-      unsigned char* k8 = KV8 + s * C::TILE;      // K, then V: half a TILE
-      wg::fp8_tile_to_f16(KV, k8, BN, C::BOXES, e5m2, threadIdx.x, NC);
-      wg::fp8_tile_to_f16(KV + C::TILE, k8 + C::TILE / 2, BN, C::BOXES, e5m2,
-                          threadIdx.x, NC);
-      fence_proxy_async();
-      wg::consumers_sync<NC>();
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
+    if constexpr (TMA8) {     // getfin: the converters saw K and V land
+      if (!dead) mbar_wait(&v_ready[s], (i / STAGES) & 1);
+    } else {
+      mbar_wait(&full[s], (i / STAGES) & 1);      // getfin
     }
     if (!dead) {
-      const uint32_t k_addr = smem_u32(KV + (TMA8 ? 0 : s * 2 * C::TILE));
-      const uint32_t v_addr = k_addr + C::TILE;
+      const uint32_t k_addr = smem_u32(KV + s * 2 * C::TILE);
+      const uint32_t v_addr =
+          TMA8 ? smem_u32(V16 + s * C::TILE) : k_addr + C::TILE;
 
-      // S = Q K^T: D / 16 k-steps, 4 in each 64-column box
       float sacc[BN / 2];
       wgmma_fence();
+      if constexpr (TMA8) {
+        // S = Q K^T on fp8: D / 32 k-steps of 32 bytes, ROW8 / 32 in each
+        // box row. The tensor core keeps fewer bits than fp32 while it sums
+        // a chain of k-steps into its accumulator, so a chain is at most
+        // CHAIN k-steps: the first goes to sacc, each other to sacc2, which
+        // is added to sacc in fp32 once it is done
+        constexpr int ROW8 = C::ROW8, KPR = ROW8 / 32, KS = D / 32;
+        constexpr int CHAIN = 2, CHAINS = (KS + CHAIN - 1) / CHAIN;
+        const uint32_t q8 = smem_u32(Q8) + wgi * 64 * ROW8;
+        const uint32_t k8 = smem_u32(K8 + s * C::TILE8);
+        auto chain = [&](float (&acc)[BN / 2], int c) {
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        const uint32_t off = (ks % 4) * 32;     // 16 columns, 32 bytes
-        wgmma_ss<T>(
-            sacc, wgmma_desc_sw128(q_addr + (ks / 4) * BM * ROW + off),
-            wgmma_desc_sw128(k_addr + (ks / 4) * BN * ROW + off), ks > 0);
+          for (int ks = c * CHAIN; ks < KS && ks < (c + 1) * CHAIN; ++ks) {
+            const uint32_t off = (ks % KPR) * 32;
+            wg::wgmma_ss8<E5>(
+                acc,
+                wg::desc_k_major<ROW8>(q8 + (ks / KPR) * BM * ROW8 + off),
+                wg::desc_k_major<ROW8>(k8 + (ks / KPR) * BN * ROW8 + off),
+                ks > c * CHAIN);
+          }
+        };
+        chain(sacc, 0);
+        if constexpr (CHAINS > 1) {
+          float sacc2[BN / 2];
+#pragma unroll
+          for (int c = 1; c < CHAINS; ++c) {
+            chain(sacc2, c);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(sacc);
+            fence_regs(sacc2);
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) sacc[i] += sacc2[i];
+            if (c + 1 < CHAINS) wgmma_fence();    // sacc2 is read: reuse it
+          }
+        }
+      } else {
+        // S = Q K^T: D / 16 k-steps, 4 in each 64-column box
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          const uint32_t off = (ks % 4) * 32;   // 16 columns, 32 bytes
+          wgmma_ss<T>(
+              sacc, wgmma_desc_sw128(q_addr + (ks / 4) * BM * ROW + off),
+              wgmma_desc_sw128(k_addr + (ks / 4) * BN * ROW + off), ks > 0);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1533,12 +1684,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(oacc);
     }
-    if constexpr (TMA8) {
-      wg::consumers_sync<NC>();     // every warpgroup is past the f16 pair
-    } else {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);      // this warp is done with s
-    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);        // this warp is done with s
   }
 
 #pragma unroll
@@ -1834,17 +1981,17 @@ flash_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// The tensor map of a [B, H, S, D] 16-bit operand with element strides (sb,
-// sh, ss, 1): dims innermost first, D then the other three by ascending
-// stride, so that the map is a packed order whatever the caller's layout
-// (the model hands over [B, S, H, D] viewed as [B, H, S, D]). Boxes of 64
-// columns x `rows` rows of one head of one batch. `pos` gets the places of S,
-// H and B (2 bits each).
+// The tensor map of a [B, H, S, D] operand (16-bit, or fp8 as UINT8) with
+// element strides (sb, sh, ss, 1): dims innermost first, D then the other
+// three by ascending stride, so that the map is a packed order whatever the
+// caller's layout (the model hands over [B, S, H, D] viewed as [B, H, S,
+// D]). Boxes of `cols` columns x `rows` rows of one head of one batch, under
+// `swizzle`. `pos` gets the places of S, H and B (2 bits each).
 cudaError_t flash_map(CUtensorMap* map, CUtensorMapDataType type,
                       const void* base, int D, int S, int H, int B,
                       long long sb, long long sh, long long ss, int rows,
-                      int* pos) {
-  // fp8 (UINT8) boxes land unswizzled, 64 bytes a row, for the conversion
+                      int* pos, int cols = wg::BOX,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const bool f8 = type == CU_TENSOR_MAP_DATA_TYPE_UINT8;
   struct Dim {
     long long stride;
@@ -1858,7 +2005,7 @@ cudaError_t flash_map(CUtensorMap* map, CUtensorMapDataType type,
         dim[j] = tmp;
       }
   cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0}, strides[3];
-  cuuint32_t box[4] = {(cuuint32_t)wg::BOX, 0, 0, 0};
+  cuuint32_t box[4] = {(cuuint32_t)cols, 0, 0, 0};
   *pos = 0;
   for (int i = 0; i < 3; ++i) {
     dims[i + 1] = (cuuint64_t)dim[i].size;
@@ -1866,26 +2013,35 @@ cudaError_t flash_map(CUtensorMap* map, CUtensorMapDataType type,
     box[i + 1] = (cuuint32_t)dim[i].box;
     *pos |= (i + 1) << (2 * dim[i].which);
   }
-  return hopper::encode_tensor_map(
-      map, type, 4, base, dims, strides, box,
-      f8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+  return hopper::encode_tensor_map(map, type, 4, base, dims, strides, box,
+                                   swizzle);
 }
 
 // The three maps of a launch; their innermost extent is dh, so TMA
-// zero-fills the columns of a box past the head.
+// zero-fills the columns of a box past the head. 16-bit operands: boxes of
+// 64 columns under the 128-byte swizzle. fp8 (`qk_cols` > 0): Q and K in
+// boxes of qk_cols columns (one 128- or 64-byte row) under the swizzle of
+// that row, V in unswizzled boxes of 64 columns.
 cudaError_t flash_maps(CUtensorMapDataType type, const void* q,
                        const void* k, const void* v, int B, int Hq, int Hkv,
                        int S, int dh, const long long* st, int q_rows,
                        int kv_rows, CUtensorMap* tq, CUtensorMap* tk,
-                       CUtensorMap* tv, int* pos) {
+                       CUtensorMap* tv, int* pos, int qk_cols = 0) {
+  int cols = wg::BOX;
+  CUtensorMapSwizzle qk_sw = CU_TENSOR_MAP_SWIZZLE_128B, v_sw = qk_sw;
+  if (qk_cols > 0) {
+    cols = qk_cols;
+    if (qk_cols == 64) qk_sw = CU_TENSOR_MAP_SWIZZLE_64B;
+    v_sw = CU_TENSOR_MAP_SWIZZLE_NONE;
+  }
   cudaError_t err;
   if ((err = flash_map(tq, type, q, dh, S, Hq, B, st[0], st[1], st[2],
-                       q_rows, &pos[0])) != cudaSuccess ||
+                       q_rows, &pos[0], cols, qk_sw)) != cudaSuccess ||
       (err = flash_map(tk, type, k, dh, S, Hkv, B, st[3], st[4], st[5],
-                       kv_rows, &pos[1])) != cudaSuccess)
+                       kv_rows, &pos[1], cols, qk_sw)) != cudaSuccess)
     return err;
   return flash_map(tv, type, v, dh, S, Hkv, B, st[6], st[7], st[8], kv_rows,
-                   &pos[2]);
+                   &pos[2], wg::BOX, v_sw);
 }
 
 // The element loader's operands and the widest load (8, 4, 2 or 1 bytes,
@@ -1913,17 +2069,19 @@ wg::ElemSrc elem_src(const void* q, const void* k, const void* v, int dh,
 
 // Every launch function takes the real head size dh (<= D) and the scale
 // 1 / sqrt(dh); D is the body's (Dp of the note at the top).
-// F8: fp8 operands (e5m2 when `e5m2`, else e4m3fn) on the f16 code (T =
-// __half). ELEM: the element loader in place of TMA (no tensor maps).
-template <typename T, int D, bool EXACT, bool F8 = false, bool ELEM = false>
+// F8: fp8 operands (e5m2 when `e5m2`, else e4m3fn; T = __half): by element
+// on the f16 code (ELEM), or by TMA with Q K^T on the fp8 wgmma of the kind
+// E5 (== e5m2). ELEM: the element loader in place of TMA (no tensor maps).
+template <typename T, int D, bool EXACT, bool F8 = false, bool ELEM = false,
+          bool E5 = false>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          int B, int Hq, int Hkv, int S, int dh, int causal,
                          int window, float scale, const long long* st,
                          cudaStream_t stream, int e5m2 = 0) {
-  using C = wg::Cfg<D, ELEM>;
-  constexpr int smem = F8 && !ELEM ? C::SMEM8 : C::SMEM;
+  using C = wg::Cfg<D, ELEM, F8>;
+  constexpr int smem = C::TMA8 ? C::SMEM8 : C::SMEM;
   static hopper::SmemAllowance allowance;
-  auto kernel = flash_wgmma_kernel<T, D, EXACT, F8, ELEM>;
+  auto kernel = flash_wgmma_kernel<T, D, EXACT, F8, ELEM, E5>;
   cudaError_t err = hopper::allow_smem(allowance, kernel, smem);
   if (err != cudaSuccess) return err;
   CUtensorMap tq{}, tk{}, tv{};
@@ -1934,7 +2092,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   } else if ((err = flash_maps(F8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                   : Op16<T>::kMap,
                                q, k, v, B, Hq, Hkv, S, dh, st, C::BM, C::BN,
-                               &tq, &tk, &tv, pos)) != cudaSuccess) {
+                               &tq, &tk, &tv, pos,
+                               F8 ? C::ROW8 : 0)) != cudaSuccess) {
     return err;
   }
   dim3 grid(Hq, B, (S + C::BM - 1) / C::BM);     // query tiles last
@@ -2169,23 +2328,28 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return launch_typed<__nv_bfloat16>(body, Dp, q, k, v, o, B, Hq, Hkv, S,
                                        D, causal, window, scale, strides, s);
   if ((dtype == DTYPE_E4M3 || dtype == DTYPE_E5M2) && body != BODY_FMA) {
-    // both kinds are one instantiation, the kind a launch argument
+    // the element loader takes both kinds in one instantiation, the kind a
+    // launch argument; the TMA body has one a kind (its wgmma's type)
     const int e5m2 = dtype == DTYPE_E5M2;
 #define FP8_ARGS                                                         \
   q, k, v, o, B, Hq, Hkv, S, D, causal, window, scale, strides, s, e5m2
+#define FP8_TMA(DIM, E5)                                                 \
+  (Dp == D ? launch_wgmma<__half, DIM, true, true, false, E5>(FP8_ARGS)  \
+           : launch_wgmma<__half, DIM, false, true, false, E5>(FP8_ARGS))
 #define FP8_CASE(DIM)                                                    \
   case DIM:                                                              \
     return static_cast<int>(                                             \
         body == BODY_WGMMA_ELEM                                          \
             ? launch_wgmma<__half, DIM, false, true, true>(FP8_ARGS)     \
-        : Dp == D ? launch_wgmma<__half, DIM, true, true>(FP8_ARGS)      \
-                  : launch_wgmma<__half, DIM, false, true>(FP8_ARGS))
+        : e5m2 ? FP8_TMA(DIM, true)                                      \
+               : FP8_TMA(DIM, false))
     switch (Dp) {
       FP8_CASE(64);
       FP8_CASE(128);
       FP8_CASE(256);
     }
 #undef FP8_CASE
+#undef FP8_TMA
 #undef FP8_ARGS
     return -1;
   }

@@ -30,12 +30,14 @@
 //   - the work is split from `lengths` on the device, never by the host
 //     (which would cost a synchronisation a layer a step): every block scans
 //     the lengths into prefix sums in shared memory, lays the valid rows of
-//     all (b, KV head, head group) segments end to end, W rows in all, and
-//     takes rows [i * ceil(W / blocks), (i + 1) * ceil(W / blocks)). So the
-//     blocks share the valid rows evenly, a block may span segments and a
-//     segment blocks, and no block walks a masked row. The host plans only
-//     the grid from T, B, Hkv and the card (`locate`, `block_chunks` and
-//     `pieces` in paged_attention.py mirror the split for the CPU tests);
+//     all segments end to end, W rows in all, and takes rows [i * ceil(W /
+//     blocks), (i + 1) * ceil(W / blocks)). A segment is (b, KV head, group
+//     of up to 8 query heads), or, below 8 query heads a KV head, (b, run of
+//     KV heads): see "Segments of several KV heads" below. So the blocks
+//     share the valid rows evenly, a block may span segments and a segment
+//     blocks, and no block walks a masked row. The host plans only the grid
+//     from T, B, Hkv and the card (`locate`, `block_chunks` and `pieces` in
+//     paged_attention.py mirror the split for the CPU tests);
 //   - one launch: a block that ends its share of a segment that other
 //     blocks share writes a partial (m, l, acc) to the workspace and takes a
 //     ticket by one atom.add.acq_rel.gpu after a barrier (release: the
@@ -49,8 +51,9 @@
 //   - two sets of 8 consumer warps take the chunks in turn (even, odd), each
 //     with its own (m, l, acc), handed over through shared memory at the
 //     end of a segment; warp w of a set owns query head w of a group of up
-//     to 8 (G > 8 takes several groups) for the softmax, a lane a row of
-//     the chunk, so a chunk's max and sum take 10 shuffles a head;
+//     to 8 (G > 8 takes several groups; G < 8, several KV heads) for the
+//     softmax, a lane a row of the chunk, so a chunk's max and sum take 10
+//     shuffles a head;
 //   - bf16 and f16 at D = 64 to 256 (`tensor_core_qk`): Q K^T by mma.sync
 //     m16n8k16, K rows as A (ldmatrix from the 128-byte swizzled boxes, so 8
 //     rows are read without bank conflicts), the group's 8 queries as B in
@@ -139,6 +142,31 @@
 // c0 + col < D only, the scale is 1 / sqrt(D). The cost: each chunk reads
 // all of K, so K is read Dp / 256 times (from L2 after the first).
 //
+// Segments of several KV heads (HEADS, `kv_run`): at G < 8 query heads a KV
+// head (G dividing 8), a segment of one KV head leaves 8 - G of a set's 8
+// warps idle in every chunk's softmax and 8 - G of the 8 columns of the mma's
+// B fragment zero, and its chunks carry G heads' work each, so a block's
+// share at G = 1 is 8x the chunks of G = 8 at the same rows: timestamps per
+// block (`paged_phases.py`, PERF.md) showed a set's chunks, and the query
+// loads of each new segment queued behind the ring's whole share of the
+// caches, taking most of its time at Hkv = 16, D = 80. So 16-bit caches under
+// a q of their type on the TMA ring at Dp 64 to 256 take segments of R = 8 /
+// G KV heads of one sequence (halved until R divides Hkv) at G = 1, and at G
+// = 2 and 4 where D < Dp (where D == Dp, the tensor cores with G real B
+// columns measured faster; PERF.md): the caches are [B, T, Hkv, D], so one
+// TMA box of `rows` rows x R heads x dh columns brings all their K (and one
+// their V), laid out [rows][R][dh] unpadded (columns past dh are neither
+// loaded nor read); warp w of a set takes query head w of the segment and
+// reads the rows of KV head w / G; Q K^T runs on FMAs, a lane on D / 32
+// columns of every row (no mma B column would be zero, nor real but for one
+// head), then the one transpose reduction, the softmax and P V as above, each
+// warp on its own head. The split, the partials and the merge are the G = 8
+// design's, with R * G = 8 query heads a segment. An aload holds at most
+// HEADS_SLOT_BYTES (paged_attention.py) of K and V: halving it to 32 KB
+// measured slower at every head size (PERF.md), and making the consumers'
+// first query loads go before the ring's (a barrier the producer waited on)
+// slower still.
+//
 // What the design steps measured (H100, `kernel_bench.py` and timestamps
 // per block; PERF.md): one cp.async.bulk a row issued by the consumers cost
 // ~5 us a chunk; with TMA boxes and a producer warp the arithmetic on FMAs
@@ -180,6 +208,7 @@ struct Args {
   float scale;
   int e5m2;                      // fp8 caches (fp8_any): e5m2, else e4m3fn
   int qt;                        // q's and out's DType where EQ is q_as<M>
+  int heads;                     // KV heads a segment (`kv_run`; HEADS: > 1)
 };
 
 // fp8 caches of either kind are one load type, the kind an argument
@@ -460,9 +489,13 @@ struct PagedSmem {
   int bytes;                     // the whole, with 1024 to align the slots
 };
 
-template <typename E, int D, bool WIDE = false>
+// HEADS (a segment of `heads` KV heads): a half is one box of `rows` rows
+// of all those heads' dh columns, [rows][heads][dh] unpadded and
+// unswizzled, rounded up to 128 bytes.
+template <typename E, int D, bool WIDE = false, bool HEADS = false>
 __host__ __device__ PagedSmem paged_smem(int B, int rows, int slots,
-                                         int npk = 1) {
+                                         int npk = 1, int heads = 1,
+                                         int dh = D) {
   constexpr int IN = box_cols<E, D>();
   constexpr int ALIGN = WIDE ? 128 : 1024;
   PagedSmem m;
@@ -471,22 +504,30 @@ __host__ __device__ PagedSmem paged_smem(int B, int rows, int slots,
   m.tacc = m.comb + 4 * GC * (D + 2);
   m.xch = m.tacc + 4 * NSET * GC * D;
   m.ring = m.xch + 4 * NSET * 2 * XCH_FLOATS;
-  m.box = (rows * IN * (int)sizeof(E) + ALIGN - 1) & ~(ALIGN - 1);
-  m.slot = (npk + 1) * (D / IN) * m.box;
+  if constexpr (HEADS) {
+    m.box = (rows * heads * dh * (int)sizeof(E) + 127) & ~127;
+    m.slot = 2 * m.box;
+  } else {
+    m.box = (rows * IN * (int)sizeof(E) + ALIGN - 1) & ~(ALIGN - 1);
+    m.slot = (npk + 1) * (D / IN) * m.box;
+  }
   m.bytes = m.ring + 1024 + slots * m.slot;
   return m;
 }
 
 // The deepest ring of at most MAX_SLOTS slots whose block fits in MAX_SMEM
 // (one block an SM), and its bytes; 0 slots where none fits.
-template <typename E, int D, bool WIDE = false>
-int ring_slots(int B, int rows, int npk, int* smem) {
+template <typename E, int D, bool WIDE = false, bool HEADS = false>
+int ring_slots(int B, int rows, int npk, int* smem, int heads = 1,
+               int dh = D) {
   for (int slots = MAX_SLOTS; slots >= 1; --slots) {
-    *smem = paged_smem<E, D, WIDE>(B, rows, slots, npk).bytes;
+    *smem = paged_smem<E, D, WIDE, HEADS>(B, rows, slots, npk, heads, dh)
+                .bytes;
     if (*smem <= MAX_SMEM) return slots;
   }
   return 0;
 }
+
 
 // Barrier 2 + set over the 8 warps of one consumer set.
 __device__ __forceinline__ void set_sync(int set) {
@@ -542,23 +583,27 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
 // E: the caches' type; EQ: q's and out's (E, or q_as<M> where q's type is
 // another: a.qt); WIDE:
 // the chunk of D = WIDE_DC columns [c0, c0 + D) of a head of a.npk * D
-// columns (the note at the top).
-template <typename E, typename EQ, int D, bool EXACT, bool TMA, bool WIDE>
+// columns (the note at the top); HEADS: a segment is a.heads KV heads of a
+// sequence (the note at the top).
+template <typename E, typename EQ, int D, bool EXACT, bool TMA, bool WIDE,
+          bool HEADS = false>
 __global__ void __launch_bounds__(NT + 32)
 paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap) {
+  static_assert(!HEADS || (TMA && !WIDE), "HEADS is a TMA ring's split");
   constexpr int ITEM = sizeof(E);
   constexpr int IN = box_cols<E, D>();       // columns of a box
   constexpr int NBX = D / IN;                // boxes a row
   constexpr int EPL = D >= 32 ? D / 32 : 1;  // columns a lane
-  constexpr bool TC = TMA && tensor_core_qk<E, EQ, D, WIDE>();
+  constexpr bool TC = TMA && !HEADS && tensor_core_qk<E, EQ, D, WIDE>();
   constexpr bool F8 = std::is_same_v<E, fp8_any>;
   using M = std::conditional_t<F8, typename QType<EQ>::mma, E>;  // TC's type
   constexpr int ROWB = IN * ITEM;            // bytes of a box's row
   const int Dh = EXACT ? D : a.dh;           // columns of q and out
   const int c0 = WIDE ? blockIdx.y * D : 0;  // the chunk's first column
   extern __shared__ __align__(1024) unsigned char smem[];
-  const PagedSmem L = paged_smem<E, D, WIDE>(a.B, a.rows, a.slots, a.npk);
+  const PagedSmem L =
+      paged_smem<E, D, WIDE, HEADS>(a.B, a.rows, a.slots, a.npk, a.heads, a.dh);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // a slot loaded
   uint64_t* empty = full + a.slots;                     // a slot released
   long long* P = reinterpret_cast<long long*>(smem + L.P);
@@ -571,12 +616,17 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   unsigned char* slots = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem + L.ring) + 1023) & ~(uintptr_t)1023);
   const size_t box_bytes = L.box;
-  const size_t half_bytes = (WIDE ? a.npk : 1) * NBX * box_bytes;  // K's
+  const size_t half_bytes =
+      HEADS ? box_bytes : (WIDE ? a.npk : 1) * NBX * box_bytes;   // K's
   const size_t slot_bytes = L.slot;
   // element (r, d) of a slot's K (or V) half; under the swizzle of rows of
   // ROWB bytes (TC) the 16-byte piece p of row r sits at p ^ (r % 8) (128)
-  // or p ^ (r / 2 % 4) (64)
+  // or p ^ (r / 2 % 4) (64). HEADS: row r of the half's rows x heads rows
+  // of dh columns (`kv_row`)
   auto at = [&](const unsigned char* half, int r, int d) {
+    if constexpr (HEADS)
+      return reinterpret_cast<const E*>(half +
+                                        ((size_t)r * a.dh + d) * ITEM);
     const int byte = (d % IN) * ITEM;
     const int sw = ((r * ROWB) >> 7) & (ROWB / 16 - 1);
     const int in_row = TC ? ((((byte >> 4) ^ sw) << 4) | (byte & 15))
@@ -592,7 +642,13 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   };
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hw = warp % GC, set = warp / GC;   // a consumer's head and set
-  const int hg = a.Hkv * a.ngc;              // segments a sequence
+  // segments a sequence
+  const int hg = HEADS ? a.Hkv / a.heads : a.Hkv * a.ngc;
+  // HEADS: the slot row of chunk row r for this warp's query head hw, whose
+  // KV head is the segment's hw / G-th; the columns a row holds
+  const int kvh = HEADS ? hw / a.G : 0;
+  auto kv_row = [&](int r) { return HEADS ? r * a.heads + kvh : r; };
+  const int dcols = HEADS ? a.dh : D;
   const int S = a.B * hg;
   // a wide chunk's own partials and tickets
   float* const parts = a.part + (WIDE ? (size_t)blockIdx.y *
@@ -626,13 +682,20 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   fence_barrier_init();
   __syncthreads();
 
-  // where segment s's query heads are: sequence, KV head, first head, heads
+  // where segment s's query heads are: sequence, (first) KV head, first
+  // head, heads; HEADS: the a.G query heads of each of a.heads KV heads
   auto heads = [&](int s, int& b, int& h, int& g0, int& gn) {
     b = s / hg;
     const int j = s % hg;
-    h = j / a.ngc;
-    g0 = (j % a.ngc) * GC;
-    gn = min(GC, a.G - g0);
+    if constexpr (HEADS) {
+      h = j * a.heads;
+      g0 = 0;
+      gn = a.heads * a.G;
+    } else {
+      h = j / a.ngc;
+      g0 = (j % a.ngc) * GC;
+      gn = min(GC, a.G - g0);
+    }
   };
   // the first element of query head g0 + g of (b, h) in q and in out
   auto q_at = [&](int b, int h, int g0, int g) {
@@ -669,7 +732,12 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     heads(s, b, h, g0, gn);
     unsigned char* dst = slots + (size_t)(j % a.slots) * slot_bytes;
     uint64_t* bar = &full[j % a.slots];
-    if constexpr (WIDE) {       // all of K's pieces, V's chunk
+    if constexpr (HEADS) {      // rows x a.heads heads x dh: one box each
+      mbar_arrive_expect_tx(bar,
+                            (uint32_t)(2 * a.rows * a.heads * a.dh * ITEM));
+      tma_load_4d(dst, &kmap, bar, 0, h, (int)t, b);
+      tma_load_4d(dst + half_bytes, &vmap, bar, 0, h, (int)t, b);
+    } else if constexpr (WIDE) {       // all of K's pieces, V's chunk
       mbar_arrive_expect_tx(bar, (uint32_t)((a.npk + 1) * a.rows * D * ITEM));
       for (int x = 0; x < a.npk * NBX; ++x)
         tma_load_4d(dst + x * box_bytes, &kmap, bar, x * IN, h, (int)t, b);
@@ -1118,9 +1186,9 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
 #pragma unroll
           for (int r = 0; r < 32; ++r) {
             float dot = 0.f;
-            if (r < n && d0 < D) {
+            if (r < n && d0 < dcols) {
               float kv[EPL];
-              load_row<E, EPL>(at(slot, r, d0), kv, a.e5m2);
+              load_row<E, EPL>(at(slot, kv_row(r), d0), kv, a.e5m2);
 #pragma unroll
               for (int e = 0; e < EPL; ++e) dot = fmaf(qr[e], kv[e], dot);
             }
@@ -1145,9 +1213,10 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
 #pragma unroll 8
         for (int r = 0; r < n; ++r) {        // P V: a lane D/32 columns
           const float pr = __shfl_sync(FULL, p, r);
-          if (d0 < D) {
+          if (d0 < dcols) {
             float vv[EPL];
-            load_row<E, EPL>(at(slot + half_bytes, r, d0), vv, a.e5m2);
+            load_row<E, EPL>(at(slot + half_bytes, kv_row(r), d0), vv,
+                             a.e5m2);
 #pragma unroll
             for (int e = 0; e < EPL; ++e) acc[e] = fmaf(pr, vv[e], acc[e]);
           }
@@ -1241,8 +1310,8 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
 // The tensor map of a cache [B, T, Hkv, D] (element strides sb, st, sh, 1):
 // boxes of `rows` rows of one head and box_cols columns, under the swizzle
 // of their row's bytes (`swizzle`: 128 or 64) where the tensor cores read
-// the slot, else none (0).
-template <typename E, int D>
+// the slot, else none (0); HEADS: of a.heads heads and dh columns.
+template <typename E, int D, bool HEADS = false>
 cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
                       long long sb, long long st, long long sh,
                       int swizzle) {
@@ -1252,8 +1321,10 @@ cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
   const cuuint64_t strides[3] = {(cuuint64_t)sh * sizeof(E),
                                  (cuuint64_t)st * sizeof(E),
                                  (cuuint64_t)sb * sizeof(E)};
-  const cuuint32_t box[4] = {(cuuint32_t)box_cols<E, D>(), 1,
-                             (cuuint32_t)a.rows, 1};
+  // HEADS: all dh columns of a.heads KV heads a box, none past the head
+  const cuuint32_t box[4] = {
+      HEADS ? (cuuint32_t)a.dh : (cuuint32_t)box_cols<E, D>(),
+      HEADS ? (cuuint32_t)a.heads : 1u, (cuuint32_t)a.rows, 1};
   return encode_tensor_map(
       map,
       sizeof(E) == 4                   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -1266,25 +1337,27 @@ cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
                       : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-template <typename E, typename EQ, int D, bool EXACT, bool TMA, bool WIDE>
+template <typename E, typename EQ, int D, bool EXACT, bool TMA, bool WIDE,
+          bool HEADS = false>
 cudaError_t launch(Args& a, int blocks, cudaStream_t stream) {
   int smem = 0;
-  a.slots = ring_slots<E, D, WIDE>(a.B, a.rows, a.npk, &smem);
+  a.slots = ring_slots<E, D, WIDE, HEADS>(a.B, a.rows, a.npk, &smem,
+                                          a.heads, a.dh);
   if (a.slots == 0) return cudaErrorInvalidValue;
   static SmemAllowance allowance;
-  auto kernel = paged_attention_kernel<E, EQ, D, EXACT, TMA, WIDE>;
+  auto kernel = paged_attention_kernel<E, EQ, D, EXACT, TMA, WIDE, HEADS>;
   cudaError_t err = allow_smem(allowance, kernel, MAX_SMEM);
   if (err != cudaSuccess) return err;
   CUtensorMap kmap{}, vmap{};        // the element body copies without
   if (TMA) {
-    constexpr int swizzle = tensor_core_qk<E, EQ, D, WIDE>()
+    constexpr int swizzle = !HEADS && tensor_core_qk<E, EQ, D, WIDE>()
                                 ? box_cols<E, D>() * (int)sizeof(E)
                                 : 0;
-    if ((err = cache_map<E, D>(&kmap, a.k, a, a.k_sb, a.k_st, a.k_sh,
-                               swizzle)) != cudaSuccess)
+    if ((err = cache_map<E, D, HEADS>(&kmap, a.k, a, a.k_sb, a.k_st, a.k_sh,
+                                      swizzle)) != cudaSuccess)
       return err;
-    if ((err = cache_map<E, D>(&vmap, a.v, a, a.v_sb, a.v_st, a.v_sh,
-                               swizzle)) != cudaSuccess)
+    if ((err = cache_map<E, D, HEADS>(&vmap, a.v, a, a.v_sb, a.v_st, a.v_sh,
+                                      swizzle)) != cudaSuccess)
       return err;
   }
   kernel<<<dim3(blocks, WIDE ? a.npk : 1), NT + 32, smem, stream>>>(a, kmap,
@@ -1319,7 +1392,8 @@ bool float_type(int dtype) {
 
 // The launch at (Dp, D) for caches of type E and q of type EQ: the body for
 // Dp, EXACT at D == Dp (q of the caches' type only), TMA where the rows are
-// whole 16-byte pieces; the wide body above 256.
+// whole 16-byte pieces; the wide body above 256; segments of a.heads KV
+// heads where that is more than 1 (`kv_run`).
 template <typename E, typename EQ>
 cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
                          bool tma) {
@@ -1330,6 +1404,21 @@ cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
                : launch<E, EQ, WIDE_DC, false, false, true>(a, blocks, s);
   }
   a.npk = 1;
+  if constexpr (kSame && sizeof(E) == 2) {
+    if (a.heads > 1) {
+#define HEADS_CASE(DIM)                                                    \
+  case DIM:                                                                \
+    return Dp == D ? launch<E, EQ, DIM, true, true, false, true>(a, blocks, s) \
+                   : launch<E, EQ, DIM, false, true, false, true>(a, blocks, s)
+      switch (Dp) {
+        HEADS_CASE(64);
+        HEADS_CASE(128);
+        HEADS_CASE(256);
+      }
+#undef HEADS_CASE
+      return cudaErrorInvalidValue;
+    }
+  }
 #define PAGED_CASE(DIM)                                                  \
   case DIM:                                                              \
     if constexpr (kSame)                                                 \
@@ -1360,25 +1449,55 @@ cudaError_t launch_mma(Args& a, int blocks, cudaStream_t s, int Dp) {
   return cudaErrorInvalidValue;
 }
 
-// Where a launch's products run (dtype the caches', q_dtype q's): 1 on the
-// tensor cores, 0 on fp32 FMAs. The TMA body at Dp 64 to 256 (not the wide
-// body) with 16-bit caches and q of their type, or fp8 caches and a q of
-// 16 bits or fp8 (read in its own type; an fp32 q stays on FMAs).
-int products(int dtype, int q_dtype, int D) {
+// KV heads a segment (the note at the top): more than one where a group
+// of G query heads leaves warps of a set idle (G < GC, G dividing GC), for
+// 16-bit caches under a q of their type on the TMA ring at Dp 64 to 256,
+// at G = 1, or at G of 2 and 4 where D < Dp: GC / G, halved until it
+// divides Hkv. Otherwise 1.
+int kv_run(int dtype, int q_dtype, int D, int G, int Hkv) {
+  const int Dp = padded(D);
+  if ((dtype != DTYPE_BF16 && dtype != DTYPE_F16) || q_dtype != dtype ||
+      !tma_rows(dtype, D) || Dp < 64 || Dp > WIDE_DC || G < 1 || G >= GC ||
+      GC % G != 0 || Hkv < 1 || (G > 1 && D == Dp))
+    return 1;
+  int r = GC / G;
+  while (Hkv % r != 0) r /= 2;
+  return r;
+}
+
+// Where a launch's products run (dtype the caches', q_dtype q's; G query
+// heads a KV head, Hkv KV heads): 1 on the tensor cores, 0 on fp32 FMAs.
+// The TMA body at Dp 64 to 256 (not the wide body) with 16-bit caches and
+// q of their type (segments of one KV head: `kv_run` 1), or fp8 caches and
+// a q of 16 bits or fp8 (read in its own type; an fp32 q stays on FMAs).
+int products(int dtype, int q_dtype, int D, int G, int Hkv) {
   const int Dp = padded(D);
   if (!float_type(dtype) || !tma_rows(dtype, D) || Dp < 64 || Dp > WIDE_DC)
     return 0;
-  if (dtype == DTYPE_BF16 || dtype == DTYPE_F16) return q_dtype == dtype;
+  if (dtype == DTYPE_BF16 || dtype == DTYPE_F16)
+    return q_dtype == dtype && kv_run(dtype, q_dtype, D, G, Hkv) == 1;
   if (fp8_type(dtype))
     return q_dtype == DTYPE_BF16 || q_dtype == DTYPE_F16 ||
            fp8_type(q_dtype);
   return 0;
 }
 
-// The ring of a launch for caches of type E (any EQ: it does not enter).
+// The ring of a launch for caches of type E (any EQ: it does not enter),
+// segments of `heads` KV heads.
 template <typename E>
-int ring_for(int B, int D, int rows, int* smem) {
+int ring_for(int B, int D, int rows, int heads, int* smem) {
   const int Dp = padded(D);
+  if (heads > 1) {
+    switch (Dp) {
+      case 64:
+        return ring_slots<E, 64, false, true>(B, rows, 1, smem, heads, D);
+      case 128:
+        return ring_slots<E, 128, false, true>(B, rows, 1, smem, heads, D);
+      case 256:
+        return ring_slots<E, 256, false, true>(B, rows, 1, smem, heads, D);
+    }
+    return -1;
+  }
   switch (Dp) {
     case 0: return -1;
     case 16: return ring_slots<E, 16>(B, rows, 1, smem);
@@ -1400,10 +1519,18 @@ extern "C" int paged_attention_body(int dtype, int D) {
   return tma_rows(dtype, D) ? 0 : 1;
 }
 
-// Where the products of a launch at (dtype, q_dtype, D) run: 1 mma.sync, 0
-// fp32 FMAs (the wrapper's `products_on` states the same rule).
-extern "C" int paged_attention_products(int dtype, int q_dtype, int D) {
-  return products(dtype, q_dtype, D);
+// Where the products of a launch at (dtype, q_dtype, D, Hq, Hkv) run: 1
+// mma.sync, 0 fp32 FMAs (the wrapper's `products_on` states the same rule).
+extern "C" int paged_attention_products(int dtype, int q_dtype, int D,
+                                        int Hq, int Hkv) {
+  return products(dtype, q_dtype, D, Hkv > 0 ? Hq / Hkv : 0, Hkv);
+}
+
+// The KV heads a segment of a launch at (dtype, q_dtype, D, Hq, Hkv) takes
+// (`kv_run`; the wrapper's `kv_heads` states the same rule).
+extern "C" int paged_attention_heads(int dtype, int q_dtype, int D, int Hq,
+                                     int Hkv) {
+  return kv_run(dtype, q_dtype, D, Hkv > 0 ? Hq / Hkv : 0, Hkv);
 }
 
 // q [B, Hq, D] of type q_dtype (strides q_sb, q_sh, 1; at D of 16 .. 256 in
@@ -1445,6 +1572,7 @@ extern "C" int paged_attention_launch(
   a.dh = D;
   a.e5m2 = dtype == DTYPE_E5M2;
   a.qt = q_dtype;
+  a.heads = kv_run(dtype, q_dtype, D, a.G, Hkv);
   a.q_sb = st[0];
   a.q_sh = st[1];
   a.k_sb = st[2];
@@ -1471,7 +1599,7 @@ extern "C" int paged_attention_launch(
   // q of another float type than the caches': read and out written in
   // q's own type (q_as), the products on FMAs but for fp8 caches (`products`)
   if (!float_type(q_dtype) || dtype == DTYPE_F32) return -1;
-  if (fp8_type(dtype) && products(dtype, q_dtype, D)) {
+  if (fp8_type(dtype) && products(dtype, q_dtype, D, a.G, Hkv)) {
     if (q_dtype == DTYPE_BF16)
       return (int)launch_mma<fp8_any, q_as<__nv_bfloat16>>(a, blocks, s, Dp);
     return (int)launch_mma<fp8_any, q_as<__half>>(a, blocks, s, Dp);
@@ -1485,14 +1613,17 @@ extern "C" int paged_attention_launch(
 }
 
 // The ring a block of the launch takes for B sequences, head size D (any
-// D >= 1: the ring is Dp's, or the wide body's) and `rows` rows an aload:
-// its slots (0 where none fits, -1 for a head size or type the kernel does
-// not take) and, in *smem, its shared-memory bytes.
+// D >= 1: the ring is Dp's, or the wide body's), `rows` rows an aload and
+// segments of `heads` KV heads: its slots (0 where none fits, -1 for a
+// head size or type the kernel does not take) and, in *smem, its
+// shared-memory bytes.
 extern "C" int paged_attention_ring(int B, int D, int rows, int dtype,
-                                    int* smem) {
-  if (dtype == DTYPE_F32) return ring_for<float>(B, D, rows, smem);
-  if (dtype == DTYPE_BF16) return ring_for<__nv_bfloat16>(B, D, rows, smem);
-  if (dtype == DTYPE_F16) return ring_for<__half>(B, D, rows, smem);
-  if (fp8_type(dtype)) return ring_for<fp8_any>(B, D, rows, smem);
+                                    int heads, int* smem) {
+  if (heads > 1 && dtype != DTYPE_BF16 && dtype != DTYPE_F16) return -1;
+  if (dtype == DTYPE_F32) return ring_for<float>(B, D, rows, 1, smem);
+  if (dtype == DTYPE_BF16)
+    return ring_for<__nv_bfloat16>(B, D, rows, heads, smem);
+  if (dtype == DTYPE_F16) return ring_for<__half>(B, D, rows, heads, smem);
+  if (fp8_type(dtype)) return ring_for<fp8_any>(B, D, rows, 1, smem);
   return -1;
 }

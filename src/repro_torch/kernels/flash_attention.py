@@ -70,8 +70,9 @@ def body_for(dtype: torch.dtype, head_dim: int,
       that hands its registers to them with setmaxnreg, and the two taking
       turns at the tensor cores; above 256 in chunks of 256 output columns,
       Q K^T streamed in 64-column pieces); float8 (e4m3fn, e5m2) rows of
-      whole 16-byte pieces (head_dim % 16 == 0) at Dp 64 to 256, its TMA
-      tiles converted to f16 in shared memory (exact) for the f16 code.
+      whole 16-byte pieces (head_dim % 16 == 0) at Dp 64 to 256, Q K^T on
+      the fp8 wgmma of their kind straight from the TMA tiles, V converted
+      to f16 (exact) by the producer warpgroup for an f16 P V.
     - "wgmma_elem" (the same wgmma body, its tiles copied by element by a
       producer warpgroup, fp8 converted to f16 as it is loaded): bfloat16
       and float16 at head_dim % 8 != 0 and float8 at head_dim % 16 != 0,

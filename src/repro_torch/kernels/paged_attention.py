@@ -7,10 +7,11 @@ what the design does about that), the plain version is
 launches the kernel or raises.
 
 `paged_plan` lays a launch over the card from the shapes alone (the host
-never reads `lengths`): how many blocks and how many rows one aload fetches.
-The kernel's source sizes a block's ring of slots and its shared memory
-(`ring` asks it). `block_chunks` mirrors, for the CPU tests, how the kernel
-splits the valid rows among the blocks on the device.
+never reads `lengths`): how many blocks, how many rows one aload fetches
+and how many KV heads a segment takes (`kv_heads`). The kernel's source
+sizes a block's ring of slots and its shared memory (`ring` asks it).
+`block_chunks` mirrors, for the CPU tests, how the kernel splits the valid
+rows among the blocks on the device.
 """
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ CHUNK_ROWS = 32         # most rows one aload fetches (a lane a row)
 # the wide body's (head sizes above CHUNK_DIM) most bytes of a slot: its
 # rows hold all of K's columns and a chunk of V's, so it takes fewer rows
 SLOT_BYTES = 65536
+# the most bytes of a slot whose rows hold several KV heads (`kv_heads`)
+HEADS_SLOT_BYTES = 65536
 
 launches = 0            # +1 for every launch of the CUDA kernel, nowhere else
 
@@ -38,13 +41,16 @@ class PagedPlan(NamedTuple):
     """How a launch of the paged kernel covers the cache on a card."""
     blocks: int         # blocks of the launch (of each chunk)
     rows: int           # rows one aload fetches: min(page, CHUNK_ROWS, T)
-    segments: int       # (b, kv head, group of GC query heads) triples
+    segments: int       # (b, kv head, group of GC query heads) triples, or
+                        # (b, run of `heads` KV heads) pairs
     ngc: int            # groups of GC query heads a KV head
     chunks: int = 1     # CHUNK_DIM-column chunks of the output a head
+    heads: int = 1      # KV heads a segment (`kv_heads`)
 
 
 def paged_plan(B: int, Hq: int, Hkv: int, T: int, page: int, sms: int,
-               head_dim: int = 0, itemsize: int = 2) -> PagedPlan:
+               head_dim: int = 0, itemsize: int = 2,
+               heads: int = 1) -> PagedPlan:
     """The launch for a cache of B x T rows a KV head on a card of `sms`
     SMs, from the shapes only: one block an SM (its ring takes the SM's
     shared memory), no more blocks than the cache has aloads' worth of rows;
@@ -52,17 +58,23 @@ def paged_plan(B: int, Hq: int, Hkv: int, T: int, page: int, sms: int,
     is split into `chunks` of CHUNK_DIM output columns, each its own set of
     blocks (the SMs shared among them) over every valid row, and a row of a
     slot holds all of K's columns and a chunk of V's: at most SLOT_BYTES of
-    them (`itemsize` the caches') an aload."""
+    them (`itemsize` the caches') an aload. A segment of `heads` KV heads
+    (`kv_heads`; more than one only below GC query heads a KV head) takes
+    a row of all of them an aload row, so an aload takes at most
+    HEADS_SLOT_BYTES of K and V."""
     ngc = -(-(Hq // Hkv) // GC)
     rows = max(1, min(page, CHUNK_ROWS, T))
     chunks = -(-head_dim // CHUNK_DIM) if head_dim > CHUNK_DIM else 1
     if chunks > 1:
         rows = max(1, min(rows, SLOT_BYTES // ((chunks + 1) * CHUNK_DIM
                                                * itemsize)))
-    segments = B * Hkv * ngc
+    if heads > 1:
+        rows = max(1, min(rows, HEADS_SLOT_BYTES // (2 * heads * head_dim
+                                                     * itemsize)))
+    segments = B * (Hkv // heads) * ngc
     sms = max(1, sms // chunks)
     return PagedPlan(max(1, min(sms, -(-segments * T // rows))), rows,
-                     segments, ngc, chunks)
+                     segments, ngc, chunks, heads)
 
 
 def block_chunks(lengths: Sequence[int], T: int, hg: int, blocks: int,
@@ -70,12 +82,13 @@ def block_chunks(lengths: Sequence[int], T: int, hg: int, blocks: int,
     """The chunks each block fetches, as the kernel derives them from
     `lengths` on the device: a list a block of (segment, first row, rows).
 
-    Segment s = b * hg + j is the j-th (KV head, head group) of sequence b;
-    it has min(max(lengths[b], 0), T) valid rows. The valid rows of all
-    segments, laid end to end, are cut into `blocks` runs of
-    ceil(W / blocks) rows (W the total), so every block but the last has the
-    same number of valid rows; a run is fetched in chunks of at most `rows`
-    rows that never cross a segment."""
+    Segment s = b * hg + j is the j-th (KV head, head group) of sequence b,
+    or its j-th run of `PagedPlan.heads` KV heads (whose aload rows hold a
+    row of each); it has min(max(lengths[b], 0), T) valid rows. The valid
+    rows of all segments, laid end to end, are cut into `blocks` runs of
+    ceil(W / blocks) rows (W the total), so every block but the last has
+    the same number of valid rows; a run is fetched in chunks of at most
+    `rows` rows that never cross a segment."""
     lens = [min(max(int(n), 0), T) for n in lengths]
     prefix = [0]
     for n in lens:
@@ -152,17 +165,46 @@ def kernel_types(q_dtype: torch.dtype, cache_dtype: torch.dtype
     return (q_dtype if own else torch.float32), cache_dtype
 
 
+def kv_heads(q_dtype: torch.dtype, cache_dtype: torch.dtype,
+             head_dim: int, hq: int, hkv: int) -> int:
+    """KV heads a segment of the launch, the rule `kv_run` of
+    csrc/paged_attention.cu applies (`paged_attention_heads`) to the types
+    `kernel_types` gives: where a KV head has fewer than GC query heads
+    (G = hq / hkv dividing GC), 16-bit caches under a q of their type on
+    the TMA ring at a padded head size of 64 to 256 take GC / G KV heads a
+    segment (halved until it divides hkv), so that every warp of a set has
+    a query head, at G = 1 and, where the head size is not the padded one,
+    at G of 2 and 4; 1 elsewhere."""
+    body = body_for(cache_dtype, head_dim)
+    check_types("paged_attention", q_dtype)
+    q_dtype, cache_dtype = kernel_types(q_dtype, cache_dtype)
+    dp = padded_head_dim("paged_attention", head_dim)
+    g = hq // hkv if hkv > 0 else 0
+    if (cache_dtype not in (torch.bfloat16, torch.float16)
+            or q_dtype != cache_dtype or body != "tma"
+            or not 64 <= dp <= CHUNK_DIM or not 1 <= g < GC or GC % g
+            or (g > 1 and head_dim == dp)):
+        return 1
+    r = GC // g
+    while hkv % r:
+        r //= 2
+    return r
+
+
 def products_on(q_dtype: torch.dtype, cache_dtype: torch.dtype,
-                head_dim: int) -> str:
+                head_dim: int, hq: int = GC, hkv: int = 1) -> str:
     """Where a launch's two products run, the rule `products` of
     csrc/paged_attention.cu applies (`paged_attention_products`) to the
     types `kernel_types` gives: "mma" (mma.sync on the tensor cores) on the
     TMA ring at a padded head size of 64 to 256, with 16-bit caches under a
-    q of their type, or float8 caches under a q of 16 bits or float8
-    (K and V converted to f16, or to bf16 under a bf16 q, in registers);
-    "fma" (fp32 FMAs) elsewhere."""
+    q of their type in segments of one KV head (`kv_heads` 1: hq / hkv, GC
+    by default, at least GC or not dividing it), or float8 caches under a q
+    of 16 bits or float8 (K and V converted to f16, or to bf16 under a bf16
+    q, in registers); "fma" (fp32 FMAs: a lane on D / 32 columns of every
+    row of the chunk) elsewhere."""
     body = body_for(cache_dtype, head_dim)
     check_types("paged_attention", q_dtype)
+    heads = kv_heads(q_dtype, cache_dtype, head_dim, hq, hkv)
     q_dtype, cache_dtype = kernel_types(q_dtype, cache_dtype)
     dp = padded_head_dim("paged_attention", head_dim)
     if body != "tma" or not 64 <= dp <= CHUNK_DIM:
@@ -170,7 +212,7 @@ def products_on(q_dtype: torch.dtype, cache_dtype: torch.dtype,
     if cache_dtype in ref.FP8_TYPES:
         return "mma" if q_dtype != torch.float32 else "fma"
     if cache_dtype in (torch.bfloat16, torch.float16):
-        return "mma" if q_dtype == cache_dtype else "fma"
+        return "mma" if q_dtype == cache_dtype and heads == 1 else "fma"
     return "fma"
 
 
@@ -182,11 +224,12 @@ def _bind():
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_longlong), i, i, p]
         fn.restype = ctypes.c_int
-        lib.paged_attention_ring.argtypes = [i, i, i, i,
+        lib.paged_attention_ring.argtypes = [i, i, i, i, i,
                                              ctypes.POINTER(ctypes.c_int)]
         lib.paged_attention_ring.restype = ctypes.c_int
-        lib.paged_attention_products.argtypes = [i, i, i]
-        lib.paged_attention_products.restype = ctypes.c_int
+        for rule in (lib.paged_attention_products, lib.paged_attention_heads):
+            rule.argtypes = [i, i, i, i, i]
+            rule.restype = ctypes.c_int
     return lib, fn
 
 
@@ -196,11 +239,12 @@ def _sms(device: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def _ring(B: int, D: int, rows: int, dtype: torch.dtype) -> Tuple[int, int]:
+def _ring(B: int, D: int, rows: int, dtype: torch.dtype,
+          heads: int = 1) -> Tuple[int, int]:
     lib, _ = _bind()
     smem = ctypes.c_int(0)
     slots = lib.paged_attention_ring(B, D, rows, _build.DTYPE_CODES[dtype],
-                                     ctypes.byref(smem))
+                                     heads, ctypes.byref(smem))
     if slots <= 0:
         raise ValueError(f"paged_attention: no ring for a batch of {B} at "
                          f"head size {D} fits in shared memory")
@@ -209,18 +253,22 @@ def _ring(B: int, D: int, rows: int, dtype: torch.dtype) -> Tuple[int, int]:
 
 @functools.lru_cache(maxsize=4096)
 def _card_plan(device: int, B: int, Hq: int, Hkv: int, T: int, D: int,
-               dtype: torch.dtype, page: int) -> PagedPlan:
-    plan = paged_plan(B, Hq, Hkv, T, page, _sms(device), D, dtype.itemsize)
-    _ring(B, D, plan.rows, dtype)         # refuses what the launch would
+               dtype: torch.dtype, page: int,
+               q_dtype: torch.dtype) -> PagedPlan:
+    heads = kv_heads(q_dtype, dtype, D, Hq, Hkv)
+    plan = paged_plan(B, Hq, Hkv, T, page, _sms(device), D, dtype.itemsize,
+                      heads)
+    _ring(B, D, plan.rows, dtype, heads)  # refuses what the launch would
     return plan
 
 
 def launch_plan(q: torch.Tensor, k_cache: torch.Tensor,
                 page: int = 512) -> PagedPlan:
-    """The plan `paged_attention` launches for these CUDA tensors."""
+    """The plan `paged_attention` launches for these CUDA tensors (q of
+    the type `kernel_types` gives it)."""
     B, Hq, D = q.shape
     return _card_plan(q.device.index, B, Hq, k_cache.shape[2],
-                      k_cache.shape[1], D, k_cache.dtype, page)
+                      k_cache.shape[1], D, k_cache.dtype, page, q.dtype)
 
 
 def ring(q: torch.Tensor, k_cache: torch.Tensor,
@@ -229,7 +277,8 @@ def ring(q: torch.Tensor, k_cache: torch.Tensor,
     for these CUDA tensors, as csrc/paged_attention.cu sizes it: the deepest
     of at most 8 slots that fits one block an SM."""
     plan = launch_plan(q, k_cache, page)
-    return _ring(q.shape[0], q.shape[2], plan.rows, k_cache.dtype)
+    return _ring(q.shape[0], q.shape[2], plan.rows, k_cache.dtype,
+                 plan.heads)
 
 
 # Partials and tickets, allocated once per (device, stream) and grown: the

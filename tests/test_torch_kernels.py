@@ -361,6 +361,102 @@ def test_paged_split_plan(b, hq, hkv, t, d, page):
             slots |= mine
 
 
+# (Hq, Hkv) layouts at which the split rules are held: G of 1 to 16, and
+# KV heads that 8 / G does not divide
+_LAYOUTS = ((16, 16), (16, 8), (16, 4), (16, 2), (16, 1), (6, 6), (12, 6),
+            (3, 3), (20, 4), (24, 8))
+_RULE_DIMS = list(range(1, 1101)) + [2048]
+
+
+@pytest.mark.parametrize("hq,hkv", _LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.float8_e4m3fn,
+                                   torch.float8_e5m2])
+def test_paged_heads_and_products_rule(hq, hkv, dtype):
+    """KV heads a segment (`kv_heads`) and where the products run
+    (`products_on`), q of the caches' type, at every head size from 1 to
+    1100 and 2048: below 8 query heads a KV head (G dividing 8), 16-bit
+    caches on the TMA ring at a padded head size of 64 to 256 take 8 / G
+    KV heads a segment (halved until it divides Hkv), on FMAs, at G = 1
+    and, where the head size is not the padded one, at G of 2 and 4;
+    elsewhere one, on mma.sync where `products` took it before. `chip_smoke.py`
+    holds the CUDA source's rules (`paged_attention_heads`,
+    `paged_attention_products`) to these."""
+    g = hq // hkv
+    for d in _RULE_DIMS:
+        dp = tflash.padded_head_dim("paged_attention", d)
+        tma = d * dtype.itemsize % 16 == 0
+        heads = 1
+        if (dtype in (torch.bfloat16, torch.float16) and tma
+                and 64 <= dp <= 256 and g < 8 and 8 % g == 0
+                and (g == 1 or d != dp)):
+            heads = 8 // g
+            while hkv % heads:
+                heads //= 2
+        mma = tma and 64 <= dp <= 256 and (
+            dtype in (torch.float8_e4m3fn, torch.float8_e5m2)
+            or (dtype != torch.float32 and heads == 1))
+        assert tpaged.kv_heads(dtype, dtype, d, hq, hkv) == heads, d
+        assert tpaged.products_on(dtype, dtype, d, hq, hkv) == (
+            "mma" if mma else "fma"), d
+
+
+@pytest.mark.parametrize("g", [1, 2, 8, 16])
+@pytest.mark.parametrize("b,hkv,t,d,page", [
+    (4, 16, 1032, 80, 512), (3, 8, 300, 64, 16), (2, 4, 700, 128, 64),
+    (5, 2, 64, 256, 512), (1, 16, 4096, 80, 512)])
+def test_paged_split_in_segments_of_several_kv_heads(g, b, hkv, t, d, page):
+    """The split where a segment takes several KV heads (below 8 query
+    heads a KV head), bf16: `block_chunks`, `locate` and `pieces` against a
+    brute-force walk of the rows. The walk lays out, sequence by sequence,
+    each run of `PagedPlan.heads` KV heads and its valid rows; the blocks'
+    chunks must be that order cut into runs of ceil(W / blocks) rows, every
+    (sequence, KV head, row) fetched once, no chunk past `rows` rows or
+    across a segment, an aload within HEADS_SLOT_BYTES, and each segment's
+    partials at the blocks that hold its rows."""
+    hq = g * hkv
+    rng = np.random.default_rng(g * 31 + b * 7 + t)
+    lens = _split_lengths(rng, b, t)
+    heads = tpaged.kv_heads(torch.bfloat16, torch.bfloat16, d, hq, hkv)
+    padded = d != tflash.padded_head_dim("paged_attention", d)
+    assert heads == (min(8 // g, hkv) if g == 1 or g < 8 and padded else 1)
+    plan = tpaged.paged_plan(b, hq, hkv, t, page, 132, d, 2, heads)
+    hg = hkv // heads * plan.ngc
+    assert plan.heads == heads and plan.segments == b * hg
+    assert plan.ngc * tpaged.GC >= g and (heads == 1
+                                          or heads * g <= tpaged.GC)
+    assert 1 <= plan.rows <= min(page, t, tpaged.CHUNK_ROWS)
+    if heads > 1:
+        assert 2 * plan.rows * heads * d * 2 <= tpaged.HEADS_SLOT_BYTES
+    walk = [(i, j, r) for i in range(b) for j in range(hg)
+            for r in range(int(lens[i]))]
+    chunks = tpaged.block_chunks(lens, t, hg, plan.blocks, plan.rows)
+    per = -(-len(walk) // plan.blocks) if walk else 0
+    got, holders = [], {}
+    for blk, block in enumerate(chunks):
+        assert len(got) == min(blk * per, len(walk))
+        for s, t0, n in block:
+            assert 1 <= n <= plan.rows and t0 + n <= int(lens[s // hg])
+            got += [(s // hg, s % hg, t0 + r) for r in range(n)]
+            holders.setdefault(s, set()).add(blk)
+    assert got == walk
+    ngc = plan.ngc                     # (heads > 1: one group of 8)
+    fetched = sorted((i, j // ngc * heads + kv, j % ngc, r)
+                     for i, j, r in got for kv in range(heads))
+    assert fetched == sorted((i, h, grp, r) for i in range(b)
+                             for h in range(hkv) for grp in range(ngc)
+                             for r in range(int(lens[i])))
+    prefix = [0] + list(np.cumsum(lens))
+    for row, (i, j, r) in enumerate(walk):
+        assert tpaged.locate(prefix, hg, row) == (
+            i * hg + j, r, prefix[i] * hg + (j + 1) * int(lens[i]))
+    for s, blocks in holders.items():
+        n = int(lens[s // hg])
+        first, count = tpaged.pieces(n, prefix[s // hg] * hg + s % hg * n,
+                                     per)
+        assert blocks == set(range(first, first + count))
+
+
 def test_paged_locate_matches_a_linear_walk():
     prefix = [0, 0, 5, 5, 6, 20]           # lengths 0, 5, 0, 1, 14
     hg, rows = 3, []
@@ -394,6 +490,32 @@ def test_flash_attention_at_every_head_size(d, dtype):
         to_np(out), to_np(jflash(jq, jk, jv, causal=True, window=48,
                                  block_q=64, block_k=64, interpret=True)),
         **TOLS[dtype])
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(4, 4, 80), (4, 4, 64), (8, 4, 96),
+                                      (8, 2, 80), (6, 6, 128)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_paged_attention_at_one_to_four_query_heads_a_kv_head(hq, hkv, d,
+                                                               dtype):
+    """Layouts whose segments take several KV heads on the card (G = 1,
+    and G of 2 and 4 below a padded head size; `kv_heads`), lengths 0, a
+    middle one and T: the wrapper's
+    plain version against the reference's Pallas kernel in interpret
+    mode."""
+    assert tpaged.kv_heads(getattr(torch, dtype), getattr(torch, dtype), d,
+                           hq, hkv) > 1
+    rng = np.random.default_rng(hq * 13 + d)
+    jdt = getattr(jnp, dtype)
+    q = jnp.array(rng.standard_normal((3, hq, d)) * 0.3, jdt)
+    kc = jnp.array(rng.standard_normal((3, 96, hkv, d)) * 0.3, jdt)
+    vc = jnp.array(rng.standard_normal((3, 96, hkv, d)), jdt)
+    lens = np.array([0, 41, 96], np.int32)
+    out = tpaged.paged_attention(to_torch(q), to_torch(kc), to_torch(vc),
+                                 torch.from_numpy(lens), page=32)
+    assert out.dtype == getattr(torch, dtype) and out.shape == (3, hq, d)
+    np.testing.assert_allclose(
+        to_np(out), to_np(jpaged(q, kc, vc, jnp.array(lens), page=32,
+                                 interpret=True)), **TOLS[dtype])
 
 
 @pytest.mark.parametrize("d", PADDED_DIMS)

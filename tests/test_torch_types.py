@@ -465,12 +465,47 @@ def test_flash_takes_fp8_and_integers(name, d):
                                     (33, "wgmma_elem"), (24, "fma")])
 def test_flash_fp8_body_rule(d, body):
     """float8 rows of whole 16-byte pieces at Dp 64-256 take the wgmma body
-    (TMA tiles converted to f16), other rows at those Dp the same body with
-    the element loader (converted as they are loaded); Dp 16-32 and above
-    256 the fma body. The card holds the source's rule to this one
+    by TMA (Q K^T on the fp8 wgmma, V converted to f16 by its producer
+    warpgroup), other rows at those Dp the same body with the element
+    loader (converted as they are loaded); Dp 16-32 and above 256 the fma
+    body. The card holds the source's rule to this one
     (`chip_smoke.py`)."""
     for dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
         assert tflash.body_for(dtype, d) == body
+
+
+@pytest.mark.parametrize("q_name", FP8 + ["bfloat16", "float16", "float32"])
+@pytest.mark.parametrize("kv_name", FP8)
+def test_fp8_rules_at_every_head_size(q_name, kv_name):
+    """The body rules of float8 inputs at every head size from 0 to 1100
+    and 2048, as `chip_smoke.py` holds the sources' to the wrappers': flash
+    (q, k, v of one float8 type) on the wgmma body by TMA (Q K^T on the
+    fp8 wgmma) where the rows are whole 16-byte pieces and Dp is 64 to 256,
+    with the element loader at the other D of those Dp, else fma; paged
+    over float8 caches on the TMA ring at D % 16 == 0, its products on
+    mma.sync at Dp 64 to 256 under a q of 16 bits or float8 and one KV head
+    a segment at every GQA layout (`kv_heads` takes several for 16-bit
+    caches only)."""
+    q, kv = getattr(torch, q_name), getattr(torch, kv_name)
+    for d in range(0, 1101):
+        if d == 0:
+            with pytest.raises(ValueError):
+                tflash.body_for(kv, d)
+            continue
+        dp = tflash.padded_head_dim("flash_attention", d)
+        tc = 64 <= dp <= 256
+        if q == kv:
+            assert tflash.body_for(kv, d) == (
+                "fma" if not tc else "wgmma" if d % 16 == 0
+                else "wgmma_elem"), d
+        assert tpaged.body_for(kv, d) == ("tma" if d % 16 == 0
+                                          else "element"), d
+        for hq, hkv in ((16, 16), (16, 2), (16, 1)):
+            assert tpaged.kv_heads(q, kv, d, hq, hkv) == 1
+            assert tpaged.products_on(q, kv, d, hq, hkv) == (
+                "mma" if d % 16 == 0 and tc and q != torch.float32
+                else "fma"), d
+    assert tflash.body_for(kv, 2048) == "fma"
 
 
 @pytest.mark.parametrize("name", FP8)
