@@ -370,7 +370,11 @@ SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
 # USETMAXREG in SASS); its fp8 bodies by TMA (F8 true, ELEM false, and E5
 # false or true) on the fp8 wgmma of their kind (QGMMA in SASS); paged's TMA
 # ring above 256 (the instantiations <E, EQ, 256, EXACT=false, TMA=true,
-# WIDE=true>)
+# WIDE=true>), its segments of several KV heads (HEADS true, HX 1) on TMA,
+# its bodies of two query heads a warp (HX 2) on mma.sync, TMA and ldmatrix
+# (LDSM: q's fragments); the scatter's 16-bit integer add
+# (`scatter_apply_kernel<1, OP_ADD, uint16_t>`) on the returning add
+# (ATOMG.ADD) and the carry repair (RED)
 SASS_WANT_IN = {"flash_attention": [
                     (("flash_wgmma_wide_kernel",), ("HGMMA", "UTMALDG")),
                     (("flash_wgmma_kernel", "Lb1ELb0EEEv"),
@@ -382,10 +386,14 @@ SASS_WANT_IN = {"flash_attention": [
                     (("flash_wgmma_kernel", "Lb1ELb0ELb1EEEv"),
                      ("GMMA*E5M2", "HGMMA", "UTMALDG", "USETMAXREG"))],
                 "paged_attention": [(("Li256ELb0ELb1ELb1E",), ("UTMALDG",)),
-                                    (("Lb1ELb0ELb1EEEv",), ("UTMALDG",)),
+                                    (("Lb1ELb0ELb1ELi1EEEv",), ("UTMALDG",)),
+                                    (("Lb0ELi2EEEv",),
+                                     ("HMMA", "UTMALDG", "LDSM")),
                                     (("q_asI6__half",), ("HMMA", "UTMALDG")),
                                     (("q_asI13__nv_bfloat16",),
-                                     ("HMMA", "UTMALDG"))]}
+                                     ("HMMA", "UTMALDG"))],
+                "async_scatter": [(("scatter_apply_kernelILi1ELi0EtE",),
+                                   ("ATOMG*ADD", "RED"))]}
 
 
 def sass_functions(sass) -> dict:
@@ -640,10 +648,12 @@ def check_flash(gen):
 
 
 BODY_RULE_DIMS = list(range(0, 1101)) + [2048]
-# (Hq, Hkv) at which paged's split and products rules are held: G of 1 to 16,
-# and KV heads that 8 / G does not divide
+# (Hq, Hkv) at which paged's split and products rules are held: G of 1 to 32,
+# KV heads that 8 / G does not divide, and groups of 16 query heads that are
+# not whole or more than one
 PAGED_RULE_LAYOUTS = ((16, 16), (16, 8), (16, 4), (16, 2), (16, 1), (6, 6),
-                      (12, 6), (3, 3), (20, 4), (24, 8))
+                      (12, 6), (3, 3), (20, 4), (24, 8), (12, 1), (32, 2),
+                      (24, 1))
 
 
 def check_body_rules():
@@ -691,13 +701,15 @@ def check_body_rules():
             for d in BODY_RULE_DIMS[1:]:
                 got = (paged.paged_attention_heads(code, code, d, hq, hkv),
                        products[paged.paged_attention_products(
-                           code, code, d, hq, hkv)])
+                           code, code, d, hq, hkv)],
+                       paged.paged_attention_group(code, code, d, hq, hkv))
                 want = (pa.kv_heads(dtype, dtype, d, hq, hkv),
-                        pa.products_on(dtype, dtype, d, hq, hkv))
+                        pa.products_on(dtype, dtype, d, hq, hkv),
+                        pa.query_heads(dtype, dtype, d, hq, hkv))
                 if got != want:
                     raise AssertionError(
-                        f"paged heads and products for {dtype} Hq{hq} Hkv"
-                        f"{hkv} D{d}: the source says {got}, the wrapper "
+                        f"paged heads, products and group for {dtype} Hq{hq} "
+                        f"Hkv{hkv} D{d}: the source says {got}, the wrapper "
                         f"{want} ... FAIL")
     log("  body rules, D 0-1100 and 2048 x 3 types, the 6 mixed pairs and "
         "fp8, sources and wrappers agree: flash fp32 and mixed -> fma; "
@@ -705,10 +717,10 @@ def check_body_rules():
         "mma; 16-bit D % 8 != 0 and fp8 D % 16 != 0 at Dp 64-256 -> "
         "wgmma_elem, else fma; fp8 D % 16 == 0 and Dp 64-256 -> wgmma; "
         "paged rows of whole 16-byte pieces -> tma, others -> element; 0 "
-        "refused; paged's KV heads a segment and products at "
-        f"{len(PAGED_RULE_LAYOUTS)} GQA layouts (16-bit on the TMA ring at "
-        "Dp 64-256, G = 1, or G of 2 and 4 at D < Dp: 8 / G heads a "
-        "segment, on fma)")
+        "refused; paged's KV heads a segment, products and query heads a "
+        f"segment at {len(PAGED_RULE_LAYOUTS)} GQA layouts (16-bit on the "
+        "TMA ring at Dp 64-256, G = 1, or G of 2 and 4 at D < Dp: 8 / G "
+        "heads a segment, on fma; G > 8 on mma: 16 query heads a segment)")
 
 
 def window_mask(s, window):
@@ -2025,6 +2037,100 @@ def check_redesigns(gen):
             check_close(f"  the same at lengths {ragged.tolist()}",
                         pa.paged_attention(*x, ragged),
                         ref.paged_attention_ref(*x, ragged), **PAGED_BF16_TOL)
+
+
+# paged above 8 query heads a KV head: (Hq, Hkv) of G = 16, of G = 12 (a
+# group that is not whole) and of G = 32 (two groups a KV head); head sizes
+# padded to 256, where a segment of one KV head serves 16 query heads
+# (`query_heads`, a warp two: that body's own and two below it, rows of whole
+# 16-byte pieces in bf16 and fp8), and 64 and 128, where it serves 8; (q,
+# caches) types of the tensor-core bodies
+PAIR_LAYOUTS = ((16, 1), (12, 1), (32, 2))
+PAIR_DIMS = (64, 128, 144, 208, 256)
+PAIR_TYPES = ((torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16),
+              (torch.bfloat16, torch.float8_e4m3fn),
+              (torch.float16, torch.float8_e5m2),
+              (torch.float8_e4m3fn, torch.float8_e4m3fn),
+              (torch.float8_e5m2, torch.float8_e5m2))
+# the 16-bit integer add (a returning add and a carry repair a word): row
+# widths in elements, so that words lie wholly in a row (64), hold its
+# first or last element beside a neighbour's (3) or one element (1)
+ADD16_WIDTHS = (64, 3, 1)
+
+
+def check_pair_heads_and_add16(gen):
+    """The two bodies redesigned last, against their plain versions: paged
+    at PAIR_LAYOUTS x PAIR_DIMS x PAIR_TYPES (at Dp 256 a segment of one KV
+    head serving 16 query heads, two a warp), lengths [0, 1, 31, 32, 33,
+    200, 333], within PAGED_BF16_TOL / PAGED_F16_TOL of a 16-bit output and one
+    unit in the last place of a float8 one, and at recurrentgemma-9b's
+    decode layout (B4 Hq16 Hkv1 T4128 D256, lengths [4128, 4097, 2065, 64])
+    in bf16; then int16 and uint16 add of 2^20 updates, a quarter into 4096
+    hot rows, into [2^24, w] for w in ADD16_WIDTHS, every table value and
+    update negative as int16 (a half at 0x8000 or more: the low half
+    carries on every add, the high half wraps), held bit for bit."""
+    from repro_torch.kernels import async_scatter as asc
+    from repro_torch.kernels import paged_attention as pa, ref
+
+    log("paged at 12 to 32 query heads a KV head (two a warp) and the "
+        "16-bit integer add on a returning add")
+    lens = torch.tensor([0, 1, 31, 32, 33, 200, 333], dtype=torch.int32,
+                        device="cuda")
+    n = 0
+    for hq, hkv in PAIR_LAYOUTS:
+        for d in PAIR_DIMS:
+            for qt, kv in PAIR_TYPES:
+                if (hq, hkv) == (32, 2) and d != 256:
+                    continue
+                q = rand_typed(gen, (7, hq, d), qt, Q_SCALE)
+                kc = rand_typed(gen, (7, 333, hkv, d), kv)
+                vc = rand_typed(gen, (7, 333, hkv, d), kv)
+                plan = pa.launch_plan(q, kc)
+                group = 2 * pa.GC if d > 128 else pa.GC
+                if plan.group != group or pa.products_on(
+                        qt, kv, d, hq, hkv) != "mma":
+                    raise AssertionError(
+                        f"paged q {qt} caches {kv} Hq{hq} Hkv{hkv} D{d}: "
+                        f"plan {plan}, not {group} query heads a segment on "
+                        "the tensor cores ... FAIL")
+                paged_out_check(
+                    f"paged q {tname(qt)} caches {tname(kv)} Hq{hq} Hkv{hkv} "
+                    f"D{d}", pa.paged_attention(q, kc, vc, lens),
+                    ref.paged_attention_ref(q, kc, vc, lens))
+                n += 1
+    b, t = BATCH, 4128
+    rg_lens = torch.tensor([t, t - 31, (t + 2) // 2, 64], dtype=torch.int32,
+                           device="cuda")
+    x = paged_case(gen, b, 16, 1, t, 256, torch.bfloat16)
+    plan, (slots, smem) = pa.launch_plan(x[0], x[1]), pa.ring(x[0], x[1])
+    check_close(f"paged bf16 B{b} Hq16 Hkv1 T{t} D256 ({plan.segments} "
+                f"segments, {plan.blocks} blocks, {slots} slots of "
+                f"{plan.rows} rows, {smem} bytes of shared memory)",
+                pa.paged_attention(*x, rg_lens),
+                ref.paged_attention_ref(*x, rg_lens), **PAGED_BF16_TOL)
+    log(f"  {n} cases above 8 query heads a KV head agree (G 16, 12, 32; D "
+        f"{PAIR_DIMS}, 16 heads a segment above 128; bf16 / f16 caches, e4m3 "
+        "/ e5m2 under 16-bit and fp8 q)")
+    del x
+    def negative(shape, dtype):
+        return torch.randint(-32768, 0, shape, generator=gen, device="cuda",
+                             dtype=torch.int16).view(dtype)
+
+    rows, m = 1 << 24, 1 << 20
+    for width in ADD16_WIDTHS:
+        for dtype in (torch.int16, torch.uint16):
+            table = negative((rows, width), dtype)
+            upd = negative((m, width), dtype)
+            idx = amu_index(gen, rows, m)
+            idx[::4] %= 4096
+            plan = asc.launch_plan(table, m, "add")
+            out = asc.async_scatter(table.clone(), idx, upd, "add")
+            check_same(f"scatter add [{rows},{width}] {tname(dtype)}, every "
+                       f"add carrying, {m} updates (chunk {plan.chunk}, "
+                       f"{plan.lanes} lanes a row)", out,
+                       ref.scatter_update_ref(table, idx, upd, "add"))
+            del table, upd, idx, out
+    free_cuda()
 
 
 def fp8_serve_shapes(gen):
@@ -3959,11 +4065,12 @@ MUTANTS = {
     "paged_ticket": [("paged_attention.cu",
                       "      if (last) atomicExch(&tickets[cur], 0);",
                       "")],
-    # the merge leaves out the last partial of its second set
+    # the merge leaves out the last partial of its second set (of all, where
+    # each set takes all of them: HX 2)
     "paged_merge": [("paged_attention.cu",
-                     "    const int np_all = set == 0 ? half : count - half;",
-                     "    const int np_all = set == 0 ? half : "
-                     "count - half - 1;")],
+                     "      const int np_all = first_half ? half : m_n - half;",
+                     "      const int np_all = first_half ? half - (HX == 2) "
+                     ": m_n - half - 1;")],
     # the threads compute from a slot without waiting for its loads
     "triad_getfin": [("stream_triad.cu", TRIAD_GETFIN, "")],
     # a slot's bulk store is issued before the threads have computed it
@@ -3983,7 +4090,7 @@ MUTANTS = {
                             "if (c < D) ob[r * o_ss + c]")],
     "paged_store_dp": [("paged_attention.cu",
                         "if (EXACT || c0 + d0 + e < Dh) put(o + e, "
-                        "acc[e] * inv);", "put(o + e, acc[e] * inv);"),
+                        "acc[x][e] * inv);", "put(o + e, acc[x][e] * inv);"),
                        ("paged_attention.cu",
                         "if (EXACT || c0 + d0 + e < Dh) put(o + e, "
                         "as[e] * inv);", "put(o + e, as[e] * inv);")],
@@ -4065,8 +4172,8 @@ MUTANTS = {
                            "    *p = f(seen);")],
     # ... its word path taking the byte past the row (a neighbour's xor) ...
     "scatter_word_past_row": [("async_scatter.cu",
-                               "          if (o >= 0 && o < R) {",
-                               "          if (o >= 0 && o <= R) {")],
+                               "    if (o >= 0 && o < R) {",
+                               "    if (o >= 0 && o <= R) {")],
     # ... dropping a bf16 / f16 element whose pair is a neighbour's ...
     "scatter16_lone_dropped": [("async_scatter.cu",
                                 "      if (!nan16<E>(nb))\n        "
@@ -4146,6 +4253,26 @@ MUTANTS = {
                             "  const int kvh = HEADS ? hw / a.G : 0;",
                             "  const int kvh = HEADS ? (hw / a.G + 1) % "
                             "a.heads : 0;")],
+    # the 16-bit integer add on a returning add: the carry repair dropped
+    # (the high half keeps the low half's carry) ...
+    "add16_repair_dropped": [("async_scatter.cu",
+                              "        red_add(p[i], 0xffff0000u);\n",
+                              "        ;\n")],
+    # ... a repair on a word only the row's high half touches, by the carry
+    # of its element added to the neighbour's low half ...
+    "add16_repair_high_half": [("async_scatter.cu",
+                                "        red_add(p[i], w);\n",
+                                "        old[i] = atom_add(p[i], w);\n"
+                                "        lo[i] = w >> 16;\n")],
+    # ... paged at 16 query heads a segment: a warp's second head (n-tile
+    # 1, heads 8-15) reading the first head's q ...
+    "paged_pair_q": [("paged_attention.cu",
+                      "const int qrow = (mi >> 1) * 8 + ri;",
+                      "const int qrow = ri;")],
+    # ... and the last block of a merge group leaving its ticket standing
+    "paged_group_ticket": [("paged_attention.cu",
+                            "          if (last) atomicExch(gt, 0);\n",
+                            "")],
 }
 
 
@@ -4568,6 +4695,7 @@ def main() -> int:
     check_every_type(gen)
     check_paged_fp8(gen)
     check_redesigns(gen)
+    check_pair_heads_and_add16(gen)
     fp8_serve_shapes(gen)
 
     # 4. the slice and the later paths, then training; 5. the AMU kernels'

@@ -67,10 +67,15 @@ bucketed and not where the tree can be given the path, else as it plans),
 `flash_fp8` (flash in e4m3 and e5m2 at granite's D 64, qwen2.5-3b's
 prefill and recurrentgemma-9b's windowed D 256, each held within one unit
 in the last place plus the P term of the plain version, beside SDPA on
-bf16 copies and then the bf16 body at the same shape).
+bf16 copies and then the bf16 body at the same shape) and `g16_add16`
+(paged at 16 query heads a KV head in recurrentgemma-9b's layout, B=4,
+Hkv=1, T=4128, lengths [4128, 4097, 2065, 64]: bf16 at D 64, 128 and 256,
+e4m3 caches under a bf16 q at D 256, beside SDPA; then int16, uint16 and
+int8 add of 2^20 updates, a quarter into 4096 hot rows, into [2^24, 64]
+and [2^24, 3] beside `index_add_`).
 `--only` picks some of flash, paged, gather, triad, scatter,
 scatter_bf16, types, paged_fp8, paged_mixed, scatter_narrow,
-scatter_sweep, paged_heads, flash_fp8. For each:
+scatter_sweep, paged_heads, flash_fp8, g16_add16. For each:
 kernel ms (CUDA
 events, mean of back-to-back calls, best of 5 windows, as in chip_smoke.py),
 host us a call (perf_counter over 50 calls without a synchronise), the
@@ -81,7 +86,8 @@ bound, and `index_add_` on the GUPS table as a yardstick of the card's
 random-atomic rate: it adds, where GUPS xors). A scatter case whose result
 differs from the plain version is printed with `check FAIL` beside its time
 (so a throwaway copy that is wrong on purpose, such as one without its
-reductions, can still be timed) and makes the bench exit 1. Prints one JSON
+reductions, can still be timed) and makes the bench exit 1; so does a
+paged case of `bench_paged` that differs from the plain version. Prints one JSON
 line, then the card's name and power limit. Needs one NVIDIA card.
 """
 from __future__ import annotations
@@ -180,6 +186,8 @@ def main() -> int:
                     for hkv_, d_ in cs.PAGED_HEADS + PAGED_GROUPS)
     if "flash_fp8" in args.only:
         rows.extend(bench_flash_fp8(cs, fa, ref, F, gen))
+    if "g16_add16" in args.only:
+        rows.extend(bench_g16_add16(cs, pa, asc, ref, F, gen))
     if "paged_mixed" in args.only:
         rows.extend(bench_paged_typed(cs, pa, ref, F, gen, q_dtype,
                                       torch.bfloat16)
@@ -241,6 +249,23 @@ def bench_flash_fp8(cs, fa, ref, F, gen):
     return rows
 
 
+def bench_g16_add16(cs, pa, asc, ref, F, gen):
+    """`g16_add16`: paged at 16 query heads a KV head (recurrentgemma-9b's
+    B4 Hq16 Hkv1, T = 4128) in bf16 at D 64, 128 and 256 and over e4m3
+    caches under a bf16 q at D 256; then int16, uint16 and int8 add into
+    [2^24, 64] and [2^24, 3]."""
+    rows = [bench_paged(cs, pa, ref, F, gen, cs.BATCH, 16, 1, d, prompt=4096)
+            for d in (64, 128, 256)]
+    rows.append(bench_paged_typed(cs, pa, ref, F, gen, torch.bfloat16,
+                                  torch.float8_e4m3fn, d=256, hkv=1,
+                                  t=4128))
+    for w in (64, 3):
+        for dtype in (torch.int16, torch.uint16, torch.int8):
+            rows.append(bench_scatter_typed(cs, asc, ref, gen, dtype, "add",
+                                            w))
+    return rows
+
+
 def takes(mod, d) -> bool:
     """Whether the tree's kernel module takes head size `d`: a tree from
     before every head size from 1 to 256 (`padded_head_dim`) took only its
@@ -299,9 +324,13 @@ def bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d, long=False,
     b = lens.numel()
     sets = [cs.paged_case(gen, b, hq, hkv, t, d, dtype)
             for _ in range(4 if long else 16)]
-    cs.check_close(f"paged T{t}", pa.paged_attention(*sets[0], lens),
-                   ref.paged_attention_ref(*sets[0], lens),
-                   **cs.PAGED_BF16_TOL)
+    try:
+        cs.check_close(f"paged T{t}", pa.paged_attention(*sets[0], lens),
+                       ref.paged_attention_ref(*sets[0], lens),
+                       **cs.PAGED_BF16_TOL)
+        check = "ok"
+    except AssertionError:
+        check = "FAIL"
     mask = (torch.arange(t, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
 
@@ -320,7 +349,7 @@ def bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d, long=False,
         host_us=cs.host_us(lambda: pa.paged_attention(*sets[0], lens)),
         library_ms=cs.time_ms([lambda x=x: library(x) for x in sets], 64),
         library_host_us=cs.host_us(lambda: library(sets[0])),
-        bound_ms=cs.paged_bound(lens, hq, hkv, d, dtype)[0])
+        bound_ms=cs.paged_bound(lens, hq, hkv, d, dtype)[0], check=check)
 
 
 def bench_triad(cs, st, gen, dtype=torch.float32):
@@ -528,12 +557,13 @@ def paged_lengths(t):
 
 
 def bench_paged_typed(cs, pa, ref, F, gen, q_dtype, dtype, d=128, hq=16,
-                      hkv=2):
-    """Paged at qwen2.5-3b's decode (T = 1032) with q of `q_dtype` over
-    caches of `dtype`, checked once (one unit in the last place of a
-    float8 output, PAGED_BF16_TOL / PAGED_F16_TOL of a 16-bit one), timed
-    over 16 caches in turn beside SDPA on bf16 copies and the bound."""
-    b, t = cs.BATCH, cs.PROMPT_LEN + cs.MAX_NEW
+                      hkv=2, t=None):
+    """Paged at qwen2.5-3b's decode (T = 1032, or `t`, lengths
+    `paged_lengths`) with q of `q_dtype` over caches of `dtype`, checked
+    once (one unit in the last place of a float8 output, PAGED_BF16_TOL /
+    PAGED_F16_TOL of a 16-bit one), timed over 16 caches in turn beside
+    SDPA on bf16 copies and the bound."""
+    b, t = cs.BATCH, t or cs.PROMPT_LEN + cs.MAX_NEW
     lens, mask = paged_lengths(t)
     sets = [(cs.rand_typed(gen, (b, hq, d), q_dtype, cs.Q_SCALE),
              cs.rand_typed(gen, (b, t, hkv, d), dtype),

@@ -2,16 +2,18 @@
 """Per-block phase times of the paged attention kernel, from a copy of its
 source that stamps clock64().
 
-    python3 paged_phases.py [--src DIR] [--label NAME] [--case HKV,D ...]
+    python3 paged_phases.py [--src DIR] [--label NAME] [--case HKV,D[,T] ...]
 
 Copies DIR (a tree's `src/`, this tree's by default) to
 `build/paged_phases/NAME/src`, edits the copy's `paged_attention.cu` (each
 edit's text must be in it exactly once, as a mutant's of chip_smoke.py: it
 adds a `__device__` array, an `extern "C"` reader and clock64() stamps in
 each consumer thread), builds that source alone, and runs bf16 paged
-attention at B = 4, Hq = 16, T = 1032, lengths [1032, 1001, 517, 64] for
-each case (KV heads, head size; by default 16 heads at D 64, 80 and 128, and
-qwen2.5-3b's 2 heads at D 128). For each case it prints, over the consumer
+attention at B = 4, Hq = 16 for each case (KV heads, head size and T, 1032
+where not given; lengths [T, T - 31, (T + 2) // 2, 64]: [1032, 1001, 517,
+64] at qwen2.5-3b's decode, [4128, 4097, 2065, 64] at recurrentgemma-9b's
+`1,256,4128`; by default 16 heads at D 64, 80 and 128, and qwen2.5-3b's 2
+heads at D 128). For each case it prints, over the consumer
 sets of all blocks (two sets a block), the mean and the largest cycles
 spent: waiting for a chunk to land (getfin), Q K^T on the tensor cores with
 the logits' exchange, the softmax and P V (and Q K^T on FMAs), the rest (the
@@ -42,7 +44,9 @@ PHASES = ("wait", "qk", "softmax_pv", "rest", "finish", "start", "segment")
 SLOTS = 12
 CHUNKS, SEGMENTS, TOTAL, FIRST, LAST = range(len(PHASES), SLOTS)
 
-# (text in csrc/paged_attention.cu, what replaces it)
+# (text in csrc/paged_attention.cu, what replaces it); a tuple of texts is
+# the forms of one place in trees from before and after a redesign, the
+# first found replaced by what the function makes of it
 EDITS = (
     ('#include "hopper.cuh"\n',
      '#include "hopper.cuh"\n\n'
@@ -82,13 +86,15 @@ EDITS = (
      "    ph_tick(0);\n"
      f"    if (ph_[{CHUNKS}]++ == 0) ph_[{FIRST}] = ph_t - ph_start;\n"
      f"    ph_[{LAST}] = ph_t - ph_start;\n"),
-    ("      set_sync(set);\n"
-     "      if (lane < n) sc = lg[hw * 32 + lane] * a.scale;\n"
-     "    }\n",
-     "      set_sync(set);\n"
-     "      if (lane < n) sc = lg[hw * 32 + lane] * a.scale;\n"
-     "    }\n"
-     "    ph_tick(1);\n"),
+    (("      set_sync(set);\n"
+      "      if (lane < n) sc = lg[hw * 32 + lane] * a.scale;\n"
+      "    }\n",
+      "      set_sync(set);\n"
+      "#pragma unroll\n"
+      "      for (int x = 0; x < HX; ++x)\n"
+      "        if (lane < n) sc[x] = lg[(hw + GC * x) * 32 + lane] * a.scale;\n"
+      "    }\n"),
+     lambda old: old + "    ph_tick(1);\n"),
     ("    __syncwarp();\n"
      "    if (lane == 0) mbar_arrive(&empty[j % a.slots]);  "
      "// this warp is past it\n",
@@ -135,6 +141,9 @@ def make_copy(src: str, label: str) -> str:
     with open(path) as f:
         text = f.read()
     for old, new in EDITS:
+        if isinstance(old, tuple):          # the form this tree has
+            old = next((o for o in old if o in text), old[0])
+            new = new(old)
         if text.count(old) != 1:
             raise AssertionError(f"paged_phases: {old!r} is not in "
                                  f"{path} exactly once")
@@ -188,12 +197,13 @@ def main() -> int:
         return 0
     hz = sm_hz()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    b, hq, t = cs.BATCH, 16, cs.PROMPT_LEN + cs.MAX_NEW
-    lens = torch.tensor([t, cs.PROMPT_LEN + 1, (t + 2) // 2, 64],
-                        dtype=torch.int32, device="cuda")
+    b, hq = cs.BATCH, 16
     results = []
     for case in args.case:
-        hkv, d = (int(x) for x in case.split(","))
+        hkv, d, *rest = (int(x) for x in case.split(","))
+        t = rest[0] if rest else cs.PROMPT_LEN + cs.MAX_NEW
+        lens = torch.tensor([t, t - 31, (t + 2) // 2, 64], dtype=torch.int32,
+                            device="cuda")
         x = cs.paged_case(gen, b, hq, hkv, t, d, torch.bfloat16)
         cs.check_close(f"paged Hkv{hkv} D{d} (stamped copy)",
                        pa.paged_attention(*x, lens),
@@ -211,7 +221,8 @@ def main() -> int:
         total = sets[:, TOTAL]
         row = dict(case=f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} bf16",
                    body=pa.body_for(torch.bfloat16, d),
-                   products=pa.products_on(torch.bfloat16, torch.bfloat16, d),
+                   products=pa.products_on(torch.bfloat16, torch.bfloat16, d,
+                                           hq, hkv),
                    kernel_ms=ms, sm_mhz=hz / 1e6, sets=int(sets.shape[0]),
                    chunks_mean=float(sets[:, CHUNKS].mean()),
                    segments_mean=float(sets[:, SEGMENTS].mean()),

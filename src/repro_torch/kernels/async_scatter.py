@@ -18,8 +18,9 @@ source's `async_scatter_bucketed`), how the bucket pass tiles them, how
 many updates a slot of the apply kernel holds, and its grid: a block a
 64-update span of the bucketed stream, in the stream's order, or else a
 persistent K-slot ring. 8- and 16-bit integers, float8, and
-rows of no whole 4-byte words take the source's word path (a reduction or
-a CAS loop on each aligned word that holds part of a row).
+rows of no whole 4-byte words take the source's word path (a reduction, a
+returning add with a carry repair (16-bit integer add) or a CAS loop on
+each aligned word that holds part of a row).
 """
 from __future__ import annotations
 

@@ -71,10 +71,39 @@
 //   - xor: red.global.xor.b32 on the word: xor with 0 leaves a neighbour's
 //     byte alone, so this is exact and needs no CAS (8/16-bit rows of whole
 //     words run the int32 kernels on a view instead, as uint32 does);
-//   - int8 / int16 add (either sign): the L2 has no reduction that narrow,
-//     so a CAS loop on the word adds per byte / per half (__vadd4 /
-//     __vadd2, no carry between lanes of the word; adding 0 leaves a
-//     neighbour alone); exact in any order, wrapping as the reference;
+//   - int16 / uint16 add: a returning add of the word and a carry repair
+//     (`add16_rows`), no CAS. The L2 has no 16-bit integer reduction, but
+//     its 32-bit add sums both halves at once but for one carry, out of the
+//     low half into the high one. So each aligned word that holds part of
+//     the row changes by one of three rules:
+//       both halves in the row: one atom.global.add.u32 of w = hi << 16 |
+//         lo, its old value kept; when c = ((old & 0xffff) + lo) >> 16 is
+//         1, one red.global.add.u32 of 0xffff0000 follows, which takes the
+//         carry out of the high half again;
+//       only the high half in the row: a plain red.global.add.u32 of
+//         hi << 16 (the carry out of bit 31 falls away: the int16 wrap);
+//       only the low half in the row (rows of an odd element count): the
+//         atom and repair of the first rule with 0 in the high half, so the
+//         neighbour comes out bit for bit.
+//     Exact in any order: no operation ever adds anything into the low
+//     half but the rows' own lo, so the low half that an atom returns is
+//     its true running sum (mod 2^16) and each computed carry is the true
+//     one; the word ends as init + sum(w) - 2^16 sum(c) (mod 2^32), which
+//     is the lane-wise wrapping sum, whenever each repair lands. A lane's
+//     atoms are independent, so it issues ADD16_BATCH of them (over its
+//     words and updates) before it reads any return and sends the repairs
+//     after: issue early, wait late, where the CAS loop waited on a load
+//     and a CAS round trip (and a retry on every lost race) for each word,
+//     one word after the other;
+//   - int8 add (either sign): a CAS loop on the word adds per byte
+//     (__vadd4, no carry between lanes of the word; adding 0 leaves a
+//     neighbour alone); exact in any order, wrapping as the reference. The
+//     16-bit rule does not carry over: a byte's carry lands in the next
+//     byte, whose own carry another update may compute before the repair
+//     lands. Bytes [0xff, 0xff, 0, 0]; A adds 1 to byte 0, B adds 1 to byte
+//     1; A's atom (the word reads [0, 0, 1, 0]), B's atom (B sees byte 1 at
+//     0, so no carry), A's repair of its one carry: [0, 0, 1, 0], where the
+//     lane-wise sum is [0, 0, 0, 0];
 //   - fp8 add: the same CAS loop, each of the row's bytes widened to fp32,
 //     added and rounded back without saturation (`to_fp8`) at every add,
 //     in the order the CAS loops win; a neighbour's byte is kept as it is
@@ -177,6 +206,20 @@ __device__ __forceinline__ void red_add1(unsigned char* p, uint32_t v) {
                  : "memory");
 }
 
+__device__ __forceinline__ void red_add(uint32_t* p, uint32_t v) {
+  asm volatile("red.global.add.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// *p += v at L2, returning the word before.
+__device__ __forceinline__ uint32_t atom_add(uint32_t* p, uint32_t v) {
+  uint32_t old;
+  asm volatile("atom.global.add.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
 // *p = f(*p) by compare-and-swap, whatever else lands on the word meanwhile.
 template <typename F>
 __device__ __forceinline__ void cas_word(uint32_t* p, F f) {
@@ -237,8 +280,8 @@ __device__ __forceinline__ void reduce_chunk(unsigned char* dst,
 
 // The word path's astore of one aligned word of the table: w holds the
 // update's bytes of it (zero elsewhere), `inside` 0xff in each byte of the
-// row. E: uint8_t (int8, uint8), uint16_t (int16, uint16), bf16, f16, fp8;
-// any for xor.
+// row. E: uint8_t (int8, uint8), bf16, f16, fp8; any for xor. (The 16-bit
+// integer add: `add16_rows`.)
 template <int OP, typename E>
 __device__ __forceinline__ void reduce_word(uint32_t* dst, uint32_t w,
                                             uint32_t inside) {
@@ -263,11 +306,84 @@ __device__ __forceinline__ void reduce_word(uint32_t* dst, uint32_t w,
     }
   } else if constexpr (is_fp8<E>) {
     cas_word(dst, [&](uint32_t old) { return add_fp8<E>(old, w, inside); });
-  } else if constexpr (sizeof(E) == 1) {
-    cas_word(dst, [&](uint32_t old) { return __vadd4(old, w); });
   } else {
-    static_assert(sizeof(E) == 2, "the word path adds 8- or 16-bit lanes");
-    cas_word(dst, [&](uint32_t old) { return __vadd2(old, w); });
+    static_assert(sizeof(E) == 1, "the word path's CAS loop adds bytes");
+    cas_word(dst, [&](uint32_t old) { return __vadd4(old, w); });
+  }
+}
+
+// The update's bytes of the row's k-th aligned word (zero elsewhere) and
+// `inside`, 0xff in each byte of the row; lead: the row's first byte in its
+// word.
+__device__ __forceinline__ void row_word(const unsigned char* src, int R,
+                                         int lead, int k, uint32_t& w,
+                                         uint32_t& inside) {
+  w = 0;
+  inside = 0;
+  if ((R & 3) == 0) {                        // whole words (lead is 0)
+    w = reinterpret_cast<const uint32_t*>(src)[k];
+    inside = 0xffffffffu;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int o = k * 4 + i - lead;          // the byte's place in the row
+    if (o >= 0 && o < R) {
+      w |= (uint32_t)src[o] << (8 * i);
+      inside |= 0xffu << (8 * i);
+    }
+  }
+}
+
+__device__ __forceinline__ void check_row(int row, long long N) {
+  if ((unsigned long long)(long long)row >= (unsigned long long)N) __trap();
+}
+
+// Words of a batch of the 16-bit integer add that a lane issues before it
+// reads a return (the note at the top).
+constexpr int ADD16_BATCH = 8;
+
+// The 16-bit integer add (int16, uint16) of n update rows of R bytes, the
+// rows `rows[u]` of the table, from src (u * R on), lanes sub, sub + L, ...
+// of group g of G: the lane's words of updates g, g + G, ... in batches of
+// ADD16_BATCH returning adds, each batch's carry repairs after it (the note
+// at the top).
+__device__ __forceinline__ void add16_rows(unsigned char* table,
+                                           const int* rows,
+                                           const unsigned char* src, int n,
+                                           int R, int g, int G, int sub,
+                                           int L, long long N) {
+  int u = g, k = sub;                        // the next update and word
+  while (u < n) {
+    uint32_t* p[ADD16_BATCH];
+    uint32_t old[ADD16_BATCH], lo[ADD16_BATCH];
+#pragma unroll
+    for (int i = 0; i < ADD16_BATCH; ++i) {
+      lo[i] = 0;                             // no repair
+      if (u >= n) continue;
+      const int row = rows[u];
+      check_row(row, N);
+      const long long at = (long long)row * R;
+      const int lead = (int)(at & 3);
+      uint32_t w, inside;
+      row_word(src + (size_t)u * R, R, lead, k, w, inside);
+      p[i] = reinterpret_cast<uint32_t*>(table + (at - lead)) + k;
+      if (inside == 0xffff0000u) {           // the high half alone
+        red_add(p[i], w);
+      } else {                               // the low half in the row
+        old[i] = atom_add(p[i], w);
+        lo[i] = w & 0xffffu;
+      }
+      k += L;
+      if (k >= (lead + R + 3) >> 2) {        // the row's words are done
+        k = sub;
+        u += G;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < ADD16_BATCH; ++i)     // the carries out of the low half
+      if (lo[i] && (old[i] & 0xffffu) + lo[i] > 0xffffu)
+        red_add(p[i], 0xffff0000u);
   }
 }
 
@@ -283,30 +399,14 @@ __device__ __forceinline__ void reduce_row(unsigned char* table, long long at,
     uint32_t* words = reinterpret_cast<uint32_t*>(table + (at - lead));
     const int nw = (lead + R + 3) >> 2;
     for (int k = sub; k < nw; k += L) {
-      uint32_t w = 0, inside = 0;
-      if ((R & 3) == 0) {                    // whole words (lead is 0)
-        w = reinterpret_cast<const uint32_t*>(src)[k];
-        inside = 0xffffffffu;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int o = k * 4 + i - lead;    // the byte's place in the row
-          if (o >= 0 && o < R) {
-            w |= (uint32_t)src[o] << (8 * i);
-            inside |= 0xffu << (8 * i);
-          }
-        }
-      }
+      uint32_t w, inside;
+      row_word(src, R, lead, k, w, inside);
       reduce_word<OP, E>(words + k, w, inside);
     }
   } else {
     for (int k = sub; k < R / W; k += L)
       reduce_chunk<W, OP, E>(table + at + k * W, src + k * W);
   }
-}
-
-__device__ __forceinline__ void check_row(int row, long long N) {
-  if ((unsigned long long)(long long)row >= (unsigned long long)N) __trap();
 }
 
 // ------------------------------------------------------------ apply kernel
@@ -380,13 +480,22 @@ scatter_apply_kernel(unsigned char* __restrict__ table,
   }
 
   // consumers: groups of L lanes share an update row, W bytes a reduction
+  // (the 16-bit integer add: `add16_rows`)
+  constexpr bool ADD16 =
+      W == 1 && OP == OP_ADD && std::is_same_v<E, uint16_t>;
   const int c = threadIdx.x - 32;
   const int G = consumers * 32 / L, g = c / L, sub = c % L;
   if (blockIdx.x == 0) {               // the last M mod unit, from global
-    for (long long j = M4 + g; j < M; j += G) {
-      const int row = idx[j];
-      check_row(row, N);
-      reduce_row<W, OP, E>(table, (long long)row * R, upd + j * R, R, sub, L);
+    if constexpr (ADD16) {
+      add16_rows(table, idx + M4, upd + M4 * R, (int)(M - M4), R, g, G, sub,
+                 L, N);
+    } else {
+      for (long long j = M4 + g; j < M; j += G) {
+        const int row = idx[j];
+        check_row(row, N);
+        reduce_row<W, OP, E>(table, (long long)row * R, upd + j * R, R, sub,
+                             L);
+      }
     }
   }
   for (int t = 0;; ++t) {
@@ -398,11 +507,15 @@ scatter_apply_kernel(unsigned char* __restrict__ table,
     const unsigned char* slot = slots + (size_t)s * lay.slot;
     const int* sidx = reinterpret_cast<const int*>(slot);
     const unsigned char* rows = slot + lay.rows;
-    for (int u = g; u < n; u += G) {
-      const int row = sidx[u];
-      check_row(row, N);
-      reduce_row<W, OP, E>(table, (long long)row * R, rows + (size_t)u * R,
-                           R, sub, L);
+    if constexpr (ADD16) {
+      add16_rows(table, sidx, rows, n, R, g, G, sub, L, N);
+    } else {
+      for (int u = g; u < n; u += G) {
+        const int row = sidx[u];
+        check_row(row, N);
+        reduce_row<W, OP, E>(table, (long long)row * R, rows + (size_t)u * R,
+                             R, sub, L);
+      }
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);          // the slot may refill

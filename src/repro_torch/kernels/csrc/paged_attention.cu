@@ -32,8 +32,9 @@
 //     the lengths into prefix sums in shared memory, lays the valid rows of
 //     all segments end to end, W rows in all, and takes rows [i * ceil(W /
 //     blocks), (i + 1) * ceil(W / blocks)). A segment is (b, KV head, group
-//     of up to 8 query heads), or, below 8 query heads a KV head, (b, run of
-//     KV heads): see "Segments of several KV heads" below. So the blocks
+//     of up to 8 query heads; of 16 on the tensor cores above 8: see "Two
+//     query heads a warp" below), or, below 8 query heads a KV head, (b, run
+//     of KV heads): see "Segments of several KV heads" below. So the blocks
 //     share the valid rows evenly, a block may span segments and a segment
 //     blocks, and no block walks a masked row. The host plans only the grid
 //     from T, B, Hkv and the card (`locate`, `block_chunks` and `pieces` in
@@ -51,9 +52,9 @@
 //   - two sets of 8 consumer warps take the chunks in turn (even, odd), each
 //     with its own (m, l, acc), handed over through shared memory at the
 //     end of a segment; warp w of a set owns query head w of a group of up
-//     to 8 (G > 8 takes several groups; G < 8, several KV heads) for the
-//     softmax, a lane a row of the chunk, so a chunk's max and sum take 10
-//     shuffles a head;
+//     to 8 (and w + 8 of a group of 16: G > 8 on the tensor cores; G < 8,
+//     several KV heads) for the softmax, a lane a row of the chunk, so a
+//     chunk's max and sum take 10 shuffles a head;
 //   - bf16 and f16 at D = 64 to 256 (`tensor_core_qk`): Q K^T by mma.sync
 //     m16n8k16, K rows as A (ldmatrix from the 128-byte swizzled boxes, so 8
 //     rows are read without bank conflicts), the group's 8 queries as B in
@@ -167,6 +168,42 @@
 // first query loads go before the ring's (a barrier the producer waited on)
 // slower still.
 //
+// Two query heads a warp (HX 2, `group_heads`): above 8 query heads a KV
+// head (recurrentgemma-9b: 16 over one) a segment of 8 query heads walked
+// every valid row of its KV head once for each group, so each K and V row
+// went through the ring twice, the split spread twice the rows over the
+// blocks, and twice the partials were merged. So where the products run on
+// the tensor cores (`products`: 16-bit caches under their own q, fp8 caches
+// under a 16-bit or fp8 q, TMA rows) at Dp 256 a segment serves 16 query
+// heads of one KV head (G = 12: 12 of them, the last four masked; G = 32:
+// two groups of 16): each row enters the ring once for all of them. (At Dp
+// 64 and 128 the same body measured 3-10% slower than two groups of 8 at
+// B4 Hq16 Hkv1 T4128, its partials' merge costing more than the rows it
+// saves, so those keep segments of 8; PERF.md.)
+// The mma shapes take the second 8 heads at little cost: Q K^T puts the 16
+// queries in two n8 tiles against the same K A fragments (a warp of rows 0
+// to 15 or 16 to 31 issues two mma.sync a k-step where one took one), and P
+// V, whose A rows 8 to 15 were zeros at 8 heads, now holds P of heads 8 to
+// 15 there (the same mma count). q is staged once a segment in the set's
+// `tacc`, [16][D + QPAD] 16-bit, and read a k-step at a time by one
+// ldmatrix.x4 that gives both tiles' B fragments (fp8 caches: each 16
+// columns stored in the A fragments' k order), where the 8-head body holds
+// its D / 8 fragment registers for the segment; at D = 256 the 16 heads'
+// would be 64 registers. Warp w of a set takes the softmax of heads w and w
+// + 8 and their (m, l, acc); a partial holds HS = 16 heads. One segment a
+// KV head spreads over twice the blocks of a group of 8 (recurrentgemma's
+// 4128 rows: 53 of 132), and a partial is twice the bytes, so the last
+// block's merge read 4x what it read at 8 heads: per-block timestamps
+// (`paged_phases.py`, PERF.md) showed it taking most of the launch. So the
+// blocks of a segment merge in two levels: the last of each group of
+// MERGE_GROUP (8) consecutive blocks merges the group's partials into the
+// group's first (a ticket a group), and the last of those mergers merges
+// the groups' into out (the segment's ticket); in both, set s takes heads
+// 8 s to 8 s + 7 over all the pieces (no hand-over between the sets), and
+// the partials at D = 256 are read by 16-byte loads (`ldcg_vec`). The
+// segment's first q loads issued before the ring's (a barrier the producer
+// waited on) measured slower, as they did for segments of several KV heads.
+//
 // What the design steps measured (H100, `kernel_bench.py` and timestamps
 // per block; PERF.md): one cp.async.bulk a row issued by the consumers cost
 // ~5 us a chunk; with TMA boxes and a producer warp the arithmetic on FMAs
@@ -187,10 +224,18 @@ using namespace repro::hopper;
 constexpr int GC = 8;            // query heads a block serves, a warp each
 constexpr int MAX_SLOTS = 8;     // slots a ring: 256 rows in flight a block
 constexpr int NSET = 2;          // sets of GC warps, taking chunks in turn
+constexpr int MERGE_GROUP = 8;   // blocks a first-level merge (HX 2)
 constexpr int NT = NSET * GC * 32;   // consumer threads; one producer warp
 constexpr int PSTR = 40;         // bf16 row stride of P: conflict-free reads
-// floats of one exchange buffer: logits, P hi and lo, alpha
-constexpr int XCH_FLOATS = GC * 32 + GC * PSTR + GC;
+// floats of one exchange buffer of a set serving HS query heads: logits, P
+// hi and lo, alpha
+__host__ __device__ constexpr int xch_floats(int HS) {
+  return HS * 32 + HS * PSTR + HS;
+}
+// q's row stride, in 16-bit elements, where a set stages it for ldmatrix
+// (HX 2): D + 8, so that the 8 rows an ldmatrix reads sit 16 bytes apart
+// modulo 128 and no two share a bank
+constexpr int QPAD = 8;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
@@ -199,8 +244,9 @@ struct Args {
   const void* v;
   const int* lengths;
   void* out;
-  float* part;                   // [pieces][GC m, GC l, GC x D acc]
-  int* tickets;                  // [segments], zero between launches
+  float* part;                   // [pieces][HS m, HS l, HS x D acc]
+  int* tickets;                  // [segments x (1 + groups)], zero between
+                                 // launches (groups: `ngroups`)
   int B, Hq, Hkv, T, G, ngc, rows, slots;
   int dh;                        // the real head size, <= D (see the note)
   int npk;                       // the wide body's K pieces of D columns
@@ -209,6 +255,7 @@ struct Args {
   int e5m2;                      // fp8 caches (fp8_any): e5m2, else e4m3fn
   int qt;                        // q's and out's DType where EQ is q_as<M>
   int heads;                     // KV heads a segment (`kv_run`; HEADS: > 1)
+  int hx;                        // query heads a warp (`group_heads` / GC)
 };
 
 // fp8 caches of either kind are one load type, the kind an argument
@@ -410,10 +457,18 @@ __device__ __forceinline__ void transpose_sum(float (&part)[32], int lane) {
 }
 
 // N floats from L2 (ld.global.cg: the partials of other blocks, never a line
-// this SM's L1 may hold from an earlier read), as one vector where N is 2 or 4.
+// this SM's L1 may hold from an earlier read), as one vector where N is 2 or
+// 4, as two where N is 8 (D = 256: eight 4-byte loads a lane 32 bytes apart
+// took 8 sectors of L2 an instruction where one is needed, and the merge of
+// 16 heads' partials ran at a fraction of the L2's rate; PERF.md).
 template <int N>
 __device__ __forceinline__ void ldcg_vec(const float* p, float (&x)[N]) {
-  if constexpr (N == 4) {
+  if constexpr (N == 8) {
+    const float4 u = __ldcg(reinterpret_cast<const float4*>(p));
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(p) + 1);
+    x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+    x[4] = v.x; x[5] = v.y; x[6] = v.z; x[7] = v.w;
+  } else if constexpr (N == 4) {
     const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
     x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
   } else if constexpr (N == 2) {
@@ -422,6 +477,19 @@ __device__ __forceinline__ void ldcg_vec(const float* p, float (&x)[N]) {
   } else {
 #pragma unroll
     for (int e = 0; e < N; ++e) x[e] = __ldcg(p + e);
+  }
+}
+
+// x to p[0, N): two 16-byte stores where N is 8 (the partials at D = 256,
+// as `ldcg_vec` reads them), else one a float.
+template <int N>
+__device__ __forceinline__ void st_vec(float* p, const float (&x)[N]) {
+  if constexpr (N == 8) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) p[e] = x[e];
   }
 }
 
@@ -476,9 +544,11 @@ template <> struct Pair2<__half> { using type = __half2; };
 // A block's shared memory, in bytes from its start: the kernel carves it
 // and the launch sizes it from this one function. Two mbarriers a slot
 // (loaded, released); the B + 1 prefix sums of the lengths; `comb`, set 1's
-// (m, l, acc) of each head handed to set 0 at a segment's end; `tacc`, a
-// set's accumulators in rows of heads (TC); `xch`, two exchange buffers a
-// set (XCH_FLOATS each); then, from `ring` on the first 1024-byte boundary,
+// (m, l, acc) of a warp's head handed to set 0 at a segment's end; `tacc`,
+// a set's accumulators in rows of its HS = GC x HX query heads (TC; at HX
+// 2 also the segment's q in 16 bits, [HS][D + QPAD]); `xch`, two exchange
+// buffers a set (xch_floats(HS) each); then, from `ring` on the first
+// 1024-byte boundary,
 // the slots: K then V, each D / box_cols boxes of `rows` rows, a box
 // rounded up to 1024 bytes as the TMA swizzle wants. The wide body's slot
 // holds npk such K halves (all of a row's columns) and one V half (its
@@ -492,18 +562,21 @@ struct PagedSmem {
 // HEADS (a segment of `heads` KV heads): a half is one box of `rows` rows
 // of all those heads' dh columns, [rows][heads][dh] unpadded and
 // unswizzled, rounded up to 128 bytes.
-template <typename E, int D, bool WIDE = false, bool HEADS = false>
+template <typename E, int D, bool WIDE = false, bool HEADS = false,
+          int HX = 1>
 __host__ __device__ PagedSmem paged_smem(int B, int rows, int slots,
                                          int npk = 1, int heads = 1,
                                          int dh = D) {
   constexpr int IN = box_cols<E, D>();
   constexpr int ALIGN = WIDE ? 128 : 1024;
+  constexpr int HS = GC * HX;
+  static_assert(HX == 1 || 2 * (D + QPAD) <= 4 * D, "q fits in tacc");
   PagedSmem m;
   m.P = round16(2 * slots * 8);
   m.comb = m.P + round16((B + 1) * 8);
   m.tacc = m.comb + 4 * GC * (D + 2);
-  m.xch = m.tacc + 4 * NSET * GC * D;
-  m.ring = m.xch + 4 * NSET * 2 * XCH_FLOATS;
+  m.xch = m.tacc + 4 * NSET * HS * D;
+  m.ring = m.xch + 4 * NSET * 2 * xch_floats(HS);
   if constexpr (HEADS) {
     m.box = (rows * heads * dh * (int)sizeof(E) + 127) & ~127;
     m.slot = 2 * m.box;
@@ -517,11 +590,12 @@ __host__ __device__ PagedSmem paged_smem(int B, int rows, int slots,
 
 // The deepest ring of at most MAX_SLOTS slots whose block fits in MAX_SMEM
 // (one block an SM), and its bytes; 0 slots where none fits.
-template <typename E, int D, bool WIDE = false, bool HEADS = false>
+template <typename E, int D, bool WIDE = false, bool HEADS = false,
+          int HX = 1>
 int ring_slots(int B, int rows, int npk, int* smem, int heads = 1,
                int dh = D) {
   for (int slots = MAX_SLOTS; slots >= 1; --slots) {
-    *smem = paged_smem<E, D, WIDE, HEADS>(B, rows, slots, npk, heads, dh)
+    *smem = paged_smem<E, D, WIDE, HEADS, HX>(B, rows, slots, npk, heads, dh)
                 .bytes;
     if (*smem <= MAX_SMEM) return slots;
   }
@@ -584,9 +658,10 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
 // another: a.qt); WIDE:
 // the chunk of D = WIDE_DC columns [c0, c0 + D) of a head of a.npk * D
 // columns (the note at the top); HEADS: a segment is a.heads KV heads of a
-// sequence (the note at the top).
+// sequence (the note at the top); HX: query heads a warp, 2 where a segment
+// serves 16 of one KV head (the note at the top).
 template <typename E, typename EQ, int D, bool EXACT, bool TMA, bool WIDE,
-          bool HEADS = false>
+          bool HEADS = false, int HX = 1>
 __global__ void __launch_bounds__(NT + 32)
 paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap) {
@@ -598,19 +673,22 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   constexpr bool TC = TMA && !HEADS && tensor_core_qk<E, EQ, D, WIDE>();
   constexpr bool F8 = std::is_same_v<E, fp8_any>;
   using M = std::conditional_t<F8, typename QType<EQ>::mma, E>;  // TC's type
+  static_assert(HX == 1 || (TC && HX == 2), "two heads a warp: mma only");
+  constexpr int HS = GC * HX;                // query heads a segment serves
   constexpr int ROWB = IN * ITEM;            // bytes of a box's row
   const int Dh = EXACT ? D : a.dh;           // columns of q and out
   const int c0 = WIDE ? blockIdx.y * D : 0;  // the chunk's first column
   extern __shared__ __align__(1024) unsigned char smem[];
   const PagedSmem L =
-      paged_smem<E, D, WIDE, HEADS>(a.B, a.rows, a.slots, a.npk, a.heads, a.dh);
+      paged_smem<E, D, WIDE, HEADS, HX>(a.B, a.rows, a.slots, a.npk, a.heads,
+                                        a.dh);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // a slot loaded
   uint64_t* empty = full + a.slots;                     // a slot released
   long long* P = reinterpret_cast<long long*>(smem + L.P);
   float* comb = reinterpret_cast<float*>(smem + L.comb);
   float* tacc = reinterpret_cast<float*>(smem + L.tacc);
   // a chunk's exchange between a set's warps (TC), two buffers a set: the
-  // logits [GC][32] and P in two bf16 parts [GC][PSTR] (p = hi + lo, so that
+  // logits [HS][32] and P in two bf16 parts [HS][PSTR] (p = hi + lo, so that
   // P V on the tensor cores keeps fp32 accuracy), and each head's alpha
   float* xch = reinterpret_cast<float*>(smem + L.xch);
   unsigned char* slots = reinterpret_cast<unsigned char*>(
@@ -652,9 +730,14 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   const int S = a.B * hg;
   // a wide chunk's own partials and tickets
   float* const parts = a.part + (WIDE ? (size_t)blockIdx.y *
-                                           (gridDim.x + S) * GC * (D + 2)
+                                           (gridDim.x + S) * HS * (D + 2)
                                      : 0);
-  int* const tickets = a.tickets + (WIDE ? blockIdx.y * S : 0);
+  // its segments' tickets, then (HX 2) a ticket a group of MERGE_GROUP
+  // blocks of each segment
+  const int ngroups = (gridDim.x + MERGE_GROUP - 1) / MERGE_GROUP;
+  int* const tickets =
+      a.tickets + (WIDE ? (size_t)blockIdx.y * S * (1 + ngroups) : 0);
+  int* const gtickets = tickets + S;
 
   if (tid < a.slots) {
     mbar_init(&full[tid], TMA ? 1 : 32);     // TMA's one, or the 32 lanes
@@ -693,8 +776,8 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       gn = a.heads * a.G;
     } else {
       h = j / a.ngc;
-      g0 = (j % a.ngc) * GC;
-      gn = min(GC, a.G - g0);
+      g0 = (j % a.ngc) * HS;
+      gn = min(HS, a.G - g0);
     }
   };
   // the first element of query head g0 + g of (b, h) in q and in out
@@ -846,8 +929,9 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   }
 
   const int d0 = lane * EPL;
-  float m = NEG_INF, l = 0.f, acc[EPL], qr[EPL];
-  uint32_t qb[TC ? D / 16 : 1][2];           // Q as mma B fragments (TC)
+  // a warp's query heads: hw of the segment's group and, at HX 2, hw + GC
+  float m[HX], l[HX], acc[HX][EPL], qr[EPL];
+  uint32_t qb[TC && HX == 1 ? D / 16 : 1][2];  // Q as mma B fragments (TC)
   constexpr int NCOL = D / GC;               // P V columns a warp (TC)
   // fp8: a warp's columns are whole 16-byte rows of ldmatrix, so at D = 64
   // the first 4 warps take 16 columns each
@@ -856,11 +940,14 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   constexpr int NTW = TC ? PVC / 8 : 1;      // a warp's mma n-tiles
   float cacc[NTW][4];                        // its P V accumulators (TC)
   int cur = -1, b = 0, h = 0, g0 = 0, gn = 0;
+  // HX 2: the segment's q in M, [HS][D + QPAD], in the set's tacc
+  const M* const q16 = reinterpret_cast<const M*>(tacc + set * HS * D);
 
-  // set 1's (m, l, acc) of each head into set 0's, through shared memory
-  auto hand_over = [&](float& m_, float& l_, float (&acc_)[EPL]) {
+  // set 1's (m, l, acc) of query head qh (this warp's) into set 0's, through
+  // shared memory
+  auto hand_over = [&](float& m_, float& l_, float (&acc_)[EPL], int qh) {
     float* c = comb + hw * (D + 2);
-    if (set == 1 && hw < gn) {
+    if (set == 1 && qh < gn) {
       if (lane == 0) {
         c[0] = m_;
         c[1] = l_;
@@ -871,7 +958,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       }
     }
     consumers_sync();
-    if (set == 0 && hw < gn) {
+    if (set == 0 && qh < gn) {
       const float m1 = c[0], mx = fmaxf(m_, m1);
       const float w0 = expf(m_ - mx), w1 = expf(m1 - mx);
       l_ = l_ * w0 + c[1] * w1;
@@ -888,131 +975,204 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   // the block's share of segment `cur` is done: write it or merge it
   auto finish = [&]() {
     if constexpr (TC) {          // the set's accumulators to rows of heads
-      float* ta = tacc + set * GC * D;
+      float* ta = tacc + set * HS * D;
       const int gq = lane >> 2, tq = lane & 3;
       if (!F8 || hw < PVW) {          // (every warp but fp8's at D = 64)
 #pragma unroll
         for (int nt = 0; nt < NTW; ++nt) {
-          if constexpr (F8) {   // n-tile nt: columns of parity nt % 2 (P V)
-            const int col = hw * PVC + 16 * (nt >> 1) + 4 * tq + (nt & 1);
-            ta[gq * D + col] = cacc[nt][0];
-            ta[gq * D + col + 2] = cacc[nt][1];
-          } else {
-            const int col = hw * NCOL + nt * 8 + 2 * tq;
-            ta[gq * D + col] = cacc[nt][0];
-            ta[gq * D + col + 1] = cacc[nt][1];
+#pragma unroll
+          for (int x = 0; x < HX; ++x) {     // rows gq and (HX 2) gq + 8
+            float* tr = ta + (gq + 8 * x) * D;
+            if constexpr (F8) {   // n-tile nt: columns of parity nt % 2 (P V)
+              const int col = hw * PVC + 16 * (nt >> 1) + 4 * tq + (nt & 1);
+              tr[col] = cacc[nt][2 * x];
+              tr[col + 2] = cacc[nt][2 * x + 1];
+            } else {
+              const int col = hw * NCOL + nt * 8 + 2 * tq;
+              tr[col] = cacc[nt][2 * x];
+              tr[col + 1] = cacc[nt][2 * x + 1];
+            }
           }
         }
       }
       set_sync(set);
-      if (d0 < D) {
+      if constexpr (HX == 1) {
+        if (d0 < D) {
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[e] = ta[hw * D + d0 + e];
+          for (int e = 0; e < EPL; ++e) acc[0][e] = ta[hw * D + d0 + e];
+        }
+        set_sync(set);
       }
-      set_sync(set);
     }
-    hand_over(m, l, acc);
+    // a warp's head x (hw + GC x) merged over the two sets, at HX 2 its
+    // accumulators read from the set's rows of heads first, so that one
+    // head's are live at a time (the rows stay until the next segment's q)
+    auto merged = [&](int x) {
+      if constexpr (TC && HX == 2) {
+        const float* ta = tacc + set * HS * D;
+        if (d0 < D) {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e)
+            acc[x][e] = ta[(hw + GC * x) * D + d0 + e];
+        }
+      }
+      hand_over(m[x], l[x], acc[x], hw + GC * x);
+    };
     const long long len = P[b + 1] - P[b];
     const long long start = P[b] * hg + (cur % hg) * len;
     const long long first = start / per;
     const int count = (int)((start + len - 1) / per - first + 1);
     if (count == 1) {                        // the block holds it alone
-      if (set == 0 && hw < gn && d0 < D) {
-        const long long o = out_at(b, h, g0, hw) + c0 + d0;
-        const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-        for (int e = 0; e < EPL; ++e)
-          if (EXACT || c0 + d0 + e < Dh) put(o + e, acc[e] * inv);
+      for (int x = 0; x < HX; ++x) {
+        merged(x);
+        if (set == 0 && hw + GC * x < gn && d0 < D) {
+          const long long o = out_at(b, h, g0, hw + GC * x) + c0 + d0;
+          const float inv = 1.f / fmaxf(l[x], 1e-30f);
+#pragma unroll
+          for (int e = 0; e < EPL; ++e)
+            if (EXACT || c0 + d0 + e < Dh) put(o + e, acc[x][e] * inv);
+        }
       }
       return;
     }
-    constexpr int STRIDE = GC * (D + 2);
+    constexpr int STRIDE = HS * (D + 2);
     const long long base = first + cur;      // the segment's partials
     float* mine = parts + (base + blockIdx.x - first) * STRIDE;
-    if (set == 0 && hw < gn) {
-      if (lane == 0) {
-        mine[hw] = m;
-        mine[GC + hw] = l;
-      }
-      if (d0 < D) {
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) mine[2 * GC + hw * D + d0 + e] = acc[e];
+    for (int x = 0; x < HX; ++x) {
+      const int qh = hw + GC * x;
+      merged(x);
+      if (set == 0 && qh < gn) {
+        if (lane == 0) {
+          mine[qh] = m[x];
+          mine[HS + qh] = l[x];
+        }
+        if (d0 < D) st_vec<EPL>(mine + 2 * HS + qh * D + d0, acc[x]);
       }
     }
+    // merges pieces m_lo + k m_st (k < m_n) of the workspace, lanes over
+    // them, into out or (dst) into one partial: at HX 1 each set half of
+    // them, a warp its head, the halves then handed over; at HX 2 set s the
+    // heads hw + GC s over all of them (no hand-over)
+    auto merge = [&](long long m_lo, int m_n, int m_st, float* dst) {
+      const int half = HX == 2 ? m_n : (m_n + 1) / 2;
+      const bool first_half = set == 0 || HX == 2;
+      const long long p_lo = m_lo + (long long)(first_half ? 0 : half) * m_st;
+      const int np_all = first_half ? half : m_n - half;
+      auto piece = [&](int p) {
+        return parts + (p_lo + (long long)p * m_st) * STRIDE;
+      };
+      {
+        const int qh = hw + (HX == 2 ? GC * set : 0);
+        float mx = NEG_INF, ls = 0.f, as[EPL];
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) as[e] = 0.f;
+        if (qh < gn) {
+          // partials a batch: at HX 1 4 (8 or 16 spill at D = 256); at HX 2
+          // (a warp's one head over all of a group's 8 or of the groups)
+          // 32 columns' worth, 4 to 8
+          constexpr int NB = HX == 2 ? (EPL >= 8 ? 4 : 8) : 4;
+          float xp[NB][EPL];                 // NB partials' columns
+          auto load_batch = [&](int p0) {
+#pragma unroll
+            for (int i = 0; i < NB; ++i) {
+              if (p0 + i < np_all && d0 < D) {
+                ldcg_vec<EPL>(piece(p0 + i) + 2 * HS + qh * D + d0, xp[i]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < EPL; ++e) xp[i][e] = 0.f;
+              }
+            }
+          };
+          load_batch(0);                     // in flight with (m, l) below
+          float pm[2], pl[2];                // pieces lane and lane + 32
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int p = lane + 32 * r;
+            pm[r] = p < np_all ? __ldcg(piece(p) + qh) : NEG_INF;
+            pl[r] = p < np_all ? __ldcg(piece(p) + HS + qh) : 0.f;
+          }
+          for (int p = lane + 64; p < np_all; p += 32)
+            mx = fmaxf(mx, __ldcg(piece(p) + qh));
+          mx = warp_max(fmaxf(mx, fmaxf(pm[0], pm[1])));
+          float w = 0.f;                     // the weight of piece p0 + lane
+          for (int p0 = 0; p0 < np_all; p0 += NB) {
+            if (p0 % 32 == 0) {
+              const int p = p0 + lane;
+              const float m_p = p0 < 64 ? pm[p0 >> 5]
+                                        : (p < np_all ? __ldcg(piece(p) + qh)
+                                                      : NEG_INF);
+              const float l_p = p0 < 64 ? pl[p0 >> 5]
+                                        : (p < np_all
+                                               ? __ldcg(piece(p) + HS + qh)
+                                               : 0.f);
+              w = p < np_all ? expf(m_p - mx) : 0.f;
+              ls = fmaf(l_p, w, ls);
+            }
+            if (p0 > 0) load_batch(p0);
+#pragma unroll
+            for (int i = 0; i < NB; ++i) {   // xp is 0 past the last piece
+              const float wi = __shfl_sync(FULL, w, (p0 % 32) + i);
+#pragma unroll
+              for (int e = 0; e < EPL; ++e) as[e] = fmaf(xp[i][e], wi, as[e]);
+            }
+          }
+          ls = warp_sum(ls);
+        }
+        if constexpr (HX == 1) hand_over(mx, ls, as, qh);
+        if (first_half && qh < gn && d0 < D) {
+          if (dst) {                         // a partial: (m, l, acc)
+            if (lane == 0) {
+              dst[qh] = mx;
+              dst[HS + qh] = ls;
+            }
+            st_vec<EPL>(dst + 2 * HS + qh * D + d0, as);
+          } else {
+            const long long o = out_at(b, h, g0, qh) + c0 + d0;
+            const float inv = 1.f / fmaxf(ls, 1e-30f);
+#pragma unroll
+            for (int e = 0; e < EPL; ++e)
+              if (EXACT || c0 + d0 + e < Dh) put(o + e, as[e] * inv);
+          }
+        }
+      }
+    };
     // the block's partial is written: one acq_rel ticket publishes it
     // (release, cumulative over the barrier) and lets the last block see
     // every other's (acquire); the last resets it for the next call
     consumers_sync();
+    long long m_lo = base;                   // the pieces the last one merges
+    int m_n = count, m_st = 1;
     int last = 0;
+    if constexpr (HX == 2) {
+      // 16 heads a partial: a segment's blocks in groups of MERGE_GROUP, the
+      // last of a group merging its pieces into the group's first, the last
+      // group's merger the groups' into out (the note at the top)
+      if (count > MERGE_GROUP) {
+        const int grp = (int)(blockIdx.x - first) / MERGE_GROUP;
+        const int gsize = min(MERGE_GROUP, count - grp * MERGE_GROUP);
+        int* const gt = gtickets + (size_t)cur * ngroups + grp;
+        if (tid == 0) {
+          last = ticket_acq_rel(gt) == gsize - 1;
+          if (last) atomicExch(gt, 0);
+        }
+        if (!consumers_or(last)) return;
+        m_lo = base + (long long)grp * MERGE_GROUP;
+        merge(m_lo, gsize, 1, parts + m_lo * STRIDE);
+        consumers_sync();                    // the group's partial is written
+        m_lo = base;
+        m_n = (count + MERGE_GROUP - 1) / MERGE_GROUP;
+        m_st = MERGE_GROUP;
+        last = 0;
+      }
+    }
     if (tid == 0) {
-      last = ticket_acq_rel(&tickets[cur]) == count - 1;
+      last = ticket_acq_rel(&tickets[cur]) == m_n - 1;
       if (last) atomicExch(&tickets[cur], 0);
     }
     if (!consumers_or(last)) return;
-    // the last block merges: each set half of the partials, lanes over them
-    const int half = (count + 1) / 2;
-    const long long p_lo = base + (set == 0 ? 0 : half);
-    const int np_all = set == 0 ? half : count - half;
-    auto piece = [&](int p) { return parts + (p_lo + p) * STRIDE; };
-    float mx = NEG_INF, ls = 0.f, as[EPL];
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) as[e] = 0.f;
-    if (hw < gn) {
-      constexpr int NB = 4;      // partials a batch (at 8 or 16 registers spill)
-      float x[NB][EPL];                      // NB partials' columns
-      auto load_batch = [&](int p0) {
-#pragma unroll
-        for (int i = 0; i < NB; ++i) {
-          if (p0 + i < np_all && d0 < D) {
-            ldcg_vec<EPL>(piece(p0 + i) + 2 * GC + hw * D + d0, x[i]);
-          } else {
-#pragma unroll
-            for (int e = 0; e < EPL; ++e) x[i][e] = 0.f;
-          }
-        }
-      };
-      load_batch(0);                         // in flight with (m, l) below
-      float pm[2], pl[2];                    // pieces lane and lane + 32
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int p = lane + 32 * r;
-        pm[r] = p < np_all ? __ldcg(piece(p) + hw) : NEG_INF;
-        pl[r] = p < np_all ? __ldcg(piece(p) + GC + hw) : 0.f;
-      }
-      for (int p = lane + 64; p < np_all; p += 32)
-        mx = fmaxf(mx, __ldcg(piece(p) + hw));
-      mx = warp_max(fmaxf(mx, fmaxf(pm[0], pm[1])));
-      float w = 0.f;                         // the weight of piece p0 + lane
-      for (int p0 = 0; p0 < np_all; p0 += NB) {
-        if (p0 % 32 == 0) {
-          const int p = p0 + lane;
-          const float m_p = p0 < 64 ? pm[p0 >> 5]
-                                    : (p < np_all ? __ldcg(piece(p) + hw)
-                                                  : NEG_INF);
-          const float l_p = p0 < 64 ? pl[p0 >> 5]
-                                    : (p < np_all ? __ldcg(piece(p) + GC + hw)
-                                                  : 0.f);
-          w = p < np_all ? expf(m_p - mx) : 0.f;
-          ls = fmaf(l_p, w, ls);
-        }
-        if (p0 > 0) load_batch(p0);
-#pragma unroll
-        for (int i = 0; i < NB; ++i) {       // x is 0 past the last piece
-          const float wi = __shfl_sync(FULL, w, (p0 % 32) + i);
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) as[e] = fmaf(x[i][e], wi, as[e]);
-        }
-      }
-      ls = warp_sum(ls);
-    }
-    hand_over(mx, ls, as);
-    if (set == 0 && hw < gn && d0 < D) {
-      const long long o = out_at(b, h, g0, hw) + c0 + d0;
-      const float inv = 1.f / fmaxf(ls, 1e-30f);
-#pragma unroll
-      for (int e = 0; e < EPL; ++e)
-        if (EXACT || c0 + d0 + e < Dh) put(o + e, as[e] * inv);
-    }
+    merge(m_lo, m_n, m_st, nullptr);
   };
 
   long long g = lo;
@@ -1028,8 +1188,8 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       // (TC, q of a launch's type) the group's queries, columns past Dh and
       // heads past gn as zeros, staged in fp32 in the set's tacc by all its
       // threads, EPL loads in flight each, for the fragments below
-      float* const qs = tacc + set * GC * D;
-      if constexpr (TC && QType<EQ>::runtime) {
+      float* const qs = tacc + set * HS * D;
+      if constexpr (TC && QType<EQ>::runtime && HX == 1) {
         long long qi[EPL];
         bool ok[EPL];
         float qv[EPL];
@@ -1044,7 +1204,47 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         for (int e = 0; e < EPL; ++e) qs[hw * 32 + lane + e * GC * 32] = qv[e];
         set_sync(set);
       }
-      if constexpr (TC) if (hw < 2) {        // B fragments: the group's queries
+      if constexpr (TC && HX == 2) {
+        // the group's HS queries in M, [HS][D + QPAD], warp w of the set
+        // its heads w and w + GC, a lane EPL columns of each, columns past
+        // Dh and heads past gn as zeros; for fp8 caches in their k order
+        // (an A fragment's columns 4t .. 4t + 3 at 2t, 2t + 1, 2t + 8, 2t +
+        // 9): column 4t + r of each 16 at 2t + r (r < 2) or 8 + 2t + r - 2,
+        // so that one ldmatrix gives both n-tiles' B fragments of a k-step
+        M* const qw = reinterpret_cast<M*>(qs);
+#pragma unroll
+        for (int x = 0; x < HX; ++x) {
+          const int g = hw + GC * x;
+          float qv[EPL];
+          if (g < gn) {
+            const long long qh = q_at(b, h, g0, g) + d0;
+            if constexpr (EXACT) {
+              load_vec<EQ, EPL>(static_cast<const EQ*>(a.q) + qh, qv);
+            } else {
+              long long qi[EPL];
+              bool ok[EPL];
+#pragma unroll
+              for (int e = 0; e < EPL; ++e) {
+                qi[e] = qh + e;
+                ok[e] = d0 + e < Dh;
+              }
+              load_q<EQ, EPL>(a.q, qi, ok, a.qt, qv);
+            }
+          } else {
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) qv[e] = 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) {
+            const int c = d0 + e, r = c & 3, t = (c >> 2) & 3;
+            const int at16 =
+                F8 ? (c & ~15) | ((r & 2) << 2) | (t << 1) | (r & 1) : c;
+            qw[g * (D + QPAD) + at16] = from_float<M>(qv[e]);
+          }
+        }
+        set_sync(set);
+      }
+      if constexpr (TC && HX == 1) if (hw < 2) {  // B fragments: the queries
         const int gq = lane >> 2, tq = lane & 3;
         const long long qg = q_at(b, h, g0, gq);
         auto pair = [&](int c) -> uint32_t {   // columns c, c + 1, in M
@@ -1073,7 +1273,8 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
           qb[kk][1] = pair(k0 + (F8 ? 2 : 8));
         }
       }
-      if constexpr (TC && QType<EQ>::runtime) set_sync(set);  // qs is free
+      if constexpr (TC && QType<EQ>::runtime && HX == 1)
+        set_sync(set);                       // qs is free
       // the warp's query, a lane's part (the wide body's: by piece, below)
       if (!WIDE && hw < gn && d0 < D) {
         const long long qh = q_at(b, h, g0, hw);
@@ -1096,10 +1297,13 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
 #pragma unroll
         for (int e = 0; e < EPL; ++e) qr[e] = 0.f;
       }
-      m = NEG_INF;
-      l = 0.f;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[e] = 0.f;
+      for (int x = 0; x < HX; ++x) {
+        m[x] = NEG_INF;
+        l[x] = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[x][e] = 0.f;
+      }
 #pragma unroll
       for (int nt = 0; nt < NTW; ++nt)
         cacc[nt][0] = cacc[nt][1] = cacc[nt][2] = cacc[nt][3] = 0.f;
@@ -1108,13 +1312,33 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     if (j % NSET != set) continue;           // the other set's chunk
     const unsigned char* slot = slots + (size_t)(j % a.slots) * slot_bytes;
     mbar_wait(&full[j % a.slots], (uint32_t)((j / a.slots) & 1));  // getfin
-    float sc = NEG_INF;                      // row `lane`'s logit
+    float sc[HX];                            // row `lane`'s logit, a head
+#pragma unroll
+    for (int x = 0; x < HX; ++x) sc[x] = NEG_INF;
     if constexpr (TC) {  // Q K^T: warps 0 and 1 of the set, 16 rows each
-      float* lg = xch + (set * 2 + ((j / NSET) & 1)) * XCH_FLOATS;
+      float* lg = xch + (set * 2 + ((j / NSET) & 1)) * xch_floats(HS);
       if (hw < 2 && hw * 16 < n) {
         const int mi = lane >> 3, ri = lane & 7;
         const int row = min(hw * 16 + (mi & 1) * 8 + ri, a.rows - 1);
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        float c[HX][4] = {};
+        // the B fragments of k-step kk, an n-tile of 8 query heads each:
+        // HX 1 from q's registers; HX 2 from the staged q by one ldmatrix,
+        // lane l giving row l % 8 of matrix l / 8: heads 0-7 at the
+        // k-step's columns 0-7 and 8-15, then heads 8-15 at the same
+        const int qrow = (mi >> 1) * 8 + ri;   // HX 2: its head in the group
+        auto qfrag = [&](int kk, uint32_t (&bq)[HX][2]) {
+          if constexpr (HX == 1) {
+            bq[0][0] = qb[kk][0];
+            bq[0][1] = qb[kk][1];
+          } else {
+            uint32_t r[4];
+            ldmatrix_x4(r, q16 + qrow * (D + QPAD) + kk * 16 + (mi & 1) * 8);
+            bq[0][0] = r[0];
+            bq[0][1] = r[1];
+            bq[1][0] = r[2];
+            bq[1][1] = r[3];
+          }
+        };
         if constexpr (F8) {
           // 32 fp8 columns an ldmatrix, the rows read as b16: kf[0] = row g,
           // columns 4t .. 4t + 3; kf[1] the same of row g + 8; kf[2], kf[3]
@@ -1132,28 +1356,46 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
                   fp8x2_to<M>(kf[2 * hf + 1], k_e5m2),
                   fp8x2_to<M>(kf[2 * hf] >> 16, k_e5m2),
                   fp8x2_to<M>(kf[2 * hf + 1] >> 16, k_e5m2)};
-              mma_16816<M>(c, af, qb[2 * k2 + hf][0], qb[2 * k2 + hf][1]);
+              uint32_t bq[HX][2];
+              qfrag(2 * k2 + hf, bq);
+#pragma unroll
+              for (int x = 0; x < HX; ++x)
+                mma_16816<M>(c[x], af, bq[x][0], bq[x][1]);
             }
           }
         } else {
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk) {
-            uint32_t af[4];
+            uint32_t af[4], bq[HX][2];
             ldmatrix_x4(af, at(slot, row, kk * 16 + (mi >> 1) * 8));
-            mma_16816<E>(c, af, qb[kk][0], qb[kk][1]);
+            qfrag(kk, bq);
+#pragma unroll
+            for (int x = 0; x < HX; ++x)
+              mma_16816<E>(c[x], af, bq[x][0], bq[x][1]);
           }
         }
+        // n-tile x: head 8 x + 2 t (and + 1) of rows r0 and r0 + 8
         const int gq = lane >> 2, tq = lane & 3, r0 = hw * 16 + gq;
-        lg[(2 * tq) * 32 + r0] = c[0];
-        lg[(2 * tq + 1) * 32 + r0] = c[1];
-        lg[(2 * tq) * 32 + r0 + 8] = c[2];
-        lg[(2 * tq + 1) * 32 + r0 + 8] = c[3];
+#pragma unroll
+        for (int x = 0; x < HX; ++x) {
+          float* lx = lg + (8 * x + 2 * tq) * 32;
+          lx[r0] = c[x][0];
+          lx[32 + r0] = c[x][1];
+          lx[r0 + 8] = c[x][2];
+          lx[32 + r0 + 8] = c[x][3];
+        }
       }
       set_sync(set);
-      if (lane < n) sc = lg[hw * 32 + lane] * a.scale;
+#pragma unroll
+      for (int x = 0; x < HX; ++x)
+        if (lane < n) sc[x] = lg[(hw + GC * x) * 32 + lane] * a.scale;
     }
-    float m_new, alpha = 1.f, p = 0.f;
-    if (hw < gn) {
+    float alpha[HX], p[HX];
+#pragma unroll
+    for (int x = 0; x < HX; ++x) {
+      alpha[x] = 1.f;
+      p[x] = 0.f;
+      if (hw + GC * x >= gn) continue;
       if constexpr (!TC) {   // Q K^T on FMAs: a lane's columns, every row
         float part[32];
         if constexpr (WIDE) {  // summed over the K pieces, q's piece by piece
@@ -1200,56 +1442,70 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         transpose_sum<4>(part, lane);
         transpose_sum<2>(part, lane);
         transpose_sum<1>(part, lane);
-        if (lane < n) sc = part[0] * a.scale;
+        if (lane < n) sc[x] = part[0] * a.scale;
       }
-      m_new = fmaxf(m, warp_max(sc));
-      alpha = expf(m - m_new);
-      p = lane < n ? expf(sc - m_new) : 0.f;
-      l = fmaf(l, alpha, warp_sum(p));
-      m = m_new;
+      const float m_new = fmaxf(m[x], warp_max(sc[x]));
+      alpha[x] = expf(m[x] - m_new);
+      p[x] = lane < n ? expf(sc[x] - m_new) : 0.f;
+      l[x] = fmaf(l[x], alpha[x], warp_sum(p[x]));
+      m[x] = m_new;
       if constexpr (!TC) {
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[e] *= alpha;
+        for (int e = 0; e < EPL; ++e) acc[x][e] *= alpha[x];
 #pragma unroll 8
         for (int r = 0; r < n; ++r) {        // P V: a lane D/32 columns
-          const float pr = __shfl_sync(FULL, p, r);
+          const float pr = __shfl_sync(FULL, p[x], r);
           if (d0 < dcols) {
             float vv[EPL];
             load_row<E, EPL>(at(slot + half_bytes, kv_row(r), d0), vv,
                              a.e5m2);
 #pragma unroll
-            for (int e = 0; e < EPL; ++e) acc[e] = fmaf(pr, vv[e], acc[e]);
+            for (int e = 0; e < EPL; ++e)
+              acc[x][e] = fmaf(pr, vv[e], acc[x][e]);
           }
         }
       }
     }
     if constexpr (TC) {  // P V on the tensor cores: warp w, columns w NCOL..
-      float* xb = xch + (set * 2 + ((j / NSET) & 1)) * XCH_FLOATS;
-      M* ph = reinterpret_cast<M*>(xb + GC * 32);
-      M* pl = ph + GC * PSTR;
-      float* al = xb + GC * 32 + GC * PSTR;
-      const M hi = from_float<M>(p);        // p = hi + lo
-      ph[hw * PSTR + lane] = hi;
-      pl[hw * PSTR + lane] = from_float<M>(p - to_float(hi));
-      if (lane == 0) al[hw] = alpha;
+      float* xb = xch + (set * 2 + ((j / NSET) & 1)) * xch_floats(HS);
+      M* ph = reinterpret_cast<M*>(xb + HS * 32);
+      M* pl = ph + HS * PSTR;
+      float* al = xb + HS * 32 + HS * PSTR;
+#pragma unroll
+      for (int x = 0; x < HX; ++x) {
+        const int qh = hw + GC * x;
+        const M hi = from_float<M>(p[x]);    // p = hi + lo
+        ph[qh * PSTR + lane] = hi;
+        pl[qh * PSTR + lane] = from_float<M>(p[x] - to_float(hi));
+        if (lane == 0) al[qh] = alpha[x];
+      }
       set_sync(set);
       const int gq = lane >> 2, tq = lane & 3;
-      const float sa = al[gq];
 #pragma unroll
-      for (int nt = 0; nt < NTW; ++nt) {
-        cacc[nt][0] *= sa;
-        cacc[nt][1] *= sa;
+      for (int x = 0; x < HX; ++x) {         // rows gq and (HX 2) gq + 8
+        const float sa = al[gq + 8 * x];
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt) {
+          cacc[nt][2 * x] *= sa;
+          cacc[nt][2 * x + 1] *= sa;
+        }
       }
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks) {       // 16 rows a k-step
         if (ks * 16 >= n) break;
-        // A = P [heads g (8..15 zero)][rows]: a0 = (g, 2t..), a2 = (g, 2t+8..)
+        // A = P [heads g, g + 8 (HX 1: zero)][rows]: a0 = (g, 2t..), a1 =
+        // (g + 8, 2t..), a2 = (g, 2t+8..), a3 = (g + 8, 2t+8..)
         const int pk = gq * PSTR + ks * 16 + 2 * tq;
         auto word = [](const M* x) {
           return *reinterpret_cast<const uint32_t*>(x);
         };
-        const uint32_t ahi[4] = {word(ph + pk), 0u, word(ph + pk + 8), 0u};
-        const uint32_t alo[4] = {word(pl + pk), 0u, word(pl + pk + 8), 0u};
+        constexpr int P8 = 8 * PSTR;         // heads g + 8 (HX 2)
+        const uint32_t ahi[4] = {
+            word(ph + pk), HX == 2 ? word(ph + pk + P8) : 0u,
+            word(ph + pk + 8), HX == 2 ? word(ph + pk + P8 + 8) : 0u};
+        const uint32_t alo[4] = {
+            word(pl + pk), HX == 2 ? word(pl + pk + P8) : 0u,
+            word(pl + pk + 8), HX == 2 ? word(pl + pk + P8 + 8) : 0u};
         const int mi = lane >> 3, ri = lane & 7;
         const int row = min(ks * 16 + (mi & 1) * 8 + ri, a.rows - 1);
         if constexpr (F8) {
@@ -1338,14 +1594,14 @@ cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
 }
 
 template <typename E, typename EQ, int D, bool EXACT, bool TMA, bool WIDE,
-          bool HEADS = false>
+          bool HEADS = false, int HX = 1>
 cudaError_t launch(Args& a, int blocks, cudaStream_t stream) {
   int smem = 0;
-  a.slots = ring_slots<E, D, WIDE, HEADS>(a.B, a.rows, a.npk, &smem,
-                                          a.heads, a.dh);
+  a.slots = ring_slots<E, D, WIDE, HEADS, HX>(a.B, a.rows, a.npk, &smem,
+                                              a.heads, a.dh);
   if (a.slots == 0) return cudaErrorInvalidValue;
   static SmemAllowance allowance;
-  auto kernel = paged_attention_kernel<E, EQ, D, EXACT, TMA, WIDE, HEADS>;
+  auto kernel = paged_attention_kernel<E, EQ, D, EXACT, TMA, WIDE, HEADS, HX>;
   cudaError_t err = allow_smem(allowance, kernel, MAX_SMEM);
   if (err != cudaSuccess) return err;
   CUtensorMap kmap{}, vmap{};        // the element body copies without
@@ -1393,7 +1649,8 @@ bool float_type(int dtype) {
 // The launch at (Dp, D) for caches of type E and q of type EQ: the body for
 // Dp, EXACT at D == Dp (q of the caches' type only), TMA where the rows are
 // whole 16-byte pieces; the wide body above 256; segments of a.heads KV
-// heads where that is more than 1 (`kv_run`).
+// heads where that is more than 1 (`kv_run`); two query heads a warp where
+// a.hx is 2 (`group_heads`).
 template <typename E, typename EQ>
 cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
                          bool tma) {
@@ -1418,6 +1675,12 @@ cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
 #undef HEADS_CASE
       return cudaErrorInvalidValue;
     }
+    if (a.hx == 2) {                         // (Dp 256: `group_heads`)
+      if (Dp != 256) return cudaErrorInvalidValue;
+      if (Dp == D)
+        return launch<E, EQ, 256, true, true, false, false, 2>(a, blocks, s);
+      return launch<E, EQ, 256, false, true, false, false, 2>(a, blocks, s);
+    }
   }
 #define PAGED_CASE(DIM)                                                  \
   case DIM:                                                              \
@@ -1437,10 +1700,15 @@ cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
 }
 
 // The tensor-core launch of fp8 caches (`products`): the TMA body for Dp
-// of 64 to 256, q and out of type a.qt, products in EQ's M.
+// of 64 to 256, q and out of type a.qt, products in EQ's M; two query heads
+// a warp where a.hx is 2.
 template <typename E, typename EQ>
 cudaError_t launch_mma(Args& a, int blocks, cudaStream_t s, int Dp) {
   a.npk = 1;
+  if (a.hx == 2) {
+    if (Dp != 256) return cudaErrorInvalidValue;
+    return launch<E, EQ, 256, false, true, false, false, 2>(a, blocks, s);
+  }
   switch (Dp) {
     case 64: return launch<E, EQ, 64, false, true, false>(a, blocks, s);
     case 128: return launch<E, EQ, 128, false, true, false>(a, blocks, s);
@@ -1482,11 +1750,23 @@ int products(int dtype, int q_dtype, int D, int G, int Hkv) {
   return 0;
 }
 
+// Query heads a segment of one KV head serves: 2 GC where a KV head has more
+// than GC of them and the products run on the tensor cores (`products`) at
+// Dp 256, each warp of a set two (HX 2; the note at the top); GC elsewhere.
+int group_heads(int dtype, int q_dtype, int D, int G, int Hkv) {
+  return G > GC && padded(D) == WIDE_DC && products(dtype, q_dtype, D, G, Hkv)
+             ? 2 * GC
+             : GC;
+}
+
 // The ring of a launch for caches of type E (any EQ: it does not enter),
-// segments of `heads` KV heads.
+// segments of `heads` KV heads, `hx` query heads a warp.
 template <typename E>
-int ring_for(int B, int D, int rows, int heads, int* smem) {
+int ring_for(int B, int D, int rows, int heads, int hx, int* smem) {
   const int Dp = padded(D);
+  if (hx == 2)
+    return Dp == 256 ? ring_slots<E, 256, false, false, 2>(B, rows, 1, smem)
+                     : -1;
   if (heads > 1) {
     switch (Dp) {
       case 64:
@@ -1533,6 +1813,14 @@ extern "C" int paged_attention_heads(int dtype, int q_dtype, int D, int Hq,
   return kv_run(dtype, q_dtype, D, Hkv > 0 ? Hq / Hkv : 0, Hkv);
 }
 
+// The query heads a segment of one KV head serves in a launch at (dtype,
+// q_dtype, D, Hq, Hkv) (`group_heads`; the wrapper's `query_heads` states
+// the same rule): ngc = ceil(Hq / Hkv / it).
+extern "C" int paged_attention_group(int dtype, int q_dtype, int D, int Hq,
+                                     int Hkv) {
+  return group_heads(dtype, q_dtype, D, Hkv > 0 ? Hq / Hkv : 0, Hkv);
+}
+
 // q [B, Hq, D] of type q_dtype (strides q_sb, q_sh, 1; at D of 16 .. 256 in
 // powers of 2, q of the caches' type, starts and strides in multiples of
 // max(D / 32, 1) elements), k/v [B, T, Hkv, D] of type dtype (strides sb,
@@ -1542,10 +1830,12 @@ extern "C" int paged_attention_heads(int dtype, int q_dtype, int D, int Hq,
 // is dtype, or beside 16-bit and fp8 caches any of f32, bf16, f16, e4m3fn,
 // e5m2 (read and written in its own type; `products` says where the
 // products run; the wrapper widens any other q to fp32). part: chunks x
-// (blocks + segments) x GC x (min(Dp, 256) + 2) floats; tickets: chunks x
-// segments ints, zero; chunks = Dp / 256 above 256, else 1. blocks (a
-// chunk), rows, ngc: `paged_plan` of paged_attention.py; the launch sizes
-// the ring itself (`paged_attention_ring`). strides: {q_sb, q_sh, k_sb,
+// (blocks + segments) x HS x (min(Dp, 256) + 2) floats, HS the query heads
+// a segment serves (`paged_attention_group`); tickets: chunks x segments
+// x (1 + ceil(blocks / 8)) ints, zero; chunks = Dp / 256 above 256, else
+// 1. blocks (a chunk), rows, ngc (ceil(Hq / Hkv / HS), or the launch
+// refuses it): `paged_plan` of paged_attention.py; the launch sizes the
+// ring itself (`paged_attention_ring`). strides: {q_sb, q_sh, k_sb,
 // k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh} in elements. The scale is
 // 1 / sqrt(D). Returns 0 or a cudaError_t (invalid value where no ring
 // fits); -1 for a head size or type it does not take.
@@ -1573,6 +1863,9 @@ extern "C" int paged_attention_launch(
   a.e5m2 = dtype == DTYPE_E5M2;
   a.qt = q_dtype;
   a.heads = kv_run(dtype, q_dtype, D, a.G, Hkv);
+  const int hs = group_heads(dtype, q_dtype, D, a.G, Hkv);
+  a.hx = hs / GC;
+  if (ngc != (a.G + hs - 1) / hs) return (int)cudaErrorInvalidValue;
   a.q_sb = st[0];
   a.q_sh = st[1];
   a.k_sb = st[2];
@@ -1613,17 +1906,22 @@ extern "C" int paged_attention_launch(
 }
 
 // The ring a block of the launch takes for B sequences, head size D (any
-// D >= 1: the ring is Dp's, or the wide body's), `rows` rows an aload and
-// segments of `heads` KV heads: its slots (0 where none fits, -1 for a
-// head size or type the kernel does not take) and, in *smem, its
-// shared-memory bytes.
+// D >= 1: the ring is Dp's, or the wide body's), `rows` rows an aload,
+// segments of `heads` KV heads and `group` query heads a segment of one
+// (`paged_attention_group`): its slots (0 where none fits, -1 for a head
+// size or type the kernel does not take) and, in *smem, its shared-memory
+// bytes.
 extern "C" int paged_attention_ring(int B, int D, int rows, int dtype,
-                                    int heads, int* smem) {
+                                    int heads, int group, int* smem) {
+  const int hx = group / GC;
   if (heads > 1 && dtype != DTYPE_BF16 && dtype != DTYPE_F16) return -1;
-  if (dtype == DTYPE_F32) return ring_for<float>(B, D, rows, 1, smem);
+  if ((hx != 1 && hx != 2) || (hx == 2 && (heads > 1 || dtype == DTYPE_F32)))
+    return -1;
+  if (dtype == DTYPE_F32) return ring_for<float>(B, D, rows, 1, 1, smem);
   if (dtype == DTYPE_BF16)
-    return ring_for<__nv_bfloat16>(B, D, rows, heads, smem);
-  if (dtype == DTYPE_F16) return ring_for<__half>(B, D, rows, heads, smem);
-  if (fp8_type(dtype)) return ring_for<fp8_any>(B, D, rows, 1, smem);
+    return ring_for<__nv_bfloat16>(B, D, rows, heads, hx, smem);
+  if (dtype == DTYPE_F16)
+    return ring_for<__half>(B, D, rows, heads, hx, smem);
+  if (fp8_type(dtype)) return ring_for<fp8_any>(B, D, rows, 1, hx, smem);
   return -1;
 }

@@ -7,8 +7,9 @@ what the design does about that), the plain version is
 launches the kernel or raises.
 
 `paged_plan` lays a launch over the card from the shapes alone (the host
-never reads `lengths`): how many blocks, how many rows one aload fetches
-and how many KV heads a segment takes (`kv_heads`). The kernel's source
+never reads `lengths`): how many blocks, how many rows one aload fetches,
+how many KV heads a segment takes (`kv_heads`) and how many query heads a
+segment of one KV head serves (`query_heads`). The kernel's source
 sizes a block's ring of slots and its shared memory (`ring` asks it).
 `block_chunks` mirrors, for the CPU tests, how the kernel splits the valid
 rows among the blocks on the device.
@@ -27,6 +28,7 @@ from repro_torch.kernels.flash_attention import (CHUNK_DIM, HEAD_DIMS,
                                                  padded_head_dim)
 
 GC = 8                  # query heads a block serves, a warp each
+MERGE_GROUP = 8         # blocks of a first-level merge (csrc's MERGE_GROUP)
 CHUNK_ROWS = 32         # most rows one aload fetches (a lane a row)
 # the wide body's (head sizes above CHUNK_DIM) most bytes of a slot: its
 # rows hold all of K's columns and a chunk of V's, so it takes fewer rows
@@ -41,16 +43,17 @@ class PagedPlan(NamedTuple):
     """How a launch of the paged kernel covers the cache on a card."""
     blocks: int         # blocks of the launch (of each chunk)
     rows: int           # rows one aload fetches: min(page, CHUNK_ROWS, T)
-    segments: int       # (b, kv head, group of GC query heads) triples, or
-                        # (b, run of `heads` KV heads) pairs
-    ngc: int            # groups of GC query heads a KV head
+    segments: int       # (b, kv head, group of `group` query heads)
+                        # triples, or (b, run of `heads` KV heads) pairs
+    ngc: int            # groups of `group` query heads a KV head
     chunks: int = 1     # CHUNK_DIM-column chunks of the output a head
     heads: int = 1      # KV heads a segment (`kv_heads`)
+    group: int = GC     # query heads a group (`query_heads`): GC or 2 GC
 
 
 def paged_plan(B: int, Hq: int, Hkv: int, T: int, page: int, sms: int,
                head_dim: int = 0, itemsize: int = 2,
-               heads: int = 1) -> PagedPlan:
+               heads: int = 1, group: int = GC) -> PagedPlan:
     """The launch for a cache of B x T rows a KV head on a card of `sms`
     SMs, from the shapes only: one block an SM (its ring takes the SM's
     shared memory), no more blocks than the cache has aloads' worth of rows;
@@ -61,8 +64,10 @@ def paged_plan(B: int, Hq: int, Hkv: int, T: int, page: int, sms: int,
     them (`itemsize` the caches') an aload. A segment of `heads` KV heads
     (`kv_heads`; more than one only below GC query heads a KV head) takes
     a row of all of them an aload row, so an aload takes at most
-    HEADS_SLOT_BYTES of K and V."""
-    ngc = -(-(Hq // Hkv) // GC)
+    HEADS_SLOT_BYTES of K and V. A segment of one KV head serves `group`
+    of its query heads (`query_heads`): ceil(Hq / Hkv / group) segments a
+    KV head, each of which fetches all its valid rows."""
+    ngc = -(-(Hq // Hkv) // group)
     rows = max(1, min(page, CHUNK_ROWS, T))
     chunks = -(-head_dim // CHUNK_DIM) if head_dim > CHUNK_DIM else 1
     if chunks > 1:
@@ -74,7 +79,7 @@ def paged_plan(B: int, Hq: int, Hkv: int, T: int, page: int, sms: int,
     segments = B * (Hkv // heads) * ngc
     sms = max(1, sms // chunks)
     return PagedPlan(max(1, min(sms, -(-segments * T // rows))), rows,
-                     segments, ngc, chunks, heads)
+                     segments, ngc, chunks, heads, group)
 
 
 def block_chunks(lengths: Sequence[int], T: int, hg: int, blocks: int,
@@ -82,13 +87,13 @@ def block_chunks(lengths: Sequence[int], T: int, hg: int, blocks: int,
     """The chunks each block fetches, as the kernel derives them from
     `lengths` on the device: a list a block of (segment, first row, rows).
 
-    Segment s = b * hg + j is the j-th (KV head, head group) of sequence b,
-    or its j-th run of `PagedPlan.heads` KV heads (whose aload rows hold a
-    row of each); it has min(max(lengths[b], 0), T) valid rows. The valid
-    rows of all segments, laid end to end, are cut into `blocks` runs of
-    ceil(W / blocks) rows (W the total), so every block but the last has
-    the same number of valid rows; a run is fetched in chunks of at most
-    `rows` rows that never cross a segment."""
+    Segment s = b * hg + j is the j-th (KV head, query head group) of
+    sequence b, or its j-th run of `PagedPlan.heads` KV heads (whose aload
+    rows hold a row of each); it has min(max(lengths[b], 0), T) valid
+    rows. The valid rows of all segments, laid end to end, are cut into
+    `blocks` runs of ceil(W / blocks) rows (W the total), so every block
+    but the last has the same number of valid rows; a run is fetched in
+    chunks of at most `rows` rows that never cross a segment."""
     lens = [min(max(int(n), 0), T) for n in lengths]
     prefix = [0]
     for n in lens:
@@ -191,6 +196,21 @@ def kv_heads(q_dtype: torch.dtype, cache_dtype: torch.dtype,
     return r
 
 
+def query_heads(q_dtype: torch.dtype, cache_dtype: torch.dtype,
+                head_dim: int, hq: int, hkv: int) -> int:
+    """Query heads a segment of one KV head serves, the rule `group_heads`
+    of csrc/paged_attention.cu applies (`paged_attention_group`): 2 GC
+    where a KV head has more than GC query heads and the products run on
+    the tensor cores (`products_on` "mma") at a padded head size of 256, so
+    that each K and V row enters the ring once for up to 16 heads, every
+    warp of a set taking two; GC elsewhere."""
+    g = hq // hkv if hkv > 0 else 0
+    if g <= GC or padded_head_dim("paged_attention", head_dim) != CHUNK_DIM:
+        return GC
+    return (2 * GC if products_on(q_dtype, cache_dtype, head_dim, hq, hkv)
+            == "mma" else GC)
+
+
 def products_on(q_dtype: torch.dtype, cache_dtype: torch.dtype,
                 head_dim: int, hq: int = GC, hkv: int = 1) -> str:
     """Where a launch's two products run, the rule `products` of
@@ -224,10 +244,11 @@ def _bind():
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_longlong), i, i, p]
         fn.restype = ctypes.c_int
-        lib.paged_attention_ring.argtypes = [i, i, i, i, i,
+        lib.paged_attention_ring.argtypes = [i, i, i, i, i, i,
                                              ctypes.POINTER(ctypes.c_int)]
         lib.paged_attention_ring.restype = ctypes.c_int
-        for rule in (lib.paged_attention_products, lib.paged_attention_heads):
+        for rule in (lib.paged_attention_products, lib.paged_attention_heads,
+                     lib.paged_attention_group):
             rule.argtypes = [i, i, i, i, i]
             rule.restype = ctypes.c_int
     return lib, fn
@@ -240,11 +261,11 @@ def _sms(device: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def _ring(B: int, D: int, rows: int, dtype: torch.dtype,
-          heads: int = 1) -> Tuple[int, int]:
+          heads: int = 1, group: int = GC) -> Tuple[int, int]:
     lib, _ = _bind()
     smem = ctypes.c_int(0)
     slots = lib.paged_attention_ring(B, D, rows, _build.DTYPE_CODES[dtype],
-                                     heads, ctypes.byref(smem))
+                                     heads, group, ctypes.byref(smem))
     if slots <= 0:
         raise ValueError(f"paged_attention: no ring for a batch of {B} at "
                          f"head size {D} fits in shared memory")
@@ -257,8 +278,8 @@ def _card_plan(device: int, B: int, Hq: int, Hkv: int, T: int, D: int,
                q_dtype: torch.dtype) -> PagedPlan:
     heads = kv_heads(q_dtype, dtype, D, Hq, Hkv)
     plan = paged_plan(B, Hq, Hkv, T, page, _sms(device), D, dtype.itemsize,
-                      heads)
-    _ring(B, D, plan.rows, dtype, heads)  # refuses what the launch would
+                      heads, query_heads(q_dtype, dtype, D, Hq, Hkv))
+    _ring(B, D, plan.rows, dtype, heads, plan.group)  # refuses as launch
     return plan
 
 
@@ -278,7 +299,7 @@ def ring(q: torch.Tensor, k_cache: torch.Tensor,
     of at most 8 slots that fits one block an SM."""
     plan = launch_plan(q, k_cache, page)
     return _ring(q.shape[0], q.shape[2], plan.rows, k_cache.dtype,
-                 plan.heads)
+                 plan.heads, plan.group)
 
 
 # Partials and tickets, allocated once per (device, stream) and grown: the
@@ -403,8 +424,10 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         part, tick = workspace(
             q.device, stream,
-            plan.chunks * (plan.blocks + plan.segments) * GC * (width + 2),
-            plan.chunks * plan.segments)
+            plan.chunks * (plan.blocks + plan.segments) * plan.group
+            * (width + 2),
+            plan.chunks * plan.segments * (1 + -(-plan.blocks
+                                                 // MERGE_GROUP)))
         code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
                   tick.data_ptr(), B, Hq, Hkv, T, D, plan.blocks, plan.rows,

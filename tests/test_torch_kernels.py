@@ -317,20 +317,34 @@ def _split_lengths(rng, b, t):
     (1, 4, 4, 512, 128, 512), (1, 16, 2, 32768, 128, 512),
     (128, 16, 2, 32768, 128, 512), (128, 24, 8, 300, 64, 16),
     (1, 1, 1, 1, 16, 512), (2, 4, 2, 700, 16, 64), (4, 40, 8, 1032, 128, 7),
-    (4, 32, 2, 100, 32, 512)])
+    (4, 32, 2, 100, 32, 512), (4, 16, 1, 4128, 256, 512),
+    (4, 12, 1, 700, 208, 64), (3, 32, 2, 300, 256, 16),
+    (5, 24, 1, 1032, 144, 512), (4, 16, 1, 4128, 128, 512)])
 def test_paged_split_plan(b, hq, hkv, t, d, page):
     """The kernel's split of the valid rows, derived from `lengths` on the
     device and mirrored here: every valid (sequence, KV head, head group,
     row) is fetched exactly once, no aload fetches more than `page` rows or
     crosses a segment, the blocks share the rows evenly, and each segment's
-    partials fit the workspace without overlapping another's."""
+    partials fit the workspace without overlapping another's. bf16 caches:
+    above 8 query heads a KV head on the tensor cores at a padded head size
+    of 256 a group is 16 heads (`query_heads`), so at up to 16 every valid
+    row of a KV head is fetched once."""
     rng = np.random.default_rng(b * 7 + t)
     lens = _split_lengths(rng, b, t)
-    plan = tpaged.paged_plan(b, hq, hkv, t, page, sms=132)
+    g = hq // hkv
+    group = tpaged.query_heads(torch.bfloat16, torch.bfloat16, d, hq, hkv)
+    mma256 = d * 2 % 16 == 0 and tflash.padded_head_dim(
+        "paged_attention", d) == 256
+    assert group == (2 * tpaged.GC if g > tpaged.GC and mma256
+                     else tpaged.GC)
+    plan = tpaged.paged_plan(b, hq, hkv, t, page, sms=132, group=group)
     assert 1 <= plan.blocks <= 132
     assert 1 <= plan.rows <= max(1, min(page, t, tpaged.CHUNK_ROWS))
     hg = hkv * plan.ngc
-    assert plan.ngc * tpaged.GC >= hq // hkv and plan.segments == b * hg
+    assert plan.group == group and plan.ngc == -(-g // group)
+    assert plan.ngc * group >= g and plan.segments == b * hg
+    if group > tpaged.GC and g <= group:   # each KV head's rows once
+        assert plan.ngc == 1 and plan.segments == b * hkv
     chunks = tpaged.block_chunks(lens, t, hg, plan.blocks, plan.rows)
     total = int(np.minimum(lens, t).sum()) * hg
     per = -(-total // plan.blocks) if total else 0
@@ -361,10 +375,11 @@ def test_paged_split_plan(b, hq, hkv, t, d, page):
             slots |= mine
 
 
-# (Hq, Hkv) layouts at which the split rules are held: G of 1 to 16, and
-# KV heads that 8 / G does not divide
+# (Hq, Hkv) layouts at which the split rules are held: G of 1 to 32, KV
+# heads that 8 / G does not divide, and groups of 16 query heads that are
+# not whole or more than one
 _LAYOUTS = ((16, 16), (16, 8), (16, 4), (16, 2), (16, 1), (6, 6), (12, 6),
-            (3, 3), (20, 4), (24, 8))
+            (3, 3), (20, 4), (24, 8), (12, 1), (32, 2), (24, 1))
 _RULE_DIMS = list(range(1, 1101)) + [2048]
 
 
@@ -379,9 +394,11 @@ def test_paged_heads_and_products_rule(hq, hkv, dtype):
     caches on the TMA ring at a padded head size of 64 to 256 take 8 / G
     KV heads a segment (halved until it divides Hkv), on FMAs, at G = 1
     and, where the head size is not the padded one, at G of 2 and 4;
-    elsewhere one, on mma.sync where `products` took it before. `chip_smoke.py`
+    elsewhere one, on mma.sync where `products` took it before; above 8
+    query heads a KV head on mma.sync at a padded head size of 256 a
+    segment serves 16 of them (`query_heads`), else 8. `chip_smoke.py`
     holds the CUDA source's rules (`paged_attention_heads`,
-    `paged_attention_products`) to these."""
+    `paged_attention_products`, `paged_attention_group`) to these."""
     g = hq // hkv
     for d in _RULE_DIMS:
         dp = tflash.padded_head_dim("paged_attention", d)
@@ -399,6 +416,8 @@ def test_paged_heads_and_products_rule(hq, hkv, dtype):
         assert tpaged.kv_heads(dtype, dtype, d, hq, hkv) == heads, d
         assert tpaged.products_on(dtype, dtype, d, hq, hkv) == (
             "mma" if mma else "fma"), d
+        assert tpaged.query_heads(dtype, dtype, d, hq, hkv) == (
+            16 if mma and g > 8 and dp == 256 else 8), d
 
 
 @pytest.mark.parametrize("g", [1, 2, 8, 16])
@@ -413,18 +432,24 @@ def test_paged_split_in_segments_of_several_kv_heads(g, b, hkv, t, d, page):
     chunks must be that order cut into runs of ceil(W / blocks) rows, every
     (sequence, KV head, row) fetched once, no chunk past `rows` rows or
     across a segment, an aload within HEADS_SLOT_BYTES, and each segment's
-    partials at the blocks that hold its rows."""
+    partials at the blocks that hold its rows. At 16 query heads a KV head
+    and a padded head size of 256 a segment serves all 16 (`query_heads`):
+    each valid row of a KV head is fetched once, not once for each group of
+    8."""
     hq = g * hkv
     rng = np.random.default_rng(g * 31 + b * 7 + t)
     lens = _split_lengths(rng, b, t)
     heads = tpaged.kv_heads(torch.bfloat16, torch.bfloat16, d, hq, hkv)
     padded = d != tflash.padded_head_dim("paged_attention", d)
     assert heads == (min(8 // g, hkv) if g == 1 or g < 8 and padded else 1)
-    plan = tpaged.paged_plan(b, hq, hkv, t, page, 132, d, 2, heads)
+    group = tpaged.query_heads(torch.bfloat16, torch.bfloat16, d, hq, hkv)
+    assert group == (16 if g == 16 and d == 256 else 8)
+    plan = tpaged.paged_plan(b, hq, hkv, t, page, 132, d, 2, heads, group)
     hg = hkv // heads * plan.ngc
     assert plan.heads == heads and plan.segments == b * hg
-    assert plan.ngc * tpaged.GC >= g and (heads == 1
-                                          or heads * g <= tpaged.GC)
+    assert plan.ngc * plan.group >= g and (heads == 1
+                                           or heads * g <= tpaged.GC)
+    assert plan.ngc == 1 or g > plan.group
     assert 1 <= plan.rows <= min(page, t, tpaged.CHUNK_ROWS)
     if heads > 1:
         assert 2 * plan.rows * heads * d * 2 <= tpaged.HEADS_SLOT_BYTES
