@@ -374,8 +374,14 @@ SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
 # its bodies of two query heads a warp (HX 2) on mma.sync, TMA and ldmatrix
 # (LDSM: q's fragments); the scatter's 16-bit integer add
 # (`scatter_apply_kernel<1, OP_ADD, uint16_t>`) on the returning add
-# (ATOMG.ADD) and the carry repair (RED)
+# (ATOMG.ADD) and the carry repair (RED); flash's mma.sync body at Dp 16
+# for D < 16 (D = 8, the smoke configs' head size: EXACT false) on mma.sync
+# (HMMA) with p by ex2.approx (MUFU.EX2), and none of expf's slow path
+# (its range reduction's FFMA.SAT, one an expf: 34 in the body that took
+# expf; an instruction marked "!" must be absent)
 SASS_WANT_IN = {"flash_attention": [
+                    (("flash_mma_kernel", "Li16ELb0E"),
+                     ("HMMA", "MUFU.EX2", "!FFMA.SAT")),
                     (("flash_wgmma_wide_kernel",), ("HGMMA", "UTMALDG")),
                     (("flash_wgmma_kernel", "Lb1ELb0EEEv"),
                      ("HGMMA", "USETMAXREG")),
@@ -492,17 +498,19 @@ def check_sass(out_dir) -> dict:
                         funcs[func] = {op: 0 for op in want}
                 elif func is not None:
                     for op in want:
-                        funcs[func][op] += sass_has(line, op)
+                        funcs[func][op] += sass_has(line, op.lstrip("!"))
             key = f"{lib} {'*'.join(parts)}"
             counts[key] = {op: sum(f[op] for f in funcs.values())
                            for op in want}
             counts[key]["kernels"] = len(funcs)
             lacking = [name for name, f in funcs.items()
-                       if not all(f.values())]
+                       if not all(f[op] == 0 if op.startswith("!") else f[op]
+                                  for op in want)]
             if not funcs or lacking:
                 raise AssertionError(f"lib{lib}.so: the kernels named "
                                      f"*{'*'.join(parts)}* ({len(funcs)}) "
-                                     f"lack {want}: {lacking[:3]}")
+                                     f"fail {want} ('!': absent): "
+                                     f"{lacking[:3]}")
         for parts, must, never, producer in SASS_CONSUMERS.get(lib, []):
             kernels = {name: code
                        for name, code in sass_functions(sass).items()
@@ -2130,6 +2138,92 @@ def check_pair_heads_and_add16(gen):
                        f"{plan.lanes} lanes a row)", out,
                        ref.scatter_update_ref(table, idx, upd, "add"))
             del table, upd, idx, out
+    free_cuda()
+
+
+# flash's mma.sync body (16-bit rows of whole 16-byte pieces at Dp 16 and
+# 32): head sizes, and (b, hq, hkv, s, causal, window) cases: qwen2.5-3b's
+# prefill layout, windows whose edge falls inside a warp's 16 rows, S
+# ragged against the 64-key tiles and below one, GQA groups 1, 4 and 8
+MMA_DIMS = (8, 16, 24, 32)
+MMA_CASES = ((4, 16, 2, 1000, True, 0), (2, 8, 1, 200, True, 48),
+             (1, 4, 4, 129, True, 0), (2, 8, 8, 100, False, 0),
+             (1, 8, 1, 333, False, 63), (1, 4, 2, 1000, True, 200),
+             (1, 2, 2, 1, True, 0), (1, 2, 1, 17, True, 5),
+             (1, 4, 1, 300, True, 100))
+# the triad's steps of several bulk copies: (n, block, stages), the last
+# step short of its copies and of its chunks; one stage with several steps
+# a block; rings where 4 / item blocks a step do not fit (2 at 8 bits, 1 at
+# 16: `stream_triad.step_blocks`), which 32-bit types must refuse
+TRIAD_STEP_CASES = ((12345, 128, 2), (12345, 512, 4), ((1 << 18) + 13, 1024, 2),
+                    ((1 << 18) + 13, 512, 8), (515, 512, 4),
+                    ((1 << 23) + 13, 512, 1), ((1 << 20) + 13, 1024, 1),
+                    ((1 << 20) + 13, 8192, 4), ((1 << 20) + 13, 4096, 8))
+
+
+def check_mma_and_triad(gen):
+    """The two bodies redesigned last, against their plain versions: flash's
+    mma.sync body (a mask only on straddling tiles, p by one FFMA and one
+    ex2, a 3-slot ring with one barrier a tile, P V at n = 8 for D = 8) at
+    MMA_DIMS x MMA_CASES in bf16 and f16 within FLASH_BF16_TOL /
+    FLASH_F16_TOL, then timed at qwen2.5-3b's prefill layout beside SDPA
+    and the plain version;
+    the triad's steps sized in bytes (4 / item bulk copies a step where
+    they fit, 8- and 16-bit integers a word at a time) in every type at
+    TRIAD_STEP_CASES,
+    integers over the whole type, bit for bit."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.kernels import stream_triad as st
+
+    log("flash's mma.sync body at D 8-32 in bf16 and f16, and the triad's "
+        "byte-sized steps in every type")
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in MMA_DIMS:
+            if fa.body_for(dtype, d) != "mma":
+                raise AssertionError(f"flash D{d} {tname(dtype)} runs the "
+                                     f"{fa.body_for(dtype, d)} body")
+            for (b, hq, hkv, s, causal, window) in MMA_CASES:
+                q, k, v = flash_case(gen, b, hq, hkv, s, d, dtype)
+                check_flash_out(
+                    f"{tname(dtype)} B{b} Hq{hq} Hkv{hkv} S{s} D{d} "
+                    f"causal{causal} window{window} (mma body)",
+                    fa.flash_attention(q, k, v, causal=causal,
+                                       window=window), q, k, v, causal,
+                    window, quiet=True)
+    torch.cuda.synchronize()
+    log(f"  {len(MMA_DIMS)} head sizes x {len(MMA_CASES)} cases x 2 types "
+        "agree")
+    b, hq, hkv, s = BATCH, 16, 2, PROMPT_LEN
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in (8, 16, 32):
+            q, k, v = flash_case(gen, b, hq, hkv, s, d, dtype)
+            ms = time_ms([lambda: fa.flash_attention(q, k, v)], 20)
+            lib = time_ms([lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)], 20)
+            plain = time_ms([lambda: ref.attention_ref(q, k, v)], 5)
+            log(f"  flash B{b} Hq{hq} Hkv{hkv} S{s} D{d} {tname(dtype)} "
+                f"causal: {ms:.4f} ms (SDPA {lib:.4f} ms, plain "
+                f"{plain:.4f} ms, bound "
+                f"{flash_bound(b, hq, hkv, s, d, 0, dtype)[0]:.5f} ms)")
+            del q, k, v
+    for dtype in st.TYPES:
+        for (n, block, stages) in TRIAD_STEP_CASES:
+            x, y = (rand_typed(gen, (n,), dtype, 4.0) for _ in range(2))
+            if not st.step_blocks(dtype.itemsize, block, stages):
+                try:
+                    st.stream_triad(x, y, 3.3, block=block, stages=stages)
+                except ValueError:
+                    continue
+                raise AssertionError(f"triad {tname(dtype)} took {stages} "
+                                     f"stages of block {block}: its ring "
+                                     "does not fit")
+            check_same(f"triad {tname(dtype)} N{n} block{block} "
+                       f"stages{stages}",
+                       st.stream_triad(x, y, 3.3, block=block, stages=stages),
+                       ref.triad_ref(x, y, 3.3), quiet=True)
+    log(f"  triad bit-exact in {len(st.TYPES)} types at (N, block, stages) "
+        f"{TRIAD_STEP_CASES}")
     free_cuda()
 
 
@@ -3852,7 +3946,8 @@ def run_amu(kernels, worst):
     # the triad in the types added last, bit for bit, each with inputs that
     # pass the type's range (integers drawn over the whole type wrap,
     # float8 drawn wide gives NaN / inf); s = 3.3 is 3 for the integers
-    triad_types = (torch.int8, torch.uint8, torch.int16, torch.int32, *FP8)
+    triad_types = (torch.bfloat16, torch.int8, torch.uint8, torch.int16,
+                   torch.uint16, torch.int32, torch.uint32, *FP8)
     for dtype in triad_types:
         scale = OVERFLOW_SCALE.get(dtype, 1.0)
         b, c = rand_typed(gen, (n,), dtype, scale), rand_typed(gen, (n,),
@@ -3862,12 +3957,20 @@ def run_amu(kernels, worst):
                 f"{'wrap' if not dtype.is_floating_point else 'NaN / inf'})")
         a = drive(lambda: ops.triad(b, c, 3.3))
         check_same(name, a, ref.triad_ref(b, c, 3.3))
-        library_ms = None     # torch.add has no float8 form
-        if not dtype.is_floating_point:
-            alpha = ref.round_scalar(3.3, dtype)
-            check_same("  (library call agrees)",
-                       torch.add(b, c, alpha=alpha), a)
+        # torch.add has no float8 form, and some versions none for uint16
+        # or uint32 on the card; bf16's rounds once (not held, only timed)
+        library_ms, alpha = None, ref.round_scalar(3.3, dtype)
+        lib_out = None
+        if dtype not in FP8:
+            try:
+                lib_out = torch.add(b, c, alpha=alpha)
+            except (RuntimeError, TypeError):
+                pass
+        if lib_out is not None:
+            if not dtype.is_floating_point:
+                check_same("  (library call agrees)", lib_out, a)
             library_ms = time_ms([lambda: torch.add(b, c, alpha=alpha)], 20)
+        del lib_out
         report(name, "stream_triad",
                ms=time_ms([lambda: st.stream_triad(b, c, 3.3)], 20),
                plain_ms=time_ms([lambda: ref.triad_ref(b, c, 3.3)], 5),
@@ -4033,10 +4136,10 @@ def run_examples(kernels):
 # always breaks the kernel as it stands.
 PAGED_GETFIN = ("    mbar_wait(&full[j % a.slots], (uint32_t)((j / a.slots) & 1));"
                 "  // getfin\n")
-TRIAD_GETFIN = ("    mbar_wait(&full[t % stages], (uint32_t)((t / stages) & 1));"
-                "  // getfin\n")
-TRIAD_STORE = ("      bulk_store(a + c0 * VEC, dst, (uint32_t)nc * 16);"
-               "   // astore\n      bulk_commit();\n")
+TRIAD_GETFIN = ("      mbar_wait(&full[t % stages], (uint32_t)((t / stages) & "
+                "1));  // getfin\n")
+TRIAD_DONE = ("        mbar_wait(&done[t % stages], (uint32_t)((t / stages) & "
+              "1));\n")
 SCATTER_GETFIN = ("    mbar_wait(&full[s], (uint32_t)((t / K) & 1));"
                   "  // getfin\n")
 SCATTER_REFILL = ("      if (t >= K)                      // every consumer "
@@ -4074,10 +4177,8 @@ MUTANTS = {
     # the threads compute from a slot without waiting for its loads
     "triad_getfin": [("stream_triad.cu", TRIAD_GETFIN, "")],
     # a slot's bulk store is issued before the threads have computed it
-    "triad_store": [("stream_triad.cu", TRIAD_STORE, ""),
-                    ("stream_triad.cu", TRIAD_GETFIN,
-                     TRIAD_GETFIN + "    if (elected) {\n" + TRIAD_STORE
-                     + "    }\n")],
+    # (the producer does not wait on the step's `done`)
+    "triad_store": [("stream_triad.cu", TRIAD_DONE, "")],
     # head sizes below a body's own (Dp): each body stores Dp columns ...
     "flash_wgmma_store_dp": [("flash_attention.cu",
                               "    if (!EXACT && col >= dh) break;     "
@@ -4107,8 +4208,8 @@ MUTANTS = {
                                "0}", "cuuint64_t dims[4] = {(cuuint64_t)"
                                "((D + 63) / 64 * 64), 0, 0, 0}")],
     "flash_mma_load_tail": [("flash_attention.cu",
-                             "const bool col_in = EXACT || c * 8 < dh;",
-                             "const bool col_in = true;")],
+                             "col_in[j] = EXACT || c * 8 < dh;",
+                             "col_in[j] = true;")],
     "flash_fma_load_tail": [("flash_attention.cu",
                              "const bool in = row0 + r < S && c < dh;",
                              "const bool in = row0 + r < S;")],
@@ -4273,6 +4374,23 @@ MUTANTS = {
     "paged_group_ticket": [("paged_attention.cu",
                             "          if (last) atomicExch(gt, 0);\n",
                             "")],
+    # flash's mma.sync body masking only straddling tiles: the diagonal's
+    # tile taken as interior for a warp unless it straddles its last row
+    "flash_mma_straddle": [("flash_attention.cu",
+                            "(causal && k0 + BN - 1 > rw) ||",
+                            "(causal && k0 + BN - 1 > rw + 15) ||")],
+    # the triad's steps of 4 / item bulk copies: the last copy of a step
+    # not issued at 8 and 16 bits (its bytes never land: the step's
+    # mbarrier never completes and the copy is killed) ...
+    "triad_step_copy": [("stream_triad.cu",
+                         "        for (int j = 0; j < K; ++j) {              "
+                         "// one block an aload\n",
+                         "        for (int j = 0; j + (K > 1) < K; ++j) {\n")],
+    # ... and its 8-bit lanes added as one 32-bit word (b unmasked: a
+    # byte's carry reaches the next lane)
+    "triad_word_carry": [("stream_triad.cu",
+                          "  const uint32_t even = (b & M) + (c & M) * s;",
+                          "  const uint32_t even = b + (c & M) * s;")],
 }
 
 
@@ -4696,6 +4814,7 @@ def main() -> int:
     check_paged_fp8(gen)
     check_redesigns(gen)
     check_pair_heads_and_add16(gen)
+    check_mma_and_triad(gen)
     fp8_serve_shapes(gen)
 
     # 4. the slice and the later paths, then training; 5. the AMU kernels'

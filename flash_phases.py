@@ -1,0 +1,221 @@
+#!/usr/bin/env python3
+"""Per-warp phase times of flash attention's mma.sync body, from a copy of
+its source that stamps clock64().
+
+    python3 flash_phases.py [--src DIR] [--label NAME] [--case D[,DTYPE] ...]
+
+Copies DIR (a tree's `src/`, this tree's by default) to
+`build/flash_phases/NAME/src`, edits the copy's `flash_attention.cu` (each
+edit's text must be in it exactly once, as a mutant's of chip_smoke.py: it
+adds a `__device__` array, an `extern "C"` reader and clock64() stamps in
+`flash_mma_kernel`, the body of 16-bit rows at Dp 16 and 32), builds that
+source alone, and runs causal flash attention at qwen2.5-3b's prefill
+layout (B = 4, Hq = 16, Hkv = 2, S = 1000) at each case's head size and
+type (by default D 8, 16 and 32 in bf16). For each case it prints, over the
+warps of all blocks, the mean and the largest cycles a warp spent on:
+
+  start    the Q tile's load and its fragments, up to the first K/V issue;
+  issue    issuing a K/V tile's cp.async copies;
+  wait     the wait for a K/V tile (cp.async.wait_group and the barrier);
+  qk       Q K^T on mma.sync;
+  mask     the mask and the scale (the parent: with the per-element max);
+  max      the row max's shuffles and the new max;
+  exp      the exponentials and row sums (and alpha);
+  rescale  the rescale of acc;
+  pv       P V with its ldmatrix;
+  close    the closing barrier of a tile (none where the ring has one
+           barrier a tile);
+  end      the row sums' shuffles and the stores;
+
+the tiles a warp took, its whole time, and, from %globaltimer, the span of
+the launch (first warp's start to last warp's end) beside the longest
+warp's and the kernel time by CUDA events of the stamped copy (the stamps
+cost a little). A stamp marks where a warp issued its instructions, not
+where their results landed: a product's latency shows in the phase that
+first reads it. Warps of other blocks on the same SM interleave, so a
+phase's cycles include theirs: compare shares, and two trees in one call.
+One JSON line at the end, then the card's name and power limit. Needs one
+NVIDIA card. The copy, its build and its reader: `phases_common.py`.
+"""
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+
+import phases_common as pc
+
+SYMBOL = "repro_flash_phase"
+PHASES = ("start", "issue", "wait", "qk", "mask", "max", "exp", "rescale",
+          "pv", "close", "end")
+# stamps a warp: PHASES, then tiles, the whole time, %globaltimer at its
+# start and end (ns), and the SM it ran on
+NSLOT = 16
+TILES, TOTAL, T0, T1, SMID = range(len(PHASES), len(PHASES) + 5)
+MAXW = 16384                       # warps recorded (4096 at B4 Hq16 S1000)
+(START, ISSUE, WAIT, QK, MASK, MAX, EXP, RESCALE, PV, CLOSE,
+ END) = range(len(PHASES))
+
+RECORD = (
+    f"  ph_tick({END});\n"
+    f"  ph_[{TOTAL}] = clock64() - ph_start;\n"
+    "  {\n"
+    "    unsigned long long g1;\n"
+    "    unsigned sm;\n"
+    '    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));\n'
+    '    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));\n'
+    f"    ph_[{T0}] = ph_g0;\n"
+    f"    ph_[{T1}] = g1;\n"
+    f"    ph_[{SMID}] = sm;\n"
+    "  }\n"
+    "  {\n"
+    "    const long long wid = ((long long)(blockIdx.z * gridDim.y +\n"
+    "                                       blockIdx.y) * gridDim.x +\n"
+    "                           blockIdx.x) * (blockDim.x / 32) +\n"
+    "                          threadIdx.x / 32;\n"
+    f"    if ((threadIdx.x & 31) == 0 && wid < {MAXW})\n"
+    f"      for (int i = 0; i < {NSLOT}; ++i)\n"
+    "        " + SYMBOL + "[wid][i] = ph_[i];\n"
+    "  }\n")
+
+# csrc/flash_attention.cu's edits (`phases_common.Edit`)
+EDITS = (
+    # the stamps' state, at the mma body's start
+    (("  uint32_t* Qs = smem + (SLOTS - 1) * 2 * TILE;   "
+      "// the last slot's K area\n",
+      "  uint32_t* Qs = smem + (MMA_SLOTS - 1) * 2 * TILE;   "
+      "// the last slot's K\n"),
+     lambda old: old +
+     f"  unsigned long long ph_[{NSLOT}] = {{}};\n"
+     "  const unsigned long long ph_start = clock64();\n"
+     "  unsigned long long ph_t = ph_start, ph_g0;\n"
+     '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ph_g0));\n'
+     "  auto ph_tick = [&](int i) {\n"
+     "    const unsigned long long now = clock64();\n"
+     "    ph_[i] += now - ph_t;\n"
+     "    ph_t = now;\n"
+     "  };\n"),
+    # the end of the start: the parent's first issue, after Q's fragments;
+    # the change issues Q and its first tiles together, then the fragments
+    (("  issue(kt_lo);\n",
+      "  // rows r0 = g and r1 = g + 8 of the warp's 16, from rw = its first;"
+      " m in\n"),
+     lambda old: f"  ph_tick({START});\n" + old + (
+         f"  ph_tick({ISSUE});\n" if "issue" in old else "")),
+    (("      issue(kt + 1);\n",
+      "    issue(kt + MMA_SLOTS - 1);          "
+      "// into the slot kt - 1 was read from\n"),
+     lambda old: old + old[:len(old) - len(old.lstrip())]
+     + f"ph_tick({ISSUE});\n"),
+    (("    __syncthreads();\n"
+      "    const uint32_t* Ks = smem + ((kt - kt_lo) % SLOTS) * 2 * TILE;\n",
+      "    __syncthreads();    // tile kt landed for all; kt - 1 is read\n"),
+     lambda old: old + f"    ph_tick({WAIT});\n    ph_[{TILES}]++;\n"),
+    (("    // mask and online softmax on the fragment",
+      "    // mask only where the tile straddles S, the diagonal or the "
+      "window\n    // edge for the warp's rows"),
+     lambda old: old[:len(old) - len(old.lstrip())] + f"ph_tick({QK});\n"
+     + old),
+    (("      tmax1 = fmaxf(tmax1, fmaxf(s[n][2], s[n][3]));\n    }\n",
+      "    // the row max on the raw logits (the scale is positive); a row's"
+      " 64\n"),
+     lambda old: (old + f"    ph_tick({MASK});\n") if old.startswith(
+         "      tmax1") else f"      ph_tick({MASK});\n" + old),
+    (("    const float mn0 = fmaxf(m0, tmax0), mn1 = fmaxf(m1, tmax1);\n",
+      "    // the running max and the old terms' factor alpha, in log2 "
+      "units\n"),
+     lambda old: old[:len(old) - len(old.lstrip())] + f"ph_tick({MAX});\n"
+     + old),
+    (("#pragma unroll\n    for (int d = 0; d < DB; ++d) {\n"
+      "      acc[d][0] *= alpha0;\n",
+      "#pragma unroll\n      for (int d = 0; d < DB; ++d) {\n"
+      "        acc[d][0] *= alpha0;\n"),
+     lambda old: f"ph_tick({EXP});\n" + old),
+    (("    // acc += P V: the logit fragments of key blocks 2kk, 2kk+1 are "
+      "the A\n    // fragment of k-step kk\n",
+      "    // acc += P V: the logit fragments"),
+     lambda old: old[:len(old) - len(old.lstrip())] + f"ph_tick({RESCALE});\n"
+     + old),
+    (("    __syncthreads();              "
+      "// this slot is free for the tile after next\n",
+      "    // P V done: the next tile's barrier frees this slot\n"),
+     lambda old: f"    ph_tick({PV});\n" + old + f"    ph_tick({CLOSE});\n"),
+    ("  }\n}\n\n// -------------------------------------------------------"
+     "--------------------\n// bfloat16 at D = 64 / 128 / 256 on wgmma",
+     "  }\n" + RECORD + "}\n\n// ---------------------------------------"
+     "------------------------------------\n// bfloat16 at D = 64 / 128 / "
+     "256 on wgmma"),
+)
+
+
+def main() -> int:
+    args = pc.parse_args(__doc__, "flash_phases", ["8", "16", "32"])
+    if args is None:
+        return 1
+    import chip_smoke as cs
+    copy = pc.make_copy(os.path.abspath(args.src), "flash_phases",
+                        args.label, "flash_attention.cu", EDITS, SYMBOL,
+                        MAXW, NSLOT)
+    lib, build = pc.build(copy, "flash_attention", SYMBOL, args.label)
+    from repro_torch.kernels import flash_attention as fa
+    if args.build_only:
+        return 0
+    hz = pc.sm_hz()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, hq, hkv, s = cs.BATCH, 16, 2, cs.PROMPT_LEN
+    results = []
+    for case in args.case:
+        d, *rest = case.split(",")
+        d = int(d)
+        dtype = getattr(torch, rest[0]) if rest else torch.bfloat16
+        body = fa.body_for(dtype, d)
+        if body != "mma":
+            raise ValueError(f"flash_phases: D{d} {dtype} runs the {body} "
+                             "body, not mma.sync")
+        q, k, v = cs.flash_case(gen, b, hq, hkv, s, d, dtype)
+        cs.check_flash_out(f"flash D{d} {cs.tname(dtype)} (stamped copy)",
+                           fa.flash_attention(q, k, v), q, k, v)
+        ms = cs.time_ms([lambda: fa.flash_attention(q, k, v)], 20)
+        stamps = pc.stamps(lib, build, SYMBOL, MAXW, NSLOT,
+                           lambda: fa.flash_attention(q, k, v))
+        warps = stamps[stamps[:, TOTAL] > 0]
+        total = warps[:, TOTAL]
+        t0, t1 = warps[:, T0], warps[:, T1]
+        row = dict(case=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} {cs.tname(dtype)} "
+                        "causal",
+                   kernel_ms=ms, sm_mhz=hz / 1e6, warps=int(warps.shape[0]),
+                   tiles_mean=float(warps[:, TILES].mean()),
+                   tiles_max=float(warps[:, TILES].max()),
+                   total_cycles_mean=float(total.mean()),
+                   total_cycles_max=float(total.max()),
+                   total_us_max=float(total.max()) / hz * 1e6,
+                   span_us=float(t1.max() - t0.min()) / 1e3,
+                   last_start_us=float(t0.max() - t0.min()) / 1e3,
+                   sms=int(torch.unique(warps[:, SMID]).numel()))
+        tiles = warps[:, TILES].clamp(min=1)
+        for i, name in enumerate(PHASES):
+            row[f"{name}_cycles_mean"] = float(warps[:, i].mean())
+            row[f"{name}_cycles_max"] = float(warps[:, i].max())
+            row[f"{name}_share"] = float(warps[:, i].sum() / total.sum())
+            row[f"{name}_cycles_a_tile"] = float((warps[:, i] / tiles).mean())
+        results.append(row)
+        print(f"{args.label}: flash {row['case']} (mma body): {ms:.4f} ms "
+              f"stamped, launch span {row['span_us']:.2f} us (last warp "
+              f"started at {row['last_start_us']:.2f} us, {row['sms']} SMs),"
+              f" a warp {row['tiles_mean']:.2f} tiles (max "
+              f"{row['tiles_max']:.0f}), {row['total_cycles_mean']:.0f} "
+              f"cycles (max {row['total_us_max']:.2f} us at "
+              f"{hz / 1e6:.0f} MHz); shares "
+              + ", ".join(f"{n} {row[f'{n}_share']:.3f} (mean "
+                          f"{row[f'{n}_cycles_mean']:.0f}, "
+                          f"{row[f'{n}_cycles_a_tile']:.0f} a tile)"
+                          for n in PHASES),
+              flush=True)
+        del q, k, v
+    pc.close(args.label, args.src, results)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -72,10 +72,17 @@ bf16 copies and then the bf16 body at the same shape) and `g16_add16`
 Hkv=1, T=4128, lengths [4128, 4097, 2065, 64]: bf16 at D 64, 128 and 256,
 e4m3 caches under a bf16 q at D 256, beside SDPA; then int16, uint16 and
 int8 add of 2^20 updates, a quarter into 4096 hot rows, into [2^24, 64]
-and [2^24, 3] beside `index_add_`).
+and [2^24, 3] beside `index_add_`), `mma_triad` (flash at D 8, 16 and 32,
+the mma.sync body, in qwen2.5-3b's prefill layout in bf16 and f16 beside
+SDPA; then the triad at N = 2^28 in every type it takes, each held bit for
+bit once, beside `torch.add(b, c, alpha=s)` where torch takes the type on
+the card) and `served` (the bodies of the served paths alone: flash at
+qwen2.5-3b's prefill and recurrentgemma-9b's D 256, paged at qwen2.5-3b's
+decode, GUPS as drawn, the f32 triad).
 `--only` picks some of flash, paged, gather, triad, scatter,
 scatter_bf16, types, paged_fp8, paged_mixed, scatter_narrow,
-scatter_sweep, paged_heads, flash_fp8, g16_add16. For each:
+scatter_sweep, paged_heads, flash_fp8, g16_add16, mma_triad, served. For
+each:
 kernel ms (CUDA
 events, mean of back-to-back calls, best of 5 windows, as in chip_smoke.py),
 host us a call (perf_counter over 50 calls without a synchronise), the
@@ -188,6 +195,20 @@ def main() -> int:
         rows.extend(bench_flash_fp8(cs, fa, ref, F, gen))
     if "g16_add16" in args.only:
         rows.extend(bench_g16_add16(cs, pa, asc, ref, F, gen))
+    if "mma_triad" in args.only:
+        rows.extend(bench_flash(cs, fa, F, gen, b, hq, hkv, s, d_,
+                                dtype=dtype)
+                    for dtype in (torch.bfloat16, torch.float16)
+                    for d_ in MMA_DIMS)
+        rows.extend(bench_triad_typed(cs, st, ref, gen, dtype)
+                    for dtype in st.TYPES)
+    if "served" in args.only:
+        rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, d))
+        rows.append(bench_flash(cs, fa, F, gen, b, 16, 1, 4096, 256,
+                                window=2048))
+        rows.append(bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d))
+        rows.extend(bench_scatter(cs, asc, ref, gen, gups_only=True))
+        rows.append(bench_triad(cs, st, gen))
     if "paged_mixed" in args.only:
         rows.extend(bench_paged_typed(cs, pa, ref, F, gen, q_dtype,
                                       torch.bfloat16)
@@ -371,6 +392,41 @@ def bench_triad(cs, st, gen, dtype=torch.float32):
     return row
 
 
+# `mma_triad`: the head sizes of flash's mma.sync body at qwen2.5-3b's
+# prefill layout (D 8 is the smoke configs' head size, on Dp 16)
+MMA_DIMS = (8, 16, 32)
+
+
+def bench_triad_typed(cs, st, ref, gen, dtype, scale=1.0):
+    """The triad at N = 2^28 in `dtype` (floats N(0, scale^2), integers
+    over the whole type), held bit for bit against the plain version once,
+    beside `torch.add(b, c, alpha=s)` with s in the type where torch takes
+    the type on the card (none for float8, and where it refuses the type:
+    uint16 and uint32 in some versions)."""
+    n = 1 << 28
+    x, y = (cs.rand_typed(gen, (n,), dtype, scale) for _ in range(2))
+    cs.check_same(f"triad {cs.tname(dtype)}", st.stream_triad(x, y, 3.3),
+                  ref.triad_ref(x, y, 3.3), quiet=True)
+    alpha = ref.round_scalar(3.3, dtype)
+    library_ms = None
+    if dtype not in cs.FP8:
+        try:
+            torch.add(x, y, alpha=alpha)
+            library_ms = cs.time_ms([lambda: torch.add(x, y, alpha=alpha)],
+                                    20)
+        except (RuntimeError, TypeError):
+            pass
+    row = dict(
+        kernel="stream_triad", case=f"{cs.tname(dtype)} N={n}",
+        ms=cs.time_ms([lambda: st.stream_triad(x, y, 3.3)], 20),
+        host_us=cs.host_us(lambda: st.stream_triad(x, y, 3.3)),
+        library_ms=library_ms,
+        bound_ms=cs.amu_bound(3 * n * x.element_size(), 2 * n)[0])
+    del x, y
+    cs.free_cuda()
+    return row
+
+
 def bench_gather(cs, ag, gen):
     rows = []
     cases = [((151936, 2048), torch.bfloat16, 4000, "embedding"),
@@ -404,10 +460,11 @@ def bench_gather(cs, ag, gen):
     return rows
 
 
-def bench_scatter(cs, asc, ref, gen):
+def bench_scatter(cs, asc, ref, gen, gups_only=False):
     """GUPS as drawn and sorted by region beforehand; then 512-byte rows in
-    int32 xor and f32 add. Each case's result is held against the plain
-    version once; the timed calls keep updating one table in place."""
+    int32 xor and f32 add (`gups_only`: GUPS as drawn alone). Each case's
+    result is held against the plain version once; the timed calls keep
+    updating one table in place."""
     rows = []
 
     def case(name, table, idx, upd, op, want, library=None, yardstick=None,
@@ -445,6 +502,10 @@ def bench_scatter(cs, asc, ref, gen):
     cs.free_cuda()
     case(f"GUPS xor [{n},{w}] int32, {m} updates", table, idx, upd, "xor",
          want, yardstick=lambda out: out.index_add_(0, idx, upd))
+    if gups_only:
+        del table, idx, upd, want
+        cs.free_cuda()
+        return rows
     if hasattr(asc, "scatter_bucket"):      # the bucket pass alone, where
                                             # the tree has one
         rows.append(dict(
@@ -502,23 +563,10 @@ def bench_types(cs, fa, pa, ag, asc, st, ref, F, gen):
                            (torch.float8_e5m2, torch.float8_e5m2),
                            (torch.bfloat16, torch.float8_e4m3fn)):
         rows.append(bench_paged_typed(cs, pa, ref, F, gen, q_dtype, dtype))
-    n = 1 << 28
     for dtype in (torch.int8, torch.uint8, torch.int16, torch.int32,
                   *cs.FP8):
-        scale = cs.OVERFLOW_SCALE.get(dtype, 1.0)
-        x, y = (cs.rand_typed(gen, (n,), dtype, scale) for _ in range(2))
-        cs.check_same("triad", st.stream_triad(x, y, 3.3),
-                      ref.triad_ref(x, y, 3.3), quiet=True)
-        alpha = ref.round_scalar(3.3, dtype)
-        rows.append(dict(
-            kernel="stream_triad", case=f"{cs.tname(dtype)} N={n}",
-            ms=cs.time_ms([lambda: st.stream_triad(x, y, 3.3)], 20),
-            host_us=cs.host_us(lambda: st.stream_triad(x, y, 3.3)),
-            library_ms=None if dtype.is_floating_point else cs.time_ms(
-                [lambda: torch.add(x, y, alpha=alpha)], 20),
-            bound_ms=cs.amu_bound(3 * n * x.element_size(), 2 * n)[0]))
-        del x, y
-        cs.free_cuda()
+        rows.append(bench_triad_typed(cs, st, ref, gen, dtype,
+                                      cs.OVERFLOW_SCALE.get(dtype, 1.0)))
     for dtype, op, w in ((torch.int8, "add", 64), (torch.int16, "add", 64),
                          (torch.uint16, "add", 64),
                          (torch.float8_e4m3fn, "add", 64),

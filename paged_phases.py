@@ -24,33 +24,28 @@ chunks and segments a set; the set's whole time; when its first and last
 chunk had landed (the end of their getfin); the block's time in microseconds
 at the SM clock measured by a sleep kernel; and the copy's kernel time by
 CUDA events (the stamps cost a little). One JSON line at the end, then the
-card's name and power limit. Needs one NVIDIA card.
+card's name and power limit. Needs one NVIDIA card. The copy, its build
+and its reader: `phases_common.py`.
 """
 from __future__ import annotations
 
-import argparse
-import json
 import os
-import shutil
-import subprocess
 import sys
 
 import torch
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+import phases_common as pc
+
+SYMBOL = "repro_paged_phase"
+ROWS = 2048                        # consumer sets recorded: 2 a block
 PHASES = ("wait", "qk", "softmax_pv", "rest", "finish", "start", "segment")
 # stamps a consumer set: PHASES, then chunks, segments, the whole time, and
 # the times from the start to the end of the first and of the last getfin
 SLOTS = 12
 CHUNKS, SEGMENTS, TOTAL, FIRST, LAST = range(len(PHASES), SLOTS)
 
-# (text in csrc/paged_attention.cu, what replaces it); a tuple of texts is
-# the forms of one place in trees from before and after a redesign, the
-# first found replaced by what the function makes of it
+# csrc/paged_attention.cu's edits (`phases_common.Edit`)
 EDITS = (
-    ('#include "hopper.cuh"\n',
-     '#include "hopper.cuh"\n\n'
-     f'__device__ unsigned long long repro_paged_phase[2048][{SLOTS}];\n'),
     ("  extern __shared__ __align__(1024) unsigned char smem[];\n",
      "  extern __shared__ __align__(1024) unsigned char smem[];\n"
      f"  unsigned long long ph_[{SLOTS}] = {{}};\n"
@@ -110,92 +105,24 @@ EDITS = (
      f"  ph_[{TOTAL}] = clock64() - ph_start;\n"
      "  if (lane == 0 && hw == 0 && blockIdx.x < 1024 && blockIdx.y == 0) {\n"
      f"    for (int i = 0; i < {SLOTS}; ++i)\n"
-     "      repro_paged_phase[blockIdx.x * 2 + set][i] = ph_[i];\n"
+     "      " + SYMBOL + "[blockIdx.x * 2 + set][i] = ph_[i];\n"
      "  }\n"
      "}\n\n// The tensor map"),
 )
-READER = f"""
-// The stamps of the last launch (clear before it): 2048 x {SLOTS} words.
-extern "C" int repro_paged_phase_clear() {{
-  void* p = nullptr;
-  cudaError_t err = cudaGetSymbolAddress(&p, repro_paged_phase);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaMemset(p, 0, sizeof(repro_paged_phase));
-}}
-
-extern "C" int repro_paged_phase_read(void* host) {{
-  return (int)cudaMemcpyFromSymbol(host, repro_paged_phase,
-                                   sizeof(repro_paged_phase));
-}}
-"""
-
-
-def make_copy(src: str, label: str) -> str:
-    """The edited copy of `src`; returns its `src` directory."""
-    dst = os.path.join(ROOT, "build", "paged_phases", label)
-    shutil.rmtree(os.path.join(dst, "src"), ignore_errors=True)
-    shutil.copytree(src, os.path.join(dst, "src"),
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    path = os.path.join(dst, "src", "repro_torch", "kernels", "csrc",
-                        "paged_attention.cu")
-    with open(path) as f:
-        text = f.read()
-    for old, new in EDITS:
-        if isinstance(old, tuple):          # the form this tree has
-            old = next((o for o in old if o in text), old[0])
-            new = new(old)
-        if text.count(old) != 1:
-            raise AssertionError(f"paged_phases: {old!r} is not in "
-                                 f"{path} exactly once")
-        text = text.replace(old, new)
-    with open(path, "w") as f:
-        f.write(text + READER)
-    return os.path.join(dst, "src")
-
-
-def sm_hz() -> float:
-    """The SM clock under load: cycles of a sleep kernel over its event
-    time."""
-    cycles = 20_000_000
-    torch.cuda._sleep(cycles)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(cycles)
-    stop.record()
-    torch.cuda.synchronize()
-    return cycles / (start.elapsed_time(stop) * 1e-3)
-
-
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
-    ap.add_argument("--label", default="this-tree")
-    ap.add_argument("--case", nargs="*",
-                    default=["16,64", "16,80", "16,128", "2,128"])
-    ap.add_argument("--build-only", action="store_true",
-                    help="build the stamped copy and stop (a later run "
-                         "with the same --src and --label reuses it)")
-    args = ap.parse_args()
-    if not args.build_only and not torch.cuda.is_available():
-        print("paged_phases: torch.cuda.is_available() is False",
-              file=sys.stderr)
+    args = pc.parse_args(__doc__, "paged_phases",
+                         ["16,64", "16,80", "16,128", "2,128"])
+    if args is None:
         return 1
-    import ctypes
-
     import chip_smoke as cs
-    copy = make_copy(os.path.abspath(args.src), args.label)
-    sys.path.insert(0, copy)
-    from repro_torch.kernels import _build
+    copy = pc.make_copy(os.path.abspath(args.src), "paged_phases",
+                        args.label, "paged_attention.cu", EDITS, SYMBOL,
+                        ROWS, SLOTS)
+    lib, build = pc.build(copy, "paged_attention", SYMBOL, args.label)
     from repro_torch.kernels import paged_attention as pa, ref
-    _build._sources = lambda: [_build.CSRC / "paged_attention.cu"]
-    lib = _build.load("paged_attention")
-    lib.repro_paged_phase_read.argtypes = [ctypes.c_void_p]
-    print(f"{args.label}: built the stamped copy in "
-          f"{_build.build_seconds or 0.0:.1f} s", flush=True)
     if args.build_only:
         return 0
-    hz = sm_hz()
+    hz = pc.sm_hz()
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, hq = cs.BATCH, 16
     results = []
@@ -210,13 +137,8 @@ def main() -> int:
                        ref.paged_attention_ref(*x, lens),
                        **cs.PAGED_BF16_TOL)
         ms = cs.time_ms([lambda: pa.paged_attention(*x, lens)], 64)
-        _build.check(lib, lib.repro_paged_phase_clear(), "clear")
-        pa.paged_attention(*x, lens)
-        torch.cuda.synchronize()
-        host = (ctypes.c_ulonglong * (2048 * SLOTS))()
-        _build.check(lib, lib.repro_paged_phase_read(host), "read")
-        stamps = torch.tensor(list(host), dtype=torch.float64).view(2048,
-                                                                    SLOTS)
+        stamps = pc.stamps(lib, build, SYMBOL, ROWS, SLOTS,
+                           lambda: pa.paged_attention(*x, lens))
         sets = stamps[stamps[:, TOTAL] > 0]      # sets that had rows
         total = sets[:, TOTAL]
         row = dict(case=f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} bf16",
@@ -249,12 +171,7 @@ def main() -> int:
                           f"{row[f'{n}_cycles_mean']:.0f})" for n in PHASES),
               flush=True)
         del x
-    print(json.dumps({"label": args.label, "src": args.src,
-                      "phases": results}))
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip())
+    pc.close(args.label, args.src, results)
     return 0
 
 

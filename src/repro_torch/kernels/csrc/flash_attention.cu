@@ -95,9 +95,34 @@
 //     unaided: taking turns by named barriers (each warpgroup's Q K^T, then
 //     its P V, in the order 0, 1, 0, 1) measured slower (PERF.md).
 // * bfloat16, D = 16 or 32 -> `flash_mma_kernel` (FlashAttention-2 on
-//   mma.sync.m16n8k16, 64x64 tiles, a 2-slot cp.async K/V ring): a wgmma
-//   tile of 16 or 32 columns would waste most of each 128-byte swizzle row,
-//   and no architecture the port serves has such heads at full size.
+//   mma.sync.m16n8k16, 64 x 64 tiles, 4 warps of 16 query rows, K and V by
+//   cp.async). At Dp 16 and 32 the two products are a few mma a tile, so
+//   neither the tensor cores nor the bytes bound it but the instructions a
+//   warp issues a tile: `flash_phases.py` (clock64 stamps a phase) found
+//   them in the exponentials (expf after a separate multiply by the scale),
+//   the K/V copies' issue (an index division and a 64-bit address a piece,
+//   every tile), the mask (a column index and three tests a logit, on every
+//   tile) and two barriers a tile. So:
+//   - the mask is applied only where a tile straddles S, the causal
+//     diagonal or the window edge for the warp's 16 rows, as the wgmma body
+//     does (a tile masked whole for them is computed all the same: its p
+//     are 0; skipping it, a branch around the row max's shuffles, measured
+//     slower);
+//   - p = 2^(s * scale * log2 e - m) is one FFMA and one ex2.approx.ftz,
+//     with m kept in the log2 domain and the max taken on the raw logits;
+//     alpha the same way;
+//   - a thread copies the same rows and columns of every tile, so their
+//     offsets are worked out once (`TileCopy`): a tile's issue is a compare
+//     and a cp.async a 16-byte piece;
+//   - a 3-slot ring (the tile in use, the next, one in flight) with one
+//     barrier a tile, at its top: it publishes tile kt and frees the slot
+//     tile kt - 1 was read from, which the same iteration refills; Q lands
+//     in the last slot while the first two tiles are in flight;
+//   - at D = 8 (Dp 16: the smoke configs' head size) P V is one mma a
+//     16-key step at n = 8, so no product lands on the zero columns.
+//   A wgmma tile of 16 or 32 columns would waste most of each 128-byte
+//   swizzle row, and the phases showed the softmax and the per-tile issue,
+//   not the products, setting the pace, so this body stays on mma.sync.
 //
 //
 // Every head size D from 1 up, as the TPU kernel takes (its BlockSpecs span
@@ -619,7 +644,8 @@ flash_fma_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores. Block = 4 warps x 16 query rows.
+// bfloat16 / float16 at Dp 16 and 32 on the tensor cores (mma.sync). Block =
+// 4 warps x 16 query rows (see the note at the top for what bounds it).
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row): a0 = (g, 2t..2t+1)  a1 = (g+8, 2t..)  a2 = (g, 2t+8..)
 //                   a3 = (g+8, 2t+8..)
@@ -630,8 +656,14 @@ flash_fma_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
 // Rows are padded by 4 words (WS % 8 == 4): the 8 g x 4 t word reads of a B
 // fragment hit 32 different banks, and rows stay 16-byte aligned for ldmatrix.
 constexpr int MMA_NT = 128;
-constexpr int SLOTS = 2;      // K/V tiles in flight or in use (the slot ring)
+// K/V tiles in the ring: the one in use, the next (landed or landing) and
+// the one in flight, so that one barrier a tile both publishes a tile and
+// frees the slot the tile before it was read from
+constexpr int MMA_SLOTS = 3;
 static_assert(BM == BN, "the Q tile borrows a K slot");
+// below any real logit in log2 units, above any masked one (NEG_INF times
+// the scale): the running max of a row that has met no key yet
+constexpr float NO_KEY = NEG_INF * 1e-10f;
 
 template <typename T>
 __device__ __forceinline__ void mma_16816(float (&d)[4],
@@ -648,6 +680,16 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
   else
     MMA_16816("bf16");
 #undef MMA_16816
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* smem_ptr) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
@@ -676,9 +718,10 @@ template <int D> struct MmaCfg {
   static constexpr int NW = D / 2;                // words per row
   static constexpr int WS = NW + 4;               // padded row stride (words)
   static constexpr int TILE = BN * WS;            // words of one K or V tile
-  // a ring of SLOTS (K, V) tile pairs; the Q tile borrows the last slot's K
-  // area until its fragments are in registers
-  static constexpr size_t SMEM = sizeof(uint32_t) * (size_t)SLOTS * 2 * TILE;
+  // a ring of MMA_SLOTS (K, V) tile pairs; the Q tile borrows the last
+  // slot's K area until its fragments are in registers
+  static constexpr size_t SMEM =
+      sizeof(uint32_t) * (size_t)MMA_SLOTS * 2 * TILE;
 };
 
 // The AMI pattern in its Hopper form: aload = cp.async (16 bytes a request,
@@ -699,41 +742,69 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// issue the copies of rows [row0, row0 + BN) of a [*, D] 16-bit operand into
-// a shared tile; rows past S and, unless EXACT, the 16-byte pieces at or past
-// column dh (a multiple of 8) are zero-filled. Returns at once.
+// One thread's copies of a [BN, D] 16-bit tile (rows [row0, row0 + BN) of
+// an operand) into a shared tile: CPT 16-byte pieces, the same rows and
+// columns of every tile, so their offsets are worked out once and a tile's
+// issue is a compare and a cp.async a piece. Rows past S and, unless EXACT,
+// the pieces at or past column dh (a multiple of 8) are zero-filled.
 template <typename T, int D, bool EXACT>
-__device__ __forceinline__ void issue_tile(uint32_t* dst, const T* src,
-                                           long long row_stride, int row0,
-                                           int S, int dh) {
-  constexpr int CPR = D / 8;                      // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < BN * CPR; idx += MMA_NT) {
-    const int r = idx / CPR, c = idx % CPR;
-    const bool col_in = EXACT || c * 8 < dh;
-    const bool in = row0 + r < S && col_in;
-    cp_async_16(dst + r * MmaCfg<D>::WS + c * 4,
-                src + (in ? row0 + r : 0) * row_stride + (col_in ? c * 8 : 0),
-                in ? 16 : 0);
-  }
-}
+struct TileCopy {
+  static constexpr int CPR = D / 8;               // 16-byte pieces a row
+  static constexpr int CPT = BN * CPR / MMA_NT;   // pieces a thread
+  static_assert(CPT * MMA_NT == BN * CPR, "whole pieces a thread");
+  int row[CPT];                 // the piece's row in the tile
+  int dst[CPT];                 // its words into the shared tile
+  long long src[CPT];           // its elements from the tile's first row
+  bool col_in[CPT];             // a column of the head (else zeros)
 
+  __device__ __forceinline__ TileCopy(long long row_stride, int dh) {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int idx = threadIdx.x + j * MMA_NT;
+      const int r = idx / CPR, c = idx % CPR;
+      row[j] = r;
+      dst[j] = r * MmaCfg<D>::WS + c * 4;
+      col_in[j] = EXACT || c * 8 < dh;
+      src[j] = r * row_stride + (col_in[j] ? c * 8 : 0);
+    }
+  }
+  // aload of the tile whose first row is `base`, `rows` of them before S;
+  // returns at once
+  __device__ __forceinline__ void issue(uint32_t* tile, const T* base,
+                                        int rows) const {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const bool in = row[j] < rows && col_in[j];
+      cp_async_16(tile + dst[j], in ? base + src[j] : base, in ? 16 : 0);
+    }
+  }
+};
+
+// The body: FlashAttention-2 on mma.sync.m16n8k16, 64 x 64 tiles, each warp
+// 16 query rows of the block's 64 and all of D. At Dp 16 and 32 the two
+// products are a few mma a tile, so the per-logit softmax and the per-tile
+// costs are the body; the note at the top says what it does about them.
 template <typename T, int D, bool EXACT>
 __global__ void __launch_bounds__(MMA_NT)
 flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int S,
                  int group, int causal,
-                 int window, float scale, int dh, long long q_sb, long long q_sh,
-                 long long q_ss, long long k_sb, long long k_sh,
-                 long long k_ss, long long v_sb, long long v_sh,
-                 long long v_ss, long long o_sb, long long o_sh,
-                 long long o_ss) {
+                 int window, float scale_log2, int dh, long long q_sb,
+                 long long q_sh, long long q_ss, long long k_sb,
+                 long long k_sh, long long k_ss, long long v_sb,
+                 long long v_sh, long long v_ss, long long o_sb,
+                 long long o_sh, long long o_ss) {
+  using hopper::fast_exp2;
   constexpr int WS = MmaCfg<D>::WS;
   constexpr int KS = D / 16;            // k-steps of Q K^T
   constexpr int NB = BN / 8;            // 8-key column blocks of the logits
-  constexpr int DB = D / 8;             // 8-wide column blocks of the output
+  // 8-wide column blocks of the output: at Dp 16 a head of D < Dp is D = 8
+  // (rows of whole 16-byte pieces), one block, so P V takes one
+  // mma.m16n8k16 a k-step and none lands on zero columns
+  constexpr int DB = !EXACT && D == 16 ? 1 : D / 8;
   extern __shared__ uint32_t smem[];
   constexpr int TILE = MmaCfg<D>::TILE;
-  uint32_t* Qs = smem + (SLOTS - 1) * 2 * TILE;   // the last slot's K area
+  uint32_t* Qs = smem + (MMA_SLOTS - 1) * 2 * TILE;   // the last slot's K
 
   const int qt = gridDim.x - 1 - blockIdx.x;      // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -746,9 +817,31 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * k_sb + hk * k_sh;
   const T* vb = v + b * v_sb + hk * v_sh;
 
-  issue_tile<T, D, EXACT>(Qs, qb, q_ss, q0, S, dh);
+  const int nkt = (S + BN - 1) / BN;
+  const int q_last = min(q0 + BM, S) - 1;
+  const int kt_hi = causal ? min(nkt, q_last / BN + 1) : nkt;
+  int kt_lo = 0;
+  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BN;
+
+  // aload of KV tile kt into its slot, one request group a tile (an empty
+  // one past the last tile, so that "one group pending" always means the
+  // tile after the one waited for)
+  const TileCopy<T, D, EXACT> kc(k_ss, dh), vc(v_ss, dh);
+  auto issue = [&](int kt) {
+    if (kt < kt_hi) {
+      uint32_t* slot = smem + ((kt - kt_lo) % MMA_SLOTS) * 2 * TILE;
+      const int k0 = kt * BN;
+      kc.issue(slot, kb + k0 * k_ss, S - k0);
+      vc.issue(slot + TILE, vb + k0 * v_ss, S - k0);
+    }
+    cp_async_commit();
+  };
+  // Q, then the first two K/V tiles, all in flight together: Q lands in the
+  // last slot, which no tile takes before the loop's first barrier
+  TileCopy<T, D, EXACT>(q_ss, dh).issue(Qs, qb + q0 * q_ss, S - q0);
   cp_async_commit();
-  cp_async_wait<0>();
+  for (int j = 0; j < MMA_SLOTS - 1; ++j) issue(kt_lo + j);
+  cp_async_wait<MMA_SLOTS - 1>();
   __syncthreads();
   uint32_t qa[KS][4];                   // this warp's 16 query rows, all of D
 #pragma unroll
@@ -760,43 +853,24 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qa[ks][3] = base[8 * WS + 4];
   }
 
-  const int nkt = (S + BN - 1) / BN;
-  const int q_last = min(q0 + BM, S) - 1;
-  const int kt_hi = causal ? min(nkt, q_last / BN + 1) : nkt;
-  int kt_lo = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BN;
-
-  // rows r0 = g and r1 = g + 8 of the warp's 16
+  // rows r0 = g and r1 = g + 8 of the warp's 16, from rw = its first; m in
+  // log2 units
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
   float acc[DB][4];
 #pragma unroll
   for (int d = 0; d < DB; ++d)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[d][c] = 0.f;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const int rw = q0 + warp * 16;
+  const int r0 = rw + g, r1 = r0 + 8;
 
-  // Q's fragments are in registers: its shared memory is a free slot now
-  __syncthreads();
-  auto issue = [&](int kt) {          // aload of KV tile kt into its slot
-    uint32_t* slot = smem + ((kt - kt_lo) % SLOTS) * 2 * TILE;
-    issue_tile<T, D, EXACT>(slot, kb, k_ss, kt * BN, S, dh);
-    issue_tile<T, D, EXACT>(slot + TILE, vb, v_ss, kt * BN, S, dh);
-    cp_async_commit();
-  };
-  issue(kt_lo);
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * BN;
-    // issue the next tile early, wait for this one late
-    if (kt + 1 < kt_hi) {
-      issue(kt + 1);
-      cp_async_wait<SLOTS - 1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint32_t* Ks = smem + ((kt - kt_lo) % SLOTS) * 2 * TILE;
+    cp_async_wait<MMA_SLOTS - 2>();     // getfin: this thread's copies of kt
+    __syncthreads();    // tile kt landed for all; kt - 1 is read
+    issue(kt + MMA_SLOTS - 1);          // into the slot kt - 1 was read from
+    const uint32_t* Ks = smem + ((kt - kt_lo) % MMA_SLOTS) * 2 * TILE;
     const uint32_t* Vs = Ks + TILE;
-
     float s[NB][4];
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
@@ -809,20 +883,28 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // mask and online softmax on the fragment: c0, c1 belong to row r0,
-    // c2, c3 to row r1; a row's 64 logits sit in the 4 lanes of a quad
+    // mask only where the tile straddles S, the diagonal or the window
+    // edge for the warp's rows: c0, c1 belong to row r0, c2, c3 to r1
+    const bool straddles = k0 + BN > S || (causal && k0 + BN - 1 > rw) ||
+                           (window > 0 && k0 <= rw + 15 - window);
+    if (straddles) {
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int col = k0 + n * 8 + 2 * t + (c & 1);
+          const int r = (c < 2) ? r0 : r1;
+          bool ok = col < S;
+          if (causal) ok = ok && (col <= r);
+          if (window > 0) ok = ok && (col > r - window);
+          if (!ok) s[n][c] = NEG_INF;
+        }
+    }
+    // the row max on the raw logits (the scale is positive); a row's 64
+    // logits sit in the 4 lanes of a quad
     float tmax0 = NEG_INF, tmax1 = NEG_INF;
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = k0 + n * 8 + 2 * t + (c & 1);
-        const int r = (c < 2) ? r0 : r1;
-        bool ok = col < S;
-        if (causal) ok = ok && (col <= r);
-        if (window > 0) ok = ok && (col > r - window);
-        s[n][c] = ok ? s[n][c] * scale : NEG_INF;
-      }
       tmax0 = fmaxf(tmax0, fmaxf(s[n][0], s[n][1]));
       tmax1 = fmaxf(tmax1, fmaxf(s[n][2], s[n][3]));
     }
@@ -831,22 +913,34 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       tmax0 = fmaxf(tmax0, __shfl_xor_sync(0xffffffffu, tmax0, off));
       tmax1 = fmaxf(tmax1, __shfl_xor_sync(0xffffffffu, tmax1, off));
     }
-    const float mn0 = fmaxf(m0, tmax0), mn1 = fmaxf(m1, tmax1);
-    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
+    // the running max and the old terms' factor alpha, in log2 units
+    const float mn0 = fmaxf(m0, tmax0 * scale_log2);
+    const float mn1 = fmaxf(m1, tmax1 * scale_log2);
+    const float alpha0 = fast_exp2(m0 - mn0), alpha1 = fast_exp2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    // p = 2^(s * scale * log2 e - m): one FFMA and one ex2. A row that has
+    // met no key yet has its max at the mask's level: subtract 0 there,
+    // so that its masked p are 2^-1e29 = 0 (the wgmma body's rule)
+    const float sub0 = mn0 > NO_KEY ? mn0 : 0.f;
+    const float sub1 = mn1 > NO_KEY ? mn1 : 0.f;
     float ps0 = 0.f, ps1 = 0.f;
+    // P as the A fragments of P V: key blocks 2kk (a0, a1) and 2kk + 1
+    // (a2, a3) of k-step kk, rows g (a0, a2) and g + 8 (a1, a3)
+    uint32_t pa[BN / 16][4];
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
-      s[n][0] = expf(s[n][0] - mn0);
-      s[n][1] = expf(s[n][1] - mn0);
-      s[n][2] = expf(s[n][2] - mn1);
-      s[n][3] = expf(s[n][3] - mn1);
-      ps0 += s[n][0] + s[n][1];
-      ps1 += s[n][2] + s[n][3];
+      const float p0 = fast_exp2(fmaf(s[n][0], scale_log2, -sub0));
+      const float p1 = fast_exp2(fmaf(s[n][1], scale_log2, -sub0));
+      const float p2 = fast_exp2(fmaf(s[n][2], scale_log2, -sub1));
+      const float p3 = fast_exp2(fmaf(s[n][3], scale_log2, -sub1));
+      ps0 += p0 + p1;
+      ps1 += p2 + p3;
+      pa[n / 2][(n & 1) * 2] = pack2<T>(p0, p1);
+      pa[n / 2][(n & 1) * 2 + 1] = pack2<T>(p2, p3);
     }
     l0 = l0 * alpha0 + ps0;       // this lane's share of the row sums
     l1 = l1 * alpha1 + ps1;
-    m0 = mn0;
-    m1 = mn1;
 #pragma unroll
     for (int d = 0; d < DB; ++d) {
       acc[d][0] *= alpha0;
@@ -859,25 +953,27 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // fragment of k-step kk
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      // lanes 0-7, 8-15, 16-23, 24-31 address the rows of four 8x8 blocks:
-      // keys +0 / +8 of d-block 2dp, then keys +0 / +8 of d-block 2dp+1
+      // lanes 0-7, 8-15, 16-23, 24-31 address the rows of four 8x8
+      // blocks: keys +0 / +8 of d-block 2dp, then keys +0 / +8 of d-block
+      // 2dp+1 (x2: lanes 0-15 only)
       const uint32_t* vrow =
           Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * WS +
           (lane >> 4) * 4;
+      if constexpr (DB == 1) {
+        uint32_t vfrag[2];
+        ldmatrix_x2_trans(vfrag, vrow);
+        mma_16816<T>(acc[0], pa[kk], vfrag[0], vfrag[1]);
+      } else {
 #pragma unroll
-      for (int dp = 0; dp < DB / 2; ++dp) {
-        uint32_t vfrag[4];
-        ldmatrix_x4_trans(vfrag, vrow + dp * 8);
-        mma_16816<T>(acc[2 * dp], pa, vfrag[0], vfrag[1]);
-        mma_16816<T>(acc[2 * dp + 1], pa, vfrag[2], vfrag[3]);
+        for (int dp = 0; dp < DB / 2; ++dp) {
+          uint32_t vfrag[4];
+          ldmatrix_x4_trans(vfrag, vrow + dp * 8);
+          mma_16816<T>(acc[2 * dp], pa[kk], vfrag[0], vfrag[1]);
+          mma_16816<T>(acc[2 * dp + 1], pa[kk], vfrag[2], vfrag[3]);
+        }
       }
     }
-    __syncthreads();              // this slot is free for the tile after next
+    // P V done: the next tile's barrier frees this slot
   }
 
 #pragma unroll
@@ -907,9 +1003,6 @@ namespace wg {
 
 constexpr int BOX = 64;          // columns a TMA box: one 128-byte swizzle row
 constexpr int ROW = BOX * 2;     // bytes of a box row
-// below any real logit in log2 units, above any masked one (NEG_INF times
-// the scale): the running max of a row that has met no key yet
-constexpr float NO_KEY = NEG_INF * 1e-10f;
 
 // The tiles by head size and loader (the note at the top says why): two
 // consumer warpgroups of 64 query rows each (BM = 128), K/V tiles of BN =
@@ -1345,7 +1438,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    long long o_ss, int e5m2) {
   using namespace hopper;
   using wg::load_box;
-  using wg::NO_KEY;
   using wg::wgmma_ss;
   using C = wg::Cfg<D, ELEM, F8>;
   static_assert(!ELEM || !EXACT, "the element loader runs padded heads only");
@@ -1785,7 +1877,6 @@ flash_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
                         long long o_sh, long long o_ss) {
   using namespace hopper;
   using wg::load_box;
-  using wg::NO_KEY;
   using wg::wgmma_ss;
   using W = wg::Wide;
   constexpr int BM = W::BM, BN = W::BN, BOX = wg::BOX, ROW = wg::ROW;
@@ -2143,8 +2234,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, MMA_NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, Hq / Hkv, causal,
-      window, scale, dh, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11]);
+      window, scale * 1.4426950408889634f, dh, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 

@@ -281,31 +281,86 @@ def test_triad_rounds_the_scalar_to_the_arrays_type():
 
 @pytest.mark.parametrize("n", [0, 1, 3, 7, 4097, (1 << 20) + 5, 1 << 28])
 @pytest.mark.parametrize("item,block,stages", [(4, 512, 4), (2, 512, 4),
-                                               (4, 1024, 2), (2, 128, 8)])
+                                               (4, 1024, 2), (2, 128, 8),
+                                               (1, 512, 4), (1, 128, 8),
+                                               (1, 1024, 2), (2, 256, 3),
+                                               (4, 512, 1), (2, 512, 1),
+                                               (1, 512, 1), (1, 8192, 4),
+                                               (1, 4096, 8), (2, 4096, 4),
+                                               (4, 4096, 4)])
 def test_triad_plan_covers_the_arrays_once(n, item, block, stages):
-    """The kernel's grid-stride steps by bulk copy and its scalar tail cover
-    [0, N) exactly once, every step a whole number of 16-byte chunks; the
-    plan keeps its loads in flight near INFLIGHT_BYTES an SM and its blocks
-    within an SM's shared memory."""
-    smem = (2 * stages + 2) * block * item + 128    # slots and barriers
+    """The kernel's grid-stride steps and its scalar tail cover [0, N)
+    exactly once. A step is `block` x STEP_ITEM bytes in every type where
+    `stages` of them fit (`step_blocks`: at most STEP_ITEM / item bulk
+    copies of at most `block` elements each, whole 16-byte chunks),
+    consecutive within the step. The plan gives a block one thread a
+    16-byte chunk of a step (128 at block 512, whatever the type), keeps its
+    loads in flight near INFLIGHT_BYTES an SM and its blocks within an SM's
+    shared memory and threads."""
+    k = ttriad.step_blocks(item, block, stages)
+    step_bytes = k * block * item
+    assert k == ttriad.STEP_ITEM // item \
+        or stages * 2 * block * ttriad.STEP_ITEM > ttriad.MAX_SMEM
+    smem = 2 * stages * step_bytes + 16 * stages       # slots and barriers
+    assert smem <= ttriad.MAX_SMEM
     plan = ttriad.triad_plan(n, item, block, stages, sms=132, smem=smem)
     assert plan.per_sm * (smem + 1024) <= ttriad.SM_SMEM
-    assert plan.threads * 16 >= min(block * item, 256 * 16)
+    assert plan.per_sm * (plan.threads + 32) <= 2048    # and a producer warp
+    assert plan.threads == min(256, max(32, step_bytes // 16))
+    if block == 512:
+        assert plan.threads == 128
     assert 1 <= plan.per_sm and plan.blocks <= max(1, plan.per_sm * 132)
-    inflight = plan.per_sm * stages * 2 * block * item
+    inflight = plan.per_sm * stages * 2 * step_bytes
     assert plan.per_sm == 2 or inflight < ttriad.INFLIGHT_BYTES \
-        + stages * 2 * block * item
+        + stages * 2 * step_bytes
     if n > 1 << 24:
         return                   # the cover below walks every step
-    steps, (tail0, tail) = ttriad.triad_steps(n, item, block, plan.blocks)
-    assert len(steps) == plan.blocks and 0 <= tail < 16 // item
+    vec = 16 // item
+    steps, (tail0, tail) = ttriad.triad_steps(n, item, block, stages,
+                                              plan.blocks)
+    assert len(steps) == plan.blocks and 0 <= tail < vec
+    assert sum(map(len, steps)) == -(-(n // vec) // (step_bytes // 16))
     covered = np.zeros(n, np.int32)
     for block_steps in steps:
-        for first, count in block_steps:
-            assert count % (16 // item) == 0 and first % (16 // item) == 0
-            covered[first:first + count] += 1
+        for copies in block_steps:
+            assert 1 <= len(copies) <= k
+            assert sum(count for _, count in copies) * item <= step_bytes
+            for (first, count), nxt in zip(copies, copies[1:]):
+                assert nxt[0] == first + count      # one step, consecutive
+            for first, count in copies:
+                assert 0 < count <= block
+                assert count % vec == 0 and first % vec == 0
+                covered[first:first + count] += 1
     covered[tail0:tail0 + tail] += 1
     assert covered.min(initial=1) == 1 and covered.max(initial=1) == 1
+
+
+@pytest.mark.parametrize("item", [1, 2, 4])
+def test_triad_step_blocks_take_every_ring_of_one_block_a_step(item):
+    """`step_blocks` takes every (block, stages) whose ring of one block a
+    step fits, whatever the type, as the reference takes any block: 4 /
+    item blocks a step where they fit, else the most that fit (a power of
+    two), and 0, a refusal on every device, only where one block does not."""
+    full = ttriad.STEP_ITEM // item
+    for stages in (1, 2, 3, 4, 8):
+        for block in range(128, 32768 + 1, 128):
+            def ring(k):
+                return stages * (2 * k * block * item + 16)
+            k = ttriad.step_blocks(item, block, stages)
+            if ring(1) > ttriad.MAX_SMEM:
+                assert k == 0
+                continue
+            assert k in (1, 2, 4) and k <= full \
+                and ring(k) <= ttriad.MAX_SMEM
+            assert k == full or ring(2 * k) > ttriad.MAX_SMEM
+    assert ttriad.step_blocks(1, 8192, 4) == 2     # 4 x 32 KB rings pass
+    assert ttriad.step_blocks(1, 4096, 8) == 2
+    assert ttriad.step_blocks(2, 8192, 4) == 1
+    b = torch.zeros(16, dtype={1: torch.int8, 2: torch.int16,
+                               4: torch.int32}[item])
+    torch.testing.assert_close(ttriad.stream_triad(b, b, 1.0, 8192, 2), b)
+    with pytest.raises(ValueError, match="do not fit"):
+        ttriad.stream_triad(b, b, 1.0, block=32768 // item, stages=4)
 
 
 # ------------------------------------------------------------- ops wrappers
