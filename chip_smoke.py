@@ -201,6 +201,7 @@ a plain version anywhere: whatever fails, fails the run.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -364,8 +365,9 @@ SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
 
 # ... and in each kernel whose symbol holds all the given parts (an
 # instruction "A*B" is a line holding both): the 16-bit flash body above 256
-# columns on wgmma and TMA; flash's wgmma body with the element loader (its
-# template argument ELEM, the last but one, true) and at D = 256, on wgmma
+# columns (the pair body) on wgmma, TMA and setmaxnreg; flash's wgmma body
+# with the element loader (its template argument ELEM, the last but one,
+# true) and at D = 256, on wgmma
 # and with the producer warpgroup's register hand-over (setmaxnreg,
 # USETMAXREG in SASS); its fp8 bodies by TMA (F8 true, ELEM false, and E5
 # false or true) on the fp8 wgmma of their kind (QGMMA in SASS); paged's TMA
@@ -382,7 +384,8 @@ SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
 SASS_WANT_IN = {"flash_attention": [
                     (("flash_mma_kernel", "Li16ELb0E"),
                      ("HMMA", "MUFU.EX2", "!FFMA.SAT")),
-                    (("flash_wgmma_wide_kernel",), ("HGMMA", "UTMALDG")),
+                    (("flash_wgmma_pair_kernel",),
+                     ("HGMMA", "UTMALDG", "USETMAXREG")),
                     (("flash_wgmma_kernel", "Lb1ELb0EEEv"),
                      ("HGMMA", "USETMAXREG")),
                     (("flash_wgmma_kernel", "Li256E"),
@@ -664,6 +667,21 @@ PAGED_RULE_LAYOUTS = ((16, 16), (16, 8), (16, 4), (16, 2), (16, 1), (6, 6),
                       (24, 1))
 
 
+# head sizes at which paged's run rule is held (rows of every width up to
+# Dp 256, and one above)
+RUN_RULE_DIMS = list(range(1, 258)) + [300]
+
+
+def run_layouts(hkv, d):
+    """[B, T, Hkv] strides of k and v in elements: contiguous, strided
+    heads (4 elements past each), a T stride of 1 element more than the
+    tokens, and k contiguous beside v with strided heads."""
+    dense = (7 * hkv * d, hkv * d, d)
+    padded = (7 * hkv * (d + 4), hkv * (d + 4), d + 4)
+    loose = (7 * (hkv * d + 1), hkv * d + 1, d)
+    return (dense * 2, padded * 2, loose * 2, dense + padded)
+
+
 def check_body_rules():
     """The body rule of each attention source is its wrapper's, at every
     head size from 0 to 1100 and at 2048, in the three types and (flash)
@@ -700,6 +718,13 @@ def check_body_rules():
                     f"body for {q_dtype} / {kv_dtype} D{d}: the sources run "
                     f"flash {got}, paged {got_paged}; the wrappers say "
                     f"{want}, {want_paged} ... FAIL")
+            if want is not None and q_dtype == kv_dtype:
+                blocks = flash.flash_attention_wide_blocks(code, d)
+                if blocks != fa.wide_blocks(q_dtype, d):
+                    raise AssertionError(
+                        f"flash blocks a query tile for {q_dtype} D{d}: the "
+                        f"source says {blocks}, the wrapper "
+                        f"{fa.wide_blocks(q_dtype, d)} ... FAIL")
     # paged's KV heads a segment and where its products run, by GQA layout
     pa._bind()
     products = {0: "fma", 1: "mma"}
@@ -719,6 +744,31 @@ def check_body_rules():
                         f"paged heads, products and group for {dtype} Hq{hq} "
                         f"Hkv{hkv} D{d}: the source says {got}, the wrapper "
                         f"{want} ... FAIL")
+    # paged's KV heads a TMA box of rows of no whole 16-byte pieces, by the
+    # caches' strides and alignment
+    paged.paged_attention_run.argtypes = [
+        ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+    runs = 0
+    for dtype in (*types, *FP8):
+        code = _build.DTYPE_CODES[dtype]
+        for q_dtype in (dtype, torch.float32):
+            qcode = _build.DTYPE_CODES[pa.kernel_types(q_dtype, dtype)[0]]
+            for hq, hkv in PAGED_RULE_LAYOUTS:
+                for d in RUN_RULE_DIMS:
+                    for layout in run_layouts(hkv, d):
+                        for aligned in (True, False):
+                            got = paged.paged_attention_run(
+                                code, qcode, d, hq, hkv,
+                                (ctypes.c_longlong * 6)(*layout), aligned)
+                            want = pa.run_heads(q_dtype, dtype, d, hq, hkv,
+                                                layout, aligned)
+                            runs += got > 0
+                            if got != want:
+                                raise AssertionError(
+                                    f"paged run of heads for {dtype} q "
+                                    f"{q_dtype} Hq{hq} Hkv{hkv} D{d} strides "
+                                    f"{layout} aligned {aligned}: the source "
+                                    f"says {got}, the wrapper {want} ... FAIL")
     log("  body rules, D 0-1100 and 2048 x 3 types, the 6 mixed pairs and "
         "fp8, sources and wrappers agree: flash fp32 and mixed -> fma; "
         "16-bit D % 8 == 0: Dp >= 64 -> wgmma (wide above 256), Dp 16-32 -> "
@@ -727,8 +777,13 @@ def check_body_rules():
         "paged rows of whole 16-byte pieces -> tma, others -> element; 0 "
         "refused; paged's KV heads a segment, products and query heads a "
         f"segment at {len(PAGED_RULE_LAYOUTS)} GQA layouts (16-bit on the "
-        "TMA ring at Dp 64-256, G = 1, or G of 2 and 4 at D < Dp: 8 / G "
-        "heads a segment, on fma; G > 8 on mma: 16 query heads a segment)")
+        "TMA ring at Dp 64-256, G = 1, or G of 2 and 4 at D < Dp, and rows "
+        "of no whole 16-byte pieces in every type at G dividing 8: 8 / G "
+        "heads a segment, on fma; G > 8 on mma: 16 query heads a segment); "
+        "flash's blocks a query tile (one up to 512 in the wgmma body); "
+        f"paged's runs of heads by TMA at D {RUN_RULE_DIMS[0]}-"
+        f"{RUN_RULE_DIMS[-1]}, 4 stride layouts, aligned or not ({runs} "
+        "runs)")
 
 
 def window_mask(s, window):
@@ -2224,6 +2279,125 @@ def check_mma_and_triad(gen):
                        ref.triad_ref(x, y, 3.3), quiet=True)
     log(f"  triad bit-exact in {len(st.TYPES)} types at (N, block, stages) "
         f"{TRIAD_STEP_CASES}")
+    free_cuda()
+
+
+# paged's rows of no whole 16-byte pieces: (q type, cache type, D, Hq, Hkv,
+# head pad, route) at T 1032, the serve lengths, then lengths 0, 1, 33 and
+# T: fp8 D8 at the decode layout (a box of the token's two heads), fp8
+# D100 at Hkv2 (a token of 200 bytes: the copy, 4-byte loads) and Hkv16 (a
+# box of 8 heads), 16-bit D100 at Hkv16 (hubert-xlarge's heads) and Hkv2,
+# strided heads (the copy, 8 heads a segment), D98 (columns no whole
+# vector of a lane), D7 at G 3 (the copy, 2-byte loads) and fp32 D7 at G 1
+ELEM_ROWS = (
+    (torch.float8_e4m3fn, torch.float8_e4m3fn, 8, 16, 2, 0, "run"),
+    (torch.float8_e5m2, torch.float8_e5m2, 8, 16, 2, 0, "run"),
+    (torch.bfloat16, torch.float8_e4m3fn, 8, 16, 2, 0, "run"),
+    (torch.float8_e4m3fn, torch.float8_e4m3fn, 100, 16, 2, 0, "element"),
+    (torch.float16, torch.float8_e5m2, 100, 16, 2, 0, "element"),
+    (torch.float8_e5m2, torch.float8_e5m2, 100, 16, 16, 0, "run"),
+    (torch.bfloat16, torch.bfloat16, 100, 16, 16, 0, "run"),
+    (torch.float16, torch.float16, 100, 16, 16, 0, "run"),
+    (torch.bfloat16, torch.bfloat16, 100, 16, 2, 0, "run"),
+    (torch.float32, torch.float16, 100, 16, 16, 0, "run"),
+    (torch.bfloat16, torch.bfloat16, 100, 16, 16, 4, "element"),
+    (torch.float8_e4m3fn, torch.float8_e4m3fn, 8, 16, 2, 8, "element"),
+    (torch.bfloat16, torch.bfloat16, 98, 16, 16, 0, "run"),
+    (torch.float16, torch.float16, 98, 16, 2, 6, "element"),
+    (torch.bfloat16, torch.bfloat16, 7, 12, 4, 0, "element"),
+    (torch.float32, torch.float32, 7, 16, 16, 0, "run"),
+    (torch.float8_e4m3fn, torch.float8_e4m3fn, 8, 16, 1, 0, "element"))
+# flash's pair body (256 < D <= 512) and the chunked one above, held at
+# these (b, hq, hkv, s, causal, window) beside check_flash_padded's cases:
+# S of one key, a tail of one row, a window edge inside a tile
+PAIR_CASES = ((1, 2, 1, 1, True, 0), (2, 8, 1, 65, True, 0),
+              (1, 8, 8, 300, True, 100), (1, 4, 2, 257, False, 0))
+
+
+def check_elem_rows_and_pair(gen):
+    """The two bodies redesigned last (run right after `check_paged`, so
+    that their mutants fail early), against their plain versions: paged
+    over rows of no whole 16-byte pieces at ELEM_ROWS (each on the route
+    it names, `paged_attention.route`: TMA boxes of a run of heads, or the
+    producer warp's copy in loads as wide as the rows allow), within one
+    unit in the last place of an fp8 output and PAGED_BF16_TOL /
+    PAGED_F16_TOL / FP32_TOL of the others, at the serve lengths and at 0,
+    1, 33 and T; timed at the serve lengths beside SDPA (on bf16 copies for
+    fp8), the plain version and the bound. Then flash's wgmma body at
+    WIDE_DIMS x PAIR_CASES in bf16 and f16 (the pair body up to 512: two
+    consumer warpgroups that add their parts of Q K^T), and timed at
+    qwen2.5-3b's prefill layout at D 512, 1024 and 2048."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa, ref
+
+    log("paged over rows of no whole 16-byte pieces (runs of heads by TMA, "
+        "or the copy) and flash's pair body above 256 columns")
+    b, t = BATCH, PROMPT_LEN + MAX_NEW
+    lens = torch.tensor([t, PROMPT_LEN + 1, (t + 2) // 2, 64],
+                        dtype=torch.int32, device="cuda")
+    edge = torch.tensor([0, 1, 33, t], dtype=torch.int32, device="cuda")
+    mask = (torch.arange(t, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    for q_dtype, dtype, d, hq, hkv, pad, want in ELEM_ROWS:
+        q = rand_typed(gen, (b, hq, d), q_dtype, Q_SCALE)
+        k, v = (rand_typed(gen, (b, t, hkv, d + pad), dtype)[..., :d]
+                for _ in range(2))
+        got = pa.route(q, k, v)
+        plan = pa.launch_plan(q, k, v_cache=v)
+        strided = f", heads {pad} elements apart past D" if pad else ""
+        name = (f"paged q {tname(q_dtype)} caches {tname(dtype)} B{b} "
+                f"Hq{hq} Hkv{hkv} T{t} D{d}{strided} "
+                f"({got}: {plan.heads} KV heads a segment, "
+                f"{plan.box_heads} a slot row, {plan.rows} rows)")
+        if got != want:
+            raise AssertionError(f"{name}: want the {want} route FAIL")
+        for lengths in (lens, edge):
+            paged_out_check(f"{name} lengths {lengths.tolist()}",
+                            pa.paged_attention(q, k, v, lengths),
+                            ref.paged_attention_ref(q, k, v, lengths))
+        if pad:
+            continue
+        ms = time_ms([lambda: pa.paged_attention(q, k, v, lens)], 64)
+        plain = time_ms([lambda: ref.paged_attention_ref(q, k, v, lens)], 4)
+        lq, lk, lv = (x.to(torch.bfloat16) if x.dtype in FP8 else x
+                      for x in (q, k, v))
+        lib = time_ms([lambda: F.scaled_dot_product_attention(
+            lq[:, :, None], lk.transpose(1, 2), lv.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)], 64) \
+            if lq.dtype == lk.dtype else None
+        bound, by = paged_bound(lens, hq, hkv, d, dtype, q_dtype)
+        log(f"  {name}: {ms:.4f} ms, plain {plain:.4f} ms, library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{bound:.5f} ms ({by})")
+        del q, k, v
+    torch.cuda.synchronize()
+    log(f"  {len(ELEM_ROWS)} paged cases agree at the serve lengths and at "
+        f"{edge.tolist()}")
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in WIDE_DIMS:
+            for (bb, hq, hkv, s, causal, window) in PAIR_CASES:
+                q, k, v = flash_case(gen, bb, hq, hkv, s, d, dtype)
+                check_flash_out(
+                    f"flash {tname(dtype)} B{bb} Hq{hq} Hkv{hkv} S{s} D{d} "
+                    f"causal{causal} window{window} ({fa.body_for(dtype, d)}"
+                    f" body, {fa.wide_blocks(dtype, d)} blocks a tile)",
+                    fa.flash_attention(q, k, v, causal, window), q, k, v,
+                    causal, window, quiet=True)
+    torch.cuda.synchronize()
+    log(f"  flash at D {WIDE_DIMS} x {len(PAIR_CASES)} cases x 2 types agree")
+    for dtype, d in ((torch.bfloat16, 512), (torch.float16, 512),
+                     (torch.bfloat16, 1024), (torch.bfloat16, 2048)):
+        q, k, v = flash_case(gen, b, 16, 2, PROMPT_LEN, d, dtype)
+        ms = time_ms([lambda: fa.flash_attention(q, k, v)], 10)
+        lib = time_ms([lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)], 3)
+        plain = time_ms([lambda: ref.attention_ref(q, k, v)], 2)
+        log(f"  flash B{b} Hq16 Hkv2 S{PROMPT_LEN} D{d} {tname(dtype)} causal "
+            f"({fa.wide_blocks(dtype, d)} blocks a tile): {ms:.4f} ms "
+            f"(SDPA {lib:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{flash_bound(b, 16, 2, PROMPT_LEN, d, 0, dtype)[0]:.5f} ms)")
+        del q, k, v
     free_cuda()
 
 
@@ -4216,11 +4390,11 @@ MUTANTS = {
     "paged_load_tail": [("paged_attention.cu",
                          "return c < dh ? row[c] : zero<E>();",
                          "return row[c];")],
-    # the wide bodies (D > 256): a block stores its chunk at the head's
-    # first columns ...
+    # the wide bodies (D > 256): a block (the pair body: a warpgroup)
+    # stores its chunk at the head's first columns ...
     "flash_wgmma_wide_chunk": [("flash_attention.cu",
-                                "  T* ob = o + b * o_sb + h * o_sh + c0;",
-                                "  T* ob = o + b * o_sb + h * o_sh;")],
+                                "  T* const ob = o + b * o_sb + h * o_sh + cw;",
+                                "  T* const ob = o + b * o_sb + h * o_sh;")],
     "flash_fma_wide_chunk": [("flash_attention.cu",
                               "  E* ob = o + b * o_sb + h * o_sh + c0;",
                               "  E* ob = o + b * o_sb + h * o_sh;")],
@@ -4391,6 +4565,35 @@ MUTANTS = {
     "triad_word_carry": [("stream_triad.cu",
                           "  const uint32_t even = (b & M) + (c & M) * s;",
                           "  const uint32_t even = b + (c & M) * s;")],
+    # paged over rows of no whole 16-byte pieces: a warp reading its KV
+    # head's rows from the box's first head, not from the segment's place
+    # in the box (fp8 D8 at Hkv2: a box of two heads for segments of one) ...
+    "paged_run_head": [("paged_attention.cu",
+                        "      hoff = h % a.box_heads + kvh;",
+                        "      hoff = kvh;")],
+    # ... the copy taking a run's heads as contiguous (strided heads) ...
+    "paged_copy_head_stride": [("paged_attention.cu",
+                                "      const long long ko = r * c.k_t + "
+                                "hh * c.k_h + xu * w;",
+                                "      const long long ko = r * c.k_t + "
+                                "hh * c.units * w + xu * w;")],
+    # ... the copy one load short of each head's row ...
+    "paged_copy_units": [("paged_attention.cu",
+                          "a.box_heads, a.dh * ITEM / a.width};",
+                          "a.box_heads, a.dh * ITEM / a.width - 1};")],
+    # ... and a lane's columns read as one vector where the row's are no
+    # whole vectors (D98 at Dp 128: misaligned)
+    "paged_row_vector": [("paged_attention.cu",
+                          "  const bool vrow = !HEADS || a.dh % EPL == 0;",
+                          "  const bool vrow = true;")],
+    # flash's pair body: a warpgroup's own part of S taken without the
+    # other's first column of each pair ...
+    "flash_pair_exchange": [("flash_attention.cu",
+                             "        sacc[4 * j] += x.x;\n", "")],
+    # ... and read before the barrier that says the other has written it
+    "flash_pair_barrier": [("flash_attention.cu",
+                            "      asm volatile(\"bar.sync 1, %0;\\n\" ::\"n\""
+                            "(2 * 128) : \"memory\");\n", "")],
 }
 
 
@@ -4807,6 +5010,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_flash(gen), check_paged(gen)]
+    check_elem_rows_and_pair(gen)
     fuzz_kernels(gen)
     check_offload(gen)
     amu_worst = check_amu_kernels(gen)

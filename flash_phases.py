@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Per-warp phase times of flash attention's mma.sync body, from a copy of
+"""Per-warp phase times of one of flash attention's bodies, from a copy of
 its source that stamps clock64().
 
-    python3 flash_phases.py [--src DIR] [--label NAME] [--case D[,DTYPE] ...]
+    python3 flash_phases.py [--src DIR] [--label NAME] [--body mma|pair|wide]
+        [--case D[,DTYPE] ...]
 
 Copies DIR (a tree's `src/`, this tree's by default) to
-`build/flash_phases/NAME/src`, edits the copy's `flash_attention.cu` (each
-edit's text must be in it exactly once, as a mutant's of chip_smoke.py: it
-adds a `__device__` array, an `extern "C"` reader and clock64() stamps in
-`flash_mma_kernel`, the body of 16-bit rows at Dp 16 and 32), builds that
-source alone, and runs causal flash attention at qwen2.5-3b's prefill
-layout (B = 4, Hq = 16, Hkv = 2, S = 1000) at each case's head size and
-type (by default D 8, 16 and 32 in bf16). For each case it prints, over the
-warps of all blocks, the mean and the largest cycles a warp spent on:
+`build/flash_phases/NAME-BODY/src`, edits the copy's `flash_attention.cu`
+(each edit's text must be in it exactly once, as a mutant's of
+chip_smoke.py: it adds a `__device__` array, an `extern "C"` reader and
+clock64() stamps in one kernel: `flash_mma_kernel`, the body of 16-bit rows
+at Dp 16 and 32, by default; `--body pair`, `flash_wgmma_pair_kernel`,
+16-bit rows above 256 columns, phases PAIR_PHASES; `--body wide`, the
+chunked wide body of a tree from before the pair body, phases WIDE_PHASES),
+builds that source alone, and runs causal flash attention at qwen2.5-3b's
+prefill layout (B = 4, Hq = 16, Hkv = 2, S = 1000) at each case's head
+size and type (by default D 8, 16 and 32 in bf16). For each case it
+prints, over the warps of all blocks, the mean and the largest cycles a
+warp spent on (the mma body's phases):
 
   start    the Q tile's load and its fragments, up to the first K/V issue;
   issue    issuing a K/V tile's cp.async copies;
@@ -53,7 +58,7 @@ PHASES = ("start", "issue", "wait", "qk", "mask", "max", "exp", "rescale",
 # start and end (ns), and the SM it ran on
 NSLOT = 16
 TILES, TOTAL, T0, T1, SMID = range(len(PHASES), len(PHASES) + 5)
-MAXW = 16384                       # warps recorded (4096 at B4 Hq16 S1000)
+MAXW = 65536                       # warps recorded (4096 at B4 Hq16 S1000)
 (START, ISSUE, WAIT, QK, MASK, MAX, EXP, RESCALE, PV, CLOSE,
  END) = range(len(PHASES))
 
@@ -149,14 +154,109 @@ EDITS = (
 )
 
 
+# `--body wide`: flash_wgmma_wide_kernel (16-bit rows above 256 columns, a
+# block of one consumer warpgroup a 256-column chunk), a consumer warp's
+# cycles on the start (up to its first wait for a Q / K piece), the waits
+# for the Q / K pieces, Q K^T on wgmma, the wait for the V chunk, the
+# softmax (mask, max, exponentials, rescale), P V, the turns between them
+# and the end (the row sums and the stores)
+WIDE_PHASES = ("start", "qk_wait", "qk", "v_wait", "softmax", "pv", "rest",
+               "end")
+(W_START, W_QK_WAIT, W_QK, W_V_WAIT, W_SOFTMAX, W_PV, W_REST,
+ W_END) = range(len(WIDE_PHASES))
+W_RECORD = RECORD.replace(f"ph_tick({END})", f"ph_tick({W_END})")
+WIDE_EDITS = (
+    ("  unsigned char* Vs = QK + SQ * W::QK_STAGE;      "
+     "// stage s: 4 V boxes\n",
+     lambda old: old +
+     f"  unsigned long long ph_[{NSLOT}] = {{}};\n"
+     "  const unsigned long long ph_start = clock64();\n"
+     "  unsigned long long ph_t = ph_start, ph_g0;\n"
+     '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ph_g0));\n'
+     "  auto ph_tick = [&](int i) {\n"
+     "    const unsigned long long now = clock64();\n"
+     "    ph_[i] += now - ph_t;\n"
+     "    ph_t = now;\n"
+     "  };\n"),
+    ("  int n = 0;                                      "
+     "// (Q, K) pieces taken\n",
+     lambda old: old + f"  ph_tick({W_START});\n"),
+    ("      mbar_wait(&qk_full[s], (n / SQ) & 1);       // getfin\n",
+     lambda old: f"      ph_tick({W_REST});\n" + old
+     + f"      ph_tick({W_QK_WAIT});\n"),
+    ("      __syncwarp();\n"
+     "      if (lane == 0) mbar_arrive(&qk_empty[s]);   "
+     "// this warp is done with s\n",
+     lambda old: f"      ph_tick({W_QK});\n" + old),
+    ("    mbar_wait(&v_full[sv], (i / SV) & 1);\n",
+     lambda old: f"    ph_tick({W_REST});\n" + old
+     + f"    ph_tick({W_V_WAIT});\n    ph_[{TILES}]++;\n"),
+    ("      // O += P V over this block's columns",
+     lambda old: f"      ph_tick({W_SOFTMAX});\n" + old),
+    ("      fence_regs(oacc);\n    }\n    __syncwarp();\n"
+     "    if (lane == 0) mbar_arrive(&v_empty[sv]);\n",
+     lambda old: old.replace("    }\n", f"      ph_tick({W_PV});\n    }}\n",
+                             1)),
+    ("  }\n}\n\n// The tensor map of a [B, H, S, D] operand",
+     lambda old: "  }\n" + W_RECORD + old[len("  }\n"):]),
+)
+
+# `--body pair`: flash_wgmma_pair_kernel (16-bit rows at 256 < D <= 512, two
+# consumer warpgroups of 256 columns that add their parts of Q K^T), a
+# consumer warp's cycles on the start (Q's wait included), the wait for its
+# warpgroup's K half, its part of Q K^T on wgmma, the exchange of the
+# partial S (the stores, both barriers, the adds), the softmax, the wait
+# for the V half, P V, the turns between them and the end
+PAIR_PHASES = ("start", "k_wait", "qk", "exchange", "softmax", "v_wait", "pv",
+               "rest", "end")
+(P_START, P_K_WAIT, P_QK, P_XCH, P_SOFTMAX, P_V_WAIT, P_PV, P_REST,
+ P_END) = range(len(PAIR_PHASES))
+PAIR_EDITS = (
+    ("  float4* xch = reinterpret_cast<float4*>(Vs + 2 * P::HALF);\n",
+     lambda old: old + WIDE_EDITS[0][1]("")),
+    ("  if constexpr (!STREAM) mbar_wait(&q_full, 0);\n",
+     lambda old: old + f"  ph_tick({P_START});\n"),
+    ("          mbar_wait(&k_full[w][s], (nq / SQ) & 1);  // getfin\n",
+     lambda old: f"          ph_tick({P_REST});\n" + old
+     + f"          ph_tick({P_K_WAIT});\n"),
+    ("          wgmma_wait<1>();\n          if (j > 0) release((nq - 1) % SQ);\n",
+     lambda old: old + f"          ph_tick({P_QK});\n"),
+    ("        wgmma_wait<0>();\n        fence_regs(sacc);\n"
+     "        release((nq - 1) % SQ);\n",
+     lambda old: old + f"        ph_tick({P_QK});\n"),
+    ("      mbar_wait(&k_full[w][0], i & 1);            // getfin\n",
+     lambda old: f"      ph_tick({P_REST});\n" + old
+     + f"      ph_tick({P_K_WAIT});\n"),
+    ("      release(0);                                 // K's slot is free\n",
+     lambda old: f"      ph_tick({P_QK});\n" + old),
+    ('      asm volatile("bar.sync 2, %0;\\n" ::"n"(2 * 128) : "memory");\n',
+     lambda old: old + f"      ph_tick({P_XCH});\n"),
+    ("      mbar_wait(&v_full[w], i & 1);\n      fence_regs(oacc);\n",
+     lambda old: f"      ph_tick({P_SOFTMAX});\n      ph_[{TILES}]++;\n"
+     "      mbar_wait(&v_full[w], i & 1);\n"
+     f"      ph_tick({P_V_WAIT});\n      fence_regs(oacc);\n"),
+    ("      fence_regs(oacc);\n    } else {\n",
+     lambda old: f"      fence_regs(oacc);\n      ph_tick({P_PV});\n"
+     "    } else {\n"),
+    ("  }\n}\n\n// The tensor map of a [B, H, S, D] operand",
+     lambda old: "  }\n" + RECORD.replace(f"ph_tick({END})",
+                                          f"ph_tick({P_END})")
+     + old[len("  }\n"):]),
+)
+BODIES = {"mma": (PHASES, EDITS), "wide": (WIDE_PHASES, WIDE_EDITS),
+          "pair": (PAIR_PHASES, PAIR_EDITS)}
+
+
 def main() -> int:
-    args = pc.parse_args(__doc__, "flash_phases", ["8", "16", "32"])
+    args = pc.parse_args(__doc__, "flash_phases", ["8", "16", "32"],
+                         tuple(BODIES))
     if args is None:
         return 1
     import chip_smoke as cs
+    phases, edits = BODIES[args.body]
     copy = pc.make_copy(os.path.abspath(args.src), "flash_phases",
-                        args.label, "flash_attention.cu", EDITS, SYMBOL,
-                        MAXW, NSLOT)
+                        f"{args.label}-{args.body}", "flash_attention.cu",
+                        edits, SYMBOL, MAXW, NSLOT)
     lib, build = pc.build(copy, "flash_attention", SYMBOL, args.label)
     from repro_torch.kernels import flash_attention as fa
     if args.build_only:
@@ -170,9 +270,11 @@ def main() -> int:
         d = int(d)
         dtype = getattr(torch, rest[0]) if rest else torch.bfloat16
         body = fa.body_for(dtype, d)
-        if body != "mma":
+        if body == "wgmma" and d > fa.CHUNK_DIM:    # the parent's: chunks
+            body = "pair" if hasattr(fa, "wide_blocks") else "wide"
+        if body != args.body:
             raise ValueError(f"flash_phases: D{d} {dtype} runs the {body} "
-                             "body, not mma.sync")
+                             f"body, not the {args.body} body")
         q, k, v = cs.flash_case(gen, b, hq, hkv, s, d, dtype)
         cs.check_flash_out(f"flash D{d} {cs.tname(dtype)} (stamped copy)",
                            fa.flash_attention(q, k, v), q, k, v)
@@ -194,13 +296,14 @@ def main() -> int:
                    last_start_us=float(t0.max() - t0.min()) / 1e3,
                    sms=int(torch.unique(warps[:, SMID]).numel()))
         tiles = warps[:, TILES].clamp(min=1)
-        for i, name in enumerate(PHASES):
+        for i, name in enumerate(phases):
             row[f"{name}_cycles_mean"] = float(warps[:, i].mean())
             row[f"{name}_cycles_max"] = float(warps[:, i].max())
             row[f"{name}_share"] = float(warps[:, i].sum() / total.sum())
             row[f"{name}_cycles_a_tile"] = float((warps[:, i] / tiles).mean())
         results.append(row)
-        print(f"{args.label}: flash {row['case']} (mma body): {ms:.4f} ms "
+        print(f"{args.label}: flash {row['case']} ({args.body} body): "
+              f"{ms:.4f} ms "
               f"stamped, launch span {row['span_us']:.2f} us (last warp "
               f"started at {row['last_start_us']:.2f} us, {row['sms']} SMs),"
               f" a warp {row['tiles_mean']:.2f} tiles (max "
@@ -210,7 +313,7 @@ def main() -> int:
               + ", ".join(f"{n} {row[f'{n}_share']:.3f} (mean "
                           f"{row[f'{n}_cycles_mean']:.0f}, "
                           f"{row[f'{n}_cycles_a_tile']:.0f} a tile)"
-                          for n in PHASES),
+                          for n in phases),
               flush=True)
         del q, k, v
     pc.close(args.label, args.src, results)

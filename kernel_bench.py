@@ -76,12 +76,17 @@ and [2^24, 3] beside `index_add_`), `mma_triad` (flash at D 8, 16 and 32,
 the mma.sync body, in qwen2.5-3b's prefill layout in bf16 and f16 beside
 SDPA; then the triad at N = 2^28 in every type it takes, each held bit for
 bit once, beside `torch.add(b, c, alpha=s)` where torch takes the type on
-the card) and `served` (the bodies of the served paths alone: flash at
+the card), `elem_wide` (paged over rows of no whole 16-byte pieces: e4m3
+and e5m2 caches at D 8 and e4m3 at D 100 at qwen2.5-3b's decode, e4m3,
+bf16 and f16 at D 100 over 16 KV heads; flash at D 512 in bf16 and f16
+and at D 1024 and 2048 in bf16 at its prefill layout) and `served` (the
+bodies of the served paths alone: flash at
 qwen2.5-3b's prefill and recurrentgemma-9b's D 256, paged at qwen2.5-3b's
 decode, GUPS as drawn, the f32 triad).
 `--only` picks some of flash, paged, gather, triad, scatter,
 scatter_bf16, types, paged_fp8, paged_mixed, scatter_narrow,
-scatter_sweep, paged_heads, flash_fp8, g16_add16, mma_triad, served. For
+scatter_sweep, paged_heads, flash_fp8, g16_add16, mma_triad, elem_wide,
+served. For
 each:
 kernel ms (CUDA
 events, mean of back-to-back calls, best of 5 windows, as in chip_smoke.py),
@@ -202,6 +207,8 @@ def main() -> int:
                     for d_ in MMA_DIMS)
         rows.extend(bench_triad_typed(cs, st, ref, gen, dtype)
                     for dtype in st.TYPES)
+    if "elem_wide" in args.only:
+        rows.extend(bench_elem_wide(cs, fa, pa, ref, F, gen))
     if "served" in args.only:
         rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, d))
         rows.append(bench_flash(cs, fa, F, gen, b, 16, 1, 4096, 256,
@@ -284,6 +291,31 @@ def bench_g16_add16(cs, pa, asc, ref, F, gen):
         for dtype in (torch.int16, torch.uint16, torch.int8):
             rows.append(bench_scatter_typed(cs, asc, ref, gen, dtype, "add",
                                             w))
+    return rows
+
+
+def bench_elem_wide(cs, fa, pa, ref, F, gen):
+    """`elem_wide`: paged over rows of no whole 16-byte pieces at
+    qwen2.5-3b's decode layout (B4 Hq16 Hkv2 T1032, the serve lengths): e4m3
+    and e5m2 caches under a q of their kind at D 8 and e4m3 at D 100, and
+    at hubert-xlarge's heads (Hkv16) e4m3 at D 100 and bf16 and f16 at D
+    100; then flash's wgmma body above 256 columns at qwen2.5-3b's prefill
+    layout (B4 Hq16 Hkv2 S1000, causal), bf16 and f16 at D 512, bf16 at D
+    1024 and 2048."""
+    rows = [bench_paged_typed(cs, pa, ref, F, gen, dtype, dtype, d=d,
+                              hkv=hkv)
+            for dtype, d, hkv in ((torch.float8_e4m3fn, 8, 2),
+                                  (torch.float8_e5m2, 8, 2),
+                                  (torch.float8_e4m3fn, 100, 2),
+                                  (torch.float8_e4m3fn, 100, 16))]
+    rows.extend(bench_paged(cs, pa, ref, F, gen, cs.BATCH, 16, 16, 100,
+                            dtype=dtype)
+                for dtype in (torch.bfloat16, torch.float16))
+    rows.extend(bench_flash(cs, fa, F, gen, cs.BATCH, 16, 2, cs.PROMPT_LEN,
+                            d, dtype=dtype)
+                for d, dtype in ((512, torch.bfloat16), (512, torch.float16),
+                                 (1024, torch.bfloat16),
+                                 (2048, torch.bfloat16)))
     return rows
 
 

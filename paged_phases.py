@@ -2,15 +2,18 @@
 """Per-block phase times of the paged attention kernel, from a copy of its
 source that stamps clock64().
 
-    python3 paged_phases.py [--src DIR] [--label NAME] [--case HKV,D[,T] ...]
+    python3 paged_phases.py [--src DIR] [--label NAME]
+        [--case HKV,D[,T[,DTYPE]] ...]
 
 Copies DIR (a tree's `src/`, this tree's by default) to
 `build/paged_phases/NAME/src`, edits the copy's `paged_attention.cu` (each
 edit's text must be in it exactly once, as a mutant's of chip_smoke.py: it
 adds a `__device__` array, an `extern "C"` reader and clock64() stamps in
-each consumer thread), builds that source alone, and runs bf16 paged
-attention at B = 4, Hq = 16 for each case (KV heads, head size and T, 1032
-where not given; lengths [T, T - 31, (T + 2) // 2, 64]: [1032, 1001, 517,
+each consumer thread), builds that source alone, and runs paged
+attention at B = 4, Hq = 16 for each case (KV heads, head size, T, 1032
+where not given, and the type of q and the caches, a torch dtype's name,
+bfloat16 where not given: `2,8,1032,float8_e4m3fn` is the element body
+over e4m3 caches at D = 8; lengths [T, T - 31, (T + 2) // 2, 64]: [1032, 1001, 517,
 64] at qwen2.5-3b's decode, [4128, 4097, 2065, 64] at recurrentgemma-9b's
 `1,256,4128`; by default 16 heads at D 64, 80 and 128, and qwen2.5-3b's 2
 heads at D 128). For each case it prints, over the consumer
@@ -109,6 +112,14 @@ EDITS = (
      "  }\n"
      "}\n\n// The tensor map"),
 )
+def route(pa, x) -> str:
+    """The body a call on these tensors runs: `paged_attention.route` in
+    a tree that has it, else the rule on (type, head size)."""
+    if hasattr(pa, "route"):
+        return pa.route(*x)
+    return pa.body_for(x[1].dtype, x[0].shape[-1])
+
+
 def main() -> int:
     args = pc.parse_args(__doc__, "paged_phases",
                          ["16,64", "16,80", "16,128", "2,128"])
@@ -127,24 +138,26 @@ def main() -> int:
     b, hq = cs.BATCH, 16
     results = []
     for case in args.case:
-        hkv, d, *rest = (int(x) for x in case.split(","))
-        t = rest[0] if rest else cs.PROMPT_LEN + cs.MAX_NEW
+        hkv, d, *rest = case.split(",")
+        hkv, d = int(hkv), int(d)
+        t = int(rest[0]) if rest else cs.PROMPT_LEN + cs.MAX_NEW
+        dtype = getattr(torch, rest[1]) if len(rest) > 1 else torch.bfloat16
         lens = torch.tensor([t, t - 31, (t + 2) // 2, 64], dtype=torch.int32,
                             device="cuda")
-        x = cs.paged_case(gen, b, hq, hkv, t, d, torch.bfloat16)
-        cs.check_close(f"paged Hkv{hkv} D{d} (stamped copy)",
-                       pa.paged_attention(*x, lens),
-                       ref.paged_attention_ref(*x, lens),
-                       **cs.PAGED_BF16_TOL)
+        x = (cs.rand_typed(gen, (b, hq, d), dtype, cs.Q_SCALE),
+             cs.rand_typed(gen, (b, t, hkv, d), dtype),
+             cs.rand_typed(gen, (b, t, hkv, d), dtype))
+        cs.paged_out_check(f"paged Hkv{hkv} D{d} {cs.tname(dtype)} (stamped "
+                           "copy)", pa.paged_attention(*x, lens),
+                           ref.paged_attention_ref(*x, lens))
         ms = cs.time_ms([lambda: pa.paged_attention(*x, lens)], 64)
         stamps = pc.stamps(lib, build, SYMBOL, ROWS, SLOTS,
                            lambda: pa.paged_attention(*x, lens))
         sets = stamps[stamps[:, TOTAL] > 0]      # sets that had rows
         total = sets[:, TOTAL]
-        row = dict(case=f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} bf16",
-                   body=pa.body_for(torch.bfloat16, d),
-                   products=pa.products_on(torch.bfloat16, torch.bfloat16, d,
-                                           hq, hkv),
+        row = dict(case=f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} {cs.tname(dtype)}",
+                   body=route(pa, x),
+                   products=pa.products_on(dtype, dtype, d, hq, hkv),
                    kernel_ms=ms, sm_mhz=hz / 1e6, sets=int(sets.shape[0]),
                    chunks_mean=float(sets[:, CHUNKS].mean()),
                    segments_mean=float(sets[:, SEGMENTS].mean()),

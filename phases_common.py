@@ -23,9 +23,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# (text in the source, what replaces it); a tuple of texts is the forms of
-# one place in trees from before and after a redesign, the first found
-# replaced by what the function makes of it
+# (text in the source, what replaces it, or a function of the text found
+# that makes it); a tuple of texts is the forms of one place in trees from
+# before and after a redesign, the first found replaced
 Edit = Tuple[Union[str, Tuple[str, ...]], Union[str, Callable[[str], str]]]
 
 
@@ -67,6 +67,7 @@ def make_copy(src: str, tool: str, label: str, source: str,
     for old, new in (array, *edits):
         if isinstance(old, tuple):          # the form this tree has
             old = next((o for o in old if o in text), old[0])
+        if callable(new):
             new = new(old)
         if text.count(old) != 1:
             raise AssertionError(f"{tool}: {old!r} is not in {path} "
@@ -77,10 +78,14 @@ def make_copy(src: str, tool: str, label: str, source: str,
     return os.path.join(dst, "src")
 
 
-def parse_args(doc: str, tool: str, cases: Sequence[str]):
-    """The tools' command line; None (after saying why) where a run without
-    --build-only has no card."""
+def parse_args(doc: str, tool: str, cases: Sequence[str],
+               bodies: Sequence[str] = ()):
+    """The tools' command line (`--body`, the first of `bodies` by default,
+    where a tool stamps one of several bodies); None (after saying why)
+    where a run without --build-only has no card."""
     ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
+    if bodies:
+        ap.add_argument("--body", choices=list(bodies), default=bodies[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="this-tree")
     ap.add_argument("--case", nargs="*", default=list(cases))

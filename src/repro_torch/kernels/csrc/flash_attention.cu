@@ -229,24 +229,35 @@
 // mixed types) never reach this file: the wrapper widens them to fp32
 // copies, the reference's `.astype(float32)`.
 //
-// Above 256 columns (D > 256, Dp = D rounded up to WIDE_DC = 256) no block
-// can hold a whole head: the D = 256 body already keeps a warpgroup's 64 x
-// 256 fp32 O in 128 registers a thread, and a 64-row Q tile at D = 2048
-// alone is 256 KB of shared memory. The launch splits the output into Dp /
-// 256 chunks of 256 columns, a grid dimension: each block computes all of
-// S = Q K^T for its query tile and applies P V to its own 256 V columns.
-// The wgmma body
-// (`flash_wgmma_wide_kernel`, 16-bit rows of whole 16-byte pieces) streams
-// Q and K through a ring in 64-column TMA boxes, summing S over the pieces
-// in the wgmma accumulator, and V's chunk through a second ring; the fma
-// body (`flash_fma_wide_kernel`, fp32 and 16-bit rows of no whole pieces)
-// loads 64-column pieces of Q and K by element the same way. Rules (a)-(c)
-// hold for every chunk: columns past D load as zeros (TMA's zero fill, the
-// element loads' mask), a block stores only its chunk's columns < D, and
-// the scale is 1 / sqrt(D) of the whole head. The cost, beside the bound:
-// Q K^T is done once a chunk, so at D = 512 (two chunks) 1.5x the
-// operations of one pass and at D = 2048 (eight) 4.5x; and Q is read again
-// for every KV tile (from L2).
+// Above 256 columns (D > 256, Dp = D rounded up to WIDE_DC = 256) no
+// warpgroup can hold a whole head's output: the D = 256 body already keeps a
+// warpgroup's 64 x 256 fp32 O in 128 registers a thread, and a 64-row Q tile
+// at D = 2048 alone is 256 KB of shared memory. So:
+//   - up to 512 columns (the pair body, `flash_wgmma_pair_kernel`, 16-bit
+//     rows of whole 16-byte pieces) one block takes a 64-row query tile of
+//     the whole head with two consumer warpgroups, each owning 256 columns of
+//     Q, K, V and O: each computes Q K^T over its own columns, the two 64 x
+//     64 partials are added through shared memory, and both run the same
+//     softmax and their own P V. Q K^T is done once a tile and Q loaded once
+//     (its note below);
+//   - above 512 the same body takes a 512-column chunk of the output a
+//     block, a grid dimension: its warpgroups sum S over half of the head's
+//     64-column pieces each, streamed with Q's through a ring, so each
+//     block computes all of S = Q K^T for its query tile and applies P V to
+//     its own 512 V columns. The cost, beside the bound: Q K^T is done once
+//     a chunk, at D = 1024 (two chunks) 1.5x the operations of one pass and
+//     at D = 2048 (four) 2.5x (the chunks of 256 columns that this body
+//     replaced: 2.5x and 4.5x); and Q is read again for every KV tile (from
+//     L2);
+//   - the fma body (`flash_fma_wide_kernel`, fp32 and 16-bit rows of no whole
+//     pieces) takes chunks of 256 output columns at every D above 256, each
+//     block computing all of Q K^T from 64-column pieces of Q and K loaded
+//     by element.
+// `flash_attention_wide_blocks` states the blocks a query tile each takes.
+// Rules (a)-(c) hold for every chunk and warpgroup: columns past D load as
+// zeros (TMA's zero fill, the element loads' mask), a block or warpgroup
+// stores only its columns < D, and the scale is 1 / sqrt(D) of the whole
+// head.
 //
 // Left for a later change: one K/V tile load serving the blocks of all the
 // query heads of a GQA group (a cluster and TMA multicast; today each of the
@@ -1832,43 +1843,67 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// The wgmma body above 256 columns (16-bit rows of whole 16-byte pieces at
-// D > 256): a block of one consumer warpgroup and one producer warp owns
-// WIDE_DC output columns [c0, c0 + WIDE_DC) of its 64-row query tile, as a
-// consumer of the D = 256 body owns all of them. What changes is where Q K^T
-// comes from:
-//   - Q and K stream through a ring of QK_STAGES stages, each one 64-column
-//     TMA box of the query tile and one of the KV tile, so neither Q nor K
-//     has to fit whole (at D = 2048 a 64-row Q tile alone is 256 KB);
-//   - S = Q K^T is summed over the dh / 64 pieces in the wgmma accumulator
-//     (scale_d 0 at the first k-step of the first piece);
-//   - V comes as the tile's WIDE_DC columns of this block only, through its
-//     own ring of V_STAGES stages, four boxes a stage;
-//   - the softmax and P V are those of a D = 256 consumer (64 x 64 tiles, P
-//     from registers, V MN-major), the output stored at columns c0 + col <
-//     dh.
-// The cost: every block of a query tile computes all of Q K^T, and Q is
-// loaded again for every KV tile (from L2: the tile's blocks share it).
+// The wgmma body above 256 columns (16-bit rows of whole 16-byte pieces,
+// D > 256): one block a 64-row query tile of a head, as at D = 256, with
+// two consumer warpgroups that split the head's columns between them where
+// the D = 256 body splits its rows. Up to 512 (Dp 512) a block takes the
+// whole head; above, a chunk of 512 output columns [c0, c0 + 512), one
+// block a chunk (STREAM). Warpgroup w owns output columns [c0 + 256 w, c0 +
+// 256 w + 256), and its 64 x 256 fp32 O is 128 registers a thread, as at D
+// = 256:
+//   - S = Q K^T is the sum of the two warpgroups' partial products: up to
+//     512 over their own 256 columns of Q and K (16 k-steps of m64n64k16
+//     each), above over their halves of the head's 64-column pieces. Each
+//     writes its 64 x 64 fp32 partial to its half of `xch` (16 KB, a
+//     thread's 32 values as 8 float4 in [j][thread] order, so a warp's
+//     stores are consecutive), the two meet at a named barrier, each adds
+//     the other's partial to its own (fp32 addition commutes, so both hold
+//     the same S bit for bit) and a second barrier frees the buffers. Both
+//     then run the same mask and softmax, and their own P V on their own
+//     256 V columns. So Q K^T is done once a tile up to 512 and once a
+//     512-column chunk above, where the chunked body of 256-column blocks
+//     did it once a 256-column chunk (at D = 2048 half the operations);
+//   - up to 512, Q (64 KB) is loaded once, and K and V come a warpgroup's
+//     half-tile at a time (64 keys x 256 columns, 32 KB) into that
+//     warpgroup's own K slot and V slot, each freed on its own (`k_full` /
+//     `k_empty` stage 0, `v_full` / `v_empty`), so the next tile's K lands
+//     under this tile's softmax and P V, and the next V under the next Q
+//     K^T. 64 KB of Q, four 32 KB slots and the 32 KB exchange are 225 KB:
+//     no second stage fits;
+//   - above 512 (STREAM), Q and K stream through a ring a warpgroup of
+//     QK_STAGES stages of one 64-column piece of each (16 KB), in the 128
+//     KB that Q and the K slots take below; a warpgroup keeps one piece's
+//     wgmma group in flight and frees a stage when the group after it is
+//     issued (wgmma.wait_group 1);
+//   - one producer warpgroup (one lane issues TMA) hands its registers to
+//     the consumers with setmaxnreg (24 / 240), as at D = 256;
+//   - rules (a)-(c) hold: zeros past D (TMA's fill, also of boxes wholly
+//     past it: skipping them made the wgmma loops' trip counts depend on D,
+//     which ptxas serializes), stores of columns < D, the scale of the
+//     whole head.
 namespace wg {
-struct Wide {
-  static constexpr int QK_STAGES = 4;             // (Q, K) pieces in flight
-  static constexpr int V_STAGES = 2;              // V chunks in flight
+struct Pair {
   static constexpr int BM = 64, BN = 64;          // query rows, keys a tile
-  static constexpr int THREADS = 128 + 32;        // consumers + producer
-  static constexpr int PRODUCER = 4;              // the producer's warp
+  static constexpr int CONSUMERS = 2;             // a warpgroup a column half
+  static constexpr int THREADS = CONSUMERS * 128 + 128;
+  static constexpr int PRODUCER = CONSUMERS * 4;  // the producer's first warp
+  static constexpr int P_REGS = 24, C_REGS = 240;
   static constexpr int PIECE = 64 * ROW;          // one 64 x 64 box
-  static constexpr int QK_STAGE = 2 * PIECE;      // a Q box, then a K box
-  static constexpr int V_BOXES = WIDE_DC / BOX;
-  static constexpr int V_STAGE = V_BOXES * PIECE;
-  static constexpr int SMEM =
-      1024 + QK_STAGES * QK_STAGE + V_STAGES * V_STAGE;
+  static constexpr int HALF = (WIDE_DC / BOX) * PIECE;   // 64 x 256
+  static constexpr int QK_STAGES = 4;             // STREAM: a warpgroup's ring
+  static constexpr int XCH = 64 * 64 * 4;         // a warpgroup's partial S
+  static constexpr int SMEM = 1024 + 2 * HALF     // Q (STREAM: the rings)
+                              + 4 * HALF          // K and V slots
+                              + 2 * XCH;
+  static_assert(2 * QK_STAGES * 2 * PIECE == 4 * HALF,
+                "the rings take the place of Q and the K slots");
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
 }  // namespace wg
 
-template <typename T>
-__global__ void __launch_bounds__(wg::Wide::THREADS, 1)
-flash_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
+template <typename T, bool STREAM>
+__global__ void __launch_bounds__(wg::Pair::THREADS, 1)
+flash_wgmma_pair_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
                         T* __restrict__ o, int S, int group, int causal,
@@ -1878,106 +1913,192 @@ flash_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
   using namespace hopper;
   using wg::load_box;
   using wg::wgmma_ss;
-  using W = wg::Wide;
-  constexpr int BM = W::BM, BN = W::BN, BOX = wg::BOX, ROW = wg::ROW;
-  constexpr int SQ = W::QK_STAGES, SV = W::V_STAGES;
+  using P = wg::Pair;
+  constexpr int BM = P::BM, BN = P::BN, BOX = wg::BOX, ROW = wg::ROW;
+  constexpr int NB = WIDE_DC / BOX;               // boxes a half row
+  constexpr int SQ = STREAM ? P::QK_STAGES : 1;   // K (and Q) stages
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t qk_full[SQ], qk_empty[SQ], v_full[SV],
-      v_empty[SV];
+  __shared__ __align__(8) uint64_t q_full, k_full[2][SQ], k_empty[2][SQ],
+      v_full[2], v_empty[2];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
-  unsigned char* QK = smem_raw + pad;             // stage s: Q box, K box
-  unsigned char* Vs = QK + SQ * W::QK_STAGE;      // stage s: 4 V boxes
+  unsigned char* Qs = smem_raw + pad;             // half w: [NB][BM][64]
+  unsigned char* Ks = Qs + 2 * P::HALF;           // warpgroup w's K slot
+  unsigned char* QK = Qs;   // STREAM: ring w, stage s: a Q box, a K box
+  unsigned char* Vs = Ks + 2 * P::HALF;           // warpgroup w's V slot
+  float4* xch = reinterpret_cast<float4*>(Vs + 2 * P::HALF);
 
   const int qt = gridDim.z - 1 - blockIdx.z;      // heaviest tiles first
   const int h = blockIdx.x / chunks, b = blockIdx.y;
-  const int c0 = (blockIdx.x % chunks) * WIDE_DC; // this block's columns
+  const int c0 = (blockIdx.x % chunks) * 2 * WIDE_DC;   // the block's chunk
   const int hk = h / group;
   const int q0 = qt * BM;
-  const int pieces = (dh + BOX - 1) / BOX;        // 64-column pieces of Q K^T
   const int nkt = (S + BN - 1) / BN;
   const int q_last = min(q0 + BM, S) - 1;
   const int kt_hi = causal ? min(nkt, q_last / BN + 1) : nkt;
   int kt_lo = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BN;
+  // STREAM: the head's 64-column pieces, the first `split` warpgroup 0's
+  const int pieces = (dh + BOX - 1) / BOX, split = (pieces + 1) / 2;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
 #pragma unroll
-    for (int s = 0; s < SQ; ++s) {
-      mbar_init(&qk_full[s], 1);
-      mbar_init(&qk_empty[s], 4);                 // one arrival a warp
-    }
+    for (int w = 0; w < 2; ++w) {
 #pragma unroll
-    for (int s = 0; s < SV; ++s) {
-      mbar_init(&v_full[s], 1);
-      mbar_init(&v_empty[s], 4);
+      for (int s = 0; s < SQ; ++s) {
+        mbar_init(&k_full[w][s], 1);
+        mbar_init(&k_empty[w][s], 4);             // one arrival a warp
+      }
+      mbar_init(&v_full[w], 1);
+      mbar_init(&v_empty[w], 4);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (warp == W::PRODUCER) {                      // aload, one lane
-    if (lane == 0) {
-      int n = 0;                                  // (Q, K) pieces issued
+  if (warp >= P::PRODUCER) {                      // aload, one lane
+    setmaxnreg_dec<P::P_REGS>();
+    if (warp == P::PRODUCER && lane == 0) {
+      if constexpr (!STREAM) {
+        mbar_arrive_expect_tx(&q_full, 2 * P::HALF);
+        for (int w = 0; w < 2; ++w)
+          for (int x = 0; x < NB; ++x)
+            load_box(Qs + w * P::HALF + x * P::PIECE, &tq, &q_full, q_pos,
+                     w * WIDE_DC + x * BOX, q0, h, b);
+      }
+      // a warpgroup's half-tile of K (kv 0) or V (kv 1) into its slot
+      auto half = [&](int kv, int w, int i, int kt) {
+        uint64_t* empty = kv ? &v_empty[w] : &k_empty[w][0];
+        uint64_t* full = kv ? &v_full[w] : &k_full[w][0];
+        unsigned char* dst = (kv ? Vs : Ks) + w * P::HALF;
+        mbar_wait(empty, (i & 1) ^ 1);            // the slot is free
+        mbar_arrive_expect_tx(full, P::HALF);
+        for (int x = 0; x < NB; ++x)
+          load_box(dst + x * P::PIECE, kv ? &tv : &tk, full, kv ? v_pos : k_pos,
+                   c0 * kv + w * WIDE_DC + x * BOX, kt * BN, hk, b);
+      };
+      int n0 = 0, n1 = 0;                         // STREAM: stages issued
       for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
-        for (int p = 0; p < pieces; ++p, ++n) {
-          const int s = n % SQ;
-          mbar_wait(&qk_empty[s], ((n / SQ) & 1) ^ 1);
-          mbar_arrive_expect_tx(&qk_full[s], W::QK_STAGE);
-          unsigned char* st = QK + s * W::QK_STAGE;
-          load_box(st, &tq, &qk_full[s], q_pos, p * BOX, q0, h, b);
-          load_box(st + W::PIECE, &tk, &qk_full[s], k_pos, p * BOX, kt * BN,
-                   hk, b);
-        }
-        const int s = i % SV;
-        mbar_wait(&v_empty[s], ((i / SV) & 1) ^ 1);
-        mbar_arrive_expect_tx(&v_full[s], W::V_STAGE);
+        if constexpr (STREAM) {   // the pieces of both warpgroups in turn
+          for (int j = 0; j < split; ++j) {
 #pragma unroll
-        for (int x = 0; x < W::V_BOXES; ++x)
-          load_box(Vs + s * W::V_STAGE + x * W::PIECE, &tv, &v_full[s], v_pos,
-                   c0 + x * BOX, kt * BN, hk, b);
+            for (int w = 0; w < 2; ++w) {
+              if (j >= (w ? pieces - split : split)) continue;
+              int& n = w ? n1 : n0;
+              const int s = n % SQ, p = (w ? split : 0) + j;
+              mbar_wait(&k_empty[w][s], ((n / SQ) & 1) ^ 1);
+              mbar_arrive_expect_tx(&k_full[w][s], 2 * P::PIECE);
+              unsigned char* st = QK + (w * SQ + s) * 2 * P::PIECE;
+              load_box(st, &tq, &k_full[w][s], q_pos, p * BOX, q0, h, b);
+              load_box(st + P::PIECE, &tk, &k_full[w][s], k_pos, p * BOX,
+                       kt * BN, hk, b);
+              ++n;
+            }
+          }
+        } else {
+          half(0, 0, i, kt);
+          half(0, 1, i, kt);
+        }
+        half(1, 0, i, kt);
+        half(1, 1, i, kt);
       }
     }
     return;
   }
+  setmaxnreg_inc<P::C_REGS>();
 
-  // the consumer warpgroup: rows q0 .. q0 + 63, this thread rows r0, r1 of
-  // its warp's 16 (the accumulator layout of the D = 256 body)
+  // consumers: warpgroup w, columns c0 + 256 w ..; this thread rows r0, r1
+  // of its warp's 16 (the accumulator layout of the D = 256 body)
+  const int w = warp >> 2, tw = threadIdx.x & 127;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  float oacc[WIDE_DC / 2];                        // O: 64 x WIDE_DC
+  const int r0 = q0 + (warp & 3) * 16 + g, r1 = r0 + 8;
+  const uint32_t q_addr = smem_u32(Qs + w * P::HALF);
+  const uint32_t k_addr = smem_u32(Ks + w * P::HALF);
+  const uint32_t v_addr = smem_u32(Vs + w * P::HALF);
+  const int my_pieces = w ? pieces - split : split;   // STREAM
+  float4* const x_mine = xch + w * 8 * 128 + tw;
+  const float4* const x_other = xch + (1 - w) * 8 * 128 + tw;
+  float oacc[WIDE_DC / 2];                        // O: 64 x 256 a warpgroup
 #pragma unroll
   for (int i = 0; i < WIDE_DC / 2; ++i) oacc[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // log2 units
 
-  int n = 0;                                      // (Q, K) pieces taken
+  if constexpr (!STREAM) mbar_wait(&q_full, 0);
+  int nq = 0;                                     // STREAM: stages taken
   for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
     const int k0 = kt * BN;
-    // a tile every key of which is masked for all 64 rows is skipped
+    // a tile every key of which is masked for all 64 rows is skipped by both
     const bool dead = (causal && k0 > q0 + 63) ||
                       (window > 0 && k0 + BN + window <= q0 + 1);
     float sacc[BN / 2];
-    for (int p = 0; p < pieces; ++p, ++n) {       // S = Q K^T, piece by piece
-      const int s = n % SQ;
-      mbar_wait(&qk_full[s], (n / SQ) & 1);       // getfin
+    // a stage's slot is free: each warp arrives once
+    auto release = [&](int s) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&k_empty[w][s]);
+    };
+    if constexpr (STREAM) {
+      if (dead) {
+        for (int j = 0; j < my_pieces; ++j, ++nq) {
+          mbar_wait(&k_full[w][nq % SQ], (nq / SQ) & 1);
+          release(nq % SQ);
+        }
+      } else {
+        // this warpgroup's part of S over its pieces, a stage each, one
+        // piece's group in flight: a stage is freed once the group after
+        // it is issued and it has completed
+        wgmma_fence();
+        for (int j = 0; j < my_pieces; ++j, ++nq) {
+          const int s = nq % SQ;
+          mbar_wait(&k_full[w][s], (nq / SQ) & 1);  // getfin
+          const uint32_t qa = smem_u32(QK + (w * SQ + s) * 2 * P::PIECE);
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)          // 16 columns, 32 bytes
+            wgmma_ss<T>(sacc, wgmma_desc_sw128(qa + ks * 32),
+                        wgmma_desc_sw128(qa + P::PIECE + ks * 32),
+                        j > 0 || ks > 0);
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (j > 0) release((nq - 1) % SQ);
+        }
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        release((nq - 1) % SQ);
+      }
+    } else {
+      mbar_wait(&k_full[w][0], i & 1);            // getfin
       if (!dead) {
-        const uint32_t qa = smem_u32(QK + s * W::QK_STAGE);
-        const uint32_t ka = qa + W::PIECE;
+        // this warpgroup's part of S: its columns' k-steps, 4 a box
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks)            // 16 columns, 32 bytes
-          wgmma_ss<T>(sacc, wgmma_desc_sw128(qa + ks * 32),
-                      wgmma_desc_sw128(ka + ks * 32), p > 0 || ks > 0);
+        for (int ks = 0; ks < 4 * NB; ++ks) {
+          const uint32_t off = (ks / 4) * P::PIECE + (ks % 4) * 32;
+          wgmma_ss<T>(sacc, wgmma_desc_sw128(q_addr + off),
+                      wgmma_desc_sw128(k_addr + off), ks > 0);
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sacc);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&qk_empty[s]);   // this warp is done with s
+      release(0);                                 // K's slot is free
     }
-    const int sv = i % SV;
-    mbar_wait(&v_full[sv], (i / SV) & 1);
     if (!dead) {
+      // the two partials meet: S = own + other's, the same in both
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        x_mine[j * 128] = make_float4(sacc[4 * j], sacc[4 * j + 1],
+                                      sacc[4 * j + 2], sacc[4 * j + 3]);
+      asm volatile("bar.sync 1, %0;\n" ::"n"(2 * 128) : "memory");
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float4 x = x_other[j * 128];
+        sacc[4 * j] += x.x;
+        sacc[4 * j + 1] += x.y;
+        sacc[4 * j + 2] += x.z;
+        sacc[4 * j + 3] += x.w;
+      }
+      asm volatile("bar.sync 2, %0;\n" ::"n"(2 * 128) : "memory");
+
       // masks where the tile straddles S, the diagonal or the window edge
       const bool edge = k0 + BN > S || (causal && k0 + BN - 1 > q0) ||
                         (window > 0 && k0 + window <= q0 + 63);
@@ -2035,21 +2156,23 @@ flash_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
         oacc[4 * j + 2] *= alpha1;
         oacc[4 * j + 3] *= alpha1;
       }
-      // O += P V over this block's columns: four 16-key steps of the
-      // stage's four V boxes, PIECE bytes apart
-      const uint32_t v_addr = smem_u32(Vs + sv * W::V_STAGE);
+      // O += P V over this warpgroup's columns: four 16-key steps of its
+      // four V boxes, PIECE bytes apart
+      mbar_wait(&v_full[w], i & 1);
       fence_regs(oacc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
         wg::wgmma_pv<T, WIDE_DC>(oacc, pa[kk], v_addr + kk * 16 * ROW,
-                                 W::PIECE);
+                                 P::PIECE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(oacc);
+    } else {
+      mbar_wait(&v_full[w], i & 1);
     }
     __syncwarp();
-    if (lane == 0) mbar_arrive(&v_empty[sv]);
+    if (lane == 0) mbar_arrive(&v_empty[w]);      // V's slot is free
   }
 
 #pragma unroll
@@ -2058,17 +2181,40 @@ flash_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  T* ob = o + b * o_sb + h * o_sh + c0;           // this block's chunk
+  const int cw = c0 + w * WIDE_DC;                // this warpgroup's columns
+  T* const ob = o + b * o_sb + h * o_sh + cw;
+  // O through shared memory the warpgroup alone has read (its Q half, or
+  // its ring, which TMA no longer fills): rows of 512 bytes, 16-byte piece
+  // c of row r at c ^ (r % 8), so that a warp's 4-byte stores hit 32
+  // banks; then each thread stores whole 16-byte pieces, a warp one row's
+  // 512 bytes, columns < dh only. Stored from the accumulators' layout, a
+  // row's 4-byte pieces 16 KB apart in the model's [B, S, H, D], the two
+  // warpgroups' stores took 23% of a warp's time at D = 512
+  // (`flash_phases.py --body pair`, PERF.md)
+  unsigned char* const os =
+      STREAM ? QK + w * SQ * 2 * P::PIECE : Qs + w * P::HALF;
+  const int rw = (warp & 3) * 16 + g;             // rows rw, rw + 8 of the tile
 #pragma unroll
   for (int j = 0; j < WIDE_DC / 8; ++j) {
-    const int col = 8 * j + 2 * t;
-    if (c0 + col >= dh) break;          // past the head, or another chunk's
-    if (r0 < S)
-      *reinterpret_cast<uint32_t*>(ob + r0 * o_ss + col) =
-          pack2<T>(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
-    if (r1 < S)
-      *reinterpret_cast<uint32_t*>(ob + r1 * o_ss + col) =
-          pack2<T>(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
+    *reinterpret_cast<uint32_t*>(os + rw * 512 + ((j ^ (rw & 7)) << 4) +
+                                 4 * t) =
+        pack2<T>(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(os + (rw + 8) * 512 +
+                                 ((j ^ ((rw + 8) & 7)) << 4) + 4 * t) =
+        pack2<T>(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(3 + w) : "memory");
+  const int c = tw & 31, col = 8 * c;            // this thread's piece
+  for (int r = tw >> 5; r < BM && q0 + r < S; r += 4) {
+    const uint4 x =
+        *reinterpret_cast<const uint4*>(os + r * 512 + ((c ^ (r & 7)) << 4));
+    T* const dst = ob + (q0 + r) * o_ss + col;
+    if (cw + col + 8 <= dh) {
+      *reinterpret_cast<uint4*>(dst) = x;
+    } else {                            // the head ends in or before it
+      const T* e = reinterpret_cast<const T*>(&x);
+      for (int i = 0; i < 8 && cw + col + i < dh; ++i) dst[i] = e[i];
+    }
   }
 }
 
@@ -2195,28 +2341,32 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// D > 256: `chunks` blocks of WIDE_DC columns for every (head, query tile)
+// D > 256: a block of two consumer warpgroups for every (head, query
+// tile) up to 512, for every (head, query tile, 512-column chunk) above
 template <typename T>
-cudaError_t launch_wgmma_wide(const void* q, const void* k, const void* v,
+cudaError_t launch_wgmma_pair(const void* q, const void* k, const void* v,
                               void* o, int B, int Hq, int Hkv, int S, int dh,
                               int causal, int window, float scale,
                               const long long* st, cudaStream_t stream) {
-  using W = wg::Wide;
-  static hopper::SmemAllowance allowance;
-  auto kernel = flash_wgmma_wide_kernel<T>;
-  cudaError_t err = hopper::allow_smem(allowance, kernel, W::SMEM);
+  using P = wg::Pair;
+  const bool stream_qk = dh > 2 * WIDE_DC;
+  static hopper::SmemAllowance allow_pair, allow_stream;
+  auto kernel = stream_qk ? flash_wgmma_pair_kernel<T, true>
+                          : flash_wgmma_pair_kernel<T, false>;
+  cudaError_t err = hopper::allow_smem(stream_qk ? allow_stream : allow_pair,
+                                       kernel, P::SMEM);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   int pos[3];
   if ((err = flash_maps(Op16<T>::kMap, q, k, v, B, Hq, Hkv, S, dh, st,
-                        W::BM, W::BN, &tq, &tk, &tv, pos)) != cudaSuccess)
+                        P::BM, P::BN, &tq, &tk, &tv, pos)) != cudaSuccess)
     return err;
-  const int chunks = (dh + WIDE_DC - 1) / WIDE_DC;
-  dim3 grid(Hq * chunks, B, (S + W::BM - 1) / W::BM);
-  kernel<<<grid, W::THREADS, W::SMEM, stream>>>(
+  const int chunks = (dh + 2 * WIDE_DC - 1) / (2 * WIDE_DC);
+  dim3 grid(Hq * chunks, B, (S + P::BM - 1) / P::BM);
+  kernel<<<grid, P::THREADS, P::SMEM, stream>>>(
       tq, tk, tv, static_cast<T*>(o), S, Hq / Hkv, causal, window,
-      scale * 1.4426950408889634f, dh, chunks, pos[0], pos[1], pos[2], st[9],
-      st[10], st[11]);
+      scale * 1.4426950408889634f, dh, chunks, pos[0], pos[1], pos[2],
+      st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 
@@ -2354,7 +2504,7 @@ int launch_typed(Body body, int Dp, const void* q, const void* k,
   if constexpr (!kF32 && !is_fp8<E>) {
     if (body == BODY_WGMMA) {
       if (Dp > WIDE_DC)
-        return static_cast<int>(launch_wgmma_wide<E>(FLASH_ARGS));
+        return static_cast<int>(launch_wgmma_pair<E>(FLASH_ARGS));
       switch (Dp) {
         FLASH_CASE(launch_wgmma, 64);
         FLASH_CASE(launch_wgmma, 128);
@@ -2390,6 +2540,20 @@ int launch_typed(Body body, int Dp, const void* q, const void* k,
 // `body_for` states the same rule).
 extern "C" int flash_attention_body(int dtype, int D) {
   return static_cast<int>(body_for(dtype, D));
+}
+
+// Blocks a (head, query tile) of a launch at (dtype, D): 1 up to 256; in
+// the wgmma body above, one a 512-column chunk of the output (the pair
+// body: ceil(D / 512)); in the fma body above 256, one a 256-column chunk
+// (Dp / 256); 0 for a head size or type no body takes (the wrapper's
+// `wide_blocks` states the same rule).
+extern "C" int flash_attention_wide_blocks(int dtype, int D) {
+  const Body body = body_for(dtype, D);
+  const int Dp = padded(D);
+  if (body == BODY_NONE) return 0;
+  if (Dp <= WIDE_DC) return 1;
+  if (body == BODY_WGMMA) return (D + 2 * WIDE_DC - 1) / (2 * WIDE_DC);
+  return Dp / WIDE_DC;
 }
 
 // q, o [B, Hq, S, D]; k, v [B, Hkv, S, D], D >= 1, all of one type (float32,

@@ -115,17 +115,46 @@
 //   (a) the loads: where a row of D elements is a whole number of 16-byte
 //       pieces (bf16 D % 8 == 0, fp32 D % 4 == 0), TMA as above, the tensor
 //       maps' innermost extent D, so that TMA zero-fills columns D .. Dp-1
-//       (and bf16 at Dp >= 64 keeps the tensor cores); elsewhere TMA cannot
-//       load the rows, and the producer warp's 32 lanes copy each chunk's
-//       rows by element (8 loads in flight a lane) into the slot's
-//       unswizzled layout, columns D .. Dp-1 as zeros, each lane arriving
-//       on the slot's *full* mbarrier (32 arrivals, no bytes), and both
-//       products run on FMAs. Q loads by element, its tail as zeros;
+//       (and bf16 at Dp >= 64 keeps the tensor cores); elsewhere one head's
+//       row cannot be a TMA box, and the slots are the unpadded layout of
+//       the segment body below, [rows][heads][dh] (HEADS; "Rows of no whole
+//       16-byte pieces" below), both products on FMAs. Q loads by element,
+//       its tail as zeros;
 //   (b) the stores write columns < D only (`out` rows may be wider);
 //   (c) the scale is 1 / sqrt(D), computed by the launch, not of Dp.
 // The partials' workspace and the exchange buffers are sized for Dp. The
 // rule, also in `paged_attention_body` and the wrapper's `body_for`: "tma"
 // where D * item % 16 == 0, else "element".
+//
+// Rows of no whole 16-byte pieces (D * item % 16 != 0, Dp up to 256): the
+// element body copied each chunk by element, 1-2 bytes a load and 8 loads
+// in flight a lane of one producer warp, over the zero columns D .. Dp-1
+// too, so its consumers waited on the copy 59-80% of their time
+// (`paged_phases.py`, PERF.md: fp8 D = 100, bf16 D = 100 at 16 KV heads),
+// and it took segments of one KV head. Now these rows take the unpadded
+// slots of the segment body (HEADS), segments of several KV heads below 8
+// query heads a KV head as there (`kv_run`), and one of two loaders,
+// decided at launch from the caches' strides (`run_box`, the wrapper's
+// `run_heads` and `route`):
+//   - a run of heads by TMA: the caches are [B, T, Hkv, D], so where a
+//     token's heads are contiguous (sh == D), a run of R of them is whole
+//     16-byte pieces although one head's row is not, and the other strides
+//     and the starts are multiples of 16 bytes, one TMA box over the [B, T,
+//     Hkv * D] view brings `rows` rows of the run: R the smallest multiple
+//     of the segment's KV heads that divides Hkv (fp8 D = 8 at Hkv 2: both
+//     heads of a token, 16 bytes, for segments of one; bf16 D = 100 at Hkv
+//     16: the segment's 8), the box cut into `box_n` runs of `box_w` <= 256
+//     elements (`box_width`). A warp reads its KV head's rows at its place
+//     in the run (`kv_row`);
+//   - elsewhere (strided heads, a run that no multiple makes whole pieces,
+//     an unaligned start) the producer warp copies the rows into the same
+//     layout, in loads as wide as the head's bytes, the strides and the
+//     starts allow (16, 8, 4, 2 or 1 bytes: `copy_width`), by cp.async
+//     whose completion makes the lane's arrival where they are 4 bytes or
+//     wider, else byte by byte (`copy_units`); no zero column is written
+//     or read: the consumers
+//     read a lane's columns as one vector where the row's are whole
+//     vectors of it, else one element a load, 0 past dh (`load_cols`).
 //
 // Above 256 columns (the wide body, WIDE): a lane's D / 32 columns and the
 // slot's rows no longer fit (at D = 2048, 64 accumulators and 64 q values a
@@ -237,6 +266,9 @@ __host__ __device__ constexpr int xch_floats(int HS) {
 // modulo 128 and no two share a bank
 constexpr int QPAD = 8;
 constexpr unsigned FULL = 0xffffffffu;
+// the most bytes of K and V an aload of unpadded slots holds (the plan's
+// rows: HEADS_SLOT_BYTES of paged_attention.py)
+constexpr int HEADS_SLOT_BYTES = 65536;
 
 struct Args {
   const void* q;
@@ -254,8 +286,14 @@ struct Args {
   float scale;
   int e5m2;                      // fp8 caches (fp8_any): e5m2, else e4m3fn
   int qt;                        // q's and out's DType where EQ is q_as<M>
-  int heads;                     // KV heads a segment (`kv_run`; HEADS: > 1)
+  int heads;                     // KV heads a segment (`kv_run`)
   int hx;                        // query heads a warp (`group_heads` / GC)
+  // HEADS: KV heads a slot row holds (a multiple of `heads`: `run_box`), the
+  // TMA box's extents over the head axis and across it (`box_n` runs of
+  // `box_w` elements; dh and `heads` where one head's row is whole 16-byte
+  // pieces), whether the producer warp copies by element in place of TMA,
+  // and the bytes of one of its loads (`copy_width`)
+  int box_heads, box_n, box_w, copy, width;
 };
 
 // fp8 caches of either kind are one load type, the kind an argument
@@ -370,19 +408,38 @@ __device__ __forceinline__ uint32_t fp8x2_to(uint32_t x, int e5m2) {
   }
 }
 
-// N cache elements from a slot, widened to fp32.
-template <typename E, int N>
+// N cache elements from a slot, widened to fp32; fp8 of the kind KIND (0
+// e4m3fn, 1 e5m2) or, at -1, of the launch's (`e5m2`): the FMA bodies'
+// loops take the kind as KIND, which measured 13% faster at fp8 D = 8 than
+// the launch's kind a conversion (PERF.md).
+template <typename E, int N, int KIND = -1>
 __device__ __forceinline__ void load_row(const E* p, float (&out)[N],
                                          int e5m2) {
   if constexpr (std::is_same_v<E, fp8_any>) {
     const Vec<E, N> x = *reinterpret_cast<const Vec<E, N>*>(p);
-    const __nv_fp8_interpretation_t kind = e5m2 ? __NV_E5M2 : __NV_E4M3;
+    const __nv_fp8_interpretation_t kind =
+        KIND == 1 ? __NV_E5M2 : KIND == 0 ? __NV_E4M3
+                  : e5m2 ? __NV_E5M2 : __NV_E4M3;
 #pragma unroll
     for (int i = 0; i < N; ++i)
       out[i] = __half2float(__half(__nv_cvt_fp8_to_halfraw(x.v[i].bits,
                                                            kind)));
   } else {
     load_vec<E, N>(p, out);
+  }
+}
+
+// N cache elements from a slot, widened, one element a load and 0 from
+// element `valid` on: a row of the unpadded slots whose columns are no
+// whole vectors of a lane (elsewhere `load_row` takes them as one vector).
+template <typename E, int N>
+__device__ __forceinline__ void load_cols(const E* p, float (&out)[N],
+                                          int e5m2, int valid) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float y[1] = {0.f};
+    if (i < valid) load_row<E, 1>(p + i, y, e5m2);
+    out[i] = y[0];
   }
 }
 
@@ -396,6 +453,109 @@ __device__ __forceinline__ E zero() {
 template <typename E>
 __device__ __forceinline__ E col_or_zero(const E* row, int c, int dh) {
   return c < dh ? row[c] : zero<E>();
+}
+
+// A chunk's rows for the element copy (HEADS, a.copy): K and V from kr, vr
+// (a row k_t / v_t bytes apart, a head k_h / v_h), each row `heads` heads
+// of `units` loads of the copy's width, to [rows][heads][units] at kd, vd.
+struct CopyRows {
+  const unsigned char *kr, *vr;
+  unsigned char *kd, *vd;
+  long long k_t, k_h, v_t, v_h;
+  int n, heads, units;
+};
+
+// The unit of the copy at i: its row, head and bytes from the head's start.
+__device__ __forceinline__ void copy_unit_at(const CopyRows& c, int i, int w,
+                                             long long& k_off,
+                                             long long& v_off) {
+  const int per = c.heads * c.units;
+  const int r = i / per, rem = i - r * per, hh = rem / c.units;
+  const int x = (rem - hh * c.units) * w;
+  k_off = r * c.k_t + hh * c.k_h + x;
+  v_off = r * c.v_t + hh * c.v_h + x;
+}
+
+// The producer warp's copy of a chunk, lane `lane` of 32, units of w bytes
+// (every start, stride and the head's bytes multiples of w: `copy_width`),
+// unit i to i w of its half, the unpadded layout; no zero column is
+// written (the consumers read columns < dh only). Units of 4, 8 or 16
+// bytes go by cp.async straight into place, no register held, and the
+// lane's arrival on the slot's `full` barrier is made by their completion
+// (cp.async.mbarrier.arrive.noinc), so the warp issues the next chunk's
+// copies at once; narrower units (16-bit rows of odd D, fp8 rows of odd D)
+// go byte by byte through registers, 16 of K and of V in flight a lane,
+// and the lane arrives after its stores. One routine for every width: a
+// copy instantiated a width held the kernels' registers at 56 with spills
+// (ptxas; PERF.md).
+__device__ __forceinline__ void copy_units(const CopyRows& c, int lane,
+                                           int w, uint64_t* full) {
+  const int per = c.heads * c.units, total = c.n * per;
+  if (w >= 4) {
+    const uint32_t kd = smem_u32(c.kd), vd = smem_u32(c.vd);
+    // unit i = r per + rem, advanced by 32 as dr rows and drem units
+    const int dr = 32 / per, drem = 32 % per;
+    int r = lane / per, rem = lane % per;
+    for (int i = lane; i < total; i += 32) {
+      int hh = 0, xu = rem;
+      if (c.heads > 1) {
+        hh = rem / c.units;
+        xu = rem - hh * c.units;
+      }
+      const long long ko = r * c.k_t + hh * c.k_h + xu * w;
+      const long long vo = r * c.v_t + hh * c.v_h + xu * w;
+      r += dr;
+      rem += drem;
+      if (rem >= per) {
+        rem -= per;
+        ++r;
+      }
+      const uint32_t at = (uint32_t)(i * w);
+      if (w == 16) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         kd + at), "l"(c.kr + ko) : "memory");
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         vd + at), "l"(c.vr + vo) : "memory");
+      } else if (w == 8) {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                         kd + at), "l"(c.kr + ko) : "memory");
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                         vd + at), "l"(c.vr + vo) : "memory");
+      } else {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                         kd + at), "l"(c.kr + ko) : "memory");
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                         vd + at), "l"(c.vr + vo) : "memory");
+      }
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                     "r"(smem_u32(full)) : "memory");
+    return;
+  }
+  constexpr int U = 16;                     // loads in flight a tensor
+  const int bytes = total * w;
+  for (int i0 = lane; i0 < bytes; i0 += 32 * U) {
+    unsigned char kx[U], vx[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + 32 * u;
+      if (i < bytes) {
+        long long ko, vo;
+        copy_unit_at(c, i / w, w, ko, vo);
+        kx[u] = c.kr[ko + i % w];
+        vx[u] = c.vr[vo + i % w];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + 32 * u;
+      if (i < bytes) {
+        c.kd[i] = kx[u];
+        c.vd[i] = vx[u];
+      }
+    }
+  }
+  mbar_arrive(full);                        // release: this lane's stores
 }
 
 // Barrier 1 over the NT consumer threads only (the producer warp runs on).
@@ -680,8 +840,8 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   const int c0 = WIDE ? blockIdx.y * D : 0;  // the chunk's first column
   extern __shared__ __align__(1024) unsigned char smem[];
   const PagedSmem L =
-      paged_smem<E, D, WIDE, HEADS, HX>(a.B, a.rows, a.slots, a.npk, a.heads,
-                                        a.dh);
+      paged_smem<E, D, WIDE, HEADS, HX>(a.B, a.rows, a.slots, a.npk,
+                                        a.box_heads, a.dh);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // a slot loaded
   uint64_t* empty = full + a.slots;                     // a slot released
   long long* P = reinterpret_cast<long long*>(smem + L.P);
@@ -720,12 +880,14 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   };
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hw = warp % GC, set = warp / GC;   // a consumer's head and set
-  // segments a sequence
-  const int hg = HEADS ? a.Hkv / a.heads : a.Hkv * a.ngc;
-  // HEADS: the slot row of chunk row r for this warp's query head hw, whose
-  // KV head is the segment's hw / G-th; the columns a row holds
+  // TMA loads the slots (the element rows' body: unless a.copy)
+  const bool tma = TMA && !a.copy;
+  // segments a sequence (HEADS: a.ngc is 1 where a segment has several KV
+  // heads)
+  const int hg = HEADS ? a.Hkv / a.heads * a.ngc : a.Hkv * a.ngc;
+  // HEADS: this warp's query head hw is of the segment's hw / G-th KV head;
+  // the columns a slot row holds
   const int kvh = HEADS ? hw / a.G : 0;
-  auto kv_row = [&](int r) { return HEADS ? r * a.heads + kvh : r; };
   const int dcols = HEADS ? a.dh : D;
   const int S = a.B * hg;
   // a wide chunk's own partials and tickets
@@ -740,10 +902,10 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   int* const gtickets = tickets + S;
 
   if (tid < a.slots) {
-    mbar_init(&full[tid], TMA ? 1 : 32);     // TMA's one, or the 32 lanes
+    mbar_init(&full[tid], tma ? 1 : 32);     // TMA's one, or the 32 lanes
     mbar_init(&empty[tid], GC);   // the 8 warps of the set that took it
   }
-  if (TMA && tid == NT) {       // the descriptors, while the lengths arrive
+  if (tma && tid == NT) {       // the descriptors, while the lengths arrive
     asm volatile("prefetch.tensormap [%0];" ::"l"(&kmap) : "memory");
     asm volatile("prefetch.tensormap [%0];" ::"l"(&vmap) : "memory");
   }
@@ -766,14 +928,15 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   __syncthreads();
 
   // where segment s's query heads are: sequence, (first) KV head, first
-  // head, heads; HEADS: the a.G query heads of each of a.heads KV heads
+  // head, heads; HEADS: the a.G query heads of each of a.heads KV heads, or
+  // of one KV head a group of up to HS as below
   auto heads = [&](int s, int& b, int& h, int& g0, int& gn) {
     b = s / hg;
     const int j = s % hg;
     if constexpr (HEADS) {
-      h = j * a.heads;
-      g0 = 0;
-      gn = a.heads * a.G;
+      h = j / a.ngc * a.heads;
+      g0 = (j % a.ngc) * HS;
+      gn = a.heads > 1 ? a.heads * a.G : min(HS, a.G - g0);
     } else {
       h = j / a.ngc;
       g0 = (j % a.ngc) * HS;
@@ -815,11 +978,12 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     heads(s, b, h, g0, gn);
     unsigned char* dst = slots + (size_t)(j % a.slots) * slot_bytes;
     uint64_t* bar = &full[j % a.slots];
-    if constexpr (HEADS) {      // rows x a.heads heads x dh: one box each
-      mbar_arrive_expect_tx(bar,
-                            (uint32_t)(2 * a.rows * a.heads * a.dh * ITEM));
-      tma_load_4d(dst, &kmap, bar, 0, h, (int)t, b);
-      tma_load_4d(dst + half_bytes, &vmap, bar, 0, h, (int)t, b);
+    if constexpr (HEADS) {      // rows x box_heads heads x dh: one box each
+      const int c1 = h / a.box_heads * a.box_n;   // the run holding h
+      mbar_arrive_expect_tx(
+          bar, (uint32_t)(2 * a.rows * a.box_heads * a.dh * ITEM));
+      tma_load_4d(dst, &kmap, bar, 0, c1, (int)t, b);
+      tma_load_4d(dst + half_bytes, &vmap, bar, 0, c1, (int)t, b);
     } else if constexpr (WIDE) {       // all of K's pieces, V's chunk
       mbar_arrive_expect_tx(bar, (uint32_t)((a.npk + 1) * a.rows * D * ITEM));
       for (int x = 0; x < a.npk * NBX; ++x)
@@ -840,9 +1004,11 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     return g + min((long long)a.rows, min(end, hi) - g);
   };
 
-  // the padded body's aload: the producer warp copies chunk j (the rows
-  // from global row g) by element into slot j % slots, columns dh.. zero,
-  // and each lane arrives; returns the global row after the chunk
+  // the element copy's aload: the producer warp copies chunk j (the rows
+  // from global row g) into slot j % slots, and each lane arrives; returns
+  // the global row after the chunk. HEADS: rows of a.box_heads heads of dh
+  // columns, unpadded ([rows][heads][dh], as TMA lands a run), in loads of
+  // a.width bytes (`copy_units`); WIDE: by element, columns dh.. zero
   auto copy = [&](long long g, int j) -> long long {
     int s;
     long long t, end;
@@ -851,12 +1017,23 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     heads(s, b, h, g0, gn);
     const int n = (int)min((long long)a.rows, min(end, hi) - g);
     unsigned char* dst = slots + (size_t)(j % a.slots) * slot_bytes;
-    const E* kr = static_cast<const E*>(a.k) + b * a.k_sb + t * a.k_st +
-                  h * a.k_sh;
-    const E* vr = static_cast<const E*>(a.v) + b * a.v_sb + t * a.v_st +
-                  h * a.v_sh;
-    constexpr int UNROLL = 8;                // loads in flight a lane
-    if constexpr (WIDE) {   // K: all npk * D columns; V: the chunk's D
+    if constexpr (HEADS) {
+      const int hb = h - h % a.box_heads;     // the slot's first KV head
+      const unsigned char* kr = static_cast<const unsigned char*>(a.k) +
+                                (b * a.k_sb + t * a.k_st + hb * a.k_sh) * ITEM;
+      const unsigned char* vr = static_cast<const unsigned char*>(a.v) +
+                                (b * a.v_sb + t * a.v_st + hb * a.v_sh) * ITEM;
+      const CopyRows c{kr, vr, dst, dst + half_bytes, a.k_st * ITEM,
+                       a.k_sh * ITEM, a.v_st * ITEM, a.v_sh * ITEM, n,
+                       a.box_heads, a.dh * ITEM / a.width};
+      copy_units(c, lane, a.width, &full[j % a.slots]);
+      return g + n;
+    } else if constexpr (WIDE) {   // K: all npk * D columns; V: the chunk's D
+      const E* kr = static_cast<const E*>(a.k) + b * a.k_sb + t * a.k_st +
+                    h * a.k_sh;
+      const E* vr = static_cast<const E*>(a.v) + b * a.v_sb + t * a.v_st +
+                    h * a.v_sh;
+      constexpr int UNROLL = 8;              // loads in flight a lane
       const int kw = a.npk * D;
       for (int kv = 0; kv < 2; ++kv) {       // K, then V
         const E* src = kv ? vr : kr;
@@ -881,43 +1058,22 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
           }
         }
       }
-      mbar_arrive(&full[j % a.slots]);       // release: this lane's stores
-      return g + n;
-    }
-    const int total = n * D;
-    for (int i0 = lane; i0 < total; i0 += 32 * UNROLL) {
-      E kx[UNROLL], vx[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int i = i0 + 32 * u, r = i / D, c = i % D;
-        kx[u] = i < total ? col_or_zero(kr + r * a.k_st, c, a.dh)
-                          : zero<E>();
-        vx[u] = i < total ? col_or_zero(vr + r * a.v_st, c, a.dh)
-                          : zero<E>();
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int i = i0 + 32 * u, r = i / D, c = i % D;
-        if (i < total) {
-          const size_t off = (c / IN) * box_bytes + (r * IN + c % IN) * ITEM;
-          *reinterpret_cast<E*>(dst + off) = kx[u];
-          *reinterpret_cast<E*>(dst + half_bytes + off) = vx[u];
-        }
-      }
     }
     mbar_arrive(&full[j % a.slots]);       // release: this lane's stores
     return g + n;
   };
 
   if (warp == NSET * GC) {      // the producer: every chunk of the share,
-    if (TMA && lane == 0) {     // a slot as soon as the consumers free it
-      long long g = lo;
-      for (int j = 0; g < hi; ++j) {
-        if (j >= a.slots)
-          mbar_wait(&empty[j % a.slots], (uint32_t)((j / a.slots - 1) & 1));
-        g = issue(g, j);
+    if (tma) {                  // a slot as soon as the consumers free it
+      if (lane == 0) {
+        long long g = lo;
+        for (int j = 0; g < hi; ++j) {
+          if (j >= a.slots)
+            mbar_wait(&empty[j % a.slots], (uint32_t)((j / a.slots - 1) & 1));
+          g = issue(g, j);
+        }
       }
-    } else if (!TMA) {          // all 32 lanes copy
+    } else if (HEADS || WIDE) {   // all 32 lanes copy
       long long g = lo;
       for (int j = 0; g < hi; ++j) {
         if (j >= a.slots)
@@ -940,6 +1096,13 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   constexpr int NTW = TC ? PVC / 8 : 1;      // a warp's mma n-tiles
   float cacc[NTW][4];                        // its P V accumulators (TC)
   int cur = -1, b = 0, h = 0, g0 = 0, gn = 0;
+  // HEADS: the slot row of chunk row r for this warp's query head (rows of
+  // a.box_heads KV heads from the slot's first, this warp's KV head `hoff`
+  // on: set at each segment); whether a lane's EPL columns of it are one
+  // aligned vector
+  int hoff = 0;
+  auto kv_row = [&](int r) { return HEADS ? r * a.box_heads + hoff : r; };
+  const bool vrow = !HEADS || a.dh % EPL == 0;
   // HX 2: the segment's q in M, [HS][D + QPAD], in the set's tacc
   const M* const q16 = reinterpret_cast<const M*>(tacc + set * HS * D);
 
@@ -1185,6 +1348,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       if (cur >= 0) finish();
       cur = s;
       heads(s, b, h, g0, gn);
+      hoff = h % a.box_heads + kvh;
       // (TC, q of a launch's type) the group's queries, columns past Dh and
       // heads past gn as zeros, staged in fp32 in the set's tacc by all its
       // threads, EPL loads in flight each, for the fragments below
@@ -1424,13 +1588,35 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
               }
             }
           }
-        } else {
+        } else if (vrow) {
+          auto qk_rows = [&](auto kind) {
+#pragma unroll
+            for (int r = 0; r < 32; ++r) {
+              float dot = 0.f;
+              if (r < n && d0 < dcols) {
+                float kv[EPL];
+                load_row<E, EPL, decltype(kind)::value>(
+                    at(slot, kv_row(r), d0), kv, a.e5m2);
+#pragma unroll
+                for (int e = 0; e < EPL; ++e) dot = fmaf(qr[e], kv[e], dot);
+              }
+              part[r] = dot;
+            }
+          };
+          if constexpr (F8) {
+            if (a.e5m2) qk_rows(std::integral_constant<int, 1>{});
+            else qk_rows(std::integral_constant<int, 0>{});
+          } else {
+            qk_rows(std::integral_constant<int, -1>{});
+          }
+        } else {                // HEADS rows of no whole vectors of a lane
 #pragma unroll
           for (int r = 0; r < 32; ++r) {
             float dot = 0.f;
             if (r < n && d0 < dcols) {
               float kv[EPL];
-              load_row<E, EPL>(at(slot, kv_row(r), d0), kv, a.e5m2);
+              load_cols<E, EPL>(at(slot, kv_row(r), d0), kv, a.e5m2,
+                                dcols - d0);
 #pragma unroll
               for (int e = 0; e < EPL; ++e) dot = fmaf(qr[e], kv[e], dot);
             }
@@ -1452,16 +1638,39 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       if constexpr (!TC) {
 #pragma unroll
         for (int e = 0; e < EPL; ++e) acc[x][e] *= alpha[x];
+        if (vrow) {
+          auto pv_rows = [&](auto kind) {
 #pragma unroll 8
-        for (int r = 0; r < n; ++r) {        // P V: a lane D/32 columns
-          const float pr = __shfl_sync(FULL, p[x], r);
-          if (d0 < dcols) {
-            float vv[EPL];
-            load_row<E, EPL>(at(slot + half_bytes, kv_row(r), d0), vv,
-                             a.e5m2);
+            for (int r = 0; r < n; ++r) {    // P V: a lane D/32 columns
+              const float pr = __shfl_sync(FULL, p[x], r);
+              if (d0 < dcols) {
+                float vv[EPL];
+                load_row<E, EPL, decltype(kind)::value>(
+                    at(slot + half_bytes, kv_row(r), d0), vv, a.e5m2);
 #pragma unroll
-            for (int e = 0; e < EPL; ++e)
-              acc[x][e] = fmaf(pr, vv[e], acc[x][e]);
+                for (int e = 0; e < EPL; ++e)
+                  acc[x][e] = fmaf(pr, vv[e], acc[x][e]);
+              }
+            }
+          };
+          if constexpr (F8) {
+            if (a.e5m2) pv_rows(std::integral_constant<int, 1>{});
+            else pv_rows(std::integral_constant<int, 0>{});
+          } else {
+            pv_rows(std::integral_constant<int, -1>{});
+          }
+        } else {
+#pragma unroll 8
+          for (int r = 0; r < n; ++r) {
+            const float pr = __shfl_sync(FULL, p[x], r);
+            if (d0 < dcols) {
+              float vv[EPL];
+              load_cols<E, EPL>(at(slot + half_bytes, kv_row(r), d0), vv,
+                                a.e5m2, dcols - d0);
+#pragma unroll
+              for (int e = 0; e < EPL; ++e)
+                acc[x][e] = fmaf(pr, vv[e], acc[x][e]);
+            }
           }
         }
       }
@@ -1566,21 +1775,26 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
 // The tensor map of a cache [B, T, Hkv, D] (element strides sb, st, sh, 1):
 // boxes of `rows` rows of one head and box_cols columns, under the swizzle
 // of their row's bytes (`swizzle`: 128 or 64) where the tensor cores read
-// the slot, else none (0); HEADS: of a.heads heads and dh columns.
+// the slot, else none (0); HEADS: of a.box_n runs of a.box_w elements, all
+// dh columns of a.box_heads KV heads: where a.box_w is dh, over the heads
+// (stride sh), else over the [B, T, Hkv * D] view of a cache whose heads are
+// contiguous, cut into runs of box_w (`run_box`).
 template <typename E, int D, bool HEADS = false>
 cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
                       long long sb, long long st, long long sh,
                       int swizzle) {
+  const bool run = HEADS && a.box_w != a.dh;
   // innermost extent dh: TMA zero-fills columns dh .. D-1
-  const cuuint64_t dims[4] = {(cuuint64_t)a.dh, (cuuint64_t)a.Hkv,
-                              (cuuint64_t)a.T, (cuuint64_t)a.B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * sizeof(E),
-                                 (cuuint64_t)st * sizeof(E),
-                                 (cuuint64_t)sb * sizeof(E)};
-  // HEADS: all dh columns of a.heads KV heads a box, none past the head
+  const cuuint64_t dims[4] = {
+      (cuuint64_t)(HEADS ? a.box_w : a.dh),
+      (cuuint64_t)(run ? (long long)a.Hkv * a.dh / a.box_w : a.Hkv),
+      (cuuint64_t)a.T, (cuuint64_t)a.B};
+  const cuuint64_t strides[3] = {
+      (cuuint64_t)(run ? a.box_w : sh) * sizeof(E),
+      (cuuint64_t)st * sizeof(E), (cuuint64_t)sb * sizeof(E)};
   const cuuint32_t box[4] = {
-      HEADS ? (cuuint32_t)a.dh : (cuuint32_t)box_cols<E, D>(),
-      HEADS ? (cuuint32_t)a.heads : 1u, (cuuint32_t)a.rows, 1};
+      HEADS ? (cuuint32_t)a.box_w : (cuuint32_t)box_cols<E, D>(),
+      HEADS ? (cuuint32_t)a.box_n : 1u, (cuuint32_t)a.rows, 1};
   return encode_tensor_map(
       map,
       sizeof(E) == 4                   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -1598,14 +1812,14 @@ template <typename E, typename EQ, int D, bool EXACT, bool TMA, bool WIDE,
 cudaError_t launch(Args& a, int blocks, cudaStream_t stream) {
   int smem = 0;
   a.slots = ring_slots<E, D, WIDE, HEADS, HX>(a.B, a.rows, a.npk, &smem,
-                                              a.heads, a.dh);
+                                              a.box_heads, a.dh);
   if (a.slots == 0) return cudaErrorInvalidValue;
   static SmemAllowance allowance;
   auto kernel = paged_attention_kernel<E, EQ, D, EXACT, TMA, WIDE, HEADS, HX>;
   cudaError_t err = allow_smem(allowance, kernel, MAX_SMEM);
   if (err != cudaSuccess) return err;
-  CUtensorMap kmap{}, vmap{};        // the element body copies without
-  if (TMA) {
+  CUtensorMap kmap{}, vmap{};        // the element copy goes without
+  if (TMA && !a.copy) {
     constexpr int swizzle = !HEADS && tensor_core_qk<E, EQ, D, WIDE>()
                                 ? box_cols<E, D>() * (int)sizeof(E)
                                 : 0;
@@ -1648,9 +1862,10 @@ bool float_type(int dtype) {
 
 // The launch at (Dp, D) for caches of type E and q of type EQ: the body for
 // Dp, EXACT at D == Dp (q of the caches' type only), TMA where the rows are
-// whole 16-byte pieces; the wide body above 256; segments of a.heads KV
-// heads where that is more than 1 (`kv_run`); two query heads a warp where
-// a.hx is 2 (`group_heads`).
+// whole 16-byte pieces; the wide body above 256; the unpadded slots (HEADS)
+// for rows of no whole 16-byte pieces, loaded by TMA runs or copied
+// (a.copy), and for segments of a.heads KV heads where that is more than 1
+// (`kv_run`); two query heads a warp where a.hx is 2 (`group_heads`).
 template <typename E, typename EQ>
 cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
                          bool tma) {
@@ -1661,6 +1876,19 @@ cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
                : launch<E, EQ, WIDE_DC, false, false, true>(a, blocks, s);
   }
   a.npk = 1;
+  if (!tma) {
+#define ELEM_CASE(DIM) \
+  case DIM: return launch<E, EQ, DIM, false, true, false, true>(a, blocks, s)
+    switch (Dp) {
+      ELEM_CASE(16);
+      ELEM_CASE(32);
+      ELEM_CASE(64);
+      ELEM_CASE(128);
+      ELEM_CASE(256);
+    }
+#undef ELEM_CASE
+    return cudaErrorInvalidValue;
+  }
   if constexpr (kSame && sizeof(E) == 2) {
     if (a.heads > 1) {
 #define HEADS_CASE(DIM)                                                    \
@@ -1686,8 +1914,7 @@ cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
   case DIM:                                                              \
     if constexpr (kSame)                                                 \
       if (Dp == D) return launch<E, EQ, DIM, true, true, false>(a, blocks, s); \
-    return tma ? launch<E, EQ, DIM, false, true, false>(a, blocks, s)   \
-               : launch<E, EQ, DIM, false, false, false>(a, blocks, s)
+    return launch<E, EQ, DIM, false, true, false>(a, blocks, s)
   switch (Dp) {
     PAGED_CASE(16);
     PAGED_CASE(32);
@@ -1718,19 +1945,80 @@ cudaError_t launch_mma(Args& a, int blocks, cudaStream_t s, int Dp) {
 }
 
 // KV heads a segment (the note at the top): more than one where a group
-// of G query heads leaves warps of a set idle (G < GC, G dividing GC), for
-// 16-bit caches under a q of their type on the TMA ring at Dp 64 to 256,
-// at G = 1, or at G of 2 and 4 where D < Dp: GC / G, halved until it
-// divides Hkv. Otherwise 1.
+// of G query heads leaves warps of a set idle (G < GC, G dividing GC, Dp at
+// most 256): for rows of no whole 16-byte pieces in every type under any q,
+// and for 16-bit rows of whole pieces under a q of their type on the TMA
+// ring at Dp 64 to 256, at G = 1, or at G of 2 and 4 where D < Dp: GC / G,
+// halved until it divides Hkv. Otherwise 1.
 int kv_run(int dtype, int q_dtype, int D, int G, int Hkv) {
   const int Dp = padded(D);
-  if ((dtype != DTYPE_BF16 && dtype != DTYPE_F16) || q_dtype != dtype ||
-      !tma_rows(dtype, D) || Dp < 64 || Dp > WIDE_DC || G < 1 || G >= GC ||
-      GC % G != 0 || Hkv < 1 || (G > 1 && D == Dp))
+  if (!float_type(dtype) || Dp == 0 || Dp > WIDE_DC || G < 1 || G >= GC ||
+      GC % G != 0 || Hkv < 1)
+    return 1;
+  if (tma_rows(dtype, D) &&
+      ((dtype != DTYPE_BF16 && dtype != DTYPE_F16) || q_dtype != dtype ||
+       Dp < 64 || (G > 1 && D == Dp)))
     return 1;
   int r = GC / G;
   while (Hkv % r != 0) r /= 2;
   return r;
+}
+
+int item_of(int dtype) {
+  return dtype == DTYPE_F32 ? 4 : fp8_type(dtype) ? 1 : 2;
+}
+
+// A TMA box's innermost extent for a run of n elements of `item` bytes
+// whose bytes are whole 16-byte pieces: the widest w of at most 256
+// elements, a whole number of pieces, that divides n, with n / w boxes of
+// it across (at most 256); 0 where that is more.
+int box_width(int n, int item) {
+  const int u = 16 / item, k = n / u;
+  for (int d = 256 / u; d >= 1; --d)
+    if (k % d == 0) return k / d <= 256 ? u * d : 0;
+  return 0;
+}
+
+// KV heads a TMA box of a launch's unpadded slots holds where a row of D
+// elements is no whole number of 16-byte pieces but a run of the heads of a
+// token is (the note at the top): the smallest multiple of `heads` (`kv_run`)
+// that divides Hkv and whose row of D columns a head is whole 16-byte pieces,
+// where both caches' heads are contiguous (sh == D), their other strides (st,
+// sb: cs = {k_sb, k_st, k_sh, v_sb, v_st, v_sh} in elements) multiples of
+// 16 bytes, both starts 16-byte aligned (`aligned`), the run cut into TMA
+// boxes (`box_width`) and two of its rows within HEADS_SLOT_BYTES; 0 where
+// not (the producer warp copies the rows).
+int run_box(int dtype, int D, int Hkv, int heads, const long long* cs,
+            bool aligned) {
+  const int Dp = padded(D), item = item_of(dtype);
+  if (!float_type(dtype) || Dp == 0 || Dp > WIDE_DC || tma_rows(dtype, D) ||
+      !aligned || heads < 1)
+    return 0;
+  for (int i = 0; i < 2; ++i)
+    if (cs[3 * i + 2] != D || cs[3 * i + 1] * item % 16 != 0 ||
+        cs[3 * i] * item % 16 != 0)
+      return 0;
+  for (int rb = heads; rb <= Hkv; rb += heads) {
+    if (Hkv % rb != 0 || rb * D * item % 16 != 0) continue;
+    return box_width(rb * D, item) > 0 &&
+                   2 * rb * D * item <= HEADS_SLOT_BYTES
+               ? rb
+               : 0;
+  }
+  return 0;
+}
+
+// The bytes of one load of the element copy: the widest of 16, 8, 4 and 2
+// (at least an element) that a head's row, both caches' strides (cs as in
+// `run_box`) and starts (addr: their bitwise or) are multiples of.
+int copy_width(int dtype, int D, const long long* cs, unsigned long long addr) {
+  const int item = item_of(dtype);
+  for (int w = 16; w > item; w /= 2) {
+    bool ok = D * item % w == 0 && addr % w == 0;
+    for (int i = 0; i < 6; ++i) ok = ok && cs[i] * item % w == 0;
+    if (ok) return w;
+  }
+  return item;
 }
 
 // Where a launch's products run (dtype the caches', q_dtype q's; G query
@@ -1760,15 +2048,21 @@ int group_heads(int dtype, int q_dtype, int D, int G, int Hkv) {
 }
 
 // The ring of a launch for caches of type E (any EQ: it does not enter),
-// segments of `heads` KV heads, `hx` query heads a warp.
+// slot rows of `heads` KV heads (unpadded where `unpadded`: rows of no whole
+// 16-byte pieces, or more than one head), `hx` query heads a warp.
 template <typename E>
-int ring_for(int B, int D, int rows, int heads, int hx, int* smem) {
+int ring_for(int B, int D, int rows, int heads, int hx, bool unpadded,
+             int* smem) {
   const int Dp = padded(D);
   if (hx == 2)
     return Dp == 256 ? ring_slots<E, 256, false, false, 2>(B, rows, 1, smem)
                      : -1;
-  if (heads > 1) {
+  if (unpadded) {
     switch (Dp) {
+      case 16:
+        return ring_slots<E, 16, false, true>(B, rows, 1, smem, heads, D);
+      case 32:
+        return ring_slots<E, 32, false, true>(B, rows, 1, smem, heads, D);
       case 64:
         return ring_slots<E, 64, false, true>(B, rows, 1, smem, heads, D);
       case 128:
@@ -1792,11 +2086,25 @@ int ring_for(int B, int D, int rows, int heads, int hx, int* smem) {
 }  // namespace
 
 // The body a launch at (dtype, D) runs, dtype the caches' type: 0 the TMA
-// ring, 1 the body whose producer warp copies by element, -1 none (the
+// ring, 1 the body of rows of no whole 16-byte pieces (unpadded slots, by
+// TMA runs of heads or copied: `paged_attention_run`), -1 none (the
 // wrapper's `body_for` states the same rule).
 extern "C" int paged_attention_body(int dtype, int D) {
   if (!float_type(dtype) || padded(D) == 0) return -1;
   return tma_rows(dtype, D) ? 0 : 1;
+}
+
+// The KV heads of a TMA box of a launch at (dtype, q_dtype, D, Hq, Hkv)
+// over caches of strides cs = {k_sb, k_st, k_sh, v_sb, v_st, v_sh}
+// (elements) whose starts are 16-byte aligned (`aligned`), where their rows
+// are no whole 16-byte pieces: `run_box`, 0 where the producer warp copies
+// the rows (the wrapper's `run_heads` states the same rule).
+extern "C" int paged_attention_run(int dtype, int q_dtype, int D, int Hq,
+                                   int Hkv, const long long* cs,
+                                   int aligned) {
+  return run_box(dtype, D, Hkv,
+                 kv_run(dtype, q_dtype, D, Hkv > 0 ? Hq / Hkv : 0, Hkv), cs,
+                 aligned != 0);
 }
 
 // Where the products of a launch at (dtype, q_dtype, D, Hq, Hkv) run: 1
@@ -1881,6 +2189,17 @@ extern "C" int paged_attention_launch(
   a.scale = static_cast<float>(1.0 / sqrt((double)D));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool tma = tma_rows(dtype, D);
+  // the unpadded slots: a TMA box of a run of heads, or the producer warp's
+  // copy; where one head's row is whole pieces, a box of `heads` heads
+  const long long cs[6] = {a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh};
+  const unsigned long long addr = (unsigned long long)(uintptr_t)k |
+                                  (unsigned long long)(uintptr_t)v;
+  const int rb = tma ? 0 : run_box(dtype, D, Hkv, a.heads, cs, addr % 16 == 0);
+  a.copy = !tma && rb == 0;
+  a.box_heads = rb > 0 ? rb : a.heads;
+  a.box_w = rb > 0 ? box_width(rb * D, item_of(dtype)) : D;
+  a.box_n = rb > 0 ? rb * D / a.box_w : a.heads;
+  a.width = a.copy ? copy_width(dtype, D, cs, addr) : 0;
   if (q_dtype == dtype && !fp8_type(dtype)) {
     if (dtype == DTYPE_F32)
       return (int)launch_typed<float, float>(a, blocks, s, Dp, D, tma);
@@ -1907,21 +2226,24 @@ extern "C" int paged_attention_launch(
 
 // The ring a block of the launch takes for B sequences, head size D (any
 // D >= 1: the ring is Dp's, or the wide body's), `rows` rows an aload,
-// segments of `heads` KV heads and `group` query heads a segment of one
-// (`paged_attention_group`): its slots (0 where none fits, -1 for a head
+// slot rows of `heads` KV heads (those of a TMA box, `paged_attention_run`,
+// where it is not 0, else of a segment, `paged_attention_heads`) and `group`
+// query heads a segment of one (`paged_attention_group`): its slots (0 where none fits, -1 for a head
 // size or type the kernel does not take) and, in *smem, its shared-memory
 // bytes.
 extern "C" int paged_attention_ring(int B, int D, int rows, int dtype,
                                     int heads, int group, int* smem) {
   const int hx = group / GC;
-  if (heads > 1 && dtype != DTYPE_BF16 && dtype != DTYPE_F16) return -1;
   if ((hx != 1 && hx != 2) || (hx == 2 && (heads > 1 || dtype == DTYPE_F32)))
     return -1;
-  if (dtype == DTYPE_F32) return ring_for<float>(B, D, rows, 1, 1, smem);
+  if (!float_type(dtype) || padded(D) == 0) return -1;
+  const bool unpadded =
+      padded(D) <= WIDE_DC && (heads > 1 || !tma_rows(dtype, D));
+  if (dtype == DTYPE_F32)
+    return ring_for<float>(B, D, rows, heads, 1, unpadded, smem);
   if (dtype == DTYPE_BF16)
-    return ring_for<__nv_bfloat16>(B, D, rows, heads, hx, smem);
+    return ring_for<__nv_bfloat16>(B, D, rows, heads, hx, unpadded, smem);
   if (dtype == DTYPE_F16)
-    return ring_for<__half>(B, D, rows, heads, hx, smem);
-  if (fp8_type(dtype)) return ring_for<fp8_any>(B, D, rows, 1, hx, smem);
-  return -1;
+    return ring_for<__half>(B, D, rows, heads, hx, unpadded, smem);
+  return ring_for<fp8_any>(B, D, rows, heads, hx, unpadded, smem);
 }

@@ -31,7 +31,8 @@ def padded_head_dim(name: str, head_dim: int) -> int:
     size of the body a launch at `head_dim` runs (its columns past
     `head_dim` loaded as zeros and never stored); above CHUNK_DIM, the
     CHUNK_DIM-column chunks that cover the head, each the output columns of
-    its own blocks (the wide bodies). Both attention kernels take every
+    its own blocks or warpgroups (the wide bodies: `wide_blocks`). Both
+    attention kernels take every
     head size from 1 up, as the TPU kernels' whole-head BlockSpecs do;
     `name` is the kernel that refuses a head size below 1."""
     if head_dim < 1:
@@ -68,8 +69,10 @@ def body_for(dtype: torch.dtype, head_dim: int,
       whole 16-byte pieces (head_dim % 8 == 0) at Dp of 64 and up (two
       consumer warpgroups; at 256 with 64-key tiles, a producer warpgroup
       that hands its registers to them with setmaxnreg, and the two taking
-      turns at the tensor cores; above 256 in chunks of 256 output columns,
-      Q K^T streamed in 64-column pieces); float8 (e4m3fn, e5m2) rows of
+      turns at the tensor cores; above 256 two consumer warpgroups of 256
+      columns each that add their parts of Q K^T, a block the whole head up
+      to 512 and a chunk of 512 output columns above, Q and K then
+      streamed in 64-column pieces: `wide_blocks`); float8 (e4m3fn, e5m2) rows of
       whole 16-byte pieces (head_dim % 16 == 0) at Dp 64 to 256, Q K^T on
       the fp8 wgmma of their kind straight from the TMA tiles, V converted
       to f16 (exact) by the producer warpgroup for an f16 P V.
@@ -96,6 +99,23 @@ def body_for(dtype: torch.dtype, head_dim: int,
     return "wgmma" if dp >= 64 else "mma"
 
 
+def wide_blocks(dtype: torch.dtype, head_dim: int) -> int:
+    """Blocks a launch gives each (head, query tile), the rule
+    `flash_attention_wide_blocks` of csrc/flash_attention.cu applies: 1 up
+    to CHUNK_DIM; in the "wgmma" body above, one a 2 CHUNK_DIM-column chunk
+    of the output (the pair body: two consumer warpgroups of a block each
+    own CHUNK_DIM columns and add their parts of Q K^T, so up to 2
+    CHUNK_DIM it is done once a tile); in the "fma" body above CHUNK_DIM,
+    one a CHUNK_DIM-column chunk (each computes all of Q K^T)."""
+    body = body_for(dtype, head_dim)
+    dp = padded_head_dim("flash_attention", head_dim)
+    if dp <= CHUNK_DIM:
+        return 1
+    if body == "wgmma":
+        return -(-head_dim // (2 * CHUNK_DIM))
+    return dp // CHUNK_DIM
+
+
 def _bind():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
@@ -104,6 +124,8 @@ def _bind():
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_longlong), i, p]
         fn.restype = ctypes.c_int
+        lib.flash_attention_wide_blocks.argtypes = [i, i]
+        lib.flash_attention_wide_blocks.restype = ctypes.c_int
     return lib, fn
 
 
@@ -140,7 +162,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     runs is `body_for`: 16-bit and float8 rows at a head size that pads to
     64 to 256 multiply with wgmma, their tiles loaded by TMA where the rows
     are whole 16-byte pieces and by element otherwise (16-bit rows of whole
-    pieces above 256 too, in chunks). float8_e4m3fn and float8_e5m2 are
+    pieces above 256 too, two warpgroups a block: `wide_blocks`).
+    float8_e4m3fn and float8_e5m2 are
     read in place, and the output rounded to them without saturation
     (`ref.to_fp8`);
     8-, 16- and 32-bit integers run on float32 copies and the output is

@@ -49,11 +49,13 @@ class PagedPlan(NamedTuple):
     chunks: int = 1     # CHUNK_DIM-column chunks of the output a head
     heads: int = 1      # KV heads a segment (`kv_heads`)
     group: int = GC     # query heads a group (`query_heads`): GC or 2 GC
+    box_heads: int = 1  # KV heads a slot row holds (`run_heads`, else heads)
 
 
 def paged_plan(B: int, Hq: int, Hkv: int, T: int, page: int, sms: int,
                head_dim: int = 0, itemsize: int = 2,
-               heads: int = 1, group: int = GC) -> PagedPlan:
+               heads: int = 1, group: int = GC,
+               box_heads: int = 0) -> PagedPlan:
     """The launch for a cache of B x T rows a KV head on a card of `sms`
     SMs, from the shapes only: one block an SM (its ring takes the SM's
     shared memory), no more blocks than the cache has aloads' worth of rows;
@@ -64,22 +66,27 @@ def paged_plan(B: int, Hq: int, Hkv: int, T: int, page: int, sms: int,
     them (`itemsize` the caches') an aload. A segment of `heads` KV heads
     (`kv_heads`; more than one only below GC query heads a KV head) takes
     a row of all of them an aload row, so an aload takes at most
-    HEADS_SLOT_BYTES of K and V. A segment of one KV head serves `group`
-    of its query heads (`query_heads`): ceil(Hq / Hkv / group) segments a
-    KV head, each of which fetches all its valid rows."""
+    HEADS_SLOT_BYTES of K and V; so does a slot of unpadded rows (rows of
+    no whole 16-byte pieces up to CHUNK_DIM columns), whose rows hold
+    `box_heads` KV heads (`run_heads`; `heads` where 0). A segment of one
+    KV head serves `group` of its query heads (`query_heads`): ceil(Hq /
+    Hkv / group) segments a KV head, each of which fetches all its valid
+    rows."""
+    box_heads = box_heads or heads
     ngc = -(-(Hq // Hkv) // group)
     rows = max(1, min(page, CHUNK_ROWS, T))
     chunks = -(-head_dim // CHUNK_DIM) if head_dim > CHUNK_DIM else 1
     if chunks > 1:
         rows = max(1, min(rows, SLOT_BYTES // ((chunks + 1) * CHUNK_DIM
                                                * itemsize)))
-    if heads > 1:
-        rows = max(1, min(rows, HEADS_SLOT_BYTES // (2 * heads * head_dim
+    unpadded = head_dim * itemsize % 16 != 0 and head_dim <= CHUNK_DIM
+    if box_heads > 1 or unpadded:
+        rows = max(1, min(rows, HEADS_SLOT_BYTES // (2 * box_heads * head_dim
                                                      * itemsize)))
     segments = B * (Hkv // heads) * ngc
     sms = max(1, sms // chunks)
     return PagedPlan(max(1, min(sms, -(-segments * T // rows))), rows,
-                     segments, ngc, chunks, heads, group)
+                     segments, ngc, chunks, heads, group, box_heads)
 
 
 def block_chunks(lengths: Sequence[int], T: int, hg: int, blocks: int,
@@ -146,8 +153,9 @@ def body_for(dtype: torch.dtype, head_dim: int) -> str:
     256 the wide body, a chunk of 256 output columns a block): "tma" (the
     TMA page ring; where its products run: `products_on`) where a row of
     `head_dim` elements is a whole number of 16-byte pieces (float8: D %
-    16 == 0), "element"
-    (rows copied into the ring by element, both products on FMAs)
+    16 == 0), "element" (rows of no whole pieces: unpadded slots, loaded
+    by TMA boxes of a run of the heads of a token where the caches allow,
+    else copied by the producer warp, `route`; both products on FMAs)
     elsewhere. Integer caches run on float32 copies."""
     padded_head_dim("paged_attention", head_dim)        # refuses 0
     check_types("paged_attention", dtype)
@@ -175,25 +183,97 @@ def kv_heads(q_dtype: torch.dtype, cache_dtype: torch.dtype,
     """KV heads a segment of the launch, the rule `kv_run` of
     csrc/paged_attention.cu applies (`paged_attention_heads`) to the types
     `kernel_types` gives: where a KV head has fewer than GC query heads
-    (G = hq / hkv dividing GC), 16-bit caches under a q of their type on
-    the TMA ring at a padded head size of 64 to 256 take GC / G KV heads a
-    segment (halved until it divides hkv), so that every warp of a set has
-    a query head, at G = 1 and, where the head size is not the padded one,
-    at G of 2 and 4; 1 elsewhere."""
+    (G = hq / hkv dividing GC) at a padded head size of at most 256, rows
+    of no whole 16-byte pieces (`body_for` "element") in every type under
+    any q, and 16-bit caches under a q of their type on the TMA ring at a
+    padded head size of 64 to 256, take GC / G KV heads a segment (halved
+    until it divides hkv), so that every warp of a set has a query head:
+    the first at every such G, the second at G = 1 and, where the head
+    size is not the padded one, at G of 2 and 4; 1 elsewhere."""
     body = body_for(cache_dtype, head_dim)
     check_types("paged_attention", q_dtype)
     q_dtype, cache_dtype = kernel_types(q_dtype, cache_dtype)
     dp = padded_head_dim("paged_attention", head_dim)
     g = hq // hkv if hkv > 0 else 0
-    if (cache_dtype not in (torch.bfloat16, torch.float16)
-            or q_dtype != cache_dtype or body != "tma"
-            or not 64 <= dp <= CHUNK_DIM or not 1 <= g < GC or GC % g
-            or (g > 1 and head_dim == dp)):
+    if dp > CHUNK_DIM or not 1 <= g < GC or GC % g:
+        return 1
+    if body == "tma" and (cache_dtype not in (torch.bfloat16, torch.float16)
+                          or q_dtype != cache_dtype or dp < 64
+                          or (g > 1 and head_dim == dp)):
         return 1
     r = GC // g
     while hkv % r:
         r //= 2
     return r
+
+
+def box_width(n: int, itemsize: int) -> int:
+    """A TMA box's innermost extent for a run of n elements whose bytes are
+    whole 16-byte pieces, as `box_width` of csrc/paged_attention.cu: the
+    widest of at most 256 elements, a whole number of pieces, that divides
+    n, with at most 256 boxes of it across; 0 where none."""
+    u = 16 // itemsize
+    k = n // u
+    for d in range(256 // u, 0, -1):
+        if k % d == 0:
+            return u * d if k // d <= 256 else 0
+    return 0
+
+
+def run_heads(q_dtype: torch.dtype, cache_dtype: torch.dtype,
+              head_dim: int, hq: int, hkv: int,
+              strides: Sequence[int], aligned: bool) -> int:
+    """KV heads of one TMA box where a row of `head_dim` elements is no
+    whole number of 16-byte pieces but a run of the heads of a token is,
+    the rule `run_box` of csrc/paged_attention.cu applies
+    (`paged_attention_run`): the smallest multiple of `kv_heads` that
+    divides hkv and whose rows are whole pieces, where both caches' heads
+    are contiguous and their other strides multiples of 16 bytes
+    (`strides`: k's and v's [B, T, Hkv] strides in elements), both starts
+    16-byte aligned (`aligned`), the run cut into TMA boxes (`box_width`)
+    and two of its rows within HEADS_SLOT_BYTES; 0 where not: the producer
+    warp copies the rows (`route` "element")."""
+    if body_for(cache_dtype, head_dim) != "element":
+        return 0
+    heads = kv_heads(q_dtype, cache_dtype, head_dim, hq, hkv)
+    _, cache_dtype = kernel_types(q_dtype, cache_dtype)
+    item = cache_dtype.itemsize
+    if padded_head_dim("paged_attention", head_dim) > CHUNK_DIM \
+            or not aligned:
+        return 0
+    for i in (0, 3):
+        sb, st, sh = strides[i:i + 3]
+        if sh != head_dim or st * item % 16 or sb * item % 16:
+            return 0
+    for rb in range(heads, hkv + 1, heads):
+        if hkv % rb or rb * head_dim * item % 16:
+            continue
+        ok = box_width(rb * head_dim, item) > 0 \
+            and 2 * rb * head_dim * item <= HEADS_SLOT_BYTES
+        return rb if ok else 0
+    return 0
+
+
+def cache_facts(k_cache: torch.Tensor, v_cache: torch.Tensor
+                ) -> Tuple[Tuple[int, ...], bool]:
+    """What `run_heads` reads of the caches: k's and v's [B, T, Hkv]
+    strides, and whether both start on 16 bytes."""
+    return ((*k_cache.stride()[:3], *v_cache.stride()[:3]),
+            (k_cache.data_ptr() | v_cache.data_ptr()) % 16 == 0)
+
+
+def route(q: torch.Tensor, k_cache: torch.Tensor,
+          v_cache: torch.Tensor) -> str:
+    """How a call on these tensors loads its slots: "tma" (`body_for`'s
+    TMA ring), "run" (rows of no whole 16-byte pieces by TMA boxes of a
+    run of `run_heads` KV heads) or "element" (the producer warp copies
+    them, in loads as wide as the rows, strides and starts allow)."""
+    if body_for(k_cache.dtype, q.shape[-1]) == "tma":
+        return "tma"
+    strides, aligned = cache_facts(k_cache, v_cache)
+    return "run" if run_heads(q.dtype, k_cache.dtype, q.shape[-1],
+                              q.shape[1], k_cache.shape[2], strides,
+                              aligned) else "element"
 
 
 def query_heads(q_dtype: torch.dtype, cache_dtype: torch.dtype,
@@ -251,6 +331,9 @@ def _bind():
                      lib.paged_attention_group):
             rule.argtypes = [i, i, i, i, i]
             rule.restype = ctypes.c_int
+        lib.paged_attention_run.argtypes = [
+            i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong), i]
+        lib.paged_attention_run.restype = ctypes.c_int
     return lib, fn
 
 
@@ -274,32 +357,37 @@ def _ring(B: int, D: int, rows: int, dtype: torch.dtype,
 
 @functools.lru_cache(maxsize=4096)
 def _card_plan(device: int, B: int, Hq: int, Hkv: int, T: int, D: int,
-               dtype: torch.dtype, page: int,
-               q_dtype: torch.dtype) -> PagedPlan:
+               dtype: torch.dtype, page: int, q_dtype: torch.dtype,
+               box: int = 0) -> PagedPlan:
     heads = kv_heads(q_dtype, dtype, D, Hq, Hkv)
     plan = paged_plan(B, Hq, Hkv, T, page, _sms(device), D, dtype.itemsize,
-                      heads, query_heads(q_dtype, dtype, D, Hq, Hkv))
-    _ring(B, D, plan.rows, dtype, heads, plan.group)  # refuses as launch
+                      heads, query_heads(q_dtype, dtype, D, Hq, Hkv), box)
+    _ring(B, D, plan.rows, dtype, plan.box_heads, plan.group)  # as launch
     return plan
 
 
-def launch_plan(q: torch.Tensor, k_cache: torch.Tensor,
-                page: int = 512) -> PagedPlan:
+def launch_plan(q: torch.Tensor, k_cache: torch.Tensor, page: int = 512,
+                v_cache: torch.Tensor = None) -> PagedPlan:
     """The plan `paged_attention` launches for these CUDA tensors (q of
-    the type `kernel_types` gives it)."""
+    the type `kernel_types` gives it; v_cache of k_cache's strides where
+    not given)."""
     B, Hq, D = q.shape
+    strides, aligned = cache_facts(k_cache,
+                                   k_cache if v_cache is None else v_cache)
+    box = run_heads(q.dtype, k_cache.dtype, D, Hq, k_cache.shape[2],
+                    strides, aligned)
     return _card_plan(q.device.index, B, Hq, k_cache.shape[2],
-                      k_cache.shape[1], D, k_cache.dtype, page, q.dtype)
+                      k_cache.shape[1], D, k_cache.dtype, page, q.dtype, box)
 
 
-def ring(q: torch.Tensor, k_cache: torch.Tensor,
-         page: int = 512) -> Tuple[int, int]:
+def ring(q: torch.Tensor, k_cache: torch.Tensor, page: int = 512,
+         v_cache: torch.Tensor = None) -> Tuple[int, int]:
     """(slots, shared-memory bytes) of the ring a block of the kernel takes
     for these CUDA tensors, as csrc/paged_attention.cu sizes it: the deepest
     of at most 8 slots that fits one block an SM."""
-    plan = launch_plan(q, k_cache, page)
+    plan = launch_plan(q, k_cache, page, v_cache)
     return _ring(q.shape[0], q.shape[2], plan.rows, k_cache.dtype,
-                 plan.heads, plan.group)
+                 plan.box_heads, plan.group)
 
 
 # Partials and tickets, allocated once per (device, stream) and grown: the
@@ -412,7 +500,7 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     the type `kernel_types` gives it."""
     B, Hq, D = q.shape
     T, Hkv = k_cache.shape[1], k_cache.shape[2]
-    plan = launch_plan(q, k_cache, page)
+    plan = launch_plan(q, k_cache, page, v_cache)
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),

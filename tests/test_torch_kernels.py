@@ -154,6 +154,80 @@ def test_padded_head_dim_and_the_paged_body(d, dp):
             "tma" if d % 8 == 0 else "element")
 
 
+def _caches(dtype, b, t, hkv, d, pad=0, offset=0):
+    """k and v [b, t, hkv, d] of `dtype`: heads `pad` elements apart
+    beyond d (strided heads), the start `offset` elements in."""
+    n = b * t * hkv * (d + pad)
+    flat = torch.zeros(2 * (n + offset + 64), dtype=dtype)
+    k, v = (flat[i * (n + offset + 64) + offset:][:n].view(
+        b, t, hkv, d + pad)[..., :d] for i in (0, 1))
+    return k, v
+
+
+# (cache type, q type, D, Hq, Hkv, pad, offset, route, KV heads a box):
+# runs of heads by TMA where one head's row is no whole 16-byte pieces but
+# a run of them is (fp8 D8 at Hkv2: a token's two heads for segments of
+# one; D100 at Hkv16: 8 heads, a segment's), and the copy where no run is
+# (fp8 D100 at Hkv2: a token of 200 bytes; Hkv1 at fp8 D8; odd Hkv * D),
+# the heads are strided or a start is not on 16 bytes
+_ROUTES = [
+    (torch.float8_e4m3fn, torch.float8_e4m3fn, 8, 16, 2, 0, 0, "run", 2),
+    (torch.float8_e5m2, torch.bfloat16, 8, 16, 2, 0, 0, "run", 2),
+    (torch.float8_e4m3fn, torch.float8_e4m3fn, 8, 16, 1, 0, 0, "element", 0),
+    (torch.float8_e4m3fn, torch.float8_e4m3fn, 100, 16, 2, 0, 0, "element",
+     0),
+    (torch.float8_e5m2, torch.float8_e5m2, 100, 16, 16, 0, 0, "run", 8),
+    (torch.bfloat16, torch.bfloat16, 100, 16, 16, 0, 0, "run", 8),
+    (torch.float16, torch.float16, 100, 16, 2, 0, 0, "run", 2),
+    (torch.bfloat16, torch.bfloat16, 100, 32, 2, 0, 0, "run", 2),
+    (torch.bfloat16, torch.float32, 100, 16, 16, 0, 0, "run", 8),
+    (torch.bfloat16, torch.bfloat16, 100, 16, 16, 4, 0, "element", 0),
+    (torch.float16, torch.float16, 100, 16, 16, 0, 1, "element", 0),
+    (torch.bfloat16, torch.bfloat16, 7, 8, 1, 0, 0, "element", 0),
+    (torch.bfloat16, torch.bfloat16, 7, 12, 4, 0, 0, "element", 0),
+    (torch.bfloat16, torch.bfloat16, 7, 16, 16, 0, 0, "run", 8),
+    (torch.float32, torch.float32, 7, 16, 16, 0, 0, "run", 8),
+    (torch.float32, torch.float32, 7, 16, 2, 0, 0, "element", 0),
+    (torch.bfloat16, torch.bfloat16, 128, 16, 2, 0, 0, "tma", 0),
+    (torch.bfloat16, torch.bfloat16, 300, 16, 16, 0, 0, "element", 0),
+]
+
+
+@pytest.mark.parametrize("dtype,q_dtype,d,hq,hkv,pad,offset,want,box",
+                         _ROUTES)
+def test_paged_route_over_runs_of_heads(dtype, q_dtype, d, hq, hkv, pad,
+                                        offset, want, box):
+    """How a call loads rows of no whole 16-byte pieces (`route`): by TMA
+    boxes of a run of `run_heads` KV heads of a token over the caches'
+    [B, T, Hkv * D] view where the heads are contiguous, the other strides
+    and the starts multiples of 16 bytes and the run's row whole pieces,
+    else by the producer warp's copy. `chip_smoke.py` holds the CUDA
+    source's `paged_attention_run` to `run_heads`."""
+    k, v = _caches(dtype, 2, 40, hkv, d, pad, offset)
+    q = torch.zeros((2, hq, d), dtype=q_dtype)
+    assert tpaged.route(q, k, v) == want
+    strides, aligned = tpaged.cache_facts(k, v)
+    assert aligned == (offset * dtype.itemsize % 16 == 0)
+    assert tpaged.run_heads(q_dtype, dtype, d, hq, hkv, strides,
+                            aligned) == box
+    if box:
+        heads = tpaged.kv_heads(q_dtype, dtype, d, hq, hkv)
+        assert box % heads == 0 and hkv % box == 0
+        assert box * d * dtype.itemsize % 16 == 0
+        w = tpaged.box_width(box * d, dtype.itemsize)
+        assert w <= 256 and box * d % w == 0 and box * d // w <= 256
+        assert w * dtype.itemsize % 16 == 0
+
+
+@pytest.mark.parametrize("n,itemsize,w", [
+    (16, 1, 16), (800, 2, 200), (800, 1, 160), (56, 2, 56), (2040, 4, 204),
+    (4080, 1, 240), (256, 2, 256), (264, 2, 88)])
+def test_paged_box_width(n, itemsize, w):
+    """A run's TMA box: the widest divisor of n of at most 256 elements and
+    whole 16-byte pieces, at most 256 of them across."""
+    assert tpaged.box_width(n, itemsize) == w
+
+
 _RULE_TYPES = (torch.float32, torch.bfloat16, torch.float16,
                torch.float8_e4m3fn, torch.float8_e5m2, torch.int8)
 
@@ -200,6 +274,24 @@ def test_paged_plan_above_256_columns(d, itemsize, rows, chunks):
     assert plan.blocks <= 132 // chunks
     if chunks > 1:
         assert plan.rows * (chunks + 1) * 256 * itemsize <= tpaged.SLOT_BYTES
+
+
+@pytest.mark.parametrize("dtype,d,blocks", [
+    (torch.bfloat16, 256, 1), (torch.bfloat16, 264, 1),
+    (torch.float16, 304, 1), (torch.bfloat16, 512, 1),
+    (torch.bfloat16, 520, 2), (torch.float16, 1024, 2),
+    (torch.bfloat16, 1032, 3), (torch.bfloat16, 2048, 4),
+    (torch.bfloat16, 500, 2),
+    (torch.float32, 512, 2), (torch.float8_e4m3fn, 512, 2),
+    (torch.float32, 64, 1), (torch.int8, 300, 2)])
+def test_flash_wide_blocks(dtype, d, blocks):
+    """Blocks a (head, query tile) above 256 columns (`wide_blocks`): in
+    the wgmma body one a 512-column chunk of the output (the pair body: two
+    consumer warpgroups of 256 columns add their parts of Q K^T), one a
+    256-column chunk in the fma body (fp32, integers, fp8 and 16-bit rows
+    of no whole 16-byte pieces: bf16 D500). `chip_smoke.py` holds the CUDA
+    source's `flash_attention_wide_blocks` to it."""
+    assert tflash.wide_blocks(dtype, d) == blocks
 
 
 def test_flash_body_rule_refuses_what_no_body_takes():
@@ -393,7 +485,9 @@ def test_paged_heads_and_products_rule(hq, hkv, dtype):
     1100 and 2048: below 8 query heads a KV head (G dividing 8), 16-bit
     caches on the TMA ring at a padded head size of 64 to 256 take 8 / G
     KV heads a segment (halved until it divides Hkv), on FMAs, at G = 1
-    and, where the head size is not the padded one, at G of 2 and 4;
+    and, where the head size is not the padded one, at G of 2 and 4, and
+    so do rows of no whole 16-byte pieces in every type at every G
+    dividing 8 up to a padded head size of 256;
     elsewhere one, on mma.sync where `products` took it before; above 8
     query heads a KV head on mma.sync at a padded head size of 256 a
     segment serves 16 of them (`query_heads`), else 8. `chip_smoke.py`
@@ -404,9 +498,9 @@ def test_paged_heads_and_products_rule(hq, hkv, dtype):
         dp = tflash.padded_head_dim("paged_attention", d)
         tma = d * dtype.itemsize % 16 == 0
         heads = 1
-        if (dtype in (torch.bfloat16, torch.float16) and tma
-                and 64 <= dp <= 256 and g < 8 and 8 % g == 0
-                and (g == 1 or d != dp)):
+        if g < 8 and 8 % g == 0 and dp <= 256 and (not tma or (
+                dtype in (torch.bfloat16, torch.float16) and dp >= 64
+                and (g == 1 or d != dp))):
             heads = 8 // g
             while hkv % heads:
                 heads //= 2
@@ -425,6 +519,26 @@ def test_paged_heads_and_products_rule(hq, hkv, dtype):
     (4, 16, 1032, 80, 512), (3, 8, 300, 64, 16), (2, 4, 700, 128, 64),
     (5, 2, 64, 256, 512), (1, 16, 4096, 80, 512)])
 def test_paged_split_in_segments_of_several_kv_heads(g, b, hkv, t, d, page):
+    _check_split_of_segments(g, b, hkv, t, d, page, torch.bfloat16)
+
+
+@pytest.mark.parametrize("g", [1, 2, 8, 16])
+@pytest.mark.parametrize("b,hkv,t,d,page,dtype", [
+    (4, 16, 1032, 100, 512, torch.bfloat16),
+    (4, 2, 1032, 100, 512, torch.float16),
+    (4, 2, 1032, 8, 512, torch.float8_e4m3fn),
+    (3, 16, 300, 100, 16, torch.float8_e5m2),
+    (2, 8, 333, 7, 64, torch.float32)])
+def test_paged_split_of_element_rows(g, b, hkv, t, d, page, dtype):
+    """The same for rows of no whole 16-byte pieces (the body of unpadded
+    slots, `route` "run" or "element"), which take segments of several KV
+    heads in every type below 8 query heads a KV head, and whose slot rows
+    hold `run_heads` KV heads where a run of them is whole pieces (fp8 D8
+    at Hkv2: both KV heads of a token, for segments of one)."""
+    _check_split_of_segments(g, b, hkv, t, d, page, dtype)
+
+
+def _check_split_of_segments(g, b, hkv, t, d, page, dtype):
     """The split where a segment takes several KV heads (below 8 query
     heads a KV head), bf16: `block_chunks`, `locate` and `pieces` against a
     brute-force walk of the rows. The walk lays out, sequence by sequence,
@@ -439,20 +553,28 @@ def test_paged_split_in_segments_of_several_kv_heads(g, b, hkv, t, d, page):
     hq = g * hkv
     rng = np.random.default_rng(g * 31 + b * 7 + t)
     lens = _split_lengths(rng, b, t)
-    heads = tpaged.kv_heads(torch.bfloat16, torch.bfloat16, d, hq, hkv)
+    heads = tpaged.kv_heads(dtype, dtype, d, hq, hkv)
     padded = d != tflash.padded_head_dim("paged_attention", d)
     assert heads == (min(8 // g, hkv) if g == 1 or g < 8 and padded else 1)
-    group = tpaged.query_heads(torch.bfloat16, torch.bfloat16, d, hq, hkv)
+    group = tpaged.query_heads(dtype, dtype, d, hq, hkv)
     assert group == (16 if g == 16 and d == 256 else 8)
-    plan = tpaged.paged_plan(b, hq, hkv, t, page, 132, d, 2, heads, group)
+    cache = torch.empty((b, t, hkv, d), dtype=dtype)
+    box = tpaged.run_heads(dtype, dtype, d, hq, hkv,
+                           *tpaged.cache_facts(cache, cache))
+    element = tpaged.body_for(dtype, d) == "element"
+    assert box == 0 or (element and box % heads == 0)
+    plan = tpaged.paged_plan(b, hq, hkv, t, page, 132, d, dtype.itemsize,
+                             heads, group, box)
+    assert plan.box_heads == (box or heads)
     hg = hkv // heads * plan.ngc
     assert plan.heads == heads and plan.segments == b * hg
     assert plan.ngc * plan.group >= g and (heads == 1
                                            or heads * g <= tpaged.GC)
     assert plan.ngc == 1 or g > plan.group
     assert 1 <= plan.rows <= min(page, t, tpaged.CHUNK_ROWS)
-    if heads > 1:
-        assert 2 * plan.rows * heads * d * 2 <= tpaged.HEADS_SLOT_BYTES
+    if plan.box_heads > 1 or element:
+        assert (2 * plan.rows * plan.box_heads * d * dtype.itemsize
+                <= tpaged.HEADS_SLOT_BYTES)
     walk = [(i, j, r) for i in range(b) for j in range(hg)
             for r in range(int(lens[i]))]
     chunks = tpaged.block_chunks(lens, t, hg, plan.blocks, plan.rows)
@@ -557,6 +679,35 @@ def test_paged_attention_at_every_head_size(d, dtype):
     out = tpaged.paged_attention(to_torch(q), to_torch(kc), to_torch(vc),
                                  torch.from_numpy(lens), page=32)
     assert out.dtype == getattr(torch, dtype) and out.shape == (3, 8, d)
+    np.testing.assert_allclose(
+        to_np(out), to_np(jpaged(q, kc, vc, jnp.array(lens), page=32,
+                                 interpret=True)), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype,d,hq,hkv,pad", [
+    ("bfloat16", 100, 8, 8, 0), ("float16", 100, 16, 2, 0),
+    ("bfloat16", 100, 8, 8, 4), ("float32", 7, 8, 8, 0),
+    ("bfloat16", 7, 12, 4, 0)])
+def test_paged_attention_on_the_element_rows_routes(dtype, d, hq, hkv, pad):
+    """Rows of no whole 16-byte pieces on each of their routes on the card
+    (`route`: TMA runs of heads at D100 G1 and G8 and at fp32 D7 G1; the
+    copy for strided heads, `pad` elements past each, and for bf16 D7 at
+    G3), lengths 0, a middle one and T: the wrapper's plain version against
+    the reference's Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(hq * 17 + d + pad)
+    jdt = getattr(jnp, dtype)
+    q = jnp.array(rng.standard_normal((3, hq, d)) * 0.3, jdt)
+    kc = jnp.array(rng.standard_normal((3, 64, hkv, d)) * 0.3, jdt)
+    vc = jnp.array(rng.standard_normal((3, 64, hkv, d)), jdt)
+    lens = np.array([0, 41, 64], np.int32)
+    tk, tv = _caches(getattr(torch, dtype), 3, 64, hkv, d, pad)
+    tk.copy_(to_torch(kc))
+    tv.copy_(to_torch(vc))
+    tq = to_torch(q)
+    assert tpaged.route(tq, tk, tv) == ("element" if pad or hq == 12
+                                        else "run")
+    out = tpaged.paged_attention(tq, tk, tv, torch.from_numpy(lens), page=32)
+    assert out.dtype == getattr(torch, dtype) and out.shape == (3, hq, d)
     np.testing.assert_allclose(
         to_np(out), to_np(jpaged(q, kc, vc, jnp.array(lens), page=32,
                                  interpret=True)), **TOLS[dtype])

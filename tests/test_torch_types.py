@@ -483,9 +483,10 @@ def test_fp8_rules_at_every_head_size(q_name, kv_name):
     fp8 wgmma) where the rows are whole 16-byte pieces and Dp is 64 to 256,
     with the element loader at the other D of those Dp, else fma; paged
     over float8 caches on the TMA ring at D % 16 == 0, its products on
-    mma.sync at Dp 64 to 256 under a q of 16 bits or float8 and one KV head
-    a segment at every GQA layout (`kv_heads` takes several for 16-bit
-    caches only)."""
+    mma.sync at Dp 64 to 256 under a q of 16 bits or float8; one KV head a
+    segment at every GQA layout on the TMA ring (`kv_heads` takes several
+    there for 16-bit caches only), 8 / G below 8 query heads a KV head
+    where the rows are no whole 16-byte pieces, up to Dp 256."""
     q, kv = getattr(torch, q_name), getattr(torch, kv_name)
     for d in range(0, 1101):
         if d == 0:
@@ -501,7 +502,8 @@ def test_fp8_rules_at_every_head_size(q_name, kv_name):
         assert tpaged.body_for(kv, d) == ("tma" if d % 16 == 0
                                           else "element"), d
         for hq, hkv in ((16, 16), (16, 2), (16, 1)):
-            assert tpaged.kv_heads(q, kv, d, hq, hkv) == 1
+            assert tpaged.kv_heads(q, kv, d, hq, hkv) == (
+                8 if hq == hkv and d % 16 and dp <= 256 else 1), d
             assert tpaged.products_on(q, kv, d, hq, hkv) == (
                 "mma" if d % 16 == 0 and tc and q != torch.float32
                 else "fma"), d
@@ -554,6 +556,33 @@ def test_paged_takes_fp8_caches_and_integers(q_name, kv_name, d):
     assert tpaged.body_for(kv, d) == (
         "tma" if d * (kv.itemsize if kv in tflash.KERNEL_TYPES else 4) % 16
         == 0 else "element")
+
+
+@pytest.mark.parametrize("q_name,kv_name,d,hq,hkv,route", [
+    ("float8_e4m3fn", "float8_e4m3fn", 8, 16, 2, "run"),
+    ("bfloat16", "float8_e5m2", 8, 16, 2, "run"),
+    ("float8_e4m3fn", "float8_e4m3fn", 100, 16, 2, "element"),
+    ("float8_e5m2", "float8_e5m2", 100, 8, 8, "run"),
+    ("float16", "float8_e4m3fn", 8, 4, 1, "element")])
+def test_paged_fp8_caches_of_element_rows(q_name, kv_name, d, hq, hkv, route):
+    """float8 caches whose rows are no whole 16-byte pieces: on the card the
+    body of unpadded slots, by TMA boxes of a run of heads (a token's two
+    heads at D8 Hkv2, 8 at D100 Hkv8) or by the producer warp's copy (D100
+    at Hkv2: a token is 200 bytes; Hkv1 at D8), `route`. Lengths 0, 1 and
+    T: the wrapper's CPU path within one unit in the last place of q's
+    type of the reference's kernel."""
+    B, t = 3, 64
+    q, = _attn_inputs(q_name, [(B, hq, d)], 140 + d + hkv)
+    kc, vc = _attn_inputs(kv_name, [(B, t, hkv, d), (B, t, hkv, d)],
+                          141 + d + hkv)
+    lens = np.array([t, 1, 0], np.int32)
+    want = jpaged(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                  jnp.asarray(lens), page=32, interpret=True)
+    tq, tk, tv = to_torch(q), to_torch(kc), to_torch(vc)
+    assert tpaged.route(tq, tk, tv) == route
+    got = tpaged.paged_attention(tq, tk, tv, torch.from_numpy(lens))
+    assert got.dtype == getattr(torch, q_name)
+    _within_one_ulp(got, want, q_name)
 
 
 @pytest.mark.parametrize("q_name", FP8 + ["bfloat16", "float16"])
