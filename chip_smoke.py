@@ -13,7 +13,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    flash_attention, TMA loads and mma.sync in paged_attention, bulk copies
    in async_gather, stream_triad and async_scatter, and L2 reductions (RED)
    in async_scatter (cuobjdump); wgmma and TMA loads in the kernel symbol of
-   the 16-bit flash body above 256 columns, TMA loads in paged's above 256.
+   the 16-bit flash body above 256 columns, TMA loads in paged's above 256,
+   mma.sync, TMA loads and ldmatrix in paged's tensor-core body over the
+   whole head (16-bit, 256 < D <= 512), compare-and-swaps in the scatter's
+   8-bit integer and fp8 adds.
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card, at the reference test shapes and at the full-width serve shapes of
    every served arch (bf16, B=4: qwen2.5-3b G=8 D=128, granite G=2 D=64,
@@ -49,7 +52,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    output columns a block), float16 at D 8, 64, 80, 128, 256, bf16 q with
    f32 k, v and f16 q with bf16 k, v, and the guard columns at D 300, 512,
    1000 in the three types; float16 is held at FLASH_F16_TOL and
-   PAGED_F16_TOL, tighter than bf16's. Each serve shape is timed
+   PAGED_F16_TOL, tighter than bf16's. Paged's tensor-core body over the
+   whole head (`check_wide_mma`: bf16 / f16 at 256 < D <= 512, one chunk) at
+   D 264-512 in four layouts, its guard columns, and its time at D 512;
+   the scatter's batched compare-and-swaps (`check_cas_batches`: int8,
+   uint8, e4m3, e5m2 add at rows of 64, 6, 3 and 1 elements, uniform, a
+   quarter hot and all in one row, narrow rows down both paths). Each serve shape is timed
    with CUDA events beside its plain version and one
    `scaled_dot_product_attention` call (a yardstick only: the port never
    calls it), and its bound is computed from the run's inputs. Then seeded
@@ -374,9 +382,13 @@ SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
 # ring above 256 (the instantiations <E, EQ, 256, EXACT=false, TMA=true,
 # WIDE=true>), its segments of several KV heads (HEADS true, HX 1) on TMA,
 # its bodies of two query heads a warp (HX 2) on mma.sync, TMA and ldmatrix
-# (LDSM: q's fragments); the scatter's 16-bit integer add
+# (LDSM: q's fragments), its tensor-core body over the whole head above 256
+# columns (<E, E, 512, EXACT=false, TMA=true, WIDE=false>) on mma.sync, TMA
+# and ldmatrix (q staged in shared memory); the scatter's 16-bit integer add
 # (`scatter_apply_kernel<1, OP_ADD, uint16_t>`) on the returning add
-# (ATOMG.ADD) and the carry repair (RED); flash's mma.sync body at Dp 16
+# (ATOMG.ADD) and the carry repair (RED), its 8-bit integer and fp8 adds
+# (uint8_t, __nv_fp8_e4m3 / e5m2), a word or (W 16) a 16-byte unit at a
+# time, on compare-and-swaps (ATOMG.CAS); flash's mma.sync body at Dp 16
 # for D < 16 (D = 8, the smoke configs' head size: EXACT false) on mma.sync
 # (HMMA) with p by ex2.approx (MUFU.EX2), and none of expf's slow path
 # (its range reduction's FFMA.SAT, one an expf: 34 in the body that took
@@ -398,11 +410,21 @@ SASS_WANT_IN = {"flash_attention": [
                                     (("Lb1ELb0ELb1ELi1EEEv",), ("UTMALDG",)),
                                     (("Lb0ELi2EEEv",),
                                      ("HMMA", "UTMALDG", "LDSM")),
+                                    (("Li512ELb0ELb1ELb0E",),
+                                     ("HMMA", "UTMALDG", "LDSM")),
                                     (("q_asI6__half",), ("HMMA", "UTMALDG")),
                                     (("q_asI13__nv_bfloat16",),
                                      ("HMMA", "UTMALDG"))],
                 "async_scatter": [(("scatter_apply_kernelILi1ELi0EtE",),
-                                   ("ATOMG*ADD", "RED"))]}
+                                   ("ATOMG*ADD", "RED")),
+                                  (("scatter_apply_kernelILi1ELi0EhE",),
+                                   ("ATOMG*CAS",)),
+                                  (("scatter_apply_kernelILi1ELi0E13__nv_fp8_e",),
+                                   ("ATOMG*CAS",)),
+                                  (("scatter_apply_kernelILi16ELi0EhE",),
+                                   ("ATOMG*CAS",)),
+                                  (("scatter_apply_kernelILi16ELi0E13__nv_fp8_e",),
+                                   ("ATOMG*CAS",))]}
 
 
 def sass_functions(sass) -> dict:
@@ -744,6 +766,31 @@ def check_body_rules():
                         f"paged heads, products and group for {dtype} Hq{hq} "
                         f"Hkv{hkv} D{d}: the source says {got}, the wrapper "
                         f"{want} ... FAIL")
+    # paged above 256 columns, at every D from 257 to 2048: where the
+    # products run and the chunks of 256 output columns (1: the tensor-core
+    # body over the whole head up to 512) by the source and by the wrapper's
+    # plan, whose rows the source's ring takes, under a q of the caches'
+    # type and of another
+    wide = 0
+    for dtype in (*types, *FP8):
+        code = _build.DTYPE_CODES[dtype]
+        for q_dtype in (dtype, torch.float32, torch.float16):
+            qk = pa.kernel_types(q_dtype, dtype)[0]
+            qcode = _build.DTYPE_CODES[qk]
+            for d in range(257, 2049):
+                got = (products[paged.paged_attention_products(
+                           code, qcode, d, 16, 2)],
+                       paged.paged_attention_chunks(code, qcode, d, 16, 2))
+                where = pa.products_on(q_dtype, dtype, d, 16, 2)
+                plan = pa.paged_plan(4, 16, 2, 1032, 512, 132, d,
+                                     dtype.itemsize, products=where)
+                if got != (where, plan.chunks):
+                    raise AssertionError(
+                        f"paged above 256 columns for {dtype} q {q_dtype} "
+                        f"D{d}: the source says {got}, the wrapper "
+                        f"{(where, plan.chunks)} ... FAIL")
+                pa._ring(4, d, plan.rows, dtype, qk)   # raises where none
+                wide += plan.chunks == 1
     # paged's KV heads a TMA box of rows of no whole 16-byte pieces, by the
     # caches' strides and alignment
     paged.paged_attention_run.argtypes = [
@@ -781,6 +828,10 @@ def check_body_rules():
         "of no whole 16-byte pieces in every type at G dividing 8: 8 / G "
         "heads a segment, on fma; G > 8 on mma: 16 query heads a segment); "
         "flash's blocks a query tile (one up to 512 in the wgmma body); "
+        "paged above 256 columns at every D 257-2048 under three q types: "
+        f"products and chunks agree, each plan's ring fits ({wide} launches "
+        "of one chunk: 16-bit rows of whole pieces up to 512 under their "
+        "own q, on mma); "
         f"paged's runs of heads by TMA at D {RUN_RULE_DIMS[0]}-"
         f"{RUN_RULE_DIMS[-1]}, 4 stride layouts, aligned or not ({runs} "
         "runs)")
@@ -1224,6 +1275,130 @@ def check_paged(gen):
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"]}
+
+
+# paged's tensor-core body over the whole head above 256 columns (16-bit
+# rows of whole 16-byte pieces up to 512): head sizes, and (B, Hq, Hkv, T,
+# lengths) cases: qwen2.5-3b's decode layout and serve lengths, one query
+# head a KV head, 16 (two segments of 8 a KV head), lengths 0, 1, 32, 33, T
+WIDE_MMA_DIMS = (264, 272, 320, 384, 448, 504, 512)
+WIDE_MMA_CASES = ((4, 16, 2, 1032, (1032, 1001, 517, 64)),
+                  (3, 4, 4, 129, (0, 1, 129)), (1, 32, 2, 700, (700,)),
+                  (2, 8, 1, 33, (33, 32)))
+
+
+def check_wide_mma(gen):
+    """Paged's tensor-core body over the whole head (256 < D <= 512, bf16
+    and f16 under their own q: `products_on` "mma", one chunk) against the
+    plain version within PAGED_BF16_TOL / PAGED_F16_TOL at WIDE_MMA_DIMS x
+    WIDE_MMA_CASES, the guard columns at D 264 and 504, then its time at
+    qwen2.5-3b's decode layout at D 512 beside the plain version and SDPA
+    (8 caches in turn)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa, ref
+
+    log(f"paged's tensor-core body over the whole head at D {WIDE_MMA_DIMS} "
+        f"x {len(WIDE_MMA_CASES)} cases in bf16 and f16")
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in WIDE_MMA_DIMS:
+            for (b, hq, hkv, t, lens) in WIDE_MMA_CASES:
+                q, kc, vc = paged_case(gen, b, hq, hkv, t, d, dtype)
+                plan = pa.launch_plan(q, kc)
+                where = pa.products_on(dtype, dtype, d, hq, hkv)
+                if where != "mma" or plan.chunks != 1:
+                    raise AssertionError(
+                        f"paged {tname(dtype)} D{d} Hq{hq} Hkv{hkv}: "
+                        f"{where}, {plan.chunks} chunks, not the tensor-core "
+                        "body over the whole head ... FAIL")
+                lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                check_close(f"{tname(dtype)} B{b} Hq{hq} Hkv{hkv} T{t} D{d} "
+                            f"lengths {lens.tolist()} (mma, whole head)",
+                            pa.paged_attention(q, kc, vc, lens),
+                            ref.paged_attention_ref(q, kc, vc, lens),
+                            quiet=True, **paged_tol(dtype))
+    log("  agree")
+    check_guard_columns(gen, (264, 504), (torch.bfloat16, torch.float16))
+    t = PROMPT_LEN + MAX_NEW
+    lens = torch.tensor([t, t - 31, (t + 2) // 2, 64], dtype=torch.int32,
+                        device="cuda")
+    mask = (torch.arange(t, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    for dtype in (torch.bfloat16, torch.float16):
+        sets = [paged_case(gen, BATCH, 16, 2, t, 512, dtype)
+                for _ in range(8)]
+        ms = time_ms([lambda x=x: pa.paged_attention(*x, lens)
+                      for x in sets], 64)
+        lib = time_ms([lambda x=x: F.scaled_dot_product_attention(
+            x[0][:, :, None], x[1].transpose(1, 2), x[2].transpose(1, 2),
+            attn_mask=mask, enable_gqa=True) for x in sets], 64)
+        plain = time_ms([lambda: ref.paged_attention_ref(*sets[0], lens)],
+                        2, repeats=3)
+        bound = paged_bound(lens, 16, 2, 512, dtype)[0]
+        log(f"  B{BATCH} Hq16 Hkv2 T{t} D512 {tname(dtype)}: kernel {ms:.4f} "
+            f"ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound {bound:.5f} "
+            "ms")
+        del sets
+    free_cuda()
+
+
+# the scatter's 8-bit integer and fp8 add (`cas_rows`): row widths in
+# elements (64, 6, 3 and 1 bytes) and where the updates go
+CAS_WIDTHS = (64, 6, 3, 1)
+CAS_SPREADS = ("uniform", "a quarter hot", "one row")
+
+
+def check_cas_batches(gen):
+    """The scatter's 8-bit integer and fp8 add (batched compare-and-swaps)
+    against the plain version: int8 / uint8 bit for bit, e4m3 / e5m2
+    within `ref.scatter_add16_limit` (`check_scatter16`), into [2^20, w]
+    at CAS_WIDTHS: 2^18 updates uniform and with a quarter into 4096 hot
+    rows, and 4096 into one row; rows narrower than a sector also down
+    the other path than the rule's (`launch_plan(..., bucket=...)`); rows
+    of 16-byte units swap a unit at once (the plan's chunk 16), but on a
+    table that starts on no 16 bytes a word (chunk 1)."""
+    from repro_torch.kernels import async_scatter as asc, ref
+
+    n, m = 1 << 20, 1 << 18
+    log(f"scatter add by batched compare-and-swaps: int8, uint8, e4m3, e5m2 "
+        f"into [{n}, w], w {CAS_WIDTHS} (64 also on a table 4 bytes past 16: "
+        f"a word a CAS), {CAS_SPREADS}")
+    runs = 0
+    for dtype in (torch.int8, torch.uint8, *FP8):
+        for w, off in [(w, 0) for w in CAS_WIDTHS] + [(64, 4)]:
+            for spread in CAS_SPREADS:      # (off: the table's bytes past 16)
+                table = rand_typed(gen, (n * w + off,), dtype)[off:].view(n, w)
+                idx = amu_index(gen, n, m if spread != "one row" else 4096)
+                if spread == "a quarter hot":
+                    idx[::4] %= 4096
+                elif spread == "one row":
+                    idx.fill_(1234)
+                upd = rand_typed(gen, (idx.numel(), w), dtype)
+                plans = [asc.launch_plan(table, idx.numel(), "add")]
+                if plans[0].chunk != (asc.CAS_UNIT if w % asc.CAS_UNIT == 0
+                                      and table.data_ptr() % asc.CAS_UNIT
+                                      == 0 else 1):
+                    raise AssertionError(f"scatter add {tname(dtype)} "
+                                         f"[{n},{w}]: chunk "
+                                         f"{plans[0].chunk} ... FAIL")
+                if w < asc.SECTOR:
+                    plans.append(asc.launch_plan(table, idx.numel(), "add",
+                                                 bucket=not plans[0].bucket))
+                want = (None if dtype in FP8
+                        else ref.scatter_update_ref(table, idx, upd, "add"))
+                for plan in plans:
+                    got = asc.launch(table.clone(), idx, upd, "add", plan)
+                    name = (f"scatter add {tname(dtype)} [{n},{w}]"
+                            f"{f', {off} bytes in' if off else ''}, "
+                            f"{idx.numel()} updates {spread}"
+                            f"{', bucketed' if plan.bucket else ''}")
+                    if want is None:
+                        check_scatter16(name, got, table, idx, upd)
+                    else:
+                        check_same(name, got, want, quiet=True)
+                    runs += 1
+                del table, idx, upd, want
+    free_cuda()
+    log(f"  {runs} runs: int8 / uint8 bit-exact, fp8 within its limit")
 
 
 def paged_serve_shape(gen, arch, prompt=PROMPT_LEN) -> dict:
@@ -4441,10 +4616,11 @@ MUTANTS = {
     "fp8_satfinite": [("common.cuh",
                        "  return over ? (__nv_fp8_storage_t)",
                        "  return false ? (__nv_fp8_storage_t)")],
-    # ... the scatter's CAS loop as a load, an add and a store ...
+    # ... the scatter's CAS as a load, an add and a store ...
     "scatter_cas_store": [("async_scatter.cu",
-                           "    old = atomicCAS(p, seen, f(seen));",
-                           "    *p = f(seen);")],
+                           "        got[i] = cas_unit<U>(p[i], seen[i],\n",
+                           "        got[i] = seen[i], *reinterpret_cast<"
+                           "Unit<U>*>(p[i]) = (\n")],
     # ... its word path taking the byte past the row (a neighbour's xor) ...
     "scatter_word_past_row": [("async_scatter.cu",
                                "    if (o >= 0 && o < R) {",
@@ -4503,9 +4679,10 @@ MUTANTS = {
     # ... and the apply of a call that is not bucketed (K slots: K > 1)
     # reducing each update into the row after its own
     "scatter_unbucketed_next_row": [("async_scatter.cu",
-                                     "      const int row = sidx[u];",
-                                     "      const int row = sidx[u] + "
-                                     "(K > 1);")],
+                                     "        reduce_row<W, OP, E>(table, "
+                                     "(long long)row * R,",
+                                     "        reduce_row<W, OP, E>(table, "
+                                     "(long long)(row + (K > 1)) * R,")],
     # flash's fp8 body by TMA: the e4m3 wgmma on e5m2 tiles ...
     "flash_fp8_kind_swapped": [("flash_attention.cu",
                                 "    WGMMA_SS8_128(\"e5m2\");",
@@ -4594,6 +4771,28 @@ MUTANTS = {
     "flash_pair_barrier": [("flash_attention.cu",
                             "      asm volatile(\"bar.sync 1, %0;\\n\" ::\"n\""
                             "(2 * 128) : \"memory\");\n", "")],
+    # the scatter's batched compare-and-swaps (8-bit integer and fp8 add):
+    # a word whose CAS lost dropped, not retried ...
+    "scatter_cas_drop": [("async_scatter.cu",
+                          "        live[i] = !same(got[i], seen[i]);    "
+                          "// lost: again, from the return\n",
+                          "        live[i] = false;\n")],
+    # ... and retried with its first load as the expectation, not the
+    # returned word (it never wins again: the copy spins and is killed)
+    "scatter_cas_first_load": [("async_scatter.cu",
+                                "        seen[i] = got[i];\n", "")],
+    # paged's tensor-core body over the whole head above 256 columns: Q K^T
+    # without K's last 32 columns (the last two k-steps) ...
+    "paged_wide_mma_k": [("paged_attention.cu",
+                          "          for (int kk = 0; kk < D / 16; kk += 2) {",
+                          "          for (int kk = 0; kk < D / 16 - 2; "
+                          "kk += 2) {")],
+    # ... and P V without a warp's last 16 columns of V
+    "paged_wide_mma_v": [("paged_attention.cu",
+                          "            for (int i = 0; i < NTW / 2; ++i) {\n"
+                          "              uint32_t b4[4];",
+                          "            for (int i = 0; i < NTW / 2 - 1; ++i) {\n"
+                          "              uint32_t b4[4];")],
 }
 
 
@@ -5010,6 +5209,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_flash(gen), check_paged(gen)]
+    check_wide_mma(gen)
+    check_cas_batches(gen)
     check_elem_rows_and_pair(gen)
     fuzz_kernels(gen)
     check_offload(gen)

@@ -79,14 +79,18 @@ bit once, beside `torch.add(b, c, alpha=s)` where torch takes the type on
 the card), `elem_wide` (paged over rows of no whole 16-byte pieces: e4m3
 and e5m2 caches at D 8 and e4m3 at D 100 at qwen2.5-3b's decode, e4m3,
 bf16 and f16 at D 100 over 16 KV heads; flash at D 512 in bf16 and f16
-and at D 1024 and 2048 in bf16 at its prefill layout) and `served` (the
-bodies of the served paths alone: flash at
-qwen2.5-3b's prefill and recurrentgemma-9b's D 256, paged at qwen2.5-3b's
-decode, GUPS as drawn, the f32 triad).
+and at D 1024 and 2048 in bf16 at its prefill layout), `cas_wide` (int8,
+uint8, e4m3 and e5m2 add of 2^20 updates into [2^24, 64] and [2^24, 3], a
+quarter into 4096 hot rows and uniform, beside `index_add_` where torch
+has it, int8 xor into [2^24, 64] both ways; paged at qwen2.5-3b's decode
+layout at D 512, 1024 and 2048 in bf16 and f16 beside SDPA) and `served`
+(the bodies of the served paths alone: flash at qwen2.5-3b's prefill and
+recurrentgemma-9b's D 256, paged at qwen2.5-3b's decode, GUPS as drawn,
+the f32 triad).
 `--only` picks some of flash, paged, gather, triad, scatter,
 scatter_bf16, types, paged_fp8, paged_mixed, scatter_narrow,
 scatter_sweep, paged_heads, flash_fp8, g16_add16, mma_triad, elem_wide,
-served. For
+cas_wide, served. For
 each:
 kernel ms (CUDA
 events, mean of back-to-back calls, best of 5 windows, as in chip_smoke.py),
@@ -209,6 +213,8 @@ def main() -> int:
                     for dtype in st.TYPES)
     if "elem_wide" in args.only:
         rows.extend(bench_elem_wide(cs, fa, pa, ref, F, gen))
+    if "cas_wide" in args.only:
+        rows.extend(bench_cas_wide(cs, pa, asc, ref, F, gen))
     if "served" in args.only:
         rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, d))
         rows.append(bench_flash(cs, fa, F, gen, b, 16, 1, 4096, 256,
@@ -316,6 +322,27 @@ def bench_elem_wide(cs, fa, pa, ref, F, gen):
                 for d, dtype in ((512, torch.bfloat16), (512, torch.float16),
                                  (1024, torch.bfloat16),
                                  (2048, torch.bfloat16)))
+    return rows
+
+
+def bench_cas_wide(cs, pa, asc, ref, F, gen):
+    """`cas_wide`: int8, uint8, e4m3 and e5m2 add of 2^20 updates into
+    [2^24, 64] and into 3-byte rows ([2^24, 3]), a quarter into 4096 hot
+    rows and uniform, beside `index_add_` where torch has it, and int8 xor
+    into [2^24, 64] (a reduction on the int32 view, no compare-and-swap)
+    both ways; then paged at qwen2.5-3b's decode layout (B4 Hq16 Hkv2
+    T1032, the serve lengths) at D 512, 1024 and 2048 in bf16 and f16
+    beside SDPA."""
+    rows = [bench_scatter_typed(cs, asc, ref, gen, dtype, "add", w, hot=hot)
+            for w in (64, 3)
+            for dtype in (torch.int8, torch.uint8, *cs.FP8)
+            for hot in (True, False)]
+    rows.extend(bench_scatter_typed(cs, asc, ref, gen, torch.int8, "xor", 64,
+                                    hot=hot) for hot in (True, False))
+    rows.extend(bench_paged(cs, pa, ref, F, gen, cs.BATCH, 16, 2, d,
+                            dtype=dtype)
+                for d in (512, 1024, 2048)
+                for dtype in (torch.bfloat16, torch.float16))
     return rows
 
 

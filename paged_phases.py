@@ -17,8 +17,9 @@ over e4m3 caches at D = 8; lengths [T, T - 31, (T + 2) // 2, 64]: [1032, 1001, 5
 64] at qwen2.5-3b's decode, [4128, 4097, 2065, 64] at recurrentgemma-9b's
 `1,256,4128`; by default 16 heads at D 64, 80 and 128, and qwen2.5-3b's 2
 heads at D 128). For each case it prints, over the consumer
-sets of all blocks (two sets a block), the mean and the largest cycles
-spent: waiting for a chunk to land (getfin), Q K^T on the tensor cores with
+sets of all blocks (two sets a block; every chunk's blocks of the wide
+body above 256 columns, whose grid has a second dimension), the mean and
+the largest cycles spent: waiting for a chunk to land (getfin), Q K^T on the tensor cores with
 the logits' exchange, the softmax and P V (and Q K^T on FMAs), the rest (the
 loop's turns between chunks), finishing segments (the partials, the ticket,
 the last block's merge), the start (the lengths' prefix sums, the barrier,
@@ -106,9 +107,10 @@ EDITS = (
      "  ph_tick(4);\n"
      f"  ph_[{SEGMENTS}]++;\n"
      f"  ph_[{TOTAL}] = clock64() - ph_start;\n"
-     "  if (lane == 0 && hw == 0 && blockIdx.x < 1024 && blockIdx.y == 0) {\n"
+     "  const unsigned ph_b = blockIdx.y * gridDim.x + blockIdx.x;\n"
+     f"  if (lane == 0 && hw == 0 && ph_b < {ROWS // 2}) {{\n"
      f"    for (int i = 0; i < {SLOTS}; ++i)\n"
-     "      " + SYMBOL + "[blockIdx.x * 2 + set][i] = ph_[i];\n"
+     "      " + SYMBOL + "[ph_b * 2 + set][i] = ph_[i];\n"
      "  }\n"
      "}\n\n// The tensor map"),
 )

@@ -19,8 +19,10 @@ many updates a slot of the apply kernel holds, and its grid: a block a
 64-update span of the bucketed stream, in the stream's order, or else a
 persistent K-slot ring. 8- and 16-bit integers, float8, and
 rows of no whole 4-byte words take the source's word path (a reduction, a
-returning add with a carry repair (16-bit integer add) or a CAS loop on
-each aligned word that holds part of a row).
+returning add with a carry repair (16-bit integer add) or a
+compare-and-swap on each aligned word that holds part of a row); the 8-bit
+integer and float8 add of rows of whole 16-byte units swaps a unit at
+once (chunk 16, `CAS_TYPES`), a lane's compare-and-swaps in batches.
 """
 from __future__ import annotations
 
@@ -45,17 +47,22 @@ TYPES = {"add": (torch.float32, torch.int32, torch.uint32, torch.bfloat16,
          "xor": (torch.int32, torch.uint32, *SMALL_INTS)}
 # the types of the word path whatever the row (`scatter_plan`'s chunk 1)
 WORD_TYPES = (*SMALL_INTS, torch.float8_e4m3fn, torch.float8_e5m2)
+# the types whose add is by compare-and-swap (`cas_rows` of the source):
+# rows of whole 16-byte units on a table that starts on one take a CAS of
+# 16 bytes (`scatter_plan`'s chunk CAS_UNIT), others a word's
+CAS_TYPES = (torch.int8, torch.uint8, torch.float8_e4m3fn, torch.float8_e5m2)
+CAS_UNIT = 16
 # the widest single reduction of each (op, type): red.xor.b64, red.add.s32,
 # the vector atomicAdd(float4), red.add.noftz.bf16x2 / .f16x2 (two
-# elements), and a word (red.xor.b32 or a CAS loop) for the word path;
-# wider chunks of xor or int32 add would be several reductions a lane at a
-# stride, each sector met more than once
+# elements), a word (red.xor.b32 or the 16-bit integer add's returning add)
+# for the word path, and a 16-byte compare-and-swap (atom.cas.b128) for the
+# 8-bit integer and fp8 add; wider chunks of xor or int32 add would be
+# several reductions a lane at a stride, each sector met more than once
 REDUCE_WIDTH = {("xor", torch.int32): 8, ("add", torch.int32): 4,
                 ("add", torch.float32): 16, ("add", torch.bfloat16): 4,
                 ("add", torch.float16): 4,
                 **{(op, t): 4 for t in SMALL_INTS for op in OPS},
-                ("add", torch.float8_e4m3fn): 4,
-                ("add", torch.float8_e5m2): 4}
+                **{("add", t): CAS_UNIT for t in CAS_TYPES}}
 SECTOR = 32             # bytes of an L2 sector: narrower rows may be bucketed
 # ... in a table of BUCKET_TABLE bytes or more, by BUCKET_M updates or more
 # (`bucketed`)
@@ -155,14 +162,18 @@ def scatter_plan(row_bytes: int, n: int, m: int, block_m: int,
                  num_slots: int, align: int, sms: int,
                  blocks_per_sm: Callable[[int, int], int],
                  by_word: bool = False,
-                 bucket: Optional[bool] = None) -> ScatterPlan:
+                 bucket: Optional[bool] = None,
+                 cas: bool = False) -> ScatterPlan:
     """The call of `m` updates of `row_bytes` into a table of `n` rows on a
     card of `sms` SMs. `align` is the largest of 16, 8, 4 dividing the
     table's address and the op's widest reduction (REDUCE_WIDTH): the
     reduction's chunk is the widest of 16, 8, 4 dividing it and the row.
     Types of the word path (`by_word`, the caller's WORD_TYPES) and rows of
     no whole 4-byte words take chunk 1: a lane an aligned word holding part
-    of a row. `blocks_per_sm(chunk, smem)` is the apply's occupancy.
+    of a row; but an add by compare-and-swap (`cas`: CAS_TYPES) whose rows
+    are whole CAS_UNIT-byte units, the table starting on one (`align`),
+    takes chunk CAS_UNIT: a lane a 16-byte unit. `blocks_per_sm(chunk,
+    smem)` is the apply's occupancy.
 
     Bucketed as `bucketed` says (`bucket`, where given, overrides the rule
     for rows narrower than a sector: the checks run both paths at any
@@ -180,7 +191,9 @@ def scatter_plan(row_bytes: int, n: int, m: int, block_m: int,
     K slots of 4 updates do not fit."""
     if align % 4:
         raise ValueError("the table must start on a 4-byte boundary")
-    if by_word or row_bytes % 4:
+    if cas and row_bytes % CAS_UNIT == 0 and align % CAS_UNIT == 0:
+        chunk, pieces = CAS_UNIT, row_bytes // CAS_UNIT
+    elif by_word or row_bytes % 4:
         chunk, pieces = 1, -(-row_bytes // 4)
     else:
         chunk = next(w for w in (16, 8, 4)
@@ -261,7 +274,8 @@ def _card_plan(device: int, op: str, dtype: torch.dtype, row_bytes: int,
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return scatter_plan(row_bytes, n, m, block_m, num_slots, align, sms,
                         functools.partial(_blocks_per_sm, device, op, dtype),
-                        dtype in WORD_TYPES, bucket)
+                        dtype in WORD_TYPES, bucket,
+                        op == "add" and dtype in CAS_TYPES)
 
 
 def launch_plan(table: torch.Tensor, m: int, op: str = "add",

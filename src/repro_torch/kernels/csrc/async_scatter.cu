@@ -92,10 +92,10 @@
 //     is the lane-wise wrapping sum, whenever each repair lands. A lane's
 //     atoms are independent, so it issues ADD16_BATCH of them (over its
 //     words and updates) before it reads any return and sends the repairs
-//     after: issue early, wait late, where the CAS loop waited on a load
-//     and a CAS round trip (and a retry on every lost race) for each word,
+//     after: issue early, wait late, where a CAS loop waits on a load and
+//     a CAS round trip (and a retry on every lost race) for each word,
 //     one word after the other;
-//   - int8 add (either sign): a CAS loop on the word adds per byte
+//   - int8 / uint8 add: compare-and-swap of the word, adding per byte
 //     (__vadd4, no carry between lanes of the word; adding 0 leaves a
 //     neighbour alone); exact in any order, wrapping as the reference. The
 //     16-bit rule does not carry over: a byte's carry lands in the next
@@ -104,10 +104,39 @@
 //     1; A's atom (the word reads [0, 0, 1, 0]), B's atom (B sees byte 1 at
 //     0, so no carry), A's repair of its one carry: [0, 0, 1, 0], where the
 //     lane-wise sum is [0, 0, 0, 0];
-//   - fp8 add: the same CAS loop, each of the row's bytes widened to fp32,
-//     added and rounded back without saturation (`to_fp8`) at every add,
-//     in the order the CAS loops win; a neighbour's byte is kept as it is
-//     (adding +0.0 would turn its -0.0 into +0.0);
+//   - fp8 add: the same compare-and-swap, each of the row's bytes widened
+//     to fp32, added and rounded back without saturation (`to_fp8`) at
+//     every add, in the order the CASes win; a neighbour's byte is kept as
+//     it is (adding +0.0 would turn its -0.0 into +0.0).
+//   Both by `cas_rows`: a lane fills the B places of a batch with its next
+//   units (over its units and updates), issues all their loads
+//   (ld.global.cg) before it reads one, computes each new unit, issues
+//   every CAS before it reads a return, and keeps each unit whose CAS lost
+//   in its place, with the returned bytes as the next expectation (no
+//   reload), beside the fresh units of the next batch. A CAS wins only
+//   where the unit is still what the new one was computed from, so each
+//   update is applied exactly once, to the unit as it stood: int8 is the
+//   lane-wise wrapping sum in any order, fp8 one add and rounding an update
+//   in the order the CASes win. A batch may hold one unit twice (a hot row
+//   twice in a lane's updates): the second CAS loses to the first and takes
+//   the first's result as its expectation. A CAS fails only because another
+//   one changed the unit, so some CAS always wins: no deadlock and no
+//   livelock. (Combining such a pair in registers would be exact for int8
+//   only; it is not done.) What the parent's loop (a load and a CAS round
+//   trip a word, one word after the other) measured (H100, 2^20 updates
+//   into [2^24, 64], PERF.md): hot rows (a quarter into 4096) and uniform
+//   ones alike, int8 0.59 ms where a xor of the same words (a reduction,
+//   no CAS) took 0.10: the L2's compare-and-swaps a word set the pace, more
+//   than the round trips (8 words a lane in flight took int8 only to 0.55
+//   uniform, and hot rows to 0.64). So a row of whole 16-byte units on a
+//   table that starts on one (the plan's chunk 16) swaps a unit at once
+//   (atom.global.cas.b128, a quarter of the CASes), the group's lanes over
+//   the (update, unit) pairs, B = CAS_BATCH (2) in flight: int8 0.27 hot,
+//   0.23 uniform; 8 units in flight lost more races on hot rows (0.41, fp8
+//   1.32). Other rows swap a word, one in flight (CAS_BATCH_WORD 1): on
+//   3-byte rows 2 to 8 words in flight took the uniform case from 0.079 to
+//   0.060-0.065 ms but the hot one from 0.17 to 0.23-0.34 (85 updates a hot
+//   word: lost races).
 //   - bf16 / f16 add: a word wholly in the row takes the pair reduction
 //     (red.add.noftz.bf16x2 / .f16x2, a native REDG); a word holding one
 //     element of the row, its pair a neighbour's, takes the pair reduction
@@ -220,16 +249,6 @@ __device__ __forceinline__ uint32_t atom_add(uint32_t* p, uint32_t v) {
   return old;
 }
 
-// *p = f(*p) by compare-and-swap, whatever else lands on the word meanwhile.
-template <typename F>
-__device__ __forceinline__ void cas_word(uint32_t* p, F f) {
-  uint32_t seen, old = *p;
-  do {
-    seen = old;
-    old = atomicCAS(p, seen, f(seen));
-  } while (old != seen);
-}
-
 // The bytes of `inside` of old plus those of w, each fp8 byte widened to
 // fp32, added and rounded back (`to_fp8`: no saturation); the others kept.
 template <typename E>
@@ -280,8 +299,8 @@ __device__ __forceinline__ void reduce_chunk(unsigned char* dst,
 
 // The word path's astore of one aligned word of the table: w holds the
 // update's bytes of it (zero elsewhere), `inside` 0xff in each byte of the
-// row. E: uint8_t (int8, uint8), bf16, f16, fp8; any for xor. (The 16-bit
-// integer add: `add16_rows`.)
+// row. E: bf16, f16; any for xor. (The 16-bit integer add: `add16_rows`;
+// the 8-bit integer and fp8 add: `cas_rows`.)
 template <int OP, typename E>
 __device__ __forceinline__ void reduce_word(uint32_t* dst, uint32_t w,
                                             uint32_t inside) {
@@ -304,11 +323,9 @@ __device__ __forceinline__ void reduce_word(uint32_t* dst, uint32_t w,
       else                                   // one element: the row's first
         red_add1<E>(p + 2, w >> 16);
     }
-  } else if constexpr (is_fp8<E>) {
-    cas_word(dst, [&](uint32_t old) { return add_fp8<E>(old, w, inside); });
   } else {
-    static_assert(sizeof(E) == 1, "the word path's CAS loop adds bytes");
-    cas_word(dst, [&](uint32_t old) { return __vadd4(old, w); });
+    static_assert(OP == OP_XOR || is_16bit_float<E>,
+                  "8-bit adds: `cas_rows`; 16-bit integer adds: `add16_rows`");
   }
 }
 
@@ -384,6 +401,171 @@ __device__ __forceinline__ void add16_rows(unsigned char* table,
     for (int i = 0; i < ADD16_BATCH; ++i)     // the carries out of the low half
       if (lo[i] && (old[i] & 0xffffu) + lo[i] > 0xffffu)
         red_add(p[i], 0xffff0000u);
+  }
+}
+
+// The 8-bit integer and fp8 add's compare-and-swaps (the note at the top):
+// the bytes one swaps where the rows are whole units of them and the table
+// starts on one (the plan's chunk; else a word, chunk 1), and how many a
+// lane keeps in flight, of units and of words.
+constexpr int CAS_UNIT = 16;
+constexpr int CAS_BATCH = 2;
+constexpr int CAS_BATCH_WORD = 1;
+
+// U bytes of the table as words: what one compare-and-swap reads and swaps
+// (U 4 or 16: atom.global.cas.b32 or .b128).
+template <int U>
+struct Unit {
+  uint32_t w[U / 4];
+};
+
+template <int U>
+__device__ __forceinline__ Unit<U> ld_unit(const uint32_t* p) {
+  Unit<U> x;
+  if constexpr (U == 16) {
+    const uint4 v = __ldcg(reinterpret_cast<const uint4*>(p));
+    x.w[0] = v.x; x.w[1] = v.y; x.w[2] = v.z; x.w[3] = v.w;
+  } else {
+    x.w[0] = __ldcg(p);
+  }
+  return x;
+}
+
+__device__ __forceinline__ unsigned long long join(uint32_t lo, uint32_t hi) {
+  return (unsigned long long)hi << 32 | lo;
+}
+
+// *p = v where *p is `e`, at L2; returns the bytes before.
+template <int U>
+__device__ __forceinline__ Unit<U> cas_unit(uint32_t* p, const Unit<U>& e,
+                                            const Unit<U>& v) {
+  Unit<U> o;
+  if constexpr (U == 16) {
+    unsigned long long lo, hi;
+    asm volatile(
+        "{\n.reg .b128 e, v, o;\nmov.b128 e, {%2, %3};\n"
+        "mov.b128 v, {%4, %5};\natom.global.cas.b128 o, [%6], e, v;\n"
+        "mov.b128 {%0, %1}, o;\n}\n"
+        : "=l"(lo), "=l"(hi)
+        : "l"(join(e.w[0], e.w[1])), "l"(join(e.w[2], e.w[3])),
+          "l"(join(v.w[0], v.w[1])), "l"(join(v.w[2], v.w[3])), "l"(p)
+        : "memory");
+    o.w[0] = (uint32_t)lo; o.w[1] = (uint32_t)(lo >> 32);
+    o.w[2] = (uint32_t)hi; o.w[3] = (uint32_t)(hi >> 32);
+  } else {
+    asm volatile("atom.global.cas.b32 %0, [%1], %2, %3;\n"
+                 : "=r"(o.w[0])
+                 : "l"(p), "r"(e.w[0]), "r"(v.w[0])
+                 : "memory");
+  }
+  return o;
+}
+
+template <int U>
+__device__ __forceinline__ bool same(const Unit<U>& a, const Unit<U>& b) {
+  bool eq = true;
+#pragma unroll
+  for (int j = 0; j < U / 4; ++j) eq = eq && a.w[j] == b.w[j];
+  return eq;
+}
+
+// The update's bytes w (zero elsewhere; `inside` 0xff in each byte of the
+// row) added into `old`, word by word: per byte, wrapping, for int8 /
+// uint8; each fp8 byte of the row widened, added and rounded back
+// (`add_fp8`), the others kept.
+template <typename E, int U>
+__device__ __forceinline__ Unit<U> add_bytes(const Unit<U>& old,
+                                             const Unit<U>& w,
+                                             const Unit<U>& inside) {
+  Unit<U> r;
+#pragma unroll
+  for (int j = 0; j < U / 4; ++j) {
+    if constexpr (is_fp8<E>) r.w[j] = add_fp8<E>(old.w[j], w.w[j], inside.w[j]);
+    else r.w[j] = __vadd4(old.w[j], w.w[j]);
+  }
+  return r;
+}
+
+// The 8-bit integer add (int8, uint8: E uint8_t) or fp8 add of n update
+// rows of R bytes, the rows `rows[u]` of the table, from src (u * R on),
+// lanes sub, sub + L, ... of group g of G, by compare-and-swaps of U bytes
+// in batches of B: U 4, the row's aligned words (a row may start on any
+// byte), each lane its words of updates g, g + G, ...; U 16 where R is a
+// whole number of units and the table starts on one, the group's lanes
+// over the (update, unit) pairs of its updates in turn. The lane's
+// next units fill the B places of a batch, every fresh unit's load issued
+// before any is read, then every place's CAS before any return is read; a
+// place whose CAS lost keeps its unit, the returned bytes its next
+// expectation, into the next batch beside fresh units (the note at the
+// top).
+template <typename E, int U, int B>
+__device__ __forceinline__ void cas_rows(unsigned char* table,
+                                         const int* rows,
+                                         const unsigned char* src, int n,
+                                         int R, int g, int G, int sub,
+                                         int L, long long N) {
+  constexpr int NW = U / 4;                  // words a unit
+  const int nu = R / U;                      // units a row (U > 4)
+  int u = g, k = sub;                        // U 4: the next update and word
+  int f = sub;                               // U > 4: the next pair
+  // the lane's next unit: its place and the update's bytes of it
+  auto next = [&](uint32_t*& p, Unit<U>& w, Unit<U>& inside) -> bool {
+    if constexpr (U == 4) {
+      if (u >= n) return false;
+      const int row = rows[u];
+      check_row(row, N);
+      const long long at = (long long)row * R;
+      const int lead = (int)(at & 3);
+      row_word(src + (size_t)u * R, R, lead, k, w.w[0], inside.w[0]);
+      p = reinterpret_cast<uint32_t*>(table + (at - lead)) + k;
+      k += L;
+      if (k >= (lead + R + 3) >> 2) {        // the row's words are done
+        k = sub;
+        u += G;
+      }
+    } else {
+      const int q = f / nu, uu = g + G * q, kk = f - q * nu;
+      if (uu >= n) return false;
+      const int row = rows[uu];
+      check_row(row, N);
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+        row_word(src + (size_t)uu * R, R, 0, kk * NW + j, w.w[j],
+                 inside.w[j]);
+      p = reinterpret_cast<uint32_t*>(table + (long long)row * R) + kk * NW;
+      f += L;
+    }
+    return true;
+  };
+  uint32_t* p[B];
+  Unit<U> w[B], inside[B], seen[B];
+  bool live[B];                              // a unit not yet added
+#pragma unroll
+  for (int i = 0; i < B; ++i) live[i] = false;
+  for (;;) {
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < B; ++i) {            // fresh units: their loads
+      if (!live[i] && next(p[i], w[i], inside[i])) {
+        seen[i] = ld_unit<U>(p[i]);
+        live[i] = true;
+      }
+      any |= live[i];
+    }
+    if (!any) return;
+    Unit<U> got[B];
+#pragma unroll
+    for (int i = 0; i < B; ++i)              // every CAS, then the returns
+      if (live[i])
+        got[i] = cas_unit<U>(p[i], seen[i],
+                             add_bytes<E, U>(seen[i], w[i], inside[i]));
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+      if (live[i]) {
+        live[i] = !same(got[i], seen[i]);    // lost: again, from the return
+        seen[i] = got[i];
+      }
+    }
   }
 }
 
@@ -480,24 +662,33 @@ scatter_apply_kernel(unsigned char* __restrict__ table,
   }
 
   // consumers: groups of L lanes share an update row, W bytes a reduction
-  // (the 16-bit integer add: `add16_rows`)
+  // (the 16-bit integer add: `add16_rows`; the 8-bit integer and fp8 add:
+  // `cas_rows`)
   constexpr bool ADD16 =
       W == 1 && OP == OP_ADD && std::is_same_v<E, uint16_t>;
+  constexpr bool CAS = OP == OP_ADD &&
+                       (std::is_same_v<E, uint8_t> || is_fp8<E>);
+  static_assert(!CAS || W == 1 || W == CAS_UNIT, "CAS: words or units");
   const int c = threadIdx.x - 32;
   const int G = consumers * 32 / L, g = c / L, sub = c % L;
-  if (blockIdx.x == 0) {               // the last M mod unit, from global
+  // n update rows (rows[u] of the table, from src)
+  auto apply = [&](const int* rows, const unsigned char* src, int n) {
     if constexpr (ADD16) {
-      add16_rows(table, idx + M4, upd + M4 * R, (int)(M - M4), R, g, G, sub,
-                 L, N);
+      add16_rows(table, rows, src, n, R, g, G, sub, L, N);
+    } else if constexpr (CAS) {      // units of W bytes (1: words)
+      cas_rows<E, W == 1 ? 4 : W, W == 1 ? CAS_BATCH_WORD : CAS_BATCH>(
+          table, rows, src, n, R, g, G, sub, L, N);
     } else {
-      for (long long j = M4 + g; j < M; j += G) {
-        const int row = idx[j];
+      for (int u = g; u < n; u += G) {
+        const int row = rows[u];
         check_row(row, N);
-        reduce_row<W, OP, E>(table, (long long)row * R, upd + j * R, R, sub,
-                             L);
+        reduce_row<W, OP, E>(table, (long long)row * R, src + (size_t)u * R,
+                             R, sub, L);
       }
     }
-  }
+  };
+  if (blockIdx.x == 0)                 // the last M mod unit, from global
+    apply(idx + M4, upd + M4 * R, (int)(M - M4));
   for (int t = 0;; ++t) {
     const int s = t % K;
     mbar_wait(&full[s], (uint32_t)((t / K) & 1));  // getfin
@@ -506,17 +697,7 @@ scatter_apply_kernel(unsigned char* __restrict__ table,
     const int n = (int)min((long long)span, M4 - (long long)sp * span);
     const unsigned char* slot = slots + (size_t)s * lay.slot;
     const int* sidx = reinterpret_cast<const int*>(slot);
-    const unsigned char* rows = slot + lay.rows;
-    if constexpr (ADD16) {
-      add16_rows(table, sidx, rows, n, R, g, G, sub, L, N);
-    } else {
-      for (int u = g; u < n; u += G) {
-        const int row = sidx[u];
-        check_row(row, N);
-        reduce_row<W, OP, E>(table, (long long)row * R, rows + (size_t)u * R,
-                             R, sub, L);
-      }
-    }
+    apply(sidx, slot + lay.rows, n);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);          // the slot may refill
   }
@@ -858,6 +1039,14 @@ cudaError_t dispatch(int op, int dtype, int chunk, A... args) {
     }
     return cudaErrorInvalidValue;
   }
+  if (chunk == CAS_UNIT && op == OP_ADD) {     // 16-byte compare-and-swaps
+    switch (dtype) {
+      case DTYPE_I8:
+      case DTYPE_U8: return F<CAS_UNIT, OP_ADD, uint8_t>::run(args...);
+      case DTYPE_E4M3: return F<CAS_UNIT, OP_ADD, fp8_e4m3>::run(args...);
+      case DTYPE_E5M2: return F<CAS_UNIT, OP_ADD, fp8_e5m2>::run(args...);
+    }
+  }
   if (op == OP_ADD && dtype == DTYPE_F32) {
     switch (chunk) {
       case 16: return F<16, OP_ADD, float>::run(args...);
@@ -913,7 +1102,8 @@ extern "C" long long async_scatter_apply_smem(int span, int K, int R) {
 
 // The apply: every update of idx / upd (the caller's, or the bucketed
 // stream's) reduced into the table. chunk: bytes a reduction (16, 8 or 4,
-// dividing R and the table's alignment), or 1: the word path (the table
+// dividing R and the table's alignment; 16 also the 8-bit integer and fp8
+// add's compare-and-swap of a 16-byte unit), or 1: the word path (the table
 // starts on 4 bytes); span: updates a slot (a multiple of 4, of 16 where R
 // is not a multiple of 4); K: slots a block; lanes: L, lanes that share a row; blocks: the grid,
 // whose blocks take the spans grid-stride. idx and upd start on 16-byte

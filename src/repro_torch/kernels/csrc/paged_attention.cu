@@ -55,7 +55,8 @@
 //     to 8 (and w + 8 of a group of 16: G > 8 on the tensor cores; G < 8,
 //     several KV heads) for the softmax, a lane a row of the chunk, so a
 //     chunk's max and sum take 10 shuffles a head;
-//   - bf16 and f16 at D = 64 to 256 (`tensor_core_qk`): Q K^T by mma.sync
+//   - bf16 and f16 at D = 64 to 256 and 512 (`tensor_core_qk`; 512: "Above
+//     256 columns" below): Q K^T by mma.sync
 //     m16n8k16, K rows as A (ldmatrix from the 128-byte swizzled boxes, so 8
 //     rows are read without bank conflicts), the group's 8 queries as B in
 //     registers; bf16 products are exact in fp32. P V by mma.sync too, warp
@@ -156,7 +157,38 @@
 //     read a lane's columns as one vector where the row's are whole
 //     vectors of it, else one element a load, 0 past dh (`load_cols`).
 //
-// Above 256 columns (the wide body, WIDE): a lane's D / 32 columns and the
+// Above 256 columns, 16-bit caches under a q of their type with rows of
+// whole 16-byte pieces up to D = 512 (Dp = MMA_WIDE; `products`,
+// `wide_chunks`) take the tensor-core body above at Dp 512, a block's
+// segment the whole head, so K is read once and the grid has one
+// dimension. A slot holds `rows` rows of K and of V, 8 swizzled 128-byte
+// TMA boxes a row each (64 KB at 32 rows: 2 slots fit beside the rest).
+// Q K^T by mma.sync over D / 16 k-steps, K rows as the A operand by
+// ldmatrix from the boxes; q staged once a segment in the set's tacc, [8][D
+// + QPAD] 16-bit, and read a k-step at a time by ldmatrix.x2, as the
+// two-heads-a-warp body reads its 16 (held as B fragments q would take 64
+// registers a lane); the even and the odd k-steps in two chains of mma,
+// added at the end. P V by mma.sync, warp w on D / 8 = 64 columns of all
+// heads (32 fp32 accumulators), P in its two 16-bit parts; the partials
+// and the merge at D columns (16-byte loads, 2 partials a batch). Rules
+// (a)-(c) hold as below: TMA zero-fills columns past D (boxes wholly past
+// it too), stores write columns < D only, the scale is 1 / sqrt(D). The
+// segment's blocks merge in two levels (MERGE_GROUP, as at HX 2): a
+// partial is D columns a head. P V loads a warp's V 16 columns at a time
+// beside their mma, so that the 544-thread block's 96 registers a thread
+// hold it (loading all 64 first spilled 588 bytes). Before it this head
+// size took the wide body below: 0.0361-0.0368 ms at qwen2.5-3b's decode
+// layout B4 Hq16 Hkv2 T1032, D = 512 bf16, against ~0.033 now; with the
+// products off the critical path (a set's Q K^T and P V ~4k cycles), a
+// block's start before its first chunk and the last block's merge set the
+// pace (`paged_phases.py`, PERF.md). Above 512 the
+// wide body stays: a block over the whole head at D = 1024 would hold 64 P
+// V accumulators a lane beside acc's 32, past the ~120 registers a thread
+// of the 544-thread block has, and a slot of 32 rows would be 128 KB.
+// fp32 and fp8 caches, a q of another type and rows of no whole pieces take
+// the wide body at every D above 256.
+//
+// The wide body (WIDE): a lane's D / 32 columns and the
 // slot's rows no longer fit (at D = 2048, 64 accumulators and 64 q values a
 // lane; 32 rows of K and V are 256 KB in bf16). The launch splits the
 // output into Dp / 256 chunks of 256 columns, a second grid dimension, each
@@ -620,10 +652,18 @@ __device__ __forceinline__ void transpose_sum(float (&part)[32], int lane) {
 // this SM's L1 may hold from an earlier read), as one vector where N is 2 or
 // 4, as two where N is 8 (D = 256: eight 4-byte loads a lane 32 bytes apart
 // took 8 sectors of L2 an instruction where one is needed, and the merge of
-// 16 heads' partials ran at a fraction of the L2's rate; PERF.md).
+// 16 heads' partials ran at a fraction of the L2's rate; PERF.md), as four
+// where N is 16 (the tensor-core body at D = 512).
 template <int N>
 __device__ __forceinline__ void ldcg_vec(const float* p, float (&x)[N]) {
-  if constexpr (N == 8) {
+  if constexpr (N == 16) {               // the tensor-core body at D = 512
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 u = __ldcg(reinterpret_cast<const float4*>(p) + i);
+      x[4 * i] = u.x; x[4 * i + 1] = u.y; x[4 * i + 2] = u.z;
+      x[4 * i + 3] = u.w;
+    }
+  } else if constexpr (N == 8) {
     const float4 u = __ldcg(reinterpret_cast<const float4*>(p));
     const float4 v = __ldcg(reinterpret_cast<const float4*>(p) + 1);
     x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
@@ -640,11 +680,16 @@ __device__ __forceinline__ void ldcg_vec(const float* p, float (&x)[N]) {
   }
 }
 
-// x to p[0, N): two 16-byte stores where N is 8 (the partials at D = 256,
-// as `ldcg_vec` reads them), else one a float.
+// x to p[0, N): 16-byte stores where N is 8 or 16 (the partials at D =
+// 256 and 512, as `ldcg_vec` reads them), else one a float.
 template <int N>
 __device__ __forceinline__ void st_vec(float* p, const float (&x)[N]) {
-  if constexpr (N == 8) {
+  if constexpr (N == 16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      reinterpret_cast<float4*>(p)[i] =
+          make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+  } else if constexpr (N == 8) {
     reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
     reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
   } else {
@@ -675,6 +720,10 @@ __device__ __forceinline__ void locate(const long long* P, int B, int hg,
 // Columns a block of the wide body (D > 256) owns, and the width of each of
 // its K pieces.
 constexpr int WIDE_DC = 256;
+// The widest head the tensor-core body takes whole, a block over all its
+// columns (16-bit caches under a q of their type above WIDE_DC: the note at
+// the top); wider heads take the wide body's chunks.
+constexpr int MMA_WIDE = 512;
 
 // Elements of a row in one TMA box: at most 128 bytes.
 template <typename E, int D>
@@ -682,9 +731,10 @@ __host__ __device__ constexpr int box_cols() {
   return D * (int)sizeof(E) > 128 ? 128 / (int)sizeof(E) : D;
 }
 
-// Q K^T and P V on the tensor cores (TMA bodies at D = Dp of 64 to 256, not
-// the wide body): bf16 or f16 caches with q of their type, and fp8 caches
-// with q as q_as<M>, M 16-bit (a bf16 q: bf16 products; f16 and fp8 q: f16
+// Q K^T and P V on the tensor cores (TMA bodies at D = Dp of 64 to 256, and
+// at 512 for 16-bit caches under q of their type; not the wide body): bf16
+// or f16 caches with q of their type, and fp8 caches with q as q_as<M>, M
+// 16-bit (a bf16 q: bf16 products; f16 and fp8 q: f16
 // products). TMA lays the boxes out under the swizzle of their row (128
 // bytes; fp8 at D = 64, 64 bytes) so that ldmatrix reads 8 rows without
 // bank conflicts. Other inputs take fp32 FMAs. (`products`: the host's rule.)
@@ -785,6 +835,13 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[4],
       : "r"(smem_u32(p)));
 }
 
+// The first two of r (lanes 0-15 give the addresses).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -834,6 +891,9 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   constexpr bool F8 = std::is_same_v<E, fp8_any>;
   using M = std::conditional_t<F8, typename QType<EQ>::mma, E>;  // TC's type
   static_assert(HX == 1 || (TC && HX == 2), "two heads a warp: mma only");
+  // q staged in the set's tacc and read by ldmatrix (HX 2, and the whole
+  // head above WIDE_DC), else held as B fragments in registers
+  constexpr bool QS = TC && (HX == 2 || D > WIDE_DC);
   constexpr int HS = GC * HX;                // query heads a segment serves
   constexpr int ROWB = IN * ITEM;            // bytes of a box's row
   const int Dh = EXACT ? D : a.dh;           // columns of q and out
@@ -1087,7 +1147,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   const int d0 = lane * EPL;
   // a warp's query heads: hw of the segment's group and, at HX 2, hw + GC
   float m[HX], l[HX], acc[HX][EPL], qr[EPL];
-  uint32_t qb[TC && HX == 1 ? D / 16 : 1][2];  // Q as mma B fragments (TC)
+  uint32_t qb[TC && !QS ? D / 16 : 1][2];   // Q as mma B fragments (TC)
   constexpr int NCOL = D / GC;               // P V columns a warp (TC)
   // fp8: a warp's columns are whole 16-byte rows of ldmatrix, so at D = 64
   // the first 4 warps take 16 columns each
@@ -1103,7 +1163,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   int hoff = 0;
   auto kv_row = [&](int r) { return HEADS ? r * a.box_heads + hoff : r; };
   const bool vrow = !HEADS || a.dh % EPL == 0;
-  // HX 2: the segment's q in M, [HS][D + QPAD], in the set's tacc
+  // QS: the segment's q in M, [HS][D + QPAD], in the set's tacc
   const M* const q16 = reinterpret_cast<const M*>(tacc + set * HS * D);
 
   // set 1's (m, l, acc) of query head qh (this warp's) into set 0's, through
@@ -1232,10 +1292,10 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
 #pragma unroll
         for (int e = 0; e < EPL; ++e) as[e] = 0.f;
         if (qh < gn) {
-          // partials a batch: at HX 1 4 (8 or 16 spill at D = 256); at HX 2
-          // (a warp's one head over all of a group's 8 or of the groups)
-          // 32 columns' worth, 4 to 8
-          constexpr int NB = HX == 2 ? (EPL >= 8 ? 4 : 8) : 4;
+          // partials a batch: at HX 1 4 (8 or 16 spill at D = 256), 2 at D
+          // = 512; at HX 2 (a warp's one head over all of a group's 8 or of
+          // the groups) 32 columns' worth, 4 to 8
+          constexpr int NB = HX == 2 ? (EPL >= 8 ? 4 : 8) : EPL > 8 ? 2 : 4;
           float xp[NB][EPL];                 // NB partials' columns
           auto load_batch = [&](int p0) {
 #pragma unroll
@@ -1308,10 +1368,11 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     long long m_lo = base;                   // the pieces the last one merges
     int m_n = count, m_st = 1;
     int last = 0;
-    if constexpr (HX == 2) {
-      // 16 heads a partial: a segment's blocks in groups of MERGE_GROUP, the
-      // last of a group merging its pieces into the group's first, the last
-      // group's merger the groups' into out (the note at the top)
+    if constexpr (HX == 2 || D > WIDE_DC) {
+      // 16 heads a partial, or D columns above WIDE_DC: a segment's blocks
+      // in groups of MERGE_GROUP, the last of a group merging its pieces
+      // into the group's first, the last group's merger the groups' into
+      // out (the note at the top)
       if (count > MERGE_GROUP) {
         const int grp = (int)(blockIdx.x - first) / MERGE_GROUP;
         const int gsize = min(MERGE_GROUP, count - grp * MERGE_GROUP);
@@ -1353,7 +1414,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       // heads past gn as zeros, staged in fp32 in the set's tacc by all its
       // threads, EPL loads in flight each, for the fragments below
       float* const qs = tacc + set * HS * D;
-      if constexpr (TC && QType<EQ>::runtime && HX == 1) {
+      if constexpr (TC && QType<EQ>::runtime && !QS) {
         long long qi[EPL];
         bool ok[EPL];
         float qv[EPL];
@@ -1368,7 +1429,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         for (int e = 0; e < EPL; ++e) qs[hw * 32 + lane + e * GC * 32] = qv[e];
         set_sync(set);
       }
-      if constexpr (TC && HX == 2) {
+      if constexpr (QS) {
         // the group's HS queries in M, [HS][D + QPAD], warp w of the set
         // its heads w and w + GC, a lane EPL columns of each, columns past
         // Dh and heads past gn as zeros; for fp8 caches in their k order
@@ -1408,7 +1469,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         }
         set_sync(set);
       }
-      if constexpr (TC && HX == 1) if (hw < 2) {  // B fragments: the queries
+      if constexpr (TC && !QS) if (hw < 2) {  // B fragments: the queries
         const int gq = lane >> 2, tq = lane & 3;
         const long long qg = q_at(b, h, g0, gq);
         auto pair = [&](int c) -> uint32_t {   // columns c, c + 1, in M
@@ -1437,7 +1498,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
           qb[kk][1] = pair(k0 + (F8 ? 2 : 8));
         }
       }
-      if constexpr (TC && QType<EQ>::runtime && HX == 1)
+      if constexpr (TC && QType<EQ>::runtime && !QS)
         set_sync(set);                       // qs is free
       // the warp's query, a lane's part (the wide body's: by piece, below)
       if (!WIDE && hw < gn && d0 < D) {
@@ -1465,8 +1526,10 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       for (int x = 0; x < HX; ++x) {
         m[x] = NEG_INF;
         l[x] = 0.f;
+        if constexpr (!TC || D <= WIDE_DC) {   // (above: `finish` sets it)
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[x][e] = 0.f;
+          for (int e = 0; e < EPL; ++e) acc[x][e] = 0.f;
+        }
       }
 #pragma unroll
       for (int nt = 0; nt < NTW; ++nt)
@@ -1486,14 +1549,19 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         const int row = min(hw * 16 + (mi & 1) * 8 + ri, a.rows - 1);
         float c[HX][4] = {};
         // the B fragments of k-step kk, an n-tile of 8 query heads each:
-        // HX 1 from q's registers; HX 2 from the staged q by one ldmatrix,
+        // from q's registers, or (QS) from the staged q by one ldmatrix,
         // lane l giving row l % 8 of matrix l / 8: heads 0-7 at the
-        // k-step's columns 0-7 and 8-15, then heads 8-15 at the same
-        const int qrow = (mi >> 1) * 8 + ri;   // HX 2: its head in the group
+        // k-step's columns 0-7 and 8-15, then (HX 2) heads 8-15 at the same
+        const int qrow = (mi >> 1) * 8 + ri;   // QS: its head in the group
         auto qfrag = [&](int kk, uint32_t (&bq)[HX][2]) {
-          if constexpr (HX == 1) {
+          if constexpr (!QS) {
             bq[0][0] = qb[kk][0];
             bq[0][1] = qb[kk][1];
+          } else if constexpr (HX == 1) {
+            uint32_t r[4];
+            ldmatrix_x2(r, q16 + qrow * (D + QPAD) + kk * 16 + (mi & 1) * 8);
+            bq[0][0] = r[0];
+            bq[0][1] = r[1];
           } else {
             uint32_t r[4];
             ldmatrix_x4(r, q16 + qrow * (D + QPAD) + kk * 16 + (mi & 1) * 8);
@@ -1527,6 +1595,22 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
                 mma_16816<M>(c[x], af, bq[x][0], bq[x][1]);
             }
           }
+        } else if constexpr (D > WIDE_DC) {
+          // the whole head (HX 1): the even k-steps and the odd ones in two
+          // chains of mma, added at the end
+          float c2[4] = {};
+#pragma unroll
+          for (int kk = 0; kk < D / 16; kk += 2) {
+            uint32_t af[4], af2[4], bq[HX][2], bq2[HX][2];
+            ldmatrix_x4(af, at(slot, row, kk * 16 + (mi >> 1) * 8));
+            ldmatrix_x4(af2, at(slot, row, kk * 16 + 16 + (mi >> 1) * 8));
+            qfrag(kk, bq);
+            qfrag(kk + 1, bq2);
+            mma_16816<E>(c[0], af, bq[0][0], bq[0][1]);
+            mma_16816<E>(c2, af2, bq2[0][0], bq2[0][1]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) c[0][i] += c2[i];
         } else {
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk) {
@@ -1745,23 +1829,39 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
         } else {
           // B = V [rows][columns] by ldmatrix.trans: rows 8 (mi & 1) + ri of
           // the k-step, columns 8 (mi >> 1) of the warp's
-          const E* vp =
-              at(slot + half_bytes, row, hw * NCOL + (mi >> 1) * 8);
-          uint32_t bv[NTW > 2 ? 2 * NTW : 4];
-          if constexpr (NTW == 4) {            // D = 256: columns +0 and +16
-            ldmatrix_x4_trans(*reinterpret_cast<uint32_t(*)[4]>(&bv[0]), vp);
-            ldmatrix_x4_trans(*reinterpret_cast<uint32_t(*)[4]>(&bv[4]),
-                              at(slot + half_bytes, row,
-                                 hw * NCOL + 16 + (mi >> 1) * 8));
-          } else if constexpr (NTW == 2) {
-            ldmatrix_x4_trans(bv, vp);
-          } else {
-            ldmatrix_x2_trans(bv, vp);
-          }
+          if constexpr (NTW > 4) {    // D = 512: 16 columns a load, each
+                                      // taken by its two n-tiles at once
 #pragma unroll
-          for (int nt = 0; nt < NTW; ++nt) {
-            mma_16816<E>(cacc[nt], ahi, bv[2 * nt], bv[2 * nt + 1]);
-            mma_16816<E>(cacc[nt], alo, bv[2 * nt], bv[2 * nt + 1]);
+            for (int i = 0; i < NTW / 2; ++i) {
+              uint32_t b4[4];
+              ldmatrix_x4_trans(b4, at(slot + half_bytes, row,
+                                       hw * NCOL + 16 * i + (mi >> 1) * 8));
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                mma_16816<E>(cacc[2 * i + h], ahi, b4[2 * h], b4[2 * h + 1]);
+                mma_16816<E>(cacc[2 * i + h], alo, b4[2 * h], b4[2 * h + 1]);
+              }
+            }
+          } else {
+            const E* vp =
+                at(slot + half_bytes, row, hw * NCOL + (mi >> 1) * 8);
+            uint32_t bv[NTW > 2 ? 2 * NTW : 4];
+            if constexpr (NTW == 4) {          // D = 256: columns +0 and +16
+              ldmatrix_x4_trans(*reinterpret_cast<uint32_t(*)[4]>(&bv[0]),
+                                vp);
+              ldmatrix_x4_trans(*reinterpret_cast<uint32_t(*)[4]>(&bv[4]),
+                                at(slot + half_bytes, row,
+                                   hw * NCOL + 16 + (mi >> 1) * 8));
+            } else if constexpr (NTW == 2) {
+              ldmatrix_x4_trans(bv, vp);
+            } else {
+              ldmatrix_x2_trans(bv, vp);
+            }
+#pragma unroll
+            for (int nt = 0; nt < NTW; ++nt) {
+              mma_16816<E>(cacc[nt], ahi, bv[2 * nt], bv[2 * nt + 1]);
+              mma_16816<E>(cacc[nt], alo, bv[2 * nt], bv[2 * nt + 1]);
+            }
           }
         }
       }
@@ -1870,6 +1970,12 @@ template <typename E, typename EQ>
 cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
                          bool tma) {
   constexpr bool kSame = std::is_same_v<E, EQ>;
+  if constexpr (kSame && sizeof(E) == 2) {
+    if (Dp > WIDE_DC && Dp <= MMA_WIDE && tma) {   // the whole head a block
+      a.npk = 1;
+      return launch<E, EQ, MMA_WIDE, false, true, false>(a, blocks, s);
+    }
+  }
   if (Dp > WIDE_DC) {
     a.npk = Dp / WIDE_DC;
     return tma ? launch<E, EQ, WIDE_DC, false, true, true>(a, blocks, s)
@@ -2023,19 +2129,31 @@ int copy_width(int dtype, int D, const long long* cs, unsigned long long addr) {
 
 // Where a launch's products run (dtype the caches', q_dtype q's; G query
 // heads a KV head, Hkv KV heads): 1 on the tensor cores, 0 on fp32 FMAs.
-// The TMA body at Dp 64 to 256 (not the wide body) with 16-bit caches and
-// q of their type (segments of one KV head: `kv_run` 1), or fp8 caches and
-// a q of 16 bits or fp8 (read in its own type; an fp32 q stays on FMAs).
+// The TMA body with 16-bit caches and q of their type at Dp 64 to 256 and
+// at 512 (the whole head a block, 256 < D <= 512; segments of one KV head:
+// `kv_run` 1), or fp8 caches and a q of 16 bits or fp8 at Dp 64 to 256
+// (read in its own type; an fp32 q stays on FMAs); not the wide body.
 int products(int dtype, int q_dtype, int D, int G, int Hkv) {
   const int Dp = padded(D);
-  if (!float_type(dtype) || !tma_rows(dtype, D) || Dp < 64 || Dp > WIDE_DC)
-    return 0;
+  if (!float_type(dtype) || !tma_rows(dtype, D) || Dp < 64) return 0;
   if (dtype == DTYPE_BF16 || dtype == DTYPE_F16)
-    return q_dtype == dtype && kv_run(dtype, q_dtype, D, G, Hkv) == 1;
+    return q_dtype == dtype && Dp <= MMA_WIDE &&
+           kv_run(dtype, q_dtype, D, G, Hkv) == 1;
+  if (Dp > WIDE_DC) return 0;
   if (fp8_type(dtype))
     return q_dtype == DTYPE_BF16 || q_dtype == DTYPE_F16 ||
            fp8_type(q_dtype);
   return 0;
+}
+
+// The wide body's chunks of WIDE_DC output columns, each its own blocks over
+// every valid row (the grid's second dimension): Dp / WIDE_DC above WIDE_DC
+// where the products run on FMAs, else 1 (the tensor-core body at Dp 512
+// takes the whole head a block).
+int wide_chunks(int dtype, int q_dtype, int D, int G, int Hkv) {
+  const int Dp = padded(D);
+  return Dp > WIDE_DC && !products(dtype, q_dtype, D, G, Hkv) ? Dp / WIDE_DC
+                                                               : 1;
 }
 
 // Query heads a segment of one KV head serves: 2 GC where a KV head has more
@@ -2047,13 +2165,15 @@ int group_heads(int dtype, int q_dtype, int D, int G, int Hkv) {
              : GC;
 }
 
-// The ring of a launch for caches of type E (any EQ: it does not enter),
-// slot rows of `heads` KV heads (unpadded where `unpadded`: rows of no whole
-// 16-byte pieces, or more than one head), `hx` query heads a warp.
+// The ring of a launch for caches of type E (EQ does not enter), slot rows
+// of `heads` KV heads (unpadded where `unpadded`: rows of no whole 16-byte
+// pieces, or more than one head), `hx` query heads a warp; `whole`: the
+// tensor-core body above WIDE_DC (`wide_chunks` 1).
 template <typename E>
 int ring_for(int B, int D, int rows, int heads, int hx, bool unpadded,
-             int* smem) {
+             bool whole, int* smem) {
   const int Dp = padded(D);
+  if (Dp > WIDE_DC && whole) return ring_slots<E, MMA_WIDE>(B, rows, 1, smem);
   if (hx == 2)
     return Dp == 256 ? ring_slots<E, 256, false, false, 2>(B, rows, 1, smem)
                      : -1;
@@ -2121,6 +2241,14 @@ extern "C" int paged_attention_heads(int dtype, int q_dtype, int D, int Hq,
   return kv_run(dtype, q_dtype, D, Hkv > 0 ? Hq / Hkv : 0, Hkv);
 }
 
+// The chunks of WIDE_DC output columns of a launch at (dtype, q_dtype, D,
+// Hq, Hkv), each its own blocks (`wide_chunks`; the wrapper's plan states
+// the same rule: `paged_plan`'s chunks).
+extern "C" int paged_attention_chunks(int dtype, int q_dtype, int D, int Hq,
+                                      int Hkv) {
+  return wide_chunks(dtype, q_dtype, D, Hkv > 0 ? Hq / Hkv : 0, Hkv);
+}
+
 // The query heads a segment of one KV head serves in a launch at (dtype,
 // q_dtype, D, Hq, Hkv) (`group_heads`; the wrapper's `query_heads` states
 // the same rule): ngc = ceil(Hq / Hkv / it).
@@ -2138,10 +2266,10 @@ extern "C" int paged_attention_group(int dtype, int q_dtype, int D, int Hq,
 // is dtype, or beside 16-bit and fp8 caches any of f32, bf16, f16, e4m3fn,
 // e5m2 (read and written in its own type; `products` says where the
 // products run; the wrapper widens any other q to fp32). part: chunks x
-// (blocks + segments) x HS x (min(Dp, 256) + 2) floats, HS the query heads
+// (blocks + segments) x HS x (Dp / chunks + 2) floats, HS the query heads
 // a segment serves (`paged_attention_group`); tickets: chunks x segments
-// x (1 + ceil(blocks / 8)) ints, zero; chunks = Dp / 256 above 256, else
-// 1. blocks (a chunk), rows, ngc (ceil(Hq / Hkv / HS), or the launch
+// x (1 + ceil(blocks / 8)) ints, zero; chunks: `paged_attention_chunks`
+// (Dp / 256 in the wide body, else 1). blocks (a chunk), rows, ngc (ceil(Hq / Hkv / HS), or the launch
 // refuses it): `paged_plan` of paged_attention.py; the launch sizes the
 // ring itself (`paged_attention_ring`). strides: {q_sb, q_sh, k_sb,
 // k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh} in elements. The scale is
@@ -2225,25 +2353,30 @@ extern "C" int paged_attention_launch(
 }
 
 // The ring a block of the launch takes for B sequences, head size D (any
-// D >= 1: the ring is Dp's, or the wide body's), `rows` rows an aload,
+// D >= 1: the ring is Dp's, or the wide body's; q_dtype q's type as the
+// kernel reads it, which decides between them above 256), `rows` rows an
+// aload,
 // slot rows of `heads` KV heads (those of a TMA box, `paged_attention_run`,
 // where it is not 0, else of a segment, `paged_attention_heads`) and `group`
 // query heads a segment of one (`paged_attention_group`): its slots (0 where none fits, -1 for a head
 // size or type the kernel does not take) and, in *smem, its shared-memory
 // bytes.
 extern "C" int paged_attention_ring(int B, int D, int rows, int dtype,
-                                    int heads, int group, int* smem) {
+                                    int q_dtype, int heads, int group,
+                                    int* smem) {
   const int hx = group / GC;
   if ((hx != 1 && hx != 2) || (hx == 2 && (heads > 1 || dtype == DTYPE_F32)))
     return -1;
   if (!float_type(dtype) || padded(D) == 0) return -1;
   const bool unpadded =
       padded(D) <= WIDE_DC && (heads > 1 || !tma_rows(dtype, D));
+  const bool whole = wide_chunks(dtype, q_dtype, D, GC, 1) == 1;
   if (dtype == DTYPE_F32)
-    return ring_for<float>(B, D, rows, heads, 1, unpadded, smem);
+    return ring_for<float>(B, D, rows, heads, 1, unpadded, whole, smem);
   if (dtype == DTYPE_BF16)
-    return ring_for<__nv_bfloat16>(B, D, rows, heads, hx, unpadded, smem);
+    return ring_for<__nv_bfloat16>(B, D, rows, heads, hx, unpadded, whole,
+                                   smem);
   if (dtype == DTYPE_F16)
-    return ring_for<__half>(B, D, rows, heads, hx, unpadded, smem);
-  return ring_for<fp8_any>(B, D, rows, heads, hx, unpadded, smem);
+    return ring_for<__half>(B, D, rows, heads, hx, unpadded, whole, smem);
+  return ring_for<fp8_any>(B, D, rows, heads, hx, unpadded, whole, smem);
 }

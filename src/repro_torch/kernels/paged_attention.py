@@ -35,6 +35,10 @@ CHUNK_ROWS = 32         # most rows one aload fetches (a lane a row)
 SLOT_BYTES = 65536
 # the most bytes of a slot whose rows hold several KV heads (`kv_heads`)
 HEADS_SLOT_BYTES = 65536
+# the widest head the tensor-core body takes whole, a block over all its
+# columns (csrc's MMA_WIDE; `products_on`): 16-bit caches under a q of their
+# type up to here run no chunks
+MMA_WIDE = 512
 
 launches = 0            # +1 for every launch of the CUDA kernel, nowhere else
 
@@ -46,7 +50,8 @@ class PagedPlan(NamedTuple):
     segments: int       # (b, kv head, group of `group` query heads)
                         # triples, or (b, run of `heads` KV heads) pairs
     ngc: int            # groups of `group` query heads a KV head
-    chunks: int = 1     # CHUNK_DIM-column chunks of the output a head
+    chunks: int = 1     # CHUNK_DIM-column chunks of the output a head (the
+                        # wide body; 1 on the tensor cores: `products`)
     heads: int = 1      # KV heads a segment (`kv_heads`)
     group: int = GC     # query heads a group (`query_heads`): GC or 2 GC
     box_heads: int = 1  # KV heads a slot row holds (`run_heads`, else heads)
@@ -55,14 +60,17 @@ class PagedPlan(NamedTuple):
 def paged_plan(B: int, Hq: int, Hkv: int, T: int, page: int, sms: int,
                head_dim: int = 0, itemsize: int = 2,
                heads: int = 1, group: int = GC,
-               box_heads: int = 0) -> PagedPlan:
+               box_heads: int = 0, products: str = "fma") -> PagedPlan:
     """The launch for a cache of B x T rows a KV head on a card of `sms`
     SMs, from the shapes only: one block an SM (its ring takes the SM's
     shared memory), no more blocks than the cache has aloads' worth of rows;
-    an aload fetches at most `page` rows. Above CHUNK_DIM columns the head
-    is split into `chunks` of CHUNK_DIM output columns, each its own set of
-    blocks (the SMs shared among them) over every valid row, and a row of a
-    slot holds all of K's columns and a chunk of V's: at most SLOT_BYTES of
+    an aload fetches at most `page` rows. Above CHUNK_DIM columns, where
+    the products run on FMAs (`products`, as `products_on` gives it), the
+    head is split into `chunks` of CHUNK_DIM output columns, each its own
+    set of blocks (the SMs shared among them) over every valid row, and a
+    row of a slot holds all of K's columns and a chunk of V's; on the
+    tensor cores (up to MMA_WIDE columns) a block takes the whole head and
+    a slot row all of K's and V's columns; either way at most SLOT_BYTES of
     them (`itemsize` the caches') an aload. A segment of `heads` KV heads
     (`kv_heads`; more than one only below GC query heads a KV head) takes
     a row of all of them an aload row, so an aload takes at most
@@ -75,10 +83,11 @@ def paged_plan(B: int, Hq: int, Hkv: int, T: int, page: int, sms: int,
     box_heads = box_heads or heads
     ngc = -(-(Hq // Hkv) // group)
     rows = max(1, min(page, CHUNK_ROWS, T))
-    chunks = -(-head_dim // CHUNK_DIM) if head_dim > CHUNK_DIM else 1
-    if chunks > 1:
-        rows = max(1, min(rows, SLOT_BYTES // ((chunks + 1) * CHUNK_DIM
-                                               * itemsize)))
+    wide = -(-head_dim // CHUNK_DIM)        # CHUNK_DIM-column pieces
+    chunks = wide if head_dim > CHUNK_DIM and products != "mma" else 1
+    if head_dim > CHUNK_DIM:
+        cols = (chunks + 1 if chunks > 1 else 2 * wide) * CHUNK_DIM
+        rows = max(1, min(rows, SLOT_BYTES // (cols * itemsize)))
     unpadded = head_dim * itemsize % 16 != 0 and head_dim <= CHUNK_DIM
     if box_heads > 1 or unpadded:
         rows = max(1, min(rows, HEADS_SLOT_BYTES // (2 * box_heads * head_dim
@@ -150,7 +159,9 @@ def body_for(dtype: torch.dtype, head_dim: int) -> str:
     (type, head size) that `paged_attention_launch` in
     csrc/paged_attention.cu applies, for the body built at Dp =
     `padded_head_dim` (columns past `head_dim` zero and never stored; above
-    256 the wide body, a chunk of 256 output columns a block): "tma" (the
+    256 the whole head a block on the tensor cores up to MMA_WIDE, else the
+    wide body, a chunk of 256 output columns a block: `products_on`,
+    `paged_plan`'s chunks): "tma" (the
     TMA page ring; where its products run: `products_on`) where a row of
     `head_dim` elements is a whole number of 16-byte pieces (float8: D %
     16 == 0), "element" (rows of no whole pieces: unpadded slots, loaded
@@ -296,10 +307,12 @@ def products_on(q_dtype: torch.dtype, cache_dtype: torch.dtype,
     """Where a launch's two products run, the rule `products` of
     csrc/paged_attention.cu applies (`paged_attention_products`) to the
     types `kernel_types` gives: "mma" (mma.sync on the tensor cores) on the
-    TMA ring at a padded head size of 64 to 256, with 16-bit caches under a
-    q of their type in segments of one KV head (`kv_heads` 1: hq / hkv, GC
-    by default, at least GC or not dividing it), or float8 caches under a q
-    of 16 bits or float8 (K and V converted to f16, or to bf16 under a bf16
+    TMA ring, with 16-bit caches under a q of their type at a padded head
+    size of 64 to 256 or of MMA_WIDE (256 < D <= 512: a block over the
+    whole head, `paged_plan`'s chunks 1) in segments of one KV head
+    (`kv_heads` 1: hq / hkv, GC by default, at least GC or not dividing
+    it), or float8 caches under a q of 16 bits or float8 at a padded head
+    size of 64 to 256 (K and V converted to f16, or to bf16 under a bf16
     q, in registers); "fma" (fp32 FMAs: a lane on D / 32 columns of every
     row of the chunk) elsewhere."""
     body = body_for(cache_dtype, head_dim)
@@ -307,12 +320,13 @@ def products_on(q_dtype: torch.dtype, cache_dtype: torch.dtype,
     heads = kv_heads(q_dtype, cache_dtype, head_dim, hq, hkv)
     q_dtype, cache_dtype = kernel_types(q_dtype, cache_dtype)
     dp = padded_head_dim("paged_attention", head_dim)
-    if body != "tma" or not 64 <= dp <= CHUNK_DIM:
+    if body != "tma" or dp < 64:
         return "fma"
-    if cache_dtype in ref.FP8_TYPES:
-        return "mma" if q_dtype != torch.float32 else "fma"
     if cache_dtype in (torch.bfloat16, torch.float16):
-        return "mma" if q_dtype == cache_dtype and heads == 1 else "fma"
+        return ("mma" if q_dtype == cache_dtype and heads == 1
+                and dp <= MMA_WIDE else "fma")
+    if cache_dtype in ref.FP8_TYPES and dp <= CHUNK_DIM:
+        return "mma" if q_dtype != torch.float32 else "fma"
     return "fma"
 
 
@@ -324,11 +338,11 @@ def _bind():
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_longlong), i, i, p]
         fn.restype = ctypes.c_int
-        lib.paged_attention_ring.argtypes = [i, i, i, i, i, i,
+        lib.paged_attention_ring.argtypes = [i, i, i, i, i, i, i,
                                              ctypes.POINTER(ctypes.c_int)]
         lib.paged_attention_ring.restype = ctypes.c_int
         for rule in (lib.paged_attention_products, lib.paged_attention_heads,
-                     lib.paged_attention_group):
+                     lib.paged_attention_group, lib.paged_attention_chunks):
             rule.argtypes = [i, i, i, i, i]
             rule.restype = ctypes.c_int
         lib.paged_attention_run.argtypes = [
@@ -343,12 +357,13 @@ def _sms(device: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
-def _ring(B: int, D: int, rows: int, dtype: torch.dtype,
+def _ring(B: int, D: int, rows: int, dtype: torch.dtype, q_dtype: torch.dtype,
           heads: int = 1, group: int = GC) -> Tuple[int, int]:
     lib, _ = _bind()
     smem = ctypes.c_int(0)
     slots = lib.paged_attention_ring(B, D, rows, _build.DTYPE_CODES[dtype],
-                                     heads, group, ctypes.byref(smem))
+                                     _build.DTYPE_CODES[q_dtype], heads,
+                                     group, ctypes.byref(smem))
     if slots <= 0:
         raise ValueError(f"paged_attention: no ring for a batch of {B} at "
                          f"head size {D} fits in shared memory")
@@ -361,8 +376,10 @@ def _card_plan(device: int, B: int, Hq: int, Hkv: int, T: int, D: int,
                box: int = 0) -> PagedPlan:
     heads = kv_heads(q_dtype, dtype, D, Hq, Hkv)
     plan = paged_plan(B, Hq, Hkv, T, page, _sms(device), D, dtype.itemsize,
-                      heads, query_heads(q_dtype, dtype, D, Hq, Hkv), box)
-    _ring(B, D, plan.rows, dtype, plan.box_heads, plan.group)  # as launch
+                      heads, query_heads(q_dtype, dtype, D, Hq, Hkv), box,
+                      products_on(q_dtype, dtype, D, Hq, Hkv))
+    _ring(B, D, plan.rows, dtype, kernel_types(q_dtype, dtype)[0],
+          plan.box_heads, plan.group)                            # as launch
     return plan
 
 
@@ -387,7 +404,8 @@ def ring(q: torch.Tensor, k_cache: torch.Tensor, page: int = 512,
     of at most 8 slots that fits one block an SM."""
     plan = launch_plan(q, k_cache, page, v_cache)
     return _ring(q.shape[0], q.shape[2], plan.rows, k_cache.dtype,
-                 plan.box_heads, plan.group)
+                 kernel_types(q.dtype, k_cache.dtype)[0], plan.box_heads,
+                 plan.group)
 
 
 # Partials and tickets, allocated once per (device, stream) and grown: the
@@ -506,7 +524,7 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         out.stride(0), out.stride(1))
-    width = min(padded_head_dim("paged_attention", D), CHUNK_DIM)
+    width = padded_head_dim("paged_attention", D) // plan.chunks
     lib, fn = _bind()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

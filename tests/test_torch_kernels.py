@@ -236,10 +236,11 @@ _RULE_TYPES = (torch.float32, torch.bfloat16, torch.float16,
 @pytest.mark.parametrize("cache_dtype", _RULE_TYPES)
 def test_paged_products_rule(q_dtype, cache_dtype):
     """Where paged's two products run, at every head size 1-600: on the
-    tensor cores ("mma") on the TMA ring (rows of whole 16-byte pieces) at
-    a padded head size of 64 to 256, with 16-bit caches under a q of their
-    type and float8 caches under a 16-bit or float8 q (read in its own
-    type); fp32 FMAs ("fma") elsewhere, integer caches and any q beside
+    tensor cores ("mma") on the TMA ring (rows of whole 16-byte pieces),
+    with 16-bit caches under a q of their type at a padded head size of 64
+    to 256 and of 512 (256 < D <= 512: the whole head a block) and float8
+    caches under a 16-bit or float8 q (read in its own type) at 64 to 256;
+    fp32 FMAs ("fma") elsewhere, integer caches and any q beside
     them on float32 copies. q is read in its own type beside 16-bit and
     float8 caches if it is a float type, beside float32 caches if it is
     float32, else widened to float32. `chip_smoke.py` holds the CUDA
@@ -254,26 +255,77 @@ def test_paged_products_rule(q_dtype, cache_dtype):
     for d in range(1, 601):
         dp = tflash.padded_head_dim("paged_attention", d)
         tma = d * cache.itemsize % 16 == 0
-        mma = tma and 64 <= dp <= 256 and (
-            (cache in (torch.bfloat16, torch.float16) and q == cache)
-            or (cache in fp8 and q != torch.float32))
+        mma = tma and dp >= 64 and (
+            (cache in (torch.bfloat16, torch.float16) and q == cache
+             and dp <= 512)
+            or (cache in fp8 and q != torch.float32 and dp <= 256))
         assert tpaged.products_on(q_dtype, cache_dtype, d) == \
             ("mma" if mma else "fma"), d
 
 
 @pytest.mark.parametrize("d,itemsize,rows,chunks", [
-    (128, 2, 32, 1), (256, 4, 32, 1), (257, 2, 32, 2), (512, 2, 32, 2),
-    (1024, 4, 12, 4), (2048, 2, 14, 8), (2048, 4, 7, 8)])
+    (128, 2, 32, 1), (256, 4, 32, 1), (257, 2, 32, 2), (512, 2, 32, 1),
+    (1024, 4, 12, 4), (2048, 2, 14, 8), (2048, 4, 7, 8), (264, 2, 32, 1),
+    (300, 4, 21, 2), (512, 4, 21, 2), (520, 2, 32, 3), (1024, 2, 25, 4)])
 def test_paged_plan_above_256_columns(d, itemsize, rows, chunks):
-    """Above 256 columns the head is split into chunks of 256 output
+    """Above 256 columns, on FMAs (fp32 caches, 16-bit rows of no whole
+    16-byte pieces, D > 512), the head is split into chunks of 256 output
     columns, each with its own blocks (the SMs shared among them), and a
     slot row holds all of K's columns and a chunk of V's, so an aload takes
-    fewer rows: at most SLOT_BYTES of them."""
-    plan = tpaged.paged_plan(4, 16, 2, 1032, 512, 132, d, itemsize)
+    fewer rows: at most SLOT_BYTES of them. 16-bit rows of whole pieces up
+    to 512 columns (bf16 here, q of its type) run on the tensor cores, a
+    block over the whole head: one chunk, a slot row all of K's and V's
+    512 columns, 32 rows."""
+    dtype = {2: torch.bfloat16, 4: torch.float32}[itemsize]
+    products = tpaged.products_on(dtype, dtype, d, 16, 2)
+    if d > 256:
+        assert (products == "mma") == (itemsize == 2 and d <= 512
+                                       and d % 8 == 0)
+    plan = tpaged.paged_plan(4, 16, 2, 1032, 512, 132, d, itemsize,
+                             products=products)
     assert (plan.rows, plan.chunks) == (rows, chunks)
     assert plan.blocks <= 132 // chunks
     if chunks > 1:
         assert plan.rows * (chunks + 1) * 256 * itemsize <= tpaged.SLOT_BYTES
+    else:
+        dp = tflash.padded_head_dim("paged_attention", d)
+        assert plan.rows * 2 * dp * itemsize <= tpaged.SLOT_BYTES
+
+
+@pytest.mark.parametrize("q_dtype,cache_dtype,d,hq,hkv,want", [
+    (torch.bfloat16, torch.bfloat16, 512, 16, 2, "mma"),
+    (torch.float16, torch.float16, 512, 16, 2, "mma"),
+    (torch.bfloat16, torch.bfloat16, 264, 16, 2, "mma"),
+    (torch.float16, torch.float16, 504, 16, 1, "mma"),
+    (torch.bfloat16, torch.bfloat16, 384, 4, 4, "mma"),
+    (torch.bfloat16, torch.bfloat16, 304, 32, 2, "mma"),
+    (torch.bfloat16, torch.bfloat16, 520, 16, 2, "fma"),
+    (torch.bfloat16, torch.bfloat16, 1024, 16, 2, "fma"),
+    (torch.bfloat16, torch.bfloat16, 257, 16, 2, "fma"),
+    (torch.float16, torch.float16, 500, 16, 2, "fma"),
+    (torch.float32, torch.float32, 512, 16, 2, "fma"),
+    (torch.float8_e4m3fn, torch.float8_e4m3fn, 512, 16, 2, "fma"),
+    (torch.bfloat16, torch.float8_e5m2, 512, 16, 2, "fma"),
+    (torch.float32, torch.bfloat16, 512, 16, 2, "fma"),
+    (torch.float16, torch.bfloat16, 512, 16, 2, "fma"),
+    (torch.int8, torch.int8, 512, 16, 2, "fma")])
+def test_paged_whole_head_on_the_tensor_cores(q_dtype, cache_dtype, d, hq,
+                                              hkv, want):
+    """Above 256 columns the tensor-core body takes the whole head a block
+    (one chunk, K read once) for bf16 and f16 caches under a q of their
+    type whose rows are whole 16-byte pieces, up to 512 columns; fp32 and
+    float8 caches, a q of another type, integers, rows of no whole pieces
+    (257, 500 in 16 bits) and heads above 512 keep the wide body on FMAs,
+    a chunk of 256 output columns a block. The plan follows the products:
+    `launch_plan`'s chunks are 1 exactly where they are "mma"."""
+    assert tpaged.products_on(q_dtype, cache_dtype, d, hq, hkv) == want
+    assert tpaged.kv_heads(q_dtype, cache_dtype, d, hq, hkv) == 1
+    assert tpaged.query_heads(q_dtype, cache_dtype, d, hq, hkv) == 8
+    _, kv = tpaged.kernel_types(q_dtype, cache_dtype)
+    plan = tpaged.paged_plan(4, hq, hkv, 1032, 512, 132, d, kv.itemsize,
+                             products=want)
+    assert plan.chunks == (1 if want == "mma" else -(-d // 256))
+    assert plan.segments == 4 * hkv * -(-(hq // hkv) // 8)
 
 
 @pytest.mark.parametrize("dtype,d,blocks", [
@@ -488,7 +540,9 @@ def test_paged_heads_and_products_rule(hq, hkv, dtype):
     and, where the head size is not the padded one, at G of 2 and 4, and
     so do rows of no whole 16-byte pieces in every type at every G
     dividing 8 up to a padded head size of 256;
-    elsewhere one, on mma.sync where `products` took it before; above 8
+    elsewhere one, on mma.sync where `products` took it before (16-bit
+    caches also at a padded head size of 512, the whole head a block, and
+    the wide body's FMAs above it); above 8
     query heads a KV head on mma.sync at a padded head size of 256 a
     segment serves 16 of them (`query_heads`), else 8. `chip_smoke.py`
     holds the CUDA source's rules (`paged_attention_heads`,
@@ -504,9 +558,11 @@ def test_paged_heads_and_products_rule(hq, hkv, dtype):
             heads = 8 // g
             while hkv % heads:
                 heads //= 2
-        mma = tma and 64 <= dp <= 256 and (
-            dtype in (torch.float8_e4m3fn, torch.float8_e5m2)
-            or (dtype != torch.float32 and heads == 1))
+        mma = tma and dp >= 64 and (
+            (dtype in (torch.float8_e4m3fn, torch.float8_e5m2)
+             and dp <= 256)
+            or (dtype in (torch.bfloat16, torch.float16) and heads == 1
+                and dp <= 512))
         assert tpaged.kv_heads(dtype, dtype, d, hq, hkv) == heads, d
         assert tpaged.products_on(dtype, dtype, d, hq, hkv) == (
             "mma" if mma else "fma"), d

@@ -389,19 +389,28 @@ def test_scatter_refuses_xor_on_a_float_and_64_bits(name):
 
 
 @pytest.mark.parametrize("name,d,word", [
-    ("int8", 64, True), ("float8_e4m3fn", 3, True), ("bfloat16", 3, True),
-    ("bfloat16", 4, False), ("int32", 2, False), ("uint16", 3, True)])
+    ("int8", 64, False), ("float8_e4m3fn", 3, True), ("bfloat16", 3, True),
+    ("bfloat16", 4, False), ("int32", 2, False), ("uint16", 3, True),
+    ("int8", 3, True), ("int8", 20, True), ("uint8", 32, False),
+    ("float8_e5m2", 48, False), ("int16", 64, True), ("uint16", 8, True)])
 def test_scatter_plan_takes_the_word_path(name, d, word):
     """8/16-bit integers, float8 and rows of no whole 4-byte words reduce an
-    aligned word a lane (chunk 1); their spans are a multiple of 16 updates
-    where a row is no whole words (16 such rows are whole 16-byte pieces),
-    else of 4."""
+    aligned word a lane (chunk 1), but the add by compare-and-swap (int8,
+    uint8, float8: `CAS_TYPES`) of rows of whole 16-byte units on a table
+    that starts on one takes a 16-byte unit a lane (chunk 16); their spans
+    are a multiple of 16 updates where a row is no whole words (16 such
+    rows are whole 16-byte pieces), else of 4."""
     dtype = getattr(torch, name)
     row = d * dtype.itemsize
-    plan = tscatter.scatter_plan(row, 1 << 24, 1 << 20, 256, 8, 16, 132,
-                                 lambda chunk, smem: 4,
-                                 dtype in tscatter.WORD_TYPES)
+    plan = tscatter.scatter_plan(row, 1 << 24, 1 << 20, 256, 8,
+                                 min(16, tscatter.REDUCE_WIDTH["add", dtype]),
+                                 132, lambda chunk, smem: 4,
+                                 dtype in tscatter.WORD_TYPES, None,
+                                 dtype in tscatter.CAS_TYPES)
     assert (plan.chunk == 1) == word
+    assert plan.chunk in (1, 4, 16)
+    if dtype in tscatter.CAS_TYPES:
+        assert plan.chunk == (16 if row % 16 == 0 else 1)
     unit = 4 if row % 4 == 0 else 16
     assert plan.span % unit == 0
     assert plan.lanes == 1 << (min(32, -(-row // max(plan.chunk, 4)))
