@@ -378,13 +378,16 @@ SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
 # true) and at D = 256, on wgmma
 # and with the producer warpgroup's register hand-over (setmaxnreg,
 # USETMAXREG in SASS); its fp8 bodies by TMA (F8 true, ELEM false, and E5
-# false or true) on the fp8 wgmma of their kind (QGMMA in SASS); paged's TMA
-# ring above 256 (the instantiations <E, EQ, 256, EXACT=false, TMA=true,
-# WIDE=true>), its segments of several KV heads (HEADS true, HX 1) on TMA,
-# its bodies of two query heads a warp (HX 2) on mma.sync, TMA and ldmatrix
-# (LDSM: q's fragments), its tensor-core body over the whole head above 256
-# columns (<E, E, 512, EXACT=false, TMA=true, WIDE=false>) on mma.sync, TMA
-# and ldmatrix (q staged in shared memory); the scatter's 16-bit integer add
+# false or true) on the fp8 wgmma of their kind (QGMMA in SASS); flash's
+# fma body in float32 (`flash_fma_kernel<float, D, EXACT>`) on cp.async
+# (LDGSTS) into its ring, mbarriers (SYNCS) and ex2.approx, without expf's
+# slow path; paged's wide body by TMA (`paged_wide_kernel<E, EQ, true>`) on
+# TMA and mbarriers, its segments of several KV heads (HEADS true, HX 1) on
+# TMA, its bodies of two query heads a warp (HX 2) on mma.sync, TMA and
+# ldmatrix (LDSM: q's fragments), its tensor-core body over the whole head
+# above 256 columns (<E, E, 512, EXACT=false, TMA=true, HEADS=false>) on
+# mma.sync, TMA and ldmatrix (q staged in shared memory); the scatter's
+# 16-bit integer add
 # (`scatter_apply_kernel<1, OP_ADD, uint16_t>`) on the returning add
 # (ATOMG.ADD) and the carry repair (RED), its 8-bit integer and fp8 adds
 # (uint8_t, __nv_fp8_e4m3 / e5m2), a word or (W 16) a 16-byte unit at a
@@ -396,6 +399,8 @@ SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
 SASS_WANT_IN = {"flash_attention": [
                     (("flash_mma_kernel", "Li16ELb0E"),
                      ("HMMA", "MUFU.EX2", "!FFMA.SAT")),
+                    (("flash_fma_kernelIfLi",),
+                     ("LDGSTS", "SYNCS", "MUFU.EX2", "!FFMA.SAT")),
                     (("flash_wgmma_pair_kernel",),
                      ("HGMMA", "UTMALDG", "USETMAXREG")),
                     (("flash_wgmma_kernel", "Lb1ELb0EEEv"),
@@ -406,8 +411,9 @@ SASS_WANT_IN = {"flash_attention": [
                      ("GMMA*E4M3", "HGMMA", "UTMALDG", "USETMAXREG")),
                     (("flash_wgmma_kernel", "Lb1ELb0ELb1EEEv"),
                      ("GMMA*E5M2", "HGMMA", "UTMALDG", "USETMAXREG"))],
-                "paged_attention": [(("Li256ELb0ELb1ELb1E",), ("UTMALDG",)),
-                                    (("Lb1ELb0ELb1ELi1EEEv",), ("UTMALDG",)),
+                "paged_attention": [(("paged_wide_kernel", "Lb1EEEv"),
+                                     ("UTMALDG", "SYNCS")),
+                                    (("Lb1ELb1ELi1EEEv",), ("UTMALDG",)),
                                     (("Lb0ELi2EEEv",),
                                      ("HMMA", "UTMALDG", "LDSM")),
                                     (("Li512ELb0ELb1ELb0E",),
@@ -681,6 +687,11 @@ def check_flash(gen):
 
 
 BODY_RULE_DIMS = list(range(0, 1101)) + [2048]
+# head sizes above 256 at which paged's products and chunks are held: every
+# one up to 2048 (one chunk), and chunks of 2048 above (the last one whole,
+# or of one to seven pieces)
+WIDE_RULE_DIMS = list(range(257, 2049)) + [2049, 2304, 2560, 4096, 4097,
+                                           4352, 6144, 8192]
 # (Hq, Hkv) at which paged's split and products rules are held: G of 1 to 32,
 # KV heads that 8 / G does not divide, and groups of 16 query heads that are
 # not whole or more than one
@@ -766,18 +777,20 @@ def check_body_rules():
                         f"paged heads, products and group for {dtype} Hq{hq} "
                         f"Hkv{hkv} D{d}: the source says {got}, the wrapper "
                         f"{want} ... FAIL")
-    # paged above 256 columns, at every D from 257 to 2048: where the
-    # products run and the chunks of 256 output columns (1: the tensor-core
-    # body over the whole head up to 512) by the source and by the wrapper's
+    # paged above 256 columns, at every D from 257 to 2048 and at
+    # WIDE_RULE_DIMS above: where the products run and the chunks of 2048
+    # output columns (1 up to 2048: a block over the whole head, on the
+    # tensor cores up to 512 for 16-bit rows of whole pieces under their own
+    # q, else in the wide body on FMAs) by the source and by the wrapper's
     # plan, whose rows the source's ring takes, under a q of the caches'
     # type and of another
-    wide = 0
+    wide = chunked = 0
     for dtype in (*types, *FP8):
         code = _build.DTYPE_CODES[dtype]
         for q_dtype in (dtype, torch.float32, torch.float16):
             qk = pa.kernel_types(q_dtype, dtype)[0]
             qcode = _build.DTYPE_CODES[qk]
-            for d in range(257, 2049):
+            for d in WIDE_RULE_DIMS:
                 got = (products[paged.paged_attention_products(
                            code, qcode, d, 16, 2)],
                        paged.paged_attention_chunks(code, qcode, d, 16, 2))
@@ -790,7 +803,12 @@ def check_body_rules():
                         f"D{d}: the source says {got}, the wrapper "
                         f"{(where, plan.chunks)} ... FAIL")
                 pa._ring(4, d, plan.rows, dtype, qk)   # raises where none
+                if plan.chunks != -(-d // 2048):
+                    raise AssertionError(
+                        f"paged above 256 columns for {dtype} q {q_dtype} "
+                        f"D{d}: {plan.chunks} chunks of 2048 columns ... FAIL")
                 wide += plan.chunks == 1
+                chunked += plan.chunks > 1
     # paged's KV heads a TMA box of rows of no whole 16-byte pieces, by the
     # caches' strides and alignment
     paged.paged_attention_run.argtypes = [
@@ -828,10 +846,12 @@ def check_body_rules():
         "of no whole 16-byte pieces in every type at G dividing 8: 8 / G "
         "heads a segment, on fma; G > 8 on mma: 16 query heads a segment); "
         "flash's blocks a query tile (one up to 512 in the wgmma body); "
-        "paged above 256 columns at every D 257-2048 under three q types: "
-        f"products and chunks agree, each plan's ring fits ({wide} launches "
-        "of one chunk: 16-bit rows of whole pieces up to 512 under their "
-        "own q, on mma); "
+        "paged above 256 columns at every D 257-2048 and at "
+        f"{WIDE_RULE_DIMS[-8:]} under three q types: products and chunks "
+        f"agree, each plan's ring fits ({wide} launches of one chunk, a "
+        "block over the whole head, on mma for 16-bit rows of whole pieces "
+        "up to 512 under their own q, else in the wide body on FMAs; "
+        f"{chunked} of ceil(D / 2048) chunks above 2048); "
         f"paged's runs of heads by TMA at D {RUN_RULE_DIMS[0]}-"
         f"{RUN_RULE_DIMS[-1]}, 4 stride layouts, aligned or not ({runs} "
         "runs)")
@@ -1275,6 +1295,138 @@ def check_paged(gen):
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"]}
+
+
+# The two FMA bodies redesigned last, at every head size of the rule checks
+# that runs them: flash's fma body (float32 at D 1-256; 16-bit rows of no
+# whole 16-byte pieces and float8 where Dp is 16 or 32) in (B, Hq, Hkv, S,
+# causal, window) cases taken in turn, and paged's wide body (D 257-1100 and
+# 2048: float32 at each, bf16 at every third, e4m3 caches under a bf16 q at
+# every fifth; the tensor-core body's head sizes skipped) at (B, Hq, Hkv, T,
+# lengths) cases in turn, the second spread over 13 blocks (a two-level
+# merge); above 2048 columns, where chunks of 2048 are a grid dimension
+# (each its column offset, partials and tickets; the last of fewer
+# pieces), at FMA_PAGED_CHUNKED in the three types at both cases; then at
+# FMA_PAGED_LONG, whose 12000 rows give each of 132 blocks three chunks of
+# rows of one segment (66 blocks a chunk of columns at 2304: six), so that
+# a warp's accumulators of several pieces are rescaled between them (D
+# 1024, 1100, 2048 and 2304 in fp32 and bf16)
+FMA_FLASH_CASES = ((1, 4, 2, 130, True, 0), (2, 2, 1, 77, True, 33),
+                   (1, 2, 2, 70, False, 0))
+FMA_PAGED_CASES = ((2, 8, 1, 70, (70, 33)), (1, 8, 1, 400, (400,)))
+FMA_PAGED_CHUNKED = (2304, 4352)       # 2 and 3 chunks, the last 1 piece
+FMA_PAGED_LONG = (1, 8, 1, 12000, (12000,))
+FMA_PAGED_TYPES = ((torch.float32, torch.float32, 1),
+                   (torch.bfloat16, torch.bfloat16, 3),
+                   (torch.bfloat16, torch.float8_e4m3fn, 5))
+
+
+def check_fma_bodies(gen):
+    """Flash's fma body and paged's wide body against their plain versions
+    at every head size of the rule checks that runs them (FMA_FLASH_CASES,
+    FMA_PAGED_CASES and FMA_PAGED_TYPES), fp32 at FP32_TOL, 16-bit at its
+    limit (flash with its P term), float8 outputs within one unit in the
+    last place; then each body's time at its largest shape beside SDPA."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa, ref
+
+    worst, n = 0.0, 0
+    for d in range(1, 257):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16, *FP8):
+            if fa.body_for(dtype, d) != "fma":
+                continue
+            b, hq, hkv, s, causal, window = FMA_FLASH_CASES[
+                n % len(FMA_FLASH_CASES)]
+            q, k, v = flash_case(gen, b, hq, hkv, s, d, dtype)
+            out = fa.flash_attention(q, k, v, causal=causal, window=window)
+            name = (f"flash fma {tname(dtype)} B{b} Hq{hq} Hkv{hkv} S{s} D{d}"
+                    f" causal{causal} window{window}")
+            if dtype in FP8:
+                check_ulp(name, out, ref.attention_ref(q, k, v, causal,
+                                                       window), quiet=True)
+            else:
+                err = check_flash_out(name, out, q, k, v, causal, window,
+                                      quiet=True)
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+            n += 1
+    torch.cuda.synchronize()
+    log(f"  flash's fma body at D 1-256: {n} launches agree (float32 at "
+        "every D, 16-bit and float8 where it takes them); worst fp32 error "
+        f"{worst:.3e}")
+    m = 0
+    for d in list(range(257, 1101)) + [2048]:
+        for q_dtype, kv_dtype, step in FMA_PAGED_TYPES:
+            if (d - 257) % step and d != 2048 or \
+                    pa.products_on(q_dtype, kv_dtype, d) != "fma":
+                continue
+            b, hq, hkv, t, lens = FMA_PAGED_CASES[m % len(FMA_PAGED_CASES)]
+            q = rand_typed(gen, (b, hq, d), q_dtype, Q_SCALE)
+            kc = rand_typed(gen, (b, t, hkv, d), kv_dtype)
+            vc = rand_typed(gen, (b, t, hkv, d), kv_dtype)
+            lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            err = paged_out_check(
+                f"paged wide q {tname(q_dtype)} caches {tname(kv_dtype)} "
+                f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} lengths {lens.tolist()}",
+                pa.paged_attention(q, kc, vc, lens),
+                ref.paged_attention_ref(q, kc, vc, lens))
+            if q_dtype == torch.float32:
+                worst = max(worst, err)
+            m += 1
+    for d in FMA_PAGED_CHUNKED:
+        for q_dtype, kv_dtype, _ in FMA_PAGED_TYPES:
+            for b, hq, hkv, t, lens in FMA_PAGED_CASES:
+                q = rand_typed(gen, (b, hq, d), q_dtype, Q_SCALE)
+                kc = rand_typed(gen, (b, t, hkv, d), kv_dtype)
+                vc = rand_typed(gen, (b, t, hkv, d), kv_dtype)
+                lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+                plan = pa.launch_plan(q, kc)
+                err = paged_out_check(
+                    f"paged wide q {tname(q_dtype)} caches {tname(kv_dtype)} "
+                    f"B{b} Hq{hq} Hkv{hkv} T{t} D{d} lengths {lens.tolist()}"
+                    f" ({plan.chunks} chunks of {plan.blocks} blocks)",
+                    pa.paged_attention(q, kc, vc, lens),
+                    ref.paged_attention_ref(q, kc, vc, lens))
+                if q_dtype == torch.float32:
+                    worst = max(worst, err)
+                m += 1
+    b, hq, hkv, t, lens = FMA_PAGED_LONG
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for d in (1024, 1100, 2048, 2304):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kc, vc = paged_case(gen, b, hq, hkv, t, d, dtype)
+            err = paged_out_check(
+                f"paged wide {tname(dtype)} B{b} Hq{hq} Hkv{hkv} T{t} D{d} "
+                f"lengths {lens.tolist()} (several chunks a block)",
+                pa.paged_attention(q, kc, vc, lens),
+                ref.paged_attention_ref(q, kc, vc, lens))
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            m += 1
+            del q, kc, vc
+    torch.cuda.synchronize()
+    log(f"  paged's wide body at D 257-1100, 2048 and {FMA_PAGED_CHUNKED} "
+        f"(chunks of 2048 columns): {m} launches agree (float32, bf16, e4m3 "
+        f"caches under bf16; and T{t} in one segment, several chunks of rows "
+        f"a block); worst fp32 error {worst:.3e}")
+    import torch.nn.functional as F
+    q, k, v = flash_case(gen, BATCH, 16, 2, PROMPT_LEN, 128, torch.float32)
+    ms = time_ms([lambda: fa.flash_attention(q, k, v)], 10)
+    lib = time_ms([lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)], 10)
+    bound = flash_bound(BATCH, 16, 2, PROMPT_LEN, 128, 0, torch.float32)[0]
+    log(f"  flash fma fp32 B{BATCH} Hq16 Hkv2 S{PROMPT_LEN} D128 causal: "
+        f"{ms:.4f} ms, SDPA fp32 {lib:.4f} ms, bound {bound:.5f} ms")
+    del q, k, v
+    t = PROMPT_LEN + MAX_NEW
+    lens = torch.tensor([t, t - 31, (t + 2) // 2, 64], dtype=torch.int32,
+                        device="cuda")
+    x = paged_case(gen, BATCH, 16, 2, t, 2048, torch.bfloat16)
+    ms = time_ms([lambda: pa.paged_attention(*x, lens)], 20)
+    log(f"  paged wide bf16 B{BATCH} Hq16 Hkv2 T{t} D2048 lengths "
+        f"{lens.tolist()}: {ms:.4f} ms, bound "
+        f"{paged_bound(lens, 16, 2, 2048, torch.bfloat16)[0]:.5f} ms")
+    return worst
 
 
 # paged's tensor-core body over the whole head above 256 columns (16-bit
@@ -2695,18 +2847,28 @@ print(json.dumps(seen))
 """
 
 
-def paged_kernels_seen(pairs, b, hq, hkv, t, d) -> list:
+def paged_kernels_seen(pairs, b, hq, hkv, t, d, tries=3) -> list:
     """The CUDA kernels (name: launches) torch.profiler sees in one
     `paged_attention` call for each (q type, cache type) name pair, at
-    [b, hq, d] q over [b, t, hkv, d] caches, in a process of its own."""
-    proc = subprocess.run(
-        [sys.executable, "-c", PROFILE_PAGED, os.path.join(ROOT, "src"),
-         json.dumps(pairs), json.dumps([b, hq, hkv, t, d])],
-        capture_output=True, text=True, timeout=300)
-    if proc.returncode:
-        raise AssertionError("the profiled paged calls failed: "
-                             + proc.stderr.strip()[-400:])
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    [b, hq, d] q over [b, t, hkv, d] caches, in a process of its own; a
+    new process, up to `tries` in all, where a session recorded no kernel
+    at all (the profiler's, not the call's: on the H100 a session has
+    come back empty after two calls had run, and one call is always at
+    least one kernel)."""
+    for _ in range(tries):
+        proc = subprocess.run(
+            [sys.executable, "-c", PROFILE_PAGED, os.path.join(ROOT, "src"),
+             json.dumps(pairs), json.dumps([b, hq, hkv, t, d])],
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode:
+            raise AssertionError("the profiled paged calls failed: "
+                                 + proc.stderr.strip()[-400:])
+        seen = json.loads(proc.stdout.strip().splitlines()[-1])
+        if all(seen):
+            break
+        log(f"  the profiler recorded no kernel in a session: {seen}; "
+            "profiling again in a new process")
+    return seen
 
 
 def check_scatter_paths(gen) -> float:
@@ -4513,9 +4675,10 @@ MUTANTS = {
                         "carry - (blockIdx.x == 0);")],
     # the consumers read a slot without waiting for its loads
     "paged_getfin": [("paged_attention.cu", PAGED_GETFIN, "")],
-    # the last block of a segment leaves its ticket standing
+    # the last block of a segment leaves its ticket standing (both bodies:
+    # `merge_partials`)
     "paged_ticket": [("paged_attention.cu",
-                      "      if (last) atomicExch(&tickets[cur], 0);",
+                      "    if (last) atomicExch(&tickets[s], 0);",
                       "")],
     # the merge leaves out the last partial of its second set (of all, where
     # each set takes all of them: HX 2)
@@ -4536,13 +4699,20 @@ MUTANTS = {
                             "    if (!EXACT && col >= dh) break;     "
                             "// past the head: the next one's\n", "")],
     "flash_fma_store_dp": [("flash_attention.cu",
-                            "if (c < Dh) ob[r * o_ss + c]",
-                            "if (c < D) ob[r * o_ss + c]")],
+                            "if (EXACT || col(c) < Dh)",
+                            "if (EXACT || col(c) < D)")],
     "paged_store_dp": [("paged_attention.cu",
-                        "if (EXACT || c0 + d0 + e < Dh) put(o + e, "
+                        "if (EXACT || d0 + e < Dh) put(o + e, "
                         "acc[x][e] * inv);", "put(o + e, acc[x][e] * inv);"),
                        ("paged_attention.cu",
-                        "if (EXACT || c0 + d0 + e < Dh) put(o + e, "
+                        "if (EXACT || d0 + e < Dh) put(o + e, "
+                        "as[e] * inv);", "put(o + e, as[e] * inv);"),
+                       ("paged_attention.cu",
+                        "            if (c0 + pc * WIDE_DC + d0 + e < Dh)\n"
+                        "              put(o + pc * WIDE_DC + e, x[e] * inv);",
+                        "              put(o + pc * WIDE_DC + e, x[e] * inv);"),
+                       ("paged_attention.cu",
+                        "if (c0 + pc * WIDE_DC + d0 + e < Dh) put(o + e, "
                         "as[e] * inv);", "put(o + e, as[e] * inv);")],
     # ... scales by 1 / sqrt(Dp) ...
     "flash_scale_dp": [("flash_attention.cu",
@@ -4560,8 +4730,11 @@ MUTANTS = {
                              "col_in[j] = EXACT || c * 8 < dh;",
                              "col_in[j] = true;")],
     "flash_fma_load_tail": [("flash_attention.cu",
-                             "const bool in = row0 + r < S && c < dh;",
-                             "const bool in = row0 + r < S;")],
+                             "const bool in = row0 + r < S && c * 4 < dh;",
+                             "const bool in = row0 + r < S;"),
+                            ("flash_attention.cu",
+                             "x[u] = i < ROWS * D && row0 + r < S && c < dh",
+                             "x[u] = i < ROWS * D && row0 + r < S")],
     "paged_load_tail": [("paged_attention.cu",
                          "return c < dh ? row[c] : zero<E>();",
                          "return row[c];")],
@@ -4582,10 +4755,10 @@ MUTANTS = {
                         "static_cast<float>(1.0 / sqrt((double)D));",
                         "static_cast<float>(1.0 / sqrt((double)"
                         "(D > 256 ? 256 : D)));")],
-    # ... or (paged) takes Q K^T over the first chunk's columns only
+    # ... or (paged) takes Q K^T over the first piece's columns only
     "paged_wide_qk": [("paged_attention.cu",
-                       "          for (int p = 0; p < a.npk; ++p) {",
-                       "          for (int p = 0; p < 1; ++p) {")],
+                       "          ok[e] = pc * WIDE_DC + d0 + e < Dh;",
+                       "          ok[e] = pc == 0 && d0 + e < Dh;")],
     # float16 operands through a bf16 wgmma (Q K^T at D = 256 and above)
     "flash_f16_as_bf16": [("flash_attention.cu",
                            "    WGMMA_SS_64(\"f16\");",
@@ -4722,8 +4895,9 @@ MUTANTS = {
                       "const int qrow = (mi >> 1) * 8 + ri;",
                       "const int qrow = ri;")],
     # ... and the last block of a merge group leaving its ticket standing
+    # (both bodies: `merge_partials`)
     "paged_group_ticket": [("paged_attention.cu",
-                            "          if (last) atomicExch(gt, 0);\n",
+                            "      if (last) atomicExch(gt, 0);\n",
                             "")],
     # flash's mma.sync body masking only straddling tiles: the diagonal's
     # tile taken as interior for a warp unless it straddles its last row
@@ -4793,6 +4967,75 @@ MUTANTS = {
                           "              uint32_t b4[4];",
                           "            for (int i = 0; i < NTW / 2 - 1; ++i) {\n"
                           "              uint32_t b4[4];")],
+    # flash's fma body: K's ring slot freed as soon as it has landed, before
+    # Q K^T has read it (the producer refills it under the reads) ...
+    "flash_fma_free_early": [
+        ("flash_attention.cu",
+         "    mbar_wait(&full[sk], (uint32_t)((it / SLOTS) & 1));     "
+         "// getfin: K\n",
+         "    mbar_wait(&full[sk], (uint32_t)((it / SLOTS) & 1));     "
+         "// getfin: K\n    if (lane == 0) mbar_arrive(&empty[sk]);\n"),
+        ("flash_attention.cu",
+         "    __syncwarp();\n    if (lane == 0) mbar_arrive(&empty[sk]);"
+         "       // K's slot is free\n", "")],
+    # ... and Q K^T without waiting for its K tile (getfin)
+    "flash_fma_getfin": [("flash_attention.cu",
+                          "    mbar_wait(&full[sk], (uint32_t)((it / SLOTS) "
+                          "& 1));     // getfin: K\n", "")],
+    # paged's wide body: a K piece's slot freed as soon as it has landed ...
+    "paged_wide_free_early": [
+        ("paged_attention.cu",
+         "      const int i = it + pc, slot = i % a.slots;\n"
+         "      mbar_wait(&full[slot], (uint32_t)((i / a.slots) & 1));   "
+         "// getfin\n",
+         "      const int i = it + pc, slot = i % a.slots;\n"
+         "      mbar_wait(&full[slot], (uint32_t)((i / a.slots) & 1));   "
+         "// getfin\n      if (lane == 0) mbar_arrive(&empty[slot]);\n"),
+        ("paged_attention.cu",
+         "        lgt += part[0];\n      }\n"
+         "      __syncwarp();\n      if (lane == 0) mbar_arrive(&empty[slot]);"
+         "   // this warp is past it\n",
+         "        lgt += part[0];\n      }\n")],
+    # ... P V without waiting for its V piece (getfin) ...
+    "paged_wide_getfin": [("paged_attention.cu",
+                           "      const int i = it + a.npk + pc, slot = i % "
+                           "a.slots;\n      mbar_wait(&full[slot], (uint32_t)"
+                           "((i / a.slots) & 1));   // getfin\n",
+                           "      const int i = it + a.npk + pc, slot = i % "
+                           "a.slots;\n")],
+    # ... Q K^T skipping each warp's last K piece ...
+    "paged_wide_k_piece": [("paged_attention.cu",
+                            "        lgt += part[0];\n",
+                            "        if (pc + NSET < a.npk) lgt += part[0];\n")],
+    # ... only a warp's first piece of columns rescaled by alpha ...
+    "paged_wide_rescale": [("paged_attention.cu",
+                            "        for (int e = 0; e < EPL; ++e) x[e] *= "
+                            "alpha;",
+                            "        for (int e = 0; e < EPL; ++e) if (pp "
+                            "== 0) x[e] *= alpha;")],
+    # ... a merge leaving out its last partial ...
+    "paged_wide_merge": [("paged_attention.cu",
+                          "              if (k0 + k < m_n) {",
+                          "              if (k0 + k < m_n - 1) {")],
+    # ... and above 2048 columns (a grid dimension of chunks of 2048; caught
+    # only where a head has more than one): a chunk's output written at the
+    # head's first columns ...
+    "paged_wide_chunk_out": [("paged_attention.cu",
+                              "        const long long o = out_index(a, b, h, "
+                              "g0, hw) + c0 + d0;",
+                              "        const long long o = out_index(a, b, h, "
+                              "g0, hw) + d0;"),
+                             ("paged_attention.cu",
+                              "              out_index(a, b, h, g0, hw) + c0 + "
+                              "pc * WIDE_DC + d0;",
+                              "              out_index(a, b, h, g0, hw) + "
+                              "pc * WIDE_DC + d0;")],
+    # ... or its logits over its own columns of K only, not the whole head's
+    "paged_wide_chunk_k": [("paged_attention.cu",
+                            "        const int col = kv ? c0 + (x - a.npk) * "
+                            "WIDE_DC : x * WIDE_DC;",
+                            "        const int col = kv ? c0 + (x - a.npk) * "
+                            "WIDE_DC : c0 + x * WIDE_DC;")],
 }
 
 
@@ -5067,11 +5310,28 @@ def run_parallel():
         f"phase 7 {PARALLEL_RESULTS['host_s']:.1f} s of host time")
 
 
-def run_mutants(names=(), timeout_s: int = 300) -> bool:
-    """Builds each mutant (of `names`, or all) in a copy of src/ and this
-    script under build/mutants/ and runs `--kernels-only` there, killed
-    after `timeout_s`. Prints each copy's exit code and first failing check;
+def mutant_sets() -> dict:
+    """The named subsets of MUTANTS that `--mutants` takes, by the source a
+    mutant edits, each small enough for one run under an hour: "flash",
+    "paged" and "amu" (the gather, the triad, the scatter and their shared
+    header)."""
+    sets = {"flash": [], "paged": [], "amu": []}
+    for name, edits in MUTANTS.items():
+        sources = {source for source, _, _ in edits}
+        key = ("flash" if sources == {"flash_attention.cu"} else
+               "paged" if sources == {"paged_attention.cu"} else "amu")
+        sets[key].append(name)
+    return sets
+
+
+def run_mutants(names=(), timeout_s: int = 600) -> bool:
+    """Builds each mutant (of `names`, each a mutant or a subset of
+    `mutant_sets`, or all) in a copy of src/ and this script under
+    build/mutants/ and runs `--kernels-only` there, killed after
+    `timeout_s`. Prints each copy's exit code and first failing check;
     true if every copy failed or hung."""
+    sets = mutant_sets()
+    names = [m for n in names for m in sets.get(n, [n])]
     unknown = set(names) - set(MUTANTS)
     if unknown:
         raise AssertionError(f"no mutants {sorted(unknown)}")
@@ -5081,22 +5341,23 @@ def run_mutants(names=(), timeout_s: int = 300) -> bool:
     _build.build_all()                 # the libraries the copies reuse
     for name in chosen:
         make_mutant(name)
-    # the copies' kernels are built first, eight builds at a time (each
-    # runs one nvcc for its edited source, or one a source where a header
-    # is edited), so that the paged source's long builds overlap on the
-    # machine's cores; then three copies' checks at a time on the card
+    # each copy's kernels are built, eight builds at a time (each runs one
+    # nvcc for its edited source, or one a source where a header is
+    # edited), so that the paged source's long builds overlap on the
+    # machine's cores; a copy's check starts as soon as its build ends,
+    # three checks at a time on the card, beside the later builds
     build = [[sys.executable, "-c", "import sys; sys.path.insert(0, "
               "sys.argv[1]); from repro_torch.kernels import _build; "
               "_build.build_all()",
               os.path.join(ROOT, "build", "mutants", name, "src")]
              for name in chosen]
-    run_pool(build, 8)
     checks = [["timeout", "-s", "KILL", str(timeout_s), sys.executable,
                os.path.join(ROOT, "build", "mutants", name, "chip_smoke.py"),
                "--kernels-only"] for name in chosen]
     logs = [os.path.join(ROOT, "build", "mutants", name, "kernels_only.log")
             for name in chosen]
-    for name, code, path in zip(chosen, run_pool(checks, 3, logs), logs):
+    codes = run_pool(build, checks, logs)
+    for name, code, path in zip(chosen, codes, logs):
         with open(path) as f:
             lines = [line.strip() for line in f if line.strip()]
         why = [line for line in lines if line.endswith("FAIL")] \
@@ -5107,21 +5368,27 @@ def run_mutants(names=(), timeout_s: int = 300) -> bool:
     return caught
 
 
-def run_pool(cmds, width, logs=None) -> list:
-    """Runs `cmds`, `width` at a time, each one's output and errors into
-    its file of `logs` (else nowhere); returns their exit codes, in the
-    order of `cmds`."""
-    codes = [None] * len(cmds)
-    live = {}
-    todo = list(enumerate(cmds))
-    while todo or live:
-        while todo and len(live) < width:
-            i, cmd = todo.pop(0)
-            out = open(logs[i], "w") if logs else subprocess.DEVNULL
-            live[i] = subprocess.Popen(cmd, stdout=out,
-                                       stderr=subprocess.STDOUT)
-            if logs:
-                out.close()
+def run_pool(builds, checks, logs) -> list:
+    """Runs each of `builds` (output nowhere, eight at a time, whatever its
+    exit code) and, once it has ended, checks[i] (three at a time, output
+    and errors into logs[i]); returns the checks' exit codes, in order."""
+    codes = [None] * len(checks)
+    live, first = {}, {}
+    todo, pre = [], list(enumerate(builds))
+    while todo or live or pre or first:
+        while pre and len(first) < 8:
+            i, cmd = pre.pop(0)
+            first[i] = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                        stderr=subprocess.STDOUT)
+        for i, proc in list(first.items()):
+            if proc.poll() is not None:
+                del first[i]
+                todo.append(i)
+        while todo and len(live) < 3:
+            i = todo.pop(0)
+            with open(logs[i], "w") as out:
+                live[i] = subprocess.Popen(checks[i], stdout=out,
+                                           stderr=subprocess.STDOUT)
         for i, proc in list(live.items()):
             if proc.poll() is not None:
                 codes[i] = proc.returncode
@@ -5174,7 +5441,8 @@ def main() -> int:
                          "report of registers, shared memory and spills")
     ap.add_argument("--mutants", nargs="*", default=None, metavar="NAME",
                     help="only build the broken kernels of MUTANTS (those "
-                         "named, or all) and check that phase 3 fails on "
+                         "named, or of the subsets named: flash, paged, "
+                         "amu; or all) and check that phase 3 fails on "
                          "each")
     args = ap.parse_args()
     t_start = time.time()
@@ -5209,6 +5477,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = [check_flash(gen), check_paged(gen)]
+    check_fma_bodies(gen)
     check_wide_mma(gen)
     check_cas_batches(gen)
     check_elem_rows_and_pair(gen)

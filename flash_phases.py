@@ -2,8 +2,8 @@
 """Per-warp phase times of one of flash attention's bodies, from a copy of
 its source that stamps clock64().
 
-    python3 flash_phases.py [--src DIR] [--label NAME] [--body mma|pair|wide]
-        [--case D[,DTYPE] ...]
+    python3 flash_phases.py [--src DIR] [--label NAME]
+        [--body mma|pair|wide|fma] [--case D[,DTYPE[,HKV,S[,WINDOW]]] ...]
 
 Copies DIR (a tree's `src/`, this tree's by default) to
 `build/flash_phases/NAME-BODY/src`, edits the copy's `flash_attention.cu`
@@ -12,10 +12,13 @@ chip_smoke.py: it adds a `__device__` array, an `extern "C"` reader and
 clock64() stamps in one kernel: `flash_mma_kernel`, the body of 16-bit rows
 at Dp 16 and 32, by default; `--body pair`, `flash_wgmma_pair_kernel`,
 16-bit rows above 256 columns, phases PAIR_PHASES; `--body wide`, the
-chunked wide body of a tree from before the pair body, phases WIDE_PHASES),
-builds that source alone, and runs causal flash attention at qwen2.5-3b's
-prefill layout (B = 4, Hq = 16, Hkv = 2, S = 1000) at each case's head
-size and type (by default D 8, 16 and 32 in bf16). For each case it
+chunked wide body of a tree from before the pair body, phases WIDE_PHASES;
+`--body fma`, `flash_fma_kernel`, float32 at every head size up to 256,
+phases FMA_PHASES), builds that source alone, and runs causal flash
+attention at qwen2.5-3b's prefill layout (B = 4, Hq = 16, Hkv = 2, S =
+1000), or at the case's KV heads, S and window (`256,float32,1,4096,2048`
+is recurrentgemma-9b's), at each case's head size and type (by default D
+8, 16 and 32 in bf16). For each case it
 prints, over the warps of all blocks, the mean and the largest cycles a
 warp spent on (the mma body's phases):
 
@@ -243,8 +246,61 @@ PAIR_EDITS = (
                                           f"ph_tick({P_END})")
      + old[len("  }\n"):]),
 )
+# `--body fma`: flash_fma_kernel (float32, integers and mixed types on
+# float32 copies, and 16-bit / fp8 rows at Dp 16 and 32), a consumer warp's
+# cycles on the start (the Q tile's load, up to the first K/V tile), the
+# K/V tiles' loads or its waits for them (the load and its barriers in a
+# body that loads them between barriers), Q K^T, the softmax (the mask,
+# the max, the exponentials, P into shared memory, alpha, and the barriers
+# around them), P V (with the rescale) and the end (the row sums and the
+# stores)
+FMA_PHASES = ("start", "load", "qk", "softmax", "pv", "end")
+F_START, F_LOAD, F_QK, F_SOFTMAX, F_PV, F_END = range(len(FMA_PHASES))
+FMA_EDITS = (
+    (("  float* Ps = Vs + BN * WS;\n",
+      "  float* lsum_s = alpha_s + BMF;                  "
+      "// a row's sum at the end\n"),
+     lambda old: old + WIDE_EDITS[0][1]("")),
+    (("  load_tile_f32<E, D, BM, EXACT>(Qs, qb, q_ss, q0, S, dh);\n",
+      "  mbar_wait(q_full, 0);\n"),
+     lambda old: old + f"  ph_tick({F_START});\n"),
+    (("    load_tile_f32<E, D, BN, EXACT>(Vs, vb, v_ss, k0, S, dh);\n"
+      "    __syncthreads();\n",
+      "    mbar_wait(&full[sk], (uint32_t)((it / SLOTS) & 1));     "
+      "// getfin: K\n"),
+     lambda old: old + f"    ph_tick({F_LOAD});\n    ph_[{TILES}]++;\n"),
+    (("    // mask, online softmax; P goes to shared memory for the second "
+      "product.\n",
+      "    // every consumer is past the last tile's P V: P^T and alpha are "
+      "free\n"),
+     lambda old: f"    ph_tick({F_QK});\n" + old),
+    (("    // acc += P V: rows ty*4+i, output columns tx+16*jj\n",
+      "    // acc = acc alpha + P V: 8 rows of P^T and 8 columns of V a key, "
+      "4\n"),
+     lambda old: f"    ph_tick({F_SOFTMAX});\n" + old),
+    # (the ring's body only: the wait for V, the rescale before it in P V)
+    (("      float p[RPT];\n",
+      "    mbar_wait(&full[sv], (uint32_t)(((it + 1) / SLOTS) & 1));   "
+      "// getfin: V\n"),
+     lambda old: old if "RPT" in old else
+     f"    ph_tick({F_PV});\n" + old + f"    ph_tick({F_LOAD});\n"),
+    (("  }\n\n  E* ob = o + b * o_sb + h * o_sh;\n",
+      "    if (lane == 0) mbar_arrive(&empty[sv]);       "
+      "// V's slot is free\n"),
+     lambda old: f"    ph_tick({F_PV});\n" + old if "E* ob" in old
+     else old + f"    ph_tick({F_PV});\n"),
+    (("  }\n}\n\n// -----------------------------------------------------------"
+      "----------------\n// The fma body above 256 columns",
+      "          ob[r * o_ss + col(c)] = from_float<E>(acc[i][c] * inv);\n"
+      "    }\n  }\n}\n"),
+     lambda old: ("  }\n" + RECORD.replace(f"ph_tick({END})",
+                                           f"ph_tick({F_END})")
+                  + old[len("  }\n"):]) if old.startswith("  }\n}")
+     else old[:-2] + RECORD.replace(f"ph_tick({END})", f"ph_tick({F_END})")
+     + "}\n"),
+)
 BODIES = {"mma": (PHASES, EDITS), "wide": (WIDE_PHASES, WIDE_EDITS),
-          "pair": (PAIR_PHASES, PAIR_EDITS)}
+          "pair": (PAIR_PHASES, PAIR_EDITS), "fma": (FMA_PHASES, FMA_EDITS)}
 
 
 def main() -> int:
@@ -263,12 +319,16 @@ def main() -> int:
         return 0
     hz = pc.sm_hz()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    b, hq, hkv, s = cs.BATCH, 16, 2, cs.PROMPT_LEN
+    b, hq = cs.BATCH, 16
     results = []
     for case in args.case:
         d, *rest = case.split(",")
         d = int(d)
         dtype = getattr(torch, rest[0]) if rest else torch.bfloat16
+        # the layout: qwen2.5-3b's prefill, or KV heads, S and a window
+        hkv, s, window = (int(rest[1]), int(rest[2]),
+                          int(rest[3]) if len(rest) > 3 else 0) \
+            if len(rest) > 2 else (2, cs.PROMPT_LEN, 0)
         body = fa.body_for(dtype, d)
         if body == "wgmma" and d > fa.CHUNK_DIM:    # the parent's: chunks
             body = "pair" if hasattr(fa, "wide_blocks") else "wide"
@@ -277,15 +337,17 @@ def main() -> int:
                              f"body, not the {args.body} body")
         q, k, v = cs.flash_case(gen, b, hq, hkv, s, d, dtype)
         cs.check_flash_out(f"flash D{d} {cs.tname(dtype)} (stamped copy)",
-                           fa.flash_attention(q, k, v), q, k, v)
-        ms = cs.time_ms([lambda: fa.flash_attention(q, k, v)], 20)
+                           fa.flash_attention(q, k, v, window=window), q, k,
+                           v, window=window)
+        ms = cs.time_ms([lambda: fa.flash_attention(q, k, v, window=window)],
+                        20)
         stamps = pc.stamps(lib, build, SYMBOL, MAXW, NSLOT,
-                           lambda: fa.flash_attention(q, k, v))
+                           lambda: fa.flash_attention(q, k, v, window=window))
         warps = stamps[stamps[:, TOTAL] > 0]
         total = warps[:, TOTAL]
         t0, t1 = warps[:, T0], warps[:, T1]
         row = dict(case=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} {cs.tname(dtype)} "
-                        "causal",
+                        "causal" + (f" window{window}" if window else ""),
                    kernel_ms=ms, sm_mhz=hz / 1e6, warps=int(warps.shape[0]),
                    tiles_mean=float(warps[:, TILES].mean()),
                    tiles_max=float(warps[:, TILES].max()),

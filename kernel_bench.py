@@ -86,11 +86,16 @@ has it, int8 xor into [2^24, 64] both ways; paged at qwen2.5-3b's decode
 layout at D 512, 1024 and 2048 in bf16 and f16 beside SDPA) and `served`
 (the bodies of the served paths alone: flash at qwen2.5-3b's prefill and
 recurrentgemma-9b's D 256, paged at qwen2.5-3b's decode, GUPS as drawn,
-the f32 triad).
+the f32 triad), `fma_wide` (the two FMA bodies, each beside its plain
+version's time: flash's fma body in f32 at qwen2.5-3b's prefill and at
+recurrentgemma-9b's windowed D 256, in int8 at B2 Hq8 Hkv2 S200 D64 and in
+bf16 at D 12, and its chunked body above 256 in f32 at D 512; paged's
+wide body at qwen2.5-3b's decode layout in bf16 at D 1024 and 2048, in
+f32 at D 512 and 1024 and over e4m3 caches under a bf16 q at D 512).
 `--only` picks some of flash, paged, gather, triad, scatter,
 scatter_bf16, types, paged_fp8, paged_mixed, scatter_narrow,
 scatter_sweep, paged_heads, flash_fp8, g16_add16, mma_triad, elem_wide,
-cas_wide, served. For
+cas_wide, served, fma_wide. For
 each:
 kernel ms (CUDA
 events, mean of back-to-back calls, best of 5 windows, as in chip_smoke.py),
@@ -215,6 +220,8 @@ def main() -> int:
         rows.extend(bench_elem_wide(cs, fa, pa, ref, F, gen))
     if "cas_wide" in args.only:
         rows.extend(bench_cas_wide(cs, pa, asc, ref, F, gen))
+    if "fma_wide" in args.only:
+        rows.extend(bench_fma_wide(cs, fa, pa, ref, F, gen))
     if "served" in args.only:
         rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, d))
         rows.append(bench_flash(cs, fa, F, gen, b, 16, 1, 4096, 256,
@@ -236,8 +243,9 @@ def main() -> int:
                         ("sector_bound_ms", "yardstick_ms") if k in r)
         host = f", host {r['host_us']:.1f} us a call" if "host_us" in r \
             else ""
+        plain = f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else ""
         print(f"{args.label}: {r['kernel']} {r['case']}: kernel "
-              f"{r['ms']:.4f} ms{host}, library "
+              f"{r['ms']:.4f} ms{host}{plain}, library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{r['bound_ms']:.5f} ms{extra}"
               f"{'' if r.get('check', 'ok') == 'ok' else ', check FAIL'}",
@@ -346,6 +354,45 @@ def bench_cas_wide(cs, pa, asc, ref, F, gen):
     return rows
 
 
+# `fma_wide`: flash's fma body, (B, Hq, Hkv, S, D, window, type), causal:
+# float32 at qwen2.5-3b's prefill and at recurrentgemma-9b's windowed D 256,
+# int8 (float32 copies) and bf16 at D 12 (rows of no whole 16-byte pieces
+# at Dp 16); and its chunked body above 256 columns in float32 at D 512
+FMA_FLASH = ((4, 16, 2, 1000, 128, 0, torch.float32),
+             (4, 16, 1, 4096, 256, 2048, torch.float32),
+             (2, 8, 2, 200, 64, 0, torch.int8),
+             (4, 16, 2, 1000, 12, 0, torch.bfloat16),
+             (4, 16, 2, 1000, 512, 0, torch.float32))
+# ... and paged's wide FMA body at qwen2.5-3b's decode layout: (D, q's
+# type, the caches')
+FMA_PAGED = ((1024, torch.bfloat16, torch.bfloat16),
+             (2048, torch.bfloat16, torch.bfloat16),
+             (512, torch.float32, torch.float32),
+             (1024, torch.float32, torch.float32),
+             (512, torch.bfloat16, torch.float8_e4m3fn))
+
+
+def bench_fma_wide(cs, fa, pa, ref, F, gen):
+    """`fma_wide`: flash at FMA_FLASH and paged at FMA_PAGED (B4 Hq16 Hkv2
+    T1032, the serve lengths), each beside its plain version's time, SDPA
+    (on the same type, on float32 copies of integers, on bf16 copies
+    beside float8 caches) and its bound."""
+    rows = []
+    for b, hq, hkv, s, d, window, dtype in FMA_FLASH:
+        rows.append(bench_flash(cs, fa, F, gen, b, hq, hkv, s, d,
+                                window=window, dtype=dtype, ref=ref))
+        cs.free_cuda()
+    for d, q_dtype, dtype in FMA_PAGED:
+        if q_dtype == dtype:
+            rows.append(bench_paged(cs, pa, ref, F, gen, cs.BATCH, 16, 2, d,
+                                    dtype=dtype, plain=True))
+        else:
+            rows.append(bench_paged_typed(cs, pa, ref, F, gen, q_dtype, dtype,
+                                          d=d, plain=True))
+        cs.free_cuda()
+    return rows
+
+
 def takes(mod, d) -> bool:
     """Whether the tree's kernel module takes head size `d`: a tree from
     before every head size from 1 to 256 (`padded_head_dim`) took only its
@@ -359,19 +406,35 @@ def takes(mod, d) -> bool:
 def short(dtype) -> str:
     return {torch.bfloat16: "bf16", torch.float16: "f16",
             torch.float32: "f32", torch.float8_e4m3fn: "e4m3",
-            torch.float8_e5m2: "e5m2"}[dtype]
+            torch.float8_e5m2: "e5m2"}.get(dtype, str(dtype)[6:])
 
 
 def bench_flash(cs, fa, F, gen, b, hq, hkv, s, d, window=0, causal=True,
-                dtype=torch.bfloat16):
+                dtype=torch.bfloat16, ref=None):
     """One flash case timed beside SDPA on the same inputs (on bf16 copies
-    for float8, which SDPA does not take) and its bound."""
+    for float8, on float32 copies for integers, which SDPA does not take)
+    and its bound; with `ref`, also the plain version's time, after one
+    check of the kernel against it."""
     q, k, v = cs.flash_case(gen, b, hq, hkv, s, d, dtype)
     body = fa.body_for(dtype, d) if hasattr(fa, "body_for") else "?"
     lib = (dict(attn_mask=cs.window_mask(s, window)) if window
            else dict(is_causal=causal))
     lq, lk, lv = ((x.to(torch.bfloat16) for x in (q, k, v))
-                  if dtype in cs.FP8 else (q, k, v))
+                  if dtype in cs.FP8 else (x.float() for x in (q, k, v))
+                  if not dtype.is_floating_point else (q, k, v))
+    extra = {}
+    if ref is not None:
+        want = ref.attention_ref(q, k, v, causal, window)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        if dtype.is_floating_point:
+            cs.check_flash_out(f"flash D{d} {short(dtype)}", got, q, k, v,
+                               causal, window, quiet=True)
+        else:                # within one unit of the plain version
+            cs.check_close(f"flash D{d} {short(dtype)}", got, want, atol=1,
+                           rtol=0, quiet=True)
+        del want, got
+        extra["plain_ms"] = cs.time_ms(
+            [lambda: ref.attention_ref(q, k, v, causal, window)], 5, 3)
     backend = ""
     if d > 256:                   # which of SDPA's backends takes D > 256
         backend = ", library " + cs.sdpa_backend(
@@ -389,14 +452,16 @@ def bench_flash(cs, fa, F, gen, b, hq, hkv, s, d, window=0, causal=True,
                                                       window=window)),
         library_ms=cs.time_ms([lambda: F.scaled_dot_product_attention(
             lq, lk, lv, enable_gqa=True, **lib)], 10),
-        bound_ms=cs.flash_bound(b, hq, hkv, s, d, window, dtype, causal)[0])
+        bound_ms=cs.flash_bound(b, hq, hkv, s, d, window, dtype, causal)[0],
+        **extra)
 
 
 def bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d, long=False,
-                prompt=None, dtype=torch.bfloat16):
+                prompt=None, dtype=torch.bfloat16, plain=False):
     """The serve shape (T = prompt + 32, lengths [T, prompt + 1,
     (T + 2) // 2, 64]; the prompt chip_smoke serves by default), or
-    (`long`) one sequence of 32768 rows."""
+    (`long`) one sequence of 32768 rows; with `plain`, also the plain
+    version's time."""
     prompt = prompt or cs.PROMPT_LEN
     t = 32768 if long else prompt + cs.MAX_NEW
     lens = torch.tensor([t] if long else [t, prompt + 1, (t + 2) // 2, 64],
@@ -407,7 +472,8 @@ def bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d, long=False,
     try:
         cs.check_close(f"paged T{t}", pa.paged_attention(*sets[0], lens),
                        ref.paged_attention_ref(*sets[0], lens),
-                       **cs.PAGED_BF16_TOL)
+                       **(cs.paged_tol(dtype) if dtype == torch.float32
+                          else cs.PAGED_BF16_TOL))
         check = "ok"
     except AssertionError:
         check = "FAIL"
@@ -429,7 +495,10 @@ def bench_paged(cs, pa, ref, F, gen, b, hq, hkv, d, long=False,
         host_us=cs.host_us(lambda: pa.paged_attention(*sets[0], lens)),
         library_ms=cs.time_ms([lambda x=x: library(x) for x in sets], 64),
         library_host_us=cs.host_us(lambda: library(sets[0])),
-        bound_ms=cs.paged_bound(lens, hq, hkv, d, dtype)[0], check=check)
+        bound_ms=cs.paged_bound(lens, hq, hkv, d, dtype)[0], check=check,
+        **({"plain_ms": cs.time_ms(
+            [lambda x=x: ref.paged_attention_ref(*x, lens) for x in sets],
+            16)} if plain else {}))
 
 
 def bench_triad(cs, st, gen, dtype=torch.float32):
@@ -664,7 +733,7 @@ def paged_lengths(t):
 
 
 def bench_paged_typed(cs, pa, ref, F, gen, q_dtype, dtype, d=128, hq=16,
-                      hkv=2, t=None):
+                      hkv=2, t=None, plain=False):
     """Paged at qwen2.5-3b's decode (T = 1032, or `t`, lengths
     `paged_lengths`) with q of `q_dtype` over caches of `dtype`, checked
     once (one unit in the last place of a float8 output, PAGED_BF16_TOL /
@@ -698,6 +767,9 @@ def bench_paged_typed(cs, pa, ref, F, gen, q_dtype, dtype, d=128, hq=16,
             w[0][:, :, None], w[1].transpose(1, 2), w[2].transpose(1, 2),
             attn_mask=mask, enable_gqa=True) for w in wide], 64),
         bound_ms=cs.paged_bound(lens, hq, hkv, d, dtype, q_dtype)[0])
+    if plain:
+        row["plain_ms"] = cs.time_ms(
+            [lambda x=x: ref.paged_attention_ref(*x, lens) for x in sets], 16)
     row["device_kernels"] = sum(cs.kernel_counts(
         lambda: pa.paged_attention(*sets[0], lens)).values())
     return row

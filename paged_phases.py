@@ -2,7 +2,7 @@
 """Per-block phase times of the paged attention kernel, from a copy of its
 source that stamps clock64().
 
-    python3 paged_phases.py [--src DIR] [--label NAME]
+    python3 paged_phases.py [--src DIR] [--label NAME] [--body ring|wide]
         [--case HKV,D[,T[,DTYPE]] ...]
 
 Copies DIR (a tree's `src/`, this tree's by default) to
@@ -28,8 +28,12 @@ chunks and segments a set; the set's whole time; when its first and last
 chunk had landed (the end of their getfin); the block's time in microseconds
 at the SM clock measured by a sleep kernel; and the copy's kernel time by
 CUDA events (the stamps cost a little). One JSON line at the end, then the
-card's name and power limit. Needs one NVIDIA card. The copy, its build
-and its reader: `phases_common.py`.
+card's name and power limit. `--body wide` stamps the wide body above 256
+columns on FMAs instead (`paged_wide_kernel`, in a tree that has it: warp 0
+of each of a block's two parities, phases WIDE_PHASES, the chunk counts
+and the first and last getfin in the same slots), under
+`build/paged_phases/NAME-wide/`. Needs one NVIDIA card. The copy, its
+build and its reader: `phases_common.py`.
 """
 from __future__ import annotations
 
@@ -60,9 +64,10 @@ EDITS = (
      "    ph_[i] += now - ph_t;\n"
      "    ph_t = now;\n"
      "  };\n"),
-    ("  const long long W = P[a.B] * hg;",
-     "  ph_tick(5);\n"
-     "  const long long W = P[a.B] * hg;"),
+    (("  const long long W = P[a.B] * hg;",
+      "  // aload of chunk j (the rows from global row g) into slot j % slots;"
+      "\n"),
+     lambda old: "  ph_tick(5);\n" + old),
     ("        cacc[nt][0] = cacc[nt][1] = cacc[nt][2] = cacc[nt][3] = 0.f;\n"
      "    }\n"
      "    g += n;\n",
@@ -114,6 +119,68 @@ EDITS = (
      "  }\n"
      "}\n\n// The tensor map"),
 )
+# `--body wide`: the wide body above 256 columns on FMAs
+# (`paged_wide_kernel`, in a tree that has it), warp 0 of each parity a
+# block: the waits for its K and V pieces (getfin), Q K^T with q's loads
+# and the transpose reductions, the exchange of the parities' parts (its
+# barrier), the softmax, P V, finishing segments (the partials, the
+# tickets, the merges) and the start (the prefix sums, the barrier, the
+# empty segments), in the same slots
+WIDE_PHASES = ("wait", "qk", "exchange", "softmax", "pv", "finish", "start")
+(W_WAIT, W_QK, W_XCH, W_SOFTMAX, W_PV, W_FINISH,
+ W_START) = range(len(WIDE_PHASES))
+W_SETUP = W_START      # a new segment's set-up counts as the start
+WIDE_EDITS = (
+    ("  float* accs = reinterpret_cast<float*>(wsmem + L.acc);\n",
+     lambda old: old + EDITS[0][1].split("\n", 1)[1]),
+    ("  if (warp == NSET * GC) {\n    // the producer: for each chunk of rows "
+     "of the share, all its K pieces,\n",
+     lambda old: f"  ph_tick({W_START});\n" + old),
+    ("      if (cur != -1) finish();\n",
+     "      if (cur != -1) {\n"
+     f"        ph_tick({W_PV});\n"
+     "        finish();\n"
+     f"        ph_tick({W_FINISH});\n"
+     f"        ph_[{SEGMENTS}]++;\n"
+     "      }\n"),
+    ("      const int i = it + pc, slot = i % a.slots;\n"
+     "      mbar_wait(&full[slot], (uint32_t)((i / a.slots) & 1));   "
+     "// getfin\n",
+     lambda old: f"      ph_tick({W_QK});\n" + old
+     + f"      ph_tick({W_WAIT});\n"
+     f"      if (ph_[{CHUNKS}] == 0 && pc == half) ph_[{FIRST}] = ph_t - "
+     "ph_start;\n"),
+    ("    float* xb = xch + (j & 1) * (NSET * GC * 32);\n",
+     lambda old: f"    ph_tick({W_QK});\n" + old),
+    ("    consumers_sync();\n    float p = 0.f, alpha = 1.f;\n",
+     lambda old: old.replace("consumers_sync();\n",
+                             f"consumers_sync();\n    ph_tick({W_XCH});\n")),
+    ("    // P V over the warp's V pieces: a piece's accumulators rescaled "
+     "by\n",
+     lambda old: f"    ph_tick({W_SOFTMAX});\n" + old),
+    ("      const int i = it + a.npk + pc, slot = i % a.slots;\n"
+     "      mbar_wait(&full[slot], (uint32_t)((i / a.slots) & 1));   "
+     "// getfin\n",
+     lambda old: f"      ph_tick({W_PV});\n" + old
+     + f"      ph_tick({W_WAIT});\n      ph_[{LAST}] = ph_t - ph_start;\n"),
+    ("    it += a.npk + npb;\n",
+     lambda old: f"    ph_tick({W_PV});\n    ph_[{CHUNKS}]++;\n" + old),
+    ("  finish();\n}\n\n// The wide body's launch",
+     f"  ph_tick({W_PV});\n"
+     "  finish();\n"
+     f"  ph_tick({W_FINISH});\n"
+     f"  ph_[{SEGMENTS}]++;\n"
+     f"  ph_[{TOTAL}] = clock64() - ph_start;\n"
+     "  const unsigned ph_b = blockIdx.y * gridDim.x + blockIdx.x;\n"
+     f"  if (lane == 0 && hw == 0 && ph_b < {ROWS // 2}) {{\n"
+     f"    for (int i = 0; i < {SLOTS}; ++i)\n"
+     "      " + SYMBOL + "[ph_b * 2 + half][i] = ph_[i];\n"
+     "  }\n"
+     "}\n\n// The wide body's launch"),
+)
+BODIES = {"ring": (PHASES, EDITS), "wide": (WIDE_PHASES, WIDE_EDITS)}
+
+
 def route(pa, x) -> str:
     """The body a call on these tensors runs: `paged_attention.route` in
     a tree that has it, else the rule on (type, head size)."""
@@ -124,12 +191,15 @@ def route(pa, x) -> str:
 
 def main() -> int:
     args = pc.parse_args(__doc__, "paged_phases",
-                         ["16,64", "16,80", "16,128", "2,128"])
+                         ["16,64", "16,80", "16,128", "2,128"],
+                         tuple(BODIES))
     if args is None:
         return 1
     import chip_smoke as cs
+    phases, edits = BODIES[args.body]
+    label = args.label if args.body == "ring" else f"{args.label}-wide"
     copy = pc.make_copy(os.path.abspath(args.src), "paged_phases",
-                        args.label, "paged_attention.cu", EDITS, SYMBOL,
+                        label, "paged_attention.cu", edits, SYMBOL,
                         ROWS, SLOTS)
     lib, build = pc.build(copy, "paged_attention", SYMBOL, args.label)
     from repro_torch.kernels import paged_attention as pa, ref
@@ -169,7 +239,7 @@ def main() -> int:
                    first_data_cycles_mean=float(sets[:, FIRST].mean()),
                    last_data_cycles_mean=float(sets[:, LAST].mean()),
                    last_data_cycles_max=float(sets[:, LAST].max()))
-        for i, name in enumerate(PHASES):
+        for i, name in enumerate(phases):
             row[f"{name}_cycles_mean"] = float(sets[:, i].mean())
             row[f"{name}_cycles_max"] = float(sets[:, i].max())
             row[f"{name}_share"] = float(sets[:, i].sum() / total.sum())
@@ -183,7 +253,7 @@ def main() -> int:
               f" and {row['last_data_cycles_mean']:.0f} cycles (mean); "
               "shares "
               + ", ".join(f"{n} {row[f'{n}_share']:.3f} (mean "
-                          f"{row[f'{n}_cycles_mean']:.0f})" for n in PHASES),
+                          f"{row[f'{n}_cycles_mean']:.0f})" for n in phases),
               flush=True)
         del x
     pc.close(args.label, args.src, results)

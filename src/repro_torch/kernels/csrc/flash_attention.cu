@@ -27,11 +27,53 @@
 // types, the reference's own arithmetic) and runs the float32 body.
 //
 // * float32, any D -> `flash_fma_kernel`: both products as fp32 FMAs on the
-//   CUDA cores, a 4x4 (Q K^T) and a 4x(D/16) (P V) register tile per thread,
-//   64x64 tiles. TF32 would not hold the fp32 tolerance (atol 2e-5). Rows of
-//   the shared tiles are padded by one word so the 16 threads that read 16
-//   different K rows hit 16 different banks. At D = 256 the Q, K, V and P
-//   tiles take 210 KB of shared memory, one block an SM.
+//   CUDA cores (TF32 would not hold the fp32 tolerance, atol 2e-5; a split
+//   TF32 form on the tensor cores is left for later), bound by the fp32 FMA
+//   peak. It also takes integers and mixed types (on float32 copies) and
+//   16-bit and fp8 rows at Dp 16 and 32 that TMA cannot load. Its parent
+//   (4 x 4 logits a thread, K and V loaded between two barriers a tile)
+//   spent a third of a warp's time on the loads and ran its products at
+//   ~2 FMAs a shared-memory word, where an SM issues 4 FFMAs for every
+//   32-bit word its shared memory delivers (`flash_phases.py --body fma`,
+//   PERF.md). So (`FmaRing`):
+//   - register tiles: a thread's Q K^T is an 8 x 8 tile of logits (8 query
+//     rows, 8 keys KG apart), its 4-column pieces of D read as one LDS.128
+//     of Q and one of K a row: 16 LDS.128 for 256 FFMAs, 4 a word. Q, K and
+//     V keep their [row][d] layout (rows padded by 8 words, so the 4 key
+//     groups and 2 pieces of a quarter-warp hit 8 different 16-byte bank
+//     groups); the KSPLIT threads of a tile split D (BM = 128, BN = 64: 2;
+//     at D = 256, BM = 64, BN = 32: 8) and fold their partial tiles by
+//     shuffles into RS = 8 / KSPLIT rows each for the softmax. P V takes
+//     an 8-row x OC-column tile of the output (OC = 8 at D 128 and 256),
+//     P stored transposed ([key][row]) so a key's 8 rows are two LDS.128
+//     and V's 8 columns two more: 64 FFMAs for 16 words;
+//   - loads under the arithmetic: K and V go through a ring of 3 slots (4
+//     below and at D = 256) filled by a producer warpgroup, the AMI at tile
+//     granularity: aload = cp.async of 16-byte pieces for float32 rows of
+//     whole pieces (zero-filled past dh and S), whose completion makes
+//     each lane's arrival on the slot's full mbarrier; other rows by
+//     element, widened to fp32 as they are loaded, each lane arriving after
+//     its stores. getfin = the consumers' wait on the full barrier; each
+//     consumer warp arrives on the slot's empty barrier once it has read
+//     it, and the producer refills a slot only after all 8 have. Q goes
+//     first, into its own buffer. Two consumer barriers a tile remain
+//     (P^T and alpha written, then read);
+//   - the tiles left to a block are those of causality and the window
+//     (`kt_lo`, `kt_hi`); the query tile is the slowest grid dimension,
+//     heaviest first across all heads and batches (the parent's grid took
+//     a head's tiles in turn, and its last wave held heavy tiles); the mask
+//     only
+//     where a tile straddles S, the diagonal or the window edge;
+//   - p = 2^(s * scale * log2 e - m), one FFMA and one ex2.approx, m in
+//     log2 units (the mma body's NO_KEY rule for a row with no key yet);
+//   - one block of 8 consumer warps and the producer warpgroup an SM (209
+//     KB of shared memory at D = 128, 212 KB at 256): the registers of the
+//     8 x 8 tiles, not the shared memory, bound the warps an SM, and the
+//     ring, not a second block, keeps the loads under the arithmetic. A
+//     block of 288 or 384 threads is allotted 168 registers a thread, which
+//     spilled the tiles (ptxas: 112-392 bytes, at 0.968 ms where the
+//     parent took 1.10), so the producers lower theirs to 40 with
+//     setmaxnreg and the consumers raise theirs to 232.
 // * bfloat16, D = 64, 128 or 256 -> `flash_wgmma_kernel`, designed for
 //   Hopper:
 //   - two consumer warpgroups of 64 query rows each (BM = 128) and a
@@ -181,9 +223,9 @@
 //   - the output is stored one value at a time (a row may start at any
 //     element), columns < D only.
 // The rest of those rows takes the fma body, which reads any type by
-// element and computes in fp32 (slow, and right): Dp of 16 or 32, and above
-// 256. So the rule, stated also in `flash_attention_body` and in the
-// wrapper's `body_for`: fp32 -> fma; bf16 / f16, D % 8 == 0 -> wgmma where
+// element and computes in fp32: Dp of 16 or 32, and above 256. So the
+// rule, stated also in `flash_attention_body` and in the wrapper's
+// `body_for`: fp32 -> fma; bf16 / f16, D % 8 == 0 -> wgmma where
 // Dp >= 64, mma.sync where Dp <= 32; bf16 / f16, D % 8 != 0 -> wgmma with
 // the element loader where Dp is 64 to 256, else fma; fp8 (e4m3fn, e5m2) ->
 // wgmma where D % 16 == 0 and Dp is 64 to 256, the element loader at the
@@ -252,7 +294,8 @@
 //   - the fma body (`flash_fma_wide_kernel`, fp32 and 16-bit rows of no whole
 //     pieces) takes chunks of 256 output columns at every D above 256, each
 //     block computing all of Q K^T from 64-column pieces of Q and K loaded
-//     by element.
+//     by element (the parent's design of the fma body below 256: 4 x 4
+//     logits a thread, loads between barriers; not yet redesigned).
 // `flash_attention_wide_blocks` states the blocks a query tile each takes.
 // Rules (a)-(c) hold for every chunk and warpgroup: columns past D load as
 // zeros (TMA's zero fill, the element loads' mask), a block or warpgroup
@@ -293,190 +336,385 @@ template <> struct Op16<__half> {
 
 constexpr int BM = 64;        // query rows per block
 constexpr int BN = 64;        // keys per tile
+// below any real logit in log2 units, above any masked one (NEG_INF times
+// the scale): the running max of a row that has met no key yet
+constexpr float NO_KEY = NEG_INF * 1e-10f;
 
 // ---------------------------------------------------------------------------
-// float32 on the CUDA cores. 256 threads: 16 (ty, rows) x 16 (tx, columns).
-constexpr int NT = 256;
-constexpr int RPT = 4;        // rows per thread: ty*4 .. ty*4+3
-constexpr int CPT = 4;        // logit columns per thread: tx + 16*j
-constexpr int PS = BN + 4;    // row stride of the P tile (see bank note below)
+// float32 on the CUDA cores, the fma body (its design: the note at the top).
+// One block of FMA_NT consumer threads and a producer warpgroup a query
+// tile; the producers lower their registers to FMA_P_REGS so that the
+// consumers can raise theirs to FMA_C_REGS (384 threads are allotted 168
+// registers a thread: 128 x 40 + 256 x 232 = 384 x 168).
+constexpr int FMA_NT = 256;       // consumer threads: 8 warps
+constexpr int FMA_PT = 128;       // producer threads: a warpgroup
+constexpr int FMA_P_REGS = 40, FMA_C_REGS = 232;
+constexpr int FMA_PAD = 8;        // words past D in a row of Q, K and V
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
-template <int D> struct FmaCfg {
-  static constexpr int WS = D + 1;                // padded row stride (floats)
-  static constexpr int WPT = (D + 15) / 16;       // output columns per thread
+// The tiles of the body at head size D (Dp). A thread's Q K^T is an 8 x 8
+// tile of logits (8 query rows, 8 keys) summed over its share of D, one of
+// KSPLIT threads that split D between them; its P V an 8-row x OC-column
+// tile of the output, over every key of the tile.
+template <int D> struct FmaRing {
+  static constexpr int BMF = D == 256 ? 64 : 128;   // query rows a block
+  static constexpr int BNF = D == 256 ? 32 : 64;    // keys a K or V tile
+  static constexpr int KSPLIT = FMA_NT * 64 / (BMF * BNF);   // 2 or 8
+  static constexpr int KG = BNF / 8;                // key groups
+  static constexpr int RS = 8 / KSPLIT;             // softmax rows a thread
+  static constexpr int NCH = D / 4 / KSPLIT;        // 4-column pieces a thread
+  static constexpr int OC = BMF * D / (8 * FMA_NT); // output columns a thread
+  static constexpr int CG = D / OC;                 // column groups
+  static constexpr int SLOTS = D == 128 ? 3 : 4;    // ring slots (K or V)
+  static constexpr int WS = D + FMA_PAD;            // row stride (floats)
+  static constexpr int PS = BMF + 4;                // row stride of P^T
+  static constexpr int Q_WORDS = BMF * WS;
+  static constexpr int SLOT_WORDS = BNF * WS;
+  // barriers (full, empty a slot, q_full), then Q, the slots, P^T, alpha
+  // and the row sums
+  static constexpr int BAR_BYTES = 16 * (SLOTS + 1);
   static constexpr size_t SMEM =
-      sizeof(float) * ((size_t)(BM + 2 * BN) * WS + BM * PS);
+      BAR_BYTES + sizeof(float) * ((size_t)Q_WORDS + SLOTS * SLOT_WORDS +
+                                   BNF * PS + 2 * BMF);
+  static_assert(KSPLIT * BMF * BNF == FMA_NT * 64, "whole logit tiles");
+  static_assert(OC * CG == D && (BMF / 8) * CG == FMA_NT, "whole O tiles");
+  static_assert(OC == 8 || OC <= 4, "one vector, or two of 4");
+  static_assert(SMEM <= 232448, "one block an SM");
 };
 
-// rows [row0, row0 + ROWS) of a [*, D] operand -> shared memory as fp32,
-// zero past S. EXACT (fp32 at D == Dp): 16-byte loads. Otherwise one element
-// a load, columns dh .. D-1 zero (the operand's rows are dh wide).
-template <typename E, int D, int ROWS, bool EXACT>
-__device__ __forceinline__ void load_tile_f32(float* dst, const E* src,
-                                              long long row_stride, int row0,
-                                              int S, int dh) {
-  if constexpr (EXACT) {
-    static_assert(sizeof(E) == 4, "16-byte loads of fp32 rows only");
-    constexpr int CPR = D / 4;                    // 16-byte chunks per row
-    for (int idx = threadIdx.x; idx < ROWS * CPR; idx += NT) {
-      const int r = idx / CPR, c = idx % CPR;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row0 + r < S)
-        val = *reinterpret_cast<const float4*>(src + (row0 + r) * row_stride +
-                                               c * 4);
-      float* p = dst + r * FmaCfg<D>::WS + c * 4;
-      p[0] = val.x; p[1] = val.y; p[2] = val.z; p[3] = val.w;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * D; idx += NT) {
-      const int r = idx / D, c = idx % D;
-      const bool in = row0 + r < S && c < dh;
-      dst[r * FmaCfg<D>::WS + c] =
-          in ? to_float(src[(row0 + r) * row_stride + c]) : 0.f;
+// The producer warpgroup's aload of `rows` rows (row0 on; zeros past S) of
+// a [*, D] operand into a shared tile of row stride WS, thread `pt` of
+// FMA_PT: rows of whole 16-byte pieces (`pieces`: float32, dh, the strides
+// and the start multiples of 4 floats) by cp.async, 16 bytes a request,
+// zero-filled past dh and S, each thread's arrival on `bar` made by the
+// completion of its copies; other rows by element, widened to float32 as
+// they are loaded, columns dh .. D - 1 zero, each thread arriving after its
+// stores.
+template <typename E, int D, int ROWS>
+__device__ __forceinline__ void fma_aload(float* dst, const E* src,
+                                          long long row_stride, int row0,
+                                          int S, int dh, bool pieces,
+                                          uint64_t* bar, int pt) {
+  constexpr int WS = FmaRing<D>::WS;
+  if constexpr (sizeof(E) == 4) {
+    if (pieces) {
+      constexpr int CPR = D / 4;                  // 16-byte pieces a row
+      const uint32_t base = hopper::smem_u32(dst);
+#pragma unroll 4
+      for (int i = pt; i < ROWS * CPR; i += FMA_PT) {
+        const int r = i / CPR, c = i % CPR;
+        const bool in = row0 + r < S && c * 4 < dh;
+        const E* from = in ? src + (row0 + r) * row_stride + c * 4 : src;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         base + (uint32_t)((r * WS + c * 4) * 4)),
+                     "l"(from), "r"(in ? 16 : 0)
+                     : "memory");
+      }
+      asm volatile(
+          "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+              hopper::smem_u32(bar))
+          : "memory");
+      return;
     }
   }
+  constexpr int U = 8;                            // loads in flight a thread
+  for (int i0 = pt; i0 < ROWS * D; i0 += FMA_PT * U) {
+    float x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + FMA_PT * u, r = i / D, c = i % D;
+      x[u] = i < ROWS * D && row0 + r < S && c < dh
+                 ? to_float(src[(row0 + r) * row_stride + c])
+                 : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + FMA_PT * u;
+      if (i < ROWS * D) dst[(i / D) * WS + i % D] = x[u];
+    }
+  }
+  hopper::mbar_arrive(bar);                       // release: the stores
+}
+
+// Barrier 1 over the consumer threads only (the producer warp runs on).
+__device__ __forceinline__ void fma_consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(FMA_NT) : "memory");
+}
+
+// One step of the fold of the KSPLIT partial logit tiles: the thread and
+// its partner lane ^ OFF hold rows [0, N) summed over their own columns of
+// D; each keeps one half of the rows (the upper where bit OFF of its lane is
+// set) with the partner's sum of them added.
+template <int OFF, int N>
+__device__ __forceinline__ void fold_rows(float (&s)[8][8], int lane) {
+  const bool upper = lane & OFF;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float send = upper ? s[i][j] : s[i + N / 2][j];
+      const float keep = upper ? s[i + N / 2][j] : s[i][j];
+      s[i][j] = keep + __shfl_xor_sync(FULL_MASK, send, OFF);
+    }
 }
 
 template <typename E, int D, bool EXACT>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(FMA_NT + FMA_PT, 1)
 flash_fma_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                 const E* __restrict__ v, E* __restrict__ o, int S,
-                 int group, int causal, int window, float scale, int dh,
-                 long long q_sb, long long q_sh, long long q_ss,
+                 const E* __restrict__ v, E* __restrict__ o, int S, int Hq,
+                 int group, int causal, int window, float scale_log2, int dh,
+                 int pieces, long long q_sb, long long q_sh, long long q_ss,
                  long long k_sb, long long k_sh, long long k_ss,
                  long long v_sb, long long v_sh, long long v_ss,
                  long long o_sb, long long o_sh, long long o_ss) {
-  constexpr int WS = FmaCfg<D>::WS, WPT = FmaCfg<D>::WPT;
+  using C = FmaRing<D>;
+  using hopper::fast_exp2;
+  using hopper::mbar_arrive;
+  using hopper::mbar_wait;
+  constexpr int BMF = C::BMF, BNF = C::BNF, KSPLIT = C::KSPLIT, KG = C::KG;
+  constexpr int RS = C::RS, OC = C::OC, CG = C::CG, WS = C::WS, PS = C::PS;
+  constexpr int SLOTS = C::SLOTS;
   const int Dh = EXACT ? D : dh;                  // columns of the output
-  extern __shared__ float smem_f32[];
-  float* Qs = smem_f32;
-  float* Ks = Qs + BM * WS;
-  float* Vs = Ks + BN * WS;
-  float* Ps = Vs + BN * WS;
+  extern __shared__ __align__(16) unsigned char smem_fma[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_fma);   // a slot landed
+  uint64_t* empty = full + SLOTS;                 // a slot read by all
+  uint64_t* q_full = empty + SLOTS;               // Q landed
+  float* Qs = reinterpret_cast<float*>(smem_fma + C::BAR_BYTES);
+  float* ring = Qs + C::Q_WORDS;
+  float* Pt = ring + SLOTS * C::SLOT_WORDS;       // P^T [key][row]
+  float* alpha_s = Pt + BNF * PS;                 // a row's alpha
+  float* lsum_s = alpha_s + BMF;                  // a row's sum at the end
 
-  const int qt = gridDim.x - 1 - blockIdx.x;      // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+  // the query tile is the slowest grid dimension, heaviest first across
+  // all heads and batches, so that causal attention's light tiles fill the
+  // last wave
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
   const int hk = h / group;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = qt * BM;
-
-  const E* qb = q + b * q_sb + h * q_sh;
-  const E* kb = k + b * k_sb + hk * k_sh;
-  const E* vb = v + b * v_sb + hk * v_sh;
-
-  load_tile_f32<E, D, BM, EXACT>(Qs, qb, q_ss, q0, S, dh);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int q0 = qt * BMF;
 
   // KV tiles that causality and the window leave to this query tile
-  const int nkt = (S + BN - 1) / BN;
-  const int q_last = min(q0 + BM, S) - 1;
-  const int kt_hi = causal ? min(nkt, q_last / BN + 1) : nkt;
+  const int nkt = (S + BNF - 1) / BNF;
+  const int q_last = min(q0 + BMF, S) - 1;
+  const int kt_hi = causal ? min(nkt, q_last / BNF + 1) : nkt;
   int kt_lo = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BN;
+  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BNF;
+  const int items = 2 * max(kt_hi - kt_lo, 0);    // K, V of each tile
 
-  float m[RPT], l[RPT], acc[RPT][WPT];
+  if (tid < SLOTS) {
+    hopper::mbar_init(&full[tid], FMA_PT);        // the producers
+    hopper::mbar_init(&empty[tid], FMA_NT / 32);  // the consumer warps
+  }
+  if (tid == SLOTS) hopper::mbar_init(q_full, FMA_PT);
+  hopper::fence_barrier_init();
+  __syncthreads();
+
+  if (tid >= FMA_NT) {            // the producers: Q, then K and V in turn
+    hopper::setmaxnreg_dec<FMA_P_REGS>();
+    const int pt = tid - FMA_NT;
+    fma_aload<E, D, BMF>(Qs, q + b * q_sb + h * q_sh, q_ss, q0, S, dh,
+                         pieces, q_full, pt);
+    const E* kb = k + b * k_sb + hk * k_sh;
+    const E* vb = v + b * v_sb + hk * v_sh;
+    for (int it = 0; it < items; ++it) {
+      const int slot = it % SLOTS;
+      if (it >= SLOTS)            // every consumer warp has left the slot
+        mbar_wait(&empty[slot], (uint32_t)((it / SLOTS - 1) & 1));
+      const int k0 = (kt_lo + it / 2) * BNF;
+      float* dst = ring + slot * C::SLOT_WORDS;
+      if (it & 1)
+        fma_aload<E, D, BNF>(dst, vb, v_ss, k0, S, dh, pieces, &full[slot],
+                             pt);
+      else
+        fma_aload<E, D, BNF>(dst, kb, k_ss, k0, S, dh, pieces, &full[slot],
+                             pt);
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<FMA_C_REGS>();
+
+  // Q K^T and the softmax: logit tile (rg, kg) of rows rg * 8 .. + 7 and
+  // keys kg + KG j, its columns of D split into 4-column pieces part +
+  // KSPLIT i among the KSPLIT lanes next to each other that hold it
+  const int part = tid % KSPLIT, tile = tid / KSPLIT;
+  const int rg = tile / KG, kg = tile % KG;
+  const int rbase = rg * 8 + part * RS;           // the softmax's rows
+  // P V: rows org * 8 .. + 7, columns (OC = 8) 4 cg .. + 3 and D / 2 + 4 cg
+  // .. + 3, else OC cg .. + OC - 1
+  const int org = tid / CG, cg = tid % CG;
+  auto col = [&](int c) {
+    return OC == 8 ? (c < 4 ? 4 * cg + c : D / 2 + 4 * cg + c - 4)
+                   : OC * cg + c;
+  };
+
+  float m[RS], l[RS];                             // m in log2 units
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
+  for (int i = 0; i < RS; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < WPT; ++c) acc[i][c] = 0.f;
   }
+  float acc[8][OC];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
 
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();              // the last tile's readers are done
-    load_tile_f32<E, D, BN, EXACT>(Ks, kb, k_ss, k0, S, dh);
-    load_tile_f32<E, D, BN, EXACT>(Vs, vb, v_ss, k0, S, dh);
-    __syncthreads();
-
-    // logits: rows ty*4+i, columns tx+16*j. The 16 tx of a half-warp read 16
-    // K rows whose stride WS is odd: 16 different banks. The two ty of a warp
-    // read the same K words (broadcast) and Q rows 4*WS words apart.
-    float s[RPT][CPT];
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < items; it += 2) {
+    const int k0 = (kt_lo + it / 2) * BNF;
+    const int sk = it % SLOTS, sv = (it + 1) % SLOTS;
+    const float* Ks = ring + sk * C::SLOT_WORDS;
+    const float* Vs = ring + sv * C::SLOT_WORDS;
+    mbar_wait(&full[sk], (uint32_t)((it / SLOTS) & 1));     // getfin: K
+    float s[8][8];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int w = 0; w < D; ++w) {
-      float a[RPT], bb[CPT];
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    // 8 rows of Q and 8 keys of K a 4-column piece: 16 LDS.128 for 256
+    // FFMAs, 4 a word read
+#pragma unroll 2
+    for (int ci = 0; ci < C::NCH; ++ci) {
+      const int c = 4 * (part + KSPLIT * ci);
+      float4 qv[8];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) a[i] = Qs[(ty * RPT + i) * WS + w];
+      for (int i = 0; i < 8; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(Qs + (rg * 8 + i) * WS + c);
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) bb[j] = Ks[(tx + 16 * j) * WS + w];
+      for (int j = 0; j < 8; ++j) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(Ks + (kg + KG * j) * WS + c);
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
-    }
-
-    // mask, online softmax; P goes to shared memory for the second product.
-    // PS = BN + 4 puts the two ty of a warp 16 banks apart.
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = q0 + ty * RPT + i;
-      float tmax = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = k0 + tx + 16 * j;
-        bool ok = c < S;
-        if (causal) ok = ok && (c <= r);
-        if (window > 0) ok = ok && (c > r - window);
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
-        tmax = fmaxf(tmax, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_new = fmaxf(m[i], tmax);
-      const float alpha = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        psum += p;
-        Ps[(ty * RPT + i) * PS + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + psum;     // this thread's share of the row sum
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < WPT; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P V: rows ty*4+i, output columns tx+16*jj
-#pragma unroll 4
-    for (int n = 0; n < BN; ++n) {
-      float p[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) p[i] = Ps[(ty * RPT + i) * PS + n];
-#pragma unroll
-      for (int jj = 0; jj < WPT; ++jj) {
-        const int c = tx + 16 * jj;
-        if (c < D) {
-          const float vv = Vs[n * WS + c];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) acc[i][jj] = fmaf(p[i], vv, acc[i][jj]);
+        for (int i = 0; i < 8; ++i) {
+          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
         }
       }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[sk]);       // K's slot is free
+    // the KSPLIT partial tiles summed: this lane keeps RS rows of them
+    if constexpr (KSPLIT == 2) {
+      fold_rows<1, 8>(s, lane);
+    } else {
+      fold_rows<4, 8>(s, lane);
+      fold_rows<2, 4>(s, lane);
+      fold_rows<1, 2>(s, lane);
+    }
+    // every consumer is past the last tile's P V: P^T and alpha are free
+    fma_consumers_sync();
+    // mask only where the tile straddles S, the diagonal or the window edge
+    const bool straddles = k0 + BNF > S || (causal && k0 + BNF - 1 > q0) ||
+                           (window > 0 && k0 <= q0 + BMF - 1 - window);
+#pragma unroll
+    for (int i = 0; i < RS; ++i) {
+      const int r = q0 + rbase + i;
+      if (straddles) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = k0 + kg + KG * j;
+          bool ok = c < S;
+          if (causal) ok = ok && c <= r;
+          if (window > 0) ok = ok && c > r - window;
+          if (!ok) s[i][j] = NEG_INF;
+        }
+      }
+      // the row max on the raw logits (the scale is positive), over the
+      // KG lanes of the row's keys
+      float tmax = s[i][0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) tmax = fmaxf(tmax, s[i][j]);
+#pragma unroll
+      for (int off = KSPLIT; off < KSPLIT * KG; off <<= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(FULL_MASK, tmax, off));
+      // p = 2^(s * scale * log2 e - m): one FFMA and one ex2. A row that
+      // has met no key yet has its max at the mask's level: subtract 0
+      // there, so that its masked p are 2^-1e29 = 0
+      const float mn = fmaxf(m[i], tmax * scale_log2);
+      const float alpha = fast_exp2(m[i] - mn);
+      const float sub = mn > NO_KEY ? mn : 0.f;
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = fast_exp2(fmaf(s[i][j], scale_log2, -sub));
+        psum += p;
+        Pt[(kg + KG * j) * PS + rbase + i] = p;
+      }
+      l[i] = l[i] * alpha + psum;     // this lane's share of the row sum
+      m[i] = mn;
+      if (kg == 0) alpha_s[rbase + i] = alpha;
+    }
+    fma_consumers_sync();             // P^T and alpha are written
+
+    // acc = acc alpha + P V: 8 rows of P^T and 8 columns of V a key, 4
+    // LDS.128 for 64 FFMAs
+    {
+      const float4 a0 = *reinterpret_cast<const float4*>(alpha_s + org * 8);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(alpha_s + org * 8 + 4);
+      const float al[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < OC; ++c) acc[i][c] *= al[i];
+    }
+    mbar_wait(&full[sv], (uint32_t)(((it + 1) / SLOTS) & 1));   // getfin: V
+#pragma unroll 4
+    for (int n = 0; n < BNF; ++n) {
+      const float4 p0 = *reinterpret_cast<const float4*>(Pt + n * PS + org * 8);
+      const float4 p1 =
+          *reinterpret_cast<const float4*>(Pt + n * PS + org * 8 + 4);
+      const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      float vv[OC];
+      const float* vrow = Vs + n * WS;
+      if constexpr (OC == 8) {
+        const float4 v0 = *reinterpret_cast<const float4*>(vrow + 4 * cg);
+        const float4 v1 =
+            *reinterpret_cast<const float4*>(vrow + D / 2 + 4 * cg);
+        vv[0] = v0.x; vv[1] = v0.y; vv[2] = v0.z; vv[3] = v0.w;
+        vv[4] = v1.x; vv[5] = v1.y; vv[6] = v1.z; vv[7] = v1.w;
+      } else if constexpr (OC == 4) {
+        const float4 v0 = *reinterpret_cast<const float4*>(vrow + 4 * cg);
+        vv[0] = v0.x; vv[1] = v0.y; vv[2] = v0.z; vv[3] = v0.w;
+      } else if constexpr (OC == 2) {
+        const float2 v0 = *reinterpret_cast<const float2*>(vrow + 2 * cg);
+        vv[0] = v0.x; vv[1] = v0.y;
+      } else {
+        vv[0] = vrow[cg];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < OC; ++c) acc[i][c] = fmaf(pr[i], vv[c], acc[i][c]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[sv]);       // V's slot is free
   }
 
+  // the row sums over the KG lanes of each row, through shared memory to
+  // the rows of the output tiles
+#pragma unroll
+  for (int i = 0; i < RS; ++i) {
+    float x = l[i];
+#pragma unroll
+    for (int off = KSPLIT; off < KSPLIT * KG; off <<= 1)
+      x += __shfl_xor_sync(FULL_MASK, x, off);
+    if (kg == 0) lsum_s[rbase + i] = x;
+  }
+  fma_consumers_sync();
   E* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    float lsum = l[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
-    const float inv = 1.f / fmaxf(lsum, 1e-30f);
-    const int r = q0 + ty * RPT + i;
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + org * 8 + i;
     if (r < S) {
+      const float inv = 1.f / fmaxf(lsum_s[org * 8 + i], 1e-30f);
 #pragma unroll
-      for (int jj = 0; jj < WPT; ++jj) {
-        const int c = tx + 16 * jj;
-        if (c < Dh) ob[r * o_ss + c] = from_float<E>(acc[i][jj] * inv);
-      }
+      for (int c = 0; c < OC; ++c)
+        if (EXACT || col(c) < Dh)
+          ob[r * o_ss + col(c)] = from_float<E>(acc[i][c] * inv);
     }
   }
 }
@@ -484,13 +722,19 @@ flash_fma_kernel(const E* __restrict__ q, const E* __restrict__ k,
 // ---------------------------------------------------------------------------
 // The fma body above 256 columns (fp32 at D > 256, 16-bit rows of no whole
 // 16-byte pieces, and mixed types, whose operands the wrapper widens to
-// fp32): a block owns WIDE_DC output columns [c0, c0 + WIDE_DC) of its query
-// tile. Q K^T runs over all dh columns in pieces of PW: a Q piece and a K
-// piece at a time in shared memory, the 4x4 logit tile of a thread summed
-// over the pieces; then the softmax as above and P V over the V tile's
-// WIDE_DC columns of this block only. Q is read again for every KV tile (it
-// no longer fits beside K and V) and each block of a query tile repeats
-// Q K^T: at D = 512, two chunks, 1.5x the operations of one pass.
+// fp32), 256 threads: 16 (ty, rows) x 16 (tx, columns), a 4x4 logit tile a
+// thread. A block owns WIDE_DC output columns [c0, c0 + WIDE_DC) of its
+// query tile. Q K^T runs over all dh columns in pieces of PW: a Q piece
+// and a K piece at a time in shared memory, the 4x4 logit tile of a thread
+// summed over the pieces; then the softmax and P V over the V tile's
+// WIDE_DC columns of this block only. Q is read again for every KV tile
+// (it no longer fits beside K and V) and each block of a query tile
+// repeats Q K^T: at D = 512, two chunks, 1.5x the operations of one pass.
+constexpr int NT = 256;
+constexpr int RPT = 4;        // rows per thread: ty*4 .. ty*4+3
+constexpr int CPT = 4;        // logit columns per thread: tx + 16*j
+constexpr int PS = BN + 4;    // row stride of the P tile: the two ty of a
+                              // warp 16 banks apart
 constexpr int WIDE_DC = 256;  // output columns a block of the wide bodies
 
 struct FmaWide {
@@ -672,9 +916,6 @@ constexpr int MMA_NT = 128;
 // frees the slot the tile before it was read from
 constexpr int MMA_SLOTS = 3;
 static_assert(BM == BN, "the Q tile borrows a K slot");
-// below any real logit in log2 units, above any masked one (NEG_INF times
-// the scale): the running max of a row that has met no key yet
-constexpr float NO_KEY = NEG_INF * 1e-10f;
 
 template <typename T>
 __device__ __forceinline__ void mma_16816(float (&d)[4],
@@ -2389,6 +2630,17 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// Whether the fma body's loads of q, k, v go by 16-byte pieces (cp.async):
+// float32 rows of dh columns whose strides (st, elements) and starts are
+// multiples of 4 floats; else by element.
+bool fma_pieces(bool f32, const void* q, const void* k, const void* v,
+                int dh, const long long* st) {
+  bool ok = f32 && dh % 4 == 0 &&
+            ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  for (int i = 0; i < 9; ++i) ok = ok && st[i] % 4 == 0;
+  return ok;
+}
+
 template <int D, bool EXACT, typename E>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
                        int B, int Hq, int Hkv, int S, int dh, int causal,
@@ -2396,15 +2648,16 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
                        cudaStream_t stream) {
   static hopper::SmemAllowance allowance;
   auto kernel = flash_fma_kernel<E, D, EXACT>;
-  const size_t smem = FmaCfg<D>::SMEM;
+  const size_t smem = FmaRing<D>::SMEM;
   cudaError_t err = hopper::allow_smem(allowance, kernel, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + BM - 1) / BM, Hq, B);
-  kernel<<<grid, NT, smem, stream>>>(
+  dim3 grid(Hq * B, (S + FmaRing<D>::BMF - 1) / FmaRing<D>::BMF);
+  const int pieces = fma_pieces(std::is_same_v<E, float>, q, k, v, dh, st);
+  kernel<<<grid, FMA_NT + FMA_PT, smem, stream>>>(
       static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<E*>(o), S, Hq / Hkv, causal,
-      window, scale, dh, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11]);
+      static_cast<const E*>(v), static_cast<E*>(o), S, Hq, Hq / Hkv, causal,
+      window, scale * 1.4426950408889634f, dh, pieces, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 

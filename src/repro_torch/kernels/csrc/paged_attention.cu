@@ -158,8 +158,8 @@
 //     vectors of it, else one element a load, 0 past dh (`load_cols`).
 //
 // Above 256 columns, 16-bit caches under a q of their type with rows of
-// whole 16-byte pieces up to D = 512 (Dp = MMA_WIDE; `products`,
-// `wide_chunks`) take the tensor-core body above at Dp 512, a block's
+// whole 16-byte pieces up to D = 512 (Dp = MMA_WIDE; `products`) take the
+// tensor-core body above at Dp 512, a block's
 // segment the whole head, so K is read once and the grid has one
 // dimension. A slot holds `rows` rows of K and of V, 8 swizzled 128-byte
 // TMA boxes a row each (64 KB at 32 rows: 2 slots fit beside the rest).
@@ -181,28 +181,58 @@
 // layout B4 Hq16 Hkv2 T1032, D = 512 bf16, against ~0.033 now; with the
 // products off the critical path (a set's Q K^T and P V ~4k cycles), a
 // block's start before its first chunk and the last block's merge set the
-// pace (`paged_phases.py`, PERF.md). Above 512 the
-// wide body stays: a block over the whole head at D = 1024 would hold 64 P
-// V accumulators a lane beside acc's 32, past the ~120 registers a thread
-// of the 544-thread block has, and a slot of 32 rows would be 128 KB.
-// fp32 and fp8 caches, a q of another type and rows of no whole pieces take
-// the wide body at every D above 256.
+// pace (`paged_phases.py`, PERF.md). fp32 and fp8 caches, a q of another
+// type, rows of no whole pieces and every type above 512 take the wide
+// body on FMAs.
 //
-// The wide body (WIDE): a lane's D / 32 columns and the
-// slot's rows no longer fit (at D = 2048, 64 accumulators and 64 q values a
-// lane; 32 rows of K and V are 256 KB in bf16). The launch splits the
-// output into Dp / 256 chunks of 256 columns, a second grid dimension, each
-// with its own blocks over every valid row (the SMs shared among them: the
-// plan gives each chunk sms / chunks blocks), its own partials and tickets.
-// A slot holds all of a row's K columns (npk = Dp / 256 pieces of 256, in
-// 128-byte boxes, unswizzled) and the chunk's 256 V columns, so the plan
-// caps its rows at 64 KB a slot (SLOT_BYTES in paged_attention.py): at
-// D = 512 bf16 still 32, at 2048 fp32 7. Q K^T sums a lane's 8 columns of
-// every piece (q's piece loaded by element) before the one transpose
-// reduction; P V and the merge are the D = 256 body's. Rules (a)-(c): TMA
-// zero-fills past D (boxes wholly past it too), stores write columns
-// c0 + col < D only, the scale is 1 / sqrt(D). The cost: each chunk reads
-// all of K, so K is read Dp / 256 times (from L2 after the first).
+// The wide body (`paged_wide_kernel`): a block's segment is the whole head
+// up to 2048 columns, so each K and V row enters the ring once and each
+// row's logits are computed once. (Above 2048 the output is cut into
+// chunks of 2048 columns, a grid dimension, `wide_chunks`, each with its
+// own blocks, partials and tickets: each chunk's blocks take all of K's
+// pieces, the logits being over the whole head, and the chunk's of V; so
+// K is read once a chunk.) Before it, the output was cut into Dp / 256
+// chunks of 256 columns, each its own blocks over every valid row (sms /
+// chunks of them), its own partials and tickets, and a slot row held all
+// of K's columns: K was read Dp / 256 times, Q K^T computed as often, a
+// chunk's blocks were an eighth of the card at D = 2048 and a slot of fp32
+// rows at D = 2048 held 7 (0.2626 ms at qwen2.5-3b's decode layout at
+// D = 2048 bf16, 0.0773 at 1024; `paged_phases.py` showed the FMAs of Q
+// K^T, the softmax and P V taking 68-83% of a set's time). Now:
+//   - pieces through the ring: an aload is one piece of WIDE_DC columns of
+//     K or of V of `rows` rows (TMA boxes of 128 bytes a row, unswizzled;
+//     rows of no whole 16-byte pieces copied by element by the producer
+//     warp, columns past dh zero), a chunk of rows all of K's pieces, then
+//     the column chunk's V pieces, through a ring of as many slots as fit beside the
+//     accumulators (`wide_ring_slots`: 8 of 16 KB in bf16, 8 of 8 KB in
+//     fp8; in fp32 of 32 KB, 6 at D <= 512, 5 up to 1536, 4 above). getfin
+//     is the wait on a slot's full barrier; the 8 warps that read a piece
+//     free its slot;
+//   - both consumer sets take every chunk: warp (w, s) of set s takes query
+//     head w and the pieces of parity s, so each piece is read by 8 warps
+//     (once a head) and each warp holds the output columns of its pieces:
+//     at 2048 columns 4 pieces, 32 fp32 accumulators a lane;
+//   - Q K^T: a warp takes a lane's 8 columns of each of its K pieces as it
+//     lands, q's piece loaded by element, over every row of the chunk, and
+//     a transpose reduction a piece leaves the piece's part of row r on
+//     lane r (summing over the pieces before one reduction kept 32 sums
+//     live across the waits and spilled); the two parities' parts are
+//     added through shared memory (one barrier of the consumers a chunk,
+//     two buffers), and both warps of a head run the same softmax on the
+//     same sums (expf, as the reference);
+//   - P V: each warp rescales its accumulators by alpha and adds p_r V[r]
+//     over its V pieces, p_r broadcast by a shuffle. The accumulators of
+//     a warp's pieces live in shared memory (16 KB a piece a warp takes:
+//     64 KB at 2048 columns; sized to the head, so that a narrower head's
+//     ring is deeper: at fp32 D = 512 one piece, 6 slots where 64 KB left
+//     4, which held one chunk of rows), in registers only
+//     while P V runs over their piece: the 544-thread block has 96
+//     registers a thread, and holding them beside Q K^T's 32 partial sums
+//     spilled 650-1124 bytes (ptxas), at 0.1402 ms at D = 2048 bf16;
+//   - partials of D columns a head (of the chunk's), merged in the two
+//     levels of MERGE_GROUP, each warp its head's columns of its pieces;
+//   - rules (a)-(c): TMA zero-fills columns past D (boxes wholly past it
+//     too), stores write columns < D only, the scale is 1 / sqrt(D).
 //
 // Segments of several KV heads (HEADS, `kv_run`): at G < 8 query heads a KV
 // head (G dividing 8), a segment of one KV head leaves 8 - G of a set's 8
@@ -313,7 +343,8 @@ struct Args {
                                  // launches (groups: `ngroups`)
   int B, Hq, Hkv, T, G, ngc, rows, slots;
   int dh;                        // the real head size, <= D (see the note)
-  int npk;                       // the wide body's K pieces of D columns
+  int npk;                       // the wide body's pieces of WIDE_DC
+                                 // columns a head (Dp / WIDE_DC)
   long long q_sb, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh;
   float scale;
   int e5m2;                      // fp8 caches (fp8_any): e5m2, else e4m3fn
@@ -717,6 +748,149 @@ __device__ __forceinline__ void locate(const long long* P, int B, int hg,
   end = P[lo] * hg + (j + 1) * n;
 }
 
+// What follows is shared by the ring body (`paged_attention_kernel`) and
+// the wide body (`paged_wide_kernel`).
+//
+// A block's start: the ring's mbarriers (full: TMA's one arrival or the
+// producer warp's 32 lanes; empty: the GC warps that read a slot), the
+// tensor maps fetched while the lengths arrive, and by warp 0 the B + 1
+// prefix sums of the lengths, each clamped to [0, T], into P.
+__device__ __forceinline__ void block_start(const Args& a, uint64_t* full,
+                                            uint64_t* empty, long long* P,
+                                            bool tma, const CUtensorMap* kmap,
+                                            const CUtensorMap* vmap) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid < a.slots) {
+    mbar_init(&full[tid], tma ? 1 : 32);
+    mbar_init(&empty[tid], GC);
+  }
+  if (tma && tid == NT) {
+    asm volatile("prefetch.tensormap [%0];" ::"l"(kmap) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(vmap) : "memory");
+  }
+  if (tid < 32) {
+    long long carry = 0;
+    if (lane == 0) P[0] = 0;
+    for (int base = 0; base < a.B; base += 32) {
+      const int b = base + lane;
+      long long x = b < a.B ? (long long)min(max(a.lengths[b], 0), a.T) : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const long long y = __shfl_up_sync(FULL, x, off);
+        if (lane >= off) x += y;
+      }
+      if (b < a.B) P[b + 1] = carry + x;
+      carry += __shfl_sync(FULL, x, 31);
+    }
+  }
+  fence_barrier_init();
+  __syncthreads();
+}
+
+// Where the query heads of segment s of one KV head are, `hs` a group
+// (hg segments a sequence): sequence b, KV head h, first head g0, heads gn.
+__device__ __forceinline__ void group_of(const Args& a, int hg, int hs,
+                                         int s, int& b, int& h, int& g0,
+                                         int& gn) {
+  b = s / hg;
+  const int j = s % hg;
+  h = j / a.ngc;
+  g0 = (j % a.ngc) * hs;
+  gn = min(hs, a.G - g0);
+}
+
+// The first element of query head g0 + g of (b, h) in q and in out.
+__device__ __forceinline__ long long q_index(const Args& a, int b, int h,
+                                             int g0, int g) {
+  return (long long)b * a.q_sb + ((long long)h * a.G + g0 + g) * a.q_sh;
+}
+__device__ __forceinline__ long long out_index(const Args& a, int b, int h,
+                                               int g0, int g) {
+  return (long long)b * a.o_sb + ((long long)h * a.G + g0 + g) * a.o_sh;
+}
+
+// Segments with no valid row (lengths[b] <= 0) get 0, as in the reference
+// kernel: the blocks of the grid's first row, each every gridDim.x-th
+// segment; heads(s, b, h, g0, gn) places a segment, put(i, x) writes out's
+// element i, Dh columns a head.
+template <typename Heads, typename Put>
+__device__ __forceinline__ void zero_empty(const Args& a, const long long* P,
+                                           int hg, int Dh, Heads heads,
+                                           Put put) {
+  if (blockIdx.y != 0) return;
+  for (int s = blockIdx.x; s < a.B * hg; s += gridDim.x) {
+    if (P[s / hg + 1] != P[s / hg]) continue;
+    int b, h, g0, gn;
+    heads(s, b, h, g0, gn);
+    for (int i = threadIdx.x; i < gn * Dh; i += blockDim.x)
+      put(out_index(a, b, h, g0, i / Dh) + i % Dh, 0.f);
+  }
+}
+
+// The block's share of the W = P[B] hg valid rows of all segments laid end
+// to end: rows [lo, hi), `per` = ceil(W / gridDim.x) a block.
+__device__ __forceinline__ void block_share(const long long* P, int B, int hg,
+                                            long long& per, long long& lo,
+                                            long long& hi) {
+  const long long W = P[B] * hg;
+  per = (W + gridDim.x - 1) / gridDim.x;
+  lo = min((long long)blockIdx.x * per, W);
+  hi = min(lo + per, W);
+}
+
+// The blocks that share segment s of sequence b: the first and how many.
+__device__ __forceinline__ void segment_blocks(const long long* P, int b,
+                                               int hg, int s, long long per,
+                                               long long& first, int& count) {
+  const long long len = P[b + 1] - P[b];
+  const long long start = P[b] * hg + (s % hg) * len;
+  first = start / per;
+  count = (int)((start + len - 1) / per - first + 1);
+}
+
+// The merge of segment s's partials once this block's is written (partial
+// base + blockIdx.x - first of `parts`, `stride` floats each): one acq_rel
+// ticket publishes it (release, cumulative over the barrier) and lets the
+// last block see every other's (acquire); the last resets it for the next
+// call and merges them by merge(m_lo, m_n, m_st, dst): partials m_lo + i
+// m_st (i < m_n) into out, or into dst where dst is a partial. `grouped`
+// and more than MERGE_GROUP blocks: two levels, the last of each group of
+// MERGE_GROUP consecutive blocks merging the group's partials into its
+// first (a ticket a group in `gtickets`, `ngroups` a segment), the last of
+// those mergers the groups' into out.
+template <typename Merge>
+__device__ __forceinline__ void merge_partials(
+    bool grouped, int count, long long first, long long base, int s,
+    int* tickets, int* gtickets, int ngroups, float* parts, int stride,
+    Merge merge) {
+  consumers_sync();
+  long long m_lo = base;
+  int m_n = count, m_st = 1, last = 0;
+  if (grouped && count > MERGE_GROUP) {
+    const int grp = (int)(blockIdx.x - first) / MERGE_GROUP;
+    const int gsize = min(MERGE_GROUP, count - grp * MERGE_GROUP);
+    int* const gt = gtickets + (size_t)s * ngroups + grp;
+    if (threadIdx.x == 0) {
+      last = ticket_acq_rel(gt) == gsize - 1;
+      if (last) atomicExch(gt, 0);
+    }
+    if (!consumers_or(last)) return;
+    m_lo = base + (long long)grp * MERGE_GROUP;
+    merge(m_lo, gsize, 1, parts + m_lo * stride);
+    consumers_sync();                        // the group's partial is written
+    m_lo = base;
+    m_n = (count + MERGE_GROUP - 1) / MERGE_GROUP;
+    m_st = MERGE_GROUP;
+    last = 0;
+  }
+  if (threadIdx.x == 0) {
+    last = ticket_acq_rel(&tickets[s]) == m_n - 1;
+    if (last) atomicExch(&tickets[s], 0);
+  }
+  if (!consumers_or(last)) return;
+  merge(m_lo, m_n, m_st, nullptr);
+}
+
 // Columns a block of the wide body (D > 256) owns, and the width of each of
 // its K pieces.
 constexpr int WIDE_DC = 256;
@@ -738,12 +912,12 @@ __host__ __device__ constexpr int box_cols() {
 // products). TMA lays the boxes out under the swizzle of their row (128
 // bytes; fp8 at D = 64, 64 bytes) so that ldmatrix reads 8 rows without
 // bank conflicts. Other inputs take fp32 FMAs. (`products`: the host's rule.)
-template <typename E, typename EQ, int D, bool WIDE>
+template <typename E, typename EQ, int D>
 __host__ __device__ constexpr bool tensor_core_qk() {
   if constexpr (std::is_same_v<E, fp8_any>)
-    return D >= 64 && !WIDE && sizeof(typename QType<EQ>::mma) == 2;
+    return D >= 64 && sizeof(typename QType<EQ>::mma) == 2;
   else
-    return sizeof(E) == 2 && D >= 64 && std::is_same_v<E, EQ> && !WIDE;
+    return sizeof(E) == 2 && D >= 64 && std::is_same_v<E, EQ>;
 }
 
 // Two 16-bit elements in one register, for the q fragments.
@@ -760,9 +934,8 @@ template <> struct Pair2<__half> { using type = __half2; };
 // buffers a set (xch_floats(HS) each); then, from `ring` on the first
 // 1024-byte boundary,
 // the slots: K then V, each D / box_cols boxes of `rows` rows, a box
-// rounded up to 1024 bytes as the TMA swizzle wants. The wide body's slot
-// holds npk such K halves (all of a row's columns) and one V half (its
-// chunk's), its boxes rounded up to 128 bytes (no swizzle).
+// rounded up to 1024 bytes as the TMA swizzle wants. (The wide body's:
+// `wide_smem`.)
 struct PagedSmem {
   int P, comb, tacc, xch, ring;  // offsets
   int box, slot;                 // bytes of a box and of a slot
@@ -772,13 +945,10 @@ struct PagedSmem {
 // HEADS (a segment of `heads` KV heads): a half is one box of `rows` rows
 // of all those heads' dh columns, [rows][heads][dh] unpadded and
 // unswizzled, rounded up to 128 bytes.
-template <typename E, int D, bool WIDE = false, bool HEADS = false,
-          int HX = 1>
+template <typename E, int D, bool HEADS = false, int HX = 1>
 __host__ __device__ PagedSmem paged_smem(int B, int rows, int slots,
-                                         int npk = 1, int heads = 1,
-                                         int dh = D) {
+                                         int heads = 1, int dh = D) {
   constexpr int IN = box_cols<E, D>();
-  constexpr int ALIGN = WIDE ? 128 : 1024;
   constexpr int HS = GC * HX;
   static_assert(HX == 1 || 2 * (D + QPAD) <= 4 * D, "q fits in tacc");
   PagedSmem m;
@@ -791,8 +961,8 @@ __host__ __device__ PagedSmem paged_smem(int B, int rows, int slots,
     m.box = (rows * heads * dh * (int)sizeof(E) + 127) & ~127;
     m.slot = 2 * m.box;
   } else {
-    m.box = (rows * IN * (int)sizeof(E) + ALIGN - 1) & ~(ALIGN - 1);
-    m.slot = (npk + 1) * (D / IN) * m.box;
+    m.box = (rows * IN * (int)sizeof(E) + 1023) & ~1023;
+    m.slot = 2 * (D / IN) * m.box;
   }
   m.bytes = m.ring + 1024 + slots * m.slot;
   return m;
@@ -800,13 +970,60 @@ __host__ __device__ PagedSmem paged_smem(int B, int rows, int slots,
 
 // The deepest ring of at most MAX_SLOTS slots whose block fits in MAX_SMEM
 // (one block an SM), and its bytes; 0 slots where none fits.
-template <typename E, int D, bool WIDE = false, bool HEADS = false,
-          int HX = 1>
-int ring_slots(int B, int rows, int npk, int* smem, int heads = 1,
-               int dh = D) {
+template <typename E, int D, bool HEADS = false, int HX = 1>
+int ring_slots(int B, int rows, int* smem, int heads = 1, int dh = D) {
   for (int slots = MAX_SLOTS; slots >= 1; --slots) {
-    *smem = paged_smem<E, D, WIDE, HEADS, HX>(B, rows, slots, npk, heads, dh)
-                .bytes;
+    *smem = paged_smem<E, D, HEADS, HX>(B, rows, slots, heads, dh).bytes;
+    if (*smem <= MAX_SMEM) return slots;
+  }
+  return 0;
+}
+
+// The wide body (D > 256 on FMAs; the note at the top): the columns of a
+// block, WIDE_PIECES pieces of WIDE_DC, the whole head up to 2048.
+constexpr int WIDE_PIECES = 8;
+constexpr int WIDE_NPW = WIDE_PIECES / NSET;   // pieces a warp takes at most
+// The pieces a warp takes at a head of npk pieces (its accumulators').
+__host__ __device__ constexpr int wide_npw(int npk) {
+  return ((npk < WIDE_PIECES ? npk : WIDE_PIECES) + NSET - 1) / NSET;
+}
+
+// The wide body's shared memory, in bytes from its start: two mbarriers a
+// slot (loaded, released), the B + 1 prefix sums of the lengths, the
+// exchange of the logits' two parts (two buffers of [NSET][GC][32]
+// floats), the consumer warps' accumulators ([warp][piece][lane][8]
+// floats, `npw` pieces a warp: 16 KB a piece, 64 KB at 2048 columns, which
+// 96 registers a thread do not hold beside Q K^T's 32 partial sums), then,
+// from `ring` on the first 128-byte boundary, the
+// slots: each one piece of K or of V, `rows` rows x WIDE_DC columns in
+// boxes of box_cols columns, unswizzled, a box rounded up to 128 bytes.
+struct WideSmem {
+  int P, xch, acc, ring;         // offsets
+  int box, slot;                 // bytes of a box and of a slot
+  int bytes;                     // the whole, with 128 to align the slots
+};
+
+template <typename E>
+__host__ __device__ WideSmem wide_smem(int B, int rows, int slots,
+                                       int npw) {
+  constexpr int IN = box_cols<E, WIDE_DC>();
+  WideSmem m;
+  m.P = round16(2 * slots * 8);
+  m.xch = m.P + round16((B + 1) * 8);
+  m.acc = m.xch + 4 * 2 * NSET * GC * 32;
+  m.ring = m.acc + 4 * NSET * GC * npw * WIDE_DC;
+  m.box = (rows * IN * (int)sizeof(E) + 127) & ~127;
+  m.slot = (WIDE_DC / IN) * m.box;
+  m.bytes = m.ring + 128 + slots * m.slot;
+  return m;
+}
+
+// The deepest wide ring of at most MAX_SLOTS slots that fits in MAX_SMEM
+// beside the accumulators of npw pieces a warp.
+template <typename E>
+int wide_ring_slots(int B, int rows, int npw, int* smem) {
+  for (int slots = MAX_SLOTS; slots >= 1; --slots) {
+    *smem = wide_smem<E>(B, rows, slots, npw).bytes;
     if (*smem <= MAX_SMEM) return slots;
   }
   return 0;
@@ -872,22 +1089,20 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
 }
 
 // E: the caches' type; EQ: q's and out's (E, or q_as<M> where q's type is
-// another: a.qt); WIDE:
-// the chunk of D = WIDE_DC columns [c0, c0 + D) of a head of a.npk * D
-// columns (the note at the top); HEADS: a segment is a.heads KV heads of a
+// another: a.qt); HEADS: a segment is a.heads KV heads of a
 // sequence (the note at the top); HX: query heads a warp, 2 where a segment
 // serves 16 of one KV head (the note at the top).
-template <typename E, typename EQ, int D, bool EXACT, bool TMA, bool WIDE,
+template <typename E, typename EQ, int D, bool EXACT, bool TMA,
           bool HEADS = false, int HX = 1>
 __global__ void __launch_bounds__(NT + 32)
 paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap) {
-  static_assert(!HEADS || (TMA && !WIDE), "HEADS is a TMA ring's split");
+  static_assert(!HEADS || TMA, "HEADS is a TMA ring's split");
   constexpr int ITEM = sizeof(E);
   constexpr int IN = box_cols<E, D>();       // columns of a box
   constexpr int NBX = D / IN;                // boxes a row
   constexpr int EPL = D >= 32 ? D / 32 : 1;  // columns a lane
-  constexpr bool TC = TMA && !HEADS && tensor_core_qk<E, EQ, D, WIDE>();
+  constexpr bool TC = TMA && !HEADS && tensor_core_qk<E, EQ, D>();
   constexpr bool F8 = std::is_same_v<E, fp8_any>;
   using M = std::conditional_t<F8, typename QType<EQ>::mma, E>;  // TC's type
   static_assert(HX == 1 || (TC && HX == 2), "two heads a warp: mma only");
@@ -897,11 +1112,9 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   constexpr int HS = GC * HX;                // query heads a segment serves
   constexpr int ROWB = IN * ITEM;            // bytes of a box's row
   const int Dh = EXACT ? D : a.dh;           // columns of q and out
-  const int c0 = WIDE ? blockIdx.y * D : 0;  // the chunk's first column
   extern __shared__ __align__(1024) unsigned char smem[];
   const PagedSmem L =
-      paged_smem<E, D, WIDE, HEADS, HX>(a.B, a.rows, a.slots, a.npk,
-                                        a.box_heads, a.dh);
+      paged_smem<E, D, HEADS, HX>(a.B, a.rows, a.slots, a.box_heads, a.dh);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // a slot loaded
   uint64_t* empty = full + a.slots;                     // a slot released
   long long* P = reinterpret_cast<long long*>(smem + L.P);
@@ -914,8 +1127,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   unsigned char* slots = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem + L.ring) + 1023) & ~(uintptr_t)1023);
   const size_t box_bytes = L.box;
-  const size_t half_bytes =
-      HEADS ? box_bytes : (WIDE ? a.npk : 1) * NBX * box_bytes;   // K's
+  const size_t half_bytes = HEADS ? box_bytes : NBX * box_bytes;   // K's
   const size_t slot_bytes = L.slot;
   // element (r, d) of a slot's K (or V) half; under the swizzle of rows of
   // ROWB bytes (TC) the 16-byte piece p of row r sits at p ^ (r % 8) (128)
@@ -950,82 +1162,32 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
   const int kvh = HEADS ? hw / a.G : 0;
   const int dcols = HEADS ? a.dh : D;
   const int S = a.B * hg;
-  // a wide chunk's own partials and tickets
-  float* const parts = a.part + (WIDE ? (size_t)blockIdx.y *
-                                           (gridDim.x + S) * HS * (D + 2)
-                                     : 0);
-  // its segments' tickets, then (HX 2) a ticket a group of MERGE_GROUP
+  float* const parts = a.part;
+  // the segments' tickets, then (HX 2) a ticket a group of MERGE_GROUP
   // blocks of each segment
   const int ngroups = (gridDim.x + MERGE_GROUP - 1) / MERGE_GROUP;
-  int* const tickets =
-      a.tickets + (WIDE ? (size_t)blockIdx.y * S * (1 + ngroups) : 0);
+  int* const tickets = a.tickets;
   int* const gtickets = tickets + S;
 
-  if (tid < a.slots) {
-    mbar_init(&full[tid], tma ? 1 : 32);     // TMA's one, or the 32 lanes
-    mbar_init(&empty[tid], GC);   // the 8 warps of the set that took it
-  }
-  if (tma && tid == NT) {       // the descriptors, while the lengths arrive
-    asm volatile("prefetch.tensormap [%0];" ::"l"(&kmap) : "memory");
-    asm volatile("prefetch.tensormap [%0];" ::"l"(&vmap) : "memory");
-  }
-  if (warp == 0) {                           // prefix sums of the lengths
-    long long carry = 0;
-    if (lane == 0) P[0] = 0;
-    for (int base = 0; base < a.B; base += 32) {
-      const int b = base + lane;
-      long long x = b < a.B ? (long long)min(max(a.lengths[b], 0), a.T) : 0;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const long long y = __shfl_up_sync(FULL, x, off);
-        if (lane >= off) x += y;
-      }
-      if (b < a.B) P[b + 1] = carry + x;
-      carry += __shfl_sync(FULL, x, 31);
-    }
-  }
-  fence_barrier_init();
-  __syncthreads();
+  block_start(a, full, empty, P, tma, &kmap, &vmap);
 
-  // where segment s's query heads are: sequence, (first) KV head, first
-  // head, heads; HEADS: the a.G query heads of each of a.heads KV heads, or
-  // of one KV head a group of up to HS as below
+  // where segment s's query heads are (`group_of`); HEADS: the a.G query
+  // heads of each of a.heads KV heads, or of one KV head a group of up to
+  // HS as below
   auto heads = [&](int s, int& b, int& h, int& g0, int& gn) {
-    b = s / hg;
-    const int j = s % hg;
     if constexpr (HEADS) {
+      b = s / hg;
+      const int j = s % hg;
       h = j / a.ngc * a.heads;
       g0 = (j % a.ngc) * HS;
       gn = a.heads > 1 ? a.heads * a.G : min(HS, a.G - g0);
     } else {
-      h = j / a.ngc;
-      g0 = (j % a.ngc) * HS;
-      gn = min(HS, a.G - g0);
+      group_of(a, hg, HS, s, b, h, g0, gn);
     }
   };
-  // the first element of query head g0 + g of (b, h) in q and in out
-  auto q_at = [&](int b, int h, int g0, int g) {
-    return (long long)b * a.q_sb + ((long long)h * a.G + g0 + g) * a.q_sh;
-  };
-  auto out_at = [&](int b, int h, int g0, int g) {
-    return (long long)b * a.o_sb + ((long long)h * a.G + g0 + g) * a.o_sh;
-  };
-
-  // segments with no valid row get 0, a block taking every gridDim-th (of
-  // the first chunk: all of the head's columns)
-  for (int s = blockIdx.x; s < S && (!WIDE || blockIdx.y == 0);
-       s += gridDim.x) {
-    if (P[s / hg + 1] != P[s / hg]) continue;
-    int b, h, g0, gn;
-    heads(s, b, h, g0, gn);
-    for (int i = tid; i < gn * Dh; i += blockDim.x)
-      put(out_at(b, h, g0, i / Dh) + i % Dh, 0.f);
-  }
-
-  const long long W = P[a.B] * hg;           // valid rows of all segments
-  const long long per = (W + gridDim.x - 1) / gridDim.x;
-  const long long lo = min((long long)blockIdx.x * per, W);
-  const long long hi = min(lo + per, W);
+  zero_empty(a, P, hg, Dh, heads, put);
+  long long per, lo, hi;
+  block_share(P, a.B, hg, per, lo, hi);
   if (lo >= hi) return;
 
   // aload of chunk j (the rows from global row g) into slot j % slots;
@@ -1044,14 +1206,6 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
           bar, (uint32_t)(2 * a.rows * a.box_heads * a.dh * ITEM));
       tma_load_4d(dst, &kmap, bar, 0, c1, (int)t, b);
       tma_load_4d(dst + half_bytes, &vmap, bar, 0, c1, (int)t, b);
-    } else if constexpr (WIDE) {       // all of K's pieces, V's chunk
-      mbar_arrive_expect_tx(bar, (uint32_t)((a.npk + 1) * a.rows * D * ITEM));
-      for (int x = 0; x < a.npk * NBX; ++x)
-        tma_load_4d(dst + x * box_bytes, &kmap, bar, x * IN, h, (int)t, b);
-#pragma unroll
-      for (int x = 0; x < NBX; ++x)
-        tma_load_4d(dst + half_bytes + x * box_bytes, &vmap, bar,
-                    c0 + x * IN, h, (int)t, b);
     } else {
       mbar_arrive_expect_tx(bar, (uint32_t)(2 * a.rows * D * ITEM));
 #pragma unroll
@@ -1066,9 +1220,9 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
 
   // the element copy's aload: the producer warp copies chunk j (the rows
   // from global row g) into slot j % slots, and each lane arrives; returns
-  // the global row after the chunk. HEADS: rows of a.box_heads heads of dh
+  // the global row after the chunk: rows of a.box_heads heads of dh
   // columns, unpadded ([rows][heads][dh], as TMA lands a run), in loads of
-  // a.width bytes (`copy_units`); WIDE: by element, columns dh.. zero
+  // a.width bytes (`copy_units`)
   auto copy = [&](long long g, int j) -> long long {
     int s;
     long long t, end;
@@ -1077,49 +1231,15 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
     heads(s, b, h, g0, gn);
     const int n = (int)min((long long)a.rows, min(end, hi) - g);
     unsigned char* dst = slots + (size_t)(j % a.slots) * slot_bytes;
-    if constexpr (HEADS) {
-      const int hb = h - h % a.box_heads;     // the slot's first KV head
-      const unsigned char* kr = static_cast<const unsigned char*>(a.k) +
-                                (b * a.k_sb + t * a.k_st + hb * a.k_sh) * ITEM;
-      const unsigned char* vr = static_cast<const unsigned char*>(a.v) +
-                                (b * a.v_sb + t * a.v_st + hb * a.v_sh) * ITEM;
-      const CopyRows c{kr, vr, dst, dst + half_bytes, a.k_st * ITEM,
-                       a.k_sh * ITEM, a.v_st * ITEM, a.v_sh * ITEM, n,
-                       a.box_heads, a.dh * ITEM / a.width};
-      copy_units(c, lane, a.width, &full[j % a.slots]);
-      return g + n;
-    } else if constexpr (WIDE) {   // K: all npk * D columns; V: the chunk's D
-      const E* kr = static_cast<const E*>(a.k) + b * a.k_sb + t * a.k_st +
-                    h * a.k_sh;
-      const E* vr = static_cast<const E*>(a.v) + b * a.v_sb + t * a.v_st +
-                    h * a.v_sh;
-      constexpr int UNROLL = 8;              // loads in flight a lane
-      const int kw = a.npk * D;
-      for (int kv = 0; kv < 2; ++kv) {       // K, then V
-        const E* src = kv ? vr : kr;
-        const long long st = kv ? a.v_st : a.k_st;
-        const int w = kv ? D : kw, col0 = kv ? c0 : 0;
-        unsigned char* to = dst + (kv ? half_bytes : 0);
-        const int total = n * w;
-        for (int i0 = lane; i0 < total; i0 += 32 * UNROLL) {
-          E x[UNROLL];
-#pragma unroll
-          for (int u = 0; u < UNROLL; ++u) {
-            const int i = i0 + 32 * u, r = i / w, c = i % w;
-            x[u] = i < total ? col_or_zero(src + r * st, col0 + c, a.dh)
-                             : zero<E>();
-          }
-#pragma unroll
-          for (int u = 0; u < UNROLL; ++u) {
-            const int i = i0 + 32 * u, r = i / w, c = i % w;
-            if (i < total)
-              *reinterpret_cast<E*>(to + (c / IN) * box_bytes +
-                                    (r * IN + c % IN) * ITEM) = x[u];
-          }
-        }
-      }
-    }
-    mbar_arrive(&full[j % a.slots]);       // release: this lane's stores
+    const int hb = h - h % a.box_heads;       // the slot's first KV head
+    const unsigned char* kr = static_cast<const unsigned char*>(a.k) +
+                              (b * a.k_sb + t * a.k_st + hb * a.k_sh) * ITEM;
+    const unsigned char* vr = static_cast<const unsigned char*>(a.v) +
+                              (b * a.v_sb + t * a.v_st + hb * a.v_sh) * ITEM;
+    const CopyRows c{kr, vr, dst, dst + half_bytes, a.k_st * ITEM,
+                     a.k_sh * ITEM, a.v_st * ITEM, a.v_sh * ITEM, n,
+                     a.box_heads, a.dh * ITEM / a.width};
+    copy_units(c, lane, a.width, &full[j % a.slots]);
     return g + n;
   };
 
@@ -1133,7 +1253,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
           g = issue(g, j);
         }
       }
-    } else if (HEADS || WIDE) {   // all 32 lanes copy
+    } else if constexpr (HEADS) {   // all 32 lanes copy
       long long g = lo;
       for (int j = 0; g < hi; ++j) {
         if (j >= a.slots)
@@ -1241,20 +1361,19 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       }
       hand_over(m[x], l[x], acc[x], hw + GC * x);
     };
-    const long long len = P[b + 1] - P[b];
-    const long long start = P[b] * hg + (cur % hg) * len;
-    const long long first = start / per;
-    const int count = (int)((start + len - 1) / per - first + 1);
+    long long first;
+    int count;
+    segment_blocks(P, b, hg, cur, per, first, count);
     if (count == 1) {                        // the block holds it alone
 #pragma unroll
       for (int x = 0; x < HX; ++x) {
         merged(x);
         if (set == 0 && hw + GC * x < gn && d0 < D) {
-          const long long o = out_at(b, h, g0, hw + GC * x) + c0 + d0;
+          const long long o = out_index(a, b, h, g0, hw + GC * x) + d0;
           const float inv = 1.f / fmaxf(l[x], 1e-30f);
 #pragma unroll
           for (int e = 0; e < EPL; ++e)
-            if (EXACT || c0 + d0 + e < Dh) put(o + e, acc[x][e] * inv);
+            if (EXACT || d0 + e < Dh) put(o + e, acc[x][e] * inv);
         }
       }
       return;
@@ -1352,51 +1471,19 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
             }
             st_vec<EPL>(dst + 2 * HS + qh * D + d0, as);
           } else {
-            const long long o = out_at(b, h, g0, qh) + c0 + d0;
+            const long long o = out_index(a, b, h, g0, qh) + d0;
             const float inv = 1.f / fmaxf(ls, 1e-30f);
 #pragma unroll
             for (int e = 0; e < EPL; ++e)
-              if (EXACT || c0 + d0 + e < Dh) put(o + e, as[e] * inv);
+              if (EXACT || d0 + e < Dh) put(o + e, as[e] * inv);
           }
         }
       }
     };
-    // the block's partial is written: one acq_rel ticket publishes it
-    // (release, cumulative over the barrier) and lets the last block see
-    // every other's (acquire); the last resets it for the next call
-    consumers_sync();
-    long long m_lo = base;                   // the pieces the last one merges
-    int m_n = count, m_st = 1;
-    int last = 0;
-    if constexpr (HX == 2 || D > WIDE_DC) {
-      // 16 heads a partial, or D columns above WIDE_DC: a segment's blocks
-      // in groups of MERGE_GROUP, the last of a group merging its pieces
-      // into the group's first, the last group's merger the groups' into
-      // out (the note at the top)
-      if (count > MERGE_GROUP) {
-        const int grp = (int)(blockIdx.x - first) / MERGE_GROUP;
-        const int gsize = min(MERGE_GROUP, count - grp * MERGE_GROUP);
-        int* const gt = gtickets + (size_t)cur * ngroups + grp;
-        if (tid == 0) {
-          last = ticket_acq_rel(gt) == gsize - 1;
-          if (last) atomicExch(gt, 0);
-        }
-        if (!consumers_or(last)) return;
-        m_lo = base + (long long)grp * MERGE_GROUP;
-        merge(m_lo, gsize, 1, parts + m_lo * STRIDE);
-        consumers_sync();                    // the group's partial is written
-        m_lo = base;
-        m_n = (count + MERGE_GROUP - 1) / MERGE_GROUP;
-        m_st = MERGE_GROUP;
-        last = 0;
-      }
-    }
-    if (tid == 0) {
-      last = ticket_acq_rel(&tickets[cur]) == m_n - 1;
-      if (last) atomicExch(&tickets[cur], 0);
-    }
-    if (!consumers_or(last)) return;
-    merge(m_lo, m_n, m_st, nullptr);
+    // the block's partial is written: merged, in two levels where 16 heads
+    // make a partial or D columns above WIDE_DC (the note at the top)
+    merge_partials(HX == 2 || D > WIDE_DC, count, first, base, cur, tickets,
+                   gtickets, ngroups, parts, STRIDE, merge);
   };
 
   long long g = lo;
@@ -1421,7 +1508,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
 #pragma unroll
         for (int e = 0; e < EPL; ++e) {
           const int i = hw * 32 + lane + e * GC * 32, g = i / D, c = i % D;
-          qi[e] = q_at(b, h, g0, g) + c;
+          qi[e] = q_index(a, b, h, g0, g) + c;
           ok[e] = g < gn && c < Dh;
         }
         load_q<EQ, EPL>(a.q, qi, ok, a.qt, qv);
@@ -1442,7 +1529,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
           const int g = hw + GC * x;
           float qv[EPL];
           if (g < gn) {
-            const long long qh = q_at(b, h, g0, g) + d0;
+            const long long qh = q_index(a, b, h, g0, g) + d0;
             if constexpr (EXACT) {
               load_vec<EQ, EPL>(static_cast<const EQ*>(a.q) + qh, qv);
             } else {
@@ -1471,7 +1558,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       }
       if constexpr (TC && !QS) if (hw < 2) {  // B fragments: the queries
         const int gq = lane >> 2, tq = lane & 3;
-        const long long qg = q_at(b, h, g0, gq);
+        const long long qg = q_index(a, b, h, g0, gq);
         auto pair = [&](int c) -> uint32_t {   // columns c, c + 1, in M
           if (gq >= gn) return 0u;
           typename Pair2<M>::type p;
@@ -1500,9 +1587,9 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       }
       if constexpr (TC && QType<EQ>::runtime && !QS)
         set_sync(set);                       // qs is free
-      // the warp's query, a lane's part (the wide body's: by piece, below)
-      if (!WIDE && hw < gn && d0 < D) {
-        const long long qh = q_at(b, h, g0, hw);
+      // the warp's query, a lane's part
+      if (hw < gn && d0 < D) {
+        const long long qh = q_index(a, b, h, g0, hw);
         if constexpr (EXACT) {
           float qv[EPL];
           load_vec<EQ, EPL>(static_cast<const EQ*>(a.q) + qh + d0, qv);
@@ -1646,33 +1733,7 @@ paged_attention_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
       if (hw + GC * x >= gn) continue;
       if constexpr (!TC) {   // Q K^T on FMAs: a lane's columns, every row
         float part[32];
-        if constexpr (WIDE) {  // summed over the K pieces, q's piece by piece
-          const long long qh = q_at(b, h, g0, hw);
-#pragma unroll
-          for (int r = 0; r < 32; ++r) part[r] = 0.f;
-          for (int p = 0; p < a.npk; ++p) {
-            float qp[EPL];
-            long long qi[EPL];
-            bool ok[EPL];
-#pragma unroll
-            for (int e = 0; e < EPL; ++e) {
-              qi[e] = qh + p * D + d0 + e;
-              ok[e] = p * D + d0 + e < Dh;
-            }
-            load_q<EQ, EPL>(a.q, qi, ok, a.qt, qp);
-            const unsigned char* kp = slot + (size_t)p * NBX * box_bytes;
-#pragma unroll
-            for (int r = 0; r < 32; ++r) {
-              if (r < n) {
-                float kv[EPL], dot = 0.f;
-                load_row<E, EPL>(at(kp, r, d0), kv, a.e5m2);
-#pragma unroll
-                for (int e = 0; e < EPL; ++e) dot = fmaf(qp[e], kv[e], dot);
-                part[r] += dot;
-              }
-            }
-          }
-        } else if (vrow) {
+        if (vrow) {
           auto qk_rows = [&](auto kind) {
 #pragma unroll
             for (int r = 0; r < 32; ++r) {
@@ -1907,20 +1968,20 @@ cudaError_t cache_map(CUtensorMap* map, const void* base, const Args& a,
                       : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-template <typename E, typename EQ, int D, bool EXACT, bool TMA, bool WIDE,
+template <typename E, typename EQ, int D, bool EXACT, bool TMA,
           bool HEADS = false, int HX = 1>
 cudaError_t launch(Args& a, int blocks, cudaStream_t stream) {
   int smem = 0;
-  a.slots = ring_slots<E, D, WIDE, HEADS, HX>(a.B, a.rows, a.npk, &smem,
-                                              a.box_heads, a.dh);
+  a.slots = ring_slots<E, D, HEADS, HX>(a.B, a.rows, &smem, a.box_heads,
+                                        a.dh);
   if (a.slots == 0) return cudaErrorInvalidValue;
   static SmemAllowance allowance;
-  auto kernel = paged_attention_kernel<E, EQ, D, EXACT, TMA, WIDE, HEADS, HX>;
+  auto kernel = paged_attention_kernel<E, EQ, D, EXACT, TMA, HEADS, HX>;
   cudaError_t err = allow_smem(allowance, kernel, MAX_SMEM);
   if (err != cudaSuccess) return err;
   CUtensorMap kmap{}, vmap{};        // the element copy goes without
   if (TMA && !a.copy) {
-    constexpr int swizzle = !HEADS && tensor_core_qk<E, EQ, D, WIDE>()
+    constexpr int swizzle = !HEADS && tensor_core_qk<E, EQ, D>()
                                 ? box_cols<E, D>() * (int)sizeof(E)
                                 : 0;
     if ((err = cache_map<E, D, HEADS>(&kmap, a.k, a, a.k_sb, a.k_st, a.k_sh,
@@ -1930,8 +1991,396 @@ cudaError_t launch(Args& a, int blocks, cudaStream_t stream) {
                                       swizzle)) != cudaSuccess)
       return err;
   }
-  kernel<<<dim3(blocks, WIDE ? a.npk : 1), NT + 32, smem, stream>>>(a, kmap,
-                                                                   vmap);
+  kernel<<<blocks, NT + 32, smem, stream>>>(a, kmap, vmap);
+  return cudaGetLastError();
+}
+
+// The wide body (the note at the top): E the caches' type, EQ q's and
+// out's; TMA where the rows are whole 16-byte pieces, else the producer
+// warp copies them by element. Column chunk blockIdx.y: V's and out's
+// pieces [8 y, 8 y + npb) of the head's a.npk (one chunk up to 2048
+// columns), Q K^T over all a.npk of K's.
+template <typename E, typename EQ, bool TMA>
+__global__ void __launch_bounds__(NT + 32)
+paged_wide_kernel(const Args a, const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap) {
+  constexpr int ITEM = sizeof(E);
+  constexpr int IN = box_cols<E, WIDE_DC>();  // columns of a box
+  constexpr int NBX = WIDE_DC / IN;           // boxes a piece
+  constexpr int EPL = WIDE_DC / 32;           // a lane's columns of a piece
+  constexpr int HS = GC;                      // query heads a segment
+  extern __shared__ __align__(128) unsigned char wsmem[];
+  const int npw = wide_npw(a.npk);            // pieces a warp takes
+  const WideSmem L = wide_smem<E>(a.B, a.rows, a.slots, npw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(wsmem);  // a slot loaded
+  uint64_t* empty = full + a.slots;                      // a slot released
+  long long* P = reinterpret_cast<long long*>(wsmem + L.P);
+  float* xch = reinterpret_cast<float*>(wsmem + L.xch);
+  float* accs = reinterpret_cast<float*>(wsmem + L.acc);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wsmem + L.ring) + 127) & ~(uintptr_t)127);
+  const size_t box_bytes = L.box, slot_bytes = L.slot;
+  // element (r, d) of a slot's piece: box d / IN, row r, column d % IN
+  auto at = [&](const unsigned char* slot, int r, int d) {
+    return reinterpret_cast<const E*>(slot + (d / IN) * box_bytes +
+                                      (r * IN + d % IN) * ITEM);
+  };
+  auto put = [&](long long i, float x) {
+    if constexpr (QType<EQ>::runtime) store_typed(a.out, i, x, a.qt);
+    else static_cast<EQ*>(a.out)[i] = from_float<EQ>(x);
+  };
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // a consumer warp's query head, and the parity of the pieces it takes
+  const int hw = warp % GC, half = warp / GC;
+  const bool tma = TMA && !a.copy;
+  const int hg = a.Hkv * a.ngc;               // segments a sequence
+  const int S = a.B * hg;
+  const int Dh = a.dh;
+  const int c0 = blockIdx.y * WIDE_PIECES * WIDE_DC;  // the chunk's columns
+  const int npb = min(WIDE_PIECES, a.npk - blockIdx.y * WIDE_PIECES);
+  const int DW = min(WIDE_PIECES, a.npk) * WIDE_DC;   // columns a partial
+  const int STRIDE = HS * (DW + 2);
+  float* const parts =
+      a.part + (size_t)blockIdx.y * (gridDim.x + S) * STRIDE;
+  const int ngroups = (gridDim.x + MERGE_GROUP - 1) / MERGE_GROUP;
+  int* const tickets = a.tickets + (size_t)blockIdx.y * S * (1 + ngroups);
+  int* const gtickets = tickets + S;
+
+  block_start(a, full, empty, P, tma, &kmap, &vmap);
+  auto heads = [&](int s, int& b, int& h, int& g0, int& gn) {
+    group_of(a, hg, HS, s, b, h, g0, gn);
+  };
+  zero_empty(a, P, hg, Dh, heads, put);
+  long long per, lo, hi;
+  block_share(P, a.B, hg, per, lo, hi);
+  if (lo >= hi) return;
+
+  if (warp == NSET * GC) {
+    // the producer: for each chunk of rows of the share, all its K pieces,
+    // then the column chunk's V pieces, item it into slot it % slots as
+    // soon as the 8 warps that read the slot's last piece have released it
+    long long g = lo;
+    int it = 0;
+    while (g < hi) {
+      int s, b, h, g0, gn;
+      long long t, end;
+      locate(P, a.B, hg, g, s, t, end);
+      heads(s, b, h, g0, gn);
+      const int n = (int)min((long long)a.rows, min(end, hi) - g);
+      for (int x = 0; x < a.npk + npb; ++x, ++it) {
+        const int slot = it % a.slots;
+        if (it >= a.slots)
+          mbar_wait(&empty[slot], (uint32_t)((it / a.slots - 1) & 1));
+        const bool kv = x >= a.npk;          // a V piece (of the chunk's)
+        const int col = kv ? c0 + (x - a.npk) * WIDE_DC : x * WIDE_DC;
+        unsigned char* dst = ring + (size_t)slot * slot_bytes;
+        if (tma) {
+          if (lane == 0) {
+            mbar_arrive_expect_tx(&full[slot],
+                                  (uint32_t)(a.rows * WIDE_DC * ITEM));
+#pragma unroll
+            for (int bx = 0; bx < NBX; ++bx)
+              tma_load_4d(dst + bx * box_bytes, kv ? &vmap : &kmap,
+                          &full[slot], col + bx * IN, h, (int)t, b);
+          }
+        } else {      // by element, columns dh.. zero; each lane arrives
+          const E* src = static_cast<const E*>(kv ? a.v : a.k) +
+                         b * (kv ? a.v_sb : a.k_sb) +
+                         t * (kv ? a.v_st : a.k_st) +
+                         h * (kv ? a.v_sh : a.k_sh);
+          const long long st = kv ? a.v_st : a.k_st;
+          constexpr int UNROLL = 8;          // loads in flight a lane
+          const int total = n * WIDE_DC;
+          for (int i0 = lane; i0 < total; i0 += 32 * UNROLL) {
+            E xv[UNROLL];
+#pragma unroll
+            for (int u = 0; u < UNROLL; ++u) {
+              const int i = i0 + 32 * u;
+              xv[u] = i < total ? col_or_zero(src + (i / WIDE_DC) * st,
+                                              col + i % WIDE_DC, a.dh)
+                                : zero<E>();
+            }
+#pragma unroll
+            for (int u = 0; u < UNROLL; ++u) {
+              const int i = i0 + 32 * u;
+              if (i < total)
+                *const_cast<E*>(at(dst, i / WIDE_DC, i % WIDE_DC)) = xv[u];
+            }
+          }
+          mbar_arrive(&full[slot]);          // release: this lane's stores
+        }
+      }
+      g += n;
+    }
+    return;
+  }
+
+  // the consumers: all 16 warps take every chunk; warp (hw, half) the K
+  // and V pieces of parity `half` for query head hw, a lane EPL columns of
+  // each piece and, for the softmax, one row of the chunk. A lane's
+  // accumulators of its piece pp (the warp's pieces 0, 1, .. npw - 1) in
+  // shared memory, in registers while P V runs over the piece
+  const int d0 = lane * EPL;
+  float m = NEG_INF, l = 0.f;
+  auto acc_at = [&](int pp) {
+    return accs + ((warp * npw + pp) * 32 + lane) * EPL;
+  };
+  int cur = -1, b = 0, h = 0, g0 = 0, gn = 0;
+
+  // the block's share of segment `cur` is done: write it, or its partial
+  // and merge (two levels, as the note at the top says)
+  auto finish = [&]() {
+    const bool live = hw < gn;
+    long long first;
+    int count;
+    segment_blocks(P, b, hg, cur, per, first, count);
+    if (count == 1) {                        // the block holds it alone
+      if (live) {
+        const long long o = out_index(a, b, h, g0, hw) + c0 + d0;
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+        for (int pp = 0; pp < WIDE_NPW; ++pp) {
+          const int pc = NSET * pp + half;
+          if (pc >= npb) break;
+          float x[EPL];
+          load_vec<float, EPL>(acc_at(pp), x);
+#pragma unroll
+          for (int e = 0; e < EPL; ++e)
+            if (c0 + pc * WIDE_DC + d0 + e < Dh)
+              put(o + pc * WIDE_DC + e, x[e] * inv);
+        }
+      }
+      return;
+    }
+    const long long base = first + cur;      // the segment's partials
+    float* mine = parts + (base + blockIdx.x - first) * STRIDE;
+    if (live) {
+      if (half == 0 && lane == 0) {
+        mine[hw] = m;
+        mine[HS + hw] = l;
+      }
+#pragma unroll
+      for (int pp = 0; pp < WIDE_NPW; ++pp) {
+        const int pc = NSET * pp + half;
+        if (pc < npb) {
+          float x[EPL];
+          load_vec<float, EPL>(acc_at(pp), x);
+          st_vec<EPL>(mine + 2 * HS + hw * DW + pc * WIDE_DC + d0, x);
+        }
+      }
+    }
+    // merges partials m_lo + i m_st (i < m_n) into dst (a partial) or into
+    // out: warp (hw, half) head hw's columns of its pieces, lane l the
+    // weight of partials l, l + 32, .., MB partials' loads in flight at a
+    // time; the sums wait in the warp's accumulators (its partial is
+    // written) until every partial has been read, as dst may be one of them
+    auto merge = [&](long long m_lo, int m_n, int m_st, float* dst) {
+      constexpr int MB = 4;
+      auto partial = [&](int i) {
+        return parts + (m_lo + (long long)i * m_st) * STRIDE;
+      };
+      float mx = NEG_INF, ls = 0.f;
+      if (live) {
+        for (int i = lane; i < m_n; i += 32)
+          mx = fmaxf(mx, __ldcg(partial(i) + hw));
+        mx = warp_max(mx);
+        auto weight = [&](int i) {
+          return i < m_n ? expf(__ldcg(partial(i) + hw) - mx) : 0.f;
+        };
+        for (int i = lane; i < m_n; i += 32)
+          ls = fmaf(__ldcg(partial(i) + HS + hw), weight(i), ls);
+        ls = warp_sum(ls);
+#pragma unroll
+        for (int pp = 0; pp < WIDE_NPW; ++pp) {
+          const int pc = NSET * pp + half;
+          if (pc >= npb) break;
+          const int col = 2 * HS + hw * DW + pc * WIDE_DC + d0;
+          float as[EPL] = {}, w = 0.f;
+          for (int k0 = 0; k0 < m_n; k0 += MB) {
+            if (k0 % 32 == 0) w = weight(k0 + lane);
+            float x[MB][EPL];
+#pragma unroll
+            for (int k = 0; k < MB; ++k) {
+              if (k0 + k < m_n) {
+                ldcg_vec<EPL>(partial(k0 + k) + col, x[k]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < EPL; ++e) x[k][e] = 0.f;
+              }
+            }
+#pragma unroll
+            for (int k = 0; k < MB; ++k) {
+              const float wk = __shfl_sync(FULL, w, (k0 + k) & 31);
+#pragma unroll
+              for (int e = 0; e < EPL; ++e) as[e] = fmaf(x[k][e], wk, as[e]);
+            }
+          }
+          st_vec<EPL>(acc_at(pp), as);
+        }
+      }
+      consumers_sync();         // every partial read: dst may be one of them
+      if (!live) return;
+      const float inv = 1.f / fmaxf(ls, 1e-30f);
+      if (dst && half == 0 && lane == 0) {
+        dst[hw] = mx;
+        dst[HS + hw] = ls;
+      }
+#pragma unroll
+      for (int pp = 0; pp < WIDE_NPW; ++pp) {
+        const int pc = NSET * pp + half;
+        if (pc >= npb) continue;
+        float as[EPL];
+        load_vec<float, EPL>(acc_at(pp), as);
+        if (dst) {
+          st_vec<EPL>(dst + 2 * HS + hw * DW + pc * WIDE_DC + d0, as);
+        } else {
+          const long long o =
+              out_index(a, b, h, g0, hw) + c0 + pc * WIDE_DC + d0;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e)
+            if (c0 + pc * WIDE_DC + d0 + e < Dh) put(o + e, as[e] * inv);
+        }
+      }
+    };
+    merge_partials(true, count, first, base, cur, tickets, gtickets, ngroups,
+                   parts, STRIDE, merge);
+  };
+
+  long long g = lo;
+  int it = 0;                                // the chunk's first item
+  for (int j = 0; g < hi; ++j) {
+    int s;
+    long long t, end;
+    locate(P, a.B, hg, g, s, t, end);
+    const int n = (int)min((long long)a.rows, min(end, hi) - g);
+    if (s != cur) {                          // a new segment
+      if (cur != -1) finish();
+      cur = s;
+      heads(s, b, h, g0, gn);
+      m = NEG_INF;
+      l = 0.f;
+      const float zeros[EPL] = {};
+      for (int pp = 0; pp < npw; ++pp) st_vec<EPL>(acc_at(pp), zeros);
+    }
+    g += n;
+    const bool live = hw < gn;     // the warp's head is one of the group's
+    const long long qh = q_index(a, b, h, g0, hw);
+    // Q K^T over the warp's K pieces (of the whole head, whatever the
+    // chunk), each as it lands (getfin): a lane's columns of a piece, every
+    // row, then the transpose reduction (lane r: the piece's part of row r's
+    // logit), summed over the pieces. (Summing the lanes' columns over the
+    // pieces first kept 32 sums live across the waits: 300-480 bytes of
+    // spills, Q K^T 0.61 of a warp at D2048.)
+    float lgt = 0.f;
+    for (int pc = half; pc < a.npk; pc += NSET) {
+      const int i = it + pc, slot = i % a.slots;
+      mbar_wait(&full[slot], (uint32_t)((i / a.slots) & 1));   // getfin
+      if (live) {
+        float qp[EPL];
+        long long qi[EPL];
+        bool ok[EPL];
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) {
+          qi[e] = qh + pc * WIDE_DC + d0 + e;
+          ok[e] = pc * WIDE_DC + d0 + e < Dh;
+        }
+        load_q<EQ, EPL>(a.q, qi, ok, a.qt, qp);
+        const unsigned char* ks = ring + (size_t)slot * slot_bytes;
+        float part[32];
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+          float dot = 0.f;
+          if (r < n) {
+            float kv[EPL];
+            load_row<E, EPL>(at(ks, r, d0), kv, a.e5m2);
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) dot = fmaf(qp[e], kv[e], dot);
+          }
+          part[r] = dot;
+        }
+        transpose_sum<16>(part, lane);
+        transpose_sum<8>(part, lane);
+        transpose_sum<4>(part, lane);
+        transpose_sum<2>(part, lane);
+        transpose_sum<1>(part, lane);
+        lgt += part[0];
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);   // this warp is past it
+    }
+    // the two parities' parts of each logit, added through shared memory
+    // (two buffers: a warp one chunk ahead writes the other)
+    float* xb = xch + (j & 1) * (NSET * GC * 32);
+    xb[(half * GC + hw) * 32 + lane] = lgt;
+    consumers_sync();
+    float p = 0.f, alpha = 1.f;
+    if (live) {
+      const float sc = lane < n ? (xb[hw * 32 + lane] +
+                                   xb[(GC + hw) * 32 + lane]) * a.scale
+                                : NEG_INF;
+      const float m_new = fmaxf(m, warp_max(sc));
+      alpha = expf(m - m_new);
+      p = lane < n ? expf(sc - m_new) : 0.f;
+      l = fmaf(l, alpha, warp_sum(p));
+      m = m_new;
+    }
+    // P V over the warp's V pieces: a piece's accumulators rescaled by
+    // alpha, p_r V[r] added over the rows, written back
+#pragma unroll
+    for (int pp = 0; pp < WIDE_NPW; ++pp) {
+      const int pc = NSET * pp + half;
+      if (pc >= npb) break;
+      const int i = it + a.npk + pc, slot = i % a.slots;
+      mbar_wait(&full[slot], (uint32_t)((i / a.slots) & 1));   // getfin
+      if (live) {
+        const unsigned char* vs = ring + (size_t)slot * slot_bytes;
+        float x[EPL];
+        load_vec<float, EPL>(acc_at(pp), x);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) x[e] *= alpha;
+#pragma unroll 8
+        for (int r = 0; r < n; ++r) {
+          const float pr = __shfl_sync(FULL, p, r);
+          float vv[EPL];
+          load_row<E, EPL>(at(vs, r, d0), vv, a.e5m2);
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) x[e] = fmaf(pr, vv[e], x[e]);
+        }
+        st_vec<EPL>(acc_at(pp), x);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);   // this warp is past it
+    }
+    it += a.npk + npb;
+  }
+  finish();
+}
+
+// The wide body's launch: its ring (`wide_ring_slots`), the caches' tensor
+// maps where its rows are TMA's, a grid of `blocks` x the chunks of
+// WIDE_PIECES pieces of a.npk (one up to 2048 columns).
+template <typename E, typename EQ>
+cudaError_t launch_wide(Args& a, int blocks, cudaStream_t stream, bool tma) {
+  int smem = 0;
+  a.slots = wide_ring_slots<E>(a.B, a.rows, wide_npw(a.npk), &smem);
+  if (a.slots == 0) return cudaErrorInvalidValue;
+  static SmemAllowance allowance_tma, allowance_copy;
+  auto kernel = tma ? &paged_wide_kernel<E, EQ, true>
+                    : &paged_wide_kernel<E, EQ, false>;
+  cudaError_t err = allow_smem(tma ? allowance_tma : allowance_copy, kernel,
+                               MAX_SMEM);
+  if (err != cudaSuccess) return err;
+  CUtensorMap kmap{}, vmap{};        // the element copy goes without
+  if (tma) {
+    if ((err = cache_map<E, WIDE_DC>(&kmap, a.k, a, a.k_sb, a.k_st, a.k_sh,
+                                     0)) != cudaSuccess)
+      return err;
+    if ((err = cache_map<E, WIDE_DC>(&vmap, a.v, a, a.v_sb, a.v_st, a.v_sh,
+                                     0)) != cudaSuccess)
+      return err;
+  }
+  const dim3 grid(blocks, (a.npk + WIDE_PIECES - 1) / WIDE_PIECES);
+  kernel<<<grid, NT + 32, smem, stream>>>(a, kmap, vmap);
   return cudaGetLastError();
 }
 
@@ -1973,18 +2422,17 @@ cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
   if constexpr (kSame && sizeof(E) == 2) {
     if (Dp > WIDE_DC && Dp <= MMA_WIDE && tma) {   // the whole head a block
       a.npk = 1;
-      return launch<E, EQ, MMA_WIDE, false, true, false>(a, blocks, s);
+      return launch<E, EQ, MMA_WIDE, false, true>(a, blocks, s);
     }
   }
-  if (Dp > WIDE_DC) {
+  if (Dp > WIDE_DC) {                      // the wide body
     a.npk = Dp / WIDE_DC;
-    return tma ? launch<E, EQ, WIDE_DC, false, true, true>(a, blocks, s)
-               : launch<E, EQ, WIDE_DC, false, false, true>(a, blocks, s);
+    return launch_wide<E, EQ>(a, blocks, s, tma);
   }
   a.npk = 1;
   if (!tma) {
 #define ELEM_CASE(DIM) \
-  case DIM: return launch<E, EQ, DIM, false, true, false, true>(a, blocks, s)
+  case DIM: return launch<E, EQ, DIM, false, true, true>(a, blocks, s)
     switch (Dp) {
       ELEM_CASE(16);
       ELEM_CASE(32);
@@ -1999,8 +2447,8 @@ cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
     if (a.heads > 1) {
 #define HEADS_CASE(DIM)                                                    \
   case DIM:                                                                \
-    return Dp == D ? launch<E, EQ, DIM, true, true, false, true>(a, blocks, s) \
-                   : launch<E, EQ, DIM, false, true, false, true>(a, blocks, s)
+    return Dp == D ? launch<E, EQ, DIM, true, true, true>(a, blocks, s) \
+                   : launch<E, EQ, DIM, false, true, true>(a, blocks, s)
       switch (Dp) {
         HEADS_CASE(64);
         HEADS_CASE(128);
@@ -2012,15 +2460,15 @@ cudaError_t launch_typed(Args& a, int blocks, cudaStream_t s, int Dp, int D,
     if (a.hx == 2) {                         // (Dp 256: `group_heads`)
       if (Dp != 256) return cudaErrorInvalidValue;
       if (Dp == D)
-        return launch<E, EQ, 256, true, true, false, false, 2>(a, blocks, s);
-      return launch<E, EQ, 256, false, true, false, false, 2>(a, blocks, s);
+        return launch<E, EQ, 256, true, true, false, 2>(a, blocks, s);
+      return launch<E, EQ, 256, false, true, false, 2>(a, blocks, s);
     }
   }
 #define PAGED_CASE(DIM)                                                  \
   case DIM:                                                              \
     if constexpr (kSame)                                                 \
-      if (Dp == D) return launch<E, EQ, DIM, true, true, false>(a, blocks, s); \
-    return launch<E, EQ, DIM, false, true, false>(a, blocks, s)
+      if (Dp == D) return launch<E, EQ, DIM, true, true>(a, blocks, s); \
+    return launch<E, EQ, DIM, false, true>(a, blocks, s)
   switch (Dp) {
     PAGED_CASE(16);
     PAGED_CASE(32);
@@ -2040,12 +2488,12 @@ cudaError_t launch_mma(Args& a, int blocks, cudaStream_t s, int Dp) {
   a.npk = 1;
   if (a.hx == 2) {
     if (Dp != 256) return cudaErrorInvalidValue;
-    return launch<E, EQ, 256, false, true, false, false, 2>(a, blocks, s);
+    return launch<E, EQ, 256, false, true, false, 2>(a, blocks, s);
   }
   switch (Dp) {
-    case 64: return launch<E, EQ, 64, false, true, false>(a, blocks, s);
-    case 128: return launch<E, EQ, 128, false, true, false>(a, blocks, s);
-    case 256: return launch<E, EQ, 256, false, true, false>(a, blocks, s);
+    case 64: return launch<E, EQ, 64, false, true>(a, blocks, s);
+    case 128: return launch<E, EQ, 128, false, true>(a, blocks, s);
+    case 256: return launch<E, EQ, 256, false, true>(a, blocks, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -2146,14 +2594,15 @@ int products(int dtype, int q_dtype, int D, int G, int Hkv) {
   return 0;
 }
 
-// The wide body's chunks of WIDE_DC output columns, each its own blocks over
-// every valid row (the grid's second dimension): Dp / WIDE_DC above WIDE_DC
-// where the products run on FMAs, else 1 (the tensor-core body at Dp 512
-// takes the whole head a block).
+// The wide body's chunks of WIDE_PIECES pieces of WIDE_DC columns, each its
+// own blocks over every valid row (the grid's second dimension): one up to
+// 2048 columns, so that a block takes the whole head and K is read once;
+// ceil(Dp / 2048) above, where the products run on FMAs; else 1.
 int wide_chunks(int dtype, int q_dtype, int D, int G, int Hkv) {
-  const int Dp = padded(D);
-  return Dp > WIDE_DC && !products(dtype, q_dtype, D, G, Hkv) ? Dp / WIDE_DC
-                                                               : 1;
+  const int pieces = padded(D) / WIDE_DC;
+  return padded(D) > WIDE_DC && !products(dtype, q_dtype, D, G, Hkv)
+             ? (pieces + WIDE_PIECES - 1) / WIDE_PIECES
+             : 1;
 }
 
 // Query heads a segment of one KV head serves: 2 GC where a KV head has more
@@ -2168,39 +2617,39 @@ int group_heads(int dtype, int q_dtype, int D, int G, int Hkv) {
 // The ring of a launch for caches of type E (EQ does not enter), slot rows
 // of `heads` KV heads (unpadded where `unpadded`: rows of no whole 16-byte
 // pieces, or more than one head), `hx` query heads a warp; `whole`: the
-// tensor-core body above WIDE_DC (`wide_chunks` 1).
+// tensor-core body above WIDE_DC (`products`), else the wide body's ring.
 template <typename E>
 int ring_for(int B, int D, int rows, int heads, int hx, bool unpadded,
              bool whole, int* smem) {
   const int Dp = padded(D);
-  if (Dp > WIDE_DC && whole) return ring_slots<E, MMA_WIDE>(B, rows, 1, smem);
+  if (Dp > WIDE_DC && whole) return ring_slots<E, MMA_WIDE>(B, rows, smem);
   if (hx == 2)
-    return Dp == 256 ? ring_slots<E, 256, false, false, 2>(B, rows, 1, smem)
+    return Dp == 256 ? ring_slots<E, 256, false, 2>(B, rows, smem)
                      : -1;
   if (unpadded) {
     switch (Dp) {
       case 16:
-        return ring_slots<E, 16, false, true>(B, rows, 1, smem, heads, D);
+        return ring_slots<E, 16, true>(B, rows, smem, heads, D);
       case 32:
-        return ring_slots<E, 32, false, true>(B, rows, 1, smem, heads, D);
+        return ring_slots<E, 32, true>(B, rows, smem, heads, D);
       case 64:
-        return ring_slots<E, 64, false, true>(B, rows, 1, smem, heads, D);
+        return ring_slots<E, 64, true>(B, rows, smem, heads, D);
       case 128:
-        return ring_slots<E, 128, false, true>(B, rows, 1, smem, heads, D);
+        return ring_slots<E, 128, true>(B, rows, smem, heads, D);
       case 256:
-        return ring_slots<E, 256, false, true>(B, rows, 1, smem, heads, D);
+        return ring_slots<E, 256, true>(B, rows, smem, heads, D);
     }
     return -1;
   }
   switch (Dp) {
     case 0: return -1;
-    case 16: return ring_slots<E, 16>(B, rows, 1, smem);
-    case 32: return ring_slots<E, 32>(B, rows, 1, smem);
-    case 64: return ring_slots<E, 64>(B, rows, 1, smem);
-    case 128: return ring_slots<E, 128>(B, rows, 1, smem);
-    case 256: return ring_slots<E, 256>(B, rows, 1, smem);
+    case 16: return ring_slots<E, 16>(B, rows, smem);
+    case 32: return ring_slots<E, 32>(B, rows, smem);
+    case 64: return ring_slots<E, 64>(B, rows, smem);
+    case 128: return ring_slots<E, 128>(B, rows, smem);
+    case 256: return ring_slots<E, 256>(B, rows, smem);
   }
-  return ring_slots<E, WIDE_DC, true>(B, rows, Dp / WIDE_DC, smem);
+  return wide_ring_slots<E>(B, rows, wide_npw(Dp / WIDE_DC), smem);
 }
 
 }  // namespace
@@ -2241,9 +2690,9 @@ extern "C" int paged_attention_heads(int dtype, int q_dtype, int D, int Hq,
   return kv_run(dtype, q_dtype, D, Hkv > 0 ? Hq / Hkv : 0, Hkv);
 }
 
-// The chunks of WIDE_DC output columns of a launch at (dtype, q_dtype, D,
-// Hq, Hkv), each its own blocks (`wide_chunks`; the wrapper's plan states
-// the same rule: `paged_plan`'s chunks).
+// The chunks of up to 2048 output columns of a launch at (dtype, q_dtype,
+// D, Hq, Hkv), each its own blocks (`wide_chunks`: 1 up to 2048 columns;
+// the wrapper's plan states the same rule: `paged_plan`'s chunks).
 extern "C" int paged_attention_chunks(int dtype, int q_dtype, int D, int Hq,
                                       int Hkv) {
   return wide_chunks(dtype, q_dtype, D, Hkv > 0 ? Hq / Hkv : 0, Hkv);
@@ -2266,10 +2715,11 @@ extern "C" int paged_attention_group(int dtype, int q_dtype, int D, int Hq,
 // is dtype, or beside 16-bit and fp8 caches any of f32, bf16, f16, e4m3fn,
 // e5m2 (read and written in its own type; `products` says where the
 // products run; the wrapper widens any other q to fp32). part: chunks x
-// (blocks + segments) x HS x (Dp / chunks + 2) floats, HS the query heads
-// a segment serves (`paged_attention_group`); tickets: chunks x segments
-// x (1 + ceil(blocks / 8)) ints, zero; chunks: `paged_attention_chunks`
-// (Dp / 256 in the wide body, else 1). blocks (a chunk), rows, ngc (ceil(Hq / Hkv / HS), or the launch
+// (blocks + segments) x HS x (min(Dp, 2048) + 2) floats, HS the query
+// heads a segment serves (`paged_attention_group`); tickets: chunks x
+// segments x (1 + ceil(blocks / 8)) ints, zero; chunks:
+// `paged_attention_chunks` (1 up to 2048 columns). blocks (a chunk), rows,
+// ngc (ceil(Hq / Hkv / HS), or the launch
 // refuses it): `paged_plan` of paged_attention.py; the launch sizes the
 // ring itself (`paged_attention_ring`). strides: {q_sb, q_sh, k_sb,
 // k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_sh} in elements. The scale is
@@ -2370,7 +2820,7 @@ extern "C" int paged_attention_ring(int B, int D, int rows, int dtype,
   if (!float_type(dtype) || padded(D) == 0) return -1;
   const bool unpadded =
       padded(D) <= WIDE_DC && (heads > 1 || !tma_rows(dtype, D));
-  const bool whole = wide_chunks(dtype, q_dtype, D, GC, 1) == 1;
+  const bool whole = products(dtype, q_dtype, D, GC, 1) != 0;
   if (dtype == DTYPE_F32)
     return ring_for<float>(B, D, rows, heads, 1, unpadded, whole, smem);
   if (dtype == DTYPE_BF16)

@@ -30,9 +30,12 @@ from repro_torch.kernels.flash_attention import (CHUNK_DIM, HEAD_DIMS,
 GC = 8                  # query heads a block serves, a warp each
 MERGE_GROUP = 8         # blocks of a first-level merge (csrc's MERGE_GROUP)
 CHUNK_ROWS = 32         # most rows one aload fetches (a lane a row)
-# the wide body's (head sizes above CHUNK_DIM) most bytes of a slot: its
-# rows hold all of K's columns and a chunk of V's, so it takes fewer rows
+# the most bytes of a slot of the tensor-core body over the whole head above
+# CHUNK_DIM (its rows hold all of K's and V's columns)
 SLOT_BYTES = 65536
+# CHUNK_DIM-column pieces a block of the wide body takes (csrc's
+# WIDE_PIECES): the whole head up to 2048 columns, one chunk
+WIDE_PIECES = 8
 # the most bytes of a slot whose rows hold several KV heads (`kv_heads`)
 HEADS_SLOT_BYTES = 65536
 # the widest head the tensor-core body takes whole, a block over all its
@@ -50,8 +53,10 @@ class PagedPlan(NamedTuple):
     segments: int       # (b, kv head, group of `group` query heads)
                         # triples, or (b, run of `heads` KV heads) pairs
     ngc: int            # groups of `group` query heads a KV head
-    chunks: int = 1     # CHUNK_DIM-column chunks of the output a head (the
-                        # wide body; 1 on the tensor cores: `products`)
+    chunks: int = 1     # chunks of WIDE_PIECES CHUNK_DIM-column pieces of
+                        # the output a head (the wide body above 2048
+                        # columns, each chunk's blocks over all of K's
+                        # columns; else 1)
     heads: int = 1      # KV heads a segment (`kv_heads`)
     group: int = GC     # query heads a group (`query_heads`): GC or 2 GC
     box_heads: int = 1  # KV heads a slot row holds (`run_heads`, else heads)
@@ -64,14 +69,16 @@ def paged_plan(B: int, Hq: int, Hkv: int, T: int, page: int, sms: int,
     """The launch for a cache of B x T rows a KV head on a card of `sms`
     SMs, from the shapes only: one block an SM (its ring takes the SM's
     shared memory), no more blocks than the cache has aloads' worth of rows;
-    an aload fetches at most `page` rows. Above CHUNK_DIM columns, where
-    the products run on FMAs (`products`, as `products_on` gives it), the
-    head is split into `chunks` of CHUNK_DIM output columns, each its own
-    set of blocks (the SMs shared among them) over every valid row, and a
-    row of a slot holds all of K's columns and a chunk of V's; on the
-    tensor cores (up to MMA_WIDE columns) a block takes the whole head and
-    a slot row all of K's and V's columns; either way at most SLOT_BYTES of
-    them (`itemsize` the caches') an aload. A segment of `heads` KV heads
+    an aload fetches at most `page` rows. Above CHUNK_DIM columns a block
+    takes the whole head: on the tensor cores (up to MMA_WIDE columns,
+    `products` "mma", as `products_on` gives it) a slot row holds all of
+    K's and V's columns, at most SLOT_BYTES of them (`itemsize` the
+    caches') an aload; on FMAs (the wide body) an aload is one piece of
+    CHUNK_DIM columns of K or of V, and above WIDE_PIECES pieces (2048
+    columns) the output is split into `chunks` of that many, each its own
+    set of blocks (the SMs shared among them) that reads all of K's pieces
+    (the logits are over the whole head) and the chunk's of V. A segment of
+    `heads` KV heads
     (`kv_heads`; more than one only below GC query heads a KV head) takes
     a row of all of them an aload row, so an aload takes at most
     HEADS_SLOT_BYTES of K and V; so does a slot of unpadded rows (rows of
@@ -84,10 +91,12 @@ def paged_plan(B: int, Hq: int, Hkv: int, T: int, page: int, sms: int,
     ngc = -(-(Hq // Hkv) // group)
     rows = max(1, min(page, CHUNK_ROWS, T))
     wide = -(-head_dim // CHUNK_DIM)        # CHUNK_DIM-column pieces
-    chunks = wide if head_dim > CHUNK_DIM and products != "mma" else 1
-    if head_dim > CHUNK_DIM:
-        cols = (chunks + 1 if chunks > 1 else 2 * wide) * CHUNK_DIM
-        rows = max(1, min(rows, SLOT_BYTES // (cols * itemsize)))
+    chunks = 1
+    if head_dim > CHUNK_DIM and products == "mma":
+        rows = max(1, min(rows, SLOT_BYTES // (2 * wide * CHUNK_DIM
+                                               * itemsize)))
+    elif head_dim > CHUNK_DIM:
+        chunks = -(-wide // WIDE_PIECES)
     unpadded = head_dim * itemsize % 16 != 0 and head_dim <= CHUNK_DIM
     if box_heads > 1 or unpadded:
         rows = max(1, min(rows, HEADS_SLOT_BYTES // (2 * box_heads * head_dim
@@ -159,9 +168,9 @@ def body_for(dtype: torch.dtype, head_dim: int) -> str:
     (type, head size) that `paged_attention_launch` in
     csrc/paged_attention.cu applies, for the body built at Dp =
     `padded_head_dim` (columns past `head_dim` zero and never stored; above
-    256 the whole head a block on the tensor cores up to MMA_WIDE, else the
-    wide body, a chunk of 256 output columns a block: `products_on`,
-    `paged_plan`'s chunks): "tma" (the
+    256 the whole head a block, on the tensor cores up to MMA_WIDE, else
+    in the wide body on FMAs, pieces of 256 columns through its ring:
+    `products_on`, `paged_plan`): "tma" (the
     TMA page ring; where its products run: `products_on`) where a row of
     `head_dim` elements is a whole number of 16-byte pieces (float8: D %
     16 == 0), "element" (rows of no whole pieces: unpadded slots, loaded
@@ -524,7 +533,9 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
         out.stride(0), out.stride(1))
-    width = padded_head_dim("paged_attention", D) // plan.chunks
+    # columns of a head's partial: the whole head's, a chunk's above 2048
+    width = min(padded_head_dim("paged_attention", D),
+                WIDE_PIECES * CHUNK_DIM)
     lib, fn = _bind()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

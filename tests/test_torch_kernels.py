@@ -264,18 +264,19 @@ def test_paged_products_rule(q_dtype, cache_dtype):
 
 
 @pytest.mark.parametrize("d,itemsize,rows,chunks", [
-    (128, 2, 32, 1), (256, 4, 32, 1), (257, 2, 32, 2), (512, 2, 32, 1),
-    (1024, 4, 12, 4), (2048, 2, 14, 8), (2048, 4, 7, 8), (264, 2, 32, 1),
-    (300, 4, 21, 2), (512, 4, 21, 2), (520, 2, 32, 3), (1024, 2, 25, 4)])
+    (128, 2, 32, 1), (256, 4, 32, 1), (257, 2, 32, 1), (512, 2, 32, 1),
+    (1024, 4, 32, 1), (2048, 2, 32, 1), (2048, 4, 32, 1), (264, 2, 32, 1),
+    (300, 4, 32, 1), (512, 4, 32, 1), (520, 2, 32, 1), (1024, 2, 32, 1),
+    (2049, 4, 32, 2), (4096, 2, 32, 2), (4352, 4, 32, 3)])
 def test_paged_plan_above_256_columns(d, itemsize, rows, chunks):
-    """Above 256 columns, on FMAs (fp32 caches, 16-bit rows of no whole
-    16-byte pieces, D > 512), the head is split into chunks of 256 output
-    columns, each with its own blocks (the SMs shared among them), and a
-    slot row holds all of K's columns and a chunk of V's, so an aload takes
-    fewer rows: at most SLOT_BYTES of them. 16-bit rows of whole pieces up
-    to 512 columns (bf16 here, q of its type) run on the tensor cores, a
-    block over the whole head: one chunk, a slot row all of K's and V's
-    512 columns, 32 rows."""
+    """Above 256 columns a block takes the whole head. On FMAs (fp32
+    caches, 16-bit rows of no whole 16-byte pieces, D > 512: the wide
+    body) an aload is one piece of 256 columns of K or of V, so it keeps
+    its 32 rows at every head size, and the head is one chunk up to 2048
+    columns (K read once), chunks of 2048 above, each with its own blocks
+    (the SMs shared among them). 16-bit rows of whole pieces up to 512
+    columns (bf16 here, q of its type) run on the tensor cores, a slot row
+    all of K's and V's 512 columns: at most SLOT_BYTES of them, 32 rows."""
     dtype = {2: torch.bfloat16, 4: torch.float32}[itemsize]
     products = tpaged.products_on(dtype, dtype, d, 16, 2)
     if d > 256:
@@ -285,11 +286,12 @@ def test_paged_plan_above_256_columns(d, itemsize, rows, chunks):
                              products=products)
     assert (plan.rows, plan.chunks) == (rows, chunks)
     assert plan.blocks <= 132 // chunks
-    if chunks > 1:
-        assert plan.rows * (chunks + 1) * 256 * itemsize <= tpaged.SLOT_BYTES
-    else:
-        dp = tflash.padded_head_dim("paged_attention", d)
+    dp = tflash.padded_head_dim("paged_attention", d)
+    if products == "mma":
         assert plan.rows * 2 * dp * itemsize <= tpaged.SLOT_BYTES
+    elif d > 256:
+        assert plan.chunks == -(-(dp // 256) // tpaged.WIDE_PIECES)
+        assert plan.rows * 256 * itemsize <= 32768     # a slot: one piece
 
 
 @pytest.mark.parametrize("q_dtype,cache_dtype,d,hq,hkv,want", [
@@ -315,16 +317,16 @@ def test_paged_whole_head_on_the_tensor_cores(q_dtype, cache_dtype, d, hq,
     (one chunk, K read once) for bf16 and f16 caches under a q of their
     type whose rows are whole 16-byte pieces, up to 512 columns; fp32 and
     float8 caches, a q of another type, integers, rows of no whole pieces
-    (257, 500 in 16 bits) and heads above 512 keep the wide body on FMAs,
-    a chunk of 256 output columns a block. The plan follows the products:
-    `launch_plan`'s chunks are 1 exactly where they are "mma"."""
+    (257, 500 in 16 bits) and heads above 512 take the wide body on FMAs,
+    which also takes the whole head a block (its pieces through the ring):
+    one chunk either way up to 2048 columns."""
     assert tpaged.products_on(q_dtype, cache_dtype, d, hq, hkv) == want
     assert tpaged.kv_heads(q_dtype, cache_dtype, d, hq, hkv) == 1
     assert tpaged.query_heads(q_dtype, cache_dtype, d, hq, hkv) == 8
     _, kv = tpaged.kernel_types(q_dtype, cache_dtype)
     plan = tpaged.paged_plan(4, hq, hkv, 1032, 512, 132, d, kv.itemsize,
                              products=want)
-    assert plan.chunks == (1 if want == "mma" else -(-d // 256))
+    assert plan.chunks == 1
     assert plan.segments == 4 * hkv * -(-(hq // hkv) // 8)
 
 
@@ -805,3 +807,295 @@ def test_paged_attention_mixed_types(q_dtype, kv_dtype, d):
     np.testing.assert_allclose(
         to_np(out), to_np(jpaged(q, kc, vc, jnp.array(lens), page=32,
                                  interpret=True)), **TOLS[q_dtype])
+
+
+# -------------------------------------------- the two FMA bodies' designs
+def _paged_wide_walk(q, k, v, lens, blocks, rows):
+    """A numpy model of paged attention's wide body
+    (`paged_wide_kernel` of csrc/paged_attention.cu) over float32 q [B, Hq,
+    D] and caches [B, T, Hkv, D]: the blocks' shares and chunks of rows as
+    `block_chunks` gives them; a block's segment the whole head (above 2048
+    columns, chunks of the output of WIDE_PIECES pieces of 256 columns,
+    each its own blocks); each chunk of rows' K pieces, all of the head's,
+    summed into the logits by the two warp parities (even and odd pieces)
+    before the softmax, its V pieces into accumulators of all the column
+    chunk's columns; a partial a block where a segment spans several,
+    merged in the two levels of MERGE_GROUP. Returns the output [B, Hq, D]
+    and the aloads of K a (b, KV head, piece) counted in rows."""
+    B, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    dp = tflash.padded_head_dim("paged_attention", D)
+    npk = dp // 256
+
+    def pad(a):
+        return np.pad(a.astype(np.float64),
+                      [(0, 0)] * (a.ndim - 1) + [(0, dp - D)])
+    q, k, v = pad(q), pad(k), pad(v)
+    ngc = -(-G // tpaged.GC)
+    hg = Hkv * ngc
+    scale = 1.0 / np.sqrt(D)
+    lens = [min(max(int(n), 0), T) for n in lens]
+    prefix = np.concatenate([[0], np.cumsum(lens)])
+    W = int(prefix[-1]) * hg
+    per = -(-W // blocks) if W else 0
+    out = np.zeros((B, Hq, dp))
+    loads = {}
+    share = tpaged.block_chunks(lens, T, hg, blocks, rows)
+
+    def merge(parts):
+        m = np.max([p[0] for p in parts], axis=0)
+        w = [np.exp(p[0] - m) for p in parts]
+        return (m, sum(wi * p[1] for wi, p in zip(w, parts)),
+                sum(wi[:, None] * p[2] for wi, p in zip(w, parts)))
+    for c0 in range(0, npk, tpaged.WIDE_PIECES):
+        cols = slice(c0 * 256, min(npk, c0 + tpaged.WIDE_PIECES) * 256)
+        partials = {}
+        for blk, chunks in enumerate(share):
+            state = None
+
+            def flush(state):
+                s, m, l, acc = state
+                b, j = divmod(s, hg)
+                start = int(prefix[b]) * hg + j * lens[b]
+                first, count = tpaged.pieces(lens[b], start, per)
+                if count == 1:
+                    h0 = (j // ngc) * G + (j % ngc) * tpaged.GC
+                    out[b, h0:h0 + len(m), cols] = acc / l[:, None]
+                else:
+                    partials.setdefault(s, []).append((m, l, acc))
+            for s, t0, n in chunks:
+                b, j = divmod(s, hg)
+                h, g0 = j // ngc, (j % ngc) * tpaged.GC
+                heads = slice(h * G + g0, h * G + min(G, g0 + tpaged.GC))
+                if state is None or state[0] != s:
+                    if state is not None:
+                        flush(state)
+                    gn = heads.stop - heads.start
+                    state = (s, np.full(gn, -1e30), np.zeros(gn),
+                             np.zeros((gn, cols.stop - cols.start)))
+                _, m, l, acc = state
+                rows_ = slice(t0, t0 + n)
+                logit = np.zeros((heads.stop - heads.start, n))
+                for parity in (0, 1):
+                    part = 0.0
+                    for p in range(parity, npk, 2):
+                        pc = slice(p * 256, (p + 1) * 256)
+                        part = part + q[b, heads, pc] @ k[b, rows_, h, pc].T
+                        key = (b, h, p)
+                        loads[key] = loads.get(key, 0) + n
+                    logit = logit + part
+                logit = logit * scale
+                m_new = np.maximum(m, logit.max(1))
+                alpha = np.exp(m - m_new)
+                p_ = np.exp(logit - m_new[:, None])
+                state = (s, m_new, l * alpha + p_.sum(1),
+                         acc * alpha[:, None] + p_ @ v[b, rows_, h, cols])
+            if state is not None:
+                flush(state)
+        for s, parts in partials.items():       # the two levels
+            groups = [merge(parts[i:i + tpaged.MERGE_GROUP])
+                      for i in range(0, len(parts), tpaged.MERGE_GROUP)]
+            m, l, acc = merge(groups)
+            b, j = divmod(s, hg)
+            h0 = (j // ngc) * G + (j % ngc) * tpaged.GC
+            out[b, h0:h0 + len(m), cols] = acc / l[:, None]
+    return out[:, :, :D], loads
+
+
+@pytest.mark.parametrize("d,dtype,hq,hkv,t,lens", [
+    (300, torch.float32, 8, 2, 333, (0, 1, 200, 333)),
+    (1024, torch.float32, 16, 1, 900, (900, 517)),
+    (2048, torch.float32, 8, 2, 200, (200, 3, 64, 0)),
+    (520, torch.float8_e4m3fn, 8, 1, 1200, (1200, 1000)),
+    (2304, torch.float32, 8, 1, 300, (300, 41))])
+def test_paged_wide_walk_model(d, dtype, hq, hkv, t, lens):
+    """The wide body's walk (`_paged_wide_walk`: the whole head a segment,
+    up to 2048 columns, chunks of 2048 above; K's pieces summed before the
+    softmax, V's pieces into all the chunk's columns, the two-level merge)
+    equals the plain version, at the plan's blocks and rows, and reads each
+    valid K row once a column chunk: one aload of each (row, piece) a
+    segment of a KV head and a chunk."""
+    rng = np.random.default_rng(d + hq)
+    B = len(lens)
+    q = (rng.standard_normal((B, hq, d)) * 2).astype(np.float32)
+    kc = to_torch(rng.standard_normal((B, t, hkv, d)).astype(np.float32))
+    vc = to_torch(rng.standard_normal((B, t, hkv, d)).astype(np.float32))
+    kc, vc = ref.from_float(kc, dtype), ref.from_float(vc, dtype)
+    plan = tpaged.paged_plan(B, hq, hkv, t, 512, 132, d, dtype.itemsize,
+                             products=tpaged.products_on(torch.float32, dtype,
+                                                         d, hq, hkv))
+    assert plan.chunks == -(-d // 2048) and plan.rows == 32
+    lens_t = torch.tensor(lens, dtype=torch.int32)
+    got, loads = _paged_wide_walk(q, kc.float().numpy(), vc.float().numpy(),
+                                  lens, plan.blocks, plan.rows)
+    want = ref.paged_attention_ref(to_torch(q), kc, vc, lens_t)
+    np.testing.assert_allclose(got, to_np(want), **FP32_TOL)
+    dp = tflash.padded_head_dim("paged_attention", d)
+    ngc = -(-(hq // hkv) // tpaged.GC)
+    assert loads == {(b, h, p): plan.chunks * ngc * n
+                     for b, n in enumerate(lens)
+                     for h in range(hkv) for p in range(dp // 256) if n}
+
+
+# csrc/flash_attention.cu's `FmaRing`: (query rows a block, keys a K or V
+# tile, ring slots) of the fma body at each Dp
+FMA_RING = {16: (128, 64, 4), 32: (128, 64, 4), 64: (128, 64, 4),
+            128: (128, 64, 3), 256: (64, 32, 4)}
+
+
+def _fma_tiles(q0, s, bm, bn, causal, window):
+    """The KV tiles the fma body's block at q0 loads: `kt_lo`, `kt_hi`."""
+    nkt = -(-s // bn)
+    kt_hi = min(nkt, (min(q0 + bm, s) - 1) // bn + 1) if causal else nkt
+    kt_lo = (q0 - window + 1) // bn if window > 0 and q0 - window + 1 > 0 \
+        else 0
+    return kt_lo, kt_hi
+
+
+def _fma_ring_run(items, slots, seed, warps=8):
+    """One interleaving, drawn from `seed`, of the fma body's producer warp
+    and its consumer warps over `items` ring items (K and V of each tile in
+    turn), with the mbarriers' phase arithmetic of the source: the producer
+    waits on slot i % slots's `empty` at parity (i / slots - 1) & 1 before
+    it refills it (from item `slots` on), a consumer on its `full` at
+    parity (i / slots) & 1 (a barrier whose completed phases number c
+    passes a wait at parity p where c % 2 != p); each warp frees a slot
+    after reading it, and the consumers meet at two barriers a tile. Checks
+    that every item is read by every warp once, landed, and that no slot is
+    refilled before every warp has freed it."""
+    import random
+    rnd = random.Random(seed)
+    full, empty, freed = [0] * slots, [0] * slots, [0] * slots
+    content = [None] * slots              # (item, landed)
+    inflight, issued, reads = [], 0, {}
+    prog = []                             # a warp's steps, tile by tile
+    for t in range(items // 2):
+        prog += [("wait", 2 * t), ("read", 2 * t), ("free", 2 * t), ("bar",),
+                 ("bar",), ("wait", 2 * t + 1), ("read", 2 * t + 1),
+                 ("free", 2 * t + 1)]
+    pc, at_bar, bar_gen = [0] * warps, [0] * warps, 0
+    while issued < items or inflight or any(p < len(prog) for p in pc):
+        moves = []
+        if issued < items:
+            slot = issued % slots
+            if issued < slots or empty[slot] % 2 != (issued // slots - 1) % 2:
+                moves.append("issue")
+        if inflight:
+            moves.append("land")
+        for w in range(warps):
+            if pc[w] < len(prog):
+                step = prog[pc[w]]
+                if step[0] == "wait":
+                    slot = step[1] % slots
+                    if full[slot] % 2 != (step[1] // slots) % 2:
+                        moves.append(w)
+                elif step[0] == "bar":
+                    if at_bar[w] <= bar_gen:
+                        moves.append(w)
+                else:
+                    moves.append(w)
+        assert moves, "deadlock"
+        move = rnd.choice(moves)
+        if move == "issue":
+            slot = issued % slots
+            if issued >= slots:           # every warp freed the slot's last
+                assert freed[slot] == (issued // slots) * warps, issued
+            content[slot] = (issued, False)
+            inflight.append(slot)
+            issued += 1
+        elif move == "land":
+            slot = inflight.pop(rnd.randrange(len(inflight)))
+            content[slot] = (content[slot][0], True)
+            full[slot] += 1
+        else:
+            w = move
+            step = prog[pc[w]]
+            if step[0] == "read":
+                assert content[step[1] % slots] == (step[1], True), step
+                reads[step[1]] = reads.get(step[1], 0) + 1
+            elif step[0] == "free":
+                slot = step[1] % slots
+                freed[slot] += 1
+                if freed[slot] % warps == 0:
+                    empty[slot] += 1
+            elif step[0] == "bar":
+                at_bar[w] += 1
+                if all(a > bar_gen for a in at_bar):
+                    bar_gen += 1
+                pc[w] += 1
+                continue
+            pc[w] += 1
+    assert reads == {i: warps for i in range(items)}
+
+
+@pytest.mark.parametrize("dp", sorted(FMA_RING))
+@pytest.mark.parametrize("s,causal,window", [
+    (1000, True, 0), (333, True, 48), (200, False, 0), (130, False, 63),
+    (1, True, 0), (4096, True, 2048)])
+def test_flash_fma_ring_model(dp, s, causal, window):
+    """The fma body's ring over the tiles its blocks take: the tile range
+    (`kt_lo`, `kt_hi`) holds every KV tile with a key some row of the query
+    tile attends to and no other, and the ring's stage and phase arithmetic
+    (`_fma_ring_run`, three interleavings a query tile) consumes every tile
+    once and frees every slot before it is refilled."""
+    bm, bn, slots = FMA_RING[dp]
+    pos = np.arange(s)
+    for qt in range(-(-s // bm)):
+        q0 = qt * bm
+        r = pos[q0:q0 + bm, None]
+        ok = np.ones((len(r), s), bool)
+        if causal:
+            ok &= pos[None, :] <= r
+        if window:
+            ok &= pos[None, :] > r - window
+        wanted = [kt for kt in range(-(-s // bn))
+                  if ok[:, kt * bn:(kt + 1) * bn].any()]
+        lo, hi = _fma_tiles(q0, s, bm, bn, causal, window)
+        assert wanted == list(range(lo, hi)), (qt, lo, hi)
+        if qt % 7 == 0 or qt == -(-s // bm) - 1:
+            for seed in range(3):
+                _fma_ring_run(2 * (hi - lo), slots, seed + 31 * qt)
+
+
+@pytest.mark.parametrize("dtype,d", [
+    ("float32", 12), ("float32", 100), ("float32", 256), ("int8", 64),
+    ("bfloat16", 12)])
+def test_flash_fma_body_against_the_reference(dtype, d):
+    """The inputs flash's fma body takes on the card (float32 at D 12, 100
+    and 256; int8 on float32 copies; bf16 rows of no whole 16-byte pieces
+    at D 12): the wrapper's plain version against the reference's Pallas
+    kernel in interpret mode, causal with a window, GQA group 2."""
+    assert tflash.body_for(getattr(torch, dtype), d) == "fma"
+    q, k, v = _flash_inputs(11 + d, 1, 4, 2, 192, d)
+    if dtype == "int8":
+        q, k, v = ((a * 40).round().clip(-128, 127) for a in (q, k, v))
+    jdt = getattr(jnp, dtype)
+    jq, jk, jv = (jnp.array(a, jdt) for a in (q, k, v))
+    tq, tk, tv = to_torch(jq), to_torch(jk), to_torch(jv)
+    out = tflash.flash_attention(tq, tk, tv, causal=True, window=48)
+    assert out.dtype == getattr(torch, dtype) and out.shape == tq.shape
+    want = to_np(jflash(jq, jk, jv, causal=True, window=48, block_q=64,
+                        block_k=64, interpret=True))
+    if dtype == "int8":       # the same cut toward zero: within one unit
+        np.testing.assert_allclose(to_np(out), want, atol=1, rtol=0)
+    else:
+        np.testing.assert_allclose(to_np(out), want, **TOLS[dtype])
+
+
+def test_paged_wide_body_against_the_reference():
+    """The wide body's inputs at D 300 in float32 (two pieces of 256, the
+    second past D but for 44 columns), lengths 0, 1, a middle one and T:
+    the wrapper's plain version against the reference's Pallas kernel in
+    interpret mode."""
+    assert tpaged.products_on(torch.float32, torch.float32, 300) == "fma"
+    rng = np.random.default_rng(300)
+    q = jnp.array(rng.standard_normal((4, 8, 300)) * 0.3, jnp.float32)
+    kc = jnp.array(rng.standard_normal((4, 96, 2, 300)) * 0.3, jnp.float32)
+    vc = jnp.array(rng.standard_normal((4, 96, 2, 300)), jnp.float32)
+    lens = np.array([0, 1, 41, 96], np.int32)
+    out = tpaged.paged_attention(to_torch(q), to_torch(kc), to_torch(vc),
+                                 torch.from_numpy(lens), page=32)
+    np.testing.assert_allclose(
+        to_np(out), to_np(jpaged(q, kc, vc, jnp.array(lens), page=32,
+                                 interpret=True)), **FP32_TOL)
