@@ -381,7 +381,9 @@ SASS_WANT = {"flash_attention": ("HGMMA", "UTMALDG"),
 # false or true) on the fp8 wgmma of their kind (QGMMA in SASS); flash's
 # fma body in float32 (`flash_fma_kernel<float, D, EXACT>`) on cp.async
 # (LDGSTS) into its ring, mbarriers (SYNCS) and ex2.approx, without expf's
-# slow path; paged's wide body by TMA (`paged_wide_kernel<E, EQ, true>`) on
+# slow path; its clusters above 256 columns (`flash_fma_kernel<E, 256,
+# false, 64, WIDE=true>`) on the cluster barrier (UCGABAR) and arrivals on
+# the peers' mbarriers (SYNCS...RED); paged's wide body by TMA (`paged_wide_kernel<E, EQ, true>`) on
 # TMA and mbarriers, its segments of several KV heads (HEADS true, HX 1) on
 # TMA, its bodies of two query heads a warp (HX 2) on mma.sync, TMA and
 # ldmatrix (LDSM: q's fragments), its tensor-core body over the whole head
@@ -401,6 +403,8 @@ SASS_WANT_IN = {"flash_attention": [
                      ("HMMA", "MUFU.EX2", "!FFMA.SAT")),
                     (("flash_fma_kernelIfLi",),
                      ("LDGSTS", "SYNCS", "MUFU.EX2", "!FFMA.SAT")),
+                    (("flash_fma_kernel", "Lb1EEEv"),
+                     ("UCGABAR_ARV", "UCGABAR_WAIT", "SYNCS*RED")),
                     (("flash_wgmma_pair_kernel",),
                      ("HGMMA", "UTMALDG", "USETMAXREG")),
                     (("flash_wgmma_kernel", "Lb1ELb0EEEv"),
@@ -715,6 +719,33 @@ def run_layouts(hkv, d):
     return (dense * 2, padded * 2, loose * 2, dense + padded)
 
 
+# head sizes and (B, Hq, S) at which the fma body's query rows a block are
+# held: every Dp, and grids of 128-row tiles on either side of 100, 132 and
+# 144 blocks and at them
+FMA_ROWS_DIMS = (8, 16, 32, 33, 64, 100, 128, 200, 256, 512)
+FMA_ROWS_GRID = tuple((b, hq, s) for b in (1, 2, 4)
+                      for hq in (1, 8, 16, 33, 50, 66, 72, 131, 132, 133)
+                      for s in (1, 64, 128, 129, 200, 256, 257, 1000, 1057))
+
+
+def check_flash_blocks(flash, fa, code, dtype, d):
+    """Flash's blocks a query tile and CTAs a cluster at (dtype, d): the
+    source's (`flash_attention_wide_blocks`, `flash_attention_cluster`)
+    against the wrapper's (`wide_blocks`, `fma_cluster`), and the blocks
+    the clusters times the passes of Q K^T (`qk_passes`)."""
+    got = (flash.flash_attention_wide_blocks(code, d),
+           flash.flash_attention_cluster(code, d))
+    want = (fa.wide_blocks(dtype, d), fa.fma_cluster(dtype, d))
+    if got != want:
+        raise AssertionError(
+            f"flash blocks a query tile and CTAs a cluster for {dtype} D{d}: "
+            f"the source says {got}, the wrapper {want} ... FAIL")
+    if fa.body_for(dtype, d) == "fma" and \
+            want[0] != want[1] * fa.qk_passes(dtype, d):
+        raise AssertionError(f"flash fma {dtype} D{d}: {want[0]} blocks, "
+                             f"clusters of {want[1]} ... FAIL")
+
+
 def check_body_rules():
     """The body rule of each attention source is its wrapper's, at every
     head size from 0 to 1100 and at 2048, in the three types and (flash)
@@ -752,12 +783,32 @@ def check_body_rules():
                     f"flash {got}, paged {got_paged}; the wrappers say "
                     f"{want}, {want_paged} ... FAIL")
             if want is not None and q_dtype == kv_dtype:
-                blocks = flash.flash_attention_wide_blocks(code, d)
-                if blocks != fa.wide_blocks(q_dtype, d):
-                    raise AssertionError(
-                        f"flash blocks a query tile for {q_dtype} D{d}: the "
-                        f"source says {blocks}, the wrapper "
-                        f"{fa.wide_blocks(q_dtype, d)} ... FAIL")
+                check_flash_blocks(flash, fa, code, q_dtype, d)
+    # flash above 1100 columns: the blocks a query tile and the clusters
+    fa._bind()
+    for dtype in (*types, *FP8):
+        for d in WIDE_RULE_DIMS:
+            check_flash_blocks(flash, fa, _build.DTYPE_CODES[dtype], dtype, d)
+    # the fma body's query rows a block, by the heads and rows of a launch
+    # and the card's SMs (this card's, and two others)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for q_dtype, kv_dtype in pairs:
+        code = _build.DTYPE_CODES[q_dtype if q_dtype == kv_dtype
+                                  else torch.float32]
+        for d in FMA_ROWS_DIMS:
+            for b, hq, s in FMA_ROWS_GRID:
+                for n_sm in (sms, 100, 144):
+                    got = flash.flash_attention_fma_rows(code, d, b, hq, s,
+                                                         n_sm)
+                    want = fa.fma_rows(q_dtype, d, b, hq, s, n_sm, kv_dtype)
+                    if got != want:
+                        raise AssertionError(
+                            f"flash fma rows for {q_dtype} / {kv_dtype} D{d} "
+                            f"B{b} Hq{hq} S{s} on {n_sm} SMs: the source says "
+                            f"{got}, the wrapper {want} ... FAIL")
+                    if n_sm == sms and want:
+                        rows[want] = rows.get(want, 0) + 1
     # paged's KV heads a segment and where its products run, by GQA layout
     pa._bind()
     products = {0: "fma", 1: "mma"}
@@ -845,7 +896,12 @@ def check_body_rules():
         "TMA ring at Dp 64-256, G = 1, or G of 2 and 4 at D < Dp, and rows "
         "of no whole 16-byte pieces in every type at G dividing 8: 8 / G "
         "heads a segment, on fma; G > 8 on mma: 16 query heads a segment); "
-        "flash's blocks a query tile (one up to 512 in the wgmma body); "
+        "flash's blocks a query tile and CTAs a cluster (one up to 512 in "
+        "the wgmma body; a cluster of one CTA a 256-column piece in the fma "
+        f"body, 8 a chunk of 2048 above) also at {WIDE_RULE_DIMS[-8:]}; the "
+        f"fma body's rows a block at D {FMA_ROWS_DIMS} x "
+        f"{len(FMA_ROWS_GRID)} (B, Hq, S) x {sms}, 100, 144 SMs "
+        f"(on this card: {rows}); "
         "paged above 256 columns at every D 257-2048 and at "
         f"{WIDE_RULE_DIMS[-8:]} under three q types: products and chunks "
         f"agree, each plan's ring fits ({wide} launches of one chunk, a "
@@ -1321,14 +1377,59 @@ FMA_PAGED_TYPES = ((torch.float32, torch.float32, 1),
                    (torch.bfloat16, torch.float8_e4m3fn, 5))
 
 
-def check_fma_bodies(gen):
-    """Flash's fma body and paged's wide body against their plain versions
-    at every head size of the rule checks that runs them (FMA_FLASH_CASES,
-    FMA_PAGED_CASES and FMA_PAGED_TYPES), fp32 at FP32_TOL, 16-bit at its
-    limit (flash with its P term), float8 outputs within one unit in the
-    last place; then each body's time at its largest shape beside SDPA."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa, ref
+# flash's fma body above 256 columns (clusters of one CTA a 256-column
+# piece, chunks of 2048 columns a grid dimension above): float32 at every
+# third D from 257 to 1100 and at FMA_WIDE_DIMS (one cluster of 8; two and
+# three chunks, the last of one piece), then (q's type, k's and v's, D):
+# 16-bit rows of no whole 16-byte pieces, int8 and a mixed pair (float32
+# copies); the (B, Hq, Hkv, S, causal, window) cases in turn
+FMA_WIDE_DIMS = (2048, 2304, 4352)
+FMA_WIDE_TYPED = ((torch.bfloat16, torch.bfloat16, 300),
+                  (torch.bfloat16, torch.bfloat16, 500),
+                  (torch.float16, torch.float16, 500),
+                  (torch.int8, torch.int8, 512),
+                  (torch.bfloat16, torch.float16, 512))
+# the fma body's 64-row tiles at Dp 64 and 128 (`fma_rows`: fewer 128-row
+# tiles than SMs), (B, Hq, Hkv, S, D, causal, window, type)
+FMA_SMALL_GRID = ((2, 8, 2, 200, 64, True, 0, torch.int8),
+                  (2, 8, 2, 200, 64, True, 0, torch.float32),
+                  (2, 8, 2, 200, 128, True, 0, torch.float32),
+                  (1, 4, 2, 130, 64, True, 33, torch.float32),
+                  (1, 2, 1, 77, 128, False, 0, torch.float32),
+                  (2, 8, 2, 200, 100, True, 48, torch.float32),
+                  (1, 2, 2, 450, 37, True, 0, torch.float32))
+
+
+def check_fma_flash(gen) -> float:
+    """Flash's fma body against its plain version at every head size 1-256
+    it takes (float32 at each; 16-bit rows of no whole 16-byte pieces and
+    float8 at Dp 16 and 32), above 256 columns at every third D 257-1100,
+    at FMA_WIDE_DIMS and FMA_WIDE_TYPED, and at FMA_SMALL_GRID (64-row
+    tiles), in FMA_FLASH_CASES taken in turn: fp32 at FP32_TOL, 16-bit at
+    its limit with the P term, float8 and integer outputs within one unit
+    in the last place. Then the clusters the card holds at once and the
+    body's time at the serve shape and at D512 beside the library; returns
+    the worst fp32 error."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa, ref
+    import torch.nn.functional as F
+
+    def one(q_dtype, kv_dtype, d, case, label=""):
+        b, hq, hkv, s, causal, window = case
+        q = rand_typed(gen, (b, s, hq, d), q_dtype, Q_SCALE).transpose(1, 2)
+        k = rand_typed(gen, (b, s, hkv, d), kv_dtype).transpose(1, 2)
+        v = rand_typed(gen, (b, s, hkv, d), kv_dtype).transpose(1, 2)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        name = (f"flash fma {tname(q_dtype)}"
+                + ("" if kv_dtype == q_dtype else f" k, v {tname(kv_dtype)}")
+                + f" B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal{causal} "
+                f"window{window}{label}")
+        if q_dtype in FP8 or not q_dtype.is_floating_point:
+            check_ulp(name, out, ref.attention_ref(q, k, v, causal, window),
+                      quiet=True)
+            return 0.0
+        err = check_flash_out(name, out, q, k, v, causal, window, quiet=True)
+        return err if q_dtype == torch.float32 else 0.0
 
     worst, n = 0.0, 0
     for d in range(1, 257):
@@ -1354,6 +1455,62 @@ def check_fma_bodies(gen):
     log(f"  flash's fma body at D 1-256: {n} launches agree (float32 at "
         "every D, 16-bit and float8 where it takes them); worst fp32 error "
         f"{worst:.3e}")
+    wide = [(torch.float32, torch.float32, d)
+            for d in (*range(257, 1101, 3), *FMA_WIDE_DIMS)]
+    for i, (q_dtype, kv_dtype, d) in enumerate(wide + list(FMA_WIDE_TYPED)):
+        assert fa.body_for(q_dtype, d, kv_dtype) == "fma", (q_dtype, d)
+        blocks = fa.wide_blocks(q_dtype, d, kv_dtype)
+        worst = max(worst, one(q_dtype, kv_dtype, d,
+                               FMA_FLASH_CASES[i % len(FMA_FLASH_CASES)],
+                               f" ({blocks} CTAs a query tile)"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, hq, hkv, s, d, causal, window, dtype in FMA_SMALL_GRID:
+        rows = fa.fma_rows(dtype, d, b, hq, s, sms)
+        worst = max(worst, one(dtype, dtype, d,
+                               (b, hq, hkv, s, causal, window),
+                               f" ({rows} rows a block)"))
+    torch.cuda.synchronize()
+    flash = _build.load("flash_attention")
+    fa._bind()
+    clusters = {c: flash.flash_attention_fma_clusters(c) for c in (2, 4, 8)}
+    log(f"  flash's fma body above 256 columns (clusters of a CTA a "
+        f"256-column piece): {len(wide) + len(FMA_WIDE_TYPED)} launches "
+        f"agree (float32 at every third D 257-1100 and {FMA_WIDE_DIMS}; "
+        f"{[(tname(a), tname(b), d) for a, b, d in FMA_WIDE_TYPED]}), and "
+        f"{len(FMA_SMALL_GRID)} at 64-row tiles; worst fp32 error "
+        f"{worst:.3e}; clusters the card holds at once (of n CTAs: SMs "
+        "busy): " + ", ".join(f"n={c}: {k} ({c * k} of {sms})"
+                              for c, k in clusters.items()))
+    q, k, v = flash_case(gen, BATCH, 16, 2, PROMPT_LEN, 128, torch.float32)
+    ms = time_ms([lambda: fa.flash_attention(q, k, v)], 10)
+    lib = time_ms([lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)], 10)
+    bound = flash_bound(BATCH, 16, 2, PROMPT_LEN, 128, 0, torch.float32)[0]
+    log(f"  flash fma fp32 B{BATCH} Hq16 Hkv2 S{PROMPT_LEN} D128 causal: "
+        f"{ms:.4f} ms, SDPA fp32 {lib:.4f} ms, bound {bound:.5f} ms")
+    del q, k, v
+    q, k, v = flash_case(gen, BATCH, 16, 2, PROMPT_LEN, 512, torch.float32)
+    ms = time_ms([lambda: fa.flash_attention(q, k, v)], 10)
+    plain = time_ms([lambda: ref.attention_ref(q, k, v)], 3)
+    lib = time_ms([lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)], 5)
+    bound = flash_bound(BATCH, 16, 2, PROMPT_LEN, 512, 0, torch.float32)[0]
+    log(f"  flash fma fp32 B{BATCH} Hq16 Hkv2 S{PROMPT_LEN} D512 causal "
+        f"(clusters of 2): {ms:.4f} ms, plain {plain:.4f} ms, SDPA fp32 "
+        f"{lib:.4f} ms, bound {bound:.5f} ms")
+    del q, k, v
+    return worst
+
+
+def check_fma_bodies(gen):
+    """Flash's fma body (`check_fma_flash`) and paged's wide body against
+    their plain versions at every head size of the rule checks that runs
+    them (FMA_PAGED_CASES and FMA_PAGED_TYPES), fp32 at FP32_TOL, 16-bit at
+    its limit, float8 caches within one unit in the last place; then the
+    wide body's time at its largest shape."""
+    from repro_torch.kernels import paged_attention as pa, ref
+
+    worst = check_fma_flash(gen)
     m = 0
     for d in list(range(257, 1101)) + [2048]:
         for q_dtype, kv_dtype, step in FMA_PAGED_TYPES:
@@ -1409,15 +1566,6 @@ def check_fma_bodies(gen):
         f"(chunks of 2048 columns): {m} launches agree (float32, bf16, e4m3 "
         f"caches under bf16; and T{t} in one segment, several chunks of rows "
         f"a block); worst fp32 error {worst:.3e}")
-    import torch.nn.functional as F
-    q, k, v = flash_case(gen, BATCH, 16, 2, PROMPT_LEN, 128, torch.float32)
-    ms = time_ms([lambda: fa.flash_attention(q, k, v)], 10)
-    lib = time_ms([lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True)], 10)
-    bound = flash_bound(BATCH, 16, 2, PROMPT_LEN, 128, 0, torch.float32)[0]
-    log(f"  flash fma fp32 B{BATCH} Hq16 Hkv2 S{PROMPT_LEN} D128 causal: "
-        f"{ms:.4f} ms, SDPA fp32 {lib:.4f} ms, bound {bound:.5f} ms")
-    del q, k, v
     t = PROMPT_LEN + MAX_NEW
     lens = torch.tensor([t, t - 31, (t + 2) // 2, 64], dtype=torch.int32,
                         device="cuda")
@@ -4733,8 +4881,8 @@ MUTANTS = {
                              "const bool in = row0 + r < S && c * 4 < dh;",
                              "const bool in = row0 + r < S;"),
                             ("flash_attention.cu",
-                             "x[u] = i < ROWS * D && row0 + r < S && c < dh",
-                             "x[u] = i < ROWS * D && row0 + r < S")],
+                             "if (i < ROWS * UPR && row0 + r < S && c < dh) {",
+                             "if (i < ROWS * UPR && row0 + r < S) {")],
     "paged_load_tail": [("paged_attention.cu",
                          "return c < dh ? row[c] : zero<E>();",
                          "return row[c];")],
@@ -4744,8 +4892,8 @@ MUTANTS = {
                                 "  T* const ob = o + b * o_sb + h * o_sh + cw;",
                                 "  T* const ob = o + b * o_sb + h * o_sh;")],
     "flash_fma_wide_chunk": [("flash_attention.cu",
-                              "  E* ob = o + b * o_sb + h * o_sh + c0;",
-                              "  E* ob = o + b * o_sb + h * o_sh;")],
+                              "    E* ob = o + b * o_sb + h * o_sh + vc0;",
+                              "    E* ob = o + b * o_sb + h * o_sh;")],
     # ... scales by 1 / sqrt of the chunk's width, not of D ...
     "flash_scale_dc": [("flash_attention.cu",
                         "static_cast<float>(1.0 / sqrt((double)D));",
@@ -4971,17 +5119,40 @@ MUTANTS = {
     # Q K^T has read it (the producer refills it under the reads) ...
     "flash_fma_free_early": [
         ("flash_attention.cu",
-         "    mbar_wait(&full[sk], (uint32_t)((it / SLOTS) & 1));     "
+         "      mbar_wait(&full[sk], (uint32_t)((it / SLOTS) & 1));     "
          "// getfin: K\n",
-         "    mbar_wait(&full[sk], (uint32_t)((it / SLOTS) & 1));     "
-         "// getfin: K\n    if (lane == 0) mbar_arrive(&empty[sk]);\n"),
+         "      mbar_wait(&full[sk], (uint32_t)((it / SLOTS) & 1));     "
+         "// getfin: K\n      if (lane == 0) mbar_arrive(&empty[sk]);\n"),
         ("flash_attention.cu",
-         "    __syncwarp();\n    if (lane == 0) mbar_arrive(&empty[sk]);"
-         "       // K's slot is free\n", "")],
+         "        mbar_arrive(&empty[sk]);                  "
+         "// K's slot is free\n", "")],
     # ... and Q K^T without waiting for its K tile (getfin)
     "flash_fma_getfin": [("flash_attention.cu",
-                          "    mbar_wait(&full[sk], (uint32_t)((it / SLOTS) "
+                          "      mbar_wait(&full[sk], (uint32_t)((it / SLOTS) "
                           "& 1));     // getfin: K\n", "")],
+    # its clusters above 256 columns: a CTA that takes its own partial
+    # logits for the cluster's ...
+    "flash_fma_own_partial": [("flash_attention.cu",
+                               "      sum_partials(s, buf(j), ncta);\n",
+                               "")],
+    # ... the peers' partials read from one buffer (no parity) without
+    # waiting for the cluster's arrivals ...
+    "flash_fma_xch_unsynced": [
+        ("flash_attention.cu",
+         "return xch + (j & 1) * 2 * FMA_NT + tid;",
+         "return xch + tid;"),
+        ("flash_attention.cu",
+         "      hopper::mbar_wait_cluster(&xfull[j & 1], "
+         "(uint32_t)((j >> 1) & 1));\n", "")],
+    # ... a rank's Q from another rank's columns than its K ...
+    "flash_fma_rank_cols": [("flash_attention.cu",
+                             "fma_aload<E, D, BMF>(Qs, qb + qc0, q_ss,",
+                             "fma_aload<E, D, BMF>(Qs, qb + (ncta - 1 - rank)"
+                             " * WIDE_DC, q_ss,")],
+    # ... and the 64-row tile's rule, the source's unlike the wrapper's
+    "flash_fma_rows_rule": [("flash_attention.cu",
+                             "(long long)((S + 127) / 128) * B * Hq < sms)",
+                             "(long long)((S + 127) / 128) * B * Hq <= sms)")],
     # paged's wide body: a K piece's slot freed as soon as it has landed ...
     "paged_wide_free_early": [
         ("paged_attention.cu",

@@ -3,7 +3,8 @@
 its source that stamps clock64().
 
     python3 flash_phases.py [--src DIR] [--label NAME]
-        [--body mma|pair|wide|fma] [--case D[,DTYPE[,HKV,S[,WINDOW]]] ...]
+        [--body mma|pair|wide|fma|fma_wide]
+        [--case D[,DTYPE[,HKV,S[,WINDOW]]] ...]
 
 Copies DIR (a tree's `src/`, this tree's by default) to
 `build/flash_phases/NAME-BODY/src`, edits the copy's `flash_attention.cu`
@@ -14,7 +15,9 @@ at Dp 16 and 32, by default; `--body pair`, `flash_wgmma_pair_kernel`,
 16-bit rows above 256 columns, phases PAIR_PHASES; `--body wide`, the
 chunked wide body of a tree from before the pair body, phases WIDE_PHASES;
 `--body fma`, `flash_fma_kernel`, float32 at every head size up to 256,
-phases FMA_PHASES), builds that source alone, and runs causal flash
+phases FMA_PHASES; `--body fma_wide`, the same kernel's clusters above
+256 columns, float32 and the rows the fma body takes there, phases
+FMA_WIDE_PHASES), builds that source alone, and runs causal flash
 attention at qwen2.5-3b's prefill layout (B = 4, Hq = 16, Hkv = 2, S =
 1000), or at the case's KV heads, S and window (`256,float32,1,4096,2048`
 is recurrentgemma-9b's), at each case's head size and type (by default D
@@ -61,7 +64,7 @@ PHASES = ("start", "issue", "wait", "qk", "mask", "max", "exp", "rescale",
 # start and end (ns), and the SM it ran on
 NSLOT = 16
 TILES, TOTAL, T0, T1, SMID = range(len(PHASES), len(PHASES) + 5)
-MAXW = 65536                       # warps recorded (4096 at B4 Hq16 S1000)
+MAXW = 1 << 17                     # warps recorded (98304 in the fma body at D2048)
 (START, ISSUE, WAIT, QK, MASK, MAX, EXP, RESCALE, PV, CLOSE,
  END) = range(len(PHASES))
 
@@ -267,6 +270,8 @@ FMA_EDITS = (
     (("    load_tile_f32<E, D, BN, EXACT>(Vs, vb, v_ss, k0, S, dh);\n"
       "    __syncthreads();\n",
       "    mbar_wait(&full[sk], (uint32_t)((it / SLOTS) & 1));     "
+      "// getfin: K\n",
+      "      mbar_wait(&full[sk], (uint32_t)((it / SLOTS) & 1));     "
       "// getfin: K\n"),
      lambda old: old + f"    ph_tick({F_LOAD});\n    ph_[{TILES}]++;\n"),
     (("    // mask, online softmax; P goes to shared memory for the second "
@@ -281,6 +286,8 @@ FMA_EDITS = (
     # (the ring's body only: the wait for V, the rescale before it in P V)
     (("      float p[RPT];\n",
       "    mbar_wait(&full[sv], (uint32_t)(((it + 1) / SLOTS) & 1));   "
+      "// getfin: V\n",
+      "      mbar_wait(&full[sv], (uint32_t)((it / SLOTS) & 1));     "
       "// getfin: V\n"),
      lambda old: old if "RPT" in old else
      f"    ph_tick({F_PV});\n" + old + f"    ph_tick({F_LOAD});\n"),
@@ -292,15 +299,58 @@ FMA_EDITS = (
     (("  }\n}\n\n// -----------------------------------------------------------"
       "----------------\n// The fma body above 256 columns",
       "          ob[r * o_ss + col(c)] = from_float<E>(acc[i][c] * inv);\n"
-      "    }\n  }\n}\n"),
+      "    }\n  }\n}\n",
+      "  if constexpr (WIDE) hopper::cluster_wait();\n}\n"),
      lambda old: ("  }\n" + RECORD.replace(f"ph_tick({END})",
                                            f"ph_tick({F_END})")
                   + old[len("  }\n"):]) if old.startswith("  }\n}")
      else old[:-2] + RECORD.replace(f"ph_tick({END})", f"ph_tick({F_END})")
      + "}\n"),
 )
+# `--body fma_wide`: the fma body's clusters above 256 columns (a CTA a
+# 256-column piece of the head), a consumer warp's cycles on the start (Q's
+# load), the waits for the ring's items (a later piece's Q, K, V), its
+# partial Q K^T (with the fold of the partial tiles), the exchange (its
+# partials written, the arrivals on every CTA's barrier, the wait for the
+# cluster's, the peers' partials read and summed), the softmax (with the
+# rescale of acc), P V and the end (the row sums, the stores and the last
+# cluster barrier); a tile is an exchange
+FMA_WIDE_PHASES = ("start", "wait", "qk", "exchange", "softmax", "pv", "end")
+(X_START, X_WAIT, X_QK, X_XCH, X_SOFTMAX, X_PV,
+ X_END) = range(len(FMA_WIDE_PHASES))
+FMA_WIDE_EDITS = (
+    ("  float* lsum_s = alpha_s + BMF;                  "
+     "// a row's sum at the end\n", FMA_EDITS[0][1]),
+    ("  mbar_wait(q_full, 0);\n",
+     lambda old: old + f"  ph_tick({X_START});\n"),
+    ("        mbar_wait(&full[s0], (uint32_t)((it / SLOTS) & 1));\n"
+     "        mbar_wait(&full[s1], (uint32_t)(((it + 1) / SLOTS) & 1));\n",
+     lambda old: f"        ph_tick({X_QK});\n" + old
+     + f"        ph_tick({X_WAIT});\n"),
+    ("      mbar_wait(&full[sk], (uint32_t)((it / SLOTS) & 1));     "
+     "// getfin: K\n",
+     lambda old: f"      ph_tick({X_QK});\n" + old
+     + f"      ph_tick({X_WAIT});\n"),
+    ("      fold_rows<1, 2>(s, lane);\n    }\n  };\n",
+     lambda old: old[:-len("  };\n")] + f"    ph_tick({X_QK});\n  }};\n"),
+    ("      sum_partials(s, buf(j), ncta);\n",
+     lambda old: old + f"      ph_tick({X_XCH});\n      ph_[{TILES}]++;\n"),
+    ("    if (lane < ncta) hopper::mbar_arrive_cluster(&xfull[j & 1], lane);\n",
+     lambda old: old + f"    ph_tick({X_XCH});\n"),
+    ("      mbar_wait(&full[sv], (uint32_t)((it / SLOTS) & 1));     "
+     "// getfin: V\n",
+     lambda old: f"      ph_tick({X_SOFTMAX});\n" + old
+     + f"      ph_tick({X_WAIT});\n"),
+    ("      if (lane == 0) mbar_arrive(&empty[sv]);       "
+     "// V's slot is free\n",
+     lambda old: old + f"      ph_tick({X_PV});\n"),
+    ("  if constexpr (WIDE) hopper::cluster_wait();\n}\n",
+     lambda old: old[:-2] + RECORD.replace(f"ph_tick({END})",
+                                           f"ph_tick({X_END})") + "}\n"),
+)
 BODIES = {"mma": (PHASES, EDITS), "wide": (WIDE_PHASES, WIDE_EDITS),
-          "pair": (PAIR_PHASES, PAIR_EDITS), "fma": (FMA_PHASES, FMA_EDITS)}
+          "pair": (PAIR_PHASES, PAIR_EDITS), "fma": (FMA_PHASES, FMA_EDITS),
+          "fma_wide": (FMA_WIDE_PHASES, FMA_WIDE_EDITS)}
 
 
 def main() -> int:
@@ -332,6 +382,8 @@ def main() -> int:
         body = fa.body_for(dtype, d)
         if body == "wgmma" and d > fa.CHUNK_DIM:    # the parent's: chunks
             body = "pair" if hasattr(fa, "wide_blocks") else "wide"
+        if body == "fma" and d > fa.CHUNK_DIM:
+            body = "fma_wide"
         if body != args.body:
             raise ValueError(f"flash_phases: D{d} {dtype} runs the {body} "
                              f"body, not the {args.body} body")

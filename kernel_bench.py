@@ -88,8 +88,9 @@ layout at D 512, 1024 and 2048 in bf16 and f16 beside SDPA) and `served`
 recurrentgemma-9b's D 256, paged at qwen2.5-3b's decode, GUPS as drawn,
 the f32 triad), `fma_wide` (the two FMA bodies, each beside its plain
 version's time: flash's fma body in f32 at qwen2.5-3b's prefill and at
-recurrentgemma-9b's windowed D 256, in int8 at B2 Hq8 Hkv2 S200 D64 and in
-bf16 at D 12, and its chunked body above 256 in f32 at D 512; paged's
+recurrentgemma-9b's windowed D 256, in int8 at B2 Hq8 Hkv2 D64 at S 200
+and 1100 and in bf16 at D 12, and its clusters above 256 in f32 at D 512,
+1024 and 2048 and in bf16 at D 500; paged's
 wide body at qwen2.5-3b's decode layout in bf16 at D 1024 and 2048, in
 f32 at D 512 and 1024 and over e4m3 caches under a bf16 q at D 512).
 `--only` picks some of flash, paged, gather, triad, scatter,
@@ -356,13 +357,20 @@ def bench_cas_wide(cs, pa, asc, ref, F, gen):
 
 # `fma_wide`: flash's fma body, (B, Hq, Hkv, S, D, window, type), causal:
 # float32 at qwen2.5-3b's prefill and at recurrentgemma-9b's windowed D 256,
-# int8 (float32 copies) and bf16 at D 12 (rows of no whole 16-byte pieces
-# at Dp 16); and its chunked body above 256 columns in float32 at D 512
+# int8 (float32 copies) at D 64 at S 200 (64-row tiles: 128-row ones give
+# 32 blocks) and 1100 (144 blocks of 128 rows) and bf16 at D 12 (rows of no
+# whole 16-byte pieces at Dp 16); and its body above 256 columns (clusters
+# of a CTA a 256-column piece) in float32 at D 512, 1024 and 2048 and in
+# bf16 at D 500 (rows of no whole 16-byte pieces)
 FMA_FLASH = ((4, 16, 2, 1000, 128, 0, torch.float32),
              (4, 16, 1, 4096, 256, 2048, torch.float32),
              (2, 8, 2, 200, 64, 0, torch.int8),
+             (2, 8, 2, 1100, 64, 0, torch.int8),
              (4, 16, 2, 1000, 12, 0, torch.bfloat16),
-             (4, 16, 2, 1000, 512, 0, torch.float32))
+             (4, 16, 2, 1000, 512, 0, torch.float32),
+             (4, 16, 2, 1000, 1024, 0, torch.float32),
+             (4, 16, 2, 1000, 2048, 0, torch.float32),
+             (4, 16, 2, 1000, 500, 0, torch.bfloat16))
 # ... and paged's wide FMA body at qwen2.5-3b's decode layout: (D, q's
 # type, the caches')
 FMA_PAGED = ((1024, torch.bfloat16, torch.bfloat16),

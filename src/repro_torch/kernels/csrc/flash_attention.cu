@@ -42,20 +42,25 @@
 //     V keep their [row][d] layout (rows padded by 8 words, so the 4 key
 //     groups and 2 pieces of a quarter-warp hit 8 different 16-byte bank
 //     groups); the KSPLIT threads of a tile split D (BM = 128, BN = 64: 2;
-//     at D = 256, BM = 64, BN = 32: 8) and fold their partial tiles by
-//     shuffles into RS = 8 / KSPLIT rows each for the softmax. P V takes
+//     BM = 64, BN = 64: 4; at D = 256, BM = 64, BN = 32: 8) and fold their
+//     partial tiles by shuffles into RS = 8 / KSPLIT rows each for the
+//     softmax. P V takes
 //     an 8-row x OC-column tile of the output (OC = 8 at D 128 and 256),
 //     P stored transposed ([key][row]) so a key's 8 rows are two LDS.128
 //     and V's 8 columns two more: 64 FFMAs for 16 words;
 //   - loads under the arithmetic: K and V go through a ring of 3 slots (4
-//     below and at D = 256) filled by a producer warpgroup, the AMI at tile
-//     granularity: aload = cp.async of 16-byte pieces for float32 rows of
-//     whole pieces (zero-filled past dh and S), whose completion makes
-//     each lane's arrival on the slot's full mbarrier; other rows by
-//     element, widened to fp32 as they are loaded, each lane arriving after
-//     its stores. getfin = the consumers' wait on the full barrier; each
-//     consumer warp arrives on the slot's empty barrier once it has read
-//     it, and the producer refills a slot only after all 8 have. Q goes
+//     below, at D = 256 and at 64 rows) filled by a producer warpgroup,
+//     the AMI at tile granularity: aload = cp.async of 16-byte pieces for
+//     float32 rows of whole pieces (zero-filled past dh and S), whose
+//     completion makes each lane's arrival on the slot's full mbarrier;
+//     other rows in units of the widest of 8, 4, 2 and 1 bytes that the
+//     row, the strides and the starts allow (`fma_load`: 8 for 16-bit rows
+//     at D 500, where loads of one element a thread left the consumers
+//     waiting 0.40 of a warp's time), widened to fp32 as they are loaded,
+//     each lane arriving after its stores. getfin = the consumers' wait on
+//     the full barrier; each consumer warp arrives on the slot's empty
+//     barrier once it has read it, and the producer refills a slot only
+//     after all 8 have. Q goes
 //     first, into its own buffer. Two consumer barriers a tile remain
 //     (P^T and alpha written, then read);
 //   - the tiles left to a block are those of causality and the window
@@ -73,7 +78,13 @@
 //     block of 288 or 384 threads is allotted 168 registers a thread, which
 //     spilled the tiles (ptxas: 112-392 bytes, at 0.968 ms where the
 //     parent took 1.10), so the producers lower theirs to 40 with
-//     setmaxnreg and the consumers raise theirs to 232.
+//     setmaxnreg and the consumers raise theirs to 232;
+//   - query rows a block (`fma_rows`, the wrapper's `fma_rows`): 128 at Dp
+//     16 to 128, 64 at 256; but 64 at Dp 64 and 128 where tiles of 128
+//     rows would give fewer blocks than the card has SMs (ceil(S / 128) B
+//     Hq below the SM count, read from the device: int8 at B2 Hq8 S200 D64
+//     ran 32 blocks of 128 rows on 132 SMs, slower than its parent's 4 x 4
+//     tiles), twice the blocks, KSPLIT 4 (RS 2, OC = D / 32).
 // * bfloat16, D = 64, 128 or 256 -> `flash_wgmma_kernel`, designed for
 //   Hopper:
 //   - two consumer warpgroups of 64 query rows each (BM = 128) and a
@@ -291,11 +302,53 @@
 //     at D = 2048 (four) 2.5x (the chunks of 256 columns that this body
 //     replaced: 2.5x and 4.5x); and Q is read again for every KV tile (from
 //     L2);
-//   - the fma body (`flash_fma_wide_kernel`, fp32 and 16-bit rows of no whole
-//     pieces) takes chunks of 256 output columns at every D above 256, each
-//     block computing all of Q K^T from 64-column pieces of Q and K loaded
-//     by element (the parent's design of the fma body below 256: 4 x 4
-//     logits a thread, loads between barriers; not yet redesigned).
+//   - the fma body (fp32, integers and mixed types, fp8 and 16-bit rows of
+//     no whole 16-byte pieces) runs in clusters: a cluster of n CTAs a
+//     query tile of 64 rows, n the head's 256-column pieces up to
+//     FMA_CLUSTER = 8, the portable cluster size (`fma_cluster`). Each CTA
+//     is the D = 256 body above (`FmaRing<256>`: 8 x 8 register tiles, its
+//     own producer warpgroup and ring, setmaxnreg 40 / 232) on its own 256
+//     columns of Q, K, V and O, so K and V cross from L2 once a query tile
+//     and Q K^T is done once. A tile's logits are the sum of the n CTAs'
+//     partials: each CTA folds its partial tiles and posts them (writes
+//     them to a buffer of the tile's parity; lane p of each warp arrives
+//     on that parity's mbarrier in CTA p, `mbarrier.arrive.release.cluster`
+//     through `mapa`: n x 8 arrivals a phase); after the wait (acquire,
+//     cluster scope) each thread reads its row's 8 logits from every CTA's
+//     buffer (`ld.shared::cluster`) and sums them in rank order 0 .. n - 1
+//     in every CTA, so all hold the same fp32 logits, m and l, and each
+//     normalises its own columns as the others do. A CTA posts tile t + 1
+//     after its own P V of tile t and runs Q K^T of tile t + 1 between
+//     posting tile t and waiting for it, so the exchange's latency and
+//     the cluster's skew lie under a product: with the wait right after
+//     the post, the exchange took 0.18, 0.27 and 0.42 of a warp's time at
+//     n = 2, 4 and 8 (`flash_phases.py --body fma_wide`, PERF.md), for a
+//     release at cluster scope is a MEMBAR.ALL.GPU, and one lane posting
+//     to every peer in turn paid it n times; now one instruction a warp
+//     pays it once. One barrier a tile is enough with two buffers: a CTA
+//     writes a parity's buffer again two tiles on, after the wait of the
+//     tile between, for which every warp of the cluster arrived only after
+//     reading this one. (A cluster barrier would hold the producer
+//     warpgroups, which run ahead, to the consumers' pace.) The ring holds
+//     a tile's K items before the V of the tile before it, the order the
+//     consumers take them in. The softmax and P V then run as
+//     in the D = 256 body over the CTA's 256 output columns; a CTA stores
+//     only its columns < D, and its shared memory outlives its peers'
+//     reads by one cluster barrier at the end. 228 KB of shared memory a
+//     CTA (the D = 256 body's 212 and 16 of partials), one CTA an SM; a
+//     cluster of 8 must fit in a GPC, so the H100 holds 15 at once (120
+//     SMs busy), of 4 30 (120), of 2 66 (all 132:
+//     `flash_attention_fma_clusters`). Above 2048 columns the clusters
+//     stay at 8: a cluster for every chunk of 8 pieces of the output, a
+//     grid dimension, CTA r summing Q K^T over pieces r, r + 8, ... (a
+//     later piece's Q through its ring, in two items of 32 rows, beside
+//     its K) and running P V over piece 8 chunk + r (none past the head).
+//     Each chunk's cluster sums all of Q K^T, so Q K^T is done ceil(Dp /
+//     2048) times (`qk_passes`: at D 2304 twice, 1.5x the operations of
+//     one pass with P V), and a cluster keeps the pace of its CTA of most
+//     pieces (at D 2304 rank 0 sums two while the others wait). Bound, as
+//     below 256: the fp32 FMA peak; at fp32 D512 a warp spends 0.43 of its
+//     time on Q K^T, 0.33 on P V and 0.13 on the exchange.
 // `flash_attention_wide_blocks` states the blocks a query tile each takes.
 // Rules (a)-(c) hold for every chunk and warpgroup: columns past D load as
 // zeros (TMA's zero fill, the element loads' mask), a block or warpgroup
@@ -343,61 +396,128 @@ constexpr float NO_KEY = NEG_INF * 1e-10f;
 // ---------------------------------------------------------------------------
 // float32 on the CUDA cores, the fma body (its design: the note at the top).
 // One block of FMA_NT consumer threads and a producer warpgroup a query
-// tile; the producers lower their registers to FMA_P_REGS so that the
-// consumers can raise theirs to FMA_C_REGS (384 threads are allotted 168
-// registers a thread: 128 x 40 + 256 x 232 = 384 x 168).
+// tile (above 256 columns, a cluster of such blocks); the producers lower
+// their registers to FMA_P_REGS so that the consumers can raise theirs to
+// FMA_C_REGS (384 threads are allotted 168 registers a thread: 128 x 40 +
+// 256 x 232 = 384 x 168).
 constexpr int FMA_NT = 256;       // consumer threads: 8 warps
 constexpr int FMA_PT = 128;       // producer threads: a warpgroup
 constexpr int FMA_P_REGS = 40, FMA_C_REGS = 232;
 constexpr int FMA_PAD = 8;        // words past D in a row of Q, K and V
 constexpr unsigned FULL_MASK = 0xffffffffu;
+// Columns of a piece of the head above 256: a block's output columns in the
+// fma body's clusters, a consumer warpgroup's in the pair body.
+constexpr int WIDE_DC = 256;
+constexpr int FMA_CLUSTER = 8;    // CTAs a cluster at most (the portable size)
 
-// The tiles of the body at head size D (Dp). A thread's Q K^T is an 8 x 8
-// tile of logits (8 query rows, 8 keys) summed over its share of D, one of
-// KSPLIT threads that split D between them; its P V an 8-row x OC-column
-// tile of the output, over every key of the tile.
-template <int D> struct FmaRing {
-  static constexpr int BMF = D == 256 ? 64 : 128;   // query rows a block
-  static constexpr int BNF = D == 256 ? 32 : 64;    // keys a K or V tile
-  static constexpr int KSPLIT = FMA_NT * 64 / (BMF * BNF);   // 2 or 8
+// Query rows a block of the fma body at Dp (`FmaRing`'s BMF) for a launch
+// over B x Hq heads of S rows on a card of `sms` SMs: 64 at Dp 256 and
+// above; at Dp 64 and 128, 64 where tiles of 128 rows would give fewer
+// blocks than the card has SMs (int8 at B2 Hq8 S200 D64: 32 blocks at 128
+// rows, 64 at 64), else 128; 128 at Dp 16 and 32. The wrapper's `fma_rows`
+// states the same rule.
+int fma_rows(int Dp, int B, int Hq, int S, int sms) {
+  if (Dp >= WIDE_DC) return 64;
+  if ((Dp == 64 || Dp == 128) && (long long)((S + 127) / 128) * B * Hq < sms)
+    return 64;
+  return 128;
+}
+
+// The tiles of the body at head size D (Dp) and ROWS query rows a block. A
+// thread's Q K^T is an 8 x 8 tile of logits (8 query rows, 8 keys) summed
+// over its share of D, one of KSPLIT threads that split D between them; its
+// P V an 8-row x OC-column tile of the output, over every key of the tile.
+// WIDE: a CTA of a cluster above 256 columns (D = WIDE_DC), with the
+// buffers of its partial logits.
+template <int D, int ROWS = (D == WIDE_DC ? 64 : 128), bool WIDE = false>
+struct FmaRing {
+  static constexpr int BMF = ROWS;                  // query rows a block
+  static constexpr int BNF = D == WIDE_DC ? 32 : 64;   // keys a K or V tile
+  static constexpr int KSPLIT = FMA_NT * 64 / (BMF * BNF);   // 2, 4 or 8
   static constexpr int KG = BNF / 8;                // key groups
   static constexpr int RS = 8 / KSPLIT;             // softmax rows a thread
   static constexpr int NCH = D / 4 / KSPLIT;        // 4-column pieces a thread
   static constexpr int OC = BMF * D / (8 * FMA_NT); // output columns a thread
   static constexpr int CG = D / OC;                 // column groups
-  static constexpr int SLOTS = D == 128 ? 3 : 4;    // ring slots (K or V)
+  static constexpr int SLOTS = D == 128 && BMF == 128 ? 3 : 4;   // ring slots
   static constexpr int WS = D + FMA_PAD;            // row stride (floats)
   static constexpr int PS = BMF + 4;                // row stride of P^T
   static constexpr int Q_WORDS = BMF * WS;
   static constexpr int SLOT_WORDS = BNF * WS;
-  // barriers (full, empty a slot, q_full), then Q, the slots, P^T, alpha
-  // and the row sums
-  static constexpr int BAR_BYTES = 16 * (SLOTS + 1);
+  // the partial logits of two tiles (by parity), a thread's 8 as two float4
+  static constexpr int XCH_WORDS = WIDE ? 2 * 8 * FMA_NT : 0;
+  // barriers (full, empty a slot, q_full; two of the partials where WIDE),
+  // then Q, the slots, P^T, alpha, the row sums and the partials
+  static constexpr int BAR_BYTES = 16 * (SLOTS + 1) + (WIDE ? 16 : 0);
   static constexpr size_t SMEM =
       BAR_BYTES + sizeof(float) * ((size_t)Q_WORDS + SLOTS * SLOT_WORDS +
-                                   BNF * PS + 2 * BMF);
+                                   BNF * PS + 2 * BMF + XCH_WORDS);
   static_assert(KSPLIT * BMF * BNF == FMA_NT * 64, "whole logit tiles");
   static_assert(OC * CG == D && (BMF / 8) * CG == FMA_NT, "whole O tiles");
   static_assert(OC == 8 || OC <= 4, "one vector, or two of 4");
+  static_assert(!WIDE || (D == WIDE_DC && BMF == 2 * BNF && RS == 1),
+                "a later piece's Q is two ring items; one row a thread");
   static_assert(SMEM <= 232448, "one block an SM");
 };
 
-// The producer warpgroup's aload of `rows` rows (row0 on; zeros past S) of
-// a [*, D] operand into a shared tile of row stride WS, thread `pt` of
-// FMA_PT: rows of whole 16-byte pieces (`pieces`: float32, dh, the strides
-// and the start multiples of 4 floats) by cp.async, 16 bytes a request,
-// zero-filled past dh and S, each thread's arrival on `bar` made by the
-// completion of its copies; other rows by element, widened to float32 as
-// they are loaded, columns dh .. D - 1 zero, each thread arriving after its
-// stores.
+// The producer warpgroup's aload of ROWS rows (row0 on; zeros past S) of
+// a [*, dh] operand into a shared tile of row stride WS, thread `pt` of
+// FMA_PT, in loads of `load` bytes (`fma_load`): 16, float32 rows of whole
+// 16-byte pieces, by cp.async, zero-filled past dh and S, each thread's
+// arrival on `bar` made by the completion of its copies; else units of
+// `load` / sizeof(E) elements (8 bytes at most: the widest that dh, the
+// strides and the starts allow), widened to float32 as they are loaded,
+// columns dh .. D - 1 zero, each thread arriving after its stores.
+template <typename E, int D, int ROWS, int UE>
+__device__ __forceinline__ void fma_aload_units(float* dst, const E* src,
+                                                long long row_stride,
+                                                int row0, int S, int dh,
+                                                int pt) {
+  constexpr int WS = FmaRing<D>::WS, UPR = D / UE;   // units a row
+  struct alignas(UE * sizeof(E)) Unit { E e[UE]; };
+  // loads in flight a thread: 32 bytes of 8-byte units, 8 of narrower ones
+  constexpr int U = sizeof(Unit) == 8 ? 4 : 8;
+  for (int i0 = pt; i0 < ROWS * UPR; i0 += FMA_PT * U) {
+    Unit x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + FMA_PT * u, r = i / UPR, c = i % UPR * UE;
+      if (i < ROWS * UPR && row0 + r < S && c < dh) {
+        x[u] = *reinterpret_cast<const Unit*>(src + (row0 + r) * row_stride +
+                                              c);
+      } else {
+        x[u] = Unit{};
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + FMA_PT * u;
+      if (i < ROWS * UPR) {
+        float* to = dst + (i / UPR) * WS + i % UPR * UE;
+#pragma unroll
+        for (int e = 0; e < UE; e += 4) {
+          if constexpr (UE >= 4) {
+            *reinterpret_cast<float4*>(to + e) =
+                make_float4(to_float(x[u].e[e]), to_float(x[u].e[e + 1]),
+                            to_float(x[u].e[e + 2]), to_float(x[u].e[e + 3]));
+          } else {
+#pragma unroll
+            for (int f = 0; f < UE; ++f) to[f] = to_float(x[u].e[f]);
+          }
+        }
+      }
+    }
+  }
+}
+
 template <typename E, int D, int ROWS>
 __device__ __forceinline__ void fma_aload(float* dst, const E* src,
                                           long long row_stride, int row0,
-                                          int S, int dh, bool pieces,
+                                          int S, int dh, int load,
                                           uint64_t* bar, int pt) {
   constexpr int WS = FmaRing<D>::WS;
   if constexpr (sizeof(E) == 4) {
-    if (pieces) {
+    if (load == 16) {
       constexpr int CPR = D / 4;                  // 16-byte pieces a row
       const uint32_t base = hopper::smem_u32(dst);
 #pragma unroll 4
@@ -417,22 +537,17 @@ __device__ __forceinline__ void fma_aload(float* dst, const E* src,
       return;
     }
   }
-  constexpr int U = 8;                            // loads in flight a thread
-  for (int i0 = pt; i0 < ROWS * D; i0 += FMA_PT * U) {
-    float x[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + FMA_PT * u, r = i / D, c = i % D;
-      x[u] = i < ROWS * D && row0 + r < S && c < dh
-                 ? to_float(src[(row0 + r) * row_stride + c])
-                 : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + FMA_PT * u;
-      if (i < ROWS * D) dst[(i / D) * WS + i % D] = x[u];
-    }
-  }
+  const int ue = load / (int)sizeof(E);           // elements a unit
+  if (sizeof(E) <= 2 && ue == 4)
+    fma_aload_units<E, D, ROWS, sizeof(E) <= 2 ? 4 : 1>(
+        dst, src, row_stride, row0, S, dh, pt);
+  else if (sizeof(E) == 1 && ue == 8)
+    fma_aload_units<E, D, ROWS, sizeof(E) == 1 ? 8 : 1>(
+        dst, src, row_stride, row0, S, dh, pt);
+  else if (ue == 2)
+    fma_aload_units<E, D, ROWS, 2>(dst, src, row_stride, row0, S, dh, pt);
+  else
+    fma_aload_units<E, D, ROWS, 1>(dst, src, row_stride, row0, S, dh, pt);
   hopper::mbar_arrive(bar);                       // release: the stores
 }
 
@@ -458,39 +573,90 @@ __device__ __forceinline__ void fold_rows(float (&s)[8][8], int lane) {
     }
 }
 
-template <typename E, int D, bool EXACT>
+// The cluster's logits of this thread's row and 8 keys: the partials that
+// each of the n CTAs wrote at `mine`'s place of its buffer, summed in rank
+// order 0 .. n - 1, the same order in every CTA, so that all hold the same
+// fp32 logits (and so the same m and l).
+__device__ __forceinline__ void sum_partials(float (&s)[8][8],
+                                             const float4* mine, int n) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float4 y[FMA_CLUSTER];
+#pragma unroll
+    for (int p = 0; p < FMA_CLUSTER; ++p)
+      if (p < n) y[p] = hopper::ld_cluster_f4(
+                     hopper::cluster_addr(mine + half * FMA_NT, p));
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int p = 0; p < FMA_CLUSTER; ++p)
+      if (p < n) {
+        x.x += y[p].x;
+        x.y += y[p].y;
+        x.z += y[p].z;
+        x.w += y[p].w;
+      }
+    s[0][4 * half] = x.x;
+    s[0][4 * half + 1] = x.y;
+    s[0][4 * half + 2] = x.z;
+    s[0][4 * half + 3] = x.w;
+  }
+}
+
+// The fma body. Up to 256 columns (WIDE false) a block owns a query tile of
+// one head. Above (WIDE, D = WIDE_DC, launched in clusters of n CTAs, n the
+// head's 256-column pieces up to FMA_CLUSTER) CTA rank r of a cluster sums
+// Q K^T over pieces r, r + n, ... of the head, the cluster adds the n
+// partial logit tiles through distributed shared memory, and the CTA runs
+// the softmax and P V over its own piece of the output, piece chunk n + r
+// (the head's pieces past n * FMA_CLUSTER in further clusters, a grid
+// dimension, each summing all of Q K^T).
+template <typename E, int D, bool EXACT, int ROWS, bool WIDE>
 __global__ void __launch_bounds__(FMA_NT + FMA_PT, 1)
 flash_fma_kernel(const E* __restrict__ q, const E* __restrict__ k,
                  const E* __restrict__ v, E* __restrict__ o, int S, int Hq,
                  int group, int causal, int window, float scale_log2, int dh,
-                 int pieces, long long q_sb, long long q_sh, long long q_ss,
+                 int load, long long q_sb, long long q_sh, long long q_ss,
                  long long k_sb, long long k_sh, long long k_ss,
                  long long v_sb, long long v_sh, long long v_ss,
                  long long o_sb, long long o_sh, long long o_ss) {
-  using C = FmaRing<D>;
+  using C = FmaRing<D, ROWS, WIDE>;
   using hopper::fast_exp2;
   using hopper::mbar_arrive;
   using hopper::mbar_wait;
   constexpr int BMF = C::BMF, BNF = C::BNF, KSPLIT = C::KSPLIT, KG = C::KG;
   constexpr int RS = C::RS, OC = C::OC, CG = C::CG, WS = C::WS, PS = C::PS;
   constexpr int SLOTS = C::SLOTS;
-  const int Dh = EXACT ? D : dh;                  // columns of the output
   extern __shared__ __align__(16) unsigned char smem_fma[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_fma);   // a slot landed
   uint64_t* empty = full + SLOTS;                 // a slot read by all
   uint64_t* q_full = empty + SLOTS;               // Q landed
+  uint64_t* xfull = q_full + 2;                   // a parity's partials landed
   float* Qs = reinterpret_cast<float*>(smem_fma + C::BAR_BYTES);
   float* ring = Qs + C::Q_WORDS;
   float* Pt = ring + SLOTS * C::SLOT_WORDS;       // P^T [key][row]
   float* alpha_s = Pt + BNF * PS;                 // a row's alpha
   float* lsum_s = alpha_s + BMF;                  // a row's sum at the end
+  float4* xch = reinterpret_cast<float4*>(lsum_s + BMF);   // [2][2][FMA_NT]
 
   // the query tile is the slowest grid dimension, heaviest first across
   // all heads and batches, so that causal attention's light tiles fill the
   // last wave
   const int qt = gridDim.y - 1 - blockIdx.y;
-  const int h = blockIdx.x % Hq, b = blockIdx.x / Hq;
+  // the cluster: ncta CTAs, this one of rank `rank`; the head's 256-column
+  // pieces (npc), this CTA's Q K^T pieces rank, rank + ncta, ... (npk of
+  // them) and its output piece vp, if the head has one
+  const int ncta = WIDE ? (int)hopper::cluster_size() : 1;
+  const int rank = WIDE ? (int)(blockIdx.x % ncta) : 0;
+  const int npc = WIDE ? (dh + WIDE_DC - 1) / WIDE_DC : 1;
+  const int chunks = (npc + ncta - 1) / ncta;
+  const int u = blockIdx.x / ncta, bh = u / chunks;
+  const int h = bh % Hq, b = bh / Hq;
   const int hk = h / group;
+  const int npk = (npc - rank + ncta - 1) / ncta;
+  const int vp = (u % chunks) * ncta + rank;
+  const bool has_v = vp < npc;
+  const int qc0 = rank * WIDE_DC, vc0 = vp * WIDE_DC;  // 0 up to 256 columns
+  const int Dh = EXACT ? D : dh - vc0;            // columns of the output
   const int tid = threadIdx.x, lane = tid & 31;
   const int q0 = qt * BMF;
 
@@ -500,35 +666,66 @@ flash_fma_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const int kt_hi = causal ? min(nkt, q_last / BNF + 1) : nkt;
   int kt_lo = 0;
   if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BNF;
-  const int items = 2 * max(kt_hi - kt_lo, 0);    // K, V of each tile
 
   if (tid < SLOTS) {
     hopper::mbar_init(&full[tid], FMA_PT);        // the producers
     hopper::mbar_init(&empty[tid], FMA_NT / 32);  // the consumer warps
   }
   if (tid == SLOTS) hopper::mbar_init(q_full, FMA_PT);
+  if (WIDE && tid < 2)            // every consumer warp of the cluster
+    hopper::mbar_init(&xfull[tid], ncta * (FMA_NT / 32));
   hopper::fence_barrier_init();
-  __syncthreads();
+  if constexpr (WIDE) {           // the peers' barriers are ready
+    hopper::cluster_arrive();
+    hopper::cluster_wait();
+  } else {
+    __syncthreads();
+  }
 
-  if (tid >= FMA_NT) {            // the producers: Q, then K and V in turn
+  const E* qb = q + b * q_sb + h * q_sh;
+  if (tid >= FMA_NT) {            // the producers: Q, then the ring's items
     hopper::setmaxnreg_dec<FMA_P_REGS>();
     const int pt = tid - FMA_NT;
-    fma_aload<E, D, BMF>(Qs, q + b * q_sb + h * q_sh, q_ss, q0, S, dh,
-                         pieces, q_full, pt);
+    fma_aload<E, D, BMF>(Qs, qb + qc0, q_ss, q0, S, dh - qc0, load, q_full,
+                         pt);
     const E* kb = k + b * k_sb + hk * k_sh;
     const E* vb = v + b * v_sb + hk * v_sh;
-    for (int it = 0; it < items; ++it) {
+    int it = 0;                   // items issued
+    // BNF rows of an operand from row row0 and column c0 into the next slot
+    auto put = [&](const E* src, long long ss, int row0, int c0) {
       const int slot = it % SLOTS;
       if (it >= SLOTS)            // every consumer warp has left the slot
         mbar_wait(&empty[slot], (uint32_t)((it / SLOTS - 1) & 1));
-      const int k0 = (kt_lo + it / 2) * BNF;
-      float* dst = ring + slot * C::SLOT_WORDS;
-      if (it & 1)
-        fma_aload<E, D, BNF>(dst, vb, v_ss, k0, S, dh, pieces, &full[slot],
-                             pt);
-      else
-        fma_aload<E, D, BNF>(dst, kb, k_ss, k0, S, dh, pieces, &full[slot],
-                             pt);
+      fma_aload<E, D, BNF>(ring + slot * C::SLOT_WORDS, src + c0, ss, row0,
+                           S, dh - c0, load, &full[slot], pt);
+      ++it;
+    };
+    // a tile's K items: K of each Q K^T piece (the Q of a piece after
+    // the first before it, in two halves of BNF rows)
+    auto put_k = [&](int kt) {
+      for (int e = 0; e < npk; ++e) {
+        const int c0 = qc0 + e * ncta * WIDE_DC;
+        if (WIDE && e > 0) {
+          put(qb, q_ss, q0, c0);
+          put(qb, q_ss, q0 + BNF, c0);
+        }
+        put(kb, k_ss, kt * BNF, c0);
+      }
+    };
+    // then V of the output's piece; the clusters' consumers take a tile's
+    // K items before the V of the tile before it (its Q K^T runs under
+    // that tile's exchange), so the ring holds them in that order
+    if (WIDE && kt_lo < kt_hi) put_k(kt_lo);
+    for (int kt = kt_lo; kt < kt_hi; ++kt) {
+      if (!WIDE)
+        put_k(kt);
+      else if (kt + 1 < kt_hi)
+        put_k(kt + 1);
+      if (has_v) put(vb, v_ss, kt * BNF, vc0);
+    }
+    if constexpr (WIDE) {         // the consumers' last barrier
+      hopper::cluster_arrive();
+      hopper::cluster_wait();
     }
     return;
   }
@@ -561,341 +758,247 @@ flash_fma_kernel(const E* __restrict__ q, const E* __restrict__ k,
     for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
 
   mbar_wait(q_full, 0);
-  for (int it = 0; it < items; it += 2) {
-    const int k0 = (kt_lo + it / 2) * BNF;
-    const int sk = it % SLOTS, sv = (it + 1) % SLOTS;
-    const float* Ks = ring + sk * C::SLOT_WORDS;
-    const float* Vs = ring + sv * C::SLOT_WORDS;
-    mbar_wait(&full[sk], (uint32_t)((it / SLOTS) & 1));     // getfin: K
-    float s[8][8];
+  int it = 0;                     // ring items taken, in the ring's order
+  // Q K^T of the next tile whose K is in the ring, over this CTA's pieces,
+  // folded: this lane keeps RS rows of it
+  auto qk = [&](float (&s)[8][8]) {
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-    // 8 rows of Q and 8 keys of K a 4-column piece: 16 LDS.128 for 256
-    // FFMAs, 4 a word read
+      for (int x = 0; x < 8; ++x) s[i][x] = 0.f;
+    for (int e = 0; e < npk; ++e) {
+      // this thread's 8 rows of Q: the first piece's in its own buffer, a
+      // later one's in the two ring items before its K
+      const float* qrow = Qs + rg * 8 * WS;
+      if (WIDE && e > 0) {
+        const int s0 = it % SLOTS, s1 = (it + 1) % SLOTS;
+        mbar_wait(&full[s0], (uint32_t)((it / SLOTS) & 1));
+        mbar_wait(&full[s1], (uint32_t)(((it + 1) / SLOTS) & 1));
+        qrow = ring + (rg < BNF / 8 ? s0 : s1) * C::SLOT_WORDS +
+               (rg % (BNF / 8)) * 8 * WS;
+        it += 2;
+      }
+      const int sk = it % SLOTS;
+      const float* Ks = ring + sk * C::SLOT_WORDS;
+      mbar_wait(&full[sk], (uint32_t)((it / SLOTS) & 1));     // getfin: K
+      // 8 rows of Q and 8 keys of K a 4-column piece: 16 LDS.128 for 256
+      // FFMAs, 4 a word read
 #pragma unroll 2
-    for (int ci = 0; ci < C::NCH; ++ci) {
-      const int c = 4 * (part + KSPLIT * ci);
-      float4 qv[8];
+      for (int ci = 0; ci < C::NCH; ++ci) {
+        const int c = 4 * (part + KSPLIT * ci);
+        float4 qv[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (rg * 8 + i) * WS + c);
+        for (int i = 0; i < 8; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qrow + i * WS + c);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(Ks + (kg + KG * j) * WS + c);
+        for (int x = 0; x < 8; ++x) {
+          const float4 kv =
+              *reinterpret_cast<const float4*>(Ks + (kg + KG * x) * WS + c);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+          for (int i = 0; i < 8; ++i) {
+            s[i][x] = fmaf(qv[i].x, kv.x, s[i][x]);
+            s[i][x] = fmaf(qv[i].y, kv.y, s[i][x]);
+            s[i][x] = fmaf(qv[i].z, kv.z, s[i][x]);
+            s[i][x] = fmaf(qv[i].w, kv.w, s[i][x]);
+          }
         }
       }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&empty[sk]);                  // K's slot is free
+        if (WIDE && e > 0) {                      // and Q's two
+          mbar_arrive(&empty[(it - 2) % SLOTS]);
+          mbar_arrive(&empty[(it - 1) % SLOTS]);
+        }
+      }
+      ++it;
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[sk]);       // K's slot is free
-    // the KSPLIT partial tiles summed: this lane keeps RS rows of them
+    // the KSPLIT partial tiles summed
     if constexpr (KSPLIT == 2) {
       fold_rows<1, 8>(s, lane);
+    } else if constexpr (KSPLIT == 4) {
+      fold_rows<2, 8>(s, lane);
+      fold_rows<1, 4>(s, lane);
     } else {
       fold_rows<4, 8>(s, lane);
       fold_rows<2, 4>(s, lane);
       fold_rows<1, 2>(s, lane);
     }
-    // every consumer is past the last tile's P V: P^T and alpha are free
-    fma_consumers_sync();
-    // mask only where the tile straddles S, the diagonal or the window edge
-    const bool straddles = k0 + BNF > S || (causal && k0 + BNF - 1 > q0) ||
-                           (window > 0 && k0 <= q0 + BMF - 1 - window);
+  };
+  // (WIDE) the exchange of the cluster's partial logits. This thread's
+  // place in the buffer of tile j's parity; `post`: its 8 partials written
+  // there, then, each warp, lane p's arrival on that parity's barrier in
+  // CTA p (n x 8 arrivals a phase; each a release at cluster scope, a
+  // MEMBAR.ALL.GPU: one a warp, not one a peer). A tile's partials are
+  // posted before the wait for the tile before it is over, and read after
+  // the next tile's Q K^T: the exchange's latency and the cluster's skew
+  // lie under that product. Two buffers are enough: a CTA posts tile j + 1
+  // after its wait for tile j, for which every warp of the cluster arrived
+  // only after reading tile j - 1, the buffer's last.
+  auto buf = [&](int j) { return xch + (j & 1) * 2 * FMA_NT + tid; };
+  auto post = [&](const float (&x)[8], int j) {
+    float4* mine = buf(j);
+    mine[0] = make_float4(x[0], x[1], x[2], x[3]);
+    mine[FMA_NT] = make_float4(x[4], x[5], x[6], x[7]);
+    __syncwarp();
+    if (lane < ncta) hopper::mbar_arrive_cluster(&xfull[j & 1], lane);
+  };
+
+  float s[8][8];
+  if constexpr (WIDE) {
+    if (kt_lo < kt_hi) {
+      qk(s);
+      post(s[0], 0);
+    }
+  }
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int j = kt - kt_lo, k0 = kt * BNF;
+    float nxt[8];                 // (WIDE) the next tile's partials
+    if constexpr (WIDE) {
+      if (kt + 1 < kt_hi) {
+        qk(s);
+#pragma unroll
+        for (int x = 0; x < 8; ++x) nxt[x] = s[0][x];
+      }
+      hopper::mbar_wait_cluster(&xfull[j & 1], (uint32_t)((j >> 1) & 1));
+      sum_partials(s, buf(j), ncta);
+    } else {
+      qk(s);
+    }
+    if (has_v) {                  // (WIDE: else no output columns)
+      // every consumer is past the last tile's P V: P^T and alpha are free
+      fma_consumers_sync();
+      // mask only where the tile straddles S, the diagonal or the window
+      // edge
+      const bool straddles = k0 + BNF > S ||
+                             (causal && k0 + BNF - 1 > q0) ||
+                             (window > 0 && k0 <= q0 + BMF - 1 - window);
+#pragma unroll
+      for (int i = 0; i < RS; ++i) {
+        const int r = q0 + rbase + i;
+        if (straddles) {
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const int c = k0 + kg + KG * x;
+            bool ok = c < S;
+            if (causal) ok = ok && c <= r;
+            if (window > 0) ok = ok && c > r - window;
+            if (!ok) s[i][x] = NEG_INF;
+          }
+        }
+        // the row max on the raw logits (the scale is positive), over the
+        // KG lanes of the row's keys
+        float tmax = s[i][0];
+#pragma unroll
+        for (int x = 1; x < 8; ++x) tmax = fmaxf(tmax, s[i][x]);
+#pragma unroll
+        for (int off = KSPLIT; off < KSPLIT * KG; off <<= 1)
+          tmax = fmaxf(tmax, __shfl_xor_sync(FULL_MASK, tmax, off));
+        // p = 2^(s * scale * log2 e - m): one FFMA and one ex2. A row that
+        // has met no key yet has its max at the mask's level: subtract 0
+        // there, so that its masked p are 2^-1e29 = 0
+        const float mn = fmaxf(m[i], tmax * scale_log2);
+        const float alpha = fast_exp2(m[i] - mn);
+        const float sub = mn > NO_KEY ? mn : 0.f;
+        float psum = 0.f;
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          const float p = fast_exp2(fmaf(s[i][x], scale_log2, -sub));
+          psum += p;
+          Pt[(kg + KG * x) * PS + rbase + i] = p;
+        }
+        l[i] = l[i] * alpha + psum;   // this lane's share of the row sum
+        m[i] = mn;
+        if (kg == 0) alpha_s[rbase + i] = alpha;
+      }
+      fma_consumers_sync();           // P^T and alpha are written
+
+      // acc = acc alpha + P V: 8 rows of P^T and 8 columns of V a key, 4
+      // LDS.128 for 64 FFMAs
+      {
+        const float4 a0 =
+            *reinterpret_cast<const float4*>(alpha_s + org * 8);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(alpha_s + org * 8 + 4);
+        const float al[8] = {a0.x, a0.y, a0.z, a0.w,
+                             a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < OC; ++c) acc[i][c] *= al[i];
+      }
+      const int sv = it % SLOTS;
+      const float* Vs = ring + sv * C::SLOT_WORDS;
+      mbar_wait(&full[sv], (uint32_t)((it / SLOTS) & 1));     // getfin: V
+#pragma unroll 4
+      for (int n = 0; n < BNF; ++n) {
+        const float4 p0 =
+            *reinterpret_cast<const float4*>(Pt + n * PS + org * 8);
+        const float4 p1 =
+            *reinterpret_cast<const float4*>(Pt + n * PS + org * 8 + 4);
+        const float pr[8] = {p0.x, p0.y, p0.z, p0.w,
+                             p1.x, p1.y, p1.z, p1.w};
+        float vv[OC];
+        const float* vrow = Vs + n * WS;
+        if constexpr (OC == 8) {
+          const float4 v0 = *reinterpret_cast<const float4*>(vrow + 4 * cg);
+          const float4 v1 =
+              *reinterpret_cast<const float4*>(vrow + D / 2 + 4 * cg);
+          vv[0] = v0.x; vv[1] = v0.y; vv[2] = v0.z; vv[3] = v0.w;
+          vv[4] = v1.x; vv[5] = v1.y; vv[6] = v1.z; vv[7] = v1.w;
+        } else if constexpr (OC == 4) {
+          const float4 v0 = *reinterpret_cast<const float4*>(vrow + 4 * cg);
+          vv[0] = v0.x; vv[1] = v0.y; vv[2] = v0.z; vv[3] = v0.w;
+        } else if constexpr (OC == 2) {
+          const float2 v0 = *reinterpret_cast<const float2*>(vrow + 2 * cg);
+          vv[0] = v0.x; vv[1] = v0.y;
+        } else {
+          vv[0] = vrow[cg];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < OC; ++c)
+            acc[i][c] = fmaf(pr[i], vv[c], acc[i][c]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[sv]);       // V's slot is free
+      ++it;
+    }
+    if constexpr (WIDE) {
+      if (kt + 1 < kt_hi) post(nxt, j + 1);
+    }
+  }
+  // no peer reads this CTA's partials after its last exchange
+  if constexpr (WIDE) hopper::cluster_arrive();
+
+  if (has_v) {
+    // the row sums over the KG lanes of each row, through shared memory to
+    // the rows of the output tiles
 #pragma unroll
     for (int i = 0; i < RS; ++i) {
-      const int r = q0 + rbase + i;
-      if (straddles) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = k0 + kg + KG * j;
-          bool ok = c < S;
-          if (causal) ok = ok && c <= r;
-          if (window > 0) ok = ok && c > r - window;
-          if (!ok) s[i][j] = NEG_INF;
-        }
-      }
-      // the row max on the raw logits (the scale is positive), over the
-      // KG lanes of the row's keys
-      float tmax = s[i][0];
-#pragma unroll
-      for (int j = 1; j < 8; ++j) tmax = fmaxf(tmax, s[i][j]);
+      float x = l[i];
 #pragma unroll
       for (int off = KSPLIT; off < KSPLIT * KG; off <<= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(FULL_MASK, tmax, off));
-      // p = 2^(s * scale * log2 e - m): one FFMA and one ex2. A row that
-      // has met no key yet has its max at the mask's level: subtract 0
-      // there, so that its masked p are 2^-1e29 = 0
-      const float mn = fmaxf(m[i], tmax * scale_log2);
-      const float alpha = fast_exp2(m[i] - mn);
-      const float sub = mn > NO_KEY ? mn : 0.f;
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = fast_exp2(fmaf(s[i][j], scale_log2, -sub));
-        psum += p;
-        Pt[(kg + KG * j) * PS + rbase + i] = p;
-      }
-      l[i] = l[i] * alpha + psum;     // this lane's share of the row sum
-      m[i] = mn;
-      if (kg == 0) alpha_s[rbase + i] = alpha;
+        x += __shfl_xor_sync(FULL_MASK, x, off);
+      if (kg == 0) lsum_s[rbase + i] = x;
     }
-    fma_consumers_sync();             // P^T and alpha are written
-
-    // acc = acc alpha + P V: 8 rows of P^T and 8 columns of V a key, 4
-    // LDS.128 for 64 FFMAs
-    {
-      const float4 a0 = *reinterpret_cast<const float4*>(alpha_s + org * 8);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(alpha_s + org * 8 + 4);
-      const float al[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    fma_consumers_sync();
+    E* ob = o + b * o_sb + h * o_sh + vc0;        // this CTA's columns
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 8; ++i) {
+      const int r = q0 + org * 8 + i;
+      if (r < S) {
+        const float inv = 1.f / fmaxf(lsum_s[org * 8 + i], 1e-30f);
 #pragma unroll
-        for (int c = 0; c < OC; ++c) acc[i][c] *= al[i];
-    }
-    mbar_wait(&full[sv], (uint32_t)(((it + 1) / SLOTS) & 1));   // getfin: V
-#pragma unroll 4
-    for (int n = 0; n < BNF; ++n) {
-      const float4 p0 = *reinterpret_cast<const float4*>(Pt + n * PS + org * 8);
-      const float4 p1 =
-          *reinterpret_cast<const float4*>(Pt + n * PS + org * 8 + 4);
-      const float pr[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      float vv[OC];
-      const float* vrow = Vs + n * WS;
-      if constexpr (OC == 8) {
-        const float4 v0 = *reinterpret_cast<const float4*>(vrow + 4 * cg);
-        const float4 v1 =
-            *reinterpret_cast<const float4*>(vrow + D / 2 + 4 * cg);
-        vv[0] = v0.x; vv[1] = v0.y; vv[2] = v0.z; vv[3] = v0.w;
-        vv[4] = v1.x; vv[5] = v1.y; vv[6] = v1.z; vv[7] = v1.w;
-      } else if constexpr (OC == 4) {
-        const float4 v0 = *reinterpret_cast<const float4*>(vrow + 4 * cg);
-        vv[0] = v0.x; vv[1] = v0.y; vv[2] = v0.z; vv[3] = v0.w;
-      } else if constexpr (OC == 2) {
-        const float2 v0 = *reinterpret_cast<const float2*>(vrow + 2 * cg);
-        vv[0] = v0.x; vv[1] = v0.y;
-      } else {
-        vv[0] = vrow[cg];
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < OC; ++c) acc[i][c] = fmaf(pr[i], vv[c], acc[i][c]);
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[sv]);       // V's slot is free
-  }
-
-  // the row sums over the KG lanes of each row, through shared memory to
-  // the rows of the output tiles
-#pragma unroll
-  for (int i = 0; i < RS; ++i) {
-    float x = l[i];
-#pragma unroll
-    for (int off = KSPLIT; off < KSPLIT * KG; off <<= 1)
-      x += __shfl_xor_sync(FULL_MASK, x, off);
-    if (kg == 0) lsum_s[rbase + i] = x;
-  }
-  fma_consumers_sync();
-  E* ob = o + b * o_sb + h * o_sh;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = q0 + org * 8 + i;
-    if (r < S) {
-      const float inv = 1.f / fmaxf(lsum_s[org * 8 + i], 1e-30f);
-#pragma unroll
-      for (int c = 0; c < OC; ++c)
-        if (EXACT || col(c) < Dh)
-          ob[r * o_ss + col(c)] = from_float<E>(acc[i][c] * inv);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The fma body above 256 columns (fp32 at D > 256, 16-bit rows of no whole
-// 16-byte pieces, and mixed types, whose operands the wrapper widens to
-// fp32), 256 threads: 16 (ty, rows) x 16 (tx, columns), a 4x4 logit tile a
-// thread. A block owns WIDE_DC output columns [c0, c0 + WIDE_DC) of its
-// query tile. Q K^T runs over all dh columns in pieces of PW: a Q piece
-// and a K piece at a time in shared memory, the 4x4 logit tile of a thread
-// summed over the pieces; then the softmax and P V over the V tile's
-// WIDE_DC columns of this block only. Q is read again for every KV tile
-// (it no longer fits beside K and V) and each block of a query tile
-// repeats Q K^T: at D = 512, two chunks, 1.5x the operations of one pass.
-constexpr int NT = 256;
-constexpr int RPT = 4;        // rows per thread: ty*4 .. ty*4+3
-constexpr int CPT = 4;        // logit columns per thread: tx + 16*j
-constexpr int PS = BN + 4;    // row stride of the P tile: the two ty of a
-                              // warp 16 banks apart
-constexpr int WIDE_DC = 256;  // output columns a block of the wide bodies
-
-struct FmaWide {
-  static constexpr int PW = 64;                   // columns a Q K^T piece
-  static constexpr int PWS = PW + 1;              // padded row stride
-  static constexpr int VWS = WIDE_DC + 1;
-  static constexpr int WPT = WIDE_DC / 16;        // output columns a thread
-  static constexpr size_t SMEM =
-      sizeof(float) * ((size_t)(BM + BN) * PWS + (size_t)BN * VWS + BM * PS);
-};
-
-// rows [row0, row0 + ROWS) x columns [col0, col0 + COLS) of a [*, dh]
-// operand -> shared memory as fp32 (row stride WS), zero past S and dh
-template <typename E, int ROWS, int COLS, int WS>
-__device__ __forceinline__ void load_cols_f32(float* dst, const E* src,
-                                              long long row_stride, int row0,
-                                              int S, int col0, int dh) {
-  for (int idx = threadIdx.x; idx < ROWS * COLS; idx += NT) {
-    const int r = idx / COLS, c = idx % COLS;
-    const bool inside = row0 + r < S && col0 + c < dh;
-    dst[r * WS + c] =
-        inside ? to_float(src[(row0 + r) * row_stride + col0 + c]) : 0.f;
-  }
-}
-
-template <typename E>
-__global__ void __launch_bounds__(NT)
-flash_fma_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                      const E* __restrict__ v, E* __restrict__ o, int S,
-                      int group, int causal, int window, float scale, int dh,
-                      int chunks, long long q_sb, long long q_sh,
-                      long long q_ss, long long k_sb, long long k_sh,
-                      long long k_ss, long long v_sb, long long v_sh,
-                      long long v_ss, long long o_sb, long long o_sh,
-                      long long o_ss) {
-  constexpr int PW = FmaWide::PW, PWS = FmaWide::PWS, VWS = FmaWide::VWS;
-  constexpr int WPT = FmaWide::WPT;
-  extern __shared__ float smem_f32[];
-  float* Qs = smem_f32;
-  float* Ks = Qs + BM * PWS;
-  float* Vs = Ks + BN * PWS;
-  float* Ps = Vs + BN * VWS;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;      // heaviest tiles first
-  const int h = blockIdx.y / chunks, b = blockIdx.z;
-  const int c0 = (blockIdx.y % chunks) * WIDE_DC; // this block's columns
-  const int hk = h / group;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = qt * BM;
-  const int pieces = (dh + PW - 1) / PW;
-
-  const E* qb = q + b * q_sb + h * q_sh;
-  const E* kb = k + b * k_sb + hk * k_sh;
-  const E* vb = v + b * v_sb + hk * v_sh;
-
-  const int nkt = (S + BN - 1) / BN;
-  const int q_last = min(q0 + BM, S) - 1;
-  const int kt_hi = causal ? min(nkt, q_last / BN + 1) : nkt;
-  int kt_lo = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_lo = (q0 - window + 1) / BN;
-
-  float m[RPT], l[RPT], acc[RPT][WPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < WPT; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BN;
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-    for (int p = 0; p < pieces; ++p) {            // Q K^T, a piece at a time
-      __syncthreads();            // the last piece's (or tile's) readers
-      load_cols_f32<E, BM, PW, PWS>(Qs, qb, q_ss, q0, S, p * PW, dh);
-      load_cols_f32<E, BN, PW, PWS>(Ks, kb, k_ss, k0, S, p * PW, dh);
-      __syncthreads();
-#pragma unroll 4
-      for (int w = 0; w < PW; ++w) {
-        float a[RPT], bb[CPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) a[i] = Qs[(ty * RPT + i) * PWS + w];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) bb[j] = Ks[(tx + 16 * j) * PWS + w];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
-      }
-    }
-    load_cols_f32<E, BN, WIDE_DC, VWS>(Vs, vb, v_ss, k0, S, c0, dh);
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {               // mask, online softmax
-      const int r = q0 + ty * RPT + i;
-      float tmax = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = k0 + tx + 16 * j;
-        bool ok = c < S;
-        if (causal) ok = ok && (c <= r);
-        if (window > 0) ok = ok && (c > r - window);
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
-        tmax = fmaxf(tmax, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_new = fmaxf(m[i], tmax);
-      const float alpha = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float pv = expf(s[i][j] - m_new);
-        psum += pv;
-        Ps[(ty * RPT + i) * PS + tx + 16 * j] = pv;
-      }
-      l[i] = l[i] * alpha + psum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < WPT; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P V over this block's columns: output column c0 + tx + 16 jj
-#pragma unroll 4
-    for (int n = 0; n < BN; ++n) {
-      float pr[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pr[i] = Ps[(ty * RPT + i) * PS + n];
-#pragma unroll
-      for (int jj = 0; jj < WPT; ++jj) {
-        const float vv = Vs[n * VWS + tx + 16 * jj];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][jj] = fmaf(pr[i], vv, acc[i][jj]);
+        for (int c = 0; c < OC; ++c)
+          if (EXACT || col(c) < Dh)
+            ob[r * o_ss + col(c)] = from_float<E>(acc[i][c] * inv);
       }
     }
   }
-
-  E* ob = o + b * o_sb + h * o_sh + c0;           // this block's chunk
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    float lsum = l[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
-    const float inv = 1.f / fmaxf(lsum, 1e-30f);
-    const int r = q0 + ty * RPT + i;
-    if (r < S) {
-#pragma unroll
-      for (int jj = 0; jj < WPT; ++jj) {
-        const int c = tx + 16 * jj;
-        if (c0 + c < dh) ob[r * o_ss + c] = from_float<E>(acc[i][jj] * inv);
-      }
-    }
-  }
+  // ... and this CTA's shared memory outlives every peer's reads of it
+  if constexpr (WIDE) hopper::cluster_wait();
 }
 
 // ---------------------------------------------------------------------------
@@ -2630,35 +2733,103 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// Whether the fma body's loads of q, k, v go by 16-byte pieces (cp.async):
-// float32 rows of dh columns whose strides (st, elements) and starts are
-// multiples of 4 floats; else by element.
-bool fma_pieces(bool f32, const void* q, const void* k, const void* v,
-                int dh, const long long* st) {
-  bool ok = f32 && dh % 4 == 0 &&
-            ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
-  for (int i = 0; i < 9; ++i) ok = ok && st[i] % 4 == 0;
-  return ok;
+// The bytes of the fma body's loads of q, k, v: 16 (cp.async) for float32
+// rows of dh columns whose strides (st, elements) and starts are multiples
+// of 4 floats; else the widest of 8, 4, 2 and 1 bytes, and of one element
+// at least, that the row's bytes, every stride and every start are
+// multiples of (16-bit rows at D 500: 8).
+int fma_load(int esize, const void* q, const void* k, const void* v,
+             int dh, const long long* st) {
+  const uintptr_t starts = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  for (int bytes = 16; bytes > esize; bytes /= 2) {
+    if (bytes == 16 && esize != 4) continue;
+    bool ok = (long long)dh * esize % bytes == 0 && starts % bytes == 0;
+    for (int i = 0; i < 9; ++i) ok = ok && st[i] * esize % bytes == 0;
+    if (ok) return bytes;
+  }
+  return esize;
 }
 
+// The card's SMs (of the current device), read once a device.
+int card_sms() {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 64 && sms[dev] > 0) return sms[dev];
+  int n = 0;
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < 64) sms[dev] = n;
+  return n;
+}
+
+// A block of the fma body at Dp = D of ROWS query rows for every (batch,
+// head, query tile); the query tile the slowest grid dimension
+template <int D, bool EXACT, typename E, int ROWS>
+cudaError_t launch_fma_rows(const void* q, const void* k, const void* v,
+                            void* o, int B, int Hq, int Hkv, int S, int dh,
+                            int causal, int window, float scale,
+                            const long long* st, cudaStream_t stream) {
+  static hopper::SmemAllowance allowance;
+  auto kernel = flash_fma_kernel<E, D, EXACT, ROWS, false>;
+  const size_t smem = FmaRing<D, ROWS>::SMEM;
+  cudaError_t err = hopper::allow_smem(allowance, kernel, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(Hq * B, (S + ROWS - 1) / ROWS);
+  const int load = fma_load(sizeof(E), q, k, v, dh, st);
+  kernel<<<grid, FMA_NT + FMA_PT, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<E*>(o), S, Hq, Hq / Hkv, causal,
+      window, scale * 1.4426950408889634f, dh, load, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+  return cudaGetLastError();
+}
+
+// The fma body up to 256 columns, its query rows a block by `fma_rows`
 template <int D, bool EXACT, typename E>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
                        int B, int Hq, int Hkv, int S, int dh, int causal,
                        int window, float scale, const long long* st,
                        cudaStream_t stream) {
-  static hopper::SmemAllowance allowance;
-  auto kernel = flash_fma_kernel<E, D, EXACT>;
-  const size_t smem = FmaRing<D>::SMEM;
-  cudaError_t err = hopper::allow_smem(allowance, kernel, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(Hq * B, (S + FmaRing<D>::BMF - 1) / FmaRing<D>::BMF);
-  const int pieces = fma_pieces(std::is_same_v<E, float>, q, k, v, dh, st);
-  kernel<<<grid, FMA_NT + FMA_PT, smem, stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<E*>(o), S, Hq, Hq / Hkv, causal,
-      window, scale * 1.4426950408889634f, dh, pieces, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
-  return cudaGetLastError();
+  if constexpr (D == 64 || D == 128) {
+    if (fma_rows(D, B, Hq, S, card_sms()) == 64)
+      return launch_fma_rows<D, EXACT, E, 64>(q, k, v, o, B, Hq, Hkv, S, dh,
+                                              causal, window, scale, st,
+                                              stream);
+  }
+  return launch_fma_rows<D, EXACT, E, FmaRing<D>::BMF>(
+      q, k, v, o, B, Hq, Hkv, S, dh, causal, window, scale, st, stream);
+}
+
+// CTAs a cluster of the fma body above 256 columns: one a 256-column piece
+// of the head, at most FMA_CLUSTER (the pieces past FMA_CLUSTER in further
+// clusters, a grid dimension); 1 up to 256.
+int fma_cluster(int D) {
+  const int npc = (D + WIDE_DC - 1) / WIDE_DC;
+  return D <= WIDE_DC ? 1 : npc < FMA_CLUSTER ? npc : FMA_CLUSTER;
+}
+
+// The launch configuration of the fma body above 256 columns: a cluster of
+// fma_cluster(dh) CTAs for every (batch, head, query tile, chunk of
+// FMA_CLUSTER pieces), the query tile the slowest grid dimension, in
+// `attr` the cluster's dimensions.
+cudaLaunchConfig_t fma_wide_config(int B, int Hq, int S, int dh,
+                                   cudaStream_t stream,
+                                   cudaLaunchAttribute* attr) {
+  using C = FmaRing<WIDE_DC, 64, true>;
+  const int n = fma_cluster(dh);
+  const int chunks = ((dh + WIDE_DC - 1) / WIDE_DC + n - 1) / n;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n * chunks * Hq * B, (S + C::BMF - 1) / C::BMF);
+  cfg.blockDim = dim3(FMA_NT + FMA_PT);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = n;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <typename E>
@@ -2667,17 +2838,20 @@ cudaError_t launch_fma_wide(const void* q, const void* k, const void* v,
                             int causal, int window, float scale,
                             const long long* st, cudaStream_t stream) {
   static hopper::SmemAllowance allowance;
-  auto kernel = flash_fma_wide_kernel<E>;
-  const size_t smem = FmaWide::SMEM;
-  cudaError_t err = hopper::allow_smem(allowance, kernel, (int)smem);
+  auto kernel = flash_fma_kernel<E, WIDE_DC, false, 64, true>;
+  cudaError_t err = hopper::allow_smem(
+      allowance, kernel, (int)FmaRing<WIDE_DC, 64, true>::SMEM);
   if (err != cudaSuccess) return err;
-  const int chunks = (dh + WIDE_DC - 1) / WIDE_DC;
-  dim3 grid((S + BM - 1) / BM, Hq * chunks, B);
-  kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<E*>(o), S, Hq / Hkv, causal,
-      window, scale, dh, chunks, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11]);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      fma_wide_config(B, Hq, S, dh, stream, &attr);
+  const int load = fma_load(sizeof(E), q, k, v, dh, st);
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<E*>(o), S, Hq, Hq / Hkv, causal,
+      window, scale * 1.4426950408889634f, dh, load, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -2797,16 +2971,57 @@ extern "C" int flash_attention_body(int dtype, int D) {
 
 // Blocks a (head, query tile) of a launch at (dtype, D): 1 up to 256; in
 // the wgmma body above, one a 512-column chunk of the output (the pair
-// body: ceil(D / 512)); in the fma body above 256, one a 256-column chunk
-// (Dp / 256); 0 for a head size or type no body takes (the wrapper's
-// `wide_blocks` states the same rule).
+// body: ceil(D / 512)); in the fma body above 256, the CTAs of its clusters
+// (`flash_attention_cluster`), one a 256-column piece of the output and
+// FMA_CLUSTER a chunk of FMA_CLUSTER pieces above 2048 (n ceil(Dp / (256
+// n)), each cluster's CTAs summing all of Q K^T between them); 0 for a
+// head size or type no body takes (the wrapper's `wide_blocks` states the
+// same rule).
 extern "C" int flash_attention_wide_blocks(int dtype, int D) {
   const Body body = body_for(dtype, D);
   const int Dp = padded(D);
   if (body == BODY_NONE) return 0;
   if (Dp <= WIDE_DC) return 1;
   if (body == BODY_WGMMA) return (D + 2 * WIDE_DC - 1) / (2 * WIDE_DC);
-  return Dp / WIDE_DC;
+  const int n = fma_cluster(D);
+  return n * ((Dp / WIDE_DC + n - 1) / n);
+}
+
+// CTAs a cluster of a launch at (dtype, D): in the fma body above 256
+// columns one a 256-column piece of the head, at most FMA_CLUSTER; 1 for
+// every other launch; 0 for a head size or type no body takes (the
+// wrapper's `fma_cluster`).
+extern "C" int flash_attention_cluster(int dtype, int D) {
+  const Body body = body_for(dtype, D);
+  if (body == BODY_NONE) return 0;
+  return body == BODY_FMA ? fma_cluster(D) : 1;
+}
+
+// Query rows a block of the fma body at (dtype, D) for B x Hq heads of S
+// rows on a card of `sms` SMs (`fma_rows`); 0 where another body runs (the
+// wrapper's `fma_rows`).
+extern "C" int flash_attention_fma_rows(int dtype, int D, int B, int Hq,
+                                        int S, int sms) {
+  if (body_for(dtype, D) != BODY_FMA) return 0;
+  return fma_rows(padded(D), B, Hq, S, sms);
+}
+
+// The clusters of n CTAs of the fma body above 256 columns (its float32
+// instantiation) that the current card can hold at once
+// (cudaOccupancyMaxActiveClusters), or minus a cudaError_t.
+extern "C" int flash_attention_fma_clusters(int n) {
+  static hopper::SmemAllowance allowance;
+  auto kernel = flash_fma_kernel<float, WIDE_DC, false, 64, true>;
+  cudaError_t err = hopper::allow_smem(
+      allowance, kernel, (int)FmaRing<WIDE_DC, 64, true>::SMEM);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  // a head of n pieces, so clusters of n CTAs
+  cudaLaunchConfig_t cfg =
+      fma_wide_config(1, 1024, 64, n * WIDE_DC, nullptr, &attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return err != cudaSuccess ? -static_cast<int>(err) : clusters;
 }
 
 // q, o [B, Hq, S, D]; k, v [B, Hkv, S, D], D >= 1, all of one type (float32,

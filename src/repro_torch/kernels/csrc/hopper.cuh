@@ -9,12 +9,16 @@
 //             mbarrier; the shared -> global bulk copy with its bulk groups;
 //   wgmma     the shared-memory matrix descriptor for 128-byte swizzled
 //             tiles, fence / commit_group / wait_group;
+//   clusters  a cluster's size, `mapa` addresses of another CTA's shared
+//             memory, arrivals on its mbarriers and loads from it, the
+//             cluster barrier;
 //   roles     setmaxnreg (registers handed between warpgroups);
 //   math      ex2 on the special-function unit;
 //   host      the tensor-map encoder, taken from the driver through the
 //             runtime (cudaGetDriverEntryPoint), so no -lcuda is needed.
-// Used by flash_attention (wgmma body), async_gather (bulk-copy ring),
-// paged_attention (TMA page ring) and stream_triad (bulk-copy ring).
+// Used by flash_attention (wgmma body; the fma body's clusters),
+// async_gather (bulk-copy ring), paged_attention (TMA page ring) and
+// stream_triad (bulk-copy ring).
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and its enums: types only
@@ -77,6 +81,74 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ------------------------------------------------------------------ clusters
+// The number of CTAs in this CTA's cluster.
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// The address in CTA `rank`'s shared memory (the cluster's window) of the
+// variable at `p` in this CTA's.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// One arrival on the barrier at `bar` of CTA `rank`, releasing this
+// thread's (and, after a warp barrier, its warp's) earlier writes to the
+// cluster: a MEMBAR.ALL.GPU in SASS, one for a warp whose lanes arrive at
+// once, so a warp that signals several CTAs gives each a lane.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          cluster_addr(bar, rank))
+      : "memory");
+}
+
+// `mbar_wait` whose completion acquires what the arrivals of other CTAs of
+// the cluster released.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// 16 bytes at `addr` of the cluster's shared-memory window (`cluster_addr`).
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr)
+               : "memory");
+  return x;
+}
+
+// The cluster barrier: every thread of every CTA of the cluster that has
+// not exited arrives (releasing its writes) before any passes the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // ----------------------------------------------------------------------- TMA

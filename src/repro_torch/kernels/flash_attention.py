@@ -17,6 +17,7 @@ from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the head sizes the bodies are built at
 CHUNK_DIM = HEAD_DIMS[-1]   # above it a launch splits the head into chunks
+FMA_CLUSTER = 8             # CTAs a cluster of the fma body at most
 # the types the kernels read in place; integers (and mixed types) take
 # float32 copies, the reference's `.astype(float32)`
 KERNEL_TYPES = (torch.float32, torch.bfloat16, torch.float16,
@@ -60,11 +61,14 @@ def body_for(dtype: torch.dtype, head_dim: int,
     that `flash_attention_launch` in csrc/flash_attention.cu applies, with
     Dp = `padded_head_dim`:
 
-    - "fma" (FMAs in fp32, by element): float32 at every head size;
+    - "fma" (FMAs in fp32 on 8 x 8 register tiles, K and V through a
+      ring filled by a producer warpgroup): float32 at every head size;
       integers and q, k, v of more than one type (`kv_dtype` k's and v's
       where it is not q's: the wrapper widens all three to float32, the
       reference's arithmetic); and bfloat16, float16 and float8 rows that
-      TMA cannot load (below) where Dp is 16 or 32, or above 256.
+      TMA cannot load (below) where Dp is 16 or 32, or above 256. Its
+      query rows a block: `fma_rows`; above 256 columns a cluster of CTAs
+      a query tile, each owning 256 columns: `fma_cluster`.
     - "wgmma" (TMA + wgmma, the Hopper body): bfloat16 and float16 rows of
       whole 16-byte pieces (head_dim % 8 == 0) at Dp of 64 and up (two
       consumer warpgroups; at 256 with 64-key tiles, a producer warpgroup
@@ -99,21 +103,74 @@ def body_for(dtype: torch.dtype, head_dim: int,
     return "wgmma" if dp >= 64 else "mma"
 
 
-def wide_blocks(dtype: torch.dtype, head_dim: int) -> int:
+def fma_cluster(dtype: torch.dtype, head_dim: int,
+                kv_dtype: Optional[torch.dtype] = None) -> int:
+    """CTAs a cluster of a launch, the rule `flash_attention_cluster` of
+    csrc/flash_attention.cu applies: in the "fma" body above CHUNK_DIM,
+    one a CHUNK_DIM-column piece of the head, at most FMA_CLUSTER (the
+    portable cluster size). CTA r sums Q K^T over pieces r, r + n, ... of
+    the head, the cluster adds its n partial logit tiles through
+    distributed shared memory in rank order (the same fp32 logits in every
+    CTA), and each CTA runs the softmax and P V over its own piece of the
+    output. 1 for every other launch."""
+    dp = padded_head_dim("flash_attention", head_dim)
+    if body_for(dtype, head_dim, kv_dtype) != "fma" or dp <= CHUNK_DIM:
+        return 1
+    return min(dp // CHUNK_DIM, FMA_CLUSTER)
+
+
+def wide_blocks(dtype: torch.dtype, head_dim: int,
+                kv_dtype: Optional[torch.dtype] = None) -> int:
     """Blocks a launch gives each (head, query tile), the rule
     `flash_attention_wide_blocks` of csrc/flash_attention.cu applies: 1 up
     to CHUNK_DIM; in the "wgmma" body above, one a 2 CHUNK_DIM-column chunk
     of the output (the pair body: two consumer warpgroups of a block each
     own CHUNK_DIM columns and add their parts of Q K^T, so up to 2
     CHUNK_DIM it is done once a tile); in the "fma" body above CHUNK_DIM,
-    one a CHUNK_DIM-column chunk (each computes all of Q K^T)."""
-    body = body_for(dtype, head_dim)
+    the CTAs of its clusters (`fma_cluster`): one a CHUNK_DIM-column piece
+    up to FMA_CLUSTER pieces (2048 columns), Q K^T summed once a tile
+    across the cluster; above, a cluster of FMA_CLUSTER for every chunk of
+    FMA_CLUSTER pieces of the output, a grid dimension, each cluster
+    summing all of Q K^T, so Q K^T is done `qk_passes` times. Either way
+    the clusters' CTAs times the passes."""
+    return fma_cluster(dtype, head_dim, kv_dtype) * qk_passes(
+        dtype, head_dim, kv_dtype)
+
+
+def qk_passes(dtype: torch.dtype, head_dim: int,
+              kv_dtype: Optional[torch.dtype] = None) -> int:
+    """How many times a launch computes each query tile's Q K^T over the
+    whole head: once up to 2 CHUNK_DIM columns in the "wgmma" body (the
+    pair body) and up to FMA_CLUSTER CHUNK_DIM in the "fma" body (a
+    cluster), once a chunk above (at D 2304: 2 in the fma body, 5 in the
+    pair body)."""
+    body = body_for(dtype, head_dim, kv_dtype)
     dp = padded_head_dim("flash_attention", head_dim)
     if dp <= CHUNK_DIM:
         return 1
     if body == "wgmma":
         return -(-head_dim // (2 * CHUNK_DIM))
-    return dp // CHUNK_DIM
+    return -(-(dp // CHUNK_DIM) // FMA_CLUSTER)
+
+
+def fma_rows(dtype: torch.dtype, head_dim: int, b: int, hq: int, s: int,
+             sms: int, kv_dtype: Optional[torch.dtype] = None) -> int:
+    """Query rows a block of the "fma" body for `b` x `hq` heads of `s`
+    rows on a card of `sms` SMs (`torch.cuda.get_device_properties(
+    device).multi_processor_count`), the rule `fma_rows` of
+    csrc/flash_attention.cu applies: 64 at Dp CHUNK_DIM and above (the
+    clusters' CTAs too); at Dp 64 and 128, 64 where tiles of 128 rows
+    would give fewer blocks than the card has SMs (int8 at B2 Hq8 S200
+    D64 on an H100: 32 blocks at 128 rows, so 64), else 128; 128 at Dp 16
+    and 32. 0 where another body runs."""
+    if body_for(dtype, head_dim, kv_dtype) != "fma":
+        return 0
+    dp = padded_head_dim("flash_attention", head_dim)
+    if dp >= CHUNK_DIM:
+        return 64
+    if dp in (64, 128) and -(-s // 128) * b * hq < sms:
+        return 64
+    return 128
 
 
 def _bind():
@@ -124,8 +181,12 @@ def _bind():
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_longlong), i, p]
         fn.restype = ctypes.c_int
-        lib.flash_attention_wide_blocks.argtypes = [i, i]
-        lib.flash_attention_wide_blocks.restype = ctypes.c_int
+        for name, n in (("flash_attention_wide_blocks", 2),
+                        ("flash_attention_cluster", 2),
+                        ("flash_attention_fma_rows", 6),
+                        ("flash_attention_fma_clusters", 1)):
+            getattr(lib, name).argtypes = [i] * n
+            getattr(lib, name).restype = ctypes.c_int
     return lib, fn
 
 

@@ -337,15 +337,65 @@ def test_paged_whole_head_on_the_tensor_cores(q_dtype, cache_dtype, d, hq,
     (torch.bfloat16, 1032, 3), (torch.bfloat16, 2048, 4),
     (torch.bfloat16, 500, 2),
     (torch.float32, 512, 2), (torch.float8_e4m3fn, 512, 2),
-    (torch.float32, 64, 1), (torch.int8, 300, 2)])
+    (torch.float32, 64, 1), (torch.int8, 300, 2),
+    (torch.float32, 1024, 4), (torch.float32, 2048, 8),
+    (torch.float32, 2304, 16), (torch.float32, 4352, 24),
+    (torch.bfloat16, 2306, 16), (torch.float16, 4096, 8)])
 def test_flash_wide_blocks(dtype, d, blocks):
     """Blocks a (head, query tile) above 256 columns (`wide_blocks`): in
     the wgmma body one a 512-column chunk of the output (the pair body: two
-    consumer warpgroups of 256 columns add their parts of Q K^T), one a
-    256-column chunk in the fma body (fp32, integers, fp8 and 16-bit rows
-    of no whole 16-byte pieces: bf16 D500). `chip_smoke.py` holds the CUDA
+    consumer warpgroups of 256 columns add their parts of Q K^T), in the
+    fma body (fp32, integers, fp8 and 16-bit rows of no whole 16-byte
+    pieces: bf16 D500) the CTAs of its clusters, one a 256-column piece,
+    8 a chunk of 2048 columns above 2048. `chip_smoke.py` holds the CUDA
     source's `flash_attention_wide_blocks` to it."""
     assert tflash.wide_blocks(dtype, d) == blocks
+
+
+@pytest.mark.parametrize("dtype,d,cluster,passes", [
+    (torch.float32, 256, 1, 1), (torch.float32, 257, 2, 1),
+    (torch.float32, 512, 2, 1), (torch.float32, 513, 3, 1),
+    (torch.float32, 1100, 5, 1), (torch.float32, 2048, 8, 1),
+    (torch.float32, 2049, 8, 2), (torch.float32, 2304, 8, 2),
+    (torch.float32, 4352, 8, 3), (torch.int8, 1024, 4, 1),
+    (torch.bfloat16, 500, 2, 1), (torch.float8_e5m2, 640, 3, 1),
+    (torch.bfloat16, 512, 1, 1), (torch.bfloat16, 2048, 1, 4),
+    (torch.float16, 128, 1, 1)])
+def test_flash_fma_cluster_and_passes(dtype, d, cluster, passes):
+    """CTAs a cluster (`fma_cluster`): in the fma body above 256 columns
+    one a 256-column piece of the head, 8 at most; 1 elsewhere. Q K^T passes
+    a query tile (`qk_passes`): one up to 2048 columns in the fma body (512
+    in the pair body), one a chunk above. `chip_smoke.py` holds the
+    source's `flash_attention_cluster` to it."""
+    assert tflash.fma_cluster(dtype, d) == cluster
+    assert tflash.qk_passes(dtype, d) == passes
+    if tflash.body_for(dtype, d) == "fma" and d > 256:
+        assert tflash.wide_blocks(dtype, d) == cluster * passes
+
+
+@pytest.mark.parametrize("dtype,d,b,hq,s,sms,rows", [
+    (torch.int8, 64, 2, 8, 200, 132, 64),      # 32 blocks of 128 rows
+    (torch.int8, 64, 2, 8, 1100, 132, 128),    # 144
+    (torch.float32, 128, 4, 16, 1000, 132, 128),   # qwen2.5-3b's prefill
+    (torch.float32, 128, 1, 66, 256, 132, 128),    # 132 blocks: a wave
+    (torch.float32, 128, 1, 131, 128, 132, 64),
+    (torch.float32, 128, 1, 66, 256, 133, 64),
+    (torch.float32, 100, 2, 8, 200, 132, 64),      # Dp 128
+    (torch.float32, 64, 1, 1, 1, 1, 128),          # one block, one SM
+    (torch.float32, 32, 1, 1, 100, 132, 128),      # Dp 32: 128 always
+    (torch.float32, 16, 1, 1, 100, 132, 128),
+    (torch.float32, 256, 4, 16, 1000, 132, 64),
+    (torch.float32, 512, 1, 1, 10, 132, 64),
+    (torch.bfloat16, 12, 1, 1, 10, 132, 128),      # fp8 / 16-bit at Dp 16
+    (torch.bfloat16, 64, 1, 1, 10, 132, 0),        # the wgmma body
+    (torch.int16, 128, 2, 8, 200, 132, 64)])
+def test_flash_fma_rows(dtype, d, b, hq, s, sms, rows):
+    """Query rows a block of the fma body (`fma_rows`): 64 at Dp 64 and 128
+    where 128-row tiles give fewer blocks than the card has SMs, else 128;
+    128 at Dp 16 and 32, 64 at 256 and above; 0 where another body runs.
+    `chip_smoke.py` holds the source's `flash_attention_fma_rows` to it
+    over a grid of (B, Hq, S)."""
+    assert tflash.fma_rows(dtype, d, b, hq, s, sms) == rows
 
 
 def test_flash_body_rule_refuses_what_no_body_takes():
@@ -939,9 +989,11 @@ def test_paged_wide_walk_model(d, dtype, hq, hkv, t, lens):
 
 
 # csrc/flash_attention.cu's `FmaRing`: (query rows a block, keys a K or V
-# tile, ring slots) of the fma body at each Dp
-FMA_RING = {16: (128, 64, 4), 32: (128, 64, 4), 64: (128, 64, 4),
-            128: (128, 64, 3), 256: (64, 32, 4)}
+# tile, ring slots) of the fma body at each Dp (at 64 and 128 also its
+# 64-row tiles, `fma_rows`; 256 is also a CTA's of its clusters above)
+FMA_RING = {16: ((128, 64, 4),), 32: ((128, 64, 4),),
+            64: ((128, 64, 4), (64, 64, 4)),
+            128: ((128, 64, 3), (64, 64, 4)), 256: ((64, 32, 4),)}
 
 
 def _fma_tiles(q0, s, bm, bn, causal, window):
@@ -1039,23 +1091,210 @@ def test_flash_fma_ring_model(dp, s, causal, window):
     tile attends to and no other, and the ring's stage and phase arithmetic
     (`_fma_ring_run`, three interleavings a query tile) consumes every tile
     once and frees every slot before it is refilled."""
-    bm, bn, slots = FMA_RING[dp]
     pos = np.arange(s)
-    for qt in range(-(-s // bm)):
-        q0 = qt * bm
-        r = pos[q0:q0 + bm, None]
-        ok = np.ones((len(r), s), bool)
-        if causal:
-            ok &= pos[None, :] <= r
-        if window:
-            ok &= pos[None, :] > r - window
-        wanted = [kt for kt in range(-(-s // bn))
-                  if ok[:, kt * bn:(kt + 1) * bn].any()]
-        lo, hi = _fma_tiles(q0, s, bm, bn, causal, window)
-        assert wanted == list(range(lo, hi)), (qt, lo, hi)
-        if qt % 7 == 0 or qt == -(-s // bm) - 1:
-            for seed in range(3):
-                _fma_ring_run(2 * (hi - lo), slots, seed + 31 * qt)
+    for bm, bn, slots in FMA_RING[dp]:
+        for qt in range(-(-s // bm)):
+            q0 = qt * bm
+            r = pos[q0:q0 + bm, None]
+            ok = np.ones((len(r), s), bool)
+            if causal:
+                ok &= pos[None, :] <= r
+            if window:
+                ok &= pos[None, :] > r - window
+            wanted = [kt for kt in range(-(-s // bn))
+                      if ok[:, kt * bn:(kt + 1) * bn].any()]
+            lo, hi = _fma_tiles(q0, s, bm, bn, causal, window)
+            assert wanted == list(range(lo, hi)), (qt, lo, hi)
+            if qt % 7 == 0 or qt == -(-s // bm) - 1:
+                for seed in range(3):
+                    _fma_ring_run(2 * (hi - lo), slots, seed + 31 * qt)
+
+
+def _fma_cluster_plan(d):
+    """The fma body's clusters above 256 columns (`flash_fma_kernel` with
+    WIDE): n CTAs a cluster and the chunks of n pieces, and for (chunk,
+    rank) the 256-column pieces it sums Q K^T over and its output piece
+    (None past the head)."""
+    npc = -(-d // 256)
+    n = min(npc, tflash.FMA_CLUSTER)
+    chunks = -(-npc // n)
+    return n, chunks, {(c, r): (list(range(r, npc, n)),
+                                c * n + r if c * n + r < npc else None)
+                       for c in range(chunks) for r in range(n)}
+
+
+def _fma_exchange_run(n, tiles, seed, warps=2, parity=True):
+    """One interleaving, drawn from `seed`, of the exchange of partial
+    logits in a cluster of n CTAs of `warps` consumer warps over `tiles`
+    tiles, with the source's order and barrier arithmetic: a warp posts
+    tile 0's partials (writes its part of its CTA's buffer of parity 0 and
+    arrives on that parity's barrier of every CTA: n * warps arrivals a
+    phase), then at each tile t waits on its own CTA's barrier of parity t
+    % 2 at parity (t // 2) % 2 (a barrier whose completed phases number c
+    passes a wait at parity p where c % 2 != p), reads its part of every
+    CTA's buffer in rank order and posts tile t + 1's (`parity` False: one
+    buffer and one barrier); after the last tile every warp meets the
+    others at the cluster barrier before its CTA exits. Checks that every
+    read sees the buffer of its own tile, of a CTA that has not exited."""
+    import random
+    rnd = random.Random(seed)
+    buf = {}                              # (cta, parity, warp) -> tile
+    arrivals = {(c, p): 0 for c in range(n) for p in range(2)}
+    prog = [("write", 0), ("arrive", 0)]
+    for t in range(tiles):
+        prog += [("wait", t)] + [("read", t, p) for p in range(n)]
+        if t + 1 < tiles:
+            prog += [("write", t + 1), ("arrive", t + 1)]
+    prog += [("cluster",), ("exit",)]
+    agents = [(c, w) for c in range(n) for w in range(warps)]
+    pc = {a: 0 for a in agents}
+    at_cluster, exited, reads = set(), set(), 0
+    while any(pc[a] < len(prog) for a in agents):
+        moves = []
+        for a in agents:
+            if pc[a] == len(prog):
+                continue
+            step = prog[pc[a]]
+            if step[0] == "wait":
+                t = step[1]
+                done = arrivals[(a[0], t % 2 if parity else 0)] // (n * warps)
+                if done % 2 != (t // 2 if parity else t) % 2:
+                    moves.append(a)
+            elif step[0] == "exit":
+                if len(at_cluster) == len(agents):
+                    moves.append(a)
+            else:
+                moves.append(a)
+        assert moves, "deadlock"
+        a = rnd.choice(moves)
+        (c, w), step = a, prog[pc[a]]
+        par = step[1] % 2 if parity and len(step) > 1 else 0
+        if step[0] == "write":
+            buf[(c, par, w)] = step[1]
+        elif step[0] == "arrive":
+            for p in range(n):
+                arrivals[(p, par)] += 1
+        elif step[0] == "read":
+            p = step[2]
+            assert p not in exited, (a, step)
+            assert buf[(p, par, w)] == step[1], (a, step, buf[(p, par, w)])
+            reads += 1
+        elif step[0] == "cluster":
+            at_cluster.add(a)
+        elif step[0] == "exit":
+            if all(pc[(c, x)] >= len(prog) - 1 for x in range(warps)):
+                exited.add(c)
+        pc[a] += 1
+    return reads
+
+
+@pytest.mark.parametrize("n,tiles", [(2, 5), (3, 4), (8, 3), (5, 6)])
+def test_flash_fma_exchange_model(n, tiles):
+    """The cluster's exchange of partial logits, double-buffered by tile
+    parity with one barrier a tile, a tile's partials posted once the wait
+    for the tile before it is over: under random interleavings every read
+    sees the partials of its own tile and no CTA exits before its peers
+    have read it; with one buffer some interleaving reads another tile's."""
+    for seed in range(40):
+        assert _fma_exchange_run(n, tiles, seed) == n * 2 * tiles * n
+    failed = 0
+    for seed in range(200):
+        try:
+            _fma_exchange_run(n, tiles, seed, parity=False)
+        except AssertionError:
+            failed += 1
+    assert failed
+
+
+def _fma_cluster_walk(q, k, v, causal, window):
+    """The fma body's clusters above 256 columns in numpy, its tiles (64
+    query rows, 32 keys) and its arithmetic: each CTA's partial logits over
+    its pieces, the cluster's sum in rank order (checked against Q K^T over
+    the whole head), then each CTA's softmax and P V over its own piece of
+    the output. Returns the output and how many CTAs wrote each column."""
+    b_, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    n, chunks, plan = _fma_cluster_plan(d)
+    bm, bn = 64, 32
+    out = np.full(q.shape, np.nan, np.float32)
+    writes = np.zeros(d, int)
+    scale = 1 / np.sqrt(d)
+    for b in range(b_):
+        for h in range(hq):
+            qh, kh = q[b, h], k[b, h // group]
+            # V's columns past D load as zeros
+            vh = np.pad(v[b, h // group], ((0, 0), (0, -d % 256)))
+            for q0 in range(0, s, bm):
+                rows = np.arange(q0, min(q0 + bm, s))
+                lo, hi = _fma_tiles(q0, s, bm, bn, causal, window)
+                for c in range(chunks):
+                    m = np.full((n, len(rows)), -np.inf, np.float32)
+                    l = np.zeros((n, len(rows)), np.float32)
+                    acc = np.zeros((n, len(rows), 256), np.float32)
+                    for kt in range(lo, hi):
+                        keys = np.arange(kt * bn, min(kt * bn + bn, s))
+                        part = [sum(qh[rows][:, p * 256:p * 256 + 256]
+                                    @ kh[keys][:, p * 256:p * 256 + 256].T
+                                    for p in plan[(c, r)][0])
+                                for r in range(n)]
+                        logits = np.zeros_like(part[0])
+                        for r in range(n):        # rank order
+                            logits = logits + part[r]
+                        np.testing.assert_allclose(
+                            logits, qh[rows] @ kh[keys].T, rtol=1e-5,
+                            atol=1e-5)
+                        ok = np.ones(logits.shape, bool)
+                        if causal:
+                            ok &= keys[None, :] <= rows[:, None]
+                        if window:
+                            ok &= keys[None, :] > rows[:, None] - window
+                        x = np.where(ok, logits * scale, -np.inf)
+                        for r in range(n):
+                            vp = plan[(c, r)][1]
+                            if vp is None:
+                                continue
+                            mn = np.maximum(m[r], x.max(1))
+                            safe = np.where(np.isinf(mn), 0, mn)
+                            p = np.exp(x - safe[:, None])
+                            alpha = np.exp(np.where(np.isinf(m[r]), -np.inf,
+                                                    m[r] - safe))
+                            l[r] = l[r] * alpha + p.sum(1)
+                            acc[r] = acc[r] * alpha[:, None] + p @ \
+                                vh[keys][:, vp * 256:vp * 256 + 256]
+                            m[r] = mn
+                    for r in range(n):
+                        vp = plan[(c, r)][1]
+                        if vp is None:
+                            continue
+                        cols = np.arange(vp * 256, min(vp * 256 + 256, d))
+                        out[b, h, rows[:, None], cols[None, :]] = \
+                            acc[r][:, :len(cols)] / l[r][:, None]
+                        if b == h == q0 == 0:
+                            writes[cols] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("d,causal,window", [
+    (300, True, 0), (512, True, 40), (1100, False, 0), (2304, True, 0),
+    (4352, True, 70)])
+def test_flash_fma_cluster_walk_model(d, causal, window):
+    """The fma body's clusters above 256 columns, modelled in numpy: every
+    output column < D is written by exactly one CTA, every piece of the
+    head's Q K^T is summed by one CTA of each cluster, the partial logits
+    summed in rank order are Q K^T over the whole head, and the output
+    equals the reference's `attention_ref` at the float32 tolerance (S
+    ragged against the 64-row tiles); above 2048 columns two and three
+    chunks of 8 pieces, the last of one piece."""
+    n, chunks, plan = _fma_cluster_plan(d)
+    for c in range(chunks):
+        assert sorted(p for r in range(n) for p in plan[(c, r)][0]) == \
+            list(range(-(-d // 256)))
+    q, k, v = _flash_inputs(5 + d, 1, 2, 1, 100, d)
+    out, writes = _fma_cluster_walk(q, k, v, causal, window)
+    assert (writes == 1).all()
+    want = jref.attention_ref(jnp.array(q), jnp.array(k), jnp.array(v),
+                              causal=causal, window=window)
+    np.testing.assert_allclose(out, to_np(want), **FP32_TOL)
 
 
 @pytest.mark.parametrize("dtype,d", [
